@@ -1,0 +1,87 @@
+"""Text-to-image inference CLI, ported from adv_grpo_tpu/cli/infer.py.
+
+Usage:
+  python -m adv_grpo_torch.cli.infer --config eval_sd3_fast --prompts "a flower" \
+      --set "pretrained.model=''" [--out_dir outputs]
+
+Deterministic eval rollout (noise level 0, seed 0): ``eval_num_steps`` steps
+with CFG, VAE decode, one PNG per prompt named ``node0_rank0_00000_{i}.png``.
+The ``--lora``, ``--image`` (distribution transfer) and flux branches of the
+JAX CLI are not yet ported and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+
+def generate(pipeline, encode, prompts, config, seed: int = 0,
+             latent_hw=None) -> torch.Tensor:
+    """Images (N, 3, H, W) fp32 in about [-1, 1] for ``prompts``: the
+    deterministic ``eval_num_steps`` rollout with CFG, then the VAE decode."""
+    from adv_grpo_torch.rollout.sampler import SamplerConfig, denoise_with_logprob
+
+    dev = pipeline.device
+    embeds, pooled = (torch.from_numpy(np.asarray(a)).to(dev) for a in encode(prompts))
+    neg_e, neg_p = (torch.from_numpy(np.asarray(a)).to(dev)
+                    for a in encode([""] * len(prompts)))
+    cfg = SamplerConfig(num_steps=int(config.sample.eval_num_steps), train_num_steps=0,
+                        noise_level=0.0,
+                        guidance_scale=float(config.sample.guidance_scale))
+    hw = latent_hw or int(config.resolution) // 8
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    with torch.inference_mode():
+        lat = pipeline.prepare_latents(generator, len(prompts), hw)
+        out = denoise_with_logprob(pipeline.velocity_fn(), lat, embeds, pooled, neg_e,
+                                   neg_p, generator, cfg)
+        return pipeline.decode(out.final_latents)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", default="eval_sd3_fast")
+    parser.add_argument("--prompts", required=True)
+    parser.add_argument("--out_dir", default="outputs")
+    parser.add_argument("--lora", default=None)
+    parser.add_argument("--latent_hw", type=int, default=None)
+    parser.add_argument("--image", default=None)
+    parser.add_argument("--set", action="append", default=[], metavar="K=V",
+                        help="config override")
+    args = parser.parse_args(argv)
+
+    from PIL import Image
+
+    from adv_grpo_torch.cli.common import (
+        apply_overrides, build_pipeline, build_text_encoder, resolve_config)
+    from adv_grpo_tpu.native.lib import images_to_uint8
+
+    config = apply_overrides(resolve_config(args.config), args.set)
+    if args.lora or config.train.lora_path:
+        raise NotImplementedError("--lora / train.lora_path: loading LoRA checkpoints "
+                                  "is not yet ported to adv_grpo_torch")
+    if args.image or str(config.get("external_image_path", "") or ""):
+        raise NotImplementedError("--image distribution transfer (VAE encoder + "
+                                  "denoise_from_image) is not yet ported")
+    pipeline = build_pipeline(config, latent_hw=args.latent_hw)
+    encode = build_text_encoder(config, pipeline)
+    prompts = [args.prompts]
+    images = generate(pipeline, encode, prompts, config, seed=0,
+                      latent_hw=args.latent_hw)
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    u8 = images_to_uint8(images.float().cpu().numpy())
+    paths = []
+    for i, arr in enumerate(u8):
+        path = os.path.join(args.out_dir, f"node0_rank0_00000_{i}.png")
+        Image.fromarray(arr).save(path)
+        paths.append(path)
+    print("\n".join(paths))
+    return paths
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,106 @@
+"""GRPO presets of the SD3 path, ported from adv_grpo_tpu/config/grpo.py.
+
+Only the presets whose model path the port runs are here (``eval_sd3_fast``,
+``smoke_sd3_fast`` and the ``compressibility`` base they build on); the others
+raise ``KeyError`` with a "not yet ported" note. Values are identical to the
+JAX presets (``tests/test_torch_config.py``).
+"""
+
+from __future__ import annotations
+
+import os
+
+from adv_grpo_torch.config import base
+
+
+def compressibility():
+    config = base.get_config()
+    config.reward_fn = {"jpeg_compressibility": 1}
+    config.per_prompt_stat_tracking = True
+    return config
+
+
+def _sd3_fast_common(config, replica_count=8):
+    config.dataset = os.path.join(os.getcwd(), "dataset/pickscore")
+    config.mixed_precision = "bf16"
+    config.wandb_init = True
+    config.pretrained.model = "stabilityai/stable-diffusion-3.5-medium"
+    config.sample.num_steps = 10
+    config.sample.train_num_steps = 2
+    config.sample.eval_num_steps = 40
+    config.sample.guidance_scale = 4.5
+    config.resolution = 512
+    config.sample.train_batch_size = 1
+    config.sample.num_image_per_prompt = 16
+    config.sample.mini_num_image_per_prompt = 8
+    config.sample.num_batches_per_epoch = int(
+        48 / (replica_count * config.sample.mini_num_image_per_prompt
+              / config.sample.num_image_per_prompt))
+    config.sample.test_batch_size = 16
+    config.sample.random_timestep = 0
+    config.train.batch_size = config.sample.mini_num_image_per_prompt
+    config.train.gradient_accumulation_steps = config.sample.num_batches_per_epoch // 2
+    config.train.num_inner_epochs = 1
+    config.train.timestep_fraction = 0.99
+    config.train.clip_range = 1e-5
+    config.train.beta = 0.0
+    config.sample.global_std = True
+    config.sample.noise_level = 0.8
+    config.train.ema = True
+    config.save_freq = 60
+    config.eval_freq = 60
+    return config
+
+
+def smoke_sd3_fast(replica_count=1):
+    """Explicit random-init smoke preset: tiny model, no reference weights."""
+    config = _sd3_fast_common(compressibility(), replica_count)
+    config.smoke_test = True
+    config.pretrained.model = ""
+    config.dataset = os.path.join(os.getcwd(), "dataset/pickscore_small")
+    config.wandb_init = False
+    config.sample.num_steps = 3
+    config.sample.train_num_steps = 2
+    config.sample.eval_num_steps = 3
+    config.sample.num_image_per_prompt = 4
+    config.sample.mini_num_image_per_prompt = 2
+    config.sample.num_batches_per_epoch = 2
+    config.sample.test_batch_size = 2
+    config.sample.random_timestep = None
+    config.train.gradient_accumulation_steps = 1
+    config.train_d = False
+    config.json_path = ""
+    config.reward_fn = {"jpeg_compressibility": 1}
+    config.eval_reward_fn = {}
+    config.save_dir = "logs/smoke"
+    config.save_freq = 1000
+    config.eval_freq = 1000
+    config.case_name = "smoke"
+    return config
+
+
+def eval_sd3_fast(replica_count=8):
+    """Deterministic batch-eval preset (reference config/grpo.py:247-312)."""
+    config = _sd3_fast_common(compressibility(), replica_count)
+    config.sample.noise_level = 0.0
+    config.train.lora_path = None
+    config.eval_reward_fn = {"pickscore": 1, "image_similarity": 1}
+    config.reward_fn = {"pickscore": 1}
+    config.prompt_fn = "general_ocr"
+    config.save_dir = "logs/eval/sd3.5-M-fast"
+    return config
+
+
+_PRESETS = {
+    "compressibility": compressibility,
+    "smoke_sd3_fast": smoke_sd3_fast,
+    "eval_sd3_fast": eval_sd3_fast,
+}
+
+
+def get_config(name: str):
+    """Resolve a preset by name; presets of unported paths raise KeyError."""
+    if name not in _PRESETS:
+        raise KeyError(f"config preset {name!r} is unknown or not yet ported to "
+                       f"adv_grpo_torch (ported: {sorted(_PRESETS)})")
+    return _PRESETS[name]()

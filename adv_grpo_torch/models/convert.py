@@ -1,0 +1,128 @@
+"""JAX parameter trees -> the port's state dicts.
+
+The inverse of adv_grpo_tpu.models.convert's ``convert_mmdit`` /
+``convert_vae``: a Flax tree of numpy arrays (as ``jax.device_get`` returns
+it) becomes a ``state_dict`` with diffusers names, so the two packages compute
+the same function from the same weights.
+
+  * Dense kernels (in, out) -> Linear weights (out, in);
+  * Conv kernels HWIO -> OIHW;
+  * the patch Dense (p*p*C, dim), flattened (ph, pw, C) -> the Conv2d
+    ``pos_embed.proj`` weight (dim, C, p, p);
+  * GroupNorm ``scale`` -> ``weight``;
+  * ``lora_a`` / ``lora_b`` carried across unchanged (the layouts agree);
+  * RMS weights stay fp32 (the MMDiT keeps them fp32 in every dtype).
+
+Values are returned as CPU torch tensors in their source dtype;
+``load_state_dict`` casts them to each parameter's dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def _unwrap(params):
+    return params["params"] if "params" in params else params
+
+
+def _tensor(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _dense(prefix: str, p: Dict, out: Dict) -> None:
+    out[prefix + ".weight"] = _tensor(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        out[prefix + ".bias"] = _tensor(p["bias"])
+    for name in ("lora_a", "lora_b"):
+        if name in p:
+            out[f"{prefix}.{name}"] = _tensor(p[name])
+
+
+def mmdit_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    """adv_grpo_tpu MMDiT params -> adv_grpo_torch MMDiT state dict."""
+    p = _unwrap(params)
+    out: Dict[str, torch.Tensor] = {}
+    kernel = np.asarray(p["pos_embed_proj"]["kernel"])  # (p*p*C, dim)
+    ps, dim = cfg.patch_size, cfg.hidden_dim
+    out["pos_embed.proj.weight"] = _tensor(
+        kernel.reshape(ps, ps, cfg.in_channels, dim).transpose(3, 2, 0, 1))
+    out["pos_embed.proj.bias"] = _tensor(p["pos_embed_proj"]["bias"])
+    for src, dst in (("time_embed_1", "time_text_embed.timestep_embedder.linear_1"),
+                     ("time_embed_2", "time_text_embed.timestep_embedder.linear_2"),
+                     ("pooled_embed_1", "time_text_embed.text_embedder.linear_1"),
+                     ("pooled_embed_2", "time_text_embed.text_embedder.linear_2"),
+                     ("context_embedder", "context_embedder"),
+                     ("proj_out", "proj_out")):
+        _dense(dst, p[src], out)
+    _dense("norm_out.linear", p["norm_out"]["linear"], out)
+
+    attn_names = {"to_q": "to_q", "to_k": "to_k", "to_v": "to_v", "to_out": "to_out.0",
+                  "add_q_proj": "add_q_proj", "add_k_proj": "add_k_proj",
+                  "add_v_proj": "add_v_proj", "to_add_out": "to_add_out"}
+    norms = ("norm_q", "norm_k", "norm_added_q", "norm_added_k")
+    for i in range(cfg.num_layers):
+        blk = p[f"block_{i}"]
+        b = f"transformer_blocks.{i}."
+        _dense(b + "norm1.linear", blk["norm1"]["linear"], out)
+        _dense(b + "norm1_context.linear", blk["norm1_context"]["linear"], out)
+        for ff in ("ff", "ff_context"):
+            if ff in blk:
+                _dense(b + ff + ".net.0.proj", blk[ff]["fc1"], out)
+                _dense(b + ff + ".net.2", blk[ff]["fc2"], out)
+        for attn in ("attn", "attn2"):
+            if attn not in blk:
+                continue
+            for name, leaf in blk[attn].items():
+                if name in norms:
+                    out[f"{b}{attn}.{name}.weight"] = _tensor(leaf["weight"])
+                else:
+                    _dense(f"{b}{attn}.{attn_names[name]}", leaf, out)
+    return out
+
+
+def _conv(prefix: str, p: Dict, out: Dict) -> None:
+    out[prefix + ".weight"] = _tensor(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    out[prefix + ".bias"] = _tensor(p["bias"])
+
+
+def _group_norm(prefix: str, p: Dict, out: Dict) -> None:
+    out[prefix + ".weight"] = _tensor(p["scale"])
+    out[prefix + ".bias"] = _tensor(p["bias"])
+
+
+def _resnet(prefix: str, p: Dict, out: Dict) -> None:
+    _group_norm(prefix + ".norm1", p["norm1"], out)
+    _conv(prefix + ".conv1", p["conv1"], out)
+    _group_norm(prefix + ".norm2", p["norm2"], out)
+    _conv(prefix + ".conv2", p["conv2"], out)
+    if "conv_shortcut" in p:
+        _conv(prefix + ".conv_shortcut", p["conv_shortcut"], out)
+
+
+def vae_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    """adv_grpo_tpu AutoencoderKL params -> adv_grpo_torch AutoencoderKL
+    (decoder) state dict. The encoder's weights are not carried: the port's
+    VAE has no encoder yet."""
+    dec = _unwrap(params)["decoder"]
+    out: Dict[str, torch.Tensor] = {}
+    _conv("decoder.conv_in", dec["conv_in"], out)
+    _resnet("decoder.mid_block.resnets.0", dec["mid_res_0"], out)
+    _resnet("decoder.mid_block.resnets.1", dec["mid_res_1"], out)
+    a = "decoder.mid_block.attentions.0"
+    _group_norm(a + ".group_norm", dec["mid_attn"]["group_norm"], out)
+    for name, dst in (("to_q", "to_q"), ("to_k", "to_k"), ("to_v", "to_v"),
+                      ("to_out", "to_out.0")):
+        _dense(f"{a}.{dst}", dec["mid_attn"][name], out)
+    n_blocks = len(cfg.block_out_channels)
+    for i in range(n_blocks):
+        for j in range(cfg.layers_per_block + 1):
+            _resnet(f"decoder.up_blocks.{i}.resnets.{j}", dec[f"up_{i}_res_{j}"], out)
+        if i < n_blocks - 1:
+            _conv(f"decoder.up_blocks.{i}.upsamplers.0.conv", dec[f"up_{i}_upsample"], out)
+    _group_norm("decoder.conv_norm_out", dec["conv_norm_out"], out)
+    _conv("decoder.conv_out", dec["conv_out"], out)
+    return out

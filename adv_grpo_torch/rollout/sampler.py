@@ -1,0 +1,126 @@
+"""Denoise rollout with a stochastic training window and per-step logprobs.
+
+Port of adv_grpo_tpu/rollout/sampler.py:36-169 (``SamplerConfig``,
+``RolloutResult``, ``denoise_with_logprob``). The JAX ``lax.scan`` is a Python
+loop here:
+
+  * the step loop walks the flow-match schedule (adv_grpo_tpu.core.scheduler);
+  * CFG runs as one batched forward with [uncond ; cond] stacked on the batch
+    axis, uncond first, and the guidance combine runs in the model's output
+    dtype (bf16 at full size); only the CPS step lifts to fp32;
+  * latents are carried in fp32;
+  * the noise of every step comes from the caller's ``torch.Generator``;
+  * the window [random_timestep, random_timestep + train_num_steps) gets
+    ``noise_level``, every other step is deterministic; with
+    ``train_num_steps > 0`` each step's input/output latents, logprob, timestep
+    and sigmas are recorded and the per-sample window gathered at the end.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from adv_grpo_torch.core.sde import cps_step_with_logprob
+from adv_grpo_tpu.core.scheduler import flow_match_schedule
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerConfig:
+    num_steps: int = 10
+    train_num_steps: int = 2
+    guidance_scale: float = 4.5
+    noise_level: float = 0.7
+    shift: float = 3.0
+    num_train_timesteps: int = 1000
+
+    @property
+    def do_cfg(self) -> bool:
+        return self.guidance_scale > 1.0
+
+
+class RolloutResult(NamedTuple):
+    final_latents: torch.Tensor  # (B, C, h, w) raw latents after the last step
+    latents: torch.Tensor  # (B, T+1, C, h, w) training-window latents
+    log_probs: torch.Tensor  # (B, T)
+    timesteps: torch.Tensor  # (B, T)
+    sigmas: torch.Tensor  # (B, T) sigma at each window step
+    sigmas_prev: torch.Tensor  # (B, T)
+
+
+def denoise_with_logprob(
+    velocity_fn: Callable,
+    latents: torch.Tensor,
+    prompt_embeds: torch.Tensor,
+    pooled_embeds: torch.Tensor,
+    neg_prompt_embeds: Optional[torch.Tensor],
+    neg_pooled_embeds: Optional[torch.Tensor],
+    generator: torch.Generator,
+    cfg: SamplerConfig,
+    random_timestep=0,
+) -> RolloutResult:
+    """Run the full denoise chain and extract the stochastic training window.
+
+    velocity_fn(latents, timestep (B,), prompt_embeds, pooled) -> velocity.
+    ``random_timestep`` is an int or a per-sample (B,) tensor. (The JAX
+    ``start_idx`` pass-through of the image-to-image entry comes with
+    ``denoise_from_image``.)
+    """
+    sched = flow_match_schedule(cfg.num_steps, shift=cfg.shift,
+                                num_train_timesteps=cfg.num_train_timesteps)
+    dev = latents.device
+    B = latents.shape[0]
+    T = cfg.train_num_steps
+    rt = torch.broadcast_to(torch.as_tensor(random_timestep, dtype=torch.long,
+                                            device=dev), (B,))
+    if cfg.do_cfg:
+        embeds = torch.cat([neg_prompt_embeds, prompt_embeds], dim=0)
+        pooled = torch.cat([neg_pooled_embeds, pooled_embeds], dim=0)
+    else:
+        embeds, pooled = prompt_embeds, pooled_embeds
+
+    x = latents.float()
+    record = []
+    for i in range(cfg.num_steps):
+        t = float(sched.timesteps[i])
+        sig, sig_prev = float(sched.sigmas[i]), float(sched.sigmas[i + 1])
+        nl = torch.where((i >= rt) & (i < rt + T), cfg.noise_level, 0.0).float()
+        if cfg.do_cfg:
+            v = velocity_fn(torch.cat([x, x], dim=0),
+                            torch.full((2 * B,), t, device=dev), embeds, pooled)
+            v_uncond, v_cond = v.chunk(2, dim=0)
+            v = v_uncond + cfg.guidance_scale * (v_cond - v_uncond)
+        else:
+            v = velocity_fn(x, torch.full((B,), t, device=dev), embeds, pooled)
+        noise = torch.randn(x.shape, generator=generator, device=dev, dtype=torch.float32)
+        out = cps_step_with_logprob(v, x, sig, sig_prev, nl, noise=noise)
+        if T:
+            record.append((x, out.prev_sample, out.log_prob, t, sig, sig_prev))
+        x = out.prev_sample
+
+    if T == 0:
+        empty = torch.zeros((B, 0), device=dev)
+        return RolloutResult(x, torch.zeros((B, 0) + x.shape[1:], device=dev),
+                             empty, empty, empty, empty)
+
+    # gather each sample's window steps rt[b] .. rt[b] + T - 1
+    steps = rt[:, None] + torch.arange(T, device=dev)[None, :]  # (B, T)
+    rows = torch.arange(B, device=dev)[:, None]
+    x_in = torch.stack([r[0] for r in record], dim=1)  # (B, num_steps, C, h, w)
+    x_out = torch.stack([r[1] for r in record], dim=1)
+    lp = torch.stack([r[2] for r in record], dim=1)  # (B, num_steps)
+
+    def per_step(k):
+        vals = torch.tensor([r[k] for r in record], dtype=torch.float32, device=dev)
+        return vals[steps]
+
+    return RolloutResult(
+        final_latents=x,
+        latents=torch.cat([x_in[rows[:, 0], rt][:, None], x_out[rows, steps]], dim=1),
+        log_probs=lp[rows, steps],
+        timesteps=per_step(3),
+        sigmas=per_step(4),
+        sigmas_prev=per_step(5),
+    )

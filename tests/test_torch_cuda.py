@@ -1,0 +1,97 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips where no CUDA device is visible (the kernels
+have no interpreter mode). Run on a GPU machine with
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+
+Inputs are bf16; the plain versions run in fp32 on the same values. Bounds: the LayerNorm output is rounded once from
+fp32, so it lies within one bf16 spacing of the fp32 result (spacing taken at
+|y| >= 2^-8, below which fp32 rounding of the cancelling terms dominates);
+attention uses the bf16 bound of the TPU kernel's own tests, 2e-2 absolute.
+"""
+
+import pytest
+import torch
+
+from adv_grpo_torch.ops import fused_norms, joint_attention
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+def _randn(dev, *shape, dtype=torch.bfloat16, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("b,s,d", [(2, 154, 1536), (2, 1024, 1536), (3, 7, 64),
+                                   (1, 5, 8192), (1, 3, 32768)])
+def test_modulated_layer_norm_kernel(dev, b, s, d):
+    x = _randn(dev, b, s, d) + 0.5
+    mods = _randn(dev, b, 3 * d, seed=1)
+    sc, sh = mods[:, :d], mods[:, 2 * d:]  # strided chunks, as from AdaLN
+    n0 = fused_norms.modulated_layer_norm.launches
+    y = fused_norms.modulated_layer_norm(x, sc, sh)
+    torch.cuda.synchronize()
+    assert fused_norms.modulated_layer_norm.launches == n0 + 1
+    ref = fused_norms.lnmod_reference(x.float(), sc.float(), sh.float(), 1e-6,
+                                      torch.float32)
+    assert y.dtype == torch.bfloat16
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -8))) - 7)
+    assert ((y.float() - ref).abs() <= ulp).all()
+
+
+@pytest.mark.parametrize("s_i,s_t", [(1024, 154), (100, 10), (64, 64)])
+@pytest.mark.parametrize("use_rms", [True, False])
+def test_joint_mha_kernel(dev, s_i, s_t, use_rms):
+    h, b = 4, 2
+    hd = 64 * h
+    # q/k/v as column slices of one fused projection: strided rows, read in place
+    img = _randn(dev, b, s_i, 3 * hd, seed=2)
+    txt = _randn(dev, b, s_t, 3 * hd, seed=3)
+    qi, ki, vi = img.split(hd, dim=-1)
+    qt, kt, vt = txt.split(hd, dim=-1)
+    w = [1.0 + 0.1 * _randn(dev, 64, dtype=torch.float32, seed=4 + i) for i in range(4)]
+    w = w if use_rms else None
+    oi, ot = joint_attention.joint_mha(qi, ki, vi, qt, kt, vt, num_heads=h,
+                                       rms_weights=w)
+    ri, rt = joint_attention.joint_mha_reference(
+        *(t.float() for t in (qi, ki, vi, qt, kt, vt)), num_heads=h, rms_weights=w)
+    assert oi.shape == (b, s_i, hd) and ot.shape == (b, s_t, hd)
+    assert (oi.float() - ri).abs().max() <= 2e-2
+    assert (ot.float() - rt).abs().max() <= 2e-2
+
+
+@pytest.mark.parametrize("s", [1024, 77])
+@pytest.mark.parametrize("use_rms", [True, False])
+def test_mha_rms_kernel(dev, s, use_rms):
+    h, b = 3, 2
+    q, k, v = (_randn(dev, b, s, 64 * h, seed=i) for i in range(3))
+    w = [1.0 + 0.1 * _randn(dev, 64, dtype=torch.float32, seed=9 + i) for i in range(2)]
+    w = w if use_rms else None
+    n0 = joint_attention.mha_rms.launches
+    o = joint_attention.mha_rms(q, k, v, num_heads=h, rms_weights=w)
+    assert joint_attention.mha_rms.launches == n0 + 1
+    r = joint_attention.mha_rms_reference(q.float(), k.float(), v.float(), num_heads=h,
+                                          rms_weights=w)
+    assert (o.float() - r).abs().max() <= 2e-2
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    x = _randn(dev, 1, 8, 128)
+    with pytest.raises(TypeError):  # fp32
+        fused_norms.modulated_layer_norm(x.float(), x[:, 0].float(), x[:, 0].float())
+    with pytest.raises(ValueError):  # D not a multiple of 8
+        fused_norms.modulated_layer_norm(x[..., :100].contiguous(), x[:, 0, :100],
+                                         x[:, 0, :100])
+    with pytest.raises(ValueError):  # head dim 32
+        joint_attention.mha_rms(x, x, x, num_heads=4)
+    with pytest.raises(TypeError):  # fp32 attention
+        joint_attention.mha_rms(x.float(), x.float(), x.float(), num_heads=2)

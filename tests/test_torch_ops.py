@@ -1,0 +1,111 @@
+"""Parity of the PyTorch port's ops (adv_grpo_torch.ops) with the JAX package.
+
+The same inputs, drawn from a seed with numpy, go through the JAX function at
+both ``backend="reference"`` and ``backend="pallas_interpret"`` (the TPU kernel
+run by the Pallas interpreter) and through the port's function on CPU tensors,
+where the port runs its plain PyTorch version. Everything is fp32, so the
+tolerances below only absorb summation order, except where noted.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from adv_grpo_torch.ops import fused_norms as t_norms
+from adv_grpo_torch.ops import joint_attention as t_attn
+from adv_grpo_tpu.ops import fused_norms as j_norms
+from adv_grpo_tpu.ops import joint_attention as j_attn
+
+BACKENDS = ["reference", "pallas_interpret"]
+# fp32 against fp32: the plain port and the JAX reference differ only in
+# summation order (~1e-6)
+TOL_REF = 1e-5
+# against the Pallas kernel: its base-2 softmax with the sm_scale*log2(e)
+# pre-scale of q rounds differently — the bound the JAX package's own
+# interpret-vs-reference tests use (tests/test_joint_attention.py)
+TOL_KERNEL = 2e-4
+
+
+def _tol(backend):
+    return TOL_REF if backend == "reference" else TOL_KERNEL
+
+
+def _np(rng, *shape, scale=0.5):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("s", [16, 10])
+def test_modulated_layer_norm_matches_jax(backend, s):
+    rng = np.random.default_rng(0)
+    b, d = 2, 128
+    x = _np(rng, b, s, d, scale=1.0) + 0.3
+    sc, sh = _np(rng, b, d), _np(rng, b, d)
+    want = j_norms.modulated_layer_norm(jnp.asarray(x), jnp.asarray(sc), jnp.asarray(sh),
+                                        backend=backend)
+    got = t_norms.modulated_layer_norm(torch.from_numpy(x), torch.from_numpy(sc),
+                                       torch.from_numpy(sh))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+def test_rms_reference_matches_jax():
+    rng = np.random.default_rng(1)
+    x, w = _np(rng, 2, 10, 128), 1.0 + _np(rng, 32, scale=0.1)
+    want = j_norms._rms_reference(jnp.asarray(x), jnp.asarray(w), 4, 1e-6, jnp.float32)
+    got = t_norms.rms_reference(torch.from_numpy(x), torch.from_numpy(w), 4, 1e-6,
+                                torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+def _attn_inputs(seed, b, s_i, s_t, hd, d):
+    rng = np.random.default_rng(seed)
+    streams = [_np(rng, b, s_i, hd) for _ in range(3)] + [_np(rng, b, s_t, hd)
+                                                          for _ in range(3)]
+    weights = [1.0 + _np(rng, d, scale=0.1) for _ in range(4)]
+    return streams, weights
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("s_t", [12, 10])  # 10: unaligned text, the t_valid path
+@pytest.mark.parametrize("use_rms", [True, False])
+@pytest.mark.parametrize("h,d", [(4, 32), (2, 64)])
+def test_joint_mha_matches_jax(backend, s_t, use_rms, h, d):
+    streams, weights = _attn_inputs(0, 2, 32, s_t, h * d, d)
+    jw = tuple(jnp.asarray(w) for w in weights) if use_rms else None
+    tw = tuple(torch.from_numpy(w) for w in weights) if use_rms else None
+    want = j_attn.joint_mha(*(jnp.asarray(a) for a in streams), num_heads=h,
+                            rms_weights=jw, backend=backend)
+    got = t_attn.joint_mha(*(torch.from_numpy(a) for a in streams), num_heads=h,
+                           rms_weights=tw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=_tol(backend))
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("s", [32, 20])
+@pytest.mark.parametrize("use_rms", [True, False])
+@pytest.mark.parametrize("h,d", [(4, 32), (2, 64)])
+def test_mha_rms_matches_jax(backend, s, use_rms, h, d):
+    streams, weights = _attn_inputs(1, 2, s, 1, h * d, d)
+    q, k, v = streams[:3]
+    jw = (jnp.asarray(weights[0]), jnp.asarray(weights[1])) if use_rms else None
+    tw = (torch.from_numpy(weights[0]), torch.from_numpy(weights[1])) if use_rms else None
+    want = j_attn.mha_rms(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), num_heads=h,
+                          rms_weights=jw, backend=backend)
+    got = t_attn.mha_rms(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                         num_heads=h, rms_weights=tw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=_tol(backend))
+
+
+def test_cpu_path_launches_no_kernel():
+    """On CPU tensors the wrappers take the plain path and count no launch."""
+    before = (t_norms.modulated_layer_norm.launches, t_attn.joint_mha.launches,
+              t_attn.mha_rms.launches)
+    x = torch.randn(1, 4, 64)
+    t_norms.modulated_layer_norm(x, torch.zeros(1, 64), torch.zeros(1, 64))
+    t_attn.joint_mha(x, x, x, x, x, x, num_heads=1)
+    t_attn.mha_rms(x, x, x, num_heads=1)
+    assert (t_norms.modulated_layer_norm.launches, t_attn.joint_mha.launches,
+            t_attn.mha_rms.launches) == before
