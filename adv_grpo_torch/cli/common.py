@@ -15,7 +15,7 @@ import torch
 from adv_grpo_tpu.cli.common import apply_overrides, make_hash_text_encoder
 
 __all__ = ["apply_overrides", "build_pipeline", "build_text_encoder", "compute_dtype",
-           "resolve_config"]
+           "resolve_config", "resolve_device"]
 
 _FP32 = ("fp32", "float32", "no")
 _BF16 = ("bf16", "bfloat16", "fp16", "float16")
@@ -37,16 +37,26 @@ def compute_dtype(config) -> torch.dtype:
     return torch.float32 if want in _FP32 else torch.bfloat16
 
 
-def build_pipeline(config, latent_hw: Optional[int] = None, device=None):
-    """The SD3 pipeline for ``config``: the tiny random-init model for
-    ``smoke_test=True``, the full-size SD3.5-M with random weights for
-    ``pretrained.model=''``. Weights come from ``torch.Generator(seed)`` on the
-    target device (CUDA when available, else the CPU)."""
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device that is not visible raises
+    (there is no silent fall-back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} was asked for but no CUDA device is "
+                           "visible; pass --device cpu to run on the CPU")
+    return device
+
+
+def build_pipeline(config, latent_hw: Optional[int] = None, device="cuda"):
+    """The SD3 pipeline for ``config`` on ``device``: the tiny random-init
+    model for ``smoke_test=True``, the full-size SD3.5-M with random weights
+    for ``pretrained.model=''``. Weights come from ``torch.Generator(seed)`` on
+    that device."""
     from adv_grpo_torch.models.mmdit import MMDiTConfig
     from adv_grpo_torch.models.vae import VAEConfig
     from adv_grpo_torch.train.pipeline import SD3Pipeline
 
-    device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(device)
     model_dir = str(config.pretrained.model or "")
     smoke = bool(config.get("smoke_test", False))
     dtype = compute_dtype(config)

@@ -2,7 +2,7 @@
 
 Usage:
   python -m adv_grpo_torch.cli.infer --config eval_sd3_fast --prompts "a flower" \
-      --set "pretrained.model=''" [--out_dir outputs]
+      --set "pretrained.model=''" [--out_dir outputs] [--device cuda]
 
 Deterministic eval rollout (noise level 0, seed 0): ``eval_num_steps`` steps
 with CFG, VAE decode, one PNG per prompt named ``node0_rank0_00000_{i}.png``.
@@ -49,6 +49,8 @@ def main(argv=None):
     parser.add_argument("--lora", default=None)
     parser.add_argument("--latent_hw", type=int, default=None)
     parser.add_argument("--image", default=None)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device; with no CUDA device visible, 'cuda' raises")
     parser.add_argument("--set", action="append", default=[], metavar="K=V",
                         help="config override")
     args = parser.parse_args(argv)
@@ -66,7 +68,7 @@ def main(argv=None):
     if args.image or str(config.get("external_image_path", "") or ""):
         raise NotImplementedError("--image distribution transfer (VAE encoder + "
                                   "denoise_from_image) is not yet ported")
-    pipeline = build_pipeline(config, latent_hw=args.latent_hw)
+    pipeline = build_pipeline(config, latent_hw=args.latent_hw, device=args.device)
     encode = build_text_encoder(config, pipeline)
     prompts = [args.prompts]
     images = generate(pipeline, encode, prompts, config, seed=0,

@@ -1,0 +1,88 @@
+"""Training CLI, ported from adv_grpo_tpu/cli/train.py (one process, one device).
+
+Usage:
+  python -m adv_grpo_torch.cli.train --config smoke_sd3_fast \\
+      --set smoke_test=False --set sample.num_steps=10 \\
+      --set sample.train_batch_size=2 --max_epochs 2 [--device cuda]
+
+Rewards, budgets and the optimizer come from the preset. Not ported yet, and
+refused with ``NotImplementedError``: ``--resume`` and ``train.lora_path``
+(they need the checkpoint module), the co-trained discriminator (``train_d``)
+and every device reward (PickScore, DINO, ...); multi-process launches.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import os
+
+
+def build_trainer(config, latent_hw=None, dataset=None, device="cuda"):
+    from adv_grpo_torch.cli.common import build_pipeline, build_text_encoder
+    from adv_grpo_torch.rewards.registry import multi_score
+    from adv_grpo_torch.train.driver import GRPOTrainer
+    from adv_grpo_tpu.data.datasets import GenevalPromptDataset, TextPromptDataset
+
+    reward_fn = multi_score(dict(config.reward_fn))
+    eval_reward_fn = (multi_score(dict(config.eval_reward_fn))
+                      if dict(config.eval_reward_fn) else None)
+    pipeline = build_pipeline(config, latent_hw=latent_hw, device=device)
+    encode = build_text_encoder(config, pipeline)
+
+    if dataset is None:
+        ds_dir = str(config.dataset)
+        limit = config.get("limit", None)
+        # config.prompt_fn selects the dataset flavour; file presence decides
+        # for other prompt_fn values
+        pf = str(config.get("prompt_fn", ""))
+        if pf == "geneval" or (pf != "general_ocr" and os.path.exists(
+                os.path.join(ds_dir, "train_metadata.jsonl"))):
+            dataset = GenevalPromptDataset(ds_dir, "train", limit=limit)
+        else:
+            dataset = TextPromptDataset(ds_dir, "train", limit=limit)
+
+    return GRPOTrainer(config, pipeline, dataset, encode, reward_fn,
+                       eval_reward_fn=eval_reward_fn,
+                       latent_hw=latent_hw or int(config.resolution) // 8)
+
+
+def main(argv=None):
+    """Parse ``argv``, build the trainer, run it; returns the trainer."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--max_epochs", type=int, default=None)
+    parser.add_argument("--latent_hw", type=int, default=None)
+    parser.add_argument("--set", action="append", default=[], metavar="K=V",
+                        help="config override, e.g. --set train.learning_rate=1e-4")
+    parser.add_argument("--resume", default=None, metavar="PATH|latest")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device; with no CUDA device visible, 'cuda' raises")
+    args = parser.parse_args(argv)
+
+    from adv_grpo_torch.cli.common import apply_overrides, resolve_config
+    from adv_grpo_tpu.data.datasets import TextPromptDataset
+
+    config = apply_overrides(resolve_config(args.config), args.set)
+    if args.resume or config.train.get("lora_path", None):
+        raise NotImplementedError("--resume / train.lora_path need the checkpoint "
+                                  "module, which is not yet ported to adv_grpo_torch")
+    if not str(config.save_dir):
+        # reference run layout: logdir/run_name(+unique timestamp)
+        unique = datetime.datetime.now().strftime("%Y.%m.%d_%H.%M.%S")
+        run = str(config.run_name)
+        config.run_name = (run + "_" + unique) if run else unique
+        config.save_dir = os.path.join(str(config.logdir), config.run_name)
+    trainer = build_trainer(config, latent_hw=args.latent_hw, device=args.device)
+    eval_prompts = None
+    try:
+        test_ds = TextPromptDataset(str(config.dataset), "test")
+        eval_prompts = test_ds.prompts[: int(config.sample.test_batch_size)]
+    except OSError:
+        pass
+    trainer.run(max_epochs=args.max_epochs, eval_prompts=eval_prompts)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

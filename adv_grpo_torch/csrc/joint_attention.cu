@@ -1,12 +1,14 @@
-// Joint image+text attention with fused per-head qk-RMS, forward only, for
-// Hopper (sm_90a). Two entry points share one kernel: `joint_attention_fwd_bf16`
+// Joint image+text attention with fused per-head qk-RMS, forward, for Hopper
+// (sm_90a). Two entry points share one kernel: `joint_attention_fwd_bf16`
 // (two token streams) and `mha_rms_fwd_bf16` (one stream, the text stream
-// absent).
+// absent). Each can also write the per-row log-sum-exp the backward
+// (joint_attention_bwd.cu) needs.
 //
 // Replaces: adv_grpo_tpu/ops/joint_attention.py `_joint_fwd_kernel` (called
 // through `_joint_fwd`, public `joint_mha`) and `_single_fwd_kernel` (called
-// through `_single_fwd`, public `mha_rms`). SD3.5-M runs them 24 and 13 times
-// per MMDiT forward.
+// through `_single_fwd`, public `mha_rms`), including their
+// `save_residuals=True` lse output. SD3.5-M runs them 24 and 13 times per
+// MMDiT forward.
 //
 // Bound on this card: tensor-core math. At the 512^2 slice shape (1024 image
 // + 154 text tokens, 24 heads of 64) one call is ~4*B*H*S^2*d = 8.5 GFLOP per
@@ -25,137 +27,34 @@
 //  * RMS in fp32, then x weight; for q only, x sm_scale*log2(e), then the cast
 //    to bf16 (the TPU op order); scores, running max and sum in fp32 with
 //    exp2; p cast to bf16 before p.v; p.v accumulated in fp32; divide by l at
-//    the end;
+//    the end; the natural-log lse = ln2 * (m + log2 l), as the TPU kernel
+//    writes it, into an fp32 (B, H, S) array when one is given;
 //  * the ragged q rows and the kv columns past each stream's length (the 154
 //    text tokens) are masked in the kernel;
 //  * each warp owns 16 q rows end to end: Q.K^T and P.V are bf16 mma.sync
 //    (m16n8k16) tensor-core products whose score, probability and output
 //    tiles never leave registers — the score accumulator's layout is the
 //    P operand's, so only the shared k/v tiles go through shared memory.
-//    V is stored transposed there so both B operands are 32-bit loads.
+//    The next k/v tile is fetched into registers during the current tile's
+//    math and stored into the other half of a double-buffered shared tile.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_tiles.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kD = 64;     // head dim
-constexpr int kBQ = 64;    // q rows per block
-constexpr int kBKV = 64;   // kv rows per tile
-constexpr int kWarps = 4;  // each warp owns 16 q rows
-constexpr int kThreads = 32 * kWarps;
-constexpr int kLd = 72;    // bf16 pitch of every shared tile: conflict-free fragment loads
-static_assert(kBQ == 16 * kWarps && kBQ == kBKV && kD == kBKV, "tile geometry");
+using namespace attn;
 
 struct Stream {  // one token stream in (B, S, H*64) layout; strides in elements
   const bf16* q;
   const bf16* k;
   const bf16* v;
   bf16* o;
+  float* lse;  // (B, H, S) fp32, or null when not wanted
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss;
   int len;
   const float* wq;  // (64,) RMS weights, or null when there is no qk-norm
   const float* wk;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// A 64-row x 64-column tile of one head moves global -> registers -> shared
-// memory as 16-byte vectors: thread i holds row (i / 8) + 16 * k, columns
-// 8 * (i % 8) .. +8, for k < 4. A row's eight vectors sit in eight neighbouring
-// lanes, so its RMS is a 3-step shuffle reduction.
-constexpr int kVecPerThread = kBKV * kD / 8 / kThreads;
-
-struct TileRegs {
-  uint4 v[kVecPerThread];
-};
-
-__device__ __forceinline__ void fetch_tile(TileRegs& regs, const bf16* src, long long row_stride,
-                                           int row0, int len) {
-  const int col = 8 * (threadIdx.x & 7);
-#pragma unroll
-  for (int k = 0; k < kVecPerThread; ++k) {
-    const int r = row0 + (threadIdx.x >> 3) + 16 * k;
-    regs.v[k] = r < len ? *reinterpret_cast<const uint4*>(src + r * row_stride + col)
-                        : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// RMS in fp32, then x weight (when `w` is given), then x post_scale, then the
-// cast to bf16 — the TPU kernel's op order — and the store into `dst`.
-__device__ __forceinline__ void store_tile(bf16* dst, const TileRegs& regs, const float* w,
-                                           float eps, float post_scale) {
-  const int col = 8 * (threadIdx.x & 7);
-  float wv[8];
-  if (w != nullptr) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) wv[e] = w[col + e];
-  }
-#pragma unroll
-  for (int k = 0; k < kVecPerThread; ++k) {
-    uint4 out = regs.v[k];
-    if (w != nullptr || post_scale != 1.f) {
-      const __nv_bfloat162* in = reinterpret_cast<const __nv_bfloat162*>(&regs.v[k]);
-      float f[8];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 p = __bfloat1622float2(in[e]);
-        f[2 * e] = p.x;
-        f[2 * e + 1] = p.y;
-      }
-      if (w != nullptr) {
-        float ss = 0.f;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) ss += f[e] * f[e];
-#pragma unroll
-        for (int o = 1; o < 8; o <<= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-        const float rs = rsqrtf(ss / kD + eps);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) f[e] = f[e] * rs * wv[e];
-      }
-      __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o2[e] = __floats2bfloat162_rn(f[2 * e] * post_scale, f[2 * e + 1] * post_scale);
-    }
-    *reinterpret_cast<uint4*>(dst + ((threadIdx.x >> 3) + 16 * k) * kLd + col) = out;
-  }
-}
 
 // kv tile number `i` of the walk over the image stream, then the text stream
 struct KvTile {
@@ -211,24 +110,12 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   uint32_t qa[kD / 16][4];  // this warp's 16 q rows as A fragments
-  {
-    const bf16* qw = qs + 16 * warp * kLd;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      qa[kk][0] = ld32(qw + g * kLd + 16 * kk + 2 * t);
-      qa[kk][1] = ld32(qw + (g + 8) * kLd + 16 * kk + 2 * t);
-      qa[kk][2] = ld32(qw + g * kLd + 16 * kk + 8 + 2 * t);
-      qa[kk][3] = ld32(qw + (g + 8) * kLd + 16 * kk + 8 + 2 * t);
-    }
-  }
+  load_a_frags(qa, qs, 16 * warp, g, t);
 
   float o[kD / 8][4];  // output rows g and g+8, columns 8n + 2t, +1
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  zero(o);
   float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g, g+8
   float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
-  // ldmatrix row addresses: lane l feeds row (l & 7) of 8x8 matrix (l >> 3)
-  const int lm_row = lane & 7, lm_mat = lane >> 3;
 
   for (int i = 0; i < n_tiles; ++i) {
     const bool more = i + 1 < n_tiles;
@@ -238,24 +125,10 @@ __global__ void __launch_bounds__(kThreads)
       fetch_tile(kr, next.k, next.k_ss, next.row0, next.len);
       fetch_tile(vr, next.v, next.v_ss, next.row0, next.len);
     }
-    const bf16* kt = ks[i & 1];
-    const bf16* vt = vs[i & 1];
 
     float sc[kBKV / 8][4];  // scores: rows g, g+8 x columns 8j + 2t, +1
-#pragma unroll
-    for (int j = 0; j < kBKV / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < kBKV / 8; j += 2) {
-        // matrices: kv rows 8j / 8(j+1), d columns 16kk / 16kk+8
-        uint32_t bk[4];
-        ldmatrix_x4(bk, kt + (8 * (j + (lm_mat >> 1)) + lm_row) * kLd + 16 * kk +
-                            8 * (lm_mat & 1));
-        mma_16816(sc[j], qa[kk], bk[0], bk[1]);
-        mma_16816(sc[j + 1], qa[kk], bk[2], bk[3]);
-      }
-    }
+    zero(sc);
+    mma_abt(sc, qa, ks[i & 1], lane);
 
     const KvTile cur = kv_tile(img, txt, img_tiles, i, b, h);
     const int nvalid = cur.len - cur.row0;
@@ -290,17 +163,18 @@ __global__ void __launch_bounds__(kThreads)
     m0 = mn0;
     m1 = mn1;
 
-    uint32_t pa[kBKV / 16][4];  // p as the A fragments of p.v
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
     for (int j = 0; j < kBKV / 8; ++j) {
-      const float p0 = exp2f(sc[j][0] - base0), p1 = exp2f(sc[j][1] - base0);
-      const float p2 = exp2f(sc[j][2] - base1), p3 = exp2f(sc[j][3] - base1);
-      ps0 += p0 + p1;
-      ps1 += p2 + p3;
-      pa[j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
-      pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      sc[j][0] = exp2f(sc[j][0] - base0);
+      sc[j][1] = exp2f(sc[j][1] - base0);
+      sc[j][2] = exp2f(sc[j][2] - base1);
+      sc[j][3] = exp2f(sc[j][3] - base1);
+      ps0 += sc[j][0] + sc[j][1];
+      ps1 += sc[j][2] + sc[j][3];
     }
+    uint32_t pa[kBKV / 16][4];  // p as the A fragments of p.v
+    acc_to_a(pa, sc);
     l0 = l0 * a0 + ps0;
     l1 = l1 * a1 + ps1;
 #pragma unroll
@@ -310,18 +184,7 @@ __global__ void __launch_bounds__(kThreads)
       o[n][2] *= a1;
       o[n][3] *= a1;
     }
-#pragma unroll
-    for (int kk = 0; kk < kBKV / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kD / 8; n += 2) {
-        // transposed matrices: kv rows 16kk / 16kk+8, d columns 8n / 8(n+1)
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vt + (16 * kk + 8 * (lm_mat & 1) + lm_row) * kLd +
-                                  8 * (n + (lm_mat >> 1)));
-        mma_16816(o[n], pa[kk], bv[0], bv[1]);
-        mma_16816(o[n + 1], pa[kk], bv[2], bv[3]);
-      }
-    }
+    mma_ab(o, pa, vs[i & 1], lane);
 
     if (more) {
       store_tile(ks[(i + 1) & 1], kr, next.wk, eps, 1.f);
@@ -335,16 +198,13 @@ __global__ void __launch_bounds__(kThreads)
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
-  const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;
-  bf16* ob = sq.o + b * sq.o_sb + h * kD + 2 * t;
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n) {
-    if (r0 < sq.len)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r0 * sq.o_ss + 8 * n) =
-          __floats2bfloat162_rn(o[n][0] / l0, o[n][1] / l0);
-    if (r1 < sq.len)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r1 * sq.o_ss + 8 * n) =
-          __floats2bfloat162_rn(o[n][2] / l1, o[n][3] / l1);
+  const int r0 = q0 + 16 * warp + g;
+  store_rows(sq.o + b * sq.o_sb + h * kD, sq.o_ss, r0, sq.len, o, l0, l1, t);
+  if (sq.lse != nullptr && t == 0) {
+    // natural-log lse for the backward: ln(sum e^s) = ln2 * lse2
+    float* lse = sq.lse + (b * gridDim.y + h) * sq.len;
+    if (r0 < sq.len) lse[r0] = (m0 + log2f(fmaxf(l0, 1e-37f))) * kLn2;
+    if (r0 + 8 < sq.len) lse[r0 + 8] = (m1 + log2f(fmaxf(l1, 1e-37f))) * kLn2;
   }
 }
 
@@ -358,13 +218,14 @@ int launch(const Stream& img, const Stream& txt, int batch, int num_heads, float
   return static_cast<int>(cudaGetLastError());
 }
 
-Stream make_stream(const void* q, const void* k, const void* v, void* o, int len,
+Stream make_stream(const void* q, const void* k, const void* v, void* o, void* lse, int len,
                    const long long* st, const void* wq, const void* wk) {
   Stream s;
   s.q = static_cast<const bf16*>(q);
   s.k = static_cast<const bf16*>(k);
   s.v = static_cast<const bf16*>(v);
   s.o = static_cast<bf16*>(o);
+  s.lse = static_cast<float*>(lse);
   s.q_sb = st[0]; s.q_ss = st[1];
   s.k_sb = st[2]; s.k_ss = st[3];
   s.v_sb = st[4]; s.v_ss = st[5];
@@ -379,30 +240,34 @@ Stream make_stream(const void* q, const void* k, const void* v, void* o, int len
 
 // q/k/v/o of each stream: bf16 (B, S, H*64) with unit stride along the last
 // dim. strides: 16 host int64s, the (batch, row) strides of q, k, v, o of the
-// image stream and then of the text stream. The four RMS weights are fp32 (64,)
-// device pointers, all null for no qk-norm. qscale = sm_scale * log2(e).
-// Returns cudaGetLastError().
+// image stream and then of the text stream. lse_img / lse_txt: contiguous fp32
+// (B, H, S) outputs of the natural-log log-sum-exp per row, or null. The four
+// RMS weights are fp32 (64,) device pointers, all null for no qk-norm.
+// qscale = sm_scale * log2(e). Returns cudaGetLastError().
 extern "C" int joint_attention_fwd_bf16(const void* q_img, const void* k_img,
-                                        const void* v_img, void* o_img, int s_img,
-                                        const void* q_txt, const void* k_txt,
-                                        const void* v_txt, void* o_txt, int s_txt,
-                                        const long long* strides, const void* wq_img,
-                                        const void* wk_img, const void* wq_txt,
-                                        const void* wk_txt, int batch, int num_heads,
-                                        float qscale, float eps, void* stream) {
-  const Stream img = make_stream(q_img, k_img, v_img, o_img, s_img, strides, wq_img, wk_img);
-  const Stream txt = make_stream(q_txt, k_txt, v_txt, o_txt, s_txt, strides + 8, wq_txt, wk_txt);
+                                        const void* v_img, void* o_img, void* lse_img,
+                                        int s_img, const void* q_txt, const void* k_txt,
+                                        const void* v_txt, void* o_txt, void* lse_txt,
+                                        int s_txt, const long long* strides,
+                                        const void* wq_img, const void* wk_img,
+                                        const void* wq_txt, const void* wk_txt, int batch,
+                                        int num_heads, float qscale, float eps, void* stream) {
+  const Stream img =
+      make_stream(q_img, k_img, v_img, o_img, lse_img, s_img, strides, wq_img, wk_img);
+  const Stream txt =
+      make_stream(q_txt, k_txt, v_txt, o_txt, lse_txt, s_txt, strides + 8, wq_txt, wk_txt);
   return launch(img, txt, batch, num_heads, qscale, eps, stream);
 }
 
 // Single-stream attention (SD3.5's dual self-attention): the same kernel with
 // an empty text stream. strides: 8 host int64s for q, k, v, o.
-extern "C" int mha_rms_fwd_bf16(const void* q, const void* k, const void* v, void* o, int s,
-                                const long long* strides, const void* wq, const void* wk,
-                                int batch, int num_heads, float qscale, float eps,
-                                void* stream) {
+extern "C" int mha_rms_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                                void* lse, int s, const long long* strides, const void* wq,
+                                const void* wk, int batch, int num_heads, float qscale,
+                                float eps, void* stream) {
   const long long none[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  const Stream img = make_stream(q, k, v, o, s, strides, wq, wk);
-  const Stream txt = make_stream(nullptr, nullptr, nullptr, nullptr, 0, none, nullptr, nullptr);
+  const Stream img = make_stream(q, k, v, o, lse, s, strides, wq, wk);
+  const Stream txt =
+      make_stream(nullptr, nullptr, nullptr, nullptr, nullptr, 0, none, nullptr, nullptr);
   return launch(img, txt, batch, num_heads, qscale, eps, stream);
 }

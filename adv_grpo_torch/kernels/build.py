@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels once per process and load them with ctypes.
 
-All sources under ``adv_grpo_torch/csrc/*.cu`` are compiled by ``nvcc`` into
-one shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds). The library is named after a hash of the sources and written
+All sources under ``adv_grpo_torch/csrc/*.cu`` are compiled by ``nvcc`` (one
+process per source, in parallel) and linked into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds). The
+library is named after a hash of the sources and headers and written
 into ``adv_grpo_torch/kernels/_build/`` (git-ignored); a process that finds a
 library of the current hash there loads it without compiling.
 
@@ -25,7 +26,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,12 +37,19 @@ _SIGNATURES = {
     # x, scale, shift, y, rows, rows_per_batch, d, scale/shift row strides,
     # eps, stream
     "lnmod_bf16": [_P, _P, _P, _P, _LL, _I, _I, _LL, _LL, _F, _P],
-    # image q/k/v/o/len, text q/k/v/o/len, strides, 4 RMS weights,
+    # image q/k/v/o/lse/len, text q/k/v/o/lse/len, strides, 4 RMS weights,
     # batch, heads, qscale, eps, stream
-    "joint_attention_fwd_bf16": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
+    "joint_attention_fwd_bf16": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P,
                                  _P, _P, _P, _P, _I, _I, _F, _F, _P],
-    # q, k, v, o, len, strides, wq, wk, batch, heads, qscale, eps, stream
-    "mha_rms_fwd_bf16": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _F, _F, _P],
+    # q, k, v, o, lse, len, strides, wq, wk, batch, heads, qscale, eps, stream
+    "mha_rms_fwd_bf16": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _F, _F, _P],
+    # per stream (image, then text): q, k, v, do, lse, di, dq, dk, dv, len;
+    # strides, 4 RMS weights, batch, heads, sm_scale, eps, stream
+    "joint_attention_bwd_bf16": [_P] * 9 + [_I] + [_P] * 9 + [_I, _P, _P, _P, _P, _P,
+                                                             _I, _I, _F, _F, _P],
+    # q, k, v, do, lse, di, dq, dk, dv, len, strides, wq, wk, batch, heads,
+    # sm_scale, eps, stream
+    "mha_rms_bwd_bf16": [_P] * 9 + [_I, _P, _P, _P, _I, _I, _F, _F, _P],
 }
 
 _lib = None
@@ -50,6 +59,10 @@ build_log = ""  # nvcc's output (ptxas register / spill report) of that build
 
 def _sources():
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _headers():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -72,30 +85,41 @@ def _library_path(sources) -> str:
 
 
 def build() -> str:
-    """Compile the sources if no library of their hash exists; return its path."""
+    """Compile the sources if no library of their hash exists; return its path.
+
+    Each source compiles in its own ``nvcc`` process, all started together;
+    one more ``nvcc`` links the objects into the shared library."""
     global build_seconds, build_log
     sources = _sources()
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    out = _library_path(sources)
+    out = _library_path(sources + _headers())
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        nvcc = _nvcc()
+        objs = [os.path.join(tmpdir, os.path.basename(s) + ".o") for s in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for s, o in zip(sources, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(s, p.returncode, log) for s, p, log in zip(sources, procs, logs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{os.path.basename(s)} ({rc}):\n{log}" for s, rc, log in failed))
+        tmp = os.path.join(tmpdir, "lib.so")
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp, *objs],
                               capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
         os.replace(tmp, out)  # atomic: a concurrent process sees all or none
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = "".join(logs)
     return out
 
 

@@ -13,6 +13,9 @@ the same function from the same weights.
   * ``lora_a`` / ``lora_b`` carried across unchanged (the layouts agree);
   * RMS weights stay fp32 (the MMDiT keeps them fp32 in every dtype).
 
+:func:`lora_from_jax` / :func:`lora_to_jax` carry the trainable LoRA subtree
+alone (the JAX ``lora_params`` dict, flat path names) into a model and back.
+
 Values are returned as CPU torch tensors in their source dtype;
 ``load_state_dict`` casts them to each parameter's dtype.
 """
@@ -23,6 +26,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from adv_grpo_torch.models.lora import lora_params, merge_lora_params
 
 
 def _unwrap(params):
@@ -82,6 +87,23 @@ def mmdit_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
                 else:
                     _dense(f"{b}{attn}.{attn_names[name]}", leaf, out)
     return out
+
+
+def lora_from_jax(module, lora_flat: Dict[str, np.ndarray]) -> None:
+    """Write a JAX ``lora_params`` dict (numpy leaves) into ``module``'s LoRA
+    parameters, in place and without rounding (the factors are fp32). The
+    two key sets must agree."""
+    have = set(lora_params(module))
+    if set(lora_flat) != have:
+        missing, extra = sorted(have - set(lora_flat)), sorted(set(lora_flat) - have)
+        raise KeyError(f"LoRA trees differ: missing {missing[:3]}, unexpected {extra[:3]}")
+    merge_lora_params(module, lora_flat)
+
+
+def lora_to_jax(module) -> Dict[str, np.ndarray]:
+    """``module``'s LoRA parameters as a JAX ``lora_params`` dict of fp32 numpy
+    arrays."""
+    return {k: p.detach().float().cpu().numpy() for k, p in lora_params(module).items()}
 
 
 def _conv(prefix: str, p: Dict, out: Dict) -> None:

@@ -1,18 +1,28 @@
-"""LoRA-augmented Linear layer and the random parameter initialiser.
+"""LoRA-augmented Linear layer, the LoRA-subtree helpers, and the random
+parameter initialiser.
 
 Port of adv_grpo_tpu/models/lora.py. ``LoRALinear`` computes
 
     y = x W^T + b + lora_scale * (alpha / r) * (x A) B
 
-in the layer's parameter dtype (the JAX ``LoRADense`` casts every weight to
-the compute dtype before its product; here the weights are held in that dtype,
-bf16 on the card). A is (in, r) and B is (r, out), the JAX layout, so the
-adapters carry across unchanged; the delta is computed factored and never
-materialises the rank-full update. The state-dict names of the base layer are
-torch's ``weight`` (out, in) and ``bias``.
+in the layer's compute dtype (the JAX ``LoRADense`` casts every weight to
+the compute dtype before its product). The base weight and bias are held in
+that dtype (bf16 on the card); the LoRA factors are fp32 parameters in every
+dtype, as the JAX ``param_dtype=float32``, and are cast at the product, so
+optimizer and EMA updates below bf16 spacing are kept. A is (in, r) and B is
+(r, out), the JAX layout, so the adapters carry across unchanged; the delta is
+computed factored and never materialises the rank-full update. The state-dict
+names of the base layer are torch's ``weight`` (out, in) and ``bias``.
+
+The LoRA subtree is addressed by the JAX package's flat path names
+(``block_3/attn/to_out/lora_a``; :func:`jax_lora_path`), so the two packages'
+trainers exchange it key for key.
 """
 
 from __future__ import annotations
+
+import re
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -30,16 +40,54 @@ class LoRALinear(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_features, in_features, **kw))
         self.bias = nn.Parameter(torch.empty(out_features, **kw)) if bias else None
         if lora_rank > 0:
-            self.lora_a = nn.Parameter(torch.empty(in_features, lora_rank, **kw))
-            self.lora_b = nn.Parameter(torch.empty(lora_rank, out_features, **kw))
+            fp32 = dict(dtype=torch.float32, device=device)
+            self.lora_a = nn.Parameter(torch.empty(in_features, lora_rank, **fp32))
+            self.lora_b = nn.Parameter(torch.empty(lora_rank, out_features, **fp32))
 
     def forward(self, x, lora_scale: float = 1.0):
-        x = x.to(self.weight.dtype)
+        dt = self.weight.dtype
+        x = x.to(dt)
         y = F.linear(x, self.weight, self.bias)
         if self.lora_rank > 0:
             scaling = lora_scale * (self.lora_alpha / self.lora_rank)
-            y = y + scaling * ((x @ self.lora_a) @ self.lora_b)
+            y = y + scaling * ((x @ self.lora_a.to(dt)) @ self.lora_b.to(dt))
         return y
+
+
+def jax_lora_path(name: str) -> str:
+    """Port parameter name -> the JAX flat LoRA path:
+    ``transformer_blocks.3.attn.to_out.0.lora_a`` -> ``block_3/attn/to_out/lora_a``."""
+    name = re.sub(r"^transformer_blocks\.(\d+)\.", r"block_\1.", name)
+    return name.replace(".to_out.0.", ".to_out.").replace(".", "/")
+
+
+def lora_params(module: nn.Module) -> Dict[str, nn.Parameter]:
+    """The LoRA parameters of ``module`` by their JAX flat path names (the
+    JAX ``lora_params``), in module order."""
+    return {jax_lora_path(name): p for name, p in module.named_parameters()
+            if name.rsplit(".", 1)[-1] in ("lora_a", "lora_b")}
+
+
+def freeze_non_lora(module: nn.Module) -> Dict[str, nn.Parameter]:
+    """The JAX trainable mask (``lora_mask``): ``requires_grad=False`` on every
+    parameter but the LoRA factors. Returns :func:`lora_params`."""
+    lora = lora_params(module)
+    keep = {id(p) for p in lora.values()}
+    for p in module.parameters():
+        p.requires_grad_(id(p) in keep)
+    return lora
+
+
+@torch.no_grad()
+def merge_lora_params(module: nn.Module, lora_flat) -> None:
+    """Write LoRA values (JAX flat path names, tensors or numpy arrays) into
+    ``module``'s LoRA parameters in place (the JAX ``merge_lora_params``)."""
+    params = lora_params(module)
+    for key, val in lora_flat.items():
+        if key not in params:
+            raise KeyError(f"LoRA param {key} not found in the module")
+        p = params[key]
+        p.copy_(torch.as_tensor(val, dtype=p.dtype).reshape(p.shape))
 
 
 @torch.no_grad()

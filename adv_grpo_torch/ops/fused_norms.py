@@ -4,7 +4,9 @@ Port of adv_grpo_tpu/ops/fused_norms.py. ``modulated_layer_norm`` is the
 AdaLN ``LN(x) * (1 + scale[:, None]) + shift[:, None]`` (no affine, fp32
 statistics) that the MMDiT runs 109 times per forward; on a CUDA tensor it
 launches the hand-written kernel in ``csrc/fused_norms.cu``, on a CPU tensor it
-runs the plain version :func:`lnmod_reference`.
+runs the plain version :func:`lnmod_reference`. Its backward, and the per-head
+RMS backward that the fused attention backwards need, are the JAX package's
+closed forms in plain PyTorch (they are plain XLA there too).
 
 The plain versions are device-agnostic tensor code, so they also serve as the
 reference the kernel is checked against on the card.
@@ -41,14 +43,42 @@ def lnmod_reference(x, scale, shift, eps, out_dtype):
     return y.to(out_dtype)
 
 
-def modulated_layer_norm(x, scale, shift, *, eps: float = 1e-6, out_dtype=None):
-    """Fused ``LN(x) * (1 + scale[:, None]) + shift[:, None]``.
+def lnmod_bwd_closed(x, scale, dy, eps):
+    """Closed-form backward of ``LN(x) * (1 + scale) + shift`` (the JAX
+    package's ``_ln_mod_p_bwd``): with xhat = LN(x) and g = dy * (1 + scale),
+    dx = rsig * (g - mean(g) - xhat * mean(g * xhat)), dscale = sum_s dy * xhat,
+    dshift = sum_s dy; fp32 inside, each cast back to its input's dtype."""
+    xf, dyf = x.float(), dy.float()
+    mean = xf.mean(-1, keepdim=True)
+    xc = xf - mean
+    var = (xc * xc).mean(-1, keepdim=True)
+    rsig = torch.rsqrt(var + eps)
+    xhat = xc * rsig
+    g = dyf * (1.0 + scale.float()[:, None])
+    dx = rsig * (g - g.mean(-1, keepdim=True) - xhat * (g * xhat).mean(-1, keepdim=True))
+    return (dx.to(x.dtype), (dyf * xhat).sum(1).to(scale.dtype),
+            dyf.sum(1).to(scale.dtype))
 
-    x: (B, S, D); scale, shift: (B, D). CPU tensors take the plain path; CUDA
-    tensors launch the kernel (bf16 in and out, x contiguous, D a multiple of
-    8) or raise.
-    """
-    out_dtype = out_dtype or x.dtype
+
+def rms_bwd_closed(x, w, dy, num_heads, eps):
+    """Closed-form per-head RMS backward (the JAX package's ``rms_bwd_closed``):
+    r = rsqrt(mean(x^2) + eps), y = x * r * w;
+    dx = r * (w * dy) - x * r^3 / d * sum(x * w * dy), dw = sum(dy * x * r).
+    x, dy: (B, S, H*D); w: (D,). Returns (dx in x's dtype, dw in w's dtype)."""
+    b, s, hd = x.shape
+    d = hd // num_heads
+    xf = x.reshape(b, s, num_heads, d).float()
+    g = dy.reshape(b, s, num_heads, d).float()
+    wf = w.float()
+    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    gw = g * wf
+    dx = r * gw - xf * (r ** 3 / d) * (xf * gw).sum(-1, keepdim=True)
+    dw = (g * xf * r).sum(dim=(0, 1, 2))
+    return dx.reshape(b, s, hd).to(x.dtype), dw.to(w.dtype)
+
+
+def _lnmod_forward(x, scale, shift, eps, out_dtype):
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return lnmod_reference(x, scale, shift, eps, out_dtype)
     if x.device.type != "cuda":
@@ -86,6 +116,37 @@ def modulated_layer_norm(x, scale, shift, *, eps: float = 1e-6, out_dtype=None):
         _kernels.check(rc, "modulated_layer_norm")
         modulated_layer_norm.launches += 1
     return y
+
+
+class _ModulatedLayerNorm(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the plain version (CPU); backward: the
+    closed form :func:`lnmod_bwd_closed`, plain PyTorch on both devices, as the
+    JAX package's backward is plain XLA."""
+
+    @staticmethod
+    def forward(ctx, x, scale, shift, eps, out_dtype):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _lnmod_forward(x, scale, shift, eps, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        return (*lnmod_bwd_closed(x, scale, dy, ctx.eps), None, None)
+
+
+def modulated_layer_norm(x, scale, shift, *, eps: float = 1e-6, out_dtype=None):
+    """Fused ``LN(x) * (1 + scale[:, None]) + shift[:, None]``.
+
+    x: (B, S, D); scale, shift: (B, D). CPU tensors take the plain path; CUDA
+    tensors launch the kernel (bf16 in and out, x contiguous, D a multiple of
+    8) or raise. Differentiable in x, scale and shift.
+    """
+    out_dtype = out_dtype or x.dtype
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or shift.requires_grad):
+        return _ModulatedLayerNorm.apply(x, scale, shift, eps, out_dtype)
+    return _lnmod_forward(x, scale, shift, eps, out_dtype)
 
 
 modulated_layer_norm.launches = 0

@@ -1,8 +1,10 @@
-"""Denoise rollout with a stochastic training window and per-step logprobs.
+"""Denoise rollout with a stochastic training window and per-step logprobs,
+and the training replay of one window step.
 
-Port of adv_grpo_tpu/rollout/sampler.py:36-169 (``SamplerConfig``,
-``RolloutResult``, ``denoise_with_logprob``). The JAX ``lax.scan`` is a Python
-loop here:
+Port of adv_grpo_tpu/rollout/sampler.py:36-169 and :223-271
+(``SamplerConfig``, ``RolloutResult``, ``denoise_with_logprob``,
+``compute_log_prob``, ``sample_random_timestep``). The JAX ``lax.scan`` is a
+Python loop here:
 
   * the step loop walks the flow-match schedule (adv_grpo_tpu.core.scheduler);
   * CFG runs as one batched forward with [uncond ; cond] stacked on the batch
@@ -21,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from adv_grpo_torch.core.sde import cps_step_with_logprob
@@ -35,6 +38,10 @@ class SamplerConfig:
     noise_level: float = 0.7
     shift: float = 3.0
     num_train_timesteps: int = 1000
+    # training replay only: the CFG uncond/cond halves as two sequential
+    # B-sized forwards instead of one 2B-batched forward (same math, half the
+    # activations the backward keeps)
+    cfg_sequential: bool = False
 
     @property
     def do_cfg(self) -> bool:
@@ -124,3 +131,32 @@ def denoise_with_logprob(
         sigmas=per_step(4),
         sigmas_prev=per_step(5),
     )
+
+
+def compute_log_prob(velocity_fn: Callable, latents_j, next_latents_j, t_j, sigma_j,
+                     sigma_prev_j, prompt_embeds, pooled_embeds, neg_prompt_embeds,
+                     neg_pooled_embeds, cfg: SamplerConfig):
+    """Training-time re-forward of one window step under the current weights:
+    replays the recorded transition (``prev_sample=next_latents_j``) and scores
+    it. Returns (log_prob, prev_sample_mean, std_dev_t)."""
+    if cfg.do_cfg and cfg.cfg_sequential:
+        v_uncond = velocity_fn(latents_j, t_j, neg_prompt_embeds, neg_pooled_embeds)
+        v_cond = velocity_fn(latents_j, t_j, prompt_embeds, pooled_embeds)
+        v = v_uncond + cfg.guidance_scale * (v_cond - v_uncond)
+    elif cfg.do_cfg:
+        v = velocity_fn(torch.cat([latents_j, latents_j], dim=0), torch.cat([t_j, t_j]),
+                        torch.cat([neg_prompt_embeds, prompt_embeds], dim=0),
+                        torch.cat([neg_pooled_embeds, pooled_embeds], dim=0))
+        v_uncond, v_cond = v.chunk(2, dim=0)
+        v = v_uncond + cfg.guidance_scale * (v_cond - v_uncond)
+    else:
+        v = velocity_fn(latents_j, t_j, prompt_embeds, pooled_embeds)
+    out = cps_step_with_logprob(v, latents_j, sigma_j, sigma_prev_j, cfg.noise_level,
+                                prev_sample=next_latents_j)
+    return out.log_prob, out.prev_sample_mean, out.std_dev_t
+
+
+def sample_random_timestep(rng: np.random.Generator, cfg: SamplerConfig, shape=()):
+    """Window start ~ U{0, num_steps // 2}, drawn from a numpy generator (the
+    JAX driver draws it with numpy too, adv_grpo_tpu/train/driver.py:283)."""
+    return rng.integers(0, cfg.num_steps // 2 + 1, size=shape)

@@ -1,0 +1,324 @@
+"""End-to-end GRPO training driver for one process on one device.
+
+Port of adv_grpo_tpu/train/driver.py's ``GRPOTrainer`` (``__init__`` with the
+window-fit check, ``sample_phase``, ``train_phase`` with inner epochs and
+``micro_splits``, ``eval_phase`` and ``run``):
+
+  while global_step < max_global_step:
+    [eval gate]  -> deterministic eval rollouts + eval rewards (EMA weights)
+    sampling     -> num_batches_per_epoch stochastic-window rollouts; host
+                    rewards scored in a thread pool, overlapping the next rollout
+    advantages   -> per-prompt (or global) normalisation
+    GRPO update  -> the inner epoch over (minibatch, window-step) microbatches
+
+The device is the pipeline's (one card, or the CPU for the tests). Rollout
+records stay on the device between the phases. Not ported yet, and refused
+with ``NotImplementedError``: the discriminator (``train_d``) and its D-phase,
+``same_latent``'s shared prefix, the flux / wan families, checkpoints
+(``save``), multi-host and the mesh. The reference-image store is not loaded:
+only device rewards and the D-phase read it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from adv_grpo_torch.models.lora import freeze_non_lora
+from adv_grpo_torch.rollout.sampler import SamplerConfig, sample_random_timestep
+from adv_grpo_torch.train.grpo_trainer import (
+    compute_advantages, make_eval_fn, make_sample_fn, make_train_epoch_fn,
+    rebatch_for_training)
+from adv_grpo_torch.train.train_state import create_generator_state
+from adv_grpo_tpu.core.stat_tracking import PerPromptStatTracker
+from adv_grpo_tpu.data.krepeat import DistributedKRepeatSampler
+from adv_grpo_tpu.native.lib import images_to_uint8
+from adv_grpo_tpu.utils.flops import rollout_flops
+from adv_grpo_tpu.utils.metrics import MetricLogger, StepTimer
+
+logger = logging.getLogger(__name__)
+
+
+def _seed(*parts: int) -> int:
+    """A generator seed from integers (the JAX ``fold_in`` of a step index)."""
+    return int(np.random.SeedSequence([int(p) for p in parts]).generate_state(1)[0])
+
+
+class GRPOTrainer:
+    _grid_error_logged = False  # warn once per process, never silently drop
+
+    def __init__(self, config, pipeline, dataset, text_encode_fn, reward_fn,
+                 eval_reward_fn=None, latent_hw: int = 64,
+                 logger: Optional[MetricLogger] = None):
+        self.config = config
+        if bool(config.train_d) and str(config.discriminator):
+            raise NotImplementedError(
+                f"discriminator={config.discriminator!r} with train_d: the co-trained "
+                "D-phase is not yet ported to adv_grpo_torch")
+        if str(config.get("model_family", "sd3") or "sd3") != "sd3":
+            raise NotImplementedError("adv_grpo_torch trains the sd3 family only")
+        self.pipeline = pipeline
+        self.device = pipeline.device
+        self.dataset = dataset
+        self.text_encode_fn = text_encode_fn  # List[str] -> (embeds, pooled) numpy
+        self.reward_fn = reward_fn
+        self.eval_reward_fn = eval_reward_fn or reward_fn
+        self.latent_hw = latent_hw
+
+        s = config.sample
+        # the stochastic window [rt, rt+T) must fit the schedule for every rt
+        max_rt = (int(s.random_timestep) if s.random_timestep is not None
+                  else int(s.num_steps) // 2)
+        if int(s.train_num_steps) + max_rt > int(s.num_steps):
+            raise ValueError(
+                f"train_num_steps={int(s.train_num_steps)} does not fit the "
+                f"schedule: the window start goes up to {max_rt}, so "
+                f"train_num_steps must be <= {int(s.num_steps) - max_rt} "
+                f"for num_steps={int(s.num_steps)}")
+        if bool(s.same_latent):
+            raise NotImplementedError("sample.same_latent (the group-shared prefix) is "
+                                      "not yet ported to adv_grpo_torch")
+        self.sampler_cfg = SamplerConfig(
+            num_steps=s.num_steps, train_num_steps=s.train_num_steps,
+            guidance_scale=s.guidance_scale if config.train.cfg else 1.0,
+            noise_level=s.noise_level)
+        self.eval_cfg = dataclasses.replace(
+            self.sampler_cfg, num_steps=s.eval_num_steps, train_num_steps=0,
+            noise_level=0.0)
+        self.mini = int(s.mini_num_image_per_prompt)
+        self.k = max(int(s.num_image_per_prompt) // self.mini, 1)
+        self.num_batches = int(s.num_batches_per_epoch)
+        self.micro_splits = max(int(config.train.get("micro_splits", 1)), 1)
+        self.sample_fn = make_sample_fn(pipeline, self.sampler_cfg, latent_hw)
+        self.eval_fn = make_eval_fn(pipeline, self.eval_cfg, latent_hw)
+        train_sampler_cfg = dataclasses.replace(
+            self.sampler_cfg, cfg_sequential=bool(config.train.get("cfg_sequential", False)))
+        self.train_epoch_fn = make_train_epoch_fn(pipeline, train_sampler_cfg, config.train,
+                                                  beta=float(config.train.beta))
+
+        # trainable LoRA subtree; every other parameter frozen
+        lora = freeze_non_lora(pipeline.mmdit)
+        if not lora:
+            raise ValueError("pipeline has no LoRA parameters (lora_rank=0?)")
+        self.state = create_generator_state(lora, config.train, s.train_num_steps)
+
+        # one device = one replica: the k-repeat sampler raises when the
+        # batch cannot hold whole groups
+        self.prompt_sampler = DistributedKRepeatSampler(
+            len(dataset), batch_size=int(s.train_batch_size), k=self.k,
+            num_replicas=1, rank=0, seed=int(config.seed))
+        self.per_prompt_stats = (bool(config.per_prompt_stat_tracking)
+                                 and int(s.num_image_per_prompt) > 1)
+        if (str(config.train.algorithm) in ("sft", "dpo")
+                and int(s.num_image_per_prompt) < 2):
+            raise ValueError(
+                f"train.algorithm={config.train.algorithm!r} needs "
+                f"num_image_per_prompt >= 2 (group-relative labels), got "
+                f"{int(s.num_image_per_prompt)}")
+        self.tracker = PerPromptStatTracker(global_std=bool(s.global_std))
+        self.logger = logger or MetricLogger(
+            config.save_dir, wandb_init=bool(config.wandb_init),
+            run_name=str(config.case_name), is_main=True)
+        self.timer = StepTimer()
+        self.executor = ThreadPoolExecutor(max_workers=4)
+        self._s_img = (latent_hw // pipeline.mmdit_cfg.patch_size) ** 2
+        self._rollout_flops_acc = 0.0
+        ne, npld = self.text_encode_fn([""])
+        self.neg_embeds1 = self._dev(ne)
+        self.neg_pooled1 = self._dev(npld)
+        self.epoch = 0
+
+    # ── helpers ─────────────────────────────────────────────────────────
+
+    def _dev(self, a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _neg(self, batch: int):
+        return (self.neg_embeds1.expand(batch, *self.neg_embeds1.shape[1:]),
+                self.neg_pooled1.expand(batch, *self.neg_pooled1.shape[1:]))
+
+    # ── phases ──────────────────────────────────────────────────────────
+
+    def sample_phase(self, epoch: int):
+        cfgs = self.config.sample
+        rollouts, all_prompts, all_prompt_ids = [], [], []
+        all_embeds, all_pooled, reward_futures = [], [], []
+        last_images = last_prompts = None
+        for i in range(self.num_batches):
+            step_idx = epoch * self.num_batches + i
+            slot_idx = self.prompt_sampler.batch_for_epoch(step_idx).tolist()
+            slot_prompts = [self.dataset[j]["prompt"] for j in slot_idx]
+            metas = [self.dataset[j]["metadata"] for j in slot_idx]
+            # each slot expands to mini images
+            prompts = [p for p in slot_prompts for _ in range(self.mini)]
+            prompt_ids = [j for j in slot_idx for _ in range(self.mini)]
+            metadata = [m for m in metas for _ in range(self.mini)]
+            embeds, pooled = self.text_encode_fn(slot_prompts)
+            embeds = self._dev(np.repeat(np.asarray(embeds), self.mini, axis=0))
+            pooled = self._dev(np.repeat(np.asarray(pooled), self.mini, axis=0))
+            B = embeds.shape[0]
+            neg_e, neg_p = self._neg(B)
+            if cfgs.random_timestep is None:
+                rt = int(sample_random_timestep(np.random.default_rng(step_idx),
+                                                self.sampler_cfg, shape=1)[0])
+            else:
+                rt = int(cfgs.random_timestep)
+            generator = torch.Generator(device=self.device).manual_seed(
+                _seed(self.config.seed, step_idx))
+            with self.timer("rollout"):
+                rollout, images = self.sample_fn(embeds, pooled, neg_e, neg_p, generator,
+                                                 torch.full((B,), rt, dtype=torch.long))
+                images_np = images.float().cpu().numpy()  # syncs: the rollout is done
+            self._rollout_flops_acc += rollout_flops(
+                self.pipeline.mmdit_cfg, self._s_img, embeds.shape[1], B,
+                self.sampler_cfg.num_steps, self.sampler_cfg.do_cfg)
+
+            def _score(images=images_np, prompts=prompts, metadata=metadata):
+                return self.reward_fn(images, prompts, metadata)[0]
+
+            with self.timer("reward_dispatch"):
+                reward_futures.append(self.executor.submit(_score))
+            rollouts.append(rollout._asdict())
+            all_prompts.extend(prompts)
+            all_prompt_ids.extend(prompt_ids)
+            all_embeds.append(embeds)
+            all_pooled.append(pooled)
+            last_images, last_prompts = images_np, prompts
+
+        with self.timer("reward_wait"):
+            results = [f.result() for f in reward_futures]
+        rewards = {k: np.concatenate([np.asarray(r[k]) for r in results])
+                   for k in results[0]}
+        rollout = {k: torch.cat([r[k] for r in rollouts])
+                   for k in rollouts[0] if k != "final_latents"}
+        return dict(prompts=all_prompts, prompt_ids=np.asarray(all_prompt_ids, np.int64),
+                    rollout=rollout, embeds=torch.cat(all_embeds),
+                    pooled=torch.cat(all_pooled), rewards=rewards,
+                    last_images=last_images, last_prompts=last_prompts)
+
+    def train_phase(self, samples, advantages: np.ndarray):
+        r = samples["rollout"]
+        data = dict(latents=r["latents"], log_probs=r["log_probs"],
+                    timesteps=r["timesteps"], sigmas=r["sigmas"],
+                    sigmas_prev=r["sigmas_prev"], advantages=self._dev(advantages),
+                    embeds=samples["embeds"], pooled=samples["pooled"])
+        n = data["latents"].shape[0]
+        n_micro = self.num_batches * self.micro_splits
+        if self.micro_splits > 1 and n % n_micro != 0:
+            # rebatch_for_training would silently drop rows
+            raise ValueError(
+                f"train.micro_splits={self.micro_splits} does not divide "
+                f"the minibatch: {n} rows / {self.num_batches} minibatches "
+                f"is not divisible by {self.micro_splits}")
+        inner_epochs = max(int(self.config.train.num_inner_epochs), 1)
+        infos = []
+        with self.timer("train"):
+            for inner in range(inner_epochs):
+                # re-traverse the epoch's samples, reshuffled per inner epoch;
+                # advantages and log-probs travel with their rows
+                if inner == 0:
+                    d = data
+                else:
+                    perm = np.random.default_rng(
+                        (self.epoch + 1) * 7919 + inner).permutation(n)
+                    perm = torch.as_tensor(perm, device=self.device)
+                    d = {k: v[perm] for k, v in data.items()}
+                batched = rebatch_for_training(d, n_micro)
+                neg_e, neg_p = self._neg(batched["latents"].shape[1])
+                self.state, info = self.train_epoch_fn(self.state, batched, neg_e, neg_p)
+                infos.append(info)
+            self._sync()
+        self.last_inner_losses = [i["loss"] for i in infos]
+        return {k: float(np.mean([i[k] for i in infos])) for k in infos[0]}
+
+    def eval_phase(self, eval_prompts: List[str], seed: int = 0):
+        """Deterministic eval on the EMA weights (the live LoRA without EMA)."""
+        lora = self.state.ema if self.state.ema is not None else self.state.lora
+        embeds, pooled = (self._dev(a) for a in self.text_encode_fn(list(eval_prompts)))
+        neg_e, neg_p = self._neg(embeds.shape[0])
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        images = self.eval_fn(lora, embeds, pooled, neg_e, neg_p, generator)
+        images = images.float().cpu().numpy()
+        details, _ = self.eval_reward_fn(images, list(eval_prompts),
+                                         [{}] * len(eval_prompts), only_strict=False)
+
+        def _mean(v):
+            # -10 is the reference's failure sentinel, left out of eval means
+            a = np.asarray(v, np.float64).reshape(-1)
+            ok = a != -10.0
+            return float(np.mean(a[ok])) if ok.any() else -10.0
+
+        return images, {f"eval_reward_{k}": _mean(v) for k, v in details.items()}
+
+    # ── main loop ───────────────────────────────────────────────────────
+
+    def run(self, max_epochs: Optional[int] = None, eval_prompts=None):
+        cfg = self.config
+        while self.state.global_step < int(cfg.max_global_step):
+            if max_epochs is not None and self.epoch >= max_epochs:
+                break
+            if eval_prompts and self.epoch % int(cfg.eval_freq) == 0 and self.epoch > 0:
+                eval_images, eval_metrics = self.eval_phase(eval_prompts)
+                self.logger.log(eval_metrics, step=self.state.global_step)
+                self.logger.log_image_grid(
+                    "eval_images", images_to_uint8(eval_images), captions=eval_prompts,
+                    step=self.state.global_step, save_dir=str(cfg.save_dir))
+            if cfg.save_dir and self.epoch % int(cfg.save_freq) == 0 and self.epoch > 0:
+                self.save()
+
+            samples = self.sample_phase(self.epoch)
+            ids = samples["prompt_ids"]
+            avg = np.asarray(samples["rewards"]["avg"], np.float32)
+            algo = str(cfg.train.algorithm)
+            if self.per_prompt_stats or algo != "grpo":
+                advantages, group_stats = compute_advantages(self.tracker, ids, avg,
+                                                             algorithm=algo)
+            else:
+                # global normalisation over the whole batch
+                advantages = ((avg - avg.mean()) / (avg.std() + 1e-4)).astype(np.float32)
+                group_stats = {}
+
+            metrics = {f"reward_{k}": float(np.mean(v)) for k, v in samples["rewards"].items()}
+            metrics.update(group_stats)
+            metrics.update(self.train_phase(samples, advantages))
+            metrics["d_epoch"] = 0
+            metrics.update(self.timer.summary())
+            rollout_s = self.timer.totals.get("rollout", 0.0)
+            if rollout_s > 0 and self._rollout_flops_acc > 0:
+                metrics["perf/rollout_tflops_per_sec"] = (
+                    self._rollout_flops_acc / rollout_s / 1e12)
+            self._rollout_flops_acc = 0.0
+            self.timer.reset()
+            metrics["epoch"] = self.epoch
+            self.logger.log(metrics, step=self.state.global_step)
+            if cfg.save_dir and self.epoch % 10 == 0:
+                self._save_sample_grid(samples)
+            self.epoch += 1
+        return self.state
+
+    def _save_sample_grid(self, samples):
+        """Sample-image grid every 10 epochs; a failure is logged once."""
+        try:
+            self.logger.log_image_grid(
+                "samples_epoch", images_to_uint8(samples["last_images"][:8]),
+                captions=samples["last_prompts"], step=self.epoch,
+                save_dir=str(self.config.save_dir))
+        except Exception as e:  # noqa: BLE001 — best-effort, but never silent
+            if not self._grid_error_logged:
+                self._grid_error_logged = True
+                logger.warning("sample-grid save failed (logged once): %s: %s",
+                               type(e).__name__, e)
+
+    def save(self):
+        raise NotImplementedError(
+            "checkpointing (train/checkpoint.py) is not yet ported to adv_grpo_torch; "
+            "set save_freq above the run's epochs")

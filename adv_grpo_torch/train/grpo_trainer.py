@@ -1,0 +1,142 @@
+"""GRPO phases of the SD3 trainer: sampling, eval generation, the inner
+training epoch, advantages and rebatching.
+
+Port of adv_grpo_tpu/train/grpo_trainer.py (``make_sample_fn`` :47 with
+independent latents, ``make_eval_fn`` :247, ``make_train_epoch_fn`` :269,
+``compute_advantages`` :546, ``rebatch_for_training`` :559). The JAX phases are
+jitted functions of (LoRA, frozen params, batch); here they close over the
+pipeline, whose MMDiT holds the live LoRA parameters, and run eagerly:
+
+  * sampling and eval run under ``torch.no_grad()``;
+  * the training epoch is a Python loop over (minibatch, window step)
+    microbatches in the JAX scan's order; each microbatch replays its window
+    step through the MMDiT forward and backward, where only the LoRA factors
+    require gradients, and feeds the gradients to ``apply_microbatch_grads``.
+
+The flux / wan sample factories and the discriminator steps are not ported.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict
+
+import numpy as np
+import torch
+
+from adv_grpo_torch.core.grpo import grpo_loss
+from adv_grpo_torch.models.lora import lora_params, merge_lora_params
+from adv_grpo_torch.rollout.sampler import (
+    SamplerConfig, compute_log_prob, denoise_with_logprob)
+from adv_grpo_torch.train.train_state import GeneratorState, apply_microbatch_grads
+from adv_grpo_tpu.core.stat_tracking import PerPromptStatTracker, calculate_zero_std_ratio
+
+INFO_KEYS = ("loss", "policy_loss", "kl_loss", "approx_kl", "clipfrac",
+             "clipfrac_gt_one", "clipfrac_lt_one")
+
+
+@contextlib.contextmanager
+def lora_swapped(module, lora_flat: Dict[str, torch.Tensor]):
+    """Run with ``module``'s LoRA parameters set to ``lora_flat`` (e.g. the
+    EMA shadow), restoring the live values afterwards."""
+    saved = {k: p.detach().clone() for k, p in lora_params(module).items()}
+    merge_lora_params(module, lora_flat)
+    try:
+        yield
+    finally:
+        merge_lora_params(module, saved)
+
+
+def make_sample_fn(pipeline, sampler_cfg: SamplerConfig, latent_hw: int):
+    """One sampling batch: independent initial latents, the windowed rollout
+    and the VAE decode -> (RolloutResult, images in [-1, 1])."""
+
+    @torch.no_grad()
+    def sample(embeds, pooled, neg_embeds, neg_pooled, generator, rt):
+        lat0 = pipeline.prepare_latents(generator, embeds.shape[0], latent_hw)
+        out = denoise_with_logprob(pipeline.velocity_fn(), lat0, embeds, pooled,
+                                   neg_embeds, neg_pooled, generator, sampler_cfg, rt)
+        return out, pipeline.decode(out.final_latents)
+
+    return sample
+
+
+def make_eval_fn(pipeline, eval_cfg: SamplerConfig, latent_hw: int):
+    """Deterministic eval generation (noise 0) with the given LoRA values (the
+    driver passes the EMA when it keeps one) -> images."""
+
+    @torch.no_grad()
+    def evaluate(lora_flat, embeds, pooled, neg_embeds, neg_pooled, generator):
+        with lora_swapped(pipeline.mmdit, lora_flat):
+            lat0 = pipeline.prepare_latents(generator, embeds.shape[0], latent_hw)
+            out = denoise_with_logprob(pipeline.velocity_fn(), lat0, embeds, pooled,
+                                       neg_embeds, neg_pooled, generator, eval_cfg, 0)
+            return pipeline.decode(out.final_latents)
+
+    return evaluate
+
+
+def make_train_epoch_fn(pipeline, sampler_cfg: SamplerConfig, train_cfg, beta: float = 0.0):
+    """The inner epoch over (minibatch, window-step) microbatches."""
+    T = sampler_cfg.train_num_steps
+    clip_range = float(train_cfg.clip_range)
+    adv_clip_max = float(train_cfg.adv_clip_max)
+
+    def microstep(state: GeneratorState, mb, neg_embeds, neg_pooled):
+        args = (mb["latents"], mb["next_latents"], mb["t"], mb["sigma"], mb["sigma_prev"],
+                mb["embeds"], mb["pooled"], neg_embeds, neg_pooled, sampler_cfg)
+        lp, mean, _ = compute_log_prob(pipeline.velocity_fn(), *args)
+        mean_ref = None
+        if beta > 0.0:
+            with torch.no_grad():
+                _, mean_ref, _ = compute_log_prob(pipeline.velocity_fn(lora_scale=0.0), *args)
+        out = grpo_loss(lp, mb["old_log_prob"], mb["advantages"], clip_range=clip_range,
+                        adv_clip_max=adv_clip_max, beta=beta,
+                        prev_sample_mean=mean if beta > 0 else None,
+                        prev_sample_mean_ref=mean_ref)
+        keys = list(state.lora)
+        grads = torch.autograd.grad(out.loss, [state.lora[k] for k in keys])
+        apply_microbatch_grads(state, dict(zip(keys, grads)))
+        return torch.stack([getattr(out, k).detach() for k in INFO_KEYS])
+
+    def train_epoch(state: GeneratorState, samples, neg_embeds, neg_pooled):
+        """samples: dict of (num_mini, bs, ...) tensors; runs num_mini * T
+        microbatches in (minibatch-major, window-step-minor) order and returns
+        the mean of each diagnostic."""
+        num_mini = samples["latents"].shape[0]
+        infos = []
+        for idx in range(num_mini * T):
+            i, j = idx // T, idx % T
+            mini = {k: v[i] for k, v in samples.items()}
+            mb = dict(latents=mini["latents"][:, j], next_latents=mini["latents"][:, j + 1],
+                      t=mini["timesteps"][:, j], sigma=mini["sigmas"][:, j],
+                      sigma_prev=mini["sigmas_prev"][:, j],
+                      old_log_prob=mini["log_probs"][:, j], advantages=mini["advantages"],
+                      embeds=mini["embeds"], pooled=mini["pooled"])
+            infos.append(microstep(state, mb, neg_embeds, neg_pooled))
+        means = torch.stack(infos).mean(0).tolist()
+        return state, dict(zip(INFO_KEYS, means))
+
+    return train_epoch
+
+
+def compute_advantages(tracker: PerPromptStatTracker, prompts, rewards_avg,
+                       algorithm: str = "grpo"):
+    """Per-prompt advantages and the logged group statistics."""
+    advantages = tracker.update(prompts, rewards_avg, type=algorithm)
+    group_size, n_prompts = tracker.get_stats()
+    zero_std_ratio, reward_std_mean = calculate_zero_std_ratio(prompts, rewards_avg)
+    tracker.clear()
+    stats = dict(group_size=group_size, trained_prompt_num=n_prompts,
+                 zero_std_ratio=zero_std_ratio, reward_std_mean=reward_std_mean)
+    return advantages.astype(np.float32), stats
+
+
+def rebatch_for_training(samples: Dict[str, torch.Tensor], num_minibatches: int):
+    """(N, ...) -> (num_minibatches, N // num_minibatches, ...), dropping the
+    remainder rows as the JAX package does."""
+    out = {}
+    for k, v in samples.items():
+        bs = v.shape[0] // num_minibatches
+        out[k] = v[: num_minibatches * bs].reshape((num_minibatches, bs) + tuple(v.shape[1:]))
+    return out

@@ -7,16 +7,28 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
 
   1. the card's name and power limit, from nvidia-smi;
   2. build the CUDA kernels from adv_grpo_torch/csrc (nvcc, ctypes);
-  3. each kernel of the slice against its plain PyTorch version at the
-     SD3.5-M 512^2 shapes, with max errors, stated bounds and median times;
-  4. a 2-layer full-width MMDiT on the card (bf16, kernels) against the same
-     weights on the CPU (fp32, plain versions) on a small input;
-  5. ``adv_grpo_torch.cli.infer.main`` at the full SD3.5-M width (random
+  3. each forward kernel against its plain PyTorch version at the SD3.5-M
+     512^2 shapes, with max errors, stated bounds and median times;
+  4. the two attention backward kernels (and the lse the forwards write for
+     them) against their plain versions at the training shape, CFG batch 8:
+     relative L2 per cotangent, median times, and the whole autograd backward
+     against fp32 autograd of the plain forward;
+  5. a 2-layer full-width MMDiT on the card (bf16, kernels) against the same
+     weights on the CPU (fp32, plain versions) on a small input: the output,
+     then the LoRA gradients through a fixed cotangent;
+  6. ``adv_grpo_torch.cli.infer.main`` at the full SD3.5-M width (random
      weights from the seed), 512^2, 40 steps, CFG 4.5: the PNG must be
      512x512 and non-constant, and the kernel launch counts must be exactly
      109/24/13 per MMDiT forward times 40 steps;
-  6. the same pipeline at 1 prompt (CFG batch 2) and 4 prompts (CFG batch 8):
-     finite images, seconds per image.
+  7. the same pipeline at 1 prompt (CFG batch 2) and 4 prompts (CFG batch 8):
+     finite images, seconds per image;
+  8. ``adv_grpo_torch.cli.train.main`` on ``smoke_sd3_fast`` at the full
+     SD3.5-M width (TRAIN_ARGV): 2 GRPO epochs of 10-step rollouts, the
+     jpeg_compressibility reward and the LoRA update. Finite reward, loss,
+     approx_kl and clipfrac in both epochs; the LoRA changed and finite; the
+     EMA moved; the launch counts of all five kernels exactly as derived from
+     the config; seconds per epoch (rollout, reward, train), per microstep,
+     and peak device memory.
 
 Prints one JSON line of per-kernel results, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when no
@@ -33,7 +45,32 @@ import time
 
 SEED = 0
 STEPS = 40
-LN_CALLS, JOINT_CALLS, DUAL_CALLS = 109, 24, 13  # per SD3.5-M MMDiT forward
+# the training slice: smoke_sd3_fast at full SD3.5-M width, 10-step rollouts,
+# 2 prompt slots x 2 images per sampling batch, 2 epochs. train.ema_interval=2
+# lets the EMA move within the run's 4 optimizer steps (the preset's 8 would
+# first move it at step 8).
+EPOCHS = 2
+TRAIN_ARGV = ["--config", "smoke_sd3_fast", "--set", "smoke_test=False",
+              "--set", "sample.num_steps=10", "--set", "sample.train_batch_size=2",
+              "--max_epochs", str(EPOCHS), "--set", "train.ema_interval=2",
+              "--device", "cuda"]
+
+
+def per_forward_counts(mcfg):
+    """Kernel launches of one MMDiT forward: (modulated LN, joint attention,
+    single-stream attention). Per block: the image, context and MLP norms,
+    one more for a dual-attention block, one more for the context MLP of every
+    block but the last (context_pre_only); then the output norm."""
+    n, dual = mcfg.num_layers, len(mcfg.dual_attention_layers)
+    return 3 * n + dual + (n - 1) + 1, n, dual
+
+
+def per_backward_counts(mcfg):
+    """Backward-kernel launches of one MMDiT backward with respect to the
+    LoRA: every joint attention, and the dual attention of every dual block
+    but block 0, whose input is the patch embedding that no LoRA factor
+    reaches (so autograd never differentiates it)."""
+    return mcfg.num_layers, len([i for i in mcfg.dual_attention_layers if i > 0])
 
 
 def _median_ms(fn, iters=20, warmup=3):
@@ -151,6 +188,120 @@ def check_kernels():
     return results
 
 
+def _rel_l2(got, ref):
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def _grad_ms(outs, inputs, cots):
+    """Median ms of one backward through a retained graph."""
+    import torch
+
+    return _median_ms(lambda: torch.autograd.grad(outs, inputs, cots, retain_graph=True),
+                      iters=10)
+
+
+def check_backward_kernels():
+    """Phase: the two backward kernels (and the lse the forwards now write)
+    against their plain versions at the training shape: CFG batch 8 of the
+    4-image microbatch, 1024 + 154 tokens, 24x64, bf16. Bound: relative L2
+    2e-2 per cotangent — bf16 rounding of p and t, the same budget as the
+    forward's 2e-2."""
+    import torch
+
+    from adv_grpo_torch.ops import joint_attention as ja
+    from adv_grpo_torch.ops.attention import bwd_row_stats
+
+    bound = 2e-2
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    b, s_img, s_txt, heads, dim = 8, 1024, 154, 24, 1536
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def weights(n):
+        return [(1.0 + 0.1 * torch.randn(64, generator=g, device=dev)).float()
+                for _ in range(n)]
+
+    def check(what, got, ref):
+        errs = [_rel_l2(a, r) for a, r in zip(got, ref)]
+        max_abs = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
+        print(f"  {what}: relative L2 {', '.join(f'{e:.2e}' for e in errs)}; max abs "
+              f"{max_abs:.3e} (bound {bound} relative L2)", flush=True)
+        if not all(e <= bound for e in errs):  # also fails on NaN
+            raise AssertionError(f"{what}: relative L2 {errs} above {bound}")
+        return max_abs
+
+    results = []
+    streams = [randn(b, s_img, dim) for _ in range(3)] + [randn(b, s_txt, dim)
+                                                          for _ in range(3)]
+    w4 = weights(4)
+    cots = [randn(b, s_img, dim), randn(b, s_txt, dim)]
+    lens = (s_img, s_txt)
+    cases = [
+        ("joint_attention_bwd", "adv_grpo_tpu/ops/joint_attention.py:224", ja.joint_mha,
+         ja.joint_mha_reference, ja.joint_attention_fwd, ja.joint_attention_bwd,
+         streams, w4, cots),
+        ("mha_rms_bwd", "adv_grpo_tpu/ops/joint_attention.py:387", ja.mha_rms,
+         ja.mha_rms_reference, ja.mha_rms_fwd, ja.mha_rms_bwd, streams[:3], w4[:2],
+         cots[:1]),
+    ]
+    for name, replaces, fn, ref_fn, fwd, bwd, ins, w, do in cases:
+        n = len(do)
+        qs, ks, vs = ins[0::3], ins[1::3], ins[2::3]
+        # the forward's lse against the fp32 plain forward on the same inputs
+        out = fwd(*ins, w, heads, 1e-6, 0.125, True)
+        o, lse = out[:n], out[n:]
+        ref = ref_fn(*(t.float() for t in ins), num_heads=heads, rms_weights=w,
+                     return_lse=True)
+        check(f"{fn.__name__} forward lse", lse, ref[n:])
+        di = [bwd_row_stats(a, c, heads) for a, c in zip(o, do)]
+        kw = dict(num_heads=heads, rms_weights=w)
+        got = bwd(*ins, *do, *lse, *di, **kw)
+        pairs = [tuple(w[i:i + 2]) for i in range(0, len(w), 2)]  # (wq, wk) per stream
+        twin = ja.attention_bwd_reference(
+            [q.float() for q in qs], [k.float() for k in ks], [v.float() for v in vs],
+            [c.float() for c in do], lse, di, num_heads=heads, rms_weights=pairs)
+        twin = [a for s in twin for a in s]  # dyq, dyk, dv per stream
+        got = [got[i * 3 + j] for i in range(n) for j in range(3)]
+        max_abs = check(f"{name} kernel vs its plain twin (dyq, dyk, dv per stream)",
+                        got, twin)
+        ms = _median_ms(lambda: bwd(*ins, *do, *lse, *di, **kw))
+        plain_ms = _median_ms(lambda: ja.attention_bwd_reference(
+            qs, ks, vs, do, lse, di, num_heads=heads, rms_weights=pairs))
+        print(f"kernel {name}: B={b} {'+'.join(map(str, lens[:n]))} tokens 24x64 median "
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
+
+        # the whole autograd backward against fp32 autograd of the plain forward
+        leaves = [t.clone().requires_grad_() for t in ins] + [
+            x.clone().requires_grad_() for x in w]
+        outs = fn(*leaves[:len(ins)], num_heads=heads, rms_weights=leaves[len(ins):])
+        outs = outs if n > 1 else (outs,)
+        grads = torch.autograd.grad(outs, leaves, do, retain_graph=True)
+        f_leaves = [t.detach().float().requires_grad_() for t in leaves]
+        f_outs = ref_fn(*f_leaves[:len(ins)], num_heads=heads,
+                        rms_weights=f_leaves[len(ins):])
+        f_outs = f_outs if n > 1 else (f_outs,)
+        ref_grads = torch.autograd.grad(f_outs, f_leaves, [c.float() for c in do])
+        check(f"{fn.__name__} autograd backward vs fp32 plain autograd "
+              "(dq, dk, dv per stream, then dwq, dwk)", grads, ref_grads)
+        del f_outs, ref_grads
+        bf_leaves = [t.detach().requires_grad_() for t in leaves]
+        p_outs = ref_fn(*bf_leaves[:len(ins)], num_heads=heads,
+                        rms_weights=bf_leaves[len(ins):])
+        p_outs = p_outs if n > 1 else (p_outs,)
+        auto_ms = _grad_ms(outs, leaves, do)
+        auto_plain_ms = _grad_ms(p_outs, bf_leaves, do)
+        print(f"  {fn.__name__} whole autograd backward: median {auto_ms:.4f} ms vs plain "
+              f"autograd {auto_plain_ms:.4f} ms", flush=True)
+        del outs, p_outs, grads
+        results.append(dict(name=name, route="cuda",
+                            source="adv_grpo_torch/csrc/joint_attention_bwd.cu",
+                            replaces=replaces, max_abs_err=max_abs, ms=ms,
+                            plain_ms=plain_ms))
+    return results
+
+
 def check_model():
     """Phase 4: 2 full-width layers on the card (bf16 + kernels) vs the CPU
     (fp32 + plain versions), same weights, 16x16 latents, 154 text tokens."""
@@ -183,6 +334,31 @@ def check_model():
           f"L2 error {rel:.3e} (bound 5e-2, bf16 rounding through 2 layers)", flush=True)
     if not (torch.isfinite(out).all() and rel <= 5e-2):
         raise AssertionError(f"card MMDiT disagrees with the CPU reference: {rel}")
+    return cpu, gpu, (lat, t, ctx, pooled), g
+
+
+def check_model_grads(cpu, gpu, inputs, g):
+    """Phase: LoRA gradients of the same 2-layer full-width MMDiT (non-zero
+    LoRA B) on the card (bf16, forward and backward kernels) and on the CPU
+    (fp32, plain versions), through one fixed cotangent. Bound: relative L2
+    5e-2 of the concatenated LoRA gradients, the forward's bf16 budget."""
+    import torch
+
+    from adv_grpo_torch.models.lora import freeze_non_lora
+
+    cot = torch.randn(inputs[0].shape, generator=g)
+    grads = []
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        lora = freeze_non_lora(model)
+        out = model(*(a.to(dev) for a in inputs))
+        gs = torch.autograd.grad(out.float(), list(lora.values()), cot.to(dev))
+        grads.append(torch.cat([x.float().flatten().cpu() for x in gs]))
+    rel = _rel_l2(grads[1], grads[0])
+    print(f"model gradients: 2-layer full-width MMDiT, LoRA gradients card bf16 vs CPU "
+          f"fp32 relative L2 {rel:.3e} over {grads[0].numel()} values (bound 5e-2)",
+          flush=True)
+    if not (torch.isfinite(grads[1]).all() and rel <= 5e-2):
+        raise AssertionError(f"card LoRA gradients disagree with the CPU's: {rel}")
 
 
 def run_pipeline():
@@ -212,7 +388,9 @@ def run_pipeline():
           f"{img.min()}..{img.max()}; launches {counts}", flush=True)
     if img.shape != (512, 512, 3) or img.min() == img.max():
         raise AssertionError(f"bad PNG: shape {img.shape}, range {img.min()}..{img.max()}")
-    want = [LN_CALLS * STEPS, JOINT_CALLS * STEPS, DUAL_CALLS * STEPS]
+    from adv_grpo_torch.models.mmdit import MMDiTConfig
+
+    want = [c * STEPS for c in per_forward_counts(MMDiTConfig.sd35_medium())]
     if counts != want:
         raise AssertionError(f"kernel launch counts {counts}, expected {want}")
 
@@ -237,6 +415,86 @@ def run_pipeline():
         print(f"generate {len(prompts)} prompt(s), CFG batch {2 * len(prompts)}: "
               f"{dt:.3f} s, {dt / len(prompts):.3f} s/image (40 steps + VAE decode)",
               flush=True)
+    return counts
+
+
+def expected_train_counts(config, mcfg):
+    """Launches of the 5 kernels in a TRAIN_ARGV run, from the config: rollout
+    forwards (one CFG-batched forward per step), replay forwards and their
+    backwards (one per microbatch, two with cfg_sequential)."""
+    s, t = config.sample, config.train
+    micro = (EPOCHS * max(int(t.num_inner_epochs), 1) * int(s.num_batches_per_epoch)
+             * max(int(t.micro_splits), 1) * int(s.train_num_steps))
+    replay = micro * (2 if bool(t.cfg_sequential) and bool(t.cfg) else 1)
+    fwd = EPOCHS * int(s.num_batches_per_epoch) * int(s.num_steps) + replay
+    return ([c * fwd for c in per_forward_counts(mcfg)]
+            + [c * replay for c in per_backward_counts(mcfg)]), micro // EPOCHS
+
+
+def run_training_slice(kernels):
+    """Phase: ``adv_grpo_torch.cli.train.main`` on TRAIN_ARGV (full width,
+    random weights from the seed); returns the kernels' launch counts."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from adv_grpo_torch.cli import train
+    from adv_grpo_torch.cli.common import build_pipeline
+    from adv_grpo_torch.models.lora import lora_params
+
+    with tempfile.TemporaryDirectory() as save_dir:
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = train.main(TRAIN_ARGV + ["--set", f"save_dir={save_dir}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = [k.launches for k in kernels]
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    config, mcfg = trainer.config, trainer.pipeline.mmdit_cfg
+    want, micro = expected_train_counts(config, mcfg)
+    print(f"cli.train smoke_sd3_fast full width 512^2, {config.sample.num_steps}-step "
+          f"rollouts, {EPOCHS} epochs: {wall:.2f} s wall (pipeline build included); peak "
+          f"device memory {peak / 2**30:.2f} GiB; launches {counts}", flush=True)
+    nb = int(config.sample.num_batches_per_epoch)
+    for r in records:
+        rollout = r["time/rollout"] * nb
+        reward = r["time/reward_wait"] + r["time/reward_dispatch"] * nb
+        print(f"  epoch {r['epoch']}: rollout+decode {rollout:.3f} s, reward {reward:.3f} s "
+              f"(not overlapped with a rollout), train {r['time/train']:.3f} s = "
+              f"{r['time/train'] / micro:.3f} s per microstep ({micro} microsteps); reward "
+              f"{r['reward_avg']:.5f}, loss {r['loss']:.3e}, approx_kl {r['approx_kl']:.3e}, "
+              f"clipfrac {r['clipfrac']:.3f}", flush=True)
+        bad = [k for k in ("reward_avg", "loss", "approx_kl", "clipfrac")
+               if not np.isfinite(r[k])]
+        if bad:
+            raise AssertionError(f"epoch {r['epoch']}: non-finite {bad}")
+    if len(records) != EPOCHS or trainer.state.global_step == 0:
+        raise AssertionError(f"{len(records)} epochs logged, global step "
+                             f"{trainer.state.global_step}")
+
+    # the starting LoRA: the same seed builds the same weights
+    start = lora_params(build_pipeline(config, device="cuda").mmdit)
+    # the last block's text query feeds only the text output, which that
+    # block drops: its B factor starts at 0 and gets no gradient
+    idle = {f"block_{mcfg.num_layers - 1}/attn/add_q_proj/lora_b"}
+    lora, ema = trainer.state.lora, trainer.state.ema
+    unchanged = {k for k, p in lora.items() if torch.equal(p, start[k])}
+    ema_unchanged = {k for k, e in ema.items() if torch.equal(e, start[k])}
+    finite = all(bool(torch.isfinite(p).all()) for p in lora.values())
+    print(f"  LoRA: {len(lora) - len(unchanged)} of {len(lora)} tensors changed, finite "
+          f"{finite}; EMA: {len(ema) - len(ema_unchanged)} changed; optimizer steps "
+          f"{trainer.state.global_step}", flush=True)
+    if not finite or not unchanged <= idle or not ema_unchanged <= idle:
+        raise AssertionError(f"LoRA finite={finite}, unchanged {sorted(unchanged)}, EMA "
+                             f"unchanged {sorted(ema_unchanged)}")
+    del start
+    if counts != want:
+        raise AssertionError(f"training launch counts {counts}, expected {want}")
     return counts
 
 
@@ -266,9 +524,15 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print("  " + line.strip(), flush=True)
 
-    results = check_kernels()
-    check_model()
-    counts = run_pipeline()
+    from adv_grpo_torch.ops import fused_norms, joint_attention
+
+    results = check_kernels() + check_backward_kernels()
+    check_model_grads(*check_model())
+    run_pipeline()
+    kernels = (fused_norms.modulated_layer_norm, joint_attention.joint_mha,
+               joint_attention.mha_rms, joint_attention.joint_attention_bwd,
+               joint_attention.mha_rms_bwd)
+    counts = run_training_slice(kernels)
     for r, n in zip(results, counts):
         r["launches"] = n
     print(json.dumps({"kernels": results}))

@@ -3,18 +3,22 @@
 Marked ``cuda``: each test skips where no CUDA device is visible (the kernels
 have no interpreter mode). Run on a GPU machine with
 
-    python -m pytest tests/test_torch_cuda.py -m cuda
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
-Inputs are bf16; the plain versions run in fp32 on the same values. Bounds: the LayerNorm output is rounded once from
-fp32, so it lies within one bf16 spacing of the fp32 result (spacing taken at
+Inputs are bf16; the plain versions run in fp32 on the same values. Bounds:
+the LayerNorm output is rounded once from fp32, so it lies within one bf16
+spacing of the fp32 result (spacing taken at
 |y| >= 2^-8, below which fp32 rounding of the cancelling terms dominates);
-attention uses the bf16 bound of the TPU kernel's own tests, 2e-2 absolute.
+attention uses the bf16 bound of the TPU kernel's own tests, 2e-2 absolute;
+the attention backwards 2e-2 relative L2 per cotangent (bf16 rounding of p
+and t, the same budget).
 """
 
 import pytest
 import torch
 
 from adv_grpo_torch.ops import fused_norms, joint_attention
+from adv_grpo_torch.ops.attention import bwd_row_stats
 
 pytestmark = pytest.mark.cuda
 
@@ -84,6 +88,66 @@ def test_mha_rms_kernel(dev, s, use_rms):
     assert (o.float() - r).abs().max() <= 2e-2
 
 
+def _rel_l2(got, ref):
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+@pytest.mark.parametrize("s_i,s_t", [(1024, 154), (100, 10), (64, 64)])
+@pytest.mark.parametrize("use_rms", [True, False])
+def test_attention_backward_kernels(dev, s_i, s_t, use_rms):
+    """Both backward kernels against their plain twin on the same inputs and
+    row statistics, q/k/v/do read in place as column slices of one fused
+    projection (strided rows), then the whole autograd backward of joint_mha
+    against fp32 autograd of the plain forward."""
+    h, b = 4, 2
+    hd = 64 * h
+    img = _randn(dev, b, s_i, 4 * hd, seed=20)
+    txt = _randn(dev, b, s_t, 4 * hd, seed=21)
+    qi, ki, vi, doi = img.split(hd, dim=-1)
+    qt, kt, vt, dot = txt.split(hd, dim=-1)
+    w = [1.0 + 0.1 * _randn(dev, 64, dtype=torch.float32, seed=22 + i) for i in range(4)]
+    w = w if use_rms else None
+    pairs = None if w is None else [tuple(w[:2]), tuple(w[2:])]
+    f32 = lambda ts: [t.float() for t in ts]  # noqa: E731
+
+    oi, ot, lse_i, lse_t = joint_attention.joint_attention_fwd(
+        qi, ki, vi, qt, kt, vt, w, h, 1e-6, 0.125, True)
+    di_i, di_t = bwd_row_stats(oi, doi, h), bwd_row_stats(ot, dot, h)
+    n0 = joint_attention.joint_attention_bwd.launches
+    got = joint_attention.joint_attention_bwd(qi, ki, vi, qt, kt, vt, doi, dot, lse_i, lse_t,
+                                              di_i, di_t, num_heads=h, rms_weights=w)
+    assert joint_attention.joint_attention_bwd.launches == n0 + 1
+    (a, b_, c), (d, e, f) = joint_attention.attention_bwd_reference(
+        f32([qi, qt]), f32([ki, kt]), f32([vi, vt]), f32([doi, dot]), [lse_i, lse_t],
+        [di_i, di_t], num_heads=h, rms_weights=pairs)
+    for g_, r in zip(got, (a, b_, c, d, e, f)):
+        assert g_.shape == r.shape and _rel_l2(g_, r) <= 2e-2
+
+    o, lse = joint_attention.mha_rms_fwd(qi, ki, vi, None if w is None else w[:2], h,
+                                         1e-6, 0.125, True)
+    di = bwd_row_stats(o, doi, h)
+    n0 = joint_attention.mha_rms_bwd.launches
+    got = joint_attention.mha_rms_bwd(qi, ki, vi, doi, lse, di, num_heads=h,
+                                      rms_weights=None if w is None else w[:2])
+    assert joint_attention.mha_rms_bwd.launches == n0 + 1
+    ref = joint_attention.attention_bwd_reference(
+        f32([qi]), f32([ki]), f32([vi]), f32([doi]), [lse], [di], num_heads=h,
+        rms_weights=None if pairs is None else pairs[:1])[0]
+    for g_, r in zip(got, ref):
+        assert _rel_l2(g_, r) <= 2e-2
+
+    leaves = [t.detach().clone().requires_grad_() for t in (qi, ki, vi, qt, kt, vt)]
+    wl = None if w is None else [x.clone().requires_grad_() for x in w]
+    outs = joint_attention.joint_mha(*leaves, num_heads=h, rms_weights=wl)
+    grads = torch.autograd.grad(outs, leaves + (wl or []), (doi, dot))
+    fl = [t.detach().float().requires_grad_() for t in leaves]
+    fw = None if w is None else [x.detach().clone().requires_grad_() for x in w]
+    ref_outs = joint_attention.joint_mha_reference(*fl, num_heads=h, rms_weights=fw)
+    ref_grads = torch.autograd.grad(ref_outs, fl + (fw or []), (doi.float(), dot.float()))
+    for g_, r in zip(grads, ref_grads):
+        assert _rel_l2(g_, r) <= 2e-2
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = _randn(dev, 1, 8, 128)
     with pytest.raises(TypeError):  # fp32
@@ -95,3 +159,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         joint_attention.mha_rms(x, x, x, num_heads=4)
     with pytest.raises(TypeError):  # fp32 attention
         joint_attention.mha_rms(x.float(), x.float(), x.float(), num_heads=2)
+    stats = torch.zeros(1, 2, 8, device=dev)
+    with pytest.raises(TypeError):  # fp32 cotangent
+        joint_attention.mha_rms_bwd(x, x, x, x.float(), stats, stats, num_heads=2)
+    with pytest.raises(ValueError):  # lse of the wrong shape
+        joint_attention.mha_rms_bwd(x, x, x, x, stats[:, :1], stats, num_heads=2)
+    with pytest.raises(ValueError):  # bf16 row statistics
+        joint_attention.joint_attention_bwd(x, x, x, x, x, x, x, x, stats.bfloat16(), stats,
+                                            stats, stats, num_heads=2)
+    with pytest.raises(ValueError):  # a row stride that is not a multiple of 8
+        y = _randn(dev, 1, 8, 130)[..., :128]
+        joint_attention.mha_rms_bwd(y, y, y, y, stats, stats, num_heads=2)

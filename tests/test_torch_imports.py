@@ -19,7 +19,10 @@ PORT_MODULES = [
     "adv_grpo_torch.models.convert", "adv_grpo_torch.core.sde",
     "adv_grpo_torch.rollout.sampler", "adv_grpo_torch.train.pipeline",
     "adv_grpo_torch.config.base", "adv_grpo_torch.config.grpo",
-    "adv_grpo_torch.cli.common", "adv_grpo_torch.cli.infer",
+    "adv_grpo_torch.cli.common", "adv_grpo_torch.cli.infer", "adv_grpo_torch.ops.attention",
+    "adv_grpo_torch.core.grpo", "adv_grpo_torch.core.ema", "adv_grpo_torch.rewards.registry",
+    "adv_grpo_torch.train.train_state", "adv_grpo_torch.train.grpo_trainer",
+    "adv_grpo_torch.train.driver", "adv_grpo_torch.cli.train",
 ]
 
 

@@ -100,12 +100,14 @@ def test_mha_rms_matches_jax(backend, s, use_rms, h, d):
 
 
 def test_cpu_path_launches_no_kernel():
-    """On CPU tensors the wrappers take the plain path and count no launch."""
-    before = (t_norms.modulated_layer_norm.launches, t_attn.joint_mha.launches,
-              t_attn.mha_rms.launches)
-    x = torch.randn(1, 4, 64)
-    t_norms.modulated_layer_norm(x, torch.zeros(1, 64), torch.zeros(1, 64))
-    t_attn.joint_mha(x, x, x, x, x, x, num_heads=1)
-    t_attn.mha_rms(x, x, x, num_heads=1)
-    assert (t_norms.modulated_layer_norm.launches, t_attn.joint_mha.launches,
-            t_attn.mha_rms.launches) == before
+    """On CPU tensors the wrappers take the plain path and count no launch,
+    forward or backward."""
+    counters = (t_norms.modulated_layer_norm, t_attn.joint_mha, t_attn.mha_rms,
+                t_attn.joint_attention_bwd, t_attn.mha_rms_bwd)
+    before = [f.launches for f in counters]
+    x = torch.randn(1, 4, 64, requires_grad=True)
+    y = t_norms.modulated_layer_norm(x, torch.zeros(1, 64), torch.zeros(1, 64))
+    o_i, o_t = t_attn.joint_mha(y, y, y, y, y, y, num_heads=1)
+    (o_i.sum() + o_t.sum() + t_attn.mha_rms(y, y, y, num_heads=1).sum()).backward()
+    assert x.grad is not None
+    assert [f.launches for f in counters] == before

@@ -105,7 +105,8 @@ def test_window_record_replays(pipes):
 def test_infer_cli_writes_png(tmp_path):
     paths = t_infer.main(["--config", "eval_sd3_fast", "--prompts", "a flower",
                           "--set", "smoke_test=True", "--set", "sample.eval_num_steps=3",
-                          "--latent_hw", "8", "--out_dir", str(tmp_path)])
+                          "--latent_hw", "8", "--out_dir", str(tmp_path),
+                          "--device", "cpu"])
     assert [os.path.basename(p) for p in paths] == ["node0_rank0_00000_0.png"]
     img = np.asarray(Image.open(paths[0]))
     assert img.shape == (16, 16, 3) and img.dtype == np.uint8
@@ -114,7 +115,8 @@ def test_infer_cli_writes_png(tmp_path):
 @pytest.mark.parametrize("extra", [["--lora", "x"], ["--image", "x.png"],
                                    ["--set", "pretrained.model='/no/such/dir'"]])
 def test_infer_cli_refuses_unported_branches(tmp_path, extra):
-    argv = ["--config", "eval_sd3_fast", "--prompts", "a", "--out_dir", str(tmp_path)]
+    argv = ["--config", "eval_sd3_fast", "--prompts", "a", "--out_dir", str(tmp_path),
+            "--device", "cpu"]
     if extra[0] == "--set":
         with pytest.raises(FileNotFoundError):
             t_infer.main(argv + extra)
