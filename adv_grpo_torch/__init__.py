@@ -5,25 +5,27 @@ layout so each module's counterpart is easy to find:
 
   kernels/  nvcc build of ``csrc/*.cu`` into one ctypes-loaded library
   ops/      hand-written Hopper kernels with their plain PyTorch twins
-            (modulated LayerNorm, joint / single-stream qk-RMS attention
-            forward and backward) and their autograd Functions
-  models/   MMDiT (diffusers SD3Transformer2DModel state-dict names), LoRA
-            with its subtree helpers, the VAE decoder, and the JAX -> torch
-            parameter converters
-  core/     the fp32 Flow-CPS step, the GRPO loss and advantages, the EMA
-  rollout/  the denoise loop with CFG and the stochastic training window,
-            and the window-step replay
-  rewards/  the host reward ensembles
-  train/    the SD3 pipeline bundle, the LoRA AdamW state, the GRPO phases
-            and the single-device trainer
-  config/   the SD3 presets, as plain dictionaries
+            (modulated LayerNorm, per-head RMS, joint / single-stream
+            qk-RMS attention forward and backward, BSHD multi-head attention)
+            and their autograd Functions
+  models/   MMDiT and Flux (diffusers state-dict names), LoRA with the fused
+            sibling projection and its subtree helpers, the VAE decoder, and
+            the JAX -> torch parameter converters
+  core/     the fp32 Flow-CPS and Flow-SDE steps, the flow-match schedule,
+            the GRPO loss and advantages, the per-prompt stat tracker, the EMA
+  rollout/  the SD3 denoise loop with CFG and the stochastic training window,
+            the Flux full-SDE rollouts, and the window-step replays
+  rewards/  the host JPEG rewards and their ensembles
+  data/     the prompt datasets, the k-repeat sampler, the embedding store
+  train/    the SD3 and Flux pipeline bundles, the LoRA AdamW state, the GRPO
+            phases and the single-device trainer
+  config/   the SD3 and Flux presets, as plain dictionaries
+  utils/    the FLOP model, the metric logger, the uint8 image packer
   cli/      the inference and training entry points
 
-The package imports torch and never jax; it reuses only the jax-free modules
-of adv_grpo_tpu (the flow-match schedule, the hash text encoder, the config
-override parser, the embedding store, the uint8 image packer, the prompt
-datasets and k-repeat sampler, the per-prompt stat tracker, the host reward
-scorers and the metric logger).
+The package imports torch and never jax, and nothing of adv_grpo_tpu: where
+it needs one of the JAX package's jax-free modules it keeps its own copy,
+which tests/test_torch_copies.py holds against the original.
 """
 
 __version__ = "0.1.0"

@@ -1,21 +1,25 @@
-"""Shared CLI plumbing: config presets, pipeline assembly, text encoding.
+"""Shared CLI plumbing: config presets, overrides, pipeline assembly, text
+encoding.
 
-Port of the SD3 parts of adv_grpo_tpu/cli/common.py:88-240. The ``a.b=value``
-override parser and the deterministic hash text encoder are the JAX package's
-own (both jax-free).
+Port of adv_grpo_tpu/cli/common.py:50-69 (``apply_overrides``), :88-240
+(``build_pipeline`` for the sd3 and flux families, ``build_text_encoder``)
+and :242-258 (``make_hash_text_encoder``, the deterministic stand-in for the
+text encoders, byte for byte the JAX package's embeddings).
 """
 
 from __future__ import annotations
 
+import ast
+import functools
 import os
-from typing import Optional
+import zlib
+from typing import List, Optional
 
+import numpy as np
 import torch
 
-from adv_grpo_tpu.cli.common import apply_overrides, make_hash_text_encoder
-
 __all__ = ["apply_overrides", "build_pipeline", "build_text_encoder", "compute_dtype",
-           "resolve_config", "resolve_device"]
+           "make_hash_text_encoder", "resolve_config", "resolve_device"]
 
 _FP32 = ("fp32", "float32", "no")
 _BF16 = ("bf16", "bfloat16", "fp16", "float16")
@@ -28,8 +32,27 @@ def resolve_config(spec: str):
     return grpo.get_config(spec.rsplit(":", 1)[-1])
 
 
+def apply_overrides(config, overrides):
+    """Apply 'a.b=value' override strings (the reference's --config.x=y flags).
+    Values are python literals where they parse, raw strings otherwise."""
+    for ov in overrides or []:
+        key, sep, raw = ov.partition("=")
+        if not sep:
+            raise ValueError(f"override must be key=value, got {ov!r}")
+        node = config
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node[p]
+        try:
+            val = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            val = raw
+        node[parts[-1]] = val
+    return config
+
+
 def compute_dtype(config) -> torch.dtype:
-    """The MMDiT dtype from ``mixed_precision`` ("fp16" maps to bf16)."""
+    """The transformer dtype from ``mixed_precision`` ("fp16" maps to bf16)."""
     want = str(config.get("mixed_precision", "bf16"))
     if want not in _FP32 + _BF16:
         raise ValueError(f"Unrecognized mixed_precision {want!r}; expected one of "
@@ -47,11 +70,29 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _build_flux_pipeline(config, model_dir, lora_rank, latent_hw, device, generator):
+    """The Flux branch (JAX :135-159): the tiny random-init model; a set
+    ``pretrained.model`` (``FLUX_DIR``) raises, the loader is not ported."""
+    from adv_grpo_torch.models.flux import FluxConfig
+    from adv_grpo_torch.models.vae import VAEConfig
+    from adv_grpo_torch.train.flux_pipeline import FluxPipeline
+
+    if model_dir:
+        raise NotImplementedError(
+            f"loading the diffusers FluxTransformer2DModel at {model_dir!r} is not yet "
+            "ported to adv_grpo_torch; unset FLUX_DIR for the tiny random-init model")
+    fcfg = FluxConfig.tiny(lora_rank=max(lora_rank, 1) if lora_rank else 4)
+    return FluxPipeline.random_init(
+        generator, fcfg, VAEConfig.tiny(latent_channels=fcfg.in_channels // 4), device,
+        latent_hw=latent_hw or 8, text_seq_len=6,
+        guidance=float(config.sample.guidance_scale))
+
+
 def build_pipeline(config, latent_hw: Optional[int] = None, device="cuda"):
-    """The SD3 pipeline for ``config`` on ``device``: the tiny random-init
+    """The pipeline for ``config`` on ``device``. sd3: the tiny random-init
     model for ``smoke_test=True``, the full-size SD3.5-M with random weights
-    for ``pretrained.model=''``. Weights come from ``torch.Generator(seed)`` on
-    that device."""
+    for ``pretrained.model=''``. flux: the tiny random-init Flux. Weights come
+    from ``torch.Generator(seed)`` on that device."""
     from adv_grpo_torch.models.mmdit import MMDiTConfig
     from adv_grpo_torch.models.vae import VAEConfig
     from adv_grpo_torch.train.pipeline import SD3Pipeline
@@ -59,6 +100,15 @@ def build_pipeline(config, latent_hw: Optional[int] = None, device="cuda"):
     device = resolve_device(device)
     model_dir = str(config.pretrained.model or "")
     smoke = bool(config.get("smoke_test", False))
+    lora_rank = int(config.train.lora_rank) if config.use_lora else 0
+    generator = torch.Generator(device=device).manual_seed(int(config.seed))
+    family = str(config.get("model_family", "sd3") or "sd3")
+    if family == "flux":
+        return _build_flux_pipeline(config, model_dir, lora_rank, latent_hw, device,
+                                    generator)
+    if family != "sd3":
+        raise NotImplementedError(f"model_family={family!r} is not yet ported to "
+                                  "adv_grpo_torch (sd3 and flux only)")
     dtype = compute_dtype(config)
     if model_dir and os.path.isdir(model_dir):
         raise NotImplementedError(
@@ -70,12 +120,6 @@ def build_pipeline(config, latent_hw: Optional[int] = None, device="cuda"):
             f"config.pretrained.model={model_dir!r} is not a local diffusers-layout "
             "weights directory; set smoke_test=True / pretrained.model='' for an "
             "explicitly random-init run")
-    family = str(config.get("model_family", "sd3") or "sd3")
-    if family != "sd3":
-        raise NotImplementedError(f"model_family={family!r} is not yet ported to "
-                                  "adv_grpo_torch (sd3 only)")
-    lora_rank = int(config.train.lora_rank) if config.use_lora else 0
-    generator = torch.Generator(device=device).manual_seed(int(config.seed))
     if smoke:
         mmdit_cfg = MMDiTConfig.tiny(num_layers=2, dual_attention_layers=(0,),
                                      lora_rank=max(lora_rank, 1) if lora_rank else 4)
@@ -93,14 +137,32 @@ def build_text_encoder(config, pipeline):
     the model's widths (the real CLIP/T5 stack is not yet ported)."""
     store_dir = str(config.get("text_embeds_dir", ""))
     if store_dir:
-        from adv_grpo_tpu.data.embed_store import EmbeddingStore
+        from adv_grpo_torch.data.embed_store import EmbeddingStore
 
         return EmbeddingStore(store_dir)
     model_dir = str(config.pretrained.model or "")
     if model_dir and os.path.isdir(os.path.join(model_dir, "text_encoder")):
         raise NotImplementedError("the CLIP-L/G + T5 text encoders are not yet ported "
                                   "to adv_grpo_torch; set text_embeds_dir")
-    mcfg = pipeline.mmdit_cfg
+    mcfg = getattr(pipeline, "mmdit_cfg", None) or pipeline.flux_cfg
     return make_hash_text_encoder(seq_len=pipeline.text_seq_len,
                                   embed_dim=mcfg.joint_attention_dim,
                                   pooled_dim=mcfg.pooled_projection_dim)
+
+
+def make_hash_text_encoder(seq_len: int, embed_dim: int, pooled_dim: int):
+    """Deterministic per-prompt pseudo-embeddings: N(0, 0.2) from a numpy
+    generator seeded by the prompt's crc32 (stable across processes, unlike
+    ``hash()``), distinct across prompts."""
+
+    @functools.lru_cache(maxsize=4096)
+    def _one(prompt: str):
+        rng = np.random.default_rng(zlib.crc32(prompt.encode()))
+        return (rng.normal(0, 0.2, (seq_len, embed_dim)).astype(np.float32),
+                rng.normal(0, 0.2, (pooled_dim,)).astype(np.float32))
+
+    def encode(prompts: List[str]):
+        pairs = [_one(p) for p in prompts]
+        return np.stack([e for e, _ in pairs]), np.stack([p for _, p in pairs])
+
+    return encode

@@ -4,10 +4,15 @@ Usage:
   python -m adv_grpo_torch.cli.infer --config eval_sd3_fast --prompts "a flower" \
       --set "pretrained.model=''" [--out_dir outputs] [--device cuda]
 
+  python -m adv_grpo_torch.cli.infer --config flux_smoke --prompts "a flower" \
+      [--device cpu]
+
 Deterministic eval rollout (noise level 0, seed 0): ``eval_num_steps`` steps
-with CFG, VAE decode, one PNG per prompt named ``node0_rank0_00000_{i}.png``.
-The ``--lora``, ``--image`` (distribution transfer) and flux branches of the
-JAX CLI are not yet ported and raise.
+(sd3 with CFG; flux with its embedded guidance, on the tiny random-init model
+unless ``FLUX_DIR`` is set, which raises: the checkpoint loader is not
+ported), VAE decode, one PNG per prompt named ``node0_rank0_00000_{i}.png``.
+The ``--lora`` and ``--image`` (distribution transfer) branches of the JAX CLI
+are not yet ported and raise.
 """
 
 from __future__ import annotations
@@ -22,18 +27,30 @@ import torch
 def generate(pipeline, encode, prompts, config, seed: int = 0,
              latent_hw=None) -> torch.Tensor:
     """Images (N, 3, H, W) fp32 in about [-1, 1] for ``prompts``: the
-    deterministic ``eval_num_steps`` rollout with CFG, then the VAE decode."""
-    from adv_grpo_torch.rollout.sampler import SamplerConfig, denoise_with_logprob
-
+    deterministic ``eval_num_steps`` rollout (sd3: with CFG; flux: the
+    full-SDE sampler at noise level 0, guidance embedded), then the VAE
+    decode."""
     dev = pipeline.device
     embeds, pooled = (torch.from_numpy(np.asarray(a)).to(dev) for a in encode(prompts))
+    hw = latent_hw or int(config.resolution) // 8
+    steps = int(config.sample.eval_num_steps)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    if getattr(pipeline, "family", "sd3") == "flux":
+        from adv_grpo_torch.rollout.flux import flux_denoise_window_with_logprob
+
+        with torch.inference_mode():
+            lat = pipeline.prepare_latents(generator, len(prompts), hw)
+            vfn = pipeline.velocity_fn()
+            out = flux_denoise_window_with_logprob(
+                lambda x, t: vfn(x, t, embeds, pooled), lat, generator, steps, 0, 0.0, 0)
+            return pipeline.decode(out.final_latents)
+
+    from adv_grpo_torch.rollout.sampler import SamplerConfig, denoise_with_logprob
+
     neg_e, neg_p = (torch.from_numpy(np.asarray(a)).to(dev)
                     for a in encode([""] * len(prompts)))
-    cfg = SamplerConfig(num_steps=int(config.sample.eval_num_steps), train_num_steps=0,
-                        noise_level=0.0,
+    cfg = SamplerConfig(num_steps=steps, train_num_steps=0, noise_level=0.0,
                         guidance_scale=float(config.sample.guidance_scale))
-    hw = latent_hw or int(config.resolution) // 8
-    generator = torch.Generator(device=dev).manual_seed(seed)
     with torch.inference_mode():
         lat = pipeline.prepare_latents(generator, len(prompts), hw)
         out = denoise_with_logprob(pipeline.velocity_fn(), lat, embeds, pooled, neg_e,
@@ -59,7 +76,7 @@ def main(argv=None):
 
     from adv_grpo_torch.cli.common import (
         apply_overrides, build_pipeline, build_text_encoder, resolve_config)
-    from adv_grpo_tpu.native.lib import images_to_uint8
+    from adv_grpo_torch.utils.images import images_to_uint8
 
     config = apply_overrides(resolve_config(args.config), args.set)
     if args.lora or config.train.lora_path:

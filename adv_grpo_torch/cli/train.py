@@ -21,8 +21,8 @@ import os
 def build_trainer(config, latent_hw=None, dataset=None, device="cuda"):
     from adv_grpo_torch.cli.common import build_pipeline, build_text_encoder
     from adv_grpo_torch.rewards.registry import multi_score
+    from adv_grpo_torch.data.datasets import GenevalPromptDataset, TextPromptDataset
     from adv_grpo_torch.train.driver import GRPOTrainer
-    from adv_grpo_tpu.data.datasets import GenevalPromptDataset, TextPromptDataset
 
     reward_fn = multi_score(dict(config.reward_fn))
     eval_reward_fn = (multi_score(dict(config.eval_reward_fn))
@@ -61,7 +61,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from adv_grpo_torch.cli.common import apply_overrides, resolve_config
-    from adv_grpo_tpu.data.datasets import TextPromptDataset
+    from adv_grpo_torch.data.datasets import TextPromptDataset
 
     config = apply_overrides(resolve_config(args.config), args.set)
     if args.resume or config.train.get("lora_path", None):

@@ -1,9 +1,9 @@
-"""GRPO presets of the SD3 path, ported from adv_grpo_tpu/config/grpo.py.
+"""GRPO presets of the ported paths, from adv_grpo_tpu/config/grpo.py.
 
 Only the presets whose model path the port runs are here (``eval_sd3_fast``,
-``smoke_sd3_fast`` and the ``compressibility`` base they build on); the others
-raise ``KeyError`` with a "not yet ported" note. Values are identical to the
-JAX presets (``tests/test_torch_config.py``).
+``smoke_sd3_fast``, the ``compressibility`` base they build on, and
+``flux_smoke``); the others raise ``KeyError`` with a "not yet ported" note.
+Values are identical to the JAX presets (``tests/test_torch_config.py``).
 """
 
 from __future__ import annotations
@@ -79,6 +79,35 @@ def smoke_sd3_fast(replica_count=1):
     return config
 
 
+def flux_smoke():
+    """Flux text-to-image preset: the tiny random-init model by default;
+    ``FLUX_DIR`` names a diffusers FluxTransformer2DModel directory, whose
+    loader is not ported yet (``cli.common.build_pipeline`` raises)."""
+    config = base.get_config()
+    config.model_family = "flux"
+    config.smoke_test = True
+    config.pretrained.model = os.environ.get("FLUX_DIR", "")
+    config.resolution = 64  # tiny random-init default; real Flux: 512+
+    config.sample.num_steps = 4
+    config.sample.eval_num_steps = 4
+    config.sample.noise_level = 0.7
+    config.sample.guidance_scale = 3.5
+    config.wandb_init = False
+    config.save_dir = "logs/flux_smoke"
+    config.case_name = "flux_smoke"
+    config.dataset = os.path.join(os.getcwd(), "dataset/pickscore_small")
+    config.prompt_fn = "general_ocr"
+    config.sample.train_num_steps = 2
+    config.sample.train_batch_size = 1
+    config.sample.num_image_per_prompt = 4
+    config.sample.mini_num_image_per_prompt = 4
+    config.sample.num_batches_per_epoch = 2
+    config.train.batch_size = 4
+    config.train.gradient_accumulation_steps = 1
+    config.reward_fn = {"jpeg_compressibility": 1}
+    return config
+
+
 def eval_sd3_fast(replica_count=8):
     """Deterministic batch-eval preset (reference config/grpo.py:247-312)."""
     config = _sd3_fast_common(compressibility(), replica_count)
@@ -95,6 +124,7 @@ _PRESETS = {
     "compressibility": compressibility,
     "smoke_sd3_fast": smoke_sd3_fast,
     "eval_sd3_fast": eval_sd3_fast,
+    "flux_smoke": flux_smoke,
 }
 
 

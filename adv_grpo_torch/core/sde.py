@@ -1,7 +1,9 @@
-"""Flow-CPS sampling step with its Gaussian log-probability.
+"""Flow sampling steps with their Gaussian log-probabilities.
 
 Port of adv_grpo_tpu/core/sde.py:54 ``cps_step_with_logprob`` (reference
-``sde_step_with_logprob_new``). All math runs in a float32 island whatever the
+``sde_step_with_logprob_new``, the SD3 sampler's step) and :112
+``flow_sde_step_with_logprob`` (the original Flow-SDE step, the Flux
+sampler's). All math runs in a float32 island whatever the
 input dtype: bf16 can overflow here, and GRPO's clip range of 1e-5 makes the
 ratio exp(lp - lp_old) meaningful only at fp32 precision.
 
@@ -25,7 +27,13 @@ class SDEStepResult(NamedTuple):
 
 
 def _bcast(x, like: torch.Tensor) -> torch.Tensor:
-    """Scalar / (B,) coefficient -> fp32 tensor broadcasting over (B, ...)."""
+    """Scalar / (B,) coefficient -> fp32 tensor broadcasting over (B, ...).
+
+    A Python number becomes a device tensor by a fill, not by
+    ``torch.as_tensor``, whose host-to-device copy would make every sampler
+    step wait for the device to drain."""
+    if isinstance(x, (int, float)):
+        return torch.full((), float(x), dtype=torch.float32, device=like.device)
     x = torch.as_tensor(x, dtype=torch.float32, device=like.device)
     if x.ndim == 0:
         return x
@@ -69,5 +77,53 @@ def cps_step_with_logprob(model_output, sample, sigma, sigma_prev, noise_level, 
     # prev_sample is observed data: no gradient flows through it
     delta = prev_sample.detach() - prev_sample_mean
     log_prob = (-(delta**2)).mean(dim=tuple(range(1, x.ndim)))
+    std_b = torch.broadcast_to(std_dev_t, (x.shape[0],) + (1,) * (x.ndim - 1))
+    return SDEStepResult(prev_sample, log_prob, prev_sample_mean, std_b)
+
+
+def flow_sde_step_with_logprob(model_output, sample, sigma, sigma_prev, noise_level, *,
+                               sigma_at_one: float, noise: Optional[torch.Tensor] = None,
+                               prev_sample: Optional[torch.Tensor] = None) -> SDEStepResult:
+    """The original Flow-SDE step with the FULL Gaussian log-probability
+    (adv_grpo_tpu/core/sde.py:112; reference sd3_sde_with_logprob.py:44-71),
+    the step of the Flux rollouts:
+
+        dt      = sigma_prev - sigma                     (negative)
+        std_t   = sqrt(sigma / (1 - sigma')) * noise_level,
+                  sigma' = sigma_at_one where sigma == 1 else sigma
+        mean    = x*(1 + std_t^2/(2 sigma) dt) + v*(1 + std_t^2 (1-sigma)/(2 sigma)) dt
+        x_{t-1} = mean + std_t sqrt(-dt) * eps
+        logprob = mean_{non-batch}( -(x_{t-1}-mean)^2 / (2 (std_t sqrt(-dt))^2)
+                                    - log(std_t sqrt(-dt)) - log(sqrt(2 pi)) )
+
+    ``sigma_at_one`` is the schedule's second sigma, the reference's guard
+    for the first step where sigma == 1. At noise level 0 the step is the
+    deterministic Euler step and the log-probability is NaN (0/0), as in the
+    JAX package; the inference path ignores it.
+    """
+    v = model_output.float()
+    x = sample.float()
+    nl = _bcast(noise_level, x)
+    sig = _bcast(sigma, x)
+    sig_prev = _bcast(sigma_prev, x)
+    dt = sig_prev - sig
+
+    sig_guard = torch.where(sig == 1.0, torch.full_like(sig, sigma_at_one), sig)
+    std_dev_t = torch.sqrt(sig / (1.0 - sig_guard)) * nl
+    prev_sample_mean = x * (1.0 + std_dev_t**2 / (2.0 * sig) * dt) + v * (
+        1.0 + std_dev_t**2 * (1.0 - sig) / (2.0 * sig)) * dt
+
+    step_std = std_dev_t * torch.sqrt(-dt)
+    if prev_sample is None:
+        if noise is None:
+            raise ValueError("flow_sde_step_with_logprob: provide either noise or prev_sample")
+        prev_sample = prev_sample_mean + step_std * noise.float()
+    else:
+        prev_sample = prev_sample.float()
+
+    delta = prev_sample.detach() - prev_sample_mean
+    log_prob = (-(delta**2) / (2.0 * step_std**2) - torch.log(step_std)
+                - math.log(math.sqrt(2.0 * math.pi)))
+    log_prob = log_prob.mean(dim=tuple(range(1, x.ndim)))
     std_b = torch.broadcast_to(std_dev_t, (x.shape[0],) + (1,) * (x.ndim - 1))
     return SDEStepResult(prev_sample, log_prob, prev_sample_mean, std_b)

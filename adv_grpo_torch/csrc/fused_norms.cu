@@ -1,19 +1,31 @@
-// Modulated LayerNorm, y = LN(x) * (1 + scale[b]) + shift[b], for Hopper (sm_90a).
+// Row norms for Hopper (sm_90a): the modulated LayerNorm
+// y = LN(x) * (1 + scale[b]) + shift[b], and the per-head RMS norm
+// y = x * rsqrt(mean_head(x^2) + eps) * w.
 //
 // Replaces: adv_grpo_tpu/ops/fused_norms.py `_lnmod_kernel` (called through
-// `_ln_mod_p`, public `modulated_layer_norm`), the AdaLN-modulated LayerNorm
-// that runs 109 times per SD3.5-M MMDiT forward.
+// `_ln_mod_p`, public `modulated_layer_norm`), which runs 109 times per
+// SD3.5-M MMDiT forward and 115 times per Flux.1-dev forward; and both bodies
+// of `_rms_heads_p` (public `rms_norm_heads`): `_rms_kernel` (heads of d <=
+// 128, Flux's qk-norm, 152 times per forward) and `_rms_row_kernel` (one
+// head spanning the whole row, WAN's across-heads qk-norm).
 //
-// Bound on this card: device-memory bandwidth. A (B, S, 1536) bf16 row does
-// ~8 flops per element against 4 bytes moved (2 read, 2 written), far below
-// the ~295 flop/byte ridge of the H100's bf16 tensor cores.
+// Bound on this card: device-memory bandwidth. Either norm does ~4-8 flops
+// per element against 4 bytes moved (2 read, 2 written), far below the ~295
+// flop/byte ridge of the H100's bf16 tensor cores.
 //
 // Design: one block per (batch, token) row. Each thread loads its part of the
 // row once as 16-byte vectors and keeps it in registers, so x is read from
-// device memory exactly once and y written exactly once; the statistics are
-// two block reductions (mean, then the centred variance) in fp32, the same
-// two-pass order as the TPU kernel. The row's (1 + scale) and shift vectors
-// are read once per row and stay in L2 across the S rows of a batch item.
+// device memory exactly once and y written exactly once; statistics in fp32.
+//  * LayerNorm: two block reductions (mean, then the centred variance), the
+//    TPU kernel's two-pass order; the row's (1 + scale) and shift vectors are
+//    read once per row and stay in L2 across the S rows of a batch item.
+//  * RMS: the group width d is a runtime argument. When a head's d/8 vectors
+//    tile a warp (d in 8..256), the lanes of one head sit side by side and
+//    the sum of squares is a shuffle reduction among them (16 lanes at Flux's
+//    d = 128, so a warp normalises two heads); when the head is the whole row
+//    (num_heads = 1, any width) it is a block reduction. Rows are read in
+//    place through (batch, row) strides, so q / k may be column slices of one
+//    fused projection.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,6 +56,14 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   float t = lane < nwarps ? red[lane] : 0.f;
   for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
   return t;
+}
+
+// threads for a row of nvec 16-byte vectors: at most kMaxVecPerThread each,
+// a multiple of 32
+int row_threads(int nvec) {
+  const int per_thread = (nvec + 1023) / 1024;
+  const int threads = (nvec + per_thread - 1) / per_thread;
+  return ((threads + 31) / 32) * 32;
 }
 
 template <typename T>
@@ -111,16 +131,72 @@ int launch_lnmod(const void* x, const void* scale, const void* shift, void* y,
                  long long rows, int rows_per_batch, int d, long long scale_stride,
                  long long shift_stride, float eps, void* stream) {
   constexpr int VEC = 16 / sizeof(T);
-  const int nvec = d / VEC;
-  const int per_thread = (nvec + 1023) / 1024;
-  int threads = (nvec + per_thread - 1) / per_thread;
-  threads = ((threads + 31) / 32) * 32;
+  const int threads = row_threads(d / VEC);
   lnmod_kernel<T><<<static_cast<unsigned int>(rows), threads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(scale),
       static_cast<const T*>(shift), static_cast<T*>(y), rows_per_batch, d, scale_stride,
       shift_stride, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Per-head RMS over a row of `hd` = num_heads * d values: see the header.
+__global__ void rms_heads_kernel(const __nv_bfloat16* __restrict__ x,
+                                 const float* __restrict__ w, __nv_bfloat16* __restrict__ y,
+                                 int rows_per_batch, int hd, int d, long long x_sb,
+                                 long long x_ss, float eps) {
+  constexpr int VEC = 8;
+  __shared__ float red[32];
+  const long long row = blockIdx.x;
+  const long long b = row / rows_per_batch, s = row % rows_per_batch;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + b * x_sb + s * x_ss);
+  uint4* yr = reinterpret_cast<uint4*>(y + row * hd);
+  const int nvec = hd / VEC, vph = d / VEC;  // vectors per row / per head
+
+  float v[kMaxVecPerThread][VEC];
+  float ss[kMaxVecPerThread];
+#pragma unroll
+  for (int k = 0; k < kMaxVecPerThread; ++k) {
+    const int vi = threadIdx.x + k * blockDim.x;
+    ss[k] = 0.f;
+    if (vi < nvec) {
+      alignas(16) __nv_bfloat16 e[VEC];
+      *reinterpret_cast<uint4*>(e) = xr[vi];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        v[k][j] = to_f(e[j]);
+        ss[k] += v[k][j] * v[k][j];
+      }
+    }
+  }
+  if (vph <= 32 && 32 % vph == 0) {
+    // blockDim is a multiple of 32 and vph divides 32, so each aligned group
+    // of vph lanes holds one head (or lies wholly past the row's end)
+#pragma unroll
+    for (int k = 0; k < kMaxVecPerThread; ++k)
+      for (int o = 1; o < vph; o <<= 1) ss[k] += __shfl_xor_sync(0xffffffffu, ss[k], o);
+  } else {  // one head spans the row
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < kMaxVecPerThread; ++k) t += ss[k];
+    t = block_sum(t, red);
+#pragma unroll
+    for (int k = 0; k < kMaxVecPerThread; ++k) ss[k] = t;
+  }
+#pragma unroll
+  for (int k = 0; k < kMaxVecPerThread; ++k) {
+    const int vi = threadIdx.x + k * blockDim.x;
+    if (vi < nvec) {
+      const float r = rsqrtf(ss[k] / d + eps);
+      const float4* wv = reinterpret_cast<const float4*>(w + (vi % vph) * VEC);
+      const float4 w0 = wv[0], w1 = wv[1];
+      const float ww[VEC] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+      alignas(16) __nv_bfloat16 eo[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) eo[j] = from_f<__nv_bfloat16>(v[k][j] * r * ww[j]);
+      yr[vi] = *reinterpret_cast<uint4*>(eo);
+    }
+  }
 }
 
 }  // namespace
@@ -136,4 +212,18 @@ extern "C" int lnmod_bf16(const void* x, const void* scale, const void* shift, v
                           void* stream) {
   return launch_lnmod<__nv_bfloat16>(x, scale, shift, y, rows, rows_per_batch, d,
                                      scale_stride, shift_stride, eps, stream);
+}
+
+// x: bf16 rows of width hd, row b*rows_per_batch + s at x + b*x_sb + s*x_ss
+// (unit stride along hd, 16-byte aligned rows); w: fp32 (d,); y: contiguous
+// bf16 (rows, hd). hd = num_heads * d with d a multiple of 8 that divides 256,
+// or d == hd; hd at most 32768 (the wrapper checks). Returns cudaGetLastError().
+extern "C" int rms_heads_bf16(const void* x, const void* w, void* y, long long rows,
+                              int rows_per_batch, int hd, int d, long long x_sb,
+                              long long x_ss, float eps, void* stream) {
+  rms_heads_kernel<<<static_cast<unsigned int>(rows), row_threads(hd / 8), 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
+      static_cast<__nv_bfloat16*>(y), rows_per_batch, hd, d, x_sb, x_ss, eps);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,9 @@
 """JAX parameter trees -> the port's state dicts.
 
 The inverse of adv_grpo_tpu.models.convert's ``convert_mmdit`` /
-``convert_vae``: a Flax tree of numpy arrays (as ``jax.device_get`` returns
-it) becomes a ``state_dict`` with diffusers names, so the two packages compute
-the same function from the same weights.
+``convert_flux`` / ``convert_vae``: a Flax tree of numpy arrays (as
+``jax.device_get`` returns it) becomes a ``state_dict`` with diffusers names,
+so the two packages compute the same function from the same weights.
 
   * Dense kernels (in, out) -> Linear weights (out, in);
   * Conv kernels HWIO -> OIHW;
@@ -86,6 +86,56 @@ def mmdit_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
                     out[f"{b}{attn}.{name}.weight"] = _tensor(leaf["weight"])
                 else:
                     _dense(f"{b}{attn}.{attn_names[name]}", leaf, out)
+    return out
+
+
+def flux_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    """adv_grpo_tpu FluxTransformer params (LoRA leaves included) ->
+    adv_grpo_torch FluxTransformer state dict; the inverse of the JAX
+    ``convert_flux``."""
+    p = _unwrap(params)
+    out: Dict[str, torch.Tensor] = {}
+    embeds = [("x_embedder", "x_embedder"), ("context_embedder", "context_embedder"),
+              ("time_embed_1", "time_text_embed.timestep_embedder.linear_1"),
+              ("time_embed_2", "time_text_embed.timestep_embedder.linear_2"),
+              ("pooled_embed_1", "time_text_embed.text_embedder.linear_1"),
+              ("pooled_embed_2", "time_text_embed.text_embedder.linear_2"),
+              ("proj_out_final", "proj_out")]
+    if cfg.guidance_embeds:
+        embeds += [("guidance_embed_1", "time_text_embed.guidance_embedder.linear_1"),
+                   ("guidance_embed_2", "time_text_embed.guidance_embedder.linear_2")]
+    for src, dst in embeds:
+        _dense(dst, p[src], out)
+    _dense("norm_out.linear", p["norm_out"]["linear"], out)
+
+    attn_names = {"to_q": "to_q", "to_k": "to_k", "to_v": "to_v", "to_out": "to_out.0",
+                  "add_to_q": "add_q_proj", "add_to_k": "add_k_proj",
+                  "add_to_v": "add_v_proj", "to_add_out": "to_add_out"}
+    norm_names = {"norm_q": "norm_q", "norm_k": "norm_k", "add_norm_q": "norm_added_q",
+                  "add_norm_k": "norm_added_k"}
+    for i in range(cfg.num_double_layers):
+        blk = p[f"double_{i}"]
+        b = f"transformer_blocks.{i}."
+        _dense(b + "norm1.linear", blk["norm1"]["linear"], out)
+        _dense(b + "norm1_context.linear", blk["norm1_context"]["linear"], out)
+        for name, leaf in blk["attn"].items():
+            if name in norm_names:
+                out[f"{b}attn.{norm_names[name]}.weight"] = _tensor(leaf["weight"])
+            else:
+                _dense(f"{b}attn.{attn_names[name]}", leaf, out)
+        for ff in ("ff", "ff_context"):
+            _dense(f"{b}{ff}.net.0.proj", blk[f"{ff}_fc1"], out)
+            _dense(f"{b}{ff}.net.2", blk[f"{ff}_fc2"], out)
+    for i in range(cfg.num_single_layers):
+        blk = p[f"single_{i}"]
+        b = f"single_transformer_blocks.{i}."
+        _dense(b + "norm.linear", blk["norm"]["linear"], out)
+        for name in ("to_q", "to_k", "to_v"):
+            _dense(f"{b}attn.{name}", blk[name], out)
+        for name in ("norm_q", "norm_k"):
+            out[f"{b}attn.{name}.weight"] = _tensor(blk[name]["weight"])
+        _dense(b + "proj_mlp", blk["proj_mlp"], out)
+        _dense(b + "proj_out", blk["proj_out"], out)
     return out
 
 

@@ -54,6 +54,64 @@ class LoRALinear(nn.Module):
         return y
 
 
+def fused_qkv_proj(mods, x, lora_scale: float = 1.0):
+    """Apply sibling ``LoRALinear``s of the SAME input as ONE product (the JAX
+    ``fused_qkv_proj``, adv_grpo_tpu/models/lora.py:90).
+
+    The base weights and the LoRA A factors concatenate into one operand of
+    ``N*out + N*r`` output columns, so ``x`` is read once for all of them; a
+    product's output columns are independent, so each slice equals the
+    separate ``x W_i^T + b_i`` / ``x A_i`` (the biases ride in the product's
+    epilogue, zeros beside the A columns). ``scaling * (x A_i) B_i`` is then
+    added per projection in the compute dtype, as the JAX op does. Without
+    LoRA the outputs are column slices of one tensor (strided rows). The
+    modules keep their own parameters (and state-dict names); they must share
+    the input width, rank and dtype and all have biases. Returns the N
+    outputs in order.
+    """
+    m0 = mods[0]
+    dt = m0.weight.dtype
+    r = m0.lora_rank
+    y = F.linear(x.to(dt), *_fused_operand(mods))
+    outs, off = [], 0
+    for m in mods:
+        outs.append(y[..., off:off + m.out_features])
+        off += m.out_features
+    if r > 0:
+        scaling = lora_scale * (m0.lora_alpha / r)
+        for i, m in enumerate(mods):
+            h = y[..., off + i * r: off + (i + 1) * r]
+            outs[i] = outs[i] + scaling * (h @ m.lora_b.to(dt))
+    return outs
+
+
+def _fused_operand(mods):
+    """(weight, bias) of :func:`fused_qkv_proj`'s one product.
+
+    Concatenating copies every base weight, so the operand is kept on the
+    first module and reused while its parameters stay the same tensors,
+    unmodified in place (the cache holds each parameter's storage alive and
+    records its in-place version). It is rebuilt on every call when autograd
+    must reach the parameters through it (a training forward)."""
+    dt = mods[0].weight.dtype
+    lora = [m.lora_a for m in mods if m.lora_rank > 0]
+    params = [m.weight for m in mods] + lora + [m.bias for m in mods]
+    grad = torch.is_grad_enabled() and any(p.requires_grad for p in params)
+    mode = torch.is_inference_mode_enabled()
+    cached = mods[0].__dict__.get("_fused_operand_cache")
+    if not grad and cached is not None and cached[0] == mode and all(
+            a.data_ptr() == p.data_ptr() and a.device == p.device and v == p._version
+            for (a, v), p in zip(cached[1], params)):
+        return cached[2]
+    weight = torch.cat([m.weight for m in mods] + [a.t().to(dt) for a in lora])
+    lora_bias = [torch.zeros(len(lora) * mods[0].lora_rank, dtype=dt, device=weight.device)]
+    bias = torch.cat([m.bias for m in mods] + (lora_bias if lora else []))
+    if not grad:
+        mods[0]._fused_operand_cache = (mode, [(p.detach(), p._version) for p in params],
+                                        (weight, bias))
+    return weight, bias
+
+
 def jax_lora_path(name: str) -> str:
     """Port parameter name -> the JAX flat LoRA path:
     ``transformer_blocks.3.attn.to_out.0.lora_a`` -> ``block_3/attn/to_out/lora_a``."""

@@ -1,4 +1,4 @@
-"""SD3-class AutoencoderKL decoder (16-channel latents) in PyTorch, fp32.
+"""SD3 / Flux AutoencoderKL decoder (16-channel latents) in PyTorch, fp32.
 
 Port of the decode half of adv_grpo_tpu/models/vae.py, with diffusers
 ``AutoencoderKL`` state-dict names (``decoder.conv_in``,
@@ -41,6 +41,14 @@ class VAEConfig:
     @classmethod
     def sd3(cls, **overrides) -> "VAEConfig":
         return cls(**overrides)
+
+    @classmethod
+    def flux(cls, **overrides) -> "VAEConfig":
+        """Flux.1's VAE: the SD3 topology (16 latent channels) with its own
+        latent normalisation (diffusers FLUX.1-dev vae/config.json)."""
+        defaults = dict(scaling_factor=0.3611, shift_factor=0.1159)
+        defaults.update(overrides)
+        return cls(**defaults)
 
     @classmethod
     def tiny(cls, **overrides) -> "VAEConfig":

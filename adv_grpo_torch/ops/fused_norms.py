@@ -1,12 +1,16 @@
-"""Row norms: the modulated LayerNorm kernel and the plain norms beside it.
+"""Row norms: the modulated LayerNorm and per-head RMS kernels, and the plain
+norms beside them.
 
 Port of adv_grpo_tpu/ops/fused_norms.py. ``modulated_layer_norm`` is the
 AdaLN ``LN(x) * (1 + scale[:, None]) + shift[:, None]`` (no affine, fp32
-statistics) that the MMDiT runs 109 times per forward; on a CUDA tensor it
-launches the hand-written kernel in ``csrc/fused_norms.cu``, on a CPU tensor it
-runs the plain version :func:`lnmod_reference`. Its backward, and the per-head
-RMS backward that the fused attention backwards need, are the JAX package's
-closed forms in plain PyTorch (they are plain XLA there too).
+statistics) that the MMDiT runs 109 times per forward and Flux.1-dev 115
+times; ``rms_norm_heads`` is the per-head RMS qk-norm that Flux runs on its
+own (RoPE sits between the norm and the attention), 152 times per forward.
+On a CUDA tensor each launches its hand-written kernel in
+``csrc/fused_norms.cu``, on a CPU tensor it runs the plain version
+(:func:`lnmod_reference`, :func:`rms_reference`). Their backwards, which the
+fused attention backwards share, are the JAX package's closed forms in plain
+PyTorch (they are plain XLA there too).
 
 The plain versions are device-agnostic tensor code, so they also serve as the
 reference the kernel is checked against on the card.
@@ -75,6 +79,82 @@ def rms_bwd_closed(x, w, dy, num_heads, eps):
     dx = r * gw - xf * (r ** 3 / d) * (xf * gw).sum(-1, keepdim=True)
     dw = (g * xf * r).sum(dim=(0, 1, 2))
     return dx.reshape(b, s, hd).to(x.dtype), dw.to(w.dtype)
+
+
+def _rms_forward(x, w, num_heads, eps, out_dtype):
+    """The per-head RMS kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if x.device.type == "cpu":
+        return rms_reference(x, w, num_heads, eps, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"rms_norm_heads: unsupported device {x.device}")
+    if x.ndim != 3:
+        raise ValueError(f"rms_norm_heads: x must be (B, S, H*D), got {tuple(x.shape)}")
+    b, s, hd = x.shape
+    if num_heads < 1 or hd % num_heads:
+        raise ValueError(f"rms_norm_heads: width {hd} does not split into {num_heads} heads")
+    d = hd // num_heads
+    if x.dtype != torch.bfloat16 or out_dtype != torch.bfloat16:
+        raise TypeError(f"rms_norm_heads: the kernel takes bf16 x and output; got x "
+                        f"{x.dtype}, out {out_dtype}")
+    if (w.device != x.device or w.dtype != torch.float32 or w.shape != (d,)
+            or not w.is_contiguous()):
+        raise ValueError(f"rms_norm_heads: the weight must be contiguous fp32 ({d},) on "
+                         f"{x.device}, got {w.dtype} {tuple(w.shape)} on {w.device}")
+    vec = 8  # bf16 elements per 16-byte vector
+    # a head's vectors are reduced by lane shuffles when they tile a warp
+    # (d <= 256), by a block reduction when the head is the whole row
+    if d % vec or not ((32 % (d // vec) == 0) or num_heads == 1) or hd // vec > 4096:
+        raise ValueError(f"rms_norm_heads: head width {d} of {num_heads} heads: the kernel "
+                         f"takes d in (8, 16, 32, 64, 128, 256), or one head of any "
+                         f"multiple of {vec} up to {4096 * vec}")
+    # rows read in place through (batch, row) strides, as 16-byte vectors
+    if x.stride(2) != 1 or x.stride(0) % vec or x.stride(1) % vec or x.data_ptr() % 16:
+        raise ValueError("rms_norm_heads: the last dim must be contiguous, with batch/row "
+                         "strides that are multiples of 8 and a 16-byte aligned base")
+    y = torch.empty((b, s, hd), dtype=torch.bfloat16, device=x.device)
+    if y.numel():
+        rc = _kernels.lib().rms_heads_bf16(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), b * s, s, hd, d, x.stride(0),
+            x.stride(1), float(eps), _kernels.stream_ptr(x.device))
+        _kernels.check(rc, "rms_norm_heads")
+        rms_norm_heads.launches += 1
+    return y
+
+
+class _RmsNormHeads(torch.autograd.Function):
+    """The JAX ``_rms_heads_p`` custom VJP: forward the kernel (CUDA) or the
+    plain version (CPU); backward the closed form :func:`rms_bwd_closed`."""
+
+    @staticmethod
+    def forward(ctx, x, w, num_heads, eps, out_dtype):
+        ctx.save_for_backward(x, w)
+        ctx.args = (num_heads, eps)
+        return _rms_forward(x, w, num_heads, eps, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return (*rms_bwd_closed(x, w, dy, *ctx.args), None, None, None)
+
+
+def rms_norm_heads(x, w, *, num_heads: int, eps: float = 1e-6, out_dtype=None):
+    """Per-head RMS norm of (B, S, H*D) with a shared fp32 (D,) weight:
+    statistics in fp32, ``x * rsqrt(mean(x^2) + eps) * w``, cast to
+    ``out_dtype`` — the Flux / WAN qk-norm (``num_heads=1`` normalises the
+    whole row, WAN's across-heads norm).
+
+    CPU tensors take the plain path; CUDA tensors launch the kernel in
+    ``csrc/fused_norms.cu`` (bf16 in and out, rows read through their
+    strides) or raise. Differentiable in x and w.
+    """
+    out_dtype = out_dtype or x.dtype
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RmsNormHeads.apply(x, w, num_heads, eps, out_dtype)
+    return _rms_forward(x, w, num_heads, eps, out_dtype)
+
+
+rms_norm_heads.launches = 0
 
 
 def _lnmod_forward(x, scale, shift, eps, out_dtype):

@@ -7,8 +7,9 @@ the single-stream form used by SD3.5's dual self-attention.
 
 Forward: on CUDA tensors both launch the kernel in ``csrc/joint_attention.cu``,
 which walks the two streams as separate kv tiles of one online softmax,
-straight from the (B, S, H*64) projection layout, and writes the per-row
-log-sum-exp when a backward will need it. On CPU tensors they run the plain
+straight from the (B, S, H*D) projection layout (D = 64, SD3.5, with the
+qk-RMS fused; or D = 128, Flux, whose qk-norm and RoPE come before), and
+writes the per-row log-sum-exp when a backward will need it. On CPU tensors they run the plain
 versions, which follow the JAX ``backend="reference"`` path op for op: RMS
 (cast back to the input dtype), concat, fp32 softmax, split.
 
@@ -17,40 +18,23 @@ Backward (``torch.autograd.Function``s mirroring the JAX ``_joint_mha_p`` /
 then the backward kernel in ``csrc/joint_attention_bwd.cu`` (CUDA) or its plain
 twin (CPU) — both in the TPU kernel's op order — gives the cotangents of the
 NORMALISED q and k and of v, and the closed-form RMS backward turns those into
-dq, dk and the RMS-weight gradients.
+dq, dk and the RMS-weight gradients. The backward kernels take D = 64 only
+(training Flux comes later) and raise at other widths.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from adv_grpo_torch.kernels import build as _kernels
-from adv_grpo_torch.ops.attention import bwd_row_stats
+from adv_grpo_torch.ops.attention import (
+    HEAD_DIMS, LOG2E, attention_reference, bwd_row_stats, check_rows, head_dim_of,
+    int64_array)
+from adv_grpo_torch.ops.attention import from_bhsd as _from4
+from adv_grpo_torch.ops.attention import to_bhsd as _to4
 from adv_grpo_torch.ops.fused_norms import rms_bwd_closed, rms_reference
 
-_LOG2E = 1.4426950408889634  # the kernels' softmax runs in base 2
-_HEAD_DIM = 64  # the one head width the kernels are built for (SD3.5)
-
-
-def attention_reference(q, k, v, *, sm_scale, return_lse=False):
-    """Plain (B, H, S, D) softmax attention in fp32, cast back to q's dtype;
-    with ``return_lse`` also the natural-log lse of each row, fp32 (B, H, S)."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
-    return (o, torch.logsumexp(s, dim=-1)) if return_lse else o
-
-
-def _to4(a, num_heads):
-    b, s, hd = a.shape
-    return a.reshape(b, s, num_heads, hd // num_heads).transpose(1, 2)
-
-
-def _from4(o):
-    b, h, s, d = o.shape
-    return o.transpose(1, 2).reshape(b, s, h * d)
+_BWD_HEAD_DIMS = (64,)  # the backward kernels' one head width (SD3.5)
 
 
 def joint_mha_reference(q_img, k_img, v_img, q_txt, k_txt, v_txt, *, num_heads,
@@ -122,10 +106,10 @@ def attention_bwd_reference(qs, ks, vs, dos, lses, dis, *, num_heads, rms_weight
     yk = torch.cat([norm(k, w[1]) for k, w in zip(ks, ws)], dim=2).to(dt).float()
     v = torch.cat([_to4(a, num_heads) for a in vs], dim=2).float()
     do = torch.cat([_to4(a, num_heads) for a in dos], dim=2).float()
-    lse2 = torch.cat(lses, dim=-1)[..., None].float() * _LOG2E
+    lse2 = torch.cat(lses, dim=-1)[..., None].float() * LOG2E
     di = torch.cat(dis, dim=-1)[..., None].float()
 
-    qs2 = (yq * (sm_scale * _LOG2E)).to(dt).float()
+    qs2 = (yq * (sm_scale * LOG2E)).to(dt).float()
     yq_s = (yq * sm_scale).to(dt).float()
     p = torch.exp2(qs2 @ yk.transpose(-1, -2) - lse2)
     dv = p.to(dt).float().transpose(-1, -2) @ do
@@ -144,20 +128,12 @@ def attention_bwd_reference(qs, ks, vs, dos, lses, dis, *, num_heads, rms_weight
 
 
 def _check_stream(what, tensors, batch, hd, device):
-    """Validate one stream's (B, S, H*64) tensors for a kernel; return S."""
+    """Validate one stream's (B, S, H*D) tensors for a kernel; return S."""
+    check_rows(what, tensors, device)
     length = tensors[0].shape[1]
     for t in tensors:
-        if t.device != device:
-            raise ValueError(f"{what}: all inputs must be on {device}, got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what}: the kernel takes bf16 q/k/v, got {t.dtype}")
-        if t.ndim != 3 or t.shape != (batch, length, hd):
+        if t.shape != (batch, length, hd):
             raise ValueError(f"{what}: expected {(batch, length, hd)}, got {tuple(t.shape)}")
-        # read in place through (batch, row) strides as 16-byte vectors: a
-        # head's 64 columns must be contiguous and 16-byte aligned
-        if t.stride(2) != 1 or t.stride(0) % 8 or t.stride(1) % 8 or t.data_ptr() % 16:
-            raise ValueError(f"{what}: the last dim must be contiguous, with batch/row "
-                             "strides that are multiples of 8 and a 16-byte aligned base")
     return length
 
 
@@ -171,35 +147,34 @@ def _check_stats(what, stats, batch, num_heads, length, device):
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _check_weights(what, weights, n, device):
-    """Validate the RMS weights; return their n device pointers (None if absent)."""
+def _check_weights(what, weights, n, d, device):
+    """Validate the (d,) RMS weights; return their n device pointers (None if
+    absent)."""
     if weights is None:
         return [None] * n
     if len(weights) != n:
         raise ValueError(f"{what}: expected {n} RMS weights, got {len(weights)}")
     for w in weights:
-        if (w.device != device or w.dtype != torch.float32 or w.shape != (_HEAD_DIM,)
+        if (w.device != device or w.dtype != torch.float32 or w.shape != (d,)
                 or not w.is_contiguous()):
-            raise ValueError(f"{what}: RMS weights must be contiguous fp32 ({_HEAD_DIM},) "
-                             f"on {device}")
+            raise ValueError(f"{what}: RMS weights must be contiguous fp32 ({d},) on {device}")
     return [w.data_ptr() for w in weights]
 
 
 def _strides(*tensors):
-    vals = [st for t in tensors for st in (t.stride(0), t.stride(1))]
-    return (ctypes.c_longlong * len(vals))(*vals)
+    return int64_array([st for t in tensors for st in (t.stride(0), t.stride(1))])
 
 
-def _geometry(what, q, num_heads):
+def _geometry(what, q, num_heads, dims=HEAD_DIMS):
+    """(batch, width, head width) of a kernel call; raises on a device, a
+    head width or an empty stream the kernel does not take."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     b, s, hd = q.shape
-    if hd != num_heads * _HEAD_DIM:
-        raise ValueError(f"{what}: the kernel takes heads of {_HEAD_DIM}; got width "
-                         f"{hd} for {num_heads} heads")
+    d = head_dim_of(what, hd, num_heads, dims)
     if s < 1:
         raise ValueError(f"{what}: empty image stream")
-    return b, hd
+    return b, hd, d
 
 
 def _lse_out(b, num_heads, s, dev, want):
@@ -219,11 +194,11 @@ def joint_attention_fwd(q_img, k_img, v_img, q_txt, k_txt, v_txt, rms_weights, n
                                   num_heads=num_heads, rms_weights=rms_weights, eps=eps,
                                   sm_scale=sm_scale, return_lse=want_lse)
         return out if want_lse else (*out, None, None)
-    b, hd = _geometry("joint_mha", q_img, num_heads)
+    b, hd, d = _geometry("joint_mha", q_img, num_heads)
     dev = q_img.device
     s_i = _check_stream("joint_mha", (q_img, k_img, v_img), b, hd, dev)
     s_t = _check_stream("joint_mha", (q_txt, k_txt, v_txt), b, hd, dev)
-    w = _check_weights("joint_mha", rms_weights, 4, dev)
+    w = _check_weights("joint_mha", rms_weights, 4, d, dev)
     o_img = torch.empty((b, s_i, hd), dtype=torch.bfloat16, device=dev)
     o_txt = torch.empty((b, s_t, hd), dtype=torch.bfloat16, device=dev)
     lse_img = _lse_out(b, num_heads, s_i, dev, want_lse)
@@ -232,8 +207,8 @@ def joint_attention_fwd(q_img, k_img, v_img, q_txt, k_txt, v_txt, rms_weights, n
     rc = _kernels.lib().joint_attention_fwd_bf16(
         q_img.data_ptr(), k_img.data_ptr(), v_img.data_ptr(), o_img.data_ptr(),
         _ptr(lse_img), s_i, q_txt.data_ptr(), k_txt.data_ptr(), v_txt.data_ptr(),
-        o_txt.data_ptr(), _ptr(lse_txt), s_t, strides, *w, b, num_heads,
-        float(sm_scale * _LOG2E), float(eps), _kernels.stream_ptr(dev))
+        o_txt.data_ptr(), _ptr(lse_txt), s_t, strides, *w, b, num_heads, d,
+        float(sm_scale * LOG2E), float(eps), _kernels.stream_ptr(dev))
     _kernels.check(rc, "joint_mha")
     joint_mha.launches += 1
     return o_img, o_txt, lse_img, lse_txt
@@ -245,15 +220,15 @@ def mha_rms_fwd(q, k, v, rms_weights, num_heads, eps, sm_scale, want_lse):
         out = mha_rms_reference(q, k, v, num_heads=num_heads, rms_weights=rms_weights,
                                 eps=eps, sm_scale=sm_scale, return_lse=want_lse)
         return out if want_lse else (out, None)
-    b, hd = _geometry("mha_rms", q, num_heads)
+    b, hd, d = _geometry("mha_rms", q, num_heads)
     dev = q.device
     s = _check_stream("mha_rms", (q, k, v), b, hd, dev)
-    w = _check_weights("mha_rms", rms_weights, 2, dev)
+    w = _check_weights("mha_rms", rms_weights, 2, d, dev)
     o = torch.empty((b, s, hd), dtype=torch.bfloat16, device=dev)
     lse = _lse_out(b, num_heads, s, dev, want_lse)
     rc = _kernels.lib().mha_rms_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _ptr(lse), s,
-        _strides(q, k, v, o), *w, b, num_heads, float(sm_scale * _LOG2E), float(eps),
+        _strides(q, k, v, o), *w, b, num_heads, d, float(sm_scale * LOG2E), float(eps),
         _kernels.stream_ptr(dev))
     _kernels.check(rc, "mha_rms")
     mha_rms.launches += 1
@@ -277,13 +252,13 @@ def joint_attention_bwd(q_img, k_img, v_img, q_txt, k_txt, v_txt, do_img, do_txt
             rms_weights=pairs, eps=eps, sm_scale=sm_scale)
         return (*img, *txt)
     what = "joint_attention_bwd"
-    b, hd = _geometry(what, q_img, num_heads)
+    b, hd, d = _geometry(what, q_img, num_heads, _BWD_HEAD_DIMS)
     dev = q_img.device
     s_i = _check_stream(what, (q_img, k_img, v_img, do_img), b, hd, dev)
     s_t = _check_stream(what, (q_txt, k_txt, v_txt, do_txt), b, hd, dev)
     _check_stats(what, (lse_img, di_img), b, num_heads, s_i, dev)
     _check_stats(what, (lse_txt, di_txt), b, num_heads, s_t, dev)
-    w = _check_weights(what, rms_weights, 4, dev)
+    w = _check_weights(what, rms_weights, 4, d, dev)
     outs = [torch.empty((b, s, hd), dtype=torch.bfloat16, device=dev)
             for s in (s_i, s_i, s_i, s_t, s_t, s_t)]
     strides = _strides(q_img, k_img, v_img, do_img, q_txt, k_txt, v_txt, do_txt)
@@ -313,11 +288,11 @@ def mha_rms_bwd(q, k, v, do, lse, di, *, num_heads, rms_weights=None, eps=1e-6,
                                        num_heads=num_heads, rms_weights=pairs, eps=eps,
                                        sm_scale=sm_scale)[0]
     what = "mha_rms_bwd"
-    b, hd = _geometry(what, q, num_heads)
+    b, hd, d = _geometry(what, q, num_heads, _BWD_HEAD_DIMS)
     dev = q.device
     s = _check_stream(what, (q, k, v, do), b, hd, dev)
     _check_stats(what, (lse, di), b, num_heads, s, dev)
-    w = _check_weights(what, rms_weights, 2, dev)
+    w = _check_weights(what, rms_weights, 2, d, dev)
     outs = [torch.empty((b, s, hd), dtype=torch.bfloat16, device=dev) for _ in range(3)]
     rc = _kernels.lib().mha_rms_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),

@@ -6,7 +6,7 @@ Port of adv_grpo_tpu/rollout/sampler.py:36-169 and :223-271
 ``compute_log_prob``, ``sample_random_timestep``). The JAX ``lax.scan`` is a
 Python loop here:
 
-  * the step loop walks the flow-match schedule (adv_grpo_tpu.core.scheduler);
+  * the step loop walks the flow-match schedule (``core/scheduler.py``);
   * CFG runs as one batched forward with [uncond ; cond] stacked on the batch
     axis, uncond first, and the guidance combine runs in the model's output
     dtype (bf16 at full size); only the CPS step lifts to fp32;
@@ -26,8 +26,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from adv_grpo_torch.core.scheduler import flow_match_schedule
 from adv_grpo_torch.core.sde import cps_step_with_logprob
-from adv_grpo_tpu.core.scheduler import flow_match_schedule
 
 
 @dataclasses.dataclass(frozen=True)

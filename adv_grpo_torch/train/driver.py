@@ -29,17 +29,17 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from adv_grpo_torch.core.stat_tracking import PerPromptStatTracker
+from adv_grpo_torch.data.krepeat import DistributedKRepeatSampler
 from adv_grpo_torch.models.lora import freeze_non_lora
 from adv_grpo_torch.rollout.sampler import SamplerConfig, sample_random_timestep
 from adv_grpo_torch.train.grpo_trainer import (
     compute_advantages, make_eval_fn, make_sample_fn, make_train_epoch_fn,
     rebatch_for_training)
 from adv_grpo_torch.train.train_state import create_generator_state
-from adv_grpo_tpu.core.stat_tracking import PerPromptStatTracker
-from adv_grpo_tpu.data.krepeat import DistributedKRepeatSampler
-from adv_grpo_tpu.native.lib import images_to_uint8
-from adv_grpo_tpu.utils.flops import rollout_flops
-from adv_grpo_tpu.utils.metrics import MetricLogger, StepTimer
+from adv_grpo_torch.utils.flops import rollout_flops
+from adv_grpo_torch.utils.images import images_to_uint8
+from adv_grpo_torch.utils.metrics import MetricLogger, StepTimer
 
 logger = logging.getLogger(__name__)
 

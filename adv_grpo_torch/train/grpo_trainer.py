@@ -25,11 +25,11 @@ import numpy as np
 import torch
 
 from adv_grpo_torch.core.grpo import grpo_loss
+from adv_grpo_torch.core.stat_tracking import PerPromptStatTracker, calculate_zero_std_ratio
 from adv_grpo_torch.models.lora import lora_params, merge_lora_params
 from adv_grpo_torch.rollout.sampler import (
     SamplerConfig, compute_log_prob, denoise_with_logprob)
 from adv_grpo_torch.train.train_state import GeneratorState, apply_microbatch_grads
-from adv_grpo_tpu.core.stat_tracking import PerPromptStatTracker, calculate_zero_std_ratio
 
 INFO_KEYS = ("loss", "policy_loss", "kl_loss", "approx_kl", "clipfrac",
              "clipfrac_gt_one", "clipfrac_lt_one")

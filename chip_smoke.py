@@ -29,8 +29,28 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      EMA moved; the launch counts of all five kernels exactly as derived from
      the config; seconds per epoch (rollout, reward, train), per microstep,
      and peak device memory.
+  9. the Flux kernels against their plain versions at the Flux.1-dev 512^2
+     shapes: the per-head RMS norm (d = 128, and one head across a 5120-wide
+     row), the BSHD attention (B = 1 and 4, and 4608 tokens with kv_len
+     4600), the joint attention at head width 128 without RMS, the modulated
+     LayerNorm at D = 3072; median times beside the plain versions' and one
+     PyTorch library call's;
+ 10. a 1-double + 1-single block Flux.1-dev at full width on the card (bf16,
+     kernels) against the same weights on the CPU (fp32, plain versions);
+ 11. ``adv_grpo_torch.cli.infer.generate`` on a full-width Flux.1-dev
+     pipeline (random weights from the seed) at 512^2, 28 steps, guidance
+     3.5: launch counts exactly 115/152/19/38 per forward times 28 steps,
+     finite images, a non-constant 512x512 PNG; then 1 and 4 prompts on the
+     warm pipeline: seconds per image, one forward's time and achieved
+     TFLOP/s, its device kernel time by group (torch.profiler) and busy
+     share, peak device memory.
 
-Prints one JSON line of per-kernel results, then as the last line
+``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
+SD3.5-M attention forwards of the checkout at PARENT (an older tree) against
+this one's, in PAIRS alternating pairs of processes.
+
+Prints one JSON line of per-kernel results (each with its least possible time
+on the card, from the published H100 SXM peaks), then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when no
 CUDA device is visible or when run outside a checkout of the repository.
 """
@@ -38,6 +58,7 @@ CUDA device is visible or when run outside a checkout of the repository.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -45,6 +66,12 @@ import time
 
 SEED = 0
 STEPS = 40
+FLUX_STEPS = 28  # FluxSamplerConfig's default, the reference's
+# published peaks of one H100 SXM (the bound of a kernel is the larger of its
+# bytes over the memory rate and its operations over the rate of their type)
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+FP32_FLOPS = 67e12
 # the training slice: smoke_sd3_fast at full SD3.5-M width, 10-step rollouts,
 # 2 prompt slots x 2 images per sampling batch, 2 epochs. train.ema_interval=2
 # lets the EMA move within the run's 4 optimizer steps (the preset's 8 would
@@ -89,6 +116,32 @@ def _median_ms(fn, iters=20, warmup=3):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def _bound(nbytes, flops, flop_rate):
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``nbytes`` (each input read once, each output written once) and do
+    ``flops`` at ``flop_rate``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _attn_bound(tensors, batch, heads, s_q, s_kv, d, products=2):
+    """Bound of an attention over ``tensors`` (inputs and outputs): ``products``
+    matmuls of 2*s_q*s_kv*d FLOP per (batch, head) on the bf16 tensor cores
+    (2 forward, 5 backward)."""
+    return _bound(_nbytes(*tensors), 2.0 * products * batch * heads * s_q * s_kv * d,
+                  BF16_TENSOR_FLOPS)
+
+
+def _entry(name, source, replaces, max_abs_err, ms, plain_ms, bound, library_ms):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=library_ms)
 
 
 def _bf16_ulp(ref):
@@ -136,10 +189,11 @@ def check_kernels():
           f"(2,1024,1536) median {ms:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
     if worst_ulps > 1.0:
         raise AssertionError(f"modulated_layer_norm off by {worst_ulps} ulp")
-    results.append(dict(name="modulated_layer_norm", route="cuda",
-                        source="adv_grpo_torch/csrc/fused_norms.cu",
-                        replaces="adv_grpo_tpu/ops/fused_norms.py:252",
-                        max_abs_err=max_err, ms=ms, plain_ms=plain_ms))
+    # no single PyTorch call computes it: F.layer_norm has no per-item
+    # (1 + scale, shift) modulation
+    results.append(_entry("modulated_layer_norm", "adv_grpo_torch/csrc/fused_norms.cu",
+                          "adv_grpo_tpu/ops/fused_norms.py:252", max_err, ms, plain_ms,
+                          _bound(_nbytes(x, sc, sh, x), 8.0 * x.numel(), FP32_FLOPS), None))
 
     # 2/3: attention; bound 2e-2 absolute, the bf16 bound of the TPU kernel's
     # own tests (adv_grpo_tpu/ops/joint_attention.py:41-45)
@@ -163,10 +217,11 @@ def check_kernels():
           f"tokens, 24x64, B=2 median {ms:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
     if not err <= 2e-2:
         raise AssertionError(f"joint_mha error {err}")
-    results.append(dict(name="joint_mha", route="cuda",
-                        source="adv_grpo_torch/csrc/joint_attention.cu",
-                        replaces="adv_grpo_tpu/ops/joint_attention.py:73",
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms))
+    # no library call fuses the qk-RMS into the attention
+    results.append(_entry("joint_mha", "adv_grpo_torch/csrc/joint_attention.cu",
+                          "adv_grpo_tpu/ops/joint_attention.py:73", err, ms, plain_ms,
+                          _attn_bound((qi, ki, vi, qt, kt, vt, qi, qt), b, heads,
+                                      s_img + s_txt, s_img + s_txt, 64), None))
 
     w2 = weights(2)
     o = joint_attention.mha_rms(qi, ki, vi, num_heads=heads, rms_weights=w2)
@@ -181,10 +236,9 @@ def check_kernels():
           f"median {ms:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
     if not err <= 2e-2:
         raise AssertionError(f"mha_rms error {err}")
-    results.append(dict(name="mha_rms", route="cuda",
-                        source="adv_grpo_torch/csrc/joint_attention.cu",
-                        replaces="adv_grpo_tpu/ops/joint_attention.py:644",
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms))
+    results.append(_entry("mha_rms", "adv_grpo_torch/csrc/joint_attention.cu",
+                          "adv_grpo_tpu/ops/joint_attention.py:644", err, ms, plain_ms,
+                          _attn_bound((qi, ki, vi, qi), b, heads, s_img, s_img, 64), None))
     return results
 
 
@@ -295,10 +349,12 @@ def check_backward_kernels():
         print(f"  {fn.__name__} whole autograd backward: median {auto_ms:.4f} ms vs plain "
               f"autograd {auto_plain_ms:.4f} ms", flush=True)
         del outs, p_outs, grads
-        results.append(dict(name=name, route="cuda",
-                            source="adv_grpo_torch/csrc/joint_attention_bwd.cu",
-                            replaces=replaces, max_abs_err=max_abs, ms=ms,
-                            plain_ms=plain_ms))
+        s_tot = sum(lens[:n])
+        least = _attn_bound(list(ins) + list(do) + list(lse) + list(di) + list(ins), b, heads,
+                            s_tot, s_tot, 64, products=5)
+        # no library call takes the forward's lse and the fused qk-RMS
+        results.append(_entry(name, "adv_grpo_torch/csrc/joint_attention_bwd.cu", replaces,
+                              max_abs, ms, plain_ms, least, None))
     return results
 
 
@@ -498,6 +554,370 @@ def run_training_slice(kernels):
     return counts
 
 
+def flux_per_forward_counts(fcfg):
+    """Kernel launches of one Flux forward: (modulated LN, per-head RMS, joint
+    attention, BSHD attention). A double block: 4 LNs (attention and MLP of
+    both streams), 4 qk-norms, 1 joint attention; a single block: 1 LN, 2
+    qk-norms, 1 attention; the output head: 1 LN."""
+    n2, n1 = fcfg.num_double_layers, fcfg.num_single_layers
+    return 4 * n2 + n1 + 1, 4 * n2 + 2 * n1, n2, n1
+
+
+def check_flux_kernels():
+    """Phase: the Flux kernels against their plain versions at the
+    Flux.1-dev 512^2 shapes (1024 image + 512 text tokens, 24 heads of 128,
+    width 3072), with median times beside the plain version's and one
+    PyTorch library call's."""
+    import torch
+    import torch.nn.functional as F
+
+    from adv_grpo_torch.ops import attention, fused_norms, joint_attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    heads, d, s_img, s_txt = 24, 128, 1024, 512
+    dim, s = heads * d, s_img + s_txt
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    results = []
+    # 7: per-head RMS (Flux qk-norm, d = 128; the main shape, timed) and one
+    # head across the row (WAN's 5120 wide); bound: 1 bf16 ulp of the fp32
+    # result
+    worst, max_err = 0.0, 0.0
+    for shape, nh in (((1, s, dim), heads), ((1, 1560, 5120), 1)):
+        x = randn(*shape) + 0.3
+        w = (1.0 + 0.1 * torch.randn(shape[-1] // nh, generator=g, device=dev)).float()
+        y = fused_norms.rms_norm_heads(x, w, num_heads=nh)
+        ref = fused_norms.rms_reference(x.float(), w, nh, 1e-6, torch.float32)
+        err = (y.float() - ref).abs()
+        worst = max(worst, (err / _bf16_ulp(ref)).max().item())
+        max_err = max(max_err, err.max().item())
+        med = _median_ms(lambda: fused_norms.rms_norm_heads(x, w, num_heads=nh))
+        print(f"  rms_norm_heads {shape} {nh} head(s): median {med:.4f} ms", flush=True)
+        if nh == heads:
+            ms, main = med, (x, w)
+            plain_ms = _median_ms(lambda: fused_norms.rms_reference(x, w, heads, 1e-6,
+                                                                    torch.bfloat16))
+            x4, wb = x.view(1, s, heads, d), w.to(torch.bfloat16)
+            lib_ms = _median_ms(lambda: F.rms_norm(x4, (d,), wb, 1e-6))
+    print(f"kernel rms_norm_heads: max_abs_err {max_err:.3e}, max err {worst:.2f} bf16 ulp "
+          f"(bound 1 ulp of the fp32 result); (1,1536,3072) 24x128 median {ms:.4f} ms vs "
+          f"plain {plain_ms:.4f} ms vs F.rms_norm {lib_ms:.4f} ms", flush=True)
+    if not worst <= 1.0:
+        raise AssertionError(f"rms_norm_heads off by {worst} ulp")
+    x, w = main
+    results.append(_entry("rms_norm_heads", "adv_grpo_torch/csrc/fused_norms.cu",
+                          "adv_grpo_tpu/ops/fused_norms.py:127", max_err, ms, plain_ms,
+                          _bound(_nbytes(x, w, x), 4.0 * x.numel(), FP32_FLOPS), lib_ms))
+
+    # 8: BSHD attention of the single blocks (B=1 the main shape, timed);
+    # bound 2e-2 absolute (the bf16 bound of the TPU kernels' own tests),
+    # the lse too
+    err = 0.0
+    for b, n, kv_len in ((1, s, None), (4, s, None), (1, 4608, 4600)):
+        q, k, v = (randn(b, n, dim) for _ in range(3))
+        o, lse = attention.mha_bshd_fwd(q, k, v, heads, d ** -0.5, kv_len, want_lse=True)
+        ref, ref_lse = attention.mha_bshd_reference(q.float(), k.float(), v.float(),
+                                                    num_heads=heads, kv_len=kv_len,
+                                                    return_lse=True)
+        e = max((o.float() - ref).abs().max().item(), (lse - ref_lse).abs().max().item())
+        del ref, ref_lse
+        err = max(err, e)
+        med = _median_ms(lambda: attention.mha_bshd(q, k, v, num_heads=heads, kv_len=kv_len))
+        print(f"  mha_bshd B={b} S={n} kv_len={kv_len}: max abs err {e:.3e} (output and "
+              f"lse); median {med:.4f} ms", flush=True)
+        if b == 1 and kv_len is None:
+            ms, main = med, (q, k, v)
+            plain_ms = _median_ms(lambda: attention.mha_bshd_reference(q, k, v,
+                                                                        num_heads=heads))
+            q4, k4, v4 = (attention.to_bhsd(t, heads) for t in (q, k, v))
+            lib_ms = _median_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+    print(f"kernel mha_bshd: max_abs_err {err:.3e} (bound 2e-2); (1,1536,3072) 24x128 median "
+          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms vs SDPA {lib_ms:.4f} ms", flush=True)
+    if not err <= 2e-2:
+        raise AssertionError(f"mha_bshd error {err}")
+    q, k, v = main
+    results.append(_entry("mha_bshd", "adv_grpo_torch/csrc/joint_attention.cu",
+                          "adv_grpo_tpu/ops/attention.py:346", err, ms, plain_ms,
+                          _attn_bound((q, k, v, q), 1, heads, s, s, d), lib_ms))
+
+    # 2 at head width 128, no RMS (Flux's double blocks)
+    qi, ki, vi = (randn(1, s_img, dim) for _ in range(3))
+    qt, kt, vt = (randn(1, s_txt, dim) for _ in range(3))
+    streams = (qi, ki, vi, qt, kt, vt)
+    oi, ot = joint_attention.joint_mha(*streams, num_heads=heads)
+    ri, rt = joint_attention.joint_mha_reference(*(t.float() for t in streams), num_heads=heads)
+    err = max((oi.float() - ri).abs().max().item(), (ot.float() - rt).abs().max().item())
+    ms = _median_ms(lambda: joint_attention.joint_mha(*streams, num_heads=heads))
+    plain_ms = _median_ms(lambda: joint_attention.joint_mha_reference(*streams, num_heads=heads))
+    cat4 = [attention.to_bhsd(torch.cat([a, c], dim=1), heads)
+            for a, c in ((qi, qt), (ki, kt), (vi, vt))]
+    lib_ms = _median_ms(lambda: F.scaled_dot_product_attention(*cat4))
+    print(f"kernel joint_mha (d=128, no RMS): max_abs_err {err:.3e} (bound 2e-2); img 1024 + "
+          f"txt 512, 24x128, B=1 median {ms:.4f} ms vs plain {plain_ms:.4f} ms vs SDPA on the "
+          f"concatenated streams {lib_ms:.4f} ms", flush=True)
+    if not err <= 2e-2:
+        raise AssertionError(f"joint_mha d=128 error {err}")
+    results.append(_entry("joint_mha_d128", "adv_grpo_torch/csrc/joint_attention.cu",
+                          "adv_grpo_tpu/ops/joint_attention.py:73", err, ms, plain_ms,
+                          _attn_bound(streams + (qi, qt), 1, heads, s, s, d), lib_ms))
+
+    # 1 at Flux's width D = 3072 (image and text streams)
+    worst = 0.0
+    for n in (s_img, s_txt):
+        x = randn(1, n, dim) + randn(1, 1, dim)
+        mods = randn(1, 6 * dim, scale=0.5)
+        sc, sh = mods[:, dim:2 * dim], mods[:, :dim]  # strided chunks, as from AdaLN
+        y = fused_norms.modulated_layer_norm(x, sc, sh)
+        ref = fused_norms.lnmod_reference(x.float(), sc.float(), sh.float(), 1e-6,
+                                          torch.float32)
+        worst = max(worst, ((y.float() - ref).abs() / _bf16_ulp(ref)).max().item())
+    ms = _median_ms(lambda: fused_norms.modulated_layer_norm(x, sc, sh))
+    print(f"kernel modulated_layer_norm at D=3072: max err {worst:.2f} bf16 ulp (bound 1); "
+          f"(1,512,3072) median {ms:.4f} ms", flush=True)
+    if worst > 1.0:
+        raise AssertionError(f"modulated_layer_norm at D=3072 off by {worst} ulp")
+    return results
+
+
+def check_flux_model():
+    """Phase: a 1-double + 1-single block Flux.1-dev at full width on the
+    card (bf16, kernels) against the same weights on the CPU (fp32, plain
+    versions): a 16x16 packed grid, 64 text tokens, non-zero LoRA B, guidance
+    embedded. Bound: relative L2 5e-2, bf16 rounding through 2 blocks."""
+    import numpy as np
+    import torch
+
+    from adv_grpo_torch.models.flux import FluxConfig, FluxTransformer, make_latent_ids
+    from adv_grpo_torch.models.lora import init_params_
+
+    kw = dict(num_double_layers=1, num_single_layers=1, lora_rank=32, lora_alpha=64.0)
+    g = torch.Generator().manual_seed(SEED)
+    cpu = init_params_(FluxTransformer(FluxConfig.dev(dtype=torch.float32, **kw),
+                                       device="cpu"), g)
+    for name, p in cpu.named_parameters():
+        if name.endswith("lora_b"):  # non-zero adapters, so LoRA is exercised
+            p.data.normal_(0.0, 0.02, generator=g)
+    gpu = FluxTransformer(FluxConfig.dev(**kw), device="meta").to_empty(device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    lat = torch.randn(2, 256, 64, generator=g)
+    t = torch.tensor([1000.0, 500.0])
+    ctx = torch.randn(2, 64, 4096, generator=g) * 0.2
+    pooled = torch.randn(2, 768, generator=g) * 0.2
+    guidance = torch.tensor([3.5, 3.5])
+    ids = (make_latent_ids(16, 16), np.zeros((64, 3), np.int32))
+    with torch.inference_mode():
+        ref = cpu(lat, t, ctx, pooled, *ids, guidance=guidance)
+        out = gpu(*(a.cuda() for a in (lat, t, ctx, pooled)), *ids,
+                  guidance=guidance.cuda()).float().cpu()
+    rel = _rel_l2(out, ref)
+    print(f"model check: 1-double + 1-single full-width Flux.1-dev, card bf16 vs CPU fp32 "
+          f"relative L2 error {rel:.3e} (bound 5e-2)", flush=True)
+    if not (torch.isfinite(out).all() and rel <= 5e-2):
+        raise AssertionError(f"card Flux disagrees with the CPU reference: {rel}")
+
+
+_KERNEL_GROUPS = (  # (group, substrings of the kernel name), first match wins
+    ("attention kernel", ("attn_fwd_kernel",)),
+    ("per-head RMS kernel", ("rms_heads_kernel",)),
+    ("modulated LN kernel", ("lnmod_kernel",)),
+    ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "splitK")),
+    ("concatenations", ("CatArrayBatchedCopy",)),
+    ("copies and casts", ("copy_", "direct_copy", "to_copy")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def _profile_forward(fn, reps=2):
+    """Trace ``reps`` warm calls of ``fn`` with torch.profiler: (device kernel
+    time per call, {kernel group: (launches, ms) per call}). The busy share
+    is the kernel time over the call's untraced CUDA-event time (the profiler
+    slows the host, so its own wall is no measure of idleness)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    groups, total = {}, 0.0
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA") or e.self_device_time_total <= 0:
+            continue  # host-side ops; the kernels carry the device time
+        ms = e.self_device_time_total / 1e3 / reps
+        total += ms
+        grp = next((g for g, parts in _KERNEL_GROUPS if any(p in e.key for p in parts)), "other")
+        calls, acc = groups.get(grp, (0.0, 0.0))
+        groups[grp] = (calls + e.count / reps, acc + ms)
+    return total, groups
+
+
+def run_flux_inference(kernels):
+    """Phase: ``cli.infer.generate`` on a full-width Flux.1-dev pipeline (random
+    weights from the seed; LoRA rank and alpha of the flux_smoke preset) at
+    512^2, 28 steps, guidance 3.5; returns the kernels' launch counts of the
+    1-prompt run."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from adv_grpo_torch.cli import infer
+    from adv_grpo_torch.cli.common import apply_overrides, build_text_encoder, resolve_config
+    from adv_grpo_torch.models.flux import FluxConfig
+    from adv_grpo_torch.models.vae import VAEConfig
+    from adv_grpo_torch.train.flux_pipeline import FluxPipeline
+    from adv_grpo_torch.utils.flops import flux_forward_flops
+    from adv_grpo_torch.utils.images import images_to_uint8
+
+    config = apply_overrides(resolve_config("flux_smoke"),
+                             ["resolution=512", f"sample.eval_num_steps={FLUX_STEPS}"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fcfg = FluxConfig.dev(lora_rank=int(config.train.lora_rank),
+                          lora_alpha=float(config.train.lora_alpha))
+    pipeline = FluxPipeline.random_init(
+        torch.Generator(device="cuda").manual_seed(SEED), fcfg, VAEConfig.flux(), "cuda",
+        latent_hw=64, text_seq_len=512, guidance=float(config.sample.guidance_scale))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in pipeline.transformer.parameters())
+    print(f"Flux.1-dev pipeline: {n_params / 1e9:.3f} B transformer parameters, built on the "
+          f"card in {time.perf_counter() - t0:.2f} s", flush=True)
+    encode = build_text_encoder(config, pipeline)
+
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    images = infer.generate(pipeline, encode, ["a flower"], config, seed=SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = [k.launches for k in kernels]
+    want = [c * FLUX_STEPS for c in flux_per_forward_counts(fcfg)]
+    u8 = images_to_uint8(images.float().cpu().numpy())
+    with tempfile.TemporaryDirectory() as out_dir:
+        path = f"{out_dir}/node0_rank0_00000_0.png"
+        Image.fromarray(u8[0]).save(path)
+        img = np.asarray(Image.open(path))
+    print(f"infer.generate Flux.1-dev full width 512^2 {FLUX_STEPS} steps guidance 3.5: "
+          f"{wall:.2f} s (first call); PNG {img.shape}, pixel range {img.min()}..{img.max()}; "
+          f"launches {counts} (LN, RMS, joint, BSHD; expected {want})", flush=True)
+    if not torch.isfinite(images).all() or img.shape != (512, 512, 3) or img.min() == img.max():
+        raise AssertionError(f"bad Flux image: shape {img.shape}, range "
+                             f"{img.min()}..{img.max()}, finite "
+                             f"{bool(torch.isfinite(images).all())}")
+    if counts != want:
+        raise AssertionError(f"Flux launch counts {counts}, expected {want}")
+
+    vfn = pipeline.velocity_fn()
+    for prompts in (["a flower"], ["a flower", "a red bicycle", "a city at night",
+                                   "a bowl of fruit"]):
+        n = len(prompts)
+        infer.generate(pipeline, encode, prompts, config, seed=SEED)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images = infer.generate(pipeline, encode, prompts, config, seed=SEED)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if images.shape != (n, 3, 512, 512) or not torch.isfinite(images).all():
+            raise AssertionError(f"bad Flux images: {tuple(images.shape)}")
+        emb, pooled = (torch.from_numpy(a).cuda() for a in encode(prompts))
+        x = pipeline.prepare_latents(torch.Generator(device="cuda").manual_seed(SEED), n)
+        t = torch.full((n,), 500.0, device="cuda")
+        with torch.inference_mode():
+            fwd_ms = _median_ms(lambda: vfn(x, t, emb, pooled), iters=5, warmup=1)
+            kernel_ms, groups = _profile_forward(lambda: vfn(x, t, emb, pooled))
+        tflops = flux_forward_flops(fcfg, 1024, 512, n) / (fwd_ms * 1e-3) / 1e12
+        print(f"generate Flux.1-dev {n} prompt(s): {dt:.3f} s, {dt / n:.3f} s/image "
+              f"({FLUX_STEPS} steps + VAE decode); one forward {fwd_ms:.2f} ms = "
+              f"{tflops:.1f} TFLOP/s achieved (flux_forward_flops); device kernel time "
+              f"{kernel_ms:.2f} ms per forward = {100 * kernel_ms / fwd_ms:.1f}% busy",
+              flush=True)
+        for grp, (calls, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
+            print(f"  {grp}: {ms:.2f} ms, {calls:.0f} launches per forward", flush=True)
+    print(f"Flux phase peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    return counts
+
+
+def sd3_attention_ms(tree):
+    """``--sd3-attention-ms TREE``: median ms (50 CUDA-event-timed calls after
+    5 warm-ups, the wrapper's host time included) and device kernel ms (mean
+    of 20 traced calls) of the SD3.5-M joint and single-stream qk-RMS
+    attention forwards (B=2, 1024 image + 154 text tokens, 24 heads of 64)
+    of the ``adv_grpo_torch`` in the checkout at TREE, and the forward
+    kernel's registers when this process built it; one JSON line."""
+    sys.path.insert(0, tree)
+    import re
+
+    import torch
+
+    from adv_grpo_torch.kernels import build
+    from adv_grpo_torch.ops import joint_attention
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    b, s_img, s_txt, heads, dim = 2, 1024, 154, 24, 1536
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    qi, ki, vi = (randn(b, s_img, dim) for _ in range(3))
+    qt, kt, vt = (randn(b, s_txt, dim) for _ in range(3))
+    w = [(1.0 + 0.1 * torch.randn(64, generator=g, device="cuda")).float() for _ in range(4)]
+    joint = _median_ms(lambda: joint_attention.joint_mha(qi, ki, vi, qt, kt, vt, num_heads=heads,
+                                                         rms_weights=w), iters=50, warmup=5)
+    single = _median_ms(lambda: joint_attention.mha_rms(qi, ki, vi, num_heads=heads,
+                                                        rms_weights=w[:2]), iters=50, warmup=5)
+    joint_kernel, _ = _profile_forward(lambda: joint_attention.joint_mha(
+        qi, ki, vi, qt, kt, vt, num_heads=heads, rms_weights=w), reps=20)
+    single_kernel, _ = _profile_forward(lambda: joint_attention.mha_rms(
+        qi, ki, vi, num_heads=heads, rms_weights=w[:2]), reps=20)
+    # ptxas's registers per thread of the attention forward, when this
+    # process built the tree's kernels: {mangled kernel name: registers}
+    registers, entry = {}, None
+    for line in build.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        entry = m.group(1) if m else entry
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry and "attn_fwd_kernel" in entry:
+            registers[entry] = int(m.group(1))
+    print(json.dumps({"module": joint_attention.__file__, "joint_mha": joint,
+                      "mha_rms": single, "joint_mha_kernel": joint_kernel,
+                      "mha_rms_kernel": single_kernel, "registers": registers}), flush=True)
+
+
+def sd3_attention_ab(parent, pairs):
+    """``--sd3-attention-ab PARENT PAIRS``: PAIRS alternating pairs of
+    :func:`sd3_attention_ms` runs, each in its own process, of the checkout
+    at PARENT and of this one (parent, change, change, parent, ...); prints
+    every run, then each side's median and range."""
+    import statistics
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {"parent": [], "change": []}
+    for i in range(pairs):
+        for side in (("parent", "change") if i % 2 == 0 else ("change", "parent")):
+            out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  "--sd3-attention-ms", parent if side == "parent" else here],
+                                 capture_output=True, text=True, check=True).stdout
+            r = json.loads(out.strip().splitlines()[-1])
+            runs[side].append(r)
+            print(f"pair {i} {side}: joint_mha {r['joint_mha']:.4f} ms (kernel "
+                  f"{r['joint_mha_kernel']:.4f}), mha_rms {r['mha_rms']:.4f} ms (kernel "
+                  f"{r['mha_rms_kernel']:.4f}) ({r['module']})", flush=True)
+            for name, n in r["registers"].items():
+                print(f"  ptxas: {name} {n} registers", flush=True)
+    for side, rs in runs.items():
+        for k in ("joint_mha", "joint_mha_kernel", "mha_rms", "mha_rms_kernel"):
+            v = [r[k] for r in rs]
+            print(f"{side} {k}: median {statistics.median(v):.4f} ms, range "
+                  f"{min(v):.4f}..{max(v):.4f} ms over {len(v)} runs", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -508,7 +928,13 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
+    if sys.argv[1:2] == ["--sd3-attention-ms"]:
+        sd3_attention_ms(sys.argv[2])
+        return 0
     print(smi, flush=True)
+    if sys.argv[1:2] == ["--sd3-attention-ab"]:
+        sd3_attention_ab(sys.argv[2], int(sys.argv[3]))
+        return 0
 
     from adv_grpo_torch.kernels import build
 
@@ -524,9 +950,10 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print("  " + line.strip(), flush=True)
 
-    from adv_grpo_torch.ops import fused_norms, joint_attention
+    from adv_grpo_torch.ops import attention, fused_norms, joint_attention
 
     results = check_kernels() + check_backward_kernels()
+    flux_results = check_flux_kernels()
     check_model_grads(*check_model())
     run_pipeline()
     kernels = (fused_norms.modulated_layer_norm, joint_attention.joint_mha,
@@ -535,7 +962,14 @@ def main() -> int:
     counts = run_training_slice(kernels)
     for r, n in zip(results, counts):
         r["launches"] = n
-    print(json.dumps({"kernels": results}))
+    check_flux_model()
+    flux_kernels = (fused_norms.modulated_layer_norm, fused_norms.rms_norm_heads,
+                    joint_attention.joint_mha, attention.mha_bshd)
+    flux_counts = dict(zip(("modulated_layer_norm", "rms_norm_heads", "joint_mha_d128",
+                            "mha_bshd"), run_flux_inference(flux_kernels)))
+    for r in flux_results:
+        r["launches"] = flux_counts[r["name"]]
+    print(json.dumps({"kernels": results + flux_results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-"""The port's SD3 presets equal the JAX package's, key for key.
+"""The port's presets equal the JAX package's, key for key.
 
 The port keeps its presets as plain dictionaries (no ml_collections); the JAX
 presets are the reference. Only the JAX ``tpu`` section (mesh, remat and
@@ -18,7 +18,8 @@ def _plain(tree):
     return tree
 
 
-@pytest.mark.parametrize("preset", ["compressibility", "smoke_sd3_fast", "eval_sd3_fast"])
+@pytest.mark.parametrize("preset", ["compressibility", "smoke_sd3_fast", "eval_sd3_fast",
+                                    "flux_smoke"])
 def test_preset_matches_jax(preset):
     want = j_grpo.get_config(preset).to_dict()
     want.pop("tpu")
@@ -27,7 +28,7 @@ def test_preset_matches_jax(preset):
 
 def test_unported_preset_raises():
     with pytest.raises(KeyError, match="not yet ported"):
-        resolve_config("flux_smoke")
+        resolve_config("wan_smoke")
 
 
 def test_config_attribute_access_and_dtype():

@@ -1,0 +1,196 @@
+"""The port's own copies of the JAX package's framework-free modules give the
+JAX package's results on the same inputs.
+
+The port imports nothing of ``adv_grpo_tpu`` (tests/test_torch_imports.py),
+so it carries copies of the schedule, the stat tracker, the k-repeat sampler,
+the datasets, the embedding store, the metric logger, the FLOP model, the
+host JPEG rewards, the uint8 image packer, the override parser and the hash
+text encoder. Each is held here against its original: exact equality
+throughout, since both sides run the same numpy arithmetic.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from adv_grpo_torch.cli import common as t_common
+from adv_grpo_torch.config.base import ConfigDict
+from adv_grpo_torch.core import scheduler as t_sched
+from adv_grpo_torch.core import stat_tracking as t_stats
+from adv_grpo_torch.data import datasets as t_data
+from adv_grpo_torch.data.embed_store import EmbeddingStore as TEmbeddingStore
+from adv_grpo_torch.data.krepeat import DistributedKRepeatSampler as TSampler
+from adv_grpo_torch.models.flux import FluxConfig as TFluxConfig
+from adv_grpo_torch.models.mmdit import MMDiTConfig as TMMDiTConfig
+from adv_grpo_torch.rewards.registry import multi_score as t_multi_score
+from adv_grpo_torch.utils import flops as t_flops
+from adv_grpo_torch.utils.images import images_to_uint8 as t_u8
+from adv_grpo_torch.utils.metrics import MetricLogger as TLogger
+from adv_grpo_torch.utils.metrics import StepTimer as TTimer
+from adv_grpo_tpu.cli import common as j_common
+from adv_grpo_tpu.core import scheduler as j_sched
+from adv_grpo_tpu.core import stat_tracking as j_stats
+from adv_grpo_tpu.data import datasets as j_data
+from adv_grpo_tpu.data.embed_store import EmbeddingStore as JEmbeddingStore
+from adv_grpo_tpu.data.embed_store import write_store
+from adv_grpo_tpu.data.krepeat import DistributedKRepeatSampler as JSampler
+from adv_grpo_tpu.models.flux import FluxConfig as JFluxConfig
+from adv_grpo_tpu.models.mmdit import MMDiTConfig as JMMDiTConfig
+from adv_grpo_tpu.native.lib import images_to_uint8 as j_u8
+from adv_grpo_tpu.rewards.registry import RewardContext
+from adv_grpo_tpu.rewards.registry import multi_score as j_multi_score
+from adv_grpo_tpu.utils import flops as j_flops
+from adv_grpo_tpu.utils.metrics import MetricLogger as JLogger
+from adv_grpo_tpu.utils.metrics import StepTimer as JTimer
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_hash_text_encoder_gives_identical_embeddings():
+    prompts = ["a flower", "", "a red bicycle", "a flower"]
+    got = t_common.make_hash_text_encoder(seq_len=7, embed_dim=16, pooled_dim=5)(prompts)
+    want = j_common.make_hash_text_encoder(seq_len=7, embed_dim=16, pooled_dim=5)(prompts)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.float32
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("n,shift", [(40, 3.0), (10, 3.0), (1, 3.0), (28, 1.0), (3, 2.5)])
+def test_flow_match_schedule_is_identical(n, shift):
+    got = t_sched.flow_match_schedule(n, shift=shift)
+    want = j_sched.flow_match_schedule(n, shift=shift)
+    np.testing.assert_array_equal(got.sigmas, want.sigmas)
+    np.testing.assert_array_equal(got.timesteps, want.timesteps)
+    assert got.num_steps == want.num_steps == n
+
+
+@pytest.mark.parametrize("kind", ["grpo", "rwr", "sft", "dpo"])
+@pytest.mark.parametrize("global_std", [False, True])
+def test_stat_tracker_gives_identical_advantages(kind, global_std):
+    rng = np.random.default_rng(3)
+    prompts = ["a", "b", "a", "c", "b", "a", "c", "c"]
+    trackers = (t_stats.PerPromptStatTracker(global_std), j_stats.PerPromptStatTracker(global_std))
+    for _ in range(2):  # the second call accumulates onto the first
+        rewards = rng.standard_normal(len(prompts))
+        got, want = (tr.update(prompts, rewards, type=kind) for tr in trackers)
+        np.testing.assert_array_equal(got, want)
+        assert trackers[0].get_stats() == trackers[1].get_stats()
+    for tr in trackers:
+        tr.clear()
+    assert trackers[0].get_stats() == trackers[1].get_stats()
+    rewards = np.array([1.0, 2.0, 1.0, 0.5, 0.5, 3.0, 0.5, 0.5])
+    assert (t_stats.calculate_zero_std_ratio(prompts, rewards)
+            == j_stats.calculate_zero_std_ratio(prompts, rewards))
+
+
+@pytest.mark.parametrize("size,batch,k,replicas", [(20, 4, 4, 1), (50, 2, 4, 4), (9, 3, 3, 2)])
+def test_krepeat_sampler_draws_identical_batches(size, batch, k, replicas):
+    for rank in range(replicas):
+        a = TSampler(size, batch, k, replicas, rank, seed=7)
+        b = JSampler(size, batch, k, replicas, rank, seed=7)
+        for epoch in range(3):
+            np.testing.assert_array_equal(a.batch_for_epoch(epoch), b.batch_for_epoch(epoch))
+    with pytest.raises(ValueError, match="divisible"):
+        TSampler(8, batch_size=1, k=2, num_replicas=1, rank=0)
+
+
+def test_images_to_uint8_gives_identical_bytes():
+    """The JAX package packs in C++ when its native library loads, else with
+    the same numpy formula; the port's numpy copy gives the same bytes either
+    way, on random values, exact uint8 boundaries and out-of-range values."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-1.2, 1.2, (3, 3, 17, 19)).astype(np.float32)
+    levels = (np.arange(256, dtype=np.float32) / 255.0) * 2 - 1  # bin edges
+    x[0, 0, 0, :19] = levels[:19]
+    x[1].flat[:256] = levels
+    x[2].flat[:256] = np.nextafter(levels, np.float32(-2))
+    got = t_u8(x)
+    assert got.shape == (3, 17, 19, 3) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, j_u8(x))
+
+
+@pytest.mark.parametrize("weights", [{"jpeg_compressibility": 1},
+                                     {"jpeg_compressibility": 0.5, "jpeg_incompressibility": 2}])
+def test_host_rewards_give_identical_scores(weights):
+    rng = np.random.default_rng(1)
+    images = rng.uniform(-1, 1, (3, 3, 32, 32)).astype(np.float32)
+    got, _ = t_multi_score(weights)(torch.from_numpy(images), ["a", "b", "c"])
+    want, _ = j_multi_score(weights, RewardContext())(images, ["a", "b", "c"])
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_flop_models_are_identical():
+    mm_t, mm_j = TMMDiTConfig.sd35_medium(), JMMDiTConfig.sd35_medium()
+    fx_t, fx_j = TFluxConfig.dev(), JFluxConfig.dev()
+    assert (t_flops.mmdit_forward_flops(mm_t, 1024, 154, 2)
+            == j_flops.mmdit_forward_flops(mm_j, 1024, 154, 2))
+    assert (t_flops.flux_forward_flops(fx_t, 1024, 512, 1)
+            == j_flops.flux_forward_flops(fx_j, 1024, 512, 1))
+    for do_cfg in (True, False):
+        assert (t_flops.rollout_flops(mm_t, 1024, 154, 8, 10, do_cfg)
+                == j_flops.rollout_flops(mm_j, 1024, 154, 8, 10, do_cfg))
+    # a 512^2 Flux.1-dev forward at batch 1: 21.5 TFLOP (the PERF.md bound)
+    assert abs(t_flops.flux_forward_flops(fx_t, 1024, 512, 1) / 1e12 - 21.5) < 0.05
+
+
+@pytest.mark.parametrize("name", ["pickscore_small", "geneval"])
+def test_prompt_datasets_are_identical(name):
+    ds_dir = os.path.join(REPO, "dataset", name)
+    for split in ("train", "test"):
+        if os.path.exists(os.path.join(ds_dir, f"{split}.txt")):
+            a = t_data.TextPromptDataset(ds_dir, split, limit=50)
+            b = j_data.TextPromptDataset(ds_dir, split, limit=50)
+            assert a.prompts == b.prompts
+            assert [a[i] for i in range(len(a))] == [b[i] for i in range(len(b))]
+    if os.path.exists(os.path.join(ds_dir, "test_metadata.jsonl")):
+        a = t_data.GenevalPromptDataset(ds_dir, "test", limit=20)
+        b = j_data.GenevalPromptDataset(ds_dir, "test", limit=20)
+        assert len(a) == len(b) > 0
+        assert [a[i] for i in range(len(a))] == [b[i] for i in range(len(b))]
+
+
+def test_embedding_store_reads_identically(tmp_path):
+    encode = j_common.make_hash_text_encoder(seq_len=5, embed_dim=8, pooled_dim=3)
+    prompts = ["a", "b", "c", "a", "d"]
+    write_store(str(tmp_path), prompts, encode, batch_size=2)
+    a, b = TEmbeddingStore(str(tmp_path)), JEmbeddingStore(str(tmp_path))
+    for g, w in zip(a(["d", "a", "b"]), b(["d", "a", "b"])):
+        np.testing.assert_array_equal(g, w)
+    with pytest.raises(KeyError):
+        a(["z"])
+
+
+def test_apply_overrides_is_identical():
+    def cfg():
+        c = ConfigDict(seed=1, sample=ConfigDict(num_steps=4, name="x"))
+        return c
+
+    ovs = ["seed=3", "sample.num_steps=10", "sample.name=plain text", "sample.new=[1, 2]"]
+    assert t_common.apply_overrides(cfg(), ovs) == j_common.apply_overrides(cfg(), ovs)
+    with pytest.raises(ValueError):
+        t_common.apply_overrides(cfg(), ["seed"])
+
+
+def test_metric_logger_and_timer_match(tmp_path):
+    records = []
+    for logger_cls, timer_cls, sub in ((TLogger, TTimer, "t"), (JLogger, JTimer, "j")):
+        timer = timer_cls()
+        for phase in ("rollout", "train", "rollout"):
+            with timer(phase):
+                pass
+        logger = logger_cls(str(tmp_path / sub))
+        logger.log({"a": 1, "b": np.float32(2.5), "c": np.arange(3)}, step=4)
+        logger.log({"d": "x"})
+        grid = logger.log_image_grid("g", np.zeros((2, 4, 4, 3), np.uint8), step=1)
+        assert grid is not None and os.path.exists(grid)
+        with open(tmp_path / sub / "metrics.jsonl") as f:
+            lines = [json.loads(line) for line in f]
+        for line in lines:
+            line.pop("time")
+        records.append((lines, sorted(timer.summary()), dict(timer.counts)))
+    assert records[0] == records[1]

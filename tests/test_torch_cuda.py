@@ -6,8 +6,8 @@ have no interpreter mode). Run on a GPU machine with
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
 Inputs are bf16; the plain versions run in fp32 on the same values. Bounds:
-the LayerNorm output is rounded once from fp32, so it lies within one bf16
-spacing of the fp32 result (spacing taken at
+the LayerNorm and RMS outputs are rounded once from fp32, so they lie within
+one bf16 spacing of the fp32 result (spacing taken at
 |y| >= 2^-8, below which fp32 rounding of the cancelling terms dominates);
 attention uses the bf16 bound of the TPU kernel's own tests, 2e-2 absolute;
 the attention backwards 2e-2 relative L2 per cotangent (bf16 rounding of p
@@ -17,7 +17,7 @@ and t, the same budget).
 import pytest
 import torch
 
-from adv_grpo_torch.ops import fused_norms, joint_attention
+from adv_grpo_torch.ops import attention, fused_norms, joint_attention
 from adv_grpo_torch.ops.attention import bwd_row_stats
 
 pytestmark = pytest.mark.cuda
@@ -148,6 +148,77 @@ def test_attention_backward_kernels(dev, s_i, s_t, use_rms):
         assert _rel_l2(g_, r) <= 2e-2
 
 
+def _bf16_ulp(ref):
+    return torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -8))) - 7)
+
+
+@pytest.mark.parametrize("b,s,hd,heads", [(1, 1536, 3072, 24), (2, 77, 256, 2),
+                                          (1, 1560, 5120, 1), (2, 9, 96, 12),
+                                          (1, 3, 2056, 1)])
+@pytest.mark.parametrize("strided", [False, True])
+def test_rms_norm_heads_kernel(dev, b, s, hd, heads, strided):
+    """Per-head (d = 128, 128, 8) and whole-row (5120, 2056) RMS, rows read
+    in place from a column slice of a wider projection when ``strided``."""
+    d = hd // heads
+    if strided:
+        x = (_randn(dev, b, s, 3 * hd, seed=5) + 0.3)[..., hd:2 * hd]
+    else:
+        x = _randn(dev, b, s, hd, seed=5) + 0.3
+    w = 1.0 + 0.1 * _randn(dev, d, dtype=torch.float32, seed=6)
+    n0 = fused_norms.rms_norm_heads.launches
+    y = fused_norms.rms_norm_heads(x, w, num_heads=heads)
+    torch.cuda.synchronize()
+    assert fused_norms.rms_norm_heads.launches == n0 + 1
+    ref = fused_norms.rms_reference(x.float(), w, heads, 1e-6, torch.float32)
+    assert y.dtype == torch.bfloat16 and y.shape == (b, s, hd) and y.is_contiguous()
+    assert ((y.float() - ref).abs() <= _bf16_ulp(ref)).all()
+
+
+@pytest.mark.parametrize("b,s,h,d,kv_len", [(1, 1536, 24, 128, None), (2, 256, 4, 64, 200),
+                                            (2, 100, 2, 128, 77), (1, 4608, 2, 128, 4600),
+                                            (3, 33, 3, 64, None)])
+@pytest.mark.parametrize("strided", [False, True])
+def test_mha_bshd_kernel(dev, b, s, h, d, kv_len, strided):
+    """Against the fp32 plain version: output and lse, ragged S, kv_len
+    masking, q/k/v read in place as column slices of one fused projection."""
+    hd = h * d
+    if strided:
+        q, k, v = _randn(dev, b, s, 3 * hd, seed=7).split(hd, dim=-1)
+    else:
+        q, k, v = (_randn(dev, b, s, hd, seed=7 + i) for i in range(3))
+    n0 = attention.mha_bshd.launches
+    o, lse = attention.mha_bshd_fwd(q, k, v, h, d ** -0.5, kv_len, want_lse=True)
+    torch.cuda.synchronize()
+    assert attention.mha_bshd.launches == n0 + 1
+    ref, ref_lse = attention.mha_bshd_reference(q.float(), k.float(), v.float(), num_heads=h,
+                                                kv_len=kv_len, return_lse=True)
+    assert o.shape == (b, s, hd) and lse.shape == (b, h, s)
+    assert (o.float() - ref).abs().max() <= 2e-2
+    assert (lse - ref_lse).abs().max() <= 2e-2
+    torch.testing.assert_close(attention.mha_bshd(q, k, v, num_heads=h, kv_len=kv_len), o,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("s_i,s_t", [(1024, 512), (100, 10), (64, 64)])
+@pytest.mark.parametrize("use_rms", [True, False])
+def test_joint_mha_kernel_head_dim_128(dev, s_i, s_t, use_rms):
+    """The d = 128 instance of the joint forward (Flux: no RMS), strided
+    q/k/v, with and without the fused qk-RMS, against the fp32 plain version."""
+    h, b = 3, 2
+    hd = 128 * h
+    qi, ki, vi = _randn(dev, b, s_i, 3 * hd, seed=12).split(hd, dim=-1)
+    qt, kt, vt = _randn(dev, b, s_t, 3 * hd, seed=13).split(hd, dim=-1)
+    w = [1.0 + 0.1 * _randn(dev, 128, dtype=torch.float32, seed=14 + i) for i in range(4)]
+    w = w if use_rms else None
+    n0 = joint_attention.joint_mha.launches
+    oi, ot = joint_attention.joint_mha(qi, ki, vi, qt, kt, vt, num_heads=h, rms_weights=w)
+    assert joint_attention.joint_mha.launches == n0 + 1
+    ri, rt = joint_attention.joint_mha_reference(
+        *(t.float() for t in (qi, ki, vi, qt, kt, vt)), num_heads=h, rms_weights=w)
+    assert (oi.float() - ri).abs().max() <= 2e-2
+    assert (ot.float() - rt).abs().max() <= 2e-2
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = _randn(dev, 1, 8, 128)
     with pytest.raises(TypeError):  # fp32
@@ -170,3 +241,22 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # a row stride that is not a multiple of 8
         y = _randn(dev, 1, 8, 130)[..., :128]
         joint_attention.mha_rms_bwd(y, y, y, y, stats, stats, num_heads=2)
+    z = _randn(dev, 1, 8, 192)
+    with pytest.raises(ValueError):  # head dim 96
+        attention.mha_bshd(z, z, z, num_heads=2)
+    with pytest.raises(ValueError):  # head dim 96
+        joint_attention.joint_mha(z, z, z, z, z, z, num_heads=2)
+    with pytest.raises(ValueError):  # head dim 96: no backward kernel either
+        joint_attention.mha_rms_bwd(z, z, z, z, stats, stats, num_heads=2)
+    with pytest.raises(ValueError):  # the backward kernels take d = 64 only
+        joint_attention.mha_rms_bwd(x, x, x, x, stats[:, :1], stats[:, :1], num_heads=1)
+    with pytest.raises(NotImplementedError):  # mha_bshd has no backward kernel yet
+        attention.mha_bshd(x.requires_grad_(), x, x, num_heads=1)
+    x = x.detach()
+    with pytest.raises(TypeError):  # fp32 RMS input
+        fused_norms.rms_norm_heads(x.float(), torch.ones(64, device=dev), num_heads=2)
+    with pytest.raises(ValueError):  # d = 24 in 4 heads: not a divisor of 256
+        fused_norms.rms_norm_heads(_randn(dev, 1, 8, 96), torch.ones(24, device=dev),
+                                   num_heads=4)
+    with pytest.raises(ValueError):  # a bf16 RMS weight
+        fused_norms.rms_norm_heads(x, torch.ones(64, device=dev).bfloat16(), num_heads=2)

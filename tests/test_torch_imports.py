@@ -1,10 +1,14 @@
-"""The port stays free of JAX, and its chip smoke script has no CPU fallback.
+"""The port stays free of JAX and of the JAX package, and its chip smoke
+script has no CPU fallback.
 
-Both checks run in a subprocess, so the test process's own imports (JAX for
-the parity tests) cannot mask an import the port makes.
+The import checks run in a subprocess, so the test process's own imports (JAX
+and adv_grpo_tpu for the parity tests) cannot mask an import the port makes.
+Every module of the package is imported, found by walking its directory, so
+a new module is covered without being listed.
 """
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -12,18 +16,20 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORT_MODULES = [
-    "adv_grpo_torch", "adv_grpo_torch.kernels.build", "adv_grpo_torch.ops.fused_norms",
-    "adv_grpo_torch.ops.joint_attention", "adv_grpo_torch.models.lora",
-    "adv_grpo_torch.models.mmdit", "adv_grpo_torch.models.vae",
-    "adv_grpo_torch.models.convert", "adv_grpo_torch.core.sde",
-    "adv_grpo_torch.rollout.sampler", "adv_grpo_torch.train.pipeline",
-    "adv_grpo_torch.config.base", "adv_grpo_torch.config.grpo",
-    "adv_grpo_torch.cli.common", "adv_grpo_torch.cli.infer", "adv_grpo_torch.ops.attention",
-    "adv_grpo_torch.core.grpo", "adv_grpo_torch.core.ema", "adv_grpo_torch.rewards.registry",
-    "adv_grpo_torch.train.train_state", "adv_grpo_torch.train.grpo_trainer",
-    "adv_grpo_torch.train.driver", "adv_grpo_torch.cli.train",
-]
+PORT_DIR = os.path.join(REPO, "adv_grpo_torch")
+
+
+def _port_modules():
+    mods = []
+    for root, _, files in os.walk(PORT_DIR):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, f), REPO)[:-3]
+                mods.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
+    return sorted(mods)
+
+
+PORT_MODULES = _port_modules()
 
 
 def _run(args, cwd):
@@ -40,6 +46,40 @@ def test_port_imports_no_jax_flax_or_triton():
     proc = _run(["-c", code], REPO)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_port_loads_nothing_of_the_jax_package():
+    """After importing every port module, no ``adv_grpo_tpu`` module is loaded:
+    the port keeps its own copies of the JAX package's jax-free modules."""
+    assert len(PORT_MODULES) > 30 and "adv_grpo_torch.models.flux" in PORT_MODULES
+    code = ("import importlib, sys\n"
+            f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] == 'adv_grpo_tpu'))\n")
+    proc = _run(["-c", code], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+_TPU_IMPORT = re.compile(r"^\s*(from\s+adv_grpo_tpu[\s.]|import\s+adv_grpo_tpu\b)|"
+                         r"import_module\(\s*[\"']adv_grpo_tpu", re.M)
+
+
+@pytest.mark.parametrize("where", ["adv_grpo_torch", "chip_smoke.py"])
+def test_no_source_imports_the_jax_package(where):
+    """No source line of the port or of chip_smoke.py imports adv_grpo_tpu,
+    at top level or inside a function (where the subprocess check above
+    cannot see it unless the function runs)."""
+    path = os.path.join(REPO, where)
+    files = ([path] if where.endswith(".py") else
+             [os.path.join(r, f) for r, _, fs in os.walk(path) for f in fs if f.endswith(".py")])
+    assert files
+    offenders = []
+    for f in files:
+        with open(f) as fh:
+            for n, line in enumerate(fh.read().splitlines(), 1):
+                if _TPU_IMPORT.search(line):
+                    offenders.append(f"{os.path.relpath(f, REPO)}:{n}: {line.strip()}")
+    assert not offenders, "\n".join(offenders)
 
 
 def test_chip_smoke_fails_without_a_gpu():

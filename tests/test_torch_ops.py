@@ -7,13 +7,16 @@ where the port runs its plain PyTorch version. Everything is fp32, so the
 tolerances below only absorb summation order, except where noted.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from adv_grpo_torch.ops import attention as t_mha
 from adv_grpo_torch.ops import fused_norms as t_norms
 from adv_grpo_torch.ops import joint_attention as t_attn
+from adv_grpo_tpu.ops import attention as j_mha
 from adv_grpo_tpu.ops import fused_norms as j_norms
 from adv_grpo_tpu.ops import joint_attention as j_attn
 
@@ -103,11 +106,84 @@ def test_cpu_path_launches_no_kernel():
     """On CPU tensors the wrappers take the plain path and count no launch,
     forward or backward."""
     counters = (t_norms.modulated_layer_norm, t_attn.joint_mha, t_attn.mha_rms,
-                t_attn.joint_attention_bwd, t_attn.mha_rms_bwd)
+                t_attn.joint_attention_bwd, t_attn.mha_rms_bwd, t_norms.rms_norm_heads,
+                t_mha.mha_bshd)
     before = [f.launches for f in counters]
     x = torch.randn(1, 4, 64, requires_grad=True)
     y = t_norms.modulated_layer_norm(x, torch.zeros(1, 64), torch.zeros(1, 64))
+    y = t_norms.rms_norm_heads(y, torch.ones(64), num_heads=1)
     o_i, o_t = t_attn.joint_mha(y, y, y, y, y, y, num_heads=1)
-    (o_i.sum() + o_t.sum() + t_attn.mha_rms(y, y, y, num_heads=1).sum()).backward()
+    o = t_mha.mha_bshd(y, y, y, num_heads=1, kv_len=3)
+    (o_i.sum() + o_t.sum() + t_attn.mha_rms(y, y, y, num_heads=1).sum() + o.sum()).backward()
     assert x.grad is not None
     assert [f.launches for f in counters] == before
+
+
+# ── the Flux kernels' plain versions against the TPU kernels (interpret mode) ──
+# fp32 on both sides: the plain port and the Pallas kernel run by the
+# interpreter differ only in summation order and the kernels' base-2 softmax
+# (~1e-6), inside 1e-5
+TOL_FLUX = 1e-5
+
+
+@pytest.mark.parametrize("num_heads,hd", [(2, 256), (1, 256)])  # d = 128; one row-wide head
+def test_rms_norm_heads_matches_jax_kernel_with_grads(num_heads, hd):
+    rng = np.random.default_rng(4)
+    b, s = 2, 16
+    d = hd // num_heads
+    x = _np(rng, b, s, hd, scale=1.0) + 0.2
+    w = 1.0 + _np(rng, d, scale=0.1)
+    dy = _np(rng, b, s, hd, scale=1.0)
+
+    def jfn(x_, w_):
+        return j_norms.rms_norm_heads(x_, w_, num_heads=num_heads,
+                                      backend="pallas_interpret")
+
+    want, vjp = jax.vjp(jfn, jnp.asarray(x), jnp.asarray(w))
+    want_dx, want_dw = vjp(jnp.asarray(dy))
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    got = t_norms.rms_norm_heads(tx, tw, num_heads=num_heads)
+    got.backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0, atol=TOL_FLUX)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_dx), rtol=0, atol=TOL_FLUX)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(want_dw), rtol=0, atol=TOL_FLUX)
+
+
+@pytest.mark.parametrize("kv_len", [None, 200])
+@pytest.mark.parametrize("h,d", [(2, 128), (4, 64)])
+def test_mha_bshd_matches_jax_kernel(kv_len, h, d):
+    rng = np.random.default_rng(5)
+    q, k, v = (_np(rng, 2, 256, h * d) for _ in range(3))
+    want = j_mha.mha_bshd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), num_heads=h,
+                          kv_len=kv_len, backend="pallas_interpret")
+    got = t_mha.mha_bshd(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                         num_heads=h, kv_len=kv_len)
+    assert got.shape == (2, 256, h * d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL_FLUX)
+
+
+def test_mha_bshd_kv_len_masks_the_tail():
+    """Keys at or past kv_len do not reach the output: changing them changes
+    nothing, and the lse is that of the first kv_len keys."""
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(_np(rng, 1, 40, 128)) for _ in range(3))
+    o, lse = t_mha.mha_bshd_fwd(q, k, v, 1, 128 ** -0.5, 25, want_lse=True)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 25:], v2[:, 25:] = 7.0, -3.0
+    torch.testing.assert_close(t_mha.mha_bshd(q, k2, v2, num_heads=1, kv_len=25), o)
+    ref_o, ref_lse = t_mha.mha_bshd_fwd(q, k[:, :25], v[:, :25], 1, 128 ** -0.5, None,
+                                        want_lse=True)
+    torch.testing.assert_close(o, ref_o)
+    torch.testing.assert_close(lse, ref_lse)
+
+
+@pytest.mark.parametrize("s_t", [12, 10])
+def test_joint_mha_without_rms_at_head_dim_128_matches_jax_kernel(s_t):
+    streams, _ = _attn_inputs(2, 2, 32, s_t, 2 * 128, 128)
+    want = j_attn.joint_mha(*(jnp.asarray(a) for a in streams), num_heads=2,
+                            backend="pallas_interpret")
+    got = t_attn.joint_mha(*(torch.from_numpy(a) for a in streams), num_heads=2)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=TOL_FLUX)
