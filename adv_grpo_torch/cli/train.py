@@ -4,6 +4,7 @@ Usage:
   python -m adv_grpo_torch.cli.train --config smoke_sd3_fast \\
       --set smoke_test=False --set sample.num_steps=10 \\
       --set sample.train_batch_size=2 --max_epochs 2 [--device cuda]
+  python -m adv_grpo_torch.cli.train --config flux_smoke --max_epochs 2 [--device cpu]
 
 Rewards, budgets and the optimizer come from the preset. Not ported yet, and
 refused with ``NotImplementedError``: ``--resume`` and ``train.lora_path``

@@ -4,8 +4,8 @@
 // on its way into shared memory.
 //
 // Tile geometry: a block of 4 warps works on 64-row tiles of one head of
-// width D (64 or 128, a template argument that defaults to 64, the width of
-// the backward kernels); each warp owns 16 rows of the tile it iterates with.
+// width D (64 or 128, a template argument); each warp owns 16 rows of the
+// tile it iterates with.
 // Shared tiles have a pitch of D + 8 bf16 (72 or 136: 4 words more than a
 // multiple of 32), so the eight row addresses of an ldmatrix hit distinct
 // banks.
@@ -21,12 +21,11 @@ namespace attn {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 64;     // head dim of the backward kernels
+constexpr int kD = 64;     // the default head width of the helpers below
 constexpr int kBQ = 64;    // q rows per tile
 constexpr int kBKV = 64;   // kv rows per tile
 constexpr int kWarps = 4;  // each warp owns 16 rows
 constexpr int kThreads = 32 * kWarps;
-constexpr int kLd = kD + 8;  // bf16 pitch of a 64-wide shared tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 static_assert(kBQ == 16 * kWarps && kBQ == kBKV, "tile geometry");
@@ -110,16 +109,41 @@ __device__ __forceinline__ void mma_abt(float (&acc)[8][4], const uint32_t (&a)[
   }
 }
 
-// acc (16 x D) += a (16 x 64, A fragments) * tile (64 rows x D columns), the
-// contraction running down the tile's rows (P.V shape): transposed ldmatrix
-// of the tile.
-template <int D = kD>
-__device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const uint32_t (&a)[4][4],
+// acc (16 x 8N) += A * B^T with both operands in shared memory: A is the 16
+// rows of a D-wide tile starting at `a`, B the 8N rows starting at `b`; the
+// contraction runs along their D columns. A's fragments are read per
+// 16-column step (ldmatrix), so they hold no registers across calls.
+template <int D, int N>
+__device__ __forceinline__ void mma_abt_ss(float (&acc)[N][4], const bf16* a, const bf16* b,
+                                           int lane) {
+  constexpr int ld = ld_of<D>();
+  const int lm_row = lane & 7, lm_mat = lane >> 3;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // A matrices: rows 0-7 / 8-15 x columns 16kk / 16kk+8 -> a[0..3]
+    uint32_t af[4];
+    ldmatrix_x4(af, a + (lm_row + 8 * (lm_mat & 1)) * ld + 16 * kk + 8 * (lm_mat >> 1));
+#pragma unroll
+    for (int j = 0; j < N; j += 2) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, b + (8 * (j + (lm_mat >> 1)) + lm_row) * ld + 16 * kk +
+                          8 * (lm_mat & 1));
+      mma_16816(acc[j], af, bf[0], bf[1]);
+      mma_16816(acc[j + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc (16 x D) += a (16 x 16KS, A fragments) * tile (16KS rows x D columns),
+// the contraction running down the tile's rows (P.V shape): transposed
+// ldmatrix of the tile.
+template <int D = kD, int KS = 4>
+__device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const uint32_t (&a)[KS][4],
                                        const bf16* tile, int lane) {
   constexpr int ld = ld_of<D>();
   const int lm_row = lane & 7, lm_mat = lane >> 3;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
     for (int n = 0; n < D / 8; n += 2) {
       // transposed matrices: tile rows 16kk / 16kk+8, columns 8n / 8(n+1)
@@ -132,11 +156,12 @@ __device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const uint32_t (&
   }
 }
 
-// A 16 x 64 accumulator (rows g, g+8; columns 8j + 2t, +1) as the bf16 A
+// A 16 x 8N accumulator (rows g, g+8; columns 8j + 2t, +1) as the bf16 A
 // fragments of the next product, whose contraction runs over those columns.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4], const float (&acc)[8][4]) {
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 2][4], const float (&acc)[N][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N; ++j) {
     a[j / 2][(j & 1) * 2] = pack_bf16(acc[j][0], acc[j][1]);
     a[j / 2][(j & 1) * 2 + 1] = pack_bf16(acc[j][2], acc[j][3]);
   }
@@ -160,7 +185,6 @@ struct TileRegsT {
   static constexpr int kVecPerThread = kBKV * D / 8 / kThreads;
   uint4 v[kVecPerThread];
 };
-using TileRegs = TileRegsT<kD>;
 
 template <int D>
 __device__ __forceinline__ void fetch_tile(TileRegsT<D>& regs, const bf16* src,

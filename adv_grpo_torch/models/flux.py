@@ -7,7 +7,8 @@ state-dict names (``x_embedder``, ``context_embedder``,
 to_add_out,...}``, ``transformer_blocks.{i}.ff.net.{0.proj,2}``,
 ``single_transformer_blocks.{i}.{norm.linear,attn.to_q,proj_mlp,proj_out}``,
 ``norm_out.linear``, ``proj_out``); the LoRA factors of the attention
-projections add ``lora_a`` / ``lora_b``.
+projections add ``lora_a`` / ``lora_b``, and the LoRA subtree is addressed by
+the JAX tree's flat paths (:func:`flux_jax_lora_path`).
 
   * packed 2x2 latent tokens -> ``x_embedder``; text tokens ->
     ``context_embedder``; timestep (+ embedded guidance) + pooled text -> the
@@ -32,6 +33,7 @@ sequence: the attention kernel masks ragged tiles itself.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -113,6 +115,27 @@ def make_latent_ids(gh: int, gw: int) -> np.ndarray:
     ids[..., 1] = np.arange(gh)[:, None]
     ids[..., 2] = np.arange(gw)[None, :]
     return ids.reshape(gh * gw, 3)
+
+
+# the double blocks' attention projections: diffusers name -> JAX name
+_JAX_ATTN_NAMES = {"add_q_proj": "add_to_q", "add_k_proj": "add_to_k",
+                   "add_v_proj": "add_to_v", "to_out.0": "to_out"}
+
+
+def flux_jax_lora_path(name: str) -> str:
+    """Port LoRA parameter name -> the JAX Flux tree's flat path:
+    ``transformer_blocks.3.attn.add_q_proj.lora_a`` ->
+    ``double_3/attn/add_to_q/lora_a``; ``single_transformer_blocks.1.attn.to_v.lora_b``
+    -> ``single_1/to_v/lora_b``; ``single_transformer_blocks.1.proj_mlp.lora_a``
+    -> ``single_1/proj_mlp/lora_a`` (the inverse of the names in
+    ``models/convert.py flux_state_dict_from_jax``)."""
+    m = re.fullmatch(r"transformer_blocks\.(\d+)\.attn\.(.+)\.(lora_[ab])", name)
+    if m:
+        return f"double_{m[1]}/attn/{_JAX_ATTN_NAMES.get(m[2], m[2])}/{m[3]}"
+    m = re.fullmatch(r"single_transformer_blocks\.(\d+)\.(?:attn\.)?(\w+)\.(lora_[ab])", name)
+    if m:
+        return f"single_{m[1]}/{m[2]}/{m[3]}"
+    raise KeyError(f"{name} is not a Flux LoRA factor")
 
 
 def _lora_linear(cfg: FluxConfig, n_in: int, n_out: int, device):
@@ -255,6 +278,8 @@ class FluxTransformer(nn.Module):
     guidance (B,) or None, lora_scale) -> velocity (B, S, in_channels) in
     cfg.dtype."""
 
+    jax_lora_path = staticmethod(flux_jax_lora_path)  # read by models/lora.py lora_params
+
     def __init__(self, cfg: FluxConfig, device=None):
         super().__init__()
         self.cfg = cfg
@@ -269,12 +294,15 @@ class FluxTransformer(nn.Module):
             [FluxSingleBlock(cfg, device) for _ in range(cfg.num_single_layers)])
         self.norm_out = AdaLNModulation(dim, 2, dt, device)
         self.proj_out = nn.Linear(dim, cfg.in_channels, dtype=dt, device=device)
-        self._rope: Dict[tuple, tuple] = {}  # (ids bytes, device) -> (cos, sin), built once
+        # (ids, device, inference mode) -> (cos, sin), built once; tensors made
+        # under inference_mode cannot be saved for a backward, so a training
+        # forward gets its own
+        self._rope: Dict[tuple, tuple] = {}
 
     def rope(self, txt_ids: np.ndarray, img_ids: np.ndarray, device):
         """fp32 (S_txt + S, D/2) cos and sin of the [txt ; img] token ids."""
         ids = np.concatenate([np.asarray(txt_ids), np.asarray(img_ids)], axis=0)
-        key = (ids.shape, ids.tobytes(), str(device))
+        key = (ids.shape, ids.tobytes(), str(device), torch.is_inference_mode_enabled())
         if key not in self._rope:
             angles = torch.from_numpy(rope_freqs(ids, self.cfg.rope_axes_dims)).to(device)
             self._rope[key] = (torch.cos(angles), torch.sin(angles))

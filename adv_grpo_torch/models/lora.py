@@ -15,8 +15,10 @@ computed factored and never materialises the rank-full update. The state-dict
 names of the base layer are torch's ``weight`` (out, in) and ``bias``.
 
 The LoRA subtree is addressed by the JAX package's flat path names
-(``block_3/attn/to_out/lora_a``; :func:`jax_lora_path`), so the two packages'
-trainers exchange it key for key.
+(``block_3/attn/to_out/lora_a`` for the MMDiT, :func:`jax_lora_path`; a model
+whose JAX tree is named otherwise, as Flux's ``double_3/attn/add_to_q``,
+carries its own ``jax_lora_path``), so the two packages' trainers exchange it
+key for key.
 """
 
 from __future__ import annotations
@@ -121,8 +123,10 @@ def jax_lora_path(name: str) -> str:
 
 def lora_params(module: nn.Module) -> Dict[str, nn.Parameter]:
     """The LoRA parameters of ``module`` by their JAX flat path names (the
-    JAX ``lora_params``), in module order."""
-    return {jax_lora_path(name): p for name, p in module.named_parameters()
+    JAX ``lora_params``), in module order: the module's own
+    ``jax_lora_path`` where it has one, else the MMDiT's."""
+    path = getattr(module, "jax_lora_path", jax_lora_path)
+    return {path(name): p for name, p in module.named_parameters()
             if name.rsplit(".", 1)[-1] in ("lora_a", "lora_b")}
 
 

@@ -1,17 +1,23 @@
 """Multi-head attention in the (B, S, H*D) projection layout, its plain
-version, and the row statistics the fused attention backwards share.
+version and its backward, and the row statistics and backward twin the
+fused attention backwards share.
 
 Port of adv_grpo_tpu/ops/attention.py: ``attention_reference`` (with the
-``kv_len`` key mask), ``mha_bshd`` (Flux's single-block attention) and
-``bwd_row_stats``. On CUDA tensors ``mha_bshd`` launches the kernel in
-``csrc/joint_attention.cu`` (``mha_bshd_fwd_bf16``), which reads q/k/v in place
-through their strides; on CPU tensors it runs the plain version, which
-follows the JAX ``backend="reference"`` path: fp32 scores, masked keys set to
-the JAX package's finite mask value, fp32 softmax, cast back to q's dtype.
+``kv_len`` key mask), ``mha_bshd`` (Flux's single-block attention) with its
+custom VJP (``_flash_mha_bshd``), and ``bwd_row_stats``. On CUDA tensors
+``mha_bshd`` launches the forward kernel in ``csrc/joint_attention.cu``
+(``mha_bshd_fwd_bf16``), which reads q/k/v in place through their strides
+and, when a gradient is needed, writes the per-row lse; the backward
+(``_MhaBshd``) computes di with :func:`bwd_row_stats` and launches
+``mha_bshd_bwd_bf16`` in ``csrc/joint_attention_bwd.cu``. On CPU tensors the
+forward runs the plain version, which follows the JAX ``backend="reference"``
+path (fp32 scores, masked keys set to the JAX package's finite mask value,
+fp32 softmax, cast back to q's dtype), and the backward the kernel's plain
+twin :func:`attention_bwd_reference`.
 
 The TPU layout's lane broadcast of the statistics (``LSE_LANES``) and its
 zero padding of S to a block multiple have no counterpart here: the
-statistics stay (B, H, S), and the kernel masks ragged rows itself.
+statistics stay (B, H, S), and the kernels mask ragged rows themselves.
 """
 
 from __future__ import annotations
@@ -64,6 +70,62 @@ def mha_bshd_reference(q, k, v, *, num_heads, sm_scale=None, kv_len=None,
     return (from_bhsd(o), lse) if return_lse else from_bhsd(o)
 
 
+def attention_bwd_reference(qs, ks, vs, dos, lses, dis, *, num_heads, rms_weights=None,
+                            eps=1e-6, sm_scale=None, kv_len=None):
+    """Plain twin of the attention backward kernels, in their op order.
+
+    ``qs``, ``dos``: one (B, S_i, H*D) tensor per token stream (image, then
+    text; a single stream for ``mha_rms`` and ``mha_bshd``); ``ks``, ``vs``:
+    the streams' (B, S_kv_i, H*D) keys and values (S_kv_i = S_i for the joint
+    and RMS forms); ``lses``, ``dis``: fp32 (B, H, S_i) per stream.
+    ``rms_weights``: None, or one (wq, wk) pair per stream. ``kv_len`` (one
+    stream only): keys at or past it get p = 0. Returns (dyq, dyk, dv) per
+    stream — the cotangents of the normalised q and k, and of v — in the
+    inputs' dtype.
+
+    Op order (the TPU's fused bodies, adv_grpo_tpu/ops/joint_attention.py
+    :275-320 and ops/attention.py:516-545): RMS in fp32, then x w; qs2 = dt(yq
+    * sm_scale * log2 e); s = qs2 . dt(yk); p = exp2(s - lse * log2 e); dv =
+    dt(p)^T do; dp = do v^T; t = dt(p * (dp - di)); dyk = t^T dt(yq *
+    sm_scale); dyq = (t dt(yk)) * sm_scale — the kernel's order, one rounding
+    fewer than the TPU's t dt(dt(yk) * sm_scale), equal to it when sm_scale is
+    a power of two (head width 64); fp32 accumulation.
+    """
+    dt = qs[0].dtype
+    d = qs[0].shape[-1] // num_heads
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+
+    def norm(x, w):  # (B, H, S, D) fp32 of the (optionally) RMS-normalised x
+        xf = to_bhsd(x, num_heads).float()
+        if w is None:
+            return xf
+        return xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps) * w.float()
+
+    ws = rms_weights or [(None, None)] * len(qs)
+    yq = torch.cat([norm(q, w[0]) for q, w in zip(qs, ws)], dim=2)
+    yk = torch.cat([norm(k, w[1]) for k, w in zip(ks, ws)], dim=2).to(dt).float()
+    v = torch.cat([to_bhsd(a, num_heads) for a in vs], dim=2).float()
+    do = torch.cat([to_bhsd(a, num_heads) for a in dos], dim=2).float()
+    lse2 = torch.cat(lses, dim=-1)[..., None].float() * LOG2E
+    di = torch.cat(dis, dim=-1)[..., None].float()
+
+    qs2 = (yq * (sm_scale * LOG2E)).to(dt).float()
+    yq_s = (yq * sm_scale).to(dt).float()
+    p = torch.exp2(qs2 @ yk.transpose(-1, -2) - lse2)
+    if kv_len is not None and kv_len < yk.shape[2]:
+        p = p * (torch.arange(yk.shape[2], device=p.device) < kv_len)
+    dv = p.to(dt).float().transpose(-1, -2) @ do
+    t = (p * (do @ v.transpose(-1, -2) - di)).to(dt).float()
+    dyk = t.transpose(-1, -2) @ yq_s
+    dyq = (t @ yk) * sm_scale
+
+    q_lens, kv_lens = [q.shape[1] for q in qs], [k.shape[1] for k in ks]
+    outs = [[from_bhsd(c).to(dt) for c in torch.split(a, lens, dim=2)]
+            for a, lens in ((dyq, q_lens), (dyk, kv_lens), (dv, kv_lens))]
+    return [tuple(o[i] for o in outs) for i in range(len(qs))]
+
+
 def bwd_row_stats(o, do, num_heads):
     """di = sum_d o * do per (batch, head, row), fp32 (B, H, S), from o as the
     forward stored it (bf16 on the card) — the JAX ``bwd_row_stats``."""
@@ -91,6 +153,16 @@ def check_rows(what, tensors, device):
                              "strides that are multiples of 8 and a 16-byte aligned base")
 
 
+def check_stats(what, stats, batch, num_heads, length, device):
+    """Validate fp32 contiguous (B, H, S) row statistics (lse, di)."""
+    for t in stats:
+        if (t.device != device or t.dtype != torch.float32
+                or t.shape != (batch, num_heads, length) or not t.is_contiguous()):
+            raise ValueError(f"{what}: row statistics must be contiguous fp32 "
+                             f"{(batch, num_heads, length)} on {device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def head_dim_of(what, width, num_heads, dims=HEAD_DIMS):
     """The head width of a (.., H*D) tensor; raises unless it is in ``dims``."""
     if num_heads < 1 or width % num_heads or width // num_heads not in dims:
@@ -103,14 +175,9 @@ def int64_array(vals):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def mha_bshd_fwd(q, k, v, num_heads, sm_scale, kv_len, want_lse):
-    """(o, lse): the kernel on CUDA tensors, the plain version on CPU
-    tensors; lse is fp32 (B, H, S_q), or None unless ``want_lse``."""
-    if q.device.type == "cpu":
-        out = mha_bshd_reference(q, k, v, num_heads=num_heads, sm_scale=sm_scale,
-                                 kv_len=kv_len, return_lse=want_lse)
-        return out if want_lse else (out, None)
-    what = "mha_bshd"
+def _check_bshd(what, q, k, v, num_heads, kv_len):
+    """Validate a (q, k, v) kernel call; return (batch, S_q, S_kv, head width,
+    kv_len clamped to S_kv)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     check_rows(what, (q, k, v), q.device)
@@ -124,35 +191,101 @@ def mha_bshd_fwd(q, k, v, num_heads, sm_scale, kv_len, want_lse):
     if sq < 1 or kv < 1:
         raise ValueError(f"{what}: needs at least one query and one key (S_q={sq}, "
                          f"kv_len={kv})")
-    o = torch.empty((b, sq, hd), dtype=torch.bfloat16, device=q.device)
+    return b, sq, skv, d, kv
+
+
+def _bshd_strides(tensors, d):
+    """The (batch, row, head) strides of (B, S, H*D) tensors, heads D apart."""
+    return int64_array([st for t in tensors for st in (t.stride(0), t.stride(1), d)])
+
+
+def mha_bshd_fwd(q, k, v, num_heads, sm_scale, kv_len, want_lse):
+    """(o, lse): the kernel on CUDA tensors, the plain version on CPU
+    tensors; lse is fp32 (B, H, S_q), or None unless ``want_lse``."""
+    if q.device.type == "cpu":
+        out = mha_bshd_reference(q, k, v, num_heads=num_heads, sm_scale=sm_scale,
+                                 kv_len=kv_len, return_lse=want_lse)
+        return out if want_lse else (out, None)
+    what = "mha_bshd"
+    b, sq, _, d, kv = _check_bshd(what, q, k, v, num_heads, kv_len)
+    o = torch.empty((b, sq, q.shape[2]), dtype=torch.bfloat16, device=q.device)
     lse = (torch.empty((b, num_heads, sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
-    strides = int64_array([st for t in (q, k, v) for st in (t.stride(0), t.stride(1), d)]
-                          + [o.stride(0), o.stride(1), d])
     rc = _kernels.lib().mha_bshd_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        None if lse is None else lse.data_ptr(), sq, kv, strides, b, num_heads, d,
-        float(sm_scale * LOG2E), _kernels.stream_ptr(q.device))
+        None if lse is None else lse.data_ptr(), sq, kv, _bshd_strides((q, k, v, o), d), b,
+        num_heads, d, float(sm_scale * LOG2E), _kernels.stream_ptr(q.device))
     _kernels.check(rc, what)
     mha_bshd.launches += 1
     return o, lse
+
+
+def mha_bshd_bwd(q, k, v, do, lse, di, *, num_heads, sm_scale=None, kv_len=None):
+    """(dq, dk, dv) of :func:`mha_bshd` from the forward's lse and di = sum
+    o * do (fp32 (B, H, S_q) each): the backward kernel on CUDA tensors, its
+    plain twin :func:`attention_bwd_reference` on CPU tensors. Rows of dk and
+    dv at or past ``kv_len`` are zero."""
+    if sm_scale is None:
+        sm_scale = (q.shape[-1] // num_heads) ** -0.5
+    if q.device.type == "cpu":
+        return attention_bwd_reference([q], [k], [v], [do], [lse], [di], num_heads=num_heads,
+                                       sm_scale=sm_scale, kv_len=kv_len)[0]
+    what = "mha_bshd_bwd"
+    b, sq, skv, d, kv = _check_bshd(what, q, k, v, num_heads, kv_len)
+    check_rows(what, (do,), q.device)
+    if do.shape != q.shape:
+        raise ValueError(f"{what}: do {tuple(do.shape)} and q {tuple(q.shape)} differ")
+    check_stats(what, (lse, di), b, num_heads, sq, q.device)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk, dv = (torch.empty((b, skv, q.shape[2]), dtype=torch.bfloat16, device=q.device)
+              for _ in range(2))
+    rc = _kernels.lib().mha_bshd_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), sq, skv, kv,
+        _bshd_strides((q, k, v, do, dq, dk, dv), d), b, num_heads, d, float(sm_scale),
+        _kernels.stream_ptr(q.device))
+    _kernels.check(rc, what)
+    mha_bshd_bwd.launches += 1
+    return dq, dk, dv
+
+
+mha_bshd_bwd.launches = 0
+
+
+class _MhaBshd(torch.autograd.Function):
+    """The JAX ``_flash_mha_bshd`` custom VJP. Inputs: num_heads, sm_scale,
+    kv_len, q, k, v."""
+
+    @staticmethod
+    def forward(ctx, num_heads, sm_scale, kv_len, q, k, v):
+        o, lse = mha_bshd_fwd(q, k, v, num_heads, sm_scale, kv_len, want_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (num_heads, sm_scale, kv_len)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        num_heads, sm_scale, kv_len = ctx.args
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dq, dk, dv = mha_bshd_bwd(q, k, v, do, lse, bwd_row_stats(o, do, num_heads),
+                                  num_heads=num_heads, sm_scale=sm_scale, kv_len=kv_len)
+        return None, None, None, dq, dk, dv
 
 
 def mha_bshd(q, k, v, *, num_heads, sm_scale=None, kv_len=None):
     """Bidirectional multi-head attention on (B, S, H*D) tensors, read in
     place (no transposes); keys at or past ``kv_len`` are masked.
 
-    CPU tensors take the plain path (differentiable by autograd). CUDA
-    tensors launch the forward kernel (bf16, head width 64 or 128) or raise;
-    its backward (the TPU's ``_bshd_bwd``) is not ported yet, so a CUDA call
-    that needs a gradient raises too.
+    CPU tensors take the plain path; CUDA tensors launch the forward kernel
+    (bf16, head width 64 or 128) or raise. Differentiable in q, k and v: the
+    backward launches ``mha_bshd_bwd_bf16`` on CUDA tensors and runs its plain
+    twin on CPU tensors.
     """
     if sm_scale is None:
         sm_scale = (q.shape[-1] // num_heads) ** -0.5
-    if (q.device.type != "cpu" and torch.is_grad_enabled()
-            and any(t.requires_grad for t in (q, k, v))):
-        raise NotImplementedError("mha_bshd: the backward kernel (adv_grpo_tpu/ops/"
-                                  "attention.py _bshd_bwd) is not yet ported")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _MhaBshd.apply(num_heads, sm_scale, kv_len, q, k, v)
     return mha_bshd_fwd(q, k, v, num_heads, sm_scale, kv_len, want_lse=False)[0]
 
 

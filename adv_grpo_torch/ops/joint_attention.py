@@ -18,8 +18,9 @@ Backward (``torch.autograd.Function``s mirroring the JAX ``_joint_mha_p`` /
 then the backward kernel in ``csrc/joint_attention_bwd.cu`` (CUDA) or its plain
 twin (CPU) — both in the TPU kernel's op order — gives the cotangents of the
 NORMALISED q and k and of v, and the closed-form RMS backward turns those into
-dq, dk and the RMS-weight gradients. The backward kernels take D = 64 only
-(training Flux comes later) and raise at other widths.
+dq, dk and the RMS-weight gradients. The joint backward takes D = 64 (with or
+without RMS) and D = 128 (without RMS, Flux's double blocks); the
+single-stream RMS backward takes D = 64; other widths raise.
 """
 
 from __future__ import annotations
@@ -28,13 +29,17 @@ import torch
 
 from adv_grpo_torch.kernels import build as _kernels
 from adv_grpo_torch.ops.attention import (
-    HEAD_DIMS, LOG2E, attention_reference, bwd_row_stats, check_rows, head_dim_of,
-    int64_array)
+    HEAD_DIMS, LOG2E, attention_bwd_reference, attention_reference, bwd_row_stats, check_rows,
+    check_stats, head_dim_of, int64_array)
 from adv_grpo_torch.ops.attention import from_bhsd as _from4
 from adv_grpo_torch.ops.attention import to_bhsd as _to4
 from adv_grpo_torch.ops.fused_norms import rms_bwd_closed, rms_reference
 
-_BWD_HEAD_DIMS = (64,)  # the backward kernels' one head width (SD3.5)
+# the joint backward's head widths: 64 (SD3.5-M, qk-RMS fused) and 128
+# (Flux.1-dev, no RMS: its qk-norm and RoPE come before); the single-stream
+# RMS backward takes 64 only
+_BWD_HEAD_DIMS = (64, 128)
+_RMS_BWD_HEAD_DIMS = (64,)
 
 
 def joint_mha_reference(q_img, k_img, v_img, q_txt, k_txt, v_txt, *, num_heads,
@@ -75,55 +80,6 @@ def mha_rms_reference(q, k, v, *, num_heads, rms_weights=None, eps=1e-6,
     return (_from4(o), lse) if return_lse else _from4(o)
 
 
-def attention_bwd_reference(qs, ks, vs, dos, lses, dis, *, num_heads, rms_weights=None,
-                            eps=1e-6, sm_scale=None):
-    """Plain twin of the backward kernels, in the TPU kernel's op order.
-
-    ``qs``, ``ks``, ``vs``, ``dos``: one (B, S_i, H*D) tensor per token stream
-    (image, then text; a single stream for ``mha_rms``); ``lses``, ``dis``:
-    fp32 (B, H, S_i) per stream. ``rms_weights``: None, or one (wq, wk) pair
-    per stream. Returns (dyq, dyk, dv) per stream — the cotangents of the
-    normalised q and k, and of v — in the inputs' dtype.
-
-    Op order (adv_grpo_tpu/ops/joint_attention.py:275-320): RMS in fp32, then
-    x w; qs2 = dt(yq * sm_scale * log2 e); s = qs2 . dt(yk); p = exp2(s - lse *
-    log2 e); dv = dt(p)^T do; dp = do v^T; t = dt(p * (dp - di)); dyk = t^T
-    dt(yq * sm_scale); dyq = t dt(dt(yk) * sm_scale); fp32 accumulation.
-    """
-    dt = qs[0].dtype
-    d = qs[0].shape[-1] // num_heads
-    if sm_scale is None:
-        sm_scale = d ** -0.5
-
-    def norm(x, w):  # (B, H, S, D) fp32 of the (optionally) RMS-normalised x
-        xf = _to4(x, num_heads).float()
-        if w is None:
-            return xf
-        return xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps) * w.float()
-
-    ws = rms_weights or [(None, None)] * len(qs)
-    yq = torch.cat([norm(q, w[0]) for q, w in zip(qs, ws)], dim=2)
-    yk = torch.cat([norm(k, w[1]) for k, w in zip(ks, ws)], dim=2).to(dt).float()
-    v = torch.cat([_to4(a, num_heads) for a in vs], dim=2).float()
-    do = torch.cat([_to4(a, num_heads) for a in dos], dim=2).float()
-    lse2 = torch.cat(lses, dim=-1)[..., None].float() * LOG2E
-    di = torch.cat(dis, dim=-1)[..., None].float()
-
-    qs2 = (yq * (sm_scale * LOG2E)).to(dt).float()
-    yq_s = (yq * sm_scale).to(dt).float()
-    p = torch.exp2(qs2 @ yk.transpose(-1, -2) - lse2)
-    dv = p.to(dt).float().transpose(-1, -2) @ do
-    t = (p * (do @ v.transpose(-1, -2) - di)).to(dt).float()
-    dyk = t.transpose(-1, -2) @ yq_s
-    dyq = t @ (yk * sm_scale).to(dt).float()
-
-    lens = [q.shape[1] for q in qs]
-    outs = []
-    for a in (dyq, dyk, dv):
-        outs.append([_from4(c).to(dt) for c in torch.split(a, lens, dim=2)])
-    return [tuple(o[i] for o in outs) for i in range(len(qs))]
-
-
 # ─────────────────────────── kernel wrappers ───────────────────────────
 
 
@@ -135,16 +91,6 @@ def _check_stream(what, tensors, batch, hd, device):
         if t.shape != (batch, length, hd):
             raise ValueError(f"{what}: expected {(batch, length, hd)}, got {tuple(t.shape)}")
     return length
-
-
-def _check_stats(what, stats, batch, num_heads, length, device):
-    """Validate fp32 contiguous (B, H, S) row statistics (lse, di)."""
-    for t in stats:
-        if (t.device != device or t.dtype != torch.float32
-                or t.shape != (batch, num_heads, length) or not t.is_contiguous()):
-            raise ValueError(f"{what}: row statistics must be contiguous fp32 "
-                             f"{(batch, num_heads, length)} on {device}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _check_weights(what, weights, n, d, device):
@@ -253,11 +199,13 @@ def joint_attention_bwd(q_img, k_img, v_img, q_txt, k_txt, v_txt, do_img, do_txt
         return (*img, *txt)
     what = "joint_attention_bwd"
     b, hd, d = _geometry(what, q_img, num_heads, _BWD_HEAD_DIMS)
+    if d != 64 and rms_weights is not None:
+        raise ValueError(f"{what}: the fused qk-RMS backward takes head width 64, got {d}")
     dev = q_img.device
     s_i = _check_stream(what, (q_img, k_img, v_img, do_img), b, hd, dev)
     s_t = _check_stream(what, (q_txt, k_txt, v_txt, do_txt), b, hd, dev)
-    _check_stats(what, (lse_img, di_img), b, num_heads, s_i, dev)
-    _check_stats(what, (lse_txt, di_txt), b, num_heads, s_t, dev)
+    check_stats(what, (lse_img, di_img), b, num_heads, s_i, dev)
+    check_stats(what, (lse_txt, di_txt), b, num_heads, s_t, dev)
     w = _check_weights(what, rms_weights, 4, d, dev)
     outs = [torch.empty((b, s, hd), dtype=torch.bfloat16, device=dev)
             for s in (s_i, s_i, s_i, s_t, s_t, s_t)]
@@ -267,7 +215,7 @@ def joint_attention_bwd(q_img, k_img, v_img, q_txt, k_txt, v_txt, do_img, do_txt
         lse_img.data_ptr(), di_img.data_ptr(), *(o.data_ptr() for o in outs[:3]), s_i,
         q_txt.data_ptr(), k_txt.data_ptr(), v_txt.data_ptr(), do_txt.data_ptr(),
         lse_txt.data_ptr(), di_txt.data_ptr(), *(o.data_ptr() for o in outs[3:]), s_t,
-        strides, *w, b, num_heads, float(sm_scale), float(eps), _kernels.stream_ptr(dev))
+        strides, *w, b, num_heads, d, float(sm_scale), float(eps), _kernels.stream_ptr(dev))
     _kernels.check(rc, what)
     joint_attention_bwd.launches += 1
     return tuple(outs)
@@ -288,10 +236,10 @@ def mha_rms_bwd(q, k, v, do, lse, di, *, num_heads, rms_weights=None, eps=1e-6,
                                        num_heads=num_heads, rms_weights=pairs, eps=eps,
                                        sm_scale=sm_scale)[0]
     what = "mha_rms_bwd"
-    b, hd, d = _geometry(what, q, num_heads, _BWD_HEAD_DIMS)
+    b, hd, d = _geometry(what, q, num_heads, _RMS_BWD_HEAD_DIMS)
     dev = q.device
     s = _check_stream(what, (q, k, v, do), b, hd, dev)
-    _check_stats(what, (lse, di), b, num_heads, s, dev)
+    check_stats(what, (lse, di), b, num_heads, s, dev)
     w = _check_weights(what, rms_weights, 2, d, dev)
     outs = [torch.empty((b, s, hd), dtype=torch.bfloat16, device=dev) for _ in range(3)]
     rc = _kernels.lib().mha_rms_bwd_bf16(

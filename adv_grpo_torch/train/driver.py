@@ -12,11 +12,14 @@ window-fit check, ``sample_phase``, ``train_phase`` with inner epochs and
     GRPO update  -> the inner epoch over (minibatch, window-step) microbatches
 
 The device is the pipeline's (one card, or the CPU for the tests). Rollout
-records stay on the device between the phases. Not ported yet, and refused
-with ``NotImplementedError``: the discriminator (``train_d``) and its D-phase,
-``same_latent``'s shared prefix, the flux / wan families, checkpoints
-(``save``), multi-host and the mesh. The reference-image store is not loaded:
-only device rewards and the D-phase read it.
+records stay on the device between the phases. The model family is the
+pipeline's (``pipeline.family``): sd3, or flux with its own sampling and eval
+factories (full-SDE window rollouts, embedded guidance, no shared prefix).
+Not ported yet, and refused with ``NotImplementedError``: the discriminator
+(``train_d``) and its D-phase, sd3's ``same_latent`` shared prefix, the wan
+family, checkpoints (``save``), multi-host and the mesh. The
+reference-image store is not loaded: only device rewards and the D-phase read
+it.
 """
 
 from __future__ import annotations
@@ -34,10 +37,10 @@ from adv_grpo_torch.data.krepeat import DistributedKRepeatSampler
 from adv_grpo_torch.models.lora import freeze_non_lora
 from adv_grpo_torch.rollout.sampler import SamplerConfig, sample_random_timestep
 from adv_grpo_torch.train.grpo_trainer import (
-    compute_advantages, make_eval_fn, make_sample_fn, make_train_epoch_fn,
-    rebatch_for_training)
+    compute_advantages, make_eval_fn, make_flux_eval_fn, make_flux_sample_fn, make_sample_fn,
+    make_train_epoch_fn, rebatch_for_training)
 from adv_grpo_torch.train.train_state import create_generator_state
-from adv_grpo_torch.utils.flops import rollout_flops
+from adv_grpo_torch.utils.flops import flux_forward_flops, rollout_flops
 from adv_grpo_torch.utils.images import images_to_uint8
 from adv_grpo_torch.utils.metrics import MetricLogger, StepTimer
 
@@ -60,8 +63,10 @@ class GRPOTrainer:
             raise NotImplementedError(
                 f"discriminator={config.discriminator!r} with train_d: the co-trained "
                 "D-phase is not yet ported to adv_grpo_torch")
-        if str(config.get("model_family", "sd3") or "sd3") != "sd3":
-            raise NotImplementedError("adv_grpo_torch trains the sd3 family only")
+        self.family = getattr(pipeline, "family", "sd3")
+        if self.family not in ("sd3", "flux"):
+            raise NotImplementedError(f"model family {self.family!r}: adv_grpo_torch trains "
+                                      "the sd3 and flux families only")
         self.pipeline = pipeline
         self.device = pipeline.device
         self.dataset = dataset
@@ -80,7 +85,7 @@ class GRPOTrainer:
                 f"schedule: the window start goes up to {max_rt}, so "
                 f"train_num_steps must be <= {int(s.num_steps) - max_rt} "
                 f"for num_steps={int(s.num_steps)}")
-        if bool(s.same_latent):
+        if bool(s.same_latent) and self.family == "sd3":
             raise NotImplementedError("sample.same_latent (the group-shared prefix) is "
                                       "not yet ported to adv_grpo_torch")
         self.sampler_cfg = SamplerConfig(
@@ -94,15 +99,25 @@ class GRPOTrainer:
         self.k = max(int(s.num_image_per_prompt) // self.mini, 1)
         self.num_batches = int(s.num_batches_per_epoch)
         self.micro_splits = max(int(config.train.get("micro_splits", 1)), 1)
-        self.sample_fn = make_sample_fn(pipeline, self.sampler_cfg, latent_hw)
-        self.eval_fn = make_eval_fn(pipeline, self.eval_cfg, latent_hw)
+        if self.family == "flux":
+            # full-SDE rollouts are stochastic at every step, so there is no
+            # shared prefix; same_latent shares a group's initial latent
+            self.sample_fn = make_flux_sample_fn(pipeline, self.sampler_cfg, latent_hw,
+                                                 same_latent=bool(s.same_latent),
+                                                 group_size=self.mini)
+            self.eval_fn = make_flux_eval_fn(pipeline, self.eval_cfg, latent_hw)
+            self._s_img = (latent_hw // 2) ** 2  # packed 2x2 tokens
+        else:
+            self.sample_fn = make_sample_fn(pipeline, self.sampler_cfg, latent_hw)
+            self.eval_fn = make_eval_fn(pipeline, self.eval_cfg, latent_hw)
+            self._s_img = (latent_hw // pipeline.mmdit_cfg.patch_size) ** 2
         train_sampler_cfg = dataclasses.replace(
             self.sampler_cfg, cfg_sequential=bool(config.train.get("cfg_sequential", False)))
         self.train_epoch_fn = make_train_epoch_fn(pipeline, train_sampler_cfg, config.train,
                                                   beta=float(config.train.beta))
 
         # trainable LoRA subtree; every other parameter frozen
-        lora = freeze_non_lora(pipeline.mmdit)
+        lora = freeze_non_lora(pipeline.transformer)
         if not lora:
             raise ValueError("pipeline has no LoRA parameters (lora_rank=0?)")
         self.state = create_generator_state(lora, config.train, s.train_num_steps)
@@ -126,7 +141,6 @@ class GRPOTrainer:
             run_name=str(config.case_name), is_main=True)
         self.timer = StepTimer()
         self.executor = ThreadPoolExecutor(max_workers=4)
-        self._s_img = (latent_hw // pipeline.mmdit_cfg.patch_size) ** 2
         self._rollout_flops_acc = 0.0
         ne, npld = self.text_encode_fn([""])
         self.neg_embeds1 = self._dev(ne)
@@ -178,9 +192,13 @@ class GRPOTrainer:
                 rollout, images = self.sample_fn(embeds, pooled, neg_e, neg_p, generator,
                                                  torch.full((B,), rt, dtype=torch.long))
                 images_np = images.float().cpu().numpy()  # syncs: the rollout is done
-            self._rollout_flops_acc += rollout_flops(
-                self.pipeline.mmdit_cfg, self._s_img, embeds.shape[1], B,
-                self.sampler_cfg.num_steps, self.sampler_cfg.do_cfg)
+            if self.family == "flux":  # one forward per step, no CFG batch
+                self._rollout_flops_acc += self.sampler_cfg.num_steps * flux_forward_flops(
+                    self.pipeline.flux_cfg, self._s_img, embeds.shape[1], B)
+            else:
+                self._rollout_flops_acc += rollout_flops(
+                    self.pipeline.mmdit_cfg, self._s_img, embeds.shape[1], B,
+                    self.sampler_cfg.num_steps, self.sampler_cfg.do_cfg)
 
             def _score(images=images_np, prompts=prompts, metadata=metadata):
                 return self.reward_fn(images, prompts, metadata)[0]

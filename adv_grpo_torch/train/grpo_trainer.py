@@ -1,19 +1,23 @@
-"""GRPO phases of the SD3 trainer: sampling, eval generation, the inner
-training epoch, advantages and rebatching.
+"""GRPO phases of the trainer: sampling, eval generation, the inner training
+epoch, advantages and rebatching, for the sd3 and flux families.
 
 Port of adv_grpo_tpu/train/grpo_trainer.py (``make_sample_fn`` :47 with
-independent latents, ``make_eval_fn`` :247, ``make_train_epoch_fn`` :269,
-``compute_advantages`` :546, ``rebatch_for_training`` :559). The JAX phases are
-jitted functions of (LoRA, frozen params, batch); here they close over the
-pipeline, whose MMDiT holds the live LoRA parameters, and run eagerly:
+independent latents, ``make_flux_sample_fn`` :117, ``make_flux_eval_fn`` :151,
+``make_eval_fn`` :247, ``make_train_epoch_fn`` :269, ``compute_advantages``
+:546, ``rebatch_for_training`` :559). The JAX phases are jitted functions of
+(LoRA, frozen params, batch); here they close over the pipeline, whose
+``transformer`` (the MMDiT or the Flux transformer) holds the live LoRA
+parameters, and run eagerly:
 
   * sampling and eval run under ``torch.no_grad()``;
   * the training epoch is a Python loop over (minibatch, window step)
     microbatches in the JAX scan's order; each microbatch replays its window
-    step through the MMDiT forward and backward, where only the LoRA factors
-    require gradients, and feeds the gradients to ``apply_microbatch_grads``.
+    step through the transformer's forward and backward (the family's replay:
+    the CPS step with its CFG batch for sd3, the Flow-SDE step with embedded
+    guidance for flux), where only the LoRA factors require gradients, and
+    feeds the gradients to ``apply_microbatch_grads``.
 
-The flux / wan sample factories and the discriminator steps are not ported.
+The wan factories and the discriminator steps are not ported.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 from adv_grpo_torch.core.grpo import grpo_loss
 from adv_grpo_torch.core.stat_tracking import PerPromptStatTracker, calculate_zero_std_ratio
 from adv_grpo_torch.models.lora import lora_params, merge_lora_params
+from adv_grpo_torch.rollout.flux import compute_flux_log_prob, flux_denoise_window_with_logprob
 from adv_grpo_torch.rollout.sampler import (
     SamplerConfig, compute_log_prob, denoise_with_logprob)
 from adv_grpo_torch.train.train_state import GeneratorState, apply_microbatch_grads
@@ -67,10 +72,55 @@ def make_eval_fn(pipeline, eval_cfg: SamplerConfig, latent_hw: int):
 
     @torch.no_grad()
     def evaluate(lora_flat, embeds, pooled, neg_embeds, neg_pooled, generator):
-        with lora_swapped(pipeline.mmdit, lora_flat):
+        with lora_swapped(pipeline.transformer, lora_flat):
             lat0 = pipeline.prepare_latents(generator, embeds.shape[0], latent_hw)
             out = denoise_with_logprob(pipeline.velocity_fn(), lat0, embeds, pooled,
                                        neg_embeds, neg_pooled, generator, eval_cfg, 0)
+            return pipeline.decode(out.final_latents)
+
+    return evaluate
+
+
+def make_flux_sample_fn(pipeline, sampler_cfg: SamplerConfig, latent_hw: int,
+                        same_latent: bool = False, group_size: int = 1):
+    """One Flux sampling batch: the full-SDE rollout (every step stochastic),
+    the window gather and the decode -> (RolloutResult, images in [-1, 1]).
+    The signature of :func:`make_sample_fn`'s closure; the negative
+    embeddings are unused (guidance is embedded, there is no CFG batch).
+    ``same_latent`` shares each group's initial latent (a full-SDE chain has
+    no deterministic prefix to share)."""
+
+    @torch.no_grad()
+    def sample(embeds, pooled, neg_embeds, neg_pooled, generator, rt):
+        del neg_embeds, neg_pooled
+        b = embeds.shape[0]
+        if same_latent and group_size > 1:
+            lat0 = pipeline.prepare_latents(generator, b // group_size, latent_hw)
+            lat0 = lat0.repeat_interleave(group_size, dim=0)
+        else:
+            lat0 = pipeline.prepare_latents(generator, b, latent_hw)
+        vfn = pipeline.velocity_fn()
+        out = flux_denoise_window_with_logprob(
+            lambda x, t: vfn(x, t, embeds, pooled), lat0, generator, sampler_cfg.num_steps,
+            sampler_cfg.train_num_steps, sampler_cfg.noise_level, rt)
+        return out, pipeline.decode(out.final_latents)
+
+    return sample
+
+
+def make_flux_eval_fn(pipeline, eval_cfg: SamplerConfig, latent_hw: int):
+    """Deterministic Flux eval generation (noise level 0: the Flow-SDE step
+    is the plain flow update) with the given LoRA values -> images."""
+
+    @torch.no_grad()
+    def evaluate(lora_flat, embeds, pooled, neg_embeds, neg_pooled, generator):
+        del neg_embeds, neg_pooled
+        with lora_swapped(pipeline.transformer, lora_flat):
+            lat0 = pipeline.prepare_latents(generator, embeds.shape[0], latent_hw)
+            vfn = pipeline.velocity_fn()
+            out = flux_denoise_window_with_logprob(
+                lambda x, t: vfn(x, t, embeds, pooled), lat0, generator, eval_cfg.num_steps,
+                0, eval_cfg.noise_level, 0)
             return pipeline.decode(out.final_latents)
 
     return evaluate
@@ -81,15 +131,20 @@ def make_train_epoch_fn(pipeline, sampler_cfg: SamplerConfig, train_cfg, beta: f
     T = sampler_cfg.train_num_steps
     clip_range = float(train_cfg.clip_range)
     adv_clip_max = float(train_cfg.adv_clip_max)
+    # the family seam: the window-step replay is the one family-specific piece
+    # of the epoch (sd3: CPS step + CFG batch; flux: Flow-SDE step, embedded
+    # guidance); the signatures are identical
+    family = getattr(pipeline, "family", "sd3")
+    log_prob_fn = compute_flux_log_prob if family == "flux" else compute_log_prob
 
     def microstep(state: GeneratorState, mb, neg_embeds, neg_pooled):
         args = (mb["latents"], mb["next_latents"], mb["t"], mb["sigma"], mb["sigma_prev"],
                 mb["embeds"], mb["pooled"], neg_embeds, neg_pooled, sampler_cfg)
-        lp, mean, _ = compute_log_prob(pipeline.velocity_fn(), *args)
+        lp, mean, _ = log_prob_fn(pipeline.velocity_fn(), *args)
         mean_ref = None
         if beta > 0.0:
             with torch.no_grad():
-                _, mean_ref, _ = compute_log_prob(pipeline.velocity_fn(lora_scale=0.0), *args)
+                _, mean_ref, _ = log_prob_fn(pipeline.velocity_fn(lora_scale=0.0), *args)
         out = grpo_loss(lp, mb["old_log_prob"], mb["advantages"], clip_range=clip_range,
                         adv_clip_max=adv_clip_max, beta=beta,
                         prev_sample_mean=mean if beta > 0 else None,

@@ -38,6 +38,7 @@ class SD3Pipeline:
     vae: AutoencoderKL
     device: torch.device
     text_seq_len: int = 154  # 77 clip + 77 t5
+    family: str = "sd3"
 
     def __post_init__(self):
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -68,6 +69,12 @@ class SD3Pipeline:
         vae = _build(AutoencoderKL, vae_cfg, device)
         vae.load_state_dict(vae_state_dict_from_jax(vae_params, vae_cfg))
         return cls(mmdit_cfg, vae_cfg, mmdit, vae, device, text_seq_len=text_seq_len)
+
+    @property
+    def transformer(self) -> MMDiT:
+        """The denoiser under the name every family shares (the trainer's
+        seam, as the JAX pipelines' ``transformer_params``)."""
+        return self.mmdit
 
     # ── closures ──────────────────────────────────────────────────────────
 

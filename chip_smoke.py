@@ -35,15 +35,31 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      4600), the joint attention at head width 128 without RMS, the modulated
      LayerNorm at D = 3072; median times beside the plain versions' and one
      PyTorch library call's;
- 10. a 1-double + 1-single block Flux.1-dev at full width on the card (bf16,
-     kernels) against the same weights on the CPU (fp32, plain versions);
- 11. ``adv_grpo_torch.cli.infer.generate`` on a full-width Flux.1-dev
+ 10. the Flux attention backward kernels against their plain twins at the
+     Flux.1-dev 512^2 shapes: the BSHD backward at B = 1, S = 1536, 24 heads
+     of 128 (and 4608 tokens with kv_len 4600), the joint backward at head
+     width 128, 1024 + 512 tokens; relative L2 per cotangent, median times
+     beside the plain twin's and the SDPA backward's;
+ 11. a 1-double + 1-single block Flux.1-dev at full width on the card (bf16,
+     kernels) against the same weights on the CPU (fp32, plain versions):
+     the output, then the LoRA gradients through a fixed cotangent;
+ 12. ``adv_grpo_torch.cli.infer.generate`` on a full-width Flux.1-dev
      pipeline (random weights from the seed) at 512^2, 28 steps, guidance
      3.5: launch counts exactly 115/152/19/38 per forward times 28 steps,
      finite images, a non-constant 512x512 PNG; then 1 and 4 prompts on the
      warm pipeline: seconds per image, one forward's time and achieved
      TFLOP/s, its device kernel time by group (torch.profiler) and busy
-     share, peak device memory.
+     share, peak device memory;
+ 13. ``GRPOTrainer`` on a full-width Flux.1-dev pipeline (LoRA r=32, random
+     weights from the seed) for 2 epochs of ``flux_smoke`` at 512^2
+     (FLUX_TRAIN_OVERRIDES: 8-step full-SDE rollouts of 4 images, 2 window
+     steps, one row per microstep, 16 microsteps per epoch, EMA every 2
+     steps, the jpeg_compressibility reward): finite metrics, every LoRA
+     factor and its EMA moved, the launch counts of all six Flux kernels
+     exactly as derived from the config (7,360 / 9,728 / 1,216 / 2,432
+     forwards, 608 / 1,216 backwards); seconds per epoch (rollout + decode,
+     exposed reward, train), per microstep, peak device memory, and one
+     microstep's device time by kernel group (torch.profiler).
 
 ``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
 SD3.5-M attention forwards of the checkout at PARENT (an older tree) against
@@ -81,6 +97,15 @@ TRAIN_ARGV = ["--config", "smoke_sd3_fast", "--set", "smoke_test=False",
               "--set", "sample.num_steps=10", "--set", "sample.train_batch_size=2",
               "--max_epochs", str(EPOCHS), "--set", "train.ema_interval=2",
               "--device", "cuda"]
+# the Flux training slice: flux_smoke at full Flux.1-dev width and 512^2,
+# 8-step full-SDE rollouts of one 4-image group per sampling batch, 2 batches
+# and 2 window steps per epoch, one row per microstep (micro_splits 4), EMA
+# every 2 of the run's 4 optimizer steps; 2 epochs
+FLUX_TRAIN_OVERRIDES = ["resolution=512", "sample.num_steps=8", "sample.train_num_steps=2",
+                        "sample.train_batch_size=1", "sample.num_image_per_prompt=4",
+                        "sample.mini_num_image_per_prompt=4", "sample.num_batches_per_epoch=2",
+                        "train.batch_size=4", "train.micro_splits=4", "train.ema=True",
+                        "train.ema_interval=2"]
 
 
 def per_forward_counts(mcfg):
@@ -246,6 +271,18 @@ def _rel_l2(got, ref):
     return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
 
 
+def _check_rel_l2(what, got, ref, bound=2e-2):
+    """Relative L2 of each of ``got`` against ``ref``; raises above ``bound``
+    (or on NaN); returns the largest absolute error."""
+    errs = [_rel_l2(a, r) for a, r in zip(got, ref)]
+    max_abs = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
+    print(f"  {what}: relative L2 {', '.join(f'{e:.2e}' for e in errs)}; max abs "
+          f"{max_abs:.3e} (bound {bound} relative L2)", flush=True)
+    if not all(e <= bound for e in errs):
+        raise AssertionError(f"{what}: relative L2 {errs} above {bound}")
+    return max_abs
+
+
 def _grad_ms(outs, inputs, cots):
     """Median ms of one backward through a retained graph."""
     import torch
@@ -278,13 +315,7 @@ def check_backward_kernels():
                 for _ in range(n)]
 
     def check(what, got, ref):
-        errs = [_rel_l2(a, r) for a, r in zip(got, ref)]
-        max_abs = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
-        print(f"  {what}: relative L2 {', '.join(f'{e:.2e}' for e in errs)}; max abs "
-              f"{max_abs:.3e} (bound {bound} relative L2)", flush=True)
-        if not all(e <= bound for e in errs):  # also fails on NaN
-            raise AssertionError(f"{what}: relative L2 {errs} above {bound}")
-        return max_abs
+        return _check_rel_l2(what, got, ref, bound)
 
     results = []
     streams = [randn(b, s_img, dim) for _ in range(3)] + [randn(b, s_txt, dim)
@@ -682,6 +713,92 @@ def check_flux_kernels():
     return results
 
 
+def check_flux_backward_kernels():
+    """Phase: the attention backward kernels of Flux training against their
+    plain twins (on the same inputs, lse and di) at the Flux.1-dev 512^2
+    shapes: the BSHD backward (#9) at B = 1, S = 1536 (timed) and at 4608
+    tokens with kv_len 4600; the joint backward (#4) at head width 128
+    without RMS, 1024 + 512 tokens. Bound: relative L2 2e-2 per cotangent,
+    the bf16 rounding of p and t. Median times beside the plain twin's and
+    the SDPA backward's (one ``autograd.grad`` through a retained graph of
+    ``scaled_dot_product_attention``; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from adv_grpo_torch.ops import attention
+    from adv_grpo_torch.ops import joint_attention as ja
+    from adv_grpo_torch.ops.attention import bwd_row_stats
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    heads, d, s_img, s_txt = 24, 128, 1024, 512
+    dim, s = heads * d, s_img + s_txt
+    sm_scale = d ** -0.5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def sdpa_bwd_ms(q, k, v, do):  # (B, S, H*D) -> the SDPA backward alone
+        leaves = [attention.to_bhsd(t, heads).detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves)
+        return _grad_ms((out,), leaves, (attention.to_bhsd(do, heads),))
+
+    results, max_abs = [], 0.0
+    for n, kv_len in ((s, None), (4608, 4600)):
+        q, k, v, do = (randn(1, n, dim) for _ in range(4))
+        o, lse = attention.mha_bshd_fwd(q, k, v, heads, sm_scale, kv_len, want_lse=True)
+        di = bwd_row_stats(o, do, heads)
+        got = attention.mha_bshd_bwd(q, k, v, do, lse, di, num_heads=heads, kv_len=kv_len)
+        twin = attention.attention_bwd_reference(
+            [q.float()], [k.float()], [v.float()], [do.float()], [lse], [di], num_heads=heads,
+            kv_len=kv_len)[0]
+        max_abs = max(max_abs, _check_rel_l2(
+            f"mha_bshd_bwd B=1 S={n} kv_len={kv_len} kernel vs its plain twin (dq, dk, dv)",
+            got, twin))
+        del twin
+        if kv_len is None:
+            ms = _median_ms(lambda: attention.mha_bshd_bwd(q, k, v, do, lse, di,
+                                                           num_heads=heads))
+            plain_ms = _median_ms(lambda: attention.attention_bwd_reference(
+                [q], [k], [v], [do], [lse], [di], num_heads=heads), iters=5)
+            lib_ms = sdpa_bwd_ms(q, k, v, do)
+            least = _attn_bound((q, k, v, do, lse, di) + tuple(got), 1, heads, s, s, d,
+                                products=5)
+    print(f"kernel mha_bshd_bwd: (1,1536,3072) 24x128 median {ms:.4f} ms vs plain "
+          f"{plain_ms:.4f} ms vs SDPA backward {lib_ms:.4f} ms; bound {least[0]:.4f} ms",
+          flush=True)
+    results.append(_entry("mha_bshd_bwd", "adv_grpo_torch/csrc/joint_attention_bwd.cu",
+                          "adv_grpo_tpu/ops/attention.py:395", max_abs, ms, plain_ms, least,
+                          lib_ms))
+
+    streams = [randn(1, s_img, dim) for _ in range(3)] + [randn(1, s_txt, dim)
+                                                          for _ in range(3)]
+    do = [randn(1, s_img, dim), randn(1, s_txt, dim)]
+    oi, ot, lse_i, lse_t = ja.joint_attention_fwd(*streams, None, heads, 1e-6, sm_scale, True)
+    lse, di = [lse_i, lse_t], [bwd_row_stats(oi, do[0], heads), bwd_row_stats(ot, do[1], heads)]
+    got = ja.joint_attention_bwd(*streams, *do, *lse, *di, num_heads=heads)
+    f32 = lambda ts: [t.float() for t in ts]  # noqa: E731
+    twin = ja.attention_bwd_reference(f32(streams[0::3]), f32(streams[1::3]),
+                                      f32(streams[2::3]), f32(do), lse, di, num_heads=heads)
+    max_abs = _check_rel_l2("joint_attention_bwd d=128 kernel vs its plain twin (dyq, dyk, dv "
+                            "per stream)", got, [a for st in twin for a in st])
+    del twin
+    ms = _median_ms(lambda: ja.joint_attention_bwd(*streams, *do, *lse, *di, num_heads=heads))
+    plain_ms = _median_ms(lambda: ja.attention_bwd_reference(
+        streams[0::3], streams[1::3], streams[2::3], do, lse, di, num_heads=heads), iters=5)
+    cat = [torch.cat([a, c], dim=1) for a, c in zip(streams[:3], streams[3:])]
+    lib_ms = sdpa_bwd_ms(*cat, torch.cat(do, dim=1))
+    least = _attn_bound(tuple(streams) + tuple(do) + tuple(lse) + tuple(di) + tuple(got), 1,
+                        heads, s, s, d, products=5)
+    print(f"kernel joint_attention_bwd (d=128, no RMS): img 1024 + txt 512, 24x128, B=1 median "
+          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms vs SDPA backward on the concatenated "
+          f"streams {lib_ms:.4f} ms; bound {least[0]:.4f} ms", flush=True)
+    results.append(_entry("joint_attention_bwd_d128", "adv_grpo_torch/csrc/joint_attention_bwd.cu",
+                          "adv_grpo_tpu/ops/joint_attention.py:224", max_abs, ms, plain_ms, least,
+                          lib_ms))
+    return results
+
+
 def check_flux_model():
     """Phase: a 1-double + 1-single block Flux.1-dev at full width on the
     card (bf16, kernels) against the same weights on the CPU (fp32, plain
@@ -717,10 +834,39 @@ def check_flux_model():
           f"relative L2 error {rel:.3e} (bound 5e-2)", flush=True)
     if not (torch.isfinite(out).all() and rel <= 5e-2):
         raise AssertionError(f"card Flux disagrees with the CPU reference: {rel}")
+    return cpu, gpu, (lat, t, ctx, pooled, guidance, ids), g
+
+
+def check_flux_model_grads(cpu, gpu, inputs, g):
+    """Phase: LoRA gradients of the same 1-double + 1-single full-width Flux
+    (non-zero LoRA B) on the card (bf16, forward and backward kernels: the
+    joint backward at d = 128 and the BSHD backward) and on the CPU (fp32,
+    plain versions), through one fixed cotangent. Bound: relative L2 5e-2 of
+    the concatenated LoRA gradients, the forward's bf16 budget."""
+    import torch
+
+    from adv_grpo_torch.models.lora import freeze_non_lora
+
+    lat, t, ctx, pooled, guidance, ids = inputs
+    cot = torch.randn(lat.shape, generator=g)
+    grads = []
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        lora = freeze_non_lora(model)
+        out = model(*(a.to(dev) for a in (lat, t, ctx, pooled)), *ids,
+                    guidance=guidance.to(dev))
+        gs = torch.autograd.grad(out.float(), list(lora.values()), cot.to(dev))
+        grads.append(torch.cat([x.float().flatten().cpu() for x in gs]))
+    rel = _rel_l2(grads[1], grads[0])
+    print(f"model gradients: 1-double + 1-single full-width Flux.1-dev, LoRA gradients card "
+          f"bf16 vs CPU fp32 relative L2 {rel:.3e} over {grads[0].numel()} values (bound 5e-2)",
+          flush=True)
+    if not (torch.isfinite(grads[1]).all() and rel <= 5e-2):
+        raise AssertionError(f"card Flux LoRA gradients disagree with the CPU's: {rel}")
 
 
 _KERNEL_GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("attention kernel", ("attn_fwd_kernel",)),
+    ("attention backward kernels", ("attn_bwd_",)),
     ("per-head RMS kernel", ("rms_heads_kernel",)),
     ("modulated LN kernel", ("lnmod_kernel",)),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "splitK")),
@@ -844,6 +990,125 @@ def run_flux_inference(kernels):
     return counts
 
 
+def expected_flux_train_counts(config, fcfg):
+    """Launches of the 6 Flux kernels in the FLUX_TRAIN_OVERRIDES run, from
+    the config: rollout forwards (one per step of each sampling batch) and
+    replay forwards (one per microstep), then the backwards (one per
+    microstep: every joint and BSHD attention, all of which a LoRA factor
+    reaches)."""
+    s, t = config.sample, config.train
+    micro = (EPOCHS * max(int(t.num_inner_epochs), 1) * int(s.num_batches_per_epoch)
+             * max(int(t.micro_splits), 1) * int(s.train_num_steps))
+    fwd = EPOCHS * int(s.num_batches_per_epoch) * int(s.num_steps) + micro
+    return ([c * fwd for c in flux_per_forward_counts(fcfg)]
+            + [fcfg.num_double_layers * micro, fcfg.num_single_layers * micro]), micro // EPOCHS
+
+
+def run_flux_training(kernels):
+    """Phase: ``GRPOTrainer`` on a full-width Flux.1-dev pipeline (random
+    weights from the seed, LoRA rank and alpha of ``flux_smoke``) for EPOCHS
+    epochs of ``flux_smoke`` with FLUX_TRAIN_OVERRIDES; returns the kernels'
+    launch counts."""
+    import numpy as np
+    import torch
+
+    from adv_grpo_torch.cli.common import apply_overrides, build_text_encoder, resolve_config
+    from adv_grpo_torch.data.datasets import TextPromptDataset
+    from adv_grpo_torch.models.flux import FluxConfig
+    from adv_grpo_torch.models.lora import lora_params
+    from adv_grpo_torch.models.vae import VAEConfig
+    from adv_grpo_torch.rewards.registry import multi_score
+    from adv_grpo_torch.rollout.flux import flux_schedule
+    from adv_grpo_torch.train.driver import GRPOTrainer
+    from adv_grpo_torch.train.flux_pipeline import FluxPipeline
+
+    config = apply_overrides(resolve_config("flux_smoke"), FLUX_TRAIN_OVERRIDES)
+    latent_hw = int(config.resolution) // 8
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fcfg = FluxConfig.dev(lora_rank=int(config.train.lora_rank),
+                          lora_alpha=float(config.train.lora_alpha))
+    pipeline = FluxPipeline.random_init(
+        torch.Generator(device="cuda").manual_seed(SEED), fcfg, VAEConfig.flux(), "cuda",
+        latent_hw=latent_hw, text_seq_len=512, guidance=float(config.sample.guidance_scale))
+    start = {k: p.detach().clone() for k, p in lora_params(pipeline.transformer).items()}
+    encode = build_text_encoder(config, pipeline)
+    with tempfile.TemporaryDirectory() as save_dir:
+        config.save_dir = save_dir
+        trainer = GRPOTrainer(config, pipeline, TextPromptDataset(str(config.dataset), "train"),
+                              encode, multi_score(dict(config.reward_fn)), latent_hw=latent_hw)
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        trainer.run(max_epochs=EPOCHS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = [k.launches for k in kernels]
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    want, micro = expected_flux_train_counts(config, fcfg)
+    print(f"GRPOTrainer flux_smoke full-width Flux.1-dev 512^2, {config.sample.num_steps}-step "
+          f"rollouts of 4 images, {EPOCHS} epochs: {wall:.2f} s wall; peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {counts} (LN, RMS, joint, BSHD, joint backward, "
+          f"BSHD backward; expected {want})", flush=True)
+    nb = int(config.sample.num_batches_per_epoch)
+    for r in records:
+        rollout = r["time/rollout"] * nb
+        reward = r["time/reward_wait"] + r["time/reward_dispatch"] * nb
+        print(f"  epoch {r['epoch']}: rollout+decode {rollout:.3f} s, reward {reward:.3f} s "
+              f"(not overlapped with a rollout), train {r['time/train']:.3f} s = "
+              f"{r['time/train'] / micro:.3f} s per microstep ({micro} microsteps); reward "
+              f"{r['reward_avg']:.5f}, loss {r['loss']:.3e}, approx_kl {r['approx_kl']:.3e}, "
+              f"clipfrac {r['clipfrac']:.3f}, rollout "
+              f"{r.get('perf/rollout_tflops_per_sec', float('nan')):.1f} TFLOP/s", flush=True)
+        bad = [k for k, v in r.items() if isinstance(v, float) and not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"epoch {r['epoch']}: non-finite {bad}")
+    if len(records) != EPOCHS or trainer.state.global_step == 0:
+        raise AssertionError(f"{len(records)} epochs logged, global step "
+                             f"{trainer.state.global_step}")
+    lora, ema = trainer.state.lora, trainer.state.ema
+    unchanged = {k for k, p in lora.items() if torch.equal(p, start[k])}
+    ema_unchanged = {k for k, e in ema.items() if torch.equal(e, start[k])}
+    finite = all(bool(torch.isfinite(p).all()) for p in lora.values())
+    print(f"  LoRA: {len(lora) - len(unchanged)} of {len(lora)} tensors changed, finite "
+          f"{finite}; EMA: {len(ema) - len(ema_unchanged)} changed; optimizer steps "
+          f"{trainer.state.global_step}", flush=True)
+    if not finite or unchanged or ema_unchanged:
+        raise AssertionError(f"LoRA finite={finite}, unchanged {sorted(unchanged)}, EMA "
+                             f"unchanged {sorted(ema_unchanged)}")
+    if counts != want:
+        raise AssertionError(f"Flux training launch counts {counts}, expected {want}")
+
+    # one minibatch of one row and T window steps through the trainer's epoch
+    # (T microsteps: replay forward, backward, optimizer), traced
+    T = int(config.sample.train_num_steps)
+    sig, ts = flux_schedule(int(config.sample.num_steps), (latent_hw // 2) ** 2)
+    dev = torch.device("cuda")
+    emb, pooled = (torch.from_numpy(a).to(dev) for a in encode(["a flower"]))
+    mb = dict(latents=torch.randn((1, 1, T + 1, (latent_hw // 2) ** 2, fcfg.in_channels),
+                                  generator=torch.Generator(device=dev).manual_seed(SEED),
+                                  device=dev),
+              log_probs=torch.zeros(1, 1, T, device=dev),
+              timesteps=torch.from_numpy(ts[:T]).to(dev)[None, None],
+              sigmas=torch.from_numpy(sig[:T]).to(dev)[None, None],
+              sigmas_prev=torch.from_numpy(sig[1:T + 1]).to(dev)[None, None],
+              advantages=torch.ones(1, 1, device=dev), embeds=emb[None], pooled=pooled[None])
+    neg_e, neg_p = trainer._neg(1)
+
+    def epoch():
+        trainer.train_epoch_fn(trainer.state, mb, neg_e, neg_p)
+
+    step_ms = _median_ms(epoch, iters=3, warmup=1) / T
+    kernel_ms, groups = _profile_forward(epoch, reps=1)
+    print(f"  one microstep (B=1, 1536 tokens): {step_ms:.1f} ms (CUDA events); device kernel "
+          f"time {kernel_ms / T:.1f} ms = {100 * kernel_ms / T / step_ms:.1f}% busy", flush=True)
+    for grp, (calls, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
+        print(f"    {grp}: {ms / T:.2f} ms, {calls / T:.0f} launches per microstep", flush=True)
+    return counts
+
+
 def sd3_attention_ms(tree):
     """``--sd3-attention-ms TREE``: median ms (50 CUDA-event-timed calls after
     5 warm-ups, the wrapper's host time included) and device kernel ms (mean
@@ -954,6 +1219,7 @@ def main() -> int:
 
     results = check_kernels() + check_backward_kernels()
     flux_results = check_flux_kernels()
+    flux_train_results = check_flux_backward_kernels()
     check_model_grads(*check_model())
     run_pipeline()
     kernels = (fused_norms.modulated_layer_norm, joint_attention.joint_mha,
@@ -962,14 +1228,19 @@ def main() -> int:
     counts = run_training_slice(kernels)
     for r, n in zip(results, counts):
         r["launches"] = n
-    check_flux_model()
+    check_flux_model_grads(*check_flux_model())
     flux_kernels = (fused_norms.modulated_layer_norm, fused_norms.rms_norm_heads,
                     joint_attention.joint_mha, attention.mha_bshd)
     flux_counts = dict(zip(("modulated_layer_norm", "rms_norm_heads", "joint_mha_d128",
                             "mha_bshd"), run_flux_inference(flux_kernels)))
     for r in flux_results:
         r["launches"] = flux_counts[r["name"]]
-    print(json.dumps({"kernels": results + flux_results}))
+    flux_train_counts = run_flux_training(
+        flux_kernels + (joint_attention.joint_attention_bwd, attention.mha_bshd_bwd))
+    bwd_counts = dict(zip(("joint_attention_bwd_d128", "mha_bshd_bwd"), flux_train_counts[4:]))
+    for r in flux_train_results:
+        r["launches"] = bwd_counts[r["name"]]
+    print(json.dumps({"kernels": results + flux_results + flux_train_results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

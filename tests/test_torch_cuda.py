@@ -11,7 +11,8 @@ one bf16 spacing of the fp32 result (spacing taken at
 |y| >= 2^-8, below which fp32 rounding of the cancelling terms dominates);
 attention uses the bf16 bound of the TPU kernel's own tests, 2e-2 absolute;
 the attention backwards 2e-2 relative L2 per cotangent (bf16 rounding of p
-and t, the same budget).
+and t, the same budget), at head widths 64 and 128 and for the BSHD backward
+with its kv_len mask.
 """
 
 import pytest
@@ -219,6 +220,87 @@ def test_joint_mha_kernel_head_dim_128(dev, s_i, s_t, use_rms):
     assert (ot.float() - rt).abs().max() <= 2e-2
 
 
+def _bshd_backward_case(dev, b, sq, skv, h, d, kv_len, strided, seed):
+    hd = h * d
+    if strided:  # q/do and k/v as column slices of wider projections
+        q, do = _randn(dev, b, sq, 3 * hd, seed=seed).split(hd, dim=-1)[:2]
+        k, v = _randn(dev, b, skv, 3 * hd, seed=seed + 1).split(hd, dim=-1)[1:]
+    else:
+        q, do = (_randn(dev, b, sq, hd, seed=seed + i) for i in range(2))
+        k, v = (_randn(dev, b, skv, hd, seed=seed + 2 + i) for i in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d,kv_len", [
+    (1, 1536, 1536, 24, 128, None), (2, 256, 256, 4, 64, 200), (2, 100, 100, 2, 128, 77),
+    (1, 4608, 4608, 2, 128, 4600), (3, 33, 33, 3, 64, None), (2, 100, 160, 2, 128, 150)])
+@pytest.mark.parametrize("strided", [False, True])
+def test_mha_bshd_backward_kernel(dev, b, sq, skv, h, d, kv_len, strided):
+    """``mha_bshd_bwd_bf16`` against its plain twin on the same inputs and row
+    statistics (ragged S, kv_len masking, q and k/v of other lengths, strided
+    rows), dk/dv rows past kv_len exactly zero; then the whole autograd
+    backward of ``mha_bshd`` against fp32 autograd of the plain forward."""
+    q, k, v, do = _bshd_backward_case(dev, b, sq, skv, h, d, kv_len, strided, 30)
+    o, lse = attention.mha_bshd_fwd(q, k, v, h, d ** -0.5, kv_len, want_lse=True)
+    di = bwd_row_stats(o, do, h)
+    n0 = attention.mha_bshd_bwd.launches
+    got = attention.mha_bshd_bwd(q, k, v, do, lse, di, num_heads=h, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert attention.mha_bshd_bwd.launches == n0 + 1
+    ref = attention.attention_bwd_reference([q.float()], [k.float()], [v.float()],
+                                            [do.float()], [lse], [di], num_heads=h,
+                                            kv_len=kv_len)[0]
+    for g_, r in zip(got, ref):
+        assert g_.shape == r.shape and _rel_l2(g_, r) <= 2e-2
+    if kv_len is not None:
+        assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    o = attention.mha_bshd(*leaves, num_heads=h, kv_len=kv_len)
+    grads = torch.autograd.grad(o, leaves, do)
+    assert attention.mha_bshd_bwd.launches == n0 + 2
+    fl = [t.detach().float().requires_grad_() for t in leaves]
+    ref_grads = torch.autograd.grad(
+        attention.mha_bshd_reference(*fl, num_heads=h, kv_len=kv_len), fl, do.float())
+    for g_, r in zip(grads, ref_grads):
+        assert _rel_l2(g_, r) <= 2e-2
+
+
+@pytest.mark.parametrize("s_i,s_t", [(1024, 512), (100, 10), (64, 64)])
+def test_joint_attention_backward_kernel_head_dim_128(dev, s_i, s_t):
+    """The d = 128 instance of the joint backward (Flux's double blocks, no
+    RMS), strided q/k/v/do, against its plain twin and, through the whole
+    autograd backward of ``joint_mha``, against fp32 autograd."""
+    h, b = 3, 2
+    hd = 128 * h
+    qi, ki, vi, doi = _randn(dev, b, s_i, 4 * hd, seed=40).split(hd, dim=-1)
+    qt, kt, vt, dot = _randn(dev, b, s_t, 4 * hd, seed=41).split(hd, dim=-1)
+    streams = (qi, ki, vi, qt, kt, vt)
+    oi, ot, lse_i, lse_t = joint_attention.joint_attention_fwd(*streams, None, h, 1e-6,
+                                                               128 ** -0.5, True)
+    di_i, di_t = bwd_row_stats(oi, doi, h), bwd_row_stats(ot, dot, h)
+    n0 = joint_attention.joint_attention_bwd.launches
+    got = joint_attention.joint_attention_bwd(*streams, doi, dot, lse_i, lse_t, di_i, di_t,
+                                              num_heads=h)
+    torch.cuda.synchronize()
+    assert joint_attention.joint_attention_bwd.launches == n0 + 1
+    (a, b_, c), (d, e, f) = joint_attention.attention_bwd_reference(
+        [qi.float(), qt.float()], [ki.float(), kt.float()], [vi.float(), vt.float()],
+        [doi.float(), dot.float()], [lse_i, lse_t], [di_i, di_t], num_heads=h)
+    for g_, r in zip(got, (a, b_, c, d, e, f)):
+        assert g_.shape == r.shape and _rel_l2(g_, r) <= 2e-2
+
+    leaves = [t.detach().clone().requires_grad_() for t in streams]
+    grads = torch.autograd.grad(joint_attention.joint_mha(*leaves, num_heads=h), leaves,
+                                (doi, dot))
+    assert joint_attention.joint_attention_bwd.launches == n0 + 2
+    fl = [t.detach().float().requires_grad_() for t in leaves]
+    ref_grads = torch.autograd.grad(joint_attention.joint_mha_reference(*fl, num_heads=h), fl,
+                                    (doi.float(), dot.float()))
+    for g_, r in zip(grads, ref_grads):
+        assert _rel_l2(g_, r) <= 2e-2
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = _randn(dev, 1, 8, 128)
     with pytest.raises(TypeError):  # fp32
@@ -248,11 +330,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         joint_attention.joint_mha(z, z, z, z, z, z, num_heads=2)
     with pytest.raises(ValueError):  # head dim 96: no backward kernel either
         joint_attention.mha_rms_bwd(z, z, z, z, stats, stats, num_heads=2)
-    with pytest.raises(ValueError):  # the backward kernels take d = 64 only
+    with pytest.raises(ValueError):  # the single-stream RMS backward takes d = 64 only
         joint_attention.mha_rms_bwd(x, x, x, x, stats[:, :1], stats[:, :1], num_heads=1)
-    with pytest.raises(NotImplementedError):  # mha_bshd has no backward kernel yet
-        attention.mha_bshd(x.requires_grad_(), x, x, num_heads=1)
-    x = x.detach()
+    s1 = stats[:, :1]
+    with pytest.raises(ValueError):  # no fused qk-RMS in the backward at d = 128
+        joint_attention.joint_attention_bwd(x, x, x, x, x, x, x, x, s1, s1, s1, s1, num_heads=1,
+                                            rms_weights=[torch.ones(128, device=dev)] * 4)
+    with pytest.raises(ValueError):  # head dim 96: no BSHD backward either
+        attention.mha_bshd_bwd(z, z, z, z, stats, stats, num_heads=2)
     with pytest.raises(TypeError):  # fp32 RMS input
         fused_norms.rms_norm_heads(x.float(), torch.ones(64, device=dev), num_heads=2)
     with pytest.raises(ValueError):  # d = 24 in 4 heads: not a divisor of 256

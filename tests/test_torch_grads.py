@@ -58,7 +58,7 @@ def _assert_grads(got, want, tol):
 @pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("s_t", [12, 10])  # 10: unaligned text, the t_valid path
 @pytest.mark.parametrize("use_rms", [True, False])
-@pytest.mark.parametrize("h,d", [(4, 32), (2, 64)])
+@pytest.mark.parametrize("h,d", [(4, 32), (2, 64), (1, 128)])  # 128: Flux's heads
 def test_joint_mha_grads_match_jax(backend, s_t, use_rms, h, d):
     rng = np.random.default_rng(3)
     b, s_i = 2, 24
@@ -134,6 +134,64 @@ def test_backward_twins_match_autograd_of_the_plain_forward(use_rms):
     got = t_attn.mha_rms_bwd(*raw[:3], do[0], lse, t_attention.bwd_row_stats(o, do[0], h),
                              num_heads=h, rms_weights=None if w is None else w[:2])
     for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-5)
+
+
+# (body, S, kv_len, block): the TPU's fused single-pass body (S^2 scores
+# under its budget, no blocks given), its split dk/dv + dq bodies (blocks
+# given), and the fused body with a kv_len mask
+BSHD_BODIES = {"fused": (24, None, None), "split": (32, None, 16), "kv_len": (32, 27, None)}
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("body", list(BSHD_BODIES))
+@pytest.mark.parametrize("h,d", [(2, 64), (1, 128)])
+def test_mha_bshd_grads_match_jax(backend, body, h, d):
+    """``mha_bshd``'s backward (the plain twin of ``mha_bshd_bwd_bf16`` on
+    CPU tensors) against ``jax.grad`` of the JAX ``mha_bshd``. With kv_len,
+    the rows at or past it are the JAX caller's zero padding: q/k/v zero
+    there and a zero output cotangent (the JAX kernels' padded q rows carry a
+    non-zero p and rely on it, adv_grpo_tpu/ops/attention.py:523-528)."""
+    s, kv_len, block = BSHD_BODIES[body]
+    rng = np.random.default_rng(7)
+    b = 2
+    arrays = [_np(rng, b, s, h * d) for _ in range(3)]
+    cots = [_np(rng, b, s, h * d, scale=1.0)]
+    if kv_len is not None:
+        for a in arrays + cots:
+            a[:, kv_len:] = 0.0
+
+    def jfn(q, k, v):
+        return j_attention.mha_bshd(q, k, v, num_heads=h, kv_len=kv_len, block_q=block,
+                                    block_kv=block, backend=backend)
+
+    def tfn(q, k, v):
+        return t_attention.mha_bshd(q, k, v, num_heads=h, kv_len=kv_len)
+
+    got = _torch_grads(tfn, arrays, cots)
+    _assert_grads(got, _jax_grads(jfn, arrays, cots), TOL)
+    if kv_len is not None:  # masked keys: no gradient reaches them
+        assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
+
+
+@pytest.mark.parametrize("sq,skv,kv_len", [(20, 20, None), (20, 20, 13), (12, 20, 17)])
+def test_bshd_twin_matches_autograd_of_the_plain_forward(sq, skv, kv_len):
+    """The plain twin of the BSHD backward kernel (from lse and di, in the
+    kernel's op order, with the kv_len column mask; q and k/v of their own
+    lengths) against torch autograd of the plain forward. fp32: 1e-5."""
+    g = torch.Generator().manual_seed(1)
+    h, d, b = 2, 32, 2
+    q = torch.randn(b, sq, h * d, generator=g) * 0.5
+    k, v = (torch.randn(b, skv, h * d, generator=g) * 0.5 for _ in range(2))
+    do = torch.randn(b, sq, h * d, generator=g)
+    o, lse = t_attention.mha_bshd_reference(q, k, v, num_heads=h, kv_len=kv_len,
+                                            return_lse=True)
+    got = t_attention.mha_bshd_bwd(q, k, v, do, lse, t_attention.bwd_row_stats(o, do, h),
+                                   num_heads=h, kv_len=kv_len)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(t_attention.mha_bshd_reference(*leaves, num_heads=h,
+                                                              kv_len=kv_len), leaves, do)
+    for a, e in zip(got, want):  # dq, dk, dv
         torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-5)
 
 
