@@ -2,7 +2,7 @@
 encoding.
 
 Port of adv_grpo_tpu/cli/common.py:50-69 (``apply_overrides``), :88-240
-(``build_pipeline`` for the sd3 and flux families, ``build_text_encoder``)
+(``build_pipeline`` for the sd3, flux and wan families, ``build_text_encoder``)
 and :242-258 (``make_hash_text_encoder``, the deterministic stand-in for the
 text encoders, byte for byte the JAX package's embeddings).
 """
@@ -88,11 +88,43 @@ def _build_flux_pipeline(config, model_dir, lora_rank, latent_hw, device, genera
         guidance=float(config.sample.guidance_scale))
 
 
-def build_pipeline(config, latent_hw: Optional[int] = None, device="cuda"):
+def _build_wan_pipeline(config, model_dir, lora_rank, latent_hw, device, generator, frames):
+    """The WAN branch (JAX :160-188): the tiny random-init transformer and 3D
+    VAE with 2 latent frames of ``latent_hw``; with ``frames``, the latents
+    of that many video frames of ``config.resolution``^2 instead (the demo's
+    sizing, cut to the patch). A set ``pretrained.model`` (``WAN_DIR``)
+    raises, the loader is not ported."""
+    from adv_grpo_torch.models.wan import WanConfig
+    from adv_grpo_torch.models.wan_vae import WanVAEConfig
+    from adv_grpo_torch.train.wan_pipeline import WanPipeline
+
+    if model_dir:
+        raise NotImplementedError(
+            f"loading the diffusers WanTransformer3DModel at {model_dir!r} is not yet "
+            "ported to adv_grpo_torch; unset WAN_DIR for the tiny random-init model")
+    wcfg = WanConfig.tiny(lora_rank=max(lora_rank, 1) if lora_rank else 4)
+    c = wcfg.in_channels
+    vcfg = WanVAEConfig.tiny(z_dim=c, latents_mean=(0.0,) * c, latents_std=(1.0,) * c)
+    latent_hw, latent_frames = latent_hw or 8, 2
+    if frames is not None:
+        # frame counts are 1 mod the temporal factor; the grid tiles the patch
+        pt, ph, _ = wcfg.patch_size
+        sf = vcfg.spatial_factor
+        latent_frames = vcfg.latent_frames(max(vcfg.temporal_factor + 1, frames))
+        latent_hw = max(sf * 2, int(config.resolution)) // sf
+        latent_frames = max(pt, latent_frames - latent_frames % pt)
+        latent_hw = max(ph, latent_hw - latent_hw % ph)
+    return WanPipeline.random_init(generator, wcfg, vcfg, device, latent_hw=latent_hw,
+                                   latent_frames=latent_frames, text_seq_len=6)
+
+
+def build_pipeline(config, latent_hw: Optional[int] = None, device="cuda",
+                   frames: Optional[int] = None):
     """The pipeline for ``config`` on ``device``. sd3: the tiny random-init
     model for ``smoke_test=True``, the full-size SD3.5-M with random weights
-    for ``pretrained.model=''``. flux: the tiny random-init Flux. Weights come
-    from ``torch.Generator(seed)`` on that device."""
+    for ``pretrained.model=''``. flux and wan: the tiny random-init model
+    (wan: ``frames`` video frames when given). Weights come from
+    ``torch.Generator(seed)`` on that device."""
     from adv_grpo_torch.models.mmdit import MMDiTConfig
     from adv_grpo_torch.models.vae import VAEConfig
     from adv_grpo_torch.train.pipeline import SD3Pipeline
@@ -106,9 +138,12 @@ def build_pipeline(config, latent_hw: Optional[int] = None, device="cuda"):
     if family == "flux":
         return _build_flux_pipeline(config, model_dir, lora_rank, latent_hw, device,
                                     generator)
+    if family == "wan":
+        return _build_wan_pipeline(config, model_dir, lora_rank, latent_hw, device, generator,
+                                   frames)
     if family != "sd3":
         raise NotImplementedError(f"model_family={family!r} is not yet ported to "
-                                  "adv_grpo_torch (sd3 and flux only)")
+                                  "adv_grpo_torch (sd3, flux and wan only)")
     dtype = compute_dtype(config)
     if model_dir and os.path.isdir(model_dir):
         raise NotImplementedError(
@@ -144,6 +179,11 @@ def build_text_encoder(config, pipeline):
     if model_dir and os.path.isdir(os.path.join(model_dir, "text_encoder")):
         raise NotImplementedError("the CLIP-L/G + T5 text encoders are not yet ported "
                                   "to adv_grpo_torch; set text_embeds_dir")
+    if getattr(pipeline, "family", "sd3") == "wan":
+        # WAN has no pooled conditioning; the trainer still threads a pooled
+        # array, so it gets a tiny dummy width
+        return make_hash_text_encoder(seq_len=pipeline.text_seq_len,
+                                      embed_dim=pipeline.wan_cfg.text_dim, pooled_dim=8)
     mcfg = getattr(pipeline, "mmdit_cfg", None) or pipeline.flux_cfg
     return make_hash_text_encoder(seq_len=pipeline.text_seq_len,
                                   embed_dim=mcfg.joint_attention_dim,

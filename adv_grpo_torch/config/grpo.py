@@ -1,8 +1,8 @@
 """GRPO presets of the ported paths, from adv_grpo_tpu/config/grpo.py.
 
 Only the presets whose model path the port runs are here (``eval_sd3_fast``,
-``smoke_sd3_fast``, the ``compressibility`` base they build on, and
-``flux_smoke``); the others raise ``KeyError`` with a "not yet ported" note.
+``smoke_sd3_fast``, the ``compressibility`` base they build on,
+``flux_smoke`` and ``wan_smoke``); the others raise ``KeyError`` with a "not yet ported" note.
 Values are identical to the JAX presets (``tests/test_torch_config.py``).
 """
 
@@ -108,6 +108,39 @@ def flux_smoke():
     return config
 
 
+def wan_smoke():
+    """WAN text-to-video preset (the demo's and the trainer's): the tiny
+    random-init transformer and 3D causal VAE by default; ``WAN_DIR`` names a
+    diffusers WanTransformer3DModel directory, whose loader is not ported yet
+    (``cli.common.build_pipeline`` and the demo raise)."""
+    config = base.get_config()
+    config.model_family = "wan"
+    config.smoke_test = True
+    config.pretrained.model = os.environ.get("WAN_DIR", "")
+    config.resolution = 32  # tiny default frame size (a multiple of the VAE factor)
+    config.sample.num_steps = 4
+    config.sample.eval_num_steps = 4
+    config.sample.noise_level = 0.7  # WAN's SDE noise is schedule-driven
+    config.sample.guidance_scale = 0.0  # the WAN rollout has no CFG batch
+    config.sample.kl_reward = 0.0
+    # video frames, 1 mod the VAE's temporal factor (latent F' = 1 + (F-1)/tf)
+    config.sample.num_frames = 9
+    config.wandb_init = False
+    config.save_dir = "logs/wan_smoke"
+    config.case_name = "wan_smoke"
+    config.dataset = os.path.join(os.getcwd(), "dataset/pickscore_small")
+    config.prompt_fn = "general_ocr"
+    config.sample.train_num_steps = 2
+    config.sample.train_batch_size = 1
+    config.sample.num_image_per_prompt = 2
+    config.sample.mini_num_image_per_prompt = 2
+    config.sample.num_batches_per_epoch = 2
+    config.train.batch_size = 2
+    config.train.gradient_accumulation_steps = 1
+    config.reward_fn = {"jpeg_compressibility": 1}
+    return config
+
+
 def eval_sd3_fast(replica_count=8):
     """Deterministic batch-eval preset (reference config/grpo.py:247-312)."""
     config = _sd3_fast_common(compressibility(), replica_count)
@@ -125,6 +158,7 @@ _PRESETS = {
     "smoke_sd3_fast": smoke_sd3_fast,
     "eval_sd3_fast": eval_sd3_fast,
     "flux_smoke": flux_smoke,
+    "wan_smoke": wan_smoke,
 }
 
 

@@ -1,9 +1,9 @@
 """Flow sampling steps with their Gaussian log-probabilities.
 
 Port of adv_grpo_tpu/core/sde.py:54 ``cps_step_with_logprob`` (reference
-``sde_step_with_logprob_new``, the SD3 sampler's step) and :112
+``sde_step_with_logprob_new``, the SD3 sampler's step), :112
 ``flow_sde_step_with_logprob`` (the original Flow-SDE step, the Flux
-sampler's). All math runs in a float32 island whatever the
+sampler's) and :171 ``wan_sde_step_with_logprob`` (the WAN video sampler's). All math runs in a float32 island whatever the
 input dtype: bf16 can overflow here, and GRPO's clip range of 1e-5 makes the
 ratio exp(lp - lp_old) meaningful only at fp32 precision.
 
@@ -126,4 +126,51 @@ def flow_sde_step_with_logprob(model_output, sample, sigma, sigma_prev, noise_le
                 - math.log(math.sqrt(2.0 * math.pi)))
     log_prob = log_prob.mean(dim=tuple(range(1, x.ndim)))
     std_b = torch.broadcast_to(std_dev_t, (x.shape[0],) + (1,) * (x.ndim - 1))
+    return SDEStepResult(prev_sample, log_prob, prev_sample_mean, std_b)
+
+
+def wan_sde_step_with_logprob(model_output, sample, sigma, sigma_prev, *, sigma_min: float,
+                              sigma_max: float, noise: Optional[torch.Tensor] = None,
+                              prev_sample: Optional[torch.Tensor] = None,
+                              deterministic: bool = False) -> SDEStepResult:
+    """The WAN video Flow-SDE step over the UniPC flow-sigma schedule
+    (adv_grpo_tpu/core/sde.py:171; reference
+    wan_pipeline_with_logprob.py:10-84):
+
+        dt      = sigma_prev - sigma
+        std_t   = sigma_min + (sigma_max - sigma_min) * sigma
+        mean    = x*(1 + std_t^2/(2 sigma) dt) + v*(1 + std_t^2 (1-sigma)/(2 sigma)) dt
+        x_{t-1} = mean + std_t sqrt(-dt) * eps;  deterministic: x + dt * v
+        logprob = the full Gaussian of step std std_t sqrt(-dt), meaned over
+                  the non-batch dims
+
+    ``sigma_max`` is the schedule's second sigma and ``sigma_min`` its last
+    (0 under the appended terminal sigma); the last step has sigma_prev = 0
+    and divides by sigma only. ``std_dev_t`` of the result is the step std
+    std_t sqrt(-dt), as in the JAX package.
+    """
+    v = model_output.float()
+    x = sample.float()
+    sig = _bcast(sigma, x)
+    sig_prev = _bcast(sigma_prev, x)
+    dt = sig_prev - sig
+
+    std_dev_t = sigma_min + (sigma_max - sigma_min) * sig
+    prev_sample_mean = x * (1.0 + std_dev_t**2 / (2.0 * sig) * dt) + v * (
+        1.0 + std_dev_t**2 * (1.0 - sig) / (2.0 * sig)) * dt
+
+    step_std = std_dev_t * torch.sqrt(-dt)
+    if prev_sample is None:
+        if noise is None:
+            raise ValueError("wan_sde_step_with_logprob: provide either noise or prev_sample")
+        prev_sample = (x + dt * v if deterministic
+                       else prev_sample_mean + step_std * noise.float())
+    else:
+        prev_sample = prev_sample.float()
+
+    delta = prev_sample.detach() - prev_sample_mean
+    log_prob = (-(delta**2) / (2.0 * step_std**2) - torch.log(step_std)
+                - math.log(math.sqrt(2.0 * math.pi)))
+    log_prob = log_prob.mean(dim=tuple(range(1, x.ndim)))
+    std_b = torch.broadcast_to(step_std, (x.shape[0],) + (1,) * (x.ndim - 1))
     return SDEStepResult(prev_sample, log_prob, prev_sample_mean, std_b)

@@ -1,10 +1,13 @@
 // Row norms for Hopper (sm_90a): the modulated LayerNorm
-// y = LN(x) * (1 + scale[b]) + shift[b], and the per-head RMS norm
-// y = x * rsqrt(mean_head(x^2) + eps) * w.
+// y = LN(x) * (1 + scale[b]) + shift[b], the plain LayerNorm y = LN(x) (no
+// affine), and the per-head RMS norm y = x * rsqrt(mean_head(x^2) + eps) * w.
 //
 // Replaces: adv_grpo_tpu/ops/fused_norms.py `_lnmod_kernel` (called through
 // `_ln_mod_p`, public `modulated_layer_norm`), which runs 109 times per
-// SD3.5-M MMDiT forward and 115 times per Flux.1-dev forward; and both bodies
+// SD3.5-M MMDiT forward, 115 times per Flux.1-dev forward and 61 times per
+// Wan2.1-T2V-1.3B forward; `_ln_kernel` (called through `_layer_norm_p`,
+// public `layer_norm`), WAN's cross-attention norm, 30 times per
+// Wan2.1-T2V-1.3B forward; and both bodies
 // of `_rms_heads_p` (public `rms_norm_heads`): `_rms_kernel` (heads of d <=
 // 128, Flux's qk-norm, 152 times per forward) and `_rms_row_kernel` (one
 // head spanning the whole row, WAN's across-heads qk-norm).
@@ -17,8 +20,11 @@
 // row once as 16-byte vectors and keeps it in registers, so x is read from
 // device memory exactly once and y written exactly once; statistics in fp32.
 //  * LayerNorm: two block reductions (mean, then the centred variance), the
-//    TPU kernel's two-pass order; the row's (1 + scale) and shift vectors are
-//    read once per row and stay in L2 across the S rows of a batch item.
+//    TPU kernel's two-pass order. One template serves both LayerNorms: with
+//    the modulation, the row's (1 + scale) and shift vectors are read once
+//    per row and stay in L2 across the S rows of a batch item; without it the
+//    row is only centred and scaled (WAN applies its norm2 affine after the
+//    bf16 cast, outside the kernel, as the TPU path does).
 //  * RMS: the group width d is a runtime argument. When a head's d/8 vectors
 //    tile a warp (d in 8..256), the lanes of one head sit side by side and
 //    the sum of squares is a shuffle reduction among them (16 lanes at Flux's
@@ -66,18 +72,17 @@ int row_threads(int nvec) {
   return ((threads + 31) / 32) * 32;
 }
 
-template <typename T>
-__global__ void lnmod_kernel(const T* __restrict__ x, const T* __restrict__ scale,
-                             const T* __restrict__ shift, T* __restrict__ y,
-                             int rows_per_batch, int d, long long scale_stride,
-                             long long shift_stride, float eps) {
+// kMod: y = LN(x) * (1 + scale[b]) + shift[b]; otherwise y = LN(x) and
+// scale / shift are not read.
+template <typename T, bool kMod>
+__global__ void layer_norm_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                                  const T* __restrict__ shift, T* __restrict__ y,
+                                  int rows_per_batch, int d, long long scale_stride,
+                                  long long shift_stride, float eps) {
   constexpr int VEC = 16 / sizeof(T);
   __shared__ float red[32];
   const long long row = blockIdx.x;
-  const long long b = row / rows_per_batch;
   const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
-  const uint4* sc = reinterpret_cast<const uint4*>(scale + b * scale_stride);
-  const uint4* sh = reinterpret_cast<const uint4*>(shift + b * shift_stride);
   uint4* yr = reinterpret_cast<uint4*>(y + row * d);
   const int nvec = d / VEC;
 
@@ -113,27 +118,35 @@ __global__ void lnmod_kernel(const T* __restrict__ x, const T* __restrict__ scal
   for (int k = 0; k < kMaxVecPerThread; ++k) {
     const int vi = threadIdx.x + k * blockDim.x;
     if (vi < nvec) {
-      alignas(16) T es[VEC];
-      alignas(16) T eh[VEC];
       alignas(16) T eo[VEC];
-      *reinterpret_cast<uint4*>(es) = sc[vi];
-      *reinterpret_cast<uint4*>(eh) = sh[vi];
+      if constexpr (kMod) {
+        const long long b = row / rows_per_batch;
+        alignas(16) T es[VEC];
+        alignas(16) T eh[VEC];
+        *reinterpret_cast<uint4*>(es) =
+            reinterpret_cast<const uint4*>(scale + b * scale_stride)[vi];
+        *reinterpret_cast<uint4*>(eh) =
+            reinterpret_cast<const uint4*>(shift + b * shift_stride)[vi];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j)
-        eo[j] = from_f<T>(v[k][j] * rstd * (1.f + to_f(es[j])) + to_f(eh[j]));
+        for (int j = 0; j < VEC; ++j)
+          eo[j] = from_f<T>(v[k][j] * rstd * (1.f + to_f(es[j])) + to_f(eh[j]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) eo[j] = from_f<T>(v[k][j] * rstd);
+      }
       yr[vi] = *reinterpret_cast<uint4*>(eo);
     }
   }
 }
 
-template <typename T>
-int launch_lnmod(const void* x, const void* scale, const void* shift, void* y,
-                 long long rows, int rows_per_batch, int d, long long scale_stride,
-                 long long shift_stride, float eps, void* stream) {
+template <typename T, bool kMod>
+int launch_layer_norm(const void* x, const void* scale, const void* shift, void* y,
+                      long long rows, int rows_per_batch, int d, long long scale_stride,
+                      long long shift_stride, float eps, void* stream) {
   constexpr int VEC = 16 / sizeof(T);
   const int threads = row_threads(d / VEC);
-  lnmod_kernel<T><<<static_cast<unsigned int>(rows), threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+  layer_norm_kernel<T, kMod><<<static_cast<unsigned int>(rows), threads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(scale),
       static_cast<const T*>(shift), static_cast<T*>(y), rows_per_batch, d, scale_stride,
       shift_stride, eps);
@@ -210,8 +223,16 @@ extern "C" int lnmod_bf16(const void* x, const void* scale, const void* shift, v
                           long long rows, int rows_per_batch, int d,
                           long long scale_stride, long long shift_stride, float eps,
                           void* stream) {
-  return launch_lnmod<__nv_bfloat16>(x, scale, shift, y, rows, rows_per_batch, d,
-                                     scale_stride, shift_stride, eps, stream);
+  return launch_layer_norm<__nv_bfloat16, true>(x, scale, shift, y, rows, rows_per_batch,
+                                                d, scale_stride, shift_stride, eps, stream);
+}
+
+// x, y: (rows, d) contiguous bf16; y = LN(x) over each row, no affine. d as
+// for lnmod_bf16 (the wrapper checks). Returns cudaGetLastError().
+extern "C" int ln_bf16(const void* x, void* y, long long rows, int d, float eps,
+                       void* stream) {
+  return launch_layer_norm<__nv_bfloat16, false>(x, nullptr, nullptr, y, rows, 1, d, 0, 0,
+                                                 eps, stream);
 }
 
 // x: bf16 rows of width hd, row b*rows_per_batch + s at x + b*x_sb + s*x_ss

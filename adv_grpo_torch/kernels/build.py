@@ -37,6 +37,8 @@ _SIGNATURES = {
     # x, scale, shift, y, rows, rows_per_batch, d, scale/shift row strides,
     # eps, stream
     "lnmod_bf16": [_P, _P, _P, _P, _LL, _I, _I, _LL, _LL, _F, _P],
+    # x, y, rows, d, eps, stream
+    "ln_bf16": [_P, _P, _LL, _I, _F, _P],
     # x, w, y, rows, rows_per_batch, hd, d, x batch/row strides, eps, stream
     "rms_heads_bf16": [_P, _P, _P, _LL, _I, _I, _I, _LL, _LL, _F, _P],
     # image q/k/v/o/lse/len, text q/k/v/o/lse/len, strides, 4 RMS weights,

@@ -1,15 +1,18 @@
 """JAX parameter trees -> the port's state dicts.
 
 The inverse of adv_grpo_tpu.models.convert's ``convert_mmdit`` /
-``convert_flux`` / ``convert_vae``: a Flax tree of numpy arrays (as
+``convert_flux`` / ``convert_vae`` / ``convert_wan`` / ``convert_wan_vae``
+(decoder half): a Flax tree of numpy arrays (as
 ``jax.device_get`` returns it) becomes a ``state_dict`` with diffusers names,
 so the two packages compute the same function from the same weights.
 
   * Dense kernels (in, out) -> Linear weights (out, in);
-  * Conv kernels HWIO -> OIHW;
+  * Conv kernels HWIO -> OIHW, 3-D conv kernels (kt, kh, kw, I, O) ->
+    (O, I, kt, kh, kw);
   * the patch Dense (p*p*C, dim), flattened (ph, pw, C) -> the Conv2d
     ``pos_embed.proj`` weight (dim, C, p, p);
-  * GroupNorm ``scale`` -> ``weight``;
+  * GroupNorm ``scale`` -> ``weight``; the WAN tables and RMS gammas take
+    the diffusers shapes ((1, 6, D), (C, 1, 1, 1));
   * ``lora_a`` / ``lora_b`` carried across unchanged (the layouts agree);
   * RMS weights stay fp32 (the MMDiT keeps them fp32 in every dtype).
 
@@ -197,4 +200,100 @@ def vae_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
             _conv(f"decoder.up_blocks.{i}.upsamplers.0.conv", dec[f"up_{i}_upsample"], out)
     _group_norm("decoder.conv_norm_out", dec["conv_norm_out"], out)
     _conv("decoder.conv_out", dec["conv_out"], out)
+    return out
+
+
+def _wan_conv3d(prefix: str, p: Dict, out: Dict) -> None:
+    """A JAX ``WanCausalConv3d`` scope ({"conv": {kernel (kt,kh,kw,I,O), bias}})
+    or a plain 3-D ``nn.Conv`` -> a Conv3d weight (O, I, kt, kh, kw)."""
+    p = p.get("conv", p)
+    out[prefix + ".weight"] = _tensor(np.asarray(p["kernel"]).transpose(4, 3, 0, 1, 2))
+    out[prefix + ".bias"] = _tensor(p["bias"])
+
+
+def wan_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    """adv_grpo_tpu WanTransformer params (LoRA leaves included) ->
+    adv_grpo_torch WanTransformer state dict (diffusers names); the inverse of
+    the JAX ``convert_wan``."""
+    p = _unwrap(params)
+    out: Dict[str, torch.Tensor] = {}
+    dim = cfg.hidden_dim
+    kernel = np.asarray(p["patch_embedding"]["kernel"])  # (pt*ph*pw*C, dim)
+    out["patch_embedding.weight"] = _tensor(
+        kernel.reshape(*cfg.patch_size, cfg.in_channels, dim).transpose(4, 3, 0, 1, 2))
+    out["patch_embedding.bias"] = _tensor(p["patch_embedding"]["bias"])
+    for src, dst in (("text_embedding_1", "condition_embedder.text_embedder.linear_1"),
+                     ("text_embedding_2", "condition_embedder.text_embedder.linear_2"),
+                     ("time_embed_1", "condition_embedder.time_embedder.linear_1"),
+                     ("time_embed_2", "condition_embedder.time_embedder.linear_2"),
+                     ("time_projection", "condition_embedder.time_proj"),
+                     ("proj_out", "proj_out")):
+        _dense(dst, p[src], out)
+    out["scale_shift_table"] = _tensor(np.asarray(p["scale_shift_table_out"]).reshape(1, 2, dim))
+    names = {"to_q": "attn1.to_q", "to_k": "attn1.to_k", "to_v": "attn1.to_v",
+             "to_out": "attn1.to_out.0", "cross_to_q": "attn2.to_q",
+             "cross_to_k": "attn2.to_k", "cross_to_v": "attn2.to_v",
+             "cross_to_out": "attn2.to_out.0", "ffn_fc1": "ffn.net.0.proj",
+             "ffn_fc2": "ffn.net.2"}
+    norms = {"norm_q": "attn1.norm_q", "norm_k": "attn1.norm_k",
+             "cross_norm_q": "attn2.norm_q", "cross_norm_k": "attn2.norm_k"}
+    for i in range(cfg.num_layers):
+        blk = p[f"block_{i}"]
+        b = f"blocks.{i}."
+        out[b + "scale_shift_table"] = _tensor(
+            np.asarray(blk["scale_shift_table"]).reshape(1, 6, dim))
+        for src, dst in names.items():
+            _dense(b + dst, blk[src], out)
+        for src, dst in norms.items():
+            out[f"{b}{dst}.weight"] = _tensor(blk[src]["weight"])
+        if cfg.cross_attn_norm:
+            out[b + "norm2.weight"] = _tensor(blk["norm2_weight"])
+            out[b + "norm2.bias"] = _tensor(blk["norm2_bias"])
+    return out
+
+
+def wan_vae_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    """adv_grpo_tpu WanVideoVAE params -> adv_grpo_torch WanVideoVAE state dict
+    (diffusers AutoencoderKLWan names). The encoder's weights are not carried:
+    the port's WAN VAE has no encoder yet."""
+    dec = _unwrap(params)["decoder"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def rms(prefix, p, spatial):
+        out[prefix + ".gamma"] = _tensor(np.asarray(p["gamma"]).reshape((-1,) + (1,) * spatial))
+
+    def res(prefix, p):
+        rms(prefix + ".norm1", p["norm1"], 3)
+        _wan_conv3d(prefix + ".conv1", p["conv1"], out)
+        rms(prefix + ".norm2", p["norm2"], 3)
+        _wan_conv3d(prefix + ".conv2", p["conv2"], out)
+        if "conv_shortcut" in p:
+            _wan_conv3d(prefix + ".conv_shortcut", p["conv_shortcut"], out)
+
+    def attn(prefix, p):
+        rms(prefix + ".norm", p["norm"], 2)
+        for name in ("to_qkv", "proj"):  # Dense (I, O) -> 1x1 Conv2d (O, I, 1, 1)
+            out[f"{prefix}.{name}.weight"] = _tensor(np.asarray(p[name]["kernel"]).T[:, :, None,
+                                                                                     None])
+            out[f"{prefix}.{name}.bias"] = _tensor(p[name]["bias"])
+
+    _wan_conv3d("post_quant_conv", dec["post_quant_conv"], out)
+    _wan_conv3d("decoder.conv_in", dec["conv_in"], out)
+    res("decoder.mid_block.resnets.0", dec["mid"]["res0"])
+    attn("decoder.mid_block.attentions.0", dec["mid"]["attn0"])
+    res("decoder.mid_block.resnets.1", dec["mid"]["res1"])
+    n = 0
+    while f"up_{n}" in dec:
+        p, prefix = dec[f"up_{n}"], f"decoder.up_blocks.{n}"
+        if "resample_conv" in p:
+            _conv(prefix + ".resample.1", p["resample_conv"], out)
+            if "time_conv" in p:
+                _wan_conv3d(prefix + ".time_conv", p["time_conv"], out)
+        elif "to_qkv" in p:
+            attn(prefix, p)
+        else:
+            res(prefix, p)
+        n += 1
+    rms("decoder.norm_out", dec["norm_out"], 3)
+    _wan_conv3d("decoder.conv_out", dec["conv_out"], out)
     return out

@@ -161,7 +161,9 @@ def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         lecun_normal, untruncated here);
       * biases and LoRA B: zeros (an adapter starts as the identity);
       * LoRA A: normal, std 1/r (PEFT's gaussian init);
-      * 1-D ``weight``s (RMS and GroupNorm scales): ones.
+      * 1-D ``weight``s (RMS, LayerNorm and GroupNorm scales) and the WAN
+        VAE's RMS ``gamma``: ones;
+      * WAN's modulation ``scale_shift_table``: normal, std 0.02.
     """
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -169,7 +171,9 @@ def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             p.zero_()
         elif leaf == "lora_a":
             p.normal_(0.0, 1.0 / p.shape[1], generator=generator)
-        elif p.ndim == 1:
+        elif leaf == "scale_shift_table":
+            p.normal_(0.0, 0.02, generator=generator)
+        elif p.ndim == 1 or leaf == "gamma":
             p.fill_(1.0)
         else:
             p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)

@@ -144,21 +144,23 @@ class AdaLNModulation(nn.Module):
 
 
 class _GELUProj(nn.Module):
-    def __init__(self, dim, dtype, device):
+    def __init__(self, dim, inner_dim, dtype, device):
         super().__init__()
-        self.proj = nn.Linear(dim, 4 * dim, dtype=dtype, device=device)
+        self.proj = nn.Linear(dim, inner_dim, dtype=dtype, device=device)
 
     def forward(self, x):
         return F.gelu(self.proj(x), approximate="tanh")
 
 
 class FeedForward(nn.Module):
-    """4x GELU-tanh MLP; diffusers names ``net.0.proj`` and ``net.2``."""
+    """GELU-tanh MLP (``inner_dim`` wide, 4x by default); diffusers names
+    ``net.0.proj`` and ``net.2``."""
 
-    def __init__(self, dim: int, dtype, device=None):
+    def __init__(self, dim: int, dtype, device=None, inner_dim=None):
         super().__init__()
-        self.net = nn.ModuleList([_GELUProj(dim, dtype, device), nn.Identity(),
-                                  nn.Linear(4 * dim, dim, dtype=dtype, device=device)])
+        inner_dim = inner_dim or 4 * dim
+        self.net = nn.ModuleList([_GELUProj(dim, inner_dim, dtype, device), nn.Identity(),
+                                  nn.Linear(inner_dim, dim, dtype=dtype, device=device)])
 
     def forward(self, x):
         return self.net[2](self.net[0](x))

@@ -1,0 +1,236 @@
+"""WAN 3D causal video VAE decoder (diffusers ``AutoencoderKLWan``) in
+PyTorch, fp32.
+
+Port of the decode half of adv_grpo_tpu/models/wan_vae.py, with diffusers
+state-dict names (``post_quant_conv``, ``decoder.conv_in``,
+``decoder.mid_block.{resnets.{0,1},attentions.0}``, ``decoder.up_blocks.{n}``
+a flat list of residual blocks and resamplers, ``decoder.norm_out``,
+``decoder.conv_out``) and layout: channels first, (B, C, F, H, W), Conv3d
+weights (O, I, kt, kh, kw), RMS ``gamma`` (C, 1, 1, 1).
+
+diffusers decodes one latent frame at a time with a 2-frame cache per causal
+conv; the JAX model replaced each cached op by its whole-sequence equivalent,
+and so does this one:
+
+  * a causal conv left-pads 2 zero frames (and SAME-pads spatially);
+  * the temporal upsample zeroes frame 0, runs its time conv over the
+    left-padded sequence, drops output 0, splits each 2C-channel output into
+    an (earlier, later) frame pair and puts the untouched frame 0 first:
+    1 + 2 (T - 1) frames out;
+  * ``WanRMSNorm`` is x / max(||x||_C, 1e-12) * sqrt(C) * gamma (no eps inside
+    the root).
+
+The mid block's single-head attention is per frame over the H*W tokens. It
+runs in fp32 like the JAX model (the JAX package has no Pallas kernel here,
+so this is plain torch); ``WanPipeline`` switches TF32 off so the
+convolutions stay fp32 on the card. The encoder (``encode``, the temporal
+downsample) is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class WanVAEConfig:
+    """Field names and defaults of the diffusers AutoencoderKLWan config
+    (Wan2.1: base 96, z 16, 8x spatial and 4x temporal)."""
+
+    z_dim: int = 16
+    base_dim: int = 96
+    dim_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    attn_scales: Tuple[float, ...] = ()
+    # per downsample stage of the encoder; the decoder reads it reversed
+    temperal_downsample: Tuple[bool, ...] = (False, True, True)
+    latents_mean: Tuple[float, ...] = (0.0,) * 16
+    latents_std: Tuple[float, ...] = (1.0,) * 16
+    dtype: Any = torch.float32
+
+    @classmethod
+    def wan(cls, **overrides) -> "WanVAEConfig":
+        return cls(**overrides)
+
+    @classmethod
+    def tiny(cls, **overrides) -> "WanVAEConfig":
+        defaults = dict(z_dim=4, base_dim=8, dim_mult=(1, 2), temperal_downsample=(True,),
+                        num_res_blocks=1, latents_mean=(0.0,) * 4, latents_std=(1.0,) * 4)
+        defaults.update(overrides)
+        return cls(**defaults)
+
+    @property
+    def spatial_factor(self) -> int:
+        return 2 ** (len(self.dim_mult) - 1)
+
+    @property
+    def temporal_factor(self) -> int:
+        return 2 ** sum(self.temperal_downsample)
+
+    def latent_frames(self, frames: int) -> int:
+        """T video frames (T = 1 mod temporal_factor) -> latent frames."""
+        return 1 + (frames - 1) // self.temporal_factor
+
+
+class WanRMSNorm(nn.Module):
+    """x / max(||x||_2 over channels, 1e-12) * sqrt(C) * gamma; ``gamma``
+    broadcasts over the trailing ``spatial`` dims."""
+
+    def __init__(self, dim: int, spatial: int, cfg: WanVAEConfig, device=None):
+        super().__init__()
+        self.scale = dim ** 0.5
+        self.gamma = nn.Parameter(torch.empty((dim,) + (1,) * spatial, dtype=cfg.dtype,
+                                             device=device))
+
+    def forward(self, x):
+        return F.normalize(x, dim=1) * self.scale * self.gamma
+
+
+class WanCausalConv3d(nn.Conv3d):
+    """Conv3d causal in time: 2 (kt - 1 = 2 for kt = 3) zero frames on the
+    left, SAME spatially, no right time pad."""
+
+    def __init__(self, cin: int, cout: int, kernel, cfg: WanVAEConfig, device=None):
+        super().__init__(cin, cout, kernel, dtype=cfg.dtype, device=device)
+        kt, kh, kw = self.kernel_size
+        self._pad = (kw // 2, kw // 2, kh // 2, kh // 2, kt - 1, 0)
+
+    def forward(self, x):
+        return super().forward(F.pad(x, self._pad) if any(self._pad) else x)
+
+
+class WanResBlock(nn.Module):
+    """rms -> silu -> conv3 twice, plus the (1x1x1 causal conv) shortcut."""
+
+    def __init__(self, cin: int, cout: int, cfg: WanVAEConfig, device=None):
+        super().__init__()
+        self.norm1 = WanRMSNorm(cin, 3, cfg, device)
+        self.conv1 = WanCausalConv3d(cin, cout, 3, cfg, device)
+        self.norm2 = WanRMSNorm(cout, 3, cfg, device)
+        self.conv2 = WanCausalConv3d(cout, cout, 3, cfg, device)
+        self.conv_shortcut = WanCausalConv3d(cin, cout, 1, cfg, device) if cin != cout else None
+
+    def forward(self, x):
+        h = x if self.conv_shortcut is None else self.conv_shortcut(x)
+        y = self.conv1(F.silu(self.norm1(x)))
+        return h + self.conv2(F.silu(self.norm2(y)))
+
+
+class WanAttnBlock(nn.Module):
+    """Per-frame single-head attention over the H*W tokens: rms pre-norm,
+    1x1 q/k/v and output projections, fp32 softmax, residual."""
+
+    def __init__(self, dim: int, cfg: WanVAEConfig, device=None):
+        super().__init__()
+        kw = dict(dtype=cfg.dtype, device=device)
+        self.norm = WanRMSNorm(dim, 2, cfg, device)
+        self.to_qkv = nn.Conv2d(dim, 3 * dim, 1, **kw)
+        self.proj = nn.Conv2d(dim, dim, 1, **kw)
+
+    def forward(self, x):
+        B, C, T, H, W = x.shape
+        y = self.norm(x.transpose(1, 2).reshape(B * T, C, H, W))
+        tok = y.flatten(2).transpose(1, 2)  # (B*T, H*W, C)
+        q, k, v = F.linear(tok, self.to_qkv.weight[:, :, 0, 0], self.to_qkv.bias).chunk(3, -1)
+        a = torch.softmax((q @ k.transpose(1, 2)) / C ** 0.5, dim=-1)
+        o = F.linear(a @ v, self.proj.weight[:, :, 0, 0], self.proj.bias)
+        return x + o.reshape(B, T, H, W, C).permute(0, 4, 1, 2, 3)
+
+
+class WanMidBlock(nn.Module):
+    def __init__(self, dim: int, cfg: WanVAEConfig, device=None):
+        super().__init__()
+        self.resnets = nn.ModuleList([WanResBlock(dim, dim, cfg, device),
+                                      WanResBlock(dim, dim, cfg, device)])
+        self.attentions = nn.ModuleList([WanAttnBlock(dim, cfg, device)])
+
+    def forward(self, x):
+        return self.resnets[1](self.attentions[0](self.resnets[0](x)))
+
+
+class WanUpsample(nn.Module):
+    """diffusers WanResample ``upsample3d`` / ``upsample2d``: (3d) the
+    frame-0-bypass time conv doubling the frames, then nearest 2x and a 3x3
+    conv halving the channels, per frame."""
+
+    def __init__(self, dim: int, temporal: bool, cfg: WanVAEConfig, device=None):
+        super().__init__()
+        # index 1 for the diffusers name ``resample.1`` (index 0 is its
+        # parameter-free upsampler)
+        self.resample = nn.ModuleList([
+            nn.Identity(),
+            nn.Conv2d(dim, dim // 2, 3, padding=1, dtype=cfg.dtype, device=device)])
+        self.time_conv = (WanCausalConv3d(dim, 2 * dim, (3, 1, 1), cfg, device)
+                          if temporal else None)
+
+    def forward(self, x):
+        if self.time_conv is not None:
+            B, C, T, H, W = x.shape
+            z = x.clone()
+            z[:, :, 0] = 0.0
+            y = self.time_conv(z)[:, :, 1:].reshape(B, 2, C, T - 1, H, W)
+            y = y.permute(0, 2, 3, 1, 4, 5).reshape(B, C, 2 * (T - 1), H, W)
+            x = torch.cat([x[:, :, :1], y], dim=2)
+        conv = self.resample[1]
+        x = F.interpolate(x, scale_factor=(1.0, 2.0, 2.0), mode="nearest")
+        return F.conv3d(x, conv.weight[:, :, None], conv.bias, padding=(0, 1, 1))
+
+
+class WanDecoder3d(nn.Module):
+    def __init__(self, cfg: WanVAEConfig, device=None):
+        super().__init__()
+        mults = tuple(cfg.dim_mult)
+        dims = [cfg.base_dim * u for u in (mults[-1],) + mults[::-1]]
+        t_up = tuple(cfg.temperal_downsample)[::-1]
+        self.conv_in = WanCausalConv3d(cfg.z_dim, dims[0], 3, cfg, device)
+        self.mid_block = WanMidBlock(dims[0], cfg, device)
+        blocks, cin, scale = [], dims[0], 1.0 / 2 ** (len(mults) - 2)
+        for i, out_dim in enumerate(dims[1:]):
+            for _ in range(cfg.num_res_blocks + 1):
+                blocks.append(WanResBlock(cin, out_dim, cfg, device))
+                cin = out_dim
+                if scale in cfg.attn_scales:
+                    blocks.append(WanAttnBlock(out_dim, cfg, device))
+            if i != len(mults) - 1:
+                blocks.append(WanUpsample(out_dim, t_up[i], cfg, device))
+                cin = out_dim // 2
+                scale *= 2.0
+        self.up_blocks = nn.ModuleList(blocks)
+        self.norm_out = WanRMSNorm(cin, 3, cfg, device)
+        self.conv_out = WanCausalConv3d(cin, 3, 3, cfg, device)
+
+    def forward(self, x):
+        x = self.mid_block(self.conv_in(x))
+        for block in self.up_blocks:
+            x = block(x)
+        return self.conv_out(F.silu(self.norm_out(x)))
+
+
+class WanVideoVAE(nn.Module):
+    """The decoder half of the JAX ``WanVideoVAE``: ``decode`` takes the
+    sampler's normalised latents (denormalising with the per-channel stats
+    first), ``decode_raw`` checkpoint-space latents."""
+
+    def __init__(self, cfg: WanVAEConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.post_quant_conv = WanCausalConv3d(cfg.z_dim, cfg.z_dim, 1, cfg, device)
+        self.decoder = WanDecoder3d(cfg, device)
+
+    def decode_raw(self, latents):
+        """(B, z, F', H', W') checkpoint-space latents -> video (B, 3, F, H, W)
+        clipped to [-1, 1]."""
+        x = self.decoder(self.post_quant_conv(latents.to(self.cfg.dtype)))
+        return x.float().clamp(-1.0, 1.0)
+
+    def decode(self, latents):
+        c = self.cfg
+        shape = (1, c.z_dim, 1, 1, 1)
+        mu = torch.tensor(c.latents_mean, dtype=torch.float32, device=latents.device)
+        std = torch.tensor(c.latents_std, dtype=torch.float32, device=latents.device)
+        return self.decode_raw(latents.float() * std.reshape(shape) + mu.reshape(shape))

@@ -207,7 +207,7 @@ def mha_bshd_fwd(q, k, v, num_heads, sm_scale, kv_len, want_lse):
                                  kv_len=kv_len, return_lse=want_lse)
         return out if want_lse else (out, None)
     what = "mha_bshd"
-    b, sq, _, d, kv = _check_bshd(what, q, k, v, num_heads, kv_len)
+    b, sq, skv, d, kv = _check_bshd(what, q, k, v, num_heads, kv_len)
     o = torch.empty((b, sq, q.shape[2]), dtype=torch.bfloat16, device=q.device)
     lse = (torch.empty((b, num_heads, sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
@@ -217,6 +217,7 @@ def mha_bshd_fwd(q, k, v, num_heads, sm_scale, kv_len, want_lse):
         num_heads, d, float(sm_scale * LOG2E), _kernels.stream_ptr(q.device))
     _kernels.check(rc, what)
     mha_bshd.launches += 1
+    mha_bshd.cross_launches += sq != skv
     return o, lse
 
 
@@ -246,10 +247,12 @@ def mha_bshd_bwd(q, k, v, do, lse, di, *, num_heads, sm_scale=None, kv_len=None)
         _kernels.stream_ptr(q.device))
     _kernels.check(rc, what)
     mha_bshd_bwd.launches += 1
+    mha_bshd_bwd.cross_launches += sq != skv
     return dq, dk, dv
 
 
-mha_bshd_bwd.launches = 0
+# launches, and of those the ones with S_q != S_kv (cross-attention)
+mha_bshd_bwd.launches = mha_bshd_bwd.cross_launches = 0
 
 
 class _MhaBshd(torch.autograd.Function):
@@ -289,4 +292,4 @@ def mha_bshd(q, k, v, *, num_heads, sm_scale=None, kv_len=None):
     return mha_bshd_fwd(q, k, v, num_heads, sm_scale, kv_len, want_lse=False)[0]
 
 
-mha_bshd.launches = 0
+mha_bshd.launches = mha_bshd.cross_launches = 0

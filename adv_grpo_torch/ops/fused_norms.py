@@ -1,16 +1,19 @@
-"""Row norms: the modulated LayerNorm and per-head RMS kernels, and the plain
-norms beside them.
+"""Row norms: the modulated LayerNorm, plain LayerNorm and per-head RMS
+kernels, and the plain norms beside them.
 
 Port of adv_grpo_tpu/ops/fused_norms.py. ``modulated_layer_norm`` is the
 AdaLN ``LN(x) * (1 + scale[:, None]) + shift[:, None]`` (no affine, fp32
-statistics) that the MMDiT runs 109 times per forward and Flux.1-dev 115
-times; ``rms_norm_heads`` is the per-head RMS qk-norm that Flux runs on its
-own (RoPE sits between the norm and the attention), 152 times per forward.
-On a CUDA tensor each launches its hand-written kernel in
-``csrc/fused_norms.cu``, on a CPU tensor it runs the plain version
-(:func:`lnmod_reference`, :func:`rms_reference`). Their backwards, which the
-fused attention backwards share, are the JAX package's closed forms in plain
-PyTorch (they are plain XLA there too).
+statistics) that the MMDiT runs 109 times per forward, Flux.1-dev 115 times
+and Wan2.1-T2V-1.3B 61 times; ``layer_norm`` is the plain no-affine LN of
+WAN's cross-attention input, 30 times per forward; ``rms_norm_heads`` is the
+per-head RMS qk-norm that Flux runs on its own (RoPE sits between the norm
+and the attention), 152 times per forward, and WAN across all heads (one
+head of the whole row), 120 times. On a CUDA tensor each launches its
+hand-written kernel in ``csrc/fused_norms.cu``, on a CPU tensor it runs the
+plain version (:func:`lnmod_reference`, :func:`ln_reference`,
+:func:`rms_reference`). Their backwards, which the fused attention
+backwards share, are the JAX package's closed forms in plain PyTorch (they
+are plain XLA there too).
 
 The plain versions are device-agnostic tensor code, so they also serve as the
 reference the kernel is checked against on the card.
@@ -47,19 +50,31 @@ def lnmod_reference(x, scale, shift, eps, out_dtype):
     return y.to(out_dtype)
 
 
-def lnmod_bwd_closed(x, scale, dy, eps):
-    """Closed-form backward of ``LN(x) * (1 + scale) + shift`` (the JAX
-    package's ``_ln_mod_p_bwd``): with xhat = LN(x) and g = dy * (1 + scale),
-    dx = rsig * (g - mean(g) - xhat * mean(g * xhat)), dscale = sum_s dy * xhat,
-    dshift = sum_s dy; fp32 inside, each cast back to its input's dtype."""
-    xf, dyf = x.float(), dy.float()
+def _ln_dx(x, g, eps):
+    """(dx, xhat) of a no-affine LN at x for the fp32 cotangent g of its
+    output: dx = rsig * (g - mean(g) - xhat * mean(g * xhat)), fp32."""
+    xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     xc = xf - mean
     var = (xc * xc).mean(-1, keepdim=True)
     rsig = torch.rsqrt(var + eps)
     xhat = xc * rsig
-    g = dyf * (1.0 + scale.float()[:, None])
-    dx = rsig * (g - g.mean(-1, keepdim=True) - xhat * (g * xhat).mean(-1, keepdim=True))
+    return rsig * (g - g.mean(-1, keepdim=True) - xhat * (g * xhat).mean(-1, keepdim=True)), xhat
+
+
+def ln_bwd_closed(x, dy, eps):
+    """Closed-form backward of the no-affine LN (the JAX package's
+    ``_layer_norm_p_bwd``): dx in x's dtype, fp32 inside."""
+    return _ln_dx(x, dy.float(), eps)[0].to(x.dtype)
+
+
+def lnmod_bwd_closed(x, scale, dy, eps):
+    """Closed-form backward of ``LN(x) * (1 + scale) + shift`` (the JAX
+    package's ``_ln_mod_p_bwd``): with xhat = LN(x) and g = dy * (1 + scale),
+    dx = rsig * (g - mean(g) - xhat * mean(g * xhat)), dscale = sum_s dy * xhat,
+    dshift = sum_s dy; fp32 inside, each cast back to its input's dtype."""
+    dyf = dy.float()
+    dx, xhat = _ln_dx(x, dyf * (1.0 + scale.float()[:, None]), eps)
     return (dx.to(x.dtype), (dyf * xhat).sum(1).to(scale.dtype),
             dyf.sum(1).to(scale.dtype))
 
@@ -157,14 +172,26 @@ def rms_norm_heads(x, w, *, num_heads: int, eps: float = 1e-6, out_dtype=None):
 rms_norm_heads.launches = 0
 
 
+def _check_ln_rows(what, x):
+    """The LayerNorm kernels' input checks on a CUDA x: (B, S, D) with D a
+    multiple of 8 and at most 8 * 4096, contiguous, 16-byte aligned."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.ndim != 3:
+        raise ValueError(f"{what}: x must be (B, S, D), got {tuple(x.shape)}")
+    vec = 8  # bf16 elements per 16-byte vector
+    d = x.shape[2]
+    if d % vec or d // vec > 4096:
+        raise ValueError(f"{what}: D={d} must be a multiple of {vec} and at most {4096 * vec}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{what}: x must be contiguous with a 16-byte aligned base")
+
+
 def _lnmod_forward(x, scale, shift, eps, out_dtype):
     """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return lnmod_reference(x, scale, shift, eps, out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"modulated_layer_norm: unsupported device {x.device}")
-    if x.ndim != 3:
-        raise ValueError(f"modulated_layer_norm: x must be (B, S, D), got {tuple(x.shape)}")
+    _check_ln_rows("modulated_layer_norm", x)
     b, s, d = x.shape
     for name, t in (("scale", scale), ("shift", shift)):
         if t.shape != (b, d):
@@ -176,17 +203,11 @@ def _lnmod_forward(x, scale, shift, eps, out_dtype):
         raise TypeError("modulated_layer_norm: the kernel takes bf16 x, scale, shift and "
                         f"output; got x {x.dtype}, scale {scale.dtype}, shift "
                         f"{shift.dtype}, out {out_dtype}")
-    vec = 8  # bf16 elements per 16-byte vector
-    if d % vec or d // vec > 4096:
-        raise ValueError(f"modulated_layer_norm: D={d} must be a multiple of {vec} "
-                         f"and at most {4096 * vec}")
     # scale/shift may be chunks of one modulation matmul: rows read through
     # their stride, 16-byte vectors along D
-    if not x.is_contiguous() or x.data_ptr() % 16 or any(
-            t.stride(1) != 1 or t.stride(0) % vec or t.data_ptr() % 16
-            for t in (scale, shift)):
-        raise ValueError("modulated_layer_norm: x must be contiguous; scale and shift "
-                         "need unit stride along D and 16-byte aligned rows")
+    if any(t.stride(1) != 1 or t.stride(0) % 8 or t.data_ptr() % 16 for t in (scale, shift)):
+        raise ValueError("modulated_layer_norm: scale and shift need unit stride along D "
+                         "and 16-byte aligned rows")
     y = torch.empty_like(x)
     if y.numel():
         rc = _kernels.lib().lnmod_bf16(
@@ -230,3 +251,55 @@ def modulated_layer_norm(x, scale, shift, *, eps: float = 1e-6, out_dtype=None):
 
 
 modulated_layer_norm.launches = 0
+
+
+def _ln_forward(x, eps, out_dtype):
+    """The no-affine LN kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if x.device.type == "cpu":
+        return ln_reference(x, eps, out_dtype)
+    _check_ln_rows("layer_norm", x)
+    if x.dtype != torch.bfloat16 or out_dtype != torch.bfloat16:
+        raise TypeError(f"layer_norm: the kernel takes bf16 x and output; got x {x.dtype}, "
+                        f"out {out_dtype}")
+    y = torch.empty_like(x)
+    if y.numel():
+        rc = _kernels.lib().ln_bf16(x.data_ptr(), y.data_ptr(), x.shape[0] * x.shape[1],
+                                    x.shape[2], float(eps), _kernels.stream_ptr(x.device))
+        _kernels.check(rc, "layer_norm")
+        layer_norm.launches += 1
+    return y
+
+
+class _LayerNorm(torch.autograd.Function):
+    """The JAX ``_layer_norm_p`` custom VJP: forward the kernel (CUDA) or the
+    plain version (CPU); backward the closed form :func:`ln_bwd_closed`, plain
+    PyTorch on both devices."""
+
+    @staticmethod
+    def forward(ctx, x, eps, out_dtype):
+        ctx.save_for_backward(x)
+        ctx.eps = eps
+        return _ln_forward(x, eps, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        return ln_bwd_closed(x, dy, ctx.eps), None, None
+
+
+def layer_norm(x, *, eps: float = 1e-6, out_dtype=None):
+    """No-affine LayerNorm over the last dim of (B, S, D), fp32 statistics:
+    ``(x - mean) * rsqrt(var + eps)`` with the centred variance, cast to
+    ``out_dtype``.
+
+    CPU tensors take the plain path; CUDA tensors launch the kernel (bf16 in
+    and out, x contiguous, D a multiple of 8) or raise. Differentiable in x.
+    """
+    out_dtype = out_dtype or x.dtype
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _LayerNorm.apply(x, eps, out_dtype)
+    return _ln_forward(x, eps, out_dtype)
+
+
+layer_norm.launches = 0

@@ -1,8 +1,8 @@
 """Host-side JPEG rewards, the port's copy of the JPEG scorers of
 adv_grpo_tpu/rewards/host.py (reference rewards.py:13-35).
 
-Both take uint8 images (N, H, W, 3); the JAX package's per-frame scoring of
-video clips is not copied (the port has no video family yet).
+Both take uint8 images (N, H, W, 3), or video clips (N, T, H, W, 3), which
+are scored per frame and meaned per clip.
 """
 
 from __future__ import annotations
@@ -13,9 +13,13 @@ import numpy as np
 
 
 def jpeg_incompressibility(images_u8: np.ndarray) -> np.ndarray:
-    """JPEG (quality 95) size in kB per image."""
+    """JPEG (quality 95) size in kB per image (per clip: the mean over its
+    frames)."""
     from PIL import Image
 
+    if images_u8.ndim == 5:
+        return np.asarray([np.mean(jpeg_incompressibility(clip)) for clip in images_u8],
+                          dtype=np.float64)
     sizes = []
     for arr in images_u8:
         buf = io.BytesIO()

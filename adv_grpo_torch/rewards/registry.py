@@ -23,8 +23,9 @@ HOST_REWARDS = {"jpeg_compressibility": jpeg_compressibility,
 
 
 def multi_score(score_dict: Dict[str, float]):
-    """fn(images (B, 3, H, W) in [-1, 1], prompts, metadata=None,
-    ref_images=None, only_strict=True) -> (score_details incl. 'avg', {})."""
+    """fn(images (B, 3, H, W) or video (B, F, 3, H, W) in [-1, 1], prompts,
+    metadata=None, ref_images=None, only_strict=True) -> (score_details incl.
+    'avg', {})."""
     for name in score_dict:
         if name not in HOST_REWARDS:
             raise NotImplementedError(
@@ -35,7 +36,12 @@ def multi_score(score_dict: Dict[str, float]):
     def fn(images, prompts, metadata=None, ref_images=None, only_strict=True):
         if torch.is_tensor(images):
             images = images.detach().float().cpu().numpy()
-        u8 = images_to_uint8(np.asarray(images, np.float32))
+        arr = np.asarray(images, np.float32)
+        if arr.ndim == 5:  # video (B, F, 3, H, W): frame by frame
+            u8 = images_to_uint8(arr.reshape((-1,) + arr.shape[-3:]))
+            u8 = u8.reshape(arr.shape[:2] + u8.shape[1:])
+        else:
+            u8 = images_to_uint8(arr)
         details: Dict[str, Any] = {}
         total = None
         for name, weight in score_dict.items():

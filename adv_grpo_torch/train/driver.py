@@ -13,11 +13,12 @@ window-fit check, ``sample_phase``, ``train_phase`` with inner epochs and
 
 The device is the pipeline's (one card, or the CPU for the tests). Rollout
 records stay on the device between the phases. The model family is the
-pipeline's (``pipeline.family``): sd3, or flux with its own sampling and eval
-factories (full-SDE window rollouts, embedded guidance, no shared prefix).
-Not ported yet, and refused with ``NotImplementedError``: the discriminator
-(``train_d``) and its D-phase, sd3's ``same_latent`` shared prefix, the wan
-family, checkpoints (``save``), multi-host and the mesh. The
+pipeline's (``pipeline.family``): sd3, or flux or wan with their own sampling
+and eval factories (whole stochastic window rollouts, no CFG batch, no shared
+prefix; wan's are video). Not ported yet, and refused with
+``NotImplementedError``: the discriminator (``train_d``) and its D-phase,
+sd3's ``same_latent`` shared prefix, checkpoints (``save``), multi-host and
+the mesh. The
 reference-image store is not loaded: only device rewards and the D-phase read
 it.
 """
@@ -38,9 +39,9 @@ from adv_grpo_torch.models.lora import freeze_non_lora
 from adv_grpo_torch.rollout.sampler import SamplerConfig, sample_random_timestep
 from adv_grpo_torch.train.grpo_trainer import (
     compute_advantages, make_eval_fn, make_flux_eval_fn, make_flux_sample_fn, make_sample_fn,
-    make_train_epoch_fn, rebatch_for_training)
+    make_train_epoch_fn, make_wan_eval_fn, make_wan_sample_fn, rebatch_for_training)
 from adv_grpo_torch.train.train_state import create_generator_state
-from adv_grpo_torch.utils.flops import flux_forward_flops, rollout_flops
+from adv_grpo_torch.utils.flops import flux_forward_flops, rollout_flops, wan_forward_flops
 from adv_grpo_torch.utils.images import images_to_uint8
 from adv_grpo_torch.utils.metrics import MetricLogger, StepTimer
 
@@ -64,9 +65,9 @@ class GRPOTrainer:
                 f"discriminator={config.discriminator!r} with train_d: the co-trained "
                 "D-phase is not yet ported to adv_grpo_torch")
         self.family = getattr(pipeline, "family", "sd3")
-        if self.family not in ("sd3", "flux"):
+        if self.family not in ("sd3", "flux", "wan"):
             raise NotImplementedError(f"model family {self.family!r}: adv_grpo_torch trains "
-                                      "the sd3 and flux families only")
+                                      "the sd3, flux and wan families only")
         self.pipeline = pipeline
         self.device = pipeline.device
         self.dataset = dataset
@@ -99,18 +100,24 @@ class GRPOTrainer:
         self.k = max(int(s.num_image_per_prompt) // self.mini, 1)
         self.num_batches = int(s.num_batches_per_epoch)
         self.micro_splits = max(int(config.train.get("micro_splits", 1)), 1)
-        if self.family == "flux":
-            # full-SDE rollouts are stochastic at every step, so there is no
-            # shared prefix; same_latent shares a group's initial latent
-            self.sample_fn = make_flux_sample_fn(pipeline, self.sampler_cfg, latent_hw,
-                                                 same_latent=bool(s.same_latent),
-                                                 group_size=self.mini)
-            self.eval_fn = make_flux_eval_fn(pipeline, self.eval_cfg, latent_hw)
-            self._s_img = (latent_hw // 2) ** 2  # packed 2x2 tokens
-        else:
+        if self.family == "sd3":
             self.sample_fn = make_sample_fn(pipeline, self.sampler_cfg, latent_hw)
             self.eval_fn = make_eval_fn(pipeline, self.eval_cfg, latent_hw)
             self._s_img = (latent_hw // pipeline.mmdit_cfg.patch_size) ** 2
+        else:
+            # full-SDE rollouts are stochastic at every step, so there is no
+            # shared prefix; same_latent shares a group's initial latent
+            make_s, make_e = ((make_flux_sample_fn, make_flux_eval_fn) if self.family == "flux"
+                              else (make_wan_sample_fn, make_wan_eval_fn))
+            self.sample_fn = make_s(pipeline, self.sampler_cfg, latent_hw,
+                                    same_latent=bool(s.same_latent), group_size=self.mini)
+            self.eval_fn = make_e(pipeline, self.eval_cfg, latent_hw)
+            if self.family == "flux":
+                self._s_img = (latent_hw // 2) ** 2  # packed 2x2 tokens
+            else:
+                pt, ph, pw = pipeline.wan_cfg.patch_size
+                self._s_img = ((pipeline.latent_frames // pt) * (latent_hw // ph)
+                               * (latent_hw // pw))
         train_sampler_cfg = dataclasses.replace(
             self.sampler_cfg, cfg_sequential=bool(config.train.get("cfg_sequential", False)))
         self.train_epoch_fn = make_train_epoch_fn(pipeline, train_sampler_cfg, config.train,
@@ -195,6 +202,12 @@ class GRPOTrainer:
             if self.family == "flux":  # one forward per step, no CFG batch
                 self._rollout_flops_acc += self.sampler_cfg.num_steps * flux_forward_flops(
                     self.pipeline.flux_cfg, self._s_img, embeds.shape[1], B)
+            elif self.family == "wan":
+                # one forward per step; the KL adds the adapter-free forward
+                kl_mult = 2.0 if float(getattr(self.pipeline, "kl_reward", 0.0)) > 0 else 1.0
+                self._rollout_flops_acc += (
+                    self.sampler_cfg.num_steps * kl_mult * wan_forward_flops(
+                        self.pipeline.wan_cfg, self._s_img, embeds.shape[1], B))
             else:
                 self._rollout_flops_acc += rollout_flops(
                     self.pipeline.mmdit_cfg, self._s_img, embeds.shape[1], B,
@@ -325,9 +338,12 @@ class GRPOTrainer:
 
     def _save_sample_grid(self, samples):
         """Sample-image grid every 10 epochs; a failure is logged once."""
+        images = samples["last_images"][:8]
+        if images.ndim == 5:  # video (B, F, 3, H, W): the first frames
+            images = images[:, 0]
         try:
             self.logger.log_image_grid(
-                "samples_epoch", images_to_uint8(samples["last_images"][:8]),
+                "samples_epoch", images_to_uint8(images),
                 captions=samples["last_prompts"], step=self.epoch,
                 save_dir=str(self.config.save_dir))
         except Exception as e:  # noqa: BLE001 — best-effort, but never silent

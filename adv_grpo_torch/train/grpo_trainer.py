@@ -1,12 +1,13 @@
 """GRPO phases of the trainer: sampling, eval generation, the inner training
-epoch, advantages and rebatching, for the sd3 and flux families.
+epoch, advantages and rebatching, for the sd3, flux and wan families.
 
 Port of adv_grpo_tpu/train/grpo_trainer.py (``make_sample_fn`` :47 with
 independent latents, ``make_flux_sample_fn`` :117, ``make_flux_eval_fn`` :151,
-``make_eval_fn`` :247, ``make_train_epoch_fn`` :269, ``compute_advantages``
-:546, ``rebatch_for_training`` :559). The JAX phases are jitted functions of
+``make_wan_sample_fn`` :185, ``make_wan_eval_fn`` :223, ``make_eval_fn`` :247,
+``make_train_epoch_fn`` :269, ``compute_advantages`` :546,
+``rebatch_for_training`` :559). The JAX phases are jitted functions of
 (LoRA, frozen params, batch); here they close over the pipeline, whose
-``transformer`` (the MMDiT or the Flux transformer) holds the live LoRA
+``transformer`` (the MMDiT, Flux or WAN transformer) holds the live LoRA
 parameters, and run eagerly:
 
   * sampling and eval run under ``torch.no_grad()``;
@@ -14,10 +15,11 @@ parameters, and run eagerly:
     microbatches in the JAX scan's order; each microbatch replays its window
     step through the transformer's forward and backward (the family's replay:
     the CPS step with its CFG batch for sd3, the Flow-SDE step with embedded
-    guidance for flux), where only the LoRA factors require gradients, and
-    feeds the gradients to ``apply_microbatch_grads``.
+    guidance for flux, the WAN Flow-SDE step over the UniPC sigmas for wan),
+    where only the LoRA factors require gradients, and feeds the gradients to
+    ``apply_microbatch_grads``.
 
-The wan factories and the discriminator steps are not ported.
+The discriminator steps are not ported.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ from adv_grpo_torch.models.lora import lora_params, merge_lora_params
 from adv_grpo_torch.rollout.flux import compute_flux_log_prob, flux_denoise_window_with_logprob
 from adv_grpo_torch.rollout.sampler import (
     SamplerConfig, compute_log_prob, denoise_with_logprob)
+from adv_grpo_torch.rollout.wan import (
+    WanSamplerConfig, make_wan_log_prob_fn, wan_denoise_window_with_logprob)
 from adv_grpo_torch.train.train_state import GeneratorState, apply_microbatch_grads
 
 INFO_KEYS = ("loss", "policy_loss", "kl_loss", "approx_kl", "clipfrac",
@@ -126,6 +130,62 @@ def make_flux_eval_fn(pipeline, eval_cfg: SamplerConfig, latent_hw: int):
     return evaluate
 
 
+def _wan_sampler_cfg(pipeline, sampler_cfg: SamplerConfig, deterministic: bool = False):
+    """The WAN sampler of a trainer's ``SamplerConfig``: the pipeline's shift;
+    the per-step KL only when the pipeline carries a ``kl_reward`` (the JAX
+    trainer reads it from the pipeline, which ``config.sample.kl_reward``
+    never reaches)."""
+    return WanSamplerConfig(num_steps=sampler_cfg.num_steps, shift=float(pipeline.shift),
+                            deterministic=deterministic,
+                            kl_reward=float(getattr(pipeline, "kl_reward", 0.0)))
+
+
+def make_wan_sample_fn(pipeline, sampler_cfg: SamplerConfig, latent_hw: int,
+                       same_latent: bool = False, group_size: int = 1):
+    """One WAN sampling batch: the whole stochastic video rollout, the window
+    gather and the 3D VAE decode -> (WanWindowResult, video (B, F, 3, H, W)).
+    The signature of :func:`make_sample_fn`'s closure; the pooled and negative
+    embeddings are unused (no CFG batch). ``same_latent`` shares each group's
+    initial latent."""
+    wcfg = _wan_sampler_cfg(pipeline, sampler_cfg)
+
+    @torch.no_grad()
+    def sample(embeds, pooled, neg_embeds, neg_pooled, generator, rt):
+        del pooled, neg_embeds, neg_pooled
+        b = embeds.shape[0]
+        if same_latent and group_size > 1:
+            lat0 = pipeline.prepare_latents(generator, b // group_size, latent_hw)
+            lat0 = lat0.repeat_interleave(group_size, dim=0)
+        else:
+            lat0 = pipeline.prepare_latents(generator, b, latent_hw)
+        # the KL's reference policy is the same modules at lora_scale 0
+        policies = {s: pipeline.velocity_fn(s) for s in (1.0, 0.0)}
+        out = wan_denoise_window_with_logprob(
+            lambda x, t, s: policies[s](x, t, embeds), lat0, generator, wcfg,
+            sampler_cfg.train_num_steps, rt)
+        return out, pipeline.decode(out.final_latents)
+
+    return sample
+
+
+def make_wan_eval_fn(pipeline, eval_cfg: SamplerConfig, latent_hw: int):
+    """Deterministic WAN eval generation (the WAN step's deterministic mode)
+    with the given LoRA values -> video."""
+    wcfg = _wan_sampler_cfg(pipeline, eval_cfg, deterministic=True)
+
+    @torch.no_grad()
+    def evaluate(lora_flat, embeds, pooled, neg_embeds, neg_pooled, generator):
+        del pooled, neg_embeds, neg_pooled
+        with lora_swapped(pipeline.transformer, lora_flat):
+            lat0 = pipeline.prepare_latents(generator, embeds.shape[0], latent_hw)
+            vfn = pipeline.velocity_fn()
+            out = wan_denoise_window_with_logprob(lambda x, t, s: vfn(x, t, embeds), lat0,
+                                                  generator, wcfg, 0, 0)
+            return pipeline.decode(out.final_latents)
+
+    return evaluate
+
+
 def make_train_epoch_fn(pipeline, sampler_cfg: SamplerConfig, train_cfg, beta: float = 0.0):
     """The inner epoch over (minibatch, window-step) microbatches."""
     T = sampler_cfg.train_num_steps
@@ -133,9 +193,13 @@ def make_train_epoch_fn(pipeline, sampler_cfg: SamplerConfig, train_cfg, beta: f
     adv_clip_max = float(train_cfg.adv_clip_max)
     # the family seam: the window-step replay is the one family-specific piece
     # of the epoch (sd3: CPS step + CFG batch; flux: Flow-SDE step, embedded
-    # guidance); the signatures are identical
+    # guidance; wan: the WAN step over the UniPC sigmas); the signatures are
+    # identical
     family = getattr(pipeline, "family", "sd3")
-    log_prob_fn = compute_flux_log_prob if family == "flux" else compute_log_prob
+    if family == "wan":
+        log_prob_fn = make_wan_log_prob_fn(_wan_sampler_cfg(pipeline, sampler_cfg))
+    else:
+        log_prob_fn = compute_flux_log_prob if family == "flux" else compute_log_prob
 
     def microstep(state: GeneratorState, mb, neg_embeds, neg_pooled):
         args = (mb["latents"], mb["next_latents"], mb["t"], mb["sigma"], mb["sigma_prev"],

@@ -59,7 +59,32 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      exactly as derived from the config (7,360 / 9,728 / 1,216 / 2,432
      forwards, 608 / 1,216 backwards); seconds per epoch (rollout + decode,
      exposed reward, train), per microstep, peak device memory, and one
-     microstep's device time by kernel group (torch.profiler).
+     microstep's device time by kernel group (torch.profiler);
+ 14. the WAN kernels against their plain versions at the Wan2.1-T2V-1.3B
+     shapes of 33 frames of 480^2 (8,100 video tokens, 512 text tokens, 12
+     heads of 128, width 1536): the no-affine LayerNorm (#6, B = 1 and 2,
+     within 1 bf16 ulp), the modulated LayerNorm and the one-head RMS across
+     the 1536-wide row (1 ulp), the BSHD attention forward and backward for
+     the self (8,100 x 8,100) and the cross (8,100 x 512) attention (2e-2);
+     median times beside the plain versions' and one PyTorch call's;
+ 15. a 2-layer full-width WAN on the card (bf16, kernels) against the same
+     weights on the CPU (fp32, plain versions): the output, then the LoRA
+     gradients through a fixed cotangent (relative L2 5e-2);
+ 16. the demo's path (``cli.wan_sde_demo.sample_video``) on a full-width
+     Wan2.1-T2V-1.3B pipeline (LoRA r=32, random weights from the seed): 50
+     steps at shift 3 from (16, 9, 60, 60) latents, the 3D VAE decode to 33
+     frames of 480^2; launch counts exactly 61 / 120 / 30 / 60 per forward
+     (modulated LN, RMS, LN, BSHD) x 50; seconds per video, one forward's
+     time and achieved TFLOP/s, its device time by kernel group and busy
+     share, peak memory; then a 3-step run with the per-step KL (non-zero
+     LoRA B): the KL finite and positive, two forwards per step;
+ 17. ``GRPOTrainer`` on a full-width Wan2.1-T2V-1.3B pipeline for 2 epochs
+     of ``wan_smoke`` (WAN_TRAIN_OVERRIDES: 33 frames of 480^2, 8-step
+     rollouts of one 2-video group per sampling batch, 2 window steps, one
+     row per microstep): finite metrics, every LoRA factor and its EMA
+     moved, the launch counts of the four WAN kernels and the BSHD backward
+     exactly as derived from the config; seconds per epoch, per microstep,
+     peak memory and one microstep's device time by kernel group.
 
 ``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
 SD3.5-M attention forwards of the checkout at PARENT (an older tree) against
@@ -106,6 +131,17 @@ FLUX_TRAIN_OVERRIDES = ["resolution=512", "sample.num_steps=8", "sample.train_nu
                         "sample.mini_num_image_per_prompt=4", "sample.num_batches_per_epoch=2",
                         "train.batch_size=4", "train.micro_splits=4", "train.ema=True",
                         "train.ema_interval=2"]
+# the WAN slice: Wan2.1-T2V-1.3B at 33 frames of 480^2 (latent (16, 9, 60,
+# 60): 8,100 video tokens) and 512 text tokens; sampling at the published 50
+# UniPC steps, shift 3. Training: wan_smoke at that size, rollouts cut to 8
+# steps for the run's time, one 2-video group per sampling batch, 2 batches
+# and 2 window steps per epoch, one row per microstep (micro_splits 2: 8
+# microsteps, 2 optimizer steps per epoch), EMA every 2 of the run's 4 steps
+WAN_STEPS = 50
+WAN_FRAMES, WAN_RES, WAN_TEXT = 33, 480, 512
+WAN_TRAIN_OVERRIDES = [f"resolution={WAN_RES}", f"sample.num_frames={WAN_FRAMES}",
+                       "sample.num_steps=8", "sample.train_num_steps=2",
+                       "train.micro_splits=2", "train.ema=True", "train.ema_interval=2"]
 
 
 def per_forward_counts(mcfg):
@@ -424,11 +460,12 @@ def check_model():
     return cpu, gpu, (lat, t, ctx, pooled), g
 
 
-def check_model_grads(cpu, gpu, inputs, g):
-    """Phase: LoRA gradients of the same 2-layer full-width MMDiT (non-zero
-    LoRA B) on the card (bf16, forward and backward kernels) and on the CPU
-    (fp32, plain versions), through one fixed cotangent. Bound: relative L2
-    5e-2 of the concatenated LoRA gradients, the forward's bf16 budget."""
+def check_model_grads(cpu, gpu, inputs, g, what="2-layer full-width MMDiT"):
+    """Phase: LoRA gradients of the same 2-layer full-width model (the MMDiT,
+    or the WAN; non-zero LoRA B) on the card (bf16, forward and backward
+    kernels) and on the CPU (fp32, plain versions), through one fixed
+    cotangent. Bound: relative L2 5e-2 of the concatenated LoRA gradients,
+    the forward's bf16 budget."""
     import torch
 
     from adv_grpo_torch.models.lora import freeze_non_lora
@@ -441,9 +478,8 @@ def check_model_grads(cpu, gpu, inputs, g):
         gs = torch.autograd.grad(out.float(), list(lora.values()), cot.to(dev))
         grads.append(torch.cat([x.float().flatten().cpu() for x in gs]))
     rel = _rel_l2(grads[1], grads[0])
-    print(f"model gradients: 2-layer full-width MMDiT, LoRA gradients card bf16 vs CPU "
-          f"fp32 relative L2 {rel:.3e} over {grads[0].numel()} values (bound 5e-2)",
-          flush=True)
+    print(f"model gradients: {what}, LoRA gradients card bf16 vs CPU fp32 relative L2 "
+          f"{rel:.3e} over {grads[0].numel()} values (bound 5e-2)", flush=True)
     if not (torch.isfinite(grads[1]).all() and rel <= 5e-2):
         raise AssertionError(f"card LoRA gradients disagree with the CPU's: {rel}")
 
@@ -868,7 +904,8 @@ _KERNEL_GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("attention kernel", ("attn_fwd_kernel",)),
     ("attention backward kernels", ("attn_bwd_",)),
     ("per-head RMS kernel", ("rms_heads_kernel",)),
-    ("modulated LN kernel", ("lnmod_kernel",)),
+    ("modulated LN kernel", ("layer_norm_kernel<__nv_bfloat16, true>",)),
+    ("LN kernel", ("layer_norm_kernel<__nv_bfloat16, false>",)),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "splitK")),
     ("concatenations", ("CatArrayBatchedCopy",)),
     ("copies and casts", ("copy_", "direct_copy", "to_copy")),
@@ -1109,6 +1146,453 @@ def run_flux_training(kernels):
     return counts
 
 
+def wan_per_forward_counts(wcfg):
+    """Kernel launches of one WanTransformer forward: (modulated LN, RMS, LN,
+    BSHD attention). Per block: 2 modulated LNs (attention and FFN), 4 RMS
+    qk-norms (self and cross), 1 LN (the cross-attention input), 2
+    attentions; the output head: 1 modulated LN."""
+    n = wcfg.num_layers
+    return 2 * n + 1, 4 * n, n, 2 * n
+
+
+def check_wan_kernels():
+    """Phase: the kernels of the WAN path against their plain versions at
+    the Wan2.1-T2V-1.3B shapes (8,100 video tokens of 33 frames at 480^2, 512
+    text tokens, 12 heads of 128, width 1536), with median times beside the
+    plain versions' and one PyTorch call's. Bounds: 1 bf16 ulp of the fp32
+    result for the norms; 2e-2 absolute for the attention forward (output
+    and lse), 2e-2 relative L2 per cotangent for its backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from adv_grpo_torch.ops import attention, fused_norms
+    from adv_grpo_torch.ops.attention import bwd_row_stats
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    heads, d, s, s_txt = 12, 128, 8100, WAN_TEXT
+    dim = heads * d
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    results = []
+    # 6: the no-affine LN (B = 1 timed, the main shape; B = 2 the training
+    # rollout's)
+    worst, max_err = 0.0, 0.0
+    for b in (2, 1):
+        x = randn(b, s, dim, scale=2.0) + randn(b, 1, dim)
+        ref = fused_norms.ln_reference(x.float(), 1e-6, torch.float32)
+        err = (fused_norms.layer_norm(x).float() - ref).abs()
+        worst = max(worst, (err / _bf16_ulp(ref)).max().item())
+        max_err = max(max_err, err.max().item())
+        del ref, err
+    ms = _median_ms(lambda: fused_norms.layer_norm(x))
+    plain_ms = _median_ms(lambda: fused_norms.ln_reference(x, 1e-6, torch.bfloat16))
+    lib_ms = _median_ms(lambda: F.layer_norm(x, (dim,), eps=1e-6))
+    least = _bound(_nbytes(x, x), 8.0 * x.numel(), FP32_FLOPS)
+    print(f"kernel layer_norm: max_abs_err {max_err:.3e}, max err {worst:.2f} bf16 ulp (bound 1 "
+          f"ulp of the fp32 result) at (1|2,8100,1536); (1,8100,1536) median {ms:.4f} ms vs plain "
+          f"{plain_ms:.4f} ms vs F.layer_norm {lib_ms:.4f} ms; bound {least[0]:.4f} ms", flush=True)
+    if not worst <= 1.0:
+        raise AssertionError(f"layer_norm off by {worst} ulp")
+    results.append(_entry("layer_norm", "adv_grpo_torch/csrc/fused_norms.cu",
+                          "adv_grpo_tpu/ops/fused_norms.py:54", max_err, ms, plain_ms, least,
+                          lib_ms))
+
+    # 1 at the WAN shape: the modulation rows as the blocks make them (a
+    # table row plus a chunk of the time projection, contiguous)
+    mods = randn(1, 6 * dim, scale=0.5)
+    sc, sh = mods[:, dim:2 * dim] + 0.01, mods[:, :dim] + 0.01
+    ref = fused_norms.lnmod_reference(x.float(), sc.float(), sh.float(), 1e-6, torch.float32)
+    err = (fused_norms.modulated_layer_norm(x, sc, sh).float() - ref).abs()
+    worst, max_err = (err / _bf16_ulp(ref)).max().item(), err.max().item()
+    del ref, err
+    ms = _median_ms(lambda: fused_norms.modulated_layer_norm(x, sc, sh))
+    plain_ms = _median_ms(lambda: fused_norms.lnmod_reference(x, sc, sh, 1e-6, torch.bfloat16))
+    # one item, so one affine LayerNorm computes the same function
+    w_mod, b_mod = 1.0 + sc[0], sh[0]
+    lib_ms = _median_ms(lambda: F.layer_norm(x, (dim,), w_mod, b_mod, 1e-6))
+    print(f"kernel modulated_layer_norm at WAN's (1,8100,1536): max err {worst:.2f} bf16 ulp "
+          f"(bound 1); median {ms:.4f} ms vs plain {plain_ms:.4f} ms vs F.layer_norm with "
+          f"weight 1+scale, bias shift {lib_ms:.4f} ms", flush=True)
+    if not worst <= 1.0:
+        raise AssertionError(f"modulated_layer_norm at the WAN shape off by {worst} ulp")
+    results.append(_entry("modulated_layer_norm_wan", "adv_grpo_torch/csrc/fused_norms.cu",
+                          "adv_grpo_tpu/ops/fused_norms.py:252", max_err, ms, plain_ms,
+                          _bound(_nbytes(x, sc, sh, x), 8.0 * x.numel(), FP32_FLOPS), lib_ms))
+
+    # 7: RMS across all 12 heads (one head of the 1536-wide row), q read in
+    # place as a column slice of the fused q/k/v projection
+    qkv = randn(1, s, 3 * dim) + 0.3
+    q = qkv[..., :dim]
+    w = (1.0 + 0.1 * torch.randn(dim, generator=g, device=dev)).float()
+    ref = fused_norms.rms_reference(q.float(), w, 1, 1e-6, torch.float32)
+    err = (fused_norms.rms_norm_heads(q, w, num_heads=1).float() - ref).abs()
+    worst, max_err = (err / _bf16_ulp(ref)).max().item(), err.max().item()
+    del ref, err
+    ms = _median_ms(lambda: fused_norms.rms_norm_heads(q, w, num_heads=1))
+    plain_ms = _median_ms(lambda: fused_norms.rms_reference(q, w, 1, 1e-6, torch.bfloat16))
+    wb = w.to(torch.bfloat16)
+    lib_ms = _median_ms(lambda: F.rms_norm(q, (dim,), wb, 1e-6))
+    print(f"kernel rms_norm_heads at WAN's one 1536-wide head, (1,8100,1536) strided: max err "
+          f"{worst:.2f} bf16 ulp (bound 1); median {ms:.4f} ms vs plain {plain_ms:.4f} ms vs "
+          f"F.rms_norm {lib_ms:.4f} ms", flush=True)
+    if not worst <= 1.0:
+        raise AssertionError(f"rms_norm_heads at the WAN row off by {worst} ulp")
+    results.append(_entry("rms_norm_heads_wan", "adv_grpo_torch/csrc/fused_norms.cu",
+                          "adv_grpo_tpu/ops/fused_norms.py:139", max_err, ms, plain_ms,
+                          _bound(_nbytes(q, w, q), 4.0 * q.numel(), FP32_FLOPS), lib_ms))
+    del qkv, q
+
+    # 8 and 9: self (8100 x 8100) and cross (8100 x 512) attention
+    sm_scale = d ** -0.5
+    for kind, skv in (("self", s), ("cross", s_txt)):
+        q, do = randn(1, s, dim), randn(1, s, dim)
+        k, v = randn(1, skv, dim), randn(1, skv, dim)
+        o, lse = attention.mha_bshd_fwd(q, k, v, heads, sm_scale, None, want_lse=True)
+        ref, ref_lse = attention.mha_bshd_reference(q.float(), k.float(), v.float(),
+                                                    num_heads=heads, return_lse=True)
+        err = max((o.float() - ref).abs().max().item(), (lse - ref_lse).abs().max().item())
+        del ref, ref_lse
+        ms = _median_ms(lambda: attention.mha_bshd(q, k, v, num_heads=heads))
+        plain_ms = _median_ms(lambda: attention.mha_bshd_reference(q, k, v, num_heads=heads),
+                              iters=5)
+        q4, k4, v4 = (attention.to_bhsd(t, heads) for t in (q, k, v))
+        lib_ms = _median_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        least = _attn_bound((q, k, v, o), 1, heads, s, skv, d)
+        print(f"kernel mha_bshd WAN {kind} 8100 x {skv}, 12x128: max abs err {err:.3e} (output "
+              f"and lse; bound 2e-2); median {ms:.4f} ms vs plain {plain_ms:.4f} ms vs SDPA "
+              f"{lib_ms:.4f} ms; bound {least[0]:.4f} ms", flush=True)
+        if not err <= 2e-2:
+            raise AssertionError(f"mha_bshd WAN {kind} error {err}")
+        results.append(_entry(f"mha_bshd_wan_{kind}", "adv_grpo_torch/csrc/joint_attention.cu",
+                              "adv_grpo_tpu/ops/attention.py:346", err, ms, plain_ms, least,
+                              lib_ms))
+
+        di = bwd_row_stats(o, do, heads)
+        got = attention.mha_bshd_bwd(q, k, v, do, lse, di, num_heads=heads)
+        twin = attention.attention_bwd_reference([q.float()], [k.float()], [v.float()],
+                                                 [do.float()], [lse], [di], num_heads=heads)[0]
+        max_abs = _check_rel_l2(f"mha_bshd_bwd WAN {kind} kernel vs its plain twin (dq, dk, dv)",
+                                got, twin)
+        del twin
+        ms = _median_ms(lambda: attention.mha_bshd_bwd(q, k, v, do, lse, di, num_heads=heads))
+        plain_ms = _median_ms(lambda: attention.attention_bwd_reference(
+            [q], [k], [v], [do], [lse], [di], num_heads=heads), iters=3, warmup=1)
+        leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+        out = F.scaled_dot_product_attention(*leaves)
+        lib_ms = _grad_ms((out,), leaves, (attention.to_bhsd(do, heads),))
+        del out, leaves
+        least = _attn_bound((q, k, v, do, lse, di) + tuple(got), 1, heads, s, skv, d, products=5)
+        print(f"kernel mha_bshd_bwd WAN {kind} 8100 x {skv}: median {ms:.4f} ms vs plain "
+              f"{plain_ms:.4f} ms vs SDPA backward {lib_ms:.4f} ms; bound {least[0]:.4f} ms",
+              flush=True)
+        results.append(_entry(f"mha_bshd_bwd_wan_{kind}",
+                              "adv_grpo_torch/csrc/joint_attention_bwd.cu",
+                              "adv_grpo_tpu/ops/attention.py:395", max_abs, ms, plain_ms, least,
+                              lib_ms))
+        del q, k, v, do, o, lse, di, got, q4, k4, v4
+    torch.cuda.empty_cache()
+    return results
+
+
+def check_wan_model():
+    """Phase: a 2-layer Wan2.1-T2V-1.3B at full width on the card (bf16,
+    kernels) against the same weights on the CPU (fp32, plain versions): a
+    3 x 10 x 14 latent grid (3 x 5 x 7 = 105 tokens, a ragged tile), 77 text
+    tokens, non-zero LoRA B. Bound: relative L2 5e-2, bf16 rounding through
+    2 blocks."""
+    import torch
+
+    from adv_grpo_torch.models.lora import init_params_
+    from adv_grpo_torch.models.wan import WanConfig, WanTransformer
+
+    kw = dict(num_layers=2, lora_rank=32, lora_alpha=64.0)
+    g = torch.Generator().manual_seed(SEED)
+    cpu = init_params_(WanTransformer(WanConfig.t2v_1_3b(dtype=torch.float32, **kw),
+                                      device="cpu"), g)
+    for name, p in cpu.named_parameters():
+        if name.endswith("lora_b"):  # non-zero adapters, so LoRA is exercised
+            p.data.normal_(0.0, 0.02, generator=g)
+    gpu = WanTransformer(WanConfig.t2v_1_3b(**kw), device="meta").to_empty(device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    lat = torch.randn(2, 16, 3, 10, 14, generator=g)
+    t = torch.tensor([999.0, 500.0])
+    ctx = torch.randn(2, 77, 4096, generator=g) * 0.2
+    with torch.inference_mode():
+        ref = cpu(lat, t, ctx)
+        out = gpu(lat.cuda(), t.cuda(), ctx.cuda()).float().cpu()
+    rel = _rel_l2(out, ref)
+    print(f"model check: 2-layer full-width Wan2.1-T2V-1.3B, card bf16 vs CPU fp32 relative L2 "
+          f"error {rel:.3e} (bound 5e-2)", flush=True)
+    if not (torch.isfinite(out).all() and rel <= 5e-2):
+        raise AssertionError(f"card WAN disagrees with the CPU reference: {rel}")
+    return cpu, gpu, (lat, t, ctx), g
+
+
+def _wan_pipeline(config):
+    """A full-width Wan2.1-T2V-1.3B pipeline with the preset's LoRA rank and
+    alpha, random weights from the seed, at 33 frames of 480^2 and 512 text
+    tokens."""
+    import torch
+
+    from adv_grpo_torch.models.wan import WanConfig
+    from adv_grpo_torch.models.wan_vae import WanVAEConfig
+    from adv_grpo_torch.train.wan_pipeline import WanPipeline
+
+    vcfg = WanVAEConfig.wan()
+    wcfg = WanConfig.t2v_1_3b(lora_rank=int(config.train.lora_rank),
+                              lora_alpha=float(config.train.lora_alpha))
+    return WanPipeline.random_init(
+        torch.Generator(device="cuda").manual_seed(SEED), wcfg, vcfg, "cuda",
+        latent_hw=WAN_RES // vcfg.spatial_factor, latent_frames=vcfg.latent_frames(WAN_FRAMES),
+        text_seq_len=WAN_TEXT)
+
+
+def _zero_counts(kernels):
+    """Set the kernels' launch counts to 0, the BSHD wrappers' count of
+    their S_q != S_kv launches too."""
+    for k in kernels:
+        k.launches = 0
+        if hasattr(k, "cross_launches"):
+            k.cross_launches = 0
+
+
+def run_wan_sampling(kernels):
+    """Phase: the demo's rollout + decode (``cli.wan_sde_demo.sample_video``)
+    on a full-width Wan2.1-T2V-1.3B pipeline: 50 steps, one video; then the
+    per-forward time and kernel groups, and a short KL run. Returns the
+    kernels' launch counts of the 50-step run and the BSHD forward's
+    cross-attention (S_q != S_kv) share of its count."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from adv_grpo_torch.cli.common import build_text_encoder, resolve_config
+    from adv_grpo_torch.cli.wan_sde_demo import sample_video
+    from adv_grpo_torch.rollout.wan import WanSamplerConfig
+    from adv_grpo_torch.utils.flops import wan_forward_flops
+    from adv_grpo_torch.utils.images import images_to_uint8
+
+    config = resolve_config("wan_smoke")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipeline = _wan_pipeline(config)
+    wcfg = pipeline.wan_cfg
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in pipeline.transformer.parameters())
+    print(f"Wan2.1-T2V-1.3B pipeline: {n_params / 1e9:.3f} B transformer parameters (LoRA "
+          f"r={wcfg.lora_rank} included), built on the card in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    text = torch.from_numpy(build_text_encoder(config, pipeline)(["a cat on a skateboard"])[0])
+    text = text.cuda()
+    dev = torch.device("cuda")
+    latents = pipeline.prepare_latents(torch.Generator(device=dev).manual_seed(SEED), 1)
+    s_vid = int(np.prod(latents.shape[2:])) // int(np.prod(wcfg.patch_size))
+
+    _zero_counts(kernels)
+    t0 = time.perf_counter()
+    out, video = sample_video(pipeline, latents, text, WanSamplerConfig(num_steps=WAN_STEPS),
+                              torch.Generator(device=dev).manual_seed(SEED + 1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, cross = [k.launches for k in kernels], kernels[3].cross_launches
+    want = [c * WAN_STEPS for c in wan_per_forward_counts(wcfg)]
+    frames = video[0].float().cpu().numpy()
+    u8 = images_to_uint8(np.concatenate(list(frames[::8]), axis=-1)[None])[0]
+    with tempfile.TemporaryDirectory() as out_dir:
+        path = os.path.join(out_dir, "wan_sde_kl0.png")
+        Image.fromarray(u8).save(path)
+        img = np.asarray(Image.open(path))
+    print(f"WAN demo path, full-width Wan2.1-T2V-1.3B, {WAN_FRAMES} frames of {WAN_RES}^2 "
+          f"({s_vid} video + {WAN_TEXT} text tokens), {WAN_STEPS} steps: {wall:.2f} s per video "
+          f"(first call, VAE decode included); video {tuple(video.shape)}, strip PNG "
+          f"{img.shape} range {img.min()}..{img.max()}; mean log-prob "
+          f"{out.log_probs.mean().item():.4f}; launches {counts} (modulated LN, RMS, LN, BSHD; "
+          f"expected {want}), {cross} of the BSHD ones cross-attention", flush=True)
+    if (tuple(video.shape) != (1, WAN_FRAMES, 3, WAN_RES, WAN_RES)
+            or not torch.isfinite(video).all() or not torch.isfinite(out.log_probs).all()
+            or img.min() == img.max()):
+        raise AssertionError(f"bad WAN video: {tuple(video.shape)}, finite "
+                             f"{bool(torch.isfinite(video).all())}, range {img.min()}..{img.max()}")
+    if counts != want or cross != want[3] // 2:
+        raise AssertionError(f"WAN launch counts {counts} ({cross} cross), expected {want}")
+
+    t0 = time.perf_counter()
+    sample_video(pipeline, latents, text, WanSamplerConfig(num_steps=WAN_STEPS),
+                 torch.Generator(device=dev).manual_seed(SEED + 1))
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    vfn = pipeline.velocity_fn()
+    t = torch.full((1,), 500.0, device=dev)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        pipeline.decode(out.final_latents)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        fwd_ms = _median_ms(lambda: vfn(latents, t, text), iters=5, warmup=1)
+        kernel_ms, groups = _profile_forward(lambda: vfn(latents, t, text))
+    tflops = wan_forward_flops(wcfg, s_vid, WAN_TEXT, 1) / (fwd_ms * 1e-3) / 1e12
+    print(f"  warm: {warm:.2f} s per video; VAE decode {decode_s:.3f} s; one forward "
+          f"{fwd_ms:.2f} ms = {tflops:.1f} "
+          f"TFLOP/s achieved (wan_forward_flops); device kernel time {kernel_ms:.2f} ms per "
+          f"forward = {100 * kernel_ms / fwd_ms:.1f}% busy; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for grp, (calls, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
+        print(f"    {grp}: {ms:.2f} ms, {calls:.0f} launches per forward", flush=True)
+
+    # the per-step KL against the adapter-free policy: non-zero LoRA B, so
+    # the two policies differ; two forwards per step
+    with torch.no_grad():
+        for name, p in pipeline.transformer.named_parameters():
+            if name.endswith("lora_b"):
+                p.normal_(0.0, 0.02, generator=torch.Generator(device=dev).manual_seed(SEED))
+    kl_steps = 3
+    _zero_counts(kernels)
+    kl_out, _ = sample_video(pipeline, latents, text,
+                             WanSamplerConfig(num_steps=kl_steps, kl_reward=0.1),
+                             torch.Generator(device=dev).manual_seed(SEED + 1))
+    torch.cuda.synchronize()
+    kl_counts = [k.launches for k in kernels]
+    kl_want = [c * 2 * kl_steps for c in wan_per_forward_counts(wcfg)]
+    kl = kl_out.kl.float().cpu()
+    print(f"  KL run ({kl_steps} steps, kl_reward 0.1, LoRA B ~ N(0, 0.02)): per-step KL "
+          f"{kl.numpy().round(8).tolist()}; launches {kl_counts} (expected {kl_want})",
+          flush=True)
+    if not (torch.isfinite(kl).all() and (kl > 0).all()):
+        raise AssertionError(f"WAN KL not finite and positive: {kl}")
+    if kl_counts != kl_want:
+        raise AssertionError(f"WAN KL launch counts {kl_counts}, expected {kl_want}")
+    del pipeline, out, video, kl_out
+    torch.cuda.empty_cache()
+    return counts, cross
+
+
+def expected_wan_train_counts(config, wcfg):
+    """Launches of the 4 WAN forward kernels and the BSHD backward in the
+    WAN_TRAIN_OVERRIDES run, from the config: rollout forwards (one per step
+    of each sampling batch; no KL forward: the trainer's pipeline carries no
+    kl_reward) and replay forwards (one per microstep, two with a KL loss),
+    then the backwards (one per microstep: both attentions of every block,
+    all of which a LoRA factor reaches)."""
+    s, t = config.sample, config.train
+    micro = (EPOCHS * max(int(t.num_inner_epochs), 1) * int(s.num_batches_per_epoch)
+             * max(int(t.micro_splits), 1) * int(s.train_num_steps))
+    replay = micro * (2 if float(t.beta) > 0 else 1)
+    fwd = EPOCHS * int(s.num_batches_per_epoch) * int(s.num_steps) + replay
+    return ([c * fwd for c in wan_per_forward_counts(wcfg)]
+            + [2 * wcfg.num_layers * micro]), micro // EPOCHS
+
+
+def run_wan_training(kernels):
+    """Phase: ``GRPOTrainer`` on a full-width Wan2.1-T2V-1.3B pipeline
+    (random weights from the seed, LoRA rank and alpha of ``wan_smoke``) for
+    EPOCHS epochs of ``wan_smoke`` with WAN_TRAIN_OVERRIDES; returns the
+    kernels' launch counts and the BSHD forward's and backward's
+    cross-attention (S_q != S_kv) shares of theirs."""
+    import numpy as np
+    import torch
+
+    from adv_grpo_torch.cli.common import apply_overrides, build_text_encoder, resolve_config
+    from adv_grpo_torch.data.datasets import TextPromptDataset
+    from adv_grpo_torch.models.lora import lora_params
+    from adv_grpo_torch.rewards.registry import multi_score
+    from adv_grpo_torch.rollout.wan import wan_schedule
+    from adv_grpo_torch.train.driver import GRPOTrainer
+
+    config = apply_overrides(resolve_config("wan_smoke"), WAN_TRAIN_OVERRIDES)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pipeline = _wan_pipeline(config)
+    wcfg = pipeline.wan_cfg
+    latent_hw = int(config.resolution) // 8
+    start = {k: p.detach().clone() for k, p in lora_params(pipeline.transformer).items()}
+    encode = build_text_encoder(config, pipeline)
+    with tempfile.TemporaryDirectory() as save_dir:
+        config.save_dir = save_dir
+        trainer = GRPOTrainer(config, pipeline, TextPromptDataset(str(config.dataset), "train"),
+                              encode, multi_score(dict(config.reward_fn)), latent_hw=latent_hw)
+        _zero_counts(kernels)
+        t0 = time.perf_counter()
+        trainer.run(max_epochs=EPOCHS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = [k.launches for k in kernels]
+        cross = [k.cross_launches for k in kernels[3:]]
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    want, micro = expected_wan_train_counts(config, wcfg)
+    print(f"GRPOTrainer wan_smoke full-width Wan2.1-T2V-1.3B, {WAN_FRAMES} frames of "
+          f"{WAN_RES}^2, {config.sample.num_steps}-step rollouts of "
+          f"{config.sample.mini_num_image_per_prompt} videos, {EPOCHS} epochs: {wall:.2f} s wall; "
+          f"peak device memory {peak / 2**30:.2f} GiB; launches {counts} (modulated LN, RMS, LN, "
+          f"BSHD, BSHD backward; expected {want}), {cross} of the BSHD ones cross-attention",
+          flush=True)
+    nb = int(config.sample.num_batches_per_epoch)
+    for r in records:
+        rollout = r["time/rollout"] * nb
+        reward = r["time/reward_wait"] + r["time/reward_dispatch"] * nb
+        print(f"  epoch {r['epoch']}: rollout+decode {rollout:.3f} s, reward {reward:.3f} s "
+              f"(not overlapped with a rollout), train {r['time/train']:.3f} s = "
+              f"{r['time/train'] / micro:.3f} s per microstep ({micro} microsteps); reward "
+              f"{r['reward_avg']:.5f}, loss {r['loss']:.3e}, approx_kl {r['approx_kl']:.3e}, "
+              f"clipfrac {r['clipfrac']:.3f}, rollout "
+              f"{r.get('perf/rollout_tflops_per_sec', float('nan')):.1f} TFLOP/s", flush=True)
+        bad = [k for k, v in r.items() if isinstance(v, float) and not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"epoch {r['epoch']}: non-finite {bad}")
+    if len(records) != EPOCHS or trainer.state.global_step == 0:
+        raise AssertionError(f"{len(records)} epochs logged, global step "
+                             f"{trainer.state.global_step}")
+    lora, ema = trainer.state.lora, trainer.state.ema
+    unchanged = {k for k, p in lora.items() if torch.equal(p, start[k])}
+    ema_unchanged = {k for k, e in ema.items() if torch.equal(e, start[k])}
+    finite = all(bool(torch.isfinite(p).all()) for p in lora.values())
+    print(f"  LoRA: {len(lora) - len(unchanged)} of {len(lora)} tensors changed, finite "
+          f"{finite}; EMA: {len(ema) - len(ema_unchanged)} changed; optimizer steps "
+          f"{trainer.state.global_step}", flush=True)
+    if not finite or unchanged or ema_unchanged:
+        raise AssertionError(f"LoRA finite={finite}, unchanged {sorted(unchanged)[:4]}, EMA "
+                             f"unchanged {sorted(ema_unchanged)[:4]}")
+    if counts != want or cross != [want[3] // 2, want[4] // 2]:
+        raise AssertionError(f"WAN training launch counts {counts} ({cross} cross), expected "
+                             f"{want}")
+
+    # one minibatch of one row and T window steps through the trainer's epoch
+    # (T microsteps: replay forward, backward, optimizer), traced
+    T = int(config.sample.train_num_steps)
+    sig, ts = wan_schedule(int(config.sample.num_steps))
+    dev = torch.device("cuda")
+    emb, pooled = (torch.from_numpy(a).to(dev) for a in encode(["a flower"]))
+    shape = (1, 1, T + 1, wcfg.in_channels, pipeline.latent_frames, latent_hw, latent_hw)
+    s_vid = trainer._s_img
+    mb = dict(latents=torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(SEED),
+                                  device=dev),
+              log_probs=torch.zeros(1, 1, T, device=dev),
+              timesteps=torch.from_numpy(ts[:T]).to(dev)[None, None],
+              sigmas=torch.from_numpy(sig[:T]).to(dev)[None, None],
+              sigmas_prev=torch.from_numpy(sig[1:T + 1]).to(dev)[None, None],
+              advantages=torch.ones(1, 1, device=dev), embeds=emb[None], pooled=pooled[None])
+    neg_e, neg_p = trainer._neg(1)
+
+    def epoch():
+        trainer.train_epoch_fn(trainer.state, mb, neg_e, neg_p)
+
+    step_ms = _median_ms(epoch, iters=3, warmup=1) / T
+    kernel_ms, groups = _profile_forward(epoch, reps=1)
+    print(f"  one microstep (B=1, {s_vid} video tokens): "
+          f"{step_ms:.1f} ms (CUDA events); device kernel time {kernel_ms / T:.1f} ms = "
+          f"{100 * kernel_ms / T / step_ms:.1f}% busy", flush=True)
+    for grp, (calls, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
+        print(f"    {grp}: {ms / T:.2f} ms, {calls / T:.0f} launches per microstep", flush=True)
+    del trainer, pipeline
+    torch.cuda.empty_cache()
+    return counts, cross
+
+
 def sd3_attention_ms(tree):
     """``--sd3-attention-ms TREE``: median ms (50 CUDA-event-timed calls after
     5 warm-ups, the wrapper's host time included) and device kernel ms (mean
@@ -1240,7 +1724,20 @@ def main() -> int:
     bwd_counts = dict(zip(("joint_attention_bwd_d128", "mha_bshd_bwd"), flux_train_counts[4:]))
     for r in flux_train_results:
         r["launches"] = bwd_counts[r["name"]]
-    print(json.dumps({"kernels": results + flux_results + flux_train_results}))
+    wan_results = check_wan_kernels()
+    check_model_grads(*check_wan_model(), what="2-layer full-width Wan2.1-T2V-1.3B")
+    wan_kernels = (fused_norms.modulated_layer_norm, fused_norms.rms_norm_heads,
+                   fused_norms.layer_norm, attention.mha_bshd)
+    counts, cross = run_wan_sampling(wan_kernels)
+    wan_counts = dict(zip(("modulated_layer_norm_wan", "rms_norm_heads_wan", "layer_norm"),
+                          counts))
+    wan_counts.update(mha_bshd_wan_self=counts[3] - cross, mha_bshd_wan_cross=cross)
+    counts, cross = run_wan_training(wan_kernels + (attention.mha_bshd_bwd,))
+    wan_counts.update(mha_bshd_bwd_wan_self=counts[4] - cross[1],
+                      mha_bshd_bwd_wan_cross=cross[1])
+    for r in wan_results:
+        r["launches"] = wan_counts[r["name"]]
+    print(json.dumps({"kernels": results + flux_results + flux_train_results + wan_results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

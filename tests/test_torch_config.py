@@ -19,7 +19,7 @@ def _plain(tree):
 
 
 @pytest.mark.parametrize("preset", ["compressibility", "smoke_sd3_fast", "eval_sd3_fast",
-                                    "flux_smoke"])
+                                    "flux_smoke", "wan_smoke"])
 def test_preset_matches_jax(preset):
     want = j_grpo.get_config(preset).to_dict()
     want.pop("tpu")
@@ -28,7 +28,7 @@ def test_preset_matches_jax(preset):
 
 def test_unported_preset_raises():
     with pytest.raises(KeyError, match="not yet ported"):
-        resolve_config("wan_smoke")
+        resolve_config("pickscore_sd3_fast")
 
 
 def test_config_attribute_access_and_dtype():

@@ -25,6 +25,7 @@ from adv_grpo_torch.data.embed_store import EmbeddingStore as TEmbeddingStore
 from adv_grpo_torch.data.krepeat import DistributedKRepeatSampler as TSampler
 from adv_grpo_torch.models.flux import FluxConfig as TFluxConfig
 from adv_grpo_torch.models.mmdit import MMDiTConfig as TMMDiTConfig
+from adv_grpo_torch.models.wan import WanConfig as TWanConfig
 from adv_grpo_torch.rewards.registry import multi_score as t_multi_score
 from adv_grpo_torch.utils import flops as t_flops
 from adv_grpo_torch.utils.images import images_to_uint8 as t_u8
@@ -39,6 +40,7 @@ from adv_grpo_tpu.data.embed_store import write_store
 from adv_grpo_tpu.data.krepeat import DistributedKRepeatSampler as JSampler
 from adv_grpo_tpu.models.flux import FluxConfig as JFluxConfig
 from adv_grpo_tpu.models.mmdit import MMDiTConfig as JMMDiTConfig
+from adv_grpo_tpu.models.wan import WanConfig as JWanConfig
 from adv_grpo_tpu.native.lib import images_to_uint8 as j_u8
 from adv_grpo_tpu.rewards.registry import RewardContext
 from adv_grpo_tpu.rewards.registry import multi_score as j_multi_score
@@ -114,9 +116,12 @@ def test_images_to_uint8_gives_identical_bytes():
 
 @pytest.mark.parametrize("weights", [{"jpeg_compressibility": 1},
                                      {"jpeg_compressibility": 0.5, "jpeg_incompressibility": 2}])
-def test_host_rewards_give_identical_scores(weights):
+@pytest.mark.parametrize("shape", [(3, 3, 32, 32), (3, 5, 3, 16, 24)])
+def test_host_rewards_give_identical_scores(weights, shape):
+    """Images (B, 3, H, W), and video (B, F, 3, H, W) scored per frame and
+    meaned per clip."""
     rng = np.random.default_rng(1)
-    images = rng.uniform(-1, 1, (3, 3, 32, 32)).astype(np.float32)
+    images = rng.uniform(-1, 1, shape).astype(np.float32)
     got, _ = t_multi_score(weights)(torch.from_numpy(images), ["a", "b", "c"])
     want, _ = j_multi_score(weights, RewardContext())(images, ["a", "b", "c"])
     assert set(got) == set(want)
@@ -136,6 +141,13 @@ def test_flop_models_are_identical():
                 == j_flops.rollout_flops(mm_j, 1024, 154, 8, 10, do_cfg))
     # a 512^2 Flux.1-dev forward at batch 1: 21.5 TFLOP (the PERF.md bound)
     assert abs(t_flops.flux_forward_flops(fx_t, 1024, 512, 1) / 1e12 - 21.5) < 0.05
+    wan_t, wan_j = TWanConfig.t2v_1_3b(), JWanConfig.t2v_1_3b()
+    for s_vid, s_txt, b in ((8100, 512, 1), (8100, 512, 2), (4500, 512, 1), (12, 6, 3)):
+        assert (t_flops.wan_forward_flops(wan_t, s_vid, s_txt, b)
+                == j_flops.wan_forward_flops(wan_j, s_vid, s_txt, b))
+    # Wan2.1-T2V-1.3B at 33 frames of 480^2 (8,100 tokens), batch 1: 33.3
+    # TFLOP (the PERF.md bound)
+    assert abs(t_flops.wan_forward_flops(wan_t, 8100, 512, 1) / 1e12 - 33.3) < 0.05
 
 
 @pytest.mark.parametrize("name", ["pickscore_small", "geneval"])

@@ -6,7 +6,8 @@ have no interpreter mode). Run on a GPU machine with
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
 Inputs are bf16; the plain versions run in fp32 on the same values. Bounds:
-the LayerNorm and RMS outputs are rounded once from fp32, so they lie within
+the LayerNorm (modulated and plain) and RMS outputs are rounded once from
+fp32, so they lie within
 one bf16 spacing of the fp32 result (spacing taken at
 |y| >= 2^-8, below which fp32 rounding of the cancelling terms dominates);
 attention uses the bf16 bound of the TPU kernel's own tests, 2e-2 absolute;
@@ -51,6 +52,44 @@ def test_modulated_layer_norm_kernel(dev, b, s, d):
     assert y.dtype == torch.bfloat16
     ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -8))) - 7)
     assert ((y.float() - ref).abs() <= ulp).all()
+
+
+@pytest.mark.parametrize("b,s,d", [(1, 8100, 1536), (2, 8100, 1536), (2, 77, 1536),
+                                   (3, 7, 64), (1, 5, 8192), (1, 3, 32768)])
+def test_layer_norm_kernel(dev, b, s, d):
+    """The no-affine LN (WAN's cross-attention norm, 8,100 ragged rows at
+    full size) against the fp32 plain version; then the autograd path: the
+    kernel forward with the closed-form backward against fp32 autograd of
+    the plain version (2e-2 relative L2, bf16 inputs and cotangent)."""
+    x = _randn(dev, b, s, d) * 2.0 + 0.5
+    n0 = fused_norms.layer_norm.launches
+    y = fused_norms.layer_norm(x)
+    torch.cuda.synchronize()
+    assert fused_norms.layer_norm.launches == n0 + 1
+    ref = fused_norms.ln_reference(x.float(), 1e-6, torch.float32)
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    assert ((y.float() - ref).abs() <= _bf16_ulp(ref)).all()
+
+    leaf = x.clone().requires_grad_()
+    dy = _randn(dev, b, s, d, seed=2)
+    (dx,) = torch.autograd.grad(fused_norms.layer_norm(leaf), leaf, dy)
+    assert fused_norms.layer_norm.launches == n0 + 2
+    fl = x.float().requires_grad_()
+    (ref_dx,) = torch.autograd.grad(fused_norms.ln_reference(fl, 1e-6, torch.float32), fl,
+                                    dy.float())
+    assert dx.dtype == torch.bfloat16 and _rel_l2(dx, ref_dx) <= 2e-2
+
+
+def test_layer_norm_kernel_takes_contiguous_rows_only(dev):
+    """Strided rows (a column slice of a wider tensor) raise; their
+    contiguous copy is normalised as the plain version does."""
+    wide = _randn(dev, 2, 33, 3 * 1536) + 0.3
+    x = wide[..., 1536:2 * 1536]
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_norms.layer_norm(x)
+    y = fused_norms.layer_norm(x.contiguous())
+    ref = fused_norms.ln_reference(x.float(), 1e-6, torch.float32)
+    assert ((y.float() - ref).abs() <= _bf16_ulp(ref)).all()
 
 
 @pytest.mark.parametrize("s_i,s_t", [(1024, 154), (100, 10), (64, 64)])
@@ -155,11 +194,12 @@ def _bf16_ulp(ref):
 
 @pytest.mark.parametrize("b,s,hd,heads", [(1, 1536, 3072, 24), (2, 77, 256, 2),
                                           (1, 1560, 5120, 1), (2, 9, 96, 12),
-                                          (1, 3, 2056, 1)])
+                                          (1, 3, 2056, 1), (2, 8100, 1536, 1)])
 @pytest.mark.parametrize("strided", [False, True])
 def test_rms_norm_heads_kernel(dev, b, s, hd, heads, strided):
-    """Per-head (d = 128, 128, 8) and whole-row (5120, 2056) RMS, rows read
-    in place from a column slice of a wider projection when ``strided``."""
+    """Per-head (d = 128, 128, 8) and whole-row (5120, 2056, and WAN's 1536
+    over 8,100 rows) RMS, rows read in place from a column slice of a wider
+    projection when ``strided``."""
     d = hd // heads
     if strided:
         x = (_randn(dev, b, s, 3 * hd, seed=5) + 0.3)[..., hd:2 * hd]
@@ -200,6 +240,27 @@ def test_mha_bshd_kernel(dev, b, s, h, d, kv_len, strided):
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("b,sq,skv,h,d,kv_len", [
+    (1, 8100, 512, 12, 128, None), (2, 300, 77, 2, 128, None), (2, 45, 200, 3, 64, 190),
+    (1, 8100, 8100, 2, 128, None)])
+@pytest.mark.parametrize("strided", [False, True])
+def test_mha_bshd_kernel_query_and_key_lengths_differ(dev, b, sq, skv, h, d, kv_len, strided):
+    """The forward at S_q != S_kv, neither a multiple of the tile (WAN's
+    cross-attention: 8,100 video queries on 512 text keys), and WAN's
+    self-attention length, against the fp32 plain version (output and lse)."""
+    q, k, v, _ = _bshd_backward_case(dev, b, sq, skv, h, d, kv_len, strided, 50)
+    n0, c0 = attention.mha_bshd.launches, attention.mha_bshd.cross_launches
+    o, lse = attention.mha_bshd_fwd(q, k, v, h, d ** -0.5, kv_len, want_lse=True)
+    torch.cuda.synchronize()
+    assert attention.mha_bshd.launches == n0 + 1
+    assert attention.mha_bshd.cross_launches == c0 + (sq != skv)
+    ref, ref_lse = attention.mha_bshd_reference(q.float(), k.float(), v.float(), num_heads=h,
+                                                kv_len=kv_len, return_lse=True)
+    assert o.shape == (b, sq, h * d) and lse.shape == (b, h, sq)
+    assert (o.float() - ref).abs().max() <= 2e-2
+    assert (lse - ref_lse).abs().max() <= 2e-2
+
+
 @pytest.mark.parametrize("s_i,s_t", [(1024, 512), (100, 10), (64, 64)])
 @pytest.mark.parametrize("use_rms", [True, False])
 def test_joint_mha_kernel_head_dim_128(dev, s_i, s_t, use_rms):
@@ -233,7 +294,8 @@ def _bshd_backward_case(dev, b, sq, skv, h, d, kv_len, strided, seed):
 
 @pytest.mark.parametrize("b,sq,skv,h,d,kv_len", [
     (1, 1536, 1536, 24, 128, None), (2, 256, 256, 4, 64, 200), (2, 100, 100, 2, 128, 77),
-    (1, 4608, 4608, 2, 128, 4600), (3, 33, 33, 3, 64, None), (2, 100, 160, 2, 128, 150)])
+    (1, 4608, 4608, 2, 128, 4600), (3, 33, 33, 3, 64, None), (2, 100, 160, 2, 128, 150),
+    (1, 8100, 512, 12, 128, None), (2, 300, 77, 2, 128, None), (2, 45, 200, 3, 64, 190)])
 @pytest.mark.parametrize("strided", [False, True])
 def test_mha_bshd_backward_kernel(dev, b, sq, skv, h, d, kv_len, strided):
     """``mha_bshd_bwd_bf16`` against its plain twin on the same inputs and row
@@ -243,10 +305,11 @@ def test_mha_bshd_backward_kernel(dev, b, sq, skv, h, d, kv_len, strided):
     q, k, v, do = _bshd_backward_case(dev, b, sq, skv, h, d, kv_len, strided, 30)
     o, lse = attention.mha_bshd_fwd(q, k, v, h, d ** -0.5, kv_len, want_lse=True)
     di = bwd_row_stats(o, do, h)
-    n0 = attention.mha_bshd_bwd.launches
+    n0, c0 = attention.mha_bshd_bwd.launches, attention.mha_bshd_bwd.cross_launches
     got = attention.mha_bshd_bwd(q, k, v, do, lse, di, num_heads=h, kv_len=kv_len)
     torch.cuda.synchronize()
     assert attention.mha_bshd_bwd.launches == n0 + 1
+    assert attention.mha_bshd_bwd.cross_launches == c0 + (sq != skv)
     ref = attention.attention_bwd_reference([q.float()], [k.float()], [v.float()],
                                             [do.float()], [lse], [di], num_heads=h,
                                             kv_len=kv_len)[0]
@@ -345,3 +408,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
                                    num_heads=4)
     with pytest.raises(ValueError):  # a bf16 RMS weight
         fused_norms.rms_norm_heads(x, torch.ones(64, device=dev).bfloat16(), num_heads=2)
+    with pytest.raises(TypeError):  # fp32 LN input
+        fused_norms.layer_norm(x.float())
+    with pytest.raises(TypeError):  # fp32 LN output
+        fused_norms.layer_norm(x, out_dtype=torch.float32)
+    with pytest.raises(ValueError):  # D not a multiple of 8
+        fused_norms.layer_norm(_randn(dev, 1, 8, 100))
+    with pytest.raises(ValueError):  # not (B, S, D)
+        fused_norms.layer_norm(x[0])
