@@ -6,8 +6,9 @@ layout so each module's counterpart is easy to find:
   kernels/  nvcc build of ``csrc/*.cu`` into one ctypes-loaded library
   ops/      hand-written Hopper kernels with their plain PyTorch twins
             (modulated LayerNorm, per-head RMS, joint / single-stream
-            qk-RMS attention forward and backward, BSHD multi-head attention)
-            and their autograd Functions
+            qk-RMS attention forward and backward, BSHD and BHSD multi-head
+            attention), their autograd Functions, and ring and
+            context-parallel attention over a process group
   models/   MMDiT and Flux (diffusers state-dict names), LoRA with the fused
             sibling projection and its subtree helpers, the VAE decoder, and
             the JAX -> torch parameter converters
@@ -17,8 +18,10 @@ layout so each module's counterpart is easy to find:
             the Flux full-SDE rollouts, and the window-step replays
   rewards/  the host JPEG rewards and their ensembles
   data/     the prompt datasets, the k-repeat sampler, the embedding store
-  train/    the SD3 and Flux pipeline bundles, the LoRA AdamW state, the GRPO
-            phases and the single-device trainer
+  parallel/ the process group (torchrun's env or an init_method; NCCL or
+            gloo) and its numeric gathers, broadcast and gradient mean
+  train/    the SD3, Flux and WAN pipeline bundles, the LoRA AdamW state, the
+            GRPO phases and the trainer (one process per device)
   config/   the SD3 and Flux presets, as plain dictionaries
   utils/    the FLOP model, the metric logger, the uint8 image packer
   cli/      the inference and training entry points

@@ -1,15 +1,23 @@
-"""Training CLI, ported from adv_grpo_tpu/cli/train.py (one process, one device).
+"""Training CLI, ported from adv_grpo_tpu/cli/train.py (one process per device).
 
 Usage:
   python -m adv_grpo_torch.cli.train --config smoke_sd3_fast \\
       --set smoke_test=False --set sample.num_steps=10 \\
       --set sample.train_batch_size=2 --max_epochs 2 [--device cuda]
   python -m adv_grpo_torch.cli.train --config flux_smoke --max_epochs 2 [--device cpu]
+  torchrun --nproc_per_node=N -m adv_grpo_torch.cli.train --config smoke_sd3_fast ...
+
+Under ``torchrun`` (or any launcher that sets ``WORLD_SIZE``, ``RANK``,
+``MASTER_ADDR`` and ``MASTER_PORT``) every process joins the group
+(``parallel.mesh.init_distributed``: NCCL for ``--device cuda``, which then
+means ``cuda:$LOCAL_RANK``; gloo for ``--device cpu``) and trains on its share
+of each batch; with an empty ``save_dir`` rank 0's timestamp names the run
+directory of every rank.
 
 Rewards, budgets and the optimizer come from the preset. Not ported yet, and
 refused with ``NotImplementedError``: ``--resume`` and ``train.lora_path``
 (they need the checkpoint module), the co-trained discriminator (``train_d``)
-and every device reward (PickScore, DINO, ...); multi-process launches.
+and every device reward (PickScore, DINO, ...).
 """
 
 from __future__ import annotations
@@ -63,18 +71,34 @@ def main(argv=None):
 
     from adv_grpo_torch.cli.common import apply_overrides, resolve_config
     from adv_grpo_torch.data.datasets import TextPromptDataset
+    from adv_grpo_torch.parallel import mesh
 
     config = apply_overrides(resolve_config(args.config), args.set)
     if args.resume or config.train.get("lora_path", None):
         raise NotImplementedError("--resume / train.lora_path need the checkpoint "
                                   "module, which is not yet ported to adv_grpo_torch")
+    device = args.device
+    if mesh.env_requests_group():
+        if device == "cuda":  # one device per process
+            import torch
+
+            from adv_grpo_torch.cli.common import resolve_device
+
+            device = resolve_device(f"cuda:{mesh.local_rank()}")
+            torch.cuda.set_device(device)
+        mesh.init_distributed(device=device)
     if not str(config.save_dir):
-        # reference run layout: logdir/run_name(+unique timestamp)
+        # reference run layout: logdir/run_name(+unique timestamp); every rank
+        # takes rank 0's timestamp (now() can cross a second between ranks)
+        import numpy as np
+
         unique = datetime.datetime.now().strftime("%Y.%m.%d_%H.%M.%S")
+        buf = np.frombuffer(unique.encode().ljust(32), dtype=np.uint8)
+        unique = bytes(mesh.broadcast_one_to_all(buf)).decode().strip()
         run = str(config.run_name)
         config.run_name = (run + "_" + unique) if run else unique
         config.save_dir = os.path.join(str(config.logdir), config.run_name)
-    trainer = build_trainer(config, latent_hw=args.latent_hw, device=args.device)
+    trainer = build_trainer(config, latent_hw=args.latent_hw, device=device)
     eval_prompts = None
     try:
         test_ds = TextPromptDataset(str(config.dataset), "test")

@@ -167,6 +167,24 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 2][4], const float (&
   }
 }
 
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The low half of the hi/lo split x = bf16(x) + bf16(x - bf16(x)) of the same
+// accumulator, as A fragments: a product with the hi fragments (acc_to_a) and
+// then with these carries x to about 16 significant bits on bf16 tensor cores.
+template <int N>
+__device__ __forceinline__ void acc_to_a_lo(uint32_t (&a)[N / 2][4], const float (&acc)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    a[j / 2][(j & 1) * 2] =
+        pack_bf16(acc[j][0] - bf16_round(acc[j][0]), acc[j][1] - bf16_round(acc[j][1]));
+    a[j / 2][(j & 1) * 2 + 1] =
+        pack_bf16(acc[j][2] - bf16_round(acc[j][2]), acc[j][3] - bf16_round(acc[j][3]));
+  }
+}
+
 template <int N>
 __device__ __forceinline__ void zero(float (&acc)[N][4]) {
 #pragma unroll

@@ -1,20 +1,22 @@
 // Backward of softmax attention for Hopper (sm_90a): one FlashAttention-2
-// backward, a template on the head width D (64 or 128), behind three entry
-// points:
+// backward, a template on the head width D (64 or 128) and on the numerics
+// (kF32P, below), behind four entry points:
 //   * `joint_attention_bwd_bf16`: two token streams (image, text), qk-RMS
 //     optional; D = 64 (SD3.5-M, with RMS) and D = 128 (Flux.1-dev, without);
 //   * `mha_rms_bwd_bf16`: one stream with qk-RMS, D = 64 (SD3.5's dual
 //     self-attention);
 //   * `mha_bshd_bwd_bf16`: one stream without RMS, q and k/v of their own
 //     lengths, a `kv_len` key mask, and every (batch, row, head) stride an
-//     argument (Flux's single blocks; the (B, H, S, D) layout is a second
-//     caller with other strides).
+//     argument (Flux's single blocks and WAN);
+//   * `mha_bwd_bf16`: the same in the (B, H, S, D) layout with p and ds kept
+//     to fp32 accuracy (kF32P), the backward of the TPU's `mha`.
 //
 // Replaces: adv_grpo_tpu/ops/joint_attention.py `_joint_bwd_kernel` (called
 // through `_joint_bwd_fused`) and `_single_bwd_kernel` (through
 // `_single_bwd_fused`), and adv_grpo_tpu/ops/attention.py
 // `_bshd_bwd_dkv_kernel` + `_bshd_bwd_dq_kernel` (through `_bshd_bwd`) and
-// `_bshd_bwd_fused_kernel` (through `_bshd_bwd_fused`). A backward of
+// `_bshd_bwd_fused_kernel` (through `_bshd_bwd_fused`), and `_bwd_dkv_kernel`
+// + `_bwd_dq_kernel` (through `_flash_bwd`, the VJP of `mha`). A backward of
 // SD3.5-M with respect to its LoRA runs the first two 24 and 12 times; one of
 // Flux.1-dev runs the joint one 19 times and the BSHD one 38 times.
 //
@@ -39,7 +41,7 @@
 //    D = 128, which is why k and v are not held as register fragments too)
 //    while the block walks the q tiles of both streams. Per q tile, in
 //    column chunks of 64 (D = 64) or 32 (D = 128, to keep the score tiles at
-//    32 registers), it recomputes s^T = k q^T, p^T = exp2(s^T - lse2),
+//    32 registers; 16 for kF32P's hi/lo fragments), it recomputes s^T = k q^T, p^T = exp2(s^T - lse2),
 //    dp^T = v do^T and t^T = bf16(p^T (dp^T - di)), and accumulates
 //    dv += bf16(p^T) do and dk += t^T bf16(yq * sm_scale);
 //  * kernel B, one block per (q tile, head, batch item), the forward's
@@ -50,13 +52,23 @@
 //    follow it), accumulating dq += t bf16(yk) in the same
 //    chunks; dq is multiplied by sm_scale once at the end (see the rounding
 //    note below);
-//  * the op order of the TPU's fused bodies (`_joint_bwd_kernel`,
-//    `_bshd_bwd_fused_kernel`): RMS in fp32, then x weight; q pre-scaled by
-//    sm_scale*log2(e) before the bf16 cast (qs2); p = exp2(s - lse*log2(e));
-//    p cast to bf16 before the dv product and t = p*(dp - di) before the dk
-//    and dq products (the TPU's split `_bshd_bwd_dkv/dq` bodies keep p and ds
-//    in fp32: the tensor cores here take bf16, so the port follows the fused
-//    order everywhere); fp32 accumulation; bf16 outputs;
+//  * kF32P = false, the op order of the TPU's fused bodies
+//    (`_joint_bwd_kernel`, `_bshd_bwd_fused_kernel`): RMS in fp32, then x
+//    weight; q pre-scaled by sm_scale*log2(e) before the bf16 cast (qs2); p =
+//    exp2(s - lse*log2(e)); p cast to bf16 before the dv product and t =
+//    p*(dp - di) before the dk and dq products (the TPU's split
+//    `_bshd_bwd_dkv/dq` bodies keep p and ds in fp32; the port follows the
+//    fused order for every (B, S, H*D) entry point); fp32 accumulation; bf16
+//    outputs;
+//  * kF32P = true, the order of `_bwd_dkv_kernel` / `_bwd_dq_kernel`, where p
+//    and ds are fp32 throughout: s = q k^T on the unscaled bf16 q, x
+//    sm_scale*log2(e) in fp32; p = exp2(s - lse*log2(e)) and t = p*(dp - di)
+//    stay fp32 in registers, and each product with one of them as an operand
+//    (p^T do, t^T q, t k) runs as two bf16 mma.syncs on the split
+//    x = bf16(x) + bf16(x - bf16(x)) (acc_to_a, acc_to_a_lo), which carries p
+//    and t to about 16 significant bits (q, k, v and do are bf16 already, so
+//    exact) at twice those three products' cost; dk and dq are multiplied by
+//    sm_scale once at the end, in fp32 (the TPU multiplies ds);
 //  * rounding note: the TPU forms the dq operand bf16(bf16(yk) * sm_scale);
 //    here dq = sm_scale * (t bf16(yk)) in fp32. At D = 64 (sm_scale = 1/8, a
 //    power of two) the two are equal; at D = 128 the TPU's operand carries
@@ -106,10 +118,12 @@ __device__ __forceinline__ T* at(T* base, const Strides& st, long long b, int h)
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // score columns per chunk: a 16 x chunk fp32 tile is chunk/2 registers a
-// thread, and kernel A holds two of them beside its 2 x D/2 accumulators
-template <int D>
+// thread, and kernel A holds two of them beside its 2 x D/2 accumulators.
+// Kernel A's kF32P instance at D = 128 walks chunks of 16: at 32 its hi/lo
+// fragments took it to 255 registers and a spill
+template <int D, bool kF32P = false>
 __host__ __device__ constexpr int chunk_of() {
-  return D == 64 ? 64 : 32;
+  return D == 64 ? 64 : (kF32P ? 16 : 32);
 }
 
 template <int D>
@@ -117,10 +131,11 @@ __host__ __device__ constexpr int tile_elems() {
   return kBKV * ld_of<D>();
 }
 
-// kernel A: k, v, qs2, bf16(yq * sm_scale), do
-template <int D>
+// kernel A: k, v, qs2, bf16(yq * sm_scale), do; with kF32P the unscaled q
+// serves both products, one tile fewer
+template <int D, bool kF32P>
 constexpr int dkdv_smem_bytes() {
-  return 5 * tile_elems<D>() * static_cast<int>(sizeof(bf16));
+  return (kF32P ? 4 : 5) * tile_elems<D>() * static_cast<int>(sizeof(bf16));
 }
 
 // kernel B: k and v double-buffered, qs2, do
@@ -130,20 +145,21 @@ constexpr int dq_smem_bytes() {
 }
 
 // Kernel A: dk and dv of one kv tile.
-template <int D>
+template <int D, bool kF32P>
 __global__ void __launch_bounds__(kThreads)
     attn_bwd_dkdv_kernel(const __grid_constant__ BwdStream s0,
                          const __grid_constant__ BwdStream s1, int s0_kv_tiles, float qscale,
                          float sm_scale, float eps) {
   constexpr int ld = ld_of<D>();
-  constexpr int kC = chunk_of<D>();
+  constexpr int kC = chunk_of<D, kF32P>();
   constexpr int kN = kC / 8;
   extern __shared__ uint4 smem_u4[];
   bf16* const ks = reinterpret_cast<bf16*>(smem_u4);
   bf16* const vs = ks + tile_elems<D>();
-  bf16* const qs = ks + 2 * tile_elems<D>();   // qs2 of the current q tile
-  bf16* const qsc = ks + 3 * tile_elems<D>();  // bf16(yq * sm_scale)
-  bf16* const dos = ks + 4 * tile_elems<D>();
+  bf16* const qs = ks + 2 * tile_elems<D>();  // qs2 of the current q tile (kF32P: q)
+  // the dk product's operand: bf16(yq * sm_scale) (kF32P: q itself)
+  bf16* const qsc = kF32P ? qs : ks + 3 * tile_elems<D>();
+  bf16* const dos = ks + (kF32P ? 3 : 4) * tile_elems<D>();
   __shared__ float lse2_s[kBQ];
   __shared__ float di_s[kBQ];
 
@@ -181,7 +197,10 @@ __global__ void __launch_bounds__(kThreads)
       TileRegsT<D> qr, dr;
       fetch_tile<D>(qr, at(sq.q, sq.q_st, b, h), sq.q_st.s, q0, sq.len);
       fetch_tile<D>(dr, at(sq.dout, sq.do_st, b, h), sq.do_st.s, q0, sq.len);
-      store_tile<D>(qs, qr, sq.wq, eps, qscale, qsc, sm_scale);
+      if (kF32P)
+        store_tile<D>(qs, qr, sq.wq, eps, 1.f);
+      else
+        store_tile<D>(qs, qr, sq.wq, eps, qscale, qsc, sm_scale);
       store_tile<D>(dos, dr, nullptr, eps, 1.f);
       if (threadIdx.x < kBQ) {
         const int r = q0 + threadIdx.x;
@@ -206,12 +225,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           p[n][e] = (e < 2 ? live0 : live1)
-                        ? exp2f(p[n][e] - lse2_s[c + 8 * n + 2 * t + (e & 1)])
+                        ? exp2f((kF32P ? p[n][e] * qscale : p[n][e]) -
+                                lse2_s[c + 8 * n + 2 * t + (e & 1)])
                         : 0.f;
       {
         uint32_t pa[kN / 2][4];
         acc_to_a(pa, p);
         mma_ab<D>(dv, pa, dos + c * ld, lane);  // dv += bf16(p^T) do
+        if (kF32P) {  // ... + bf16(p^T - bf16(p^T)) do
+          acc_to_a_lo(pa, p);
+          mma_ab<D>(dv, pa, dos + c * ld, lane);
+        }
       }
       float dp[kN][4];
       zero(dp);
@@ -225,17 +249,23 @@ __global__ void __launch_bounds__(kThreads)
         uint32_t ta[kN / 2][4];
         acc_to_a(ta, dp);
         mma_ab<D>(dk, ta, qsc + c * ld, lane);  // dk += t^T bf16(yq * sm_scale)
+        if (kF32P) {  // dk += (hi + lo of t^T) q
+          acc_to_a_lo(ta, dp);
+          mma_ab<D>(dk, ta, qsc + c * ld, lane);
+        }
       }
     }
     __syncthreads();  // the q-side tiles are free for the next q tile
   }
 
-  store_rows<D>(at(skv.dk, skv.dk_st, b, h), skv.dk_st.s, r0, skv.kv_rows, dk, 1.f, 1.f, t);
+  const float dk_div = kF32P ? 1.f / sm_scale : 1.f;  // kF32P: dk = sm_scale * (t^T q)
+  store_rows<D>(at(skv.dk, skv.dk_st, b, h), skv.dk_st.s, r0, skv.kv_rows, dk, dk_div, dk_div,
+                t);
   store_rows<D>(at(skv.dv, skv.dv_st, b, h), skv.dv_st.s, r0, skv.kv_rows, dv, 1.f, 1.f, t);
 }
 
 // Kernel B: dq of one q tile.
-template <int D>
+template <int D, bool kF32P>
 __global__ void __launch_bounds__(kThreads)
     attn_bwd_dq_kernel(const __grid_constant__ BwdStream s0,
                        const __grid_constant__ BwdStream s1, int s0_q_tiles, float qscale,
@@ -283,7 +313,7 @@ __global__ void __launch_bounds__(kThreads)
   TileRegsT<D> kr, vr;
   fetch_tile<D>(kr, at(sq.q, sq.q_st, b, h), sq.q_st.s, q0, sq.len);
   fetch_tile<D>(vr, at(sq.dout, sq.do_st, b, h), sq.do_st.s, q0, sq.len);
-  store_tile<D>(qs, kr, sq.wq, eps, qscale);
+  store_tile<D>(qs, kr, sq.wq, eps, kF32P ? 1.f : qscale);
   store_tile<D>(dos, vr, nullptr, eps, 1.f);
   {
     const BwdStream* s;
@@ -326,7 +356,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const bool valid = c + 8 * n + 2 * t + (e & 1) < nvalid;
-          p[n][e] = valid ? exp2f(p[n][e] - (e < 2 ? lse2_0 : lse2_1)) : 0.f;
+          const float s2 = kF32P ? p[n][e] * qscale : p[n][e];
+          p[n][e] = valid ? exp2f(s2 - (e < 2 ? lse2_0 : lse2_1)) : 0.f;
         }
       float dp[kN][4];
       zero(dp);
@@ -338,6 +369,10 @@ __global__ void __launch_bounds__(kThreads)
       uint32_t ta[kN / 2][4];
       acc_to_a(ta, dp);
       mma_ab<D>(dq, ta, kt + c * ld, lane);  // dq += t bf16(yk)
+      if (kF32P) {  // ... + bf16(t - bf16(t)) k
+        acc_to_a_lo(ta, dp);
+        mma_ab<D>(dq, ta, kt + c * ld, lane);
+      }
     }
 
     if (more) {
@@ -355,7 +390,7 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<D>(at(sq.dq, sq.dq_st, b, h), sq.dq_st.s, r0, sq.len, dq, inv, inv, t);
 }
 
-template <int D>
+template <int D, bool kF32P>
 int launch(const BwdStream& s0, const BwdStream& s1, int batch, int num_heads, float sm_scale,
            float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -364,30 +399,31 @@ int launch(const BwdStream& s0, const BwdStream& s1, int batch, int num_heads, f
   const int s0_q_tiles = cdiv(s0.len, kBQ);
   const dim3 grid_a(s0_kv_tiles + cdiv(s1.kv_rows, kBKV), num_heads, batch);
   const dim3 grid_b(s0_q_tiles + cdiv(s1.len, kBQ), num_heads, batch);
-  constexpr int smem_a = dkdv_smem_bytes<D>(), smem_b = dq_smem_bytes<D>();
+  constexpr int smem_a = dkdv_smem_bytes<D, kF32P>(), smem_b = dq_smem_bytes<D>();
   // above the static 48 KB only after opting in
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D, kF32P>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_a);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D>,
+  err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D, kF32P>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem_b);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dkdv_kernel<D><<<grid_a, kThreads, smem_a, st>>>(s0, s1, s0_kv_tiles, qscale,
-                                                            sm_scale, eps);
+  attn_bwd_dkdv_kernel<D, kF32P><<<grid_a, kThreads, smem_a, st>>>(s0, s1, s0_kv_tiles, qscale,
+                                                                   sm_scale, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dq_kernel<D><<<grid_b, kThreads, smem_b, st>>>(s0, s1, s0_q_tiles, qscale, sm_scale,
-                                                          eps);
+  attn_bwd_dq_kernel<D, kF32P><<<grid_b, kThreads, smem_b, st>>>(s0, s1, s0_q_tiles, qscale,
+                                                                 sm_scale, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kF32P>
 int launch_dim(int head_dim, const BwdStream& s0, const BwdStream& s1, int batch,
                int num_heads, float sm_scale, float eps, void* stream) {
   switch (head_dim) {
     case 64:
-      return launch<64>(s0, s1, batch, num_heads, sm_scale, eps, stream);
+      return launch<64, kF32P>(s0, s1, batch, num_heads, sm_scale, eps, stream);
     case 128:
-      return launch<128>(s0, s1, batch, num_heads, sm_scale, eps, stream);
+      return launch<128, kF32P>(s0, s1, batch, num_heads, sm_scale, eps, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -445,7 +481,7 @@ extern "C" int joint_attention_bwd_bf16(
   const BwdStream txt = joint_stream(q_txt, k_txt, v_txt, do_txt, lse_txt, di_txt, dq_txt,
                                      dk_txt, dv_txt, s_txt, strides + 8, num_heads, head_dim,
                                      wq_txt, wk_txt);
-  return launch_dim(head_dim, img, txt, batch, num_heads, sm_scale, eps, stream);
+  return launch_dim<false>(head_dim, img, txt, batch, num_heads, sm_scale, eps, stream);
 }
 
 // Single-stream backward with qk-RMS (SD3.5's dual self-attention), head
@@ -458,7 +494,7 @@ extern "C" int mha_rms_bwd_bf16(const void* q, const void* k, const void* v, con
                                 void* stream) {
   const BwdStream img =
       joint_stream(q, k, v, dout, lse, di, dq, dk, dv, s, strides, num_heads, 64, wq, wk);
-  return launch<64>(img, BwdStream{}, batch, num_heads, sm_scale, eps, stream);
+  return launch<64, false>(img, BwdStream{}, batch, num_heads, sm_scale, eps, stream);
 }
 
 // Multi-head attention backward read and written in place through strides
@@ -489,5 +525,43 @@ extern "C" int mha_bshd_bwd_bf16(const void* q, const void* k, const void* v, co
   s.len = sq;
   s.kv_rows = skv;
   s.kv_len = kv_len;
-  return launch_dim(head_dim, s, BwdStream{}, batch, num_heads, sm_scale, 0.f, stream);
+  return launch_dim<false>(head_dim, s, BwdStream{}, batch, num_heads, sm_scale, 0.f, stream);
+}
+
+// The backward of multi-head attention on contiguous (B, H, S, D) tensors,
+// with p and ds kept to fp32 accuracy (kF32P): the TPU's `_bwd_dkv_kernel`
+// and `_bwd_dq_kernel` (through `_flash_bwd`), whose bodies are all fp32.
+// The kernels are `mha_bshd_bwd_bf16`'s with BHSD strides (batch H*S*D, head
+// S*D, row D); on the TPU the BHSD and BSHD bodies are separate only because
+// Mosaic tiles the last dimension by 128 lanes.
+//
+// q, do, dq: bf16 (B, H, sq, D); k, v, dk, dv: bf16 (B, H, skv, D); D =
+// head_dim (64 or 128). Keys at rows >= kv_len (1 <= kv_len <= skv) are
+// masked: their dk, dv rows are stored as zeros. lse (natural log, from the
+// forward) and di = sum_d o * do: contiguous fp32 (B, H, sq). Returns
+// cudaGetLastError() (cudaErrorInvalidValue for another head_dim).
+extern "C" int mha_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* di, void* dq, void* dk, void* dv,
+                            int sq, int skv, int kv_len, int batch, int num_heads, int head_dim,
+                            float sm_scale, void* stream) {
+  const long long hq = static_cast<long long>(sq) * head_dim;    // head stride of q, do, dq
+  const long long hkv = static_cast<long long>(skv) * head_dim;  // of k, v, dk, dv
+  const Strides q_side{num_heads * hq, head_dim, hq};
+  const Strides kv_side{num_heads * hkv, head_dim, hkv};
+  BwdStream s{};
+  s.q = static_cast<const bf16*>(q);
+  s.k = static_cast<const bf16*>(k);
+  s.v = static_cast<const bf16*>(v);
+  s.dout = static_cast<const bf16*>(dout);
+  s.lse = static_cast<const float*>(lse);
+  s.di = static_cast<const float*>(di);
+  s.dq = static_cast<bf16*>(dq);
+  s.dk = static_cast<bf16*>(dk);
+  s.dv = static_cast<bf16*>(dv);
+  s.q_st = s.do_st = s.dq_st = q_side;
+  s.k_st = s.v_st = s.dk_st = s.dv_st = kv_side;
+  s.len = sq;
+  s.kv_rows = skv;
+  s.kv_len = kv_len;
+  return launch_dim<true>(head_dim, s, BwdStream{}, batch, num_heads, sm_scale, 0.f, stream);
 }

@@ -51,6 +51,9 @@ _SIGNATURES = {
     # q, k, v, o, lse, q rows, kv_len, strides, batch, heads, head dim,
     # qscale, stream
     "mha_bshd_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _F, _P],
+    # q, k, v, o, lse, q rows, kv rows, kv_len, batch, heads, head dim,
+    # qscale, stream
+    "mha_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # per stream (image, then text): q, k, v, do, lse, di, dq, dk, dv, len;
     # strides, 4 RMS weights, batch, heads, head dim, sm_scale, eps, stream
     "joint_attention_bwd_bf16": [_P] * 9 + [_I] + [_P] * 9 + [_I, _P, _P, _P, _P, _P,
@@ -61,6 +64,9 @@ _SIGNATURES = {
     # q, k, v, do, lse, di, dq, dk, dv, q rows, kv rows, kv_len, strides,
     # batch, heads, head dim, sm_scale, stream
     "mha_bshd_bwd_bf16": [_P] * 9 + [_I, _I, _I, _P, _I, _I, _I, _F, _P],
+    # q, k, v, do, lse, di, dq, dk, dv, q rows, kv rows, kv_len, batch, heads,
+    # head dim, sm_scale, stream
+    "mha_bwd_bf16": [_P] * 9 + [_I] * 6 + [_F, _P],
 }
 
 _lib = None

@@ -1,19 +1,27 @@
-"""Multi-head attention in the (B, S, H*D) projection layout, its plain
-version and its backward, and the row statistics and backward twin the
-fused attention backwards share.
+"""Multi-head attention in the (B, S, H*D) projection layout and in the
+(B, H, S, D) layout, their plain versions and backwards, and the row
+statistics and backward twin the fused attention backwards share.
 
 Port of adv_grpo_tpu/ops/attention.py: ``attention_reference`` (with the
-``kv_len`` key mask), ``mha_bshd`` (Flux's single-block attention) with its
-custom VJP (``_flash_mha_bshd``), and ``bwd_row_stats``. On CUDA tensors
-``mha_bshd`` launches the forward kernel in ``csrc/joint_attention.cu``
-(``mha_bshd_fwd_bf16``), which reads q/k/v in place through their strides
-and, when a gradient is needed, writes the per-row lse; the backward
-(``_MhaBshd``) computes di with :func:`bwd_row_stats` and launches
-``mha_bshd_bwd_bf16`` in ``csrc/joint_attention_bwd.cu``. On CPU tensors the
-forward runs the plain version, which follows the JAX ``backend="reference"``
-path (fp32 scores, masked keys set to the JAX package's finite mask value,
-fp32 softmax, cast back to q's dtype), and the backward the kernel's plain
-twin :func:`attention_bwd_reference`.
+``kv_len`` key mask), ``mha_bshd`` (Flux's single-block and WAN's attention)
+with its custom VJP (``_flash_mha_bshd``), ``mha`` (the (B, H, S, D) flash
+attention that context-parallel attention runs) with its custom VJP
+(``_flash_mha``), and ``bwd_row_stats``.
+
+On CUDA tensors ``mha_bshd`` launches the forward kernel in
+``csrc/joint_attention.cu`` (``mha_bshd_fwd_bf16``), which reads q/k/v in
+place through their strides and, when a gradient is needed, writes the
+per-row lse; the backward (``_MhaBshd``) computes di with
+:func:`bwd_row_stats` and launches ``mha_bshd_bwd_bf16`` in
+``csrc/joint_attention_bwd.cu``. ``mha`` launches the same forward kernel
+with BHSD strides (``mha_fwd_bf16``, kernel #10) and, in its backward
+(``_FlashMha``), ``mha_bwd_bf16`` (kernel #11), whose p and ds stay at fp32
+accuracy as in the TPU's ``_bwd_dkv_kernel`` / ``_bwd_dq_kernel``. On CPU
+tensors the forwards run the plain version, which follows the JAX
+``backend="reference"`` path (fp32 scores, masked keys set to the JAX
+package's finite mask value, fp32 softmax, cast back to q's dtype), and the
+backwards the kernels' plain twins :func:`attention_bwd_reference` and
+:func:`flash_bwd_reference`.
 
 The TPU layout's lane broadcast of the statistics (``LSE_LANES``) and its
 zero padding of S to a block multiple have no counterpart here: the
@@ -293,3 +301,154 @@ def mha_bshd(q, k, v, *, num_heads, sm_scale=None, kv_len=None):
 
 
 mha_bshd.launches = mha_bshd.cross_launches = 0
+
+
+# ───────────────────── (B, H, S, D): mha, kernels #10 / #11 ─────────────────────
+
+
+def flash_bwd_reference(q, k, v, o, lse, do, *, sm_scale, kv_len=None):
+    """Plain twin of the ``mha`` backward kernel, all in fp32 in the TPU
+    body's order (adv_grpo_tpu/ops/attention.py ``_bwd_dkv_kernel`` /
+    ``_bwd_dq_kernel``, ``_flash_bwd``): s = q k^T * sm_scale, keys at or past
+    ``kv_len`` get the finite mask value; p = exp(s - lse); dv = p^T do; dp =
+    do v^T; di = sum_d o * do from o as stored; ds = p (dp - di) sm_scale; dk
+    = ds^T q; dq = ds k. p and ds are never rounded. q, k, v, o, do: (B, H,
+    S, D); lse: fp32 (B, H, S_q), natural log. Returns (dq, dk, dv) in q's
+    dtype."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s = qf @ kf.transpose(-1, -2) * sm_scale
+    if kv_len is not None and kv_len < k.shape[2]:
+        mask = torch.arange(k.shape[2], device=s.device) < kv_len
+        s = torch.where(mask, s, torch.full_like(s, DEFAULT_MASK_VALUE))
+    p = torch.exp(s - lse.float()[..., None])
+    dv = p.transpose(-1, -2) @ dof
+    dp = dof @ vf.transpose(-1, -2)
+    di = (o.float() * dof).sum(-1, keepdim=True)
+    ds = p * (dp - di) * sm_scale
+    dk = ds.transpose(-1, -2) @ qf
+    dq = ds @ kf
+    return tuple(a.to(q.dtype) for a in (dq, dk, dv))
+
+
+def _check_bhsd(what, q, k, v, kv_len):
+    """Validate an ``mha`` kernel call on contiguous bf16 (B, H, S, D)
+    tensors; return (batch, heads, S_q, S_kv, head width, kv_len clamped to
+    S_kv)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    for t in (q, k, v):
+        if t.device != q.device:
+            raise ValueError(f"{what}: all inputs must be on {q.device}, got {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{what}: the kernel takes bf16 q/k/v, got {t.dtype}")
+        if t.ndim != 4:
+            raise ValueError(f"{what}: expected (B, H, S, D), got {tuple(t.shape)}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: the kernel takes contiguous (B, H, S, D) tensors "
+                             "with a 16-byte aligned base")
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if k.shape != (b, h, skv, d) or v.shape != k.shape:
+        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not agree")
+    head_dim_of(what, d, 1)
+    kv = skv if kv_len is None else min(int(kv_len), skv)
+    if sq < 1 or kv < 1:
+        raise ValueError(f"{what}: needs at least one query and one key (S_q={sq}, "
+                         f"kv_len={kv})")
+    return b, h, sq, skv, d, kv
+
+
+def mha_fwd(q, k, v, sm_scale, kv_len, want_lse):
+    """(o, lse) of :func:`mha`: kernel #10 (``mha_fwd_bf16``) on CUDA
+    tensors, :func:`attention_reference` on CPU tensors; lse is fp32 (B, H,
+    S_q), or None unless ``want_lse``."""
+    if q.device.type == "cpu":
+        out = attention_reference(q, k, v, sm_scale=sm_scale, kv_len=kv_len,
+                                  return_lse=want_lse)
+        return out if want_lse else (out, None)
+    what = "mha"
+    b, h, sq, skv, d, kv = _check_bhsd(what, q, k, v, kv_len)
+    o = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
+    rc = _kernels.lib().mha_fwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), sq, skv, kv, b, h, d,
+        float(sm_scale * LOG2E), _kernels.stream_ptr(q.device))
+    _kernels.check(rc, what)
+    mha.launches += 1
+    mha.cross_launches += sq != skv
+    return o, lse
+
+
+def mha_bwd(q, k, v, o, lse, do, *, sm_scale, kv_len=None):
+    """(dq, dk, dv) of :func:`mha` from the forward's o and lse: kernel #11
+    (``mha_bwd_bf16``, p and ds to fp32 accuracy) on CUDA tensors, its plain
+    twin :func:`flash_bwd_reference` on CPU tensors. di = sum_d o * do is
+    taken from o as stored, as the TPU's ``_flash_bwd`` takes it."""
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, o, lse, do, sm_scale=sm_scale, kv_len=kv_len)
+    what = "mha_bwd"
+    b, h, sq, skv, d, kv = _check_bhsd(what, q, k, v, kv_len)
+    if do.shape != q.shape or o.shape != q.shape:
+        raise ValueError(f"{what}: o {tuple(o.shape)} / do {tuple(do.shape)} and q "
+                         f"{tuple(q.shape)} differ")
+    _check_bhsd(what, q, o, do, None)  # o and do: contiguous bf16 of q's shape
+    check_stats(what, (lse,), b, h, sq, q.device)
+    di = (o.float() * do.float()).sum(-1)
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = _kernels.lib().mha_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), sq, skv, kv, b, h, d,
+        float(sm_scale), _kernels.stream_ptr(q.device))
+    _kernels.check(rc, what)
+    mha_bwd.launches += 1
+    mha_bwd.cross_launches += sq != skv
+    return dq, dk, dv
+
+
+# launches, and of those the ones with S_q != S_kv
+mha_bwd.launches = mha_bwd.cross_launches = 0
+
+
+class _FlashMha(torch.autograd.Function):
+    """The JAX ``_flash_mha`` custom VJP. Inputs: sm_scale, kv_len, q, k, v."""
+
+    @staticmethod
+    def forward(ctx, sm_scale, kv_len, q, k, v):
+        o, lse = mha_fwd(q, k, v, sm_scale, kv_len, want_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (sm_scale, kv_len)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        sm_scale, kv_len = ctx.args
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = mha_bwd(q, k, v, o, lse, do.contiguous(), sm_scale=sm_scale,
+                             kv_len=kv_len)
+        return None, None, dq, dk, dv
+
+
+def mha(q, k, v, *, sm_scale=None, kv_len=None):
+    """Bidirectional multi-head attention on (B, H, S, D) tensors; S_q may
+    differ from S_kv; keys at or past ``kv_len`` are masked (``kv_len >=
+    S_kv`` is no mask).
+
+    CPU tensors take the plain path; CUDA tensors launch kernel #10 (bf16,
+    contiguous, head width 64 or 128) or raise. Differentiable in q, k and v:
+    the backward launches kernel #11 on CUDA tensors and runs its plain twin
+    on CPU tensors.
+    """
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if kv_len is not None and kv_len >= k.shape[2]:
+        kv_len = None
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashMha.apply(sm_scale, kv_len, q, k, v)
+    return mha_fwd(q, k, v, sm_scale, kv_len, want_lse=False)[0]
+
+
+mha.launches = mha.cross_launches = 0

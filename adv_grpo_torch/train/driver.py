@@ -1,4 +1,4 @@
-"""End-to-end GRPO training driver for one process on one device.
+"""End-to-end GRPO training driver: one process per device.
 
 Port of adv_grpo_tpu/train/driver.py's ``GRPOTrainer`` (``__init__`` with the
 window-fit check, ``sample_phase``, ``train_phase`` with inner epochs and
@@ -15,12 +15,24 @@ The device is the pipeline's (one card, or the CPU for the tests). Rollout
 records stay on the device between the phases. The model family is the
 pipeline's (``pipeline.family``): sd3, or flux or wan with their own sampling
 and eval factories (whole stochastic window rollouts, no CFG batch, no shared
-prefix; wan's are video). Not ported yet, and refused with
-``NotImplementedError``: the discriminator (``train_d``) and its D-phase,
-sd3's ``same_latent`` shared prefix, checkpoints (``save``), multi-host and
-the mesh. The
-reference-image store is not loaded: only device rewards and the D-phase read
-it.
+prefix; wan's are video).
+
+Several processes (``parallel.mesh``: one per device, as ``torchrun``
+launches them) split the work as the JAX package's hosts do: each rank
+samples its own prompt slots (``DistributedKRepeatSampler`` with the group's
+size and this rank, the JAX ``_local_ranks``), draws its rollout noise from
+(seed, step, rank) and scores its own rows; prompt ids and rewards are
+gathered, the advantages computed over the global batch and sliced back
+(adv_grpo_tpu/train/driver.py:602-618); each microstep's LoRA gradients are
+averaged across ranks (grpo_trainer), which with equal local batches is the
+JAX global-mean gradient, so the optimizer state and the EMA stay equal on
+every rank; only rank 0 logs. The eval prompts are padded to a multiple of
+the world size and each rank evaluates its share (:520-560).
+
+Not ported yet, and refused with ``NotImplementedError``: the discriminator
+(``train_d``) and its D-phase, sd3's ``same_latent`` shared prefix and
+checkpoints (``save``). The reference-image store is not loaded: only device
+rewards and the D-phase read it.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ import torch
 from adv_grpo_torch.core.stat_tracking import PerPromptStatTracker
 from adv_grpo_torch.data.krepeat import DistributedKRepeatSampler
 from adv_grpo_torch.models.lora import freeze_non_lora
+from adv_grpo_torch.parallel import mesh
 from adv_grpo_torch.rollout.sampler import SamplerConfig, sample_random_timestep
 from adv_grpo_torch.train.grpo_trainer import (
     compute_advantages, make_eval_fn, make_flux_eval_fn, make_flux_sample_fn, make_sample_fn,
@@ -51,6 +64,22 @@ logger = logging.getLogger(__name__)
 def _seed(*parts: int) -> int:
     """A generator seed from integers (the JAX ``fold_in`` of a step index)."""
     return int(np.random.SeedSequence([int(p) for p in parts]).generate_state(1)[0])
+
+
+def masked_global_means(details, valid):
+    """Per reward key, the mean over the rows of every rank where ``valid``
+    is set and the value is not the reference's failure sentinel -10, and
+    the count of those rows: ({key: mean, or -10 with no row}, {key:
+    count}). Every rank must pass the same keys (the collectives run once per
+    key, in sorted order)."""
+    means, counts = {}, {}
+    for key in sorted(details):
+        a = np.asarray(details[key], np.float64).reshape(-1)
+        ok = valid & (a != -10.0) if a.shape[0] == valid.shape[0] else a != -10.0
+        total, count = mesh.all_reduce_sum_np(np.array([a[ok].sum(), ok.sum()], np.float64))
+        means[key] = float(total / count) if count else -10.0
+        counts[key] = int(count)
+    return means, counts
 
 
 class GRPOTrainer:
@@ -129,11 +158,12 @@ class GRPOTrainer:
             raise ValueError("pipeline has no LoRA parameters (lora_rank=0?)")
         self.state = create_generator_state(lora, config.train, s.train_num_steps)
 
-        # one device = one replica: the k-repeat sampler raises when the
-        # batch cannot hold whole groups
+        # one process = one device = one replica: the k-repeat sampler raises
+        # when the global batch cannot hold whole groups
+        self.rank, self.world_size = mesh.rank(), mesh.world_size()
         self.prompt_sampler = DistributedKRepeatSampler(
             len(dataset), batch_size=int(s.train_batch_size), k=self.k,
-            num_replicas=1, rank=0, seed=int(config.seed))
+            num_replicas=self.world_size, rank=self.rank, seed=int(config.seed))
         self.per_prompt_stats = (bool(config.per_prompt_stat_tracking)
                                  and int(s.num_image_per_prompt) > 1)
         if (str(config.train.algorithm) in ("sft", "dpo")
@@ -145,7 +175,7 @@ class GRPOTrainer:
         self.tracker = PerPromptStatTracker(global_std=bool(s.global_std))
         self.logger = logger or MetricLogger(
             config.save_dir, wandb_init=bool(config.wandb_init),
-            run_name=str(config.case_name), is_main=True)
+            run_name=str(config.case_name), is_main=mesh.is_main())
         self.timer = StepTimer()
         self.executor = ThreadPoolExecutor(max_workers=4)
         self._rollout_flops_acc = 0.0
@@ -193,8 +223,9 @@ class GRPOTrainer:
                                                 self.sampler_cfg, shape=1)[0])
             else:
                 rt = int(cfgs.random_timestep)
+            # each rank draws its own noise
             generator = torch.Generator(device=self.device).manual_seed(
-                _seed(self.config.seed, step_idx))
+                _seed(self.config.seed, step_idx, self.rank))
             with self.timer("rollout"):
                 rollout, images = self.sample_fn(embeds, pooled, neg_e, neg_p, generator,
                                                  torch.full((B,), rt, dtype=torch.long))
@@ -272,23 +303,33 @@ class GRPOTrainer:
         return {k: float(np.mean([i[k] for i in infos])) for k in infos[0]}
 
     def eval_phase(self, eval_prompts: List[str], seed: int = 0):
-        """Deterministic eval on the EMA weights (the live LoRA without EMA)."""
+        """Deterministic eval on the EMA weights (the live LoRA without EMA).
+
+        The prompts are padded to a multiple of the world size (the last one
+        repeated) and each rank generates and scores its contiguous share, so
+        a rank whose share is all padding still runs the collectives; the
+        means (``eval_reward_*``) are over the valid rows of all ranks, whose
+        number is ``eval_count_*``. Returns this rank's valid images and the
+        metrics (equal on every rank)."""
         lora = self.state.ema if self.state.ema is not None else self.state.lora
-        embeds, pooled = (self._dev(a) for a in self.text_encode_fn(list(eval_prompts)))
+        n = len(eval_prompts)
+        per = -(-n // self.world_size)
+        padded = list(eval_prompts) + [eval_prompts[-1]] * (per * self.world_size - n)
+        start = self.rank * per
+        local = padded[start:start + per]
+        valid = np.arange(start, start + per) < n
+        embeds, pooled = (self._dev(a) for a in self.text_encode_fn(local))
         neg_e, neg_p = self._neg(embeds.shape[0])
-        generator = torch.Generator(device=self.device).manual_seed(seed)
+        generator = torch.Generator(device=self.device).manual_seed(_seed(seed, self.rank))
         images = self.eval_fn(lora, embeds, pooled, neg_e, neg_p, generator)
         images = images.float().cpu().numpy()
-        details, _ = self.eval_reward_fn(images, list(eval_prompts),
-                                         [{}] * len(eval_prompts), only_strict=False)
-
-        def _mean(v):
-            # -10 is the reference's failure sentinel, left out of eval means
-            a = np.asarray(v, np.float64).reshape(-1)
-            ok = a != -10.0
-            return float(np.mean(a[ok])) if ok.any() else -10.0
-
-        return images, {f"eval_reward_{k}": _mean(v) for k, v in details.items()}
+        # score ALL local rows (a scorer's reward keys must not depend on the
+        # padding), leave the padding out of the means
+        details, _ = self.eval_reward_fn(images, local, [{}] * len(local), only_strict=False)
+        means, counts = masked_global_means(details, valid)
+        metrics = {f"eval_reward_{k}": v for k, v in means.items()}
+        metrics.update({f"eval_count_{k}": n for k, n in counts.items()})
+        return images[valid], metrics
 
     # ── main loop ───────────────────────────────────────────────────────
 
@@ -301,22 +342,26 @@ class GRPOTrainer:
                 eval_images, eval_metrics = self.eval_phase(eval_prompts)
                 self.logger.log(eval_metrics, step=self.state.global_step)
                 self.logger.log_image_grid(
-                    "eval_images", images_to_uint8(eval_images), captions=eval_prompts,
+                    "eval_images", images_to_uint8(eval_images),
+                    captions=eval_prompts[:len(eval_images)],  # rank 0's share
                     step=self.state.global_step, save_dir=str(cfg.save_dir))
             if cfg.save_dir and self.epoch % int(cfg.save_freq) == 0 and self.epoch > 0:
                 self.save()
 
             samples = self.sample_phase(self.epoch)
-            ids = samples["prompt_ids"]
-            avg = np.asarray(samples["rewards"]["avg"], np.float32)
+            # gather -> advantage -> slice-back: ids (never strings) and
+            # rewards of every rank, the statistics over the global batch
+            ids, local_rows = mesh.gather_global(samples["prompt_ids"])
+            avg, _ = mesh.gather_global(np.asarray(samples["rewards"]["avg"], np.float32))
             algo = str(cfg.train.algorithm)
             if self.per_prompt_stats or algo != "grpo":
                 advantages, group_stats = compute_advantages(self.tracker, ids, avg,
                                                              algorithm=algo)
             else:
-                # global normalisation over the whole batch
+                # global normalisation over the whole gathered batch
                 advantages = ((avg - avg.mean()) / (avg.std() + 1e-4)).astype(np.float32)
                 group_stats = {}
+            advantages = advantages[local_rows]
 
             metrics = {f"reward_{k}": float(np.mean(v)) for k, v in samples["rewards"].items()}
             metrics.update(group_stats)

@@ -16,8 +16,9 @@ parameters, and run eagerly:
     step through the transformer's forward and backward (the family's replay:
     the CPS step with its CFG batch for sd3, the Flow-SDE step with embedded
     guidance for flux, the WAN Flow-SDE step over the UniPC sigmas for wan),
-    where only the LoRA factors require gradients, and feeds the gradients to
-    ``apply_microbatch_grads``.
+    where only the LoRA factors require gradients, averages the gradients
+    across the ranks of a process group (``parallel.mesh``; nothing without
+    one) and feeds them to ``apply_microbatch_grads``.
 
 The discriminator steps are not ported.
 """
@@ -33,6 +34,7 @@ import torch
 from adv_grpo_torch.core.grpo import grpo_loss
 from adv_grpo_torch.core.stat_tracking import PerPromptStatTracker, calculate_zero_std_ratio
 from adv_grpo_torch.models.lora import lora_params, merge_lora_params
+from adv_grpo_torch.parallel import mesh
 from adv_grpo_torch.rollout.flux import compute_flux_log_prob, flux_denoise_window_with_logprob
 from adv_grpo_torch.rollout.sampler import (
     SamplerConfig, compute_log_prob, denoise_with_logprob)
@@ -215,6 +217,9 @@ def make_train_epoch_fn(pipeline, sampler_cfg: SamplerConfig, train_cfg, beta: f
                         prev_sample_mean_ref=mean_ref)
         keys = list(state.lora)
         grads = torch.autograd.grad(out.loss, [state.lora[k] for k in keys])
+        # data parallelism: the mean over ranks of equal local batches is the
+        # gradient of the global batch's mean loss
+        mesh.all_reduce_mean_(grads)
         apply_microbatch_grads(state, dict(zip(keys, grads)))
         return torch.stack([getattr(out, k).detach() for k in INFO_KEYS])
 

@@ -22,35 +22,51 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      109/24/13 per MMDiT forward times 40 steps;
   7. the same pipeline at 1 prompt (CFG batch 2) and 4 prompts (CFG batch 8):
      finite images, seconds per image;
-  8. ``adv_grpo_torch.cli.train.main`` on ``smoke_sd3_fast`` at the full
-     SD3.5-M width (TRAIN_ARGV): 2 GRPO epochs of 10-step rollouts, the
-     jpeg_compressibility reward and the LoRA update. Finite reward, loss,
-     approx_kl and clipfrac in both epochs; the LoRA changed and finite; the
-     EMA moved; the launch counts of all five kernels exactly as derived from
-     the config; seconds per epoch (rollout, reward, train), per microstep,
-     and peak device memory.
-  9. the Flux kernels against their plain versions at the Flux.1-dev 512^2
+  8. kernels #10 / #11 (``mha`` on (B, H, S, D)) against their plain
+     versions at MHA_SHAPES (WAN's 12x128 at 8,100 tokens, SD3.5-M's 24x64
+     joint 1,178 tokens with kv_len 1,100, 2,025 queries against 8,100 keys):
+     output within MHA_O_REL_L2 relative L2 and lse within MHA_LSE_ABS
+     absolute, dq / dk / dv within 2e-2 relative L2; #11's
+     fidelity against fp64 at the WAN shape (FIDELITY_FACTOR of its fp32 twin
+     rounded to bf16, #9's bf16 order beside it); median times beside the
+     plain versions' and SDPA's;
+  9. a one-rank NCCL process group (``parallel.mesh.init_distributed`` on a
+     free localhost port); ``context_parallel_attention`` forward and
+     backward at each of those shapes (gather / reduce-scatter collectives;
+     exactly one #10 and one #11 launch each) against fp32 autograd, and
+     ``ring_attention`` at the WAN shape against ``mha`` (outputs within
+     MHA_O_REL_L2 relative L2, gradients 2e-2);
+ 10. inside that group, ``adv_grpo_torch.cli.train.main`` on
+     ``smoke_sd3_fast`` at the full SD3.5-M width (TRAIN_ARGV): 2 GRPO epochs
+     of 10-step rollouts, the jpeg_compressibility reward and the LoRA
+     update, with the trainer's id / reward gathers and the LoRA gradient
+     all-reduce running as collectives. Finite reward, loss, approx_kl and
+     clipfrac in both epochs; the LoRA changed and finite; the EMA moved; the
+     launch counts of all five kernels exactly as derived from the config;
+     seconds per epoch (rollout, reward, train), per microstep, and peak
+     device memory.
+ 11. the Flux kernels against their plain versions at the Flux.1-dev 512^2
      shapes: the per-head RMS norm (d = 128, and one head across a 5120-wide
      row), the BSHD attention (B = 1 and 4, and 4608 tokens with kv_len
      4600), the joint attention at head width 128 without RMS, the modulated
      LayerNorm at D = 3072; median times beside the plain versions' and one
      PyTorch library call's;
- 10. the Flux attention backward kernels against their plain twins at the
+ 12. the Flux attention backward kernels against their plain twins at the
      Flux.1-dev 512^2 shapes: the BSHD backward at B = 1, S = 1536, 24 heads
      of 128 (and 4608 tokens with kv_len 4600), the joint backward at head
      width 128, 1024 + 512 tokens; relative L2 per cotangent, median times
      beside the plain twin's and the SDPA backward's;
- 11. a 1-double + 1-single block Flux.1-dev at full width on the card (bf16,
+ 13. a 1-double + 1-single block Flux.1-dev at full width on the card (bf16,
      kernels) against the same weights on the CPU (fp32, plain versions):
      the output, then the LoRA gradients through a fixed cotangent;
- 12. ``adv_grpo_torch.cli.infer.generate`` on a full-width Flux.1-dev
+ 14. ``adv_grpo_torch.cli.infer.generate`` on a full-width Flux.1-dev
      pipeline (random weights from the seed) at 512^2, 28 steps, guidance
      3.5: launch counts exactly 115/152/19/38 per forward times 28 steps,
      finite images, a non-constant 512x512 PNG; then 1 and 4 prompts on the
      warm pipeline: seconds per image, one forward's time and achieved
      TFLOP/s, its device kernel time by group (torch.profiler) and busy
      share, peak device memory;
- 13. ``GRPOTrainer`` on a full-width Flux.1-dev pipeline (LoRA r=32, random
+ 15. ``GRPOTrainer`` on a full-width Flux.1-dev pipeline (LoRA r=32, random
      weights from the seed) for 2 epochs of ``flux_smoke`` at 512^2
      (FLUX_TRAIN_OVERRIDES: 8-step full-SDE rollouts of 4 images, 2 window
      steps, one row per microstep, 16 microsteps per epoch, EMA every 2
@@ -60,17 +76,17 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      forwards, 608 / 1,216 backwards); seconds per epoch (rollout + decode,
      exposed reward, train), per microstep, peak device memory, and one
      microstep's device time by kernel group (torch.profiler);
- 14. the WAN kernels against their plain versions at the Wan2.1-T2V-1.3B
+ 16. the WAN kernels against their plain versions at the Wan2.1-T2V-1.3B
      shapes of 33 frames of 480^2 (8,100 video tokens, 512 text tokens, 12
      heads of 128, width 1536): the no-affine LayerNorm (#6, B = 1 and 2,
      within 1 bf16 ulp), the modulated LayerNorm and the one-head RMS across
      the 1536-wide row (1 ulp), the BSHD attention forward and backward for
      the self (8,100 x 8,100) and the cross (8,100 x 512) attention (2e-2);
      median times beside the plain versions' and one PyTorch call's;
- 15. a 2-layer full-width WAN on the card (bf16, kernels) against the same
+ 17. a 2-layer full-width WAN on the card (bf16, kernels) against the same
      weights on the CPU (fp32, plain versions): the output, then the LoRA
      gradients through a fixed cotangent (relative L2 5e-2);
- 16. the demo's path (``cli.wan_sde_demo.sample_video``) on a full-width
+ 18. the demo's path (``cli.wan_sde_demo.sample_video``) on a full-width
      Wan2.1-T2V-1.3B pipeline (LoRA r=32, random weights from the seed): 50
      steps at shift 3 from (16, 9, 60, 60) latents, the 3D VAE decode to 33
      frames of 480^2; launch counts exactly 61 / 120 / 30 / 60 per forward
@@ -78,7 +94,7 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      time and achieved TFLOP/s, its device time by kernel group and busy
      share, peak memory; then a 3-step run with the per-step KL (non-zero
      LoRA B): the KL finite and positive, two forwards per step;
- 17. ``GRPOTrainer`` on a full-width Wan2.1-T2V-1.3B pipeline for 2 epochs
+ 19. ``GRPOTrainer`` on a full-width Wan2.1-T2V-1.3B pipeline for 2 epochs
      of ``wan_smoke`` (WAN_TRAIN_OVERRIDES: 33 frames of 480^2, 8-step
      rollouts of one 2-video group per sampling batch, 2 window steps, one
      row per microstep): finite metrics, every LoRA factor and its EMA
@@ -138,6 +154,27 @@ FLUX_TRAIN_OVERRIDES = ["resolution=512", "sample.num_steps=8", "sample.train_nu
 # and 2 window steps per epoch, one row per microstep (micro_splits 2: 8
 # microsteps, 2 optimizer steps per epoch), EMA every 2 of the run's 4 steps
 WAN_STEPS = 50
+# #8's max abs error (output and lse) at WAN's self and cross shapes as
+# recorded (PERF.md §6, at its precision) when the BSHD forward still
+# pre-scaled q and rounded it to bf16: scaling the fp32 scores must not make
+# it larger
+PRESCALED_Q_MHA_BSHD_ERR = {"self": 1.55e-3, "cross": 3.05e-3}
+# kernels #10 / #11 (``mha`` on (B, H, S, D)): WAN's self-attention (12 heads
+# of 128, 8,100 tokens), SD3.5-M's joint sequence (1,024 + 154 tokens, 24
+# heads of 64, B = 2) with keys past 1,100 masked, and what one rank of a
+# 4-way context-parallel WAN run sees (2,025 queries against 8,100 keys):
+# (name, B, H, S_q, S_kv, D, kv_len)
+MHA_SHAPES = (("wan", 1, 12, 8100, 8100, 128, None),
+              ("sd3", 2, 24, 1178, 1178, 64, 1100),
+              ("cp4", 1, 12, 2025, 8100, 128, None))
+# #10's output and the context-parallel and ring outputs: relative L2 of o
+# (with the softmax spread over 8,100 keys a typical |o| is ~0.02, the size
+# of an absolute 2e-2 bound, so only a relative one sees a lost kv tile), and
+# the lse absolute, apart
+MHA_O_REL_L2, MHA_LSE_ABS = 1e-2, 5e-3
+# #11 at the WAN shape against fp64: within this factor of the error of its
+# fp32 plain twin rounded to bf16 (what fp32 p and ds buy over bf16 ones)
+FIDELITY_FACTOR = 1.15
 WAN_FRAMES, WAN_RES, WAN_TEXT = 33, 480, 512
 WAN_TRAIN_OVERRIDES = [f"resolution={WAN_RES}", f"sample.num_frames={WAN_FRAMES}",
                        "sample.num_steps=8", "sample.train_num_steps=2",
@@ -317,6 +354,22 @@ def _check_rel_l2(what, got, ref, bound=2e-2):
     if not all(e <= bound for e in errs):
         raise AssertionError(f"{what}: relative L2 {errs} above {bound}")
     return max_abs
+
+
+def _check_attn_out(what, o, ref, lse=None, ref_lse=None):
+    """An attention output against ``ref`` by relative L2 (MHA_O_REL_L2) and,
+    where given, its lse against ``ref_lse`` in absolute terms (MHA_LSE_ABS);
+    raises above either (or on NaN); returns the largest absolute error of
+    the two."""
+    rel = _rel_l2(o, ref)
+    o_abs = (o.float() - ref.float()).abs().max().item()
+    lse_abs = 0.0 if lse is None else (lse - ref_lse).abs().max().item()
+    print(f"  {what}: output relative L2 {rel:.3e} (bound {MHA_O_REL_L2}), max abs "
+          f"{o_abs:.3e}" + ("" if lse is None else f"; lse max abs {lse_abs:.3e} (bound "
+                                                 f"{MHA_LSE_ABS})"), flush=True)
+    if not (rel <= MHA_O_REL_L2 and lse_abs <= MHA_LSE_ABS):
+        raise AssertionError(f"{what}: output relative L2 {rel}, lse max abs {lse_abs}")
+    return max(o_abs, lse_abs)
 
 
 def _grad_ms(outs, inputs, cots):
@@ -690,6 +743,14 @@ def check_flux_kernels():
                                                     num_heads=heads, kv_len=kv_len,
                                                     return_lse=True)
         e = max((o.float() - ref).abs().max().item(), (lse - ref_lse).abs().max().item())
+        if b == 1 and kv_len is None:  # scaling the fp32 scores must not make it larger
+            old = _prescaled_q_err(q, k, v, heads, ref, ref_lse)
+            print(f"  #8 score scaling at (1,1536,3072): max abs err {e:.3e} (output and lse); "
+                  f"the pre-scaled-q order (q rounded to bf16) on the same inputs {old:.3e}",
+                  flush=True)
+            if not e <= old:
+                raise AssertionError(f"mha_bshd (1,1536,3072) error {e} grew past the "
+                                     f"pre-scaled-q order's {old} on the same inputs")
         del ref, ref_lse
         err = max(err, e)
         med = _median_ms(lambda: attention.mha_bshd(q, k, v, num_heads=heads, kv_len=kv_len))
@@ -1254,7 +1315,15 @@ def check_wan_kernels():
         ref, ref_lse = attention.mha_bshd_reference(q.float(), k.float(), v.float(),
                                                     num_heads=heads, return_lse=True)
         err = max((o.float() - ref).abs().max().item(), (lse - ref_lse).abs().max().item())
+        old = _prescaled_q_err(q, k, v, heads, ref, ref_lse) if kind == "self" else None
         del ref, ref_lse
+        print(f"  #8 score scaling at WAN {kind}: max abs err {err:.3e} (output and lse) "
+              f"against the pre-scaled-q order's recorded {PRESCALED_Q_MHA_BSHD_ERR[kind]:.2e} (q "
+              f"rounded to bf16" + ("" if old is None else f"; on the same inputs: {old:.3e}")
+              + ")", flush=True)
+        if not err <= PRESCALED_Q_MHA_BSHD_ERR[kind]:
+            raise AssertionError(f"mha_bshd WAN {kind} error {err} grew past the pre-scaled-q "
+                                 f"order's {PRESCALED_Q_MHA_BSHD_ERR[kind]}")
         ms = _median_ms(lambda: attention.mha_bshd(q, k, v, num_heads=heads))
         plain_ms = _median_ms(lambda: attention.mha_bshd_reference(q, k, v, num_heads=heads),
                               iters=5)
@@ -1295,6 +1364,18 @@ def check_wan_kernels():
         del q, k, v, do, o, lse, di, got, q4, k4, v4
     torch.cuda.empty_cache()
     return results
+
+
+def _prescaled_q_err(q, k, v, heads, ref, ref_lse):
+    """Max abs error (output and lse) against ``ref`` / ``ref_lse`` of the
+    forward kernel in the pre-scaled-q order: q x sm_scale*log2(e) rounded
+    to bf16 before QK^T. The joint entry points keep that order, and
+    ``mha_rms`` without RMS weights is the same kernel on the same strides."""
+    from adv_grpo_torch.ops import joint_attention
+
+    d = q.shape[-1] // heads
+    o, lse = joint_attention.mha_rms_fwd(q, k, v, None, heads, 1e-6, d ** -0.5, True)
+    return max((o.float() - ref).abs().max().item(), (lse - ref_lse).abs().max().item())
 
 
 def check_wan_model():
@@ -1592,6 +1673,193 @@ def run_wan_training(kernels):
     torch.cuda.empty_cache()
     return counts, cross
 
+def _bwd_fp64(q, k, v, o, lse, do, sm_scale):
+    """(dq, dk, dv) of #11's math in fp64 from the same inputs, lse and o,
+    one (batch item, head) at a time."""
+    import torch
+
+    outs = [torch.empty(t.shape, dtype=torch.float64, device=t.device) for t in (q, k, v)]
+    for b in range(q.shape[0]):
+        for h in range(q.shape[1]):
+            qf, kf, vf, dof = (t[b, h].double() for t in (q, k, v, do))
+            p = torch.exp(qf @ kf.T * sm_scale - lse[b, h].double()[:, None])
+            di = (o[b, h].double() * dof).sum(-1, keepdim=True)
+            ds = p * (dof @ vf.T - di) * sm_scale
+            outs[0][b, h], outs[1][b, h], outs[2][b, h] = ds @ kf, ds.T @ qf, p.T @ dof
+            del p, ds
+    return outs
+
+
+def check_mha_kernels():
+    """Phase: kernels #10 (``mha_fwd_bf16``) and #11 (``mha_bwd_bf16``) of
+    ``mha`` on (B, H, S, D) against their plain versions at MHA_SHAPES: the
+    output within MHA_O_REL_L2 relative L2 and the lse within MHA_LSE_ABS
+    absolute of fp32 ``attention_reference``, dq, dk, dv within 2e-2
+    relative L2 of
+    ``flash_bwd_reference`` on the same o and lse; at the WAN shape #11's
+    fidelity against fp64 (FIDELITY_FACTOR), with #9's order (bf16 p and t)
+    beside it. Median times beside the plain versions' and SDPA's on the
+    same function (the keys before kv_len)."""
+    import torch
+    import torch.nn.functional as F
+
+    from adv_grpo_torch.ops import attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    results = []
+    for name, b, h, sq, skv, d, kv_len in MHA_SHAPES:
+        q, do = randn(b, h, sq, d), randn(b, h, sq, d)
+        k, v = randn(b, h, skv, d), randn(b, h, skv, d)
+        kv, sm = skv if kv_len is None else kv_len, d ** -0.5
+        shape = f"({b},{h},{sq}x{skv},{d}) kv_len={kv_len}"
+        o, lse = attention.mha_fwd(q, k, v, sm, kv_len, want_lse=True)
+        ref, ref_lse = attention.attention_reference(q.float(), k.float(), v.float(), sm_scale=sm,
+                                                     kv_len=kv_len, return_lse=True)
+        err = _check_attn_out(f"mha (#10) {shape} vs fp32", o, ref, lse, ref_lse)
+        del ref, ref_lse
+        ms = _median_ms(lambda: attention.mha(q, k, v, kv_len=kv_len))
+        plain_ms = _median_ms(lambda: attention.attention_reference(q, k, v, sm_scale=sm,
+                                                                    kv_len=kv_len), iters=5)
+        k_on, v_on = k[:, :, :kv], v[:, :, :kv]  # the keys the mask leaves
+        lib_ms = _median_ms(lambda: F.scaled_dot_product_attention(q, k_on, v_on))
+        least = _attn_bound((q, k, v, o), b, h, sq, kv, d)
+        print(f"kernel mha (#10) {shape}: max abs err {err:.3e} (output and lse); median "
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms vs SDPA {lib_ms:.4f} ms; bound "
+              f"{least[0]:.4f} ms ({least[1]})", flush=True)
+        results.append(_entry(f"mha_{name}", "adv_grpo_torch/csrc/joint_attention.cu",
+                              "adv_grpo_tpu/ops/attention.py:104", err, ms, plain_ms, least,
+                              lib_ms))
+
+        got = attention.mha_bwd(q, k, v, o, lse, do, sm_scale=sm, kv_len=kv_len)
+        twin = attention.flash_bwd_reference(q.float(), k.float(), v.float(), o, lse,
+                                             do.float(), sm_scale=sm, kv_len=kv_len)
+        max_abs = _check_rel_l2(f"mha_bwd (#11) {shape} kernel vs flash_bwd_reference "
+                                "(dq, dk, dv)", got, twin)
+        if name == "wan":  # fidelity against fp64
+            exact = _bwd_fp64(q, k, v, o, lse, do, sm)
+            di = (o.float() * do.float()).sum(-1)
+            bshd = [attention.from_bhsd(t) for t in (q, k, v, do)]
+            nine = attention.attention_bwd_reference(*([t] for t in bshd), [lse], [di],
+                                                     num_heads=h, sm_scale=sm)[0]
+            nine = [attention.to_bhsd(t, h) for t in nine]
+            rows = {"#11 kernel": got, "fp32 twin in bf16": [t.to(torch.bfloat16) for t in twin],
+                    "#9's order (bf16 p, t)": nine}
+            errs = {k_: [_rel_l2(a, e) for a, e in zip(v_, exact)] for k_, v_ in rows.items()}
+            for k_, e in errs.items():
+                print(f"  fidelity at WAN: {k_} vs fp64, relative L2 (dq, dk, dv) "
+                      f"{', '.join(f'{x:.3e}' for x in e)}", flush=True)
+            ratios = [a / t for a, t in zip(errs["#11 kernel"], errs["fp32 twin in bf16"])]
+            print(f"  fidelity ratio kernel / twin-in-bf16 {', '.join(f'{r:.3f}' for r in ratios)} "
+                  f"(bound {FIDELITY_FACTOR})", flush=True)
+            if not all(r <= FIDELITY_FACTOR for r in ratios):
+                raise AssertionError(f"mha_bwd fidelity ratios {ratios} above {FIDELITY_FACTOR}")
+            del exact, nine, rows
+        del twin
+        ms = _median_ms(lambda: attention.mha_bwd(q, k, v, o, lse, do, sm_scale=sm,
+                                                  kv_len=kv_len))
+        plain_ms = _median_ms(lambda: attention.flash_bwd_reference(
+            q, k, v, o, lse, do, sm_scale=sm, kv_len=kv_len), iters=3, warmup=1)
+        leaves = [t.detach().requires_grad_() for t in (q, k_on, v_on)]
+        out = F.scaled_dot_product_attention(*leaves)
+        lib_ms = _grad_ms((out,), leaves, (do,))
+        del out, leaves
+        least = _attn_bound((q, k, v, o, lse, do) + tuple(got), b, h, sq, kv, d, products=5)
+        print(f"kernel mha_bwd (#11) {shape}: median {ms:.4f} ms vs plain {plain_ms:.4f} ms vs "
+              f"SDPA backward {lib_ms:.4f} ms; bound {least[0]:.4f} ms ({least[1]})", flush=True)
+        results.append(_entry(f"mha_bwd_{name}", "adv_grpo_torch/csrc/joint_attention_bwd.cu",
+                              "adv_grpo_tpu/ops/attention.py:201", max_abs, ms, plain_ms, least,
+                              lib_ms))
+        del q, k, v, do, o, lse, got, k_on, v_on
+    torch.cuda.empty_cache()
+    return results
+
+
+def init_group():
+    """A one-rank NCCL process group through ``parallel.mesh`` on a free
+    localhost port; returns its address."""
+    import socket
+
+    from adv_grpo_torch.parallel import mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    addr = f"tcp://127.0.0.1:{port}"
+    mesh.init_distributed(device="cuda", init_method=addr, world_size=1, rank=0)
+    return addr
+
+
+def run_context_parallel():
+    """Phase, under the one-rank NCCL group: ``context_parallel_attention``
+    forward and backward at each of MHA_SHAPES (the gather and its
+    reduce-scatter run as collectives; #10 exactly once per forward, #11
+    once per backward, the S_q != S_kv ones counted apart), against the fp32
+    plain attention and its autograd (the output within MHA_O_REL_L2, the
+    gradients within 2e-2 relative L2); then
+    ``ring_attention`` at the WAN shape against ``mha``, forward and
+    gradients. Returns {row name: launches}."""
+    import torch
+    import torch.distributed as dist
+
+    from adv_grpo_torch.ops import attention
+    from adv_grpo_torch.ops.ring_attention import context_parallel_attention, ring_attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    print(f"process group: {dist.get_backend()}, world size {dist.get_world_size()}", flush=True)
+    counts = {}
+    for name, b, h, sq, skv, d, kv_len in MHA_SHAPES:
+        leaves = [randn(b, h, sq, d).requires_grad_(), randn(b, h, skv, d).requires_grad_(),
+                  randn(b, h, skv, d).requires_grad_()]
+        do = randn(b, h, sq, d)
+        for f in (attention.mha, attention.mha_bwd):
+            f.launches = f.cross_launches = 0
+        o = context_parallel_attention(*leaves, kv_len=kv_len)
+        grads = torch.autograd.grad(o, leaves, do)
+        torch.cuda.synchronize()
+        got = (attention.mha.launches, attention.mha_bwd.launches, attention.mha.cross_launches,
+               attention.mha_bwd.cross_launches)
+        want = (1, 1, int(sq != skv), int(sq != skv))
+        counts[f"mha_{name}"], counts[f"mha_bwd_{name}"] = got[:2]
+        f32 = [t.detach().float().requires_grad_() for t in leaves]
+        ref = attention.attention_reference(*f32, sm_scale=d ** -0.5, kv_len=kv_len)
+        ref_grads = torch.autograd.grad(ref, f32, do.float())
+        print(f"context_parallel_attention ({b},{h},{sq}x{skv},{d}) kv_len={kv_len}: launches "
+              f"#10/#11 {got[0]}/{got[1]}, S_q != S_kv {got[2]}/{got[3]} (expected {want})",
+              flush=True)
+        _check_attn_out("its output vs fp32", o, ref)
+        _check_rel_l2("  its gradients vs fp32 autograd (dq, dk, dv)", grads, ref_grads)
+        if got != want:
+            raise AssertionError(f"context_parallel_attention {name}: launches {got}")
+        del leaves, o, grads, f32, ref, ref_grads
+
+    b, h, s, d = 1, 12, 8100, 128
+    leaves = [randn(b, h, s, d).requires_grad_() for _ in range(3)]
+    do = randn(b, h, s, d)
+    t0 = time.perf_counter()
+    o = ring_attention(*leaves)
+    grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    o_ref = attention.mha(*leaves)
+    ref_grads = torch.autograd.grad(o_ref, leaves, do)
+    print(f"ring_attention (1,12,8100,128), one rank: {wall:.3f} s forward + backward (plain "
+          f"fp32)", flush=True)
+    _check_attn_out("its output vs mha's", o, o_ref)
+    _check_rel_l2("  its gradients vs mha's (dq, dk, dv)", grads, ref_grads)
+    del leaves, o, grads, o_ref, ref_grads
+    torch.cuda.empty_cache()
+    return counts
+
 
 def sd3_attention_ms(tree):
     """``--sd3-attention-ms TREE``: median ms (50 CUDA-event-timed calls after
@@ -1695,9 +1963,12 @@ def main() -> int:
     else:
         print(f"kernels built from adv_grpo_torch/csrc by nvcc in {build.build_seconds:.2f} s",
               flush=True)
+        entry = ""
         for line in build.build_log.splitlines():  # ptxas: registers, spills, smem
-            if "Used" in line or "spill" in line:
-                print("  " + line.strip(), flush=True)
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "Used" in line or "spill" in line:
+                print(f"  {entry}: {line.strip()}", flush=True)
 
     from adv_grpo_torch.ops import attention, fused_norms, joint_attention
 
@@ -1706,12 +1977,22 @@ def main() -> int:
     flux_train_results = check_flux_backward_kernels()
     check_model_grads(*check_model())
     run_pipeline()
+    mha_results = check_mha_kernels()
+    # the context-parallel phase and the SD3 training slice run inside a
+    # one-rank NCCL group, so their collectives run on the card
+    import torch.distributed as dist
+
+    print(f"process group initialized at {init_group()}", flush=True)
+    mha_counts = run_context_parallel()
+    for r in mha_results:
+        r["launches"] = mha_counts[r["name"]]
     kernels = (fused_norms.modulated_layer_norm, joint_attention.joint_mha,
                joint_attention.mha_rms, joint_attention.joint_attention_bwd,
                joint_attention.mha_rms_bwd)
     counts = run_training_slice(kernels)
     for r, n in zip(results, counts):
         r["launches"] = n
+    dist.destroy_process_group()
     check_flux_model_grads(*check_flux_model())
     flux_kernels = (fused_norms.modulated_layer_norm, fused_norms.rms_norm_heads,
                     joint_attention.joint_mha, attention.mha_bshd)
@@ -1737,7 +2018,8 @@ def main() -> int:
                       mha_bshd_bwd_wan_cross=cross[1])
     for r in wan_results:
         r["launches"] = wan_counts[r["name"]]
-    print(json.dumps({"kernels": results + flux_results + flux_train_results + wan_results}))
+    print(json.dumps({"kernels": results + flux_results + flux_train_results + wan_results
+                      + mha_results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

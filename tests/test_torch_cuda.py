@@ -13,7 +13,8 @@ one bf16 spacing of the fp32 result (spacing taken at
 attention uses the bf16 bound of the TPU kernel's own tests, 2e-2 absolute;
 the attention backwards 2e-2 relative L2 per cotangent (bf16 rounding of p
 and t, the same budget), at head widths 64 and 128 and for the BSHD backward
-with its kv_len mask.
+with its kv_len mask; the (B, H, S, D) ``mha`` kernels (#10, #11) against the
+same bounds, #11 against its all-fp32 twin.
 """
 
 import pytest
@@ -416,3 +417,64 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         fused_norms.layer_norm(_randn(dev, 1, 8, 100))
     with pytest.raises(ValueError):  # not (B, S, D)
         fused_norms.layer_norm(x[0])
+
+
+# ── kernels #10 / #11: mha on (B, H, S, D) ───────────────────────────────
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d,kv_len", [
+    (1, 12, 8100, 8100, 128, None), (2, 24, 1178, 1178, 64, 1100), (1, 12, 2025, 8100, 128, None),
+    (2, 3, 100, 100, 64, 77), (1, 2, 33, 200, 128, 190), (3, 2, 300, 45, 64, None)])
+def test_mha_kernels(dev, b, h, sq, skv, d, kv_len):
+    """``mha_fwd_bf16`` (#10) against the fp32 plain forward (output 1e-2
+    relative L2: over thousands of keys a typical |o| is near an absolute
+    2e-2; lse 5e-3 absolute) and ``mha_bwd_bf16`` (#11) against its all-fp32 twin
+    on the same o and lse (2e-2 relative L2; dk/dv rows past kv_len exactly
+    zero), ragged S and S_q != S_kv; then the autograd path of ``mha``."""
+    q, do = _randn(dev, b, h, sq, d, seed=50), _randn(dev, b, h, sq, d, seed=51)
+    k, v = _randn(dev, b, h, skv, d, seed=52), _randn(dev, b, h, skv, d, seed=53)
+    sm = d ** -0.5
+    n0, c0 = attention.mha.launches, attention.mha.cross_launches
+    o, lse = attention.mha_fwd(q, k, v, sm, kv_len, want_lse=True)
+    torch.cuda.synchronize()
+    assert attention.mha.launches == n0 + 1
+    assert attention.mha.cross_launches == c0 + (sq != skv)
+    ref, ref_lse = attention.attention_reference(q.float(), k.float(), v.float(), sm_scale=sm,
+                                                 kv_len=kv_len, return_lse=True)
+    assert _rel_l2(o, ref) <= 1e-2 and (lse - ref_lse).abs().max() <= 5e-3
+
+    m0 = attention.mha_bwd.launches
+    got = attention.mha_bwd(q, k, v, o, lse, do, sm_scale=sm, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert attention.mha_bwd.launches == m0 + 1
+    twin = attention.flash_bwd_reference(q.float(), k.float(), v.float(), o, lse, do.float(),
+                                         sm_scale=sm, kv_len=kv_len)
+    for g_, r in zip(got, twin):
+        assert g_.shape == r.shape and _rel_l2(g_, r) <= 2e-2
+    if kv_len is not None:
+        assert not got[1][:, :, kv_len:].any() and not got[2][:, :, kv_len:].any()
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    grads = torch.autograd.grad(attention.mha(*leaves, kv_len=kv_len), leaves, do)
+    assert attention.mha_bwd.launches == m0 + 2
+    fl = [t.detach().float().requires_grad_() for t in leaves]
+    ref_grads = torch.autograd.grad(
+        attention.attention_reference(*fl, sm_scale=sm, kv_len=kv_len), fl, do.float())
+    for g_, r in zip(grads, ref_grads):
+        assert _rel_l2(g_, r) <= 2e-2
+
+
+def test_mha_raises_on_what_the_kernels_do_not_take(dev):
+    x = _randn(dev, 1, 2, 64, 64)
+    with pytest.raises(ValueError):  # head dim 32
+        attention.mha(x[..., :32].contiguous(), x[..., :32].contiguous(),
+                      x[..., :32].contiguous())
+    with pytest.raises(TypeError):  # fp32
+        attention.mha(x.float(), x.float(), x.float())
+    with pytest.raises(ValueError):  # not contiguous
+        attention.mha(x.transpose(1, 2), x.transpose(1, 2), x.transpose(1, 2))
+    with pytest.raises(ValueError):  # (B, S, H*D)
+        attention.mha(x[0], x[0], x[0])
+    stats = torch.zeros(1, 2, 64, device=dev)
+    with pytest.raises(ValueError):  # lse of the wrong shape
+        attention.mha_bwd(x, x, x, x, stats[:, :1], x, sm_scale=0.125)
