@@ -61,12 +61,12 @@ _SIGNATURES = {
     # q, k, v, do, lse, di, dq, dk, dv, len, strides, wq, wk, batch, heads,
     # sm_scale, eps, stream
     "mha_rms_bwd_bf16": [_P] * 9 + [_I, _P, _P, _P, _I, _I, _F, _F, _P],
-    # q, k, v, do, lse, di, dq, dk, dv, q rows, kv rows, kv_len, strides,
-    # batch, heads, head dim, sm_scale, stream
-    "mha_bshd_bwd_bf16": [_P] * 9 + [_I, _I, _I, _P, _I, _I, _I, _F, _P],
-    # q, k, v, do, lse, di, dq, dk, dv, q rows, kv rows, kv_len, batch, heads,
-    # head dim, sm_scale, stream
-    "mha_bwd_bf16": [_P] * 9 + [_I] * 6 + [_F, _P],
+    # q, k, v, do, lse, di, dq, dk, dv, dq scratch, dk/dv scratch, q splits,
+    # q rows, kv rows, kv_len, strides, batch, heads, head dim, sm_scale, stream
+    "mha_bshd_bwd_bf16": [_P] * 11 + [_I, _I, _I, _I, _P, _I, _I, _I, _F, _P],
+    # q, k, v, do, lse, di, dq, dk, dv, dq scratch, dk/dv scratch, q splits,
+    # q rows, kv rows, kv_len, batch, heads, head dim, sm_scale, stream
+    "mha_bwd_bf16": [_P] * 11 + [_I] * 7 + [_F, _P],
 }
 
 _lib = None

@@ -12,16 +12,18 @@ On CUDA tensors ``mha_bshd`` launches the forward kernel in
 ``csrc/joint_attention.cu`` (``mha_bshd_fwd_bf16``), which reads q/k/v in
 place through their strides and, when a gradient is needed, writes the
 per-row lse; the backward (``_MhaBshd``) computes di with
-:func:`bwd_row_stats` and launches ``mha_bshd_bwd_bf16`` in
-``csrc/joint_attention_bwd.cu``. ``mha`` launches the same forward kernel
-with BHSD strides (``mha_fwd_bf16``, kernel #10) and, in its backward
-(``_FlashMha``), ``mha_bwd_bf16`` (kernel #11), whose p and ds stay at fp32
-accuracy as in the TPU's ``_bwd_dkv_kernel`` / ``_bwd_dq_kernel``. On CPU
-tensors the forwards run the plain version, which follows the JAX
-``backend="reference"`` path (fp32 scores, masked keys set to the JAX
-package's finite mask value, fp32 softmax, cast back to q's dtype), and the
-backwards the kernels' plain twins :func:`attention_bwd_reference` and
-:func:`flash_bwd_reference`.
+:func:`bwd_row_stats` and launches ``mha_bshd_bwd_bf16`` (kernel #9), the
+wgmma + TMA kernel of ``csrc/attention_bwd_sm90.cu``. ``mha`` launches the
+same forward kernel with BHSD strides (``mha_fwd_bf16``, kernel #10) and, in
+its backward (``_FlashMha``), the same backward kernel as ``mha_bwd_bf16``
+(kernel #11), whose p and ds stay at fp32 accuracy as in the TPU's
+``_bwd_dkv_kernel`` / ``_bwd_dq_kernel``. On CPU tensors the forwards run
+the plain version, which follows the JAX ``backend="reference"`` path (fp32
+scores, masked keys set to the JAX package's finite mask value, fp32
+softmax, cast back to q's dtype), and the backwards the kernels' plain twins
+:func:`bshd_bwd_reference` and :func:`flash_bwd_reference`;
+:func:`attention_bwd_reference` is the twin of the joint backwards
+(``ops/joint_attention.py``).
 
 The TPU layout's lane broadcast of the statistics (``LSE_LANES``) and its
 zero padding of S to a block multiple have no counterpart here: the
@@ -79,17 +81,15 @@ def mha_bshd_reference(q, k, v, *, num_heads, sm_scale=None, kv_len=None,
 
 
 def attention_bwd_reference(qs, ks, vs, dos, lses, dis, *, num_heads, rms_weights=None,
-                            eps=1e-6, sm_scale=None, kv_len=None):
-    """Plain twin of the attention backward kernels, in their op order.
+                            eps=1e-6, sm_scale=None):
+    """Plain twin of the joint attention backward kernels (#4, #5), in their
+    op order.
 
-    ``qs``, ``dos``: one (B, S_i, H*D) tensor per token stream (image, then
-    text; a single stream for ``mha_rms`` and ``mha_bshd``); ``ks``, ``vs``:
-    the streams' (B, S_kv_i, H*D) keys and values (S_kv_i = S_i for the joint
-    and RMS forms); ``lses``, ``dis``: fp32 (B, H, S_i) per stream.
-    ``rms_weights``: None, or one (wq, wk) pair per stream. ``kv_len`` (one
-    stream only): keys at or past it get p = 0. Returns (dyq, dyk, dv) per
-    stream — the cotangents of the normalised q and k, and of v — in the
-    inputs' dtype.
+    ``qs``, ``ks``, ``vs``, ``dos``: one (B, S_i, H*D) tensor per token
+    stream (image, then text; a single stream for ``mha_rms``); ``lses``,
+    ``dis``: fp32 (B, H, S_i) per stream. ``rms_weights``: None, or one (wq,
+    wk) pair per stream. Returns (dyq, dyk, dv) per stream — the cotangents
+    of the normalised q and k, and of v — in the inputs' dtype.
 
     Op order (the TPU's fused bodies, adv_grpo_tpu/ops/joint_attention.py
     :275-320 and ops/attention.py:516-545): RMS in fp32, then x w; qs2 = dt(yq
@@ -121,8 +121,6 @@ def attention_bwd_reference(qs, ks, vs, dos, lses, dis, *, num_heads, rms_weight
     qs2 = (yq * (sm_scale * LOG2E)).to(dt).float()
     yq_s = (yq * sm_scale).to(dt).float()
     p = torch.exp2(qs2 @ yk.transpose(-1, -2) - lse2)
-    if kv_len is not None and kv_len < yk.shape[2]:
-        p = p * (torch.arange(yk.shape[2], device=p.device) < kv_len)
     dv = p.to(dt).float().transpose(-1, -2) @ do
     t = (p * (do @ v.transpose(-1, -2) - di)).to(dt).float()
     dyk = t.transpose(-1, -2) @ yq_s
@@ -202,6 +200,24 @@ def _check_bshd(what, q, k, v, num_heads, kv_len):
     return b, sq, skv, d, kv
 
 
+def bwd_scratch(b, h, sq, skv, d, device):
+    """The fp32 scratch the backward kernel (#9, #11) reduce-adds into, zeroed:
+    dq's (B, H, S_q, D), and (q_splits, dk/dv's (2, B, H, S_kv, D) or None).
+
+    The kernel runs one CTA per (128-row kv tile, head, batch item). Where
+    those CTAs fill less than half the card's SMs and each walks many q
+    tiles (WAN's cross-attention: 48 CTAs over 127 q tiles), q_splits CTAs
+    share each kv tile's walk, each over at least 16 q tiles, and add their
+    dk and dv into the second scratch."""
+    ctas = b * h * -(-skv // 128)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splits = max(1, min(sms // ctas, -(-sq // 64) // 16))
+    dq_acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=device)
+    dkv_acc = (torch.zeros((2, b, h, skv, d), dtype=torch.float32, device=device)
+               if splits > 1 else None)
+    return dq_acc, splits, dkv_acc
+
+
 def _bshd_strides(tensors, d):
     """The (batch, row, head) strides of (B, S, H*D) tensors, heads D apart."""
     return int64_array([st for t in tensors for st in (t.stride(0), t.stride(1), d)])
@@ -231,14 +247,14 @@ def mha_bshd_fwd(q, k, v, num_heads, sm_scale, kv_len, want_lse):
 
 def mha_bshd_bwd(q, k, v, do, lse, di, *, num_heads, sm_scale=None, kv_len=None):
     """(dq, dk, dv) of :func:`mha_bshd` from the forward's lse and di = sum
-    o * do (fp32 (B, H, S_q) each): the backward kernel on CUDA tensors, its
-    plain twin :func:`attention_bwd_reference` on CPU tensors. Rows of dk and
-    dv at or past ``kv_len`` are zero."""
+    o * do (fp32 (B, H, S_q) each): kernel #9 on CUDA tensors, its plain twin
+    :func:`bshd_bwd_reference` on CPU tensors. Rows of dk and dv at or past
+    ``kv_len`` are zero."""
     if sm_scale is None:
         sm_scale = (q.shape[-1] // num_heads) ** -0.5
     if q.device.type == "cpu":
-        return attention_bwd_reference([q], [k], [v], [do], [lse], [di], num_heads=num_heads,
-                                       sm_scale=sm_scale, kv_len=kv_len)[0]
+        return bshd_bwd_reference(q, k, v, do, lse, di, num_heads=num_heads,
+                                  sm_scale=sm_scale, kv_len=kv_len)
     what = "mha_bshd_bwd"
     b, sq, skv, d, kv = _check_bshd(what, q, k, v, num_heads, kv_len)
     check_rows(what, (do,), q.device)
@@ -248,9 +264,11 @@ def mha_bshd_bwd(q, k, v, do, lse, di, *, num_heads, sm_scale=None, kv_len=None)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk, dv = (torch.empty((b, skv, q.shape[2]), dtype=torch.bfloat16, device=q.device)
               for _ in range(2))
+    acc, splits, dkv_acc = bwd_scratch(b, num_heads, sq, skv, d, q.device)
     rc = _kernels.lib().mha_bshd_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), sq, skv, kv,
+        di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), acc.data_ptr(),
+        None if dkv_acc is None else dkv_acc.data_ptr(), splits, sq, skv, kv,
         _bshd_strides((q, k, v, do, dq, dk, dv), d), b, num_heads, d, float(sm_scale),
         _kernels.stream_ptr(q.device))
     _kernels.check(rc, what)
@@ -306,28 +324,52 @@ mha_bshd.launches = mha_bshd.cross_launches = 0
 # ───────────────────── (B, H, S, D): mha, kernels #10 / #11 ─────────────────────
 
 
-def flash_bwd_reference(q, k, v, o, lse, do, *, sm_scale, kv_len=None):
-    """Plain twin of the ``mha`` backward kernel, all in fp32 in the TPU
-    body's order (adv_grpo_tpu/ops/attention.py ``_bwd_dkv_kernel`` /
+def flash_bwd_reference(q, k, v, o, lse, do, *, sm_scale, kv_len=None, di=None,
+                        round_to=None):
+    """Plain twin of the ``mha`` backward kernel (#11), all in fp32 in the
+    TPU body's order (adv_grpo_tpu/ops/attention.py ``_bwd_dkv_kernel`` /
     ``_bwd_dq_kernel``, ``_flash_bwd``): s = q k^T * sm_scale, keys at or past
     ``kv_len`` get the finite mask value; p = exp(s - lse); dv = p^T do; dp =
-    do v^T; di = sum_d o * do from o as stored; ds = p (dp - di) sm_scale; dk
-    = ds^T q; dq = ds k. p and ds are never rounded. q, k, v, o, do: (B, H,
-    S, D); lse: fp32 (B, H, S_q), natural log. Returns (dq, dk, dv) in q's
-    dtype."""
+    do v^T; di = sum_d o * do from o as stored (or ``di``, fp32 (B, H, S_q),
+    when given); ds = p (dp - di) sm_scale; dk = ds^T q; dq = ds k. p and ds
+    are never rounded, unless ``round_to`` names a dtype: then p (for dv) and
+    t = p (dp - di) (before the sm_scale) are rounded to it, #9's order. q,
+    k, v, o, do: (B, H, S, D); lse: fp32 (B, H, S_q), natural log. Returns
+    (dq, dk, dv) in q's dtype."""
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     s = qf @ kf.transpose(-1, -2) * sm_scale
     if kv_len is not None and kv_len < k.shape[2]:
         mask = torch.arange(k.shape[2], device=s.device) < kv_len
         s = torch.where(mask, s, torch.full_like(s, DEFAULT_MASK_VALUE))
     p = torch.exp(s - lse.float()[..., None])
-    dv = p.transpose(-1, -2) @ dof
+
+    def rounded(x):
+        return x if round_to is None else x.to(round_to).float()
+
+    dv = rounded(p).transpose(-1, -2) @ dof
     dp = dof @ vf.transpose(-1, -2)
-    di = (o.float() * dof).sum(-1, keepdim=True)
-    ds = p * (dp - di) * sm_scale
+    di = (o.float() * dof).sum(-1, keepdim=True) if di is None else di.float()[..., None]
+    ds = rounded(p * (dp - di)) * sm_scale
     dk = ds.transpose(-1, -2) @ qf
     dq = ds @ kf
     return tuple(a.to(q.dtype) for a in (dq, dk, dv))
+
+
+def bshd_bwd_reference(q, k, v, do, lse, di, *, num_heads, sm_scale=None, kv_len=None):
+    """Plain twin of ``mha_bshd``'s backward kernel (#9), in its op order:
+    :func:`flash_bwd_reference` on the (B, H, S, D) views of the (B, S, H*D)
+    q, k, v, do, from the forward's lse and di (fp32 (B, H, S_q)), with p and
+    t rounded to the inputs' dtype (bf16 on the card; a no-op in fp32) before
+    their products; s is scaled in fp32 and dk, dq by sm_scale after the
+    products, as in the TPU's split bodies (adv_grpo_tpu/ops/attention.py
+    ``_bshd_bwd_dkv_kernel`` / ``_bshd_bwd_dq_kernel``), which keep p and t in
+    fp32. Returns (dq, dk, dv) as (B, S, H*D) in q's dtype."""
+    if sm_scale is None:
+        sm_scale = (q.shape[-1] // num_heads) ** -0.5
+    qh, kh, vh, doh = (to_bhsd(t, num_heads) for t in (q, k, v, do))
+    grads = flash_bwd_reference(qh, kh, vh, None, lse, doh, sm_scale=sm_scale, kv_len=kv_len,
+                                di=di, round_to=q.dtype)
+    return tuple(from_bhsd(g) for g in grads)
 
 
 def _check_bhsd(what, q, k, v, kv_len):
@@ -399,9 +441,11 @@ def mha_bwd(q, k, v, o, lse, do, *, sm_scale, kv_len=None):
     di = (o.float() * do.float()).sum(-1)
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    acc, splits, dkv_acc = bwd_scratch(b, h, sq, skv, d, q.device)
     rc = _kernels.lib().mha_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), sq, skv, kv, b, h, d,
+        di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), acc.data_ptr(),
+        None if dkv_acc is None else dkv_acc.data_ptr(), splits, sq, skv, kv, b, h, d,
         float(sm_scale), _kernels.stream_ptr(q.device))
     _kernels.check(rc, what)
     mha_bwd.launches += 1

@@ -104,7 +104,10 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
 
 ``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
 SD3.5-M attention forwards of the checkout at PARENT (an older tree) against
-this one's, in PAIRS alternating pairs of processes.
+this one's, in PAIRS alternating pairs of processes;
+``python3 chip_smoke.py --attention-bwd-ab PARENT PAIRS`` likewise times the
+attention backwards #9 (Flux's (1,1536,3072), WAN self and cross) and #11
+(MHA_SHAPES), by CUDA events and by device kernel time.
 
 Prints one JSON line of per-kernel results (each with its least possible time
 on the card, from the published H100 SXM peaks), then as the last line
@@ -176,6 +179,10 @@ MHA_O_REL_L2, MHA_LSE_ABS = 1e-2, 5e-3
 # fp32 plain twin rounded to bf16 (what fp32 p and ds buy over bf16 ones)
 FIDELITY_FACTOR = 1.15
 WAN_FRAMES, WAN_RES, WAN_TEXT = 33, 480, 512
+# the backward kernel of #9 and #11 (wgmma + TMA), and its kernels' names as
+# ptxas and cuobjdump print them
+BWD_SM90_SOURCE = "adv_grpo_torch/csrc/attention_bwd_sm90.cu"
+BWD_SM90_KERNELS = ("attn_bwd_sm90_kernel", "attn_bwd_convert_kernel")
 WAN_TRAIN_OVERRIDES = [f"resolution={WAN_RES}", f"sample.num_frames={WAN_FRAMES}",
                        "sample.num_steps=8", "sample.train_num_steps=2",
                        "train.micro_splits=2", "train.ema=True", "train.ema_interval=2"]
@@ -846,9 +853,8 @@ def check_flux_backward_kernels():
         o, lse = attention.mha_bshd_fwd(q, k, v, heads, sm_scale, kv_len, want_lse=True)
         di = bwd_row_stats(o, do, heads)
         got = attention.mha_bshd_bwd(q, k, v, do, lse, di, num_heads=heads, kv_len=kv_len)
-        twin = attention.attention_bwd_reference(
-            [q.float()], [k.float()], [v.float()], [do.float()], [lse], [di], num_heads=heads,
-            kv_len=kv_len)[0]
+        twin = attention.bshd_bwd_reference(q.float(), k.float(), v.float(), do.float(), lse,
+                                            di, num_heads=heads, kv_len=kv_len)
         max_abs = max(max_abs, _check_rel_l2(
             f"mha_bshd_bwd B=1 S={n} kv_len={kv_len} kernel vs its plain twin (dq, dk, dv)",
             got, twin))
@@ -856,15 +862,15 @@ def check_flux_backward_kernels():
         if kv_len is None:
             ms = _median_ms(lambda: attention.mha_bshd_bwd(q, k, v, do, lse, di,
                                                            num_heads=heads))
-            plain_ms = _median_ms(lambda: attention.attention_bwd_reference(
-                [q], [k], [v], [do], [lse], [di], num_heads=heads), iters=5)
+            plain_ms = _median_ms(lambda: attention.bshd_bwd_reference(
+                q, k, v, do, lse, di, num_heads=heads), iters=5)
             lib_ms = sdpa_bwd_ms(q, k, v, do)
             least = _attn_bound((q, k, v, do, lse, di) + tuple(got), 1, heads, s, s, d,
                                 products=5)
     print(f"kernel mha_bshd_bwd: (1,1536,3072) 24x128 median {ms:.4f} ms vs plain "
           f"{plain_ms:.4f} ms vs SDPA backward {lib_ms:.4f} ms; bound {least[0]:.4f} ms",
           flush=True)
-    results.append(_entry("mha_bshd_bwd", "adv_grpo_torch/csrc/joint_attention_bwd.cu",
+    results.append(_entry("mha_bshd_bwd", BWD_SM90_SOURCE,
                           "adv_grpo_tpu/ops/attention.py:395", max_abs, ms, plain_ms, least,
                           lib_ms))
 
@@ -1341,14 +1347,14 @@ def check_wan_kernels():
 
         di = bwd_row_stats(o, do, heads)
         got = attention.mha_bshd_bwd(q, k, v, do, lse, di, num_heads=heads)
-        twin = attention.attention_bwd_reference([q.float()], [k.float()], [v.float()],
-                                                 [do.float()], [lse], [di], num_heads=heads)[0]
+        twin = attention.bshd_bwd_reference(q.float(), k.float(), v.float(), do.float(), lse,
+                                            di, num_heads=heads)
         max_abs = _check_rel_l2(f"mha_bshd_bwd WAN {kind} kernel vs its plain twin (dq, dk, dv)",
                                 got, twin)
         del twin
         ms = _median_ms(lambda: attention.mha_bshd_bwd(q, k, v, do, lse, di, num_heads=heads))
-        plain_ms = _median_ms(lambda: attention.attention_bwd_reference(
-            [q], [k], [v], [do], [lse], [di], num_heads=heads), iters=3, warmup=1)
+        plain_ms = _median_ms(lambda: attention.bshd_bwd_reference(
+            q, k, v, do, lse, di, num_heads=heads), iters=3, warmup=1)
         leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
         out = F.scaled_dot_product_attention(*leaves)
         lib_ms = _grad_ms((out,), leaves, (attention.to_bhsd(do, heads),))
@@ -1357,8 +1363,7 @@ def check_wan_kernels():
         print(f"kernel mha_bshd_bwd WAN {kind} 8100 x {skv}: median {ms:.4f} ms vs plain "
               f"{plain_ms:.4f} ms vs SDPA backward {lib_ms:.4f} ms; bound {least[0]:.4f} ms",
               flush=True)
-        results.append(_entry(f"mha_bshd_bwd_wan_{kind}",
-                              "adv_grpo_torch/csrc/joint_attention_bwd.cu",
+        results.append(_entry(f"mha_bshd_bwd_wan_{kind}", BWD_SM90_SOURCE,
                               "adv_grpo_tpu/ops/attention.py:395", max_abs, ms, plain_ms, least,
                               lib_ms))
         del q, k, v, do, o, lse, di, got, q4, k4, v4
@@ -1743,10 +1748,8 @@ def check_mha_kernels():
         if name == "wan":  # fidelity against fp64
             exact = _bwd_fp64(q, k, v, o, lse, do, sm)
             di = (o.float() * do.float()).sum(-1)
-            bshd = [attention.from_bhsd(t) for t in (q, k, v, do)]
-            nine = attention.attention_bwd_reference(*([t] for t in bshd), [lse], [di],
-                                                     num_heads=h, sm_scale=sm)[0]
-            nine = [attention.to_bhsd(t, h) for t in nine]
+            nine = attention.flash_bwd_reference(q, k, v, o, lse, do, sm_scale=sm, di=di,
+                                                 round_to=torch.bfloat16)
             rows = {"#11 kernel": got, "fp32 twin in bf16": [t.to(torch.bfloat16) for t in twin],
                     "#9's order (bf16 p, t)": nine}
             errs = {k_: [_rel_l2(a, e) for a, e in zip(v_, exact)] for k_, v_ in rows.items()}
@@ -1771,7 +1774,7 @@ def check_mha_kernels():
         least = _attn_bound((q, k, v, o, lse, do) + tuple(got), b, h, sq, kv, d, products=5)
         print(f"kernel mha_bwd (#11) {shape}: median {ms:.4f} ms vs plain {plain_ms:.4f} ms vs "
               f"SDPA backward {lib_ms:.4f} ms; bound {least[0]:.4f} ms ({least[1]})", flush=True)
-        results.append(_entry(f"mha_bwd_{name}", "adv_grpo_torch/csrc/joint_attention_bwd.cu",
+        results.append(_entry(f"mha_bwd_{name}", BWD_SM90_SOURCE,
                               "adv_grpo_tpu/ops/attention.py:201", max_abs, ms, plain_ms, least,
                               lib_ms))
         del q, k, v, do, o, lse, got, k_on, v_on
@@ -1935,6 +1938,135 @@ def sd3_attention_ab(parent, pairs):
                   f"{min(v):.4f}..{max(v):.4f} ms over {len(v)} runs", flush=True)
 
 
+# ``--attention-bwd-ab``: #9 at Flux's (1,1536,3072), WAN self and WAN cross
+# (name, B, S_q, S_kv, H, D), and #11 at MHA_SHAPES
+BWD_AB_BSHD = (("flux", 1, 1536, 1536, 24, 128), ("wan_self", 1, 8100, 8100, 12, 128),
+               ("wan_cross", 1, 8100, WAN_TEXT, 12, 128))
+
+
+def attention_bwd_ms(tree):
+    """``--attention-bwd-ms TREE``: the ``adv_grpo_torch`` in the checkout at
+    TREE times its attention backward wrappers, #9 (``mha_bshd_bwd``) at
+    BWD_AB_BSHD and #11 (``mha_bwd``) at MHA_SHAPES: median ms of 50
+    CUDA-event-timed calls after 5 warm-ups (the wrapper's host time and its
+    scratch zeroing included) and device kernel ms per call (mean of 10 traced
+    calls, every kernel the call launches); one JSON line."""
+    sys.path.insert(0, tree)
+    import torch
+
+    from adv_grpo_torch.ops import attention
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    out = {"module": attention.__file__}
+    for name, b, sq, skv, h, d in BWD_AB_BSHD:
+        q, do, k, v = randn(b, sq, h * d), randn(b, sq, h * d), randn(b, skv, h * d), randn(
+            b, skv, h * d)
+        o, lse = attention.mha_bshd_fwd(q, k, v, h, d ** -0.5, None, want_lse=True)
+        di = attention.bwd_row_stats(o, do, h)
+        fn = lambda: attention.mha_bshd_bwd(q, k, v, do, lse, di, num_heads=h)  # noqa: E731
+        out[f"#9 {name}"] = (_median_ms(fn, iters=50, warmup=5), _profile_forward(fn, reps=10)[0])
+        del q, do, k, v, o, lse, di
+    for name, b, h, sq, skv, d, kv_len in MHA_SHAPES:
+        q, do, k, v = randn(b, h, sq, d), randn(b, h, sq, d), randn(b, h, skv, d), randn(
+            b, h, skv, d)
+        o, lse = attention.mha_fwd(q, k, v, d ** -0.5, kv_len, want_lse=True)
+        fn = lambda: attention.mha_bwd(q, k, v, o, lse, do, sm_scale=d ** -0.5,  # noqa: E731
+                                       kv_len=kv_len)
+        out[f"#11 {name}"] = (_median_ms(fn, iters=50, warmup=5),
+                              _profile_forward(fn, reps=10)[0])
+        del q, do, k, v, o, lse
+    print(json.dumps(out), flush=True)
+
+
+def attention_bwd_ab(parent, pairs):
+    """``--attention-bwd-ab PARENT PAIRS``: PAIRS alternating pairs of
+    :func:`attention_bwd_ms` runs, each in its own process, of the checkout
+    at PARENT and of this one (parent, change, change, parent, ...); prints
+    every run, then each side's median and range per shape."""
+    import statistics
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {"parent": [], "change": []}
+    for i in range(pairs):
+        for side in (("parent", "change") if i % 2 == 0 else ("change", "parent")):
+            out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  "--attention-bwd-ms", parent if side == "parent" else here],
+                                 capture_output=True, text=True, check=True).stdout
+            r = json.loads(out.strip().splitlines()[-1])
+            runs[side].append(r)
+            print(f"pair {i} {side} ({r['module']}): " + ", ".join(
+                f"{k} {v[0]:.4f} ms (kernels {v[1]:.4f})" for k, v in r.items()
+                if k != "module"), flush=True)
+    keys = [k for k in runs["change"][0] if k != "module"]
+    medians = {}
+    for side, rs in runs.items():
+        for k in keys:
+            for j, what in enumerate(("ms", "kernel ms")):
+                v = [r[k][j] for r in rs]
+                medians[side, k, what] = statistics.median(v)
+                print(f"{side} {k} {what}: median {statistics.median(v):.4f}, range "
+                      f"{min(v):.4f}..{max(v):.4f} over {len(v)} runs", flush=True)
+    for k in keys:
+        ratio, kernel_ratio = (medians["parent", k, w] / medians["change", k, w]
+                               for w in ("ms", "kernel ms"))
+        print(f"{k}: parent / change {ratio:.3f}x by median ms, {kernel_ratio:.3f}x by kernel "
+              "ms", flush=True)
+
+
+def check_bwd_sm90_build(build):
+    """The wgmma + TMA backward's ptxas report (registers, shared memory,
+    spill stores per instance) from this process's build; raises on a spill
+    store or on an instance missing from the report. Where cuobjdump is on
+    the machine, prints how many HGMMA (wgmma) instructions each of its
+    instances holds."""
+    import re
+
+    report, entry = {}, ""
+    for line in build.build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
+        elif entry and any(k in entry for k in BWD_SM90_KERNELS):
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                report.setdefault(entry, {})["spill_stores"] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                report.setdefault(entry, {})["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                report[entry]["static_smem"] = int(m.group(1)) if m else 0
+    names = {n: sum(n in e for e in report) for n in BWD_SM90_KERNELS}
+    # the tiles live in dynamic shared memory, sized in the source (Smem) and
+    # set at launch; ptxas sees only the static part
+    print(f"{BWD_SM90_SOURCE} (ptxas): " + "; ".join(
+        f"{e}: {r.get('registers')} registers at entry, {r.get('static_smem')} bytes of static "
+        f"shared memory, {r.get('spill_stores')} bytes of spill stores"
+        for e, r in sorted(report.items())), flush=True)
+    if names["attn_bwd_sm90_kernel"] != 4 or names["attn_bwd_convert_kernel"] != 1:
+        raise AssertionError(f"ptxas reported {names} instances of {BWD_SM90_KERNELS}")
+    spills = {e: r.get("spill_stores") for e, r in report.items() if r.get("spill_stores") != 0}
+    if spills:
+        raise AssertionError(f"the backward kernel spills: {spills}")
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        print("  cuobjdump not found: SASS not inspected", flush=True)
+        return
+    sass = subprocess.run([cuobjdump, "-sass", build.build()], capture_output=True,
+                          text=True).stdout
+    hgmma, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        fn = m.group(1) if m else fn
+        if fn and "attn_bwd_sm90_kernel" in fn and "HGMMA" in line:
+            hgmma[fn] = hgmma.get(fn, 0) + 1
+    print(f"  SASS: HGMMA instructions per attn_bwd_sm90_kernel instance {hgmma}", flush=True)
+    if len(hgmma) != 4:
+        raise AssertionError(f"expected HGMMA in 4 attn_bwd_sm90_kernel instances, got {hgmma}")
+
+
 def main() -> int:
     import torch
 
@@ -1948,9 +2080,15 @@ def main() -> int:
     if sys.argv[1:2] == ["--sd3-attention-ms"]:
         sd3_attention_ms(sys.argv[2])
         return 0
+    if sys.argv[1:2] == ["--attention-bwd-ms"]:
+        attention_bwd_ms(sys.argv[2])
+        return 0
     print(smi, flush=True)
     if sys.argv[1:2] == ["--sd3-attention-ab"]:
         sd3_attention_ab(sys.argv[2], int(sys.argv[3]))
+        return 0
+    if sys.argv[1:2] == ["--attention-bwd-ab"]:
+        attention_bwd_ab(sys.argv[2], int(sys.argv[3]))
         return 0
 
     from adv_grpo_torch.kernels import build
@@ -1969,6 +2107,7 @@ def main() -> int:
                 entry = line.split("'")[1] if "'" in line else line.strip()
             elif "Used" in line or "spill" in line:
                 print(f"  {entry}: {line.strip()}", flush=True)
+        check_bwd_sm90_build(build)
 
     from adv_grpo_torch.ops import attention, fused_norms, joint_attention
 

@@ -13,8 +13,9 @@ one bf16 spacing of the fp32 result (spacing taken at
 attention uses the bf16 bound of the TPU kernel's own tests, 2e-2 absolute;
 the attention backwards 2e-2 relative L2 per cotangent (bf16 rounding of p
 and t, the same budget), at head widths 64 and 128 and for the BSHD backward
-with its kv_len mask; the (B, H, S, D) ``mha`` kernels (#10, #11) against the
-same bounds, #11 against its all-fp32 twin.
+with its kv_len mask, #9 against its twin ``bshd_bwd_reference``; the (B, H,
+S, D) ``mha`` kernels (#10, #11) against the same bounds, #11 against its
+all-fp32 twin; the wgmma + TMA backward (#9, #11) at its tile edges.
 """
 
 import pytest
@@ -311,9 +312,8 @@ def test_mha_bshd_backward_kernel(dev, b, sq, skv, h, d, kv_len, strided):
     torch.cuda.synchronize()
     assert attention.mha_bshd_bwd.launches == n0 + 1
     assert attention.mha_bshd_bwd.cross_launches == c0 + (sq != skv)
-    ref = attention.attention_bwd_reference([q.float()], [k.float()], [v.float()],
-                                            [do.float()], [lse], [di], num_heads=h,
-                                            kv_len=kv_len)[0]
+    ref = attention.bshd_bwd_reference(q.float(), k.float(), v.float(), do.float(), lse, di,
+                                       num_heads=h, kv_len=kv_len)
     for g_, r in zip(got, ref):
         assert g_.shape == r.shape and _rel_l2(g_, r) <= 2e-2
     if kv_len is not None:
@@ -417,6 +417,76 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         fused_norms.layer_norm(_randn(dev, 1, 8, 100))
     with pytest.raises(ValueError):  # not (B, S, D)
         fused_norms.layer_norm(x[0])
+
+
+# ── the wgmma + TMA backward (#9 and #11) at its tile edges ──────────────
+
+
+@pytest.mark.parametrize("layout,b,sq,skv,h,d,kv_len,strided", [
+    ("bshd", 1, 1, 1, 2, 128, None, False), ("bshd", 1, 127, 127, 2, 64, None, False),
+    ("bshd", 2, 128, 128, 2, 128, 1, False), ("bshd", 1, 129, 129, 2, 128, 128, True),
+    ("bshd", 1, 257, 257, 3, 64, 129, True), ("bshd", 2, 129, 257, 2, 128, None, True),
+    ("bshd", 1, 257, 127, 2, 64, 1, False), ("bhsd", 1, 1, 257, 2, 128, 129, False),
+    ("bhsd", 2, 129, 1, 2, 64, None, False), ("bhsd", 1, 257, 128, 2, 128, 1, False),
+    ("bhsd", 1, 127, 129, 2, 64, 128, False), ("bhsd", 1, 128, 257, 3, 128, 129, False),
+    # few kv tiles over a long q walk: CTAs share each tile's walk (q_splits 2)
+    ("bshd", 1, 2048, 130, 2, 64, 129, False), ("bhsd", 1, 2100, 200, 1, 128, 150, False)])
+def test_attention_backward_sm90_tile_edges(dev, layout, b, sq, skv, h, d, kv_len, strided):
+    """The backward kernel of csrc/attention_bwd_sm90.cu through both entry
+    points (``mha_bshd_bwd_bf16``: #9, ``mha_bwd_bf16``: #11) at the edges of
+    its 128-row kv and 64-row q tiles (S = 1, 127, 128, 129, 257; kv_len =
+    1, 128, 129), S_q != S_kv both ways, strided rows (a fused q/k/v
+    projection read in place when S_q = S_kv), and grids small enough that
+    CTAs split the q walk (``bwd_scratch``): against the plain twin within
+    2e-2 relative L2 per cotangent (with one key, where dq and dk vanish,
+    1e-3 absolute), dk and dv rows past kv_len exactly zero,
+    and a second call equal to the first (dk, dv bitwise; dq, reduce-added
+    into a scratch zeroed per call in an order that varies, within 1e-3)."""
+    sm = d ** -0.5
+    if layout == "bshd":
+        hd = h * d
+        if strided and sq == skv:
+            q, k, v = _randn(dev, b, sq, 3 * hd, seed=70).split(hd, dim=-1)
+            do = _randn(dev, b, sq, hd, seed=71)
+        else:
+            q, k, v, do = _bshd_backward_case(dev, b, sq, skv, h, d, kv_len, strided, 70)
+        o, lse = attention.mha_bshd_fwd(q, k, v, h, sm, kv_len, want_lse=True)
+        di = bwd_row_stats(o, do, h)
+
+        def run():
+            return attention.mha_bshd_bwd(q, k, v, do, lse, di, num_heads=h, kv_len=kv_len)
+
+        twin = attention.bshd_bwd_reference(q.float(), k.float(), v.float(), do.float(), lse,
+                                            di, num_heads=h, kv_len=kv_len)
+        kv_dim = 1
+    else:
+        q, do = _randn(dev, b, h, sq, d, seed=72), _randn(dev, b, h, sq, d, seed=73)
+        k, v = _randn(dev, b, h, skv, d, seed=74), _randn(dev, b, h, skv, d, seed=75)
+        o, lse = attention.mha_fwd(q, k, v, sm, kv_len, want_lse=True)
+
+        def run():
+            return attention.mha_bwd(q, k, v, o, lse, do, sm_scale=sm, kv_len=kv_len)
+
+        twin = attention.flash_bwd_reference(q.float(), k.float(), v.float(), o, lse,
+                                             do.float(), sm_scale=sm, kv_len=kv_len)
+        kv_dim = 2
+    got = run()
+    torch.cuda.synchronize()
+    for i, (g_, r) in enumerate(zip(got, twin)):
+        assert g_.shape == r.shape and torch.isfinite(g_).all()
+        if (kv_len or skv) == 1 and i < 2:
+            # one key: p = 1 and dp = di, so dq and dk vanish up to rounding
+            assert (g_.float() - r).abs().max() <= 1e-3
+        else:
+            assert _rel_l2(g_, r) <= 2e-2
+    if kv_len is not None and kv_len < skv:
+        for g_ in got[1:]:
+            assert not g_.narrow(kv_dim, kv_len, skv - kv_len).any()
+    again = run()
+    torch.cuda.synchronize()
+    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+    # (relative, and absolute where dq vanishes: with one key it is exactly 0)
+    assert (again[0].float() - got[0].float()).norm() <= 1e-3 * got[0].float().norm() + 1e-6
 
 
 # ── kernels #10 / #11: mha on (B, H, S, D) ───────────────────────────────
