@@ -81,8 +81,6 @@ constexpr int kThreads = 384;
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
 // shared-memory layout, byte offsets (every tile 1024-byte aligned). A bf16
 // tile of R rows and D columns is D/64 column blocks of R rows x 128 bytes.
 template <int D, bool kF32P>
@@ -117,11 +115,6 @@ struct Params {
   int bhsd;  // the bf16 maps are (D, S, H, B) rather than (D, H, S, B)
   float qscale, sm_scale;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -479,54 +472,6 @@ int convert(const float* acc, bf16* out, long long sb, long long ss, long long s
 
 // ── host side ──
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (a libcuda entry point) looked up through the
-// runtime, so the library links without -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-struct HeadView {  // bf16 rows of D contiguous columns per head, element strides
-  const void* ptr;
-  long long sb, ss, sh;
-  int rows;
-};
-
-// the 4-D map (D, H, S, B) of a BSHD view (heads inner), or (D, S, H, B) of
-// a BHSD one; boxes of 64 columns x 64 rows of one head, 128-byte swizzle
-bool bf16_map(CUtensorMap* map, const HeadView& x, int d, int heads, int batch, bool bhsd) {
-  const cuuint64_t inner = bhsd ? x.rows : heads, outer = bhsd ? heads : x.rows;
-  const cuuint64_t s1 = 2ull * (bhsd ? x.ss : x.sh), s2 = 2ull * (bhsd ? x.sh : x.ss);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), inner, outer,
-                              static_cast<cuuint64_t>(batch)};
-  // a batch of one may carry any stride: give it the dense one
-  const cuuint64_t strides[3] = {s1, s2, batch > 1 ? 2ull * x.sb : s2 * outer};
-  const cuuint32_t box[4] = {64, bhsd ? 64u : 1u, bhsd ? 1u : 64u, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x.ptr),
-                        dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // the fp32 dq scratch (B*H, S_q, D) as a 3-D map, boxes of 64 columns x 64 rows
 bool acc_map(CUtensorMap* map, float* acc, int d, int sq, int rows) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(sq),
@@ -552,10 +497,10 @@ int launch(const Call& c, cudaStream_t stream) {
   if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const bool bhsd = c.p.bhsd != 0;
   CUtensorMap tq, tk, tv, tdo, tdq;
-  if (!bf16_map(&tq, c.q, D, c.p.heads, c.batch, bhsd) ||
-      !bf16_map(&tk, c.k, D, c.p.heads, c.batch, bhsd) ||
-      !bf16_map(&tv, c.v, D, c.p.heads, c.batch, bhsd) ||
-      !bf16_map(&tdo, c.dout, D, c.p.heads, c.batch, bhsd) ||
+  if (!bf16_map(&tq, c.q, D, c.p.heads, c.batch, bhsd, kBQ) ||
+      !bf16_map(&tk, c.k, D, c.p.heads, c.batch, bhsd, 64) ||
+      !bf16_map(&tv, c.v, D, c.p.heads, c.batch, bhsd, 64) ||
+      !bf16_map(&tdo, c.dout, D, c.p.heads, c.batch, bhsd, kBQ) ||
       !acc_map(&tdq, c.dq_acc, D, c.p.sq, c.batch * c.p.heads))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = Smem<D, kF32P>::kBytes + 1024;  // + the 1024-byte alignment

@@ -1,7 +1,8 @@
-// The online-softmax attention forward shared by the port's attention entry
-// points, all in joint_attention.cu so that each instance compiles once: the
-// joint image+text kernel, its single-stream form and the plain multi-head
-// attention read through strides.
+// The online-softmax attention forward of the joint entry points, all in
+// joint_attention.cu so that each instance compiles once: the joint
+// image+text kernel and its single-stream form (`mha_rms`). The plain
+// multi-head forwards (`mha_bshd`, `mha`) have their own wgmma + TMA kernel
+// (attention_fwd_sm90.cu).
 //
 // One kernel template per head width D (64 or 128) walks one or two token
 // streams. Each stream is read in place through its (batch, row, head)
@@ -9,22 +10,15 @@
 // column slices of one fused projection; a stream's kv rows stop at its
 // `kv_len`, and q rows at its `len`.
 //
-// Design (FlashAttention-2 shape; wgmma/TMA come later):
+// Design (FlashAttention-2 shape, mma.sync):
 //  * one block of 4 warps per (q tile of 64 rows, head, batch item); the q
 //    tiles of the first stream come first in the grid, then the second's;
 //  * the block walks the kv tiles of the first stream and then of the second
 //    (64 rows each) into ONE fp32 accumulator with an online softmax, so the
 //    streams are never concatenated and nothing is padded in device memory;
-//  * RMS in fp32, then x weight (when the stream has qk-norm weights); then
-//    the score scaling, a compile-time choice that follows the TPU kernel
-//    each entry point replaces:
-//      - kScaleScores = false (the joint kernels, `_joint_fwd_kernel` and
-//        `_single_fwd_kernel`): q x sm_scale*log2(e), then the cast to bf16,
-//        so QK^T comes out pre-scaled;
-//      - kScaleScores = true (`_bshd_fwd_kernel` and `_fwd_kernel`): QK^T on
-//        the unscaled bf16 q, and the fp32 score fragment x sm_scale*log2(e)
-//        before the running max — the TPU's `dot(q, k) * sm_scale` up to exp
-//        vs exp2 in fp32;
+//  * RMS in fp32, then x weight (when the stream has qk-norm weights), then
+//    q x sm_scale*log2(e) and the cast to bf16, so QK^T comes out pre-scaled:
+//    the order of the TPU's `_joint_fwd_kernel` and `_single_fwd_kernel`;
 //    scores, running max and sum in fp32 with exp2; p cast to bf16 before
 //    p.v; p.v accumulated in fp32; divide by l at the end (a row with l == 0
 //    divides by 1, as the TPU kernels do); the natural-log lse = ln2 * (m +
@@ -94,7 +88,7 @@ constexpr int fwd_smem_bytes() {
 
 // Three blocks per SM at D = 64: at most 168 registers a thread (unbounded,
 // ptxas takes 173, which leaves room for two). Two at D = 128 (207).
-template <int D, bool kScaleScores>
+template <int D>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1)
     attn_fwd_kernel(const __grid_constant__ Stream s0, const __grid_constant__ Stream s1,
                     int s0_qtiles, float qscale, float eps) {
@@ -118,7 +112,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1)
 
   TileRegsT<D> kr, vr;
   fetch_tile<D>(kr, sq.q + b * sq.q_sb + h * sq.q_sh, sq.q_ss, q0, sq.len);
-  store_tile<D>(ks(1), kr, sq.wq, eps, kScaleScores ? 1.f : qscale);
+  store_tile<D>(ks(1), kr, sq.wq, eps, qscale);
   {
     const KvTile t0 = kv_tile(s0, s1, s0_tiles, 0, b, h);
     fetch_tile<D>(kr, t0.k, t0.k_ss, t0.row0, t0.len);
@@ -149,12 +143,6 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1)
     float sc[kBKV / 8][4];  // scores: rows g, g+8 x columns 8j + 2t, +1
     zero(sc);
     mma_abt<D>(sc, qa, ks(i), lane);
-    if (kScaleScores) {
-#pragma unroll
-      for (int j = 0; j < kBKV / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[j][e] *= qscale;
-    }
 
     const KvTile cur = kv_tile(s0, s1, s0_tiles, i, b, h);
     const int nvalid = cur.len - cur.row0;
@@ -240,7 +228,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1)
   }
 }
 
-template <int D, bool kScaleScores>
+template <int D>
 int launch_fwd(const Stream& s0, const Stream& s1, int batch, int num_heads, float qscale,
                float eps, void* stream) {
   const int s0_qtiles = (s0.len + kBQ - 1) / kBQ;
@@ -249,25 +237,23 @@ int launch_fwd(const Stream& s0, const Stream& s1, int batch, int num_heads, flo
   constexpr int smem = fwd_smem_bytes<D>();
   if (smem > 48 * 1024) {  // above the static limit only after opting in
     const cudaError_t e = cudaFuncSetAttribute(
-        attn_fwd_kernel<D, kScaleScores>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        attn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  attn_fwd_kernel<D, kScaleScores>
-      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(s0, s1, s0_qtiles, qscale,
-                                                                    eps);
+  attn_fwd_kernel<D><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      s0, s1, s0_qtiles, qscale, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The head width as a template argument; any other width is refused.
-// qscale = sm_scale * log2(e), applied to q or to the scores (kScaleScores).
-template <bool kScaleScores>
+// qscale = sm_scale * log2(e), applied to q.
 int launch_fwd_dim(int head_dim, const Stream& s0, const Stream& s1, int batch, int num_heads,
                    float qscale, float eps, void* stream) {
   switch (head_dim) {
     case 64:
-      return launch_fwd<64, kScaleScores>(s0, s1, batch, num_heads, qscale, eps, stream);
+      return launch_fwd<64>(s0, s1, batch, num_heads, qscale, eps, stream);
     case 128:
-      return launch_fwd<128, kScaleScores>(s0, s1, batch, num_heads, qscale, eps, stream);
+      return launch_fwd<128>(s0, s1, batch, num_heads, qscale, eps, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

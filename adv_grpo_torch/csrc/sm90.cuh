@@ -1,8 +1,10 @@
 // PTX helpers for Hopper (sm_90a) kernels: mbarriers, TMA tile loads and
 // reduce-adds, wgmma shared-memory descriptors and the wgmma instructions the
 // attention kernels use, the wgmma fence / commit / wait, named barriers and
-// setmaxnreg. Hand-written inline PTX (no CuTe), so a source that includes
-// this header compiles in seconds.
+// setmaxnreg; and, on the host, the TMA tensor maps of the attention
+// operands. Hand-written inline PTX (no CuTe), so a source that includes this
+// header compiles in seconds. The attention forward
+// (attention_fwd_sm90.cu) and backward (attention_bwd_sm90.cu) include it.
 //
 // Shared-memory tiles of bf16 use the 128-byte swizzle that TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B: a tile is a stack of 1024-byte atoms of 8 rows
@@ -12,10 +14,18 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (types only: nothing here links libcuda)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -113,6 +123,11 @@ __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// counts this warp's threads towards barrier `id` without waiting for it
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -169,6 +184,11 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 
 #define SM90_F4(i) "+f"(d[i]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3])
 #define SM90_F16(i) SM90_F4(i), SM90_F4((i) + 4), SM90_F4((i) + 8), SM90_F4((i) + 12)
+#define SM90_R64                                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "   \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "    \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "    \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
 // d (64 x 64 fp32) (+)= A (64 x 16, shared) * B (16 x 64, shared); kTA / kTB:
 // A / B MN-major. scale_d = 0 overwrites d.
@@ -185,6 +205,21 @@ __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t da, uin
       "%32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : SM90_F16(0), SM90_F16(16)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+}
+
+// d (64 x 128 fp32) (+)= A (64 x 16, shared) * B (16 x 128, shared)
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_R64
+      ", %64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : SM90_F16(0), SM90_F16(16), SM90_F16(32), SM90_F16(48)
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
 }
 
@@ -213,12 +248,8 @@ __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], const uint32_t 
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
-      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
-      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
       "}\n"
       : SM90_F16(0), SM90_F16(16), SM90_F16(32), SM90_F16(48)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kTB));
@@ -234,7 +265,61 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
     wgmma_m64n128_rs<kTB>(d, a, db, scale_d);
 }
 
+#undef SM90_R64
 #undef SM90_F16
 #undef SM90_F4
+
+// ── host side: TMA tensor maps ──
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a libcuda entry point) looked up through the
+// runtime, so the library links without -lcuda
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+struct HeadView {  // bf16 rows of D contiguous columns per head, element strides
+  const void* ptr;
+  long long sb, ss, sh;
+  int rows;
+};
+
+// the 4-D map (D, H, S, B) of a BSHD view (heads inner), or (D, S, H, B) of
+// a BHSD one; boxes of 64 columns x `box_rows` rows of one head, 128-byte
+// swizzle. Rows at or past x.rows read as zeros.
+inline bool bf16_map(CUtensorMap* map, const HeadView& x, int d, int heads, int batch, bool bhsd,
+                     int box_rows) {
+  const cuuint64_t inner = bhsd ? x.rows : heads, outer = bhsd ? heads : x.rows;
+  const cuuint64_t s1 = 2ull * (bhsd ? x.ss : x.sh), s2 = 2ull * (bhsd ? x.sh : x.ss);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), inner, outer,
+                              static_cast<cuuint64_t>(batch)};
+  // a batch of one may carry any stride: give it the dense one
+  const cuuint64_t strides[3] = {s1, s2, batch > 1 ? 2ull * x.sb : s2 * outer};
+  const cuuint32_t rows = static_cast<cuuint32_t>(box_rows);
+  const cuuint32_t box[4] = {64, bhsd ? rows : 1u, bhsd ? 1u : rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x.ptr),
+                        dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace sm90

@@ -8,8 +8,8 @@ with its custom VJP (``_flash_mha_bshd``), ``mha`` (the (B, H, S, D) flash
 attention that context-parallel attention runs) with its custom VJP
 (``_flash_mha``), and ``bwd_row_stats``.
 
-On CUDA tensors ``mha_bshd`` launches the forward kernel in
-``csrc/joint_attention.cu`` (``mha_bshd_fwd_bf16``), which reads q/k/v in
+On CUDA tensors ``mha_bshd`` launches ``mha_bshd_fwd_bf16`` (kernel #8), the
+wgmma + TMA forward of ``csrc/attention_fwd_sm90.cu``, which reads q/k/v in
 place through their strides and, when a gradient is needed, writes the
 per-row lse; the backward (``_MhaBshd``) computes di with
 :func:`bwd_row_stats` and launches ``mha_bshd_bwd_bf16`` (kernel #9), the

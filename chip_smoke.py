@@ -107,6 +107,8 @@ SD3.5-M attention forwards of the checkout at PARENT (an older tree) against
 this one's, in PAIRS alternating pairs of processes;
 ``python3 chip_smoke.py --attention-bwd-ab PARENT PAIRS`` likewise times the
 attention backwards #9 (Flux's (1,1536,3072), WAN self and cross) and #11
+(MHA_SHAPES), and ``--attention-fwd-ab PARENT PAIRS`` the attention forwards
+#8 (Flux's single blocks at B = 1 and 4, WAN self and cross) and #10
 (MHA_SHAPES), by CUDA events and by device kernel time.
 
 Prints one JSON line of per-kernel results (each with its least possible time
@@ -179,10 +181,14 @@ MHA_O_REL_L2, MHA_LSE_ABS = 1e-2, 5e-3
 # fp32 plain twin rounded to bf16 (what fp32 p and ds buy over bf16 ones)
 FIDELITY_FACTOR = 1.15
 WAN_FRAMES, WAN_RES, WAN_TEXT = 33, 480, 512
-# the backward kernel of #9 and #11 (wgmma + TMA), and its kernels' names as
-# ptxas and cuobjdump print them
+# the wgmma + TMA kernels: the forward of #8 and #10 and the backward of #9
+# and #11; per source, {kernel name as ptxas and cuobjdump print it: instances}
+# (the wgmma kernel first, at head widths 64 and 128, both modes of the
+# backward)
+FWD_SM90_SOURCE = "adv_grpo_torch/csrc/attention_fwd_sm90.cu"
 BWD_SM90_SOURCE = "adv_grpo_torch/csrc/attention_bwd_sm90.cu"
-BWD_SM90_KERNELS = ("attn_bwd_sm90_kernel", "attn_bwd_convert_kernel")
+SM90_KERNELS = {FWD_SM90_SOURCE: {"attn_fwd_sm90_kernel": 2},
+                BWD_SM90_SOURCE: {"attn_bwd_sm90_kernel": 4, "attn_bwd_convert_kernel": 1}}
 WAN_TRAIN_OVERRIDES = [f"resolution={WAN_RES}", f"sample.num_frames={WAN_FRAMES}",
                        "sample.num_steps=8", "sample.train_num_steps=2",
                        "train.micro_splits=2", "train.ema=True", "train.ema_interval=2"]
@@ -774,7 +780,7 @@ def check_flux_kernels():
     if not err <= 2e-2:
         raise AssertionError(f"mha_bshd error {err}")
     q, k, v = main
-    results.append(_entry("mha_bshd", "adv_grpo_torch/csrc/joint_attention.cu",
+    results.append(_entry("mha_bshd", FWD_SM90_SOURCE,
                           "adv_grpo_tpu/ops/attention.py:346", err, ms, plain_ms,
                           _attn_bound((q, k, v, q), 1, heads, s, s, d), lib_ms))
 
@@ -968,7 +974,7 @@ def check_flux_model_grads(cpu, gpu, inputs, g):
 
 
 _KERNEL_GROUPS = (  # (group, substrings of the kernel name), first match wins
-    ("attention kernel", ("attn_fwd_kernel",)),
+    ("attention kernel", ("attn_fwd_kernel", "attn_fwd_sm90_kernel")),
     ("attention backward kernels", ("attn_bwd_",)),
     ("per-head RMS kernel", ("rms_heads_kernel",)),
     ("modulated LN kernel", ("layer_norm_kernel<__nv_bfloat16, true>",)),
@@ -1341,7 +1347,7 @@ def check_wan_kernels():
               f"{lib_ms:.4f} ms; bound {least[0]:.4f} ms", flush=True)
         if not err <= 2e-2:
             raise AssertionError(f"mha_bshd WAN {kind} error {err}")
-        results.append(_entry(f"mha_bshd_wan_{kind}", "adv_grpo_torch/csrc/joint_attention.cu",
+        results.append(_entry(f"mha_bshd_wan_{kind}", FWD_SM90_SOURCE,
                               "adv_grpo_tpu/ops/attention.py:346", err, ms, plain_ms, least,
                               lib_ms))
 
@@ -1736,7 +1742,7 @@ def check_mha_kernels():
         print(f"kernel mha (#10) {shape}: max abs err {err:.3e} (output and lse); median "
               f"{ms:.4f} ms vs plain {plain_ms:.4f} ms vs SDPA {lib_ms:.4f} ms; bound "
               f"{least[0]:.4f} ms ({least[1]})", flush=True)
-        results.append(_entry(f"mha_{name}", "adv_grpo_torch/csrc/joint_attention.cu",
+        results.append(_entry(f"mha_{name}", FWD_SM90_SOURCE,
                               "adv_grpo_tpu/ops/attention.py:104", err, ms, plain_ms, least,
                               lib_ms))
 
@@ -1888,14 +1894,13 @@ def sd3_attention_ms(tree):
     qi, ki, vi = (randn(b, s_img, dim) for _ in range(3))
     qt, kt, vt = (randn(b, s_txt, dim) for _ in range(3))
     w = [(1.0 + 0.1 * torch.randn(64, generator=g, device="cuda")).float() for _ in range(4)]
-    joint = _median_ms(lambda: joint_attention.joint_mha(qi, ki, vi, qt, kt, vt, num_heads=heads,
-                                                         rms_weights=w), iters=50, warmup=5)
-    single = _median_ms(lambda: joint_attention.mha_rms(qi, ki, vi, num_heads=heads,
-                                                        rms_weights=w[:2]), iters=50, warmup=5)
-    joint_kernel, _ = _profile_forward(lambda: joint_attention.joint_mha(
-        qi, ki, vi, qt, kt, vt, num_heads=heads, rms_weights=w), reps=20)
-    single_kernel, _ = _profile_forward(lambda: joint_attention.mha_rms(
-        qi, ki, vi, num_heads=heads, rms_weights=w[:2]), reps=20)
+    out = {"module": joint_attention.__file__}
+    for name, fn in (
+            ("joint_mha", lambda: joint_attention.joint_mha(qi, ki, vi, qt, kt, vt, num_heads=heads,
+                                                            rms_weights=w)),
+            ("mha_rms", lambda: joint_attention.mha_rms(qi, ki, vi, num_heads=heads,
+                                                        rms_weights=w[:2]))):
+        out[name] = (_median_ms(fn, iters=50, warmup=5), _profile_forward(fn, reps=20)[0])
     # ptxas's registers per thread of the attention forward, when this
     # process built the tree's kernels: {mangled kernel name: registers}
     registers, entry = {}, None
@@ -1905,43 +1910,18 @@ def sd3_attention_ms(tree):
         m = re.search(r"Used (\d+) registers", line)
         if m and entry and "attn_fwd_kernel" in entry:
             registers[entry] = int(m.group(1))
-    print(json.dumps({"module": joint_attention.__file__, "joint_mha": joint,
-                      "mha_rms": single, "joint_mha_kernel": joint_kernel,
-                      "mha_rms_kernel": single_kernel, "registers": registers}), flush=True)
-
-
-def sd3_attention_ab(parent, pairs):
-    """``--sd3-attention-ab PARENT PAIRS``: PAIRS alternating pairs of
-    :func:`sd3_attention_ms` runs, each in its own process, of the checkout
-    at PARENT and of this one (parent, change, change, parent, ...); prints
-    every run, then each side's median and range."""
-    import statistics
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    runs = {"parent": [], "change": []}
-    for i in range(pairs):
-        for side in (("parent", "change") if i % 2 == 0 else ("change", "parent")):
-            out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                  "--sd3-attention-ms", parent if side == "parent" else here],
-                                 capture_output=True, text=True, check=True).stdout
-            r = json.loads(out.strip().splitlines()[-1])
-            runs[side].append(r)
-            print(f"pair {i} {side}: joint_mha {r['joint_mha']:.4f} ms (kernel "
-                  f"{r['joint_mha_kernel']:.4f}), mha_rms {r['mha_rms']:.4f} ms (kernel "
-                  f"{r['mha_rms_kernel']:.4f}) ({r['module']})", flush=True)
-            for name, n in r["registers"].items():
-                print(f"  ptxas: {name} {n} registers", flush=True)
-    for side, rs in runs.items():
-        for k in ("joint_mha", "joint_mha_kernel", "mha_rms", "mha_rms_kernel"):
-            v = [r[k] for r in rs]
-            print(f"{side} {k}: median {statistics.median(v):.4f} ms, range "
-                  f"{min(v):.4f}..{max(v):.4f} ms over {len(v)} runs", flush=True)
+    out["registers"] = registers
+    print(json.dumps(out), flush=True)
 
 
 # ``--attention-bwd-ab``: #9 at Flux's (1,1536,3072), WAN self and WAN cross
 # (name, B, S_q, S_kv, H, D), and #11 at MHA_SHAPES
 BWD_AB_BSHD = (("flux", 1, 1536, 1536, 24, 128), ("wan_self", 1, 8100, 8100, 12, 128),
                ("wan_cross", 1, 8100, WAN_TEXT, 12, 128))
+# ``--attention-fwd-ab``: #8 at Flux's single blocks (B = 1 and 4), WAN self
+# and WAN cross, and #10 at MHA_SHAPES
+FWD_AB_BSHD = (("flux", 1, 1536, 1536, 24, 128), ("flux_b4", 4, 1536, 1536, 24, 128),
+               ("wan_self", 1, 8100, 8100, 12, 128), ("wan_cross", 1, 8100, WAN_TEXT, 12, 128))
 
 
 def attention_bwd_ms(tree):
@@ -1982,26 +1962,72 @@ def attention_bwd_ms(tree):
     print(json.dumps(out), flush=True)
 
 
-def attention_bwd_ab(parent, pairs):
-    """``--attention-bwd-ab PARENT PAIRS``: PAIRS alternating pairs of
-    :func:`attention_bwd_ms` runs, each in its own process, of the checkout
-    at PARENT and of this one (parent, change, change, parent, ...); prints
-    every run, then each side's median and range per shape."""
+def attention_fwd_ms(tree):
+    """``--attention-fwd-ms TREE``: the ``adv_grpo_torch`` in the checkout at
+    TREE times its attention forwards as the models call them, #8
+    (``mha_bshd``, no lse) at FWD_AB_BSHD on q, k, v read in place from a
+    fused projection (self: one (B, S, 3*H*D) tensor; cross: q alone, k and v
+    from one (B, S_kv, 2*H*D) tensor) and #10 (``mha``) at MHA_SHAPES: median
+    ms of 50 CUDA-event-timed calls after 5 warm-ups (the wrapper's host time
+    included) and device kernel ms per call (mean of 10 traced calls); one
+    JSON line."""
+    sys.path.insert(0, tree)
+    import torch
+
+    from adv_grpo_torch.ops import attention
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    out = {"module": attention.__file__}
+    for name, b, sq, skv, h, d in FWD_AB_BSHD:
+        hd = h * d
+        if sq == skv:
+            q, k, v = randn(b, sq, 3 * hd).split(hd, dim=-1)
+        else:
+            q, (k, v) = randn(b, sq, hd), randn(b, skv, 2 * hd).split(hd, dim=-1)
+        fn = lambda: attention.mha_bshd(q, k, v, num_heads=h)  # noqa: E731
+        out[f"#8 {name}"] = (_median_ms(fn, iters=50, warmup=5), _profile_forward(fn, reps=10)[0])
+        del q, k, v
+    for name, b, h, sq, skv, d, kv_len in MHA_SHAPES:
+        q, k, v = randn(b, h, sq, d), randn(b, h, skv, d), randn(b, h, skv, d)
+        fn = lambda: attention.mha(q, k, v, kv_len=kv_len)  # noqa: E731
+        out[f"#10 {name}"] = (_median_ms(fn, iters=50, warmup=5),
+                              _profile_forward(fn, reps=10)[0])
+        del q, k, v
+    print(json.dumps(out), flush=True)
+
+
+def attention_ab(mode, parent, pairs):
+    """``--sd3-attention-ab`` / ``--attention-bwd-ab`` / ``--attention-fwd-ab
+    PARENT PAIRS``: PAIRS alternating pairs of ``chip_smoke.py MODE TREE``
+    runs (MODE the matching ``-ms`` mode), each in its own process, of the
+    checkout at PARENT and of this one (parent, change, change, parent, ...).
+    Each run prints one JSON line {"module": ..., call: [ms, kernel ms], ...,
+    and optionally "registers": {kernel: registers}}. Prints every run, then
+    each side's median and range per call, and parent / change per call."""
     import statistics
 
     here = os.path.dirname(os.path.abspath(__file__))
+
+    def timed(r):
+        return [(k, v) for k, v in r.items() if k not in ("module", "registers")]
+
     runs = {"parent": [], "change": []}
     for i in range(pairs):
         for side in (("parent", "change") if i % 2 == 0 else ("change", "parent")):
-            out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                  "--attention-bwd-ms", parent if side == "parent" else here],
+            out = subprocess.run([sys.executable, os.path.abspath(__file__), mode,
+                                  parent if side == "parent" else here],
                                  capture_output=True, text=True, check=True).stdout
             r = json.loads(out.strip().splitlines()[-1])
             runs[side].append(r)
             print(f"pair {i} {side} ({r['module']}): " + ", ".join(
-                f"{k} {v[0]:.4f} ms (kernels {v[1]:.4f})" for k, v in r.items()
-                if k != "module"), flush=True)
-    keys = [k for k in runs["change"][0] if k != "module"]
+                f"{k} {v[0]:.4f} ms (kernels {v[1]:.4f})" for k, v in timed(r)), flush=True)
+            for name, n in r.get("registers", {}).items():
+                print(f"  ptxas: {name} {n} registers", flush=True)
+    keys = [k for k, _ in timed(runs["change"][0])]
     medians = {}
     for side, rs in runs.items():
         for k in keys:
@@ -2017,19 +2043,21 @@ def attention_bwd_ab(parent, pairs):
               "ms", flush=True)
 
 
-def check_bwd_sm90_build(build):
-    """The wgmma + TMA backward's ptxas report (registers, shared memory,
-    spill stores per instance) from this process's build; raises on a spill
-    store or on an instance missing from the report. Where cuobjdump is on
-    the machine, prints how many HGMMA (wgmma) instructions each of its
-    instances holds."""
+def check_sm90_build(build):
+    """The wgmma + TMA kernels' ptxas report (registers, shared memory, spill
+    stores per instance) from this process's build, per source in
+    SM90_KERNELS; raises on a spill store or on a missing instance. Where
+    cuobjdump is on the machine, prints how many HGMMA (wgmma) instructions
+    each instance of each wgmma kernel holds, and raises where one holds
+    none."""
     import re
 
+    kernels = {k: src for src, ks in SM90_KERNELS.items() for k in ks}
     report, entry = {}, ""
     for line in build.build_log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1] if "'" in line else line.strip()
-        elif entry and any(k in entry for k in BWD_SM90_KERNELS):
+        elif entry and any(k in entry for k in kernels):
             m = re.search(r"(\d+) bytes spill stores", line)
             if m:
                 report.setdefault(entry, {})["spill_stores"] = int(m.group(1))
@@ -2038,33 +2066,39 @@ def check_bwd_sm90_build(build):
                 report.setdefault(entry, {})["registers"] = int(m.group(1))
                 m = re.search(r"(\d+) bytes smem", line)
                 report[entry]["static_smem"] = int(m.group(1)) if m else 0
-    names = {n: sum(n in e for e in report) for n in BWD_SM90_KERNELS}
-    # the tiles live in dynamic shared memory, sized in the source (Smem) and
-    # set at launch; ptxas sees only the static part
-    print(f"{BWD_SM90_SOURCE} (ptxas): " + "; ".join(
-        f"{e}: {r.get('registers')} registers at entry, {r.get('static_smem')} bytes of static "
-        f"shared memory, {r.get('spill_stores')} bytes of spill stores"
-        for e, r in sorted(report.items())), flush=True)
-    if names["attn_bwd_sm90_kernel"] != 4 or names["attn_bwd_convert_kernel"] != 1:
-        raise AssertionError(f"ptxas reported {names} instances of {BWD_SM90_KERNELS}")
+        if "wgmma" in line and "warning" in line.lower():  # serialised wgmma
+            print(f"  ptxas: {line.strip()}", flush=True)
+    # the tiles live in dynamic shared memory, sized in the sources (Smem)
+    # and set at launch; ptxas sees only the static part
+    for src, ks in SM90_KERNELS.items():
+        print(f"{src} (ptxas): " + "; ".join(
+            f"{e}: {r.get('registers')} registers at entry, {r.get('static_smem')} bytes of "
+            f"static shared memory, {r.get('spill_stores')} bytes of spill stores"
+            for e, r in sorted(report.items()) if any(k in e for k in ks)), flush=True)
+        names = {n: sum(n in e for e in report) for n in ks}
+        if names != ks:
+            raise AssertionError(f"ptxas reported {names} instances, expected {ks}")
     spills = {e: r.get("spill_stores") for e, r in report.items() if r.get("spill_stores") != 0}
     if spills:
-        raise AssertionError(f"the backward kernel spills: {spills}")
+        raise AssertionError(f"a wgmma + TMA kernel spills: {spills}")
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(cuobjdump):
         print("  cuobjdump not found: SASS not inspected", flush=True)
         return
     sass = subprocess.run([cuobjdump, "-sass", build.build()], capture_output=True,
                           text=True).stdout
-    hgmma, fn = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        fn = m.group(1) if m else fn
-        if fn and "attn_bwd_sm90_kernel" in fn and "HGMMA" in line:
-            hgmma[fn] = hgmma.get(fn, 0) + 1
-    print(f"  SASS: HGMMA instructions per attn_bwd_sm90_kernel instance {hgmma}", flush=True)
-    if len(hgmma) != 4:
-        raise AssertionError(f"expected HGMMA in 4 attn_bwd_sm90_kernel instances, got {hgmma}")
+    for src, ks in SM90_KERNELS.items():
+        wgmma_kernel, instances = next(iter(ks.items()))
+        hgmma, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            fn = m.group(1) if m else fn
+            if fn and wgmma_kernel in fn and "HGMMA" in line:
+                hgmma[fn] = hgmma.get(fn, 0) + 1
+        print(f"  SASS: HGMMA instructions per {wgmma_kernel} instance {hgmma}", flush=True)
+        if len(hgmma) != instances:
+            raise AssertionError(f"expected HGMMA in {instances} {wgmma_kernel} instances, got "
+                                 f"{hgmma}")
 
 
 def main() -> int:
@@ -2083,12 +2117,14 @@ def main() -> int:
     if sys.argv[1:2] == ["--attention-bwd-ms"]:
         attention_bwd_ms(sys.argv[2])
         return 0
-    print(smi, flush=True)
-    if sys.argv[1:2] == ["--sd3-attention-ab"]:
-        sd3_attention_ab(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--attention-fwd-ms"]:
+        attention_fwd_ms(sys.argv[2])
         return 0
-    if sys.argv[1:2] == ["--attention-bwd-ab"]:
-        attention_bwd_ab(sys.argv[2], int(sys.argv[3]))
+    print(smi, flush=True)
+    ab = {"--sd3-attention-ab": "--sd3-attention-ms", "--attention-bwd-ab": "--attention-bwd-ms",
+          "--attention-fwd-ab": "--attention-fwd-ms"}
+    if sys.argv[1:2] and sys.argv[1] in ab:
+        attention_ab(ab[sys.argv[1]], sys.argv[2], int(sys.argv[3]))
         return 0
 
     from adv_grpo_torch.kernels import build
@@ -2107,7 +2143,7 @@ def main() -> int:
                 entry = line.split("'")[1] if "'" in line else line.strip()
             elif "Used" in line or "spill" in line:
                 print(f"  {entry}: {line.strip()}", flush=True)
-        check_bwd_sm90_build(build)
+        check_sm90_build(build)
 
     from adv_grpo_torch.ops import attention, fused_norms, joint_attention
 

@@ -1,6 +1,7 @@
 """The plain twin of ``mha_bshd``'s backward kernel (#9, csrc/attention_bwd_sm90.cu)
 against the JAX package, and the kernel library's C interface against its
-ctypes bindings.
+ctypes bindings (and the multi-head forward and backward entry points in
+their wgmma + TMA sources).
 
 The twin (``bshd_bwd_reference``, the CPU path of ``mha_bshd``'s backward)
 follows the kernel's op order: s on q and k as given, scaled in fp32; p and t
@@ -14,6 +15,7 @@ summation order: tolerance 1e-4.
 """
 
 import ctypes
+import glob
 import os
 import re
 
@@ -131,7 +133,14 @@ def test_extern_c_entry_points_match_the_ctypes_signatures():
     assert set(entry) == set(sigs)
     for name, kinds in entry.items():
         assert kinds == sigs[name], name
-    # the two multi-head backwards live in the wgmma + TMA source
-    with open(os.path.join(build.CSRC_DIR, "attention_bwd_sm90.cu")) as f:
-        src = f.read()
-    assert 'extern "C" int mha_bshd_bwd_bf16' in src and 'extern "C" int mha_bwd_bf16' in src
+    # the two multi-head backwards and the two multi-head forwards live in
+    # the wgmma + TMA sources, and nowhere else
+    sources = {}
+    for path in glob.glob(os.path.join(build.CSRC_DIR, "*.cu")):
+        with open(path) as f:
+            sources[os.path.basename(path)] = f.read()
+    for name, home in (("mha_bshd_bwd_bf16", "attention_bwd_sm90.cu"),
+                       ("mha_bwd_bf16", "attention_bwd_sm90.cu"),
+                       ("mha_bshd_fwd_bf16", "attention_fwd_sm90.cu"),
+                       ("mha_fwd_bf16", "attention_fwd_sm90.cu")):
+        assert [f for f, src in sources.items() if f'extern "C" int {name}(' in src] == [home]

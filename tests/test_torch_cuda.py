@@ -15,7 +15,8 @@ the attention backwards 2e-2 relative L2 per cotangent (bf16 rounding of p
 and t, the same budget), at head widths 64 and 128 and for the BSHD backward
 with its kv_len mask, #9 against its twin ``bshd_bwd_reference``; the (B, H,
 S, D) ``mha`` kernels (#10, #11) against the same bounds, #11 against its
-all-fp32 twin; the wgmma + TMA backward (#9, #11) at its tile edges.
+all-fp32 twin; the wgmma + TMA backward (#9, #11) and forward (#8, #10) at
+their tile edges.
 """
 
 import pytest
@@ -487,6 +488,57 @@ def test_attention_backward_sm90_tile_edges(dev, layout, b, sq, skv, h, d, kv_le
     assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
     # (relative, and absolute where dq vanishes: with one key it is exactly 0)
     assert (again[0].float() - got[0].float()).norm() <= 1e-3 * got[0].float().norm() + 1e-6
+
+
+# ── the wgmma + TMA forward (#8 and #10) at its tile edges ───────────────
+
+
+@pytest.mark.parametrize("layout,b,sq,skv,h,d,kv_len,strided", [
+    ("bshd", 1, 1, 1, 2, 128, None, False), ("bshd", 1, 127, 127, 2, 64, None, False),
+    ("bshd", 2, 128, 128, 2, 128, 1, False), ("bshd", 1, 129, 129, 2, 128, 128, True),
+    ("bshd", 1, 257, 257, 3, 64, 129, True), ("bshd", 2, 129, 257, 2, 128, None, True),
+    ("bshd", 1, 257, 127, 2, 64, 1, False), ("bshd", 1, 300, 600, 2, 128, 450, True),
+    ("bshd", 2, 65, 300, 2, 64, 100, True), ("bhsd", 1, 1, 257, 2, 128, 129, False),
+    ("bhsd", 2, 129, 1, 2, 64, None, False), ("bhsd", 1, 257, 128, 2, 128, 1, False),
+    ("bhsd", 1, 127, 129, 2, 64, 128, False), ("bhsd", 1, 128, 257, 3, 128, 129, False),
+    ("bhsd", 1, 65, 257, 2, 128, 100, False), ("bhsd", 2, 300, 1178, 2, 64, 1100, False)])
+def test_attention_forward_sm90_tile_edges(dev, layout, b, sq, skv, h, d, kv_len, strided):
+    """The forward kernel of csrc/attention_fwd_sm90.cu through both entry
+    points (``mha_bshd_fwd_bf16``: #8, ``mha_fwd_bf16``: #10) at the edges of
+    its 128-row q and kv tiles: S = 1, 127, 128, 129, 257, 300; S_q != S_kv
+    both ways; kv_len inside the first kv tile (1, 100) and inside the last
+    walked one (129, 450, 1100), with the tiles wholly past it (e.g. keys
+    1,152..1,177 at kv_len 1,100) never walked; q, k, v read in place as
+    column slices of fused projections; with and without the lse. Against
+    the fp32 plain version: o within 1e-2 relative L2, lse within 5e-3
+    absolute (``test_mha_kernels``' limits); without the lse, o bitwise the
+    same; one launch per call, counted as cross-attention when S_q !=
+    S_kv."""
+    sm = d ** -0.5
+    if layout == "bshd":
+        hd = h * d
+        if strided and sq == skv:
+            q, k, v = _randn(dev, b, sq, 3 * hd, seed=80).split(hd, dim=-1)
+        else:
+            q, k, v, _ = _bshd_backward_case(dev, b, sq, skv, h, d, kv_len, strided, 80)
+        op, fwd = attention.mha_bshd, lambda lse: attention.mha_bshd_fwd(q, k, v, h, sm, kv_len,
+                                                                         want_lse=lse)
+        ref, ref_lse = attention.mha_bshd_reference(q.float(), k.float(), v.float(), num_heads=h,
+                                                    kv_len=kv_len, return_lse=True)
+    else:
+        q, k, v = (_randn(dev, b, h, n, d, seed=81 + i) for i, n in enumerate((sq, skv, skv)))
+        op, fwd = attention.mha, lambda lse: attention.mha_fwd(q, k, v, sm, kv_len, want_lse=lse)
+        ref, ref_lse = attention.attention_reference(q.float(), k.float(), v.float(), sm_scale=sm,
+                                                     kv_len=kv_len, return_lse=True)
+    n0, c0 = op.launches, op.cross_launches
+    o, lse = fwd(True)
+    o2, none = fwd(False)
+    torch.cuda.synchronize()
+    assert op.launches == n0 + 2 and op.cross_launches == c0 + 2 * (sq != skv)
+    assert none is None and o.shape == q.shape and lse.shape == (b, h, sq)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert _rel_l2(o, ref) <= 1e-2 and (lse - ref_lse).abs().max() <= 5e-3
+    assert torch.equal(o2, o)
 
 
 # ── kernels #10 / #11: mha on (B, H, S, D) ───────────────────────────────

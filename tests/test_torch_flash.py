@@ -26,9 +26,9 @@ def _inputs(b, h, sq, skv, d, seed):
     return q, k, v, do
 
 
-def _jax_mha(q, k, v, do, kv_len):
+def _jax_mha(q, k, v, do, kv_len, block=128):
     def f(q, k, v):
-        return jattn.mha(q, k, v, kv_len=kv_len, block_q=128, block_kv=128,
+        return jattn.mha(q, k, v, kv_len=kv_len, block_q=block, block_kv=block,
                          backend="pallas_interpret")
 
     o, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
@@ -42,12 +42,29 @@ def _torch_mha(q, k, v, do, kv_len):
     return [o.detach().numpy()] + [g.numpy() for g in grads]
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("kv_len", [None, 200])
-def test_mha_matches_jax_pallas_interpret(d, kv_len):
-    q, k, v, do = _inputs(1, 2, 256, 256, d, seed=d + (kv_len or 0))
+# (S_q, S_kv, kv_len) at the edges of the card kernels' 128-row q and kv
+# tiles (csrc/attention_fwd_sm90.cu): lengths 1, 63, 65, 127, 129 and 200,
+# S_q != S_kv both ways, kv_len of 1 and 129 (one key into the second tile)
+# and inside the last tile. The JAX kernels take whole-sequence blocks there
+# (block None): 128 does not divide these lengths.
+FWD_TILE_EDGES = [(1, 1, None), (63, 63, None), (65, 65, None), (127, 127, None),
+                  (129, 129, None), (200, 200, None), (63, 200, None), (200, 65, None),
+                  (129, 127, 1), (65, 200, 129), (127, 200, 150), (1, 129, 100)]
+
+
+@pytest.mark.parametrize(
+    "d,sq,skv,kv_len",
+    [(d, 256, 256, kv) for kv in [None, 200] for d in [32, 64, 128]]
+    + [(d, sq, skv, kv) for d in [64, 128] for sq, skv, kv in FWD_TILE_EDGES],
+    ids=[f"{kv}-{d}" for kv in [None, 200] for d in [32, 64, 128]]
+    + [f"{kv}-{d}-sq{sq}-skv{skv}" for d in [64, 128] for sq, skv, kv in FWD_TILE_EDGES])
+def test_mha_matches_jax_pallas_interpret(d, sq, skv, kv_len):
+    """o, dq, dk, dv at S = 256 (blocks of 128) and at the tile edges."""
+    seed = d + (kv_len or 0) if sq == skv == 256 else d + sq + 2 * skv
+    q, k, v, do = _inputs(1, 2, sq, skv, d, seed=seed)
+    block = 128 if sq == skv == 256 else None
     for name, got, want in zip(("o", "dq", "dk", "dv"), _torch_mha(q, k, v, do, kv_len),
-                               _jax_mha(q, k, v, do, kv_len)):
+                               _jax_mha(q, k, v, do, kv_len, block)):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4, err_msg=name)
 
 

@@ -150,16 +150,34 @@ def test_rms_norm_heads_matches_jax_kernel_with_grads(num_heads, hd):
     np.testing.assert_allclose(tw.grad.numpy(), np.asarray(want_dw), rtol=0, atol=TOL_FLUX)
 
 
-@pytest.mark.parametrize("kv_len", [None, 200])
-@pytest.mark.parametrize("h,d", [(2, 128), (4, 64)])
-def test_mha_bshd_matches_jax_kernel(kv_len, h, d):
+# (S_q, S_kv, kv_len) at the edges of the card kernel's 128-row q and kv tiles
+# (csrc/attention_fwd_sm90.cu): lengths 1, 63, 65, 127, 129 and 200, S_q !=
+# S_kv both ways, kv_len of 1 and 129 (one key into the second tile) and
+# inside the last tile
+FWD_TILE_EDGES = [(1, 1, None), (63, 63, None), (65, 65, None), (127, 127, None),
+                  (129, 129, None), (200, 200, None), (63, 200, None), (200, 65, None),
+                  (129, 127, 1), (65, 200, 129), (127, 200, 150), (1, 129, 100)]
+
+
+@pytest.mark.parametrize(
+    "h,d,sq,skv,kv_len",
+    [(h, d, 256, 256, kv) for h, d in [(2, 128), (4, 64)] for kv in [None, 200]]
+    + [(h, d, sq, skv, kv) for h, d in [(2, 128), (4, 64)] for sq, skv, kv in FWD_TILE_EDGES],
+    ids=[f"{h}-{d}-{kv}" for h, d in [(2, 128), (4, 64)] for kv in [None, 200]]
+    + [f"{h}-{d}-{kv}-sq{sq}-skv{skv}" for h, d in [(2, 128), (4, 64)]
+       for sq, skv, kv in FWD_TILE_EDGES])
+def test_mha_bshd_matches_jax_kernel(h, d, sq, skv, kv_len):
+    """The plain forward (what the card kernel is held to) against the TPU's
+    ``_bshd_fwd_kernel`` in interpret mode, at S = 256 and at the card
+    kernel's tile edges."""
     rng = np.random.default_rng(5)
-    q, k, v = (_np(rng, 2, 256, h * d) for _ in range(3))
+    q = _np(rng, 2, sq, h * d)
+    k, v = (_np(rng, 2, skv, h * d) for _ in range(2))
     want = j_mha.mha_bshd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), num_heads=h,
                           kv_len=kv_len, backend="pallas_interpret")
     got = t_mha.mha_bshd(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                          num_heads=h, kv_len=kv_len)
-    assert got.shape == (2, 256, h * d)
+    assert got.shape == (2, sq, h * d)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL_FLUX)
 
 
