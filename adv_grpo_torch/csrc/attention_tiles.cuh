@@ -1,7 +1,7 @@
-// Tile plumbing shared by the attention forward (attention_fwd.cuh) and
-// backward (joint_attention_bwd.cu) kernels: bf16 mma.sync / ldmatrix
-// wrappers, and the 64-row head-tile load that applies the per-head qk-RMS
-// on its way into shared memory.
+// Tile plumbing of the mma.sync joint attention backward
+// (joint_attention_bwd.cu): bf16 mma.sync / ldmatrix wrappers, and the
+// 64-row head-tile load that applies the per-head qk-RMS on its way into
+// shared memory.
 //
 // Tile geometry: a block of 4 warps works on 64-row tiles of one head of
 // width D (64 or 128, a template argument); each warp owns 16 rows of the
@@ -27,7 +27,6 @@ constexpr int kBKV = 64;   // kv rows per tile
 constexpr int kWarps = 4;  // each warp owns 16 rows
 constexpr int kThreads = 32 * kWarps;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 static_assert(kBQ == 16 * kWarps && kBQ == kBKV, "tile geometry");
 
 // bf16 pitch of a shared tile of D columns
@@ -40,10 +39,6 @@ __host__ __device__ constexpr int ld_of() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // d += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate
@@ -68,45 +63,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
-}
-
-// The A fragments (D/16 of them) of 16 rows of a shared tile of D columns,
-// starting at row `row0`: rows g and g+8, columns 2t.. and 2t+8.. of each
-// 16-column step.
-template <int D = kD>
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[D / 16][4], const bf16* tile,
-                                             int row0, int g, int t) {
-  constexpr int ld = ld_of<D>();
-  const bf16* w = tile + row0 * ld;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    a[kk][0] = ld32(w + g * ld + 16 * kk + 2 * t);
-    a[kk][1] = ld32(w + (g + 8) * ld + 16 * kk + 2 * t);
-    a[kk][2] = ld32(w + g * ld + 16 * kk + 8 + 2 * t);
-    a[kk][3] = ld32(w + (g + 8) * ld + 16 * kk + 8 + 2 * t);
-  }
-}
-
-// acc (16 x 64) += a (16 x D, A fragments over the D-wide contraction) * B,
-// where B[k][n] = tile[n][k]: the contraction runs along the columns of the
-// shared tile's 64 rows (S = Q.K^T shape; the tile's rows are the n index).
-template <int D = kD>
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const uint32_t (&a)[D / 16][4],
-                                        const bf16* tile, int lane) {
-  constexpr int ld = ld_of<D>();
-  const int lm_row = lane & 7, lm_mat = lane >> 3;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int j = 0; j < 8; j += 2) {
-      // matrices: tile rows 8j / 8(j+1), columns 16kk / 16kk+8
-      uint32_t b[4];
-      ldmatrix_x4(b, tile + (8 * (j + (lm_mat >> 1)) + lm_row) * ld + 16 * kk +
-                         8 * (lm_mat & 1));
-      mma_16816(acc[j], a[kk], b[0], b[1]);
-      mma_16816(acc[j + 1], a[kk], b[2], b[3]);
-    }
-  }
 }
 
 // acc (16 x 8N) += A * B^T with both operands in shared memory: A is the 16

@@ -17,6 +17,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace sm90 {
 
@@ -304,7 +305,13 @@ struct HeadView {  // bf16 rows of D contiguous columns per head, element stride
 
 // the 4-D map (D, H, S, B) of a BSHD view (heads inner), or (D, S, H, B) of
 // a BHSD one; boxes of 64 columns x `box_rows` rows of one head, 128-byte
-// swizzle. Rows at or past x.rows read as zeros.
+// swizzle. Rows at or past x.rows read as zeros. A map is a function of these
+// arguments alone, and a model's layers hand the same (pointer, shape,
+// strides) again and again (the caching allocator reuses its blocks): the
+// last kMapMemo maps encoded on this thread are kept and looked up first, so
+// a repeated call costs a scan of them instead of an encode.
+constexpr int kMapMemo = 64;
+
 inline bool bf16_map(CUtensorMap* map, const HeadView& x, int d, int heads, int batch, bool bhsd,
                      int box_rows) {
   const cuuint64_t inner = bhsd ? x.rows : heads, outer = bhsd ? heads : x.rows;
@@ -315,11 +322,32 @@ inline bool bf16_map(CUtensorMap* map, const HeadView& x, int d, int heads, int 
   const cuuint64_t strides[3] = {s1, s2, batch > 1 ? 2ull * x.sb : s2 * outer};
   const cuuint32_t rows = static_cast<cuuint32_t>(box_rows);
   const cuuint32_t box[4] = {64, bhsd ? rows : 1u, bhsd ? 1u : rows, 1};
+  const cuuint64_t key[9] = {reinterpret_cast<cuuint64_t>(x.ptr), dims[0], dims[1], dims[2],
+                             dims[3], strides[0], strides[1], strides[2],
+                             (static_cast<cuuint64_t>(rows) << 1) | (bhsd ? 1u : 0u)};
+  struct Memo {
+    cuuint64_t key[kMapMemo][9];
+    CUtensorMap map[kMapMemo];
+    int n = 0, next = 0;
+  };
+  thread_local Memo memo;
+  for (int i = 0; i < memo.n; ++i) {
+    if (memcmp(memo.key[i], key, sizeof key) == 0) {
+      *map = memo.map[i];
+      return true;
+    }
+  }
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x.ptr),
-                        dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  if (encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x.ptr), dims,
+                     strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                     CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  memcpy(memo.key[memo.next], key, sizeof key);
+  memo.map[memo.next] = *map;
+  memo.next = (memo.next + 1) % kMapMemo;
+  memo.n = memo.n < kMapMemo ? memo.n + 1 : kMapMemo;
+  return true;
 }
 
 }  // namespace sm90

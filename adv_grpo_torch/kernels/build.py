@@ -42,12 +42,12 @@ _SIGNATURES = {
     # x, w, y, rows, rows_per_batch, hd, d, x batch/row strides, eps, stream
     "rms_heads_bf16": [_P, _P, _P, _LL, _I, _I, _I, _LL, _LL, _F, _P],
     # image q/k/v/o/lse/len, text q/k/v/o/lse/len, strides, 4 RMS weights,
-    # batch, heads, head dim, qscale, eps, stream
+    # image and text k^ scratch, batch, heads, head dim, qscale, eps, stream
     "joint_attention_fwd_bf16": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P,
-                                 _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
-    # q, k, v, o, lse, len, strides, wq, wk, batch, heads, head dim, qscale,
-    # eps, stream
-    "mha_rms_fwd_bf16": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+                                 _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    # q, k, v, o, lse, len, strides, wq, wk, k^ scratch, batch, heads, head
+    # dim, qscale, eps, stream
+    "mha_rms_fwd_bf16": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
     # q, k, v, o, lse, q rows, kv_len, strides, batch, heads, head dim,
     # qscale, stream
     "mha_bshd_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _F, _P],

@@ -5,13 +5,19 @@ per-head RMS on q/k of each stream, concat [image ; text], full bidirectional
 attention, split (the diffusers JointAttnProcessor contract); ``mha_rms`` is
 the single-stream form used by SD3.5's dual self-attention.
 
-Forward: on CUDA tensors both launch the kernel in ``csrc/joint_attention.cu``,
-which walks the two streams as separate kv tiles of one online softmax,
-straight from the (B, S, H*D) projection layout (D = 64, SD3.5, with the
-qk-RMS fused; or D = 128, Flux, whose qk-norm and RoPE come before), and
-writes the per-row log-sum-exp when a backward will need it. On CPU tensors they run the plain
-versions, which follow the JAX ``backend="reference"`` path op for op: RMS
-(cast back to the input dtype), concat, fp32 softmax, split.
+Forward: on CUDA tensors both launch the wgmma + TMA kernel of
+``csrc/attention_fwd_sm90.cu`` (#2 ``joint_attention_fwd_bf16``, #3
+``mha_rms_fwd_bf16``), which walks the kv tiles of the image stream and then
+of the text stream in one online softmax, straight from the (B, S, H*D)
+projection layout (D = 64, SD3.5, with the qk-RMS fused; or D = 128, Flux,
+whose qk-norm and RoPE come before), and writes the per-row log-sum-exp when
+a backward will need it. With RMS weights the same C entry first writes the
+normalised k into a scratch the wrapper keeps per stream (``rms_k_kernel``),
+and normalises q inside the attention kernel. On CPU tensors they run the
+plain versions, which follow the JAX ``backend="reference"`` path op for op:
+RMS (cast back to the input dtype), concat, fp32 softmax, split.
+:func:`joint_fwd_tiled_reference` is the kernel's twin: it rounds where the
+kernel rounds.
 
 Backward (``torch.autograd.Function``s mirroring the JAX ``_joint_mha_p`` /
 ``_mha_rms_p`` custom VJPs): di = sum o * do per row (:func:`bwd_row_stats`),
@@ -80,6 +86,89 @@ def mha_rms_reference(q, k, v, *, num_heads, rms_weights=None, eps=1e-6,
     return (_from4(o), lse) if return_lse else _from4(o)
 
 
+# the forward kernel's kv tile (csrc/attention_fwd_sm90.cu kBKV)
+KV_TILE = 128
+LN2 = 0.6931471805599453
+
+
+def _sum_sq(xf, halves):
+    """Sum over the last dim of xf^2 in the forward kernel's order, (..., 1):
+    each 8-column chunk summed in column order, then the chunk sums in chunk
+    order; with ``halves`` (a q row, two threads in the kernel) the chunks
+    c % 8 < 4 and the others summed apart, then the two added."""
+    part = (xf * xf).unflatten(-1, (-1, 8))
+    chunk = part[..., 0]
+    for e in range(1, 8):
+        chunk = chunk + part[..., e]
+    n = chunk.shape[-1]
+    groups = ([[c for c in range(n) if c % 8 < 4], [c for c in range(n) if c % 8 >= 4]]
+              if halves else [list(range(n))])
+    sums = []
+    for g in groups:
+        ss = chunk[..., g[0]]
+        for c in g[1:]:
+            ss = ss + chunk[..., c]
+        sums.append(ss)
+    return (sums[0] if len(sums) == 1 else sums[0] + sums[1])[..., None]
+
+
+def joint_fwd_tiled_reference(qs, ks, vs, *, num_heads, rms_weights=None, eps=1e-6,
+                              sm_scale=None):
+    """Plain twin of the joint forward kernel (#2, and #3 with one stream), in
+    its op order: ([o per stream], [lse per stream]).
+
+    ``qs``, ``ks``, ``vs``: one (B, S_i, H*D) tensor per token stream (image,
+    then text; a single stream for ``mha_rms``); ``rms_weights``: None, or one
+    (wq, wk) pair per stream. o comes back in the inputs' dtype, lse in fp32
+    (B, H, S_i), natural log.
+
+    Op order (the TPU's ``_joint_fwd_kernel`` / ``_single_fwd_kernel``): in
+    fp32, q^ = dt(rms(q) * wq * sm_scale * log2 e) and k^ = dt(rms(k) * wk)
+    (without weights q^ = dt(q * sm_scale * log2 e) and k as stored), dt the
+    inputs' dtype, with rms(x) = x * 1 / sqrt(sum(x^2) / D + eps), the sum of
+    squares in the kernel's order (:func:`_sum_sq`); s = q^ k^T in fp32, in
+    base 2; then the kernel's walk: an online softmax over 128-row kv tiles
+    of the first stream and then of the second, with p = exp2(s - running
+    max) cast to dt for p.v, the sum of the unrounded p, fp32 accumulation;
+    o = acc / l (l == 0 divides by 1); lse = ln2 * (m + log2 max(l, 1e-37)).
+    """
+    dt = qs[0].dtype
+    if sm_scale is None:
+        sm_scale = (qs[0].shape[-1] // num_heads) ** -0.5
+    ws = rms_weights or [(None, None)] * len(qs)
+
+    def norm(x, w, halves, scale=None):  # (B, H, S, D) fp32 of x as the kernel reads it
+        xf = _to4(x, num_heads).float()
+        if w is not None:
+            ss = _sum_sq(xf, halves)
+            xf = xf * (1.0 / torch.sqrt(ss / xf.shape[-1] + eps)) * w.float()
+        elif scale is None:
+            return xf
+        if scale is not None:
+            xf = xf * scale
+        return xf.to(dt).float()
+
+    q = torch.cat([norm(x, w[0], True, sm_scale * LOG2E) for x, w in zip(qs, ws)], dim=2)
+    tiles = [kv for k, v, w in zip(ks, vs, ws) if k.shape[1]
+             for kv in zip(norm(k, w[1], False).split(KV_TILE, dim=2),
+                           _to4(v, num_heads).float().split(KV_TILE, dim=2))]
+    m = torch.full(q.shape[:-1] + (1,), -torch.inf, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q)
+    for k, v in tiles:
+        s = q @ k.transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        a = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * a + p.sum(-1, keepdim=True)
+        acc = acc * a + p.to(dt).float() @ v
+        m = m_new
+    o = acc / torch.where(l == 0, torch.ones_like(l), l)
+    lse = ((m + torch.log2(l.clamp_min(1e-37))) * LN2)[..., 0]
+    lens = [x.shape[1] for x in qs]
+    return [_from4(c).to(dt) for c in o.split(lens, dim=2)], list(lse.split(lens, dim=-1))
+
+
 # ─────────────────────────── kernel wrappers ───────────────────────────
 
 
@@ -131,6 +220,29 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# the k^ scratch of the forward's C entries, per (device, stream): reused
+# from call to call (the entry writes it and reads it back before any later
+# launch on that stream runs), grown when a call needs more
+_KHAT = {}
+
+
+def _khat_ptrs(rms_weights, b, lens, hd, dev, stream):
+    """Device pointers of the bf16 (B, S, H*D) scratch, one per stream,
+    into which the forward's C entry writes the normalised k before the
+    attention reads it; Nones without RMS weights."""
+    if rms_weights is None:
+        return [None] * len(lens)
+    need = b * sum(lens) * hd
+    buf = _KHAT.get((dev, stream))
+    if buf is None or buf.numel() < need:
+        buf = _KHAT[dev, stream] = torch.empty((need,), dtype=torch.bfloat16, device=dev)
+    base, ptrs = buf.data_ptr(), []
+    for n in lens:
+        ptrs.append(base)
+        base += 2 * b * n * hd
+    return ptrs
+
+
 def joint_attention_fwd(q_img, k_img, v_img, q_txt, k_txt, v_txt, rms_weights, num_heads,
                    eps, sm_scale, want_lse):
     """(o_img, o_txt, lse_img, lse_txt): the kernel on CUDA, the plain version
@@ -149,12 +261,14 @@ def joint_attention_fwd(q_img, k_img, v_img, q_txt, k_txt, v_txt, rms_weights, n
     o_txt = torch.empty((b, s_t, hd), dtype=torch.bfloat16, device=dev)
     lse_img = _lse_out(b, num_heads, s_i, dev, want_lse)
     lse_txt = _lse_out(b, num_heads, s_t, dev, want_lse)
+    stream = _kernels.stream_ptr(dev)
+    khat = _khat_ptrs(rms_weights, b, (s_i, s_t), hd, dev, stream)
     strides = _strides(q_img, k_img, v_img, o_img, q_txt, k_txt, v_txt, o_txt)
     rc = _kernels.lib().joint_attention_fwd_bf16(
         q_img.data_ptr(), k_img.data_ptr(), v_img.data_ptr(), o_img.data_ptr(),
         _ptr(lse_img), s_i, q_txt.data_ptr(), k_txt.data_ptr(), v_txt.data_ptr(),
-        o_txt.data_ptr(), _ptr(lse_txt), s_t, strides, *w, b, num_heads, d,
-        float(sm_scale * LOG2E), float(eps), _kernels.stream_ptr(dev))
+        o_txt.data_ptr(), _ptr(lse_txt), s_t, strides, *w, *khat, b, num_heads, d,
+        float(sm_scale * LOG2E), float(eps), stream)
     _kernels.check(rc, "joint_mha")
     joint_mha.launches += 1
     return o_img, o_txt, lse_img, lse_txt
@@ -172,10 +286,12 @@ def mha_rms_fwd(q, k, v, rms_weights, num_heads, eps, sm_scale, want_lse):
     w = _check_weights("mha_rms", rms_weights, 2, d, dev)
     o = torch.empty((b, s, hd), dtype=torch.bfloat16, device=dev)
     lse = _lse_out(b, num_heads, s, dev, want_lse)
+    stream = _kernels.stream_ptr(dev)
+    (khat,) = _khat_ptrs(rms_weights, b, (s,), hd, dev, stream)
     rc = _kernels.lib().mha_rms_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _ptr(lse), s,
-        _strides(q, k, v, o), *w, b, num_heads, d, float(sm_scale * LOG2E), float(eps),
-        _kernels.stream_ptr(dev))
+        _strides(q, k, v, o), *w, khat, b, num_heads, d, float(sm_scale * LOG2E), float(eps),
+        stream)
     _kernels.check(rc, "mha_rms")
     mha_rms.launches += 1
     return o, lse

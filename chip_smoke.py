@@ -8,7 +8,11 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
   1. the card's name and power limit, from nvidia-smi;
   2. build the CUDA kernels from adv_grpo_torch/csrc (nvcc, ctypes);
   3. each forward kernel against its plain PyTorch version at the SD3.5-M
-     512^2 shapes, with max errors, stated bounds and median times;
+     512^2 shapes, with max errors, stated bounds and median times; the
+     joint forward #2 and its single-stream form #3 (JOINT_CASES at CFG
+     batch 2 and 8, and JOINT_EDGES: ragged tile edges on both streams)
+     against fp32, against their kernel-order twin and against the parent's
+     error on the same inputs (JOINT_PARENT_ERR);
   4. the two attention backward kernels (and the lse the forwards write for
      them) against their plain versions at the training shape, CFG batch 8:
      relative L2 per cotangent, median times, and the whole autograd backward
@@ -21,7 +25,8 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      512x512 and non-constant, and the kernel launch counts must be exactly
      109/24/13 per MMDiT forward times 40 steps;
   7. the same pipeline at 1 prompt (CFG batch 2) and 4 prompts (CFG batch 8):
-     finite images, seconds per image;
+     finite images, seconds per image, one MMDiT forward's time and its
+     device time by kernel group (torch.profiler);
   8. kernels #10 / #11 (``mha`` on (B, H, S, D)) against their plain
      versions at MHA_SHAPES (WAN's 12x128 at 8,100 tokens, SD3.5-M's 24x64
      joint 1,178 tokens with kv_len 1,100, 2,025 queries against 8,100 keys):
@@ -48,9 +53,9 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
  11. the Flux kernels against their plain versions at the Flux.1-dev 512^2
      shapes: the per-head RMS norm (d = 128, and one head across a 5120-wide
      row), the BSHD attention (B = 1 and 4, and 4608 tokens with kv_len
-     4600), the joint attention at head width 128 without RMS, the modulated
-     LayerNorm at D = 3072; median times beside the plain versions' and one
-     PyTorch library call's;
+     4600), the joint attention at head width 128 without RMS (B = 1 and 4,
+     as in phase 3), the modulated LayerNorm at D = 3072; median times
+     beside the plain versions' and one PyTorch library call's;
  12. the Flux attention backward kernels against their plain twins at the
      Flux.1-dev 512^2 shapes: the BSHD backward at B = 1, S = 1536, 24 heads
      of 128 (and 4608 tokens with kv_len 4600), the joint backward at head
@@ -103,8 +108,11 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      peak memory and one microstep's device time by kernel group.
 
 ``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
-SD3.5-M attention forwards of the checkout at PARENT (an older tree) against
-this one's, in PAIRS alternating pairs of processes;
+joint forwards #2 / #3 (JOINT_CASES: SD3.5-M at CFG batch 2 and 8, Flux.1-dev
+at B = 1 and 4) of the checkout at PARENT (an older tree) against this one's,
+in PAIRS alternating pairs of processes, with each side's error on the same
+inputs; ``--sd3-forward-ab PARENT PAIRS`` one SD3.5-M MMDiT forward at CFG
+batch 2 and 8 and its joint forwards' share;
 ``python3 chip_smoke.py --attention-bwd-ab PARENT PAIRS`` likewise times the
 attention backwards #9 (Flux's (1,1536,3072), WAN self and cross) and #11
 (MHA_SHAPES), and ``--attention-fwd-ab PARENT PAIRS`` the attention forwards
@@ -181,14 +189,50 @@ MHA_O_REL_L2, MHA_LSE_ABS = 1e-2, 5e-3
 # fp32 plain twin rounded to bf16 (what fp32 p and ds buy over bf16 ones)
 FIDELITY_FACTOR = 1.15
 WAN_FRAMES, WAN_RES, WAN_TEXT = 33, 480, 512
-# the wgmma + TMA kernels: the forward of #8 and #10 and the backward of #9
-# and #11; per source, {kernel name as ptxas and cuobjdump print it: instances}
-# (the wgmma kernel first, at head widths 64 and 128, both modes of the
-# backward)
+# the wgmma + TMA kernels: the forward of #8 and #10 (scores scaled) and of
+# #2 and #3 (q pre-scaled, with and without the fused qk-RMS; with it, the k
+# RMS pre-pass rms_k_kernel first), and the backward of #9 and #11; per
+# source, {kernel name as ptxas and cuobjdump print it: instances} (the
+# wgmma kernel first, at head widths 64 and 128, every mode)
 FWD_SM90_SOURCE = "adv_grpo_torch/csrc/attention_fwd_sm90.cu"
 BWD_SM90_SOURCE = "adv_grpo_torch/csrc/attention_bwd_sm90.cu"
-SM90_KERNELS = {FWD_SM90_SOURCE: {"attn_fwd_sm90_kernel": 2},
+SM90_KERNELS = {FWD_SM90_SOURCE: {"attn_fwd_sm90_kernel": 6, "rms_k_kernel": 2},
                 BWD_SM90_SOURCE: {"attn_bwd_sm90_kernel": 4, "attn_bwd_convert_kernel": 1}}
+# the joint forward (#2) and its single-stream form (#3, S_txt = 0): (name,
+# B, S_img, S_txt, heads, head width, qk-RMS). SD3.5-M's 512^2 shapes at CFG
+# batch 2 and 8 (the GRPO replay), Flux.1-dev's at B = 1 and 4; then ragged
+# tile edges on both streams (1, 127, 128, 129, 154 tokens). Each case draws
+# its inputs from its own seed, so ``--sd3-attention-ab`` reads the parent's
+# error on the same inputs.
+JOINT_CASES = (("sd3_b2", 2, 1024, 154, 24, 64, True), ("sd3_b8", 8, 1024, 154, 24, 64, True),
+               ("rms_b2", 2, 1024, 0, 24, 64, True), ("rms_b8", 8, 1024, 0, 24, 64, True),
+               ("flux_b1", 1, 1024, 512, 24, 128, False),
+               ("flux_b4", 4, 1024, 512, 24, 128, False))
+JOINT_EDGES = (("edge_1_154", 2, 1, 154, 24, 64, True),
+               ("edge_127_129", 1, 127, 129, 24, 64, True),
+               ("edge_128_1", 2, 128, 1, 24, 128, False),
+               ("edge_129_127", 1, 129, 127, 24, 128, False),
+               ("edge_154_128", 1, 154, 128, 24, 64, True),
+               ("edge_rms_129", 2, 129, 0, 24, 64, True))
+# #2 / #3's bounds: output 2e-2 absolute and lse 5e-3 against fp32, within
+# 1 bf16 spacing of the kernel-order twin (lse 1e-4), and no worse than
+# JOINT_PARENT_FACTOR times the mma.sync kernel's error on the same inputs,
+# (output, lse) max abs per case as its ``--sd3-attention-ab`` run read them.
+# The spacing against the twin is taken at the largest |twin| of each (row,
+# head) (``_row_ulps``): the twin rounds q^, k^ and p where the kernel does
+# and computes q^ and k^ bit for bit as it does, but its fp32 products sum in
+# another order, and a last-bit difference that flips the rounding of a p
+# moves the whole row by up to about one spacing at its largest output (on
+# an H100 the largest difference read one spacing at |o| of 0.13-0.25, and
+# 4-8 spacings of outputs below 2^-4 taken at their own size)
+JOINT_PARENT_FACTOR = 1.5
+JOINT_PARENT_ERR = {  # the mma.sync kernel of PR 8's tree (NVIDIA H100 80GB HBM3, 700 W)
+    "sd3_b2": (1.446e-3, 1.805e-3), "sd3_b8": (1.733e-3, 2.069e-3),
+    "rms_b2": (1.986e-3, 1.891e-3), "rms_b8": (1.826e-3, 2.031e-3),
+    "flux_b1": (1.256e-3, 1.517e-3), "flux_b4": (1.606e-3, 1.518e-3),
+    "edge_1_154": (3.272e-3, 2.162e-3), "edge_127_129": (2.523e-3, 1.594e-3),
+    "edge_128_1": (5.178e-3, 2.762e-3), "edge_129_127": (3.137e-3, 1.672e-3),
+    "edge_154_128": (2.345e-3, 1.777e-3), "edge_rms_129": (4.341e-3, 2.127e-3)}
 WAN_TRAIN_OVERRIDES = [f"resolution={WAN_RES}", f"sample.num_frames={WAN_FRAMES}",
                        "sample.num_steps=8", "sample.train_num_steps=2",
                        "train.micro_splits=2", "train.ema=True", "train.ema_interval=2"]
@@ -229,6 +273,22 @@ def _median_ms(fn, iters=20, warmup=3):
     return times[len(times) // 2]
 
 
+def _host_ms(fn, calls=100):
+    """The host's ms per call of ``fn``: ``calls`` calls enqueued back to back
+    (fewer than the launch queue holds, so the host never waits for the
+    device), then one synchronize outside the clock."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return host
+
+
 def _bound(nbytes, flops, flop_rate):
     """(bound_ms, bound_by): the least time the card could take to move
     ``nbytes`` (each input read once, each output written once) and do
@@ -263,6 +323,98 @@ def _bf16_ulp(ref):
 
     exp = torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -8)))
     return torch.exp2(exp - 7)
+
+
+def _row_ulps(got, ref, heads):
+    """Max |got - ref| of (B, S, H*D) outputs in bf16 spacings, each taken at
+    the largest |ref| of its (row, head): where two fp32 sum orders flip the
+    bf16 rounding of one p, the row's outputs move by up to about one
+    spacing at its largest output, whatever their own size."""
+    b, s, hd = ref.shape
+    peak = ref.float().abs().view(b, s, heads, hd // heads).amax(-1, keepdim=True)
+    diff = (got.float() - ref.float()).view(b, s, heads, hd // heads).abs()
+    return (diff / _bf16_ulp(peak)).max().item()
+
+
+def joint_inputs(case):
+    """q, k, v of both streams (bf16 (B, S, H*D) on the card) and the RMS
+    weights (1 + 0.1 randn, or None) of a JOINT_CASES / JOINT_EDGES case,
+    drawn from the case's own seed."""
+    import torch
+
+    _, b, s_i, s_t, h, d, rms = case
+    seed = SEED + 40 + (JOINT_CASES + JOINT_EDGES).index(case)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(n):
+        return torch.randn((b, n, h * d), generator=g, device="cuda").to(torch.bfloat16)
+
+    streams = [randn(n) for n in (s_i, s_i, s_i, s_t, s_t, s_t)]
+    w = ([(1.0 + 0.1 * torch.randn(d, generator=g, device="cuda")).float() for _ in range(4)]
+         if rms else None)
+    return streams, w
+
+
+def joint_errors(ja, case):
+    """The forward of ``ja`` (an ``ops.joint_attention`` module) on a case's
+    inputs, with the lse: #2, or #3 where S_txt = 0. Returns (max abs error
+    of the outputs, of the lse) against the fp32 plain version, the outputs
+    and lse per stream, and the inputs."""
+    _, b, s_i, s_t, h, d, rms = case
+    streams, w = joint_inputs(case)
+    f32 = [t.float() for t in streams]
+    if s_t:
+        oi, ot, li, lt = ja.joint_attention_fwd(*streams, w, h, 1e-6, d ** -0.5, True)
+        outs, lses = [oi, ot], [li, lt]
+        ri, rt, rli, rlt = ja.joint_mha_reference(*f32, num_heads=h, rms_weights=w,
+                                                  return_lse=True)
+        refs, ref_lses = [ri, rt], [rli, rlt]
+    else:
+        w = w and w[:2]
+        o, lse = ja.mha_rms_fwd(*streams[:3], w, h, 1e-6, d ** -0.5, True)
+        outs, lses = [o], [lse]
+        r, rl = ja.mha_rms_reference(*f32[:3], num_heads=h, rms_weights=w, return_lse=True)
+        refs, ref_lses = [r], [rl]
+    err = max((o.float() - r).abs().max().item() for o, r in zip(outs, refs))
+    lse_err = max((a - r).abs().max().item() for a, r in zip(lses, ref_lses))
+    return err, lse_err, outs, lses, streams, w
+
+
+def check_joint_cases(cases):
+    """#2 / #3 on the wgmma + TMA kernel at ``cases``: output and lse against
+    fp32 (2e-2, 5e-3), against the kernel-order twin (1 bf16 spacing at each
+    row's largest output, lse 1e-4) and against JOINT_PARENT_FACTOR x
+    the parent's error on the same inputs; returns {case name: (output
+    error, lse error)}."""
+    from adv_grpo_torch.ops import joint_attention as ja
+
+    errs = {}
+    for case in cases:
+        name, b, s_i, s_t, h, d, rms = case
+        err, lse_err, outs, lses, streams, w = joint_errors(ja, case)
+        n = len(outs)
+        pairs = None if w is None else [tuple(w[2 * i:2 * i + 2]) for i in range(n)]
+        t_outs, t_lses = ja.joint_fwd_tiled_reference(streams[0::3][:n], streams[1::3][:n],
+                                                      streams[2::3][:n], num_heads=h,
+                                                      rms_weights=pairs)
+        ulps = max(_row_ulps(o, t, h) for o, t in zip(outs, t_outs))
+        t_lse = max((a - t).abs().max().item() for a, t in zip(lses, t_lses))
+        finite = all(bool(o.isfinite().all()) for o in outs + lses)
+        parent = JOINT_PARENT_ERR.get(name)
+        vs_parent = ("" if parent is None else f"; the parent's {parent[0]:.3e} / "
+                     f"{parent[1]:.3e} (bound {JOINT_PARENT_FACTOR}x)")
+        print(f"  #{2 if s_t else 3} {name} (B={b}, {s_i} + {s_t}, {h}x{d}, RMS {rms}): max abs "
+              f"err {err:.3e} (2e-2), lse {lse_err:.3e} (5e-3); against the twin "
+              f"{ulps:.2f} bf16 ulp (1), lse {t_lse:.3e} (1e-4){vs_parent}", flush=True)
+        ok = finite and err <= 2e-2 and lse_err <= 5e-3 and ulps <= 1.0 and t_lse <= 1e-4
+        if parent is not None:
+            ok = ok and err <= JOINT_PARENT_FACTOR * parent[0] and (
+                lse_err <= JOINT_PARENT_FACTOR * parent[1])
+        if not ok:
+            raise AssertionError(f"joint forward {name}: err {err}, lse {lse_err}, twin {ulps} "
+                                 f"ulp / lse {t_lse}, finite {finite}, parent {parent}")
+        errs[name] = (err, lse_err)
+    return errs
 
 
 def check_kernels():
@@ -306,50 +458,34 @@ def check_kernels():
                           "adv_grpo_tpu/ops/fused_norms.py:252", max_err, ms, plain_ms,
                           _bound(_nbytes(x, sc, sh, x), 8.0 * x.numel(), FP32_FLOPS), None))
 
-    # 2/3: attention; bound 2e-2 absolute, the bf16 bound of the TPU kernel's
-    # own tests (adv_grpo_tpu/ops/joint_attention.py:41-45)
-    def weights(n):
-        return [(1.0 + 0.1 * torch.randn(64, generator=g, device=dev)).float()
-                for _ in range(n)]
-
-    qi, ki, vi = (randn(b, s_img, dim) for _ in range(3))
-    qt, kt, vt = (randn(b, s_txt, dim) for _ in range(3))
-    w4 = weights(4)
-    oi, ot = joint_attention.joint_mha(qi, ki, vi, qt, kt, vt, num_heads=heads,
-                                       rms_weights=w4)
-    ri, rt = joint_attention.joint_mha_reference(
-        *(t.float() for t in (qi, ki, vi, qt, kt, vt)), num_heads=heads, rms_weights=w4)
-    err = max((oi.float() - ri).abs().max().item(), (ot.float() - rt).abs().max().item())
-    ms = _median_ms(lambda: joint_attention.joint_mha(qi, ki, vi, qt, kt, vt,
-                                                      num_heads=heads, rms_weights=w4))
-    plain_ms = _median_ms(lambda: joint_attention.joint_mha_reference(
-        qi, ki, vi, qt, kt, vt, num_heads=heads, rms_weights=w4))
-    print(f"kernel joint_mha: max_abs_err {err:.3e} (bound 2e-2); img 1024 + txt 154 "
-          f"tokens, 24x64, B=2 median {ms:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
-    if not err <= 2e-2:
-        raise AssertionError(f"joint_mha error {err}")
-    # no library call fuses the qk-RMS into the attention
-    results.append(_entry("joint_mha", "adv_grpo_torch/csrc/joint_attention.cu",
-                          "adv_grpo_tpu/ops/joint_attention.py:73", err, ms, plain_ms,
-                          _attn_bound((qi, ki, vi, qt, kt, vt, qi, qt), b, heads,
-                                      s_img + s_txt, s_img + s_txt, 64), None))
-
-    w2 = weights(2)
-    o = joint_attention.mha_rms(qi, ki, vi, num_heads=heads, rms_weights=w2)
-    r = joint_attention.mha_rms_reference(qi.float(), ki.float(), vi.float(),
-                                          num_heads=heads, rms_weights=w2)
-    err = (o.float() - r).abs().max().item()
-    ms = _median_ms(lambda: joint_attention.mha_rms(qi, ki, vi, num_heads=heads,
-                                                    rms_weights=w2))
-    plain_ms = _median_ms(lambda: joint_attention.mha_rms_reference(
-        qi, ki, vi, num_heads=heads, rms_weights=w2))
-    print(f"kernel mha_rms: max_abs_err {err:.3e} (bound 2e-2); (2,1024,1536) 24x64 "
-          f"median {ms:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
-    if not err <= 2e-2:
-        raise AssertionError(f"mha_rms error {err}")
-    results.append(_entry("mha_rms", "adv_grpo_torch/csrc/joint_attention.cu",
-                          "adv_grpo_tpu/ops/joint_attention.py:644", err, ms, plain_ms,
-                          _attn_bound((qi, ki, vi, qi), b, heads, s_img, s_img, 64), None))
+    # 2/3: the joint forward and its single-stream form on the wgmma + TMA
+    # kernel: SD3.5-M's shapes at CFG batch 2 and 8, and ragged tile edges
+    errs = check_joint_cases([c for c in JOINT_CASES if c[5] == 64] + list(JOINT_EDGES))
+    for name, case, replaces in (
+            ("joint_mha", JOINT_CASES[0], "adv_grpo_tpu/ops/joint_attention.py:73"),
+            ("mha_rms", JOINT_CASES[2], "adv_grpo_tpu/ops/joint_attention.py:644")):
+        _, b, s_i, s_t, h, d, _ = case
+        streams, w = joint_inputs(case)
+        if s_t:
+            ms = _median_ms(lambda: joint_attention.joint_mha(*streams, num_heads=h,
+                                                              rms_weights=w))
+            plain_ms = _median_ms(lambda: joint_attention.joint_mha_reference(
+                *streams, num_heads=h, rms_weights=w))
+            tensors = streams + streams[0::3]
+        else:
+            ms = _median_ms(lambda: joint_attention.mha_rms(*streams[:3], num_heads=h,
+                                                            rms_weights=w[:2]))
+            plain_ms = _median_ms(lambda: joint_attention.mha_rms_reference(
+                *streams[:3], num_heads=h, rms_weights=w[:2]))
+            tensors = streams[:3] + streams[:1]
+        err = max(e for n, (e, _) in errs.items()
+                  if (n.startswith("edge_rms") or n.startswith("rms")) == (s_t == 0))
+        print(f"kernel {name}: max_abs_err {err:.3e} (bound 2e-2) over the cases above; B={b}, "
+              f"{s_i} + {s_t} tokens, {h}x{d} median {ms:.4f} ms vs plain {plain_ms:.4f} ms",
+              flush=True)
+        # no library call fuses the qk-RMS into the attention
+        results.append(_entry(name, FWD_SM90_SOURCE, replaces, err, ms, plain_ms,
+                              _attn_bound(tensors, b, h, s_i + s_t, s_i + s_t, d), None))
     return results
 
 
@@ -604,6 +740,21 @@ def run_pipeline():
         print(f"generate {len(prompts)} prompt(s), CFG batch {2 * len(prompts)}: "
               f"{dt:.3f} s, {dt / len(prompts):.3f} s/image (40 steps + VAE decode)",
               flush=True)
+        # one CFG-batched MMDiT forward: its CUDA-event time and its device
+        # time by kernel group
+        n = 2 * len(prompts)
+        emb, pooled = (torch.from_numpy(np.asarray(a)).cuda()
+                       for a in encode(prompts + [""] * len(prompts)))
+        x = pipeline.prepare_latents(torch.Generator(device="cuda").manual_seed(SEED), n)
+        t = torch.full((n,), 500.0, device="cuda")
+        vfn = pipeline.velocity_fn()
+        with torch.inference_mode():
+            fwd_ms = _median_ms(lambda: vfn(x, t, emb, pooled), iters=5, warmup=1)
+            kernel_ms, groups = _profile_forward(lambda: vfn(x, t, emb, pooled))
+        print(f"  one MMDiT forward at CFG batch {n}: {fwd_ms:.2f} ms; device kernel time "
+              f"{kernel_ms:.2f} ms = {100 * kernel_ms / fwd_ms:.1f}% busy", flush=True)
+        for grp, (calls, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
+            print(f"    {grp}: {ms:.2f} ms, {calls:.0f} launches per forward", flush=True)
     return counts
 
 
@@ -784,26 +935,23 @@ def check_flux_kernels():
                           "adv_grpo_tpu/ops/attention.py:346", err, ms, plain_ms,
                           _attn_bound((q, k, v, q), 1, heads, s, s, d), lib_ms))
 
-    # 2 at head width 128, no RMS (Flux's double blocks)
-    qi, ki, vi = (randn(1, s_img, dim) for _ in range(3))
-    qt, kt, vt = (randn(1, s_txt, dim) for _ in range(3))
-    streams = (qi, ki, vi, qt, kt, vt)
-    oi, ot = joint_attention.joint_mha(*streams, num_heads=heads)
-    ri, rt = joint_attention.joint_mha_reference(*(t.float() for t in streams), num_heads=heads)
-    err = max((oi.float() - ri).abs().max().item(), (ot.float() - rt).abs().max().item())
+    # 2 at head width 128, no RMS (Flux's double blocks), B = 1 (timed) and 4
+    errs = check_joint_cases([c for c in JOINT_CASES if c[0].startswith("flux")])
+    streams, _ = joint_inputs(JOINT_CASES[4])
+    qi, ki, vi, qt, kt, vt = streams
     ms = _median_ms(lambda: joint_attention.joint_mha(*streams, num_heads=heads))
     plain_ms = _median_ms(lambda: joint_attention.joint_mha_reference(*streams, num_heads=heads))
     cat4 = [attention.to_bhsd(torch.cat([a, c], dim=1), heads)
             for a, c in ((qi, qt), (ki, kt), (vi, vt))]
     lib_ms = _median_ms(lambda: F.scaled_dot_product_attention(*cat4))
-    print(f"kernel joint_mha (d=128, no RMS): max_abs_err {err:.3e} (bound 2e-2); img 1024 + "
-          f"txt 512, 24x128, B=1 median {ms:.4f} ms vs plain {plain_ms:.4f} ms vs SDPA on the "
-          f"concatenated streams {lib_ms:.4f} ms", flush=True)
-    if not err <= 2e-2:
-        raise AssertionError(f"joint_mha d=128 error {err}")
-    results.append(_entry("joint_mha_d128", "adv_grpo_torch/csrc/joint_attention.cu",
+    err = max(e for e, _ in errs.values())
+    print(f"kernel joint_mha (d=128, no RMS): max_abs_err {err:.3e} (bound 2e-2) at B=1 and 4; "
+          f"img 1024 + txt 512, 24x128, B=1 median {ms:.4f} ms vs plain {plain_ms:.4f} ms vs "
+          f"SDPA on the concatenated streams {lib_ms:.4f} ms", flush=True)
+    results.append(_entry("joint_mha_d128", FWD_SM90_SOURCE,
                           "adv_grpo_tpu/ops/joint_attention.py:73", err, ms, plain_ms,
-                          _attn_bound(streams + (qi, qt), 1, heads, s, s, d), lib_ms))
+                          _attn_bound(streams + [qi, qt], 1, heads, s, s, d), lib_ms))
+    del streams, qi, ki, vi, qt, kt, vt, cat4
 
     # 1 at Flux's width D = 3072 (image and text streams)
     worst = 0.0
@@ -974,7 +1122,12 @@ def check_flux_model_grads(cpu, gpu, inputs, g):
 
 
 _KERNEL_GROUPS = (  # (group, substrings of the kernel name), first match wins
-    ("attention kernel", ("attn_fwd_kernel", "attn_fwd_sm90_kernel")),
+    # the joint forwards (#2, #3): attn_fwd_sm90_kernel's modes 1 and 2, and
+    # the k RMS pre-pass of mode 2 (and the mma.sync `attn_fwd_kernel` of
+    # trees before it, which ``--sd3-forward-ab`` runs)
+    ("joint attention forward", ("rms_k_kernel", "attn_fwd_kernel<") + tuple(
+        f"attn_fwd_sm90_kernel<{d}, {m}>" for d in (64, 128) for m in (1, 2))),
+    ("attention kernel", ("attn_fwd_sm90_kernel",)),
     ("attention backward kernels", ("attn_bwd_",)),
     ("per-head RMS kernel", ("rms_heads_kernel",)),
     ("modulated LN kernel", ("layer_norm_kernel<__nv_bfloat16, true>",)),
@@ -1871,46 +2024,101 @@ def run_context_parallel():
 
 
 def sd3_attention_ms(tree):
-    """``--sd3-attention-ms TREE``: median ms (50 CUDA-event-timed calls after
-    5 warm-ups, the wrapper's host time included) and device kernel ms (mean
-    of 20 traced calls) of the SD3.5-M joint and single-stream qk-RMS
-    attention forwards (B=2, 1024 image + 154 text tokens, 24 heads of 64)
-    of the ``adv_grpo_torch`` in the checkout at TREE, and the forward
-    kernel's registers when this process built it; one JSON line."""
+    """``--sd3-attention-ms TREE``: the ``adv_grpo_torch`` in the checkout at
+    TREE times its joint forwards as the models call them (no lse): #2
+    (``joint_mha``) and #3 (``mha_rms``) at SD3.5-M's CFG batch 2 and 8
+    (1024 image + 154 text tokens, 24 heads of 64, qk-RMS) and #2 at
+    Flux.1-dev's B = 1 and 4 (1024 + 512, 24 heads of 128, no RMS), the
+    JOINT_CASES: median ms of 50 CUDA-event-timed calls after 5 warm-ups
+    (the wrapper's host time included), device kernel ms (mean of 20 traced
+    calls) and the wrapper's host ms per call; then the (output, lse) max
+    abs error against fp32 of
+    every JOINT_CASES and JOINT_EDGES case; and the attention forwards'
+    registers when this process built the tree's kernels; one JSON line."""
     sys.path.insert(0, tree)
     import re
 
-    import torch
-
     from adv_grpo_torch.kernels import build
-    from adv_grpo_torch.ops import joint_attention
+    from adv_grpo_torch.ops import joint_attention as ja
 
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    b, s_img, s_txt, heads, dim = 2, 1024, 154, 24, 1536
-
-    def randn(*shape):
-        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
-
-    qi, ki, vi = (randn(b, s_img, dim) for _ in range(3))
-    qt, kt, vt = (randn(b, s_txt, dim) for _ in range(3))
-    w = [(1.0 + 0.1 * torch.randn(64, generator=g, device="cuda")).float() for _ in range(4)]
-    out = {"module": joint_attention.__file__}
-    for name, fn in (
-            ("joint_mha", lambda: joint_attention.joint_mha(qi, ki, vi, qt, kt, vt, num_heads=heads,
-                                                            rms_weights=w)),
-            ("mha_rms", lambda: joint_attention.mha_rms(qi, ki, vi, num_heads=heads,
-                                                        rms_weights=w[:2]))):
-        out[name] = (_median_ms(fn, iters=50, warmup=5), _profile_forward(fn, reps=20)[0])
-    # ptxas's registers per thread of the attention forward, when this
+    out = {"module": ja.__file__}
+    for case in JOINT_CASES:
+        name, _, _, s_t, h, _, _ = case
+        streams, w = joint_inputs(case)
+        if s_t:
+            fn = lambda: ja.joint_mha(*streams, num_heads=h, rms_weights=w)  # noqa: E731
+        else:
+            fn = lambda: ja.mha_rms(*streams[:3], num_heads=h,  # noqa: E731
+                                    rms_weights=w and w[:2])
+        out[f"{'joint_mha' if s_t else 'mha_rms'} {name}"] = (
+            _median_ms(fn, iters=50, warmup=5), _profile_forward(fn, reps=20)[0], _host_ms(fn))
+        del streams, w, fn
+    out["errors"] = {case[0]: joint_errors(ja, case)[:2] for case in JOINT_CASES + JOINT_EDGES}
+    # ptxas's registers per thread of the attention forwards, when this
     # process built the tree's kernels: {mangled kernel name: registers}
     registers, entry = {}, None
     for line in build.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         entry = m.group(1) if m else entry
         m = re.search(r"Used (\d+) registers", line)
-        if m and entry and "attn_fwd_kernel" in entry:
+        if m and entry and "attn_fwd" in entry:
             registers[entry] = int(m.group(1))
     out["registers"] = registers
+    print(json.dumps(out), flush=True)
+
+
+def sd3_forward_ms(tree):
+    """``--sd3-forward-ms TREE``: one MMDiT forward of ``eval_sd3_fast`` (random
+    weights from the seed) of the ``adv_grpo_torch`` in the checkout at TREE,
+    at CFG batch 2 and 8: median ms of 7 CUDA-event-timed forwards after 3
+    warm-ups, device kernel ms (mean of 3 traced forwards) and the host's ms
+    per forward; the kernel ms of its joint forwards (#2, #3) and the host
+    ms spent in their wrappers (mean of 5 forwards, each synchronized, so no
+    launch waits for the device); one JSON line."""
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+
+    import adv_grpo_torch
+    from adv_grpo_torch.cli.common import (apply_overrides, build_pipeline,
+                                           build_text_encoder, resolve_config)
+    from adv_grpo_torch.models import mmdit
+
+    spent = [0.0]
+
+    def timed(f):  # the host time of every call of f
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = f(*args, **kwargs)
+            spent[0] += time.perf_counter() - t0
+            return out
+        return call
+
+    mmdit.joint_mha, mmdit.mha_rms = timed(mmdit.joint_mha), timed(mmdit.mha_rms)
+
+    config = apply_overrides(resolve_config("eval_sd3_fast"), ["pretrained.model=''"])
+    pipeline = build_pipeline(config)
+    encode = build_text_encoder(config, pipeline)
+    vfn = pipeline.velocity_fn()
+    out, joint, wrapper = {"module": adv_grpo_torch.__file__}, {}, {}
+    for n in (2, 8):
+        emb, pooled = (torch.from_numpy(np.asarray(a)).cuda()
+                       for a in encode(["a flower"] * (n // 2) + [""] * (n // 2)))
+        x = pipeline.prepare_latents(torch.Generator(device="cuda").manual_seed(SEED), n)
+        t = torch.full((n,), 500.0, device="cuda")
+        fn = lambda: vfn(x, t, emb, pooled)  # noqa: E731
+        with torch.inference_mode():
+            ms = _median_ms(fn, iters=7, warmup=3)
+            kernel_ms, groups = _profile_forward(fn, reps=3)
+            out[f"forward B{n}"] = (ms, kernel_ms, _host_ms(fn, calls=3))
+            spent[0] = 0.0
+            for _ in range(5):
+                fn()
+                torch.cuda.synchronize()
+        joint[f"B{n}"] = groups.get("joint attention forward", (0, 0.0))[1]
+        wrapper[f"B{n}"] = spent[0] * 1e3 / 5
+    out["joint forward kernel ms"] = joint
+    out["joint wrapper host ms"] = wrapper
     print(json.dumps(out), flush=True)
 
 
@@ -2001,19 +2209,20 @@ def attention_fwd_ms(tree):
 
 
 def attention_ab(mode, parent, pairs):
-    """``--sd3-attention-ab`` / ``--attention-bwd-ab`` / ``--attention-fwd-ab
-    PARENT PAIRS``: PAIRS alternating pairs of ``chip_smoke.py MODE TREE``
-    runs (MODE the matching ``-ms`` mode), each in its own process, of the
-    checkout at PARENT and of this one (parent, change, change, parent, ...).
-    Each run prints one JSON line {"module": ..., call: [ms, kernel ms], ...,
-    and optionally "registers": {kernel: registers}}. Prints every run, then
-    each side's median and range per call, and parent / change per call."""
+    """``--sd3-attention-ab`` / ``--attention-bwd-ab`` / ``--attention-fwd-ab``
+    / ``--sd3-forward-ab PARENT PAIRS``: PAIRS alternating pairs of
+    ``chip_smoke.py MODE TREE`` runs (MODE the matching ``-ms`` mode), each in
+    its own process, of the checkout at PARENT and of this one (parent,
+    change, change, parent, ...). Each run prints one JSON line {"module":
+    ..., call: [ms, kernel ms(, host ms)], ..., and optionally dicts such as
+    "registers": {kernel: registers}}. Prints every run, then each side's
+    median and range per call, and parent / change per call."""
     import statistics
 
     here = os.path.dirname(os.path.abspath(__file__))
 
     def timed(r):
-        return [(k, v) for k, v in r.items() if k not in ("module", "registers")]
+        return [(k, v) for k, v in r.items() if isinstance(v, list)]
 
     runs = {"parent": [], "change": []}
     for i in range(pairs):
@@ -2027,11 +2236,14 @@ def attention_ab(mode, parent, pairs):
                 f"{k} {v[0]:.4f} ms (kernels {v[1]:.4f})" for k, v in timed(r)), flush=True)
             for name, n in r.get("registers", {}).items():
                 print(f"  ptxas: {name} {n} registers", flush=True)
+            for key in ("joint forward kernel ms", "joint wrapper host ms"):
+                if key in r:
+                    print(f"  {key} {r[key]}", flush=True)
     keys = [k for k, _ in timed(runs["change"][0])]
     medians = {}
     for side, rs in runs.items():
         for k in keys:
-            for j, what in enumerate(("ms", "kernel ms")):
+            for j, what in enumerate(("ms", "kernel ms", "host ms")[:len(rs[0][k])]):
                 v = [r[k][j] for r in rs]
                 medians[side, k, what] = statistics.median(v)
                 print(f"{side} {k} {what}: median {statistics.median(v):.4f}, range "
@@ -2041,6 +2253,13 @@ def attention_ab(mode, parent, pairs):
                                for w in ("ms", "kernel ms"))
         print(f"{k}: parent / change {ratio:.3f}x by median ms, {kernel_ratio:.3f}x by kernel "
               "ms", flush=True)
+    # errors on the same inputs (each side's first run; the kernels are
+    # deterministic): (output, lse) max abs against fp32
+    for case, (err, lse_err) in runs["change"][0].get("errors", {}).items():
+        p_err, p_lse = runs["parent"][0]["errors"][case]
+        print(f"{case} error: change {err:.3e} / lse {lse_err:.3e}, parent {p_err:.3e} / lse "
+              f"{p_lse:.3e}: change / parent {err / p_err:.3f}x, lse {lse_err / p_lse:.3f}x",
+              flush=True)
 
 
 def check_sm90_build(build):
@@ -2120,9 +2339,12 @@ def main() -> int:
     if sys.argv[1:2] == ["--attention-fwd-ms"]:
         attention_fwd_ms(sys.argv[2])
         return 0
+    if sys.argv[1:2] == ["--sd3-forward-ms"]:
+        sd3_forward_ms(sys.argv[2])
+        return 0
     print(smi, flush=True)
     ab = {"--sd3-attention-ab": "--sd3-attention-ms", "--attention-bwd-ab": "--attention-bwd-ms",
-          "--attention-fwd-ab": "--attention-fwd-ms"}
+          "--attention-fwd-ab": "--attention-fwd-ms", "--sd3-forward-ab": "--sd3-forward-ms"}
     if sys.argv[1:2] and sys.argv[1] in ab:
         attention_ab(ab[sys.argv[1]], sys.argv[2], int(sys.argv[3]))
         return 0

@@ -133,8 +133,9 @@ def test_extern_c_entry_points_match_the_ctypes_signatures():
     assert set(entry) == set(sigs)
     for name, kinds in entry.items():
         assert kinds == sigs[name], name
-    # the two multi-head backwards and the two multi-head forwards live in
-    # the wgmma + TMA sources, and nowhere else
+    # the two multi-head backwards and the four attention forwards (the two
+    # multi-head ones and the two joint ones) live in the wgmma + TMA
+    # sources, and nowhere else
     sources = {}
     for path in glob.glob(os.path.join(build.CSRC_DIR, "*.cu")):
         with open(path) as f:
@@ -142,5 +143,7 @@ def test_extern_c_entry_points_match_the_ctypes_signatures():
     for name, home in (("mha_bshd_bwd_bf16", "attention_bwd_sm90.cu"),
                        ("mha_bwd_bf16", "attention_bwd_sm90.cu"),
                        ("mha_bshd_fwd_bf16", "attention_fwd_sm90.cu"),
-                       ("mha_fwd_bf16", "attention_fwd_sm90.cu")):
+                       ("mha_fwd_bf16", "attention_fwd_sm90.cu"),
+                       ("joint_attention_fwd_bf16", "attention_fwd_sm90.cu"),
+                       ("mha_rms_fwd_bf16", "attention_fwd_sm90.cu")):
         assert [f for f, src in sources.items() if f'extern "C" int {name}(' in src] == [home]

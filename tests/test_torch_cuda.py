@@ -16,7 +16,10 @@ and t, the same budget), at head widths 64 and 128 and for the BSHD backward
 with its kv_len mask, #9 against its twin ``bshd_bwd_reference``; the (B, H,
 S, D) ``mha`` kernels (#10, #11) against the same bounds, #11 against its
 all-fp32 twin; the wgmma + TMA backward (#9, #11) and forward (#8, #10) at
-their tile edges.
+their tile edges; the joint forward (#2, #3) on the same forward kernel at
+its tile edges on both streams, against the fp32 plain version and within 1
+bf16 spacing (taken at each row's largest output) of its kernel-order twin
+``joint_fwd_tiled_reference``.
 """
 
 import pytest
@@ -539,6 +542,113 @@ def test_attention_forward_sm90_tile_edges(dev, layout, b, sq, skv, h, d, kv_len
     assert torch.isfinite(o).all() and torch.isfinite(lse).all()
     assert _rel_l2(o, ref) <= 1e-2 and (lse - ref_lse).abs().max() <= 5e-3
     assert torch.equal(o2, o)
+
+
+# ── the joint forward (#2, #3) on the wgmma + TMA kernel ────────────────
+
+
+def _joint_streams(dev, b, s_i, s_t, h, d, strided, seed):
+    """q, k, v of the image and the text stream; ``strided``: column slices
+    of one fused (B, S, 3*H*D) projection per stream, read in place."""
+    hd = h * d
+    if strided:
+        return (*_randn(dev, b, s_i, 3 * hd, seed=seed).split(hd, dim=-1),
+                *_randn(dev, b, s_t, 3 * hd, seed=seed + 1).split(hd, dim=-1))
+    return tuple(_randn(dev, b, s, hd, seed=seed + i)
+                 for i, s in enumerate((s_i, s_i, s_i, s_t, s_t, s_t)))
+
+
+def _check_joint_out(outs, ref, twin, heads):
+    """Each output against the fp32 plain version (2e-2 absolute, the lse
+    too, as ``test_mha_bshd_kernel``: with one or two keys the bf16 rounding
+    of q^ and k^ reaches the lse undiluted) and within 1 bf16 spacing of the
+    kernel-order twin (lse 1e-4), the spacing taken at the largest |twin| of
+    each (row, head): the twin rounds q^, k^ and p where the kernel does and
+    computes q^ and k^ bit for bit as it does, but its fp32 products sum in
+    another order, and a last-bit difference that flips the rounding of a p
+    moves the whole row by up to about one spacing at its largest output."""
+    (o_outs, lse_outs), (o_ref, lse_ref), (o_twin, lse_twin) = outs, ref, twin
+    for o, r, tw in zip(o_outs, o_ref, o_twin):
+        assert o.shape == r.shape and torch.isfinite(o).all()
+        assert (o.float() - r).abs().max() <= 2e-2
+        b, s, hd = tw.shape
+        t4, o4 = (x.float().view(b, s, heads, hd // heads) for x in (tw, o))
+        peak = t4.abs().amax(-1, keepdim=True)
+        assert ((o4 - t4).abs() <= _bf16_ulp(peak)).all()
+    for lse, r, tw in zip(lse_outs, lse_ref, lse_twin):
+        assert lse.shape == r.shape and torch.isfinite(lse).all()
+        assert (lse - r).abs().max() <= 2e-2 and (lse - tw).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("s_i,s_t", [(1, 1), (127, 129), (128, 128), (129, 154), (154, 1),
+                                     (257, 127), (1, 257)])
+@pytest.mark.parametrize("d,use_rms,strided", [(64, True, True), (128, False, True),
+                                                (64, False, False), (128, True, False)])
+def test_joint_attention_forward_sm90_tile_edges(dev, s_i, s_t, d, use_rms, strided):
+    """``joint_attention_fwd_bf16`` (#2) at the edges of its 128-row q and kv
+    tiles on both streams (1, 127, 128, 129, 154, 257 tokens; q tiles that
+    hold only text), d = 64 / 128 with and without the fused qk-RMS (weights
+    1 + 0.1 randn, so a missed rewrite of q or k shows), contiguous and
+    column-slice inputs; with the lse against the fp32 plain version and
+    the kernel-order twin, without it the same output bitwise; one launch
+    per call."""
+    b, h = 2, 2
+    streams = _joint_streams(dev, b, s_i, s_t, h, d, strided, 90 + s_i + s_t)
+    w = ([1.0 + 0.1 * _randn(dev, d, dtype=torch.float32, seed=95 + i) for i in range(4)]
+         if use_rms else None)
+    n0 = joint_attention.joint_mha.launches
+    o_i, o_t, l_i, l_t = joint_attention.joint_attention_fwd(*streams, w, h, 1e-6, d ** -0.5,
+                                                             True)
+    o_i2, o_t2, none_i, none_t = joint_attention.joint_attention_fwd(*streams, w, h, 1e-6,
+                                                                     d ** -0.5, False)
+    torch.cuda.synchronize()
+    assert joint_attention.joint_mha.launches == n0 + 2
+    assert none_i is None and none_t is None
+    assert torch.equal(o_i2, o_i) and torch.equal(o_t2, o_t)
+    r_i, r_t, rl_i, rl_t = joint_attention.joint_mha_reference(
+        *(t.float() for t in streams), num_heads=h, rms_weights=w, return_lse=True)
+    qi, ki, vi, qt, kt, vt = streams
+    pairs = [(w[0], w[1]), (w[2], w[3])] if use_rms else None
+    twin = joint_attention.joint_fwd_tiled_reference([qi, qt], [ki, kt], [vi, vt], num_heads=h,
+                                                     rms_weights=pairs)
+    _check_joint_out(([o_i, o_t], [l_i, l_t]), ([r_i, r_t], [rl_i, rl_t]), twin, h)
+
+
+@pytest.mark.parametrize("s", [1, 127, 128, 129, 257, 1024])
+@pytest.mark.parametrize("d,use_rms", [(64, True), (128, False), (64, False), (128, True)])
+def test_mha_rms_forward_sm90_tile_edges(dev, s, d, use_rms):
+    """``mha_rms_fwd_bf16`` (#3): the joint kernel with no second stream, at
+    the tile edges, against the fp32 plain version and the twin."""
+    b, h = 2, 3
+    q, k, v = (_randn(dev, b, s, h * d, seed=100 + i) for i in range(3))
+    w = ([1.0 + 0.1 * _randn(dev, d, dtype=torch.float32, seed=105 + i) for i in range(2)]
+         if use_rms else None)
+    n0 = joint_attention.mha_rms.launches
+    o, lse = joint_attention.mha_rms_fwd(q, k, v, w, h, 1e-6, d ** -0.5, True)
+    torch.cuda.synchronize()
+    assert joint_attention.mha_rms.launches == n0 + 1
+    r, rl = joint_attention.mha_rms_reference(q.float(), k.float(), v.float(), num_heads=h,
+                                              rms_weights=w, return_lse=True)
+    twin = joint_attention.joint_fwd_tiled_reference([q], [k], [v], num_heads=h,
+                                                     rms_weights=[tuple(w)] if w else None)
+    _check_joint_out(([o], [lse]), ([r], [rl]), twin, h)
+
+
+def test_joint_forward_raises_on_views_the_maps_cannot_take(dev):
+    """A view whose base is not 16-byte aligned, or whose row stride is not a
+    multiple of 8 elements, raises: no fallback to the plain version."""
+    h, d = 2, 64
+    wide = _randn(dev, 1, 40, 2 * h * d + 8)
+    good = wide[..., :h * d]
+    odd_base = wide[..., 1:1 + h * d]  # 2-byte offset
+    odd_rows = _randn(dev, 1, 40, h * d + 4)[..., :h * d]  # row stride 132
+    n0, m0 = joint_attention.joint_mha.launches, joint_attention.mha_rms.launches
+    for bad in (odd_base, odd_rows):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            joint_attention.joint_mha(good, good, good, bad, good, good, num_heads=h)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            joint_attention.mha_rms(good, bad, good, num_heads=h)
+    assert joint_attention.joint_mha.launches == n0 and joint_attention.mha_rms.launches == m0
 
 
 # ── kernels #10 / #11: mha on (B, H, S, D) ───────────────────────────────
