@@ -113,7 +113,6 @@ constexpr int kBKV = 128;   // kv rows per ring stage
 constexpr int kStages = 2;  // K / V ring depth (a third stage read no faster)
 constexpr int kThreads = 384;
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-constexpr int kMaxDevices = 16;
 constexpr int kBarTurn = 1;  // named barriers 1, 2: consumer 0's, 1's turn to issue
 constexpr int kTurnThreads = 256;
 constexpr int kBarQ = 3;  // named barriers 3, 4: consumer 0's, 1's q rows rewritten
@@ -240,46 +239,6 @@ __device__ __forceinline__ void load_kv(const Maps<N>& m, const Params& p, uint8
 // (r % 8) of the row's 128 bytes
 __device__ __forceinline__ int chunk_off(int c, int r, int rows) {
   return (c / 8) * rows * 128 + r * 128 + (((c % 8) ^ (r % 8)) << 4);
-}
-
-// 1 / sqrt(mean(x^2) + eps) of a row whose sum of squares is ss: a
-// correctly rounded square root and division (not rsqrtf), so the plain twin
-// (ops/joint_attention.py) rounds q^ and k^ exactly as the kernel does
-template <int D>
-__device__ __forceinline__ float rms_scale(float ss, float eps) {
-  return 1.f / sqrtf(ss * (1.f / D) + eps);
-}
-
-// the sum of the squares of 8 columns, in column order
-__device__ __forceinline__ float sum_sq(const uint4& x) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-  float ss = 0.f;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 f = __bfloat1622float2(h[e]);
-    ss += f.x * f.x;
-    ss += f.y * f.y;
-  }
-  return ss;
-}
-
-// the 8 columns of x: bf16(x * rs * w * scale) in the TPU's order, with
-// w8 their 8 weights, x * scale alone where w8 is null
-__device__ __forceinline__ uint4 scale_chunk(const uint4& x, float rs, const float* w8,
-                                             float scale) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-  uint4 out;
-  uint32_t* o = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    float2 f = __bfloat1622float2(h[e]);
-    if (w8 != nullptr) {
-      f.x = f.x * rs * w8[2 * e];
-      f.y = f.y * rs * w8[2 * e + 1];
-    }
-    o[e] = pack_bf16(f.x * scale, f.y * scale);
-  }
-  return out;
 }
 
 // one thread: Q once, then K_j and V_j of the walk
@@ -637,16 +596,9 @@ int launch(const HeadView* q, const HeadView* k, const HeadView* v, const Params
       return static_cast<int>(cudaErrorInvalidValue);
   }
   constexpr int smem = Smem<D>::kBytes + 1024;  // + the 1024-byte alignment
-  static bool opted_in[kMaxDevices] = {};  // per device, once (a driver call per launch)
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static bool opted_in[kMaxDevices] = {};
+  const cudaError_t err = opt_in_smem(attn_fwd_sm90_kernel<D, kMode>, smem, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices || !opted_in[dev]) {
-    err = cudaFuncSetAttribute(attn_fwd_sm90_kernel<D, kMode>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < kMaxDevices) opted_in[dev] = true;
-  }
   const int q_tiles = p.q_tiles0 + (kStreams == 2 ? cdiv(p.st[1].sq, kBQ) : 0);
   const dim3 grid(q_tiles, p.heads, batch);
   attn_fwd_sm90_kernel<D, kMode><<<grid, kThreads, smem, stream>>>(m, p);

@@ -1,10 +1,11 @@
 // PTX helpers for Hopper (sm_90a) kernels: mbarriers, TMA tile loads and
 // reduce-adds, wgmma shared-memory descriptors and the wgmma instructions the
 // attention kernels use, the wgmma fence / commit / wait, named barriers and
-// setmaxnreg; and, on the host, the TMA tensor maps of the attention
-// operands. Hand-written inline PTX (no CuTe), so a source that includes this
-// header compiles in seconds. The attention forward
-// (attention_fwd_sm90.cu) and backward (attention_bwd_sm90.cu) include it.
+// setmaxnreg; the qk-RMS arithmetic of the joint attention; and, on the host,
+// the TMA tensor maps of the attention operands. Hand-written inline PTX (no
+// CuTe), so a source that includes this header compiles in seconds. The
+// attention forward (attention_fwd_sm90.cu) and backward
+// (attention_bwd_sm90.cu) include it.
 //
 // Shared-memory tiles of bf16 use the 128-byte swizzle that TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B: a tile is a stack of 1024-byte atoms of 8 rows
@@ -16,6 +17,7 @@
 #include <cuda.h>  // CUtensorMap (types only: nothing here links libcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -30,6 +32,51 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ── the qk-RMS of the joint attention kernels ──
+// Shared by the forward's q transform and k pre-pass and the backward's
+// pre-pass, so that both read bit-identical q^ and k^ (their plain twins,
+// ops/joint_attention.py, round them the same way).
+
+// 1 / sqrt(mean(x^2) + eps) of a row whose sum of squares is ss: a
+// correctly rounded square root and division (not rsqrtf)
+template <int D>
+__device__ __forceinline__ float rms_scale(float ss, float eps) {
+  return 1.f / sqrtf(ss * (1.f / D) + eps);
+}
+
+// the sum of the squares of 8 bf16 columns, in column order (each square is
+// exact in fp32, so a contraction into FMA rounds the same)
+__device__ __forceinline__ float sum_sq(const uint4& x) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+  float ss = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    ss += f.x * f.x;
+    ss += f.y * f.y;
+  }
+  return ss;
+}
+
+// the 8 columns of x: bf16(x * rs * w * scale) in the TPU's order, with
+// w8 their 8 weights, x * scale alone where w8 is null
+__device__ __forceinline__ uint4 scale_chunk(const uint4& x, float rs, const float* w8,
+                                             float scale) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+  uint4 out;
+  uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float2 f = __bfloat1622float2(h[e]);
+    if (w8 != nullptr) {
+      f.x = f.x * rs * w8[2 * e];
+      f.y = f.y * rs * w8[2 * e + 1];
+    }
+    o[e] = pack_bf16(f.x * scale, f.y * scale);
+  }
+  return out;
 }
 
 // ── mbarriers ──
@@ -270,6 +317,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 #undef SM90_F16
 #undef SM90_F4
 
+// ── host side: launch set-up ──
+
+constexpr int kMaxDevices = 16;
+
+// lets `kernel` use `bytes` of dynamic shared memory (above 48 KB only after
+// this opt-in), once per device: `done` is the caller's per-kernel record,
+// since the driver call would otherwise cost every launch
+template <typename Kernel>
+inline cudaError_t opt_in_smem(Kernel kernel, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
 // ── host side: TMA tensor maps ──
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -303,15 +367,40 @@ struct HeadView {  // bf16 rows of D contiguous columns per head, element stride
   int rows;
 };
 
-// the 4-D map (D, H, S, B) of a BSHD view (heads inner), or (D, S, H, B) of
-// a BHSD one; boxes of 64 columns x `box_rows` rows of one head, 128-byte
-// swizzle. Rows at or past x.rows read as zeros. A map is a function of these
-// arguments alone, and a model's layers hand the same (pointer, shape,
-// strides) again and again (the caching allocator reuses its blocks): the
-// last kMapMemo maps encoded on this thread are kept and looked up first, so
-// a repeated call costs a scan of them instead of an encode.
+// A tensor map is a function of its encode arguments alone, and a model's
+// layers hand the same (pointer, shape, strides) again and again (the
+// caching allocator reuses its blocks): the last kMapMemo maps encoded on
+// this thread by one call site are kept under their key and looked up first,
+// newest first (one call's maps sit together), so a repeated call costs a
+// short scan instead of an encode. `encode(map)` encodes on a miss.
 constexpr int kMapMemo = 64;
 
+template <typename Encode>
+inline bool memo_map(CUtensorMap* map, const cuuint64_t (&key)[9], Encode encode) {
+  struct Memo {
+    cuuint64_t key[kMapMemo][9];
+    CUtensorMap map[kMapMemo];
+    int n = 0, next = 0;
+  };
+  thread_local Memo memo;
+  for (int i = 1; i <= memo.n; ++i) {
+    const int j = (memo.next - i + kMapMemo) % kMapMemo;
+    if (memcmp(memo.key[j], key, sizeof key) == 0) {
+      *map = memo.map[j];
+      return true;
+    }
+  }
+  if (!encode(map)) return false;
+  memcpy(memo.key[memo.next], key, sizeof key);
+  memo.map[memo.next] = *map;
+  memo.next = (memo.next + 1) % kMapMemo;
+  memo.n = memo.n < kMapMemo ? memo.n + 1 : kMapMemo;
+  return true;
+}
+
+// the 4-D map (D, H, S, B) of a BSHD view (heads inner), or (D, S, H, B) of
+// a BHSD one; boxes of 64 columns x `box_rows` rows of one head, 128-byte
+// swizzle. Rows at or past x.rows read as zeros. Memoised (memo_map).
 inline bool bf16_map(CUtensorMap* map, const HeadView& x, int d, int heads, int batch, bool bhsd,
                      int box_rows) {
   const cuuint64_t inner = bhsd ? x.rows : heads, outer = bhsd ? heads : x.rows;
@@ -325,29 +414,13 @@ inline bool bf16_map(CUtensorMap* map, const HeadView& x, int d, int heads, int 
   const cuuint64_t key[9] = {reinterpret_cast<cuuint64_t>(x.ptr), dims[0], dims[1], dims[2],
                              dims[3], strides[0], strides[1], strides[2],
                              (static_cast<cuuint64_t>(rows) << 1) | (bhsd ? 1u : 0u)};
-  struct Memo {
-    cuuint64_t key[kMapMemo][9];
-    CUtensorMap map[kMapMemo];
-    int n = 0, next = 0;
-  };
-  thread_local Memo memo;
-  for (int i = 0; i < memo.n; ++i) {
-    if (memcmp(memo.key[i], key, sizeof key) == 0) {
-      *map = memo.map[i];
-      return true;
-    }
-  }
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  if (encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x.ptr), dims,
-                     strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                     CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  memcpy(memo.key[memo.next], key, sizeof key);
-  memo.map[memo.next] = *map;
-  memo.next = (memo.next + 1) % kMapMemo;
-  memo.n = memo.n < kMapMemo ? memo.n + 1 : kMapMemo;
-  return true;
+  return memo_map(map, key, [&](CUtensorMap* m) {
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    return encode_tiled()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x.ptr),
+                          dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  });
 }
 
 }  // namespace sm90

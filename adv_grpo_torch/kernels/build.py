@@ -55,12 +55,13 @@ _SIGNATURES = {
     # qscale, stream
     "mha_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # per stream (image, then text): q, k, v, do, lse, di, dq, dk, dv, len;
-    # strides, 4 RMS weights, batch, heads, head dim, sm_scale, eps, stream
-    "joint_attention_bwd_bf16": [_P] * 9 + [_I] + [_P] * 9 + [_I, _P, _P, _P, _P, _P,
-                                                             _I, _I, _I, _F, _F, _P],
-    # q, k, v, do, lse, di, dq, dk, dv, len, strides, wq, wk, batch, heads,
-    # sm_scale, eps, stream
-    "mha_rms_bwd_bf16": [_P] * 9 + [_I, _P, _P, _P, _I, _I, _F, _F, _P],
+    # strides, 4 RMS weights, operand scratch, dq scratch, batch, heads, head
+    # dim, sm_scale, qscale, eps, stream
+    "joint_attention_bwd_bf16": [_P] * 9 + [_I] + [_P] * 9 + [_I] + [_P] * 7
+                                + [_I, _I, _I, _F, _F, _F, _P],
+    # q, k, v, do, lse, di, dq, dk, dv, len, strides, wq, wk, operand scratch,
+    # dq scratch, batch, heads, sm_scale, qscale, eps, stream
+    "mha_rms_bwd_bf16": [_P] * 9 + [_I] + [_P] * 5 + [_I, _I, _F, _F, _F, _P],
     # q, k, v, do, lse, di, dq, dk, dv, dq scratch, dk/dv scratch, q splits,
     # q rows, kv rows, kv_len, strides, batch, heads, head dim, sm_scale, stream
     "mha_bshd_bwd_bf16": [_P] * 11 + [_I, _I, _I, _I, _P, _I, _I, _I, _F, _P],

@@ -1,6 +1,6 @@
 """Multi-head attention in the (B, S, H*D) projection layout and in the
 (B, H, S, D) layout, their plain versions and backwards, and the row
-statistics and backward twin the fused attention backwards share.
+statistics and kernel-wrapper checks the fused attentions share.
 
 Port of adv_grpo_tpu/ops/attention.py: ``attention_reference`` (with the
 ``kv_len`` key mask), ``mha_bshd`` (Flux's single-block and WAN's attention)
@@ -21,9 +21,7 @@ its backward (``_FlashMha``), the same backward kernel as ``mha_bwd_bf16``
 the plain version, which follows the JAX ``backend="reference"`` path (fp32
 scores, masked keys set to the JAX package's finite mask value, fp32
 softmax, cast back to q's dtype), and the backwards the kernels' plain twins
-:func:`bshd_bwd_reference` and :func:`flash_bwd_reference`;
-:func:`attention_bwd_reference` is the twin of the joint backwards
-(``ops/joint_attention.py``).
+:func:`bshd_bwd_reference` and :func:`flash_bwd_reference`.
 
 The TPU layout's lane broadcast of the statistics (``LSE_LANES``) and its
 zero padding of S to a block multiple have no counterpart here: the
@@ -78,58 +76,6 @@ def mha_bshd_reference(q, k, v, *, num_heads, sm_scale=None, kv_len=None,
                                  to_bhsd(v, num_heads), sm_scale=sm_scale, kv_len=kv_len,
                                  return_lse=True)
     return (from_bhsd(o), lse) if return_lse else from_bhsd(o)
-
-
-def attention_bwd_reference(qs, ks, vs, dos, lses, dis, *, num_heads, rms_weights=None,
-                            eps=1e-6, sm_scale=None):
-    """Plain twin of the joint attention backward kernels (#4, #5), in their
-    op order.
-
-    ``qs``, ``ks``, ``vs``, ``dos``: one (B, S_i, H*D) tensor per token
-    stream (image, then text; a single stream for ``mha_rms``); ``lses``,
-    ``dis``: fp32 (B, H, S_i) per stream. ``rms_weights``: None, or one (wq,
-    wk) pair per stream. Returns (dyq, dyk, dv) per stream — the cotangents
-    of the normalised q and k, and of v — in the inputs' dtype.
-
-    Op order (the TPU's fused bodies, adv_grpo_tpu/ops/joint_attention.py
-    :275-320 and ops/attention.py:516-545): RMS in fp32, then x w; qs2 = dt(yq
-    * sm_scale * log2 e); s = qs2 . dt(yk); p = exp2(s - lse * log2 e); dv =
-    dt(p)^T do; dp = do v^T; t = dt(p * (dp - di)); dyk = t^T dt(yq *
-    sm_scale); dyq = (t dt(yk)) * sm_scale — the kernel's order, one rounding
-    fewer than the TPU's t dt(dt(yk) * sm_scale), equal to it when sm_scale is
-    a power of two (head width 64); fp32 accumulation.
-    """
-    dt = qs[0].dtype
-    d = qs[0].shape[-1] // num_heads
-    if sm_scale is None:
-        sm_scale = d ** -0.5
-
-    def norm(x, w):  # (B, H, S, D) fp32 of the (optionally) RMS-normalised x
-        xf = to_bhsd(x, num_heads).float()
-        if w is None:
-            return xf
-        return xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps) * w.float()
-
-    ws = rms_weights or [(None, None)] * len(qs)
-    yq = torch.cat([norm(q, w[0]) for q, w in zip(qs, ws)], dim=2)
-    yk = torch.cat([norm(k, w[1]) for k, w in zip(ks, ws)], dim=2).to(dt).float()
-    v = torch.cat([to_bhsd(a, num_heads) for a in vs], dim=2).float()
-    do = torch.cat([to_bhsd(a, num_heads) for a in dos], dim=2).float()
-    lse2 = torch.cat(lses, dim=-1)[..., None].float() * LOG2E
-    di = torch.cat(dis, dim=-1)[..., None].float()
-
-    qs2 = (yq * (sm_scale * LOG2E)).to(dt).float()
-    yq_s = (yq * sm_scale).to(dt).float()
-    p = torch.exp2(qs2 @ yk.transpose(-1, -2) - lse2)
-    dv = p.to(dt).float().transpose(-1, -2) @ do
-    t = (p * (do @ v.transpose(-1, -2) - di)).to(dt).float()
-    dyk = t.transpose(-1, -2) @ yq_s
-    dyq = (t @ yk) * sm_scale
-
-    q_lens, kv_lens = [q.shape[1] for q in qs], [k.shape[1] for k in ks]
-    outs = [[from_bhsd(c).to(dt) for c in torch.split(a, lens, dim=2)]
-            for a, lens in ((dyq, q_lens), (dyk, kv_lens), (dv, kv_lens))]
-    return [tuple(o[i] for o in outs) for i in range(len(qs))]
 
 
 def bwd_row_stats(o, do, num_heads):

@@ -21,12 +21,20 @@ kernel rounds.
 
 Backward (``torch.autograd.Function``s mirroring the JAX ``_joint_mha_p`` /
 ``_mha_rms_p`` custom VJPs): di = sum o * do per row (:func:`bwd_row_stats`),
-then the backward kernel in ``csrc/joint_attention_bwd.cu`` (CUDA) or its plain
-twin (CPU) — both in the TPU kernel's op order — gives the cotangents of the
-NORMALISED q and k and of v, and the closed-form RMS backward turns those into
-dq, dk and the RMS-weight gradients. The joint backward takes D = 64 (with or
-without RMS) and D = 128 (without RMS, Flux's double blocks); the
-single-stream RMS backward takes D = 64; other widths raise.
+then the backward gives the cotangents of the NORMALISED q and k and of v,
+and the closed-form RMS backward turns those into dq, dk and the RMS-weight
+gradients. On CUDA tensors the C entries ``joint_attention_bwd_bf16`` (#4)
+and ``mha_rms_bwd_bf16`` (#5) launch the wgmma + TMA backward of
+``csrc/attention_bwd_sm90.cu`` in its joint mode: a pre-pass writes q^, q_s
+and (with RMS weights) k^ of each stream into a scratch the wrapper keeps
+per (device, stream) and zeroes the fp32 dq scratch beside it, then the
+backward and the dq convert run. On CPU tensors the plain twin
+:func:`attention_bwd_reference` runs, in the kernel's op order. q^ and k^
+come from the same code as the forward's (:func:`joint_operands` here,
+``csrc/sm90.cuh`` on the card), so the backward's p is the forward's. The
+joint backward takes D = 64 (with or without RMS) and D = 128 (without RMS,
+Flux's double blocks); the single-stream one takes D = 64; other widths
+raise.
 """
 
 from __future__ import annotations
@@ -35,8 +43,8 @@ import torch
 
 from adv_grpo_torch.kernels import build as _kernels
 from adv_grpo_torch.ops.attention import (
-    HEAD_DIMS, LOG2E, attention_bwd_reference, attention_reference, bwd_row_stats, check_rows,
-    check_stats, head_dim_of, int64_array)
+    HEAD_DIMS, LOG2E, attention_reference, bwd_row_stats, check_rows, check_stats, head_dim_of,
+    int64_array)
 from adv_grpo_torch.ops.attention import from_bhsd as _from4
 from adv_grpo_torch.ops.attention import to_bhsd as _to4
 from adv_grpo_torch.ops.fused_norms import rms_bwd_closed, rms_reference
@@ -104,12 +112,49 @@ def _sum_sq(xf, halves):
     groups = ([[c for c in range(n) if c % 8 < 4], [c for c in range(n) if c % 8 >= 4]]
               if halves else [list(range(n))])
     sums = []
-    for g in groups:
+    for g in filter(None, groups):  # a head narrower than 64 has one half
         ss = chunk[..., g[0]]
         for c in g[1:]:
             ss = ss + chunk[..., c]
         sums.append(ss)
     return (sums[0] if len(sums) == 1 else sums[0] + sums[1])[..., None]
+
+
+def _operand(x, w, num_heads, eps, halves, scale=None):
+    """(B, H, S, D) fp32 of the (B, S, H*D) ``x`` as the joint kernels read
+    it: with the RMS weight ``w``, dt(x * 1 / sqrt(sum(x^2) / D + eps) * w [*
+    scale]), the sum of squares in the kernels' order (:func:`_sum_sq`,
+    ``halves`` for q); without it dt(x * scale), or x as stored without a
+    scale; dt is x's dtype."""
+    xf = _to4(x, num_heads).float()
+    if w is not None:
+        ss = _sum_sq(xf, halves)
+        xf = xf * (1.0 / torch.sqrt(ss / xf.shape[-1] + eps)) * w.float()
+    elif scale is None:
+        return xf
+    if scale is not None:
+        xf = xf * scale
+    return xf.to(x.dtype).float()
+
+
+def joint_operands(qs, ks, *, num_heads, rms_weights=None, eps=1e-6, sm_scale=None):
+    """Per token stream, (q^, q_s, k^) as the joint kernels form them, fp32
+    (B, H, S_i, D) of values in the inputs' dtype dt: q^ = dt(yq * sm_scale *
+    log2 e) (the scores' operand, in base 2), q_s = dt(yq * sm_scale) (the
+    backward's dk operand) and k^ = dt(yk), with yq = rms(q) * wq and yk =
+    rms(k) * wk in fp32 (q and k as stored without weights; k^ is then k
+    itself), rms(x) = x * 1 / sqrt(sum(x^2) / D + eps). The forward (q^ and
+    k^) and the backward's pre-pass (all three) form them with one code on
+    the card (``csrc/sm90.cuh``), and both twins take them from here: so the
+    backward's p = exp2(q^ k^T - lse * log2 e) is the forward's. ``qs``,
+    ``ks``: one (B, S_i, H*D) tensor per stream; ``rms_weights``: None or one
+    (wq, wk) pair per stream."""
+    if sm_scale is None:
+        sm_scale = (qs[0].shape[-1] // num_heads) ** -0.5
+    ws = rms_weights or [(None, None)] * len(qs)
+    return [(_operand(q, w[0], num_heads, eps, True, sm_scale * LOG2E),
+             _operand(q, w[0], num_heads, eps, True, sm_scale),
+             _operand(k, w[1], num_heads, eps, False)) for q, k, w in zip(qs, ks, ws)]
 
 
 def joint_fwd_tiled_reference(qs, ks, vs, *, num_heads, rms_weights=None, eps=1e-6,
@@ -123,34 +168,18 @@ def joint_fwd_tiled_reference(qs, ks, vs, *, num_heads, rms_weights=None, eps=1e
     (B, H, S_i), natural log.
 
     Op order (the TPU's ``_joint_fwd_kernel`` / ``_single_fwd_kernel``): in
-    fp32, q^ = dt(rms(q) * wq * sm_scale * log2 e) and k^ = dt(rms(k) * wk)
-    (without weights q^ = dt(q * sm_scale * log2 e) and k as stored), dt the
-    inputs' dtype, with rms(x) = x * 1 / sqrt(sum(x^2) / D + eps), the sum of
-    squares in the kernel's order (:func:`_sum_sq`); s = q^ k^T in fp32, in
-    base 2; then the kernel's walk: an online softmax over 128-row kv tiles
+    fp32, q^ and k^ of :func:`joint_operands`, dt the inputs' dtype; s = q^
+    k^T in fp32, in base 2; then the kernel's walk: an online softmax over 128-row kv tiles
     of the first stream and then of the second, with p = exp2(s - running
     max) cast to dt for p.v, the sum of the unrounded p, fp32 accumulation;
     o = acc / l (l == 0 divides by 1); lse = ln2 * (m + log2 max(l, 1e-37)).
     """
     dt = qs[0].dtype
-    if sm_scale is None:
-        sm_scale = (qs[0].shape[-1] // num_heads) ** -0.5
-    ws = rms_weights or [(None, None)] * len(qs)
-
-    def norm(x, w, halves, scale=None):  # (B, H, S, D) fp32 of x as the kernel reads it
-        xf = _to4(x, num_heads).float()
-        if w is not None:
-            ss = _sum_sq(xf, halves)
-            xf = xf * (1.0 / torch.sqrt(ss / xf.shape[-1] + eps)) * w.float()
-        elif scale is None:
-            return xf
-        if scale is not None:
-            xf = xf * scale
-        return xf.to(dt).float()
-
-    q = torch.cat([norm(x, w[0], True, sm_scale * LOG2E) for x, w in zip(qs, ws)], dim=2)
-    tiles = [kv for k, v, w in zip(ks, vs, ws) if k.shape[1]
-             for kv in zip(norm(k, w[1], False).split(KV_TILE, dim=2),
+    ops = joint_operands(qs, ks, num_heads=num_heads, rms_weights=rms_weights, eps=eps,
+                         sm_scale=sm_scale)
+    q = torch.cat([o[0] for o in ops], dim=2)
+    tiles = [kv for (_, _, k), v in zip(ops, vs) if k.shape[2]
+             for kv in zip(k.split(KV_TILE, dim=2),
                            _to4(v, num_heads).float().split(KV_TILE, dim=2))]
     m = torch.full(q.shape[:-1] + (1,), -torch.inf, device=q.device)
     l = torch.zeros_like(m)
@@ -167,6 +196,48 @@ def joint_fwd_tiled_reference(qs, ks, vs, *, num_heads, rms_weights=None, eps=1e
     lse = ((m + torch.log2(l.clamp_min(1e-37))) * LN2)[..., 0]
     lens = [x.shape[1] for x in qs]
     return [_from4(c).to(dt) for c in o.split(lens, dim=2)], list(lse.split(lens, dim=-1))
+
+
+def attention_bwd_reference(qs, ks, vs, dos, lses, dis, *, num_heads, rms_weights=None,
+                            eps=1e-6, sm_scale=None):
+    """Plain twin of the joint attention backward kernels (#4, #5), in their
+    op order.
+
+    ``qs``, ``ks``, ``vs``, ``dos``: one (B, S_i, H*D) tensor per token
+    stream (image, then text; a single stream for ``mha_rms``); ``lses``,
+    ``dis``: fp32 (B, H, S_i) per stream. ``rms_weights``: None, or one (wq,
+    wk) pair per stream. Returns (dyq, dyk, dv) per stream — the cotangents
+    of the normalised q and k, and of v — in the inputs' dtype.
+
+    Op order (the TPU's fused bodies, adv_grpo_tpu/ops/joint_attention.py
+    ``_joint_bwd_kernel`` / ``_single_bwd_kernel``), dt the inputs' dtype:
+    q^, q_s and k^ of :func:`joint_operands` (the pre-pass's; q^ and k^ the
+    forward's own); s = q^ k^T; p = exp2(s - lse * log2 e); dv = dt(p)^T do; dp = do v^T; t =
+    dt(p * (dp - di)); dyk = t^T q_s; dyq = (t k^) * sm_scale — one rounding
+    fewer than the TPU's t dt(k^ * sm_scale), equal to it when sm_scale is a
+    power of two (head width 64); fp32 accumulation.
+    """
+    dt = qs[0].dtype
+    if sm_scale is None:
+        sm_scale = (qs[0].shape[-1] // num_heads) ** -0.5
+    ops = joint_operands(qs, ks, num_heads=num_heads, rms_weights=rms_weights, eps=eps,
+                         sm_scale=sm_scale)
+    q_hat, q_s, k_hat = (torch.cat([o[i] for o in ops], dim=2) for i in range(3))
+    v = torch.cat([_to4(a, num_heads) for a in vs], dim=2).float()
+    do = torch.cat([_to4(a, num_heads) for a in dos], dim=2).float()
+    lse2 = torch.cat(lses, dim=-1)[..., None].float() * LOG2E
+    di = torch.cat(dis, dim=-1)[..., None].float()
+
+    p = torch.exp2(q_hat @ k_hat.transpose(-1, -2) - lse2)
+    dv = p.to(dt).float().transpose(-1, -2) @ do
+    t = (p * (do @ v.transpose(-1, -2) - di)).to(dt).float()
+    dyk = t.transpose(-1, -2) @ q_s
+    dyq = (t @ k_hat) * sm_scale
+
+    q_lens, kv_lens = [q.shape[1] for q in qs], [k.shape[1] for k in ks]
+    outs = [[_from4(c).to(dt) for c in torch.split(a, lens, dim=2)]
+            for a, lens in ((dyq, q_lens), (dyk, kv_lens), (dv, kv_lens))]
+    return [tuple(o[i] for o in outs) for i in range(len(qs))]
 
 
 # ─────────────────────────── kernel wrappers ───────────────────────────
@@ -220,10 +291,19 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-# the k^ scratch of the forward's C entries, per (device, stream): reused
-# from call to call (the entry writes it and reads it back before any later
-# launch on that stream runs), grown when a call needs more
-_KHAT = {}
+# the C entries' scratch, per (name, device, stream): reused from call to
+# call (an entry writes it and reads it back before any later launch on
+# that stream runs), grown when a call needs more
+_SCRATCH = {}
+
+
+def _scratch(name, n, dtype, dev, stream):
+    """A 1-D ``dtype`` tensor of at least ``n`` elements on ``dev``, kept for
+    ``stream``."""
+    buf = _SCRATCH.get((name, dev, stream))
+    if buf is None or buf.numel() < n:
+        buf = _SCRATCH[name, dev, stream] = torch.empty((n,), dtype=dtype, device=dev)
+    return buf
 
 
 def _khat_ptrs(rms_weights, b, lens, hd, dev, stream):
@@ -232,11 +312,7 @@ def _khat_ptrs(rms_weights, b, lens, hd, dev, stream):
     attention reads it; Nones without RMS weights."""
     if rms_weights is None:
         return [None] * len(lens)
-    need = b * sum(lens) * hd
-    buf = _KHAT.get((dev, stream))
-    if buf is None or buf.numel() < need:
-        buf = _KHAT[dev, stream] = torch.empty((need,), dtype=torch.bfloat16, device=dev)
-    base, ptrs = buf.data_ptr(), []
+    base, ptrs = _scratch("khat", b * sum(lens) * hd, torch.bfloat16, dev, stream).data_ptr(), []
     for n in lens:
         ptrs.append(base)
         base += 2 * b * n * hd
@@ -297,6 +373,33 @@ def mha_rms_fwd(q, k, v, rms_weights, num_heads, eps, sm_scale, want_lse):
     return o, lse
 
 
+def _bwd_scratch_ptrs(b, lens, hd, rms, dev, stream):
+    """Device pointers of the joint backward's scratch: the bf16 operands
+    its pre-pass writes (per stream q^, q_s and, with RMS weights, k^) and
+    the fp32 dq accumulator it zeroes."""
+    rows = b * sum(lens) * hd
+    return (_scratch("bwd_operands", (3 if rms else 2) * rows, torch.bfloat16, dev,
+                     stream).data_ptr(),
+            _scratch("bwd_dq", rows, torch.float32, dev, stream).data_ptr())
+
+
+def bwd_operands(q, lens, rms):
+    """Per stream, (q^, q_s, k^ or None): the operands the joint backward's
+    pre-pass wrote in its last call on the current stream of ``q``'s device,
+    as bf16 (B, S, H*D) views of its scratch; ``q`` is a (B, S, H*D) input
+    of that call, ``lens`` the streams' lengths, ``rms`` whether it had RMS
+    weights."""
+    b, _, hd = q.shape
+    ops = _SCRATCH["bwd_operands", q.device, _kernels.stream_ptr(q.device)]
+    out, base, n_ops = [], 0, 3 if rms else 2
+    for s in lens:
+        n = b * s * hd
+        views = [ops[base + i * n:base + (i + 1) * n].view(b, s, hd) for i in range(n_ops)]
+        base += n_ops * n
+        out.append((views[0], views[1], views[2] if rms else None))
+    return out
+
+
 def joint_attention_bwd(q_img, k_img, v_img, q_txt, k_txt, v_txt, do_img, do_txt,
                         lse_img, lse_txt, di_img, di_txt, *, num_heads, rms_weights=None,
                         eps=1e-6, sm_scale=None):
@@ -326,12 +429,15 @@ def joint_attention_bwd(q_img, k_img, v_img, q_txt, k_txt, v_txt, do_img, do_txt
     outs = [torch.empty((b, s, hd), dtype=torch.bfloat16, device=dev)
             for s in (s_i, s_i, s_i, s_t, s_t, s_t)]
     strides = _strides(q_img, k_img, v_img, do_img, q_txt, k_txt, v_txt, do_txt)
+    stream = _kernels.stream_ptr(dev)
+    scratch = _bwd_scratch_ptrs(b, (s_i, s_t), hd, rms_weights is not None, dev, stream)
     rc = _kernels.lib().joint_attention_bwd_bf16(
         q_img.data_ptr(), k_img.data_ptr(), v_img.data_ptr(), do_img.data_ptr(),
         lse_img.data_ptr(), di_img.data_ptr(), *(o.data_ptr() for o in outs[:3]), s_i,
         q_txt.data_ptr(), k_txt.data_ptr(), v_txt.data_ptr(), do_txt.data_ptr(),
         lse_txt.data_ptr(), di_txt.data_ptr(), *(o.data_ptr() for o in outs[3:]), s_t,
-        strides, *w, b, num_heads, d, float(sm_scale), float(eps), _kernels.stream_ptr(dev))
+        strides, *w, *scratch, b, num_heads, d, float(sm_scale), float(sm_scale * LOG2E),
+        float(eps), stream)
     _kernels.check(rc, what)
     joint_attention_bwd.launches += 1
     return tuple(outs)
@@ -358,10 +464,12 @@ def mha_rms_bwd(q, k, v, do, lse, di, *, num_heads, rms_weights=None, eps=1e-6,
     check_stats(what, (lse, di), b, num_heads, s, dev)
     w = _check_weights(what, rms_weights, 2, d, dev)
     outs = [torch.empty((b, s, hd), dtype=torch.bfloat16, device=dev) for _ in range(3)]
+    stream = _kernels.stream_ptr(dev)
+    scratch = _bwd_scratch_ptrs(b, (s,), hd, rms_weights is not None, dev, stream)
     rc = _kernels.lib().mha_rms_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), *(o.data_ptr() for o in outs), s, _strides(q, k, v, do), *w, b,
-        num_heads, float(sm_scale), float(eps), _kernels.stream_ptr(dev))
+        di.data_ptr(), *(o.data_ptr() for o in outs), s, _strides(q, k, v, do), *w, *scratch,
+        b, num_heads, float(sm_scale), float(sm_scale * LOG2E), float(eps), stream)
     _kernels.check(rc, what)
     mha_rms_bwd.launches += 1
     return tuple(outs)

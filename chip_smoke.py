@@ -13,10 +13,12 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      batch 2 and 8, and JOINT_EDGES: ragged tile edges on both streams)
      against fp32, against their kernel-order twin and against the parent's
      error on the same inputs (JOINT_PARENT_ERR);
-  4. the two attention backward kernels (and the lse the forwards write for
-     them) against their plain versions at the training shape, CFG batch 8:
-     relative L2 per cotangent, median times, and the whole autograd backward
-     against fp32 autograd of the plain forward;
+  4. the two joint attention backwards #4 and #5 (and the lse the forwards
+     write for them) against their plain twin at the training shape, CFG
+     batch 8: relative L2 per cotangent, the operands their pre-pass wrote
+     (q^, q_s, k^) bitwise against the twin's, median times beside SDPA's
+     backward on the normalised streams (not the same function), and the
+     whole autograd backward against fp32 autograd of the plain forward;
   5. a 2-layer full-width MMDiT on the card (bf16, kernels) against the same
      weights on the CPU (fp32, plain versions) on a small input: the output,
      then the LoRA gradients through a fixed cotangent;
@@ -49,7 +51,8 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      clipfrac in both epochs; the LoRA changed and finite; the EMA moved; the
      launch counts of all five kernels exactly as derived from the config;
      seconds per epoch (rollout, reward, train), per microstep, and peak
-     device memory.
+     device memory; then one microstep's device time by kernel group
+     (torch.profiler, the last inner epoch replayed on the trained state).
  11. the Flux kernels against their plain versions at the Flux.1-dev 512^2
      shapes: the per-head RMS norm (d = 128, and one head across a 5120-wide
      row), the BSHD attention (B = 1 and 4, and 4608 tokens with kv_len
@@ -59,8 +62,9 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
  12. the Flux attention backward kernels against their plain twins at the
      Flux.1-dev 512^2 shapes: the BSHD backward at B = 1, S = 1536, 24 heads
      of 128 (and 4608 tokens with kv_len 4600), the joint backward at head
-     width 128, 1024 + 512 tokens; relative L2 per cotangent, median times
-     beside the plain twin's and the SDPA backward's;
+     width 128, 1024 + 512 tokens (its pre-pass's operands bitwise against
+     the twin's); relative L2 per cotangent, median times beside the plain
+     twin's and the SDPA backward's;
  13. a 1-double + 1-single block Flux.1-dev at full width on the card (bf16,
      kernels) against the same weights on the CPU (fp32, plain versions):
      the output, then the LoRA gradients through a fixed cotangent;
@@ -114,8 +118,9 @@ in PAIRS alternating pairs of processes, with each side's error on the same
 inputs; ``--sd3-forward-ab PARENT PAIRS`` one SD3.5-M MMDiT forward at CFG
 batch 2 and 8 and its joint forwards' share;
 ``python3 chip_smoke.py --attention-bwd-ab PARENT PAIRS`` likewise times the
-attention backwards #9 (Flux's (1,1536,3072), WAN self and cross) and #11
-(MHA_SHAPES), and ``--attention-fwd-ab PARENT PAIRS`` the attention forwards
+attention backwards #9 (Flux's (1,1536,3072), WAN self and cross), #11
+(MHA_SHAPES) and #4 / #5 (BWD_AB_JOINT, with the wrapper's host ms per call
+and each tree's error against fp32 on the same inputs), and ``--attention-fwd-ab PARENT PAIRS`` the attention forwards
 #8 (Flux's single blocks at B = 1 and 4, WAN self and cross) and #10
 (MHA_SHAPES), by CUDA events and by device kernel time.
 
@@ -191,13 +196,15 @@ FIDELITY_FACTOR = 1.15
 WAN_FRAMES, WAN_RES, WAN_TEXT = 33, 480, 512
 # the wgmma + TMA kernels: the forward of #8 and #10 (scores scaled) and of
 # #2 and #3 (q pre-scaled, with and without the fused qk-RMS; with it, the k
-# RMS pre-pass rms_k_kernel first), and the backward of #9 and #11; per
-# source, {kernel name as ptxas and cuobjdump print it: instances} (the
-# wgmma kernel first, at head widths 64 and 128, every mode)
+# RMS pre-pass rms_k_kernel first), and the backward of #9, #11 and, after
+# its operand pre-pass attn_bwd_prepass_kernel, of #4 and #5; per source,
+# {kernel name as ptxas and cuobjdump print it: instances} (the wgmma kernel
+# first, at head widths 64 and 128, every mode)
 FWD_SM90_SOURCE = "adv_grpo_torch/csrc/attention_fwd_sm90.cu"
 BWD_SM90_SOURCE = "adv_grpo_torch/csrc/attention_bwd_sm90.cu"
 SM90_KERNELS = {FWD_SM90_SOURCE: {"attn_fwd_sm90_kernel": 6, "rms_k_kernel": 2},
-                BWD_SM90_SOURCE: {"attn_bwd_sm90_kernel": 4, "attn_bwd_convert_kernel": 1}}
+                BWD_SM90_SOURCE: {"attn_bwd_sm90_kernel": 6, "attn_bwd_prepass_kernel": 2,
+                                  "attn_bwd_convert_kernel": 1}}
 # the joint forward (#2) and its single-stream form (#3, S_txt = 0): (name,
 # B, S_img, S_txt, heads, head width, qk-RMS). SD3.5-M's 512^2 shapes at CFG
 # batch 2 and 8 (the GRPO replay), Flux.1-dev's at B = 1 and 4; then ragged
@@ -529,16 +536,49 @@ def _grad_ms(outs, inputs, cots):
                       iters=10)
 
 
+def _check_prepass(ja, qs, ks, heads, pairs):
+    """The operands the joint backward's pre-pass wrote in its last call (q^,
+    q_s and, with RMS weights, k^ per stream) against the twin's
+    (``joint_operands``, from which the forward's twin takes q^ and k^), bit
+    for bit; raises on any difference."""
+    import torch
+
+    from adv_grpo_torch.ops.attention import to_bhsd
+
+    got = ja.bwd_operands(qs[0], [q.shape[1] for q in qs], pairs is not None)
+    want = ja.joint_operands(qs, ks, num_heads=heads, rms_weights=pairs)
+    same = [torch.equal(to_bhsd(g, heads).float(), w) for gs, ws in zip(got, want)
+            for g, w in zip(gs, ws) if g is not None]
+    print(f"  pre-pass q^, q_s{', k^' if pairs else ''} per stream bitwise equal to the "
+          f"twin's (the forward's q^, k^): {same}", flush=True)
+    if not all(same):
+        raise AssertionError(f"the backward's pre-pass differs from the forward's operands: {same}")
+
+
+def _sdpa_bwd_ms(q, k, v, do, heads):
+    """(B, S, H*D) bf16 -> the median ms of SDPA's backward alone (one
+    ``autograd.grad`` through a retained graph of
+    ``scaled_dot_product_attention``; the port never calls it)."""
+    import torch.nn.functional as F
+
+    from adv_grpo_torch.ops.attention import to_bhsd
+
+    leaves = [to_bhsd(t, heads).detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves)
+    return _grad_ms((out,), leaves, (to_bhsd(do, heads),))
+
+
 def check_backward_kernels():
-    """Phase: the two backward kernels (and the lse the forwards now write)
-    against their plain versions at the training shape: CFG batch 8 of the
-    4-image microbatch, 1024 + 154 tokens, 24x64, bf16. Bound: relative L2
-    2e-2 per cotangent — bf16 rounding of p and t, the same budget as the
-    forward's 2e-2."""
+    """Phase: the two joint backward kernels (and the lse the forwards now
+    write) against their plain twin at the training shape: CFG batch 8 of
+    the 4-image microbatch, 1024 + 154 tokens, 24x64, bf16. Bound: relative
+    L2 2e-2 per cotangent — bf16 rounding of p and t, the same budget as the
+    forward's 2e-2; the pre-pass's operands bit for bit."""
     import torch
 
     from adv_grpo_torch.ops import joint_attention as ja
     from adv_grpo_torch.ops.attention import bwd_row_stats
+    from adv_grpo_torch.ops.fused_norms import rms_reference
 
     bound = 2e-2
     dev = torch.device("cuda")
@@ -582,6 +622,7 @@ def check_backward_kernels():
         kw = dict(num_heads=heads, rms_weights=w)
         got = bwd(*ins, *do, *lse, *di, **kw)
         pairs = [tuple(w[i:i + 2]) for i in range(0, len(w), 2)]  # (wq, wk) per stream
+        _check_prepass(ja, qs, ks, heads, pairs)
         twin = ja.attention_bwd_reference(
             [q.float() for q in qs], [k.float() for k in ks], [v.float() for v in vs],
             [c.float() for c in do], lse, di, num_heads=heads, rms_weights=pairs)
@@ -592,8 +633,16 @@ def check_backward_kernels():
         ms = _median_ms(lambda: bwd(*ins, *do, *lse, *di, **kw))
         plain_ms = _median_ms(lambda: ja.attention_bwd_reference(
             qs, ks, vs, do, lse, di, num_heads=heads, rms_weights=pairs))
+        # a yardstick, not the same function (no lse input, no fused qk-RMS):
+        # SDPA's backward on the normalised streams, concatenated
+        normed = [rms_reference(x, wx, heads, 1e-6, x.dtype)
+                  for x, wx in zip(qs + ks, [p_[0] for p_ in pairs] + [p_[1] for p_ in pairs])]
+        cat = [torch.cat(normed[:n], 1), torch.cat(normed[n:], 1), torch.cat(vs, 1)]
+        sdpa_ms = _sdpa_bwd_ms(*cat, torch.cat(do, 1), heads)
+        del normed, cat
         print(f"kernel {name}: B={b} {'+'.join(map(str, lens[:n]))} tokens 24x64 median "
-              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms; SDPA backward on the normalised "
+              f"streams, concatenated (not the same function) {sdpa_ms:.4f} ms", flush=True)
 
         # the whole autograd backward against fp32 autograd of the plain forward
         leaves = [t.clone().requires_grad_() for t in ins] + [
@@ -622,8 +671,8 @@ def check_backward_kernels():
         least = _attn_bound(list(ins) + list(do) + list(lse) + list(di) + list(ins), b, heads,
                             s_tot, s_tot, 64, products=5)
         # no library call takes the forward's lse and the fused qk-RMS
-        results.append(_entry(name, "adv_grpo_torch/csrc/joint_attention_bwd.cu", replaces,
-                              max_abs, ms, plain_ms, least, None))
+        results.append(_entry(name, BWD_SM90_SOURCE, replaces, max_abs, ms, plain_ms, least,
+                              None))
     return results
 
 
@@ -773,7 +822,9 @@ def expected_train_counts(config, mcfg):
 
 def run_training_slice(kernels):
     """Phase: ``adv_grpo_torch.cli.train.main`` on TRAIN_ARGV (full width,
-    random weights from the seed); returns the kernels' launch counts."""
+    random weights from the seed); returns the kernels' launch counts. Then
+    the last inner epoch's microsteps again on the trained state, traced:
+    one microstep's device time by kernel group."""
     import os
 
     import numpy as np
@@ -782,13 +833,29 @@ def run_training_slice(kernels):
     from adv_grpo_torch.cli import train
     from adv_grpo_torch.cli.common import build_pipeline
     from adv_grpo_torch.models.lora import lora_params
+    from adv_grpo_torch.train import driver
+
+    # keep the last inner epoch's (minibatches, negative embeddings)
+    last, make_epoch = {}, driver.make_train_epoch_fn
+
+    def recording_epoch_fn(*args, **kwargs):
+        fn = make_epoch(*args, **kwargs)
+
+        def epoch(state, batched, neg_e, neg_p):
+            last["args"] = (batched, neg_e, neg_p)
+            return fn(state, batched, neg_e, neg_p)
+        return epoch
 
     with tempfile.TemporaryDirectory() as save_dir:
         for k in kernels:
             k.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        trainer = train.main(TRAIN_ARGV + ["--set", f"save_dir={save_dir}"])
+        driver.make_train_epoch_fn = recording_epoch_fn
+        try:
+            trainer = train.main(TRAIN_ARGV + ["--set", f"save_dir={save_dir}"])
+        finally:
+            driver.make_train_epoch_fn = make_epoch
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = [k.launches for k in kernels]
@@ -835,6 +902,24 @@ def run_training_slice(kernels):
     del start
     if counts != want:
         raise AssertionError(f"training launch counts {counts}, expected {want}")
+
+    # the last inner epoch's microsteps (replay forward, backward, optimizer)
+    # once more, traced
+    batched, neg_e, neg_p = last["args"]
+    n_micro = batched["latents"].shape[0] * int(config.sample.train_num_steps)
+
+    def epoch():
+        trainer.train_epoch_fn(trainer.state, batched, neg_e, neg_p)
+
+    step_ms = _median_ms(epoch, iters=3, warmup=1) / n_micro
+    kernel_ms, groups = _profile_forward(epoch, reps=1)
+    print(f"  one microstep ({batched['latents'].shape[1]} rows): {step_ms:.1f} ms (CUDA "
+          f"events); device kernel "
+          f"time {kernel_ms / n_micro:.1f} ms = {100 * kernel_ms / n_micro / step_ms:.1f}% busy",
+          flush=True)
+    for grp, (calls, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
+        print(f"    {grp}: {ms / n_micro:.2f} ms, {calls / n_micro:.0f} launches per microstep",
+              flush=True)
     return counts
 
 
@@ -981,7 +1066,6 @@ def check_flux_backward_kernels():
     the SDPA backward's (one ``autograd.grad`` through a retained graph of
     ``scaled_dot_product_attention``; the port never calls it)."""
     import torch
-    import torch.nn.functional as F
 
     from adv_grpo_torch.ops import attention
     from adv_grpo_torch.ops import joint_attention as ja
@@ -995,11 +1079,6 @@ def check_flux_backward_kernels():
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-
-    def sdpa_bwd_ms(q, k, v, do):  # (B, S, H*D) -> the SDPA backward alone
-        leaves = [attention.to_bhsd(t, heads).detach().requires_grad_() for t in (q, k, v)]
-        out = F.scaled_dot_product_attention(*leaves)
-        return _grad_ms((out,), leaves, (attention.to_bhsd(do, heads),))
 
     results, max_abs = [], 0.0
     for n, kv_len in ((s, None), (4608, 4600)):
@@ -1018,7 +1097,7 @@ def check_flux_backward_kernels():
                                                            num_heads=heads))
             plain_ms = _median_ms(lambda: attention.bshd_bwd_reference(
                 q, k, v, do, lse, di, num_heads=heads), iters=5)
-            lib_ms = sdpa_bwd_ms(q, k, v, do)
+            lib_ms = _sdpa_bwd_ms(q, k, v, do, heads)
             least = _attn_bound((q, k, v, do, lse, di) + tuple(got), 1, heads, s, s, d,
                                 products=5)
     print(f"kernel mha_bshd_bwd: (1,1536,3072) 24x128 median {ms:.4f} ms vs plain "
@@ -1034,6 +1113,7 @@ def check_flux_backward_kernels():
     oi, ot, lse_i, lse_t = ja.joint_attention_fwd(*streams, None, heads, 1e-6, sm_scale, True)
     lse, di = [lse_i, lse_t], [bwd_row_stats(oi, do[0], heads), bwd_row_stats(ot, do[1], heads)]
     got = ja.joint_attention_bwd(*streams, *do, *lse, *di, num_heads=heads)
+    _check_prepass(ja, streams[0::3], streams[1::3], heads, None)
     f32 = lambda ts: [t.float() for t in ts]  # noqa: E731
     twin = ja.attention_bwd_reference(f32(streams[0::3]), f32(streams[1::3]),
                                       f32(streams[2::3]), f32(do), lse, di, num_heads=heads)
@@ -1044,13 +1124,13 @@ def check_flux_backward_kernels():
     plain_ms = _median_ms(lambda: ja.attention_bwd_reference(
         streams[0::3], streams[1::3], streams[2::3], do, lse, di, num_heads=heads), iters=5)
     cat = [torch.cat([a, c], dim=1) for a, c in zip(streams[:3], streams[3:])]
-    lib_ms = sdpa_bwd_ms(*cat, torch.cat(do, dim=1))
+    lib_ms = _sdpa_bwd_ms(*cat, torch.cat(do, dim=1), heads)
     least = _attn_bound(tuple(streams) + tuple(do) + tuple(lse) + tuple(di) + tuple(got), 1,
                         heads, s, s, d, products=5)
     print(f"kernel joint_attention_bwd (d=128, no RMS): img 1024 + txt 512, 24x128, B=1 median "
           f"{ms:.4f} ms vs plain {plain_ms:.4f} ms vs SDPA backward on the concatenated "
           f"streams {lib_ms:.4f} ms; bound {least[0]:.4f} ms", flush=True)
-    results.append(_entry("joint_attention_bwd_d128", "adv_grpo_torch/csrc/joint_attention_bwd.cu",
+    results.append(_entry("joint_attention_bwd_d128", BWD_SM90_SOURCE,
                           "adv_grpo_tpu/ops/joint_attention.py:224", max_abs, ms, plain_ms, least,
                           lib_ms))
     return results
@@ -1128,6 +1208,11 @@ _KERNEL_GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("joint attention forward", ("rms_k_kernel", "attn_fwd_kernel<") + tuple(
         f"attn_fwd_sm90_kernel<{d}, {m}>" for d in (64, 128) for m in (1, 2))),
     ("attention kernel", ("attn_fwd_sm90_kernel",)),
+    # the joint backwards (#4, #5): attn_bwd_sm90_kernel's mode 2 and its
+    # operand pre-pass (and the mma.sync kernels of trees before it)
+    ("joint attention backward", ("attn_bwd_prepass_kernel", "attn_bwd_dkdv_kernel",
+                                  "attn_bwd_dq_kernel") + tuple(
+        f"attn_bwd_sm90_kernel<{d}, 2>" for d in (64, 128))),
     ("attention backward kernels", ("attn_bwd_",)),
     ("per-head RMS kernel", ("rms_heads_kernel",)),
     ("modulated LN kernel", ("layer_norm_kernel<__nv_bfloat16, true>",)),
@@ -2123,26 +2208,103 @@ def sd3_forward_ms(tree):
 
 
 # ``--attention-bwd-ab``: #9 at Flux's (1,1536,3072), WAN self and WAN cross
-# (name, B, S_q, S_kv, H, D), and #11 at MHA_SHAPES
+# (name, B, S_q, S_kv, H, D), #11 at MHA_SHAPES, and the joint backward at
+# the JOINT_CASES but Flux's B = 4: #4 at SD3.5-M's CFG batch 2 and 8 and
+# Flux.1-dev's B = 1, #5 at (2, 1024) and (8, 1024)
 BWD_AB_BSHD = (("flux", 1, 1536, 1536, 24, 128), ("wan_self", 1, 8100, 8100, 12, 128),
                ("wan_cross", 1, 8100, WAN_TEXT, 12, 128))
+BWD_AB_JOINT = tuple(c for c in JOINT_CASES if c[0] != "flux_b4")
 # ``--attention-fwd-ab``: #8 at Flux's single blocks (B = 1 and 4), WAN self
 # and WAN cross, and #10 at MHA_SHAPES
 FWD_AB_BSHD = (("flux", 1, 1536, 1536, 24, 128), ("flux_b4", 4, 1536, 1536, 24, 128),
                ("wan_self", 1, 8100, 8100, 12, 128), ("wan_cross", 1, 8100, WAN_TEXT, 12, 128))
 
 
+def _joint_bwd_fp32(streams, do, w, heads):
+    """The joint backward in fp32 from the bf16 inputs of one or two streams
+    (q, k, v each; ``w`` None or their (wq, wk) weights, in the streams'
+    order): the lse and di of the fp32 forward (contiguous (B, H, S) per
+    stream) and the cotangents dyq, dyk (of the RMS-normalised q, k) and dv
+    per stream, with no rounding but the inputs'; a reference that no tree's
+    code computes."""
+    import torch
+
+    from adv_grpo_torch.ops.attention import from_bhsd, to_bhsd
+
+    n = len(do)
+    f = [to_bhsd(t, heads).float() for t in streams]
+    sm_scale = f[0].shape[-1] ** -0.5
+    ws = w or [None] * (2 * n)
+
+    def rms(x, wx):
+        return x if wx is None else x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-6) * wx
+
+    yq = torch.cat([rms(f[3 * i], ws[2 * i]) for i in range(n)], 2)
+    yk = torch.cat([rms(f[3 * i + 1], ws[2 * i + 1]) for i in range(n)], 2)
+    v = torch.cat([f[3 * i + 2] for i in range(n)], 2)
+    dof = torch.cat([to_bhsd(c, heads).float() for c in do], 2)
+    s = yq @ yk.transpose(-1, -2) * sm_scale
+    lse = torch.logsumexp(s, -1, keepdim=True)
+    p = torch.exp(s - lse)
+    di = ((p @ v) * dof).sum(-1, keepdim=True)
+    dv = p.transpose(-1, -2) @ dof
+    ds = p * (dof @ v.transpose(-1, -2) - di)
+    del s, p
+    dyk, dyq = ds.transpose(-1, -2) @ yq * sm_scale, ds @ yk * sm_scale
+    lens = [c.shape[1] for c in do]
+
+    def split(a):
+        return [from_bhsd(c) for c in a.split(lens, 2)]
+
+    stats = [[c[..., 0].contiguous() for c in a.split(lens, 2)] for a in (lse, di)]
+    return stats[0], stats[1], [g for trip in zip(split(dyq), split(dyk), split(dv)) for g in trip]
+
+
+def _kernel_split(fn, reps=10):
+    """{kernel name: device ms per call} of ``fn`` (torch.profiler over
+    ``reps`` warm calls)."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0:
+            m = re.search(r"\w+_kernel(<[^>(]*>)?", e.key)
+            k = m[0] if m else e.key[:40]
+            out[k] = out.get(k, 0.0) + e.self_device_time_total / 1e3 / reps
+    return out
+
+
 def attention_bwd_ms(tree):
     """``--attention-bwd-ms TREE``: the ``adv_grpo_torch`` in the checkout at
     TREE times its attention backward wrappers, #9 (``mha_bshd_bwd``) at
-    BWD_AB_BSHD and #11 (``mha_bwd``) at MHA_SHAPES: median ms of 50
-    CUDA-event-timed calls after 5 warm-ups (the wrapper's host time and its
-    scratch zeroing included) and device kernel ms per call (mean of 10 traced
-    calls, every kernel the call launches); one JSON line."""
+    BWD_AB_BSHD, #11 (``mha_bwd``) at MHA_SHAPES, and #4
+    (``joint_attention_bwd``) and #5 (``mha_rms_bwd``) at BWD_AB_JOINT: median
+    ms of 50 CUDA-event-timed calls after 5 warm-ups (the wrapper's host time
+    and its scratch zeroing included) and device kernel ms per call (mean of
+    10 traced calls, every kernel the call launches), and for #4 / #5 the
+    wrapper's host ms per call and the largest relative L2 error of its
+    cotangents against fp32 (:func:`_joint_bwd_fp32`, whose lse and di both
+    trees are given: the inputs are the same) with the largest max abs, and
+    its device ms by kernel (``split``); ptxas's registers and spill
+    stores of the attention backwards when this process built the tree's
+    kernels; one JSON line."""
     sys.path.insert(0, tree)
+    import re
+
     import torch
 
+    from adv_grpo_torch.kernels import build
     from adv_grpo_torch.ops import attention
+    from adv_grpo_torch.ops import joint_attention as ja
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 8)
 
@@ -2167,6 +2329,38 @@ def attention_bwd_ms(tree):
         out[f"#11 {name}"] = (_median_ms(fn, iters=50, warmup=5),
                               _profile_forward(fn, reps=10)[0])
         del q, do, k, v, o, lse
+    errors, split = {}, {}
+    for case in BWD_AB_JOINT:
+        name, b, s_i, s_t, h, d, rms = case
+        streams, w = joint_inputs(case)
+        do = [randn(b, s, h * d) for s in (s_i, s_t) if s]
+        if not s_t:
+            streams, w = streams[:3], w and w[:2]
+        lse, di, ref = _joint_bwd_fp32(streams, do, w, h)
+        if s_t:
+            fn = lambda: ja.joint_attention_bwd(  # noqa: E731
+                *streams, *do, *lse, *di, num_heads=h, rms_weights=w)
+        else:
+            fn = lambda: ja.mha_rms_bwd(  # noqa: E731
+                *streams, *do, *lse, *di, num_heads=h, rms_weights=w)
+        got = fn()
+        errors[name] = [max(_rel_l2(a, r) for a, r in zip(got, ref)),
+                        max((a.float() - r).abs().max().item() for a, r in zip(got, ref))]
+        split[name] = _kernel_split(fn)
+        del ref, got
+        out[f"#{4 if s_t else 5} {name}"] = (_median_ms(fn, iters=50, warmup=5),
+                                             _profile_forward(fn, reps=10)[0], _host_ms(fn))
+        del streams, do, lse, di, fn
+    out["errors"], out["split"] = errors, split
+    out["error_names"] = ["largest relative L2 against fp32", "largest max abs"]
+    registers, entry = {}, None
+    for line in build.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        entry = m.group(1) if m else entry
+        m = re.search(r"Used (\d+) registers", line) or re.search(r"(\d+) bytes spill stores", line)
+        if m and entry and "attn_bwd" in entry:
+            registers.setdefault(entry, []).append(int(m.group(1)))
+    out["registers"] = {e: f"{r[0]} bytes of spill stores, {r[-1]}" for e, r in registers.items()}
     print(json.dumps(out), flush=True)
 
 
@@ -2221,8 +2415,9 @@ def attention_ab(mode, parent, pairs):
 
     here = os.path.dirname(os.path.abspath(__file__))
 
-    def timed(r):
-        return [(k, v) for k, v in r.items() if isinstance(v, list)]
+    def timed(r):  # the timed calls: lists of numbers
+        return [(k, v) for k, v in r.items()
+                if isinstance(v, list) and all(isinstance(x, (int, float)) for x in v)]
 
     runs = {"parent": [], "change": []}
     for i in range(pairs):
@@ -2236,7 +2431,7 @@ def attention_ab(mode, parent, pairs):
                 f"{k} {v[0]:.4f} ms (kernels {v[1]:.4f})" for k, v in timed(r)), flush=True)
             for name, n in r.get("registers", {}).items():
                 print(f"  ptxas: {name} {n} registers", flush=True)
-            for key in ("joint forward kernel ms", "joint wrapper host ms"):
+            for key in ("joint forward kernel ms", "joint wrapper host ms", "split"):
                 if key in r:
                     print(f"  {key} {r[key]}", flush=True)
     keys = [k for k, _ in timed(runs["change"][0])]
@@ -2253,13 +2448,14 @@ def attention_ab(mode, parent, pairs):
                                for w in ("ms", "kernel ms"))
         print(f"{k}: parent / change {ratio:.3f}x by median ms, {kernel_ratio:.3f}x by kernel "
               "ms", flush=True)
-    # errors on the same inputs (each side's first run; the kernels are
-    # deterministic): (output, lse) max abs against fp32
-    for case, (err, lse_err) in runs["change"][0].get("errors", {}).items():
-        p_err, p_lse = runs["parent"][0]["errors"][case]
-        print(f"{case} error: change {err:.3e} / lse {lse_err:.3e}, parent {p_err:.3e} / lse "
-              f"{p_lse:.3e}: change / parent {err / p_err:.3f}x, lse {lse_err / p_lse:.3f}x",
-              flush=True)
+    # errors on the same inputs (each side's first run): by default (output,
+    # lse) max abs against fp32, else as the run's "error_names" say
+    names = runs["change"][0].get("error_names", ["output max abs", "lse max abs"])
+    for case, errs in runs["change"][0].get("errors", {}).items():
+        p_errs = runs["parent"][0]["errors"][case]
+        print(f"{case} error, change / parent: " + "; ".join(
+            f"{n} {c:.4e} / {p:.4e} ({c / p:.3f}x)" for n, c, p in zip(names, errs, p_errs)),
+            flush=True)
 
 
 def check_sm90_build(build):

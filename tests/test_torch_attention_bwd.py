@@ -1,6 +1,6 @@
 """The plain twin of ``mha_bshd``'s backward kernel (#9, csrc/attention_bwd_sm90.cu)
 against the JAX package, and the kernel library's C interface against its
-ctypes bindings (and the multi-head forward and backward entry points in
+ctypes bindings (and the attention forward and backward entry points in
 their wgmma + TMA sources).
 
 The twin (``bshd_bwd_reference``, the CPU path of ``mha_bshd``'s backward)
@@ -133,8 +133,8 @@ def test_extern_c_entry_points_match_the_ctypes_signatures():
     assert set(entry) == set(sigs)
     for name, kinds in entry.items():
         assert kinds == sigs[name], name
-    # the two multi-head backwards and the four attention forwards (the two
-    # multi-head ones and the two joint ones) live in the wgmma + TMA
+    # the four attention backwards (the two multi-head ones and the two
+    # joint ones) and the four attention forwards live in the wgmma + TMA
     # sources, and nowhere else
     sources = {}
     for path in glob.glob(os.path.join(build.CSRC_DIR, "*.cu")):
@@ -142,6 +142,8 @@ def test_extern_c_entry_points_match_the_ctypes_signatures():
             sources[os.path.basename(path)] = f.read()
     for name, home in (("mha_bshd_bwd_bf16", "attention_bwd_sm90.cu"),
                        ("mha_bwd_bf16", "attention_bwd_sm90.cu"),
+                       ("joint_attention_bwd_bf16", "attention_bwd_sm90.cu"),
+                       ("mha_rms_bwd_bf16", "attention_bwd_sm90.cu"),
                        ("mha_bshd_fwd_bf16", "attention_fwd_sm90.cu"),
                        ("mha_fwd_bf16", "attention_fwd_sm90.cu"),
                        ("joint_attention_fwd_bf16", "attention_fwd_sm90.cu"),

@@ -19,8 +19,13 @@ all-fp32 twin; the wgmma + TMA backward (#9, #11) and forward (#8, #10) at
 their tile edges; the joint forward (#2, #3) on the same forward kernel at
 its tile edges on both streams, against the fp32 plain version and within 1
 bf16 spacing (taken at each row's largest output) of its kernel-order twin
-``joint_fwd_tiled_reference``.
+``joint_fwd_tiled_reference``; the joint backward (#4, #5) on the wgmma +
+TMA backward at its tile edges, its pre-pass's operands bit for bit against
+``joint_operands`` (the forward twin's q^ and k^), its cotangents within the
+backwards' 2e-2 of its twin, three kernels a call.
 """
+
+import re
 
 import pytest
 import torch
@@ -649,6 +654,122 @@ def test_joint_forward_raises_on_views_the_maps_cannot_take(dev):
         with pytest.raises(ValueError, match="16-byte aligned"):
             joint_attention.mha_rms(good, bad, good, num_heads=h)
     assert joint_attention.joint_mha.launches == n0 and joint_attention.mha_rms.launches == m0
+
+
+# ── the joint backward (#4, #5) on the wgmma + TMA kernel ───────────────
+
+
+def _check_joint_bwd(got, streams, dos, lses, dis, heads, pairs):
+    """The pre-pass's operands of the call that gave ``got`` against the twin's
+    (``joint_operands``, the forward twin's q^ and k^) bit for bit; then each
+    cotangent (dyq, dyk, dv per stream) against the plain twin on the same
+    inputs and row statistics, 2e-2 relative L2 (bf16 p and t) or 1e-5
+    absolute: with a single key p = 1 and dp = di, so the exact dyq and dyk
+    vanish and both sides hold only the fp32 rounding of dp - di (~1e-6),
+    where relative L2 has no scale; a wrong product gives O(1)."""
+    n = len(dos)
+    qs, ks, vs = streams[0::3][:n], streams[1::3][:n], streams[2::3][:n]
+    ops = joint_attention.bwd_operands(qs[0], [q.shape[1] for q in qs], pairs is not None)
+    want = joint_attention.joint_operands(qs, ks, num_heads=heads, rms_weights=pairs)
+    for gs, ws in zip(ops, want):
+        for g_, w_ in zip(gs, ws):
+            if g_ is not None:
+                assert torch.equal(attention.to_bhsd(g_, heads).float(), w_)
+    f32 = lambda ts: [t.float() for t in ts]  # noqa: E731
+    twin = joint_attention.attention_bwd_reference(f32(qs), f32(ks), f32(vs), f32(dos), lses,
+                                                   dis, num_heads=heads, rms_weights=pairs)
+    for g_, r in zip(got, [a for st in twin for a in st]):
+        assert g_.shape == r.shape and torch.isfinite(g_).all()
+        assert _rel_l2(g_, r) <= 2e-2 or (g_.float() - r).abs().max() <= 1e-5
+
+
+@pytest.mark.parametrize("s_i,s_t", [(1, 154), (100, 1), (129, 63), (64, 64), (257, 65),
+                                     (100, 154)])
+@pytest.mark.parametrize("d,use_rms", [(64, True), (64, False), (128, False)])
+@pytest.mark.parametrize("strided", [False, True])
+def test_joint_attention_backward_sm90_tile_edges(dev, s_i, s_t, d, use_rms, strided):
+    """``joint_attention_bwd_bf16`` (#4) at the edges of its 128-row kv and
+    64-row q tiles on both streams (1, 63, 64, 65, 100, 129, 154, 257 tokens;
+    the image stream not a multiple of 64), d = 64 with and without the qk-RMS
+    and d = 128 without, contiguous inputs and column slices of a fused (B, S,
+    3*H*D) projection read in place: the pre-pass bitwise, the cotangents
+    against the twin; one wrapper launch per call."""
+    b, h = 2, 2
+    streams = _joint_streams(dev, b, s_i, s_t, h, d, strided, 110 + s_i + s_t)
+    dos = [_randn(dev, b, s, h * d, seed=115 + i) for i, s in enumerate((s_i, s_t))]
+    w = ([1.0 + 0.1 * _randn(dev, d, dtype=torch.float32, seed=117 + i) for i in range(4)]
+         if use_rms else None)
+    pairs = [(w[0], w[1]), (w[2], w[3])] if use_rms else None
+    o_i, o_t, l_i, l_t = joint_attention.joint_attention_fwd(*streams, w, h, 1e-6, d ** -0.5,
+                                                             True)
+    dis = [bwd_row_stats(o, c, h) for o, c in zip((o_i, o_t), dos)]
+    n0 = joint_attention.joint_attention_bwd.launches
+    got = joint_attention.joint_attention_bwd(*streams, *dos, l_i, l_t, *dis, num_heads=h,
+                                              rms_weights=w)
+    torch.cuda.synchronize()
+    assert joint_attention.joint_attention_bwd.launches == n0 + 1
+    _check_joint_bwd(got, streams, dos, [l_i, l_t], dis, h, pairs)
+
+
+@pytest.mark.parametrize("s", [1, 63, 65, 154, 1024])
+@pytest.mark.parametrize("use_rms", [True, False])
+@pytest.mark.parametrize("strided", [False, True])
+def test_mha_rms_backward_sm90_tile_edges(dev, s, use_rms, strided):
+    """``mha_rms_bwd_bf16`` (#5): the joint backward with no second stream, at
+    the tile edges, with and without the qk-RMS, contiguous and fused-slice
+    inputs: the pre-pass bitwise, the cotangents against the twin."""
+    b, h, d = 2, 3, 64
+    streams = _joint_streams(dev, b, s, 0, h, d, strided, 120 + s)
+    do = _randn(dev, b, s, h * d, seed=125)
+    w = ([1.0 + 0.1 * _randn(dev, d, dtype=torch.float32, seed=126 + i) for i in range(2)]
+         if use_rms else None)
+    o, lse = joint_attention.mha_rms_fwd(*streams[:3], w, h, 1e-6, d ** -0.5, True)
+    di = bwd_row_stats(o, do, h)
+    n0 = joint_attention.mha_rms_bwd.launches
+    got = joint_attention.mha_rms_bwd(*streams[:3], do, lse, di, num_heads=h, rms_weights=w)
+    torch.cuda.synchronize()
+    assert joint_attention.mha_rms_bwd.launches == n0 + 1
+    _check_joint_bwd(got, streams, [do], [lse], [di], h, [tuple(w)] if use_rms else None)
+
+
+@pytest.mark.parametrize("s_t", [154, 0])
+def test_joint_backward_call_is_three_kernels(dev, s_t):
+    """One call of #4 (or #5, no text stream) launches three kernels on the
+    card: the operand pre-pass, the backward and the dq convert (device
+    kernels counted by torch.profiler); two calls give dk and dv bitwise (dq
+    is reduce-added in an order that varies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, h, d = 2, 2, 64
+    streams = _joint_streams(dev, b, 100, s_t, h, d, False, 130)
+    dos = [_randn(dev, b, s, h * d, seed=135 + i) for i, s in enumerate((100, s_t)) if s]
+    w = [1.0 + 0.1 * _randn(dev, d, dtype=torch.float32, seed=137 + i) for i in range(4)]
+    if s_t:
+        o_i, o_t, l_i, l_t = joint_attention.joint_attention_fwd(*streams, w, h, 1e-6, 0.125,
+                                                                 True)
+        dis = [bwd_row_stats(o, c, h) for o, c in zip((o_i, o_t), dos)]
+        fn = lambda: joint_attention.joint_attention_bwd(  # noqa: E731
+            *streams, *dos, l_i, l_t, *dis, num_heads=h, rms_weights=w)
+    else:
+        o, lse = joint_attention.mha_rms_fwd(*streams[:3], w[:2], h, 1e-6, 0.125, True)
+        di = bwd_row_stats(o, dos[0], h)
+        fn = lambda: joint_attention.mha_rms_bwd(  # noqa: E731
+            *streams[:3], dos[0], lse, di, num_heads=h, rms_weights=w[:2])
+    first = fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        second = fn()
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    assert len(kernels) == 3 and sum(e.count for e in prof.key_averages()
+                                     if e.device_type.name == "CUDA") == 3, kernels
+    assert {re.search(r"attn_bwd_[a-z0-9_]+", k)[0] for k in kernels} == {
+        "attn_bwd_prepass_kernel", "attn_bwd_sm90_kernel", "attn_bwd_convert_kernel"}, kernels
+    for a, c in zip(first, second):
+        assert a.shape == c.shape
+    for i in range(len(first) // 3):
+        assert torch.equal(first[3 * i + 1], second[3 * i + 1])
+        assert torch.equal(first[3 * i + 2], second[3 * i + 2])
 
 
 # ── kernels #10 / #11: mha on (B, H, S, D) ───────────────────────────────
