@@ -161,7 +161,9 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as a raw pointer."""
+    """PyTorch's current CUDA stream on ``device`` (a tensor's device, which
+    names its index), as a raw pointer, read without building a
+    ``torch.cuda.Stream`` object."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -197,10 +197,20 @@ class GRPOTrainer:
         return (self.neg_embeds1.expand(batch, *self.neg_embeds1.shape[1:]),
                 self.neg_pooled1.expand(batch, *self.neg_pooled1.shape[1:]))
 
+    def window_start(self, step_idx: int) -> int:
+        """This rank's stochastic window start at sampling batch ``step_idx``:
+        ``sample.random_timestep`` where set, else one draw per rank from the
+        batch's generator, rank r taking the r-th (the JAX driver's ``rts[r]``,
+        adv_grpo_tpu/train/driver.py:282-296), so every rank trains on its own
+        window."""
+        if self.config.sample.random_timestep is not None:
+            return int(self.config.sample.random_timestep)
+        return int(sample_random_timestep(np.random.default_rng(step_idx), self.sampler_cfg,
+                                          shape=self.world_size)[self.rank])
+
     # ── phases ──────────────────────────────────────────────────────────
 
     def sample_phase(self, epoch: int):
-        cfgs = self.config.sample
         rollouts, all_prompts, all_prompt_ids = [], [], []
         all_embeds, all_pooled, reward_futures = [], [], []
         last_images = last_prompts = None
@@ -218,11 +228,7 @@ class GRPOTrainer:
             pooled = self._dev(np.repeat(np.asarray(pooled), self.mini, axis=0))
             B = embeds.shape[0]
             neg_e, neg_p = self._neg(B)
-            if cfgs.random_timestep is None:
-                rt = int(sample_random_timestep(np.random.default_rng(step_idx),
-                                                self.sampler_cfg, shape=1)[0])
-            else:
-                rt = int(cfgs.random_timestep)
+            rt = self.window_start(step_idx)
             # each rank draws its own noise
             generator = torch.Generator(device=self.device).manual_seed(
                 _seed(self.config.seed, step_idx, self.rank))

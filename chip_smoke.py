@@ -122,7 +122,11 @@ attention backwards #9 (Flux's (1,1536,3072), WAN self and cross), #11
 (MHA_SHAPES) and #4 / #5 (BWD_AB_JOINT, with the wrapper's host ms per call
 and each tree's error against fp32 on the same inputs), and ``--attention-fwd-ab PARENT PAIRS`` the attention forwards
 #8 (Flux's single blocks at B = 1 and 4, WAN self and cross) and #10
-(MHA_SHAPES), by CUDA events and by device kernel time.
+(MHA_SHAPES), by CUDA events and by device kernel time; ``--norms-ab PARENT
+PAIRS`` the LayerNorms #1 and #6 (and #7 beside them) at NORM_AB_CASES, the
+main path's shapes: CUDA-event, device kernel and host ms of each call and of
+``F.layer_norm`` where it computes the same function, and each side's error
+in bf16 spacings against fp32 on the same inputs.
 
 Prints one JSON line of per-kernel results (each with its least possible time
 on the card, from the published H100 SXM peaks), then as the last line
@@ -296,6 +300,32 @@ def _host_ms(fn, calls=100):
     return host
 
 
+def _three_ms(fn, bound_ms, reps=20, tries=3):
+    """(median ms of 50 CUDA-event-timed calls after 5 warm-ups, the host's
+    time between the events included; device kernel ms per call, the mean of
+    ``reps`` traced calls; the host's ms per call, 100 enqueued back to back)
+    for ``fn``, which launches one kernel. A trace is kept only if it
+    recorded ``reps`` kernels and their time is not under ``bound_ms``, the
+    least the card could take; one that is not is printed with its kernels and
+    taken again, up to ``tries`` times, after which the device kernel ms is
+    None (not measured)."""
+    kernel_ms = None
+    for _ in range(tries):
+        events = []
+        total, _ = _profile_forward(fn, reps=reps, events=events)
+        if sum(n for _, n, _ in events) == reps and total >= bound_ms:
+            kernel_ms = total
+            break
+        print(f"  trace discarded: {reps} calls recorded {events} (kernel, launches, ms), "
+              f"{total:.4f} ms a call against a bound of {bound_ms:.4f} ms", flush=True)
+    return _median_ms(fn, iters=50, warmup=5), kernel_ms, _host_ms(fn)
+
+
+def _ms(v):
+    """A time for a print: 4 decimals, or "not measured" for None."""
+    return "not measured" if v is None else f"{v:.4f}"
+
+
 def _bound(nbytes, flops, flop_rate):
     """(bound_ms, bound_by): the least time the card could take to move
     ``nbytes`` (each input read once, each output written once) and do
@@ -451,19 +481,22 @@ def check_kernels():
         worst_ulps = max(worst_ulps, (err / _bf16_ulp(ref)).max().item())
         max_err = max(max_err, err.max().item())
     x, sc, sh = randn(b, s_img, dim), randn(b, dim), randn(b, dim)
-    ms = _median_ms(lambda: fused_norms.modulated_layer_norm(x, sc, sh))
+    least = _bound(_nbytes(x, sc, sh, x), 8.0 * x.numel(), FP32_FLOPS)
+    ms, kernel_ms, host_ms = _three_ms(lambda: fused_norms.modulated_layer_norm(x, sc, sh),
+                                       least[0])
     plain_ms = _median_ms(
         lambda: fused_norms.lnmod_reference(x, sc, sh, 1e-6, torch.bfloat16))
     print(f"kernel modulated_layer_norm: max_abs_err {max_err:.3e}, max err "
           f"{worst_ulps:.2f} bf16 ulp (bound 1 ulp of the fp32 result, ulp floored at 2^-15); "
-          f"(2,1024,1536) median {ms:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
+          f"(2,1024,1536) median {ms:.4f} ms (device kernel {_ms(kernel_ms)}, host "
+          f"{host_ms:.4f} ms a call) vs plain {plain_ms:.4f} ms", flush=True)
     if worst_ulps > 1.0:
         raise AssertionError(f"modulated_layer_norm off by {worst_ulps} ulp")
     # no single PyTorch call computes it: F.layer_norm has no per-item
     # (1 + scale, shift) modulation
     results.append(_entry("modulated_layer_norm", "adv_grpo_torch/csrc/fused_norms.cu",
                           "adv_grpo_tpu/ops/fused_norms.py:252", max_err, ms, plain_ms,
-                          _bound(_nbytes(x, sc, sh, x), 8.0 * x.numel(), FP32_FLOPS), None))
+                          least, None))
 
     # 2/3: the joint forward and its single-stream form on the wgmma + TMA
     # kernel: SD3.5-M's shapes at CFG batch 2 and 8, and ragged tile edges
@@ -1215,8 +1248,8 @@ _KERNEL_GROUPS = (  # (group, substrings of the kernel name), first match wins
         f"attn_bwd_sm90_kernel<{d}, 2>" for d in (64, 128))),
     ("attention backward kernels", ("attn_bwd_",)),
     ("per-head RMS kernel", ("rms_heads_kernel",)),
-    ("modulated LN kernel", ("layer_norm_kernel<__nv_bfloat16, true>",)),
-    ("LN kernel", ("layer_norm_kernel<__nv_bfloat16, false>",)),
+    ("modulated LN kernel", ("layer_norm_kernel<__nv_bfloat16, true",)),
+    ("LN kernel", ("layer_norm_kernel<__nv_bfloat16, false",)),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "splitK")),
     ("concatenations", ("CatArrayBatchedCopy",)),
     ("copies and casts", ("copy_", "direct_copy", "to_copy")),
@@ -1225,11 +1258,13 @@ _KERNEL_GROUPS = (  # (group, substrings of the kernel name), first match wins
 )
 
 
-def _profile_forward(fn, reps=2):
+def _profile_forward(fn, reps=2, events=None):
     """Trace ``reps`` warm calls of ``fn`` with torch.profiler: (device kernel
-    time per call, {kernel group: (launches, ms) per call}). The busy share
-    is the kernel time over the call's untraced CUDA-event time (the profiler
-    slows the host, so its own wall is no measure of idleness)."""
+    time per call, {kernel group: (launches, ms) per call}); where ``events``
+    is a list, (kernel name, launches, ms per call) of every kernel is
+    appended to it. The busy share is the kernel time over the call's
+    untraced CUDA-event time (the profiler slows the host, so its own wall is
+    no measure of idleness)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1248,6 +1283,8 @@ def _profile_forward(fn, reps=2):
         grp = next((g for g, parts in _KERNEL_GROUPS if any(p in e.key for p in parts)), "other")
         calls, acc = groups.get(grp, (0.0, 0.0))
         groups[grp] = (calls + e.count / reps, acc + ms)
+        if events is not None:
+            events.append((e.key[:60], e.count, round(ms, 5)))
     return total, groups
 
 
@@ -1498,13 +1535,16 @@ def check_wan_kernels():
         worst = max(worst, (err / _bf16_ulp(ref)).max().item())
         max_err = max(max_err, err.max().item())
         del ref, err
-    ms = _median_ms(lambda: fused_norms.layer_norm(x))
-    plain_ms = _median_ms(lambda: fused_norms.ln_reference(x, 1e-6, torch.bfloat16))
-    lib_ms = _median_ms(lambda: F.layer_norm(x, (dim,), eps=1e-6))
     least = _bound(_nbytes(x, x), 8.0 * x.numel(), FP32_FLOPS)
+    ms, kernel_ms, host_ms = _three_ms(lambda: fused_norms.layer_norm(x), least[0])
+    plain_ms = _median_ms(lambda: fused_norms.ln_reference(x, 1e-6, torch.bfloat16))
+    lib = _three_ms(lambda: F.layer_norm(x, (dim,), eps=1e-6), least[0])
+    lib_ms = lib[0]
     print(f"kernel layer_norm: max_abs_err {max_err:.3e}, max err {worst:.2f} bf16 ulp (bound 1 "
-          f"ulp of the fp32 result) at (1|2,8100,1536); (1,8100,1536) median {ms:.4f} ms vs plain "
-          f"{plain_ms:.4f} ms vs F.layer_norm {lib_ms:.4f} ms; bound {least[0]:.4f} ms", flush=True)
+          f"ulp of the fp32 result) at (1|2,8100,1536); (1,8100,1536) median {ms:.4f} ms (device "
+          f"kernel {_ms(kernel_ms)}, host {host_ms:.4f} ms a call) vs plain {plain_ms:.4f} ms vs "
+          f"F.layer_norm {lib_ms:.4f} ms (device kernel {_ms(lib[1])}, host {lib[2]:.4f}); bound "
+          f"{least[0]:.4f} ms", flush=True)
     if not worst <= 1.0:
         raise AssertionError(f"layer_norm off by {worst} ulp")
     results.append(_entry("layer_norm", "adv_grpo_torch/csrc/fused_norms.cu",
@@ -1519,19 +1559,23 @@ def check_wan_kernels():
     err = (fused_norms.modulated_layer_norm(x, sc, sh).float() - ref).abs()
     worst, max_err = (err / _bf16_ulp(ref)).max().item(), err.max().item()
     del ref, err
-    ms = _median_ms(lambda: fused_norms.modulated_layer_norm(x, sc, sh))
+    least = _bound(_nbytes(x, sc, sh, x), 8.0 * x.numel(), FP32_FLOPS)
+    ms, kernel_ms, host_ms = _three_ms(lambda: fused_norms.modulated_layer_norm(x, sc, sh),
+                                       least[0])
     plain_ms = _median_ms(lambda: fused_norms.lnmod_reference(x, sc, sh, 1e-6, torch.bfloat16))
     # one item, so one affine LayerNorm computes the same function
     w_mod, b_mod = 1.0 + sc[0], sh[0]
-    lib_ms = _median_ms(lambda: F.layer_norm(x, (dim,), w_mod, b_mod, 1e-6))
+    lib = _three_ms(lambda: F.layer_norm(x, (dim,), w_mod, b_mod, 1e-6), least[0])
+    lib_ms = lib[0]
     print(f"kernel modulated_layer_norm at WAN's (1,8100,1536): max err {worst:.2f} bf16 ulp "
-          f"(bound 1); median {ms:.4f} ms vs plain {plain_ms:.4f} ms vs F.layer_norm with "
-          f"weight 1+scale, bias shift {lib_ms:.4f} ms", flush=True)
+          f"(bound 1); median {ms:.4f} ms (device kernel {_ms(kernel_ms)}, host {host_ms:.4f} ms "
+          f"a call) vs plain {plain_ms:.4f} ms vs F.layer_norm with weight 1+scale, bias shift "
+          f"{lib_ms:.4f} ms (device kernel {_ms(lib[1])}, host {lib[2]:.4f})", flush=True)
     if not worst <= 1.0:
         raise AssertionError(f"modulated_layer_norm at the WAN shape off by {worst} ulp")
     results.append(_entry("modulated_layer_norm_wan", "adv_grpo_torch/csrc/fused_norms.cu",
-                          "adv_grpo_tpu/ops/fused_norms.py:252", max_err, ms, plain_ms,
-                          _bound(_nbytes(x, sc, sh, x), 8.0 * x.numel(), FP32_FLOPS), lib_ms))
+                          "adv_grpo_tpu/ops/fused_norms.py:252", max_err, ms, plain_ms, least,
+                          lib_ms))
 
     # 7: RMS across all 12 heads (one head of the 1536-wide row), q read in
     # place as a column slice of the fused q/k/v projection
@@ -2402,9 +2446,95 @@ def attention_fwd_ms(tree):
     print(json.dumps(out), flush=True)
 
 
+# ``--norms-ab``: (name, kernel #, B, S, D). #1 at SD3.5-M's image and text
+# streams at CFG batch 2, the image stream at batch 8, Flux.1-dev's image
+# stream and WAN's video tokens, scale and shift strided chunks of one
+# modulation row as the blocks make them; #6 at WAN's cross-attention input
+# (B = 1 sampling, 2 training); #7 beside them, which the change must leave
+# as it was: Flux's 24 heads of 128 and WAN's one 1536-wide head, q a column
+# slice of the fused q/k/v projection
+NORM_AB_CASES = (("sd3_img", 1, 2, 1024, 1536), ("sd3_txt", 1, 2, 154, 1536),
+                 ("sd3_b8", 1, 8, 1024, 1536), ("flux", 1, 1, 1024, 3072),
+                 ("wan", 1, 1, 8100, 1536), ("wan", 6, 1, 8100, 1536),
+                 ("wan_b2", 6, 2, 8100, 1536), ("flux", 7, 1, 1536, 3072),
+                 ("wan", 7, 1, 8100, 1536))
+
+
+def norms_ms(tree):
+    """``--norms-ms TREE``: the ``adv_grpo_torch`` in the checkout at TREE
+    times its row norms as the models call them, at NORM_AB_CASES: each call
+    and, where one PyTorch call computes the same function (#1 at one batch
+    item: ``F.layer_norm`` with weight 1 + scale and bias shift; #6:
+    ``F.layer_norm``), that call (key ``lib ...``), each by :func:`_three_ms`;
+    each case's largest error against fp32 on the same inputs (bf16 spacings,
+    as chip_smoke.py's gates take them, and max abs); ptxas's registers and
+    spill stores of the norm kernels when this process built the tree's
+    kernels; one JSON line."""
+    sys.path.insert(0, tree)
+    import re
+
+    import torch
+    import torch.nn.functional as F
+
+    from adv_grpo_torch.kernels import build
+    from adv_grpo_torch.ops import fused_norms as norms
+
+    out, errors = {"module": norms.__file__}, {}
+    for i, (name, k, b, s, d) in enumerate(NORM_AB_CASES):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 60 + i)
+
+        def randn(*shape, scale=1.0):
+            return (torch.randn(shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+        lib = None
+        if k == 1:
+            x = randn(b, s, d) + randn(b, 1, d)
+            mods = randn(b, 6 * d, scale=0.5)
+            sc, sh = mods[:, d:2 * d], mods[:, :d]
+            call = lambda: norms.modulated_layer_norm(x, sc, sh)  # noqa: E731
+            ref = norms.lnmod_reference(x.float(), sc.float(), sh.float(), 1e-6, torch.float32)
+            nbytes = _nbytes(x, x, sc, sh)
+            if b == 1:
+                w_mod, b_mod = 1.0 + sc[0], sh[0]
+                lib = lambda: F.layer_norm(x, (d,), w_mod, b_mod, 1e-6)  # noqa: E731
+        elif k == 6:
+            x = randn(b, s, d, scale=2.0) + randn(b, 1, d)
+            call = lambda: norms.layer_norm(x)  # noqa: E731
+            ref = norms.ln_reference(x.float(), 1e-6, torch.float32)
+            nbytes = _nbytes(x, x)
+            lib = lambda: F.layer_norm(x, (d,), eps=1e-6)  # noqa: E731
+        else:
+            heads = d // 128 if name == "flux" else 1
+            x = (randn(b, s, 3 * d) + 0.3)[..., :d] if name == "wan" else randn(b, s, d) + 0.3
+            w = (1.0 + 0.1 * torch.randn(d // heads, generator=g, device="cuda")).float()
+            call = lambda: norms.rms_norm_heads(x, w, num_heads=heads)  # noqa: E731
+            ref = norms.rms_reference(x.float(), w, heads, 1e-6, torch.float32)
+            nbytes = _nbytes(x, x, w)
+        least = _bound(nbytes, 8.0 * x.numel(), FP32_FLOPS)[0]
+        err = (call().float() - ref).abs()
+        errors[f"#{k} {name}"] = [(err / _bf16_ulp(ref)).max().item(), err.max().item()]
+        del err, ref
+        key = f"#{k} {name} ({b},{s},{d})"
+        out[key] = _three_ms(call, least)
+        if lib is not None:
+            out[f"lib {key}"] = _three_ms(lib, least)
+        del x, call, lib
+    out["errors"] = errors
+    out["error_names"] = ["largest bf16 spacings against fp32", "largest max abs"]
+    registers, entry = {}, None
+    for line in build.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        entry = m.group(1) if m else entry
+        m = re.search(r"Used (\d+) registers", line) or re.search(r"(\d+) bytes spill stores", line)
+        if m and entry and ("layer_norm" in entry or "rms_heads" in entry):
+            registers.setdefault(entry, []).append(int(m.group(1)))
+    out["registers"] = {e: f"{r[0]} bytes of spill stores, {r[-1]}" for e, r in registers.items()}
+    print(json.dumps(out), flush=True)
+
+
 def attention_ab(mode, parent, pairs):
     """``--sd3-attention-ab`` / ``--attention-bwd-ab`` / ``--attention-fwd-ab``
-    / ``--sd3-forward-ab PARENT PAIRS``: PAIRS alternating pairs of
+    / ``--sd3-forward-ab`` / ``--norms-ab PARENT PAIRS``: PAIRS alternating pairs of
     ``chip_smoke.py MODE TREE`` runs (MODE the matching ``-ms`` mode), each in
     its own process, of the checkout at PARENT and of this one (parent,
     change, change, parent, ...). Each run prints one JSON line {"module":
@@ -2415,9 +2545,9 @@ def attention_ab(mode, parent, pairs):
 
     here = os.path.dirname(os.path.abspath(__file__))
 
-    def timed(r):  # the timed calls: lists of numbers
-        return [(k, v) for k, v in r.items()
-                if isinstance(v, list) and all(isinstance(x, (int, float)) for x in v)]
+    def timed(r):  # the timed calls: lists of numbers (None: not measured)
+        return [(k, v) for k, v in r.items() if isinstance(v, list)
+                and all(x is None or isinstance(x, (int, float)) for x in v)]
 
     runs = {"parent": [], "change": []}
     for i in range(pairs):
@@ -2427,8 +2557,13 @@ def attention_ab(mode, parent, pairs):
                                  capture_output=True, text=True, check=True).stdout
             r = json.loads(out.strip().splitlines()[-1])
             runs[side].append(r)
+            for line in out.splitlines():
+                if "trace discarded" in line:
+                    print(f"pair {i} {side}: {line.strip()}", flush=True)
             print(f"pair {i} {side} ({r['module']}): " + ", ".join(
-                f"{k} {v[0]:.4f} ms (kernels {v[1]:.4f})" for k, v in timed(r)), flush=True)
+                f"{k} {_ms(v[0])} ms (kernels {_ms(v[1])}" + (f", host {_ms(v[2])})"
+                                                             if len(v) > 2 else ")")
+                for k, v in timed(r)), flush=True)
             for name, n in r.get("registers", {}).items():
                 print(f"  ptxas: {name} {n} registers", flush=True)
             for key in ("joint forward kernel ms", "joint wrapper host ms", "split"):
@@ -2439,15 +2574,20 @@ def attention_ab(mode, parent, pairs):
     for side, rs in runs.items():
         for k in keys:
             for j, what in enumerate(("ms", "kernel ms", "host ms")[:len(rs[0][k])]):
-                v = [r[k][j] for r in rs]
+                v = [r[k][j] for r in rs if r[k][j] is not None]
+                if not v:
+                    print(f"{side} {k} {what}: not measured", flush=True)
+                    continue
                 medians[side, k, what] = statistics.median(v)
                 print(f"{side} {k} {what}: median {statistics.median(v):.4f}, range "
-                      f"{min(v):.4f}..{max(v):.4f} over {len(v)} runs", flush=True)
+                      f"{min(v):.4f}..{max(v):.4f} over {len(v)} of {len(rs)} runs", flush=True)
     for k in keys:
-        ratio, kernel_ratio = (medians["parent", k, w] / medians["change", k, w]
-                               for w in ("ms", "kernel ms"))
-        print(f"{k}: parent / change {ratio:.3f}x by median ms, {kernel_ratio:.3f}x by kernel "
-              "ms", flush=True)
+        ratios = {w: medians["parent", k, w] / medians["change", k, w]
+                  for w in ("ms", "kernel ms", "host ms")
+                  if ("change", k, w) in medians and ("parent", k, w) in medians}
+        print(f"{k}: parent / change " + ", ".join(
+            f"{x:.3f}x by {'median ms' if w == 'ms' else w}" for w, x in ratios.items()),
+            flush=True)
     # errors on the same inputs (each side's first run): by default (output,
     # lse) max abs against fp32, else as the run's "error_names" say
     names = runs["change"][0].get("error_names", ["output max abs", "lse max abs"])
@@ -2538,9 +2678,13 @@ def main() -> int:
     if sys.argv[1:2] == ["--sd3-forward-ms"]:
         sd3_forward_ms(sys.argv[2])
         return 0
+    if sys.argv[1:2] == ["--norms-ms"]:
+        norms_ms(sys.argv[2])
+        return 0
     print(smi, flush=True)
     ab = {"--sd3-attention-ab": "--sd3-attention-ms", "--attention-bwd-ab": "--attention-bwd-ms",
-          "--attention-fwd-ab": "--attention-fwd-ms", "--sd3-forward-ab": "--sd3-forward-ms"}
+          "--attention-fwd-ab": "--attention-fwd-ms", "--sd3-forward-ab": "--sd3-forward-ms",
+          "--norms-ab": "--norms-ms"}
     if sys.argv[1:2] and sys.argv[1] in ab:
         attention_ab(ab[sys.argv[1]], sys.argv[2], int(sys.argv[3]))
         return 0

@@ -48,8 +48,18 @@ def _randn(dev, *shape, dtype=torch.bfloat16, seed=0):
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
+# the LayerNorm kernel's edges: row counts that leave the persistent grid's
+# last walk short (1, 7, 154, 308, 8100), batch items whose rows leave warps
+# of their last CTA idle (8 x 77, 3 x 1), both register widths a warp holds
+# (6 vectors a lane: d 64 and 1024 with lanes idle, 1536; 12 a lane: 3072)
+# and the first width a CTA owns (3080); the wide rows 8192 and 32768 are in
+# the cases above
+LN_EDGES = [(1, 1, 1536), (1, 7, 1536), (1, 308, 1536), (1, 8100, 1536), (8, 77, 1536),
+            (8, 1024, 1536), (2, 33, 1024), (1, 1024, 3072), (3, 1, 3072), (1, 9, 3080)]
+
+
 @pytest.mark.parametrize("b,s,d", [(2, 154, 1536), (2, 1024, 1536), (3, 7, 64),
-                                   (1, 5, 8192), (1, 3, 32768)])
+                                   (1, 5, 8192), (1, 3, 32768)] + LN_EDGES)
 def test_modulated_layer_norm_kernel(dev, b, s, d):
     x = _randn(dev, b, s, d) + 0.5
     mods = _randn(dev, b, 3 * d, seed=1)
@@ -66,7 +76,8 @@ def test_modulated_layer_norm_kernel(dev, b, s, d):
 
 
 @pytest.mark.parametrize("b,s,d", [(1, 8100, 1536), (2, 8100, 1536), (2, 77, 1536),
-                                   (3, 7, 64), (1, 5, 8192), (1, 3, 32768)])
+                                   (3, 7, 64), (1, 5, 8192), (1, 3, 32768)]
+                         + [e for e in LN_EDGES if e != (1, 8100, 1536)])
 def test_layer_norm_kernel(dev, b, s, d):
     """The no-affine LN (WAN's cross-attention norm, 8,100 ragged rows at
     full size) against the fp32 plain version; then the autograd path: the
@@ -89,6 +100,20 @@ def test_layer_norm_kernel(dev, b, s, d):
     (ref_dx,) = torch.autograd.grad(fused_norms.ln_reference(fl, 1e-6, torch.float32), fl,
                                     dy.float())
     assert dx.dtype == torch.bfloat16 and _rel_l2(dx, ref_dx) <= 2e-2
+
+
+@pytest.mark.parametrize("b,s", [(2, 0), (0, 5)])
+def test_layer_norms_take_zero_rows(dev, b, s):
+    """No rows: an empty bf16 output of x's shape, and no launch."""
+    x = torch.empty((b, s, 1536), dtype=torch.bfloat16, device=dev)
+    mods = _randn(dev, b, 2 * 1536)
+    n_mod, n_ln = fused_norms.modulated_layer_norm.launches, fused_norms.layer_norm.launches
+    y = fused_norms.modulated_layer_norm(x, mods[:, :1536], mods[:, 1536:])
+    z = fused_norms.layer_norm(x)
+    torch.cuda.synchronize()
+    assert y.shape == z.shape == x.shape and y.dtype == z.dtype == torch.bfloat16
+    assert fused_norms.modulated_layer_norm.launches == n_mod
+    assert fused_norms.layer_norm.launches == n_ln
 
 
 def test_layer_norm_kernel_takes_contiguous_rows_only(dev):

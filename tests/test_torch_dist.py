@@ -119,6 +119,21 @@ def test_cli_epoch_agrees_on_one_run_dir_and_one_lora(ranks):
     assert cli and all(np.array_equal(a0[k], a1[k]) for k in cli)
 
 
+def test_each_rank_draws_its_own_window_start(ranks):
+    """sample.random_timestep unset: rank r's window start at sampling batch
+    s is the JAX driver's rts[r] with rts = default_rng(s).integers(0,
+    num_steps // 2 + 1, size=world) (adv_grpo_tpu/train/driver.py:282-296),
+    and its rollouts are given it; the two ranks differ at some batch."""
+    _, res = ranks
+    n, nb = res[0]["num_steps"], res[0]["num_batches"]
+    rts = [np.random.default_rng(s).integers(0, n // 2 + 1, size=WORLD) for s in range(5)]
+    assert 2 * nb <= len(rts)
+    for r, x in enumerate(res):
+        assert x["window_starts"] == [int(w[r]) for w in rts]
+        assert x["rollout_starts"] == x["window_starts"][nb:2 * nb]  # epoch 1's batches
+    assert res[0]["window_starts"] != res[1]["window_starts"]
+
+
 def test_train_phase_on_two_ranks_matches_one_process(one_process, ranks):
     _, start, (lora1, ema1) = one_process
     _, res = ranks
@@ -179,7 +194,19 @@ def _rank_main(args):
                sampler_seed=trainer.prompt_sampler.seed,
                slots=[trainer.prompt_sampler.batch_for_epoch(e).tolist() for e in range(3)])
     arrays.update({f"cli/{k}": v for k, v in _state(trainer)[0].items()})
+    # the window starts this rank draws (random_timestep unset), and those its
+    # rollouts of epoch 1 are given
+    res.update(num_steps=trainer.sampler_cfg.num_steps, num_batches=trainer.num_batches,
+               window_starts=[trainer.window_start(s) for s in range(5)], rollout_starts=[])
+    sample_fn = trainer.sample_fn
+
+    def recording(*args):
+        res["rollout_starts"].append(int(args[-1][0]))
+        return sample_fn(*args)
+
+    trainer.sample_fn = recording
     lat0 = trainer.sample_phase(1)["rollout"]["latents"][:, 0].contiguous()
+    trainer.sample_fn = sample_fn
     others, _ = mesh.gather_global(lat0.numpy())
     res["rollout_noise_differs"] = not np.array_equal(others[:len(lat0)], others[len(lat0):])
 
