@@ -2,9 +2,10 @@
 encoding.
 
 Port of adv_grpo_tpu/cli/common.py:50-69 (``apply_overrides``), :88-240
-(``build_pipeline`` for the sd3, flux and wan families, ``build_text_encoder``)
-and :242-258 (``make_hash_text_encoder``, the deterministic stand-in for the
-text encoders, byte for byte the JAX package's embeddings).
+(``build_pipeline`` for the sd3, flux and wan families, ``build_text_encoder``),
+:242-258 (``make_hash_text_encoder``, the deterministic stand-in for the
+text encoders, byte for byte the JAX package's embeddings) and the PickScore
+part of :331-392 (``build_reward_context``).
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-__all__ = ["apply_overrides", "build_pipeline", "build_text_encoder", "compute_dtype",
-           "make_hash_text_encoder", "resolve_config", "resolve_device"]
+__all__ = ["apply_overrides", "build_pipeline", "build_reward_context", "build_text_encoder",
+           "compute_dtype", "make_hash_text_encoder", "resolve_config", "resolve_device"]
 
 _FP32 = ("fp32", "float32", "no")
 _BF16 = ("bf16", "bfloat16", "fp16", "float16")
@@ -188,6 +189,48 @@ def build_text_encoder(config, pipeline):
     return make_hash_text_encoder(seq_len=pipeline.text_seq_len,
                                   embed_dim=mcfg.joint_attention_dim,
                                   pooled_dim=mcfg.pooled_projection_dim)
+
+
+def build_reward_context(config, reward_names, device="cuda"):
+    """The ``RewardContext`` for the reward names a preset uses (the ported
+    ones: the PickScore rewards), on ``device``. ``smoke_test`` takes the
+    tiny towers (image 28); otherwise CLIP-H with random weights from
+    ``config.seed + 1``, with a warning: the PickScore checkpoint loader is
+    not ported, so a set ``PICKSCORE_DIR`` raises, as does a local CLIP
+    tokenizer (``<pretrained.model>/tokenizer``: the card has no
+    ``transformers``). The token ids are the constant 3 at the text tower's
+    length, as the JAX package's are without a tokenizer."""
+    from adv_grpo_torch.models.clip_text import CLIPTextConfig
+    from adv_grpo_torch.models.vit import ViTConfig
+    from adv_grpo_torch.rewards.registry import RewardContext
+    from adv_grpo_torch.rewards.scorers import PickScoreScorer
+
+    ctx = RewardContext()
+    if not set(reward_names) & {"pickscore", "pickscore_cotrain"}:
+        return ctx
+    if os.environ.get("PICKSCORE_DIR", ""):
+        raise NotImplementedError(
+            f"PICKSCORE_DIR={os.environ['PICKSCORE_DIR']!r}: loading a PickScore checkpoint "
+            "is not yet ported to adv_grpo_torch; unset it for random CLIP-H weights")
+    tok_dir = os.path.join(str(config.pretrained.model or ""), "tokenizer")
+    if str(config.pretrained.model or "") and os.path.isdir(tok_dir):
+        raise NotImplementedError(f"the CLIP tokenizer at {tok_dir!r} is not yet ported to "
+                                  "adv_grpo_torch")
+    device = resolve_device(device)
+    generator = torch.Generator(device=device).manual_seed(int(config.seed) + 1)
+    if bool(config.get("smoke_test", False)):
+        ps = PickScoreScorer.random_init(generator, device, CLIPTextConfig.tiny(projection_dim=16),
+                                         ViTConfig.tiny(projection_dim=16), image_size=28)
+    else:
+        import warnings
+
+        warnings.warn("PickScore CLIP-H scorer is RANDOM-INIT: its checkpoint loader is not "
+                      "yet ported to adv_grpo_torch", stacklevel=2)
+        ps = PickScoreScorer.random_init(generator, device)
+    max_len = ps.clip.text_model.cfg.max_position_embeddings
+    ctx.pickscore = ps
+    ctx.tokenize = lambda prompts: np.full((len(prompts), max_len), 3, np.int32)
+    return ctx
 
 
 def make_hash_text_encoder(seq_len: int, embed_dim: int, pooled_dim: int):

@@ -5,6 +5,9 @@ Usage:
       --set smoke_test=False --set sample.num_steps=10 \\
       --set sample.train_batch_size=2 --max_epochs 2 [--device cuda]
   python -m adv_grpo_torch.cli.train --config flux_smoke --max_epochs 2 [--device cpu]
+  python -m adv_grpo_torch.cli.train --config pickscore_cotrain_sd3_fast \\
+      --set smoke_test=True --set json_path=REFS.json \\
+      --set reference_image_path=REF_DIR --max_epochs 2 [--device cpu]
   torchrun --nproc_per_node=N -m adv_grpo_torch.cli.train --config smoke_sd3_fast ...
 
 Under ``torchrun`` (or any launcher that sets ``WORLD_SIZE``, ``RANK``,
@@ -14,10 +17,14 @@ means ``cuda:$LOCAL_RANK``; gloo for ``--device cpu``) and trains on its share
 of each batch; with an empty ``save_dir`` rank 0's timestamp names the run
 directory of every rank.
 
-Rewards, budgets and the optimizer come from the preset. Not ported yet, and
-refused with ``NotImplementedError``: ``--resume`` and ``train.lora_path``
-(they need the checkpoint module), the co-trained discriminator (``train_d``)
-and every device reward (PickScore, DINO, ...).
+Rewards, budgets, the optimizer and the discriminator come from the preset.
+``pickscore_cotrain_sd3_fast`` co-trains the PickScore reward: the reference
+images come from ``json_path`` (prompt -> files) and
+``reference_image_path``; CLIP-H runs on random weights (tiny towers with
+``smoke_test``). Not ported yet, and refused with ``NotImplementedError``:
+``--resume``, ``train.lora_path`` and ``weight_path`` (they need the
+checkpoint module), the DINO discriminators and the device rewards other
+than PickScore.
 """
 
 from __future__ import annotations
@@ -28,15 +35,32 @@ import os
 
 
 def build_trainer(config, latent_hw=None, dataset=None, device="cuda"):
-    from adv_grpo_torch.cli.common import build_pipeline, build_text_encoder
-    from adv_grpo_torch.rewards.registry import multi_score
-    from adv_grpo_torch.data.datasets import GenevalPromptDataset, TextPromptDataset
-    from adv_grpo_torch.train.driver import GRPOTrainer
+    import copy
 
-    reward_fn = multi_score(dict(config.reward_fn))
-    eval_reward_fn = (multi_score(dict(config.eval_reward_fn))
-                      if dict(config.eval_reward_fn) else None)
+    from adv_grpo_torch.cli.common import (
+        build_pipeline, build_reward_context, build_text_encoder)
+    from adv_grpo_torch.data.datasets import (
+        GenevalPromptDataset, ReferenceImageStore, TextPromptDataset)
+    from adv_grpo_torch.rewards.registry import multi_score
+    from adv_grpo_torch.train.driver import DiscriminatorBundle, GRPOTrainer
+    from adv_grpo_torch.train.grpo_trainer import make_pickscore_d_step
+
     pipeline = build_pipeline(config, latent_hw=latent_hw, device=device)
+    ctx = build_reward_context(
+        config, set(dict(config.reward_fn)) | set(dict(config.eval_reward_fn)),
+        device=pipeline.device)
+    disc = None
+    if bool(config.train_d) and str(config.discriminator) == "pickscore":
+        step_fn, optimizer, tail = make_pickscore_d_step(
+            ctx.pickscore, int(config.tune_layer), float(config.d_lr))
+        disc = DiscriminatorBundle("pickscore", step_fn, optimizer, tail, tokenize=ctx.tokenize)
+        # the frozen 'pickscore' reward keeps the tail as it starts; the D-step
+        # updates the live one in place
+        ctx.pickscore_params = tail
+        ctx.pickscore_frozen_params = copy.deepcopy(tail).requires_grad_(False)
+    reward_fn = multi_score(dict(config.reward_fn), ctx)
+    eval_reward_fn = (multi_score(dict(config.eval_reward_fn), ctx)
+                      if dict(config.eval_reward_fn) else None)
     encode = build_text_encoder(config, pipeline)
 
     if dataset is None:
@@ -51,9 +75,14 @@ def build_trainer(config, latent_hw=None, dataset=None, device="cuda"):
         else:
             dataset = TextPromptDataset(ds_dir, "train", limit=limit)
 
+    ref_store = None
+    if str(config.json_path) and os.path.exists(str(config.json_path)):
+        ref_store = ReferenceImageStore(str(config.json_path), str(config.reference_image_path),
+                                        resolution=int(config.resolution))
     return GRPOTrainer(config, pipeline, dataset, encode, reward_fn,
                        eval_reward_fn=eval_reward_fn,
-                       latent_hw=latent_hw or int(config.resolution) // 8)
+                       latent_hw=latent_hw or int(config.resolution) // 8,
+                       reference_store=ref_store, discriminator=disc, reward_ctx=ctx)
 
 
 def main(argv=None):
@@ -74,9 +103,10 @@ def main(argv=None):
     from adv_grpo_torch.parallel import mesh
 
     config = apply_overrides(resolve_config(args.config), args.set)
-    if args.resume or config.train.get("lora_path", None):
-        raise NotImplementedError("--resume / train.lora_path need the checkpoint "
-                                  "module, which is not yet ported to adv_grpo_torch")
+    if args.resume or config.train.get("lora_path", None) or config.get("weight_path", None):
+        raise NotImplementedError("--resume / train.lora_path / weight_path (the "
+                                  "discriminator's warm start) need the checkpoint module, "
+                                  "which is not yet ported to adv_grpo_torch")
     device = args.device
     if mesh.env_requests_group():
         if device == "cuda":  # one device per process

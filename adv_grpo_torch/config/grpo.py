@@ -1,8 +1,9 @@
 """GRPO presets of the ported paths, from adv_grpo_tpu/config/grpo.py.
 
 Only the presets whose model path the port runs are here (``eval_sd3_fast``,
-``smoke_sd3_fast``, the ``compressibility`` base they build on,
-``flux_smoke`` and ``wan_smoke``); the others raise ``KeyError`` with a "not yet ported" note.
+``smoke_sd3_fast``, ``pickscore_cotrain_sd3_fast``, the ``compressibility``
+base they build on, ``flux_smoke`` and ``wan_smoke``); the others raise
+``KeyError`` with a "not yet ported" note.
 Values are identical to the JAX presets (``tests/test_torch_config.py``).
 """
 
@@ -76,6 +77,24 @@ def smoke_sd3_fast(replica_count=1):
     config.save_freq = 1000
     config.eval_freq = 1000
     config.case_name = "smoke"
+    return config
+
+
+def pickscore_cotrain_sd3_fast(replica_count=8):
+    """Adversarial PickScore co-training (reference config/grpo.py:315-376)."""
+    config = _sd3_fast_common(compressibility(), replica_count)
+    config.discriminator = "pickscore"
+    config.d_times = 20
+    config.d_lr = 5e-6
+    config.tune_layer = -1
+    config.train_d = True
+    config.json_path = "data/reference_images/prompt2img_merged_pickscore.json"
+    config.reference_image_path = "data/reference_images/qwen_images_pickscore"
+    config.case_name = "fast_pickscore_cotrain_lr_5e6_last1_16_8"
+    config.save_dir = "logs/pickscore/sd3.5-M-fast_pickscore_cotrain"
+    config.reward_fn = {"pickscore_cotrain": 1}
+    config.eval_reward_fn = {"pickscore": 1}
+    config.prompt_fn = "general_ocr"
     return config
 
 
@@ -156,6 +175,7 @@ def eval_sd3_fast(replica_count=8):
 _PRESETS = {
     "compressibility": compressibility,
     "smoke_sd3_fast": smoke_sd3_fast,
+    "pickscore_cotrain_sd3_fast": pickscore_cotrain_sd3_fast,
     "eval_sd3_fast": eval_sd3_fast,
     "flux_smoke": flux_smoke,
     "wan_smoke": wan_smoke,

@@ -2,9 +2,10 @@
 
 The inverse of adv_grpo_tpu.models.convert's ``convert_mmdit`` /
 ``convert_flux`` / ``convert_vae`` / ``convert_wan`` / ``convert_wan_vae``
-(decoder half): a Flax tree of numpy arrays (as
-``jax.device_get`` returns it) becomes a ``state_dict`` with diffusers names,
-so the two packages compute the same function from the same weights.
+(decoder half), and the CLIP dual encoder that ``convert_clip_model``
+fills (:func:`clip_dual_state_dict_from_jax`): a Flax tree of numpy arrays (as
+``jax.device_get`` returns it) becomes a ``state_dict`` with diffusers names
+(the CLIP encoder's mirror the JAX tree's), so the two packages compute the same function from the same weights.
 
   * Dense kernels (in, out) -> Linear weights (out, in);
   * Conv kernels HWIO -> OIHW, 3-D conv kernels (kt, kh, kw, I, O) ->
@@ -296,4 +297,37 @@ def wan_vae_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
         n += 1
     rms("decoder.norm_out", dec["norm_out"], 3)
     _wan_conv3d("decoder.conv_out", dec["conv_out"], out)
+    return out
+
+
+def clip_dual_state_dict_from_jax(params, text_cfg, vision_cfg) -> Dict[str, torch.Tensor]:
+    """adv_grpo_tpu ``CLIPDualEncoder`` params ({"text", "vision",
+    "logit_scale"}) -> the state dict of ``rewards.scorers.CLIPDualEncoder``
+    (the layout ``convert_clip_model`` targets); ``logit_scale`` becomes a
+    0-d fp32 tensor."""
+    out: Dict[str, torch.Tensor] = {}
+    t, v = _unwrap(params["text"]), _unwrap(params["vision"])
+    out["text_model.token_embedding.weight"] = _tensor(t["token_embedding"]["embedding"])
+    out["text_model.position_embedding"] = _tensor(t["position_embedding"])
+    for i in range(text_cfg.num_layers):
+        blk, b = t[f"layer_{i}"], f"text_model.layers.{i}."
+        for name in ("layer_norm1", "layer_norm2"):
+            _group_norm(b + name, blk[name], out)
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2"):
+            _dense(b + name, blk[name], out)
+    _group_norm("text_model.final_layer_norm", t["final_layer_norm"], out)
+    _dense("text_model.text_projection", t["text_projection"], out)
+    _dense("vision_model.patch_embed", v["patch_embed"], out)
+    out["vision_model.class_embedding"] = _tensor(v["class_embedding"])
+    out["vision_model.position_embedding"] = _tensor(v["position_embedding"])
+    for i in range(vision_cfg.num_layers):
+        blk, b = v[f"layer_{i}"], f"vision_model.layers.{i}."
+        for name in ("norm1", "norm2"):
+            _group_norm(b + name, blk[name], out)
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2"):
+            _dense(b + name, blk[name], out)
+    for name in ("pre_layernorm", "post_layernorm"):
+        _group_norm("vision_model." + name, v[name], out)
+    _dense("vision_model.visual_projection", v["visual_projection"], out)
+    out["logit_scale"] = _tensor(params["logit_scale"]).reshape(())
     return out

@@ -111,33 +111,13 @@ def ring_attention(q, k, v, group=None, *, sm_scale: Optional[float] = None):
     return _Ring.apply(q, k.contiguous(), v.contiguous(), group, float(sm_scale))
 
 
-class _GatherSeq(torch.autograd.Function):
-    """All-gather (B, H, S_local, D) shards along S; the backward
-    reduce-scatters the gradient back to the shards (sum over the ranks
-    whose queries attended to them)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        n = mesh.world_size(group)
-        b, h, s, d = x.shape
-        out = mesh.all_gather_dim0(x, group)  # the ranks' shards one after another along dim 0
-        return out.view(n, b, h, s, d).permute(1, 2, 0, 3, 4).reshape(b, h, n * s, d)
-
-    @staticmethod
-    def backward(ctx, grad):
-        group = ctx.group
-        n = mesh.world_size(group)
-        b, h, s_all, d = grad.shape
-        chunks = grad.reshape(b, h, n, s_all // n, d).permute(2, 0, 1, 3, 4).reshape(
-            n * b, h, s_all // n, d)
-        return mesh.reduce_scatter_dim0(chunks, group), None
-
-
 def gather_seq(x, group=None):
     """The full sequence of seq-sharded (B, H, S_local, D) shards,
     differentiably: forward all-gather, backward reduce-scatter."""
-    return _GatherSeq.apply(x, group)
+    n = mesh.world_size(group)
+    b, h, s, d = x.shape
+    out = mesh.all_gather_dim0_with_grad(x, group)  # the ranks' shards along dim 0
+    return out.view(n, b, h, s, d).permute(1, 2, 0, 3, 4).reshape(b, h, n * s, d)
 
 
 def context_parallel_attention(q, k, v, group=None, *, sm_scale: Optional[float] = None,

@@ -1,7 +1,8 @@
 """The process layer: one process per device over ``torch.distributed``.
 
 Port of adv_grpo_tpu/parallel/mesh.py (``gather_global`` :107,
-``process_allgather`` :133) and of the CLI's ``maybe_init_distributed``
+``process_allgather`` :133), of the differentiable ``jax.lax.all_gather``
+the PickScore criterion uses, and of the CLI's ``maybe_init_distributed``
 (adv_grpo_tpu/cli/train.py:20-37), in torch's idiom. The JAX package is one
 controller per host over a device mesh; here every device has its own
 process, as ``torchrun`` launches them, and each process holds only its own
@@ -136,6 +137,29 @@ def reduce_scatter_dim0(x: torch.Tensor, group=None) -> torch.Tensor:
                       device=x.device)
     _reduce_scatter_flat(out, x.contiguous(), group=group)
     return out
+
+
+class _AllGatherDim0(torch.autograd.Function):
+    """:func:`all_gather_dim0` whose backward is its transpose, the
+    reduce-scatter of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather_dim0(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter_dim0(grad, ctx.group), None
+
+
+def all_gather_dim0_with_grad(x: torch.Tensor, group=None) -> torch.Tensor:
+    """:func:`all_gather_dim0` that autograd differentiates: the gradient of
+    this rank's rows is the sum over ranks of the gradients each rank's
+    output gives them (the JAX ``all_gather``'s transpose, the reference's
+    ``torch.distributed.nn.all_gather``). The identity where no group is
+    initialized."""
+    return _AllGatherDim0.apply(x, group)
 
 
 def _allgather_np(a: np.ndarray) -> np.ndarray:

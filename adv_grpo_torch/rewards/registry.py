@@ -1,16 +1,20 @@
 """Weighted reward ensembles for the port's trainer.
 
-Port of adv_grpo_tpu/rewards/registry.py's ``multi_score`` for the host
-rewards: the images move to host numpy, are packed to uint8 once and scored
-by the JPEG scorers (``rewards/host.py``); ``'avg'`` is the weight-summed
-ensemble, as in the JAX package. A device or co-trained reward (PickScore,
-CLIP, DINO, SigLIP, ...), the OCR scorer and the remote judges are not ported
-yet and raise ``NotImplementedError`` naming the reward.
+Port of adv_grpo_tpu/rewards/registry.py's ``RewardContext`` and
+``multi_score`` for the ported rewards: the host JPEG scorers
+(``rewards/host.py``, on the uint8 copy of the images, packed once) and the
+device PickScore rewards (``rewards/scorers.py``): ``pickscore`` scores with
+the frozen weights, ``pickscore_cotrain`` with the live, co-trained ones.
+``'avg'`` is the weight-summed ensemble, as in the JAX package. The other
+device rewards (CLIP, DINO, SigLIP, ...), the OCR scorer and the remote
+judges are not ported yet and raise ``NotImplementedError`` naming the
+reward.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -20,32 +24,69 @@ from adv_grpo_torch.utils.images import images_to_uint8
 
 HOST_REWARDS = {"jpeg_compressibility": jpeg_compressibility,
                 "jpeg_incompressibility": jpeg_incompressibility}
+DEVICE_REWARDS = ("pickscore", "pickscore_cotrain")
 
 
-def multi_score(score_dict: Dict[str, float]):
-    """fn(images (B, 3, H, W) or video (B, F, 3, H, W) in [-1, 1], prompts,
-    metadata=None, ref_images=None, only_strict=True) -> (score_details incl.
-    'avg', {})."""
+@dataclasses.dataclass
+class RewardContext:
+    """The scorers the rewards need; populate only what the preset uses.
+
+    The JAX context holds whole parameter trees and may alias the frozen to
+    the live ones, because JAX trees are immutable. Here the D-step's
+    optimizer updates the live scorer in place and trains only the last
+    vision layers, so the parameters are those layers: ``pickscore_params``
+    the live ones (None: the scorer's own), ``pickscore_frozen_params``
+    copies taken before training (None: the scorer's own, when nothing
+    trains it)."""
+
+    pickscore: Optional[Any] = None  # rewards.scorers.PickScoreScorer
+    pickscore_params: Optional[Any] = None
+    pickscore_frozen_params: Optional[Any] = None
+    tokenize: Optional[Callable[[List[str]], np.ndarray]] = None  # CLIP ids (B, 77)
+
+
+def _require(obj, name, what):
+    if obj is None:
+        raise RuntimeError(f"reward '{name}' needs {what} in RewardContext")
+    return obj
+
+
+def multi_score(score_dict: Dict[str, float], ctx: Optional[RewardContext] = None):
+    """fn(images (B, 3, H, W) or video (B, F, 3, H, W) in [-1, 1], numpy or
+    torch, prompts, metadata=None, ref_images=None, only_strict=True) ->
+    (score_details incl. 'avg', {})."""
     for name in score_dict:
-        if name not in HOST_REWARDS:
+        if name not in HOST_REWARDS and name not in DEVICE_REWARDS:
             raise NotImplementedError(
                 f"reward {name!r} is not yet ported to adv_grpo_torch (ported: "
-                f"{', '.join(HOST_REWARDS)})")
+                f"{', '.join(list(HOST_REWARDS) + list(DEVICE_REWARDS))})")
     score_dict = dict(score_dict)
+    ctx = ctx or RewardContext()
+
+    def pickscore(name, images, prompts):
+        s = _require(ctx.pickscore, name, "pickscore scorer")
+        ids = _require(ctx.tokenize, name, "tokenize")(prompts)
+        tail = ctx.pickscore_frozen_params if name == "pickscore" else ctx.pickscore_params
+        return s.score(images, ids, tail).cpu().numpy()
 
     def fn(images, prompts, metadata=None, ref_images=None, only_strict=True):
-        if torch.is_tensor(images):
-            images = images.detach().float().cpu().numpy()
-        arr = np.asarray(images, np.float32)
-        if arr.ndim == 5:  # video (B, F, 3, H, W): frame by frame
-            u8 = images_to_uint8(arr.reshape((-1,) + arr.shape[-3:]))
-            u8 = u8.reshape(arr.shape[:2] + u8.shape[1:])
-        else:
-            u8 = images_to_uint8(arr)
+        u8 = None
         details: Dict[str, Any] = {}
         total = None
         for name, weight in score_dict.items():
-            scores = np.asarray(HOST_REWARDS[name](u8), dtype=np.float64)
+            if name in DEVICE_REWARDS:
+                scores = pickscore(name, images, prompts)
+            else:
+                if u8 is None:
+                    arr = (images.detach().float().cpu().numpy() if torch.is_tensor(images)
+                           else np.asarray(images, np.float32))
+                    if arr.ndim == 5:  # video (B, F, 3, H, W): frame by frame
+                        u8 = images_to_uint8(arr.reshape((-1,) + arr.shape[-3:]))
+                        u8 = u8.reshape(arr.shape[:2] + u8.shape[1:])
+                    else:
+                        u8 = images_to_uint8(arr)
+                scores = HOST_REWARDS[name](u8)
+            scores = np.asarray(scores, dtype=np.float64)
             details[name] = scores
             total = weight * scores if total is None else total + weight * scores
         details["avg"] = total

@@ -9,6 +9,9 @@ window-fit check, ``sample_phase``, ``train_phase`` with inner epochs and
     sampling     -> num_batches_per_epoch stochastic-window rollouts; host
                     rewards scored in a thread pool, overlapping the next rollout
     advantages   -> per-prompt (or global) normalisation
+    D-gate       -> pickscore: adaptive (reference reward < generated reward):
+                    a D-epoch trains the discriminator on the whole epoch's
+                    pairs and skips the policy update
     GRPO update  -> the inner epoch over (minibatch, window-step) microbatches
 
 The device is the pipeline's (one card, or the CPU for the tests). Rollout
@@ -29,18 +32,28 @@ JAX global-mean gradient, so the optimizer state and the EMA stay equal on
 every rank; only rank 0 logs. The eval prompts are padded to a multiple of
 the world size and each rank evaluates its share (:520-560).
 
-Not ported yet, and refused with ``NotImplementedError``: the discriminator
-(``train_d``) and its D-phase, sd3's ``same_latent`` shared prefix and
-checkpoints (``save``). The reference-image store is not loaded: only device
-rewards and the D-phase read it.
+Also ported: the co-trained PickScore discriminator (``DiscriminatorBundle``
+:56, the reference images and their rewards in ``sample_phase`` :339-379,
+the whole-epoch fp16 host copies of the pairs, ``d_phase`` :466,
+``should_run_d_epoch`` :510 and the D branch of ``run`` :627). Two departures
+from the JAX driver, which takes the gate on process-local means and runs
+its D-step without a collective: the gate compares the means over every
+rank's rows (the JAX means at world size 1), so all ranks take the same
+branch, and the D-step averages the tail's gradients over the ranks, so all
+ranks keep the same discriminator (the reference's DDP).
+
+Not ported yet, and refused with ``NotImplementedError``: the DINO
+discriminators, sd3's ``same_latent`` shared prefix and checkpoints
+(``save``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import random as pyrandom
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
@@ -82,17 +95,31 @@ def masked_global_means(details, valid):
     return means, counts
 
 
+@dataclasses.dataclass
+class DiscriminatorBundle:
+    """The live adversarial scorer state and its step:
+    ``step_fn(params, opt_state, images_real, images_fake, input_ids) ->
+    (params, opt_state, loss, accuracy)`` (``grpo_trainer.make_pickscore_d_step``)."""
+
+    kind: str  # "pickscore"
+    step_fn: Callable
+    opt_state: Any
+    params: Any  # the trainable tail of the PickScore scorer
+    tokenize: Optional[Callable] = None
+
+
 class GRPOTrainer:
     _grid_error_logged = False  # warn once per process, never silently drop
 
     def __init__(self, config, pipeline, dataset, text_encode_fn, reward_fn,
                  eval_reward_fn=None, latent_hw: int = 64,
-                 logger: Optional[MetricLogger] = None):
+                 logger: Optional[MetricLogger] = None, reference_store=None,
+                 discriminator: Optional[DiscriminatorBundle] = None, reward_ctx=None):
         self.config = config
-        if bool(config.train_d) and str(config.discriminator):
+        if bool(config.train_d) and str(config.discriminator) not in ("", "pickscore"):
             raise NotImplementedError(
-                f"discriminator={config.discriminator!r} with train_d: the co-trained "
-                "D-phase is not yet ported to adv_grpo_torch")
+                f"discriminator={config.discriminator!r} with train_d: the DINO "
+                "discriminators are not yet ported to adv_grpo_torch (ported: pickscore)")
         self.family = getattr(pipeline, "family", "sd3")
         if self.family not in ("sd3", "flux", "wan"):
             raise NotImplementedError(f"model family {self.family!r}: adv_grpo_torch trains "
@@ -103,6 +130,9 @@ class GRPOTrainer:
         self.text_encode_fn = text_encode_fn  # List[str] -> (embeds, pooled) numpy
         self.reward_fn = reward_fn
         self.eval_reward_fn = eval_reward_fn or reward_fn
+        self.reference_store = reference_store
+        self.disc = discriminator
+        self.reward_ctx = reward_ctx  # the live co-trained params flow back here
         self.latent_hw = latent_hw
 
         s = config.sample
@@ -213,7 +243,8 @@ class GRPOTrainer:
     def sample_phase(self, epoch: int):
         rollouts, all_prompts, all_prompt_ids = [], [], []
         all_embeds, all_pooled, reward_futures = [], [], []
-        last_images = last_prompts = None
+        all_images, all_refs, all_batch_prompts = [], [], []
+        last_images = last_refs = last_prompts = None
         for i in range(self.num_batches):
             step_idx = epoch * self.num_batches + i
             slot_idx = self.prompt_sampler.batch_for_epoch(step_idx).tolist()
@@ -250,8 +281,17 @@ class GRPOTrainer:
                     self.pipeline.mmdit_cfg, self._s_img, embeds.shape[1], B,
                     self.sampler_cfg.num_steps, self.sampler_cfg.do_cfg)
 
-            def _score(images=images_np, prompts=prompts, metadata=metadata):
-                return self.reward_fn(images, prompts, metadata)[0]
+            refs = None
+            if self.reference_store is not None:
+                refs = self.reference_store.get_batch(prompts, rng=pyrandom.Random(step_idx))
+
+            def _score(images=images_np, prompts=prompts, metadata=metadata, refs=refs):
+                out = {"gen": self.reward_fn(images, prompts, metadata, ref_images=refs)[0]}
+                if refs is not None and self.disc is not None:
+                    # the reference images under the same reward, for the gate
+                    ref_flat = refs.reshape((-1,) + refs.shape[-3:])
+                    out["ref"] = self.reward_fn(ref_flat[:len(prompts)], prompts, metadata)[0]
+                return out
 
             with self.timer("reward_dispatch"):
                 reward_futures.append(self.executor.submit(_score))
@@ -260,18 +300,30 @@ class GRPOTrainer:
             all_prompt_ids.extend(prompt_ids)
             all_embeds.append(embeds)
             all_pooled.append(pooled)
-            last_images, last_prompts = images_np, prompts
+            if self.disc is not None and bool(self.config.train_d):
+                # the whole epoch's pairs for the D-step, fp16 on the host
+                # (reference train_sd3_fast_pickscore.py:795-800, 1003-1008)
+                all_images.append(images_np.astype(np.float16))
+                all_refs.append(None if refs is None else refs.astype(np.float16))
+                all_batch_prompts.append(prompts)
+            last_images, last_refs, last_prompts = images_np, refs, prompts
 
         with self.timer("reward_wait"):
             results = [f.result() for f in reward_futures]
-        rewards = {k: np.concatenate([np.asarray(r[k]) for r in results])
-                   for k in results[0]}
+        rewards = {k: np.concatenate([np.asarray(r["gen"][k]) for r in results])
+                   for k in results[0]["gen"]}
+        ref_rewards = None
+        if "ref" in results[0]:
+            ref_rewards = {k: np.concatenate([np.asarray(r["ref"][k]) for r in results])
+                           for k in results[0]["ref"]}
         rollout = {k: torch.cat([r[k] for r in rollouts])
                    for k in rollouts[0] if k != "final_latents"}
         return dict(prompts=all_prompts, prompt_ids=np.asarray(all_prompt_ids, np.int64),
                     rollout=rollout, embeds=torch.cat(all_embeds),
-                    pooled=torch.cat(all_pooled), rewards=rewards,
-                    last_images=last_images, last_prompts=last_prompts)
+                    pooled=torch.cat(all_pooled), rewards=rewards, ref_rewards=ref_rewards,
+                    last_images=last_images, last_refs=last_refs, last_prompts=last_prompts,
+                    epoch_images=all_images, epoch_refs=all_refs,
+                    epoch_prompts=all_batch_prompts)
 
     def train_phase(self, samples, advantages: np.ndarray):
         r = samples["rollout"]
@@ -307,6 +359,38 @@ class GRPOTrainer:
             self._sync()
         self.last_inner_losses = [i["loss"] for i in infos]
         return {k: float(np.mean([i[k] for i in infos])) for k in infos[0]}
+
+    def d_phase(self, samples):
+        """Train D on the whole epoch's generated / reference pairs, one step
+        per sampling batch; then the co-trained reward scores with the new
+        parameters."""
+        d = self.disc
+        if not samples["epoch_refs"] or samples["epoch_refs"][0] is None:
+            raise RuntimeError("D-step requires a reference image store")
+        losses, accs = [], []
+        with self.timer("d_step"):
+            for fake, refs, prompts in zip(samples["epoch_images"], samples["epoch_refs"],
+                                           samples["epoch_prompts"]):
+                real = refs[:, 0] if refs.ndim == 5 else refs
+                n = min(len(real), fake.shape[0])
+                d.params, d.opt_state, loss, acc = d.step_fn(
+                    d.params, d.opt_state, real[:n], fake[:n], d.tokenize(prompts[:n]))
+                losses.append(float(loss))
+                accs.append(float(acc))
+        if self.reward_ctx is not None:
+            self.reward_ctx.pickscore_params = d.params
+        return {"d_loss": float(np.mean(losses)), "d_acc": float(np.mean(accs))}
+
+    def should_run_d_epoch(self, samples) -> bool:
+        """The adaptive gate (reference :1025-1037): a D-epoch when the
+        reference images' mean reward is below the generated ones', both
+        means over the rows of every rank."""
+        if self.disc is None or not bool(self.config.train_d) or samples["ref_rewards"] is None:
+            return False
+        ref, gen = samples["ref_rewards"]["avg"], samples["rewards"]["avg"]
+        s = mesh.all_reduce_sum_np(np.array([np.sum(ref), len(ref), np.sum(gen), len(gen)],
+                                            np.float64))
+        return float(s[0] / s[1]) < float(s[2] / s[3])
 
     def eval_phase(self, eval_prompts: List[str], seed: int = 0):
         """Deterministic eval on the EMA weights (the live LoRA without EMA).
@@ -370,9 +454,18 @@ class GRPOTrainer:
             advantages = advantages[local_rows]
 
             metrics = {f"reward_{k}": float(np.mean(v)) for k, v in samples["rewards"].items()}
+            if samples["ref_rewards"] is not None:
+                metrics.update({f"reference_reward_{k}": float(np.mean(v))
+                                for k, v in samples["ref_rewards"].items()})
             metrics.update(group_stats)
-            metrics.update(self.train_phase(samples, advantages))
-            metrics["d_epoch"] = 0
+            if self.should_run_d_epoch(samples):
+                metrics.update(self.d_phase(samples))
+                metrics["d_epoch"] = 1
+                # a D-epoch advances the step counter too (reference :1035-1036)
+                self.state.global_step += 1
+            else:
+                metrics.update(self.train_phase(samples, advantages))
+                metrics["d_epoch"] = 0
             metrics.update(self.timer.summary())
             rollout_s = self.timer.totals.get("rollout", 0.0)
             if rollout_s > 0 and self._rollout_flops_acc > 0:

@@ -20,7 +20,9 @@ parameters, and run eagerly:
     across the ranks of a process group (``parallel.mesh``; nothing without
     one) and feeds them to ``apply_microbatch_grads``.
 
-The discriminator steps are not ported.
+The PickScore D-step (``scorer_trainable_mask`` :369,
+``make_pickscore_d_step`` :396) trains the CLIP scorer's last vision layers
+in place; the DINO D-steps are not ported.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from adv_grpo_torch.adversarial.clip_criterion import pickscore_d_step_loss_and_acc
 from adv_grpo_torch.core.grpo import grpo_loss
 from adv_grpo_torch.core.stat_tracking import PerPromptStatTracker, calculate_zero_std_ratio
 from adv_grpo_torch.models.lora import lora_params, merge_lora_params
@@ -242,6 +245,52 @@ def make_train_epoch_fn(pipeline, sampler_cfg: SamplerConfig, train_cfg, beta: f
         return state, dict(zip(INFO_KEYS, means))
 
     return train_epoch
+
+
+# ───────────────────────── discriminator step ─────────────────────────
+
+
+def scorer_trainable_mask(clip, tune_layer: int) -> Dict[str, bool]:
+    """{parameter name: trainable} of the co-trained CLIP scorer: only the
+    vision layers ``range(num_layers)[tune_layer:]`` train (the last one for
+    the preset's -1; reference train_sd3_fast_pickscore.py:1016-1020
+    freezes everything else)."""
+    trainable = set(range(clip.vision_model.cfg.num_layers)[tune_layer:])
+    return {name: (name.startswith("vision_model.layers.")
+                   and int(name.split(".")[2]) in trainable)
+            for name, _ in clip.named_parameters()}
+
+
+def make_pickscore_d_step(scorer, tune_layer: int, d_lr: float):
+    """The adversarial PickScore D-step: the CLIP criterion with (real =
+    reference images, fake = generated images), Adam(d_lr, betas (0.5,
+    0.999), eps 1e-8; ``optax.adam``'s update) on the trainable tail, which
+    it updates in place. Every other parameter of the scorer gets
+    ``requires_grad=False``, so autograd records nothing below the tail (the
+    JAX step's stop_gradient and dead-code elimination). Across the ranks of
+    a process group the tail's gradients are averaged, so every rank keeps
+    the same discriminator.
+
+    Returns (step, optimizer, tail): ``tail`` the trainable vision layers (a
+    ``ModuleList``), ``step(tail, optimizer, images_real, images_fake,
+    input_ids) -> (tail, optimizer, loss, accuracy)`` in the JAX step's
+    functional form, the gradients left in the tail's ``.grad``."""
+    mask = scorer_trainable_mask(scorer.clip, tune_layer)
+    for name, p in scorer.clip.named_parameters():
+        p.requires_grad_(mask[name])
+    layers = scorer.clip.vision_model.layers
+    tail = torch.nn.ModuleList(layers[i] for i in range(len(layers))[tune_layer:])
+    optimizer = torch.optim.Adam(tail.parameters(), lr=d_lr, betas=(0.5, 0.999), eps=1e-8)
+
+    def step(tail, optimizer, images_real, images_fake, input_ids):
+        optimizer.zero_grad(set_to_none=True)
+        loss, acc = pickscore_d_step_loss_and_acc(scorer, images_real, images_fake, input_ids)
+        loss.backward()
+        mesh.all_reduce_mean_(p.grad for p in tail.parameters())
+        optimizer.step()
+        return tail, optimizer, loss.detach(), acc
+
+    return step, optimizer, tail
 
 
 def compute_advantages(tracker: PerPromptStatTracker, prompts, rewards_avg,

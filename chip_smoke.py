@@ -52,7 +52,19 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      launch counts of all five kernels exactly as derived from the config;
      seconds per epoch (rollout, reward, train), per microstep, and peak
      device memory; then one microstep's device time by kernel group
-     (torch.profiler, the last inner epoch replayed on the trained state).
+     (torch.profiler, the last inner epoch replayed on the trained state);
+     then, in the same group, the paper's main path: ``cli.train.main`` on
+     ``pickscore_cotrain_sd3_fast`` (COTRAIN_ARGV) at full SD3.5-M width with
+     the full-width CLIP-H/14 PickScore discriminator (random fp32 weights),
+     against reference PNGs the phase writes: 2 epochs whose branch the
+     adaptive gate picks (printed with the epoch's reward and reference
+     reward), then the branch it never took once on the last samples. The
+     launch counts of the five kernels as derived from the config and the
+     branches; the trainable CLIP tail moved and finite, every other CLIP
+     tensor and the frozen 'pickscore' score of a fixed batch bitwise
+     unchanged, the co-trained score moved; the LoRA and EMA moved; D-step
+     ms per sampling batch, CLIP-H scoring ms per batch, s per epoch on each
+     branch, peak device memory.
  11. the Flux kernels against their plain versions at the Flux.1-dev 512^2
      shapes: the per-head RMS norm (d = 128, and one head across a 5120-wide
      row), the BSHD attention (B = 1 and 4, and 4608 tokens with kv_len
@@ -125,7 +137,8 @@ and each tree's error against fp32 on the same inputs), and ``--attention-fwd-ab
 (MHA_SHAPES), by CUDA events and by device kernel time; ``--norms-ab PARENT
 PAIRS`` the LayerNorms #1 and #6 (and #7 beside them) at NORM_AB_CASES, the
 main path's shapes: CUDA-event, device kernel and host ms of each call and of
-``F.layer_norm`` where it computes the same function, and each side's error
+``F.layer_norm`` where it computes the same function (``F.rms_norm`` beside
+#7), and each side's error
 in bf16 spacings against fp32 on the same inputs.
 
 Prints one JSON line of per-kernel results (each with its least possible time
@@ -244,6 +257,20 @@ JOINT_PARENT_ERR = {  # the mma.sync kernel of PR 8's tree (NVIDIA H100 80GB HBM
     "edge_1_154": (3.272e-3, 2.162e-3), "edge_127_129": (2.523e-3, 1.594e-3),
     "edge_128_1": (5.178e-3, 2.762e-3), "edge_129_127": (3.137e-3, 1.672e-3),
     "edge_154_128": (2.345e-3, 1.777e-3), "edge_rms_129": (4.341e-3, 2.127e-3)}
+# the co-training slice (the paper's main path): pickscore_cotrain_sd3_fast at
+# full SD3.5-M width with the full-width CLIP-H discriminator, the smoke
+# run's cuts (10-step rollouts, 2 prompt slots a batch, 2 epochs) and 2
+# sampling batches an epoch (the preset's 12 cut for the run's time; each
+# batch keeps the preset's 16 images); accumulation over one batch's window
+# so each G epoch takes optimizer steps, the EMA every 2 of them
+COTRAIN_EPOCHS = 2
+COTRAIN_ARGV = ["--config", "pickscore_cotrain_sd3_fast", "--set", "smoke_test=False",
+                "--set", "pretrained.model=", "--set", "dataset=dataset/pickscore_small",
+                "--set", "sample.num_steps=10", "--set", "sample.train_batch_size=2",
+                "--set", "sample.num_batches_per_epoch=2",
+                "--set", "train.gradient_accumulation_steps=1", "--set", "train.ema_interval=2",
+                "--set", "wandb_init=False", "--max_epochs", str(COTRAIN_EPOCHS),
+                "--device", "cuda"]
 WAN_TRAIN_OVERRIDES = [f"resolution={WAN_RES}", f"sample.num_frames={WAN_FRAMES}",
                        "sample.num_steps=8", "sample.train_num_steps=2",
                        "train.micro_splits=2", "train.ema=True", "train.ema_interval=2"]
@@ -300,20 +327,23 @@ def _host_ms(fn, calls=100):
     return host
 
 
-def _three_ms(fn, bound_ms, reps=20, tries=3):
+def _three_ms(fn, bound_ms, reps=20, tries=3, one_kernel=True):
     """(median ms of 50 CUDA-event-timed calls after 5 warm-ups, the host's
     time between the events included; device kernel ms per call, the mean of
     ``reps`` traced calls; the host's ms per call, 100 enqueued back to back)
-    for ``fn``, which launches one kernel. A trace is kept only if it
-    recorded ``reps`` kernels and their time is not under ``bound_ms``, the
-    least the card could take; one that is not is printed with its kernels and
-    taken again, up to ``tries`` times, after which the device kernel ms is
-    None (not measured)."""
+    for ``fn``, which launches one kernel (``one_kernel``; else each of its
+    kernels once a call). A trace is kept only if it recorded ``reps`` of
+    each kernel and their time is not under ``bound_ms``, the least the card
+    could take; one that is not is printed with its kernels and taken again,
+    up to ``tries`` times, after which the device kernel ms is None (not
+    measured)."""
     kernel_ms = None
     for _ in range(tries):
         events = []
         total, _ = _profile_forward(fn, reps=reps, events=events)
-        if sum(n for _, n, _ in events) == reps and total >= bound_ms:
+        counted = (sum(n for _, n, _ in events) == reps if one_kernel
+                   else bool(events) and all(n == reps for _, n, _ in events))
+        if counted and total >= bound_ms:
             kernel_ms = total
             break
         print(f"  trace discarded: {reps} calls recorded {events} (kernel, launches, ms), "
@@ -840,17 +870,21 @@ def run_pipeline():
     return counts
 
 
-def expected_train_counts(config, mcfg):
-    """Launches of the 5 kernels in a TRAIN_ARGV run, from the config: rollout
-    forwards (one CFG-batched forward per step), replay forwards and their
-    backwards (one per microbatch, two with cfg_sequential)."""
+def expected_train_counts(config, mcfg, epochs=EPOCHS, g_epochs=None):
+    """Launches of the 5 kernels in ``epochs`` epochs of a training run, from
+    the config: rollout forwards (one CFG-batched forward per step), and in
+    the ``g_epochs`` of them that take the GRPO update (all by default; a
+    D-epoch runs only its rollouts) the replay forwards and their backwards
+    (one per microbatch, two with cfg_sequential); and the microsteps of one
+    G epoch."""
     s, t = config.sample, config.train
-    micro = (EPOCHS * max(int(t.num_inner_epochs), 1) * int(s.num_batches_per_epoch)
-             * max(int(t.micro_splits), 1) * int(s.train_num_steps))
-    replay = micro * (2 if bool(t.cfg_sequential) and bool(t.cfg) else 1)
-    fwd = EPOCHS * int(s.num_batches_per_epoch) * int(s.num_steps) + replay
+    g_epochs = epochs if g_epochs is None else g_epochs
+    per_epoch = (max(int(t.num_inner_epochs), 1) * int(s.num_batches_per_epoch)
+                 * max(int(t.micro_splits), 1) * int(s.train_num_steps))
+    replay = g_epochs * per_epoch * (2 if bool(t.cfg_sequential) and bool(t.cfg) else 1)
+    fwd = epochs * int(s.num_batches_per_epoch) * int(s.num_steps) + replay
     return ([c * fwd for c in per_forward_counts(mcfg)]
-            + [c * replay for c in per_backward_counts(mcfg)]), micro // EPOCHS
+            + [c * replay for c in per_backward_counts(mcfg)]), per_epoch
 
 
 def run_training_slice(kernels):
@@ -954,6 +988,207 @@ def run_training_slice(kernels):
         print(f"    {grp}: {ms / n_micro:.2f} ms, {calls / n_micro:.0f} launches per microstep",
               flush=True)
     return counts
+
+
+def _reference_images(out_dir, prompts, n=4):
+    """``n`` smooth random 512^2 PNGs from the seed in ``out_dir`` and a
+    prompt -> file JSON over ``prompts``; returns the JSON's path."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED)
+    for i in range(n):
+        small = rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)
+        Image.fromarray(small).resize((512, 512), Image.BICUBIC).save(
+            os.path.join(out_dir, f"ref{i}.png"))
+    path = os.path.join(out_dir, "refs.json")
+    with open(path, "w") as f:
+        json.dump({p: [f"ref{i % n}.png"] for i, p in enumerate(prompts)}, f)
+    return path
+
+
+def run_cotrain_slice(kernels, smi):
+    """Phase: ``adv_grpo_torch.cli.train.main`` on COTRAIN_ARGV, the paper's
+    main path (full SD3.5-M width, random weights from the seed; the
+    full-width CLIP-H PickScore discriminator, random weights from the seed
+    + 1, fp32), against reference PNGs it writes for the dataset's prompts.
+    The gate decides each epoch's branch; then the branch it never took runs
+    once on the last epoch's samples, so both run. Checks: the launch counts
+    of #1-#5 as derived from the config and the branches; after the D-steps
+    the trainable tail moved and is finite, every other CLIP tensor and the
+    frozen 'pickscore' score of a fixed batch are bitwise unchanged, the
+    'pickscore_cotrain' score moved, d_loss / d_acc finite; after the G
+    update the LoRA and its EMA moved. Prints the D-step ms per sampling
+    batch, CLIP-H scoring ms per batch (generated and reference images), s
+    per epoch on each branch and the peak device memory."""
+    import numpy as np
+    import torch
+
+    from adv_grpo_torch.cli import train
+    from adv_grpo_torch.data.datasets import TextPromptDataset
+    from adv_grpo_torch.rewards.registry import multi_score
+    from adv_grpo_torch.train.grpo_trainer import compute_advantages
+
+    probe = np.random.default_rng(SEED + 1).uniform(-1, 1, (4, 3, 512, 512)).astype(np.float32)
+    probe_prompts = ["a flower", "a red bicycle", "a city at night", "a bowl of fruit"]
+    hold, build = {"sample": [], "d": [], "g": []}, train.build_trainer
+
+    def probe_scores(ctx):  # (frozen 'pickscore', live 'pickscore_cotrain') of the probe
+        return tuple(multi_score({name: 1.0}, ctx)(probe, probe_prompts)[0][name]
+                     for name in ("pickscore", "pickscore_cotrain"))
+
+    def timed(key, fn):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            hold[key].append(time.perf_counter() - t0)
+            if key == "sample":
+                hold["samples"] = out
+            return out
+        return call
+
+    def recording_build(*args, **kwargs):
+        trainer = build(*args, **kwargs)
+        clip = trainer.reward_ctx.pickscore.clip
+        hold.update(trainer=trainer, scores=probe_scores(trainer.reward_ctx),
+                    clip={k: v.to("cpu", copy=True) for k, v in clip.state_dict().items()},
+                    lora={k: p.detach().clone() for k, p in trainer.state.lora.items()},
+                    ema={k: e.clone() for k, e in trainer.state.ema.items()})
+        trainer.sample_phase = timed("sample", trainer.sample_phase)
+        trainer.d_phase = timed("d", trainer.d_phase)
+        trainer.train_phase = timed("g", trainer.train_phase)
+        return trainer
+
+    with tempfile.TemporaryDirectory() as work:
+        prompts = TextPromptDataset("dataset/pickscore_small").prompts
+        argv = COTRAIN_ARGV + ["--set", f"json_path={_reference_images(work, prompts)}",
+                               "--set", f"reference_image_path={work}",
+                               "--set", f"save_dir={os.path.join(work, 'run')}"]
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train.build_trainer = recording_build
+        try:
+            train.main(argv)
+        finally:
+            train.build_trainer = build
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = [k.launches for k in kernels]
+        with open(os.path.join(work, "run", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    trainer, samples = hold["trainer"], hold["samples"]
+    config, mcfg, nb = trainer.config, trainer.pipeline.mmdit_cfg, trainer.num_batches
+    branches = [bool(r["d_epoch"]) for r in records]
+    print(f"cli.train pickscore_cotrain_sd3_fast full width (SD3.5-M 512^2, CLIP-H/14 fp32 "
+          f"random), {config.sample.num_steps}-step rollouts of "
+          f"{samples['epoch_images'][0].shape[0]} images, {nb} sampling batches an epoch, "
+          f"{COTRAIN_EPOCHS} epochs: {wall:.2f} s wall (builds included); launches {counts}; "
+          f"{smi}", flush=True)
+    if len(records) != COTRAIN_EPOCHS:
+        raise AssertionError(f"{len(records)} epochs logged")
+    for r in records:
+        print(f"  epoch {r['epoch']}: gate d_epoch={r['d_epoch']} (reward_avg "
+              f"{r['reward_avg']:.6f}, reference_reward_avg {r['reference_reward_avg']:.6f})",
+              flush=True)
+        keys = ["reward_avg", "reference_reward_avg"] + (
+            ["d_loss", "d_acc"] if r["d_epoch"] else ["loss", "approx_kl", "clipfrac"])
+        if not all(np.isfinite(r[k]) for k in keys) or r["d_epoch"] != int(
+                r["reference_reward_avg"] < r["reward_avg"]):
+            raise AssertionError(f"epoch {r['epoch']}: {r}")
+        if r["d_epoch"] and not 0.0 <= r["d_acc"] <= 1.0:
+            raise AssertionError(f"d_acc {r['d_acc']}")
+    want, _ = expected_train_counts(config, mcfg, COTRAIN_EPOCHS, branches.count(False))
+    if counts != want:
+        raise AssertionError(f"co-train launch counts {counts}, expected {want} (branches "
+                             f"{branches})")
+
+    # the branch the gate never took, once, on the last epoch's samples
+    extra = None if len(set(branches)) == 2 else ("G" if branches[0] else "D")
+    for k in kernels:
+        k.launches = 0
+    if extra == "D":
+        out = trainer.d_phase(samples)
+        print(f"  extra D-epoch on the last samples: d_loss {out['d_loss']:.5f}, d_acc "
+              f"{out['d_acc']:.3f}", flush=True)
+        if not (np.isfinite(out["d_loss"]) and 0.0 <= out["d_acc"] <= 1.0):
+            raise AssertionError(f"extra D-epoch {out}")
+        want_extra = [0] * len(kernels)
+    elif extra == "G":
+        adv, _ = compute_advantages(trainer.tracker, samples["prompt_ids"],
+                                    np.asarray(samples["rewards"]["avg"], np.float32))
+        info = trainer.train_phase(samples, adv)
+        print(f"  extra G epoch on the last samples: loss {info['loss']:.3e}, approx_kl "
+              f"{info['approx_kl']:.3e}", flush=True)
+        if not all(np.isfinite(v) for v in info.values()):
+            raise AssertionError(f"extra G epoch {info}")
+        want_extra = expected_train_counts(config, mcfg, 0, 1)[0]
+    else:
+        want_extra = [0] * len(kernels)
+    extra_counts = [k.launches for k in kernels]
+    if extra_counts != want_extra:
+        raise AssertionError(f"extra {extra} launch counts {extra_counts}, expected {want_extra}")
+    peak = torch.cuda.max_memory_allocated()
+
+    # the discriminator: only the tail moved; the frozen reward did not
+    ctx, clip = trainer.reward_ctx, trainer.reward_ctx.pickscore.clip
+    tail = {n for n, p in clip.named_parameters() if p.requires_grad}
+    moved_tail = [n for n in tail if not torch.equal(clip.state_dict()[n].cpu(), hold["clip"][n])]
+    finite_tail = all(bool(torch.isfinite(p).all()) for n, p in clip.named_parameters()
+                      if n in tail)
+    changed_frozen = [n for n, v in clip.state_dict().items()
+                      if n not in tail and not torch.equal(v.cpu(), hold["clip"][n])]
+    frozen, live = probe_scores(ctx)
+    print(f"  PickScore D: {len(moved_tail)} of {len(tail)} tail tensors moved (vision layer "
+          f"{config.tune_layer}), finite {finite_tail}; {len(changed_frozen)} frozen tensors "
+          f"changed; probe 'pickscore' max change "
+          f"{np.abs(frozen - hold['scores'][0]).max():.3e}, 'pickscore_cotrain' "
+          f"{np.abs(live - hold['scores'][1]).max():.3e}", flush=True)
+    if (not tail or len(moved_tail) != len(tail) or not finite_tail or changed_frozen
+            or not np.array_equal(frozen, hold["scores"][0])
+            or np.array_equal(live, hold["scores"][1])):
+        raise AssertionError(f"discriminator: tail moved {moved_tail}, finite {finite_tail}, "
+                             f"frozen changed {changed_frozen}")
+    idle = {f"block_{mcfg.num_layers - 1}/attn/add_q_proj/lora_b"}
+    lora, ema = trainer.state.lora, trainer.state.ema
+    unchanged = {k for k, p in lora.items() if torch.equal(p, hold["lora"][k])}
+    ema_unchanged = {k for k, e in ema.items() if torch.equal(e, hold["ema"][k])}
+    print(f"  LoRA: {len(lora) - len(unchanged)} of {len(lora)} tensors changed; EMA "
+          f"{len(ema) - len(ema_unchanged)} changed; global step {trainer.state.global_step}",
+          flush=True)
+    if not unchanged <= idle or not ema_unchanged <= idle:
+        raise AssertionError(f"LoRA unchanged {sorted(unchanged)}, EMA {sorted(ema_unchanged)}")
+
+    # CLIP-H scoring of one sampling batch: generated and reference images
+    images, refs, prompts = samples["last_images"], samples["last_refs"], samples["last_prompts"]
+    refs = refs.reshape((-1,) + refs.shape[-3:])[:len(prompts)]
+    score_ms = {}
+    for what, batch in (("generated", images), ("reference", refs)):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            trainer.reward_fn(batch, prompts)  # ends in a copy to the host
+            times.append((time.perf_counter() - t0) * 1e3)
+        score_ms[what] = sorted(times)[1]
+    branch_s = {"D": [], "G": []}
+    d_i = g_i = 0
+    for e, is_d in enumerate(branches + ([extra == "D"] if extra else [])):
+        update = hold["d"][d_i] if is_d else hold["g"][g_i]
+        d_i, g_i = d_i + is_d, g_i + (not is_d)
+        branch_s["D" if is_d else "G"].append(hold["sample"][min(e, len(hold["sample"]) - 1)]
+                                              + update)
+    print(f"  co-train timings ({smi}): D-step "
+          f"{[round(1e3 * t / nb, 1) for t in hold['d']]} ms per sampling batch of "
+          f"{len(images)} pairs; CLIP-H scoring {score_ms['generated']:.1f} ms per batch of "
+          f"{len(images)} generated images, {score_ms['reference']:.1f} ms of {len(refs)} "
+          f"references; s per epoch (sampling + update) D {[round(t, 2) for t in branch_s['D']]}"
+          f", G {[round(t, 2) for t in branch_s['G']]} (the extra {extra or 'none'} epoch "
+          f"reuses the last sampling); sampling {[round(t, 2) for t in hold['sample']]} s; "
+          f"peak device memory {peak / 2**30:.2f} GiB", flush=True)
+    return [c + x for c, x in zip(counts, extra_counts)]
 
 
 def flux_per_forward_counts(fcfg):
@@ -2465,7 +2700,8 @@ def norms_ms(tree):
     times its row norms as the models call them, at NORM_AB_CASES: each call
     and, where one PyTorch call computes the same function (#1 at one batch
     item: ``F.layer_norm`` with weight 1 + scale and bias shift; #6:
-    ``F.layer_norm``), that call (key ``lib ...``), each by :func:`_three_ms`;
+    ``F.layer_norm``; #7: ``F.rms_norm`` with the weight in bf16, whatever
+    kernels it launches), that call (key ``lib ...``), each by :func:`_three_ms`;
     each case's largest error against fp32 on the same inputs (bf16 spacings,
     as chip_smoke.py's gates take them, and max abs); ptxas's registers and
     spill stores of the norm kernels when this process built the tree's
@@ -2510,6 +2746,8 @@ def norms_ms(tree):
             call = lambda: norms.rms_norm_heads(x, w, num_heads=heads)  # noqa: E731
             ref = norms.rms_reference(x.float(), w, heads, 1e-6, torch.float32)
             nbytes = _nbytes(x, x, w)
+            x4, wb = x.view(b, s, heads, d // heads), w.to(torch.bfloat16)
+            lib = lambda: F.rms_norm(x4, (d // heads,), wb, 1e-6)  # noqa: E731
         least = _bound(nbytes, 8.0 * x.numel(), FP32_FLOPS)[0]
         err = (call().float() - ref).abs()
         errors[f"#{k} {name}"] = [(err / _bf16_ulp(ref)).max().item(), err.max().item()]
@@ -2517,7 +2755,7 @@ def norms_ms(tree):
         key = f"#{k} {name} ({b},{s},{d})"
         out[key] = _three_ms(call, least)
         if lib is not None:
-            out[f"lib {key}"] = _three_ms(lib, least)
+            out[f"lib {key}"] = _three_ms(lib, least, one_kernel=k != 7)
         del x, call, lib
     out["errors"] = errors
     out["error_names"] = ["largest bf16 spacings against fp32", "largest max abs"]
@@ -2729,6 +2967,7 @@ def main() -> int:
     counts = run_training_slice(kernels)
     for r, n in zip(results, counts):
         r["launches"] = n
+    run_cotrain_slice(kernels, smi)
     dist.destroy_process_group()
     check_flux_model_grads(*check_flux_model())
     flux_kernels = (fused_norms.modulated_layer_norm, fused_norms.rms_norm_heads,

@@ -19,7 +19,7 @@ def _plain(tree):
 
 
 @pytest.mark.parametrize("preset", ["compressibility", "smoke_sd3_fast", "eval_sd3_fast",
-                                    "flux_smoke", "wan_smoke"])
+                                    "flux_smoke", "wan_smoke", "pickscore_cotrain_sd3_fast"])
 def test_preset_matches_jax(preset):
     want = j_grpo.get_config(preset).to_dict()
     want.pop("tpu")

@@ -166,6 +166,43 @@ def test_prompt_datasets_are_identical(name):
         assert [a[i] for i in range(len(a))] == [b[i] for i in range(len(b))]
 
 
+@pytest.mark.parametrize("num_refs,strict", [(1, False), (2, False), (1, True)])
+def test_reference_store_gives_identical_batches(tmp_path, monkeypatch, num_refs, strict):
+    """The port's store against the JAX store's PIL path (its C++ loader
+    switched off): the same files chosen from a seeded rng, the same BICUBIC
+    resize, the fallback frame for a prompt without images and for a broken
+    file, and ``strict`` raising where the JAX store raises."""
+    from PIL import Image
+
+    from adv_grpo_tpu.native import lib as j_native
+
+    monkeypatch.setattr(j_native, "load_images_chw", lambda *a, **k: None)
+    rng = np.random.default_rng(4)
+    for i in range(3):
+        Image.fromarray(rng.integers(0, 256, (20 + 7 * i, 30, 3), dtype=np.uint8)).save(
+            tmp_path / f"r{i}.png")
+    (tmp_path / "broken.png").write_bytes(b"not a png")
+    mapping = {"a": ["r0.png", "r1.png", "r2.png"], "b": "r1.png", "c": [],
+               "d": ["broken.png"], "e": [str(tmp_path / "r2.png")]}
+    (tmp_path / "refs.json").write_text(json.dumps(mapping))
+    stores = [mod.ReferenceImageStore(str(tmp_path / "refs.json"), str(tmp_path), resolution=24,
+                                      num_refs=num_refs, strict=strict)
+              for mod in (t_data, j_data)]
+    import random
+
+    prompts = ["a", "b", "e", "a"] if strict else ["a", "b", "c", "d", "e", "missing", "a"]
+    got, want = (s.get_batch(prompts, rng=random.Random(5)) for s in stores)
+    assert got.shape == (len(prompts), num_refs, 3, 24, 24) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(stores[0].get("a", random.Random(1)),
+                                  stores[1].get("a", random.Random(1)))
+    if strict:
+        for prompt, err in (("c", KeyError), ("d", Exception)):
+            for s in stores:
+                with pytest.raises(err):
+                    s.get_batch([prompt])
+
+
 def test_embedding_store_reads_identically(tmp_path):
     encode = j_common.make_hash_text_encoder(seq_len=5, embed_dim=8, pooled_dim=3)
     prompts = ["a", "b", "c", "a", "d"]

@@ -10,6 +10,13 @@ named by rank 0's timestamp); ``train_phase`` on its share of fixed rollout
 rows; and the padded eval, once with an empty shard. Bounds: the LoRA and
 EMA after ``train_phase`` within 1e-5 of the one-process run on all the rows
 (fp32, sums in another order).
+
+A second launch (``--cotrain``) runs the PickScore co-training: the CLIP
+criterion over the differentiably gathered batch (against the JAX
+``shard_map`` with ``all_gather``, rtol 1e-5), then two epochs of
+``pickscore_cotrain_sd3_fast`` on the tiny towers and one more D-epoch, after
+which both ranks must have taken the same branches and hold the same
+discriminator.
 """
 
 import argparse
@@ -148,6 +155,97 @@ def test_train_phase_on_two_ranks_matches_one_process(one_process, ranks):
     assert moved > len(lora1)  # the LoRA moved on both ranks' comparison
 
 
+def _criterion_inputs():
+    rng = np.random.default_rng(1)
+
+    def norm(x):
+        return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+    t, i0, i1 = (norm(rng.standard_normal((8, 4))) for _ in range(3))
+    return dict(t=t, i0=i0, i1=i1, l0=np.ones(8, np.float32),
+                l1=np.array([0, 0, 1, 0, 0.5, 0, 0, 0], np.float32))
+
+
+@pytest.fixture(scope="module")
+def cotrain_ranks(tmp_path_factory):
+    from PIL import Image
+
+    from adv_grpo_torch.data.datasets import TextPromptDataset
+
+    tmp = tmp_path_factory.mktemp("cotrain")
+    np.savez(tmp / "criterion.npz", **_criterion_inputs())
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        Image.fromarray(rng.integers(0, 256, (24, 24, 3), dtype=np.uint8)).save(tmp / f"r{i}.png")
+    prompts = TextPromptDataset("dataset/pickscore_small").prompts
+    (tmp / "refs.json").write_text(json.dumps({p: [f"r{i % 3}.png"] for i, p in
+                                               enumerate(prompts)}))
+    run_ranks(WORLD, tmp, os.path.abspath(__file__), extra=("--cotrain",))
+    return [(json.loads((tmp / f"cotrain{r}.json").read_text()), np.load(tmp / f"cotrain{r}.npz"))
+            for r in range(WORLD)]
+
+
+@pytest.mark.parametrize("in_batch", [False, True], ids=["pairwise", "in_batch"])
+def test_gathered_criterion_matches_jax_shard_map(cotrain_ranks, in_batch):
+    """Each rank's loss over the gathered batch equals the one-process loss
+    and the JAX ``shard_map`` loss. The backward's reduce-scatter sums every
+    rank's cotangent of a rank's rows, so its features' gradients are the
+    world size times the one-process gradients; divided by the world size,
+    as the data-parallel mean divides the parameters' gradients (the
+    reference's DDP), they equal the one-process gradients and the JAX
+    ``shard_map`` gradients of its rows, where the replicated loss's
+    cotangent is shared out over the devices."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    from adv_grpo_tpu.adversarial.clip_criterion import CLIPCriterionBatch, clip_criterion_loss
+
+    x = {k: jnp.asarray(v) for k, v in _criterion_inputs().items()}
+
+    def loss(t, i0, i1, axis_name=None):
+        batch = CLIPCriterionBatch(t, i0, i1, x["l0"], x["l1"])
+        return clip_criterion_loss(batch, 10.0, in_batch_negatives=in_batch,
+                                   axis_name=axis_name)
+
+    one, one_g = jax.value_and_grad(loss, argnums=(0, 1, 2))(x["t"], x["i0"], x["i1"])
+    mesh = Mesh(np.array(jax.devices()[:WORLD]), ("d",))
+
+    def sharded(t, i0, i1, l0, l1):
+        batch = CLIPCriterionBatch(t, i0, i1, l0, l1)
+        return clip_criterion_loss(batch, 10.0, in_batch_negatives=in_batch, axis_name="d")
+
+    f = jax.shard_map(sharded, mesh=mesh, in_specs=(P("d"),) * 5, out_specs=P(), check_vma=False)
+    dist_loss, dist_g = jax.value_and_grad(
+        lambda t, i0, i1: f(t, i0, i1, x["l0"], x["l1"]), argnums=(0, 1, 2))(
+        x["t"], x["i0"], x["i1"])
+    np.testing.assert_allclose(float(dist_loss), float(one), rtol=1e-5)
+    mode = "in_batch" if in_batch else "pairwise"
+    for r, (res, arrays) in enumerate(cotrain_ranks):
+        rows = slice(r * 8 // WORLD, (r + 1) * 8 // WORLD)
+        np.testing.assert_allclose(res[f"{mode}_loss"], float(one), rtol=1e-5)
+        for name, g_dist, g_one in zip(("t", "i0", "i1"), dist_g, one_g):
+            got = arrays[f"{mode}_grad_{name}"] / WORLD
+            np.testing.assert_allclose(got, np.asarray(g_dist)[rows], rtol=1e-5, atol=1e-7)
+            np.testing.assert_allclose(got, np.asarray(g_one)[rows], rtol=1e-5, atol=1e-7)
+
+
+def test_cotrain_ranks_take_one_branch_and_keep_one_discriminator(cotrain_ranks):
+    """The gate compares the means over both ranks' rows, so the ranks take
+    the same branch in every epoch although each scores its own prompts;
+    the D-step averages the tail's gradients, so after a D-epoch both ranks
+    hold the same, moved discriminator."""
+    (r0, a0), (r1, a1) = cotrain_ranks
+    assert len(r0["d_epochs"]) == 3 and r0["d_epochs"] == r1["d_epochs"]
+    assert r0["d_epochs"][-1] is True  # the forced D-epoch after the run
+    assert r0["gen_means"] != r1["gen_means"]  # each rank scored its own rows
+    tail = [k for k in a0.files if k.startswith("tail/")]
+    assert tail
+    for k in tail:
+        np.testing.assert_array_equal(a0[k], a1[k], err_msg=k)
+        assert not np.array_equal(a0[k], a0["start/" + k[len("tail/"):]]), k
+
+
 def test_padded_eval_with_an_empty_shard_returns_on_both_ranks(ranks):
     """One prompt over two ranks: rank 1's share is padding only; both ranks
     return, with the same means over a global count of 1. Three prompts:
@@ -234,10 +332,76 @@ def _rank_main(args):
     torch.distributed.destroy_process_group()
 
 
+def _cotrain_main(args):
+    import torch.distributed as dist
+
+    from adv_grpo_torch.adversarial.clip_criterion import CLIPCriterionBatch, clip_criterion_loss
+    from adv_grpo_torch.cli import train
+    from adv_grpo_torch.parallel import mesh
+
+    mesh.init_distributed("gloo", init_method=f"file://{args.store}", world_size=args.world,
+                          rank=args.rank, timeout_s=RANK_TIMEOUT_S)
+    res, arrays = {}, {}
+    x = np.load(os.path.join(args.dir, "criterion.npz"))
+    rows = slice(args.rank * 8 // args.world, (args.rank + 1) * 8 // args.world)
+    for mode, in_batch in (("pairwise", False), ("in_batch", True)):
+        feats = [torch.from_numpy(x[k][rows]).requires_grad_() for k in ("t", "i0", "i1")]
+        batch = CLIPCriterionBatch(*feats, torch.from_numpy(x["l0"][rows]),
+                                   torch.from_numpy(x["l1"][rows]))
+        loss = clip_criterion_loss(batch, 10.0, in_batch_negatives=in_batch,
+                                   group=dist.group.WORLD)
+        loss.backward()
+        res[f"{mode}_loss"] = loss.item()
+        arrays.update({f"{mode}_grad_{k}": f.grad.numpy() for k, f in zip(("t", "i0", "i1"),
+                                                                           feats)})
+
+    # two epochs of the co-train preset on the tiny towers, then one D-epoch
+    argv = ["--config", "pickscore_cotrain_sd3_fast", "--device", "cpu", "--latent_hw", "8",
+            "--max_epochs", "2", "--set", "smoke_test=True", "--set", "save_dir=",
+            "--set", f"logdir={os.path.join(args.dir, 'logs')}",
+            "--set", "dataset=dataset/pickscore_small", "--set", "sample.train_batch_size=1",
+            "--set", "sample.num_batches_per_epoch=2", "--set", "wandb_init=False",
+            "--set", "train.gradient_accumulation_steps=1", "--set", "d_lr=1e-3",
+            "--set", f"json_path={os.path.join(args.dir, 'refs.json')}",
+            "--set", f"reference_image_path={args.dir}"]
+    res.update(d_epochs=[], gen_means=[])
+    build = train.build_trainer
+
+    def recording_build(*a, **kw):
+        trainer = build(*a, **kw)
+        gate = trainer.should_run_d_epoch
+        arrays.update({f"start/{k}": v.detach().numpy().copy()
+                       for k, v in trainer.disc.params.state_dict().items()})
+
+        def recording_gate(samples):
+            res["gen_means"].append(float(np.mean(samples["rewards"]["avg"])))
+            res["d_epochs"].append(gate(samples))
+            return res["d_epochs"][-1]
+
+        trainer.should_run_d_epoch = recording_gate
+        return trainer
+
+    train.build_trainer = recording_build
+    try:
+        trainer = train.main(argv)
+    finally:
+        train.build_trainer = build
+    trainer.d_phase(trainer.sample_phase(2))
+    res["d_epochs"].append(True)
+    arrays.update({f"tail/{k}": v.detach().numpy()
+                   for k, v in trainer.disc.params.state_dict().items()})
+    with open(os.path.join(args.dir, f"cotrain{args.rank}.json"), "w") as f:
+        json.dump(res, f)
+    np.savez(os.path.join(args.dir, f"cotrain{args.rank}.npz"), **arrays)
+    torch.distributed.destroy_process_group()
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     for flag in ("--rank", "--world"):
         ap.add_argument(flag, type=int, required=True)
     ap.add_argument("--store", required=True)
     ap.add_argument("--dir", required=True)
-    _rank_main(ap.parse_args())
+    ap.add_argument("--cotrain", action="store_true")
+    parsed = ap.parse_args()
+    (_cotrain_main if parsed.cotrain else _rank_main)(parsed)
