@@ -5,7 +5,7 @@ Port of adv_grpo_tpu/cli/common.py:50-69 (``apply_overrides``), :88-240
 (``build_pipeline`` for the sd3, flux and wan families, ``build_text_encoder``),
 :242-258 (``make_hash_text_encoder``, the deterministic stand-in for the
 text encoders, byte for byte the JAX package's embeddings) and the PickScore
-part of :331-392 (``build_reward_context``).
+and DINO parts of :331-501 (``build_reward_context``).
 """
 
 from __future__ import annotations
@@ -191,21 +191,33 @@ def build_text_encoder(config, pipeline):
                                   pooled_dim=mcfg.pooled_projection_dim)
 
 
+DINO_REWARDS = {"image_similarity", "image_similarity_eval", "dino_cotrain",
+                "dino_patch_cotrain", "dino_multi_cotrain"}
+
+
 def build_reward_context(config, reward_names, device="cuda"):
     """The ``RewardContext`` for the reward names a preset uses (the ported
-    ones: the PickScore rewards), on ``device``. ``smoke_test`` takes the
-    tiny towers (image 28); otherwise CLIP-H with random weights from
-    ``config.seed + 1``, with a warning: the PickScore checkpoint loader is
-    not ported, so a set ``PICKSCORE_DIR`` raises, as does a local CLIP
-    tokenizer (``<pretrained.model>/tokenizer``: the card has no
-    ``transformers``). The token ids are the constant 3 at the text tower's
-    length, as the JAX package's are without a tokenizer."""
+    ones: the PickScore and DINO rewards), on ``device``.
+
+    PickScore: ``smoke_test`` takes the tiny towers (image 28); otherwise
+    CLIP-H with random weights from ``config.seed + 1``, with a warning: the
+    PickScore checkpoint loader is not ported, so a set ``PICKSCORE_DIR``
+    raises, as does a local CLIP tokenizer (``<pretrained.model>/tokenizer``:
+    the card has no ``transformers``). The token ids are the constant 3 at
+    the text tower's length, as the JAX package's are without a tokenizer.
+
+    DINO (:func:`_dino_context`): ``smoke_test`` takes a tiny DINOv2 (28^2,
+    2 layers of 32, 2 heads); otherwise DINOv2-B/14 at 518^2 with random
+    weights from ``config.seed + 3``, with a warning; a set ``DINOV2_DIR``
+    raises (its loader is not ported)."""
     from adv_grpo_torch.models.clip_text import CLIPTextConfig
     from adv_grpo_torch.models.vit import ViTConfig
     from adv_grpo_torch.rewards.registry import RewardContext
     from adv_grpo_torch.rewards.scorers import PickScoreScorer
 
     ctx = RewardContext()
+    if set(reward_names) & DINO_REWARDS:
+        _dino_context(ctx, config, set(reward_names), resolve_device(device))
     if not set(reward_names) & {"pickscore", "pickscore_cotrain"}:
         return ctx
     if os.environ.get("PICKSCORE_DIR", ""):
@@ -231,6 +243,42 @@ def build_reward_context(config, reward_names, device="cuda"):
     ctx.pickscore = ps
     ctx.tokenize = lambda prompts: np.full((len(prompts), max_len), 3, np.int32)
     return ctx
+
+
+def _dino_context(ctx, config, reward_names, device):
+    """The DINO scorer, its live head, the patch generator (seeded from
+    ``config.seed + 2``) and, for ``dino_multi_cotrain``, the multi-layer
+    scorer and its heads. Its layers are ``config.dino_multi_layer_ids``
+    (the JAX default 8 where unset); the tiny smoke backbone has two, so
+    ``smoke_test`` takes layer 1."""
+    from adv_grpo_torch.models.vit import ViTConfig
+    from adv_grpo_torch.rewards.scorers import DINOMultiScorer, DINOScorer
+
+    if os.environ.get("DINOV2_DIR", ""):
+        raise NotImplementedError(
+            f"DINOV2_DIR={os.environ['DINOV2_DIR']!r}: loading a DINOv2 checkpoint is not yet "
+            "ported to adv_grpo_torch; unset it for random DINOv2-B/14 weights")
+    smoke = bool(config.get("smoke_test", False))
+    generator = torch.Generator(device=device).manual_seed(int(config.seed) + 3)
+    if smoke:
+        dino = DINOScorer.random_init(
+            generator, device, ViTConfig.dinov2_base(image_size=28, num_layers=2, hidden_size=32,
+                                                     intermediate_size=64, num_heads=2),
+            image_size=28)
+    else:
+        import warnings
+
+        warnings.warn("DINOv2 backbone is RANDOM-INIT: its checkpoint loader is not yet "
+                      "ported to adv_grpo_torch", stacklevel=3)
+        dino = DINOScorer.random_init(generator, device)
+    ctx.dino = dino
+    ctx.dino_head_params = dino.init_head(generator)
+    ctx.rng = torch.Generator(device=device).manual_seed(int(config.seed) + 2)
+    if "dino_multi_cotrain" in reward_names:
+        layer_ids = (1,) if smoke else tuple(config.get("dino_multi_layer_ids", None) or (8,))
+        ctx.dino_multi = DINOMultiScorer(dino, layer_ids=layer_ids,
+                                         temperature=float(config.get("temperature", 0.2)))
+        ctx.dino_multi_params = ctx.dino_multi.init_heads(generator)
 
 
 def make_hash_text_encoder(seq_len: int, embed_dim: int, pooled_dim: int):

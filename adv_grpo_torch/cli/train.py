@@ -18,13 +18,15 @@ of each batch; with an empty ``save_dir`` rank 0's timestamp names the run
 directory of every rank.
 
 Rewards, budgets, the optimizer and the discriminator come from the preset.
-``pickscore_cotrain_sd3_fast`` co-trains the PickScore reward: the reference
-images come from ``json_path`` (prompt -> files) and
-``reference_image_path``; CLIP-H runs on random weights (tiny towers with
-``smoke_test``). Not ported yet, and refused with ``NotImplementedError``:
-``--resume``, ``train.lora_path`` and ``weight_path`` (they need the
-checkpoint module), the DINO discriminators and the device rewards other
-than PickScore.
+``pickscore_cotrain_sd3_fast`` co-trains the PickScore reward;
+``dino_cotrain_sd3_fast``, ``dino_cotrain_sd3_patch_fast`` and
+``dino_cotrain_sd3_multi_fast`` a DINO head (or per-layer heads and their
+fusion) on a frozen DINOv2 backbone. The reference images come from
+``json_path`` (prompt -> files) and ``reference_image_path``; CLIP-H and
+DINOv2-B/14 run on random weights (tiny towers with ``smoke_test``). Not
+ported yet, and refused with ``NotImplementedError``: ``--resume``,
+``train.lora_path`` and ``weight_path`` (they need the checkpoint module)
+and the device rewards other than PickScore and DINO.
 """
 
 from __future__ import annotations
@@ -43,14 +45,16 @@ def build_trainer(config, latent_hw=None, dataset=None, device="cuda"):
         GenevalPromptDataset, ReferenceImageStore, TextPromptDataset)
     from adv_grpo_torch.rewards.registry import multi_score
     from adv_grpo_torch.train.driver import DiscriminatorBundle, GRPOTrainer
-    from adv_grpo_torch.train.grpo_trainer import make_pickscore_d_step
+    from adv_grpo_torch.train.grpo_trainer import (
+        make_dino_d_step, make_dino_multi_d_step, make_pickscore_d_step)
 
     pipeline = build_pipeline(config, latent_hw=latent_hw, device=device)
     ctx = build_reward_context(
         config, set(dict(config.reward_fn)) | set(dict(config.eval_reward_fn)),
         device=pipeline.device)
     disc = None
-    if bool(config.train_d) and str(config.discriminator) == "pickscore":
+    kind = str(config.discriminator) if bool(config.train_d) else ""
+    if kind == "pickscore":
         step_fn, optimizer, tail = make_pickscore_d_step(
             ctx.pickscore, int(config.tune_layer), float(config.d_lr))
         disc = DiscriminatorBundle("pickscore", step_fn, optimizer, tail, tokenize=ctx.tokenize)
@@ -58,6 +62,18 @@ def build_trainer(config, latent_hw=None, dataset=None, device="cuda"):
         # updates the live one in place
         ctx.pickscore_params = tail
         ctx.pickscore_frozen_params = copy.deepcopy(tail).requires_grad_(False)
+    elif kind:
+        # the DINO kinds: the reward reads the live head (dino_multi: heads and
+        # fusion), which the D-step updates in place; nothing frozen reads it
+        multi = kind == "dino_multi"
+        scorer = ctx.dino_multi if multi else ctx.dino
+        if scorer is None:
+            raise ValueError(f"discriminator={kind!r} needs its DINO reward in the preset's "
+                             "reward_fn or eval_reward_fn")
+        params = ctx.dino_multi_params if multi else ctx.dino_head_params
+        make = make_dino_multi_d_step if multi else make_dino_d_step
+        step_fn, optimizer = make(scorer, params, float(config.d_lr))
+        disc = DiscriminatorBundle(kind, step_fn, optimizer, params, backbone=ctx.dino.vision)
     reward_fn = multi_score(dict(config.reward_fn), ctx)
     eval_reward_fn = (multi_score(dict(config.eval_reward_fn), ctx)
                       if dict(config.eval_reward_fn) else None)

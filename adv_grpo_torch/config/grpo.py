@@ -1,8 +1,9 @@
 """GRPO presets of the ported paths, from adv_grpo_tpu/config/grpo.py.
 
 Only the presets whose model path the port runs are here (``eval_sd3_fast``,
-``smoke_sd3_fast``, ``pickscore_cotrain_sd3_fast``, the ``compressibility``
-base they build on, ``flux_smoke`` and ``wan_smoke``); the others raise
+``smoke_sd3_fast``, ``pickscore_cotrain_sd3_fast``, the three DINO
+co-training presets, the ``compressibility`` base they build on,
+``flux_smoke`` and ``wan_smoke``); the others raise
 ``KeyError`` with a "not yet ported" note.
 Values are identical to the JAX presets (``tests/test_torch_config.py``).
 """
@@ -98,6 +99,68 @@ def pickscore_cotrain_sd3_fast(replica_count=8):
     return config
 
 
+def dino_cotrain_sd3_fast(replica_count=8):
+    """DINO CLS-only co-training (reference config/grpo.py:31-99)."""
+    config = _sd3_fast_common(compressibility(), replica_count)
+    config.discriminator = "dino"
+    config.d_times = 10
+    config.d_lr = 1e-4
+    config.tune_layer = -2
+    config.train_d = True
+    config.json_path = "data/reference_images/prompt2img_merged_pickscore.json"
+    config.reference_image_path = "data/reference_images/qwen_images_pickscore"
+    config.test_reference_image_path = "data/reference_images/qwen_images_pickscore_test"
+    config.case_name = "fast_dino_cotrain_16_8"
+    config.save_dir = "logs/dino/sd3.5-M-fast_dino_cotrain"
+    config.reward_fn = {"dino_cotrain": 1}
+    config.eval_reward_fn = {"pickscore": 1}
+    config.prompt_fn = "general_ocr"
+    return config
+
+
+def dino_cotrain_sd3_patch_fast(replica_count=8):
+    """DINO CLS + patch co-training, the paper's headline config (reference
+    config/grpo.py:102-174)."""
+    config = dino_cotrain_sd3_fast(replica_count)
+    config.discriminator = "dino_patch"
+    config.case_name = "fast_dino_cotrain_16_8_patch_image_loss_73"
+    config.save_dir = "logs/dino/sd3.5-M-fast_dino_patch_cotrain"
+    config.reward_fn = {"dino_patch_cotrain": 1}
+    config.eval_reward_fn = {"pickscore": 1, "image_similarity": 1}
+    config.limit = None
+    return config
+
+
+def dino_cotrain_sd3_multi_fast(replica_count=8):
+    """Multi-layer DINO heads + fusion co-training (reference
+    config/grpo.py:176-246)."""
+    config = _sd3_fast_common(compressibility(), replica_count)
+    config.sample.num_image_per_prompt = 8  # k = 1
+    config.sample.mini_num_image_per_prompt = 8
+    config.sample.num_batches_per_epoch = int(
+        48 / (replica_count * config.sample.mini_num_image_per_prompt
+              / config.sample.num_image_per_prompt))
+    config.train.batch_size = config.sample.mini_num_image_per_prompt
+    config.train.gradient_accumulation_steps = config.sample.num_batches_per_epoch // 2
+    config.sample.random_timestep = 0
+    config.discriminator = "dino_multi"
+    config.d_times = 10
+    config.d_lr = 1e-4
+    config.tune_layer = -1
+    config.dino_multi_layer_ids = (11,)
+    config.temperature = 2.0
+    config.train_d = True
+    config.json_path = "data/reference_images/prompt2img_merged_pickscore.json"
+    config.reference_image_path = "data/reference_images/qwen_images_pickscore"
+    config.test_reference_image_path = "data/reference_images/qwen_images_pickscore_test"
+    config.case_name = "fast_dino_cotrain_16_8_multi_image_loss"
+    config.save_dir = "logs/dino/sd3.5-M-fast_dino_multi_cotrain"
+    config.reward_fn = {"dino_multi_cotrain": 1}
+    config.eval_reward_fn = {"pickscore": 1, "image_similarity": 1}
+    config.prompt_fn = "general_ocr"
+    return config
+
+
 def flux_smoke():
     """Flux text-to-image preset: the tiny random-init model by default;
     ``FLUX_DIR`` names a diffusers FluxTransformer2DModel directory, whose
@@ -176,6 +239,9 @@ _PRESETS = {
     "compressibility": compressibility,
     "smoke_sd3_fast": smoke_sd3_fast,
     "pickscore_cotrain_sd3_fast": pickscore_cotrain_sd3_fast,
+    "dino_cotrain_sd3_fast": dino_cotrain_sd3_fast,
+    "dino_cotrain_sd3_patch_fast": dino_cotrain_sd3_patch_fast,
+    "dino_cotrain_sd3_multi_fast": dino_cotrain_sd3_multi_fast,
     "eval_sd3_fast": eval_sd3_fast,
     "flux_smoke": flux_smoke,
     "wan_smoke": wan_smoke,

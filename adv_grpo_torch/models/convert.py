@@ -2,10 +2,14 @@
 
 The inverse of adv_grpo_tpu.models.convert's ``convert_mmdit`` /
 ``convert_flux`` / ``convert_vae`` / ``convert_wan`` / ``convert_wan_vae``
-(decoder half), and the CLIP dual encoder that ``convert_clip_model``
-fills (:func:`clip_dual_state_dict_from_jax`): a Flax tree of numpy arrays (as
-``jax.device_get`` returns it) becomes a ``state_dict`` with diffusers names
-(the CLIP encoder's mirror the JAX tree's), so the two packages compute the same function from the same weights.
+(decoder half), the CLIP dual encoder that ``convert_clip_model``
+fills (:func:`clip_dual_state_dict_from_jax`), the DINOv2 backbone
+(:func:`vit_state_dict_from_jax`) and the DINO heads
+(:func:`dino_head_state_dict_from_jax`, :func:`dino_multi_state_dict_from_jax`):
+a Flax tree of numpy arrays (as ``jax.device_get`` returns it) becomes a
+``state_dict`` with diffusers names (the CLIP and DINO encoders' mirror the
+JAX tree's), so the two packages compute the same function from the same
+weights.
 
   * Dense kernels (in, out) -> Linear weights (out, in);
   * Conv kernels HWIO -> OIHW, 3-D conv kernels (kt, kh, kw, I, O) ->
@@ -317,17 +321,51 @@ def clip_dual_state_dict_from_jax(params, text_cfg, vision_cfg) -> Dict[str, tor
             _dense(b + name, blk[name], out)
     _group_norm("text_model.final_layer_norm", t["final_layer_norm"], out)
     _dense("text_model.text_projection", t["text_projection"], out)
-    _dense("vision_model.patch_embed", v["patch_embed"], out)
-    out["vision_model.class_embedding"] = _tensor(v["class_embedding"])
-    out["vision_model.position_embedding"] = _tensor(v["position_embedding"])
-    for i in range(vision_cfg.num_layers):
-        blk, b = v[f"layer_{i}"], f"vision_model.layers.{i}."
+    out.update(vit_state_dict_from_jax(v, vision_cfg, "vision_model."))
+    out["logit_scale"] = _tensor(params["logit_scale"]).reshape(())
+    return out
+
+
+def vit_state_dict_from_jax(params, cfg, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """adv_grpo_tpu ``VisionTransformer`` params -> the state dict of
+    ``models.vit.VisionTransformer`` at ``cfg``: the CLIP towers
+    (``pre_layernorm``, ``visual_projection``) and the DINOv2 backbone
+    (LayerScale ``layer_{i}/ls1`` / ``ls2``, neither of the two)."""
+    v, out = _unwrap(params), {}
+    _dense(prefix + "patch_embed", v["patch_embed"], out)
+    out[prefix + "class_embedding"] = _tensor(v["class_embedding"])
+    out[prefix + "position_embedding"] = _tensor(v["position_embedding"])
+    for i in range(cfg.num_layers):
+        blk, b = v[f"layer_{i}"], f"{prefix}layers.{i}."
         for name in ("norm1", "norm2"):
             _group_norm(b + name, blk[name], out)
         for name in ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2"):
             _dense(b + name, blk[name], out)
+        for name in ("ls1", "ls2"):
+            if name in blk:
+                out[b + name] = _tensor(blk[name])
     for name in ("pre_layernorm", "post_layernorm"):
-        _group_norm("vision_model." + name, v[name], out)
-    _dense("vision_model.visual_projection", v["visual_projection"], out)
-    out["logit_scale"] = _tensor(params["logit_scale"]).reshape(())
+        if name in v:
+            _group_norm(prefix + name, v[name], out)
+    if "visual_projection" in v:
+        _dense(prefix + "visual_projection", v["visual_projection"], out)
+    return out
+
+
+def dino_head_state_dict_from_jax(params, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX DINO head ({"fc1", "fc2"}) -> ``rewards.scorers.DINOHead``'s
+    state dict."""
+    h, out = _unwrap(params), {}
+    for name in ("fc1", "fc2"):
+        _dense(prefix + name, h[name], out)
+    return out
+
+
+def dino_multi_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """A JAX ``DINOMultiScorer`` tree ({"heads": [...], "fusion": {"fuse"}})
+    -> ``rewards.scorers.DINOMultiHeads``' state dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for i, head in enumerate(params["heads"]):
+        out.update(dino_head_state_dict_from_jax(head, f"heads.{i}."))
+    _dense("fusion", params["fusion"]["fuse"], out)
     return out

@@ -5,8 +5,9 @@ so the resize must be PIL's BICUBIC as the reference's tensor -> PIL ->
 CLIPProcessor path applies it: antialiased on downscale (the filter support
 scaled by the scale factor), filter weights snapped to PIL's int16 fixed
 point, and each separable pass rounded back to uint8 (round half up,
-horizontal pass first). ``pil_resample_weights`` is the port's own copy of
-the JAX package's numpy weights; the two passes are fp32 matmuls against
+horizontal pass first); the filter support is not scaled on upsampling
+(DINO resizes 512 to 518). ``pil_resample_weights`` is the port's own copy
+of the JAX package's numpy weights; the two passes are fp32 matmuls against
 them, which need the full mantissa (the negative-lobe sums): TF32 must be
 off, as ``rewards.scorers.PickScoreScorer`` sets it.
 """
@@ -20,6 +21,8 @@ import torch
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 
 _PRECISION_BITS = 22  # PIL normalize_coeffs_8bpc: 32 - 8 - 2
 

@@ -3,17 +3,22 @@
 Port of adv_grpo_tpu/rewards/registry.py's ``RewardContext`` and
 ``multi_score`` for the ported rewards: the host JPEG scorers
 (``rewards/host.py``, on the uint8 copy of the images, packed once) and the
-device PickScore rewards (``rewards/scorers.py``): ``pickscore`` scores with
-the frozen weights, ``pickscore_cotrain`` with the live, co-trained ones.
-``'avg'`` is the weight-summed ensemble, as in the JAX package. The other
-device rewards (CLIP, DINO, SigLIP, ...), the OCR scorer and the remote
-judges are not ported yet and raise ``NotImplementedError`` naming the
-reward.
+device rewards (``rewards/scorers.py``): ``pickscore`` scores with the
+frozen weights, ``pickscore_cotrain`` with the live, co-trained ones; the
+DINO rewards ``image_similarity`` (against ``ref_images``; its ``_eval``
+form also returns the CLS features as ``feat`` / ``ref_feat``),
+``dino_cotrain``, ``dino_patch_cotrain`` (patch indices drawn from the
+context's generator, under its lock: the reward futures run in threads) and
+``dino_multi_cotrain``, with the live heads. ``'avg'`` is the weight-summed
+ensemble, as in the JAX package. The other device rewards (CLIP, SigLIP,
+...), the OCR scorer and the remote judges are not ported yet and raise
+``NotImplementedError`` naming the reward.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -24,7 +29,8 @@ from adv_grpo_torch.utils.images import images_to_uint8
 
 HOST_REWARDS = {"jpeg_compressibility": jpeg_compressibility,
                 "jpeg_incompressibility": jpeg_incompressibility}
-DEVICE_REWARDS = ("pickscore", "pickscore_cotrain")
+DEVICE_REWARDS = ("pickscore", "pickscore_cotrain", "image_similarity", "image_similarity_eval",
+                  "dino_cotrain", "dino_patch_cotrain", "dino_multi_cotrain")
 
 
 @dataclasses.dataclass
@@ -37,12 +43,20 @@ class RewardContext:
     vision layers, so the parameters are those layers: ``pickscore_params``
     the live ones (None: the scorer's own), ``pickscore_frozen_params``
     copies taken before training (None: the scorer's own, when nothing
-    trains it)."""
+    trains it). The DINO scorer keeps its frozen backbone; its heads are
+    the live modules the D-steps update in place (``dino_head_params``,
+    ``dino_multi_params``), which nothing frozen reads."""
 
     pickscore: Optional[Any] = None  # rewards.scorers.PickScoreScorer
     pickscore_params: Optional[Any] = None
     pickscore_frozen_params: Optional[Any] = None
     tokenize: Optional[Callable[[List[str]], np.ndarray]] = None  # CLIP ids (B, 77)
+    dino: Optional[Any] = None  # rewards.scorers.DINOScorer
+    dino_head_params: Optional[Any] = None  # the live DINOHead
+    dino_multi: Optional[Any] = None  # rewards.scorers.DINOMultiScorer
+    dino_multi_params: Optional[Any] = None  # the live DINOMultiHeads
+    rng: Optional[torch.Generator] = None  # patch indices of dino_patch_cotrain
+    rng_lock: Any = dataclasses.field(default_factory=threading.Lock)
 
 
 def _require(obj, name, what):
@@ -63,11 +77,26 @@ def multi_score(score_dict: Dict[str, float], ctx: Optional[RewardContext] = Non
     score_dict = dict(score_dict)
     ctx = ctx or RewardContext()
 
-    def pickscore(name, images, prompts):
-        s = _require(ctx.pickscore, name, "pickscore scorer")
-        ids = _require(ctx.tokenize, name, "tokenize")(prompts)
-        tail = ctx.pickscore_frozen_params if name == "pickscore" else ctx.pickscore_params
-        return s.score(images, ids, tail).cpu().numpy()
+    def device_scores(name, images, prompts, ref_images):
+        if name in ("pickscore", "pickscore_cotrain"):
+            s = _require(ctx.pickscore, name, "pickscore scorer")
+            ids = _require(ctx.tokenize, name, "tokenize")(prompts)
+            tail = ctx.pickscore_frozen_params if name == "pickscore" else ctx.pickscore_params
+            return s.score(images, ids, tail)
+        if name == "dino_multi_cotrain":
+            s = _require(ctx.dino_multi, name, "dino_multi scorer")
+            return s.score(_require(ctx.dino_multi_params, name, "dino_multi_params"), images)
+        s = _require(ctx.dino, name, "dino scorer")
+        if name.startswith("image_similarity"):
+            refs = _require(ref_images, name, "ref_images")
+            return s.similarity_to_refs_with_feats(images, refs)
+        head = _require(ctx.dino_head_params, name, "dino_head_params")
+        if name == "dino_cotrain":
+            return s.cotrain_score(head, images)
+        _require(ctx.rng, name, "rng generator")
+        with ctx.rng_lock:  # the reward futures share the generator
+            idx = s.draw_patch_indices(len(images), ctx.rng)
+        return s.patch_cotrain_score(head, images, idx=idx)
 
     def fn(images, prompts, metadata=None, ref_images=None, only_strict=True):
         u8 = None
@@ -75,7 +104,13 @@ def multi_score(score_dict: Dict[str, float], ctx: Optional[RewardContext] = Non
         total = None
         for name, weight in score_dict.items():
             if name in DEVICE_REWARDS:
-                scores = pickscore(name, images, prompts)
+                scores = device_scores(name, images, prompts, ref_images)
+                if name.startswith("image_similarity"):
+                    scores, feat, ref_feat = scores
+                    if name == "image_similarity_eval":
+                        details["feat"] = feat.cpu().numpy()
+                        details["ref_feat"] = ref_feat.cpu().numpy()
+                scores = scores.cpu().numpy()
             else:
                 if u8 is None:
                     arr = (images.detach().float().cpu().numpy() if torch.is_tensor(images)

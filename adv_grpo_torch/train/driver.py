@@ -9,9 +9,10 @@ window-fit check, ``sample_phase``, ``train_phase`` with inner epochs and
     sampling     -> num_batches_per_epoch stochastic-window rollouts; host
                     rewards scored in a thread pool, overlapping the next rollout
     advantages   -> per-prompt (or global) normalisation
-    D-gate       -> pickscore: adaptive (reference reward < generated reward):
-                    a D-epoch trains the discriminator on the whole epoch's
-                    pairs and skips the policy update
+    D-gate       -> pickscore: adaptive (reference reward < generated reward);
+                    dino: periodic ((epoch + 1) % d_times != 0); a D-epoch
+                    trains the discriminator on the whole epoch's pairs and
+                    skips the policy update
     GRPO update  -> the inner epoch over (minibatch, window-step) microbatches
 
 The device is the pipeline's (one card, or the CPU for the tests). Rollout
@@ -32,19 +33,21 @@ JAX global-mean gradient, so the optimizer state and the EMA stay equal on
 every rank; only rank 0 logs. The eval prompts are padded to a multiple of
 the world size and each rank evaluates its share (:520-560).
 
-Also ported: the co-trained PickScore discriminator (``DiscriminatorBundle``
-:56, the reference images and their rewards in ``sample_phase`` :339-379,
-the whole-epoch fp16 host copies of the pairs, ``d_phase`` :466,
-``should_run_d_epoch`` :510 and the D branch of ``run`` :627). Two departures
-from the JAX driver, which takes the gate on process-local means and runs
-its D-step without a collective: the gate compares the means over every
-rank's rows (the JAX means at world size 1), so all ranks take the same
-branch, and the D-step averages the tail's gradients over the ranks, so all
-ranks keep the same discriminator (the reference's DDP).
+Also ported: the co-trained discriminators, PickScore and DINO
+(``DiscriminatorBundle`` :56, the reference images and their rewards in
+``sample_phase`` :339-379, the whole-epoch fp16 host copies of the pairs,
+``d_phase`` :466 with a per-batch generator for the DINO patch draws,
+``should_run_d_epoch`` :510 and the D branch of ``run`` :627), and the
+reference images of the eval reward (``eval_phase`` :553-559). Two
+departures from the JAX driver, which takes the gate on process-local
+means and runs its D-steps without a collective: the adaptive gate
+compares the means over every rank's rows (the JAX means at world size 1),
+so all ranks take the same branch, and the D-steps average the
+discriminator's gradients over the ranks, so all ranks keep the same
+discriminator (the reference's DDP).
 
-Not ported yet, and refused with ``NotImplementedError``: the DINO
-discriminators, sd3's ``same_latent`` shared prefix and checkpoints
-(``save``).
+Not ported yet, and refused with ``NotImplementedError``: sd3's
+``same_latent`` shared prefix and checkpoints (``save``).
 """
 
 from __future__ import annotations
@@ -97,15 +100,17 @@ def masked_global_means(details, valid):
 
 @dataclasses.dataclass
 class DiscriminatorBundle:
-    """The live adversarial scorer state and its step:
-    ``step_fn(params, opt_state, images_real, images_fake, input_ids) ->
-    (params, opt_state, loss, accuracy)`` (``grpo_trainer.make_pickscore_d_step``)."""
+    """The live adversarial scorer state and its step: ``step_fn(params,
+    opt_state, images_real, images_fake, input_ids or generator) ->
+    (params, opt_state, loss, accuracy)`` (``grpo_trainer.make_pickscore_d_step``;
+    the DINO kinds ``make_dino_d_step`` / ``make_dino_multi_d_step``)."""
 
-    kind: str  # "pickscore"
+    kind: str  # "pickscore" | "dino" | "dino_patch" | "dino_multi"
     step_fn: Callable
     opt_state: Any
-    params: Any  # the trainable tail of the PickScore scorer
-    tokenize: Optional[Callable] = None
+    params: Any  # pickscore: the trainable tail; dino: the head; dino_multi: heads + fusion
+    backbone: Any = None  # dino kinds: the frozen DINOv2 backbone the features come from
+    tokenize: Optional[Callable] = None  # pickscore only
 
 
 class GRPOTrainer:
@@ -116,10 +121,10 @@ class GRPOTrainer:
                  logger: Optional[MetricLogger] = None, reference_store=None,
                  discriminator: Optional[DiscriminatorBundle] = None, reward_ctx=None):
         self.config = config
-        if bool(config.train_d) and str(config.discriminator) not in ("", "pickscore"):
-            raise NotImplementedError(
-                f"discriminator={config.discriminator!r} with train_d: the DINO "
-                "discriminators are not yet ported to adv_grpo_torch (ported: pickscore)")
+        if (discriminator is not None and bool(config.train_d)
+                and discriminator.kind != str(config.discriminator)):
+            raise ValueError(f"discriminator={config.discriminator!r} with train_d, but the "
+                             f"bundle trains a {discriminator.kind!r} discriminator")
         self.family = getattr(pipeline, "family", "sd3")
         if self.family not in ("sd3", "flux", "wan"):
             raise NotImplementedError(f"model family {self.family!r}: adv_grpo_torch trains "
@@ -362,30 +367,47 @@ class GRPOTrainer:
 
     def d_phase(self, samples):
         """Train D on the whole epoch's generated / reference pairs, one step
-        per sampling batch; then the co-trained reward scores with the new
-        parameters."""
+        per sampling batch (the DINO kinds' patch draws from a generator
+        seeded by (7, epoch * 1024 + batch), the JAX ``fold_in`` key); then
+        the co-trained reward scores with the new parameters."""
         d = self.disc
         if not samples["epoch_refs"] or samples["epoch_refs"][0] is None:
             raise RuntimeError("D-step requires a reference image store")
         losses, accs = [], []
         with self.timer("d_step"):
-            for fake, refs, prompts in zip(samples["epoch_images"], samples["epoch_refs"],
-                                           samples["epoch_prompts"]):
+            for b, (fake, refs, prompts) in enumerate(zip(
+                    samples["epoch_images"], samples["epoch_refs"], samples["epoch_prompts"])):
                 real = refs[:, 0] if refs.ndim == 5 else refs
                 n = min(len(real), fake.shape[0])
-                d.params, d.opt_state, loss, acc = d.step_fn(
-                    d.params, d.opt_state, real[:n], fake[:n], d.tokenize(prompts[:n]))
+                if d.kind == "pickscore":
+                    last = d.tokenize(prompts[:n])
+                else:
+                    last = torch.Generator(device=self.device).manual_seed(
+                        _seed(7, self.epoch * 1024 + b))
+                d.params, d.opt_state, loss, acc = d.step_fn(d.params, d.opt_state, real[:n],
+                                                             fake[:n], last)
                 losses.append(float(loss))
                 accs.append(float(acc))
         if self.reward_ctx is not None:
-            self.reward_ctx.pickscore_params = d.params
+            if d.kind == "pickscore":
+                self.reward_ctx.pickscore_params = d.params
+            elif d.kind == "dino_multi":
+                self.reward_ctx.dino_multi_params = d.params
+            else:
+                self.reward_ctx.dino_head_params = d.params
         return {"d_loss": float(np.mean(losses)), "d_acc": float(np.mean(accs))}
 
     def should_run_d_epoch(self, samples) -> bool:
-        """The adaptive gate (reference :1025-1037): a D-epoch when the
-        reference images' mean reward is below the generated ones', both
-        means over the rows of every rank."""
-        if self.disc is None or not bool(self.config.train_d) or samples["ref_rewards"] is None:
+        """The two gates. PickScore (reference :1025-1037): a D-epoch when
+        the reference images' mean reward is below the generated ones', both
+        means over the rows of every rank. DINO (reference
+        train_sd3_fast_dino_patch.py:1097-1118): periodic, a D-epoch unless
+        (epoch + 1) % d_times == 0."""
+        if self.disc is None or not bool(self.config.train_d):
+            return False
+        if self.disc.kind != "pickscore":
+            return (self.epoch + 1) % int(self.config.d_times) != 0
+        if samples["ref_rewards"] is None:
             return False
         ref, gen = samples["ref_rewards"]["avg"], samples["rewards"]["avg"]
         s = mesh.all_reduce_sum_np(np.array([np.sum(ref), len(ref), np.sum(gen), len(gen)],
@@ -413,9 +435,12 @@ class GRPOTrainer:
         generator = torch.Generator(device=self.device).manual_seed(_seed(seed, self.rank))
         images = self.eval_fn(lora, embeds, pooled, neg_e, neg_p, generator)
         images = images.float().cpu().numpy()
+        refs = (self.reference_store.get_batch(local) if self.reference_store is not None
+                else None)
         # score ALL local rows (a scorer's reward keys must not depend on the
         # padding), leave the padding out of the means
-        details, _ = self.eval_reward_fn(images, local, [{}] * len(local), only_strict=False)
+        details, _ = self.eval_reward_fn(images, local, [{}] * len(local), ref_images=refs,
+                                         only_strict=False)
         means, counts = masked_global_means(details, valid)
         metrics = {f"eval_reward_{k}": v for k, v in means.items()}
         metrics.update({f"eval_count_{k}": n for k, n in counts.items()})

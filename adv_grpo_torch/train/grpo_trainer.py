@@ -22,7 +22,9 @@ parameters, and run eagerly:
 
 The PickScore D-step (``scorer_trainable_mask`` :369,
 ``make_pickscore_d_step`` :396) trains the CLIP scorer's last vision layers
-in place; the DINO D-steps are not ported.
+in place; the DINO D-steps (``make_dino_d_step`` :449,
+``make_dino_multi_d_step`` :484) train the DINO head, or the per-layer
+heads and the fusion, in place on features of the frozen backbone.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from adv_grpo_torch.adversarial.clip_criterion import pickscore_d_step_loss_and_acc
+from adv_grpo_torch.adversarial.dino_hinge import dino_hinge_loss, dino_multi_hinge_loss
 from adv_grpo_torch.core.grpo import grpo_loss
 from adv_grpo_torch.core.stat_tracking import PerPromptStatTracker, calculate_zero_std_ratio
 from adv_grpo_torch.models.lora import lora_params, merge_lora_params
@@ -280,17 +283,75 @@ def make_pickscore_d_step(scorer, tune_layer: int, d_lr: float):
         p.requires_grad_(mask[name])
     layers = scorer.clip.vision_model.layers
     tail = torch.nn.ModuleList(layers[i] for i in range(len(layers))[tune_layer:])
-    optimizer = torch.optim.Adam(tail.parameters(), lr=d_lr, betas=(0.5, 0.999), eps=1e-8)
+    optimizer = _adam(tail, d_lr)
 
     def step(tail, optimizer, images_real, images_fake, input_ids):
-        optimizer.zero_grad(set_to_none=True)
         loss, acc = pickscore_d_step_loss_and_acc(scorer, images_real, images_fake, input_ids)
-        loss.backward()
-        mesh.all_reduce_mean_(p.grad for p in tail.parameters())
-        optimizer.step()
+        _apply(tail, optimizer, loss)
         return tail, optimizer, loss.detach(), acc
 
     return step, optimizer, tail
+
+
+def _adam(module, d_lr: float):
+    return torch.optim.Adam(module.parameters(), lr=d_lr, betas=(0.5, 0.999), eps=1e-8)
+
+
+def _apply(module, optimizer, loss):
+    """One Adam step of ``module`` on ``loss``, its gradients averaged over
+    the ranks of a process group first (every rank keeps the same D)."""
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    mesh.all_reduce_mean_(p.grad for p in module.parameters())
+    optimizer.step()
+
+
+def make_dino_d_step(dino, head, d_lr: float, n_patches: int = 64,
+                     patch_loss_weight: float = 0.3):
+    """The DINO-head hinge D-step (``adversarial.dino_hinge``):
+    Adam(d_lr, betas (0.5, 0.999), eps 1e-8) on ``head`` only, in place, on
+    features of the frozen backbone taken without a graph (real and fake in
+    separate calls). Returns (step, optimizer); ``step(head, optimizer,
+    images_real, images_fake, generator=None, indices=None) -> (head,
+    optimizer, loss, accuracy)``. The patch indices are ``indices`` (idx_r,
+    idx_f), or drawn from ``generator`` as the JAX step draws them from its
+    key: idx_r then idx_f, each over the global batch (every rank's rows),
+    of which a rank takes its own."""
+    optimizer = _adam(head, d_lr)
+
+    def step(head, optimizer, images_real, images_fake, generator=None, indices=None):
+        tokens_real = dino.features(images_real)
+        tokens_fake = dino.features(images_fake)
+        if indices is None:
+            b = tokens_real.shape[0]
+            rows = slice(mesh.rank() * b, (mesh.rank() + 1) * b)
+            indices = [dino.draw_patch_indices(b * mesh.world_size(), generator, n_patches)[rows]
+                       for _ in range(2)]
+        idx_r, idx_f = (i.to(tokens_real.device) for i in indices)
+        out = dino_hinge_loss(head, tokens_real, tokens_fake, idx_r, idx_f, patch_loss_weight)
+        _apply(head, optimizer, out.loss)
+        return head, optimizer, out.loss.detach(), out.accuracy
+
+    return step, optimizer
+
+
+def make_dino_multi_d_step(dino_multi, multi, d_lr: float):
+    """The multi-layer DINO D-step: the per-layer heads and the fusion of
+    ``multi`` trained together with the top-k pooled hinge
+    (``dino_multi_hinge_loss``), Adam as :func:`make_dino_d_step`, in place.
+    The step's signature is the single-head one; top-k pooling draws nothing,
+    so ``generator`` and ``indices`` go unused."""
+    optimizer = _adam(multi, d_lr)
+
+    def step(multi, optimizer, images_real, images_fake, generator=None, indices=None):
+        del generator, indices
+        toks_r = dino_multi.dino.layer_tokens(images_real, dino_multi.layer_ids)
+        toks_f = dino_multi.dino.layer_tokens(images_fake, dino_multi.layer_ids)
+        out = dino_multi_hinge_loss(multi.heads, multi.fusion, toks_r, toks_f)
+        _apply(multi, optimizer, out.loss)
+        return multi, optimizer, out.loss.detach(), out.accuracy
+
+    return step, optimizer
 
 
 def compute_advantages(tracker: PerPromptStatTracker, prompts, rewards_avg,

@@ -64,7 +64,20 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      tensor and the frozen 'pickscore' score of a fixed batch bitwise
      unchanged, the co-trained score moved; the LoRA and EMA moved; D-step
      ms per sampling batch, CLIP-H scoring ms per batch, s per epoch on each
-     branch, peak device memory.
+     branch, peak device memory. Then, in the same group, the DINO
+     discriminators (``run_dino_slice``): DINOv2-B/14 at 518^2 on the card
+     against the CPU (relative L2 1e-4); ``cli.train.main`` on
+     ``dino_cotrain_sd3_patch_fast`` (DINO_ARGV: full SD3.5-M, a random fp32
+     DINOv2-B/14 discriminator, d_times 2): epoch 0 a D-epoch, epoch 1 a G
+     epoch, the launch counts of the five kernels as derived, the head moved
+     and finite, every backbone tensor and the 'image_similarity' score of a
+     fixed batch bitwise unchanged, 'dino_cotrain' moved, the LoRA and EMA
+     moved; one ``eval_phase`` scoring 'image_similarity' against the
+     reference PNGs and 'pickscore' (#1-#3 launches as derived); one D-epoch
+     of ``dino_cotrain_sd3_multi_fast`` at its layer 11 (the heads' and the
+     fusion's weights moved, the backbone did not, 'dino_multi_cotrain' in
+     (0, 1)); DINO scoring ms per batch, D-step ms per sampling batch
+     (single and multi), s per epoch on each branch, peak device memory.
  11. the Flux kernels against their plain versions at the Flux.1-dev 512^2
      shapes: the per-head RMS norm (d = 128, and one head across a 5120-wide
      row), the BSHD attention (B = 1 and 4, and 4608 tokens with kv_len
@@ -123,7 +136,9 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      exactly as derived from the config; seconds per epoch, per microstep,
      peak memory and one microstep's device time by kernel group.
 
-``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
+``python3 chip_smoke.py --dino`` builds the kernels and runs the DINO phase
+alone (``run_dino_slice``, in its one-rank NCCL group), without the result
+lines. ``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
 joint forwards #2 / #3 (JOINT_CASES: SD3.5-M at CFG batch 2 and 8, Flux.1-dev
 at B = 1 and 4) of the checkout at PARENT (an older tree) against this one's,
 in PAIRS alternating pairs of processes, with each side's error on the same
@@ -271,6 +286,21 @@ COTRAIN_ARGV = ["--config", "pickscore_cotrain_sd3_fast", "--set", "smoke_test=F
                 "--set", "train.gradient_accumulation_steps=1", "--set", "train.ema_interval=2",
                 "--set", "wandb_init=False", "--max_epochs", str(COTRAIN_EPOCHS),
                 "--device", "cuda"]
+# the DINO slice (the paper's headline config): dino_cotrain_sd3_patch_fast
+# at full SD3.5-M width with a full-width random DINOv2-B/14 discriminator,
+# cut as COTRAIN_ARGV is (10-step rollouts, 2 prompt slots x 8 images = the
+# preset's 16 a batch, 2 batches an epoch of the preset's 12); d_times 2 (the
+# preset's 10) makes epoch 0 a D-epoch and epoch 1 a G epoch
+DINO_EPOCHS = 2
+DINO_CUTS = ["--set", "smoke_test=False", "--set", "pretrained.model=",
+             "--set", "dataset=dataset/pickscore_small", "--set", "sample.num_steps=10",
+             "--set", "sample.train_batch_size=2", "--set", "sample.num_batches_per_epoch=2",
+             "--set", "train.gradient_accumulation_steps=1", "--set", "train.ema_interval=2",
+             "--set", "wandb_init=False", "--device", "cuda"]
+DINO_ARGV = (["--config", "dino_cotrain_sd3_patch_fast", "--set", "d_times=2",
+              "--max_epochs", str(DINO_EPOCHS)] + DINO_CUTS)
+# the multi-layer preset (its layer 11, 16 images a batch), one D-epoch
+DINO_MULTI_ARGV = ["--config", "dino_cotrain_sd3_multi_fast", "--max_epochs", "1"] + DINO_CUTS
 WAN_TRAIN_OVERRIDES = [f"resolution={WAN_RES}", f"sample.num_frames={WAN_FRAMES}",
                        "sample.num_steps=8", "sample.train_num_steps=2",
                        "train.micro_splits=2", "train.ema=True", "train.ema_interval=2"]
@@ -1007,6 +1037,65 @@ def _reference_images(out_dir, prompts, n=4):
     return path
 
 
+def _train_recorded(argv, work, kernels, hold, on_build=None):
+    """``cli.train.main(argv)`` against reference PNGs it writes in ``work``
+    for the dataset's prompts (its run directory there too), the launch
+    counts zeroed just before. ``hold`` gets the trainer, its LoRA and EMA
+    as built, the last sampling phase's samples, and the wall time of each
+    sampling phase ("sample"), D-epoch ("d") and G update ("g"), those run
+    after ``main`` too; ``on_build(trainer)`` runs on the trainer as built.
+    Returns (counts, the metrics.jsonl records, wall s)."""
+    import torch
+
+    from adv_grpo_torch.cli import train
+    from adv_grpo_torch.data.datasets import TextPromptDataset
+
+    build = train.build_trainer
+
+    def timed(key, fn):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            hold[key].append(time.perf_counter() - t0)
+            if key == "sample":
+                hold["samples"] = out
+            return out
+        return call
+
+    def recording_build(*args, **kwargs):
+        trainer = build(*args, **kwargs)
+        hold.update(trainer=trainer, sample=[], d=[], g=[],
+                    lora={k: p.detach().clone() for k, p in trainer.state.lora.items()},
+                    ema={k: e.clone() for k, e in trainer.state.ema.items()})
+        if on_build is not None:
+            on_build(trainer)
+        trainer.sample_phase = timed("sample", trainer.sample_phase)
+        trainer.d_phase = timed("d", trainer.d_phase)
+        trainer.train_phase = timed("g", trainer.train_phase)
+        return trainer
+
+    prompts = TextPromptDataset("dataset/pickscore_small").prompts
+    run = os.path.join(work, "run")
+    argv = argv + ["--set", f"json_path={_reference_images(work, prompts)}",
+                   "--set", f"reference_image_path={work}", "--set", f"save_dir={run}"]
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    train.build_trainer = recording_build
+    try:
+        train.main(argv)
+    finally:
+        train.build_trainer = build
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = [k.launches for k in kernels]
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    return counts, records, wall
+
+
 def run_cotrain_slice(kernels, smi):
     """Phase: ``adv_grpo_torch.cli.train.main`` on COTRAIN_ARGV, the paper's
     main path (full SD3.5-M width, random weights from the seed; the
@@ -1024,62 +1113,25 @@ def run_cotrain_slice(kernels, smi):
     import numpy as np
     import torch
 
-    from adv_grpo_torch.cli import train
-    from adv_grpo_torch.data.datasets import TextPromptDataset
     from adv_grpo_torch.rewards.registry import multi_score
     from adv_grpo_torch.train.grpo_trainer import compute_advantages
 
     probe = np.random.default_rng(SEED + 1).uniform(-1, 1, (4, 3, 512, 512)).astype(np.float32)
     probe_prompts = ["a flower", "a red bicycle", "a city at night", "a bowl of fruit"]
-    hold, build = {"sample": [], "d": [], "g": []}, train.build_trainer
 
     def probe_scores(ctx):  # (frozen 'pickscore', live 'pickscore_cotrain') of the probe
         return tuple(multi_score({name: 1.0}, ctx)(probe, probe_prompts)[0][name]
                      for name in ("pickscore", "pickscore_cotrain"))
 
-    def timed(key, fn):
-        def call(*args):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            hold[key].append(time.perf_counter() - t0)
-            if key == "sample":
-                hold["samples"] = out
-            return out
-        return call
-
-    def recording_build(*args, **kwargs):
-        trainer = build(*args, **kwargs)
+    def on_build(trainer):
         clip = trainer.reward_ctx.pickscore.clip
-        hold.update(trainer=trainer, scores=probe_scores(trainer.reward_ctx),
-                    clip={k: v.to("cpu", copy=True) for k, v in clip.state_dict().items()},
-                    lora={k: p.detach().clone() for k, p in trainer.state.lora.items()},
-                    ema={k: e.clone() for k, e in trainer.state.ema.items()})
-        trainer.sample_phase = timed("sample", trainer.sample_phase)
-        trainer.d_phase = timed("d", trainer.d_phase)
-        trainer.train_phase = timed("g", trainer.train_phase)
-        return trainer
+        hold.update(scores=probe_scores(trainer.reward_ctx),
+                    clip={k: v.to("cpu", copy=True) for k, v in clip.state_dict().items()})
 
+    hold = {}
+    torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as work:
-        prompts = TextPromptDataset("dataset/pickscore_small").prompts
-        argv = COTRAIN_ARGV + ["--set", f"json_path={_reference_images(work, prompts)}",
-                               "--set", f"reference_image_path={work}",
-                               "--set", f"save_dir={os.path.join(work, 'run')}"]
-        for k in kernels:
-            k.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        train.build_trainer = recording_build
-        try:
-            train.main(argv)
-        finally:
-            train.build_trainer = build
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = [k.launches for k in kernels]
-        with open(os.path.join(work, "run", "metrics.jsonl")) as f:
-            records = [json.loads(line) for line in f]
+        counts, records, wall = _train_recorded(COTRAIN_ARGV, work, kernels, hold, on_build)
     trainer, samples = hold["trainer"], hold["samples"]
     config, mcfg, nb = trainer.config, trainer.pipeline.mmdit_cfg, trainer.num_batches
     branches = [bool(r["d_epoch"]) for r in records]
@@ -1189,6 +1241,223 @@ def run_cotrain_slice(kernels, smi):
           f"reuses the last sampling); sampling {[round(t, 2) for t in hold['sample']]} s; "
           f"peak device memory {peak / 2**30:.2f} GiB", flush=True)
     return [c + x for c, x in zip(counts, extra_counts)]
+
+
+def _check_dino_backbone(smi):
+    """DINOv2-B/14 (random weights from the seed + 3) at 518^2 on the card
+    against the same weights on the CPU, on the same preprocessed pixels of
+    2 images: the tokens within 1e-4 relative L2; and the card's
+    preprocessing (512 -> 518) against the CPU's, in uint8 levels."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from adv_grpo_torch.rewards.scorers import DINOScorer
+
+    cpu = DINOScorer.random_init(torch.Generator().manual_seed(SEED + 3), "cpu")
+    gpu = DINOScorer(copy.deepcopy(cpu.vision).to("cuda"))
+    images = torch.from_numpy(np.random.default_rng(SEED + 4).uniform(
+        -1, 1, (2, 3, 512, 512)).astype(np.float32))
+    pix = cpu.preprocess(images)
+    levels = ((gpu.preprocess(images).cpu() - pix).abs()
+              * torch.tensor((0.229, 0.224, 0.225)).view(1, 3, 1, 1) * 255)
+    with torch.no_grad():
+        ref = cpu.vision(pix)["tokens"]
+        got = gpu.vision(pix.cuda())["tokens"].cpu()
+    err = _rel_l2(got, ref)
+    print(f"DINOv2-B/14 at 518^2 ({tuple(got.shape)} tokens, fp32, TF32 off), card against "
+          f"the CPU on the same pixels: relative L2 {err:.3e} (bound 1e-4); preprocessing "
+          f"512 -> 518 on the card against the CPU: {int((levels > 0.5).sum())} of "
+          f"{levels.numel()} values one or more uint8 levels apart (max "
+          f"{float(levels.max()):.2f}); {smi}", flush=True)
+    if not err <= 1e-4:
+        raise AssertionError(f"DINOv2 backbone on the card: relative L2 {err:.3e}")
+
+
+def _check_moved(what, module, start, backbone, backbone_start):
+    """Every tensor of ``module`` moved and is finite, but for a bias whose
+    last gradient is exactly zero (a hinge whose real and fake terms are
+    active in equal shares gives its output bias none: Adam leaves it);
+    every weight moved; every backbone tensor is bitwise unchanged."""
+    import torch
+
+    params = dict(module.named_parameters())
+    still = [k for k, p in params.items() if torch.equal(p.detach(), start[k])]
+    idle = [k for k in still if k.endswith(".bias") and params[k].grad is not None
+            and not params[k].grad.any()]
+    finite = all(bool(torch.isfinite(p).all()) for p in params.values())
+    changed = [k for k, v in backbone.state_dict().items() if not torch.equal(v, backbone_start[k])]
+    print(f"  {what}: {len(params) - len(still)} of {len(params)} tensors moved (unmoved, with "
+          f"a zero gradient: {idle}), finite {finite}; {len(changed)} of {len(backbone_start)} "
+          f"backbone tensors changed", flush=True)
+    if set(still) - set(idle) or not finite or changed:
+        raise AssertionError(f"{what}: unmoved {still}, finite {finite}, backbone changed "
+                             f"{changed}")
+
+
+def run_dino_slice(kernels, smi):
+    """Phase: the DINO discriminators at full width. First the DINOv2-B/14
+    backbone on the card against the CPU; then ``cli.train.main`` on
+    DINO_ARGV (``dino_cotrain_sd3_patch_fast``: SD3.5-M, a random fp32
+    DINOv2-B/14 with its head, CLIP-H for the eval reward) against
+    reference PNGs it writes: epoch 0 a D-epoch, epoch 1 a G epoch (the
+    periodic gate at d_times 2). Checks: the branches [1, 0] with finite
+    d_loss, d_acc in [0, 1], finite loss and KL; the launch counts of #1-#5
+    as derived from the config (one G epoch); the head moved and finite,
+    every backbone tensor bitwise unchanged; on a fixed probe batch
+    'image_similarity' bitwise unchanged and 'dino_cotrain' moved; the LoRA
+    and its EMA moved. Then one ``eval_phase`` on 4 prompts: finite
+    ``eval_reward_image_similarity`` in [-1, 1] and ``eval_reward_pickscore``,
+    the launches of #1-#3 as derived. Then ``dino_cotrain_sd3_multi_fast``
+    (DINO_MULTI_ARGV, layer 11) for one D-epoch: the heads and the fusion
+    moved, the backbone did not, 'dino_multi_cotrain' in (0, 1). Prints the
+    DINO scoring ms per batch of 16 (generated and reference images), the
+    D-step ms per sampling batch (single and multi), s per epoch on each
+    branch and the peak device memory."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from adv_grpo_torch.data.datasets import TextPromptDataset
+    from adv_grpo_torch.rewards.registry import multi_score
+
+    gc.collect()  # the co-train phase's trainer
+    torch.cuda.empty_cache()
+    _check_dino_backbone(smi)
+    rng = np.random.default_rng(SEED + 5)
+    probe = rng.uniform(-1, 1, (4, 3, 512, 512)).astype(np.float32)
+    probe_refs = rng.uniform(-1, 1, (4, 1, 3, 512, 512)).astype(np.float32)
+    prompts4 = TextPromptDataset("dataset/pickscore_small").prompts[:4]  # each has a PNG
+
+    def probe_scores(ctx):  # ('image_similarity', live 'dino_cotrain') of the probe
+        return (multi_score({"image_similarity": 1.0}, ctx)(
+                    probe, prompts4, ref_images=probe_refs)[0]["avg"],
+                multi_score({"dino_cotrain": 1.0}, ctx)(probe, prompts4)[0]["avg"])
+
+    def on_build(trainer):  # the discriminator as built, and the probe's scores
+        disc = trainer.disc
+        hold.update(backbone={k: v.clone() for k, v in disc.backbone.state_dict().items()},
+                    head={k: v.clone() for k, v in disc.params.state_dict().items()})
+        if disc.kind != "dino_multi":
+            hold.update(scores=probe_scores(trainer.reward_ctx))
+
+    hold = {}
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as work:
+        counts, records, wall = _train_recorded(DINO_ARGV, work, kernels, hold, on_build)
+    trainer, samples = hold["trainer"], hold["samples"]
+    config, mcfg, nb = trainer.config, trainer.pipeline.mmdit_cfg, trainer.num_batches
+    ctx, disc = trainer.reward_ctx, trainer.disc
+    branches = [r["d_epoch"] for r in records]
+    print(f"cli.train dino_cotrain_sd3_patch_fast full width (SD3.5-M 512^2, DINOv2-B/14 "
+          f"518^2 fp32 random, CLIP-H/14 for the eval reward), {config.sample.num_steps}-step "
+          f"rollouts of {samples['epoch_images'][0].shape[0]} images, {nb} sampling batches "
+          f"an epoch, d_times {config.d_times}, {DINO_EPOCHS} epochs: {wall:.2f} s wall "
+          f"(builds included); branches {branches}; launches {counts}; {smi}", flush=True)
+    for r in records:
+        keys = ["reward_avg"] + (["d_loss", "d_acc"] if r["d_epoch"] else
+                                 ["loss", "approx_kl", "clipfrac"])
+        print(f"  epoch {r['epoch']}: d_epoch={r['d_epoch']}, "
+              + ", ".join(f"{k} {r[k]:.5g}" for k in keys), flush=True)
+        if not all(np.isfinite(r[k]) for k in keys):
+            raise AssertionError(f"epoch {r['epoch']}: {r}")
+        if r["d_epoch"] and not 0.0 <= r["d_acc"] <= 1.0:
+            raise AssertionError(f"d_acc {r['d_acc']}")
+    if branches != [1, 0]:
+        raise AssertionError(f"DINO branches {branches}, expected [1, 0] at d_times 2")
+    want, _ = expected_train_counts(config, mcfg, DINO_EPOCHS, 1)
+    if counts != want:
+        raise AssertionError(f"DINO launch counts {counts}, expected {want}")
+    _check_moved("DINO head", disc.params, hold["head"], disc.backbone, hold["backbone"])
+    sim, live = probe_scores(ctx)
+    print(f"  probe: 'image_similarity' max change {np.abs(sim - hold['scores'][0]).max():.3e}, "
+          f"'dino_cotrain' {np.abs(live - hold['scores'][1]).max():.3e}", flush=True)
+    if not np.array_equal(sim, hold["scores"][0]) or np.array_equal(live, hold["scores"][1]):
+        raise AssertionError("probe: image_similarity changed or dino_cotrain did not")
+    lora, ema = trainer.state.lora, trainer.state.ema
+    idle = {f"block_{mcfg.num_layers - 1}/attn/add_q_proj/lora_b"}
+    unchanged = {k for k, p in lora.items() if torch.equal(p, hold["lora"][k])}
+    ema_unchanged = {k for k, e in ema.items() if torch.equal(e, hold["ema"][k])}
+    print(f"  LoRA: {len(lora) - len(unchanged)} of {len(lora)} tensors changed; EMA "
+          f"{len(ema) - len(ema_unchanged)} changed; global step {trainer.state.global_step}",
+          flush=True)
+    if not unchanged <= idle or not ema_unchanged <= idle:
+        raise AssertionError(f"LoRA unchanged {sorted(unchanged)}, EMA {sorted(ema_unchanged)}")
+
+    # the eval phase on 4 prompts: image_similarity against the store's refs
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics = trainer.eval_phase(prompts4)
+    eval_s = time.perf_counter() - t0
+    eval_counts = [k.launches for k in kernels]
+    steps = int(config.sample.eval_num_steps)
+    want_eval = [c * steps for c in per_forward_counts(mcfg)] + [0, 0]
+    sim_e, ps_e = metrics["eval_reward_image_similarity"], metrics["eval_reward_pickscore"]
+    print(f"  eval_phase, 4 prompts x {steps} steps: {eval_s:.2f} s; eval_reward_image_similarity "
+          f"{sim_e:.7f}, eval_reward_pickscore {ps_e:.5f}; launches {eval_counts}", flush=True)
+    # a mean of cosines, in [-1, 1] up to fp32 rounding (the random backbone's
+    # CLS tokens nearly coincide, so it sits at 1)
+    if not (np.isfinite(sim_e) and abs(sim_e) <= 1.0 + 1e-6 and np.isfinite(ps_e)):
+        raise AssertionError(f"eval metrics {metrics}")
+    if eval_counts != want_eval:
+        raise AssertionError(f"eval launch counts {eval_counts}, expected {want_eval}")
+
+    # DINO scoring of one sampling batch: generated and reference images
+    images, refs, prompts = samples["last_images"], samples["last_refs"], samples["last_prompts"]
+    refs = refs.reshape((-1,) + refs.shape[-3:])[:len(prompts)]
+    score_ms = {}
+    for what, batch in (("generated", images), ("reference", refs)):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            trainer.reward_fn(batch, prompts)  # ends in a copy to the host
+            times.append((time.perf_counter() - t0) * 1e3)
+        score_ms[what] = sorted(times)[1]
+    peak = torch.cuda.max_memory_allocated()
+    d_s, g_s = hold["sample"][0] + hold["d"][0], hold["sample"][1] + hold["g"][0]
+    d_step_ms = 1e3 * hold["d"][0] / nb
+    del trainer, samples, ctx, disc, hold
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the multi-layer preset: one D-epoch at layer 11
+    hold = {}
+    with tempfile.TemporaryDirectory() as work:
+        counts, records, wall = _train_recorded(DINO_MULTI_ARGV, work, kernels, hold, on_build)
+    trainer = hold["trainer"]
+    config, ctx = trainer.config, trainer.reward_ctx
+    r = records[0]
+    print(f"cli.train dino_cotrain_sd3_multi_fast full width (layers "
+          f"{ctx.dino_multi.layer_ids}, temperature {ctx.dino_multi.temperature}), 1 epoch: "
+          f"{wall:.2f} s wall (builds included); d_epoch {r['d_epoch']}, d_loss "
+          f"{r.get('d_loss', float('nan')):.5f}, d_acc {r.get('d_acc', float('nan')):.3f}, "
+          f"reward_dino_multi_cotrain {r['reward_dino_multi_cotrain']:.5f}; launches {counts}",
+          flush=True)
+    if (len(records) != 1 or r["d_epoch"] != 1 or not np.isfinite(r["d_loss"])
+            or not 0.0 < r["reward_dino_multi_cotrain"] < 1.0):
+        raise AssertionError(f"multi preset: {records}")
+    if counts != expected_train_counts(config, trainer.pipeline.mmdit_cfg, 1, 0)[0]:
+        raise AssertionError(f"multi preset launch counts {counts}")
+    _check_moved("DINO multi heads + fusion", trainer.disc.params, hold["head"],
+                 trainer.disc.backbone, hold["backbone"])
+    after = multi_score({"dino_multi_cotrain": 1.0}, ctx)(probe, prompts4)[0]["avg"]
+    if not ((after > 0) & (after < 1)).all():
+        raise AssertionError(f"dino_multi_cotrain of the probe {after}")
+    multi_ms = 1e3 * hold["d"][0] / trainer.num_batches
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    print(f"  DINO timings ({smi}): DINO scoring (patch reward) {score_ms['generated']:.1f} ms "
+          f"per batch of {len(images)} generated images, {score_ms['reference']:.1f} ms of "
+          f"{len(refs)} references; D-step {d_step_ms:.1f} ms per sampling batch (single head), "
+          f"{multi_ms:.1f} ms (multi); s per epoch (sampling + update) D {d_s:.2f}, G {g_s:.2f}; "
+          f"sampling {[round(t, 2) for t in hold['sample']]} s (multi); peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    del trainer, ctx, hold
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def flux_per_forward_counts(fcfg):
@@ -2946,7 +3215,16 @@ def main() -> int:
         check_sm90_build(build)
 
     from adv_grpo_torch.ops import attention, fused_norms, joint_attention
+    import torch.distributed as dist
 
+    kernels = (fused_norms.modulated_layer_norm, joint_attention.joint_mha,
+               joint_attention.mha_rms, joint_attention.joint_attention_bwd,
+               joint_attention.mha_rms_bwd)
+    if sys.argv[1:2] == ["--dino"]:  # the DINO phase alone, in its one-rank group
+        print(f"process group initialized at {init_group()}", flush=True)
+        run_dino_slice(kernels, smi)
+        dist.destroy_process_group()
+        return 0
     results = check_kernels() + check_backward_kernels()
     flux_results = check_flux_kernels()
     flux_train_results = check_flux_backward_kernels()
@@ -2955,19 +3233,15 @@ def main() -> int:
     mha_results = check_mha_kernels()
     # the context-parallel phase and the SD3 training slice run inside a
     # one-rank NCCL group, so their collectives run on the card
-    import torch.distributed as dist
-
     print(f"process group initialized at {init_group()}", flush=True)
     mha_counts = run_context_parallel()
     for r in mha_results:
         r["launches"] = mha_counts[r["name"]]
-    kernels = (fused_norms.modulated_layer_norm, joint_attention.joint_mha,
-               joint_attention.mha_rms, joint_attention.joint_attention_bwd,
-               joint_attention.mha_rms_bwd)
     counts = run_training_slice(kernels)
     for r, n in zip(results, counts):
         r["launches"] = n
     run_cotrain_slice(kernels, smi)
+    run_dino_slice(kernels, smi)
     dist.destroy_process_group()
     check_flux_model_grads(*check_flux_model())
     flux_kernels = (fused_norms.modulated_layer_norm, fused_norms.rms_norm_heads,

@@ -19,7 +19,9 @@ def _plain(tree):
 
 
 @pytest.mark.parametrize("preset", ["compressibility", "smoke_sd3_fast", "eval_sd3_fast",
-                                    "flux_smoke", "wan_smoke", "pickscore_cotrain_sd3_fast"])
+                                    "flux_smoke", "wan_smoke", "pickscore_cotrain_sd3_fast",
+                                    "dino_cotrain_sd3_fast", "dino_cotrain_sd3_patch_fast",
+                                    "dino_cotrain_sd3_multi_fast"])
 def test_preset_matches_jax(preset):
     want = j_grpo.get_config(preset).to_dict()
     want.pop("tpu")

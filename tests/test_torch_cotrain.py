@@ -199,8 +199,12 @@ def test_d_step_updates_reward_context(tiny_pipeline):
 
 @pytest.mark.parametrize("kind", ["dino", "dino_patch", "dino_multi"])
 def test_dino_discriminators_still_raise_with_their_name(tiny_pipeline, kind):
-    with pytest.raises(NotImplementedError, match=kind):
-        make_trainer(tiny_pipeline, tiny_config(train_d=True, discriminator=kind))
+    """A preset that trains a DINO discriminator, given a bundle that trains
+    another kind, raises naming the preset's kind (the DINO discriminators
+    themselves are ported: tests/test_torch_dino_cotrain.py)."""
+    with pytest.raises(ValueError, match=kind):
+        make_trainer(tiny_pipeline, tiny_config(train_d=True, discriminator=kind),
+                     discriminator=_fake_disc([]))
 
 
 def _refs(tmp_path, prompts, value=None):

@@ -17,6 +17,13 @@ criterion over the differentiably gathered batch (against the JAX
 ``pickscore_cotrain_sd3_fast`` on the tiny towers and one more D-epoch, after
 which both ranks must have taken the same branches and hold the same
 discriminator.
+
+A third launch (``--dino``) runs one DINO D-step on each rank's half of a
+batch (the tiny DINOv2 of tests/test_torch_dino.py, weights and patch
+indices from the JAX package): both ranks must then hold the same head, and
+that head must equal the JAX ``make_dino_d_step`` on the whole batch with
+the whole batch's indices (the hinge is a batch mean, so the mean of the
+ranks' gradients is the whole batch's gradient).
 """
 
 import argparse
@@ -183,6 +190,59 @@ def cotrain_ranks(tmp_path_factory):
     run_ranks(WORLD, tmp, os.path.abspath(__file__), extra=("--cotrain",))
     return [(json.loads((tmp / f"cotrain{r}.json").read_text()), np.load(tmp / f"cotrain{r}.npz"))
             for r in range(WORLD)]
+
+
+DINO_TINY = dict(image_size=126, num_layers=3, hidden_size=32, intermediate_size=64,
+                 num_heads=2)
+DINO_LR = 1e-4
+
+
+@pytest.fixture(scope="module")
+def dino_ranks(tmp_path_factory):
+    """The JAX step on the whole batch of 8, and each rank's head after its
+    step on its 4 rows."""
+    import jax
+    import jax.numpy as jnp
+
+    from adv_grpo_torch.models.convert import dino_head_state_dict_from_jax
+    from adv_grpo_torch.models.convert import vit_state_dict_from_jax
+    from adv_grpo_torch.models.vit import ViTConfig
+    from adv_grpo_tpu.models.vit import ViTConfig as JViTConfig
+    from adv_grpo_tpu.rewards.scorers import DINOScorer
+    from adv_grpo_tpu.train.grpo_trainer import make_dino_d_step
+    from test_torch_dino import _draw_layer_scale
+
+    tmp = tmp_path_factory.mktemp("dino")
+    jd = DINOScorer(JViTConfig.dinov2_base(**DINO_TINY), image_size=126)
+    k1, k2 = jax.random.split(jax.random.PRNGKey(0))
+    backbone = _draw_layer_scale(jd.init_backbone(k1), 1)
+    head = jd.init_head(k2)
+    rng = np.random.default_rng(0)
+    real, fake = (rng.uniform(-1, 1, (8, 3, 126, 126)).astype(np.float32) for _ in range(2))
+    key = jax.random.PRNGKey(9)
+    idx = [np.asarray(jax.random.randint(k, (8, 64), 0, 81)) for k in jax.random.split(key)]
+    sd = {f"vision/{k}": v.numpy() for k, v in
+          vit_state_dict_from_jax(backbone, ViTConfig.dinov2_base(**DINO_TINY)).items()}
+    sd.update({f"head/{k}": v.numpy() for k, v in
+               dino_head_state_dict_from_jax(jax.device_get(head)).items()})
+    np.savez(tmp / "dino.npz", real=real, fake=fake, idx_r=idx[0], idx_f=idx[1], **sd)
+    step, opt = make_dino_d_step(jd, DINO_LR)(head)
+    head, _, loss, acc = step(head, opt, backbone, jnp.asarray(real), jnp.asarray(fake), key)
+    want = {k: v.numpy() for k, v in dino_head_state_dict_from_jax(jax.device_get(head)).items()}
+    run_ranks(WORLD, tmp, os.path.abspath(__file__), extra=("--dino",))
+    got = [np.load(tmp / f"dino{r}.npz") for r in range(WORLD)]
+    return want, float(loss), sd, got
+
+
+def test_dino_d_step_on_two_ranks_matches_the_whole_batch(dino_ranks):
+    """Both ranks hold the same moved head, equal to the JAX step on the
+    whole batch within 1% of d_lr; each rank's loss is its half's."""
+    want, loss, start, (a0, a1) = dino_ranks
+    for name, w in want.items():
+        np.testing.assert_array_equal(a0[name], a1[name], err_msg=name)
+        np.testing.assert_allclose(a0[name], w, rtol=0, atol=1e-2 * DINO_LR, err_msg=name)
+        assert not np.array_equal(a0[name], start[f"head/{name}"]), name
+    np.testing.assert_allclose((float(a0["loss"]) + float(a1["loss"])) / 2, loss, atol=1e-5)
 
 
 @pytest.mark.parametrize("in_batch", [False, True], ids=["pairwise", "in_batch"])
@@ -396,6 +456,32 @@ def _cotrain_main(args):
     torch.distributed.destroy_process_group()
 
 
+def _dino_main(args):
+    from adv_grpo_torch.models.vit import ViTConfig, VisionTransformer
+    from adv_grpo_torch.parallel import mesh
+    from adv_grpo_torch.rewards.scorers import DINOHead, DINOScorer
+    from adv_grpo_torch.train.grpo_trainer import make_dino_d_step
+
+    mesh.init_distributed("gloo", init_method=f"file://{args.store}", world_size=args.world,
+                          rank=args.rank, timeout_s=RANK_TIMEOUT_S)
+    x = np.load(os.path.join(args.dir, "dino.npz"))
+
+    def part(prefix):
+        return {k[len(prefix):]: torch.from_numpy(x[k]) for k in x.files if k.startswith(prefix)}
+
+    vision = VisionTransformer(ViTConfig.dinov2_base(**DINO_TINY))
+    vision.load_state_dict(part("vision/"))
+    head = DINOHead(32)
+    head.load_state_dict(part("head/"))
+    step, opt = make_dino_d_step(DINOScorer(vision, image_size=126), head, DINO_LR)
+    rows = slice(args.rank * 8 // args.world, (args.rank + 1) * 8 // args.world)
+    idx = tuple(torch.from_numpy(x[k][rows]).long() for k in ("idx_r", "idx_f"))
+    head, _, loss, _ = step(head, opt, x["real"][rows], x["fake"][rows], indices=idx)
+    np.savez(os.path.join(args.dir, f"dino{args.rank}.npz"), loss=loss.numpy(),
+             **{k: v.detach().numpy() for k, v in head.state_dict().items()})
+    torch.distributed.destroy_process_group()
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     for flag in ("--rank", "--world"):
@@ -403,5 +489,6 @@ if __name__ == "__main__":
     ap.add_argument("--store", required=True)
     ap.add_argument("--dir", required=True)
     ap.add_argument("--cotrain", action="store_true")
+    ap.add_argument("--dino", action="store_true")
     parsed = ap.parse_args()
-    (_cotrain_main if parsed.cotrain else _rank_main)(parsed)
+    (_cotrain_main if parsed.cotrain else _dino_main if parsed.dino else _rank_main)(parsed)

@@ -54,7 +54,8 @@ def test_port_loads_nothing_of_the_jax_package():
     assert len(PORT_MODULES) > 30 and "adv_grpo_torch.models.flux" in PORT_MODULES
     assert {"adv_grpo_torch.models.clip_text", "adv_grpo_torch.models.vit",
             "adv_grpo_torch.rewards.preprocess", "adv_grpo_torch.rewards.scorers",
-            "adv_grpo_torch.adversarial.clip_criterion"} <= set(PORT_MODULES)
+            "adv_grpo_torch.adversarial.clip_criterion",
+            "adv_grpo_torch.adversarial.dino_hinge"} <= set(PORT_MODULES)
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] == 'adv_grpo_tpu'))\n")

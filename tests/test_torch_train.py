@@ -323,10 +323,11 @@ def test_krepeat_refuses_one_slot_on_one_device():
 
 def test_device_rewards_raise_with_their_name():
     """A device reward not ported yet raises naming itself; the PickScore
-    rewards are ported (tests/test_torch_clip.py)."""
-    with pytest.raises(NotImplementedError, match="dino_cotrain"):
-        t_multi_score({"jpeg_compressibility": 1, "dino_cotrain": 1})
-    t_multi_score({"jpeg_compressibility": 1, "pickscore": 1})
+    and DINO rewards are ported (tests/test_torch_clip.py,
+    tests/test_torch_dino.py)."""
+    with pytest.raises(NotImplementedError, match="siglip_cotrain"):
+        t_multi_score({"jpeg_compressibility": 1, "siglip_cotrain": 1})
+    t_multi_score({"jpeg_compressibility": 1, "pickscore": 1, "dino_cotrain": 1})
     fn = t_multi_score({"jpeg_compressibility": 1})
     images = torch.rand(2, 3, 16, 16) * 2 - 1
     details, _ = fn(images, ["a", "b"])
