@@ -11,8 +11,10 @@ Deterministic eval rollout (noise level 0, seed 0): ``eval_num_steps`` steps
 (sd3 with CFG; flux with its embedded guidance, on the tiny random-init model
 unless ``FLUX_DIR`` is set, which raises: the checkpoint loader is not
 ported), VAE decode, one PNG per prompt named ``node0_rank0_00000_{i}.png``.
-The ``--lora`` and ``--image`` (distribution transfer) branches of the JAX CLI
-are not yet ported and raise.
+``--lora DIR`` (or ``train.lora_path``) merges a peft adapter directory, such
+as a training checkpoint's ``checkpoint-N/lora``, into the model first,
+checked against ``train.lora_rank`` / ``train.lora_alpha``. The ``--image``
+(distribution transfer) branch of the JAX CLI is not yet ported and raises.
 """
 
 from __future__ import annotations
@@ -76,16 +78,22 @@ def main(argv=None):
 
     from adv_grpo_torch.cli.common import (
         apply_overrides, build_pipeline, build_text_encoder, resolve_config)
+    from adv_grpo_torch.models.lora import merge_lora_params
+    from adv_grpo_torch.train import checkpoint as ckpt_lib
     from adv_grpo_torch.utils.images import images_to_uint8
 
     config = apply_overrides(resolve_config(args.config), args.set)
-    if args.lora or config.train.lora_path:
-        raise NotImplementedError("--lora / train.lora_path: loading LoRA checkpoints "
-                                  "is not yet ported to adv_grpo_torch")
     if args.image or str(config.get("external_image_path", "") or ""):
         raise NotImplementedError("--image distribution transfer (VAE encoder + "
                                   "denoise_from_image) is not yet ported")
+    lora_path = args.lora or config.train.lora_path
+    lora = None
+    if lora_path:  # read and checked before the model is built
+        lora = ckpt_lib.load_lora_only(lora_path, expect_rank=int(config.train.lora_rank),
+                                       expect_alpha=float(config.train.lora_alpha))
     pipeline = build_pipeline(config, latent_hw=args.latent_hw, device=args.device)
+    if lora is not None:
+        merge_lora_params(pipeline.transformer, lora)
     encode = build_text_encoder(config, pipeline)
     prompts = [args.prompts]
     images = generate(pipeline, encode, prompts, config, seed=0,

@@ -23,9 +23,15 @@ Rewards, budgets, the optimizer and the discriminator come from the preset.
 ``dino_cotrain_sd3_multi_fast`` a DINO head (or per-layer heads and their
 fusion) on a frozen DINOv2 backbone. The reference images come from
 ``json_path`` (prompt -> files) and ``reference_image_path``; CLIP-H and
-DINOv2-B/14 run on random weights (tiny towers with ``smoke_test``). Not
-ported yet, and refused with ``NotImplementedError``: ``--resume``,
-``train.lora_path`` and ``weight_path`` (they need the checkpoint module)
+DINOv2-B/14 run on random weights (tiny towers with ``smoke_test``).
+
+Checkpoints (``train/checkpoint.py``) land every ``save_freq`` epochs under
+``save_dir/checkpoints/checkpoint-{global_step}``. ``--resume PATH|latest``
+restores the whole state of one (``latest``: the newest under ``save_dir``)
+and wins over ``train.lora_path``, a peft adapter directory that warm-starts
+the generator's LoRA; ``weight_path``, a checkpoint directory, warm-starts
+the discriminator. Not ported yet, and refused with ``NotImplementedError``:
+a flax ``.msgpack`` as ``weight_path`` (from ``cli/finetune_pickscore.py``)
 and the device rewards other than PickScore and DINO.
 """
 
@@ -95,10 +101,15 @@ def build_trainer(config, latent_hw=None, dataset=None, device="cuda"):
     if str(config.json_path) and os.path.exists(str(config.json_path)):
         ref_store = ReferenceImageStore(str(config.json_path), str(config.reference_image_path),
                                         resolution=int(config.resolution))
-    return GRPOTrainer(config, pipeline, dataset, encode, reward_fn,
-                       eval_reward_fn=eval_reward_fn,
-                       latent_hw=latent_hw or int(config.resolution) // 8,
-                       reference_store=ref_store, discriminator=disc, reward_ctx=ctx)
+    trainer = GRPOTrainer(config, pipeline, dataset, encode, reward_fn,
+                          eval_reward_fn=eval_reward_fn,
+                          latent_hw=latent_hw or int(config.resolution) // 8,
+                          reference_store=ref_store, discriminator=disc, reward_ctx=ctx)
+    weight_path = config.get("weight_path", None)
+    if disc is not None and weight_path:
+        # the discriminator's warm start from an earlier adversarial checkpoint
+        trainer.restore_discriminator(str(weight_path))
+    return trainer
 
 
 def main(argv=None):
@@ -117,12 +128,16 @@ def main(argv=None):
     from adv_grpo_torch.cli.common import apply_overrides, resolve_config
     from adv_grpo_torch.data.datasets import TextPromptDataset
     from adv_grpo_torch.parallel import mesh
+    from adv_grpo_torch.train import checkpoint as ckpt_lib
 
     config = apply_overrides(resolve_config(args.config), args.set)
-    if args.resume or config.train.get("lora_path", None) or config.get("weight_path", None):
-        raise NotImplementedError("--resume / train.lora_path / weight_path (the "
-                                  "discriminator's warm start) need the checkpoint module, "
-                                  "which is not yet ported to adv_grpo_torch")
+    # what cannot be read fails before the model is built
+    if bool(config.train_d) and config.get("weight_path", None):
+        ckpt_lib.refuse_msgpack(str(config.weight_path))
+    lora_path = None if args.resume else config.train.get("lora_path", None)
+    if lora_path:
+        ckpt_lib.load_lora_only(str(lora_path), expect_rank=int(config.train.lora_rank),
+                                expect_alpha=float(config.train.lora_alpha))
     device = args.device
     if mesh.env_requests_group():
         if device == "cuda":  # one device per process
@@ -144,7 +159,18 @@ def main(argv=None):
         run = str(config.run_name)
         config.run_name = (run + "_" + unique) if run else unique
         config.save_dir = os.path.join(str(config.logdir), config.run_name)
+    resume = args.resume
+    if resume == "latest":
+        resume = ckpt_lib.latest_checkpoint(str(config.save_dir))
+        if resume is None:
+            raise FileNotFoundError(f"--resume latest: no checkpoints under "
+                                    f"{config.save_dir}/checkpoints")
     trainer = build_trainer(config, latent_hw=args.latent_hw, device=device)
+    # the whole state of a checkpoint supersedes the LoRA warm start
+    if resume:
+        trainer.restore(resume)
+    elif lora_path:
+        trainer.warm_start_lora(str(lora_path))
     eval_prompts = None
     try:
         test_ds = TextPromptDataset(str(config.dataset), "test")

@@ -46,8 +46,17 @@ so all ranks take the same branch, and the D-steps average the
 discriminator's gradients over the ranks, so all ranks keep the same
 discriminator (the reference's DDP).
 
+Checkpoints (``save``, ``restore``, ``warm_start_lora``,
+``restore_discriminator``; :mod:`adv_grpo_torch.train.checkpoint`): rank 0
+writes the generator state, the discriminator's and the peft adapter every
+``save_freq`` epochs, then prunes to ``num_checkpoint_limit``; a restore
+writes into the live parameters and optimizers in place, so the reward
+context keeps reading the same modules. As in the JAX package, the epoch
+counter, the stat tracker and the reward generators are not saved: a resumed
+run starts again at epoch 0's prompt slots, noise and DINO gate.
+
 Not ported yet, and refused with ``NotImplementedError``: sd3's
-``same_latent`` shared prefix and checkpoints (``save``).
+``same_latent`` shared prefix.
 """
 
 from __future__ import annotations
@@ -66,6 +75,7 @@ from adv_grpo_torch.data.krepeat import DistributedKRepeatSampler
 from adv_grpo_torch.models.lora import freeze_non_lora
 from adv_grpo_torch.parallel import mesh
 from adv_grpo_torch.rollout.sampler import SamplerConfig, sample_random_timestep
+from adv_grpo_torch.train import checkpoint as ckpt_lib
 from adv_grpo_torch.train.grpo_trainer import (
     compute_advantages, make_eval_fn, make_flux_eval_fn, make_flux_sample_fn, make_sample_fn,
     make_train_epoch_fn, make_wan_eval_fn, make_wan_sample_fn, rebatch_for_training)
@@ -522,6 +532,65 @@ class GRPOTrainer:
                                type(e).__name__, e)
 
     def save(self):
-        raise NotImplementedError(
-            "checkpointing (train/checkpoint.py) is not yet ported to adv_grpo_torch; "
-            "set save_freq above the run's epochs")
+        """Write ``checkpoint-{global_step}`` (every rank holds the same
+        state; rank 0 writes), then prune to ``num_checkpoint_limit``.
+        Returns the checkpoint's directory on rank 0, else None."""
+        cfg = self.config
+        if not mesh.is_main():
+            return None
+        state, step = self.state, int(self.state.global_step)
+        extra = None
+        if self.disc is not None:
+            # the co-trained reward model survives a crash too
+            extra = {"d_params": self.disc.params.state_dict(),
+                     "d_opt_state": self.disc.opt_state.state_dict()}
+        path = ckpt_lib.save_state(str(cfg.save_dir), step, state, extra=extra)
+        ckpt_lib.save_lora_only(
+            str(cfg.save_dir), step, state.lora, use_ema_weights=state.ema,
+            rank=int(cfg.train.lora_rank), alpha=float(cfg.train.lora_alpha),
+            base_model=str(cfg.pretrained.model or ""))
+        ckpt_lib.prune_checkpoints(str(cfg.save_dir), int(cfg.num_checkpoint_limit))
+        return path
+
+    def warm_start_lora(self, path: str):
+        """Generator warm start from a LoRA-only adapter (``train.lora_path``,
+        a peft directory): the adapter's values go into the LoRA parameters
+        and re-seed the EMA shadow; the optimizer state stays as it is (fresh
+        at the start of a run)."""
+        loaded = ckpt_lib.load_lora_only(
+            path, expect_rank=int(self.config.train.lora_rank),
+            expect_alpha=float(self.config.train.lora_alpha))
+        ckpt_lib.copy_into(self.state.lora, loaded, f"LoRA adapter at {path}")
+        if self.state.ema is not None:
+            ckpt_lib.copy_into(self.state.ema, self.state.lora, "the LoRA")
+        return self.state
+
+    def restore(self, path: str):
+        """Full resume: the generator state and, when co-training, the
+        discriminator's."""
+        ckpt_lib.restore_state(path, self.state)
+        if self.disc is not None:
+            self.restore_discriminator(path)
+        return self.state
+
+    def restore_discriminator(self, path: str):
+        """The discriminator's state from a checkpoint's ``extra.pt`` (the
+        reference's ``config.weight_path`` warm start, and ``restore``),
+        loaded into the live module and its optimizer in place: the co-trained
+        reward reads the same module, and the frozen copy the 'pickscore'
+        reward scores with stays as it was built."""
+        ckpt_lib.refuse_msgpack(path)
+        extra = ckpt_lib.restore_extra(path)
+        if extra is None:
+            raise FileNotFoundError(
+                f"checkpoint at {path} carries no discriminator state")
+        d = self.disc
+        d.params.load_state_dict(extra["d_params"])
+        d.opt_state.load_state_dict(extra["d_opt_state"])
+        if self.reward_ctx is not None:
+            if d.kind == "pickscore":
+                self.reward_ctx.pickscore_params = d.params
+            elif d.kind == "dino_multi":
+                self.reward_ctx.dino_multi_params = d.params
+            else:
+                self.reward_ctx.dino_head_params = d.params

@@ -64,8 +64,19 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      tensor and the frozen 'pickscore' score of a fixed batch bitwise
      unchanged, the co-trained score moved; the LoRA and EMA moved; D-step
      ms per sampling batch, CLIP-H scoring ms per batch, s per epoch on each
-     branch, peak device memory. Then, in the same group, the DINO
-     discriminators (``run_dino_slice``): DINOv2-B/14 at 518^2 on the card
+     branch, peak device memory. Then, in the same group, checkpoints
+     (``run_checkpoint_slice``): the same run with ``save_freq=1`` writes
+     ``checkpoint-{global_step}`` (``state.pt``, ``extra.pt``, the peft
+     ``lora/``) at the start of epoch 1; one more D-epoch on the last samples
+     (so the discriminator has Adam moments) and ``save`` again;
+     ``--resume latest`` restores that checkpoint bitwise (generator state,
+     counters, the CLIP-H tail and its Adam state; the frozen 'pickscore'
+     score of the probe that of a fresh build, the co-trained one that at
+     the save) and runs one epoch (launches of #1-#5 as derived); ``cli.infer.main --lora <checkpoint>/lora`` at
+     ``eval_sd3_fast`` full width gives bitwise the image of the saved EMA
+     LoRA merged directly, not the image without it (launches of #1-#3 as
+     derived); bytes on disk, save and restore seconds, s/image. Then, in
+     the same group, the DINO discriminators (``run_dino_slice``): DINOv2-B/14 at 518^2 on the card
      against the CPU (relative L2 1e-4); ``cli.train.main`` on
      ``dino_cotrain_sd3_patch_fast`` (DINO_ARGV: full SD3.5-M, a random fp32
      DINOv2-B/14 discriminator, d_times 2): epoch 0 a D-epoch, epoch 1 a G
@@ -138,7 +149,8 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
 
 ``python3 chip_smoke.py --dino`` builds the kernels and runs the DINO phase
 alone (``run_dino_slice``, in its one-rank NCCL group), without the result
-lines. ``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
+lines; ``--checkpoint`` the checkpoint phase (``run_checkpoint_slice``) the
+same way. ``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
 joint forwards #2 / #3 (JOINT_CASES: SD3.5-M at CFG batch 2 and 8, Flux.1-dev
 at B = 1 and 4) of the checkout at PARENT (an older tree) against this one's,
 in PAIRS alternating pairs of processes, with each side's error on the same
@@ -179,6 +191,8 @@ FLUX_STEPS = 28  # FluxSamplerConfig's default, the reference's
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 FP32_FLOPS = 67e12
+# the inference slice: eval_sd3_fast at full SD3.5-M width, random weights
+INFER_ARGV = ["--config", "eval_sd3_fast", "--prompts", "a flower", "--set", "pretrained.model=''"]
 # the training slice: smoke_sd3_fast at full SD3.5-M width, 10-step rollouts,
 # 2 prompt slots x 2 images per sampling batch, 2 epochs. train.ema_interval=2
 # lets the EMA move within the run's 4 optimizer steps (the preset's 8 would
@@ -839,13 +853,11 @@ def run_pipeline():
 
     kernels = (fused_norms.modulated_layer_norm, joint_attention.joint_mha,
                joint_attention.mha_rms)
-    argv = ["--config", "eval_sd3_fast", "--prompts", "a flower",
-            "--set", "pretrained.model=''"]
     with tempfile.TemporaryDirectory() as out_dir:
         for k in kernels:
             k.launches = 0
         t0 = time.perf_counter()
-        paths = infer.main(argv + ["--out_dir", out_dir])
+        paths = infer.main(INFER_ARGV + ["--out_dir", out_dir])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = [k.launches for k in kernels]
@@ -1241,6 +1253,230 @@ def run_cotrain_slice(kernels, smi):
           f"reuses the last sampling); sampling {[round(t, 2) for t in hold['sample']]} s; "
           f"peak device memory {peak / 2**30:.2f} GiB", flush=True)
     return [c + x for c, x in zip(counts, extra_counts)]
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f)) for root, _, files in os.walk(path)
+               for f in files)
+
+
+def _state_snapshot(trainer):
+    """Copies of every tensor a checkpoint holds (the generator state, the
+    discriminator's module and Adam state) and the counters."""
+    st, d = trainer.state, trainer.disc
+    tensors = {f"{g}/{k}": v.detach().clone() for g in ("lora", "acc", "mu", "nu", "ema")
+               for k, v in getattr(st, g).items()}
+    tensors.update({f"d/{k}": v.detach().clone() for k, v in d.params.state_dict().items()})
+    tensors.update({f"dopt/{i}/{k}": v.clone() for i, s in
+                    d.opt_state.state_dict()["state"].items() for k, v in s.items()})
+    return tensors, (st.count, st.global_step, st.micro_step)
+
+
+def run_checkpoint_slice(kernels, smi):
+    """Phase: checkpoints, resume and the LoRA interchange at full width.
+    ``cli.train.main`` on COTRAIN_ARGV with ``save_freq=1``: the driver's own
+    ``run`` writes ``checkpoint-{global_step}`` (``state.pt``, ``extra.pt``,
+    the peft ``lora/``) at the start of epoch 1. The gate takes G in both
+    epochs with the seed's CLIP-H (epoch 0 must be G, else the adapter would
+    be the starting one), so no D-step has given the discriminator Adam
+    moments: one D-epoch on the last samples, then ``save`` once more, every
+    state tensor copied aside at each save. Then ``main`` again with
+    ``--resume latest`` (that second checkpoint) and one epoch in the same
+    run directory; before its first phase: LoRA, accumulator,
+    Adam moments, EMA, the counters, the CLIP-H tail and its Adam state
+    bitwise those at the save, the frozen 'pickscore' score of the probe
+    bitwise that of the first (fresh) build and 'pickscore_cotrain' bitwise
+    that at the save; the epoch counter starts again at 0 (as in the JAX
+    package). The resumed epoch's launches of #1-#5 as derived for the
+    branch its gate takes. Then ``cli.infer.main --lora <checkpoint>/lora``
+    at ``eval_sd3_fast`` full width: launches of #1-#3 as derived, the image
+    bitwise that of the same pipeline with the saved EMA LoRA merged by
+    ``merge_lora_params``, and different from its image without the adapter
+    (LoRA B at 0). Prints the bytes on disk, save and restore seconds and
+    s/image."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from adv_grpo_torch.cli import common, infer
+    from adv_grpo_torch.models.lora import lora_params, merge_lora_params
+    from adv_grpo_torch.rewards.registry import multi_score
+    from adv_grpo_torch.train import driver
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    probe = np.random.default_rng(SEED + 1).uniform(-1, 1, (4, 3, 512, 512)).astype(np.float32)
+    probe_prompts = ["a flower", "a red bicycle", "a city at night", "a bowl of fruit"]
+
+    def probe_scores(ctx):  # (frozen 'pickscore', live 'pickscore_cotrain') of the probe
+        return tuple(multi_score({name: 1.0}, ctx)(probe, probe_prompts)[0][name]
+                     for name in ("pickscore", "pickscore_cotrain"))
+
+    snap = {}
+    save = driver.GRPOTrainer.save
+
+    def recording_save(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(self)
+        snap.update(save_s=time.perf_counter() - t0, path=path,
+                    state=_state_snapshot(self), scores=probe_scores(self.reward_ctx))
+        return path
+
+    def first_build(trainer):
+        hold["fresh_scores"] = probe_scores(trainer.reward_ctx)
+
+    def describe(path):
+        sizes = [os.path.getsize(os.path.join(path, "state.pt")),
+                 os.path.getsize(os.path.join(path, "extra.pt")),
+                 _dir_bytes(os.path.join(path, "lora"))]
+        return (f"{os.path.basename(path)} in {snap['save_s']:.3f} s: state.pt {sizes[0]:,} B, "
+                f"extra.pt {sizes[1]:,} B, lora/ {sizes[2]:,} B")
+
+    with tempfile.TemporaryDirectory() as work:
+        hold = {}
+        driver.GRPOTrainer.save = recording_save
+        try:
+            counts, records, wall = _train_recorded(
+                COTRAIN_ARGV + ["--set", "save_freq=1"], work, kernels, hold, first_build)
+            periodic = snap["path"]
+            written = describe(periodic)
+            # the run's save follows a G epoch (see below), before any D-step:
+            # one D-epoch on the last samples gives the discriminator Adam
+            # moments, and a second save holds them
+            trainer = hold["trainer"]
+            trainer.d_phase(hold["samples"])
+            trainer.save()
+        finally:
+            driver.GRPOTrainer.save = save
+        config, mcfg = trainer.config, trainer.pipeline.mmdit_cfg
+        fresh_scores, branches = hold["fresh_scores"], [r["d_epoch"] for r in records]
+        del hold, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        path = snap["path"]
+        print(f"cli.train pickscore_cotrain_sd3_fast full width, save_freq 1, "
+              f"{COTRAIN_EPOCHS} epochs: {wall:.2f} s wall (builds included); branches "
+              f"{branches}; launches {counts}; the run wrote {written} at the start of epoch 1; "
+              f"after one more D-epoch on the last samples, save wrote {describe(path)}; {smi}",
+              flush=True)
+        want = expected_train_counts(config, mcfg, COTRAIN_EPOCHS, branches.count(0))[0]
+        layouts = [sorted(os.listdir(p)) for p in (periodic, path)]
+        if layouts != [["extra.pt", "lora", "state.pt"]] * 2 or counts != want:
+            raise AssertionError(f"checkpoints {layouts}; launches {counts}, expected {want}")
+        if branches[0]:  # the seed's weights decide (the random CLIP-H took G first)
+            raise AssertionError("epoch 0 was a D-epoch: the saved adapter is the starting "
+                                 "one, which infer --lora cannot tell from no adapter")
+        if not any(k.startswith("dopt/") for k in snap["state"][0]):
+            raise AssertionError("the saved discriminator has no Adam state")
+
+        # the resume: checked before its first phase
+        checked = {}
+
+        def resumed_build(trainer):
+            restore, run = trainer.restore, trainer.run
+
+            def timed_restore(p):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = restore(p)
+                torch.cuda.synchronize()
+                checked["restore_s"] = time.perf_counter() - t0
+                return out
+
+            def checked_run(**kw):
+                tensors, counters = _state_snapshot(trainer)
+                want_t, want_c = snap["state"]
+                differ = [k for k, v in want_t.items() if not torch.equal(tensors[k], v)]
+                frozen, live = probe_scores(trainer.reward_ctx)
+                checked.update(epoch=trainer.epoch, n=len(want_t))
+                if (set(tensors) != set(want_t) or differ or counters != want_c
+                        or not np.array_equal(frozen, fresh_scores[0])
+                        or not np.array_equal(live, snap["scores"][1])
+                        or np.array_equal(live, fresh_scores[1])):
+                    raise AssertionError(
+                        f"resume: {len(differ)} tensors differ ({differ[:4]}), counters "
+                        f"{counters} vs {want_c}, frozen score max change "
+                        f"{np.abs(frozen - fresh_scores[0]).max():.3e}, live "
+                        f"{np.abs(live - snap['scores'][1]).max():.3e}")
+                return run(**kw)
+
+            trainer.restore, trainer.run = timed_restore, checked_run
+
+        hold = {}
+        counts, records, wall = _train_recorded(
+            COTRAIN_ARGV + ["--resume", "latest", "--max_epochs", "1"], work, kernels, hold,
+            resumed_build)
+        records = records[COTRAIN_EPOCHS:]  # the run directory's log goes on
+        d_epoch = records[0]["d_epoch"]
+        want = expected_train_counts(config, mcfg, 1, 1 - d_epoch)[0]
+        print(f"cli.train --resume latest, 1 epoch: {wall:.2f} s wall (build included); restore "
+              f"{checked['restore_s']:.3f} s; {checked['n']} tensors (generator state, CLIP-H "
+              f"tail and its Adam state) and (count, global_step, micro_step) "
+              f"{snap['state'][1]} bitwise those at the save; frozen 'pickscore' of the probe "
+              f"bitwise a fresh build's, 'pickscore_cotrain' bitwise the save's (not a fresh "
+              f"build's); epoch counter "
+              f"restarted at {checked['epoch']}; d_epoch {d_epoch}; launches {counts}", flush=True)
+        if len(records) != 1 or counts != want or checked["epoch"] != 0:
+            raise AssertionError(f"resumed epoch: {len(records)} records, launches {counts}, "
+                                 f"expected {want}")
+        del hold
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # infer --lora <checkpoint>/lora
+        bare, call = {}, {}
+        build, generate = common.build_pipeline, infer.generate
+
+        def recording_build(*args, **kwargs):  # the LoRA as built: B at 0
+            pipeline = build(*args, **kwargs)
+            bare.update({k: p.detach().clone() for k, p in
+                         lora_params(pipeline.transformer).items()})
+            return pipeline
+
+        def timed_generate(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = generate(*args, **kwargs)
+            torch.cuda.synchronize()
+            call.update(args=args, kwargs=kwargs, images=out, s=time.perf_counter() - t0)
+            return out
+
+        _zero_counts(kernels)
+        common.build_pipeline, infer.generate = recording_build, timed_generate
+        try:
+            infer.main(INFER_ARGV + ["--lora", os.path.join(path, "lora"),
+                                     "--out_dir", os.path.join(work, "infer")])
+        finally:
+            common.build_pipeline, infer.generate = build, generate
+        infer_counts = [k.launches for k in kernels[:3]]
+    pipeline, config = call["args"][0], call["args"][3]
+    want = [c * int(config.sample.eval_num_steps) for c in per_forward_counts(pipeline.mmdit_cfg)]
+    ema = {k[len("ema/"):]: v for k, v in snap["state"][0].items() if k.startswith("ema/")}
+    merge_lora_params(pipeline.transformer, ema)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct = generate(*call["args"], **call["kwargs"])
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t0
+    merge_lora_params(pipeline.transformer, bare)
+    without = generate(*call["args"], **call["kwargs"])
+    via_file = call["images"]
+    same = torch.equal(via_file, direct)
+    print(f"cli.infer --lora {os.path.basename(path)}/lora, eval_sd3_fast full width 512^2 "
+          f"{config.sample.eval_num_steps} steps: {call['s']:.3f} s/image (the pipeline's "
+          f"first generate), {direct_s:.3f} s/image warm; launches {infer_counts}; image "
+          f"bitwise that with the saved EMA LoRA merged directly: {same}; max |difference| "
+          f"from the image without the adapter {float((via_file - without).abs().max()):.4e}; "
+          f"{smi}", flush=True)
+    if infer_counts != want or not same or torch.equal(via_file, without):
+        raise AssertionError(f"infer --lora: launches {infer_counts} (expected {want}), bitwise "
+                             f"{same}, max |difference| from the directly merged adapter's "
+                             f"{float((via_file - direct).abs().max()):.3e}")
+    del pipeline, call, via_file, direct, without, snap
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _check_dino_backbone(smi):
@@ -3220,9 +3456,10 @@ def main() -> int:
     kernels = (fused_norms.modulated_layer_norm, joint_attention.joint_mha,
                joint_attention.mha_rms, joint_attention.joint_attention_bwd,
                joint_attention.mha_rms_bwd)
-    if sys.argv[1:2] == ["--dino"]:  # the DINO phase alone, in its one-rank group
+    alone = {"--dino": run_dino_slice, "--checkpoint": run_checkpoint_slice}
+    if sys.argv[1:2] and sys.argv[1] in alone:  # one phase, in its one-rank group
         print(f"process group initialized at {init_group()}", flush=True)
-        run_dino_slice(kernels, smi)
+        alone[sys.argv[1]](kernels, smi)
         dist.destroy_process_group()
         return 0
     results = check_kernels() + check_backward_kernels()
@@ -3241,6 +3478,7 @@ def main() -> int:
     for r, n in zip(results, counts):
         r["launches"] = n
     run_cotrain_slice(kernels, smi)
+    run_checkpoint_slice(kernels, smi)
     run_dino_slice(kernels, smi)
     dist.destroy_process_group()
     check_flux_model_grads(*check_flux_model())

@@ -4,8 +4,8 @@ JAX package's results on the same inputs.
 The port imports nothing of ``adv_grpo_tpu`` (tests/test_torch_imports.py),
 so it carries copies of the schedule, the stat tracker, the k-repeat sampler,
 the datasets, the embedding store, the metric logger, the FLOP model, the
-host JPEG rewards, the uint8 image packer, the override parser and the hash
-text encoder. Each is held here against its original: exact equality
+host JPEG rewards, the uint8 image packer, the override parser, the hash
+text encoder, the peft key mapping and the checkpoint directory helpers. Each is held here against its original: exact equality
 throughout, since both sides run the same numpy arithmetic.
 """
 
@@ -24,6 +24,7 @@ from adv_grpo_torch.data import datasets as t_data
 from adv_grpo_torch.data.embed_store import EmbeddingStore as TEmbeddingStore
 from adv_grpo_torch.data.krepeat import DistributedKRepeatSampler as TSampler
 from adv_grpo_torch.models.flux import FluxConfig as TFluxConfig
+from adv_grpo_torch.models import peft_lora as t_peft
 from adv_grpo_torch.models.mmdit import MMDiTConfig as TMMDiTConfig
 from adv_grpo_torch.models.wan import WanConfig as TWanConfig
 from adv_grpo_torch.rewards.registry import multi_score as t_multi_score
@@ -39,6 +40,7 @@ from adv_grpo_tpu.data.embed_store import EmbeddingStore as JEmbeddingStore
 from adv_grpo_tpu.data.embed_store import write_store
 from adv_grpo_tpu.data.krepeat import DistributedKRepeatSampler as JSampler
 from adv_grpo_tpu.models.flux import FluxConfig as JFluxConfig
+from adv_grpo_tpu.models import peft_lora as j_peft
 from adv_grpo_tpu.models.mmdit import MMDiTConfig as JMMDiTConfig
 from adv_grpo_tpu.models.wan import WanConfig as JWanConfig
 from adv_grpo_tpu.native.lib import images_to_uint8 as j_u8
@@ -243,3 +245,47 @@ def test_metric_logger_and_timer_match(tmp_path):
             line.pop("time")
         records.append((lines, sorted(timer.summary()), dict(timer.counts)))
     assert records[0] == records[1]
+
+
+PEFT_MODULES = ["transformer_blocks.3.attn.to_out.0", "base_model.model.transformer_blocks.0.attn.to_q",
+                "transformer.transformer_blocks.12.attn.add_k_proj",
+                "base_model.transformer_blocks.7.attn.to_add_out", "double_3.attn.add_to_q",
+                "single_0.attn.to_q", "blocks.2.to_out.0", "proj_out"]
+
+
+def test_peft_key_mapping_is_identical():
+    """The copied peft key mapping: every module name (each prefix peft
+    writes, the ``to_out.0`` ModuleList, Flux's and WAN's paths) maps to the
+    same JAX flat path and back to the same canonical name; the key pattern
+    parses the same keys, ``.default.`` included."""
+    for module in PEFT_MODULES:
+        path = t_peft._module_to_flax_path(module)
+        assert path == j_peft._module_to_flax_path(module), module
+        assert t_peft._flax_path_to_module(path) == j_peft._flax_path_to_module(path), path
+    assert t_peft._PREFIXES == j_peft._PREFIXES
+    for key in ("base_model.model.transformer_blocks.1.attn.to_q.lora_A.weight",
+                "x.attn.to_out.0.lora_B.default.weight", "x.lora_A.bias", "x.weight"):
+        got, want = t_peft._LORA_KEY.match(key), j_peft._LORA_KEY.match(key)
+        assert (got and got.groupdict()) == (want and want.groupdict()), key
+
+
+def test_latest_and_prune_checkpoints_are_identical(tmp_path):
+    """The copied ``latest_checkpoint`` / ``prune_checkpoints`` over the same
+    directories: numeric order (2, 9, 10, 100), other names ignored, a keep
+    of 0 prunes nothing."""
+    from adv_grpo_torch.train import checkpoint as t_ckpt
+    from adv_grpo_tpu.train import checkpoint as j_ckpt
+
+    for sub in ("t", "j"):
+        assert t_ckpt.latest_checkpoint(str(tmp_path / sub)) is None
+        for name in ("checkpoint-2", "checkpoint-100", "checkpoint-9", "checkpoint-10", "other"):
+            os.makedirs(tmp_path / sub / "checkpoints" / name)
+    for keep in (0, 3, 1):
+        t_ckpt.prune_checkpoints(str(tmp_path / "t"), keep)
+        j_ckpt.prune_checkpoints(str(tmp_path / "j"), keep)
+        got, want = (sorted(os.listdir(tmp_path / sub / "checkpoints")) for sub in "tj")
+        assert got == want
+        assert (os.path.basename(t_ckpt.latest_checkpoint(str(tmp_path / "t")))
+                == os.path.basename(j_ckpt.latest_checkpoint(str(tmp_path / "j")))
+                == "checkpoint-100")
+    assert got == ["checkpoint-100", "other"]

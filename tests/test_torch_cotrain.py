@@ -20,6 +20,7 @@ preset.
 """
 
 import json
+import os
 import zlib
 
 import jax
@@ -304,9 +305,206 @@ def test_reward_context_builds_pickscore_and_refuses_what_is_not_ported(monkeypa
 @pytest.mark.parametrize("extra", [["--resume", "latest"], ["--set", "weight_path=d.msgpack"],
                                    ["--set", "train.lora_path=lora"]],
                          ids=["resume", "weight_path", "lora_path"])
-def test_train_cli_refuses_the_checkpoint_options(extra):
-    """The discriminator's warm start (weight_path), --resume and the LoRA
-    warm start need the checkpoint module: they raise before anything is
-    built."""
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        t_train.main(["--config", "pickscore_cotrain_sd3_fast", "--device", "cpu"] + extra)
+def test_train_cli_refuses_the_checkpoint_options(tmp_path, extra):
+    """What the checkpoint options cannot take raises before anything is
+    built, naming the way forward: ``--resume latest`` with no checkpoint
+    under ``save_dir``; a flax ``.msgpack`` as the discriminator's
+    ``weight_path`` (its CLI, ROADMAP Queue 1 item 7, is not ported); a
+    ``train.lora_path`` that is an orbax tree, as the JAX package's
+    ``checkpoint-N/lora`` is (its ``export_peft_lora`` writes the peft
+    directory the port reads)."""
+    orbax = tmp_path / "lora"
+    (orbax / "d").mkdir(parents=True)
+    (orbax / "_METADATA").write_text("{}")
+    extra = [a.replace("=lora", f"={orbax}") for a in extra]
+    error, match = {"--resume": (FileNotFoundError, "no checkpoints under"),
+                    "weight_path=d.msgpack": (NotImplementedError, "item 7"),
+                    f"train.lora_path={orbax}": (ValueError, "export_peft_lora")}[
+        extra[0] if extra[0] == "--resume" else extra[1]]
+    with pytest.raises(error, match=match):
+        t_train.main(["--config", "pickscore_cotrain_sd3_fast", "--device", "cpu",
+                      "--set", f"save_dir={tmp_path / 'run'}"] + extra)
+
+
+def _smoke_argv(save_dir, *extra):
+    return ["--config", "smoke_sd3_fast", "--set", "sample.train_batch_size=2", "--device",
+            "cpu", "--latent_hw", "8", "--set", f"save_dir={save_dir}", *extra]
+
+
+@pytest.fixture(scope="module")
+def saved_run(tmp_path_factory):
+    """Two epochs of ``smoke_sd3_fast`` with ``save_freq=1`` and the EMA every
+    optimizer step (so the saved adapter is not the starting one): the
+    driver's own ``run`` writes ``checkpoint-2`` at the start of epoch 1.
+    Returns the run directory, the trainer and its state at the save."""
+    run = tmp_path_factory.mktemp("saved") / "run"
+    from adv_grpo_torch.train import driver
+
+    saved = {}
+    save = driver.GRPOTrainer.save
+
+    def recording_save(self):
+        st = self.state
+        saved.update({g: {k: v.detach().clone() for k, v in getattr(st, g).items()}
+                      for g in ("lora", "mu", "nu", "ema")})
+        saved.update(counters=(st.count, st.global_step, st.micro_step))
+        return save(self)
+
+    driver.GRPOTrainer.save = recording_save
+    try:
+        trainer = t_train.main(_smoke_argv(run, "--max_epochs", "2", "--set", "save_freq=1",
+                                           "--set", "train.ema_interval=1"))
+    finally:
+        driver.GRPOTrainer.save = save
+    return run, trainer, saved
+
+
+def test_train_cli_resumes_the_latest_checkpoint(saved_run):
+    """``--resume latest`` restores checkpoint-2 (the state at the save,
+    bitwise) before its epoch and runs to the end; the epoch counter starts
+    again at 0, as in the JAX package."""
+    run, first, saved = saved_run
+    assert sorted(os.listdir(run / "checkpoints")) == ["checkpoint-2"]
+    assert sorted(os.listdir(run / "checkpoints" / "checkpoint-2")) == ["lora", "state.pt"]
+    assert saved["counters"] == (2, 2, 4)
+    from adv_grpo_torch.train import driver
+
+    restored = {}
+    run_fn = driver.GRPOTrainer.run
+
+    def recording_run(self, **kw):
+        restored.update({g: {k: v.detach().clone() for k, v in getattr(self.state, g).items()}
+                         for g in ("lora", "mu", "nu", "ema")})
+        restored.update(counters=(self.state.count, self.state.global_step,
+                                  self.state.micro_step), epoch=self.epoch)
+        return run_fn(self, **kw)
+
+    driver.GRPOTrainer.run = recording_run
+    try:
+        trainer = t_train.main(_smoke_argv(run, "--max_epochs", "1", "--resume", "latest",
+                                           "--set", "train.ema_interval=1"))
+    finally:
+        driver.GRPOTrainer.run = run_fn
+    assert restored["counters"] == saved["counters"] and restored["epoch"] == 0
+    for g in ("lora", "mu", "nu", "ema"):
+        for k, v in saved[g].items():
+            assert torch.equal(restored[g][k], v), (g, k)
+    assert (trainer.state.global_step, trainer.state.micro_step) == (4, 8)
+    records = [json.loads(line) for line in (run / "metrics.jsonl").open()]
+    assert [r["epoch"] for r in records] == [0, 1, 0]
+
+
+def test_train_cli_warm_starts_from_lora_path(saved_run, tmp_path):
+    """``train.lora_path=<checkpoint>/lora`` (the saved EMA weights, a peft
+    directory): the run starts from the adapter, EMA re-seeded from it, the
+    optimizer fresh; it runs to the end."""
+    run, _, saved = saved_run
+    from adv_grpo_torch.train import driver
+
+    seen = {}
+    run_fn = driver.GRPOTrainer.run
+
+    def recording_run(self, **kw):
+        seen.update(lora={k: p.detach().clone() for k, p in self.state.lora.items()},
+                    ema={k: e.clone() for k, e in self.state.ema.items()},
+                    counters=(self.state.count, self.state.global_step))
+        return run_fn(self, **kw)
+
+    driver.GRPOTrainer.run = recording_run
+    try:
+        trainer = t_train.main(_smoke_argv(
+            tmp_path, "--max_epochs", "1",
+            "--set", f"train.lora_path={run / 'checkpoints' / 'checkpoint-2' / 'lora'}"))
+    finally:
+        driver.GRPOTrainer.run = run_fn
+    assert seen["counters"] == (0, 0)
+    for k, v in saved["ema"].items():
+        assert torch.equal(seen["lora"][k], v) and torch.equal(seen["ema"][k], v), k
+    assert trainer.state.global_step == 2
+
+
+def test_infer_cli_merges_a_saved_adapter(saved_run, tmp_path):
+    """``cli.infer --lora <checkpoint>/lora`` merges the saved EMA weights:
+    its image equals, bitwise, the same pipeline's with those weights merged
+    by ``merge_lora_params``, and differs from the image without the
+    adapter (LoRA B at zero)."""
+    from adv_grpo_torch.cli import infer as t_infer
+    from adv_grpo_torch.cli import common
+    from adv_grpo_torch.models.lora import merge_lora_params
+
+    run, _, saved = saved_run
+    built, images = [], []
+    build, generate = common.build_pipeline, t_infer.generate
+
+    def recording_build(*a, **kw):
+        built.append(build(*a, **kw))
+        return built[-1]
+
+    def recording_generate(*a, **kw):
+        images.append(generate(*a, **kw))
+        return images[-1]
+
+    argv = ["--prompts", "a flower", "--set", "smoke_test=True", "--latent_hw", "8",
+            "--out_dir", str(tmp_path), "--device", "cpu",
+            "--lora", str(run / "checkpoints" / "checkpoint-2" / "lora")]
+    common.build_pipeline, t_infer.generate = recording_build, recording_generate
+    try:
+        paths = t_infer.main(argv)
+    finally:
+        common.build_pipeline, t_infer.generate = build, generate
+    assert len(paths) == 1 and os.path.exists(paths[0])
+    pipeline = built[0]
+    config = apply_overrides(resolve_config("eval_sd3_fast"), ["smoke_test=True"])
+    encode = common.build_text_encoder(config, pipeline)
+    merge_lora_params(pipeline.transformer, saved["ema"])
+    direct = generate(pipeline, encode, ["a flower"], config, latent_hw=8)
+    assert torch.equal(images[0], direct)
+    merge_lora_params(pipeline.transformer, {k: torch.zeros_like(v) if k.endswith("lora_b")
+                                             else v for k, v in saved["ema"].items()})
+    bare = generate(pipeline, encode, ["a flower"], config, latent_hw=8)
+    assert not torch.equal(bare, direct)
+
+
+def test_train_cli_warm_starts_the_discriminator_from_weight_path(tmp_path):
+    """A checkpoint directory as ``weight_path``: a co-train run saves its
+    CLIP tail and Adam state after a D-epoch; a new run built with
+    ``weight_path`` set to that checkpoint starts from that tail (bitwise)
+    and its Adam state, and runs to the end."""
+    prompts = TextPromptDataset("dataset/pickscore_small").prompts
+    cfg = tiny_config(train_d=True, dataset="dataset/pickscore_small",
+                      json_path=_refs(tmp_path, prompts), reference_image_path=str(tmp_path),
+                      d_lr=1e-3, save_dir=str(tmp_path / "first"))
+    first = t_train.build_trainer(cfg, latent_hw=8, device="cpu")
+    first.d_phase(first.sample_phase(0))
+    path = first.save()
+    tail = {k: v.clone() for k, v in first.disc.params.state_dict().items()}
+    steps = [s["step"].clone() for s in first.disc.opt_state.state_dict()["state"].values()]
+
+    argv = ["--config", "pickscore_cotrain_sd3_fast", "--device", "cpu", "--latent_hw", "8",
+            "--max_epochs", "1", "--set", "smoke_test=True",
+            "--set", "dataset=dataset/pickscore_small", "--set", "sample.train_batch_size=2",
+            "--set", "sample.num_batches_per_epoch=2", "--set", "wandb_init=False",
+            "--set", "train.gradient_accumulation_steps=1",
+            "--set", f"json_path={cfg.json_path}", "--set", f"reference_image_path={tmp_path}",
+            "--set", f"save_dir={tmp_path / 'second'}", "--set", f"weight_path={path}"]
+    build = t_train.build_trainer
+    seen = {}
+
+    def recording_build(*a, **kw):
+        trainer = build(*a, **kw)
+        seen.update(tail={k: v.clone() for k, v in trainer.disc.params.state_dict().items()},
+                    steps=[s["step"].clone() for s in
+                           trainer.disc.opt_state.state_dict()["state"].values()])
+        return trainer
+
+    t_train.build_trainer = recording_build
+    try:
+        trainer = t_train.main(argv)
+    finally:
+        t_train.build_trainer = build
+    assert set(seen["tail"]) == set(tail)
+    for k, v in tail.items():
+        assert torch.equal(seen["tail"][k], v), k
+    assert all(torch.equal(a, b) for a, b in zip(seen["steps"], steps)) and steps
+    assert trainer.reward_ctx.pickscore_params is trainer.disc.params
+    assert len((tmp_path / "second" / "metrics.jsonl").read_text().splitlines()) == 1

@@ -16,7 +16,8 @@ criterion over the differentiably gathered batch (against the JAX
 ``shard_map`` with ``all_gather``, rtol 1e-5), then two epochs of
 ``pickscore_cotrain_sd3_fast`` on the tiny towers and one more D-epoch, after
 which both ranks must have taken the same branches and hold the same
-discriminator.
+discriminator; then a checkpoint that only rank 0 writes and both ranks
+restore, bitwise.
 
 A third launch (``--dino``) runs one DINO D-step on each rank's half of a
 batch (the tiny DINOv2 of tests/test_torch_dino.py, weights and patch
@@ -306,6 +307,26 @@ def test_cotrain_ranks_take_one_branch_and_keep_one_discriminator(cotrain_ranks)
         assert not np.array_equal(a0[k], a0["start/" + k[len("tail/"):]]), k
 
 
+def test_rank_0_writes_the_checkpoint_and_both_ranks_restore_it(cotrain_ranks):
+    """After the co-train run every rank calls ``save``: only rank 0 writes
+    (rank 1's returns None without writing); after the barrier both ranks
+    restore the checkpoint into a fresh trainer and hold bitwise the same
+    generator and discriminator state, rank 0's at the save."""
+    (r0, a0), (r1, a1) = cotrain_ranks
+    assert r0["writes"] == 1 and r0["save_returned"].endswith(
+        f"checkpoint-{r0['saved_counters'][1]}")
+    assert r1["writes"] == 0 and r1["save_returned"] is None
+    assert r0["saved_counters"] == r1["saved_counters"]
+    assert r0["restored_counters"] == r1["restored_counters"] == r0["saved_counters"]
+    saved = [k for k in a0.files if k.startswith("saved/")]
+    assert {k.split("/")[1] for k in saved} == {"lora", "acc", "mu", "nu", "ema", "d", "dopt"}
+    for k in saved:
+        want = a0[k]
+        for arrays in (a0, a1):
+            np.testing.assert_array_equal(arrays["restored/" + k[len("saved/"):]], want,
+                                          err_msg=k)
+
+
 def test_padded_eval_with_an_empty_shard_returns_on_both_ranks(ranks):
     """One prompt over two ranks: rank 1's share is padding only; both ranks
     return, with the same means over a global count of 1. Three prompts:
@@ -450,10 +471,42 @@ def _cotrain_main(args):
     res["d_epochs"].append(True)
     arrays.update({f"tail/{k}": v.detach().numpy()
                    for k, v in trainer.disc.params.state_dict().items()})
+
+    # a checkpoint: every rank calls save, rank 0 writes; after the barrier
+    # every rank restores it into a fresh trainer
+    from adv_grpo_torch.train import checkpoint as ckpt_lib
+
+    writes, save_state = [], ckpt_lib.save_state
+    ckpt_lib.save_state = lambda *a, **kw: writes.append(a[1]) or save_state(*a, **kw)
+    try:
+        res["save_returned"] = trainer.save()
+    finally:
+        ckpt_lib.save_state = save_state
+    res["writes"] = len(writes)
+    res["saved_counters"], saved = _checkpoint_arrays(trainer)
+    arrays.update({f"saved/{k}": v for k, v in saved.items()})
+    dist.barrier()
+    fresh = build(trainer.config, latent_hw=8, device="cpu")
+    fresh.restore(ckpt_lib.latest_checkpoint(str(trainer.config.save_dir)))
+    res["restored_counters"], restored = _checkpoint_arrays(fresh)
+    arrays.update({f"restored/{k}": v for k, v in restored.items()})
     with open(os.path.join(args.dir, f"cotrain{args.rank}.json"), "w") as f:
         json.dump(res, f)
     np.savez(os.path.join(args.dir, f"cotrain{args.rank}.npz"), **arrays)
     torch.distributed.destroy_process_group()
+
+
+def _checkpoint_arrays(trainer):
+    """(count, global_step, micro_step) and every tensor a checkpoint holds:
+    the generator state and the discriminator's module and Adam state."""
+    st = trainer.state
+    out = {f"{g}/{k}": v.detach().numpy().copy() for g in ("lora", "acc", "mu", "nu", "ema")
+           for k, v in getattr(st, g).items()}
+    out.update({f"d/{k}": v.detach().numpy().copy()
+                for k, v in trainer.disc.params.state_dict().items()})
+    out.update({f"dopt/{i}/{k}": v.numpy().copy() for i, s in
+                trainer.disc.opt_state.state_dict()["state"].items() for k, v in s.items()})
+    return [st.count, st.global_step, st.micro_step], out
 
 
 def _dino_main(args):

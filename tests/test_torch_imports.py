@@ -55,7 +55,9 @@ def test_port_loads_nothing_of_the_jax_package():
     assert {"adv_grpo_torch.models.clip_text", "adv_grpo_torch.models.vit",
             "adv_grpo_torch.rewards.preprocess", "adv_grpo_torch.rewards.scorers",
             "adv_grpo_torch.adversarial.clip_criterion",
-            "adv_grpo_torch.adversarial.dino_hinge"} <= set(PORT_MODULES)
+            "adv_grpo_torch.adversarial.dino_hinge", "adv_grpo_torch.utils.safetensors_io",
+            "adv_grpo_torch.models.peft_lora",
+            "adv_grpo_torch.train.checkpoint"} <= set(PORT_MODULES)
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] == 'adv_grpo_tpu'))\n")

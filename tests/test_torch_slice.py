@@ -115,11 +115,20 @@ def test_infer_cli_writes_png(tmp_path):
 @pytest.mark.parametrize("extra", [["--lora", "x"], ["--image", "x.png"],
                                    ["--set", "pretrained.model='/no/such/dir'"]])
 def test_infer_cli_refuses_unported_branches(tmp_path, extra):
+    """``--image`` and a checkpoint directory raise; ``--lora`` is ported,
+    and what it still cannot read, an orbax LoRA tree (the JAX package's
+    ``checkpoint-N/lora``), raises naming the way across."""
     argv = ["--config", "eval_sd3_fast", "--prompts", "a", "--out_dir", str(tmp_path),
             "--device", "cpu"]
     if extra[0] == "--set":
         with pytest.raises(FileNotFoundError):
             t_infer.main(argv + extra)
+    elif extra[0] == "--lora":
+        orbax = tmp_path / extra[1]
+        (orbax / "d").mkdir(parents=True)
+        (orbax / "_METADATA").write_text("{}")
+        with pytest.raises(ValueError, match="export_peft_lora"):
+            t_infer.main(argv + ["--set", "smoke_test=True", "--lora", str(orbax)])
     else:
         with pytest.raises(NotImplementedError):
             t_infer.main(argv + ["--set", "smoke_test=True"] + extra)
