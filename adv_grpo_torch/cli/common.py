@@ -4,8 +4,16 @@ encoding.
 Port of adv_grpo_tpu/cli/common.py:50-69 (``apply_overrides``), :88-240
 (``build_pipeline`` for the sd3, flux and wan families, ``build_text_encoder``),
 :242-258 (``make_hash_text_encoder``, the deterministic stand-in for the
-text encoders, byte for byte the JAX package's embeddings) and the PickScore
-and DINO parts of :331-501 (``build_reward_context``).
+text encoders, byte for byte the JAX package's embeddings), :261-320
+(``load_real_text_encoder``: CLIP-L, CLIP-G and T5 from a local diffusers
+directory) and the PickScore and DINO parts of :331-501
+(``build_reward_context``).
+
+Tokenizing needs the ``transformers`` package (``CLIPTokenizer``,
+``T5TokenizerFast``, read from the directory's ``tokenizer{,_2,_3}/``),
+imported only where a prompt is tokenized; without it those paths raise
+naming it (there is no fall-back to the hash encoder), and a caller may
+inject its own tokenizers instead.
 """
 
 from __future__ import annotations
@@ -20,7 +28,8 @@ import numpy as np
 import torch
 
 __all__ = ["apply_overrides", "build_pipeline", "build_reward_context", "build_text_encoder",
-           "compute_dtype", "make_hash_text_encoder", "resolve_config", "resolve_device"]
+           "compute_dtype", "hf_tokenizers", "load_real_text_encoder", "load_sd3_text_encoders",
+           "make_hash_text_encoder", "make_sd3_encode", "resolve_config", "resolve_device"]
 
 _FP32 = ("fp32", "float32", "no")
 _BF16 = ("bf16", "bfloat16", "fp16", "float16")
@@ -73,7 +82,8 @@ def resolve_device(device) -> torch.device:
 
 def _build_flux_pipeline(config, model_dir, lora_rank, latent_hw, device, generator):
     """The Flux branch (JAX :135-159): the tiny random-init model; a set
-    ``pretrained.model`` (``FLUX_DIR``) raises, the loader is not ported."""
+    ``pretrained.model`` (``FLUX_DIR``) raises, the Flux loader is not ported
+    (ROADMAP Queue 1 item 5)."""
     from adv_grpo_torch.models.flux import FluxConfig
     from adv_grpo_torch.models.vae import VAEConfig
     from adv_grpo_torch.train.flux_pipeline import FluxPipeline
@@ -81,7 +91,8 @@ def _build_flux_pipeline(config, model_dir, lora_rank, latent_hw, device, genera
     if model_dir:
         raise NotImplementedError(
             f"loading the diffusers FluxTransformer2DModel at {model_dir!r} is not yet "
-            "ported to adv_grpo_torch; unset FLUX_DIR for the tiny random-init model")
+            "ported to adv_grpo_torch (ROADMAP Queue 1 item 5); unset FLUX_DIR for the "
+            "tiny random-init model")
     fcfg = FluxConfig.tiny(lora_rank=max(lora_rank, 1) if lora_rank else 4)
     return FluxPipeline.random_init(
         generator, fcfg, VAEConfig.tiny(latent_channels=fcfg.in_channels // 4), device,
@@ -94,7 +105,7 @@ def _build_wan_pipeline(config, model_dir, lora_rank, latent_hw, device, generat
     VAE with 2 latent frames of ``latent_hw``; with ``frames``, the latents
     of that many video frames of ``config.resolution``^2 instead (the demo's
     sizing, cut to the patch). A set ``pretrained.model`` (``WAN_DIR``)
-    raises, the loader is not ported."""
+    raises, the WAN loaders are not ported (ROADMAP Queue 1 item 5)."""
     from adv_grpo_torch.models.wan import WanConfig
     from adv_grpo_torch.models.wan_vae import WanVAEConfig
     from adv_grpo_torch.train.wan_pipeline import WanPipeline
@@ -102,7 +113,8 @@ def _build_wan_pipeline(config, model_dir, lora_rank, latent_hw, device, generat
     if model_dir:
         raise NotImplementedError(
             f"loading the diffusers WanTransformer3DModel at {model_dir!r} is not yet "
-            "ported to adv_grpo_torch; unset WAN_DIR for the tiny random-init model")
+            "ported to adv_grpo_torch (ROADMAP Queue 1 item 5); unset WAN_DIR for the "
+            "tiny random-init model")
     wcfg = WanConfig.tiny(lora_rank=max(lora_rank, 1) if lora_rank else 4)
     c = wcfg.in_channels
     vcfg = WanVAEConfig.tiny(z_dim=c, latents_mean=(0.0,) * c, latents_std=(1.0,) * c)
@@ -121,10 +133,13 @@ def _build_wan_pipeline(config, model_dir, lora_rank, latent_hw, device, generat
 
 def build_pipeline(config, latent_hw: Optional[int] = None, device="cuda",
                    frames: Optional[int] = None):
-    """The pipeline for ``config`` on ``device``. sd3: the tiny random-init
-    model for ``smoke_test=True``, the full-size SD3.5-M with random weights
-    for ``pretrained.model=''``. flux and wan: the tiny random-init model
-    (wan: ``frames`` video frames when given). Weights come from
+    """The pipeline for ``config`` on ``device``. sd3: the weights of a local
+    diffusers-layout directory ``pretrained.model`` (``SD3Pipeline.from_pretrained``;
+    check one first with ``python -m adv_grpo_torch.models.convert --src
+    DIR``), else the tiny random-init model for ``smoke_test=True`` or the
+    full-size SD3.5-M with random weights for ``pretrained.model=''``; any
+    other ``pretrained.model`` raises. flux and wan: the tiny random-init
+    model (wan: ``frames`` video frames when given). Random weights come from
     ``torch.Generator(seed)`` on that device."""
     from adv_grpo_torch.models.mmdit import MMDiTConfig
     from adv_grpo_torch.models.vae import VAEConfig
@@ -147,15 +162,15 @@ def build_pipeline(config, latent_hw: Optional[int] = None, device="cuda",
                                   "adv_grpo_torch (sd3, flux and wan only)")
     dtype = compute_dtype(config)
     if model_dir and os.path.isdir(model_dir):
-        raise NotImplementedError(
-            f"loading the diffusers checkpoint at {model_dir!r} is not yet ported "
-            "to adv_grpo_torch; use pretrained.model='' (full-size random init) "
-            "or smoke_test=True")
+        return SD3Pipeline.from_pretrained(model_dir, lora_rank=lora_rank,
+                                           lora_alpha=float(config.train.lora_alpha),
+                                           dtype=dtype, device=device)
     if model_dir and not smoke:
         raise FileNotFoundError(
             f"config.pretrained.model={model_dir!r} is not a local diffusers-layout "
-            "weights directory; set smoke_test=True / pretrained.model='' for an "
-            "explicitly random-init run")
+            "weights directory (transformer/ vae/ text_encoder*/ with safetensors; check "
+            "one with `python -m adv_grpo_torch.models.convert --src <dir>`); set "
+            "smoke_test=True / pretrained.model='' for an explicitly random-init run")
     if smoke:
         mmdit_cfg = MMDiTConfig.tiny(num_layers=2, dual_attention_layers=(0,),
                                      lora_rank=max(lora_rank, 1) if lora_rank else 4)
@@ -168,9 +183,11 @@ def build_pipeline(config, latent_hw: Optional[int] = None, device="cuda",
 
 
 def build_text_encoder(config, pipeline):
-    """Text-embedding source: a precomputed ``EmbeddingStore`` when
-    ``config.text_embeds_dir`` is set, else the deterministic hash encoder at
-    the model's widths (the real CLIP/T5 stack is not yet ported)."""
+    """Text-embedding source, by priority: a precomputed ``EmbeddingStore``
+    when ``config.text_embeds_dir`` is set; the real CLIP-L + CLIP-G + T5
+    stack when the diffusers directory has a ``text_encoder/``
+    (:func:`load_real_text_encoder`); else the deterministic hash encoder at
+    the model's widths."""
     store_dir = str(config.get("text_embeds_dir", ""))
     if store_dir:
         from adv_grpo_torch.data.embed_store import EmbeddingStore
@@ -178,8 +195,7 @@ def build_text_encoder(config, pipeline):
         return EmbeddingStore(store_dir)
     model_dir = str(config.pretrained.model or "")
     if model_dir and os.path.isdir(os.path.join(model_dir, "text_encoder")):
-        raise NotImplementedError("the CLIP-L/G + T5 text encoders are not yet ported "
-                                  "to adv_grpo_torch; set text_embeds_dir")
+        return load_real_text_encoder(config, pipeline)
     if getattr(pipeline, "family", "sd3") == "wan":
         # WAN has no pooled conditioning; the trainer still threads a pooled
         # array, so it gets a tiny dummy width
@@ -189,6 +205,120 @@ def build_text_encoder(config, pipeline):
     return make_hash_text_encoder(seq_len=pipeline.text_seq_len,
                                   embed_dim=mcfg.joint_attention_dim,
                                   pooled_dim=mcfg.pooled_projection_dim)
+
+
+def _transformers(what: str, remedy: str):
+    """The ``transformers`` package, imported here only; without it, an
+    ``ImportError`` that names it, what needed it and ``remedy``."""
+    try:
+        import transformers
+    except ImportError as e:
+        raise ImportError(
+            f"{what} needs the `transformers` package (its tokenizers read the local "
+            f"tokenizer files), which is not installed here. {remedy}") from e
+    return transformers
+
+
+def hf_tokenizers(root: str, t5_len: int):
+    """The three tokenize callables of an SD3 directory (``tokenizer/``,
+    ``tokenizer_2/``: ``CLIPTokenizer`` padded and cut to 77;
+    ``tokenizer_3/``: ``T5TokenizerFast`` to ``t5_len``), each mapping a list
+    of prompts to an int array of token ids."""
+    transformers = _transformers(
+        "tokenizing prompts for the SD3 text encoders",
+        "Precompute the prompt embeddings where it is (python -m "
+        "adv_grpo_torch.cli.precompute_embeds) and set text_embeds_dir, or inject tokenizers")
+    tok1 = transformers.CLIPTokenizer.from_pretrained(os.path.join(root, "tokenizer"))
+    tok2 = transformers.CLIPTokenizer.from_pretrained(os.path.join(root, "tokenizer_2"))
+    tok3 = transformers.T5TokenizerFast.from_pretrained(os.path.join(root, "tokenizer_3"))
+
+    def ids(tok, max_length):
+        return lambda prompts: tok(prompts, padding="max_length", max_length=max_length,
+                                   truncation=True, return_tensors="np").input_ids
+
+    return ids(tok1, 77), ids(tok2, 77), ids(tok3, t5_len)
+
+
+def load_sd3_text_encoders(root: str, device):
+    """(CLIP-L, CLIP-G, T5) from ``text_encoder{,_2,_3}/`` of a local SD3
+    directory, on ``device``, in eval mode. As the JAX loader: each CLIP takes
+    its width, depth, heads, projection, activation and EOS id from its
+    ``config.json`` and keeps the default vocabulary (49,408) and 77
+    positions; T5 takes d_model, d_kv, d_ff, layers and heads, keeps vocab
+    32,128 and runs in bf16 (fp32 norms and scores). CLIP runs in fp32."""
+    import json
+
+    from adv_grpo_torch.models import convert
+    from adv_grpo_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
+    from adv_grpo_torch.models.t5 import T5Config, T5Encoder
+    from adv_grpo_torch.train.pipeline import _build
+
+    def config_json(sub):
+        with open(os.path.join(root, sub, "config.json")) as f:
+            return json.load(f)
+
+    def load(module, sd):
+        module.load_state_dict(sd)
+        return module.requires_grad_(False)
+
+    def clip(sub, factory):
+        c = config_json(sub)
+        cfg = factory(hidden_size=c["hidden_size"], intermediate_size=c["intermediate_size"],
+                      num_layers=c["num_hidden_layers"], num_heads=c["num_attention_heads"],
+                      projection_dim=c["projection_dim"], hidden_act=c["hidden_act"],
+                      eos_token_id=c.get("eos_token_id", 49407))
+        sd = convert.clip_text_state_dict_from_hf(
+            convert.load_torch_state_dict(os.path.join(root, sub)), cfg.num_layers)
+        return load(_build(CLIPTextEncoder, cfg, device), sd)
+
+    clip_l = clip("text_encoder", CLIPTextConfig.clip_l)
+    clip_g = clip("text_encoder_2", CLIPTextConfig.clip_g)
+    c = config_json("text_encoder_3")
+    cfg = T5Config(d_model=c["d_model"], d_kv=c["d_kv"], d_ff=c["d_ff"],
+                   num_layers=c["num_layers"], num_heads=c["num_heads"])
+    sd = convert.t5_state_dict_from_hf(
+        convert.load_torch_state_dict(os.path.join(root, "text_encoder_3")), cfg.num_layers)
+    return clip_l, clip_g, load(_build(T5Encoder, cfg, device), sd)
+
+
+def make_sd3_encode(encoders, tokenizers, device):
+    """``encode(prompts) -> (embeds, pooled)`` (fp32 numpy) over the three
+    encoders and their three tokenize callables, through
+    ``SD3TextEncoderSet``: the CLIPs' penultimate hidden states and pooled
+    projections with T5's hidden states, composed by
+    ``compose_sd3_prompt_embeds``."""
+    from adv_grpo_torch.models.encode_prompt import SD3TextEncoderSet
+
+    device = torch.device(device)
+
+    def on_device(module):
+        return lambda a: module(torch.as_tensor(np.asarray(a), dtype=torch.long,
+                                                device=device))
+
+    encoder_set = SD3TextEncoderSet(*(on_device(m) for m in encoders), *tokenizers)
+
+    def encode(prompts: List[str]):
+        with torch.inference_mode():
+            out = encoder_set.encode(prompts)
+        return (out.prompt_embeds.float().cpu().numpy(),
+                out.pooled_prompt_embeds.float().cpu().numpy())
+
+    return encode
+
+
+def load_real_text_encoder(config, pipeline, tokenizers=None):
+    """CLIP-L + CLIP-G + T5 of the local diffusers directory
+    ``config.pretrained.model`` on the pipeline's device, behind
+    ``encode(prompts) -> (embeds (B, text_seq_len, 4096), pooled (B, 2048))``
+    (the reference ``compute_text_embeddings``). T5 gets ``text_seq_len - 77``
+    tokens. ``tokenizers``: three tokenize callables; by default the
+    directory's HF tokenizers (:func:`hf_tokenizers`, which need
+    ``transformers`` and raise without it, before any weight is read)."""
+    root = str(config.pretrained.model)
+    if tokenizers is None:
+        tokenizers = hf_tokenizers(root, pipeline.text_seq_len - 77)
+    return make_sd3_encode(load_sd3_text_encoders(root, pipeline.device), tokenizers,
+                           pipeline.device)
 
 
 DINO_REWARDS = {"image_similarity", "image_similarity_eval", "dino_cotrain",
@@ -202,9 +332,11 @@ def build_reward_context(config, reward_names, device="cuda"):
     PickScore: ``smoke_test`` takes the tiny towers (image 28); otherwise
     CLIP-H with random weights from ``config.seed + 1``, with a warning: the
     PickScore checkpoint loader is not ported, so a set ``PICKSCORE_DIR``
-    raises, as does a local CLIP tokenizer (``<pretrained.model>/tokenizer``:
-    the card has no ``transformers``). The token ids are the constant 3 at
-    the text tower's length, as the JAX package's are without a tokenizer.
+    raises. The token ids come from the local CLIP tokenizer
+    ``<pretrained.model>/tokenizer`` where there is one (padded and cut to 77;
+    it needs ``transformers`` and raises without it, a precomputed
+    ``text_embeds_dir`` or not), else they are the constant 3 at the text
+    tower's length, as the JAX package's are.
 
     DINO (:func:`_dino_context`): ``smoke_test`` takes a tiny DINOv2 (28^2,
     2 layers of 32, 2 heads); otherwise DINOv2-B/14 at 518^2 with random
@@ -225,9 +357,14 @@ def build_reward_context(config, reward_names, device="cuda"):
             f"PICKSCORE_DIR={os.environ['PICKSCORE_DIR']!r}: loading a PickScore checkpoint "
             "is not yet ported to adv_grpo_torch; unset it for random CLIP-H weights")
     tok_dir = os.path.join(str(config.pretrained.model or ""), "tokenizer")
+    tok = None
     if str(config.pretrained.model or "") and os.path.isdir(tok_dir):
-        raise NotImplementedError(f"the CLIP tokenizer at {tok_dir!r} is not yet ported to "
-                                  "adv_grpo_torch")
+        tok = _transformers(
+            "the PickScore reward's CLIP tokenizer",
+            "text_embeds_dir does not help: the reward tokenizes every prompt itself, so "
+            "a PickScore preset cannot run from a diffusers directory with a tokenizer/ "
+            "until tokenizers that need no `transformers` are ported").CLIPTokenizer \
+            .from_pretrained(tok_dir)
     device = resolve_device(device)
     generator = torch.Generator(device=device).manual_seed(int(config.seed) + 1)
     if bool(config.get("smoke_test", False)):
@@ -241,7 +378,11 @@ def build_reward_context(config, reward_names, device="cuda"):
         ps = PickScoreScorer.random_init(generator, device)
     max_len = ps.clip.text_model.cfg.max_position_embeddings
     ctx.pickscore = ps
-    ctx.tokenize = lambda prompts: np.full((len(prompts), max_len), 3, np.int32)
+    if tok is not None:
+        ctx.tokenize = lambda prompts: tok(prompts, padding="max_length", max_length=77,
+                                           truncation=True, return_tensors="np").input_ids
+    else:
+        ctx.tokenize = lambda prompts: np.full((len(prompts), max_len), 3, np.int32)
     return ctx
 
 

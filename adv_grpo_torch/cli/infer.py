@@ -2,15 +2,25 @@
 
 Usage:
   python -m adv_grpo_torch.cli.infer --config eval_sd3_fast --prompts "a flower" \
-      --set "pretrained.model=''" [--out_dir outputs] [--device cuda]
+      --set pretrained.model=DIR [--set text_embeds_dir=STORE] [--out_dir outputs] \
+      [--device cuda]
+
+  python -m adv_grpo_torch.cli.infer --config eval_sd3_fast --prompts "a flower" \
+      --set "pretrained.model=''" [--device cuda]
 
   python -m adv_grpo_torch.cli.infer --config flux_smoke --prompts "a flower" \
       [--device cpu]
 
 Deterministic eval rollout (noise level 0, seed 0): ``eval_num_steps`` steps
-(sd3 with CFG; flux with its embedded guidance, on the tiny random-init model
-unless ``FLUX_DIR`` is set, which raises: the checkpoint loader is not
-ported), VAE decode, one PNG per prompt named ``node0_rank0_00000_{i}.png``.
+(sd3 with CFG; flux with its embedded guidance), VAE decode, one PNG per
+prompt named ``node0_rank0_00000_{i}.png``. sd3 takes its weights from a
+local diffusers-layout directory ``pretrained.model=DIR`` (check it first
+with ``python -m adv_grpo_torch.models.convert --src DIR``) and its prompt
+embeddings from ``text_embeds_dir`` (``cli.precompute_embeds``) or from the
+directory's CLIP-L / CLIP-G / T5 encoders (tokenizing needs
+``transformers``); ``pretrained.model=''`` is the full-size model with random
+weights, ``smoke_test=True`` the tiny one. flux runs the tiny random-init
+model; a set ``FLUX_DIR`` raises (the Flux loader is not ported yet).
 ``--lora DIR`` (or ``train.lora_path``) merges a peft adapter directory, such
 as a training checkpoint's ``checkpoint-N/lora``, into the model first,
 checked against ``train.lora_rank`` / ``train.lora_alpha``. The ``--image``

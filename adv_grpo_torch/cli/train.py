@@ -4,6 +4,8 @@ Usage:
   python -m adv_grpo_torch.cli.train --config smoke_sd3_fast \\
       --set smoke_test=False --set sample.num_steps=10 \\
       --set sample.train_batch_size=2 --max_epochs 2 [--device cuda]
+  python -m adv_grpo_torch.cli.train --config pickscore_cotrain_sd3_fast \\
+      --set pretrained.model=DIR --set text_embeds_dir=STORE ...
   python -m adv_grpo_torch.cli.train --config flux_smoke --max_epochs 2 [--device cpu]
   python -m adv_grpo_torch.cli.train --config pickscore_cotrain_sd3_fast \\
       --set smoke_test=True --set json_path=REFS.json \\
@@ -23,7 +25,13 @@ Rewards, budgets, the optimizer and the discriminator come from the preset.
 ``dino_cotrain_sd3_multi_fast`` a DINO head (or per-layer heads and their
 fusion) on a frozen DINOv2 backbone. The reference images come from
 ``json_path`` (prompt -> files) and ``reference_image_path``; CLIP-H and
-DINOv2-B/14 run on random weights (tiny towers with ``smoke_test``).
+DINOv2-B/14 run on random weights (tiny towers with ``smoke_test``). The SD3
+policy takes its weights from a local diffusers-layout directory
+``pretrained.model=DIR`` and its prompt embeddings from ``text_embeds_dir``
+(``cli.precompute_embeds``) or the directory's text encoders; with
+``pretrained.model=''`` it is the full-size model with random weights. Flux
+and WAN run their tiny random-init models (their loaders are not ported yet:
+a set ``FLUX_DIR`` / ``WAN_DIR`` raises).
 
 Checkpoints (``train/checkpoint.py``) land every ``save_freq`` epochs under
 ``save_dir/checkpoints/checkpoint-{global_step}``. ``--resume PATH|latest``

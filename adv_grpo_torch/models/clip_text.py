@@ -1,4 +1,5 @@
-"""CLIP text encoder in PyTorch: the text tower of the PickScore scorer.
+"""CLIP text encoder in PyTorch: SD3's first two text encoders (CLIP-L and
+OpenCLIP-bigG) and the text tower of the PickScore scorer.
 
 Port of adv_grpo_tpu/models/clip_text.py (HF ``CLIPTextModelWithProjection``
 semantics): token embedding plus learned positions, N pre-LN transformer
@@ -35,6 +36,22 @@ class CLIPTextConfig:
     hidden_act: str = "quick_gelu"  # L: quick_gelu; bigG and H: gelu
     eos_token_id: int = 49407
     layer_norm_eps: float = 1e-5
+
+    @classmethod
+    def clip_l(cls, **o):
+        """OpenAI CLIP-L/14's text tower (SD3's ``text_encoder``): 12 layers
+        of 768, quick_gelu."""
+        return cls(**o)
+
+    @classmethod
+    def clip_g(cls, **o):
+        """OpenCLIP-bigG/14's text tower (SD3's ``text_encoder_2``): 32
+        layers of 1280, 20 heads, the erf gelu."""
+        d = dict(hidden_size=1280, intermediate_size=5120, num_layers=32,
+                 num_heads=20, projection_dim=1280, hidden_act="gelu",
+                 eos_token_id=49407)
+        d.update(o)
+        return cls(**d)
 
     @classmethod
     def clip_h_text(cls, **o):

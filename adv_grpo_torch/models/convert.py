@@ -1,6 +1,19 @@
-"""JAX parameter trees -> the port's state dicts.
+"""Checkpoint directories and JAX parameter trees -> the port's state dicts.
 
-The inverse of adv_grpo_tpu.models.convert's ``convert_mmdit`` /
+**Checkpoints** (the port of adv_grpo_tpu/models/convert.py's loaders): a
+local diffusers-layout SD3 directory (``transformer/``, ``vae/``,
+``text_encoder{,_2,_3}/``, each a ``config.json`` beside ``*.safetensors``
+shards or ``*.bin`` files) is read by :func:`load_torch_state_dict` and
+mapped by :func:`mmdit_state_dict_from_hf`, :func:`vae_state_dict_from_hf`,
+:func:`clip_text_state_dict_from_hf` and :func:`t5_state_dict_from_hf`, each
+of which must consume every weight of the checkpoint or raises "not
+consumed" (a dropped weight is how a wrong convention slips through).
+:func:`load_sd3_pipeline` assembles the pipeline (frozen fp32 weights rounded
+to bf16, LoRA A drawn with numpy as the JAX loader draws it);
+:func:`preflight` and ``python -m adv_grpo_torch.models.convert --src DIR``
+check a directory without building a model.
+
+**JAX trees** (for the parity tests): the inverse of adv_grpo_tpu.models.convert's ``convert_mmdit`` /
 ``convert_flux`` / ``convert_vae`` / ``convert_wan`` / ``convert_wan_vae``
 (decoder half), the CLIP dual encoder that ``convert_clip_model``
 fills (:func:`clip_dual_state_dict_from_jax`), the DINOv2 backbone
@@ -30,12 +43,17 @@ Values are returned as CPU torch tensors in their source dtype;
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
+import warnings
 from typing import Dict
 
 import numpy as np
 import torch
 
 from adv_grpo_torch.models.lora import lora_params, merge_lora_params
+from adv_grpo_torch.utils import safetensors_io
 
 
 def _unwrap(params):
@@ -183,21 +201,34 @@ def _resnet(prefix: str, p: Dict, out: Dict) -> None:
         _conv(prefix + ".conv_shortcut", p["conv_shortcut"], out)
 
 
-def vae_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
-    """adv_grpo_tpu AutoencoderKL params -> adv_grpo_torch AutoencoderKL
-    (decoder) state dict. The encoder's weights are not carried: the port's
-    VAE has no encoder yet."""
-    dec = _unwrap(params)["decoder"]
-    out: Dict[str, torch.Tensor] = {}
-    _conv("decoder.conv_in", dec["conv_in"], out)
-    _resnet("decoder.mid_block.resnets.0", dec["mid_res_0"], out)
-    _resnet("decoder.mid_block.resnets.1", dec["mid_res_1"], out)
-    a = "decoder.mid_block.attentions.0"
-    _group_norm(a + ".group_norm", dec["mid_attn"]["group_norm"], out)
+def _vae_mid(prefix: str, p: Dict, out: Dict) -> None:
+    _resnet(prefix + ".mid_block.resnets.0", p["mid_res_0"], out)
+    _resnet(prefix + ".mid_block.resnets.1", p["mid_res_1"], out)
+    a = prefix + ".mid_block.attentions.0"
+    _group_norm(a + ".group_norm", p["mid_attn"]["group_norm"], out)
     for name, dst in (("to_q", "to_q"), ("to_k", "to_k"), ("to_v", "to_v"),
                       ("to_out", "to_out.0")):
-        _dense(f"{a}.{dst}", dec["mid_attn"][name], out)
+        _dense(f"{a}.{dst}", p["mid_attn"][name], out)
+
+
+def vae_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    """adv_grpo_tpu AutoencoderKL params (encoder and decoder) ->
+    adv_grpo_torch AutoencoderKL state dict."""
+    enc, dec = _unwrap(params)["encoder"], _unwrap(params)["decoder"]
+    out: Dict[str, torch.Tensor] = {}
     n_blocks = len(cfg.block_out_channels)
+    _conv("encoder.conv_in", enc["conv_in"], out)
+    for i in range(n_blocks):
+        for j in range(cfg.layers_per_block):
+            _resnet(f"encoder.down_blocks.{i}.resnets.{j}", enc[f"down_{i}_res_{j}"], out)
+        if i < n_blocks - 1:
+            _conv(f"encoder.down_blocks.{i}.downsamplers.0.conv", enc[f"down_{i}_downsample"],
+                  out)
+    _vae_mid("encoder", enc, out)
+    _group_norm("encoder.conv_norm_out", enc["conv_norm_out"], out)
+    _conv("encoder.conv_out", enc["conv_out"], out)
+    _conv("decoder.conv_in", dec["conv_in"], out)
+    _vae_mid("decoder", dec, out)
     for i in range(n_blocks):
         for j in range(cfg.layers_per_block + 1):
             _resnet(f"decoder.up_blocks.{i}.resnets.{j}", dec[f"up_{i}_res_{j}"], out)
@@ -369,3 +400,362 @@ def dino_multi_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
         out.update(dino_head_state_dict_from_jax(head, f"heads.{i}."))
     _dense("fusion", params["fusion"]["fuse"], out)
     return out
+
+
+# ── checkpoint directories (diffusers / HF layouts) ──────────────────────────
+
+
+def load_torch_state_dict(model_dir: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of every ``*.safetensors`` file in ``model_dir`` (all the
+    shards of a sharded checkpoint, whose ``*.index.json`` names them), read
+    with the port's own reader; without any, every ``*.bin`` file through
+    ``torch.load(weights_only=True)``, cast to fp32 as the JAX loader casts
+    them. CPU tensors."""
+    files = sorted(os.listdir(model_dir))
+    sd: Dict[str, torch.Tensor] = {}
+    st_files = [f for f in files if f.endswith(".safetensors")]
+    if st_files:
+        for fname in st_files:
+            sd.update(safetensors_io.load_file(os.path.join(model_dir, fname)))
+    else:
+        for fname in [f for f in files if f.endswith(".bin")]:
+            shard = torch.load(os.path.join(model_dir, fname), map_location="cpu",
+                               weights_only=True)
+            sd.update({k: v.float() for k, v in shard.items()})
+    return sd
+
+
+class _Taken:
+    """State-dict view that records consumption and fails on absent keys."""
+
+    def __init__(self, sd: Dict[str, torch.Tensor]):
+        self.sd = dict(sd)
+        self.used = set()
+
+    def __call__(self, key: str) -> torch.Tensor:
+        if key not in self.sd:
+            raise KeyError(f"missing weight: {key}")
+        self.used.add(key)
+        return self.sd[key]
+
+    def has(self, key: str) -> bool:
+        return key in self.sd
+
+    def unused(self):
+        return sorted(set(self.sd) - self.used)
+
+    def assert_consumed(self, what: str = "convert"):
+        """Every checkpoint weight must be accounted for: a silently dropped
+        key is how a wrong convention (the pos-embed table, say) slips by."""
+        left = self.unused()
+        if left:
+            raise ValueError(
+                f"{what}: {len(left)} checkpoint weights were not consumed, e.g. {left[:5]} "
+                "— refusing to convert (weights would be silently dropped)")
+
+
+_NO_DEFAULT = object()
+
+
+def detect_pos_embed_base(sd: Dict[str, torch.Tensor], embed_dim: int, max_size: int,
+                          sample_size: int, patch_size: int, default=_NO_DEFAULT):
+    """The ``MMDiTConfig.pos_embed_base_size`` that reproduces the checkpoint's
+    persisted sincos table ``pos_embed.pos_embed``: ``sample_size //
+    patch_size`` for diffusers' base-scaled table, ``None`` for raw integer
+    positions (the original Stability table). A table that matches neither
+    raises. Without a table: ``default`` with a warning where one is given,
+    else a raise (a wrong convention generates noise with no error)."""
+    from adv_grpo_torch.models.mmdit import _sincos_table
+
+    key = "pos_embed.pos_embed"
+    if key not in sd:
+        if default is _NO_DEFAULT:
+            raise ValueError(
+                "checkpoint has no persisted pos_embed.pos_embed table, so the "
+                "position-scaling convention cannot be detected — pass default= "
+                "(sample_size // patch_size for diffusers checkpoints, None for "
+                "raw-integer Stability tables)")
+        warnings.warn(
+            "checkpoint has no persisted pos_embed.pos_embed table; assuming "
+            f"pos_embed_base_size={default!r} — if generations look like noise, the "
+            "positional-embedding convention is likely wrong")
+        return default
+    # slice the 3x3 probe window off a view before casting (the whole 384^2
+    # table in fp64 would be 1.8 GB)
+    n = min(3, max_size)
+    window = sd[key].reshape(max_size, max_size, -1)[:n, :n].double().numpy()
+    base = sample_size // patch_size
+    for cand in (base, None):
+        scale = (cand / max_size) if cand is not None else 1.0
+        coords = np.arange(n, dtype=np.float64) * scale
+        if np.allclose(window, _sincos_table(embed_dim, coords, coords), atol=5e-3):
+            return cand  # fp16 / bf16 checkpoints quantise the stored table
+    raise ValueError(
+        "pos_embed.pos_embed in the checkpoint matches neither the diffusers "
+        f"base-scaled sincos table (base_size={base}) nor the raw-integer table — "
+        "refusing to convert (the model would run with a wrong positional embedding)")
+
+
+def _take_module(sd, module_keys, what, ignore=()):
+    g = _Taken(sd)
+    for key in ignore:
+        if g.has(key):
+            g(key)
+    out = {k: g(k) for k in module_keys}
+    g.assert_consumed(what)
+    return out
+
+
+def mmdit_state_dict_from_hf(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
+    """A diffusers ``SD3Transformer2DModel`` state dict -> the port's MMDiT
+    state dict (the same names; LoRA factors are not in a checkpoint). The
+    persisted ``pos_embed.pos_embed`` table is consumed (read by
+    :func:`detect_pos_embed_base`; the model recomputes its crop)."""
+    from adv_grpo_torch.models.mmdit import MMDiT
+
+    keys = [k for k in MMDiT(cfg, device="meta").state_dict()
+            if k.rsplit(".", 1)[-1] not in ("lora_a", "lora_b")]
+    return _take_module(sd, keys, "mmdit_state_dict_from_hf", ignore=("pos_embed.pos_embed",))
+
+
+def vae_state_dict_from_hf(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
+    """A diffusers ``AutoencoderKL`` state dict (the SD3 layout, no quant
+    convs) -> the port's AutoencoderKL state dict, encoder and decoder."""
+    from adv_grpo_torch.models.vae import AutoencoderKL
+
+    keys = list(AutoencoderKL(cfg, device="meta").state_dict())
+    return _take_module(sd, keys, "vae_state_dict_from_hf")
+
+
+def clip_text_state_dict_from_hf(sd: Dict[str, torch.Tensor],
+                                 num_layers: int) -> Dict[str, torch.Tensor]:
+    """An HF ``CLIPTextModelWithProjection`` state dict -> the port's
+    ``CLIPTextEncoder`` state dict (the JAX ``convert_clip_text``'s mapping;
+    the ``position_ids`` buffer older checkpoints carry is consumed and
+    dropped)."""
+    g = _Taken(sd)
+    if g.has("text_model.embeddings.position_ids"):
+        g("text_model.embeddings.position_ids")
+    out = {"token_embedding.weight": g("text_model.embeddings.token_embedding.weight"),
+           "position_embedding": g("text_model.embeddings.position_embedding.weight"),
+           "text_projection.weight": g("text_projection.weight")}
+    for name in ("weight", "bias"):
+        out[f"final_layer_norm.{name}"] = g(f"text_model.final_layer_norm.{name}")
+    for i in range(num_layers):
+        b = f"text_model.encoder.layers.{i}."
+        for src, dst in (("layer_norm1", "layer_norm1"), ("layer_norm2", "layer_norm2"),
+                         ("self_attn.q_proj", "q_proj"), ("self_attn.k_proj", "k_proj"),
+                         ("self_attn.v_proj", "v_proj"), ("self_attn.out_proj", "out_proj"),
+                         ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
+            for name in ("weight", "bias"):
+                out[f"layers.{i}.{dst}.{name}"] = g(f"{b}{src}.{name}")
+    g.assert_consumed("clip_text_state_dict_from_hf")
+    return out
+
+
+_T5_BLOCK = (("0.layer_norm", "ln_attn"), ("0.SelfAttention.q", "q"),
+             ("0.SelfAttention.k", "k"), ("0.SelfAttention.v", "v"),
+             ("0.SelfAttention.o", "o"), ("1.layer_norm", "ln_ff"),
+             ("1.DenseReluDense.wi_0", "wi_0"), ("1.DenseReluDense.wi_1", "wi_1"),
+             ("1.DenseReluDense.wo", "wo"))
+
+
+def t5_state_dict_from_hf(sd: Dict[str, torch.Tensor], num_layers: int) -> Dict[str, torch.Tensor]:
+    """An HF ``T5EncoderModel`` state dict -> the port's ``T5Encoder`` state
+    dict (the JAX ``convert_t5_encoder``'s mapping): the embedding from
+    ``shared.weight`` or, without it, ``encoder.embed_tokens.weight`` (the
+    tied copy is consumed where both are present); the shared relative bias
+    is block 0's."""
+    g = _Taken(sd)
+    emb = "shared.weight" if g.has("shared.weight") else "encoder.embed_tokens.weight"
+    if emb == "shared.weight" and g.has("encoder.embed_tokens.weight"):
+        g("encoder.embed_tokens.weight")
+    out = {"token_embedding.weight": g(emb),
+           "relative_attention_bias": g(
+               "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"),
+           "final_ln.weight": g("encoder.final_layer_norm.weight")}
+    for i in range(num_layers):
+        for src, dst in _T5_BLOCK:
+            out[f"blocks.{i}.{dst}.weight"] = g(f"encoder.block.{i}.layer.{src}.weight")
+    g.assert_consumed("t5_state_dict_from_hf")
+    return out
+
+
+def t5_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    """adv_grpo_tpu ``T5Encoder`` params -> the port's ``T5Encoder`` state
+    dict (UMT5's per-block bias tables too)."""
+    p = _unwrap(params)
+    out = {"token_embedding.weight": _tensor(p["token_embedding"]["embedding"]),
+           "final_ln.weight": _tensor(p["final_ln"]["weight"])}
+    if not cfg.per_layer_rel_bias:
+        out["relative_attention_bias"] = _tensor(p["relative_attention_bias"])
+    for i in range(cfg.num_layers):
+        blk = p[f"block_{i}"]
+        if cfg.per_layer_rel_bias:
+            out[f"blocks.{i}.relative_attention_bias"] = _tensor(blk["relative_attention_bias"])
+        for name in ("ln_attn", "ln_ff"):
+            out[f"blocks.{i}.{name}.weight"] = _tensor(blk[name]["weight"])
+        for name in ("q", "k", "v", "o", "wi_0", "wi_1", "wo"):
+            _dense(f"blocks.{i}.{name}", blk[name], out)
+    return out
+
+
+# ── configs from a directory's config.json files ─────────────────────────────
+
+
+def _read_json(*parts):
+    with open(os.path.join(*parts)) as f:
+        return json.load(f)
+
+
+def mmdit_config_from_json(tc: dict, **overrides):
+    """``MMDiTConfig`` from a diffusers ``transformer/config.json`` (the keys
+    the JAX loader reads)."""
+    from adv_grpo_torch.models.mmdit import MMDiTConfig
+
+    return MMDiTConfig(
+        patch_size=tc["patch_size"], in_channels=tc["in_channels"],
+        out_channels=tc.get("out_channels") or tc["in_channels"],
+        num_layers=tc["num_layers"], attention_head_dim=tc["attention_head_dim"],
+        num_attention_heads=tc["num_attention_heads"],
+        joint_attention_dim=tc["joint_attention_dim"],
+        pooled_projection_dim=tc["pooled_projection_dim"],
+        pos_embed_max_size=tc.get("pos_embed_max_size", 384),
+        qk_norm=tc.get("qk_norm") is not None,
+        dual_attention_layers=tuple(tc.get("dual_attention_layers", ())), **overrides)
+
+
+def vae_config_from_json(vc: dict):
+    """``VAEConfig`` from a diffusers ``vae/config.json`` (the JAX loader's
+    keys; ``norm_num_groups`` keeps its default, 32)."""
+    from adv_grpo_torch.models.vae import VAEConfig
+
+    return VAEConfig(latent_channels=vc["latent_channels"],
+                     block_out_channels=tuple(vc["block_out_channels"]),
+                     layers_per_block=vc["layers_per_block"],
+                     scaling_factor=vc["scaling_factor"],
+                     shift_factor=vc.get("shift_factor", 0.0))
+
+
+def _transformer_state(model_dir, tc, cfg):
+    """(the converted MMDiT state dict, the detected pos-embed base)."""
+    t_sd = load_torch_state_dict(os.path.join(model_dir, "transformer"))
+    sample = tc.get("sample_size", 128)
+    # a diffusers directory whose table was stripped: the diffusers
+    # base-scaled convention, with a warning
+    base = detect_pos_embed_base(t_sd, cfg.hidden_dim, cfg.pos_embed_max_size, sample,
+                                 tc["patch_size"], default=sample // tc["patch_size"])
+    return mmdit_state_dict_from_hf(t_sd, cfg), base
+
+
+def sd3_lora_init(cfg) -> Dict[str, torch.Tensor]:
+    """Fresh adapters for the MMDiT's joint-attention projections, bit for
+    bit the JAX loader's (``_add_lora_leaves``): per block, in the order
+    to_q, to_k, to_v, to_out, add_q_proj, add_k_proj, add_v_proj, then
+    to_add_out where the block has it, A ~ N(0, 1/r) drawn in fp64 by
+    ``np.random.default_rng(0)`` and cast to fp32, B = 0."""
+    rng = np.random.default_rng(0)
+    r, dim = cfg.lora_rank, cfg.hidden_dim
+    names = ("to_q", "to_k", "to_v", "to_out.0", "add_q_proj", "add_k_proj", "add_v_proj",
+             "to_add_out")
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(cfg.num_layers):
+        for name in names[:-1] if i == cfg.num_layers - 1 else names:
+            prefix = f"transformer_blocks.{i}.attn.{name}"
+            out[prefix + ".lora_a"] = torch.from_numpy(
+                rng.normal(0, 1.0 / r, (dim, r)).astype(np.float32))
+            out[prefix + ".lora_b"] = torch.zeros(r, dim)
+    return out
+
+
+def load_sd3_pipeline(model_dir: str, *, lora_rank: int = 0, lora_alpha: float = 1.0,
+                      dtype=None, device="cuda"):
+    """An ``SD3Pipeline`` on ``device`` from a local diffusers-layout
+    directory (``transformer/`` and ``vae/``; the text encoders are loaded by
+    ``cli.common.load_real_text_encoder``). The MMDiT runs in ``dtype`` (bf16
+    by default); its frozen fp32 weights are rounded to bf16 first, whatever
+    ``dtype`` is, as the JAX loader's ``cast_tree_bf16`` does (the per-head
+    RMS weights too, held in fp32 parameters); fp16 and bf16 weights are
+    taken as they are. With ``lora_rank`` > 0 the adapters start from
+    :func:`sd3_lora_init` and stay fp32. The VAE is fp32, encoder and
+    decoder."""
+    from adv_grpo_torch.models.mmdit import MMDiT
+    from adv_grpo_torch.models.vae import AutoencoderKL
+    from adv_grpo_torch.train.pipeline import SD3Pipeline, _build
+
+    device = torch.device(device)
+    tc = _read_json(model_dir, "transformer", "config.json")
+    cfg = mmdit_config_from_json(tc, dtype=dtype or torch.bfloat16, lora_rank=lora_rank,
+                                 lora_alpha=lora_alpha)
+    sd, base = _transformer_state(model_dir, tc, cfg)
+    cfg = dataclasses.replace(cfg, pos_embed_base_size=base)
+    sd = {k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v for k, v in sd.items()}
+    if lora_rank > 0:
+        sd.update(sd3_lora_init(cfg))
+    mmdit = _build(MMDiT, cfg, device)
+    mmdit.load_state_dict(sd)
+    del sd
+    vae_cfg = vae_config_from_json(_read_json(model_dir, "vae", "config.json"))
+    vae = _build(AutoencoderKL, vae_cfg, device)
+    vae.load_state_dict(vae_state_dict_from_hf(
+        load_torch_state_dict(os.path.join(model_dir, "vae")), vae_cfg))
+    return SD3Pipeline(cfg, vae_cfg, mmdit, vae, device)
+
+
+def _count(sd) -> int:
+    return int(sum(v.numel() for v in sd.values()))
+
+
+def preflight(model_dir: str, check_text_encoders: bool = True) -> dict:
+    """Run every converter over a local diffusers-layout SD3 directory
+    without building a model: parameter counts, the detected pos-embed
+    convention, the dual-attention layers, the VAE's factors and the text
+    encoders ("absent" where a folder is missing); a missing weight raises
+    ``KeyError``, a weight left over "not consumed". The report is the JAX
+    ``preflight``'s, key for key."""
+    report: dict = {"model_dir": os.path.abspath(model_dir)}
+    tc = _read_json(model_dir, "transformer", "config.json")
+    cfg = mmdit_config_from_json(tc)
+    sd, base = _transformer_state(model_dir, tc, cfg)
+    report["transformer"] = {"layers": cfg.num_layers, "params": _count(sd),
+                             "pos_embed_base_size": base,
+                             "dual_attention_layers": list(cfg.dual_attention_layers)}
+    del sd
+    vae_cfg = vae_config_from_json(_read_json(model_dir, "vae", "config.json"))
+    vp = vae_state_dict_from_hf(load_torch_state_dict(os.path.join(model_dir, "vae")), vae_cfg)
+    report["vae"] = {"params": _count(vp), "scaling_factor": vae_cfg.scaling_factor,
+                     "shift_factor": vae_cfg.shift_factor}
+    del vp
+    if check_text_encoders:
+        for sub in ("text_encoder", "text_encoder_2", "text_encoder_3"):
+            d = os.path.join(model_dir, sub)
+            if not os.path.isdir(d):
+                report[sub] = "absent"
+                continue
+            ec = _read_json(d, "config.json")
+            if sub == "text_encoder_3":
+                ep = t5_state_dict_from_hf(load_torch_state_dict(d), ec["num_layers"])
+            else:
+                ep = clip_text_state_dict_from_hf(load_torch_state_dict(d),
+                                                  ec["num_hidden_layers"])
+            report[sub] = {"params": _count(ep)}
+    return report
+
+
+def _main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="Check a local diffusers-layout SD3 checkpoint directory against the "
+                    "converters (the conversion itself happens at load time, in "
+                    "load_sd3_pipeline)")
+    ap.add_argument("--src", required=True, help="diffusers-layout model dir")
+    ap.add_argument("--skip_text_encoders", action="store_true")
+    args = ap.parse_args(argv)
+    report = preflight(args.src, check_text_encoders=not args.skip_text_encoders)
+    print(json.dumps(report, indent=2))
+    print("PREFLIGHT OK — point config.pretrained.model at this directory")
+
+
+if __name__ == "__main__":
+    _main()

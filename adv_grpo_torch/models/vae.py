@@ -1,19 +1,25 @@
-"""SD3 / Flux AutoencoderKL decoder (16-channel latents) in PyTorch, fp32.
+"""SD3 / Flux AutoencoderKL (16-channel latents) in PyTorch, fp32.
 
-Port of the decode half of adv_grpo_tpu/models/vae.py, with diffusers
-``AutoencoderKL`` state-dict names (``decoder.conv_in``,
+Port of adv_grpo_tpu/models/vae.py, with diffusers ``AutoencoderKL``
+state-dict names (``encoder.conv_in``, ``encoder.down_blocks.{i}.resnets.{j}``,
+``encoder.down_blocks.{i}.downsamplers.0.conv``, ``encoder.mid_block``,
+``encoder.conv_norm_out``, ``encoder.conv_out``; ``decoder.conv_in``,
 ``decoder.mid_block.resnets.{0,1}``, ``decoder.mid_block.attentions.0``,
 ``decoder.up_blocks.{i}.resnets.{j}``, ``decoder.up_blocks.{i}.upsamplers.0.conv``,
-``decoder.conv_norm_out``, ``decoder.conv_out``):
+``decoder.conv_norm_out``, ``decoder.conv_out``), so a diffusers ``vae/``
+directory loads whole:
 
-  conv_in -> mid (resnet, single-head attention, resnet) -> 4 up blocks
-  (3 resnets each; nearest-2x upsample + conv after the first 3) -> GroupNorm
-  -> silu -> conv_out -> RGB in [-1, 1]
+  encoder: conv_in -> 4 down blocks (2 resnets each; pad (0, 1) and a
+  stride-2 conv after the first 3) -> mid -> GroupNorm -> silu -> conv_out
+  -> (mean, logvar)
+  decoder: conv_in -> mid (resnet, single-head attention, resnet) -> 4 up
+  blocks (3 resnets each; nearest-2x upsample + conv after the first 3) ->
+  GroupNorm -> silu -> conv_out -> RGB in [-1, 1]
 
 It runs in fp32 like the JAX model (decoded pixels feed reward scorers). The
 JAX package has no Pallas kernel here, so this is plain torch. Convolutions
 and float32 matmuls must not drop to TF32 for that to hold on the card:
-``SD3Pipeline`` switches TF32 off. NCHW throughout; the encoder is not ported.
+``SD3Pipeline`` switches TF32 off. NCHW throughout.
 """
 
 from __future__ import annotations
@@ -149,6 +155,56 @@ class UpBlock(nn.Module):
         return x
 
 
+class Downsample(nn.Module):
+    """diffusers Downsample2D: pad (0, 1) on the right and bottom, then a
+    stride-2 3x3 conv without padding."""
+
+    def __init__(self, cfg: VAEConfig, ch: int, device=None):
+        super().__init__()
+        self.conv = nn.Conv2d(ch, ch, 3, stride=2, dtype=cfg.dtype, device=device)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
+class DownBlock(nn.Module):
+    def __init__(self, cfg: VAEConfig, in_ch: int, out_ch: int, downsample: bool,
+                 device=None):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock(cfg, in_ch if j == 0 else out_ch, out_ch, device)
+            for j in range(cfg.layers_per_block)])
+        self.downsamplers = (nn.ModuleList([Downsample(cfg, out_ch, device)])
+                             if downsample else None)
+
+    def forward(self, x):
+        for r in self.resnets:
+            x = r(x)
+        if self.downsamplers is not None:
+            x = self.downsamplers[0](x)
+        return x
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig, device=None):
+        super().__init__()
+        ch = cfg.block_out_channels
+        self.conv_in = _conv(cfg, cfg.in_channels, ch[0], 3, device)
+        self.down_blocks = nn.ModuleList([
+            DownBlock(cfg, ch[max(i - 1, 0)], ch[i], i < len(ch) - 1, device)
+            for i in range(len(ch))])
+        self.mid_block = MidBlock(cfg, ch[-1], device)
+        self.conv_norm_out = _gn(cfg, ch[-1], device)
+        self.conv_out = _conv(cfg, ch[-1], 2 * cfg.latent_channels, 3, device)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for block in self.down_blocks:
+            h = block(h)
+        h = self.mid_block(h)
+        return self.conv_out(F.silu(self.conv_norm_out(h)))  # mean ++ logvar
+
+
 class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig, device=None):
         super().__init__()
@@ -169,12 +225,15 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """decode(latents) with NCHW at the API boundary (decoder only)."""
+    """decode(latents) and encode(images), NCHW at the API boundary. The
+    decoder is registered first, so a seeded ``init_params_`` draws its
+    weights as it did before the encoder was added."""
 
     def __init__(self, cfg: VAEConfig, device=None):
         super().__init__()
         self.cfg = cfg
         self.decoder = Decoder(cfg, device)
+        self.encoder = Encoder(cfg, device)
 
     def decode(self, latents):
         """Raw latents (B, C_lat, h, w) -> images (B, 3, H, W) in [-1, 1] approx.
@@ -183,3 +242,19 @@ class AutoencoderKL(nn.Module):
         ``z = latents / scaling_factor + shift_factor``.
         """
         return self.decoder(latents.to(self.cfg.dtype))
+
+    def encode_moments(self, images):
+        """images (B, 3, H, W) in [-1, 1] -> (mean, logvar), each (B, C_lat, h, w),
+        logvar clipped to [-30, 20]."""
+        mean, logvar = self.encoder(images.to(self.cfg.dtype)).chunk(2, dim=1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
+    def encode(self, images, generator=None):
+        """The posterior's mode (``generator`` None) or a sample drawn with
+        ``generator``, normalised as the reference does: (z - shift) * scaling."""
+        mean, logvar = self.encode_moments(images)
+        if generator is not None:
+            noise = torch.randn(mean.shape, generator=generator, device=mean.device,
+                                dtype=mean.dtype)
+            mean = mean + torch.exp(0.5 * logvar) * noise
+        return (mean - self.cfg.shift_factor) * self.cfg.scaling_factor

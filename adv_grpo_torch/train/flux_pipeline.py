@@ -11,9 +11,8 @@ is no CFG batch.
 then ``to_empty``) and draws it there from a ``torch.Generator``, so the
 11.84 B parameters of Flux.1-dev are never staged through host memory;
 ``from_jax`` takes the JAX package's parameter trees. Not here yet:
-``encode_image`` (the Kontext conditioning entry), which waits for the VAE
-encoder, and ``from_pretrained``, which waits for Flux weights in the
-repository.
+``encode_image`` (the Kontext conditioning entry; the VAE has its encoder)
+and ``from_pretrained`` (the Flux loader).
 
 Constructing a pipeline switches TF32 off for float32 matmuls and cuDNN
 convolutions (process-wide), as ``SD3Pipeline`` does: the VAE decodes in fp32.

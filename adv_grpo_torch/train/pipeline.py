@@ -2,8 +2,9 @@
 
 Port of adv_grpo_tpu/train/pipeline.py. ``random_init`` builds any size from
 config with a ``torch.Generator`` (tests, benches, the weightless full-size
-run); ``from_jax`` takes the JAX package's parameter trees, so both packages
-compute the same function.
+run); ``from_pretrained`` loads a local diffusers-layout directory
+(``models.convert.load_sd3_pipeline``); ``from_jax`` takes the JAX package's
+parameter trees, so both packages compute the same function.
 
 Constructing a pipeline switches TF32 off for float32 matmuls and cuDNN
 convolutions (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -69,6 +70,16 @@ class SD3Pipeline:
         vae = _build(AutoencoderKL, vae_cfg, device)
         vae.load_state_dict(vae_state_dict_from_jax(vae_params, vae_cfg))
         return cls(mmdit_cfg, vae_cfg, mmdit, vae, device, text_seq_len=text_seq_len)
+
+    @classmethod
+    def from_pretrained(cls, model_dir: str, *, lora_rank: int = 0, lora_alpha: float = 1.0,
+                        dtype=torch.bfloat16, device="cuda"):
+        """The pipeline of a local diffusers-layout SD3 directory (see
+        ``models.convert.load_sd3_pipeline``)."""
+        from adv_grpo_torch.models import convert
+
+        return convert.load_sd3_pipeline(model_dir, lora_rank=lora_rank, lora_alpha=lora_alpha,
+                                         dtype=dtype, device=device)
 
     @property
     def transformer(self) -> MMDiT:

@@ -89,13 +89,15 @@ def read_header(path: str):
 def load_file(path: str, device="cpu") -> Dict[str, torch.Tensor]:
     """Every tensor of the file at ``path``, on ``device``. Raises
     ``ValueError`` on a truncated file, an unknown dtype or offsets that do
-    not match a tensor's shape."""
+    not match a tensor's shape.
+
+    The header is checked whole before any data is read; then each tensor is
+    read on its own (``readinto`` its own buffer, in file order) and moved to
+    ``device``, so the host holds the file's tensors once, or one tensor at a
+    time when ``device`` is not the CPU."""
     header, start, size = read_header(path)
     header.pop("__metadata__", None)
-    with open(path, "rb") as f:
-        f.seek(start)
-        data = bytearray(f.read())
-    out = {}
+    entries = []
     for name, info in header.items():
         code = info.get("dtype")
         if code not in _DTYPES:
@@ -107,13 +109,17 @@ def load_file(path: str, device="cpu") -> Dict[str, torch.Tensor]:
         if end - begin != want or begin < 0:
             raise ValueError(f"{path}: tensor {name!r} of shape {shape} {code} needs {want} "
                              f"bytes, its offsets [{begin}, {end}] give {end - begin}")
-        if end > len(data):
+        if start + end > size:
             raise ValueError(f"{path}: truncated: tensor {name!r} ends at byte {start + end}, "
                              f"the file holds {size}")
-        if want == 0:
-            t = torch.empty(shape, dtype=dtype)
-        else:
-            t = torch.frombuffer(data, dtype=torch.uint8, count=want, offset=begin)
-            t = t.clone().view(dtype).reshape(shape)
-        out[name] = t.to(device)
-    return out
+        entries.append((begin, name, dtype, shape, want))
+    out = {}
+    with open(path, "rb") as f:
+        for begin, name, dtype, shape, want in sorted(entries, key=lambda e: e[0]):
+            buf = torch.empty(want, dtype=torch.uint8)
+            if want:
+                f.seek(start + begin)
+                if f.readinto(memoryview(buf.numpy())) != want:
+                    raise ValueError(f"{path}: truncated while reading tensor {name!r}")
+            out[name] = buf.view(dtype).reshape(shape).to(device)
+    return {name: out[name] for name in header}

@@ -89,6 +89,21 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      fusion's weights moved, the backbone did not, 'dino_multi_cotrain' in
      (0, 1)); DINO scoring ms per batch, D-step ms per sampling batch
      (single and multi), s per epoch on each branch, peak device memory.
+     Then, in the same group, the SD3 checkpoint loaders
+     (``run_loader_slice``): a full-width SD3.5-M diffusers directory
+     written from the seed (transformer bf16 with its 384^2 table, VAE
+     fp32, CLIP-L and CLIP-G fp16, T5-XXL fp16 at full width cut to
+     LOADER_T5_LAYERS of 24 layers, two shards and an index);
+     ``preflight``'s parameter counts against the configs' on the meta
+     device; ``load_sd3_pipeline(dir, lora_rank=32)``: every frozen tensor,
+     the VAE and the LoRA A draws bitwise; a 2-layer full-width T5-XXL and
+     CLIP-G against the CPU in fp32; the encode of ENCODE_BATCH prompts
+     timed (the directory's encoders, and a 24-layer T5-XXL from the seed);
+     ``write_store`` through that encode; ``cli.infer.main`` at
+     ``eval_sd3_fast`` and one epoch of ``cli.train.main`` on TRAIN_ARGV
+     from the directory and the store (launches of #1-#3 and #1-#5 as
+     derived, the LoRA and EMA moved); bytes written, write / preflight /
+     load seconds, peak device and host memory.
  11. the Flux kernels against their plain versions at the Flux.1-dev 512^2
      shapes: the per-head RMS norm (d = 128, and one head across a 5120-wide
      row), the BSHD attention (B = 1 and 4, and 4608 tokens with kv_len
@@ -149,8 +164,8 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
 
 ``python3 chip_smoke.py --dino`` builds the kernels and runs the DINO phase
 alone (``run_dino_slice``, in its one-rank NCCL group), without the result
-lines; ``--checkpoint`` the checkpoint phase (``run_checkpoint_slice``) the
-same way. ``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
+lines; ``--checkpoint`` the checkpoint phase (``run_checkpoint_slice``) and
+``--loaders`` the loader phase (``run_loader_slice``) the same way. ``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
 joint forwards #2 / #3 (JOINT_CASES: SD3.5-M at CFG batch 2 and 8, Flux.1-dev
 at B = 1 and 4) of the checkout at PARENT (an older tree) against this one's,
 in PAIRS alternating pairs of processes, with each side's error on the same
@@ -318,6 +333,29 @@ DINO_MULTI_ARGV = ["--config", "dino_cotrain_sd3_multi_fast", "--max_epochs", "1
 WAN_TRAIN_OVERRIDES = [f"resolution={WAN_RES}", f"sample.num_frames={WAN_FRAMES}",
                        "sample.num_steps=8", "sample.train_num_steps=2",
                        "train.micro_splits=2", "train.ema=True", "train.ema_interval=2"]
+
+
+# the loader slice: a full-width SD3.5-M diffusers directory written from the
+# seed (transformer bf16 with its 384^2 base-scaled table, VAE fp32, CLIP-L
+# and CLIP-G fp16 whole, T5-XXL fp16 at full width with its depth cut to
+# LOADER_T5_LAYERS of 24 on disk, two shards and an index), loaded, encoded
+# through (ENCODE_BATCH prompts), then sampled (INFER_ARGV's eval_sd3_fast)
+# and trained one epoch (TRAIN_ARGV's smoke_sd3_fast cuts) from it
+LOADER_T5_LAYERS = 4
+ENCODE_BATCH = 32
+# relative L2 bound of the 2-layer full-width T5-XXL in bf16 against fp32, at
+# scores of order one (_t5_weights_at_scale_); the same T5 with its bias table
+# lost, or its mask, must read above it (_check_encoders_on_card)
+T5_BF16_BOUND = 5e-2
+# the HF names of the port's CLIP text tower and T5 encoder, to write their
+# files as CLIPTextModelWithProjection / T5EncoderModel checkpoints
+HF_CLIP_LAYER = {"q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
+                 "v_proj": "self_attn.v_proj", "out_proj": "self_attn.out_proj",
+                 "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+HF_T5_LAYER = {"ln_attn": "0.layer_norm", "q": "0.SelfAttention.q", "k": "0.SelfAttention.k",
+               "v": "0.SelfAttention.v", "o": "0.SelfAttention.o", "ln_ff": "1.layer_norm",
+               "wi_0": "1.DenseReluDense.wi_0", "wi_1": "1.DenseReluDense.wi_1",
+               "wo": "1.DenseReluDense.wo"}
 
 
 def per_forward_counts(mcfg):
@@ -1692,6 +1730,485 @@ def run_dino_slice(kernels, smi):
           f"sampling {[round(t, 2) for t in hold['sample']]} s (multi); peak device memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
     del trainer, ctx, hold
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def hf_clip_state_dict(sd):
+    """The port's CLIPTextEncoder state dict in HF CLIPTextModelWithProjection
+    names (the tests write their CLIP files with it too)."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("layers."):
+            i, module, leaf = k[len("layers."):].split(".")
+            out[f"text_model.encoder.layers.{i}.{HF_CLIP_LAYER.get(module, module)}.{leaf}"] = v
+        elif k in ("token_embedding.weight", "position_embedding"):
+            out[f"text_model.embeddings.{k.split('.')[0]}.weight"] = v
+        elif k.startswith("final_layer_norm."):
+            out["text_model." + k] = v
+        else:
+            out[k] = v  # text_projection.weight
+    return out
+
+
+def hf_t5_state_dict(sd):
+    """The port's T5Encoder state dict in HF T5EncoderModel names (the
+    embedding as shared.weight, the tied encoder.embed_tokens.weight left out
+    as save_pretrained leaves it out; the tests write their T5 files with it
+    too)."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("blocks."):
+            i, module, leaf = k[len("blocks."):].split(".")
+            out[f"encoder.block.{i}.layer.{HF_T5_LAYER[module]}.{leaf}"] = v
+        elif k == "relative_attention_bias":
+            out["encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = v
+        elif k == "final_ln.weight":
+            out["encoder.final_layer_norm.weight"] = v
+        else:
+            out["shared.weight"] = v
+    return out
+
+
+def _base_scaled_table(dim, max_size, base, device):
+    """diffusers' persisted PatchEmbed table (get_2d_sincos_pos_embed: positions
+    scaled by base / max_size; the column half first), (1, max_size^2, dim)
+    in fp32, computed on the card in fp64."""
+    import torch
+
+    pos = torch.arange(max_size, dtype=torch.float64, device=device) * (base / max_size)
+    omega = 1.0 / 10000 ** (torch.arange(dim // 4, dtype=torch.float64, device=device)
+                            / (dim / 4))
+    half = torch.cat([torch.sin(pos[:, None] * omega), torch.cos(pos[:, None] * omega)], 1)
+    cols = half[None, :, :].expand(max_size, max_size, dim // 2)
+    rows = half[:, None, :].expand(max_size, max_size, dim // 2)
+    return torch.cat([cols, rows], dim=-1).reshape(1, max_size * max_size, dim).float()
+
+
+def _write_sd3_dir(root, generator, mcfg, vcfg, clip_cfgs, t5cfg, device="cuda"):
+    """An SD3 diffusers directory under ``root`` at the given configs (the
+    loader phase: SD3.5-M, the SD3 VAE, CLIP-L and CLIP-G, T5-XXL cut to
+    LOADER_T5_LAYERS layers), its weights from ``generator`` on ``device``
+    (the port's initialiser: lecun-normal matrices, zero biases, unit norms):
+    ``transformer/`` bf16 with its base-scaled table, ``vae/`` fp32 (encoder
+    and decoder), ``text_encoder/`` and ``text_encoder_2/`` fp16,
+    ``text_encoder_3/`` fp16 in two shards with an index; HF / diffusers
+    names and config.json files. Returns {folder: state dict as written, on
+    ``device``}."""
+    import dataclasses
+
+    import torch
+
+    from adv_grpo_torch.models.clip_text import CLIPTextEncoder
+    from adv_grpo_torch.models.lora import init_params_
+    from adv_grpo_torch.models.mmdit import MMDiT
+    from adv_grpo_torch.models.t5 import T5Encoder
+    from adv_grpo_torch.models.vae import AutoencoderKL
+    from adv_grpo_torch.train.pipeline import _build
+    from adv_grpo_torch.utils import safetensors_io
+
+    def module_sd(cls, cfg, dtype):
+        m = init_params_(_build(cls, cfg, device), generator)
+        return {k: v.detach().to(dtype) for k, v in m.state_dict().items()}
+
+    def write(sub, sd, config, shards=1):
+        d = os.path.join(root, sub)
+        os.makedirs(d)
+        names = sorted(sd)
+        if shards == 1:
+            safetensors_io.save_file(sd, os.path.join(d, "model.safetensors"))
+        else:
+            cut = [names[i * len(names) // shards:(i + 1) * len(names) // shards]
+                   for i in range(shards)]
+            files = [f"model-{i + 1:05d}-of-{shards:05d}.safetensors" for i in range(shards)]
+            for fname, keys in zip(files, cut):
+                safetensors_io.save_file({k: sd[k] for k in keys}, os.path.join(d, fname))
+            with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
+                json.dump({"metadata": {}, "weight_map": {k: fn for fn, ks in zip(files, cut)
+                                                          for k in ks}}, f)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(config, f)
+
+    sd = module_sd(MMDiT, dataclasses.replace(mcfg, dtype=torch.bfloat16), torch.bfloat16)
+    base = mcfg.sample_size // mcfg.patch_size
+    sd["pos_embed.pos_embed"] = _base_scaled_table(mcfg.hidden_dim, mcfg.pos_embed_max_size,
+                                                   base, device).to(torch.bfloat16)
+    written = {"transformer": sd}
+    write("transformer", sd, {
+        "_class_name": "SD3Transformer2DModel", "patch_size": mcfg.patch_size,
+        "in_channels": mcfg.in_channels, "out_channels": mcfg.out_channels,
+        "num_layers": mcfg.num_layers, "attention_head_dim": mcfg.attention_head_dim,
+        "num_attention_heads": mcfg.num_attention_heads,
+        "joint_attention_dim": mcfg.joint_attention_dim, "caption_projection_dim": 1536,
+        "pooled_projection_dim": mcfg.pooled_projection_dim,
+        "pos_embed_max_size": mcfg.pos_embed_max_size, "qk_norm": "rms_norm",
+        "dual_attention_layers": list(mcfg.dual_attention_layers),
+        "sample_size": mcfg.sample_size})
+    written["vae"] = module_sd(AutoencoderKL, vcfg, torch.float32)
+    write("vae", written["vae"], {
+        "_class_name": "AutoencoderKL", "in_channels": 3, "out_channels": 3,
+        "latent_channels": vcfg.latent_channels,
+        "block_out_channels": list(vcfg.block_out_channels),
+        "layers_per_block": vcfg.layers_per_block, "norm_num_groups": vcfg.norm_num_groups,
+        "scaling_factor": vcfg.scaling_factor, "shift_factor": vcfg.shift_factor,
+        "use_quant_conv": False, "use_post_quant_conv": False})
+    for sub, cfg in zip(("text_encoder", "text_encoder_2"), clip_cfgs):
+        written[sub] = hf_clip_state_dict(module_sd(CLIPTextEncoder, cfg, torch.float16))
+        write(sub, written[sub], {
+            "architectures": ["CLIPTextModelWithProjection"], "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads, "projection_dim": cfg.projection_dim,
+            "hidden_act": cfg.hidden_act, "max_position_embeddings": 77,
+            "vocab_size": cfg.vocab_size, "bos_token_id": 49406,
+            "eos_token_id": cfg.eos_token_id, "torch_dtype": "float16"})
+    tcfg = dataclasses.replace(t5cfg, dtype=torch.float16)
+    written["text_encoder_3"] = hf_t5_state_dict(module_sd(T5Encoder, tcfg, torch.float16))
+    write("text_encoder_3", written["text_encoder_3"], {
+        "architectures": ["T5EncoderModel"], "d_model": tcfg.d_model, "d_kv": tcfg.d_kv,
+        "d_ff": tcfg.d_ff, "num_layers": tcfg.num_layers, "num_heads": tcfg.num_heads,
+        "vocab_size": tcfg.vocab_size, "feed_forward_proj": "gated-gelu",
+        "relative_attention_num_buckets": 32, "relative_attention_max_distance": 128,
+        "torch_dtype": "float16"}, shards=2)
+    return written
+
+
+def _word_tokenizers(t5_len):
+    """Three tokenize callables that need no vocabulary file (the card's
+    machine has no ``transformers``): each word's crc32 picks an id. CLIP:
+    start 49406, up to 75 words, end and padding 49407, 77 ids; T5: up to
+    t5_len - 1 words, end 1, padding 0."""
+    import zlib
+
+    import numpy as np
+
+    def clip(prompts):
+        out = np.full((len(prompts), 77), 49407, np.int64)
+        for r, p in enumerate(prompts):
+            ids = [zlib.crc32(w.encode()) % 49000 + 1 for w in p.split()][:75]
+            out[r, :len(ids) + 1] = [49406] + ids
+        return out
+
+    def t5(prompts):
+        out = np.zeros((len(prompts), t5_len), np.int64)
+        for r, p in enumerate(prompts):
+            ids = [zlib.crc32(w.encode()) % 32000 + 2 for w in p.split()][:t5_len - 1]
+            out[r, :len(ids) + 1] = ids + [1]
+        return out
+
+    return clip, clip, t5
+
+
+def _t5_weights_at_scale_(t5, generator):
+    """Rescale a T5 drawn by ``init_params_`` so its attention scores are of
+    order one, as in HF's T5 init and a trained T5 (the 1/sqrt(d_kv) the
+    attention leaves out lives in q): q times d_kv^-1/2, and the bucket bias
+    table drawn N(0, 1), of the scores' order, so that a lost bias shows.
+    With lecun-normal q alone the scores reach tens, and bf16's spacing
+    there is a good part of a logit."""
+    import torch
+
+    with torch.no_grad():
+        for block in t5.blocks:
+            block.q.weight.mul_(t5.cfg.d_kv ** -0.5)
+        t5.relative_attention_bias.normal_(0.0, 1.0, generator=generator)
+    return t5
+
+
+def _check_encoders_on_card(smi):
+    """A 2-layer full-width T5-XXL (weights at the scale of
+    ``_t5_weights_at_scale_``, one of two prompts masked after 20 of its 77
+    tokens by ``encode_with_length_mask``) and CLIP-G on the card against the
+    same weights on the CPU in fp32 (relative L2 1e-4). Beside it the T5 in
+    bf16, as it runs in the pipeline, against the CPU's fp32, within
+    T5_BF16_BOUND; the same bf16 T5 with its bias table zeroed, and run
+    without the mask, are read against the same reference and must land
+    above the bound, so the bound tells a sound bf16 T5 from one that lost
+    either. Returns the readings."""
+    import copy
+
+    import torch
+
+    from adv_grpo_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
+    from adv_grpo_torch.models.lora import init_params_
+    from adv_grpo_torch.models.t5 import T5Config, T5Encoder, encode_with_length_mask
+    from adv_grpo_torch.train.pipeline import _build
+
+    g = torch.Generator().manual_seed(SEED + 7)
+    ids = torch.randint(2, 32000, (2, 77), generator=g)
+    lengths = torch.tensor([77, 20])
+    clip_ids = torch.randint(1, 49000, (2, 77), generator=g)
+    clip_ids[:, -1] = 49407
+    rows = {}
+    for name, cls, cfg, x in (
+            ("T5-XXL", T5Encoder, T5Config(num_layers=2, dtype=torch.float32), ids),
+            ("CLIP-G", CLIPTextEncoder, CLIPTextConfig.clip_g(num_layers=2), clip_ids)):
+        cpu = init_params_(_build(cls, cfg, "cpu"), g)
+        if name == "T5-XXL":
+            cpu = _t5_weights_at_scale_(cpu, g)
+            forward = lambda m, x: encode_with_length_mask(m, x, lengths.to(x.device))  # noqa: E731
+        else:
+            forward = lambda m, x: torch.cat(m(x)[:2])  # noqa: E731
+        gpu = _build(cls, cfg, "cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        with torch.no_grad():
+            ref = forward(cpu, x)
+            err = _rel_l2(forward(gpu, x.cuda()).float().cpu(), ref)
+            rows[name] = err
+            print(f"{name} 2 layers full width: card fp32 against the CPU fp32, relative L2 "
+                  f"{err:.3e} (bound 1e-4)", flush=True)
+            if err > 1e-4:
+                raise AssertionError(f"{name} on the card: relative L2 {err:.3e}")
+            if name == "T5-XXL":
+                bf = _build(cls, T5Config(num_layers=2), "cuda")
+                bf.load_state_dict(cpu.state_dict())
+                rows["T5-XXL bf16"] = _rel_l2(forward(bf, x.cuda()).float().cpu(), ref)
+                no_bias = copy.deepcopy(bf)
+                no_bias.relative_attention_bias.zero_()
+                rows["T5-XXL bf16, bias lost"] = _rel_l2(
+                    forward(no_bias, x.cuda()).float().cpu(), ref)
+                keep = (torch.arange(77)[None] < lengths[:, None])[..., None]
+                rows["T5-XXL bf16, mask lost"] = _rel_l2(
+                    torch.where(keep, bf(x.cuda()).float().cpu(), 0.0), ref)
+                print(f"  T5-XXL in bf16 (the pipeline's dtype) on the card against the CPU "
+                      f"fp32: relative L2 {rows['T5-XXL bf16']:.3e} (bound {T5_BF16_BOUND}); "
+                      f"with the bias table zeroed {rows['T5-XXL bf16, bias lost']:.3e}, "
+                      f"without the mask {rows['T5-XXL bf16, mask lost']:.3e} (each must "
+                      f"exceed the bound)", flush=True)
+                if rows["T5-XXL bf16"] > T5_BF16_BOUND:
+                    raise AssertionError(f"T5-XXL bf16 on the card: relative L2 "
+                                         f"{rows['T5-XXL bf16']:.3e}")
+                if min(rows["T5-XXL bf16, bias lost"],
+                       rows["T5-XXL bf16, mask lost"]) <= T5_BF16_BOUND:
+                    raise AssertionError(f"the T5 bf16 bound {T5_BF16_BOUND} does not tell a "
+                                         f"lost bias or mask from a sound T5: {rows}")
+                del bf, no_bias
+        del cpu, gpu
+    return rows
+
+
+def run_loader_slice(kernels, smi):
+    """Phase: the SD3 checkpoint loaders at full width. Writes a full-width
+    SD3.5-M diffusers directory from the seed (``_write_sd3_dir``); checks
+    ``preflight``'s parameter counts against the configs' on the meta device
+    and ``load_sd3_pipeline(dir, lora_rank=32)`` on the card: every frozen
+    tensor bitwise the file's, ``lora_a`` bitwise the numpy draws of
+    ``sd3_lora_init``, ``lora_b`` zero, the VAE (encoder too) bitwise. Then
+    the encoders: a 2-layer full-width T5-XXL and CLIP-G against the CPU
+    (``_check_encoders_on_card``); the directory's CLIP-L / CLIP-G / 4-layer
+    T5 through ``cli.common.load_real_text_encoder`` with injected
+    tokenizers, and the encode of ENCODE_BATCH prompts timed with them and
+    with a full-depth (24-layer) T5-XXL built from the seed; ``write_store``
+    of the dataset's prompts through that encode, its first batch's rows
+    bitwise a direct encode's at fp16. Then ``cli.infer.main`` at
+    ``eval_sd3_fast`` from the directory and the store (launches of #1-#3 as
+    derived, a non-constant 512^2 PNG, s/image) and ``cli.train.main`` on
+    TRAIN_ARGV for one epoch from both (launches of #1-#5 as
+    ``expected_train_counts`` derives them, finite metrics, the LoRA and its
+    EMA moved from the loaded adapter). Prints bytes written, the write,
+    preflight and load seconds, the encode ms, and the peak host and device
+    memory."""
+    import gc
+    import resource
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from adv_grpo_torch.cli import common, infer, train
+    from adv_grpo_torch.data.datasets import TextPromptDataset
+    from adv_grpo_torch.data.embed_store import EmbeddingStore, write_store
+    from adv_grpo_torch.models import convert
+    from adv_grpo_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
+    from adv_grpo_torch.models.lora import init_params_, jax_lora_path
+    from adv_grpo_torch.models.mmdit import MMDiT, MMDiTConfig
+    from adv_grpo_torch.models.t5 import T5Config, T5Encoder
+    from adv_grpo_torch.models.vae import AutoencoderKL, VAEConfig
+    from adv_grpo_torch.train.pipeline import _build
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        root = os.path.join(work, "sd3")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mcfg, vcfg = MMDiTConfig.sd35_medium(), VAEConfig.sd3()
+        clip_cfgs = (CLIPTextConfig.clip_l(), CLIPTextConfig.clip_g())
+        t5cfg = T5Config(num_layers=LOADER_T5_LAYERS)
+        written = _write_sd3_dir(root, torch.Generator(device="cuda").manual_seed(SEED + 6),
+                                 mcfg, vcfg, clip_cfgs, t5cfg)
+        torch.cuda.synchronize()
+        write_s = time.perf_counter() - t0
+        sizes = {sub: _dir_bytes(os.path.join(root, sub)) for sub in written}
+        print(f"wrote a full-width SD3.5-M diffusers directory ({LOADER_T5_LAYERS}-layer T5-XXL) "
+              f"in {write_s:.2f} s: {sum(sizes.values()):,} B ("
+              + ", ".join(f"{k} {v:,}" for k, v in sizes.items()) + f"); {smi}", flush=True)
+
+        t0 = time.perf_counter()
+        report = convert.preflight(root)
+        preflight_s = time.perf_counter() - t0
+        meta = {"transformer": MMDiT(mcfg, device="meta"),
+                "vae": AutoencoderKL(vcfg, device="meta"),
+                "text_encoder": CLIPTextEncoder(clip_cfgs[0], device="meta"),
+                "text_encoder_2": CLIPTextEncoder(clip_cfgs[1], device="meta"),
+                "text_encoder_3": T5Encoder(t5cfg, device="meta")}
+        want = {k: sum(p.numel() for p in m.parameters()) for k, m in meta.items()}
+        got = {k: report[k]["params"] for k in want}
+        print(f"preflight in {preflight_s:.2f} s: parameter counts {got} (the configs' on the "
+              f"meta device {want}); pos_embed_base_size "
+              f"{report['transformer']['pos_embed_base_size']}", flush=True)
+        if got != want or report["transformer"]["pos_embed_base_size"] != \
+                mcfg.sample_size // mcfg.patch_size:
+            raise AssertionError(f"preflight {report}, expected counts {want}")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe = convert.load_sd3_pipeline(root, lora_rank=32, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        state = pipe.mmdit.state_dict()
+        frozen = [k for k in written["transformer"] if k != "pos_embed.pos_embed"]
+        differ = [k for k in frozen
+                  if not torch.equal(state[k].to(written["transformer"][k].dtype),
+                                     written["transformer"][k])]
+        init = convert.sd3_lora_init(pipe.mmdit_cfg)
+        lora_differ = [k for k, v in init.items() if not torch.equal(state[k].cpu(), v)]
+        vstate = pipe.vae.state_dict()
+        vae_differ = [k for k, v in written["vae"].items() if not torch.equal(vstate[k], v)]
+        print(f"load_sd3_pipeline(lora_rank=32) on the card in {load_s:.2f} s: {len(frozen)} "
+              f"frozen tensors bitwise the file's ({len(differ)} differ), {len(init)} LoRA "
+              f"factors bitwise the numpy draws / zero ({len(lora_differ)} differ), "
+              f"{len(vstate)} VAE tensors bitwise ({len(vae_differ)} differ); MMDiT "
+              f"{pipe.mmdit_cfg.dtype}", flush=True)
+        if differ or lora_differ or vae_differ or set(state) - set(frozen) - set(init):
+            raise AssertionError(f"load: frozen {differ[:4]}, LoRA {lora_differ[:4]}, VAE "
+                                 f"{vae_differ[:4]}")
+        del pipe, state, vstate, written, init
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        enc_rows = _check_encoders_on_card(smi)
+        config = common.apply_overrides(common.resolve_config("smoke_sd3_fast"),
+                                        [f"pretrained.model={root}"])
+        holder = type("Pipeline", (), {"text_seq_len": 154, "device": torch.device("cuda")})()
+        tokenizers = _word_tokenizers(154 - 77)
+        t0 = time.perf_counter()
+        encode = common.load_real_text_encoder(config, holder, tokenizers=tokenizers)
+        enc_load_s = time.perf_counter() - t0
+        prompts = [""] + TextPromptDataset("dataset/pickscore_small").prompts
+        test = TextPromptDataset("dataset/pickscore_small", "test").prompts
+        prompts += test[:int(config.sample.test_batch_size)] + ["a flower"]
+
+        def encode_ms(fn):
+            batch = prompts[1:ENCODE_BATCH + 1]
+            fn(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                e, p = fn(batch)
+            return (time.perf_counter() - t0) / 3 * 1e3, e, p
+
+        ms_dir, e, p = encode_ms(encode)
+        if e.shape != (ENCODE_BATCH, 154, 4096) or p.shape != (ENCODE_BATCH, 2048) or \
+                not (np.isfinite(e).all() and np.isfinite(p).all()):
+            raise AssertionError(f"encode: {e.shape}, {p.shape}")
+        store = os.path.join(work, "store")
+        t0 = time.perf_counter()
+        write_store(store, prompts, encode, batch_size=ENCODE_BATCH)
+        store_s = time.perf_counter() - t0
+        uniq = list(dict.fromkeys(prompts))
+        direct_e, direct_p = encode(uniq[:ENCODE_BATCH])
+        se, sp = EmbeddingStore(store)(uniq[:ENCODE_BATCH])
+        same = (np.array_equal(se, direct_e.astype(np.float16).astype(np.float32))
+                and np.array_equal(sp, direct_p.astype(np.float16).astype(np.float32)))
+        # the full-depth T5-XXL, built from the seed beside the directory's CLIPs
+        clip_l, clip_g, _ = common.load_sd3_text_encoders(root, "cuda")
+        t5 = init_params_(_build(T5Encoder, T5Config(), "cuda"),
+                          torch.Generator(device="cuda").manual_seed(SEED + 8))
+        ms_full, e24, _ = encode_ms(common.make_sd3_encode((clip_l, clip_g, t5), tokenizers,
+                                                           "cuda"))
+        print(f"text encoders (CLIP-L, CLIP-G fp32; T5-XXL bf16) loaded in {enc_load_s:.2f} s; "
+              f"encode of {ENCODE_BATCH} prompts (77 + 77 tokens, host tokenizing included): "
+              f"{ms_dir:.1f} ms with the directory's {LOADER_T5_LAYERS}-layer T5, {ms_full:.1f} "
+              f"ms with a full-depth 24-layer T5-XXL (finite {bool(np.isfinite(e24).all())}); "
+              f"write_store of {len(uniq)} prompts in {store_s:.2f} s, its first batch's rows "
+              f"bitwise a direct encode's at fp16: {same}; {smi}", flush=True)
+        if not same or not np.isfinite(e24).all():
+            raise AssertionError(f"write_store rows equal {same}; full-depth encode finite "
+                                 f"{bool(np.isfinite(e24).all())}")
+        del encode, clip_l, clip_g, t5
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the main path from the directory and the store: sampling, then one epoch
+        call = {}
+        generate = infer.generate
+
+        def timed_generate(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = generate(*args, **kwargs)
+            torch.cuda.synchronize()
+            call.update(s=time.perf_counter() - t0, n=len(args[2]))
+            return out
+
+        _zero_counts(kernels)
+        infer.generate = timed_generate
+        try:
+            paths = infer.main(INFER_ARGV[:4] + [
+                "--set", f"pretrained.model={root}", "--set", f"text_embeds_dir={store}",
+                "--out_dir", os.path.join(work, "infer")])
+        finally:
+            infer.generate = generate
+        infer_counts = [k.launches for k in kernels[:3]]
+        img = np.asarray(Image.open(paths[0]))
+        want_infer = [c * STEPS for c in per_forward_counts(mcfg)]
+        print(f"cli.infer eval_sd3_fast from the directory and the store, 512^2 {STEPS} steps: "
+              f"{call['s'] / call['n']:.3f} s/image (the pipeline's first generate); PNG "
+              f"{img.shape}, pixel range {img.min()}..{img.max()}; launches {infer_counts} "
+              f"(expected {want_infer})", flush=True)
+        if infer_counts != want_infer or img.shape != (512, 512, 3) or img.min() == img.max():
+            raise AssertionError(f"infer from the directory: launches {infer_counts}, PNG "
+                                 f"{img.shape} {img.min()}..{img.max()}")
+
+        _zero_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = train.main(TRAIN_ARGV + [
+            "--max_epochs", "1", "--set", f"pretrained.model={root}",
+            "--set", f"text_embeds_dir={store}", "--set", f"save_dir={os.path.join(work, 'run')}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = [k.launches for k in kernels]
+        with open(os.path.join(work, "run", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    config = trainer.config
+    want_train = expected_train_counts(config, trainer.pipeline.mmdit_cfg, epochs=1)[0]
+    start = {jax_lora_path(k): v.cuda()
+             for k, v in convert.sd3_lora_init(trainer.pipeline.mmdit_cfg).items()}
+    idle = {f"block_{mcfg.num_layers - 1}/attn/add_q_proj/lora_b"}
+    lora, ema = trainer.state.lora, trainer.state.ema
+    unchanged = {k for k, v in lora.items() if torch.equal(v, start[k])}
+    ema_unchanged = {k for k, v in ema.items() if torch.equal(v, start[k])}
+    finite = [k for k in ("reward_avg", "loss", "approx_kl", "clipfrac")
+              if np.isfinite(records[0][k])]
+    print(f"cli.train smoke_sd3_fast from the directory and the store, 1 epoch: {wall:.2f} s "
+          f"wall (build included); launches {counts} (expected {want_train}); LoRA "
+          f"{len(lora) - len(unchanged)} of {len(lora)} tensors moved from the loaded adapter, "
+          f"EMA {len(ema) - len(ema_unchanged)}; reward {records[0]['reward_avg']:.5f}, loss "
+          f"{records[0]['loss']:.3e}", flush=True)
+    if (counts != want_train or len(records) != 1 or len(finite) != 4
+            or not unchanged <= idle or not ema_unchanged <= idle):
+        raise AssertionError(f"train from the directory: launches {counts}, {len(records)} "
+                             f"records, finite {finite}, unchanged {sorted(unchanged)[:4]}, EMA "
+                             f"unchanged {sorted(ema_unchanged)[:4]}")
+    peak_host = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    print(f"loader phase: {time.perf_counter() - phase_t0:.1f} s of wall time; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, the process's peak "
+          f"host RSS {peak_host:.2f} GiB; card against CPU "
+          f"{ {k: float(f'{v:.3e}') for k, v in enc_rows.items()} }; {smi}", flush=True)
+    del trainer, lora, ema, start
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3456,7 +3973,8 @@ def main() -> int:
     kernels = (fused_norms.modulated_layer_norm, joint_attention.joint_mha,
                joint_attention.mha_rms, joint_attention.joint_attention_bwd,
                joint_attention.mha_rms_bwd)
-    alone = {"--dino": run_dino_slice, "--checkpoint": run_checkpoint_slice}
+    alone = {"--dino": run_dino_slice, "--checkpoint": run_checkpoint_slice,
+             "--loaders": run_loader_slice}
     if sys.argv[1:2] and sys.argv[1] in alone:  # one phase, in its one-rank group
         print(f"process group initialized at {init_group()}", flush=True)
         alone[sys.argv[1]](kernels, smi)
@@ -3480,6 +3998,7 @@ def main() -> int:
     run_cotrain_slice(kernels, smi)
     run_checkpoint_slice(kernels, smi)
     run_dino_slice(kernels, smi)
+    run_loader_slice(kernels, smi)
     dist.destroy_process_group()
     check_flux_model_grads(*check_flux_model())
     flux_kernels = (fused_norms.modulated_layer_norm, fused_norms.rms_norm_heads,

@@ -3,7 +3,7 @@ JAX package's results on the same inputs.
 
 The port imports nothing of ``adv_grpo_tpu`` (tests/test_torch_imports.py),
 so it carries copies of the schedule, the stat tracker, the k-repeat sampler,
-the datasets, the embedding store, the metric logger, the FLOP model, the
+the datasets, the embedding store (reader and writer), the metric logger, the FLOP model, the
 host JPEG rewards, the uint8 image packer, the override parser, the hash
 text encoder, the peft key mapping and the checkpoint directory helpers. Each is held here against its original: exact equality
 throughout, since both sides run the same numpy arithmetic.
@@ -22,6 +22,7 @@ from adv_grpo_torch.core import scheduler as t_sched
 from adv_grpo_torch.core import stat_tracking as t_stats
 from adv_grpo_torch.data import datasets as t_data
 from adv_grpo_torch.data.embed_store import EmbeddingStore as TEmbeddingStore
+from adv_grpo_torch.data.embed_store import write_store as t_write_store
 from adv_grpo_torch.data.krepeat import DistributedKRepeatSampler as TSampler
 from adv_grpo_torch.models.flux import FluxConfig as TFluxConfig
 from adv_grpo_torch.models import peft_lora as t_peft
@@ -214,6 +215,29 @@ def test_embedding_store_reads_identically(tmp_path):
         np.testing.assert_array_equal(g, w)
     with pytest.raises(KeyError):
         a(["z"])
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8])
+def test_write_store_writes_identical_bytes(tmp_path, batch):
+    """The port's ``write_store`` (dedup in order, the fixed batch padded with
+    the last prompt, fp16 memmaps) writes the JAX one's files byte for byte,
+    and asks its encoder for the same batches."""
+    calls = {"j": [], "t": []}
+    base = j_common.make_hash_text_encoder(seq_len=5, embed_dim=8, pooled_dim=3)
+
+    def encoder(side):
+        def encode(prompts):
+            calls[side].append(list(prompts))
+            return base(prompts)
+        return encode
+
+    prompts = ["a", "b", "", "c", "a", "d", "e", "b", "f"]
+    write_store(str(tmp_path / "j"), prompts, encoder("j"), batch_size=batch)
+    t_write_store(str(tmp_path / "t"), prompts, encoder("t"), batch_size=batch)
+    assert calls["t"] == calls["j"] and all(len(c) == batch for c in calls["t"])
+    for name in ("prompts.json", "embeds.npy", "pooled.npy"):
+        with open(tmp_path / "j" / name, "rb") as a, open(tmp_path / "t" / name, "rb") as b:
+            assert a.read() == b.read(), name
 
 
 def test_apply_overrides_is_identical():

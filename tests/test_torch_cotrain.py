@@ -21,6 +21,7 @@ preset.
 
 import json
 import os
+import sys
 import zlib
 
 import jax
@@ -283,8 +284,9 @@ def test_cotrain_cli_runs_two_epochs_on_the_cpu(tmp_path):
 def test_reward_context_builds_pickscore_and_refuses_what_is_not_ported(monkeypatch, tmp_path):
     """smoke_test: the tiny towers at image 28, constant token ids 3 at the
     text tower's length; no PickScore reward: an empty context; a set
-    PICKSCORE_DIR or a local CLIP tokenizer raises (never a silent random
-    fallback)."""
+    PICKSCORE_DIR raises (never a silent random fallback), and so does a
+    local CLIP tokenizer where ``transformers`` is missing (its use is held
+    to the JAX package's in tests/test_torch_text_encoders.py)."""
     from adv_grpo_torch.cli.common import build_reward_context
 
     cfg = tiny_config()
@@ -298,7 +300,8 @@ def test_reward_context_builds_pickscore_and_refuses_what_is_not_ported(monkeypa
     monkeypatch.delenv("PICKSCORE_DIR")
     (tmp_path / "tokenizer").mkdir()
     cfg.pretrained.model = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="tokenizer"):
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    with pytest.raises(ImportError, match="transformers.*text_embeds_dir does not help"):
         build_reward_context(cfg, {"pickscore"}, device="cpu")
 
 

@@ -39,10 +39,11 @@ def _run(args, cwd):
 
 
 def test_port_imports_no_jax_flax_or_triton():
+    """Nor ``transformers``: the tokenizer paths import it where they run."""
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
-            "print(sorted(m for m in ('jax', 'flax', 'optax', 'triton', 'ml_collections')"
-            " if m in sys.modules))\n")
+            "print(sorted(m for m in ('jax', 'flax', 'optax', 'triton', 'ml_collections',"
+            " 'transformers') if m in sys.modules))\n")
     proc = _run(["-c", code], REPO)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "[]"
@@ -57,7 +58,9 @@ def test_port_loads_nothing_of_the_jax_package():
             "adv_grpo_torch.adversarial.clip_criterion",
             "adv_grpo_torch.adversarial.dino_hinge", "adv_grpo_torch.utils.safetensors_io",
             "adv_grpo_torch.models.peft_lora",
-            "adv_grpo_torch.train.checkpoint"} <= set(PORT_MODULES)
+            "adv_grpo_torch.train.checkpoint", "adv_grpo_torch.models.t5",
+            "adv_grpo_torch.models.encode_prompt",
+            "adv_grpo_torch.cli.precompute_embeds"} <= set(PORT_MODULES)
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] == 'adv_grpo_tpu'))\n")
