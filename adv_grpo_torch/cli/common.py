@@ -6,14 +6,14 @@ Port of adv_grpo_tpu/cli/common.py:50-69 (``apply_overrides``), :88-240
 :242-258 (``make_hash_text_encoder``, the deterministic stand-in for the
 text encoders, byte for byte the JAX package's embeddings), :261-320
 (``load_real_text_encoder``: CLIP-L, CLIP-G and T5 from a local diffusers
-directory) and the PickScore and DINO parts of :331-501
-(``build_reward_context``).
+directory), :323-328 (``_scorer_weights_dir``) and the PickScore and DINO
+parts of :331-501 (``build_reward_context``: the scorers from
+``PICKSCORE_DIR`` / ``DINOV2_DIR`` checkpoints, else random weights).
 
-Tokenizing needs the ``transformers`` package (``CLIPTokenizer``,
-``T5TokenizerFast``, read from the directory's ``tokenizer{,_2,_3}/``),
-imported only where a prompt is tokenized; without it those paths raise
-naming it (there is no fall-back to the hash encoder), and a caller may
-inject its own tokenizers instead.
+Prompts are tokenized by ``data.tokenizers`` from the directory's
+``tokenizer{,_2,_3}/`` (the JAX package's ``transformers.CLIPTokenizer`` /
+``T5TokenizerFast``, id for id, in plain Python); a caller may inject its
+own tokenizers instead.
 """
 
 from __future__ import annotations
@@ -28,8 +28,9 @@ import numpy as np
 import torch
 
 __all__ = ["apply_overrides", "build_pipeline", "build_reward_context", "build_text_encoder",
-           "compute_dtype", "hf_tokenizers", "load_real_text_encoder", "load_sd3_text_encoders",
-           "make_hash_text_encoder", "make_sd3_encode", "resolve_config", "resolve_device"]
+           "compute_dtype", "load_real_text_encoder", "load_sd3_text_encoders",
+           "make_hash_text_encoder", "make_sd3_encode", "resolve_config", "resolve_device",
+           "sd3_tokenizers"]
 
 _FP32 = ("fp32", "float32", "no")
 _BF16 = ("bf16", "bfloat16", "fp16", "float16")
@@ -83,7 +84,7 @@ def resolve_device(device) -> torch.device:
 def _build_flux_pipeline(config, model_dir, lora_rank, latent_hw, device, generator):
     """The Flux branch (JAX :135-159): the tiny random-init model; a set
     ``pretrained.model`` (``FLUX_DIR``) raises, the Flux loader is not ported
-    (ROADMAP Queue 1 item 5)."""
+    (ROADMAP Queue 1, "The Flux and WAN loaders")."""
     from adv_grpo_torch.models.flux import FluxConfig
     from adv_grpo_torch.models.vae import VAEConfig
     from adv_grpo_torch.train.flux_pipeline import FluxPipeline
@@ -91,7 +92,8 @@ def _build_flux_pipeline(config, model_dir, lora_rank, latent_hw, device, genera
     if model_dir:
         raise NotImplementedError(
             f"loading the diffusers FluxTransformer2DModel at {model_dir!r} is not yet "
-            "ported to adv_grpo_torch (ROADMAP Queue 1 item 5); unset FLUX_DIR for the "
+            "ported to adv_grpo_torch (ROADMAP Queue 1, \"The Flux and WAN loaders\"); unset "
+            "FLUX_DIR for the "
             "tiny random-init model")
     fcfg = FluxConfig.tiny(lora_rank=max(lora_rank, 1) if lora_rank else 4)
     return FluxPipeline.random_init(
@@ -105,7 +107,8 @@ def _build_wan_pipeline(config, model_dir, lora_rank, latent_hw, device, generat
     VAE with 2 latent frames of ``latent_hw``; with ``frames``, the latents
     of that many video frames of ``config.resolution``^2 instead (the demo's
     sizing, cut to the patch). A set ``pretrained.model`` (``WAN_DIR``)
-    raises, the WAN loaders are not ported (ROADMAP Queue 1 item 5)."""
+    raises, the WAN loaders are not ported (ROADMAP Queue 1, "The Flux and WAN
+    loaders")."""
     from adv_grpo_torch.models.wan import WanConfig
     from adv_grpo_torch.models.wan_vae import WanVAEConfig
     from adv_grpo_torch.train.wan_pipeline import WanPipeline
@@ -113,7 +116,8 @@ def _build_wan_pipeline(config, model_dir, lora_rank, latent_hw, device, generat
     if model_dir:
         raise NotImplementedError(
             f"loading the diffusers WanTransformer3DModel at {model_dir!r} is not yet "
-            "ported to adv_grpo_torch (ROADMAP Queue 1 item 5); unset WAN_DIR for the "
+            "ported to adv_grpo_torch (ROADMAP Queue 1, \"The Flux and WAN loaders\"); unset "
+            "WAN_DIR for the "
             "tiny random-init model")
     wcfg = WanConfig.tiny(lora_rank=max(lora_rank, 1) if lora_rank else 4)
     c = wcfg.in_channels
@@ -207,36 +211,17 @@ def build_text_encoder(config, pipeline):
                                   pooled_dim=mcfg.pooled_projection_dim)
 
 
-def _transformers(what: str, remedy: str):
-    """The ``transformers`` package, imported here only; without it, an
-    ``ImportError`` that names it, what needed it and ``remedy``."""
-    try:
-        import transformers
-    except ImportError as e:
-        raise ImportError(
-            f"{what} needs the `transformers` package (its tokenizers read the local "
-            f"tokenizer files), which is not installed here. {remedy}") from e
-    return transformers
-
-
-def hf_tokenizers(root: str, t5_len: int):
+def sd3_tokenizers(root: str, t5_len: int):
     """The three tokenize callables of an SD3 directory (``tokenizer/``,
-    ``tokenizer_2/``: ``CLIPTokenizer`` padded and cut to 77;
-    ``tokenizer_3/``: ``T5TokenizerFast`` to ``t5_len``), each mapping a list
-    of prompts to an int array of token ids."""
-    transformers = _transformers(
-        "tokenizing prompts for the SD3 text encoders",
-        "Precompute the prompt embeddings where it is (python -m "
-        "adv_grpo_torch.cli.precompute_embeds) and set text_embeds_dir, or inject tokenizers")
-    tok1 = transformers.CLIPTokenizer.from_pretrained(os.path.join(root, "tokenizer"))
-    tok2 = transformers.CLIPTokenizer.from_pretrained(os.path.join(root, "tokenizer_2"))
-    tok3 = transformers.T5TokenizerFast.from_pretrained(os.path.join(root, "tokenizer_3"))
+    ``tokenizer_2/``: CLIP, padded and cut to 77; ``tokenizer_3/``: T5 to
+    ``t5_len``), each mapping a list of prompts to an int64 array of token
+    ids (``data.tokenizers``)."""
+    from adv_grpo_torch.data.tokenizers import CLIPTokenizer, T5Tokenizer
 
-    def ids(tok, max_length):
-        return lambda prompts: tok(prompts, padding="max_length", max_length=max_length,
-                                   truncation=True, return_tensors="np").input_ids
-
-    return ids(tok1, 77), ids(tok2, 77), ids(tok3, t5_len)
+    t5 = T5Tokenizer(os.path.join(root, "tokenizer_3"))
+    return (CLIPTokenizer(os.path.join(root, "tokenizer")),
+            CLIPTokenizer(os.path.join(root, "tokenizer_2")),
+            lambda prompts: t5(prompts, t5_len))
 
 
 def load_sd3_text_encoders(root: str, device):
@@ -312,11 +297,10 @@ def load_real_text_encoder(config, pipeline, tokenizers=None):
     ``encode(prompts) -> (embeds (B, text_seq_len, 4096), pooled (B, 2048))``
     (the reference ``compute_text_embeddings``). T5 gets ``text_seq_len - 77``
     tokens. ``tokenizers``: three tokenize callables; by default the
-    directory's HF tokenizers (:func:`hf_tokenizers`, which need
-    ``transformers`` and raise without it, before any weight is read)."""
+    directory's (:func:`sd3_tokenizers`)."""
     root = str(config.pretrained.model)
     if tokenizers is None:
-        tokenizers = hf_tokenizers(root, pipeline.text_seq_len - 77)
+        tokenizers = sd3_tokenizers(root, pipeline.text_seq_len - 77)
     return make_sd3_encode(load_sd3_text_encoders(root, pipeline.device), tokenizers,
                            pipeline.device)
 
@@ -325,93 +309,106 @@ DINO_REWARDS = {"image_similarity", "image_similarity_eval", "dino_cotrain",
                 "dino_patch_cotrain", "dino_multi_cotrain"}
 
 
+def _scorer_weights_dir(name: str) -> Optional[str]:
+    """The local scorer checkpoint directory in the environment variable
+    ``name``; unset, empty or a path that does not exist: None."""
+    path = os.environ.get(name, "")
+    return path if path and os.path.exists(path) else None
+
+
+def _warn_random(what: str, env: str) -> None:
+    import warnings
+
+    warnings.warn(f"{what} scorer is RANDOM-INIT: set {env} to a local checkpoint directory "
+                  "for real reward values", stacklevel=3)
+
+
 def build_reward_context(config, reward_names, device="cuda"):
     """The ``RewardContext`` for the reward names a preset uses (the ported
     ones: the PickScore and DINO rewards), on ``device``.
 
-    PickScore: ``smoke_test`` takes the tiny towers (image 28); otherwise
-    CLIP-H with random weights from ``config.seed + 1``, with a warning: the
-    PickScore checkpoint loader is not ported, so a set ``PICKSCORE_DIR``
-    raises. The token ids come from the local CLIP tokenizer
-    ``<pretrained.model>/tokenizer`` where there is one (padded and cut to 77;
-    it needs ``transformers`` and raises without it, a precomputed
-    ``text_embeds_dir`` or not), else they are the constant 3 at the text
-    tower's length, as the JAX package's are.
+    PickScore: CLIP-H (``smoke_test``: the tiny towers, image 28), from the
+    HF ``CLIPModel`` checkpoint in ``PICKSCORE_DIR``
+    (``convert.clip_model_state_dict_from_hf``, strict), else random weights
+    from ``config.seed + 1``, with a warning unless ``smoke_test``; a set
+    path that does not exist counts as unset. The token ids come from the
+    CLIP tokenizer ``<pretrained.model>/tokenizer`` where there is one
+    (padded and cut to 77), else they are the constant 3 at the text tower's
+    length, as the JAX package's are.
 
-    DINO (:func:`_dino_context`): ``smoke_test`` takes a tiny DINOv2 (28^2,
-    2 layers of 32, 2 heads); otherwise DINOv2-B/14 at 518^2 with random
-    weights from ``config.seed + 3``, with a warning; a set ``DINOV2_DIR``
-    raises (its loader is not ported)."""
+    DINO (:func:`_dino_context`): DINOv2-B/14 at 518^2 (``smoke_test``: 28^2,
+    2 layers of 32, 2 heads) from the checkpoint in ``DINOV2_DIR``, timm's
+    or HF's layout, else random weights from ``config.seed + 3`` with the
+    same warning."""
+    from adv_grpo_torch.models import convert
     from adv_grpo_torch.models.clip_text import CLIPTextConfig
     from adv_grpo_torch.models.vit import ViTConfig
     from adv_grpo_torch.rewards.registry import RewardContext
     from adv_grpo_torch.rewards.scorers import PickScoreScorer
 
     ctx = RewardContext()
+    device = resolve_device(device)
+    smoke = bool(config.get("smoke_test", False))
     if set(reward_names) & DINO_REWARDS:
-        _dino_context(ctx, config, set(reward_names), resolve_device(device))
+        _dino_context(ctx, config, set(reward_names), device)
     if not set(reward_names) & {"pickscore", "pickscore_cotrain"}:
         return ctx
-    if os.environ.get("PICKSCORE_DIR", ""):
-        raise NotImplementedError(
-            f"PICKSCORE_DIR={os.environ['PICKSCORE_DIR']!r}: loading a PickScore checkpoint "
-            "is not yet ported to adv_grpo_torch; unset it for random CLIP-H weights")
-    tok_dir = os.path.join(str(config.pretrained.model or ""), "tokenizer")
-    tok = None
-    if str(config.pretrained.model or "") and os.path.isdir(tok_dir):
-        tok = _transformers(
-            "the PickScore reward's CLIP tokenizer",
-            "text_embeds_dir does not help: the reward tokenizes every prompt itself, so "
-            "a PickScore preset cannot run from a diffusers directory with a tokenizer/ "
-            "until tokenizers that need no `transformers` are ported").CLIPTokenizer \
-            .from_pretrained(tok_dir)
-    device = resolve_device(device)
-    generator = torch.Generator(device=device).manual_seed(int(config.seed) + 1)
-    if bool(config.get("smoke_test", False)):
-        ps = PickScoreScorer.random_init(generator, device, CLIPTextConfig.tiny(projection_dim=16),
-                                         ViTConfig.tiny(projection_dim=16), image_size=28)
+    if smoke:
+        towers = CLIPTextConfig.tiny(projection_dim=16), ViTConfig.tiny(projection_dim=16), 28
     else:
-        import warnings
-
-        warnings.warn("PickScore CLIP-H scorer is RANDOM-INIT: its checkpoint loader is not "
-                      "yet ported to adv_grpo_torch", stacklevel=2)
-        ps = PickScoreScorer.random_init(generator, device)
-    max_len = ps.clip.text_model.cfg.max_position_embeddings
+        towers = CLIPTextConfig.clip_h_text(), ViTConfig.clip_h(), 224
+    ps_dir = _scorer_weights_dir("PICKSCORE_DIR")
+    if ps_dir:
+        sd = convert.clip_model_state_dict_from_hf(convert.load_torch_state_dict(ps_dir),
+                                                   *towers[:2])
+        ps = PickScoreScorer.from_state_dict(sd, device, *towers)
+        del sd
+    else:
+        if not smoke:
+            _warn_random("PickScore CLIP-H", "PICKSCORE_DIR")
+        generator = torch.Generator(device=device).manual_seed(int(config.seed) + 1)
+        ps = PickScoreScorer.random_init(generator, device, *towers)
     ctx.pickscore = ps
-    if tok is not None:
-        ctx.tokenize = lambda prompts: tok(prompts, padding="max_length", max_length=77,
-                                           truncation=True, return_tensors="np").input_ids
+    tok_dir = os.path.join(str(config.pretrained.model or ""), "tokenizer")
+    if str(config.pretrained.model or "") and os.path.isdir(tok_dir):
+        from adv_grpo_torch.data.tokenizers import CLIPTokenizer
+
+        tok = CLIPTokenizer(tok_dir)
+        ctx.tokenize = lambda prompts: tok(prompts, 77)
     else:
+        max_len = ps.clip.text_model.cfg.max_position_embeddings
         ctx.tokenize = lambda prompts: np.full((len(prompts), max_len), 3, np.int32)
     return ctx
 
 
 def _dino_context(ctx, config, reward_names, device):
-    """The DINO scorer, its live head, the patch generator (seeded from
-    ``config.seed + 2``) and, for ``dino_multi_cotrain``, the multi-layer
-    scorer and its heads. Its layers are ``config.dino_multi_layer_ids``
-    (the JAX default 8 where unset); the tiny smoke backbone has two, so
+    """The DINO scorer (its backbone from ``DINOV2_DIR`` or random), its live
+    head, the patch generator (seeded from ``config.seed + 2``) and, for
+    ``dino_multi_cotrain``, the multi-layer scorer and its heads. The heads
+    are drawn from ``config.seed + 3``'s generator, after the backbone where
+    that is random. Its layers are ``config.dino_multi_layer_ids`` (the JAX
+    default 8 where unset); the tiny smoke backbone has two, so
     ``smoke_test`` takes layer 1."""
+    from adv_grpo_torch.models import convert
     from adv_grpo_torch.models.vit import ViTConfig
     from adv_grpo_torch.rewards.scorers import DINOMultiScorer, DINOScorer
 
-    if os.environ.get("DINOV2_DIR", ""):
-        raise NotImplementedError(
-            f"DINOV2_DIR={os.environ['DINOV2_DIR']!r}: loading a DINOv2 checkpoint is not yet "
-            "ported to adv_grpo_torch; unset it for random DINOv2-B/14 weights")
     smoke = bool(config.get("smoke_test", False))
     generator = torch.Generator(device=device).manual_seed(int(config.seed) + 3)
     if smoke:
-        dino = DINOScorer.random_init(
-            generator, device, ViTConfig.dinov2_base(image_size=28, num_layers=2, hidden_size=32,
-                                                     intermediate_size=64, num_heads=2),
-            image_size=28)
+        cfg, image_size = ViTConfig.dinov2_base(image_size=28, num_layers=2, hidden_size=32,
+                                                intermediate_size=64, num_heads=2), 28
     else:
-        import warnings
-
-        warnings.warn("DINOv2 backbone is RANDOM-INIT: its checkpoint loader is not yet "
-                      "ported to adv_grpo_torch", stacklevel=3)
-        dino = DINOScorer.random_init(generator, device)
+        cfg, image_size = ViTConfig.dinov2_base(), 518
+    dino_dir = _scorer_weights_dir("DINOV2_DIR")
+    if dino_dir:
+        dino = DINOScorer.from_state_dict(
+            convert.dinov2_state_dict(convert.load_torch_state_dict(dino_dir), cfg), device,
+            cfg, image_size)
+    else:
+        if not smoke:
+            _warn_random("DINOv2 backbone", "DINOV2_DIR")
+        dino = DINOScorer.random_init(generator, device, cfg, image_size)
     ctx.dino = dino
     ctx.dino_head_params = dino.init_head(generator)
     ctx.rng = torch.Generator(device=device).manual_seed(int(config.seed) + 2)

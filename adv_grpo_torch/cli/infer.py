@@ -17,8 +17,8 @@ prompt named ``node0_rank0_00000_{i}.png``. sd3 takes its weights from a
 local diffusers-layout directory ``pretrained.model=DIR`` (check it first
 with ``python -m adv_grpo_torch.models.convert --src DIR``) and its prompt
 embeddings from ``text_embeds_dir`` (``cli.precompute_embeds``) or from the
-directory's CLIP-L / CLIP-G / T5 encoders (tokenizing needs
-``transformers``); ``pretrained.model=''`` is the full-size model with random
+directory's CLIP-L / CLIP-G / T5 encoders and tokenizers;
+``pretrained.model=''`` is the full-size model with random
 weights, ``smoke_test=True`` the tiny one. flux runs the tiny random-init
 model; a set ``FLUX_DIR`` raises (the Flux loader is not ported yet).
 ``--lora DIR`` (or ``train.lora_path``) merges a peft adapter directory, such

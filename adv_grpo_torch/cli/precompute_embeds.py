@@ -8,8 +8,8 @@ Usage:
 
 Then train or sample with ``--set pretrained.model=DIR --set
 text_embeds_dir=embeds_store``: the trainer reads the memmap store, so CLIP-L,
-CLIP-G and T5-XXL never sit on the card beside the policy. Tokenizing needs
-the ``transformers`` package (the directory's ``tokenizer{,_2,_3}/``).
+CLIP-G and T5-XXL never sit on the card beside the policy. The prompts are
+tokenized by the directory's ``tokenizer{,_2,_3}/`` (``data.tokenizers``).
 """
 
 from __future__ import annotations

@@ -5,9 +5,12 @@ local diffusers-layout SD3 directory (``transformer/``, ``vae/``,
 ``text_encoder{,_2,_3}/``, each a ``config.json`` beside ``*.safetensors``
 shards or ``*.bin`` files) is read by :func:`load_torch_state_dict` and
 mapped by :func:`mmdit_state_dict_from_hf`, :func:`vae_state_dict_from_hf`,
-:func:`clip_text_state_dict_from_hf` and :func:`t5_state_dict_from_hf`, each
-of which must consume every weight of the checkpoint or raises "not
-consumed" (a dropped weight is how a wrong convention slips through).
+:func:`clip_text_state_dict_from_hf` and :func:`t5_state_dict_from_hf`; the
+scorer checkpoints (PickScore's HF ``CLIPModel``, DINOv2 in timm's or HF's
+layout) by :func:`clip_model_state_dict_from_hf` and
+:func:`dinov2_state_dict`. Each must consume every weight of the checkpoint
+or raises "not consumed" (a dropped weight is how a wrong convention slips
+through).
 :func:`load_sd3_pipeline` assembles the pipeline (frozen fp32 weights rounded
 to bf16, LoRA A drawn with numpy as the JAX loader draws it);
 :func:`preflight` and ``python -m adv_grpo_torch.models.convert --src DIR``
@@ -527,13 +530,10 @@ def vae_state_dict_from_hf(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.
     return _take_module(sd, keys, "vae_state_dict_from_hf")
 
 
-def clip_text_state_dict_from_hf(sd: Dict[str, torch.Tensor],
-                                 num_layers: int) -> Dict[str, torch.Tensor]:
-    """An HF ``CLIPTextModelWithProjection`` state dict -> the port's
-    ``CLIPTextEncoder`` state dict (the JAX ``convert_clip_text``'s mapping;
-    the ``position_ids`` buffer older checkpoints carry is consumed and
-    dropped)."""
-    g = _Taken(sd)
+def _clip_text_from_hf(g: _Taken, num_layers: int, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The mapping of the JAX ``convert_clip_text`` over ``g``: HF's CLIP text
+    tower -> ``CLIPTextEncoder`` names under ``prefix`` (the ``position_ids``
+    buffer older checkpoints carry is consumed and dropped)."""
     if g.has("text_model.embeddings.position_ids"):
         g("text_model.embeddings.position_ids")
     out = {"token_embedding.weight": g("text_model.embeddings.token_embedding.weight"),
@@ -549,8 +549,150 @@ def clip_text_state_dict_from_hf(sd: Dict[str, torch.Tensor],
                          ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
             for name in ("weight", "bias"):
                 out[f"layers.{i}.{dst}.{name}"] = g(f"{b}{src}.{name}")
+    return {prefix + k: v for k, v in out.items()}
+
+
+def clip_text_state_dict_from_hf(sd: Dict[str, torch.Tensor],
+                                 num_layers: int) -> Dict[str, torch.Tensor]:
+    """An HF ``CLIPTextModelWithProjection`` state dict -> the port's
+    ``CLIPTextEncoder`` state dict (the JAX ``convert_clip_text``'s mapping)."""
+    g = _Taken(sd)
+    out = _clip_text_from_hf(g, num_layers)
     g.assert_consumed("clip_text_state_dict_from_hf")
     return out
+
+
+_VIT_BLOCK = (("layer_norm1", "norm1"), ("layer_norm2", "norm2"),
+              ("self_attn.q_proj", "q_proj"), ("self_attn.k_proj", "k_proj"),
+              ("self_attn.v_proj", "v_proj"), ("self_attn.out_proj", "out_proj"),
+              ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2"))
+
+
+def _patch_linear(conv: torch.Tensor) -> torch.Tensor:
+    """A patch Conv2d weight (D, 3, p, p) -> the port's ``patch_embed``
+    Linear weight (D, p*p*3), flattened (ph, pw, c) as ``models.vit`` flattens
+    a patch (the JAX ``w.transpose(2, 3, 1, 0).reshape(...)``, transposed)."""
+    return conv.permute(0, 2, 3, 1).reshape(conv.shape[0], -1)
+
+
+def _position_table(table: torch.Tensor, cfg, what: str) -> torch.Tensor:
+    """A (1, N, D) or (N, D) position table as (N, D); N must be
+    ``cfg.num_patches + 1`` (the class token's row first)."""
+    table = table.reshape(-1, table.shape[-1])
+    if table.shape[0] != cfg.num_patches + 1:
+        raise ValueError(
+            f"{what}: the checkpoint's position table has {table.shape[0]} rows, the config "
+            f"needs {cfg.num_patches + 1} ({cfg.image_size}^2 in patches of {cfg.patch_size}, "
+            "plus the class token)")
+    return table
+
+
+def clip_model_state_dict_from_hf(sd: Dict[str, torch.Tensor], text_cfg,
+                                  vision_cfg) -> Dict[str, torch.Tensor]:
+    """An HF ``CLIPModel`` state dict (PickScore's CLIP-H/14) -> the state
+    dict of ``rewards.scorers.CLIPDualEncoder``: the JAX ``convert_clip_model``
+    (``convert_clip_text`` and ``convert_clip_vision``) into the layout
+    ``clip_dual_state_dict_from_jax`` fills. Both towers and ``logit_scale``
+    consume from one view, so a weight left over anywhere raises "not
+    consumed"; both ``position_ids`` buffers are consumed and dropped. The
+    patch Conv2d has no bias: ``patch_embed.bias`` is zeros. ``logit_scale``
+    is a 0-d fp32 tensor."""
+    g = _Taken(sd)
+    out = _clip_text_from_hf(g, text_cfg.num_layers, "text_model.")
+    v = "vision_model."
+    if g.has(v + "embeddings.position_ids"):
+        g(v + "embeddings.position_ids")
+    patch = g(v + "embeddings.patch_embedding.weight")
+    out.update({
+        v + "patch_embed.weight": _patch_linear(patch),
+        v + "patch_embed.bias": torch.zeros(patch.shape[0], dtype=patch.dtype),
+        v + "class_embedding": g(v + "embeddings.class_embedding"),
+        v + "position_embedding": _position_table(
+            g(v + "embeddings.position_embedding.weight"), vision_cfg,
+            "clip_model_state_dict_from_hf"),
+        v + "visual_projection.weight": g("visual_projection.weight"),
+        "logit_scale": g("logit_scale").float().reshape(())})
+    for name in ("weight", "bias"):
+        out[f"{v}pre_layernorm.{name}"] = g(f"{v}pre_layrnorm.{name}")
+        out[f"{v}post_layernorm.{name}"] = g(f"{v}post_layernorm.{name}")
+    for i in range(vision_cfg.num_layers):
+        for src, dst in _VIT_BLOCK:
+            for name in ("weight", "bias"):
+                out[f"{v}layers.{i}.{dst}.{name}"] = g(f"{v}encoder.layers.{i}.{src}.{name}")
+    g.assert_consumed("clip_model_state_dict_from_hf")
+    return out
+
+
+def dinov2_state_dict_from_timm(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
+    """A timm / original DINOv2 state dict (``blocks.{i}``, the fused
+    ``attn.qkv``, ``ls{1,2}.gamma``) -> the state dict of
+    ``models.vit.VisionTransformer`` at ``cfg`` (the JAX ``convert_dinov2``
+    over ``convert_timm_vit``): qkv split in three, ``cls_token`` (1, 1, D)
+    and ``pos_embed`` (1, N, D) reshaped; ``mask_token``, which no forward
+    reads, consumed and dropped. Strict: a weight left over raises."""
+    g = _Taken(sd)
+    if g.has("mask_token"):
+        g("mask_token")
+    out = {"patch_embed.weight": _patch_linear(g("patch_embed.proj.weight")),
+           "patch_embed.bias": g("patch_embed.proj.bias"),
+           "class_embedding": g("cls_token").reshape(-1),
+           "position_embedding": _position_table(g("pos_embed"), cfg,
+                                                 "dinov2_state_dict_from_timm")}
+    for name in ("weight", "bias"):
+        out[f"post_layernorm.{name}"] = g(f"norm.{name}")
+    for i in range(cfg.num_layers):
+        b, d = f"blocks.{i}.", f"layers.{i}."
+        for name in ("weight", "bias"):
+            for part, dst in zip(g(f"{b}attn.qkv.{name}").chunk(3), ("q_proj", "k_proj",
+                                                                       "v_proj")):
+                out[f"{d}{dst}.{name}"] = part
+            for src, dst in (("norm1", "norm1"), ("norm2", "norm2"), ("attn.proj", "out_proj"),
+                             ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
+                out[f"{d}{dst}.{name}"] = g(f"{b}{src}.{name}")
+        out[d + "ls1"] = g(b + "ls1.gamma")
+        out[d + "ls2"] = g(b + "ls2.gamma")
+    g.assert_consumed("dinov2_state_dict_from_timm")
+    return out
+
+
+def dinov2_state_dict_from_hf(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
+    """An HF ``Dinov2Model`` state dict (``encoder.layer.{i}``, separate
+    query / key / value, ``layer_scale{1,2}.lambda1``) -> the state dict of
+    ``models.vit.VisionTransformer`` at ``cfg`` (the JAX
+    ``convert_dinov2_hf``); ``embeddings.mask_token`` consumed and dropped.
+    Strict: a weight left over raises."""
+    g = _Taken(sd)
+    e = "embeddings."
+    if g.has(e + "mask_token"):
+        g(e + "mask_token")
+    out = {"patch_embed.weight": _patch_linear(g(e + "patch_embeddings.projection.weight")),
+           "patch_embed.bias": g(e + "patch_embeddings.projection.bias"),
+           "class_embedding": g(e + "cls_token").reshape(-1),
+           "position_embedding": _position_table(g(e + "position_embeddings"), cfg,
+                                                 "dinov2_state_dict_from_hf")}
+    for name in ("weight", "bias"):
+        out[f"post_layernorm.{name}"] = g(f"layernorm.{name}")
+    for i in range(cfg.num_layers):
+        b, d = f"encoder.layer.{i}.", f"layers.{i}."
+        for src, dst in (("norm1", "norm1"), ("norm2", "norm2"),
+                         ("attention.attention.query", "q_proj"),
+                         ("attention.attention.key", "k_proj"),
+                         ("attention.attention.value", "v_proj"),
+                         ("attention.output.dense", "out_proj"), ("mlp.fc1", "fc1"),
+                         ("mlp.fc2", "fc2")):
+            for name in ("weight", "bias"):
+                out[f"{d}{dst}.{name}"] = g(f"{b}{src}.{name}")
+        out[d + "ls1"] = g(b + "layer_scale1.lambda1")
+        out[d + "ls2"] = g(b + "layer_scale2.lambda1")
+    g.assert_consumed("dinov2_state_dict_from_hf")
+    return out
+
+
+def dinov2_state_dict(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
+    """A DINOv2 checkpoint in either layout, told apart by its keys as the
+    JAX CLI tells them (``encoder.layer.`` means HF's)."""
+    hf = any(k.startswith("encoder.layer.") for k in sd)
+    return (dinov2_state_dict_from_hf if hf else dinov2_state_dict_from_timm)(sd, cfg)
 
 
 _T5_BLOCK = (("0.layer_norm", "ln_attn"), ("0.SelfAttention.q", "q"),

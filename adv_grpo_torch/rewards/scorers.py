@@ -119,6 +119,16 @@ class PickScoreScorer:
         clip = clip.to_empty(device=device).eval().init_params_(generator)
         return cls(clip, image_size)
 
+    @classmethod
+    def from_state_dict(cls, state_dict, device, text_cfg, vision_cfg,
+                        image_size: int = 224) -> "PickScoreScorer":
+        """The towers at ``text_cfg`` / ``vision_cfg`` with the weights of
+        ``state_dict`` (a ``CLIPDualEncoder`` state dict, e.g. from
+        ``models.convert.clip_model_state_dict_from_hf``), on ``device``."""
+        clip = CLIPDualEncoder(text_cfg, vision_cfg, device="meta").to_empty(device=device)
+        clip.load_state_dict(state_dict)
+        return cls(clip.eval(), image_size)
+
     def features(self, images, input_ids, tail=None):
         """(image, text) L2-normalised features of ``images`` (B, 3, H, W) in
         [-1, 1] (numpy or torch) and ``input_ids`` (B, S)."""
@@ -174,6 +184,15 @@ class DINOScorer:
         vision = VisionTransformer(cfg, device="meta").to_empty(device=device)
         return cls(random_init_(vision, generator, cfg.layer_scale_init), image_size,
                    head_hidden)
+
+    @classmethod
+    def from_state_dict(cls, state_dict, device, vision_cfg, image_size: int = 518,
+                        head_hidden: int = 512) -> "DINOScorer":
+        """The backbone at ``vision_cfg`` with the weights of ``state_dict``
+        (e.g. from ``models.convert.dinov2_state_dict``), on ``device``."""
+        vision = VisionTransformer(vision_cfg, device="meta").to_empty(device=device)
+        vision.load_state_dict(state_dict)
+        return cls(vision, image_size, head_hidden)
 
     def init_head(self, generator: torch.Generator) -> DINOHead:
         head = DINOHead(self.vision_cfg.hidden_size, self.head_hidden, device="meta")

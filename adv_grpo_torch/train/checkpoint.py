@@ -121,8 +121,8 @@ def refuse_msgpack(path: str) -> None:
     if str(path).endswith(".msgpack"):
         raise NotImplementedError(
             f"weight_path={path!r}: a flax .msgpack from cli/finetune_pickscore.py is not "
-            "readable here; porting that CLI (ROADMAP Queue 1 item 7) brings it. A "
-            "checkpoint directory of this package works")
+            "readable here; porting that CLI (ROADMAP Queue 1, \"Eval and tooling\") brings "
+            "it. A checkpoint directory of this package works")
 
 
 def save_lora_only(save_dir: str, global_step: int, lora_flat: dict,

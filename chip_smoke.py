@@ -89,21 +89,27 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      fusion's weights moved, the backbone did not, 'dino_multi_cotrain' in
      (0, 1)); DINO scoring ms per batch, D-step ms per sampling batch
      (single and multi), s per epoch on each branch, peak device memory.
-     Then, in the same group, the SD3 checkpoint loaders
+     Then, in the same group, the checkpoint loaders and tokenizers
      (``run_loader_slice``): a full-width SD3.5-M diffusers directory
      written from the seed (transformer bf16 with its 384^2 table, VAE
      fp32, CLIP-L and CLIP-G fp16, T5-XXL fp16 at full width cut to
-     LOADER_T5_LAYERS of 24 layers, two shards and an index);
-     ``preflight``'s parameter counts against the configs' on the meta
-     device; ``load_sd3_pipeline(dir, lora_rank=32)``: every frozen tensor,
-     the VAE and the LoRA A draws bitwise; a 2-layer full-width T5-XXL and
-     CLIP-G against the CPU in fp32; the encode of ENCODE_BATCH prompts
-     timed (the directory's encoders, and a 24-layer T5-XXL from the seed);
-     ``write_store`` through that encode; ``cli.infer.main`` at
-     ``eval_sd3_fast`` and one epoch of ``cli.train.main`` on TRAIN_ARGV
-     from the directory and the store (launches of #1-#3 and #1-#5 as
-     derived, the LoRA and EMA moved); bytes written, write / preflight /
-     load seconds, peak device and host memory.
+     LOADER_T5_LAYERS of 24 layers, two shards and an index; its three
+     tokenizers at the published id spaces); ``preflight``'s parameter
+     counts against the configs' on the meta device;
+     ``load_sd3_pipeline(dir, lora_rank=32)``: every frozen tensor, the VAE
+     and the LoRA A draws bitwise; PickScore CLIP-H/14 and DINOv2-B/14
+     (timm and HF layouts) checkpoints from the seed, loaded through
+     ``build_reward_context`` bitwise; a 2-layer full-width T5-XXL and
+     CLIP-G against the CPU in fp32; each tokenizer's host ms and the
+     encode of ENCODE_BATCH prompts timed (the directory's encoders and
+     tokenizers, and a 24-layer T5-XXL from the seed);
+     ``cli.precompute_embeds``; ``cli.infer.main`` at ``eval_sd3_fast``
+     and one epoch of ``cli.train.main`` each on TRAIN_ARGV, COTRAIN_ARGV
+     (``PICKSCORE_DIR``) and DINO_ARGV (both scorer directories) from the
+     directory and the store (launches of #1-#3 and #1-#5 as derived, the
+     live tail and its frozen copy bitwise the file's); no RANDOM-INIT
+     warning and no tokenizer package loaded; bytes written, write /
+     preflight / load seconds, epoch seconds, peak device and host memory.
  11. the Flux kernels against their plain versions at the Flux.1-dev 512^2
      shapes: the per-head RMS norm (d = 128, and one head across a 5120-wide
      row), the BSHD attention (B = 1 and 4, and 4608 tokens with kv_len
@@ -1770,6 +1776,259 @@ def hf_t5_state_dict(sd):
     return out
 
 
+HF_VIT_LAYER = {"norm1": "layer_norm1", "norm2": "layer_norm2", **HF_CLIP_LAYER}
+
+
+def hf_clip_model_state_dict(sd):
+    """The port's CLIPDualEncoder state dict in HF CLIPModel names (the
+    PickScore checkpoint's layout), with the ``position_ids`` buffers older
+    checkpoints carry; the patch Linear back to the bias-free Conv2d
+    (D, 3, p, p)."""
+    import torch
+
+    out = hf_clip_state_dict({k[len("text_model."):]: v for k, v in sd.items()
+                              if k.startswith("text_model.")})
+    out["text_model.embeddings.position_ids"] = torch.arange(
+        sd["text_model.position_embedding"].shape[0])[None]
+    v = "vision_model."
+    patch = sd[v + "patch_embed.weight"]
+    p = int(round((patch.shape[1] // 3) ** 0.5))
+    out.update({
+        v + "embeddings.patch_embedding.weight": patch.reshape(-1, p, p, 3).permute(0, 3, 1, 2)
+        .contiguous(),
+        v + "embeddings.class_embedding": sd[v + "class_embedding"],
+        v + "embeddings.position_embedding.weight": sd[v + "position_embedding"],
+        v + "embeddings.position_ids": torch.arange(sd[v + "position_embedding"].shape[0])[None],
+        "visual_projection.weight": sd[v + "visual_projection.weight"],
+        "logit_scale": sd["logit_scale"]})
+    for k, t in sd.items():
+        if k.startswith(v + "layers."):
+            i, module, leaf = k[len(v + "layers."):].split(".")
+            out[f"{v}encoder.layers.{i}.{HF_VIT_LAYER[module]}.{leaf}"] = t
+        elif k.startswith((v + "pre_layernorm.", v + "post_layernorm.")):
+            out[k.replace("pre_layernorm", "pre_layrnorm")] = t
+    return out
+
+
+def hf_dinov2_state_dict(sd, layout):
+    """The port's DINOv2 VisionTransformer state dict in timm / original
+    checkpoint names (``layout="timm"``: fused ``attn.qkv``,
+    ``ls{1,2}.gamma``, ``mask_token`` (1, D)) or HF ``Dinov2Model`` names
+    (``"hf"``: ``embeddings.mask_token``); the mask token is zeros, as no
+    forward reads it; the patch Linear back to the Conv2d."""
+    import torch
+
+    patch = sd["patch_embed.weight"]
+    p = int(round((patch.shape[1] // 3) ** 0.5))
+    conv = patch.reshape(-1, p, p, 3).permute(0, 3, 1, 2).contiguous()
+    d = conv.shape[0]
+    timm = layout == "timm"
+    e = "" if timm else "embeddings."
+    out = {e + "cls_token": sd["class_embedding"].reshape(1, 1, d),
+           e + ("pos_embed" if timm else "position_embeddings"):
+               sd["position_embedding"].reshape(1, -1, d),
+           e + "mask_token": torch.zeros(1, d, dtype=conv.dtype, device=conv.device),
+           ("patch_embed.proj." if timm else e + "patch_embeddings.projection.") + "weight": conv,
+           ("patch_embed.proj." if timm else e + "patch_embeddings.projection.") + "bias":
+               sd["patch_embed.bias"],
+           ("norm." if timm else "layernorm.") + "weight": sd["post_layernorm.weight"],
+           ("norm." if timm else "layernorm.") + "bias": sd["post_layernorm.bias"]}
+    names = {"norm1": "norm1", "norm2": "norm2", "fc1": "mlp.fc1", "fc2": "mlp.fc2",
+             "out_proj": "attn.proj" if timm else "attention.output.dense",
+             "q_proj": "attention.attention.query", "k_proj": "attention.attention.key",
+             "v_proj": "attention.attention.value"}
+    for i in range(sum(k.endswith(".ls1") for k in sd)):
+        s, b = f"layers.{i}.", f"blocks.{i}." if timm else f"encoder.layer.{i}."
+        for leaf in ("weight", "bias"):
+            for m, hf in names.items():
+                if not (timm and m in ("q_proj", "k_proj", "v_proj")):
+                    out[f"{b}{hf}.{leaf}"] = sd[f"{s}{m}.{leaf}"]
+            if timm:
+                out[f"{b}attn.qkv.{leaf}"] = torch.cat([sd[f"{s}{m}.{leaf}"] for m in (
+                    "q_proj", "k_proj", "v_proj")])
+        out[b + ("ls1.gamma" if timm else "layer_scale1.lambda1")] = sd[s + "ls1"]
+        out[b + ("ls2.gamma" if timm else "layer_scale2.lambda1")] = sd[s + "ls2"]
+    return out
+
+
+def precompiled_charsmap(mappings):
+    """A SentencePiece ``precompiled_charsmap`` for {key: replacement}: the
+    uint32 byte size of a darts-clone double array over the keys' UTF-8
+    bytes (each node's children at ``base ^ byte``, a distinct base per node,
+    a leaf's value, its replacement's offset, at ``base ^ 0`` with bit 31
+    set), the array, then the replacements, each ended by NUL."""
+    import struct
+
+    keys = sorted(mappings, key=lambda k: k.encode("utf-8"))
+    blob, root = b"", {}
+    for k in keys:
+        node = root
+        for b in k.encode("utf-8"):
+            node = node.setdefault(b, {})
+        node[None] = len(blob)
+        blob += mappings[k].encode("utf-8") + b"\0"
+    units, bases, used = {}, set(), {0}
+    stack = [(root, 0)]
+    while stack:
+        node, pos = stack.pop()
+        labels = sorted(b for b in node if b is not None)
+        need = labels + ([0] if None in node else [])
+        base = 1
+        while base in bases or any(base ^ b in used for b in need):
+            base += 1
+        bases.add(base)
+        used.update(base ^ b for b in need)
+        units[pos] = units.get(pos, 0) | ((pos ^ base) << 10) | ((None in node) << 8)
+        if None in node:
+            units[base] = (1 << 31) | node[None]
+        for b in labels:
+            units[base ^ b] = b
+            stack.append((node[b], base ^ b))
+    size = max(b | 0xFF for b in bases) + 1
+    return struct.pack(f"<I{size}I", 4 * size, *(units.get(i, 0) for i in range(size))) + blob
+
+
+# a charsmap in the manner of T5's (nmt_nfkc): full-width ASCII, ligatures,
+# the no-break space, whitespace controls to a space, other C0 controls dropped
+T5_CHARSMAP = {**{chr(0xFF01 + i): chr(0x21 + i) for i in range(94)},
+               "ﬀ": "ff", "ﬁ": "fi", "ﬂ": "fl", "ﬃ": "ffi", "ﬄ": "ffl", "\xa0": " ",
+               "\t": " ", "\n": " ", "\r": " ",
+               **{chr(c): "" for c in range(1, 32) if chr(c) not in "\t\n\r"}}
+
+
+def clip_vocab(words, n_merges):
+    """A CLIP byte-pair vocabulary in the published layout: the 256 byte
+    symbols, their 256 ``</w>`` forms, one token per merge, then
+    ``<|startoftext|>`` and ``<|endoftext|>``. The merges build ``words``
+    (byte-encoded) left to right, in the order given, then pair byte symbols
+    as filler, up to ``n_merges``. Returns (vocab, merges)."""
+    from adv_grpo_torch.data.tokenizers import _bytes_to_unicode
+
+    syms = list(_bytes_to_unicode().values())
+    vocab = {s: i for i, s in enumerate(syms + [s + "</w>" for s in syms])}
+    merges, seen = [], set()
+
+    def add(a, b):
+        if len(merges) < n_merges and (a, b) not in seen and a + b not in vocab:
+            seen.add((a, b))
+            merges.append((a, b))
+            vocab[a + b] = len(vocab)
+
+    enc = _bytes_to_unicode()
+    for w in words:
+        parts = [enc[b] for b in w.encode("utf-8")]
+        parts[-1] += "</w>"
+        cur = parts[0]
+        for p in parts[1:]:
+            add(cur, p)
+            cur += p
+    for a in syms:
+        for b in syms + [s + "</w>" for s in syms]:
+            add(a, b)
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = len(vocab), len(vocab) + 1
+    return vocab, merges
+
+
+def write_clip_tokenizer(d, vocab, merges, pad_token):
+    """A CLIP tokenizer directory as SD3's ``tokenizer/`` (pad
+    ``<|endoftext|>``) or ``tokenizer_2/`` (pad ``!``, itself an added
+    token) holds it: ``vocab.json``, ``merges.txt`` under its ``#version``
+    line, ``tokenizer_config.json`` and ``special_tokens_map.json``."""
+    def added(content, normalized):
+        return {"content": content, "lstrip": False, "normalized": normalized,
+                "rstrip": False, "single_word": False, "special": True}
+
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(d, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    decoder = {str(vocab["<|startoftext|>"]): added("<|startoftext|>", True),
+               str(vocab["<|endoftext|>"]): added("<|endoftext|>", False)}
+    if pad_token != "<|endoftext|>":
+        decoder[str(vocab[pad_token])] = added(pad_token, False)
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        json.dump({"add_prefix_space": False, "added_tokens_decoder": decoder,
+                   "bos_token": "<|startoftext|>", "clean_up_tokenization_spaces": True,
+                   "do_lower_case": True, "eos_token": "<|endoftext|>", "errors": "replace",
+                   "model_max_length": 77, "pad_token": pad_token,
+                   "tokenizer_class": "CLIPTokenizer", "unk_token": "<|endoftext|>"}, f)
+    with open(os.path.join(d, "special_tokens_map.json"), "w") as f:
+        json.dump({"bos_token": "<|startoftext|>", "eos_token": "<|endoftext|>",
+                   "pad_token": pad_token, "unk_token": "<|endoftext|>"}, f)
+
+
+def t5_pieces(words, size):
+    """A T5 unigram vocabulary of ``size`` pieces in the published layout:
+    ``<pad>`` 0, ``</s>`` 1, ``<unk>`` 2, then ``▁word`` for ``words``
+    (scored by rank), the single characters of the words, filler pieces,
+    and last the 100 ``<extra_id_N>``, N falling. Returns [[piece, score]]."""
+    pieces = [["<pad>", 0.0], ["</s>", 0.0], ["<unk>", 0.0]]
+    have = {p for p, _ in pieces}
+
+    def add(piece, score):
+        if piece not in have and len(pieces) < size - 100:
+            have.add(piece)
+            pieces.append([piece, score])
+
+    add("▁", -2.0)
+    for r, w in enumerate(words):
+        add("▁" + w, -3.0 - r * 1e-3)
+    for ch in sorted({c for w in words for c in w}):
+        add(ch, -12.0)
+        add("▁" + ch, -11.0)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    for lead in ("", "▁"):
+        for a in letters:
+            for b in letters:
+                for c in letters:
+                    add(lead + a + b + c, -14.0 - len(pieces) * 1e-6)
+    return pieces + [[f"<extra_id_{i}>", 0.0] for i in range(99, -1, -1)]
+
+
+def write_t5_tokenizer(d, pieces, charsmap):
+    """A T5 ``tokenizer_3/`` directory in the published layout:
+    ``tokenizer.json`` (the special and the 100 extra ids as added tokens; a
+    ``Precompiled`` normaliser over ``charsmap`` and the collapse of space
+    runs; ``WhitespaceSplit`` then ``Metaspace``; the Unigram model with
+    ``<unk>`` 2; the ``$A </s>`` template) and ``tokenizer_config.json``."""
+    import base64
+
+    os.makedirs(d, exist_ok=True)
+    special = {p for p, _ in pieces if p in ("<pad>", "</s>", "<unk>") or p.startswith("<extra_id_")}
+    metaspace = {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
+                 "split": True}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": p, "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False, "special": True}
+                         for i, (p, _) in enumerate(pieces) if p in special],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Precompiled", "precompiled_charsmap": base64.b64encode(
+                precompiled_charsmap(charsmap)).decode()},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "WhitespaceSplit"}, metaspace]},
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "pair": [{"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "</s>", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 0}},
+                     {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "special_tokens": {"</s>": {"id": "</s>", "ids": [1], "tokens": ["</s>"]}}},
+        "decoder": metaspace,
+        "model": {"type": "Unigram", "unk_id": 2, "vocab": pieces, "byte_fallback": False}}
+    with open(os.path.join(d, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    extra = [p for p, _ in pieces if p.startswith("<extra_id_")]
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        json.dump({"eos_token": "</s>", "pad_token": "<pad>", "unk_token": "<unk>",
+                   "extra_ids": len(extra), "additional_special_tokens": extra[::-1],
+                   "model_max_length": 512, "tokenizer_class": "T5Tokenizer"}, f)
+
+
 def _base_scaled_table(dim, max_size, base, device):
     """diffusers' persisted PatchEmbed table (get_2d_sincos_pos_embed: positions
     scaled by base / max_size; the column half first), (1, max_size^2, dim)
@@ -1869,33 +2128,100 @@ def _write_sd3_dir(root, generator, mcfg, vcfg, clip_cfgs, t5cfg, device="cuda")
         "vocab_size": tcfg.vocab_size, "feed_forward_proj": "gated-gelu",
         "relative_attention_num_buckets": 32, "relative_attention_max_distance": 128,
         "torch_dtype": "float16"}, shards=2)
+    _write_sd3_tokenizers(root)
     return written
 
 
-def _word_tokenizers(t5_len):
-    """Three tokenize callables that need no vocabulary file (the card's
-    machine has no ``transformers``): each word's crc32 picks an id. CLIP:
-    start 49406, up to 75 words, end and padding 49407, 77 ids; T5: up to
-    t5_len - 1 words, end 1, padding 0."""
-    import zlib
+def _by_count(words):
+    import collections
 
-    import numpy as np
+    return [w for w, _ in sorted(collections.Counter(words).items(),
+                                 key=lambda kv: (-kv[1], kv[0]))]
 
-    def clip(prompts):
-        out = np.full((len(prompts), 77), 49407, np.int64)
-        for r, p in enumerate(prompts):
-            ids = [zlib.crc32(w.encode()) % 49000 + 1 for w in p.split()][:75]
-            out[r, :len(ids) + 1] = [49406] + ids
-        return out
 
-    def t5(prompts):
-        out = np.zeros((len(prompts), t5_len), np.int64)
-        for r, p in enumerate(prompts):
-            ids = [zlib.crc32(w.encode()) % 32000 + 2 for w in p.split()][:t5_len - 1]
-            out[r, :len(ids) + 1] = ids + [1]
-        return out
+def _write_sd3_tokenizers(root):
+    """SD3's three tokenizers at the published id spaces, from the words of
+    ``dataset/pickscore_small``'s prompts, most frequent first: CLIP's 49,408
+    ids (``clip_vocab``: the 48,894 merges build the words, then filler
+    pairs) in ``tokenizer/`` (pad ``<|endoftext|>``) and ``tokenizer_2/``
+    (pad ``!``); T5's 32,100 pieces (``t5_pieces``, ``T5_CHARSMAP``) in
+    ``tokenizer_3/``."""
+    from adv_grpo_torch.data.datasets import TextPromptDataset
+    from adv_grpo_torch.data.tokenizers import clip_clean, clip_words
 
-    return clip, clip, t5
+    prompts = (TextPromptDataset("dataset/pickscore_small").prompts
+               + TextPromptDataset("dataset/pickscore_small", "test").prompts)
+    vocab, merges = clip_vocab(_by_count(w for p in prompts for w in clip_words(clip_clean(p))),
+                               48894)
+    write_clip_tokenizer(os.path.join(root, "tokenizer"), vocab, merges, "<|endoftext|>")
+    write_clip_tokenizer(os.path.join(root, "tokenizer_2"), vocab, merges, "!")
+    write_t5_tokenizer(os.path.join(root, "tokenizer_3"),
+                       t5_pieces(_by_count(w for p in prompts for w in p.split()), 32100),
+                       T5_CHARSMAP)
+
+
+def _write_scorer_dirs(work, generator):
+    """The scorer checkpoints, random from ``generator`` on the card (the
+    port's initialiser; DINOv2's LayerScale 0.1): PickScore CLIP-H/14 in HF
+    ``CLIPModel`` names, fp32, with its ``position_ids`` buffers and a
+    ``config.json``; DINOv2-B/14 at 518^2 in timm names with ``mask_token``
+    and in HF ``Dinov2Model`` names with ``embeddings.mask_token``. Returns
+    ({name: directory}, {name: the port's state dict as drawn, on the
+    card})."""
+    import torch
+
+    from adv_grpo_torch.models.clip_text import CLIPTextConfig
+    from adv_grpo_torch.models.vit import ViTConfig, VisionTransformer
+    from adv_grpo_torch.rewards.scorers import CLIPDualEncoder, random_init_
+    from adv_grpo_torch.utils import safetensors_io
+
+    tcfg, vcfg, dcfg = CLIPTextConfig.clip_h_text(), ViTConfig.clip_h(), ViTConfig.dinov2_base()
+    clip = CLIPDualEncoder(tcfg, vcfg, device="meta").to_empty(device="cuda")
+    vit = VisionTransformer(dcfg, device="meta").to_empty(device="cuda")
+    drawn = {"pickscore": {k: v.detach() for k, v in
+                           random_init_(clip, generator).state_dict().items()},
+             "dinov2": {k: v.detach() for k, v in
+                        random_init_(vit, generator, 0.1).state_dict().items()}}
+    if drawn["pickscore"]["vision_model.patch_embed.bias"].any():
+        raise AssertionError("CLIP's patch conv has no bias: the drawn bias must be zero")
+    clip_json = {
+        "architectures": ["CLIPModel"], "projection_dim": tcfg.projection_dim,
+        "text_config": {"hidden_size": tcfg.hidden_size, "intermediate_size":
+                        tcfg.intermediate_size, "num_hidden_layers": tcfg.num_layers,
+                        "num_attention_heads": tcfg.num_heads, "hidden_act": tcfg.hidden_act,
+                        "max_position_embeddings": tcfg.max_position_embeddings,
+                        "vocab_size": tcfg.vocab_size},
+        "vision_config": {"hidden_size": vcfg.hidden_size, "intermediate_size":
+                          vcfg.intermediate_size, "num_hidden_layers": vcfg.num_layers,
+                          "num_attention_heads": vcfg.num_heads, "image_size": vcfg.image_size,
+                          "patch_size": vcfg.patch_size, "hidden_act": vcfg.hidden_act}}
+    dino_json = {"architectures": ["Dinov2Model"], "hidden_size": dcfg.hidden_size,
+                 "num_hidden_layers": dcfg.num_layers, "num_attention_heads": dcfg.num_heads,
+                 "mlp_ratio": dcfg.intermediate_size // dcfg.hidden_size,
+                 "image_size": dcfg.image_size, "patch_size": dcfg.patch_size,
+                 "layer_norm_eps": dcfg.layer_norm_eps}
+    dirs = {}
+    for name, sd, config in (
+            ("pickscore", hf_clip_model_state_dict(drawn["pickscore"]), clip_json),
+            ("dinov2_timm", hf_dinov2_state_dict(drawn["dinov2"], "timm"), None),
+            ("dinov2_hf", hf_dinov2_state_dict(drawn["dinov2"], "hf"), dino_json)):
+        dirs[name] = os.path.join(work, name)
+        os.makedirs(dirs[name])
+        safetensors_io.save_file(sd, os.path.join(dirs[name], "model.safetensors"))
+        if config is not None:
+            with open(os.path.join(dirs[name], "config.json"), "w") as f:
+                json.dump(config, f)
+    del clip, vit
+    torch.cuda.empty_cache()
+    return dirs, drawn
+
+
+def _bitwise_differ(got, want):
+    """The names whose tensors differ bitwise, or are missing on either side."""
+    import torch
+
+    return sorted(set(got) ^ set(want)) + [k for k in want if k in got and not torch.equal(
+        got[k].to(want[k].device), want[k])]
 
 
 def _t5_weights_at_scale_(t5, generator):
@@ -1987,36 +2313,46 @@ def _check_encoders_on_card(smi):
 
 
 def run_loader_slice(kernels, smi):
-    """Phase: the SD3 checkpoint loaders at full width. Writes a full-width
-    SD3.5-M diffusers directory from the seed (``_write_sd3_dir``); checks
-    ``preflight``'s parameter counts against the configs' on the meta device
-    and ``load_sd3_pipeline(dir, lora_rank=32)`` on the card: every frozen
-    tensor bitwise the file's, ``lora_a`` bitwise the numpy draws of
-    ``sd3_lora_init``, ``lora_b`` zero, the VAE (encoder too) bitwise. Then
-    the encoders: a 2-layer full-width T5-XXL and CLIP-G against the CPU
-    (``_check_encoders_on_card``); the directory's CLIP-L / CLIP-G / 4-layer
-    T5 through ``cli.common.load_real_text_encoder`` with injected
-    tokenizers, and the encode of ENCODE_BATCH prompts timed with them and
-    with a full-depth (24-layer) T5-XXL built from the seed; ``write_store``
-    of the dataset's prompts through that encode, its first batch's rows
-    bitwise a direct encode's at fp16. Then ``cli.infer.main`` at
-    ``eval_sd3_fast`` from the directory and the store (launches of #1-#3 as
-    derived, a non-constant 512^2 PNG, s/image) and ``cli.train.main`` on
-    TRAIN_ARGV for one epoch from both (launches of #1-#5 as
-    ``expected_train_counts`` derives them, finite metrics, the LoRA and its
-    EMA moved from the loaded adapter). Prints bytes written, the write,
-    preflight and load seconds, the encode ms, and the peak host and device
-    memory."""
+    """Phase: the checkpoint loaders and tokenizers at full width, and the
+    paper's co-trained runs started from files. Writes a full-width SD3.5-M
+    diffusers directory from the seed (``_write_sd3_dir``, its tokenizers at
+    the published id spaces too); checks ``preflight``'s parameter counts
+    against the configs' on the meta device and ``load_sd3_pipeline(dir,
+    lora_rank=32)`` on the card: every frozen tensor bitwise the file's,
+    ``lora_a`` bitwise the numpy draws of ``sd3_lora_init``, ``lora_b``
+    zero, the VAE (encoder too) bitwise. Writes the scorer checkpoints
+    (``_write_scorer_dirs``) and loads each through ``build_reward_context``
+    with ``PICKSCORE_DIR`` / ``DINOV2_DIR`` set: every tensor bitwise the
+    drawn one. Then the encoders: a 2-layer full-width T5-XXL and CLIP-G
+    against the CPU (``_check_encoders_on_card``); the host ms of the
+    directory's three tokenizers over ENCODE_BATCH prompts; its CLIP-L /
+    CLIP-G / 4-layer T5 through ``cli.common.load_real_text_encoder`` with
+    its own tokenizers, the encode of ENCODE_BATCH prompts timed with them
+    and with a full-depth (24-layer) T5-XXL built from the seed;
+    ``cli.precompute_embeds`` of the dataset's train split from the
+    directory, its first batch's rows bitwise a direct encode's at fp16. Then from the directory
+    and the store: ``cli.infer.main`` at ``eval_sd3_fast`` (launches of
+    #1-#3 as derived, a non-constant 512^2 PNG, s/image);
+    ``cli.train.main`` for one epoch on TRAIN_ARGV, on COTRAIN_ARGV with
+    ``PICKSCORE_DIR`` (the live tail and its frozen copy bitwise the file's
+    last layer before the first D-step) and on DINO_ARGV with both scorer
+    directories: launches of #1-#5 as ``expected_train_counts`` derives them
+    from the branches taken, finite metrics (TRAIN_ARGV: the LoRA and its
+    EMA moved from the loaded adapter). A RANDOM-INIT warning is an error
+    in the phase, and no tokenizer package may be loaded after it. Prints
+    bytes written, the write, preflight and load seconds, the tokenize and
+    encode ms, each epoch's seconds, and the peak host and device memory."""
     import gc
     import resource
+    import warnings
 
     import numpy as np
     import torch
     from PIL import Image
 
-    from adv_grpo_torch.cli import common, infer, train
+    from adv_grpo_torch.cli import common, infer, precompute_embeds, train
     from adv_grpo_torch.data.datasets import TextPromptDataset
-    from adv_grpo_torch.data.embed_store import EmbeddingStore, write_store
+    from adv_grpo_torch.data.embed_store import EmbeddingStore
     from adv_grpo_torch.models import convert
     from adv_grpo_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
     from adv_grpo_torch.models.lora import init_params_, jax_lora_path
@@ -2029,7 +2365,9 @@ def run_loader_slice(kernels, smi):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     phase_t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as work:
+    env = {k: os.environ.get(k) for k in ("PICKSCORE_DIR", "DINOV2_DIR")}
+    with tempfile.TemporaryDirectory() as work, warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*RANDOM-INIT")
         root = os.path.join(work, "sd3")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2040,7 +2378,8 @@ def run_loader_slice(kernels, smi):
                                  mcfg, vcfg, clip_cfgs, t5cfg)
         torch.cuda.synchronize()
         write_s = time.perf_counter() - t0
-        sizes = {sub: _dir_bytes(os.path.join(root, sub)) for sub in written}
+        sizes = {sub: _dir_bytes(os.path.join(root, sub))
+                 for sub in list(written) + ["tokenizer", "tokenizer_2", "tokenizer_3"]}
         print(f"wrote a full-width SD3.5-M diffusers directory ({LOADER_T5_LAYERS}-layer T5-XXL) "
               f"in {write_s:.2f} s: {sum(sizes.values()):,} B ("
               + ", ".join(f"{k} {v:,}" for k, v in sizes.items()) + f"); {smi}", flush=True)
@@ -2088,20 +2427,69 @@ def run_loader_slice(kernels, smi):
         gc.collect()
         torch.cuda.empty_cache()
 
+        # the scorer checkpoints, written from the seed and loaded from their files
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dirs, drawn = _write_scorer_dirs(work, torch.Generator(device="cuda").manual_seed(
+            SEED + 9))
+        torch.cuda.synchronize()
+        scorer_write_s = time.perf_counter() - t0
+        ps_config = common.apply_overrides(common.resolve_config("pickscore_cotrain_sd3_fast"),
+                                           ["smoke_test=False", f"pretrained.model={root}"])
+        loads = {}
+        for name, env_name, reward in (("pickscore", "PICKSCORE_DIR", "pickscore"),
+                                       ("dinov2_timm", "DINOV2_DIR", "image_similarity"),
+                                       ("dinov2_hf", "DINOV2_DIR", "image_similarity")):
+            os.environ[env_name] = dirs[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ctx = common.build_reward_context(ps_config, {reward}, device="cuda")
+            torch.cuda.synchronize()
+            loaded = (ctx.pickscore.clip if name == "pickscore" else ctx.dino.vision).state_dict()
+            bad = _bitwise_differ(loaded, drawn[name.split("_")[0]])
+            loads[name] = (time.perf_counter() - t0, len(loaded), len(bad))
+            if bad:
+                raise AssertionError(f"{name} loaded from {dirs[name]}: {bad[:4]} differ")
+            del ctx, loaded
+            gc.collect()
+            torch.cuda.empty_cache()
+        # the file's last tune_layer vision layers: the live tail's start
+        n_layers = 1 + max(int(k.split(".")[2]) for k in drawn["pickscore"]
+                                              if k.startswith("vision_model.layers."))
+        first = range(n_layers)[int(ps_config.tune_layer):][0]
+        tail_start = {f"{int(k.split('.')[2]) - first}.{k.split('.', 3)[3]}": v
+                      for k, v in drawn["pickscore"].items()
+                      if k.startswith("vision_model.layers.") and int(k.split(".")[2]) >= first}
+        del drawn
+        scorer_bytes = {k: _dir_bytes(v) for k, v in dirs.items()}
+        print(f"scorer checkpoints written in {scorer_write_s:.2f} s: "
+              + ", ".join(f"{k} {v:,} B" for k, v in scorer_bytes.items())
+              + "; loaded through build_reward_context: " + ", ".join(
+                  f"{k} {s:.2f} s ({n} tensors, {d} differ bitwise)"
+                  for k, (s, n, d) in loads.items()) + f"; {smi}", flush=True)
+
         enc_rows = _check_encoders_on_card(smi)
         config = common.apply_overrides(common.resolve_config("smoke_sd3_fast"),
                                         [f"pretrained.model={root}"])
         holder = type("Pipeline", (), {"text_seq_len": 154, "device": torch.device("cuda")})()
-        tokenizers = _word_tokenizers(154 - 77)
+        # the store holds the train split, which every run of the phase samples
+        uniq = list(dict.fromkeys([""] + TextPromptDataset("dataset/pickscore_small").prompts))
+        batch = uniq[1:ENCODE_BATCH + 1]
+        tok_ms = {}
+        for name, tok in zip(("tokenizer/", "tokenizer_2/", "tokenizer_3/"),
+                             common.sd3_tokenizers(root, 77)):
+            t0 = time.perf_counter()
+            first_ids = tok(batch)  # a fresh tokenizer: nothing cached
+            cold = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            for _ in range(3):
+                tok(batch)
+            tok_ms[name] = (cold, (time.perf_counter() - t0) / 3 * 1e3, first_ids.shape)
         t0 = time.perf_counter()
-        encode = common.load_real_text_encoder(config, holder, tokenizers=tokenizers)
+        encode = common.load_real_text_encoder(config, holder)
         enc_load_s = time.perf_counter() - t0
-        prompts = [""] + TextPromptDataset("dataset/pickscore_small").prompts
-        test = TextPromptDataset("dataset/pickscore_small", "test").prompts
-        prompts += test[:int(config.sample.test_batch_size)] + ["a flower"]
 
         def encode_ms(fn):
-            batch = prompts[1:ENCODE_BATCH + 1]
             fn(batch)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2113,31 +2501,40 @@ def run_loader_slice(kernels, smi):
         if e.shape != (ENCODE_BATCH, 154, 4096) or p.shape != (ENCODE_BATCH, 2048) or \
                 not (np.isfinite(e).all() and np.isfinite(p).all()):
             raise AssertionError(f"encode: {e.shape}, {p.shape}")
-        store = os.path.join(work, "store")
-        t0 = time.perf_counter()
-        write_store(store, prompts, encode, batch_size=ENCODE_BATCH)
-        store_s = time.perf_counter() - t0
-        uniq = list(dict.fromkeys(prompts))
-        direct_e, direct_p = encode(uniq[:ENCODE_BATCH])
-        se, sp = EmbeddingStore(store)(uniq[:ENCODE_BATCH])
-        same = (np.array_equal(se, direct_e.astype(np.float16).astype(np.float32))
-                and np.array_equal(sp, direct_p.astype(np.float16).astype(np.float32)))
         # the full-depth T5-XXL, built from the seed beside the directory's CLIPs
         clip_l, clip_g, _ = common.load_sd3_text_encoders(root, "cuda")
         t5 = init_params_(_build(T5Encoder, T5Config(), "cuda"),
                           torch.Generator(device="cuda").manual_seed(SEED + 8))
-        ms_full, e24, _ = encode_ms(common.make_sd3_encode((clip_l, clip_g, t5), tokenizers,
-                                                           "cuda"))
-        print(f"text encoders (CLIP-L, CLIP-G fp32; T5-XXL bf16) loaded in {enc_load_s:.2f} s; "
-              f"encode of {ENCODE_BATCH} prompts (77 + 77 tokens, host tokenizing included): "
-              f"{ms_dir:.1f} ms with the directory's {LOADER_T5_LAYERS}-layer T5, {ms_full:.1f} "
-              f"ms with a full-depth 24-layer T5-XXL (finite {bool(np.isfinite(e24).all())}); "
-              f"write_store of {len(uniq)} prompts in {store_s:.2f} s, its first batch's rows "
-              f"bitwise a direct encode's at fp16: {same}; {smi}", flush=True)
+        ms_full, e24, _ = encode_ms(common.make_sd3_encode(
+            (clip_l, clip_g, t5), common.sd3_tokenizers(root, 77), "cuda"))
+        del clip_l, clip_g, t5
+        gc.collect()
+        torch.cuda.empty_cache()
+        store = os.path.join(work, "store")
+        t0 = time.perf_counter()
+        precompute_embeds.main(["--config", "smoke_sd3_fast", "--set", f"pretrained.model={root}",
+                                "--set", "dataset=dataset/pickscore_small", "--set",
+                                "smoke_test=False", "--splits", "train", "--batch",
+                                str(ENCODE_BATCH), "--out", store, "--device", "cuda"])
+        store_s = time.perf_counter() - t0
+        direct_e, direct_p = encode(uniq[:ENCODE_BATCH])
+        se, sp = EmbeddingStore(store)(uniq[:ENCODE_BATCH])
+        same = (np.array_equal(se, direct_e.astype(np.float16).astype(np.float32))
+                and np.array_equal(sp, direct_p.astype(np.float16).astype(np.float32)))
+        print("the directory's tokenizers, host ms over " f"{ENCODE_BATCH} prompts (a fresh "
+              "tokenizer, then warm): " + ", ".join(
+                  f"{k} {c:.1f} / {w:.1f} ({s[1]} ids)" for k, (c, w, s) in tok_ms.items())
+              + f"; text encoders (CLIP-L, CLIP-G fp32; T5-XXL bf16) loaded in {enc_load_s:.2f} "
+              f"s; encode of {ENCODE_BATCH} prompts (77 + 77 tokens, the directory's tokenizers "
+              f"included): {ms_dir:.1f} ms with its {LOADER_T5_LAYERS}-layer T5, {ms_full:.1f} ms "
+              f"with a full-depth 24-layer T5-XXL (finite {bool(np.isfinite(e24).all())}); "
+              f"cli.precompute_embeds of {len(uniq)} prompts in {store_s:.2f} s (the pipeline's "
+              f"load included), its first batch's rows bitwise a direct encode's at fp16: "
+              f"{same}; {smi}", flush=True)
         if not same or not np.isfinite(e24).all():
-            raise AssertionError(f"write_store rows equal {same}; full-depth encode finite "
+            raise AssertionError(f"store rows equal {same}; full-depth encode finite "
                                  f"{bool(np.isfinite(e24).all())}")
-        del encode, clip_l, clip_g, t5
+        del encode
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2156,7 +2553,7 @@ def run_loader_slice(kernels, smi):
         _zero_counts(kernels)
         infer.generate = timed_generate
         try:
-            paths = infer.main(INFER_ARGV[:4] + [
+            paths = infer.main(INFER_ARGV[:3] + [uniq[1]] + [
                 "--set", f"pretrained.model={root}", "--set", f"text_embeds_dir={store}",
                 "--out_dir", os.path.join(work, "infer")])
         finally:
@@ -2183,34 +2580,90 @@ def run_loader_slice(kernels, smi):
         counts = [k.launches for k in kernels]
         with open(os.path.join(work, "run", "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
-    config = trainer.config
-    want_train = expected_train_counts(config, trainer.pipeline.mmdit_cfg, epochs=1)[0]
-    start = {jax_lora_path(k): v.cuda()
-             for k, v in convert.sd3_lora_init(trainer.pipeline.mmdit_cfg).items()}
-    idle = {f"block_{mcfg.num_layers - 1}/attn/add_q_proj/lora_b"}
-    lora, ema = trainer.state.lora, trainer.state.ema
-    unchanged = {k for k, v in lora.items() if torch.equal(v, start[k])}
-    ema_unchanged = {k for k, v in ema.items() if torch.equal(v, start[k])}
-    finite = [k for k in ("reward_avg", "loss", "approx_kl", "clipfrac")
-              if np.isfinite(records[0][k])]
-    print(f"cli.train smoke_sd3_fast from the directory and the store, 1 epoch: {wall:.2f} s "
-          f"wall (build included); launches {counts} (expected {want_train}); LoRA "
-          f"{len(lora) - len(unchanged)} of {len(lora)} tensors moved from the loaded adapter, "
-          f"EMA {len(ema) - len(ema_unchanged)}; reward {records[0]['reward_avg']:.5f}, loss "
-          f"{records[0]['loss']:.3e}", flush=True)
-    if (counts != want_train or len(records) != 1 or len(finite) != 4
-            or not unchanged <= idle or not ema_unchanged <= idle):
-        raise AssertionError(f"train from the directory: launches {counts}, {len(records)} "
-                             f"records, finite {finite}, unchanged {sorted(unchanged)[:4]}, EMA "
-                             f"unchanged {sorted(ema_unchanged)[:4]}")
+        want_train = expected_train_counts(trainer.config, trainer.pipeline.mmdit_cfg,
+                                           epochs=1)[0]
+        start = {jax_lora_path(k): v.cuda()
+                 for k, v in convert.sd3_lora_init(trainer.pipeline.mmdit_cfg).items()}
+        idle = {f"block_{mcfg.num_layers - 1}/attn/add_q_proj/lora_b"}
+        lora, ema = trainer.state.lora, trainer.state.ema
+        unchanged = {k for k, v in lora.items() if torch.equal(v, start[k])}
+        ema_unchanged = {k for k, v in ema.items() if torch.equal(v, start[k])}
+        finite = [k for k in ("reward_avg", "loss", "approx_kl", "clipfrac")
+                  if np.isfinite(records[0][k])]
+        print(f"cli.train smoke_sd3_fast from the directory and the store, 1 epoch: {wall:.2f} "
+              f"s wall (build included); launches {counts} (expected {want_train}); LoRA "
+              f"{len(lora) - len(unchanged)} of {len(lora)} tensors moved from the loaded "
+              f"adapter, EMA {len(ema) - len(ema_unchanged)}; reward "
+              f"{records[0]['reward_avg']:.5f}, loss {records[0]['loss']:.3e}", flush=True)
+        if (counts != want_train or len(records) != 1 or len(finite) != 4
+                or not unchanged <= idle or not ema_unchanged <= idle):
+            raise AssertionError(f"train from the directory: launches {counts}, {len(records)} "
+                                 f"records, finite {finite}, unchanged {sorted(unchanged)[:4]}, "
+                                 f"EMA unchanged {sorted(ema_unchanged)[:4]}")
+        del trainer, lora, ema, start
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the paper's main path and its headline config, from the files
+        from_files = ["--max_epochs", "1", "--set", f"pretrained.model={root}",
+                      "--set", f"text_embeds_dir={store}"]
+        os.environ["PICKSCORE_DIR"], os.environ["DINOV2_DIR"] = dirs["pickscore"], \
+            dirs["dinov2_timm"]
+        epochs = {}
+        for name, argv in (("pickscore_cotrain_sd3_fast", COTRAIN_ARGV),
+                           ("dino_cotrain_sd3_patch_fast", DINO_ARGV)):
+            hold, tail_bad = {}, []
+
+            def on_build(trainer):
+                if trainer.disc.kind == "pickscore":  # the tails as built, before any D-step
+                    ctx = trainer.reward_ctx
+                    for tail in (ctx.pickscore_params, ctx.pickscore_frozen_params):
+                        tail_bad.extend(_bitwise_differ(tail.state_dict(), tail_start))
+
+            run_dir = os.path.join(work, name)
+            os.makedirs(run_dir)
+            counts, records, wall = _train_recorded(argv + from_files, run_dir, kernels, hold,
+                                                    on_build)
+            trainer = hold["trainer"]
+            branches = [r["d_epoch"] for r in records]
+            want_run = expected_train_counts(trainer.config, trainer.pipeline.mmdit_cfg, 1,
+                                             branches.count(0))[0]
+            keys = ["reward_avg"] + (["d_loss", "d_acc"] if branches[0] else
+                                     ["loss", "approx_kl", "clipfrac"])
+            epochs[name] = round(wall, 2)
+            print(f"cli.train {name} from the directory, the store and "
+                  f"{'PICKSCORE_DIR' if 'pickscore' in name else 'PICKSCORE_DIR and DINOV2_DIR'}"
+                  f", 1 epoch: {wall:.2f} s wall (build included), sampling "
+                  f"{[round(t, 2) for t in hold['sample']]} s, D {[round(t, 2) for t in hold['d']]}"
+                  f" s, G {[round(t, 2) for t in hold['g']]} s; branch d_epoch={branches}; "
+                  f"launches {counts} (expected {want_run}); "
+                  + ", ".join(f"{k} {records[0][k]:.5g}" for k in keys)
+                  + (f"; the live tail and its frozen copy bitwise the file's last layer "
+                     f"({len(tail_bad)} differ)" if "pickscore" in name else "")
+                  + f"; {smi}", flush=True)
+            if (counts != want_run or len(records) != 1 or tail_bad
+                    or not all(np.isfinite(records[0][k]) for k in keys)):
+                raise AssertionError(f"{name} from files: launches {counts} (expected "
+                                     f"{want_run}), records {records}, tail {tail_bad[:4]}")
+            del trainer, hold
+            gc.collect()
+            torch.cuda.empty_cache()
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    leaked = [m for m in ("transformers", "tokenizers", "regex", "ftfy", "sentencepiece")
+              if m in sys.modules]
     peak_host = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-    print(f"loader phase: {time.perf_counter() - phase_t0:.1f} s of wall time; peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, the process's peak "
-          f"host RSS {peak_host:.2f} GiB; card against CPU "
-          f"{ {k: float(f'{v:.3e}') for k, v in enc_rows.items()} }; {smi}", flush=True)
-    del trainer, lora, ema, start
-    gc.collect()
-    torch.cuda.empty_cache()
+    print(f"loader phase: {time.perf_counter() - phase_t0:.1f} s of wall time (the co-train "
+          f"epochs from the files {epochs} s); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, the process's peak host "
+          f"RSS {peak_host:.2f} GiB; card against CPU "
+          f"{ {k: float(f'{v:.3e}') for k, v in enc_rows.items()} }; tokenizer packages "
+          f"loaded: {leaked}; {smi}", flush=True)
+    if leaked:
+        raise AssertionError(f"the phase loaded {leaked}")
 
 
 def flux_per_forward_counts(fcfg):

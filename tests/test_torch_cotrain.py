@@ -283,26 +283,38 @@ def test_cotrain_cli_runs_two_epochs_on_the_cpu(tmp_path):
 
 def test_reward_context_builds_pickscore_and_refuses_what_is_not_ported(monkeypatch, tmp_path):
     """smoke_test: the tiny towers at image 28, constant token ids 3 at the
-    text tower's length; no PickScore reward: an empty context; a set
-    PICKSCORE_DIR raises (never a silent random fallback), and so does a
-    local CLIP tokenizer where ``transformers`` is missing (its use is held
-    to the JAX package's in tests/test_torch_text_encoders.py)."""
+    text tower's length; no PickScore reward: an empty context. A
+    PICKSCORE_DIR with no checkpoint in it raises "missing weight" (never a
+    silent random fallback); one that does not exist counts as unset (the
+    same random weights). A local CLIP tokenizer is read with
+    ``transformers`` blocked (its ids are held to ``transformers`` in
+    tests/test_torch_tokenizers.py)."""
     from adv_grpo_torch.cli.common import build_reward_context
+    from adv_grpo_torch.data.tokenizers import CLIPTokenizer
+    from chip_smoke import clip_vocab, write_clip_tokenizer
 
     cfg = tiny_config()
     ctx = build_reward_context(cfg, {"pickscore_cotrain", "pickscore"}, device="cpu")
     assert ctx.pickscore.image_size == 28 and ctx.pickscore.clip.vision_model.cfg.hidden_size == 32
     np.testing.assert_array_equal(ctx.tokenize(["a", "b"]), np.full((2, 16), 3, np.int32))
     assert build_reward_context(cfg, {"jpeg_compressibility"}, device="cpu").pickscore is None
-    monkeypatch.setenv("PICKSCORE_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="PICKSCORE_DIR"):
+    (tmp_path / "empty").mkdir()
+    monkeypatch.setenv("PICKSCORE_DIR", str(tmp_path / "empty"))
+    with pytest.raises(KeyError, match="missing weight"):
         build_reward_context(cfg, {"pickscore"}, device="cpu")
+    monkeypatch.setenv("PICKSCORE_DIR", str(tmp_path / "absent"))
+    absent = build_reward_context(cfg, {"pickscore"}, device="cpu").pickscore.clip.state_dict()
+    assert all(torch.equal(v, absent[k]) for k, v in ctx.pickscore.clip.state_dict().items())
     monkeypatch.delenv("PICKSCORE_DIR")
-    (tmp_path / "tokenizer").mkdir()
+    vocab, merges = clip_vocab(["flower", "a"], 40)
+    write_clip_tokenizer(str(tmp_path / "tokenizer"), vocab, merges, "<|endoftext|>")
     cfg.pretrained.model = str(tmp_path)
     monkeypatch.setitem(sys.modules, "transformers", None)
-    with pytest.raises(ImportError, match="transformers.*text_embeds_dir does not help"):
-        build_reward_context(cfg, {"pickscore"}, device="cpu")
+    ids = build_reward_context(cfg, {"pickscore"}, device="cpu").tokenize(["a flower", ""])
+    np.testing.assert_array_equal(ids, CLIPTokenizer(str(tmp_path / "tokenizer"))(
+        ["a flower", ""], 77))
+    assert ids.shape == (2, 77) and ids[0, 1:3].tolist() == [vocab["a</w>"], vocab["flower</w>"]]
+    assert ids[1, 0] == vocab["<|startoftext|>"] and ids[1, 1] == ids[1, 2] == vocab["<|endoftext|>"]
 
 
 @pytest.mark.parametrize("extra", [["--resume", "latest"], ["--set", "weight_path=d.msgpack"],
@@ -312,7 +324,7 @@ def test_train_cli_refuses_the_checkpoint_options(tmp_path, extra):
     """What the checkpoint options cannot take raises before anything is
     built, naming the way forward: ``--resume latest`` with no checkpoint
     under ``save_dir``; a flax ``.msgpack`` as the discriminator's
-    ``weight_path`` (its CLI, ROADMAP Queue 1 item 7, is not ported); a
+    ``weight_path`` (its CLI, ROADMAP Queue 1's "Eval and tooling", is not ported); a
     ``train.lora_path`` that is an orbax tree, as the JAX package's
     ``checkpoint-N/lora`` is (its ``export_peft_lora`` writes the peft
     directory the port reads)."""
@@ -321,7 +333,7 @@ def test_train_cli_refuses_the_checkpoint_options(tmp_path, extra):
     (orbax / "_METADATA").write_text("{}")
     extra = [a.replace("=lora", f"={orbax}") for a in extra]
     error, match = {"--resume": (FileNotFoundError, "no checkpoints under"),
-                    "weight_path=d.msgpack": (NotImplementedError, "item 7"),
+                    "weight_path=d.msgpack": (NotImplementedError, "Eval and tooling"),
                     f"train.lora_path={orbax}": (ValueError, "export_peft_lora")}[
         extra[0] if extra[0] == "--resume" else extra[1]]
     with pytest.raises(error, match=match):

@@ -297,7 +297,10 @@ def test_multi_cli_runs_a_d_epoch(tmp_path):
 
 def test_reward_context_builds_dino_and_refuses_a_checkpoint(monkeypatch, tmp_path):
     """smoke_test: the tiny DINOv2 at 28^2, 2 layers of 32; the patch
-    generator from seed + 2; a set DINOV2_DIR raises."""
+    generator from seed + 2. A DINOV2_DIR with no checkpoint in it raises
+    "missing weight"; one that does not exist counts as unset: the same
+    random backbone and head (the loads themselves are held to the JAX
+    package in tests/test_torch_scorer_loaders.py)."""
     from adv_grpo_torch.cli.common import build_reward_context
 
     cfg = tiny_config()
@@ -306,6 +309,13 @@ def test_reward_context_builds_dino_and_refuses_a_checkpoint(monkeypatch, tmp_pa
     assert ctx.dino.vision_cfg.hidden_size == 32 and ctx.dino.vision_cfg.layer_scale_init == 1e-5
     assert ctx.rng.initial_seed() == int(cfg.seed) + 2 and ctx.dino_multi.layer_ids == (1,)
     assert ctx.pickscore is None
-    monkeypatch.setenv("DINOV2_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="DINOV2_DIR"):
+    (tmp_path / "empty").mkdir()
+    monkeypatch.setenv("DINOV2_DIR", str(tmp_path / "empty"))
+    with pytest.raises(KeyError, match="missing weight"):
         build_reward_context(cfg, {"image_similarity"}, device="cpu")
+    monkeypatch.setenv("DINOV2_DIR", str(tmp_path / "absent"))
+    absent = build_reward_context(cfg, {"dino_patch_cotrain"}, device="cpu")
+    for got, want in ((absent.dino.vision, ctx.dino.vision),
+                      (absent.dino_head_params, ctx.dino_head_params)):
+        want = want.state_dict()
+        assert all(torch.equal(v, want[k]) for k, v in got.state_dict().items())

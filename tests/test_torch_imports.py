@@ -39,11 +39,14 @@ def _run(args, cwd):
 
 
 def test_port_imports_no_jax_flax_or_triton():
-    """Nor ``transformers``: the tokenizer paths import it where they run."""
+    """Nor ``transformers``, ``tokenizers``, ``regex``, ``ftfy`` or
+    ``sentencepiece``: the port tokenizes in plain Python
+    (``data.tokenizers``)."""
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in ('jax', 'flax', 'optax', 'triton', 'ml_collections',"
-            " 'transformers') if m in sys.modules))\n")
+            " 'transformers', 'tokenizers', 'regex', 'ftfy', 'sentencepiece')"
+            " if m in sys.modules))\n")
     proc = _run(["-c", code], REPO)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "[]"
@@ -60,7 +63,8 @@ def test_port_loads_nothing_of_the_jax_package():
             "adv_grpo_torch.models.peft_lora",
             "adv_grpo_torch.train.checkpoint", "adv_grpo_torch.models.t5",
             "adv_grpo_torch.models.encode_prompt",
-            "adv_grpo_torch.cli.precompute_embeds"} <= set(PORT_MODULES)
+            "adv_grpo_torch.cli.precompute_embeds",
+            "adv_grpo_torch.data.tokenizers"} <= set(PORT_MODULES)
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] == 'adv_grpo_tpu'))\n")
@@ -88,6 +92,27 @@ def test_no_source_imports_the_jax_package(where):
             for n, line in enumerate(fh.read().splitlines(), 1):
                 if _TPU_IMPORT.search(line):
                     offenders.append(f"{os.path.relpath(f, REPO)}:{n}: {line.strip()}")
+    assert not offenders, "\n".join(offenders)
+
+
+_TOKENIZER_IMPORT = re.compile(
+    r"^\s*(from|import)\s+(transformers|tokenizers|regex|ftfy|sentencepiece)\b", re.M)
+
+
+@pytest.mark.parametrize("where", ["adv_grpo_torch", "chip_smoke.py"])
+def test_no_source_imports_a_tokenizer_package(where):
+    """No source line of the port or of chip_smoke.py imports
+    ``transformers``, ``tokenizers``, ``regex``, ``ftfy`` or
+    ``sentencepiece``, inside a function either: the card's machine has
+    none of them."""
+    path = os.path.join(REPO, where)
+    files = ([path] if where.endswith(".py") else
+             [os.path.join(r, f) for r, _, fs in os.walk(path) for f in fs if f.endswith(".py")])
+    offenders = []
+    for f in files:
+        with open(f) as fh:
+            offenders += [f"{os.path.relpath(f, REPO)}: {m.group(0).strip()}"
+                          for m in _TOKENIZER_IMPORT.finditer(fh.read())]
     assert not offenders, "\n".join(offenders)
 
 

@@ -359,14 +359,22 @@ def test_a_stripped_table_loads_with_a_warning(sd3_dir, tmp_path):
 
 
 def test_text_encoder_needs_transformers(sd3_dir, monkeypatch):
-    """Without ``transformers`` the real encoder raises naming it, before it
-    reads a weight; it never falls back to the hash encoder."""
+    """With ``transformers`` blocked the real encoder still builds from the
+    directory: its tokenizers are the port's own (``data.tokenizers``), and
+    its embeddings equal those of the same encoders given the directory's
+    tokenizers by hand."""
     import sys
 
-    from adv_grpo_torch.cli.common import apply_overrides, build_text_encoder, resolve_config
+    from adv_grpo_torch.cli.common import (
+        apply_overrides, build_text_encoder, load_sd3_text_encoders, make_sd3_encode,
+        resolve_config, sd3_tokenizers)
 
     config = apply_overrides(resolve_config("smoke_sd3_fast"), [f"pretrained.model={sd3_dir}"])
     pipeline = type("P", (), {"text_seq_len": 154, "device": torch.device("cpu")})()
     monkeypatch.setitem(sys.modules, "transformers", None)
-    with pytest.raises(ImportError, match="transformers"):
-        build_text_encoder(config, pipeline)
+    embeds, pooled = build_text_encoder(config, pipeline)(["a flower", ""])
+    assert embeds.shape == (2, 154, MCFG.joint_attention_dim) and np.isfinite(embeds).all()
+    want = make_sd3_encode(load_sd3_text_encoders(sd3_dir, "cpu"),
+                           sd3_tokenizers(sd3_dir, 77), "cpu")(["a flower", ""])
+    np.testing.assert_array_equal(embeds, want[0])
+    np.testing.assert_array_equal(pooled, want[1])
