@@ -82,55 +82,80 @@ def resolve_device(device) -> torch.device:
 
 
 def _build_flux_pipeline(config, model_dir, lora_rank, latent_hw, device, generator):
-    """The Flux branch (JAX :135-159): the tiny random-init model; a set
-    ``pretrained.model`` (``FLUX_DIR``) raises, the Flux loader is not ported
-    (ROADMAP Queue 1, "The Flux and WAN loaders")."""
+    """The Flux branch (JAX :135-159): a local diffusers
+    ``FluxTransformer2DModel`` directory ``pretrained.model`` (``FLUX_DIR``,
+    ``<root>/transformer``, the VAE from ``<root>/vae``) through
+    ``FluxPipeline.from_pretrained`` in ``compute_dtype(config)``; else, for
+    ``smoke_test=True``, the tiny random-init model. A set path that is not a
+    directory raises unless ``smoke_test``."""
     from adv_grpo_torch.models.flux import FluxConfig
     from adv_grpo_torch.models.vae import VAEConfig
     from adv_grpo_torch.train.flux_pipeline import FluxPipeline
 
-    if model_dir:
-        raise NotImplementedError(
-            f"loading the diffusers FluxTransformer2DModel at {model_dir!r} is not yet "
-            "ported to adv_grpo_torch (ROADMAP Queue 1, \"The Flux and WAN loaders\"); unset "
-            "FLUX_DIR for the "
-            "tiny random-init model")
+    guidance = float(config.sample.guidance_scale)
+    if model_dir and os.path.isdir(model_dir):
+        return FluxPipeline.from_pretrained(
+            model_dir, lora_rank=lora_rank, lora_alpha=float(config.train.lora_alpha),
+            dtype=compute_dtype(config), guidance=guidance,
+            latent_hw=latent_hw or int(config.resolution) // 8, device=device)
+    if model_dir and not bool(config.get("smoke_test", False)):
+        raise FileNotFoundError(
+            f"config.pretrained.model={model_dir!r} is not a local diffusers "
+            "FluxTransformer2DModel directory; set FLUX_DIR to <root>/transformer (the VAE "
+            "is read from <root>/vae), or smoke_test=True for the random-init model")
     fcfg = FluxConfig.tiny(lora_rank=max(lora_rank, 1) if lora_rank else 4)
     return FluxPipeline.random_init(
         generator, fcfg, VAEConfig.tiny(latent_channels=fcfg.in_channels // 4), device,
-        latent_hw=latent_hw or 8, text_seq_len=6,
-        guidance=float(config.sample.guidance_scale))
+        latent_hw=latent_hw or 8, text_seq_len=6, guidance=guidance)
+
+
+def _wan_grid(wcfg, vcfg, resolution: int, frames: int):
+    """(latent_frames, latent_hw) of ``frames`` video frames of
+    ``resolution``^2, cut to tile the patch (frame counts are 1 mod the
+    temporal factor)."""
+    pt, ph, _ = wcfg.patch_size
+    sf = vcfg.spatial_factor
+    latent_frames = vcfg.latent_frames(max(vcfg.temporal_factor + 1, frames))
+    latent_hw = max(sf * 2, resolution) // sf
+    return max(pt, latent_frames - latent_frames % pt), max(ph, latent_hw - latent_hw % ph)
 
 
 def _build_wan_pipeline(config, model_dir, lora_rank, latent_hw, device, generator, frames):
-    """The WAN branch (JAX :160-188): the tiny random-init transformer and 3D
-    VAE with 2 latent frames of ``latent_hw``; with ``frames``, the latents
-    of that many video frames of ``config.resolution``^2 instead (the demo's
-    sizing, cut to the patch). A set ``pretrained.model`` (``WAN_DIR``)
-    raises, the WAN loaders are not ported (ROADMAP Queue 1, "The Flux and WAN
-    loaders")."""
+    """The WAN branch (JAX :160-188): a local diffusers
+    ``WanTransformer3DModel`` directory ``pretrained.model`` (``WAN_DIR``,
+    ``<root>/transformer``, the VAE from ``<root>/vae``) through
+    ``WanPipeline.from_pretrained`` in ``compute_dtype(config)``, with
+    1 + (``sample.num_frames`` - 1) // 4 latent frames; else, for
+    ``smoke_test=True``, the tiny random-init transformer and 3D VAE with 2
+    latent frames of ``latent_hw``. With ``frames`` (the demo's sizing) the
+    latent grid of that many video frames of ``config.resolution``^2 instead,
+    in both. A set path that is not a directory raises unless
+    ``smoke_test``."""
     from adv_grpo_torch.models.wan import WanConfig
     from adv_grpo_torch.models.wan_vae import WanVAEConfig
     from adv_grpo_torch.train.wan_pipeline import WanPipeline
 
-    if model_dir:
-        raise NotImplementedError(
-            f"loading the diffusers WanTransformer3DModel at {model_dir!r} is not yet "
-            "ported to adv_grpo_torch (ROADMAP Queue 1, \"The Flux and WAN loaders\"); unset "
-            "WAN_DIR for the "
-            "tiny random-init model")
+    if model_dir and os.path.isdir(model_dir):
+        num_frames = int(config.sample.get("num_frames", 9))
+        pipeline = WanPipeline.from_pretrained(
+            model_dir, lora_rank=lora_rank, lora_alpha=float(config.train.lora_alpha),
+            dtype=compute_dtype(config), latent_frames=1 + (num_frames - 1) // 4,
+            latent_hw=latent_hw or int(config.resolution) // 8, device=device)
+        if frames is not None:
+            pipeline.latent_frames, pipeline.latent_hw = _wan_grid(
+                pipeline.wan_cfg, pipeline.vae_cfg, int(config.resolution), frames)
+        return pipeline
+    if model_dir and not bool(config.get("smoke_test", False)):
+        raise FileNotFoundError(
+            f"config.pretrained.model={model_dir!r} is not a local diffusers "
+            "WanTransformer3DModel directory; set WAN_DIR to <root>/transformer (the VAE is "
+            "read from <root>/vae), or smoke_test=True for the random-init model")
     wcfg = WanConfig.tiny(lora_rank=max(lora_rank, 1) if lora_rank else 4)
     c = wcfg.in_channels
     vcfg = WanVAEConfig.tiny(z_dim=c, latents_mean=(0.0,) * c, latents_std=(1.0,) * c)
-    latent_hw, latent_frames = latent_hw or 8, 2
+    latent_frames, latent_hw = 2, latent_hw or 8
     if frames is not None:
-        # frame counts are 1 mod the temporal factor; the grid tiles the patch
-        pt, ph, _ = wcfg.patch_size
-        sf = vcfg.spatial_factor
-        latent_frames = vcfg.latent_frames(max(vcfg.temporal_factor + 1, frames))
-        latent_hw = max(sf * 2, int(config.resolution)) // sf
-        latent_frames = max(pt, latent_frames - latent_frames % pt)
-        latent_hw = max(ph, latent_hw - latent_hw % ph)
+        latent_frames, latent_hw = _wan_grid(wcfg, vcfg, int(config.resolution), frames)
     return WanPipeline.random_init(generator, wcfg, vcfg, device, latent_hw=latent_hw,
                                    latent_frames=latent_frames, text_seq_len=6)
 
@@ -142,9 +167,11 @@ def build_pipeline(config, latent_hw: Optional[int] = None, device="cuda",
     check one first with ``python -m adv_grpo_torch.models.convert --src
     DIR``), else the tiny random-init model for ``smoke_test=True`` or the
     full-size SD3.5-M with random weights for ``pretrained.model=''``; any
-    other ``pretrained.model`` raises. flux and wan: the tiny random-init
-    model (wan: ``frames`` video frames when given). Random weights come from
-    ``torch.Generator(seed)`` on that device."""
+    other ``pretrained.model`` raises. flux and wan: the diffusers
+    transformer directory ``pretrained.model`` (``FLUX_DIR`` / ``WAN_DIR``,
+    with ``vae/`` beside it), else the tiny random-init model for
+    ``smoke_test=True`` (wan: ``frames`` video frames when given). Random
+    weights come from ``torch.Generator(seed)`` on that device."""
     from adv_grpo_torch.models.mmdit import MMDiTConfig
     from adv_grpo_torch.models.vae import VAEConfig
     from adv_grpo_torch.train.pipeline import SD3Pipeline

@@ -19,8 +19,10 @@ with ``python -m adv_grpo_torch.models.convert --src DIR``) and its prompt
 embeddings from ``text_embeds_dir`` (``cli.precompute_embeds``) or from the
 directory's CLIP-L / CLIP-G / T5 encoders and tokenizers;
 ``pretrained.model=''`` is the full-size model with random
-weights, ``smoke_test=True`` the tiny one. flux runs the tiny random-init
-model; a set ``FLUX_DIR`` raises (the Flux loader is not ported yet).
+weights, ``smoke_test=True`` the tiny one. flux loads the diffusers
+``FluxTransformer2DModel`` directory ``FLUX_DIR`` (``<root>/transformer``,
+the VAE from ``<root>/vae``; ``--set resolution=512``) where it is set, else
+runs the tiny random-init model.
 ``--lora DIR`` (or ``train.lora_path``) merges a peft adapter directory, such
 as a training checkpoint's ``checkpoint-N/lora``, into the model first,
 checked against ``train.lora_rank`` / ``train.lora_alpha``. The ``--image``

@@ -30,8 +30,9 @@ policy takes its weights from a local diffusers-layout directory
 ``pretrained.model=DIR`` and its prompt embeddings from ``text_embeds_dir``
 (``cli.precompute_embeds``) or the directory's text encoders; with
 ``pretrained.model=''`` it is the full-size model with random weights. Flux
-and WAN run their tiny random-init models (their loaders are not ported yet:
-a set ``FLUX_DIR`` / ``WAN_DIR`` raises).
+and WAN load the diffusers transformer directory ``FLUX_DIR`` / ``WAN_DIR``
+(``<root>/transformer``, the VAE from ``<root>/vae``) where it is set, else
+run their tiny random-init models.
 
 Checkpoints (``train/checkpoint.py``) land every ``save_freq`` epochs under
 ``save_dir/checkpoints/checkpoint-{global_step}``. ``--resume PATH|latest``

@@ -9,10 +9,11 @@ log-probabilities (``rollout.wan.wan_denoise_with_logprob``), the optional
 per-step KL against the adapter-free policy (``lora_scale=0``) and the
 deterministic mode, then the 3D causal VAE decode into one frame-strip PNG
 (``wan_det.png`` or ``wan_sde_kl{kl_reward}.png``); prints its path, the
-mean log-prob and the mean KL. The model is ``cli.common.build_pipeline``'s
-tiny random-init WAN sized for ``sample.num_frames`` frames (its LoRA B is
-zero, so the two policies coincide and the KL is 0, as in the JAX demo); a
-set ``WAN_DIR`` raises, the checkpoint loader is not ported.
+mean log-prob and the mean KL. The model is ``cli.common.build_pipeline``'s,
+sized for ``sample.num_frames`` frames of ``resolution``^2: the diffusers
+directory ``WAN_DIR`` (``<root>/transformer``, the VAE from ``<root>/vae``)
+where it is set, else the tiny random-init WAN. Its LoRA B starts at zero,
+so the two policies coincide and the KL is 0, as in the JAX demo.
 """
 
 from __future__ import annotations

@@ -163,8 +163,10 @@ def dino_cotrain_sd3_multi_fast(replica_count=8):
 
 def flux_smoke():
     """Flux text-to-image preset: the tiny random-init model by default;
-    ``FLUX_DIR`` names a diffusers FluxTransformer2DModel directory, whose
-    loader is not ported yet (``cli.common.build_pipeline`` raises)."""
+    ``FLUX_DIR`` names a diffusers FluxTransformer2DModel directory
+    (``<root>/transformer``; the VAE is read from ``<root>/vae``), which
+    ``cli.common.build_pipeline`` loads (set ``resolution`` to the model's,
+    512 and up)."""
     config = base.get_config()
     config.model_family = "flux"
     config.smoke_test = True
@@ -193,8 +195,9 @@ def flux_smoke():
 def wan_smoke():
     """WAN text-to-video preset (the demo's and the trainer's): the tiny
     random-init transformer and 3D causal VAE by default; ``WAN_DIR`` names a
-    diffusers WanTransformer3DModel directory, whose loader is not ported yet
-    (``cli.common.build_pipeline`` and the demo raise)."""
+    diffusers WanTransformer3DModel directory (``<root>/transformer``; the
+    AutoencoderKLWan is read from ``<root>/vae``), which
+    ``cli.common.build_pipeline`` and the demo load."""
     config = base.get_config()
     config.model_family = "wan"
     config.smoke_test = True

@@ -6,19 +6,24 @@ local diffusers-layout SD3 directory (``transformer/``, ``vae/``,
 shards or ``*.bin`` files) is read by :func:`load_torch_state_dict` and
 mapped by :func:`mmdit_state_dict_from_hf`, :func:`vae_state_dict_from_hf`,
 :func:`clip_text_state_dict_from_hf` and :func:`t5_state_dict_from_hf`; the
-scorer checkpoints (PickScore's HF ``CLIPModel``, DINOv2 in timm's or HF's
-layout) by :func:`clip_model_state_dict_from_hf` and
-:func:`dinov2_state_dict`. Each must consume every weight of the checkpoint
-or raises "not consumed" (a dropped weight is how a wrong convention slips
-through).
-:func:`load_sd3_pipeline` assembles the pipeline (frozen fp32 weights rounded
-to bf16, LoRA A drawn with numpy as the JAX loader draws it);
+Flux and WAN folders (``FluxTransformer2DModel``, ``WanTransformer3DModel``,
+``AutoencoderKLWan``) by :func:`flux_state_dict_from_hf`,
+:func:`wan_state_dict_from_hf` and :func:`wan_vae_state_dict_from_hf`, UMT5
+(WAN's text encoder) by :func:`umt5_state_dict_from_hf`; the scorer
+checkpoints (PickScore's HF ``CLIPModel``, DINOv2 in timm's or HF's layout)
+by :func:`clip_model_state_dict_from_hf` and :func:`dinov2_state_dict`. Each
+must consume every weight of the checkpoint or raises "not consumed" (a
+dropped weight is how a wrong convention slips through).
+:func:`load_sd3_pipeline`, :func:`load_flux_transformer` and
+:func:`load_wan_transformer` build the denoisers (frozen fp32 weights rounded
+to bf16, LoRA A drawn with numpy as the JAX loaders draw it),
+:func:`load_vae` and :func:`load_wan_vae` their fp32 VAEs;
 :func:`preflight` and ``python -m adv_grpo_torch.models.convert --src DIR``
-check a directory without building a model.
+check an SD3 directory without building a model.
 
 **JAX trees** (for the parity tests): the inverse of adv_grpo_tpu.models.convert's ``convert_mmdit`` /
-``convert_flux`` / ``convert_vae`` / ``convert_wan`` / ``convert_wan_vae``
-(decoder half), the CLIP dual encoder that ``convert_clip_model``
+``convert_flux`` / ``convert_vae`` / ``convert_wan`` / ``convert_wan_vae``,
+the CLIP dual encoder that ``convert_clip_model``
 fills (:func:`clip_dual_state_dict_from_jax`), the DINOv2 backbone
 (:func:`vit_state_dict_from_jax`) and the DINO heads
 (:func:`dino_head_state_dict_from_jax`, :func:`dino_multi_state_dict_from_jax`):
@@ -292,10 +297,9 @@ def wan_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
 
 
 def wan_vae_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
-    """adv_grpo_tpu WanVideoVAE params -> adv_grpo_torch WanVideoVAE state dict
-    (diffusers AutoencoderKLWan names). The encoder's weights are not carried:
-    the port's WAN VAE has no encoder yet."""
-    dec = _unwrap(params)["decoder"]
+    """adv_grpo_tpu WanVideoVAE params (encoder and decoder) -> adv_grpo_torch
+    WanVideoVAE state dict (diffusers AutoencoderKLWan names)."""
+    enc, dec = _unwrap(params)["encoder"], _unwrap(params)["decoder"]
     out: Dict[str, torch.Tensor] = {}
 
     def rms(prefix, p, spatial):
@@ -316,25 +320,30 @@ def wan_vae_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
                                                                                      None])
             out[f"{prefix}.{name}.bias"] = _tensor(p[name]["bias"])
 
+    def half(tree, side, blocks, tag):
+        _wan_conv3d(f"{side}.conv_in", tree["conv_in"], out)
+        res(f"{side}.mid_block.resnets.0", tree["mid"]["res0"])
+        attn(f"{side}.mid_block.attentions.0", tree["mid"]["attn0"])
+        res(f"{side}.mid_block.resnets.1", tree["mid"]["res1"])
+        n = 0
+        while f"{tag}_{n}" in tree:
+            p, prefix = tree[f"{tag}_{n}"], f"{side}.{blocks}.{n}"
+            if "resample_conv" in p:
+                _conv(prefix + ".resample.1", p["resample_conv"], out)
+                if "time_conv" in p:
+                    _wan_conv3d(prefix + ".time_conv", p["time_conv"], out)
+            elif "to_qkv" in p:
+                attn(prefix, p)
+            else:
+                res(prefix, p)
+            n += 1
+        rms(f"{side}.norm_out", tree["norm_out"], 3)
+        _wan_conv3d(f"{side}.conv_out", tree["conv_out"], out)
+
     _wan_conv3d("post_quant_conv", dec["post_quant_conv"], out)
-    _wan_conv3d("decoder.conv_in", dec["conv_in"], out)
-    res("decoder.mid_block.resnets.0", dec["mid"]["res0"])
-    attn("decoder.mid_block.attentions.0", dec["mid"]["attn0"])
-    res("decoder.mid_block.resnets.1", dec["mid"]["res1"])
-    n = 0
-    while f"up_{n}" in dec:
-        p, prefix = dec[f"up_{n}"], f"decoder.up_blocks.{n}"
-        if "resample_conv" in p:
-            _conv(prefix + ".resample.1", p["resample_conv"], out)
-            if "time_conv" in p:
-                _wan_conv3d(prefix + ".time_conv", p["time_conv"], out)
-        elif "to_qkv" in p:
-            attn(prefix, p)
-        else:
-            res(prefix, p)
-        n += 1
-    rms("decoder.norm_out", dec["norm_out"], 3)
-    _wan_conv3d("decoder.conv_out", dec["conv_out"], out)
+    half(dec, "decoder", "up_blocks", "up")
+    half(enc, "encoder", "down_blocks", "down")
+    _wan_conv3d("quant_conv", enc["quant_conv"], out)
     return out
 
 
@@ -499,6 +508,19 @@ def detect_pos_embed_base(sd: Dict[str, torch.Tensor], embed_dim: int, max_size:
         "refusing to convert (the model would run with a wrong positional embedding)")
 
 
+def _frozen_keys(module) -> list:
+    """A model's state-dict names but its LoRA factors (a checkpoint holds
+    none)."""
+    return [k for k in module.state_dict() if k.rsplit(".", 1)[-1] not in ("lora_a", "lora_b")]
+
+
+def _round_bf16(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """fp32 tensors rounded to bf16, the JAX ``cast_tree_bf16`` (fp16 and bf16
+    ones as they are); ``load_state_dict`` then widens what the model holds in
+    fp32 (norm weights, tables) back, exactly."""
+    return {k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v for k, v in sd.items()}
+
+
 def _take_module(sd, module_keys, what, ignore=()):
     g = _Taken(sd)
     for key in ignore:
@@ -516,9 +538,8 @@ def mmdit_state_dict_from_hf(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, torc
     :func:`detect_pos_embed_base`; the model recomputes its crop)."""
     from adv_grpo_torch.models.mmdit import MMDiT
 
-    keys = [k for k in MMDiT(cfg, device="meta").state_dict()
-            if k.rsplit(".", 1)[-1] not in ("lora_a", "lora_b")]
-    return _take_module(sd, keys, "mmdit_state_dict_from_hf", ignore=("pos_embed.pos_embed",))
+    return _take_module(sd, _frozen_keys(MMDiT(cfg, device="meta")), "mmdit_state_dict_from_hf",
+                        ignore=("pos_embed.pos_embed",))
 
 
 def vae_state_dict_from_hf(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
@@ -709,10 +730,7 @@ def t5_state_dict_from_hf(sd: Dict[str, torch.Tensor], num_layers: int) -> Dict[
     tied copy is consumed where both are present); the shared relative bias
     is block 0's."""
     g = _Taken(sd)
-    emb = "shared.weight" if g.has("shared.weight") else "encoder.embed_tokens.weight"
-    if emb == "shared.weight" and g.has("encoder.embed_tokens.weight"):
-        g("encoder.embed_tokens.weight")
-    out = {"token_embedding.weight": g(emb),
+    out = {"token_embedding.weight": _t5_embedding(g),
            "relative_attention_bias": g(
                "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"),
            "final_ln.weight": g("encoder.final_layer_norm.weight")}
@@ -720,6 +738,36 @@ def t5_state_dict_from_hf(sd: Dict[str, torch.Tensor], num_layers: int) -> Dict[
         for src, dst in _T5_BLOCK:
             out[f"blocks.{i}.{dst}.weight"] = g(f"encoder.block.{i}.layer.{src}.weight")
     g.assert_consumed("t5_state_dict_from_hf")
+    return out
+
+
+def _t5_embedding(g: _Taken) -> torch.Tensor:
+    """``shared.weight``, or without it ``encoder.embed_tokens.weight``; the
+    tied copy is consumed where both are present."""
+    emb = "shared.weight" if g.has("shared.weight") else "encoder.embed_tokens.weight"
+    if emb == "shared.weight" and g.has("encoder.embed_tokens.weight"):
+        g("encoder.embed_tokens.weight")
+    return g(emb)
+
+
+def umt5_state_dict_from_hf(sd: Dict[str, torch.Tensor],
+                            num_layers: int) -> Dict[str, torch.Tensor]:
+    """An HF ``UMT5EncoderModel`` state dict (WAN's text encoder) -> the
+    port's ``T5Encoder`` state dict at ``per_layer_rel_bias=True`` (the JAX
+    ``convert_umt5_encoder``'s mapping): every block's own relative-bias
+    table, the embedding as :func:`t5_state_dict_from_hf` takes it. Strict.
+    The shared-bias :func:`t5_state_dict_from_hf` refuses such a state: the
+    tables of blocks 1.. are not consumed."""
+    g = _Taken(sd)
+    out = {"token_embedding.weight": _t5_embedding(g),
+           "final_ln.weight": g("encoder.final_layer_norm.weight")}
+    for i in range(num_layers):
+        b = f"encoder.block.{i}.layer."
+        out[f"blocks.{i}.relative_attention_bias"] = g(
+            b + "0.SelfAttention.relative_attention_bias.weight")
+        for src, dst in _T5_BLOCK:
+            out[f"blocks.{i}.{dst}.weight"] = g(f"{b}{src}.weight")
+    g.assert_consumed("umt5_state_dict_from_hf")
     return out
 
 
@@ -767,16 +815,25 @@ def mmdit_config_from_json(tc: dict, **overrides):
         dual_attention_layers=tuple(tc.get("dual_attention_layers", ())), **overrides)
 
 
-def vae_config_from_json(vc: dict):
+def vae_config_from_json(vc: dict, base=None):
     """``VAEConfig`` from a diffusers ``vae/config.json`` (the JAX loader's
-    keys; ``norm_num_groups`` keeps its default, 32)."""
+    keys; ``norm_num_groups`` keeps its default, 32). Without ``base`` the
+    topology and ``scaling_factor`` must be in the file and ``shift_factor``
+    defaults to 0; with it (the Flux VAE: ``VAEConfig.flux()``) every key the
+    file lacks is ``base``'s."""
     from adv_grpo_torch.models.vae import VAEConfig
 
-    return VAEConfig(latent_channels=vc["latent_channels"],
-                     block_out_channels=tuple(vc["block_out_channels"]),
-                     layers_per_block=vc["layers_per_block"],
-                     scaling_factor=vc["scaling_factor"],
-                     shift_factor=vc.get("shift_factor", 0.0))
+    if base is None:
+        base = VAEConfig(shift_factor=0.0)
+        missing = [k for k in ("latent_channels", "block_out_channels", "layers_per_block",
+                               "scaling_factor") if k not in vc]
+        if missing:
+            raise KeyError(f"vae config.json lacks {missing}")
+    fields = {k: vc[k] for k in ("latent_channels", "block_out_channels", "layers_per_block",
+                                 "scaling_factor", "shift_factor") if k in vc}
+    if "block_out_channels" in fields:
+        fields["block_out_channels"] = tuple(fields["block_out_channels"])
+    return dataclasses.replace(base, **fields)
 
 
 def _transformer_state(model_dir, tc, cfg):
@@ -788,6 +845,13 @@ def _transformer_state(model_dir, tc, cfg):
     base = detect_pos_embed_base(t_sd, cfg.hidden_dim, cfg.pos_embed_max_size, sample,
                                  tc["patch_size"], default=sample // tc["patch_size"])
     return mmdit_state_dict_from_hf(t_sd, cfg), base
+
+
+def _lora_factor(rng, prefix: str, k_in: int, k_out: int, r: int, out: Dict) -> None:
+    """PEFT's init as the JAX loaders draw it: A ~ N(0, 1/r) drawn in fp64 by
+    ``rng`` and cast to fp32, B = 0."""
+    out[prefix + ".lora_a"] = torch.from_numpy(rng.normal(0, 1.0 / r, (k_in, r)).astype(np.float32))
+    out[prefix + ".lora_b"] = torch.zeros(r, k_out)
 
 
 def sd3_lora_init(cfg) -> Dict[str, torch.Tensor]:
@@ -803,10 +867,7 @@ def sd3_lora_init(cfg) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for i in range(cfg.num_layers):
         for name in names[:-1] if i == cfg.num_layers - 1 else names:
-            prefix = f"transformer_blocks.{i}.attn.{name}"
-            out[prefix + ".lora_a"] = torch.from_numpy(
-                rng.normal(0, 1.0 / r, (dim, r)).astype(np.float32))
-            out[prefix + ".lora_b"] = torch.zeros(r, dim)
+            _lora_factor(rng, f"transformer_blocks.{i}.attn.{name}", dim, dim, r, out)
     return out
 
 
@@ -822,7 +883,6 @@ def load_sd3_pipeline(model_dir: str, *, lora_rank: int = 0, lora_alpha: float =
     :func:`sd3_lora_init` and stay fp32. The VAE is fp32, encoder and
     decoder."""
     from adv_grpo_torch.models.mmdit import MMDiT
-    from adv_grpo_torch.models.vae import AutoencoderKL
     from adv_grpo_torch.train.pipeline import SD3Pipeline, _build
 
     device = torch.device(device)
@@ -831,17 +891,225 @@ def load_sd3_pipeline(model_dir: str, *, lora_rank: int = 0, lora_alpha: float =
                                  lora_alpha=lora_alpha)
     sd, base = _transformer_state(model_dir, tc, cfg)
     cfg = dataclasses.replace(cfg, pos_embed_base_size=base)
-    sd = {k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v for k, v in sd.items()}
+    sd = _round_bf16(sd)
     if lora_rank > 0:
         sd.update(sd3_lora_init(cfg))
     mmdit = _build(MMDiT, cfg, device)
     mmdit.load_state_dict(sd)
     del sd
-    vae_cfg = vae_config_from_json(_read_json(model_dir, "vae", "config.json"))
-    vae = _build(AutoencoderKL, vae_cfg, device)
-    vae.load_state_dict(vae_state_dict_from_hf(
-        load_torch_state_dict(os.path.join(model_dir, "vae")), vae_cfg))
+    vae_cfg, vae = load_vae(os.path.join(model_dir, "vae"), device=device)
     return SD3Pipeline(cfg, vae_cfg, mmdit, vae, device)
+
+
+def flux_config_from_json(tc: dict, **overrides):
+    """``FluxConfig`` from a diffusers ``FluxTransformer2DModel``
+    ``config.json``, with the JAX loader's keys and defaults (Flux.1-dev's);
+    ``axes_dims_rope`` becomes the RoPE axes."""
+    from adv_grpo_torch.models.flux import FluxConfig
+
+    return FluxConfig(
+        in_channels=tc.get("in_channels", 64), num_double_layers=tc.get("num_layers", 19),
+        num_single_layers=tc.get("num_single_layers", 38),
+        attention_head_dim=tc.get("attention_head_dim", 128),
+        num_attention_heads=tc.get("num_attention_heads", 24),
+        joint_attention_dim=tc.get("joint_attention_dim", 4096),
+        pooled_projection_dim=tc.get("pooled_projection_dim", 768),
+        guidance_embeds=tc.get("guidance_embeds", True),
+        rope_axes_dims=tuple(tc.get("axes_dims_rope", (16, 56, 56))), **overrides)
+
+
+def flux_state_dict_from_hf(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
+    """A diffusers ``FluxTransformer2DModel`` state dict -> the port's
+    ``FluxTransformer`` state dict (the JAX ``convert_flux``'s mapping; the
+    port keeps diffusers' names, so the text stream's ``add_q_proj`` /
+    ``norm_added_q`` are the JAX tree's ``add_to_q`` / ``add_norm_q``, and
+    ``norm_out.linear`` keeps its (scale, shift) row order, which the head
+    reads). ``time_text_embed.guidance_embedder.*`` is required where
+    ``cfg.guidance_embeds`` and refused as not consumed where not
+    (Flux.1-schnell has none). Strict."""
+    from adv_grpo_torch.models.flux import FluxTransformer
+
+    return _take_module(sd, _frozen_keys(FluxTransformer(cfg, device="meta")),
+                        "flux_state_dict_from_hf")
+
+
+def flux_lora_init(cfg) -> Dict[str, torch.Tensor]:
+    """Fresh adapters, bit for bit the JAX loader's (``_add_flux_lora_leaves``):
+    one ``np.random.default_rng(0)`` over, per double block, to_q, to_k,
+    to_v, to_out, add_to_q, add_to_k, add_to_v, to_add_out (the JAX attn
+    dict's order), then per single block to_q, to_k, to_v, proj_mlp and
+    proj_out (k_in = dim + mlp_dim)."""
+    rng = np.random.default_rng(0)
+    r, dim = cfg.lora_rank, cfg.hidden_dim
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(cfg.num_double_layers):
+        for name in ("to_q", "to_k", "to_v", "to_out.0", "add_q_proj", "add_k_proj",
+                     "add_v_proj", "to_add_out"):
+            _lora_factor(rng, f"transformer_blocks.{i}.attn.{name}", dim, dim, r, out)
+    for i in range(cfg.num_single_layers):
+        b = f"single_transformer_blocks.{i}."
+        for name in ("attn.to_q", "attn.to_k", "attn.to_v"):
+            _lora_factor(rng, b + name, dim, dim, r, out)
+        _lora_factor(rng, b + "proj_mlp", dim, 4 * dim, r, out)
+        _lora_factor(rng, b + "proj_out", 5 * dim, dim, r, out)
+    return out
+
+
+def load_flux_transformer(model_dir: str, *, dtype=None, lora_rank: int = 0,
+                          lora_alpha: float = 1.0, device="cuda"):
+    """(FluxConfig, FluxTransformer on ``device``) from a local diffusers
+    ``FluxTransformer2DModel`` directory (``config.json`` beside
+    ``*.safetensors`` shards), the JAX ``load_flux_transformer``: in ``dtype``
+    (bf16 by default), whose fp32 weights are then rounded to bf16 as
+    ``cast_tree_bf16`` does; with ``lora_rank`` > 0 the adapters of
+    :func:`flux_lora_init`, fp32."""
+    from adv_grpo_torch.models.flux import FluxTransformer
+    from adv_grpo_torch.train.pipeline import _build
+
+    cfg = flux_config_from_json(_read_json(model_dir, "config.json"),
+                                dtype=dtype or torch.bfloat16, lora_rank=lora_rank,
+                                lora_alpha=lora_alpha)
+    sd = flux_state_dict_from_hf(load_torch_state_dict(model_dir), cfg)
+    if cfg.dtype == torch.bfloat16:
+        sd = _round_bf16(sd)
+    if lora_rank > 0:
+        sd.update(flux_lora_init(cfg))
+    model = _build(FluxTransformer, cfg, torch.device(device))
+    model.load_state_dict(sd)
+    return cfg, model
+
+
+def load_vae(vae_dir: str, *, base=None, device="cuda"):
+    """(VAEConfig, AutoencoderKL on ``device``, fp32, encoder and decoder)
+    from a local diffusers ``AutoencoderKL`` directory in the SD3 layout (no
+    quant convs), the config by :func:`vae_config_from_json`: SD3's VAE with
+    ``base=None``; the Flux VAE with ``base=VAEConfig.flux()``, whose
+    ``scaling_factor`` / ``shift_factor`` are 0.3611 / 0.1159 where
+    ``config.json`` lacks them. The JAX ``FluxPipeline.from_pretrained``
+    calls a ``convert.load_vae(vae_dir, base=VAEConfig.flux())`` that the
+    JAX package does not define; this is what that call means."""
+    from adv_grpo_torch.models.vae import AutoencoderKL
+    from adv_grpo_torch.train.pipeline import _build
+
+    cfg = vae_config_from_json(_read_json(vae_dir, "config.json"), base=base)
+    vae = _build(AutoencoderKL, cfg, torch.device(device))
+    vae.load_state_dict(vae_state_dict_from_hf(load_torch_state_dict(vae_dir), cfg))
+    return cfg, vae
+
+
+def wan_config_from_json(tc: dict, **overrides):
+    """``WanConfig`` from a diffusers ``WanTransformer3DModel``
+    ``config.json``, with the JAX loader's keys and defaults
+    (Wan2.1-T2V-1.3B's); the RoPE axes split the head width as diffusers'
+    ``WanRotaryPosEmbed`` does: h = w = 2 * ((d // 3) // 2), t the rest.
+    ``qk_norm`` is read from no key, as the JAX loader reads none (the model
+    always normalises q and k across the heads)."""
+    from adv_grpo_torch.models.wan import WanConfig
+
+    d = tc.get("attention_head_dim", 128)
+    hw = 2 * ((d // 3) // 2)
+    return WanConfig(
+        in_channels=tc.get("in_channels", 16), out_channels=tc.get("out_channels", 16),
+        patch_size=tuple(tc.get("patch_size", (1, 2, 2))), num_layers=tc.get("num_layers", 30),
+        attention_head_dim=d, num_attention_heads=tc.get("num_attention_heads", 12),
+        text_dim=tc.get("text_dim", 4096), ffn_dim=tc.get("ffn_dim", 8960),
+        rope_axes_dims=(d - 2 * hw, hw, hw), cross_attn_norm=tc.get("cross_attn_norm", True),
+        **overrides)
+
+
+def wan_state_dict_from_hf(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
+    """A diffusers ``WanTransformer3DModel`` state dict -> the port's
+    ``WanTransformer`` state dict (the JAX ``convert_wan``'s mapping under
+    diffusers' names): the patch Conv3d (dim, C, pt, ph, pw) as the port
+    holds it (its forward flattens it (pt, ph, pw, C) as the JAX kernel is);
+    the scale-shift tables (1, 6, dim) per block and (1, 2, dim) at the root;
+    ``blocks.{i}.norm2.*`` required where ``cfg.cross_attn_norm`` and refused
+    where not. Strict."""
+    from adv_grpo_torch.models.wan import WanTransformer
+
+    return _take_module(sd, _frozen_keys(WanTransformer(cfg, device="meta")),
+                        "wan_state_dict_from_hf")
+
+
+def wan_lora_init(cfg) -> Dict[str, torch.Tensor]:
+    """Fresh adapters, bit for bit the JAX loader's (``_add_wan_lora_leaves``):
+    one ``np.random.default_rng(0)`` over, per block, to_q, to_k, to_v,
+    to_out, cross_to_q, cross_to_k, cross_to_v, cross_to_out (``attn1.*``,
+    then ``attn2.*``)."""
+    rng = np.random.default_rng(0)
+    r, dim = cfg.lora_rank, cfg.hidden_dim
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(cfg.num_layers):
+        for attn in ("attn1", "attn2"):
+            for name in ("to_q", "to_k", "to_v", "to_out.0"):
+                _lora_factor(rng, f"blocks.{i}.{attn}.{name}", dim, dim, r, out)
+    return out
+
+
+def load_wan_transformer(model_dir: str, *, dtype=None, lora_rank: int = 0,
+                         lora_alpha: float = 1.0, device="cuda"):
+    """(WanConfig, WanTransformer on ``device``) from a local diffusers
+    ``WanTransformer3DModel`` directory, the JAX ``load_wan_transformer``: in
+    ``dtype`` (bf16 by default), whose fp32 weights are then rounded to bf16
+    as ``cast_tree_bf16`` does (the scale-shift tables, ``norm2`` and the RMS
+    weights too, held in fp32 parameters); with ``lora_rank`` > 0 the
+    adapters of :func:`wan_lora_init`, fp32."""
+    from adv_grpo_torch.models.wan import WanTransformer
+    from adv_grpo_torch.train.pipeline import _build
+
+    cfg = wan_config_from_json(_read_json(model_dir, "config.json"),
+                               dtype=dtype or torch.bfloat16, lora_rank=lora_rank,
+                               lora_alpha=lora_alpha)
+    sd = wan_state_dict_from_hf(load_torch_state_dict(model_dir), cfg)
+    if cfg.dtype == torch.bfloat16:
+        sd = _round_bf16(sd)
+    if lora_rank > 0:
+        sd.update(wan_lora_init(cfg))
+    model = _build(WanTransformer, cfg, torch.device(device))
+    model.load_state_dict(sd)
+    return cfg, model
+
+
+def wan_vae_config_from_json(tc: dict):
+    """``WanVAEConfig`` from a diffusers ``AutoencoderKLWan`` ``config.json``,
+    with the JAX ``load_wan_vae``'s keys and defaults; the per-channel
+    ``latents_mean`` / ``latents_std`` live there, not in the weights."""
+    from adv_grpo_torch.models.wan_vae import WanVAEConfig
+
+    z = tc.get("z_dim", 16)
+    return WanVAEConfig(
+        z_dim=z, base_dim=tc.get("base_dim", 96), dim_mult=tuple(tc.get("dim_mult", (1, 2, 4, 4))),
+        num_res_blocks=tc.get("num_res_blocks", 2),
+        attn_scales=tuple(tc.get("attn_scales", ())),
+        temperal_downsample=tuple(tc.get("temperal_downsample", (False, True, True))),
+        latents_mean=tuple(tc.get("latents_mean", (0.0,) * z)),
+        latents_std=tuple(tc.get("latents_std", (1.0,) * z)))
+
+
+def wan_vae_state_dict_from_hf(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
+    """A diffusers ``AutoencoderKLWan`` state dict -> the port's
+    ``WanVideoVAE`` state dict, encoder, ``quant_conv``, ``post_quant_conv``
+    and decoder (the JAX ``convert_wan_vae``'s mapping under diffusers'
+    names: the RMS ``gamma`` (C, 1, 1, 1) / (C, 1, 1), ``resample.1`` the
+    spatial conv, ``time_conv`` at the temporal stages only, ``to_qkv`` /
+    ``proj`` 1x1 Conv2d, ``conv_shortcut`` where the width changes). Strict."""
+    from adv_grpo_torch.models.wan_vae import WanVideoVAE
+
+    return _take_module(sd, list(WanVideoVAE(cfg, device="meta").state_dict()),
+                        "wan_vae_state_dict_from_hf")
+
+
+def load_wan_vae(vae_dir: str, *, device="cuda"):
+    """(WanVAEConfig, WanVideoVAE on ``device``) from a local diffusers
+    ``AutoencoderKLWan`` directory, the JAX ``load_wan_vae``. fp32: the JAX
+    loader casts nothing."""
+    from adv_grpo_torch.models.wan_vae import WanVideoVAE
+    from adv_grpo_torch.train.pipeline import _build
+
+    cfg = wan_vae_config_from_json(_read_json(vae_dir, "config.json"))
+    vae = _build(WanVideoVAE, cfg, torch.device(device))
+    vae.load_state_dict(wan_vae_state_dict_from_hf(load_torch_state_dict(vae_dir), cfg))
+    return cfg, vae
 
 
 def _count(sd) -> int:

@@ -1,18 +1,24 @@
-"""WAN 3D causal video VAE decoder (diffusers ``AutoencoderKLWan``) in
-PyTorch, fp32.
+"""WAN 3D causal video VAE (diffusers ``AutoencoderKLWan``) in PyTorch, fp32.
 
-Port of the decode half of adv_grpo_tpu/models/wan_vae.py, with diffusers
-state-dict names (``post_quant_conv``, ``decoder.conv_in``,
-``decoder.mid_block.{resnets.{0,1},attentions.0}``, ``decoder.up_blocks.{n}``
-a flat list of residual blocks and resamplers, ``decoder.norm_out``,
-``decoder.conv_out``) and layout: channels first, (B, C, F, H, W), Conv3d
-weights (O, I, kt, kh, kw), RMS ``gamma`` (C, 1, 1, 1).
+Port of adv_grpo_tpu/models/wan_vae.py, with diffusers state-dict names
+(``encoder.conv_in``, ``encoder.down_blocks.{n}`` a flat list of residual
+blocks and resamplers, ``encoder.mid_block``, ``encoder.norm_out``,
+``encoder.conv_out``, ``quant_conv``; ``post_quant_conv``,
+``decoder.conv_in``, ``decoder.mid_block.{resnets.{0,1},attentions.0}``,
+``decoder.up_blocks.{n}``, ``decoder.norm_out``, ``decoder.conv_out``) and
+layout: channels first, (B, C, F, H, W), Conv3d weights (O, I, kt, kh, kw),
+RMS ``gamma`` (C, 1, 1, 1).
 
-diffusers decodes one latent frame at a time with a 2-frame cache per causal
-conv; the JAX model replaced each cached op by its whole-sequence equivalent,
-and so does this one:
+diffusers encodes frame 0 alone, then chunks of 4 frames, and decodes one
+latent frame at a time, with a 2-frame cache per causal conv; the JAX model
+replaced each cached op by its whole-sequence equivalent, and so does this
+one:
 
   * a causal conv left-pads 2 zero frames (and SAME-pads spatially);
+  * the temporal downsample lets frame 0 through untouched and runs its
+    stride-2 k=3 time conv over the whole sequence without padding: output
+    j >= 1 reads frames 2j-2, 2j-1, 2j; the spatial downsample pads right and
+    bottom by one and runs a stride-2 3x3 conv;
   * the temporal upsample zeroes frame 0, runs its time conv over the
     left-padded sequence, drops output 0, splits each 2C-channel output into
     an (earlier, later) frame pair and puts the untouched frame 0 first:
@@ -20,11 +26,12 @@ and so does this one:
   * ``WanRMSNorm`` is x / max(||x||_C, 1e-12) * sqrt(C) * gamma (no eps inside
     the root).
 
-The mid block's single-head attention is per frame over the H*W tokens. It
+The mid blocks' single-head attention is per frame over the H*W tokens. It
 runs in fp32 like the JAX model (the JAX package has no Pallas kernel here,
 so this is plain torch); ``WanPipeline`` switches TF32 off so the
-convolutions stay fp32 on the card. The encoder (``encode``, the temporal
-downsample) is not ported.
+convolutions stay fp32 on the card. ``encode`` draws its posterior sample
+from a ``torch.Generator``, not a JAX key: the same distribution, other
+bits.
 """
 
 from __future__ import annotations
@@ -181,6 +188,61 @@ class WanUpsample(nn.Module):
         return F.conv3d(x, conv.weight[:, :, None], conv.bias, padding=(0, 1, 1))
 
 
+class WanDownsample(nn.Module):
+    """diffusers WanResample ``downsample2d`` / ``downsample3d``: per frame,
+    pad right and bottom by one and a stride-2 3x3 conv; (3d) then frame 0
+    untouched and the stride-2 k=3 time conv over the whole sequence, no
+    padding (under 3 frames it has no window: frame 0 alone comes out, as
+    from the JAX model's empty VALID conv)."""
+
+    def __init__(self, dim: int, temporal: bool, cfg: WanVAEConfig, device=None):
+        super().__init__()
+        # index 1 for the diffusers name ``resample.1`` (index 0 is its
+        # ZeroPad2d)
+        self.resample = nn.ModuleList([
+            nn.Identity(),
+            nn.Conv2d(dim, dim, 3, stride=2, dtype=cfg.dtype, device=device)])
+        self.time_conv = (nn.Conv3d(dim, dim, (3, 1, 1), stride=(2, 1, 1), dtype=cfg.dtype,
+                                    device=device) if temporal else None)
+
+    def forward(self, x):
+        conv = self.resample[1]
+        x = F.conv3d(F.pad(x, (0, 1, 0, 1)), conv.weight[:, :, None], conv.bias,
+                     stride=(1, 2, 2))
+        if self.time_conv is not None:
+            x = (torch.cat([x[:, :, :1], self.time_conv(x)], dim=2) if x.shape[2] >= 3
+                 else x[:, :, :1])
+        return x
+
+
+class WanEncoder3d(nn.Module):
+    def __init__(self, cfg: WanVAEConfig, device=None):
+        super().__init__()
+        mults = tuple(cfg.dim_mult)
+        dims = [cfg.base_dim * u for u in (1,) + mults]
+        self.conv_in = WanCausalConv3d(3, dims[0], 3, cfg, device)
+        blocks, cin, scale = [], dims[0], 1.0
+        for i, out_dim in enumerate(dims[1:]):
+            for _ in range(cfg.num_res_blocks):
+                blocks.append(WanResBlock(cin, out_dim, cfg, device))
+                cin = out_dim
+                if scale in cfg.attn_scales:
+                    blocks.append(WanAttnBlock(out_dim, cfg, device))
+            if i != len(mults) - 1:
+                blocks.append(WanDownsample(out_dim, cfg.temperal_downsample[i], cfg, device))
+                scale /= 2.0
+        self.down_blocks = nn.ModuleList(blocks)
+        self.mid_block = WanMidBlock(cin, cfg, device)
+        self.norm_out = WanRMSNorm(cin, 3, cfg, device)
+        self.conv_out = WanCausalConv3d(cin, 2 * cfg.z_dim, 3, cfg, device)
+
+    def forward(self, x):
+        x = self.conv_in(x)
+        for block in self.down_blocks:
+            x = block(x)
+        return self.conv_out(F.silu(self.norm_out(self.mid_block(x))))
+
+
 class WanDecoder3d(nn.Module):
     def __init__(self, cfg: WanVAEConfig, device=None):
         super().__init__()
@@ -212,15 +274,44 @@ class WanDecoder3d(nn.Module):
 
 
 class WanVideoVAE(nn.Module):
-    """The decoder half of the JAX ``WanVideoVAE``: ``decode`` takes the
-    sampler's normalised latents (denormalising with the per-channel stats
-    first), ``decode_raw`` checkpoint-space latents."""
+    """The JAX ``WanVideoVAE``: ``encode`` returns the sampler's normalised
+    latents, (mean - mu) / sigma, and ``decode`` takes them (denormalising
+    with the per-channel stats first); ``encode_raw`` and ``decode_raw``
+    speak the checkpoint's latent space. The encoder is registered after the
+    decoder, so ``init_params_`` draws the decoder's bits first."""
 
     def __init__(self, cfg: WanVAEConfig, device=None):
         super().__init__()
         self.cfg = cfg
         self.post_quant_conv = WanCausalConv3d(cfg.z_dim, cfg.z_dim, 1, cfg, device)
         self.decoder = WanDecoder3d(cfg, device)
+        self.encoder = WanEncoder3d(cfg, device)
+        self.quant_conv = WanCausalConv3d(2 * cfg.z_dim, 2 * cfg.z_dim, 1, cfg, device)
+
+    def _stats(self, device):
+        c = self.cfg
+        shape = (1, c.z_dim, 1, 1, 1)
+        mu = torch.tensor(c.latents_mean, dtype=torch.float32, device=device)
+        std = torch.tensor(c.latents_std, dtype=torch.float32, device=device)
+        return mu.reshape(shape), std.reshape(shape)
+
+    def encode_raw(self, videos):
+        """videos (B, 3, F, H, W) in [-1, 1], F = 1 mod the temporal factor ->
+        (mean, logvar), each (B, z, F', H/8, W/8) fp32, in the checkpoint's
+        latent space; logvar clipped to [-30, 20]."""
+        x = self.quant_conv(self.encoder(videos.to(self.cfg.dtype))).float()
+        mean, logvar = x.chunk(2, dim=1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
+    def encode(self, videos, generator: torch.Generator = None):
+        """Normalised latents: the posterior mean, or with ``generator`` a
+        sample mean + exp(logvar / 2) * N(0, 1), then (x - mu) / sigma."""
+        mean, logvar = self.encode_raw(videos)
+        if generator is not None:
+            mean = mean + torch.exp(0.5 * logvar) * torch.randn(
+                mean.shape, generator=generator, device=mean.device, dtype=torch.float32)
+        mu, std = self._stats(mean.device)
+        return (mean - mu) / std
 
     def decode_raw(self, latents):
         """(B, z, F', H', W') checkpoint-space latents -> video (B, 3, F, H, W)
@@ -229,8 +320,5 @@ class WanVideoVAE(nn.Module):
         return x.float().clamp(-1.0, 1.0)
 
     def decode(self, latents):
-        c = self.cfg
-        shape = (1, c.z_dim, 1, 1, 1)
-        mu = torch.tensor(c.latents_mean, dtype=torch.float32, device=latents.device)
-        std = torch.tensor(c.latents_std, dtype=torch.float32, device=latents.device)
-        return self.decode_raw(latents.float() * std.reshape(shape) + mu.reshape(shape))
+        mu, std = self._stats(latents.device)
+        return self.decode_raw(latents.float() * std + mu)

@@ -10,9 +10,10 @@ is no CFG batch.
 ``random_init`` allocates every parameter on the device (meta construction,
 then ``to_empty``) and draws it there from a ``torch.Generator``, so the
 11.84 B parameters of Flux.1-dev are never staged through host memory;
-``from_jax`` takes the JAX package's parameter trees. Not here yet:
-``encode_image`` (the Kontext conditioning entry; the VAE has its encoder)
-and ``from_pretrained`` (the Flux loader).
+``from_pretrained`` loads a local diffusers ``FluxTransformer2DModel``
+directory and the Flux VAE beside it; ``from_jax`` takes the JAX package's
+parameter trees. Not here yet: ``encode_image`` (the Kontext conditioning
+entry; the VAE has its encoder).
 
 Constructing a pipeline switches TF32 off for float32 matmuls and cuDNN
 convolutions (process-wide), as ``SD3Pipeline`` does: the VAE decodes in fp32.
@@ -63,6 +64,28 @@ class FluxPipeline:
         transformer = init_params_(_build(FluxTransformer, flux_cfg, device), generator)
         vae = init_params_(_build(AutoencoderKL, vae_cfg, device), generator)
         return cls(flux_cfg, vae_cfg, transformer, vae, device, text_seq_len=text_seq_len,
+                   guidance=guidance, latent_hw=latent_hw)
+
+    @classmethod
+    def from_pretrained(cls, model_dir: str, *, vae_dir: Optional[str] = None,
+                        lora_rank: int = 0, lora_alpha: float = 1.0, dtype=torch.bfloat16,
+                        text_seq_len: int = 512, guidance: float = 3.5, latent_hw: int = 64,
+                        device="cuda"):
+        """The transformer of a local diffusers ``FluxTransformer2DModel``
+        directory (``models.convert.load_flux_transformer``) and the Flux
+        ``AutoencoderKL`` of ``vae_dir``, by default ``<model_dir>/../vae``
+        (``models.convert.load_vae`` with ``VAEConfig.flux()``'s factors
+        where its ``config.json`` lacks them), on ``device``."""
+        import os
+
+        from adv_grpo_torch.models import convert
+
+        device = torch.device(device)
+        cfg, transformer = convert.load_flux_transformer(
+            model_dir, dtype=dtype, lora_rank=lora_rank, lora_alpha=lora_alpha, device=device)
+        vae_dir = vae_dir or os.path.join(os.path.dirname(os.path.normpath(model_dir)), "vae")
+        vae_cfg, vae = convert.load_vae(vae_dir, base=VAEConfig.flux(), device=device)
+        return cls(cfg, vae_cfg, transformer, vae, device, text_seq_len=text_seq_len,
                    guidance=guidance, latent_hw=latent_hw)
 
     @classmethod

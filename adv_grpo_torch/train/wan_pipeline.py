@@ -10,8 +10,9 @@ frame-major video (B, F, 3, H, W) in [-1, 1], one video at a time (the same
 numbers as a batched decode, a fraction of its fp32 activation memory).
 
 ``random_init`` allocates every parameter on the device and draws it there
-from a ``torch.Generator``; ``from_jax`` takes the JAX package's parameter
-trees. ``from_pretrained`` waits for Wan weights in the repository.
+from a ``torch.Generator``; ``from_pretrained`` loads a local diffusers
+``WanTransformer3DModel`` directory and the ``AutoencoderKLWan`` beside it;
+``from_jax`` takes the JAX package's parameter trees.
 Constructing a pipeline switches TF32 off for float32 matmuls and cuDNN
 convolutions (process-wide), as the other pipelines do: the VAE decodes in
 fp32.
@@ -58,6 +59,28 @@ class WanPipeline:
         transformer = init_params_(_build(WanTransformer, wan_cfg, device), generator)
         vae = init_params_(_build(WanVideoVAE, vae_cfg, device), generator)
         return cls(wan_cfg, vae_cfg, transformer, vae, device, text_seq_len=text_seq_len,
+                   latent_frames=latent_frames, shift=shift, latent_hw=latent_hw)
+
+    @classmethod
+    def from_pretrained(cls, model_dir: str, *, vae_dir: Optional[str] = None,
+                        lora_rank: int = 0, lora_alpha: float = 1.0, dtype=torch.bfloat16,
+                        latent_frames: int = 21, text_seq_len: int = 512, shift: float = 3.0,
+                        latent_hw: int = 8, device="cuda"):
+        """The transformer of a local diffusers ``WanTransformer3DModel``
+        directory (``models.convert.load_wan_transformer``) and the
+        ``AutoencoderKLWan`` of ``vae_dir``, by default ``<model_dir>/../vae``
+        (the WanPipeline checkpoint layout; ``models.convert.load_wan_vae``),
+        on ``device``."""
+        import os
+
+        from adv_grpo_torch.models import convert
+
+        device = torch.device(device)
+        cfg, transformer = convert.load_wan_transformer(
+            model_dir, dtype=dtype, lora_rank=lora_rank, lora_alpha=lora_alpha, device=device)
+        vae_dir = vae_dir or os.path.join(os.path.dirname(os.path.normpath(model_dir)), "vae")
+        vae_cfg, vae = convert.load_wan_vae(vae_dir, device=device)
+        return cls(cfg, vae_cfg, transformer, vae, device, text_seq_len=text_seq_len,
                    latent_frames=latent_frames, shift=shift, latent_hw=latent_hw)
 
     @classmethod

@@ -167,11 +167,29 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      moved, the launch counts of the four WAN kernels and the BSHD backward
      exactly as derived from the config; seconds per epoch, per microstep,
      peak memory and one microstep's device time by kernel group.
+ 20. Flux.1-dev and Wan2.1-T2V-1.3B from files (``run_family_loader_slice``):
+     diffusers directories written from the seed at the published widths
+     (Flux's transformer bf16 in FAMILY_FLUX_SHARDS shards with their index,
+     its depth cut on disk to FAMILY_FLUX_DEPTH; WAN's transformer fp32 at
+     full depth; both VAEs fp32, WAN's encoder included); every loaded
+     tensor bitwise as written (WAN's rounded to bf16 as the loader rounds
+     it), LoRA A bitwise the numpy draws; ``cli.infer`` on ``flux_smoke``
+     with ``FLUX_DIR`` (512^2, FLUX_STEPS steps) and one ``flux_smoke`` epoch
+     at FLUX_TRAIN_OVERRIDES; the WAN VAE encoder on the card against the CPU
+     in fp32 (WAN_ENCODE_REL_L2) and one encode of WAN_FRAMES frames of
+     WAN_RES^2; the demo path from ``WAN_DIR`` (WAN_STEPS steps) and one
+     ``wan_smoke`` epoch at WAN_TRAIN_OVERRIDES: the launch counts of #1, #2,
+     #4, #6, #7, #8 and #9 as derived for the loaded configs, finite
+     metrics, the LoRA and its EMA moved; bytes and write / load seconds per
+     directory, s/image, s/video, epoch seconds, peak device memory and host
+     RSS.
 
 ``python3 chip_smoke.py --dino`` builds the kernels and runs the DINO phase
 alone (``run_dino_slice``, in its one-rank NCCL group), without the result
-lines; ``--checkpoint`` the checkpoint phase (``run_checkpoint_slice``) and
-``--loaders`` the loader phase (``run_loader_slice``) the same way. ``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
+lines; ``--checkpoint`` the checkpoint phase (``run_checkpoint_slice``),
+``--loaders`` the loader phase (``run_loader_slice``) and
+``--family-loaders`` the Flux / WAN loader phase
+(``run_family_loader_slice``) the same way. ``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
 joint forwards #2 / #3 (JOINT_CASES: SD3.5-M at CFG batch 2 and 8, Flux.1-dev
 at B = 1 and 4) of the checkout at PARENT (an older tree) against this one's,
 in PAIRS alternating pairs of processes, with each side's error on the same
@@ -349,6 +367,27 @@ WAN_TRAIN_OVERRIDES = [f"resolution={WAN_RES}", f"sample.num_frames={WAN_FRAMES}
 # and trained one epoch (TRAIN_ARGV's smoke_sd3_fast cuts) from it
 LOADER_T5_LAYERS = 4
 ENCODE_BATCH = 32
+# the family loader slice: Flux.1-dev and Wan2.1-T2V-1.3B diffusers
+# directories written from the seed + 11 at the published widths. Flux's
+# transformer bf16 in FAMILY_FLUX_SHARDS shards with its index, its depth cut
+# on disk to FAMILY_FLUX_DEPTH = (double, single) blocks of (19, 38) (the
+# full depth runs from random weights in the Flux phases); the Flux VAE fp32.
+# WAN's transformer at full depth (30 layers) in fp32, so the loader's bf16
+# rounding runs; its AutoencoderKLWan fp32, encoder included, with Wan2.1's
+# latent statistics. From them: cli.infer (flux_smoke, 512^2, FLUX_STEPS
+# steps), one flux_smoke epoch at FLUX_TRAIN_OVERRIDES, the WAN demo path
+# (WAN_STEPS steps, WAN_FRAMES frames of WAN_RES^2), one wan_smoke epoch at
+# WAN_TRAIN_OVERRIDES, and the WAN VAE encoder on the card against the CPU
+FAMILY_FLUX_DEPTH = (3, 6)
+FAMILY_FLUX_SHARDS = 3
+WAN_LATENTS_MEAN = (-0.7571, -0.7089, -0.9113, 0.1075, -0.1745, 0.9653, -0.1517, 1.5508,
+                    0.4134, -0.0715, 0.5517, -0.3632, -0.1922, -0.9497, 0.2503, -0.2921)
+WAN_LATENTS_STD = (2.8184, 1.4541, 2.3275, 2.6558, 1.2196, 1.7708, 2.6052, 2.0743,
+                   3.2687, 2.1526, 2.8652, 1.5579, 1.6382, 1.1253, 2.8251, 1.9160)
+# the full-width WAN VAE encoder in fp32 on the card (TF32 off) against the
+# CPU on a 5-frame 64^2 clip: relative L2 of the mean and of the logvar (two
+# fp32 conv stacks summing in other orders)
+WAN_ENCODE_REL_L2 = 1e-4
 # relative L2 bound of the 2-layer full-width T5-XXL in bf16 against fp32, at
 # scores of order one (_t5_weights_at_scale_); the same T5 with its bias table
 # lost, or its mask, must read above it (_check_encoders_on_card)
@@ -1776,6 +1815,43 @@ def hf_t5_state_dict(sd):
     return out
 
 
+def hf_umt5_state_dict(sd):
+    """The port's T5Encoder state dict at ``per_layer_rel_bias=True`` in HF
+    UMT5EncoderModel names: ``hf_t5_state_dict``'s, with every block's bias
+    table in its own ``layer.0.SelfAttention`` (the tests write their UMT5
+    files with it)."""
+    tables = {k: v for k, v in sd.items() if k.endswith(".relative_attention_bias")}
+    out = hf_t5_state_dict({k: v for k, v in sd.items() if k not in tables})
+    for k, v in tables.items():
+        out[f"encoder.block.{k.split('.')[1]}.layer.0.SelfAttention.relative_attention_bias"
+            ".weight"] = v
+    return out
+
+
+def _frozen(sd):
+    return {k: v for k, v in sd.items() if k.rsplit(".", 1)[-1] not in ("lora_a", "lora_b")}
+
+
+def hf_flux_state_dict(sd):
+    """The port's FluxTransformer state dict in diffusers
+    FluxTransformer2DModel names: the port keeps diffusers' names, so the
+    frozen weights as they are, without the LoRA factors (a checkpoint holds
+    none). The tests hold its names and shapes to the diffusers mirror's."""
+    return _frozen(sd)
+
+
+def hf_wan_state_dict(sd):
+    """The port's WanTransformer state dict in diffusers
+    WanTransformer3DModel names (the port's own, without the LoRA factors)."""
+    return _frozen(sd)
+
+
+def hf_wan_vae_state_dict(sd):
+    """The port's WanVideoVAE state dict in diffusers AutoencoderKLWan names
+    (the port's own: encoder, quant convs, decoder)."""
+    return dict(sd)
+
+
 HF_VIT_LAYER = {"norm1": "layer_norm1", "norm2": "layer_norm2", **HF_CLIP_LAYER}
 
 
@@ -2029,6 +2105,80 @@ def write_t5_tokenizer(d, pieces, charsmap):
                    "model_max_length": 512, "tokenizer_class": "T5Tokenizer"}, f)
 
 
+def write_folder(d, sd, config, shards=1, stem="diffusion_pytorch_model"):
+    """A diffusers / HF model folder ``d``: ``config.json`` and
+    ``{stem}.safetensors``, or with ``shards`` > 1 the names cut in that many
+    files ``{stem}-0000i-of-0000n.safetensors`` and their
+    ``{stem}.safetensors.index.json``; written by the port's own
+    safetensors writer."""
+    from adv_grpo_torch.utils import safetensors_io
+
+    os.makedirs(d)
+    names = sorted(sd)
+    if shards == 1:
+        safetensors_io.save_file(sd, os.path.join(d, f"{stem}.safetensors"))
+    else:
+        cut = [names[i * len(names) // shards:(i + 1) * len(names) // shards]
+               for i in range(shards)]
+        files = [f"{stem}-{i + 1:05d}-of-{shards:05d}.safetensors" for i in range(shards)]
+        for fname, keys in zip(files, cut):
+            safetensors_io.save_file({k: sd[k] for k in keys}, os.path.join(d, fname))
+        with open(os.path.join(d, f"{stem}.safetensors.index.json"), "w") as f:
+            json.dump({"metadata": {}, "weight_map": {k: fn for fn, ks in zip(files, cut)
+                                                      for k in ks}}, f)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(config, f)
+
+
+def write_flux_dirs(root, transformer_sd, vae_sd, fcfg, vcfg, shards=1, vae_factors=True):
+    """A Flux.1 diffusers directory under ``root``: ``transformer/``
+    (``transformer_sd`` in FluxTransformer2DModel names, in its own dtype, in
+    ``shards`` files) and ``vae/`` (``vae_sd``, the SD3-layout AutoencoderKL),
+    with the config.json keys of Flux.1-dev's folders at ``fcfg`` / ``vcfg``;
+    ``vae_factors=False`` leaves ``scaling_factor`` / ``shift_factor`` out of
+    the VAE's."""
+    write_folder(os.path.join(root, "transformer"), transformer_sd, {
+        "_class_name": "FluxTransformer2DModel", "patch_size": 1,
+        "in_channels": fcfg.in_channels, "num_layers": fcfg.num_double_layers,
+        "num_single_layers": fcfg.num_single_layers,
+        "attention_head_dim": fcfg.attention_head_dim,
+        "num_attention_heads": fcfg.num_attention_heads,
+        "joint_attention_dim": fcfg.joint_attention_dim,
+        "pooled_projection_dim": fcfg.pooled_projection_dim,
+        "guidance_embeds": fcfg.guidance_embeds, "axes_dims_rope": list(fcfg.rope_axes_dims)},
+        shards)
+    factors = ({"scaling_factor": vcfg.scaling_factor, "shift_factor": vcfg.shift_factor}
+               if vae_factors else {})
+    write_folder(os.path.join(root, "vae"), vae_sd, {
+        "_class_name": "AutoencoderKL", "in_channels": 3, "out_channels": 3,
+        "latent_channels": vcfg.latent_channels,
+        "block_out_channels": list(vcfg.block_out_channels),
+        "layers_per_block": vcfg.layers_per_block, "norm_num_groups": vcfg.norm_num_groups,
+        "use_quant_conv": False, "use_post_quant_conv": False, **factors})
+
+
+def write_wan_dirs(root, transformer_sd, vae_sd, wcfg, vcfg, shards=1):
+    """A Wan2.1 diffusers directory under ``root``: ``transformer/``
+    (``transformer_sd`` in WanTransformer3DModel names, in its own dtype, in
+    ``shards`` files) and ``vae/`` (``vae_sd``, AutoencoderKLWan, its latent
+    statistics in config.json), with the config.json keys of
+    Wan2.1-T2V-1.3B's folders at ``wcfg`` / ``vcfg``."""
+    write_folder(os.path.join(root, "transformer"), transformer_sd, {
+        "_class_name": "WanTransformer3DModel", "patch_size": list(wcfg.patch_size),
+        "in_channels": wcfg.in_channels, "out_channels": wcfg.out_channels,
+        "num_layers": wcfg.num_layers, "attention_head_dim": wcfg.attention_head_dim,
+        "num_attention_heads": wcfg.num_attention_heads, "text_dim": wcfg.text_dim,
+        "ffn_dim": wcfg.ffn_dim, "freq_dim": 256, "cross_attn_norm": wcfg.cross_attn_norm,
+        "qk_norm": "rms_norm_across_heads", "eps": 1e-6, "added_kv_proj_dim": None,
+        "image_dim": None, "rope_max_seq_len": 1024}, shards)
+    write_folder(os.path.join(root, "vae"), vae_sd, {
+        "_class_name": "AutoencoderKLWan", "base_dim": vcfg.base_dim, "z_dim": vcfg.z_dim,
+        "dim_mult": list(vcfg.dim_mult), "num_res_blocks": vcfg.num_res_blocks,
+        "attn_scales": list(vcfg.attn_scales),
+        "temperal_downsample": list(vcfg.temperal_downsample), "dropout": 0.0,
+        "latents_mean": list(vcfg.latents_mean), "latents_std": list(vcfg.latents_std)})
+
+
 def _base_scaled_table(dim, max_size, base, device):
     """diffusers' persisted PatchEmbed table (get_2d_sincos_pos_embed: positions
     scaled by base / max_size; the column half first), (1, max_size^2, dim)
@@ -2064,29 +2214,13 @@ def _write_sd3_dir(root, generator, mcfg, vcfg, clip_cfgs, t5cfg, device="cuda")
     from adv_grpo_torch.models.t5 import T5Encoder
     from adv_grpo_torch.models.vae import AutoencoderKL
     from adv_grpo_torch.train.pipeline import _build
-    from adv_grpo_torch.utils import safetensors_io
 
     def module_sd(cls, cfg, dtype):
         m = init_params_(_build(cls, cfg, device), generator)
         return {k: v.detach().to(dtype) for k, v in m.state_dict().items()}
 
     def write(sub, sd, config, shards=1):
-        d = os.path.join(root, sub)
-        os.makedirs(d)
-        names = sorted(sd)
-        if shards == 1:
-            safetensors_io.save_file(sd, os.path.join(d, "model.safetensors"))
-        else:
-            cut = [names[i * len(names) // shards:(i + 1) * len(names) // shards]
-                   for i in range(shards)]
-            files = [f"model-{i + 1:05d}-of-{shards:05d}.safetensors" for i in range(shards)]
-            for fname, keys in zip(files, cut):
-                safetensors_io.save_file({k: sd[k] for k in keys}, os.path.join(d, fname))
-            with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
-                json.dump({"metadata": {}, "weight_map": {k: fn for fn, ks in zip(files, cut)
-                                                          for k in ks}}, f)
-        with open(os.path.join(d, "config.json"), "w") as f:
-            json.dump(config, f)
+        write_folder(os.path.join(root, sub), sd, config, shards, stem="model")
 
     sd = module_sd(MMDiT, dataclasses.replace(mcfg, dtype=torch.bfloat16), torch.bfloat16)
     base = mcfg.sample_size // mcfg.patch_size
@@ -3085,18 +3219,18 @@ def run_flux_inference(kernels):
     return counts
 
 
-def expected_flux_train_counts(config, fcfg):
-    """Launches of the 6 Flux kernels in the FLUX_TRAIN_OVERRIDES run, from
-    the config: rollout forwards (one per step of each sampling batch) and
-    replay forwards (one per microstep), then the backwards (one per
-    microstep: every joint and BSHD attention, all of which a LoRA factor
-    reaches)."""
+def expected_flux_train_counts(config, fcfg, epochs=EPOCHS):
+    """Launches of the 6 Flux kernels in ``epochs`` epochs of the
+    FLUX_TRAIN_OVERRIDES run, from the config: rollout forwards (one per step
+    of each sampling batch) and replay forwards (one per microstep), then the
+    backwards (one per microstep: every joint and BSHD attention, all of
+    which a LoRA factor reaches)."""
     s, t = config.sample, config.train
-    micro = (EPOCHS * max(int(t.num_inner_epochs), 1) * int(s.num_batches_per_epoch)
+    micro = (epochs * max(int(t.num_inner_epochs), 1) * int(s.num_batches_per_epoch)
              * max(int(t.micro_splits), 1) * int(s.train_num_steps))
-    fwd = EPOCHS * int(s.num_batches_per_epoch) * int(s.num_steps) + micro
+    fwd = epochs * int(s.num_batches_per_epoch) * int(s.num_steps) + micro
     return ([c * fwd for c in flux_per_forward_counts(fcfg)]
-            + [fcfg.num_double_layers * micro, fcfg.num_single_layers * micro]), micro // EPOCHS
+            + [fcfg.num_double_layers * micro, fcfg.num_single_layers * micro]), micro // epochs
 
 
 def run_flux_training(kernels):
@@ -3554,20 +3688,20 @@ def run_wan_sampling(kernels):
     return counts, cross
 
 
-def expected_wan_train_counts(config, wcfg):
-    """Launches of the 4 WAN forward kernels and the BSHD backward in the
-    WAN_TRAIN_OVERRIDES run, from the config: rollout forwards (one per step
-    of each sampling batch; no KL forward: the trainer's pipeline carries no
-    kl_reward) and replay forwards (one per microstep, two with a KL loss),
-    then the backwards (one per microstep: both attentions of every block,
-    all of which a LoRA factor reaches)."""
+def expected_wan_train_counts(config, wcfg, epochs=EPOCHS):
+    """Launches of the 4 WAN forward kernels and the BSHD backward in
+    ``epochs`` epochs of the WAN_TRAIN_OVERRIDES run, from the config:
+    rollout forwards (one per step of each sampling batch; no KL forward: the
+    trainer's pipeline carries no kl_reward) and replay forwards (one per
+    microstep, two with a KL loss), then the backwards (one per microstep:
+    both attentions of every block, all of which a LoRA factor reaches)."""
     s, t = config.sample, config.train
-    micro = (EPOCHS * max(int(t.num_inner_epochs), 1) * int(s.num_batches_per_epoch)
+    micro = (epochs * max(int(t.num_inner_epochs), 1) * int(s.num_batches_per_epoch)
              * max(int(t.micro_splits), 1) * int(s.train_num_steps))
     replay = micro * (2 if float(t.beta) > 0 else 1)
-    fwd = EPOCHS * int(s.num_batches_per_epoch) * int(s.num_steps) + replay
+    fwd = epochs * int(s.num_batches_per_epoch) * int(s.num_steps) + replay
     return ([c * fwd for c in wan_per_forward_counts(wcfg)]
-            + [2 * wcfg.num_layers * micro]), micro // EPOCHS
+            + [2 * wcfg.num_layers * micro]), micro // epochs
 
 
 def run_wan_training(kernels):
@@ -3675,6 +3809,349 @@ def run_wan_training(kernels):
     del trainer, pipeline
     torch.cuda.empty_cache()
     return counts, cross
+
+def _sets(overrides):
+    """``--set`` arguments of a CLI for each override."""
+    return [a for o in overrides for a in ("--set", o)]
+
+
+def _loaded_differ(state, written, init, rounded=False):
+    """(the names whose loaded tensor is not bitwise what was written, the
+    LoRA factors that are not bitwise ``init``'s, the names in neither):
+    with ``rounded``, fp32 tensors as the loader rounds them to bf16 first."""
+    import torch
+
+    def want(v):
+        return v.to(torch.bfloat16) if rounded and v.dtype == torch.float32 else v
+
+    differ = [k for k, v in written.items()
+              if k not in state or not torch.equal(state[k].float(), want(v).float())]
+    lora = [k for k, v in init.items()
+            if k not in state or not torch.equal(state[k], v.to(state[k].device))]
+    return differ, lora, sorted(set(state) - set(written) - set(init))
+
+
+def _check_epoch(what, trainer, run_dir, kernels, want, start, jax_path, smi):
+    """Print and check one epoch of ``cli.train`` from a directory: the
+    launches against ``want``, finite metrics, every LoRA factor and its EMA
+    moved from the loaded adapter ``start`` (port names, read through
+    ``jax_path``)."""
+    import numpy as np
+    import torch
+
+    counts = [k.launches for k in kernels]
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    r = records[0]
+    nb = int(trainer.config.sample.num_batches_per_epoch)
+    start = {jax_path(k): v.cuda() for k, v in start.items()}
+    lora, ema = trainer.state.lora, trainer.state.ema
+    unchanged = {k for k, v in lora.items() if torch.equal(v, start[k])}
+    ema_unchanged = {k for k, v in ema.items() if torch.equal(v, start[k])}
+    bad = [k for k, v in r.items() if isinstance(v, float) and not np.isfinite(v)]
+    print(f"  {what}: launches {counts} (expected {want}); rollout+decode "
+          f"{r['time/rollout'] * nb:.3f} s, reward "
+          f"{r['time/reward_wait'] + r['time/reward_dispatch'] * nb:.3f} s, train "
+          f"{r['time/train']:.3f} s; reward {r['reward_avg']:.5f}, loss {r['loss']:.3e}, "
+          f"approx_kl {r['approx_kl']:.3e}; LoRA {len(lora) - len(unchanged)} of {len(lora)} "
+          f"tensors moved from the loaded adapter, EMA {len(ema) - len(ema_unchanged)}; {smi}",
+          flush=True)
+    if counts != want or len(records) != 1 or bad or unchanged or ema_unchanged:
+        raise AssertionError(f"{what}: launches {counts} (expected {want}), {len(records)} "
+                             f"records, non-finite {bad}, unchanged {sorted(unchanged)[:4]}, "
+                             f"EMA unchanged {sorted(ema_unchanged)[:4]}")
+
+
+def run_family_loader_slice(smi):
+    """Phase: Flux.1-dev and Wan2.1-T2V-1.3B start from files. Writes, from
+    the seed + 11, a Flux.1-dev diffusers directory (``transformer/`` bf16 in
+    FAMILY_FLUX_SHARDS shards with their index, depth cut on disk to
+    FAMILY_FLUX_DEPTH; ``vae/`` fp32) and a Wan2.1-T2V-1.3B one
+    (``transformer/`` fp32 at full depth; ``vae/`` AutoencoderKLWan fp32,
+    encoder included), in diffusers names (``hf_flux_state_dict``,
+    ``hf_wan_state_dict``, ``hf_wan_vae_state_dict``) and published
+    config.json keys. Loads each: every tensor bitwise as written (WAN's
+    fp32 weights as rounded to bf16), LoRA A bitwise the numpy draws
+    (``flux_lora_init``, ``wan_lora_init``), B zero. Then from the files:
+    ``cli.infer`` on ``flux_smoke`` with ``FLUX_DIR`` at 512^2, FLUX_STEPS
+    steps (launches of #1, #7, #2, #8 per ``flux_per_forward_counts``); one
+    ``flux_smoke`` epoch at FLUX_TRAIN_OVERRIDES (adding #4, #9); the WAN
+    VAE encoder on the card against the CPU in fp32 (WAN_ENCODE_REL_L2), and
+    one encode of WAN_FRAMES frames of WAN_RES^2 timed with its peak memory;
+    the demo path from ``WAN_DIR`` (WAN_STEPS steps, #1, #6, #7, #8 per
+    ``wan_per_forward_counts``); one ``wan_smoke`` epoch at
+    WAN_TRAIN_OVERRIDES (#9). A RANDOM-INIT warning is an error. Prints
+    bytes and write / load seconds per directory, s/image, s/video, the
+    epochs' seconds, peak device memory and host RSS."""
+    import dataclasses
+    import gc
+    import resource
+    import warnings
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from adv_grpo_torch.cli import common, infer, train
+    from adv_grpo_torch.cli.wan_sde_demo import sample_video
+    from adv_grpo_torch.models import convert
+    from adv_grpo_torch.models.flux import FluxConfig, FluxTransformer, flux_jax_lora_path
+    from adv_grpo_torch.models.lora import init_params_
+    from adv_grpo_torch.models.vae import AutoencoderKL, VAEConfig
+    from adv_grpo_torch.models.wan import WanConfig, WanTransformer, wan_jax_lora_path
+    from adv_grpo_torch.models.wan_vae import WanVAEConfig, WanVideoVAE
+    from adv_grpo_torch.ops import attention, fused_norms, joint_attention
+    from adv_grpo_torch.rollout.wan import WanSamplerConfig
+    from adv_grpo_torch.train.pipeline import _build
+
+    flux_kernels = (fused_norms.modulated_layer_norm, fused_norms.rms_norm_heads,
+                    joint_attention.joint_mha, attention.mha_bshd,
+                    joint_attention.joint_attention_bwd, attention.mha_bshd_bwd)
+    wan_kernels = (fused_norms.modulated_layer_norm, fused_norms.rms_norm_heads,
+                   fused_norms.layer_norm, attention.mha_bshd, attention.mha_bshd_bwd)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    def drawn(cls, cfg):
+        module = init_params_(_build(cls, cfg, dev), gen)
+        return {k: v.detach() for k, v in module.state_dict().items()}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def timed(fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    phase_t0 = time.perf_counter()
+    env = {k: os.environ.get(k) for k in ("FLUX_DIR", "WAN_DIR")}
+    epochs = {}
+    with tempfile.TemporaryDirectory() as work, warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*RANDOM-INIT")
+        # ── Flux.1-dev ──
+        root = os.path.join(work, "flux")
+        flux_dir = os.path.join(root, "transformer")
+        preset = common.resolve_config("flux_smoke")
+        rank, alpha = int(preset.train.lora_rank), float(preset.train.lora_alpha)
+        n2, n1 = FAMILY_FLUX_DEPTH
+        fcfg, fvcfg = FluxConfig.dev(num_double_layers=n2, num_single_layers=n1), VAEConfig.flux()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flux_sd, fvae_sd = hf_flux_state_dict(drawn(FluxTransformer, fcfg)), drawn(AutoencoderKL,
+                                                                                 fvcfg)
+        write_flux_dirs(root, flux_sd, fvae_sd, fcfg, fvcfg, shards=FAMILY_FLUX_SHARDS)
+        write_s = time.perf_counter() - t0
+        shards = [f for f in os.listdir(flux_dir) if f.endswith(".safetensors")]
+        index = os.path.join(flux_dir, "diffusion_pytorch_model.safetensors.index.json")
+        print(f"wrote a Flux.1-dev diffusers directory in {write_s:.2f} s: transformer "
+              f"{_dir_bytes(flux_dir):,} B ({sum(v.numel() for v in flux_sd.values()):,} bf16 "
+              f"values, depth cut on disk to {n2} of 19 double and {n1} of 38 single blocks, "
+              f"{len(shards)} shards and their index), vae {_dir_bytes(os.path.join(root, 'vae')):,}"
+              f" B (fp32); {smi}", flush=True)
+        if len(shards) != FAMILY_FLUX_SHARDS or not os.path.exists(index):
+            raise AssertionError(f"Flux shards {shards}, index {os.path.exists(index)}")
+        (cfg, model), load_s = timed(convert.load_flux_transformer, flux_dir, lora_rank=rank,
+                                     lora_alpha=alpha, device=dev)
+        differ, lora_differ, extra = _loaded_differ(model.state_dict(), flux_sd,
+                                                    convert.flux_lora_init(cfg))
+        (vcfg, vae), vae_s = timed(convert.load_vae, os.path.join(root, "vae"), base=fvcfg,
+                                    device=dev)
+        vae_differ, _, vae_extra = _loaded_differ(vae.state_dict(), fvae_sd, {})
+        print(f"load_flux_transformer(lora_rank={rank}) on the card in {load_s:.2f} s: "
+              f"{len(flux_sd)} tensors bitwise the file's ({len(differ)} differ), "
+              f"{len(convert.flux_lora_init(cfg))} LoRA factors bitwise the numpy "
+              f"draws / zero ({len(lora_differ)} differ); load_vae (Flux) in {vae_s:.2f} s: "
+              f"{len(fvae_sd)} tensors bitwise ({len(vae_differ)} differ), scaling "
+              f"{vcfg.scaling_factor}, shift {vcfg.shift_factor}", flush=True)
+        if (differ or lora_differ or extra or vae_differ or vae_extra
+                or cfg != dataclasses.replace(fcfg, lora_rank=rank, lora_alpha=alpha)
+                or vcfg != fvcfg):
+            raise AssertionError(f"Flux load: {differ[:4]} {lora_differ[:4]} {extra[:4]} "
+                                 f"{vae_differ[:4]}; {cfg}; {vcfg}")
+        del model, vae, flux_sd, fvae_sd
+        free()
+
+        os.environ["FLUX_DIR"] = flux_dir
+        held, generate = {}, infer.generate
+
+        def held_generate(pipeline, *args, **kwargs):
+            out, s = timed(generate, pipeline, *args, **kwargs)
+            held.update(s=s, call=(pipeline,) + args, kwargs=kwargs)
+            return out
+
+        _zero_counts(flux_kernels)
+        infer.generate = held_generate
+        try:
+            paths = infer.main(["--config", "flux_smoke", "--prompts", "a flower", "--out_dir",
+                                os.path.join(work, "flux_infer"), "--device", "cuda"]
+                               + _sets(["resolution=512", f"sample.eval_num_steps={FLUX_STEPS}"]))
+        finally:
+            infer.generate = generate
+        counts = [k.launches for k in flux_kernels[:4]]
+        want = [c * FLUX_STEPS for c in flux_per_forward_counts(fcfg)]
+        img = np.asarray(Image.open(paths[0]))
+        images, warm = timed(generate, *held["call"], **held["kwargs"])
+        print(f"cli.infer flux_smoke from FLUX_DIR, 512^2 {FLUX_STEPS} steps guidance "
+              f"{held['call'][0].guidance}: {held['s']:.3f} s/image (the pipeline's first "
+              f"generate), {warm:.3f} s/image warm; PNG {img.shape}, pixel range "
+              f"{img.min()}..{img.max()}; launches {counts} (LN, RMS, joint, BSHD; expected "
+              f"{want}); {smi}", flush=True)
+        if (counts != want or img.shape != (512, 512, 3) or img.min() == img.max()
+                or not torch.isfinite(images).all()):
+            raise AssertionError(f"Flux infer from files: launches {counts}, PNG {img.shape} "
+                                 f"{img.min()}..{img.max()}")
+        del held, images
+        free()
+
+        _zero_counts(flux_kernels)
+        run_dir = os.path.join(work, "flux_run")
+        trainer, epochs["flux_smoke"] = timed(train.main, [
+            "--config", "flux_smoke", "--max_epochs", "1", "--device", "cuda", "--set",
+            f"save_dir={run_dir}"] + _sets(FLUX_TRAIN_OVERRIDES))
+        print(f"cli.train flux_smoke from FLUX_DIR, 1 epoch (FLUX_TRAIN_OVERRIDES): "
+              f"{epochs['flux_smoke']:.2f} s wall (build included)", flush=True)
+        want, _ = expected_flux_train_counts(trainer.config, trainer.pipeline.flux_cfg, epochs=1)
+        _check_epoch("flux_smoke from files", trainer, run_dir, flux_kernels, want,
+                     convert.flux_lora_init(trainer.pipeline.flux_cfg), flux_jax_lora_path, smi)
+        del trainer
+        free()
+
+        # ── Wan2.1-T2V-1.3B ──
+        root = os.path.join(work, "wan")
+        wan_dir = os.path.join(root, "transformer")
+        preset = common.resolve_config("wan_smoke")
+        rank, alpha = int(preset.train.lora_rank), float(preset.train.lora_alpha)
+        wcfg = WanConfig.t2v_1_3b(dtype=torch.float32)
+        wvcfg = WanVAEConfig.wan(latents_mean=WAN_LATENTS_MEAN, latents_std=WAN_LATENTS_STD)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wan_sd = hf_wan_state_dict(drawn(WanTransformer, wcfg))
+        wvae_sd = hf_wan_vae_state_dict(drawn(WanVideoVAE, wvcfg))
+        write_wan_dirs(root, wan_sd, wvae_sd, wcfg, wvcfg)
+        write_s = time.perf_counter() - t0
+        print(f"wrote a Wan2.1-T2V-1.3B diffusers directory in {write_s:.2f} s: transformer "
+              f"{_dir_bytes(wan_dir):,} B ({sum(v.numel() for v in wan_sd.values()):,} fp32 "
+              f"values, {wcfg.num_layers} layers, one file), vae "
+              f"{_dir_bytes(os.path.join(root, 'vae')):,} B (fp32, encoder and decoder); {smi}",
+              flush=True)
+        (cfg, model), load_s = timed(convert.load_wan_transformer, wan_dir, lora_rank=rank,
+                                     lora_alpha=alpha, device=dev)
+        differ, lora_differ, extra = _loaded_differ(model.state_dict(), wan_sd,
+                                                    convert.wan_lora_init(cfg), rounded=True)
+        moved = sum(not torch.equal(v.to(torch.bfloat16).float(), v) for v in wan_sd.values())
+        (vcfg, vae), vae_s = timed(convert.load_wan_vae, os.path.join(root, "vae"), device=dev)
+        vae_differ, _, vae_extra = _loaded_differ(vae.state_dict(), wvae_sd, {})
+        print(f"load_wan_transformer(lora_rank={rank}) on the card in {load_s:.2f} s: "
+              f"{len(wan_sd)} tensors bitwise the file's rounded to bf16 ({moved} changed by the "
+              f"rounding; {len(differ)} differ), {len(convert.wan_lora_init(cfg))} LoRA factors "
+              f"bitwise the numpy draws / zero ({len(lora_differ)} differ); load_wan_vae in "
+              f"{vae_s:.2f} s: {len(wvae_sd)} tensors bitwise ({len(vae_differ)} differ), "
+              f"latent statistics as written {vcfg == wvcfg}", flush=True)
+        if (differ or lora_differ or extra or vae_differ or vae_extra or not moved
+                or cfg != WanConfig.t2v_1_3b(lora_rank=rank, lora_alpha=alpha)
+                or vcfg != wvcfg):
+            raise AssertionError(f"WAN load: {differ[:4]} {lora_differ[:4]} {extra[:4]} "
+                                 f"{vae_differ[:4]}; {cfg}; {vcfg}")
+        del model, wan_sd, wvae_sd
+        free()
+
+        # the encoder on the card against the CPU, in fp32 (TF32 off, as the
+        # pipelines set it), then one encode at the sampled size
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cpu_vae = _build(WanVideoVAE, vcfg, torch.device("cpu"))
+        cpu_vae.load_state_dict(vae.state_dict())
+        clip = torch.rand((1, 3, 5, 64, 64), generator=torch.Generator().manual_seed(SEED + 12))
+        with torch.inference_mode():
+            ref = cpu_vae.encode_raw(clip * 2 - 1)
+            got = vae.encode_raw((clip * 2 - 1).to(dev))
+        errs = {name: (_rel_l2(g.cpu(), r), (g.cpu() - r).abs().max().item())
+                for name, g, r in zip(("mean", "logvar"), got, ref)}
+        del cpu_vae
+        peak_before = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        video = torch.rand((1, 3, WAN_FRAMES, WAN_RES, WAN_RES), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(SEED + 12)) * 2 - 1
+        with torch.inference_mode():
+            (mean, logvar), enc_s = timed(vae.encode_raw, video)
+        enc_peak = torch.cuda.max_memory_allocated()
+        print(f"WAN VAE encoder from the file, full width fp32, card against CPU on a 5-frame "
+              f"64^2 clip: relative L2 / max abs mean {errs['mean'][0]:.3e} / "
+              f"{errs['mean'][1]:.3e}, logvar {errs['logvar'][0]:.3e} / {errs['logvar'][1]:.3e}"
+              f" (bound {WAN_ENCODE_REL_L2:g}); one encode of {WAN_FRAMES} frames of "
+              f"{WAN_RES}^2 -> {tuple(mean.shape)} in {enc_s:.3f} s (first call), peak device "
+              f"memory {enc_peak / 2**30:.2f} GiB; {smi}", flush=True)
+        if (max(e[0] for e in errs.values()) > WAN_ENCODE_REL_L2
+                or tuple(mean.shape) != (1, 16, vcfg.latent_frames(WAN_FRAMES), WAN_RES // 8,
+                                         WAN_RES // 8)
+                or not (torch.isfinite(mean).all() and torch.isfinite(logvar).all())):
+            raise AssertionError(f"WAN encoder: {errs}, {tuple(mean.shape)}")
+        del vae, video, mean, logvar, got
+        free()
+        torch.cuda.reset_peak_memory_stats()
+
+        os.environ["WAN_DIR"] = wan_dir
+        config = common.apply_overrides(common.resolve_config("wan_smoke"),
+                                        [f"resolution={WAN_RES}", f"sample.num_frames={WAN_FRAMES}"])
+        pipeline, build_s = timed(common.build_pipeline, config, device="cuda", frames=WAN_FRAMES)
+        text = torch.from_numpy(common.build_text_encoder(config, pipeline)(
+            ["a cat on a skateboard"])[0]).to(dev)
+        latents = pipeline.prepare_latents(torch.Generator(device=dev).manual_seed(SEED), 1)
+        _zero_counts(wan_kernels[:4])
+        (out, video), wall = timed(sample_video, pipeline, latents, text,
+                                   WanSamplerConfig(num_steps=WAN_STEPS),
+                                   torch.Generator(device=dev).manual_seed(SEED + 1))
+        counts, cross = [k.launches for k in wan_kernels[:4]], wan_kernels[3].cross_launches
+        want = [c * WAN_STEPS for c in wan_per_forward_counts(pipeline.wan_cfg)]
+        print(f"WAN demo path from WAN_DIR (build_pipeline in {build_s:.2f} s), {WAN_FRAMES} "
+              f"frames of {WAN_RES}^2 ({tuple(latents.shape)} latents, {text.shape[1]} text "
+              f"tokens), {WAN_STEPS} steps: {wall:.2f} s/video (first call, VAE decode "
+              f"included); video {tuple(video.shape)}; launches {counts} (modulated LN, RMS, LN, "
+              f"BSHD; expected {want}), {cross} of the BSHD ones cross-attention; {smi}",
+              flush=True)
+        if (counts != want or cross != want[3] // 2
+                or tuple(video.shape) != (1, WAN_FRAMES, 3, WAN_RES, WAN_RES)
+                or text.shape[1] != WAN_TEXT or not torch.isfinite(video).all()
+                or not torch.isfinite(out.log_probs).all()):
+            raise AssertionError(f"WAN from files: launches {counts} ({cross} cross), video "
+                                 f"{tuple(video.shape)}, text {tuple(text.shape)}")
+        del pipeline, out, video, latents, text
+        free()
+
+        _zero_counts(wan_kernels)
+        run_dir = os.path.join(work, "wan_run")
+        trainer, epochs["wan_smoke"] = timed(train.main, [
+            "--config", "wan_smoke", "--max_epochs", "1", "--device", "cuda", "--set",
+            f"save_dir={run_dir}"] + _sets(WAN_TRAIN_OVERRIDES))
+        cross = [k.cross_launches for k in wan_kernels[3:]]
+        want, _ = expected_wan_train_counts(trainer.config, trainer.pipeline.wan_cfg, epochs=1)
+        print(f"cli.train wan_smoke from WAN_DIR, 1 epoch (WAN_TRAIN_OVERRIDES): "
+              f"{epochs['wan_smoke']:.2f} s wall (build included); {cross} of the BSHD launches "
+              f"cross-attention", flush=True)
+        _check_epoch("wan_smoke from files", trainer, run_dir, wan_kernels, want,
+                     convert.wan_lora_init(trainer.pipeline.wan_cfg), wan_jax_lora_path, smi)
+        if cross != [want[3] // 2, want[4] // 2]:
+            raise AssertionError(f"WAN epoch from files: cross-attention launches {cross}")
+        del trainer
+        free()
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    peak = max(peak_before, torch.cuda.max_memory_allocated())
+    print(f"family loader phase: {time.perf_counter() - phase_t0:.1f} s of wall time (the epochs "
+          f"from the files {({k: round(v, 2) for k, v in epochs.items()})} s); peak device "
+          f"memory {peak / 2**30:.2f} GiB, the process's peak host RSS "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB; {smi}",
+          flush=True)
+
 
 def _bwd_fp64(q, k, v, o, lse, do, sm_scale):
     """(dq, dk, dv) of #11's math in fp64 from the same inputs, lse and o,
@@ -4427,7 +4904,8 @@ def main() -> int:
                joint_attention.mha_rms, joint_attention.joint_attention_bwd,
                joint_attention.mha_rms_bwd)
     alone = {"--dino": run_dino_slice, "--checkpoint": run_checkpoint_slice,
-             "--loaders": run_loader_slice}
+             "--loaders": run_loader_slice,
+             "--family-loaders": lambda kernels, smi: run_family_loader_slice(smi)}
     if sys.argv[1:2] and sys.argv[1] in alone:  # one phase, in its one-rank group
         print(f"process group initialized at {init_group()}", flush=True)
         alone[sys.argv[1]](kernels, smi)
@@ -4478,6 +4956,7 @@ def main() -> int:
                       mha_bshd_bwd_wan_cross=cross[1])
     for r in wan_results:
         r["launches"] = wan_counts[r["name"]]
+    run_family_loader_slice(smi)
     print(json.dumps({"kernels": results + flux_results + flux_train_results + wan_results
                       + mha_results}))
     print(json.dumps({"ok": True, "device": {

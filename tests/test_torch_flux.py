@@ -314,9 +314,10 @@ def test_flux_infer_cli_writes_png(tmp_path, monkeypatch):
 
 
 def test_flux_cli_refuses_a_checkpoint_dir(tmp_path, monkeypatch):
-    """A set FLUX_DIR names weights the port cannot load yet: it raises
-    instead of silently building the random tiny model."""
+    """A set FLUX_DIR that holds no diffusers transformer (no config.json)
+    raises instead of silently building the random tiny model (loading a
+    written directory: tests/test_torch_family_loaders.py)."""
     monkeypatch.setenv("FLUX_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="FluxTransformer2DModel"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         t_infer.main(["--config", "flux_smoke", "--prompts", "a", "--out_dir",
                       str(tmp_path), "--device", "cpu"])

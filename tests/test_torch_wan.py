@@ -17,7 +17,7 @@ fp32.
 * the state dict's diffusers names (against the diffusers-layout mirror) and
   the round trip through the JAX ``convert_wan``;
 * ``WanVideoVAE.decode`` at 1, 2 and 3 latent frames, with and without
-  decoder attention blocks;
+  decoder attention blocks (the encoder: tests/test_torch_wan_vae_encoder.py);
 * the rollout: the deterministic chain with the per-step KL (non-zero LoRA B)
   and its decode against JAX; the stochastic window's replay; the demo CLI.
 """
@@ -290,8 +290,8 @@ def test_wan_vae_decode_matches_jax(frames, attn):
 
 
 def test_wan_vae_names_are_diffusers():
-    """The decoder's names and shapes are the diffusers AutoencoderKLWan
-    decoder's (the mirror's, without its encoder)."""
+    """The VAE's names and shapes are the diffusers AutoencoderKLWan's (the
+    mirror's: encoder, quant convs and decoder)."""
     kw = dict(attn_scales=(0.5, 1.0), dim_mult=(1, 2, 2), temperal_downsample=(True, False))
     _, _, tvcfg, vae = _vae_pair(5, **kw)
     mirror = AutoencoderKLWanMirror(base_dim=tvcfg.base_dim, z_dim=tvcfg.z_dim,
@@ -299,8 +299,7 @@ def test_wan_vae_names_are_diffusers():
                                     num_res_blocks=tvcfg.num_res_blocks,
                                     attn_scales=tvcfg.attn_scales,
                                     temperal_downsample=tvcfg.temperal_downsample)
-    want = {k: tuple(v.shape) for k, v in mirror.state_dict().items()
-            if not k.startswith(("encoder.", "quant_conv."))}
+    want = {k: tuple(v.shape) for k, v in mirror.state_dict().items()}
     assert {k: tuple(v.shape) for k, v in vae.state_dict().items()} == want
 
 
@@ -395,10 +394,11 @@ def test_wan_demo_cli_writes_png(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("cli", ["demo", "train"])
 def test_wan_cli_refuses_a_checkpoint_dir(tmp_path, monkeypatch, cli):
-    """A set WAN_DIR names weights the port cannot load yet: both CLIs raise
-    instead of silently building the random tiny model."""
+    """A set WAN_DIR that holds no diffusers transformer (no config.json):
+    both CLIs raise instead of silently building the random tiny model
+    (loading a written directory: tests/test_torch_family_loaders.py)."""
     monkeypatch.setenv("WAN_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="WanTransformer3DModel"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         if cli == "demo":
             t_demo.main(["--device", "cpu", "--out_dir", str(tmp_path)])
         else:
