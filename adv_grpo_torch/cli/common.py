@@ -350,9 +350,9 @@ def _warn_random(what: str, env: str) -> None:
                   "for real reward values", stacklevel=3)
 
 
-def build_reward_context(config, reward_names, device="cuda"):
+def build_reward_context(config, reward_names, device="cuda", ocr_engine=None):
     """The ``RewardContext`` for the reward names a preset uses (the ported
-    ones: the PickScore and DINO rewards), on ``device``.
+    ones: PickScore, CLIP-L, aesthetic, OCR and DINO), on ``device``.
 
     PickScore: CLIP-H (``smoke_test``: the tiny towers, image 28), from the
     HF ``CLIPModel`` checkpoint in ``PICKSCORE_DIR``
@@ -366,19 +366,31 @@ def build_reward_context(config, reward_names, device="cuda"):
     DINO (:func:`_dino_context`): DINOv2-B/14 at 518^2 (``smoke_test``: 28^2,
     2 layers of 32, 2 heads) from the checkpoint in ``DINOV2_DIR``, timm's
     or HF's layout, else random weights from ``config.seed + 3`` with the
-    same warning."""
+    same warning.
+
+    ``clipscore`` and ``aesthetic`` (:func:`_clip_l_context`): CLIP-L/14;
+    OCR (``ocr``, ``video_ocr``): ``ocr_engine``, a callable uint8 (H, W, 3)
+    -> str, else PaddleOCR where it can be imported (with neither the
+    reward raises when called)."""
     from adv_grpo_torch.models import convert
     from adv_grpo_torch.models.clip_text import CLIPTextConfig
     from adv_grpo_torch.models.vit import ViTConfig
+    from adv_grpo_torch.rewards.host import OcrScorer, VideoOcrScorer
     from adv_grpo_torch.rewards.registry import RewardContext
     from adv_grpo_torch.rewards.scorers import PickScoreScorer
 
     ctx = RewardContext()
     device = resolve_device(device)
     smoke = bool(config.get("smoke_test", False))
-    if set(reward_names) & DINO_REWARDS:
-        _dino_context(ctx, config, set(reward_names), device)
-    if not set(reward_names) & {"pickscore", "pickscore_cotrain"}:
+    names = set(reward_names)
+    if names & DINO_REWARDS:
+        _dino_context(ctx, config, names, device)
+    if names & {"clipscore", "aesthetic"}:
+        _clip_l_context(ctx, config, names, device)
+    if names & {"ocr", "video_ocr"}:
+        # video_ocr scores the every-4th-frame mean of each clip
+        ctx.ocr = (VideoOcrScorer if "video_ocr" in names else OcrScorer)(ocr_engine)
+    if not names & {"pickscore", "pickscore_cotrain"}:
         return ctx
     if smoke:
         towers = CLIPTextConfig.tiny(projection_dim=16), ViTConfig.tiny(projection_dim=16), 28
@@ -396,16 +408,73 @@ def build_reward_context(config, reward_names, device="cuda"):
         generator = torch.Generator(device=device).manual_seed(int(config.seed) + 1)
         ps = PickScoreScorer.random_init(generator, device, *towers)
     ctx.pickscore = ps
+    ctx.tokenize = _clip_tokenize(config, ps.clip.text_model.cfg.max_position_embeddings)
+    return ctx
+
+
+def _clip_tokenize(config, max_len: int):
+    """The reward towers' token ids: the CLIP tokenizer
+    ``<pretrained.model>/tokenizer`` where there is one (padded and cut to
+    77), else the constant 3 at ``max_len``, as the JAX package's are."""
     tok_dir = os.path.join(str(config.pretrained.model or ""), "tokenizer")
     if str(config.pretrained.model or "") and os.path.isdir(tok_dir):
         from adv_grpo_torch.data.tokenizers import CLIPTokenizer
 
         tok = CLIPTokenizer(tok_dir)
-        ctx.tokenize = lambda prompts: tok(prompts, 77)
-    else:
-        max_len = ps.clip.text_model.cfg.max_position_embeddings
-        ctx.tokenize = lambda prompts: np.full((len(prompts), max_len), 3, np.int32)
-    return ctx
+        return lambda prompts: tok(prompts, 77)
+    return lambda prompts: np.full((len(prompts), max_len), 3, np.int32)
+
+
+def _clip_l_context(ctx, config, reward_names, device):
+    """The CLIP-L/14 scorers (``smoke_test``: the JAX package's tiny towers
+    at 28^2, the aesthetic tower projecting to 768). ``clipscore``: both
+    towers from the HF ``CLIPModel`` in ``CLIP_DIR``, else random weights
+    from ``config.seed + 4``; the token ids as PickScore's. ``aesthetic``:
+    the vision tower of ``CLIP_DIR`` and the LAION head of ``AESTHETIC_PATH``
+    (the repository keeps the published ``sac+logos+ava1-l14-linearMSE.pth``),
+    only both together, else both random from ``config.seed + 5``. Random
+    weights warn unless ``smoke_test``."""
+    from adv_grpo_torch.models import convert
+    from adv_grpo_torch.models.clip_text import CLIPTextConfig
+    from adv_grpo_torch.models.vit import ViTConfig
+    from adv_grpo_torch.rewards.scorers import AestheticScorer, CLIPScorer
+
+    smoke = bool(config.get("smoke_test", False))
+    clip_dir = _scorer_weights_dir("CLIP_DIR")
+    if "clipscore" in reward_names:
+        if smoke:
+            towers = (CLIPTextConfig.tiny(projection_dim=16), ViTConfig.tiny(projection_dim=16),
+                      28)
+        else:
+            towers = CLIPTextConfig.clip_l(), ViTConfig.clip_l(), 224
+        if clip_dir:
+            sd = convert.clip_model_state_dict_from_hf(convert.load_torch_state_dict(clip_dir),
+                                                       *towers[:2])
+            ctx.clip = CLIPScorer.from_state_dict(sd, device, *towers)
+        else:
+            if not smoke:
+                _warn_random("CLIP-L", "CLIP_DIR")
+            generator = torch.Generator(device=device).manual_seed(int(config.seed) + 4)
+            ctx.clip = CLIPScorer.random_init(generator, device, *towers)
+        if ctx.tokenize is None:
+            ctx.tokenize = _clip_tokenize(
+                config, ctx.clip.clip.text_model.cfg.max_position_embeddings)
+    if "aesthetic" in reward_names:
+        vcfg, size = ((ViTConfig.tiny(projection_dim=768), 28) if smoke
+                      else (ViTConfig.clip_l(), 224))
+        aes_path = _scorer_weights_dir("AESTHETIC_PATH")
+        if aes_path and clip_dir:
+            head_sd = convert.aesthetic_state_dict_from_pth(
+                torch.load(aes_path, map_location="cpu", weights_only=True))
+            vision_sd = convert.clip_vision_state_dict_from_hf(
+                convert.load_torch_state_dict(clip_dir), vcfg)
+            ctx.aesthetic = AestheticScorer.from_state_dicts(vision_sd, head_sd, device, vcfg,
+                                                             size)
+        else:
+            if not smoke:
+                _warn_random("Aesthetic (LAION MLP + CLIP-L)", "AESTHETIC_PATH + CLIP_DIR")
+            generator = torch.Generator(device=device).manual_seed(int(config.seed) + 5)
+            ctx.aesthetic = AestheticScorer.random_init(generator, device, vcfg, size)
 
 
 def _dino_context(ctx, config, reward_names, device):

@@ -41,7 +41,15 @@ and wins over ``train.lora_path``, a peft adapter directory that warm-starts
 the generator's LoRA; ``weight_path``, a checkpoint directory, warm-starts
 the discriminator. Not ported yet, and refused with ``NotImplementedError``:
 a flax ``.msgpack`` as ``weight_path`` (from ``cli/finetune_pickscore.py``)
-and the device rewards other than PickScore and DINO.
+and the rewards ``rewards.registry`` does not list.
+
+``pickscore_sd3_fast`` (PickScore + OCR on ``dataset/ocr``) needs an OCR
+engine: PaddleOCR where it can be imported, else a callable uint8 (H, W, 3)
+-> str passed as ``main(argv, ocr_engine=...)``. ``sample.same_latent=True``
+(sd3, groups of more than one image) samples through the group-shared
+prefix. CLIP-L (``clipscore``, ``aesthetic``) reads ``CLIP_DIR``, the
+aesthetic head ``AESTHETIC_PATH`` (e.g.
+``adv_grpo_tpu/data/assets/sac+logos+ava1-l14-linearMSE.pth``).
 """
 
 from __future__ import annotations
@@ -51,7 +59,11 @@ import datetime
 import os
 
 
-def build_trainer(config, latent_hw=None, dataset=None, device="cuda"):
+def build_trainer(config, latent_hw=None, dataset=None, device="cuda", ocr_engine=None):
+    """The ``GRPOTrainer`` of ``config``: the pipeline, the reward context
+    (``ocr_engine``: the OCR rewards' engine, a callable uint8 (H, W, 3) ->
+    str; PaddleOCR where it can be imported if None), the discriminator, the
+    dataset and the reference store."""
     import copy
 
     from adv_grpo_torch.cli.common import (
@@ -66,7 +78,7 @@ def build_trainer(config, latent_hw=None, dataset=None, device="cuda"):
     pipeline = build_pipeline(config, latent_hw=latent_hw, device=device)
     ctx = build_reward_context(
         config, set(dict(config.reward_fn)) | set(dict(config.eval_reward_fn)),
-        device=pipeline.device)
+        device=pipeline.device, ocr_engine=ocr_engine)
     disc = None
     kind = str(config.discriminator) if bool(config.train_d) else ""
     if kind == "pickscore":
@@ -121,8 +133,9 @@ def build_trainer(config, latent_hw=None, dataset=None, device="cuda"):
     return trainer
 
 
-def main(argv=None):
-    """Parse ``argv``, build the trainer, run it; returns the trainer."""
+def main(argv=None, ocr_engine=None):
+    """Parse ``argv``, build the trainer (``ocr_engine``: see
+    :func:`build_trainer`), run it; returns the trainer."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", required=True)
     parser.add_argument("--max_epochs", type=int, default=None)
@@ -174,7 +187,8 @@ def main(argv=None):
         if resume is None:
             raise FileNotFoundError(f"--resume latest: no checkpoints under "
                                     f"{config.save_dir}/checkpoints")
-    trainer = build_trainer(config, latent_hw=args.latent_hw, device=device)
+    trainer = build_trainer(config, latent_hw=args.latent_hw, device=device,
+                            ocr_engine=ocr_engine)
     # the whole state of a checkpoint supersedes the LoRA warm start
     if resume:
         trainer.restore(resume)

@@ -1,10 +1,9 @@
 """GRPO presets of the ported paths, from adv_grpo_tpu/config/grpo.py.
 
-Only the presets whose model path the port runs are here (``eval_sd3_fast``,
-``smoke_sd3_fast``, ``pickscore_cotrain_sd3_fast``, the three DINO
-co-training presets, the ``compressibility`` base they build on,
-``flux_smoke`` and ``wan_smoke``); the others raise
-``KeyError`` with a "not yet ported" note.
+Every preset of the JAX package is here (``eval_sd3_fast``,
+``smoke_sd3_fast``, ``pickscore_sd3_fast``, ``pickscore_cotrain_sd3_fast``,
+the three DINO co-training presets, the ``compressibility`` base they build
+on, ``flux_smoke`` and ``wan_smoke``); another name raises ``KeyError``.
 Values are identical to the JAX presets (``tests/test_torch_config.py``).
 """
 
@@ -78,6 +77,18 @@ def smoke_sd3_fast(replica_count=1):
     config.save_freq = 1000
     config.eval_freq = 1000
     config.case_name = "smoke"
+    return config
+
+
+def pickscore_sd3_fast(replica_count=8):
+    """Frozen-reward multi-reward preset (reference config/grpo.py:379-427)."""
+    config = _sd3_fast_common(compressibility(), replica_count)
+    config.dataset = os.path.join(os.getcwd(), "dataset/ocr")
+    config.case_name = "fast_1node_16_8_multireward_11"
+    config.sample.random_timestep = None
+    config.save_dir = "logs/pickscore/sd3.5-M-fast_multireward"
+    config.reward_fn = {"pickscore": 0.5, "ocr": 0.5}
+    config.prompt_fn = "general_ocr"
     return config
 
 
@@ -241,6 +252,7 @@ def eval_sd3_fast(replica_count=8):
 _PRESETS = {
     "compressibility": compressibility,
     "smoke_sd3_fast": smoke_sd3_fast,
+    "pickscore_sd3_fast": pickscore_sd3_fast,
     "pickscore_cotrain_sd3_fast": pickscore_cotrain_sd3_fast,
     "dino_cotrain_sd3_fast": dino_cotrain_sd3_fast,
     "dino_cotrain_sd3_patch_fast": dino_cotrain_sd3_patch_fast,

@@ -10,8 +10,11 @@ Flux and WAN folders (``FluxTransformer2DModel``, ``WanTransformer3DModel``,
 ``AutoencoderKLWan``) by :func:`flux_state_dict_from_hf`,
 :func:`wan_state_dict_from_hf` and :func:`wan_vae_state_dict_from_hf`, UMT5
 (WAN's text encoder) by :func:`umt5_state_dict_from_hf`; the scorer
-checkpoints (PickScore's HF ``CLIPModel``, DINOv2 in timm's or HF's layout)
-by :func:`clip_model_state_dict_from_hf` and :func:`dinov2_state_dict`. Each
+checkpoints (PickScore's HF ``CLIPModel``, DINOv2 in timm's or HF's layout,
+CLIP-L's vision tower, the LAION aesthetic head's ``.pth``) by
+:func:`clip_model_state_dict_from_hf`, :func:`dinov2_state_dict`,
+:func:`clip_vision_state_dict_from_hf` and
+:func:`aesthetic_state_dict_from_pth`. Each
 must consume every weight of the checkpoint or raises "not consumed" (a
 dropped weight is how a wrong convention slips through).
 :func:`load_sd3_pipeline`, :func:`load_flux_transformer` and
@@ -25,8 +28,10 @@ check an SD3 directory without building a model.
 ``convert_flux`` / ``convert_vae`` / ``convert_wan`` / ``convert_wan_vae``,
 the CLIP dual encoder that ``convert_clip_model``
 fills (:func:`clip_dual_state_dict_from_jax`), the DINOv2 backbone
-(:func:`vit_state_dict_from_jax`) and the DINO heads
-(:func:`dino_head_state_dict_from_jax`, :func:`dino_multi_state_dict_from_jax`):
+(:func:`vit_state_dict_from_jax`, also the CLIP-L tower of the aesthetic
+scorer), the DINO heads (:func:`dino_head_state_dict_from_jax`,
+:func:`dino_multi_state_dict_from_jax`) and the aesthetic head
+(:func:`aesthetic_head_state_dict_from_jax`):
 a Flax tree of numpy arrays (as ``jax.device_get`` returns it) becomes a
 ``state_dict`` with diffusers names (the CLIP and DINO encoders' mirror the
 JAX tree's), so the two packages compute the same function from the same
@@ -404,6 +409,15 @@ def dino_head_state_dict_from_jax(params, prefix: str = "") -> Dict[str, torch.T
     return out
 
 
+def aesthetic_head_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """A JAX ``AestheticHead`` tree ({"fc0".."fc3", "out"}) ->
+    ``models.aesthetic.AestheticHead``'s state dict."""
+    h, out = _unwrap(params), {}
+    for name, _ in AESTHETIC_LAYERS:
+        _dense(name, h[name], out)
+    return out
+
+
 def dino_multi_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
     """A JAX ``DINOMultiScorer`` tree ({"heads": [...], "fusion": {"fuse"}})
     -> ``rewards.scorers.DINOMultiHeads``' state dict."""
@@ -620,27 +634,69 @@ def clip_model_state_dict_from_hf(sd: Dict[str, torch.Tensor], text_cfg,
     is a 0-d fp32 tensor."""
     g = _Taken(sd)
     out = _clip_text_from_hf(g, text_cfg.num_layers, "text_model.")
+    out.update(_clip_vision_from_hf(g, vision_cfg, "vision_model.",
+                                    "clip_model_state_dict_from_hf"))
+    out["logit_scale"] = g("logit_scale").float().reshape(())
+    g.assert_consumed("clip_model_state_dict_from_hf")
+    return out
+
+
+def _clip_vision_from_hf(g: _Taken, cfg, prefix: str, what: str) -> Dict[str, torch.Tensor]:
+    """The mapping of the JAX ``convert_clip_vision`` over ``g``: HF's CLIP
+    vision tower and ``visual_projection`` -> ``models.vit.VisionTransformer``
+    names under ``prefix`` (the ``position_ids`` buffer consumed and
+    dropped; the bias-free patch Conv2d gets a zero ``patch_embed.bias``)."""
     v = "vision_model."
     if g.has(v + "embeddings.position_ids"):
         g(v + "embeddings.position_ids")
     patch = g(v + "embeddings.patch_embedding.weight")
-    out.update({
-        v + "patch_embed.weight": _patch_linear(patch),
-        v + "patch_embed.bias": torch.zeros(patch.shape[0], dtype=patch.dtype),
-        v + "class_embedding": g(v + "embeddings.class_embedding"),
-        v + "position_embedding": _position_table(
-            g(v + "embeddings.position_embedding.weight"), vision_cfg,
-            "clip_model_state_dict_from_hf"),
-        v + "visual_projection.weight": g("visual_projection.weight"),
-        "logit_scale": g("logit_scale").float().reshape(())})
+    out = {
+        "patch_embed.weight": _patch_linear(patch),
+        "patch_embed.bias": torch.zeros(patch.shape[0], dtype=patch.dtype),
+        "class_embedding": g(v + "embeddings.class_embedding"),
+        "position_embedding": _position_table(
+            g(v + "embeddings.position_embedding.weight"), cfg, what),
+        "visual_projection.weight": g("visual_projection.weight")}
     for name in ("weight", "bias"):
-        out[f"{v}pre_layernorm.{name}"] = g(f"{v}pre_layrnorm.{name}")
-        out[f"{v}post_layernorm.{name}"] = g(f"{v}post_layernorm.{name}")
-    for i in range(vision_cfg.num_layers):
+        out[f"pre_layernorm.{name}"] = g(f"{v}pre_layrnorm.{name}")
+        out[f"post_layernorm.{name}"] = g(f"{v}post_layernorm.{name}")
+    for i in range(cfg.num_layers):
         for src, dst in _VIT_BLOCK:
             for name in ("weight", "bias"):
-                out[f"{v}layers.{i}.{dst}.{name}"] = g(f"{v}encoder.layers.{i}.{src}.{name}")
-    g.assert_consumed("clip_model_state_dict_from_hf")
+                out[f"layers.{i}.{dst}.{name}"] = g(f"{v}encoder.layers.{i}.{src}.{name}")
+    return {prefix + k: t for k, t in out.items()}
+
+
+def clip_vision_state_dict_from_hf(sd: Dict[str, torch.Tensor],
+                                   vision_cfg) -> Dict[str, torch.Tensor]:
+    """The CLIP vision tower alone of an HF ``CLIPModel`` or
+    ``CLIPVisionModelWithProjection`` state dict (``CLIP_DIR``'s CLIP-L/14,
+    the aesthetic scorer's tower) -> ``models.vit.VisionTransformer``'s state
+    dict: the JAX ``convert_clip_vision``. A ``CLIPModel``'s text tower
+    (``text_model.*``, ``text_projection.weight``, ``logit_scale``) is
+    consumed and dropped; any other weight left over raises "not
+    consumed"."""
+    g = _Taken(sd)
+    out = _clip_vision_from_hf(g, vision_cfg, "", "clip_vision_state_dict_from_hf")
+    for key in list(g.sd):
+        if key.startswith("text_model.") or key in ("text_projection.weight", "logit_scale"):
+            g(key)
+    g.assert_consumed("clip_vision_state_dict_from_hf")
+    return out
+
+
+AESTHETIC_LAYERS = (("fc0", 0), ("fc1", 2), ("fc2", 4), ("fc3", 6), ("out", 7))
+
+
+def aesthetic_state_dict_from_pth(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The LAION ``sac+logos+ava1-l14-linearMSE.pth`` layout (an
+    ``nn.Sequential`` whose Linear layers are ``layers.{0,2,4,6,7}``; the
+    others are dropout) -> ``models.aesthetic.AestheticHead``'s state dict,
+    fp32: the JAX ``convert_aesthetic_mlp``. Every weight must be consumed."""
+    g = _Taken(sd)
+    out = {f"{dst}.{name}": g(f"layers.{i}.{name}").float()
+           for dst, i in AESTHETIC_LAYERS for name in ("weight", "bias")}
+    g.assert_consumed("aesthetic_state_dict_from_pth")
     return out
 
 

@@ -1,5 +1,6 @@
-"""Vision transformers in PyTorch: the CLIP image tower of the PickScore
-scorer and the DINOv2 backbone of the DINO discriminators.
+"""Vision transformers in PyTorch: the CLIP image towers of the PickScore
+scorer (CLIP-H/14), the CLIP score and the aesthetic scorer (CLIP-L/14), and
+the DINOv2 backbone of the DINO discriminators.
 
 Port of adv_grpo_tpu/models/vit.py. The CLIP path (HF
 ``CLIPVisionModelWithProjection`` semantics): the patch embedding as one
@@ -47,6 +48,16 @@ class ViTConfig:
     def clip_h(cls, **o):
         """The PickScore CLIP-H/14 vision tower at 224^2: 32 layers of 1280."""
         return cls(**o)
+
+    @classmethod
+    def clip_l(cls, **o):
+        """The CLIP ViT-L/14 vision tower at 224^2 (the CLIP score and the
+        LAION aesthetic scorer): 24 layers of 1024 in 16 heads, quick-GELU,
+        projection 768."""
+        d = dict(image_size=224, patch_size=14, hidden_size=1024, intermediate_size=4096,
+                 num_layers=24, num_heads=16, projection_dim=768, hidden_act="quick_gelu")
+        d.update(o)
+        return cls(**d)
 
     @classmethod
     def dinov2_base(cls, **o):

@@ -1,8 +1,9 @@
-"""The device rewards: PickScore (a CLIP dual encoder and its scorer) and
-the DINO discriminators.
+"""The device rewards: PickScore (a CLIP dual encoder and its scorer), the
+CLIP-L score and the LAION aesthetic score, and the DINO discriminators.
 
 Port of adv_grpo_tpu/rewards/scorers.py's ``CLIPDualEncoder``,
-``PickScoreScorer``, ``DINOScorer`` and ``DINOMultiScorer``. The JAX
+``PickScoreScorer``, ``CLIPScorer``, ``AestheticScorer``, ``DINOScorer`` and
+``DINOMultiScorer``. The JAX
 PickScore scorer takes its parameters as an argument; here they live in the
 module (``PickScoreScorer.clip``), and a call may replace the last vision
 layers by others (``tail``): the co-trained discriminator trains only those
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from adv_grpo_torch.adversarial.dino_hinge import multi_layer_logit, take_patches
+from adv_grpo_torch.models.aesthetic import AestheticHead
 from adv_grpo_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
 from adv_grpo_torch.models.vit import ViTConfig, VisionTransformer
 from adv_grpo_torch.rewards.preprocess import (
@@ -103,6 +105,12 @@ class PickScoreScorer:
     """PickScore CLIP-H: score = exp(logit_scale) * <text, image> / 26 on
     L2-normalised features (reference adv_grpo/pickscore_scorer.py:47-51)."""
 
+    divisor = 26.0
+
+    @staticmethod
+    def default_towers():
+        return CLIPTextConfig.clip_h_text(), ViTConfig.clip_h()
+
     def __init__(self, clip: CLIPDualEncoder, image_size: int = 224):
         torch.backends.cuda.matmul.allow_tf32 = False
         self.clip = clip
@@ -112,10 +120,11 @@ class PickScoreScorer:
     @classmethod
     def random_init(cls, generator: torch.Generator, device, text_cfg=None, vision_cfg=None,
                     image_size: int = 224) -> "PickScoreScorer":
-        """CLIP-H (or the given towers) with random weights drawn from
-        ``generator``, which lives on ``device``."""
-        clip = CLIPDualEncoder(text_cfg or CLIPTextConfig.clip_h_text(),
-                               vision_cfg or ViTConfig.clip_h(), device="meta")
+        """The default towers (or the given ones) with random weights drawn
+        from ``generator``, which lives on ``device``."""
+        text_default, vision_default = cls.default_towers()
+        clip = CLIPDualEncoder(text_cfg or text_default, vision_cfg or vision_default,
+                               device="meta")
         clip = clip.to_empty(device=device).eval().init_params_(generator)
         return cls(clip, image_size)
 
@@ -141,7 +150,74 @@ class PickScoreScorer:
     @torch.no_grad()
     def score(self, images, input_ids, tail=None):
         img, txt = self.features(images, input_ids, tail)
-        return torch.exp(self.clip.logit_scale) * (txt * img).sum(-1) / 26.0
+        return torch.exp(self.clip.logit_scale) * (txt * img).sum(-1) / self.divisor
+
+
+class CLIPScorer(PickScoreScorer):
+    """The CLIP-L score: exp(logit_scale) * <text, image> / 30 on
+    L2-normalised features, and the cosine of two batches' image features
+    (reference adv_grpo/clip_scorer.py:47-71)."""
+
+    divisor = 30.0
+
+    @staticmethod
+    def default_towers():
+        return CLIPTextConfig.clip_l(), ViTConfig.clip_l()
+
+    def image_features(self, images):
+        """L2-normalised image features of ``images`` (B, 3, H, W) in [-1, 1]."""
+        pix = preprocess(_as_device_images(images, self.device), self.image_size, CLIP_MEAN,
+                         CLIP_STD)
+        return _l2norm(self.clip.image_features(pix))
+
+    @torch.no_grad()
+    def image_similarity(self, images_a, images_b):
+        return (self.image_features(images_a) * self.image_features(images_b)).sum(-1)
+
+
+class AestheticScorer:
+    """The LAION aesthetic score (reference adv_grpo/aesthetic_scorer.py:33-53):
+    the CLIP-L vision tower's projected class token through
+    ``models.aesthetic.AestheticHead``; fp32."""
+
+    def __init__(self, vision: VisionTransformer, head: AestheticHead, image_size: int = 224):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        self.vision = vision.eval().requires_grad_(False)
+        self.head = head.eval().requires_grad_(False)
+        self.vision_cfg = vision.cfg
+        self.image_size = image_size
+        self.device = vision.class_embedding.device
+
+    @staticmethod
+    def _head(device):
+        return AestheticHead(device="meta").to_empty(device=device)
+
+    @classmethod
+    def random_init(cls, generator: torch.Generator, device, vision_cfg=None,
+                    image_size: int = 224) -> "AestheticScorer":
+        """CLIP-L (or the given tower, whose ``projection_dim`` must be 768)
+        and the head, random weights drawn from ``generator`` on ``device``."""
+        vision = VisionTransformer(vision_cfg or ViTConfig.clip_l(), device="meta")
+        vision = random_init_(vision.to_empty(device=device), generator)
+        return cls(vision, random_init_(cls._head(device), generator), image_size)
+
+    @classmethod
+    def from_state_dicts(cls, vision_sd, head_sd, device, vision_cfg,
+                         image_size: int = 224) -> "AestheticScorer":
+        """The tower at ``vision_cfg`` and the head with the weights of
+        ``vision_sd`` (``models.convert.clip_vision_state_dict_from_hf``) and
+        ``head_sd`` (``models.convert.aesthetic_state_dict_from_pth``)."""
+        vision = VisionTransformer(vision_cfg, device="meta").to_empty(device=device)
+        vision.load_state_dict(vision_sd)
+        head = cls._head(device)
+        head.load_state_dict(head_sd)
+        return cls(vision, head, image_size)
+
+    @torch.no_grad()
+    def score(self, images):
+        pix = preprocess(_as_device_images(images, self.device), self.image_size, CLIP_MEAN,
+                         CLIP_STD)
+        return self.head(self.vision(pix)["pooled"])
 
 
 class DINOHead(nn.Module):

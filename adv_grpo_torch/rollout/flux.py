@@ -4,9 +4,11 @@ one window step.
 Port of adv_grpo_tpu/rollout/flux.py: packed 2x2 latent tokens, the
 resolution-dependent dynamic timestep shift (``calculate_shift``), every step
 through the original Flow-SDE step (``core/sde.py
-flow_sde_step_with_logprob``). The Kontext editing mode (conditioning
-latents concatenated along the sequence) waits for the VAE encoder that
-makes them. The JAX ``lax.scan`` is a Python loop; the
+flow_sde_step_with_logprob``), and the Kontext editing mode of
+``flux_denoise_with_logprob``: packed conditioning latents
+(``train.flux_pipeline.FluxPipeline.encode_image``) concatenated after the
+sample tokens for each model call, whose velocity is cut back to the sample
+tokens before the step. The JAX ``lax.scan`` is a Python loop; the
 noise of every step comes from the caller's ``torch.Generator``; latents are
 carried in fp32. Flux's guidance is an embedded model input, so there is no
 CFG batch and no negative prompt here.
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -73,9 +75,12 @@ class FluxRolloutResult(NamedTuple):
     timesteps: torch.Tensor  # (B, num_steps)
 
 
-def _rollout(velocity_fn, packed_latents, generator, num_steps, noise_level):
+def _rollout(velocity_fn, packed_latents, generator, num_steps, noise_level,
+             cond_latents=None):
     """Every step stochastic: (final, all latents (B, n+1, S, D), log-probs
-    (B, n), sigmas, timesteps) of the full-SDE chain."""
+    (B, n), sigmas, timesteps) of the full-SDE chain; with ``cond_latents``
+    the model sees [x ; cond] along the sequence and its velocity's first S
+    tokens step x."""
     b, s = packed_latents.shape[:2]
     dev = packed_latents.device
     sigmas, timesteps = flux_schedule(num_steps, s)
@@ -84,7 +89,10 @@ def _rollout(velocity_fn, packed_latents, generator, num_steps, noise_level):
     lats, lps = [x], []
     for i in range(num_steps):
         t = torch.full((b,), float(timesteps[i]), device=dev)
-        v = velocity_fn(x, t)
+        if cond_latents is None:
+            v = velocity_fn(x, t)
+        else:
+            v = velocity_fn(torch.cat([x, cond_latents.to(x.dtype)], dim=1), t)[:, :s]
         noise = torch.randn(x.shape, generator=generator, device=dev, dtype=torch.float32)
         out = flow_sde_step_with_logprob(v, x, float(sigmas[i]), float(sigmas[i + 1]),
                                          noise_level, sigma_at_one=sigma_at_one, noise=noise)
@@ -95,12 +103,16 @@ def _rollout(velocity_fn, packed_latents, generator, num_steps, noise_level):
 
 
 def flux_denoise_with_logprob(velocity_fn: Callable, packed_latents: torch.Tensor,
-                              generator: torch.Generator, cfg: FluxSamplerConfig
+                              generator: torch.Generator, cfg: FluxSamplerConfig,
+                              cond_latents: Optional[torch.Tensor] = None
                               ) -> FluxRolloutResult:
     """Full-SDE rollout, all latents and log-probs returned (reference flux
-    loop :141-187). ``velocity_fn(packed, t (B,))``."""
+    loop :141-187). ``velocity_fn(packed, t (B,))``. ``cond_latents`` (packed,
+    (B, S_c, D)) is the Kontext editing mode (reference kontext :209-211):
+    concatenated along the sequence for each model call, and the velocity's
+    sample tokens ``[:, :S]`` step x."""
     final, lats, lps, _, timesteps = _rollout(
-        velocity_fn, packed_latents, generator, cfg.num_steps, cfg.noise_level)
+        velocity_fn, packed_latents, generator, cfg.num_steps, cfg.noise_level, cond_latents)
     b = packed_latents.shape[0]
     ts = torch.as_tensor(timesteps, device=packed_latents.device).expand(b, -1)
     return FluxRolloutResult(final, lats, lps, ts)

@@ -1,10 +1,10 @@
 """Denoise rollout with a stochastic training window and per-step logprobs,
 and the training replay of one window step.
 
-Port of adv_grpo_tpu/rollout/sampler.py:36-169 and :223-271
-(``SamplerConfig``, ``RolloutResult``, ``denoise_with_logprob``,
-``compute_log_prob``, ``sample_random_timestep``). The JAX ``lax.scan`` is a
-Python loop here:
+Port of adv_grpo_tpu/rollout/sampler.py (``SamplerConfig``,
+``RolloutResult``, ``denoise_with_logprob``, ``denoise_prefix``,
+``compute_log_prob``, ``sample_random_timestep``, ``denoise_from_image``). The
+JAX ``lax.scan`` is a Python loop here:
 
   * the step loop walks the flow-match schedule (``core/scheduler.py``);
   * CFG runs as one batched forward with [uncond ; cond] stacked on the batch
@@ -15,7 +15,14 @@ Python loop here:
   * the window [random_timestep, random_timestep + train_num_steps) gets
     ``noise_level``, every other step is deterministic; with
     ``train_num_steps > 0`` each step's input/output latents, logprob, timestep
-    and sigmas are recorded and the per-sample window gathered at the end.
+    and sigmas are recorded and the per-sample window gathered at the end;
+  * steps before ``start_idx`` (the image-to-image entry) pass x through: no
+    model call, log-prob 0 and no noise drawn (the JAX ``skip_step`` splits
+    no key), but they are recorded, so the window gather indexes by step.
+
+``denoise_from_image`` draws the posterior sample, the forward noise and the
+rollout's noise from one generator, in that order, where the JAX function
+splits its key three ways.
 """
 
 from __future__ import annotations
@@ -67,13 +74,13 @@ def denoise_with_logprob(
     generator: torch.Generator,
     cfg: SamplerConfig,
     random_timestep=0,
+    start_idx: int = 0,
 ) -> RolloutResult:
     """Run the full denoise chain and extract the stochastic training window.
 
     velocity_fn(latents, timestep (B,), prompt_embeds, pooled) -> velocity.
-    ``random_timestep`` is an int or a per-sample (B,) tensor. (The JAX
-    ``start_idx`` pass-through of the image-to-image entry comes with
-    ``denoise_from_image``.)
+    ``random_timestep`` is an int or a per-sample (B,) tensor; the steps
+    before ``start_idx`` pass x through (fp32, log-prob 0, no noise drawn).
     """
     sched = flow_match_schedule(cfg.num_steps, shift=cfg.shift,
                                 num_train_timesteps=cfg.num_train_timesteps)
@@ -93,14 +100,12 @@ def denoise_with_logprob(
     for i in range(cfg.num_steps):
         t = float(sched.timesteps[i])
         sig, sig_prev = float(sched.sigmas[i]), float(sched.sigmas[i + 1])
+        if i < start_idx:  # pass-through: no model call, no noise drawn
+            if T:
+                record.append((x, x, torch.zeros((B,), device=dev), t, sig, sig_prev))
+            continue
         nl = torch.where((i >= rt) & (i < rt + T), cfg.noise_level, 0.0).float()
-        if cfg.do_cfg:
-            v = velocity_fn(torch.cat([x, x], dim=0),
-                            torch.full((2 * B,), t, device=dev), embeds, pooled)
-            v_uncond, v_cond = v.chunk(2, dim=0)
-            v = v_uncond + cfg.guidance_scale * (v_cond - v_uncond)
-        else:
-            v = velocity_fn(x, torch.full((B,), t, device=dev), embeds, pooled)
+        v = _guided_velocity(velocity_fn, x, t, embeds, pooled, cfg)
         noise = torch.randn(x.shape, generator=generator, device=dev, dtype=torch.float32)
         out = cps_step_with_logprob(v, x, sig, sig_prev, nl, noise=noise)
         if T:
@@ -133,6 +138,45 @@ def denoise_with_logprob(
     )
 
 
+def _guided_velocity(velocity_fn, x, t: float, embeds, pooled, cfg: SamplerConfig):
+    """The velocity at x: one forward at the CFG batch [uncond ; cond] and the
+    guidance combine, or one forward without CFG."""
+    B = x.shape[0]
+    if not cfg.do_cfg:
+        return velocity_fn(x, torch.full((B,), t, device=x.device), embeds, pooled)
+    v = velocity_fn(torch.cat([x, x], dim=0), torch.full((2 * B,), t, device=x.device),
+                    embeds, pooled)
+    v_uncond, v_cond = v.chunk(2, dim=0)
+    return v_uncond + cfg.guidance_scale * (v_cond - v_uncond)
+
+
+def denoise_prefix(velocity_fn: Callable, latents: torch.Tensor, prompt_embeds: torch.Tensor,
+                   pooled_embeds: torch.Tensor, neg_prompt_embeds: Optional[torch.Tensor],
+                   neg_pooled_embeds: Optional[torch.Tensor], cfg: SamplerConfig,
+                   rt: int) -> torch.Tensor:
+    """The deterministic schedule prefix: steps [0, rt) at noise level 0 (the
+    noise a zero tensor), the CFG batch as in the rollout; fp32 latents out.
+    The group-shared sampler runs it on one latent per prompt slot (the
+    pre-window trajectory is the same for every member of a group), so it
+    saves (1 - 1/group) of the pre-window forwards. ``rt == 0`` returns the
+    latents in fp32."""
+    x = latents.float()
+    if rt == 0:
+        return x
+    sched = flow_match_schedule(cfg.num_steps, shift=cfg.shift,
+                                num_train_timesteps=cfg.num_train_timesteps)
+    if cfg.do_cfg:
+        embeds = torch.cat([neg_prompt_embeds, prompt_embeds], dim=0)
+        pooled = torch.cat([neg_pooled_embeds, pooled_embeds], dim=0)
+    else:
+        embeds, pooled = prompt_embeds, pooled_embeds
+    for i in range(int(rt)):
+        v = _guided_velocity(velocity_fn, x, float(sched.timesteps[i]), embeds, pooled, cfg)
+        x = cps_step_with_logprob(v, x, float(sched.sigmas[i]), float(sched.sigmas[i + 1]),
+                                  0.0, noise=torch.zeros_like(x)).prev_sample
+    return x
+
+
 def compute_log_prob(velocity_fn: Callable, latents_j, next_latents_j, t_j, sigma_j,
                      sigma_prev_j, prompt_embeds, pooled_embeds, neg_prompt_embeds,
                      neg_pooled_embeds, cfg: SamplerConfig):
@@ -160,3 +204,30 @@ def sample_random_timestep(rng: np.random.Generator, cfg: SamplerConfig, shape=(
     """Window start ~ U{0, num_steps // 2}, drawn from a numpy generator (the
     JAX driver draws it with numpy too, adv_grpo_tpu/train/driver.py:283)."""
     return rng.integers(0, cfg.num_steps // 2 + 1, size=shape)
+
+
+def denoise_from_image(velocity_fn: Callable, encode_image_fn: Callable, images: torch.Tensor,
+                       prompt_embeds: torch.Tensor, pooled_embeds: torch.Tensor,
+                       neg_prompt_embeds: Optional[torch.Tensor],
+                       neg_pooled_embeds: Optional[torch.Tensor], generator: torch.Generator,
+                       cfg: SamplerConfig, start_idx: int, random_timestep=None
+                       ) -> RolloutResult:
+    """Distribution transfer (the reference's ``flux_to_sd3_denoise``): an
+    external image, VAE-encoded by ``encode_image_fn(images, generator)`` (a
+    posterior sample), forward-noised at the schedule's ``start_idx``,
+
+        x = (1 - sigma[start_idx]) * x0 + sigma[start_idx] * noise,
+
+    then denoised by the windowed sampler from that step (the window at
+    ``random_timestep``, by default ``start_idx``). The posterior sample, the
+    noise and the rollout's noise come from ``generator`` in that order."""
+    sched = flow_match_schedule(cfg.num_steps, shift=cfg.shift,
+                                num_train_timesteps=cfg.num_train_timesteps)
+    x0 = encode_image_fn(images, generator).float()
+    sigma0 = np.float32(sched.sigmas[int(start_idx)])
+    noise = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=torch.float32)
+    latents = float(np.float32(1.0) - sigma0) * x0 + float(sigma0) * noise
+    rt = start_idx if random_timestep is None else random_timestep
+    return denoise_with_logprob(velocity_fn, latents, prompt_embeds, pooled_embeds,
+                                neg_prompt_embeds, neg_pooled_embeds, generator, cfg,
+                                random_timestep=rt, start_idx=int(start_idx))

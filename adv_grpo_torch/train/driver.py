@@ -19,7 +19,10 @@ The device is the pipeline's (one card, or the CPU for the tests). Rollout
 records stay on the device between the phases. The model family is the
 pipeline's (``pipeline.family``): sd3, or flux or wan with their own sampling
 and eval factories (whole stochastic window rollouts, no CFG batch, no shared
-prefix; wan's are video).
+prefix; wan's are video). sd3 with ``sample.same_latent`` and groups of more
+than one image samples through the group-shared prefix
+(``make_shared_prefix_sample_fn``): one window start for the whole global
+batch, every rank taking draw 0 (the JAX ``rt_static = rts[0]``).
 
 Several processes (``parallel.mesh``: one per device, as ``torchrun``
 launches them) split the work as the JAX package's hosts do: each rank
@@ -54,9 +57,6 @@ writes into the live parameters and optimizers in place, so the reward
 context keeps reading the same modules. As in the JAX package, the epoch
 counter, the stat tracker and the reward generators are not saved: a resumed
 run starts again at epoch 0's prompt slots, noise and DINO gate.
-
-Not ported yet, and refused with ``NotImplementedError``: sd3's
-``same_latent`` shared prefix.
 """
 
 from __future__ import annotations
@@ -78,7 +78,8 @@ from adv_grpo_torch.rollout.sampler import SamplerConfig, sample_random_timestep
 from adv_grpo_torch.train import checkpoint as ckpt_lib
 from adv_grpo_torch.train.grpo_trainer import (
     compute_advantages, make_eval_fn, make_flux_eval_fn, make_flux_sample_fn, make_sample_fn,
-    make_train_epoch_fn, make_wan_eval_fn, make_wan_sample_fn, rebatch_for_training)
+    make_shared_prefix_sample_fn, make_train_epoch_fn, make_wan_eval_fn, make_wan_sample_fn,
+    rebatch_for_training)
 from adv_grpo_torch.train.train_state import create_generator_state
 from adv_grpo_torch.utils.flops import flux_forward_flops, rollout_flops, wan_forward_flops
 from adv_grpo_torch.utils.images import images_to_uint8
@@ -160,9 +161,6 @@ class GRPOTrainer:
                 f"schedule: the window start goes up to {max_rt}, so "
                 f"train_num_steps must be <= {int(s.num_steps) - max_rt} "
                 f"for num_steps={int(s.num_steps)}")
-        if bool(s.same_latent) and self.family == "sd3":
-            raise NotImplementedError("sample.same_latent (the group-shared prefix) is "
-                                      "not yet ported to adv_grpo_torch")
         self.sampler_cfg = SamplerConfig(
             num_steps=s.num_steps, train_num_steps=s.train_num_steps,
             guidance_scale=s.guidance_scale if config.train.cfg else 1.0,
@@ -174,8 +172,17 @@ class GRPOTrainer:
         self.k = max(int(s.num_image_per_prompt) // self.mini, 1)
         self.num_batches = int(s.num_batches_per_epoch)
         self.micro_splits = max(int(config.train.get("micro_splits", 1)), 1)
+        # same_latent on sd3: the group-shared prefix, one window start for the
+        # whole batch (a full-SDE rollout has no deterministic prefix to share)
+        self.shared_prefix = bool(s.same_latent) and self.mini > 1 and self.family == "sd3"
         if self.family == "sd3":
-            self.sample_fn = make_sample_fn(pipeline, self.sampler_cfg, latent_hw)
+            if self.shared_prefix:
+                self.sample_fn = make_shared_prefix_sample_fn(pipeline, self.sampler_cfg,
+                                                              latent_hw, group_size=self.mini)
+            else:
+                self.sample_fn = make_sample_fn(pipeline, self.sampler_cfg, latent_hw,
+                                                same_latent=bool(s.same_latent),
+                                                group_size=self.mini)
             self.eval_fn = make_eval_fn(pipeline, self.eval_cfg, latent_hw)
             self._s_img = (latent_hw // pipeline.mmdit_cfg.patch_size) ** 2
         else:
@@ -247,11 +254,13 @@ class GRPOTrainer:
         ``sample.random_timestep`` where set, else one draw per rank from the
         batch's generator, rank r taking the r-th (the JAX driver's ``rts[r]``,
         adv_grpo_tpu/train/driver.py:282-296), so every rank trains on its own
-        window."""
+        window. The shared prefix takes one start for the whole global batch:
+        every rank takes draw 0 (the JAX ``rt_static = int(rts[0])``)."""
         if self.config.sample.random_timestep is not None:
             return int(self.config.sample.random_timestep)
-        return int(sample_random_timestep(np.random.default_rng(step_idx), self.sampler_cfg,
-                                          shape=self.world_size)[self.rank])
+        draws = sample_random_timestep(np.random.default_rng(step_idx), self.sampler_cfg,
+                                       shape=self.world_size)
+        return int(draws[0 if self.shared_prefix else self.rank])
 
     # ── phases ──────────────────────────────────────────────────────────
 
@@ -279,8 +288,9 @@ class GRPOTrainer:
             generator = torch.Generator(device=self.device).manual_seed(
                 _seed(self.config.seed, step_idx, self.rank))
             with self.timer("rollout"):
-                rollout, images = self.sample_fn(embeds, pooled, neg_e, neg_p, generator,
-                                                 torch.full((B,), rt, dtype=torch.long))
+                rollout, images = self.sample_fn(
+                    embeds, pooled, neg_e, neg_p, generator,
+                    rt if self.shared_prefix else torch.full((B,), rt, dtype=torch.long))
                 images_np = images.float().cpu().numpy()  # syncs: the rollout is done
             if self.family == "flux":  # one forward per step, no CFG batch
                 self._rollout_flops_acc += self.sampler_cfg.num_steps * flux_forward_flops(
@@ -294,7 +304,8 @@ class GRPOTrainer:
             else:
                 self._rollout_flops_acc += rollout_flops(
                     self.pipeline.mmdit_cfg, self._s_img, embeds.shape[1], B,
-                    self.sampler_cfg.num_steps, self.sampler_cfg.do_cfg)
+                    self.sampler_cfg.num_steps, self.sampler_cfg.do_cfg,
+                    prefix_steps=rt if self.shared_prefix else 0, group_size=self.mini)
 
             refs = None
             if self.reference_store is not None:

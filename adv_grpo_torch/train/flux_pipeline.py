@@ -12,8 +12,8 @@ then ``to_empty``) and draws it there from a ``torch.Generator``, so the
 11.84 B parameters of Flux.1-dev are never staged through host memory;
 ``from_pretrained`` loads a local diffusers ``FluxTransformer2DModel``
 directory and the Flux VAE beside it; ``from_jax`` takes the JAX package's
-parameter trees. Not here yet: ``encode_image`` (the Kontext conditioning
-entry; the VAE has its encoder).
+parameter trees. ``encode_image`` makes the packed conditioning latents of
+the Kontext mode (``rollout.flux.flux_denoise_with_logprob(cond_latents=)``).
 
 Constructing a pipeline switches TF32 off for float32 matmuls and cuDNN
 convolutions (process-wide), as ``SD3Pipeline`` does: the VAE decodes in fp32.
@@ -130,6 +130,12 @@ class FluxPipeline:
         lat = unpack_latents(packed_latents, gh * 2, gh * 2)
         z = lat.float() / self.vae_cfg.scaling_factor + self.vae_cfg.shift_factor
         return self.vae.decode(z)
+
+    def encode_image(self, images, generator: Optional[torch.Generator] = None):
+        """Images (B, 3, H, W) in [-1, 1] -> scaled PACKED latents (the
+        Kontext conditioning entry): the Flux VAE's posterior mode, or a
+        sample drawn from ``generator``, as (z - shift) * scaling, packed 2x2."""
+        return pack_latents(self.vae.encode(images, generator))
 
     def prepare_latents(self, generator: torch.Generator, batch: int,
                         latent_hw: Optional[int] = None):

@@ -1,8 +1,8 @@
 """GRPO phases of the trainer: sampling, eval generation, the inner training
 epoch, advantages and rebatching, for the sd3, flux and wan families.
 
-Port of adv_grpo_tpu/train/grpo_trainer.py (``make_sample_fn`` :47 with
-independent latents, ``make_flux_sample_fn`` :117, ``make_flux_eval_fn`` :151,
+Port of adv_grpo_tpu/train/grpo_trainer.py (``make_sample_fn`` :47,
+``make_shared_prefix_sample_fn`` :83, ``make_flux_sample_fn`` :117, ``make_flux_eval_fn`` :151,
 ``make_wan_sample_fn`` :185, ``make_wan_eval_fn`` :223, ``make_eval_fn`` :247,
 ``make_train_epoch_fn`` :269, ``compute_advantages`` :546,
 ``rebatch_for_training`` :559). The JAX phases are jitted functions of
@@ -43,7 +43,7 @@ from adv_grpo_torch.models.lora import lora_params, merge_lora_params
 from adv_grpo_torch.parallel import mesh
 from adv_grpo_torch.rollout.flux import compute_flux_log_prob, flux_denoise_window_with_logprob
 from adv_grpo_torch.rollout.sampler import (
-    SamplerConfig, compute_log_prob, denoise_with_logprob)
+    SamplerConfig, compute_log_prob, denoise_prefix, denoise_with_logprob)
 from adv_grpo_torch.rollout.wan import (
     WanSamplerConfig, make_wan_log_prob_fn, wan_denoise_window_with_logprob)
 from adv_grpo_torch.train.train_state import GeneratorState, apply_microbatch_grads
@@ -64,15 +64,55 @@ def lora_swapped(module, lora_flat: Dict[str, torch.Tensor]):
         merge_lora_params(module, saved)
 
 
-def make_sample_fn(pipeline, sampler_cfg: SamplerConfig, latent_hw: int):
-    """One sampling batch: independent initial latents, the windowed rollout
-    and the VAE decode -> (RolloutResult, images in [-1, 1])."""
+def _initial_latents(pipeline, generator, batch: int, latent_hw: int, group_size: int):
+    """``batch`` initial latents, one draw per group of ``group_size``
+    repeated across it (``group_size`` 1: independent latents)."""
+    if group_size > 1:
+        lat0 = pipeline.prepare_latents(generator, batch // group_size, latent_hw)
+        return lat0.repeat_interleave(group_size, dim=0)
+    return pipeline.prepare_latents(generator, batch, latent_hw)
+
+
+def make_sample_fn(pipeline, sampler_cfg: SamplerConfig, latent_hw: int,
+                   same_latent: bool = False, group_size: int = 1):
+    """One sampling batch: the initial latents, the windowed rollout and the
+    VAE decode -> (RolloutResult, images in [-1, 1]). ``same_latent``: one
+    initial latent per prompt slot, repeated across its ``group_size``
+    images, so a group shares its whole pre-window trajectory (the noise
+    level is 0 there) and differs only inside the window."""
+    group = group_size if same_latent else 1
 
     @torch.no_grad()
     def sample(embeds, pooled, neg_embeds, neg_pooled, generator, rt):
-        lat0 = pipeline.prepare_latents(generator, embeds.shape[0], latent_hw)
+        lat0 = _initial_latents(pipeline, generator, embeds.shape[0], latent_hw, group)
         out = denoise_with_logprob(pipeline.velocity_fn(), lat0, embeds, pooled,
                                    neg_embeds, neg_pooled, generator, sampler_cfg, rt)
+        return out, pipeline.decode(out.final_latents)
+
+    return sample
+
+
+def make_shared_prefix_sample_fn(pipeline, sampler_cfg: SamplerConfig, latent_hw: int,
+                                 group_size: int):
+    """``same_latent`` sampling with the reference's group-shared prefix
+    (sd3_pipeline_with_logprob_fast.py:158-167): one latent per prompt slot
+    runs the deterministic steps [0, rt) on the slot's embeddings, is
+    repeated across the group at the window start, then the window and the
+    tail run at the full batch (those steps from ``start_idx = rt``). Saves
+    (1 - 1/group_size) of the pre-window forwards. ``rt`` is one int for the
+    whole batch."""
+
+    @torch.no_grad()
+    def sample(embeds, pooled, neg_embeds, neg_pooled, generator, rt):
+        rt = int(rt)
+        g = slice(None, None, group_size)
+        lat0 = pipeline.prepare_latents(generator, embeds.shape[0] // group_size, latent_hw)
+        vfn = pipeline.velocity_fn()
+        x = denoise_prefix(vfn, lat0, embeds[g], pooled[g], neg_embeds[g], neg_pooled[g],
+                           sampler_cfg, rt)
+        out = denoise_with_logprob(vfn, x.repeat_interleave(group_size, dim=0), embeds, pooled,
+                                   neg_embeds, neg_pooled, generator, sampler_cfg,
+                                   random_timestep=rt, start_idx=rt)
         return out, pipeline.decode(out.final_latents)
 
     return sample
@@ -105,12 +145,8 @@ def make_flux_sample_fn(pipeline, sampler_cfg: SamplerConfig, latent_hw: int,
     @torch.no_grad()
     def sample(embeds, pooled, neg_embeds, neg_pooled, generator, rt):
         del neg_embeds, neg_pooled
-        b = embeds.shape[0]
-        if same_latent and group_size > 1:
-            lat0 = pipeline.prepare_latents(generator, b // group_size, latent_hw)
-            lat0 = lat0.repeat_interleave(group_size, dim=0)
-        else:
-            lat0 = pipeline.prepare_latents(generator, b, latent_hw)
+        lat0 = _initial_latents(pipeline, generator, embeds.shape[0], latent_hw,
+                                group_size if same_latent else 1)
         vfn = pipeline.velocity_fn()
         out = flux_denoise_window_with_logprob(
             lambda x, t: vfn(x, t, embeds, pooled), lat0, generator, sampler_cfg.num_steps,
@@ -160,12 +196,8 @@ def make_wan_sample_fn(pipeline, sampler_cfg: SamplerConfig, latent_hw: int,
     @torch.no_grad()
     def sample(embeds, pooled, neg_embeds, neg_pooled, generator, rt):
         del pooled, neg_embeds, neg_pooled
-        b = embeds.shape[0]
-        if same_latent and group_size > 1:
-            lat0 = pipeline.prepare_latents(generator, b // group_size, latent_hw)
-            lat0 = lat0.repeat_interleave(group_size, dim=0)
-        else:
-            lat0 = pipeline.prepare_latents(generator, b, latent_hw)
+        lat0 = _initial_latents(pipeline, generator, embeds.shape[0], latent_hw,
+                                group_size if same_latent else 1)
         # the KL's reference policy is the same modules at lora_scale 0
         policies = {s: pipeline.velocity_fn(s) for s in (1.0, 0.0)}
         out = wan_denoise_window_with_logprob(

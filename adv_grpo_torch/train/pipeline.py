@@ -103,6 +103,12 @@ class SD3Pipeline:
         z = latents.float() / self.vae_cfg.scaling_factor + self.vae_cfg.shift_factor
         return self.vae.decode(z)
 
+    def encode_image(self, images, generator: Optional[torch.Generator] = None):
+        """Images (B, 3, H, W) in [-1, 1] -> scaled latents, the entry of the
+        image-to-image transfer: the VAE posterior's mode, or a sample drawn
+        from ``generator``, as (z - shift) * scaling."""
+        return self.vae.encode(images, generator)
+
     def prepare_latents(self, generator: torch.Generator, batch: int,
                         latent_hw: Optional[int] = None):
         hw = latent_hw or 64

@@ -1,8 +1,7 @@
 """Analytic FLOP counts of the MMDiT, Flux and WAN forwards.
 
 The port's own copy of adv_grpo_tpu/utils/flops.py (``mmdit_forward_flops``,
-``flux_forward_flops``, ``wan_forward_flops``, ``rollout_flops`` without the shared-prefix sampler,
-which the port does not run yet): closed-form matmul + attention
+``flux_forward_flops``, ``wan_forward_flops``, ``rollout_flops``): closed-form matmul + attention
 counts, which the trainer's throughput metric and ``chip_smoke.py``'s achieved
 TFLOP/s divide by measured time. AdaLN and the other per-sample (not
 per-token) products are left out as negligible.
@@ -63,7 +62,14 @@ def wan_forward_flops(cfg, s_vid: int, s_txt: int, batch: int) -> float:
 
 
 def rollout_flops(cfg, s_img: int, s_txt: int, batch: int, num_steps: int,
-                  do_cfg: bool) -> float:
+                  do_cfg: bool, prefix_steps: int = 0, group_size: int = 1) -> float:
     """FLOPs of one MMDiT denoise rollout: ``num_steps`` forwards at the CFG
-    batch."""
-    return num_steps * mmdit_forward_flops(cfg, s_img, s_txt, batch * (2 if do_cfg else 1))
+    batch. ``prefix_steps`` > 0 is the group-shared sampler: those steps run
+    at ``batch / group_size`` (one latent per prompt slot) before the group
+    is repeated at the window start."""
+    mult = 2 if do_cfg else 1
+    full = mmdit_forward_flops(cfg, s_img, s_txt, batch * mult)
+    if prefix_steps <= 0 or group_size <= 1:
+        return num_steps * full
+    small = mmdit_forward_flops(cfg, s_img, s_txt, batch * mult // group_size)
+    return prefix_steps * small + (num_steps - prefix_steps) * full

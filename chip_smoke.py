@@ -110,6 +110,14 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      live tail and its frozen copy bitwise the file's); no RANDOM-INIT
      warning and no tokenizer package loaded; bytes written, write /
      preflight / load seconds, epoch seconds, peak device and host memory.
+     Then, in the same group, the prefix / image / rewards phase
+     (``run_prefix_image_slice``): the group-shared prefix against the plain
+     ``same_latent`` rollout at pickscore_cotrain_sd3_fast's shapes and
+     window starts PREFIX_RTS (PREFIX_REL_L2; launches of #1-#3; seconds of
+     each), one G epoch with ``same_latent``, ``cli.infer --image`` from
+     step IMAGE_START_IDX, the SD3 and Flux VAE encoders and the CLIP-L /
+     aesthetic scorers against the CPU (ENCODE_REL_L2, SCORER_TOL), and one
+     ``pickscore_sd3_fast`` epoch with ``ocr_stand_in`` as its OCR engine.
  11. the Flux kernels against their plain versions at the Flux.1-dev 512^2
      shapes: the per-head RMS norm (d = 128, and one head across a 5120-wide
      row), the BSHD attention (B = 1 and 4, and 4608 tokens with kv_len
@@ -189,7 +197,8 @@ alone (``run_dino_slice``, in its one-rank NCCL group), without the result
 lines; ``--checkpoint`` the checkpoint phase (``run_checkpoint_slice``),
 ``--loaders`` the loader phase (``run_loader_slice``) and
 ``--family-loaders`` the Flux / WAN loader phase
-(``run_family_loader_slice``) the same way. ``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
+(``run_family_loader_slice``) and ``--prefix-image`` the prefix / image /
+rewards phase (``run_prefix_image_slice``) the same way. ``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
 joint forwards #2 / #3 (JOINT_CASES: SD3.5-M at CFG batch 2 and 8, Flux.1-dev
 at B = 1 and 4) of the checkout at PARENT (an older tree) against this one's,
 in PAIRS alternating pairs of processes, with each side's error on the same
@@ -3568,6 +3577,347 @@ def _wan_pipeline(config):
         text_seq_len=WAN_TEXT)
 
 
+# the prefix / image / rewards phase (run_prefix_image_slice). The shared
+# prefix at pickscore_cotrain_sd3_fast's shapes: 10 steps, CFG 4.5, one prompt
+# slot x mini 8, window starts PREFIX_RTS, noise level 0. Bounds stated
+# before the first run: the shared-prefix rollout against the plain
+# same_latent one of the same initial latents, relative L2 of the final and
+# window latents (bf16 MMDiT at CFG batch 2 in the prefix against 16, so
+# cuBLAS may pick other algorithms; 10 steps of rounding, no chaos at noise
+# 0); the fp32 VAE encoders on the card (TF32 off) against the CPU, relative
+# L2 (two fp32 conv stacks summing in other orders); the fp32 CLIP-L scorers
+# against the CPU, absolute per score scaled by max(1, |score|) (a resized
+# pixel at a uint8 rounding tie may land one level apart)
+PREFIX_RTS = (0, 2, 5)
+PREFIX_REL_L2 = 3e-2
+ENCODE_REL_L2 = 1e-4
+SCORER_TOL = 1e-3
+SCORER_CPU_IMAGES = 4
+IMAGE_START_IDX = 20
+
+
+def ocr_stand_in(img_u8):
+    """The OCR engine of the prefix / image phase: a stand-in for PaddleOCR
+    (not on the machine), passed to ``cli.train.main`` explicitly. It
+    "reads" a word chosen by the image's mean brightness, so the OCR reward
+    takes several values."""
+    import numpy as np
+
+    words = ("", "Spring", "Collection 2024", "Step Goal", "Forever Yours", "open")
+    return words[int(np.asarray(img_u8, np.float64).mean()) % len(words)]
+
+
+def _rel_l2_t(got, ref):
+    import torch
+
+    return float(torch.linalg.vector_norm((got - ref).float())
+                 / torch.linalg.vector_norm(ref.float()).clamp_min(1e-30))
+
+
+def run_prefix_image_slice(kernels, smi):
+    """Phase: the group-shared prefix, the image-to-image entry, the Flux
+    encoder and the rewards of ``pickscore_sd3_fast`` at full width (random
+    weights from the seed + 13). (1) ``make_shared_prefix_sample_fn`` against
+    ``make_sample_fn(same_latent=True)`` on one full-width SD3.5-M pipeline at
+    pickscore_cotrain_sd3_fast's shapes (512^2, 10 steps, CFG 4.5, 1 slot x
+    mini 8) and noise level 0 at window starts PREFIX_RTS: final and window
+    latents within PREFIX_REL_L2 relative L2 (max abs printed), launches of
+    #1-#3 per rollout against ``per_forward_counts`` x 10, each sampler's
+    seconds (median of 3 after one warm-up); then one G epoch of
+    ``pickscore_cotrain_sd3_fast`` with ``sample.same_latent=True`` (the
+    discriminator off, the window drawn per batch). (2) ``cli.infer.main
+    --image`` (an image the phase writes) at 512^2, 40 steps, ``--start_idx``
+    IMAGE_START_IDX: a PNG, s/image, launches of #1-#3 for the 20 steps run;
+    the SD3 VAE encode of that image on the card against the CPU in fp32.
+    (3) ``FluxPipeline.encode_image`` on the Flux VAE at 512^2 against the
+    CPU, its ms. (4) ``CLIPScorer.score`` (CLIP-L) and
+    ``AestheticScorer.score`` (CLIP-L vision and the repository's LAION head)
+    on 16 images at 512^2: ms, and SCORER_CPU_IMAGES of them against the CPU;
+    then one epoch of ``pickscore_sd3_fast`` (CLIP-H PickScore and OCR with
+    ``ocr_stand_in`` passed in) at COTRAIN_ARGV's cuts: launches of #1-#5 as
+    derived, finite rewards, peak device memory."""
+    import copy
+    import gc
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from adv_grpo_torch.cli import common, infer, train
+    from adv_grpo_torch.models import convert
+    from adv_grpo_torch.models.lora import init_params_
+    from adv_grpo_torch.models.mmdit import MMDiTConfig
+    from adv_grpo_torch.models.vae import AutoencoderKL, VAEConfig
+    from adv_grpo_torch.rewards.scorers import AestheticScorer, CLIPScorer
+    from adv_grpo_torch.rollout.sampler import SamplerConfig
+    from adv_grpo_torch.train.flux_pipeline import FluxPipeline
+    from adv_grpo_torch.train.grpo_trainer import make_sample_fn, make_shared_prefix_sample_fn
+    from adv_grpo_torch.train.pipeline import _build
+
+    dev = torch.device("cuda")
+    phase_t0 = time.perf_counter()
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def synced(fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # ── (1) the group-shared prefix ──
+    config = common.apply_overrides(common.resolve_config("pickscore_cotrain_sd3_fast"),
+                                    ["pretrained.model=", f"seed={SEED + 13}"])
+    s = config.sample
+    mini = int(s.mini_num_image_per_prompt)
+    pipeline = common.build_pipeline(config)
+    encode = common.build_text_encoder(config, pipeline)
+    mcfg, hw = pipeline.mmdit_cfg, int(config.resolution) // 8
+    emb, pooled = (torch.from_numpy(np.repeat(np.asarray(a), mini, axis=0)).to(dev)
+                   for a in encode(["a shop sign that says \"open\""]))
+    neg_e, neg_p = (torch.from_numpy(np.asarray(a)).to(dev).expand(mini, *a.shape[1:])
+                    for a in encode([""]))
+    cfg = SamplerConfig(num_steps=int(s.num_steps), train_num_steps=int(s.train_num_steps),
+                        guidance_scale=float(s.guidance_scale), noise_level=0.0)
+    samplers = {"plain": make_sample_fn(pipeline, cfg, hw, same_latent=True, group_size=mini),
+                "shared": make_shared_prefix_sample_fn(pipeline, cfg, hw, group_size=mini)}
+    per_fwd = per_forward_counts(mcfg)
+    want_counts = [c * cfg.num_steps for c in per_fwd]
+    print(f"shared prefix, SD3.5-M full width 512^2, {cfg.num_steps} steps, CFG "
+          f"{cfg.guidance_scale}, 1 slot x mini {mini} (CFG batch {2 * mini}), noise level 0: "
+          f"the preset's random_timestep={s.random_timestep} leaves the prefix empty, so "
+          f"window starts {list(PREFIX_RTS)} are run; {smi}", flush=True)
+    secs = {}
+    for name, fn in samplers.items():  # one warm-up each
+        synced(fn, emb, pooled, neg_e, neg_p, torch.Generator(device=dev).manual_seed(SEED),
+               0 if name == "shared" else torch.zeros(mini, dtype=torch.long))
+    for rt in PREFIX_RTS:
+        outs = {}
+        for name, fn in samplers.items():
+            arg = rt if name == "shared" else torch.full((mini,), rt, dtype=torch.long)
+            times = []
+            for rep in range(3):
+                _zero_counts(kernels[:3])
+                out, dt = synced(fn, emb, pooled, neg_e, neg_p,
+                                 torch.Generator(device=dev).manual_seed(SEED), arg)
+                times.append(dt)
+                if rep == 0:
+                    outs[name] = out[0], [k.launches for k in kernels[:3]]
+            secs[name, rt] = sorted(times)[1]
+        (p_out, p_counts), (s_out, s_counts) = outs["plain"], outs["shared"]
+        errs = {k: _rel_l2_t(getattr(s_out, k), getattr(p_out, k))
+                for k in ("final_latents", "latents")}
+        max_abs = float((s_out.final_latents - p_out.final_latents).abs().max())
+        work = (rt * 2 + (cfg.num_steps - rt) * 2 * mini) / (cfg.num_steps * 2 * mini)
+        print(f"  rt {rt}: shared {secs['shared', rt]:.3f} s, plain {secs['plain', rt]:.3f} s "
+              f"(rollout + decode of {mini} images, median of 3; MMDiT samples forwarded "
+              f"{100 * work:.0f}% of the plain rollout's); final latents relative L2 "
+              f"{errs['final_latents']:.3e}, max abs {max_abs:.3e}, window latents relative L2 "
+              f"{errs['latents']:.3e} (bound {PREFIX_REL_L2}); launches shared {s_counts}, "
+              f"plain {p_counts} (derived {want_counts} = {list(per_fwd)} x {cfg.num_steps})",
+              flush=True)
+        if (max(errs.values()) > PREFIX_REL_L2 or s_counts != want_counts
+                or p_counts != want_counts
+                or not bool(torch.isfinite(s_out.final_latents).all())):
+            raise AssertionError(f"shared prefix at rt {rt}: {errs}, launches {s_counts} / "
+                                 f"{p_counts}, expected {want_counts}")
+    del samplers, pipeline, encode, outs, p_out, s_out
+    free()
+
+    # one G epoch of the preset with the shared prefix (the discriminator off,
+    # so the epoch takes the G branch; the window drawn per sampling batch)
+    argv = list(COTRAIN_ARGV)
+    argv[argv.index("--max_epochs") + 1] = "1"
+    argv += ["--set", "sample.same_latent=True", "--set", "train_d=False",
+             "--set", "sample.random_timestep=None"]
+    starts, build = [], train.build_trainer
+
+    def recording_build(*args, **kwargs):
+        trainer = build(*args, **kwargs)
+        fn = trainer.sample_fn
+
+        def sample(*a):
+            starts.append(a[-1])
+            return fn(*a)
+
+        trainer.sample_fn = sample
+        return trainer
+
+    with tempfile.TemporaryDirectory() as work:
+        _zero_counts(kernels)
+        train.build_trainer = recording_build
+        try:
+            trainer, wall = synced(train.main, argv + ["--set", f"save_dir={work}"])
+        finally:
+            train.build_trainer = build
+        counts = [k.launches for k in kernels]
+        with open(os.path.join(work, "metrics.jsonl")) as f:
+            (r,) = [json.loads(line) for line in f]
+    want, _ = expected_train_counts(trainer.config, trainer.pipeline.mmdit_cfg, 1)
+    bad = [k for k, v in r.items() if isinstance(v, float) and not np.isfinite(v)]
+    print(f"  cli.train pickscore_cotrain_sd3_fast, sample.same_latent=True, train_d=False: 1 G "
+          f"epoch in {wall:.2f} s wall (builds included), shared prefix "
+          f"{trainer.shared_prefix}, window starts {starts} (one per sampling batch, int); "
+          f"reward {r['reward_avg']:.5f}, loss {r['loss']:.3e}, approx_kl {r['approx_kl']:.3e}; "
+          f"launches {counts} (expected {want})", flush=True)
+    if (not trainer.shared_prefix or counts != want or bad
+            or not all(type(rt) is int for rt in starts)):
+        raise AssertionError(f"shared-prefix epoch: launches {counts} (expected {want}), "
+                             f"non-finite {bad}, starts {starts}")
+    del trainer
+    free()
+
+    # ── (2) the image-to-image entry ──
+    with tempfile.TemporaryDirectory() as work:
+        rng = np.random.default_rng(SEED + 13)
+        src = os.path.join(work, "external.png")
+        Image.fromarray(rng.integers(0, 256, (24, 24, 3), dtype=np.uint8)).resize(
+            (768, 640), Image.BICUBIC).save(src)
+        held, generate = {}, infer.generate
+
+        def held_generate(pipeline, *args, **kwargs):
+            out, dt = synced(generate, pipeline, *args, **kwargs)
+            held.update(s=dt, pipeline=pipeline, image=kwargs.get("image"))
+            return out
+
+        _zero_counts(kernels[:3])
+        infer.generate = held_generate
+        try:
+            paths, wall = synced(infer.main, INFER_ARGV + [
+                "--image", src, "--start_idx", str(IMAGE_START_IDX), "--out_dir", work])
+        finally:
+            infer.generate = generate
+        counts = [k.launches for k in kernels[:3]]
+        png = np.asarray(Image.open(paths[0]))
+    want = [c * (STEPS - IMAGE_START_IDX) for c in per_forward_counts(MMDiTConfig.sd35_medium())]
+    print(f"cli.infer --image (a {768}x{640} PNG resized to 512^2) eval_sd3_fast full width, "
+          f"{STEPS} steps from --start_idx {IMAGE_START_IDX}: {held['s']:.3f} s/image "
+          f"(generate: encode, {STEPS - IMAGE_START_IDX} CFG steps, decode), {wall:.2f} s wall "
+          f"(pipeline build included); PNG {png.shape}, range {png.min()}..{png.max()}; "
+          f"launches {counts} (expected {want}); {smi}", flush=True)
+    if png.shape != (512, 512, 3) or png.min() == png.max() or counts != want:
+        raise AssertionError(f"infer --image: PNG {png.shape}, launches {counts} vs {want}")
+    vae = held["pipeline"].vae
+    image = torch.from_numpy(held["image"]).to(dev)
+    with torch.no_grad():
+        enc = held["pipeline"].encode_image(image)
+        enc_ms = _median_ms(lambda: held["pipeline"].encode_image(image), iters=5, warmup=1)
+        cpu_vae = copy.deepcopy(vae).cpu()
+        cpu = cpu_vae.encode(image.cpu())
+    err = _rel_l2_t(enc.cpu(), cpu)
+    print(f"  SD3 VAE encode (the posterior's mode) of that 512^2 image: {enc_ms:.2f} ms on the "
+          f"card; against the CPU in fp32: relative L2 {err:.3e} (bound {ENCODE_REL_L2})",
+          flush=True)
+    if err > ENCODE_REL_L2:
+        raise AssertionError(f"SD3 VAE encode relative L2 {err:.3e}")
+    del held, vae, cpu_vae, enc, cpu
+    free()
+
+    # ── (3) the Flux VAE encoder (the Kontext conditioning entry) ──
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    fvcfg = VAEConfig.flux()
+    flux = FluxPipeline(None, fvcfg, None, init_params_(_build(AutoencoderKL, fvcfg, dev), gen),
+                        dev)
+    with torch.no_grad():
+        got = flux.encode_image(image)
+        ms = _median_ms(lambda: flux.encode_image(image), iters=5, warmup=1)
+        cpu = FluxPipeline(None, fvcfg, None, copy.deepcopy(flux.vae).cpu(),
+                           torch.device("cpu")).encode_image(image.cpu())
+    err = _rel_l2_t(got.cpu(), cpu)
+    print(f"FluxPipeline.encode_image (Flux VAE, random weights) at 512^2: packed "
+          f"{tuple(got.shape)} in {ms:.2f} ms on the card; against the CPU in fp32: relative "
+          f"L2 {err:.3e} (bound {ENCODE_REL_L2}); the Kontext rollout has no model call in the "
+          f"JAX package, its parity is held on the CPU", flush=True)
+    if err > ENCODE_REL_L2 or tuple(got.shape) != (1, 1024, 64):
+        raise AssertionError(f"Flux encode: {tuple(got.shape)}, relative L2 {err:.3e}")
+    del flux, got, cpu
+    free()
+
+    # ── (4) the rewards ──
+    torch.cuda.reset_peak_memory_stats()
+    images = torch.from_numpy(np.random.default_rng(SEED + 14).uniform(
+        -1, 1, (16, 3, 512, 512)).astype(np.float32)).to(dev)
+    ids = np.full((16, 77), 3, np.int32)
+    clip = CLIPScorer.random_init(torch.Generator(device=dev).manual_seed(SEED + 15), dev)
+    aesthetic = AestheticScorer.random_init(torch.Generator(device=dev).manual_seed(SEED + 16),
+                                            dev)
+    head_sd = convert.aesthetic_state_dict_from_pth(torch.load(
+        os.path.join("adv_grpo_tpu", "data", "assets", "sac+logos+ava1-l14-linearMSE.pth"),
+        map_location="cpu", weights_only=True))
+    aesthetic.head.load_state_dict(head_sd)
+    n = SCORER_CPU_IMAGES
+    for name, scorer, call in (("CLIPScorer.score (CLIP-L, random)", clip,
+                                lambda sc, im, i: sc.score(im, i)),
+                               ("AestheticScorer.score (CLIP-L vision random, the LAION head "
+                                "from the repository's .pth)", aesthetic,
+                                lambda sc, im, i: sc.score(im))):
+        got = call(scorer, images, ids)
+        ms = _median_ms(lambda: call(scorer, images, ids), iters=3, warmup=1)
+        cpu_scorer = copy.copy(scorer)
+        cpu_scorer.device = torch.device("cpu")
+        if isinstance(scorer, CLIPScorer):
+            cpu_scorer.clip = copy.deepcopy(scorer.clip).cpu()
+        else:
+            cpu_scorer.vision = copy.deepcopy(scorer.vision).cpu()
+            cpu_scorer.head = copy.deepcopy(scorer.head).cpu()
+        ref = call(cpu_scorer, images[:n].cpu(), ids[:n])
+        err = float(((got[:n].cpu() - ref).abs() / ref.abs().clamp_min(1.0)).max())
+        print(f"{name}: 16 images at 512^2 in {ms:.1f} ms on the card; scores "
+              f"{got.min().item():.4f}..{got.max().item():.4f}; {n} of them against the CPU in "
+              f"fp32: max error {err:.3e} (bound {SCORER_TOL}, relative above 1); {smi}",
+              flush=True)
+        if err > SCORER_TOL or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: error {err:.3e}")
+        del cpu_scorer
+    del clip, aesthetic, images
+    free()
+
+    # one epoch of pickscore_sd3_fast (PickScore + OCR) at COTRAIN_ARGV's cuts
+    with tempfile.TemporaryDirectory() as work:
+        with open(os.path.join("dataset", "ocr", "test.txt")) as f:
+            lines = [ln for ln in f.read().splitlines() if ln.strip()]
+        for split in ("train", "test"):  # dataset/ocr holds only its test split
+            with open(os.path.join(work, f"{split}.txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+        argv = ["--config", "pickscore_sd3_fast", "--set", "smoke_test=False",
+                "--set", "pretrained.model=", "--set", f"dataset={work}",
+                "--set", "sample.train_batch_size=2", "--set", "sample.num_batches_per_epoch=2",
+                "--set", "train.gradient_accumulation_steps=1", "--set", "wandb_init=False",
+                "--set", f"save_dir={os.path.join(work, 'run')}", "--max_epochs", "1",
+                "--device", "cuda"]
+        read = []
+
+        def engine(img):
+            read.append(ocr_stand_in(img))
+            return read[-1]
+
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(kernels)
+        trainer, wall = synced(train.main, argv, ocr_engine=engine)
+        counts = [k.launches for k in kernels]
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(work, "run", "metrics.jsonl")) as f:
+            (r,) = [json.loads(line) for line in f]
+    want, _ = expected_train_counts(trainer.config, trainer.pipeline.mmdit_cfg, 1)
+    keys = ("reward_avg", "reward_pickscore", "reward_ocr", "loss", "approx_kl")
+    print(f"cli.train pickscore_sd3_fast full width (SD3.5-M 512^2, CLIP-H/14 fp32 random), "
+          f"{trainer.config.sample.num_steps}-step rollouts, 2 batches of 16 images, 1 epoch: "
+          f"{wall:.2f} s wall (builds included); OCR engine chip_smoke.ocr_stand_in (a stand-in "
+          f"for PaddleOCR, passed to cli.train.main explicitly) read {len(read)} images "
+          f"({len(set(read))} distinct texts); " + ", ".join(f"{k} {r[k]:.5f}" for k in keys)
+          + f"; launches {counts} (expected {want}); peak device memory {peak / 2**30:.2f} GiB; "
+          f"phase {time.perf_counter() - phase_t0:.1f} s; {smi}", flush=True)
+    if (counts != want or len(read) != 32 or trainer.reward_ctx.ocr.engine is not engine
+            or not all(np.isfinite(r[k]) for k in keys)):
+        raise AssertionError(f"pickscore_sd3_fast epoch: launches {counts} vs {want}, "
+                             f"{len(read)} OCR reads, {r}")
+    del trainer
+    free()
+
+
 def _zero_counts(kernels):
     """Set the kernels' launch counts to 0, the BSHD wrappers' count of
     their S_q != S_kv launches too."""
@@ -4905,7 +5255,8 @@ def main() -> int:
                joint_attention.mha_rms_bwd)
     alone = {"--dino": run_dino_slice, "--checkpoint": run_checkpoint_slice,
              "--loaders": run_loader_slice,
-             "--family-loaders": lambda kernels, smi: run_family_loader_slice(smi)}
+             "--family-loaders": lambda kernels, smi: run_family_loader_slice(smi),
+             "--prefix-image": run_prefix_image_slice}
     if sys.argv[1:2] and sys.argv[1] in alone:  # one phase, in its one-rank group
         print(f"process group initialized at {init_group()}", flush=True)
         alone[sys.argv[1]](kernels, smi)
@@ -4930,6 +5281,7 @@ def main() -> int:
     run_checkpoint_slice(kernels, smi)
     run_dino_slice(kernels, smi)
     run_loader_slice(kernels, smi)
+    run_prefix_image_slice(kernels, smi)
     dist.destroy_process_group()
     check_flux_model_grads(*check_flux_model())
     flux_kernels = (fused_norms.modulated_layer_norm, fused_norms.rms_norm_heads,

@@ -19,7 +19,8 @@ def _plain(tree):
 
 
 @pytest.mark.parametrize("preset", ["compressibility", "smoke_sd3_fast", "eval_sd3_fast",
-                                    "flux_smoke", "wan_smoke", "pickscore_cotrain_sd3_fast",
+                                    "flux_smoke", "wan_smoke", "pickscore_sd3_fast",
+                                    "pickscore_cotrain_sd3_fast",
                                     "dino_cotrain_sd3_fast", "dino_cotrain_sd3_patch_fast",
                                     "dino_cotrain_sd3_multi_fast"])
 def test_preset_matches_jax(preset):
@@ -29,8 +30,10 @@ def test_preset_matches_jax(preset):
 
 
 def test_unported_preset_raises():
+    """Every JAX preset is ported; a name that is none of them raises."""
     with pytest.raises(KeyError, match="not yet ported"):
-        resolve_config("pickscore_sd3_fast")
+        resolve_config("no_such_preset")
+    assert set(t_grpo._PRESETS) == set(j_grpo._PRESETS)
 
 
 def test_config_attribute_access_and_dtype():

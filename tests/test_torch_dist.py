@@ -6,8 +6,10 @@ The ranks are subprocesses of this file (``python tests/test_torch_dist.py
 file store. Each rank runs, in order: the numeric gathers of
 ``parallel.mesh`` as tests/multihost_worker.py:38-52 runs the JAX ones; one
 epoch of the training CLI with an empty ``save_dir`` (the run directory
-named by rank 0's timestamp); ``train_phase`` on its share of fixed rollout
-rows; and the padded eval, once with an empty shard. Bounds: the LoRA and
+named by rank 0's timestamp); the window starts of a ``same_latent``
+(group-shared prefix) trainer, one for the whole global batch;
+``train_phase`` on its share of fixed rollout rows; and the padded eval,
+once with an empty shard. Bounds: the LoRA and
 EMA after ``train_phase`` within 1e-5 of the one-process run on all the rows
 (fp32, sums in another order).
 
@@ -147,6 +149,20 @@ def test_each_rank_draws_its_own_window_start(ranks):
         assert x["window_starts"] == [int(w[r]) for w in rts]
         assert x["rollout_starts"] == x["window_starts"][nb:2 * nb]  # epoch 1's batches
     assert res[0]["window_starts"] != res[1]["window_starts"]
+
+
+def test_shared_prefix_ranks_take_one_window_start(ranks):
+    """``sample.same_latent`` (the group-shared prefix): one window start for
+    the whole global batch, every rank taking draw 0 (the JAX driver's
+    ``rt_static = int(rts[0])``, adv_grpo_tpu/train/driver.py:287-291), and
+    its rollouts are given that int."""
+    _, res = ranks
+    n, nb = res[0]["num_steps"], res[0]["num_batches"]
+    rts = [np.random.default_rng(s).integers(0, n // 2 + 1, size=WORLD) for s in range(5)]
+    for x in res:
+        assert x["shared_prefix"]
+        assert x["shared_starts"] == [int(w[0]) for w in rts]
+        assert x["shared_rollout_starts"] == x["shared_starts"][nb:2 * nb]
 
 
 def test_train_phase_on_two_ranks_matches_one_process(one_process, ranks):
@@ -388,6 +404,22 @@ def _rank_main(args):
     trainer.sample_fn = sample_fn
     others, _ = mesh.gather_global(lat0.numpy())
     res["rollout_noise_differs"] = not np.array_equal(others[:len(lat0)], others[len(lat0):])
+
+    # the group-shared prefix: one window start for the whole global batch
+    from adv_grpo_torch.cli.common import apply_overrides
+
+    shared = train.build_trainer(apply_overrides(_config(1), ["sample.same_latent=True"]),
+                                 latent_hw=8, device="cpu")
+    res.update(shared_prefix=shared.shared_prefix, shared_rollout_starts=[],
+               shared_starts=[shared.window_start(s) for s in range(5)])
+    shared_fn = shared.sample_fn
+
+    def recording_shared(*args):
+        res["shared_rollout_starts"].append(args[-1])
+        return shared_fn(*args)
+
+    shared.sample_fn = recording_shared
+    shared.sample_phase(1)
 
     # the padded eval: one prompt (rank 1's share is padding only), then three
     for n in (1, 3):

@@ -115,8 +115,10 @@ def test_infer_cli_writes_png(tmp_path):
 @pytest.mark.parametrize("extra", [["--lora", "x"], ["--image", "x.png"],
                                    ["--set", "pretrained.model='/no/such/dir'"]])
 def test_infer_cli_refuses_unported_branches(tmp_path, extra):
-    """``--image`` and a checkpoint directory raise; ``--lora`` is ported,
-    and what it still cannot read, an orbax LoRA tree (the JAX package's
+    """A checkpoint directory that does not exist and an ``--image`` file
+    that does not exist raise (the transfer itself: tests/
+    test_torch_image_entry.py); ``--lora`` is ported, and what it still
+    cannot read, an orbax LoRA tree (the JAX package's
     ``checkpoint-N/lora``), raises naming the way across."""
     argv = ["--config", "eval_sd3_fast", "--prompts", "a", "--out_dir", str(tmp_path),
             "--device", "cpu"]
@@ -130,5 +132,5 @@ def test_infer_cli_refuses_unported_branches(tmp_path, extra):
         with pytest.raises(ValueError, match="export_peft_lora"):
             t_infer.main(argv + ["--set", "smoke_test=True", "--lora", str(orbax)])
     else:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(FileNotFoundError, match="x.png"):
             t_infer.main(argv + ["--set", "smoke_test=True"] + extra)
