@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 __all__ = ["apply_overrides", "build_pipeline", "build_reward_context", "build_text_encoder",
-           "compute_dtype", "load_real_text_encoder", "load_sd3_text_encoders",
+           "compute_dtype", "join_group", "load_real_text_encoder", "load_sd3_text_encoders",
            "make_hash_text_encoder", "make_sd3_encode", "resolve_config", "resolve_device",
            "sd3_tokenizers"]
 
@@ -37,10 +37,19 @@ _BF16 = ("bf16", "bfloat16", "fp16", "float16")
 
 
 def resolve_config(spec: str):
-    """'module_path:preset' or a bare preset name -> config dict."""
-    from adv_grpo_torch.config import grpo
+    """'module_path:preset' or a bare preset name -> config dict, searching
+    the grpo, sft and dpo registries in that order (the reference's
+    ``--config config/{grpo,sft,dpo}.py:name``)."""
+    from adv_grpo_torch.config import dpo, grpo, sft
 
-    return grpo.get_config(spec.rsplit(":", 1)[-1])
+    preset = spec.rsplit(":", 1)[-1]
+    for mod in (grpo, sft, dpo):
+        try:
+            return mod.get_config(preset)
+        except KeyError:
+            continue
+    raise KeyError(f"config preset {preset!r} is unknown or not yet ported to adv_grpo_torch "
+                   f"(ported: {sorted({*grpo._PRESETS, *sft._PRESETS, *dpo._PRESETS})})")
 
 
 def apply_overrides(config, overrides):
@@ -78,6 +87,21 @@ def resolve_device(device) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {str(device)!r} was asked for but no CUDA device is "
                            "visible; pass --device cpu to run on the CPU")
+    return device
+
+
+def join_group(device):
+    """Join the process group that the environment describes (``torchrun``),
+    one device per process: ``cuda`` then means ``cuda:$LOCAL_RANK``, and
+    the group uses NCCL there, gloo on the CPU. Returns the device (without
+    such an environment, ``device`` as given)."""
+    from adv_grpo_torch.parallel import mesh
+
+    if mesh.env_requests_group():
+        if device == "cuda":
+            device = resolve_device(f"cuda:{mesh.local_rank()}")
+            torch.cuda.set_device(device)
+        mesh.init_distributed(device=device)
     return device
 
 

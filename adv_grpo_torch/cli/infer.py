@@ -56,47 +56,70 @@ def load_image(path: str, size: int) -> np.ndarray:
     return (np.asarray(pil, np.float32) / 127.5 - 1.0).transpose(2, 0, 1)[None]
 
 
+def sample_images(pipeline, embeds, pooled, neg_e, neg_p, steps: int, guidance: float,
+                  generator: torch.Generator, latent_hw: int, latents=None) -> torch.Tensor:
+    """Images (B, 3, H, W) fp32 in about [-1, 1] from prompt embeddings on
+    the pipeline's device: the deterministic ``steps``-step rollout at noise
+    level 0 (sd3: CFG ``guidance`` against ``neg_e`` / ``neg_p``; flux: the
+    full-SDE sampler, guidance embedded, the negatives unused), then the VAE
+    decode. ``latents`` (sd3 (B, C, hw, hw), flux packed (B, S, C)) are the
+    starting latents, drawn from ``generator`` when None. The batch sampler
+    of ``generate``, ``cli.eval``, ``cli.generate_refs`` and ``cli.app``."""
+    dev = pipeline.device
+    b = embeds.shape[0]
+    lat = None if latents is None else torch.from_numpy(np.array(latents, np.float32)).to(dev)
+    with torch.inference_mode():
+        if getattr(pipeline, "family", "sd3") == "flux":
+            from adv_grpo_torch.rollout.flux import flux_denoise_window_with_logprob
+
+            if lat is None:
+                lat = pipeline.prepare_latents(generator, b, latent_hw)
+            vfn = pipeline.velocity_fn()
+            out = flux_denoise_window_with_logprob(
+                lambda x, t: vfn(x, t, embeds, pooled), lat, generator, steps, 0, 0.0, 0)
+            return pipeline.decode(out.final_latents)
+        from adv_grpo_torch.rollout.sampler import SamplerConfig, denoise_with_logprob
+
+        cfg = SamplerConfig(num_steps=steps, train_num_steps=0, noise_level=0.0,
+                            guidance_scale=float(guidance))
+        if lat is None:
+            lat = pipeline.prepare_latents(generator, b, latent_hw)
+        out = denoise_with_logprob(pipeline.velocity_fn(), lat, embeds, pooled, neg_e, neg_p,
+                                   generator, cfg)
+        return pipeline.decode(out.final_latents)
+
+
 def generate(pipeline, encode, prompts, config, seed: int = 0, latent_hw=None,
              image=None, start_idx=None) -> torch.Tensor:
     """Images (N, 3, H, W) fp32 in about [-1, 1] for ``prompts``: the
     deterministic ``eval_num_steps`` rollout (sd3: with CFG; flux: the
     full-SDE sampler at noise level 0, guidance embedded), then the VAE
-    decode. sd3 with ``image`` ((1, 3, H, W) in [-1, 1], repeated per
-    prompt): the distribution transfer from schedule step ``start_idx``
-    (default ``eval_num_steps // 2``)."""
+    decode (:func:`sample_images`). sd3 with ``image`` ((1, 3, H, W) in
+    [-1, 1], repeated per prompt): the distribution transfer from schedule
+    step ``start_idx`` (default ``eval_num_steps // 2``)."""
     dev = pipeline.device
     embeds, pooled = (torch.from_numpy(np.asarray(a)).to(dev) for a in encode(prompts))
     hw = latent_hw or int(config.resolution) // 8
     steps = int(config.sample.eval_num_steps)
     generator = torch.Generator(device=dev).manual_seed(seed)
-    if getattr(pipeline, "family", "sd3") == "flux":
-        from adv_grpo_torch.rollout.flux import flux_denoise_window_with_logprob
+    neg_e = neg_p = None
+    if getattr(pipeline, "family", "sd3") != "flux":
+        neg_e, neg_p = (torch.from_numpy(np.asarray(a)).to(dev)
+                        for a in encode([""] * len(prompts)))
+    if image is None:
+        return sample_images(pipeline, embeds, pooled, neg_e, neg_p, steps,
+                             float(config.sample.guidance_scale), generator, hw)
 
-        with torch.inference_mode():
-            lat = pipeline.prepare_latents(generator, len(prompts), hw)
-            vfn = pipeline.velocity_fn()
-            out = flux_denoise_window_with_logprob(
-                lambda x, t: vfn(x, t, embeds, pooled), lat, generator, steps, 0, 0.0, 0)
-            return pipeline.decode(out.final_latents)
+    from adv_grpo_torch.rollout.sampler import SamplerConfig, denoise_from_image
 
-    from adv_grpo_torch.rollout.sampler import (
-        SamplerConfig, denoise_from_image, denoise_with_logprob)
-
-    neg_e, neg_p = (torch.from_numpy(np.asarray(a)).to(dev)
-                    for a in encode([""] * len(prompts)))
     cfg = SamplerConfig(num_steps=steps, train_num_steps=0, noise_level=0.0,
                         guidance_scale=float(config.sample.guidance_scale))
     with torch.inference_mode():
-        if image is not None:
-            images = torch.from_numpy(np.repeat(np.asarray(image, np.float32), len(prompts),
-                                                axis=0)).to(dev)
-            out = denoise_from_image(
-                pipeline.velocity_fn(), pipeline.encode_image, images, embeds, pooled, neg_e,
-                neg_p, generator, cfg, start_idx=steps // 2 if start_idx is None else start_idx)
-            return pipeline.decode(out.final_latents)
-        lat = pipeline.prepare_latents(generator, len(prompts), hw)
-        out = denoise_with_logprob(pipeline.velocity_fn(), lat, embeds, pooled, neg_e,
-                                   neg_p, generator, cfg)
+        images = torch.from_numpy(np.repeat(np.asarray(image, np.float32), len(prompts),
+                                            axis=0)).to(dev)
+        out = denoise_from_image(
+            pipeline.velocity_fn(), pipeline.encode_image, images, embeds, pooled, neg_e,
+            neg_p, generator, cfg, start_idx=steps // 2 if start_idx is None else start_idx)
         return pipeline.decode(out.final_latents)
 
 

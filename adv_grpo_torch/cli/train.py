@@ -38,10 +38,11 @@ Checkpoints (``train/checkpoint.py``) land every ``save_freq`` epochs under
 ``save_dir/checkpoints/checkpoint-{global_step}``. ``--resume PATH|latest``
 restores the whole state of one (``latest``: the newest under ``save_dir``)
 and wins over ``train.lora_path``, a peft adapter directory that warm-starts
-the generator's LoRA; ``weight_path``, a checkpoint directory, warm-starts
-the discriminator. Not ported yet, and refused with ``NotImplementedError``:
-a flax ``.msgpack`` as ``weight_path`` (from ``cli/finetune_pickscore.py``)
-and the rewards ``rewards.registry`` does not list.
+the generator's LoRA; ``weight_path``, a checkpoint directory or a flax
+``.msgpack`` of parameters (``cli.finetune_pickscore``'s, checked before the
+model is built), warm-starts the discriminator. Not ported yet, and refused
+with ``NotImplementedError``: the rewards ``rewards.registry`` does not
+list.
 
 ``pickscore_sd3_fast`` (PickScore + OCR on ``dataset/ocr``) needs an OCR
 engine: PaddleOCR where it can be imported, else a callable uint8 (H, W, 3)
@@ -147,29 +148,23 @@ def main(argv=None, ocr_engine=None):
                         help="torch device; with no CUDA device visible, 'cuda' raises")
     args = parser.parse_args(argv)
 
-    from adv_grpo_torch.cli.common import apply_overrides, resolve_config
+    from adv_grpo_torch.cli.common import apply_overrides, join_group, resolve_config
     from adv_grpo_torch.data.datasets import TextPromptDataset
     from adv_grpo_torch.parallel import mesh
     from adv_grpo_torch.train import checkpoint as ckpt_lib
 
     config = apply_overrides(resolve_config(args.config), args.set)
     # what cannot be read fails before the model is built
-    if bool(config.train_d) and config.get("weight_path", None):
-        ckpt_lib.refuse_msgpack(str(config.weight_path))
+    weight_path = str(config.get("weight_path", None) or "")
+    if bool(config.train_d) and weight_path.endswith(".msgpack"):
+        from adv_grpo_torch.utils import msgpack_io
+
+        msgpack_io.check_map(weight_path)
     lora_path = None if args.resume else config.train.get("lora_path", None)
     if lora_path:
         ckpt_lib.load_lora_only(str(lora_path), expect_rank=int(config.train.lora_rank),
                                 expect_alpha=float(config.train.lora_alpha))
-    device = args.device
-    if mesh.env_requests_group():
-        if device == "cuda":  # one device per process
-            import torch
-
-            from adv_grpo_torch.cli.common import resolve_device
-
-            device = resolve_device(f"cuda:{mesh.local_rank()}")
-            torch.cuda.set_device(device)
-        mesh.init_distributed(device=device)
+    device = join_group(args.device)
     if not str(config.save_dir):
         # reference run layout: logdir/run_name(+unique timestamp); every rank
         # takes rank 0's timestamp (now() can cross a second between ranks)

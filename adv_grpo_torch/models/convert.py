@@ -374,6 +374,73 @@ def clip_dual_state_dict_from_jax(params, text_cfg, vision_cfg) -> Dict[str, tor
     return out
 
 
+def _np(t) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def _dense_to_jax(sd, prefix: str) -> Dict[str, np.ndarray]:
+    out = {"kernel": np.ascontiguousarray(_np(sd[prefix + ".weight"]).T)}
+    if prefix + ".bias" in sd:
+        out["bias"] = _np(sd[prefix + ".bias"])
+    return out
+
+
+def _norm_to_jax(sd, prefix: str) -> Dict[str, np.ndarray]:
+    return {"scale": _np(sd[prefix + ".weight"]), "bias": _np(sd[prefix + ".bias"])}
+
+
+def _count_leaves(tree) -> int:
+    return sum(_count_leaves(v) for v in tree.values()) if isinstance(tree, dict) else 1
+
+
+def clip_dual_state_dict_to_jax(sd, text_cfg, vision_cfg) -> Dict[str, object]:
+    """The inverse of :func:`clip_dual_state_dict_from_jax`: a
+    ``rewards.scorers.CLIPDualEncoder`` state dict -> the JAX
+    ``CLIPDualEncoder`` tree ({"text", "vision", "logit_scale"}) of fp32
+    numpy arrays, which the JAX ``serialization.from_bytes`` restores
+    against ``PickScoreScorer.init_params``. A tensor it does not place
+    raises."""
+    text = {"token_embedding": {"embedding": _np(sd["text_model.token_embedding.weight"])},
+            "position_embedding": _np(sd["text_model.position_embedding"])}
+    for i in range(text_cfg.num_layers):
+        b = f"text_model.layers.{i}."
+        blk = {name: _norm_to_jax(sd, b + name) for name in ("layer_norm1", "layer_norm2")}
+        blk.update({name: _dense_to_jax(sd, b + name)
+                    for name in ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")})
+        text[f"layer_{i}"] = blk
+    text["final_layer_norm"] = _norm_to_jax(sd, "text_model.final_layer_norm")
+    text["text_projection"] = _dense_to_jax(sd, "text_model.text_projection")
+    tree = {"text": text, "vision": vit_state_dict_to_jax(sd, vision_cfg, "vision_model."),
+            "logit_scale": _np(sd["logit_scale"]).reshape(())}
+    if _count_leaves(tree) != len(sd):
+        raise ValueError(f"clip_dual_state_dict_to_jax placed {_count_leaves(tree)} of the "
+                         f"{len(sd)} tensors (towers other than text_cfg / vision_cfg?)")
+    return tree
+
+
+def vit_state_dict_to_jax(sd, cfg, prefix: str = "") -> Dict[str, object]:
+    """The inverse of :func:`vit_state_dict_from_jax` (the tensors under
+    ``prefix``): the JAX ``VisionTransformer`` tree of fp32 numpy arrays."""
+    v = {"patch_embed": _dense_to_jax(sd, prefix + "patch_embed"),
+         "class_embedding": _np(sd[prefix + "class_embedding"]),
+         "position_embedding": _np(sd[prefix + "position_embedding"])}
+    for i in range(cfg.num_layers):
+        b = f"{prefix}layers.{i}."
+        blk = {name: _norm_to_jax(sd, b + name) for name in ("norm1", "norm2")}
+        blk.update({name: _dense_to_jax(sd, b + name)
+                    for name in ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")})
+        for name in ("ls1", "ls2"):
+            if b + name in sd:
+                blk[name] = _np(sd[b + name])
+        v[f"layer_{i}"] = blk
+    for name in ("pre_layernorm", "post_layernorm"):
+        if prefix + name + ".weight" in sd:
+            v[name] = _norm_to_jax(sd, prefix + name)
+    if prefix + "visual_projection.weight" in sd:
+        v["visual_projection"] = _dense_to_jax(sd, prefix + "visual_projection")
+    return v
+
+
 def vit_state_dict_from_jax(params, cfg, prefix: str = "") -> Dict[str, torch.Tensor]:
     """adv_grpo_tpu ``VisionTransformer`` params -> the state dict of
     ``models.vit.VisionTransformer`` at ``cfg``: the CLIP towers

@@ -198,6 +198,16 @@ def process_allgather(tree):
     return type(tree)(_allgather_np(v) for v in leaves)
 
 
+def barrier() -> None:
+    """Wait for every rank of the default group (NCCL: on this rank's current
+    device); a no-op where no group is initialized."""
+    if dist.is_initialized():
+        if dist.get_backend() == "nccl":
+            dist.barrier(device_ids=[torch.cuda.current_device()])
+        else:
+            dist.barrier()
+
+
 def broadcast_one_to_all(buf):
     """Rank 0's numeric array on every rank (the save-dir timestamp)."""
     buf = _numeric(buf, "broadcast_one_to_all")

@@ -53,11 +53,15 @@ class RewardContext:
     the live modules the D-steps update in place (``dino_head_params``,
     ``dino_multi_params``), which nothing frozen reads. Nothing trains the
     CLIP-L and aesthetic scorers, so their weights are their modules' and
-    the context holds no separate parameters for them."""
+    the context holds no separate parameters for them. A warm start that
+    replaces CLIP tensors outside the tail (a full-tree ``.msgpack`` from
+    ``cli.finetune_pickscore``) leaves a frozen copy of the scorer as built
+    in ``pickscore_frozen``, which the 'pickscore' reward then scores with."""
 
     pickscore: Optional[Any] = None  # rewards.scorers.PickScoreScorer
     pickscore_params: Optional[Any] = None
     pickscore_frozen_params: Optional[Any] = None
+    pickscore_frozen: Optional[Any] = None  # the scorer as built, where a warm start changed it
     clip: Optional[Any] = None  # rewards.scorers.CLIPScorer
     aesthetic: Optional[Any] = None  # rewards.scorers.AestheticScorer
     ocr: Optional[Any] = None  # rewards.host.OcrScorer or VideoOcrScorer
@@ -92,6 +96,8 @@ def multi_score(score_dict: Dict[str, float], ctx: Optional[RewardContext] = Non
     def device_scores(name, images, prompts, ref_images):
         if name in ("pickscore", "pickscore_cotrain"):
             s = _require(ctx.pickscore, name, "pickscore scorer")
+            if name == "pickscore" and ctx.pickscore_frozen is not None:
+                s = ctx.pickscore_frozen
             ids = _require(ctx.tokenize, name, "tokenize")(prompts)
             tail = ctx.pickscore_frozen_params if name == "pickscore" else ctx.pickscore_params
             return s.score(images, ids, tail)

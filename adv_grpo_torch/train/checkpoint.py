@@ -115,16 +115,6 @@ def restore_extra(path: str) -> Optional[dict]:
     return torch.load(extra_path, map_location="cpu", weights_only=True)
 
 
-def refuse_msgpack(path: str) -> None:
-    """The discriminator's warm start takes a checkpoint directory; a flax
-    ``.msgpack`` (what the JAX ``cli/finetune_pickscore.py`` writes) raises."""
-    if str(path).endswith(".msgpack"):
-        raise NotImplementedError(
-            f"weight_path={path!r}: a flax .msgpack from cli/finetune_pickscore.py is not "
-            "readable here; porting that CLI (ROADMAP Queue 1, \"Eval and tooling\") brings "
-            "it. A checkpoint directory of this package works")
-
-
 def save_lora_only(save_dir: str, global_step: int, lora_flat: dict,
                    use_ema_weights: Optional[dict] = None, *, rank: int, alpha: float,
                    base_model: Optional[str] = None) -> str:

@@ -63,6 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import random as pyrandom
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, List, Optional
@@ -409,13 +410,7 @@ class GRPOTrainer:
                                                              fake[:n], last)
                 losses.append(float(loss))
                 accs.append(float(acc))
-        if self.reward_ctx is not None:
-            if d.kind == "pickscore":
-                self.reward_ctx.pickscore_params = d.params
-            elif d.kind == "dino_multi":
-                self.reward_ctx.dino_multi_params = d.params
-            else:
-                self.reward_ctx.dino_head_params = d.params
+        self._point_reward_at_disc()
         return {"d_loss": float(np.mean(losses)), "d_acc": float(np.mean(accs))}
 
     def should_run_d_epoch(self, samples) -> bool:
@@ -585,12 +580,15 @@ class GRPOTrainer:
         return self.state
 
     def restore_discriminator(self, path: str):
-        """The discriminator's state from a checkpoint's ``extra.pt`` (the
-        reference's ``config.weight_path`` warm start, and ``restore``),
-        loaded into the live module and its optimizer in place: the co-trained
-        reward reads the same module, and the frozen copy the 'pickscore'
-        reward scores with stays as it was built."""
-        ckpt_lib.refuse_msgpack(path)
+        """The discriminator's warm start (the reference's ``config.weight_path``):
+        a checkpoint directory's ``extra.pt`` (also ``restore``), loaded into
+        the live module and its optimizer in place, or a flax ``.msgpack`` of
+        parameters (``cli.finetune_pickscore``'s, or the JAX package's), the
+        optimizer left fresh (:meth:`_restore_discriminator_msgpack`). The
+        co-trained reward reads the same module; the frozen 'pickscore'
+        reward keeps the weights it was built with."""
+        if path.endswith(".msgpack") and os.path.isfile(path):
+            return self._restore_discriminator_msgpack(path)
         extra = ckpt_lib.restore_extra(path)
         if extra is None:
             raise FileNotFoundError(
@@ -598,6 +596,10 @@ class GRPOTrainer:
         d = self.disc
         d.params.load_state_dict(extra["d_params"])
         d.opt_state.load_state_dict(extra["d_opt_state"])
+        self._point_reward_at_disc()
+
+    def _point_reward_at_disc(self):
+        d = self.disc
         if self.reward_ctx is not None:
             if d.kind == "pickscore":
                 self.reward_ctx.pickscore_params = d.params
@@ -605,3 +607,49 @@ class GRPOTrainer:
                 self.reward_ctx.dino_multi_params = d.params
             else:
                 self.reward_ctx.dino_head_params = d.params
+
+    @torch.no_grad()
+    def _restore_discriminator_msgpack(self, path: str):
+        """Parameters only, as the JAX ``restore_discriminator`` reads a
+        ``.msgpack``. pickscore: the file is the JAX ``CLIPDualEncoder`` tree
+        and becomes the live scorer, every CLIP tensor (the D-step still
+        trains only the tail); where it changes a tensor outside the tail,
+        the scorer as built is first copied aside (one more fp32 CLIP copy)
+        so that the frozen 'pickscore' reward scores as before (the JAX
+        context keeps ``pickscore_frozen_params`` as built). dino: the head
+        ({"fc1", "fc2"}); dino_multi: {"heads", "fusion"}."""
+        import copy
+
+        from adv_grpo_torch.models import convert
+        from adv_grpo_torch.utils import msgpack_io
+
+        tree = msgpack_io.load(path)
+        d, ctx = self.disc, self.reward_ctx
+        if d.kind == "pickscore":
+            clip = ctx.pickscore.clip
+            sd = convert.clip_dual_state_dict_from_jax(tree, clip.text_model.cfg,
+                                                       clip.vision_model.cfg)
+            live = clip.state_dict()
+            if set(sd) != set(live) or any(sd[k].shape != v.shape for k, v in live.items()):
+                raise ValueError(f"{path}: its CLIP tree does not match the discriminator's "
+                                 "towers")
+            tail = {n for n, p in clip.named_parameters() if p.requires_grad}
+            if ctx.pickscore_frozen is None and any(
+                    not torch.equal(sd[k].to(v.device), v) for k, v in live.items()
+                    if k not in tail):
+                frozen = copy.copy(ctx.pickscore)
+                frozen.clip = copy.deepcopy(clip).requires_grad_(False)
+                ctx.pickscore_frozen = frozen
+            clip.load_state_dict(sd)
+        elif d.kind in ("dino", "dino_patch"):
+            d.params.load_state_dict(convert.dino_head_state_dict_from_jax(tree))
+        elif d.kind == "dino_multi":
+            heads = tree["heads"]
+            if isinstance(heads, dict):  # flax writes a list as a map keyed "0", "1", ...
+                heads = [heads[str(i)] for i in range(len(heads))]
+            d.params.load_state_dict(convert.dino_multi_state_dict_from_jax(
+                {"heads": heads, "fusion": tree["fusion"]}))
+        else:
+            raise ValueError(f"a .msgpack warm start for discriminator={d.kind!r} is not read "
+                             "(pickscore, dino, dino_patch and dino_multi are)")
+        self._point_reward_at_disc()

@@ -87,9 +87,12 @@ def _adamw_step_(state: GeneratorState) -> None:
     hp = state.hp
     grads = state.acc
     any_g = next(iter(grads.values()))
-    norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
     # optax: keep the gradient when norm < max_norm, else g / norm * max_norm
-    clip = bool(norm >= hp["max_grad_norm"])
+    # (no clipping at all with an infinite max_norm)
+    clip = False
+    if hp["max_grad_norm"] != float("inf"):
+        norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+        clip = bool(norm >= hp["max_grad_norm"])
     state.count += 1
     bc1 = 1.0 - _f32(hp["b1"], any_g) ** state.count
     bc2 = 1.0 - _f32(hp["b2"], any_g) ** state.count
@@ -118,4 +121,29 @@ def apply_microbatch_grads(state: GeneratorState, grads: Dict[str, torch.Tensor]
         state.global_step += 1
         if state.ema is not None and state.global_step % state.ema_interval == 0:
             ema_update_(state.ema, state.lora, 1.0 - ema_decay_at(prev_step, state.ema_decay))
+    return state
+
+
+def adamw_state(params: Dict[str, torch.nn.Parameter], lr: float, b1: float, b2: float,
+                eps: float, weight_decay: float) -> GeneratorState:
+    """Plain AdamW state over ``params`` (no clipping, accumulation or EMA):
+    ``optax.adamw`` with these hyperparameters, taken by
+    :func:`adamw_update_` (the offline PickScore finetune's optimizer)."""
+    def zeros():
+        return {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
+
+    return GeneratorState(lora=params, acc={}, mu=zeros(), nu=zeros(), ema=None,
+                          hp=dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+                                  max_grad_norm=float("inf")))
+
+
+def adamw_update_(state: GeneratorState, grads: Dict[str, torch.Tensor]) -> GeneratorState:
+    """One AdamW step of ``state`` (:func:`adamw_state`) on ``grads``, in
+    place: the parameters move, the moments advance; ``grads`` are used as
+    they are (the step zeroes them after) and hold no accumulated window."""
+    state.acc = grads
+    _adamw_step_(state)
+    state.acc = {}
+    state.global_step += 1
+    state.micro_step += 1
     return state

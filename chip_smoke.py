@@ -118,6 +118,16 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      step IMAGE_START_IDX, the SD3 and Flux VAE encoders and the CLIP-L /
      aesthetic scorers against the CPU (ENCODE_REL_L2, SCORER_TOL), and one
      ``pickscore_sd3_fast`` epoch with ``ocr_stand_in`` as its OCR engine.
+     Then, in the same group, the evaluation and preparation tools
+     (``run_eval_tooling_slice``): ``cli.generate_refs`` (REF_PROMPTS test
+     prompts x REF_VARIATIONS, and a resumed run that writes nothing),
+     ``cli.validate_refs`` on that set and on a copy with a truncated file,
+     ``cli.eval`` over EVAL_PROMPTS prompts at ``--batch`` EVAL_BATCH with
+     PickScore and DINOv2 rewards against the set, ``cli.finetune_pickscore``
+     on full-width CLIP-H (and ``--tune_layer 1``) with its ``.msgpack``
+     read back bitwise, one co-train epoch warm-started from that file, one
+     ``dpo_sd3_fast`` epoch and the demo app's ``generate`` (stub
+     ``gradio``), each with its launch counts of #1-#5 as derived.
  11. the Flux kernels against their plain versions at the Flux.1-dev 512^2
      shapes: the per-head RMS norm (d = 128, and one head across a 5120-wide
      row), the BSHD attention (B = 1 and 4, and 4608 tokens with kv_len
@@ -197,8 +207,9 @@ alone (``run_dino_slice``, in its one-rank NCCL group), without the result
 lines; ``--checkpoint`` the checkpoint phase (``run_checkpoint_slice``),
 ``--loaders`` the loader phase (``run_loader_slice``) and
 ``--family-loaders`` the Flux / WAN loader phase
-(``run_family_loader_slice``) and ``--prefix-image`` the prefix / image /
-rewards phase (``run_prefix_image_slice``) the same way. ``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
+(``run_family_loader_slice``), ``--prefix-image`` the prefix / image /
+rewards phase (``run_prefix_image_slice``) and ``--eval-tooling`` the
+evaluation and preparation tools (``run_eval_tooling_slice``) the same way. ``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
 joint forwards #2 / #3 (JOINT_CASES: SD3.5-M at CFG batch 2 and 8, Flux.1-dev
 at B = 1 and 4) of the checkout at PARENT (an older tree) against this one's,
 in PAIRS alternating pairs of processes, with each side's error on the same
@@ -1009,14 +1020,18 @@ def expected_train_counts(config, mcfg, epochs=EPOCHS, g_epochs=None):
     the config: rollout forwards (one CFG-batched forward per step), and in
     the ``g_epochs`` of them that take the GRPO update (all by default; a
     D-epoch runs only its rollouts) the replay forwards and their backwards
-    (one per microbatch, two with cfg_sequential); and the microsteps of one
+    (one per microbatch, two with cfg_sequential; with ``train.beta`` > 0 a
+    LoRA-off replay forward more per microbatch); and the microsteps of one
     G epoch."""
     s, t = config.sample, config.train
     g_epochs = epochs if g_epochs is None else g_epochs
     per_epoch = (max(int(t.num_inner_epochs), 1) * int(s.num_batches_per_epoch)
                  * max(int(t.micro_splits), 1) * int(s.train_num_steps))
     replay = g_epochs * per_epoch * (2 if bool(t.cfg_sequential) and bool(t.cfg) else 1)
-    fwd = epochs * int(s.num_batches_per_epoch) * int(s.num_steps) + replay
+    # train.beta > 0 (the DPO preset's KL anchor) replays each microbatch once
+    # more with the LoRA off, forward only
+    fwd = (epochs * int(s.num_batches_per_epoch) * int(s.num_steps)
+           + replay * (2 if float(t.beta) > 0 else 1))
     return ([c * fwd for c in per_forward_counts(mcfg)]
             + [c * replay for c in per_backward_counts(mcfg)]), per_epoch
 
@@ -3918,6 +3933,409 @@ def run_prefix_image_slice(kernels, smi):
     free()
 
 
+REF_PROMPTS, REF_VARIATIONS = 4, 2
+EVAL_PROMPTS, EVAL_BATCH = 20, 16
+FT_EPOCHS, FT_BATCH = 2, 4
+
+
+def _stub_gradio(captured):
+    """A ``gradio`` module that records the app's ``Interface`` (its ``fn``
+    and inputs) and launches nothing."""
+    import types
+
+    gr = types.ModuleType("gradio")
+
+    class Interface:
+        def __init__(self, fn=None, inputs=None, outputs=None, title=None):
+            captured.update(fn=fn, inputs=inputs)
+
+        def launch(self, server_port=None):
+            captured["launched"] = server_port
+
+    gr.Interface = Interface
+    for name in ("Textbox", "Dropdown", "Slider", "Number", "Image"):
+        setattr(gr, name, lambda *a, __n=name, **k: types.SimpleNamespace(kind=__n, kwargs=k))
+    return gr
+
+
+def run_eval_tooling_slice(kernels, smi):
+    """Phase: the evaluation and preparation tools at full width (random
+    weights from the seed). (1) ``cli.generate_refs`` at ``eval_sd3_fast``
+    (512^2, 40 steps, CFG 4.5) for the first REF_PROMPTS prompts of
+    ``dataset/pickscore/test.txt`` x REF_VARIATIONS: launches of #1-#3
+    exactly per_forward_counts x 40 per prompt, s per prompt; a second run
+    writes and samples nothing. (2) ``cli.validate_refs`` passes on that
+    set and exits 1 on a copy with one file cut in half. (3) ``cli.eval`` at
+    ``eval_sd3_fast`` over the first EVAL_PROMPTS test prompts, ``--batch``
+    EVAL_BATCH (CFG batch 32; two batches, the second 4 prompts and 12
+    padding rows), ``--rewards``: PickScore CLIP-H and DINOv2-B/14's
+    ``image_similarity`` against the set of (1) (``json_path`` /
+    ``test_reference_image_path``), 20 PNGs, the merged JSON, finite means
+    with counts of 20, launches as derived; s per image over the full batch,
+    s per batch, peak memory. (4) ``cli.finetune_pickscore`` on full-width
+    CLIP-H (fp32), FT_EPOCHS epochs of batch FT_BATCH over 8 pairs (the
+    refs of (1) good, the eval images of (3) bad, a JSON the phase writes):
+    finite losses, the tree moved, the ``.msgpack`` read back bitwise (write
+    / read s, bytes), ms per step; then ``--tune_layer 1`` for one epoch:
+    every tensor outside the last vision layer bitwise its start. (5) one
+    epoch of ``cli.train`` at COTRAIN_ARGV with ``weight_path`` that
+    ``.msgpack``: the live scorer bitwise the file as built, the frozen
+    'pickscore' score of a fixed batch bitwise a fresh build's, launches of
+    #1-#5 as derived; s, peak memory. (6) one epoch of ``dpo_sd3_fast``
+    (beta 100) at COTRAIN_ARGV's cuts, OCR through ``ocr_stand_in``, a train
+    split written from ``dataset/ocr``: launches with each microbatch's
+    LoRA-off replay forward, ``kl_loss`` finite and non-zero; s. (7)
+    ``cli.app``'s ``generate`` through a stub ``gradio``, for a local
+    adapter (the epoch's LoRA with random B factors) and for the base
+    model: two different 512^2 images, launches of #1-#3 as derived."""
+    import copy
+    import gc
+    import shutil
+    import sys as _sys
+
+    import numpy as np
+    import torch
+
+    from adv_grpo_torch.cli import common, finetune_pickscore, generate_refs, infer
+    from adv_grpo_torch.cli import app as app_cli
+    from adv_grpo_torch.cli import eval as eval_cli
+    from adv_grpo_torch.cli import train, validate_refs
+    from adv_grpo_torch.models import convert, peft_lora
+    from adv_grpo_torch.models.clip_text import CLIPTextConfig
+    from adv_grpo_torch.models.mmdit import MMDiTConfig
+    from adv_grpo_torch.models.vit import ViTConfig
+    from adv_grpo_torch.rewards.registry import multi_score
+    from adv_grpo_torch.utils import msgpack_io
+
+    phase_t0 = time.perf_counter()
+    towers = CLIPTextConfig.clip_h_text(), ViTConfig.clip_h()
+    per_fwd = per_forward_counts(MMDiTConfig.sd35_medium())
+    sd3 = ["--set", "pretrained.model=", "--device", "cuda"]
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def timed_sampler(times):
+        sample = infer.sample_images
+
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sample(*args, **kwargs)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+        return sample, call
+
+    with open(os.path.join("dataset", "pickscore", "test.txt")) as f:
+        test_prompts = [ln.strip() for ln in f if ln.strip()]
+    work = tempfile.mkdtemp()
+    try:
+        # ── (1) generate_refs ──
+        refs = os.path.join(work, "refs")
+        with open(os.path.join(work, "prompts.txt"), "w") as f:
+            f.write("\n".join(test_prompts[:REF_PROMPTS]) + "\n")
+        argv = ["--config", "eval_sd3_fast", "--text_file", os.path.join(work, "prompts.txt"),
+                "--output_dir", refs, "--num_variations", str(REF_VARIATIONS)] + sd3
+        times = []
+        sample, infer.sample_images = timed_sampler(times)
+        try:
+            _zero_counts(kernels[:3])
+            t0 = time.perf_counter()
+            json_path = generate_refs.main(argv)
+            wall = time.perf_counter() - t0
+            counts = [k.launches for k in kernels[:3]]
+            mtimes = {n: os.stat(os.path.join(refs, n)).st_mtime_ns for n in os.listdir(refs)
+                      if n.endswith(".png")}
+            n_before = len(times)
+            _zero_counts(kernels[:3])
+            generate_refs.main(argv)
+            again = [k.launches for k in kernels[:3]]
+        finally:
+            infer.sample_images = sample
+        mtimes_after = {n: os.stat(os.path.join(refs, n)).st_mtime_ns for n in os.listdir(refs)
+                        if n.endswith(".png")}
+        want = [c * STEPS * REF_PROMPTS for c in per_fwd]
+        print(f"cli.generate_refs eval_sd3_fast full width (SD3.5-M 512^2, {STEPS} steps, CFG "
+              f"4.5, batch {REF_VARIATIONS} a prompt = CFG batch {2 * REF_VARIATIONS}), "
+              f"{REF_PROMPTS} prompts of dataset/pickscore/test.txt: "
+              f"{[round(t, 3) for t in times]} s per prompt (rollout + decode), {wall:.2f} s "
+              f"wall (pipeline build included); launches {counts} (expected {want}); the "
+              f"second run {len(times) - n_before} rollouts, launches {again}, "
+              f"{sum(mtimes[n] != mtimes_after.get(n) for n in mtimes)} PNGs rewritten; {smi}",
+              flush=True)
+        if (counts != want or len(mtimes) != REF_PROMPTS * REF_VARIATIONS
+                or len(times) != n_before or any(again) or mtimes_after != mtimes):
+            raise AssertionError(f"generate_refs: launches {counts} vs {want}, "
+                                 f"{len(mtimes)} PNGs, resume {again}")
+        free()
+
+        # ── (2) validate_refs ──
+        broken = os.path.join(work, "refs_broken")
+        shutil.copytree(refs, broken)
+        victim = os.path.join(broken, sorted(mtimes)[0])
+        with open(victim, "rb") as f:
+            data = f.read()
+        with open(victim, "wb") as f:
+            f.write(data[: len(data) // 2])
+        vargv = ["--num_variations", str(REF_VARIATIONS), "--decode_all",
+                 "--text_file", os.path.join(work, "prompts.txt")]
+        rc_good = validate_refs.main(["--image_dir", refs] + vargv)
+        rc_bad = validate_refs.main(["--image_dir", broken] + vargv)
+        print(f"cli.validate_refs: the set of (1) exits {rc_good}; a copy with "
+              f"{os.path.basename(victim)} cut to {len(data) // 2} of {len(data)} bytes exits "
+              f"{rc_bad}", flush=True)
+        if rc_good != 0 or rc_bad == 0:
+            raise AssertionError(f"validate_refs: {rc_good} / {rc_bad}")
+
+        # ── (3) eval ──
+        out_dir = os.path.join(work, "eval")
+        times = []
+        sample, infer.sample_images = timed_sampler(times)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts(kernels[:3])
+            t0 = time.perf_counter()
+            summary = eval_cli.main([
+                "--config", "eval_sd3_fast", "--out_dir", out_dir, "--limit",
+                str(EVAL_PROMPTS), "--batch", str(EVAL_BATCH), "--rewards",
+                "--set", f"json_path={json_path}", "--set",
+                f"test_reference_image_path={refs}"] + sd3)
+            wall = time.perf_counter() - t0
+            counts = [k.launches for k in kernels[:3]]
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            infer.sample_images = sample
+        n_batches = -(-EVAL_PROMPTS // EVAL_BATCH)
+        want = [c * STEPS * n_batches for c in per_fwd]
+        pngs = sorted(n for n in os.listdir(out_dir) if n.endswith(".png"))
+        with open(os.path.join(out_dir, "prompt2img.json")) as f:
+            merged = json.load(f)
+        means, rcounts = summary["reward_means"], summary["reward_counts"]
+        print(f"cli.eval eval_sd3_fast full width, {EVAL_PROMPTS} prompts, --batch {EVAL_BATCH} "
+              f"(CFG batch {2 * EVAL_BATCH}; {n_batches} batches, the last "
+              f"{EVAL_PROMPTS - (n_batches - 1) * EVAL_BATCH} prompts + padding), --rewards "
+              f"(PickScore CLIP-H/14 fp32 and DINOv2-B/14 image_similarity against the set of "
+              f"(1), random weights): {times[0] / EVAL_BATCH:.3f} s per image over the full "
+              f"batch; s per batch (rollout + decode) {[round(t, 3) for t in times]}; "
+              f"{wall:.2f} s wall (builds and scoring included); {len(pngs)} PNGs, "
+              f"prompt2img.json {len(merged)} prompts; means "
+              + ", ".join(f"{k} {v:.5f}" for k, v in sorted(means.items()))
+              + f"; counts {rcounts}; launches {counts} (expected {want}); peak device "
+              f"memory {peak / 2**30:.2f} GiB; {smi}", flush=True)
+        if (counts != want or len(pngs) != EVAL_PROMPTS or len(merged) != EVAL_PROMPTS
+                or set(rcounts) != {"avg", "pickscore", "image_similarity"}
+                or set(rcounts.values()) != {EVAL_PROMPTS}
+                or not all(np.isfinite(v) for v in means.values())):
+            raise AssertionError(f"eval: launches {counts} vs {want}, {len(pngs)} PNGs, "
+                                 f"{summary}")
+        free()
+
+        # ── (4) finetune_pickscore ──
+        good, bad = os.path.join(work, "good"), os.path.join(work, "bad")
+        os.makedirs(good), os.makedirs(bad)
+        with open(json_path) as f:
+            ref_map = json.load(f)
+        pairs = {}
+        for i, prompt in enumerate(test_prompts[:REF_PROMPTS]):
+            for v, ref in enumerate(ref_map[prompt]):
+                name = f"pair_{i}_{v}.png"
+                shutil.copy(os.path.join(refs, ref), os.path.join(good, name))
+                shutil.copy(os.path.join(out_dir, merged[prompt][0]), os.path.join(bad, name))
+                pairs[prompt if v == 0 else f"{prompt} (variation {v})"] = name
+        with open(os.path.join(work, "pairs.json"), "w") as f:
+            json.dump(pairs, f)
+        held = {}
+        build = finetune_pickscore.build_scorer
+
+        def held_build(*args, **kwargs):
+            scorer = build(*args, **kwargs)
+            held.setdefault("start", {k: v.to("cpu", copy=True)
+                                      for k, v in scorer.clip.state_dict().items()})
+            held["scorer"] = scorer
+            return scorer
+
+        ft_argv = ["--json_file", os.path.join(work, "pairs.json"), "--good_dir", good,
+                   "--bad_dir", bad, "--batch", str(FT_BATCH), "--device", "cuda"]
+        finetune_pickscore.build_scorer = held_build
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            ft = finetune_pickscore.main(ft_argv + ["--out", os.path.join(work, "ft"),
+                                                    "--epochs", str(FT_EPOCHS)])
+            ft_peak = torch.cuda.max_memory_allocated()
+            final = {k: v.to("cpu", copy=True)
+                     for k, v in held.pop("scorer").clip.state_dict().items()}
+            free()
+            t0 = time.perf_counter()
+            tree = msgpack_io.load(ft["params_path"])
+            read = convert.clip_dual_state_dict_from_jax(tree, *towers)
+            read_s = time.perf_counter() - t0
+            del tree
+            tune = finetune_pickscore.main(ft_argv + ["--out", os.path.join(work, "ft_tune"),
+                                                      "--epochs", "1", "--tune_layer", "1"])
+            held.pop("scorer")
+            tuned = convert.clip_dual_state_dict_from_jax(
+                msgpack_io.load(tune["params_path"]), *towers)
+        finally:
+            finetune_pickscore.build_scorer = build
+        start = held["start"]
+        last = f"vision_model.layers.{towers[1].num_layers - 1}."
+        not_bitwise = [k for k in final if not torch.equal(read[k], final[k])]
+        moved = sum(not torch.equal(final[k], start[k]) for k in final)
+        frozen_changed = [k for k in tuned if not k.startswith(last)
+                          and not torch.equal(tuned[k], start[k])]
+        tail_moved = sum(not torch.equal(tuned[k], start[k]) for k in tuned if k.startswith(last))
+        losses = [h["train_loss"] for h in ft["history"][1:]]
+        step_ms = [round(1e3 * t, 1) for t in ft["step_s"]]
+        print(f"cli.finetune_pickscore, PickScore CLIP-H/14 fp32 random (986M parameters), "
+              f"{len(pairs)} pairs (good: the refs of (1), bad: the eval images of (3)), "
+              f"{FT_EPOCHS} epochs of batch {FT_BATCH}, AdamW lr 1e-6 wd 1e-4: ms per step "
+              f"{step_ms}; train loss {[round(x, 5) for x in losses]}; pref_accuracy "
+              f"{[h['pref_accuracy'] for h in ft['history']]}; {moved} of {len(final)} tensors "
+              f"moved; .msgpack {ft['bytes']} bytes written in {ft['write_s']:.2f} s, read "
+              f"and converted in {read_s:.2f} s, {len(not_bitwise)} tensors not bitwise; peak "
+              f"device memory {ft_peak / 2**30:.2f} GiB; --tune_layer 1, one epoch: "
+              f"{tail_moved} tensors of the last vision layer moved, {len(frozen_changed)} "
+              f"others changed; {smi}", flush=True)
+        if (not all(np.isfinite(losses)) or moved < len(final) // 2 or not_bitwise
+                or frozen_changed or not tail_moved
+                or ft["bytes"] != os.path.getsize(ft["params_path"])):
+            raise AssertionError(f"finetune: losses {losses}, moved {moved}, not bitwise "
+                                 f"{not_bitwise[:3]}, frozen changed {frozen_changed[:3]}")
+        del start, final, tuned
+        free()
+
+        # ── (5) the co-train epoch from the .msgpack ──
+        config = common.apply_overrides(common.resolve_config("pickscore_cotrain_sd3_fast"),
+                                        ["smoke_test=False", "pretrained.model="])
+        probe = np.random.default_rng(SEED + 1).uniform(-1, 1, (4, 3, 512, 512)).astype(
+            np.float32)
+        probe_prompts = ["a flower", "a red bicycle", "a city at night", "a bowl of fruit"]
+        fresh_ctx = common.build_reward_context(config, {"pickscore"}, device="cuda")
+        fresh = multi_score({"pickscore": 1.0}, fresh_ctx)(probe, probe_prompts)[0]["pickscore"]
+        del fresh_ctx
+        free()
+        hold = {}
+
+        def on_build(trainer):
+            ctx = trainer.reward_ctx
+            live = ctx.pickscore.clip.state_dict()
+            hold["live_not_file"] = [k for k, v in read.items()
+                                     if not torch.equal(live[k].cpu(), v)]
+            hold["frozen"] = multi_score({"pickscore": 1.0}, ctx)(probe, probe_prompts)[0][
+                "pickscore"]
+            hold["copy"] = ctx.pickscore_frozen is not None
+
+        argv = list(COTRAIN_ARGV)
+        argv[argv.index("--max_epochs") + 1] = "1"
+        argv += ["--set", f"weight_path={ft['params_path']}"]
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as run_work:
+            counts, records, wall = _train_recorded(argv, run_work, kernels, hold, on_build)
+        peak = torch.cuda.max_memory_allocated()
+        trainer = hold["trainer"]
+        branches = [bool(r["d_epoch"]) for r in records]
+        want, _ = expected_train_counts(trainer.config, trainer.pipeline.mmdit_cfg, 1,
+                                        branches.count(False))
+        print(f"cli.train pickscore_cotrain_sd3_fast (COTRAIN_ARGV, 1 epoch) with weight_path "
+              f"the finetuned .msgpack: {wall:.2f} s wall (builds and the 3.9 GB read "
+              f"included), branch {'D' if branches[0] else 'G'}; the live CLIP-H as built "
+              f"differs from the file in {len(hold['live_not_file'])} tensors; the frozen "
+              f"scorer copied aside {hold['copy']}; frozen 'pickscore' of the probe max change "
+              f"against a fresh build {np.abs(hold['frozen'] - fresh).max():.3e}; launches "
+              f"{counts} (expected {want}); peak device memory {peak / 2**30:.2f} GiB; {smi}",
+              flush=True)
+        if (hold["live_not_file"] or not np.array_equal(hold["frozen"], fresh)
+                or not hold["copy"] or counts != want or len(records) != 1):
+            raise AssertionError(f"warm start: live differs {hold['live_not_file'][:3]}, "
+                                 f"launches {counts} vs {want}")
+        rng = np.random.default_rng(SEED + 19)
+        adapter = {k: (rng.standard_normal(tuple(p.shape)).astype(np.float32) * 0.02
+                       if k.endswith("lora_b") else p.detach().float().cpu().numpy())
+                   for k, p in trainer.state.lora.items()}
+        rank, alpha = int(trainer.config.train.lora_rank), float(trainer.config.train.lora_alpha)
+        del trainer, hold, read
+        free()
+
+        # ── (6) one dpo_sd3_fast epoch ──
+        ds = os.path.join(work, "ocr")
+        os.makedirs(ds)
+        with open(os.path.join("dataset", "ocr", "test.txt")) as f:
+            lines = [ln for ln in f.read().splitlines() if ln.strip()]
+        for split in ("train", "test"):  # dataset/ocr holds only its test split
+            with open(os.path.join(ds, f"{split}.txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+        argv = ["--config", "dpo_sd3_fast", "--set", "smoke_test=False",
+                "--set", "pretrained.model=", "--set", f"dataset={ds}",
+                "--set", "sample.train_batch_size=2", "--set", "sample.num_batches_per_epoch=2",
+                "--set", "train.gradient_accumulation_steps=1", "--set", "wandb_init=False",
+                "--set", f"save_dir={os.path.join(work, 'dpo')}", "--max_epochs", "1",
+                "--device", "cuda"]
+        _zero_counts(kernels)
+        t0 = time.perf_counter()
+        trainer = train.main(argv, ocr_engine=ocr_stand_in)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = [k.launches for k in kernels]
+        with open(os.path.join(work, "dpo", "metrics.jsonl")) as f:
+            (r,) = [json.loads(line) for line in f]
+        want, _ = expected_train_counts(trainer.config, trainer.pipeline.mmdit_cfg, 1)
+        plain, _ = expected_train_counts(
+            common.apply_overrides(copy.deepcopy(trainer.config), ["train.beta=0.0"]),
+            trainer.pipeline.mmdit_cfg, 1)
+        print(f"cli.train dpo_sd3_fast (beta {float(trainer.config.train.beta)}, algorithm "
+              f"dpo) at COTRAIN_ARGV's cuts, OCR through chip_smoke.ocr_stand_in, 1 epoch: "
+              f"{wall:.2f} s wall (builds included); reward {r['reward_avg']:.5f}, loss "
+              f"{r['loss']:.4e}, kl_loss {r['kl_loss']:.4e}, approx_kl {r['approx_kl']:.3e}; "
+              f"launches {counts} (expected {want}: the LoRA-off replay adds "
+              f"{[a - b for a, b in zip(want, plain)]} to beta 0's {plain}); {smi}", flush=True)
+        if (counts != want or not np.isfinite(r["kl_loss"]) or r["kl_loss"] == 0.0
+                or not np.isfinite(r["loss"])):
+            raise AssertionError(f"dpo epoch: launches {counts} vs {want}, {r}")
+        del trainer
+        free()
+
+        # ── (7) the app ──
+        adapter_dir = os.path.join(work, "adapter")
+        peft_lora.export_peft_lora(adapter_dir, adapter, rank, alpha)
+        del adapter
+        captured = {}
+        saved = _sys.modules.get("gradio")
+        _sys.modules["gradio"] = _stub_gradio(captured)
+        try:
+            app_cli.main(["--config", "eval_sd3_fast", "--lora", adapter_dir] + sd3)
+        finally:
+            if saved is None:
+                _sys.modules.pop("gradio", None)
+            else:
+                _sys.modules["gradio"] = saved
+        images, secs = {}, {}
+        _zero_counts(kernels[:3])
+        for choice in ("local", "base (untuned)"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            images[choice] = captured["fn"]('a shop sign that says "open"', choice, STEPS,
+                                            4.5, SEED)
+            secs[choice] = time.perf_counter() - t0
+        counts = [k.launches for k in kernels[:3]]
+        want = [c * STEPS * 2 for c in per_fwd]
+        a, b = images["local"], images["base (untuned)"]
+        print(f"cli.app generate (stub gradio) at eval_sd3_fast full width, {STEPS} steps, CFG "
+              f"4.5, seed {SEED}: the local adapter {a.shape} in {secs['local']:.3f} s, the "
+              f"base model {b.shape} in {secs['base (untuned)']:.3f} s; mean absolute "
+              f"difference {np.abs(a.astype(np.int16) - b.astype(np.int16)).mean():.2f} uint8 "
+              f"levels; launches {counts} (expected {want}); phase "
+              f"{time.perf_counter() - phase_t0:.1f} s; {smi}", flush=True)
+        if (a.shape != (512, 512, 3) or b.shape != a.shape or np.array_equal(a, b)
+                or counts != want or captured.get("launched") != 7860):
+            raise AssertionError(f"app: {a.shape} {b.shape}, launches {counts} vs {want}")
+        del captured
+        free()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def _zero_counts(kernels):
     """Set the kernels' launch counts to 0, the BSHD wrappers' count of
     their S_q != S_kv launches too."""
@@ -5256,7 +5674,8 @@ def main() -> int:
     alone = {"--dino": run_dino_slice, "--checkpoint": run_checkpoint_slice,
              "--loaders": run_loader_slice,
              "--family-loaders": lambda kernels, smi: run_family_loader_slice(smi),
-             "--prefix-image": run_prefix_image_slice}
+             "--prefix-image": run_prefix_image_slice,
+             "--eval-tooling": run_eval_tooling_slice}
     if sys.argv[1:2] and sys.argv[1] in alone:  # one phase, in its one-rank group
         print(f"process group initialized at {init_group()}", flush=True)
         alone[sys.argv[1]](kernels, smi)
@@ -5282,6 +5701,7 @@ def main() -> int:
     run_dino_slice(kernels, smi)
     run_loader_slice(kernels, smi)
     run_prefix_image_slice(kernels, smi)
+    run_eval_tooling_slice(kernels, smi)
     dist.destroy_process_group()
     check_flux_model_grads(*check_flux_model())
     flux_kernels = (fused_norms.modulated_layer_norm, fused_norms.rms_norm_heads,

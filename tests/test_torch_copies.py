@@ -5,7 +5,11 @@ The port imports nothing of ``adv_grpo_tpu`` (tests/test_torch_imports.py),
 so it carries copies of the schedule, the stat tracker, the k-repeat sampler,
 the datasets, the embedding store (reader and writer), the metric logger, the FLOP model, the
 host JPEG rewards, the uint8 image packer, the override parser, the hash
-text encoder, the peft key mapping and the checkpoint directory helpers. Each is held here against its original: exact equality
+text encoder, the peft key mapping, the checkpoint directory helpers, the
+prompt functions, the preference pairs and the dataset tooling (the last two
+also in tests/test_torch_finetune_pickscore.py and
+tests/test_torch_refs_tools.py; the SFT / RWR / DPO presets in
+tests/test_torch_config.py). Each is held here against its original: exact equality
 throughout, since both sides run the same numpy arithmetic.
 """
 
@@ -313,3 +317,48 @@ def test_latest_and_prune_checkpoints_are_identical(tmp_path):
                 == os.path.basename(j_ckpt.latest_checkpoint(str(tmp_path / "j")))
                 == "checkpoint-100")
     assert got == ["checkpoint-100", "other"]
+
+
+@pytest.mark.parametrize("name", sorted(j_data.PROMPT_FNS))
+def test_prompt_functions_are_identical(name):
+    """Each prompt function draws the same prompts and metadata from the same
+    ``random`` state (the word lists read from the JAX package's assets)."""
+    import random
+
+    assert sorted(t_data.PROMPT_FNS) == sorted(j_data.PROMPT_FNS)
+    draws = {}
+    for side, mod in (("t", t_data), ("j", j_data)):
+        random.seed(11)
+        draws[side] = [mod.get_prompt_fn(name)() for _ in range(25)]
+    assert draws["t"] == draws["j"]
+    assert len({p for p, _ in draws["t"]}) > 1
+
+
+def test_preference_pairs_and_tooling_are_identical(tmp_path, monkeypatch):
+    from PIL import Image
+
+    from adv_grpo_torch.data import tooling as t_tooling
+    from adv_grpo_tpu.data import tooling as j_tooling
+    from adv_grpo_tpu.native import lib as j_native
+
+    monkeypatch.setattr(j_native, "load_images_chw", lambda *a, **k: None)
+    rng = np.random.default_rng(9)
+    for d in ("good", "bad"):
+        (tmp_path / d).mkdir()
+        for i in range(3):
+            Image.fromarray(rng.integers(0, 256, (12 + i, 17, 3), dtype=np.uint8)).save(
+                tmp_path / d / f"f{i}.png")
+    (tmp_path / "good" / "f2.png").unlink()  # the (bad, bad) pair
+    (tmp_path / "p.json").write_text(json.dumps({"a": "f0.png", "b": ["f1.png", "f0.png"],
+                                                 "c": "f2.png"}))
+    args = (str(tmp_path / "p.json"), str(tmp_path / "good"), str(tmp_path / "bad"))
+    got, want = (mod.PreferencePairDataset(*args, resolution=9).get_batch([2, 0, 1])
+                 for mod in (t_data, j_data))
+    assert got[0] == want[0] == ["c", "a", "b"]
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == np.float32
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(got[1][0], got[2][0])
+    for w, n in (([0.7, 0.3], 10), ([3, 1, 1, 2], 17), ([0.2] * 5, 3)):
+        assert (t_tooling.largest_remainder_allocation(w, n)
+                == j_tooling.largest_remainder_allocation(w, n))

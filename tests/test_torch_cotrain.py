@@ -324,8 +324,8 @@ def test_train_cli_refuses_the_checkpoint_options(tmp_path, extra):
     """What the checkpoint options cannot take raises before anything is
     built, naming the way forward: ``--resume latest`` with no checkpoint
     under ``save_dir``; a flax ``.msgpack`` as the discriminator's
-    ``weight_path`` (its CLI, ROADMAP Queue 1's "Eval and tooling", is not ported); a
-    ``train.lora_path`` that is an orbax tree, as the JAX package's
+    ``weight_path`` that does not exist (an existing one is read: tests/
+    test_torch_finetune_pickscore.py); a ``train.lora_path`` that is an orbax tree, as the JAX package's
     ``checkpoint-N/lora`` is (its ``export_peft_lora`` writes the peft
     directory the port reads)."""
     orbax = tmp_path / "lora"
@@ -333,7 +333,7 @@ def test_train_cli_refuses_the_checkpoint_options(tmp_path, extra):
     (orbax / "_METADATA").write_text("{}")
     extra = [a.replace("=lora", f"={orbax}") for a in extra]
     error, match = {"--resume": (FileNotFoundError, "no checkpoints under"),
-                    "weight_path=d.msgpack": (NotImplementedError, "Eval and tooling"),
+                    "weight_path=d.msgpack": (FileNotFoundError, "d.msgpack"),
                     f"train.lora_path={orbax}": (ValueError, "export_peft_lora")}[
         extra[0] if extra[0] == "--resume" else extra[1]]
     with pytest.raises(error, match=match):

@@ -41,11 +41,14 @@ def _run(args, cwd):
 def test_port_imports_no_jax_flax_or_triton():
     """Nor ``transformers``, ``tokenizers``, ``regex``, ``ftfy`` or
     ``sentencepiece``: the port tokenizes in plain Python
-    (``data.tokenizers``)."""
+    (``data.tokenizers``); nor ``msgpack`` (``utils.msgpack_io`` reads and
+    writes flax's files) nor ``gradio`` / ``huggingface_hub``, which only
+    ``cli.app`` imports, when it runs."""
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in ('jax', 'flax', 'optax', 'triton', 'ml_collections',"
-            " 'transformers', 'tokenizers', 'regex', 'ftfy', 'sentencepiece')"
+            " 'transformers', 'tokenizers', 'regex', 'ftfy', 'sentencepiece', 'msgpack',"
+            " 'gradio', 'huggingface_hub')"
             " if m in sys.modules))\n")
     proc = _run(["-c", code], REPO)
     assert proc.returncode == 0, proc.stderr
@@ -64,7 +67,11 @@ def test_port_loads_nothing_of_the_jax_package():
             "adv_grpo_torch.train.checkpoint", "adv_grpo_torch.models.t5",
             "adv_grpo_torch.models.encode_prompt",
             "adv_grpo_torch.cli.precompute_embeds",
-            "adv_grpo_torch.data.tokenizers"} <= set(PORT_MODULES)
+            "adv_grpo_torch.data.tokenizers", "adv_grpo_torch.cli.eval",
+            "adv_grpo_torch.cli.generate_refs", "adv_grpo_torch.cli.validate_refs",
+            "adv_grpo_torch.cli.finetune_pickscore", "adv_grpo_torch.cli.app",
+            "adv_grpo_torch.config.sft", "adv_grpo_torch.config.dpo",
+            "adv_grpo_torch.data.tooling", "adv_grpo_torch.utils.msgpack_io"} <= set(PORT_MODULES)
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] == 'adv_grpo_tpu'))\n")
