@@ -6,9 +6,10 @@ Port of adv_grpo_tpu/cli/common.py:50-69 (``apply_overrides``), :88-240
 :242-258 (``make_hash_text_encoder``, the deterministic stand-in for the
 text encoders, byte for byte the JAX package's embeddings), :261-320
 (``load_real_text_encoder``: CLIP-L, CLIP-G and T5 from a local diffusers
-directory), :323-328 (``_scorer_weights_dir``) and the PickScore and DINO
-parts of :331-501 (``build_reward_context``: the scorers from
-``PICKSCORE_DIR`` / ``DINOV2_DIR`` checkpoints, else random weights).
+directory), :323-328 (``_scorer_weights_dir``) and :331-557 (``build_reward_context``: the
+scorers from their checkpoints, ``PICKSCORE_DIR``, ``DINOV2_DIR``,
+``CLIP_DIR``, ``SIGLIP_DIR``, ..., else random weights, and the remote
+judges).
 
 Prompts are tokenized by ``data.tokenizers`` from the directory's
 ``tokenizer{,_2,_3}/`` (the JAX package's ``transformers.CLIPTokenizer`` /
@@ -395,7 +396,14 @@ def build_reward_context(config, reward_names, device="cuda", ocr_engine=None):
     ``clipscore`` and ``aesthetic`` (:func:`_clip_l_context`): CLIP-L/14;
     OCR (``ocr``, ``video_ocr``): ``ocr_engine``, a callable uint8 (H, W, 3)
     -> str, else PaddleOCR where it can be imported (with neither the
-    reward raises when called)."""
+    reward raises when called).
+
+    ``pickscore_patch`` and ``constractive_external`` score with the
+    PickScore scorer above. The rest (:func:`_remaining_context`): SigLIP
+    so400m from ``SIGLIP_DIR``, the StyleGAN D of ``discriminator`` (from a
+    ``STYLEGAN_D_PATH`` ``.msgpack``), the judges at ``GENEVAL_URL``,
+    ``DEQA_URL`` and ``UNIFIEDREWARD_URL``, the Qwen2.5-VL judge of
+    ``QWENVL_MODEL_DIR`` and ImageReward (``IMAGEREWARD_PATH``)."""
     from adv_grpo_torch.models import convert
     from adv_grpo_torch.models.clip_text import CLIPTextConfig
     from adv_grpo_torch.models.vit import ViTConfig
@@ -414,7 +422,9 @@ def build_reward_context(config, reward_names, device="cuda", ocr_engine=None):
     if names & {"ocr", "video_ocr"}:
         # video_ocr scores the every-4th-frame mean of each clip
         ctx.ocr = (VideoOcrScorer if "video_ocr" in names else OcrScorer)(ocr_engine)
-    if not names & {"pickscore", "pickscore_cotrain"}:
+    _remaining_context(ctx, config, names, device)
+    if not names & {"pickscore", "pickscore_cotrain", "pickscore_patch",
+                    "constractive_external"}:
         return ctx
     if smoke:
         towers = CLIPTextConfig.tiny(projection_dim=16), ViTConfig.tiny(projection_dim=16), 28
@@ -434,6 +444,93 @@ def build_reward_context(config, reward_names, device="cuda", ocr_engine=None):
     ctx.pickscore = ps
     ctx.tokenize = _clip_tokenize(config, ps.clip.text_model.cfg.max_position_embeddings)
     return ctx
+
+
+def _remaining_context(ctx, config, reward_names, device):
+    """The scorers of the JAX branches adv_grpo_tpu/cli/common.py:444-463,
+    :509-557. Random weights warn unless ``smoke_test``.
+
+    * ``siglip_image_similarity`` / ``siglip_cotrain``: SigLIP so400m at
+      384^2 (``smoke_test``: the tiny tower at 28^2) from the HF
+      ``SiglipVisionModel`` (or ``SiglipModel``) checkpoint in
+      ``SIGLIP_DIR``, else random from ``config.seed + 6``; its head drawn
+      from that generator after the backbone.
+    * ``discriminator``: the StyleGAN D at ``config.resolution`` (``smoke_test``:
+      base 8 at 32^2), random from ``config.seed + 7``, or the JAX D's
+      parameters in ``STYLEGAN_D_PATH``: a flax ``.msgpack``
+      (``flax.serialization.to_bytes`` of the JAX params), read with
+      ``utils.msgpack_io``. The JAX CLI restores an orbax directory there,
+      which needs JAX; a directory raises, naming the way across.
+    * ``geneval``, ``deqa``, ``unifiedreward``: the clients of
+      ``rewards.remote`` at ``GENEVAL_URL`` / ``DEQA_URL`` /
+      ``UNIFIEDREWARD_URL`` (or the JAX defaults); a URL ending in ``/v1``
+      speaks the sglang protocol, any other the pickle one.
+    * ``qwenvl``: ``QwenVLScorer(QWENVL_MODEL_DIR)``; ``imagereward``:
+      ``ImageRewardScorer(IMAGEREWARD_PATH)`` on ``device`` (its own model
+      needs ``IMAGEREWARD_PT`` or that path, and ``BERT_TOKENIZER_DIR``)."""
+    smoke = bool(config.get("smoke_test", False))
+    if reward_names & {"siglip_image_similarity", "siglip_cotrain"}:
+        from adv_grpo_torch.models import convert
+        from adv_grpo_torch.models.siglip import SigLIPVisionConfig
+        from adv_grpo_torch.rewards.scorers import SigLIPScorer
+
+        cfg, size = ((SigLIPVisionConfig.tiny(), 28) if smoke
+                     else (SigLIPVisionConfig.so400m(), 384))
+        generator = torch.Generator(device=device).manual_seed(int(config.seed) + 6)
+        sig_dir = _scorer_weights_dir("SIGLIP_DIR")
+        if sig_dir:
+            sd = convert.siglip_state_dict_from_hf(convert.load_torch_state_dict(sig_dir), cfg)
+            ctx.siglip = SigLIPScorer.from_state_dict(sd, device, cfg, size)
+        else:
+            if not smoke:
+                _warn_random("SigLIP", "SIGLIP_DIR")
+            ctx.siglip = SigLIPScorer.random_init(generator, device, cfg, size)
+        ctx.siglip_head_params = ctx.siglip.init_head(generator)
+    if "discriminator" in reward_names:
+        from adv_grpo_torch.models import convert
+        from adv_grpo_torch.models.stylegan_d import StyleGANDConfig, StyleGANScorer
+        from adv_grpo_torch.utils import msgpack_io
+
+        cfg = (StyleGANDConfig(image_size=32, base_channels=8) if smoke
+               else StyleGANDConfig(image_size=int(config.resolution)))
+        sg_path = os.environ.get("STYLEGAN_D_PATH")
+        if sg_path:  # pretrained D weights (the reference's usage, :611)
+            if os.path.isdir(sg_path):
+                raise ValueError(
+                    f"STYLEGAN_D_PATH={sg_path} is a directory (an orbax checkpoint, which "
+                    "needs JAX); write the JAX D's parameters as a flax .msgpack "
+                    "(flax.serialization.to_bytes(params)) and point STYLEGAN_D_PATH at it")
+            sd = convert.stylegan_state_dict_from_jax(msgpack_io.load(sg_path), cfg)
+            ctx.stylegan = StyleGANScorer.from_state_dict(sd, device, cfg)
+        else:
+            generator = torch.Generator(device=device).manual_seed(int(config.seed) + 7)
+            ctx.stylegan = StyleGANScorer.random_init(generator, device, cfg)
+    if reward_names & {"geneval", "deqa", "unifiedreward"}:
+        from adv_grpo_torch.rewards import remote
+
+        if "geneval" in reward_names:
+            ctx.remote["geneval"] = remote.geneval_score_client(
+                os.environ.get("GENEVAL_URL", remote.GENEVAL_URL))
+        if "deqa" in reward_names:
+            ctx.remote["deqa"] = remote.deqa_score_client(
+                os.environ.get("DEQA_URL", remote.DEQA_URL))
+        if "unifiedreward" in reward_names:
+            url = os.environ.get("UNIFIEDREWARD_URL", remote.UNIFIEDREWARD_SGLANG_URL)
+            # /v1 endpoints speak the OpenAI-compatible sglang protocol (the
+            # reference has both, rewards.py:884, 942)
+            ctx.remote["unifiedreward"] = (
+                remote.unifiedreward_sglang_client(url) if url.rstrip("/").endswith("/v1")
+                else remote.unifiedreward_remote_client(url))
+    if "qwenvl" in reward_names:
+        from adv_grpo_torch.rewards.vlm import QwenVLScorer
+
+        judge = QwenVLScorer(model_dir=os.environ.get("QWENVL_MODEL_DIR"), device=device)
+        ctx.remote["qwenvl"] = lambda imgs, prompts, meta=None: judge(imgs, prompts)
+    if "imagereward" in reward_names:
+        from adv_grpo_torch.rewards.vlm import ImageRewardScorer
+
+        ir = ImageRewardScorer(model_path=os.environ.get("IMAGEREWARD_PATH"), device=device)
+        ctx.remote["imagereward"] = lambda imgs, prompts, meta=None: ir(imgs, prompts)
 
 
 def _clip_tokenize(config, max_len: int):

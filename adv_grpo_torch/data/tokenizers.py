@@ -1,11 +1,14 @@
-"""The SD3 tokenizers in plain Python: CLIP's byte-pair encoder and T5's
-unigram model, read from a diffusers directory's ``tokenizer/``,
-``tokenizer_2/`` and ``tokenizer_3/``, with no ``transformers``,
-``tokenizers``, ``regex``, ``ftfy`` or ``sentencepiece``.
+"""The tokenizers in plain Python: the SD3 ones (CLIP's byte-pair encoder and
+T5's unigram model, read from a diffusers directory's ``tokenizer/``,
+``tokenizer_2/`` and ``tokenizer_3/``) and ImageReward's BERT WordPiece,
+with no ``transformers``, ``tokenizers``, ``regex``, ``ftfy`` or
+``sentencepiece``.
 
-The JAX package tokenizes with ``transformers.CLIPTokenizer`` and
-``transformers.T5TokenizerFast`` (adv_grpo_tpu/cli/common.py:274-276, :382);
-each class here gives those ids, id for id (tests/test_torch_tokenizers.py):
+The JAX package tokenizes with ``transformers.CLIPTokenizer``,
+``transformers.T5TokenizerFast`` (adv_grpo_tpu/cli/common.py:274-276, :382)
+and ``transformers.BertTokenizer`` (adv_grpo_tpu/rewards/vlm.py:612); each
+class here gives those ids, id for id (tests/test_torch_tokenizers.py,
+tests/test_torch_blip.py):
 
 * :class:`CLIPTokenizer` reads ``vocab.json`` and ``merges.txt`` (its first
   line is ``#version``, and at most 48,894 merges count, as in
@@ -33,6 +36,23 @@ each class here gives those ids, id for id (tests/test_torch_tokenizers.py):
   byte fallback); the ``TemplateProcessing`` post-processor (``$A </s>``).
   It truncates so that the template's special tokens are kept and pads with
   the directory's pad token. Any other component type raises, naming it.
+* :class:`BertTokenizer` reads ``vocab.txt`` and ``tokenizer_config.json``
+  (``do_lower_case``, ``strip_accents``, ``tokenize_chinese_chars``, the
+  special tokens and ``added_tokens_decoder``; without the last, as
+  ``transformers`` does, ``special_tokens_map.json`` and the
+  ``added_tokens`` of a ``tokenizer.json``). With ``do_lower_case`` the text
+  but the special tokens is lower-cased one character at a time (newlines
+  kept); the added tokens (all special: ImageReward adds ``[DEC]`` and
+  ``[ENC]``) are split out; each other piece goes through BERT's
+  BasicTokenizer (control characters dropped, whitespace normalised, spaces
+  around CJK ideographs, NFC, lower case and accents stripped (NFD, marks
+  Mn dropped), split on punctuation) and the greedy longest-match-first
+  WordPiece (``##`` continuations, a word over 100 characters or with no
+  match is ``[UNK]``). Its output is ``[CLS]``, at most ``max_length - 2``
+  ids, ``[SEP]``, the pad id to ``max_length``, and the attention mask. A
+  non-special added token, an added token that strips or is single-word,
+  ``do_basic_tokenize`` off, ``never_split`` or a legacy
+  ``added_tokens.json`` raise, naming it.
 """
 
 from __future__ import annotations
@@ -48,7 +68,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["CLIPTokenizer", "T5Tokenizer", "Precompiled"]
+__all__ = ["BertTokenizer", "CLIPTokenizer", "T5Tokenizer", "Precompiled"]
 
 
 def _read_json(path: str, default=None):
@@ -677,3 +697,147 @@ class T5Tokenizer:
         keep = max_length - len(self.prefix) - len(self.suffix)
         rows = [self.prefix + self.encode(p)[:keep] + self.suffix for p in prompts]
         return _pad_rows(rows, max_length, self.pad_id)
+
+
+# ── BERT WordPiece ───────────────────────────────────────────────────────────
+
+
+def _bert_punctuation(ch: str) -> bool:
+    """Non-letter / number ASCII, and Unicode category P*."""
+    cp = ord(ch)
+    if 33 <= cp <= 47 or 58 <= cp <= 64 or 91 <= cp <= 96 or 123 <= cp <= 126:
+        return True
+    return unicodedata.category(ch).startswith("P")
+
+
+def _strip_accents(text: str) -> str:
+    return "".join(c for c in unicodedata.normalize("NFD", text)
+                   if unicodedata.category(c) != "Mn")
+
+
+class BertTokenizer:
+    """The WordPiece tokenizer of a BERT tokenizer directory (``vocab.txt``,
+    ``tokenizer_config.json``, ...; ImageReward's ``BERT_TOKENIZER_DIR``);
+    ``tokenizer(prompts, max_length)`` -> (int64 ids, int64 attention mask),
+    each (B, max_length): ``padding="max_length", truncation=True``."""
+
+    _SPECIAL = ("bos_token", "eos_token", "unk_token", "sep_token", "pad_token", "cls_token",
+                "mask_token")
+
+    def __init__(self, directory: str):
+        self.vocab: Dict[str, int] = {}
+        with open(os.path.join(directory, "vocab.txt"), encoding="utf-8") as f:
+            for idx, line in enumerate(f.readlines()):
+                self.vocab[line.rstrip("\n")] = idx
+        config = _read_json(os.path.join(directory, "tokenizer_config.json"), {})
+        for key, default in (("do_basic_tokenize", True), ("never_split", None)):
+            if config.get(key, default) != default:
+                raise NotImplementedError(f"BertTokenizer: {key}={config[key]!r} is not "
+                                          "implemented")
+        self.do_lower_case = bool(config.get("do_lower_case", True))
+        self.strip_accents = config.get("strip_accents", None)
+        self.chinese_chars = bool(config.get("tokenize_chinese_chars", True))
+        special = {"unk_token": "[UNK]", "sep_token": "[SEP]", "pad_token": "[PAD]",
+                   "cls_token": "[CLS]", "mask_token": "[MASK]"}
+        added: Dict[str, int] = {}
+        if "added_tokens_decoder" in config:
+            decoded = [dict(tok, id=int(idx)) for idx, tok in config["added_tokens_decoder"].items()]
+        else:  # transformers' legacy path
+            if os.path.isfile(os.path.join(directory, "added_tokens.json")):
+                raise NotImplementedError("BertTokenizer: a legacy added_tokens.json is not "
+                                          "implemented")
+            config.update(_read_json(os.path.join(directory, "special_tokens_map.json"), {}))
+            decoded = _read_json(os.path.join(directory, "tokenizer.json"),
+                                 {}).get("added_tokens", [])
+        for tok in decoded:
+            _AddedTokens.check_flags(tok, "BertTokenizer")
+            if not tok.get("special"):
+                raise NotImplementedError(f"BertTokenizer: the non-special added token "
+                                          f"{tok['content']!r} is not implemented")
+            added[tok["content"]] = int(tok["id"])
+        special.update({k: _content(v) for k, v in config.items() if k in self._SPECIAL and v})
+        extra = [_content(t) for t in config.get("additional_special_tokens") or []]
+        for tok in list(special.values()) + extra:
+            if tok not in added:
+                added[tok] = self.vocab.get(tok, len(set(self.vocab) | set(added)))
+        self.added = _AddedTokens(added)
+        # the lower-casing pass leaves the special tokens as they are
+        protect = "|".join(re.escape(t) for t in list(special.values()) + extra)
+        self._lower = re.compile(f"({protect})|(.+?)")
+        self.unk_token = special["unk_token"]
+        self.cls_id, self.sep_id, self.pad_id = (self._id(special[k])
+                                                 for k in ("cls_token", "sep_token", "pad_token"))
+
+    def _id(self, token: str) -> int:
+        if token in self.added.ids:
+            return self.added.ids[token]
+        return self.vocab.get(token, self.vocab.get(self.unk_token))
+
+    def basic(self, text: str) -> List[str]:
+        """BERT's BasicTokenizer on a piece without added tokens."""
+        out = []
+        for ch in text:
+            if ch in " \t\n\r" or unicodedata.category(ch) == "Zs":
+                out.append(" ")
+            elif ord(ch) == 0 or ch == "\ufffd" or unicodedata.category(ch)[0] == "C":
+                continue
+            elif self.chinese_chars and _is_cjk(ord(ch)):
+                out.append(f" {ch} ")
+            else:
+                out.append(ch)
+        words = []
+        for word in unicodedata.normalize("NFC", "".join(out)).split():
+            if self.do_lower_case:
+                word = word.lower()
+                if self.strip_accents is not False:
+                    word = _strip_accents(word)
+            elif self.strip_accents:
+                word = _strip_accents(word)
+            piece = ""
+            for ch in word:
+                if _bert_punctuation(ch):
+                    words += [piece, ch] if piece else [ch]
+                    piece = ""
+                else:
+                    piece += ch
+            if piece:
+                words.append(piece)
+        return " ".join(words).split()
+
+    def wordpiece(self, word: str) -> List[str]:
+        """Greedy longest-match-first WordPiece of one word."""
+        if len(word) > 100:
+            return [self.unk_token]
+        pieces, start = [], 0
+        while start < len(word):
+            end = len(word)
+            while end > start:
+                sub = word[start:end] if start == 0 else "##" + word[start:end]
+                if sub in self.vocab:
+                    break
+                end -= 1
+            if end == start:
+                return [self.unk_token]
+            pieces.append(sub)
+            start = end
+        return pieces
+
+    def encode(self, text: str) -> List[int]:
+        """The ids of ``text`` without ``[CLS]`` and ``[SEP]``."""
+        if self.do_lower_case:
+            text = self._lower.sub(lambda m: m.group(1) or m.group(2).lower(), text)
+        ids: List[int] = []
+        for piece, added_id in self.added.split(text):
+            if added_id is not None:
+                ids.append(added_id)
+                continue
+            for word in self.basic(piece):
+                ids.extend(self._id(t) for t in self.wordpiece(word))
+        return ids
+
+    def __call__(self, prompts: Sequence[str], max_length: int = 35):
+        rows = [[self.cls_id] + self.encode(p)[:max_length - 2] + [self.sep_id] for p in prompts]
+        mask = np.zeros((len(rows), max_length), np.int64)
+        for r, ids in enumerate(rows):
+            mask[r, :len(ids)] = 1
+        return _pad_rows(rows, max_length, self.pad_id), mask

@@ -71,9 +71,12 @@ class CLIPTextConfig:
 
 
 def activation(name: str):
-    """quick_gelu, or the exact (erf) gelu."""
+    """quick_gelu, gelu_pytorch_tanh (SigLIP's tanh approximation), or the
+    exact (erf) gelu."""
     if name == "quick_gelu":
         return lambda x: x * torch.sigmoid(1.702 * x)
+    if name == "gelu_pytorch_tanh":
+        return lambda x: F.gelu(x, approximate="tanh")
     return F.gelu
 
 

@@ -11,10 +11,14 @@ Flux and WAN folders (``FluxTransformer2DModel``, ``WanTransformer3DModel``,
 :func:`wan_state_dict_from_hf` and :func:`wan_vae_state_dict_from_hf`, UMT5
 (WAN's text encoder) by :func:`umt5_state_dict_from_hf`; the scorer
 checkpoints (PickScore's HF ``CLIPModel``, DINOv2 in timm's or HF's layout,
-CLIP-L's vision tower, the LAION aesthetic head's ``.pth``) by
+CLIP-L's vision tower, the LAION aesthetic head's ``.pth``, SigLIP's HF
+``SiglipVisionModel``, the ImageReward ``.pt`` with its timm ViT and
+med-BERT, an HF ``BlipTextModel``) by
 :func:`clip_model_state_dict_from_hf`, :func:`dinov2_state_dict`,
-:func:`clip_vision_state_dict_from_hf` and
-:func:`aesthetic_state_dict_from_pth`. Each
+:func:`clip_vision_state_dict_from_hf`,
+:func:`aesthetic_state_dict_from_pth`, :func:`siglip_state_dict_from_hf`,
+:func:`imagereward_state_dict_from_pt` and
+:func:`blip_text_state_dict_from_hf`. Each
 must consume every weight of the checkpoint or raises "not consumed" (a
 dropped weight is how a wrong convention slips through).
 :func:`load_sd3_pipeline`, :func:`load_flux_transformer` and
@@ -30,8 +34,13 @@ the CLIP dual encoder that ``convert_clip_model``
 fills (:func:`clip_dual_state_dict_from_jax`), the DINOv2 backbone
 (:func:`vit_state_dict_from_jax`, also the CLIP-L tower of the aesthetic
 scorer), the DINO heads (:func:`dino_head_state_dict_from_jax`,
-:func:`dino_multi_state_dict_from_jax`) and the aesthetic head
-(:func:`aesthetic_head_state_dict_from_jax`):
+:func:`dino_multi_state_dict_from_jax`), the aesthetic head
+(:func:`aesthetic_head_state_dict_from_jax`), SigLIP
+(:func:`siglip_state_dict_from_jax`), BLIP and ImageReward
+(:func:`blip_text_state_dict_from_jax`,
+:func:`imagereward_state_dict_from_jax`) and the StyleGAN D
+(:func:`stylegan_state_dict_from_jax`, also the reader of a
+``STYLEGAN_D_PATH`` ``.msgpack``, and its inverse):
 a Flax tree of numpy arrays (as ``jax.device_get`` returns it) becomes a
 ``state_dict`` with diffusers names (the CLIP and DINO encoders' mirror the
 JAX tree's), so the two packages compute the same function from the same
@@ -495,6 +504,109 @@ def dino_multi_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
     return out
 
 
+def siglip_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    """adv_grpo_tpu ``SigLIPVisionTower`` params -> the state dict of
+    ``models.siglip.SigLIPVisionTower`` at ``cfg``."""
+    p, out = _unwrap(params), {}
+    _dense("patch_embed", p["patch_embed"], out)
+    out["position_embedding"] = _tensor(p["position_embedding"])
+    for i in range(cfg.num_layers):
+        blk = p[f"layer_{i}"]
+        for name in ("norm1", "norm2"):
+            _group_norm(f"layers.{i}.{name}", blk[name], out)
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2"):
+            _dense(f"layers.{i}.{name}", blk[name], out)
+    _group_norm("post_layernorm", p["post_layernorm"], out)
+    h = p["head"]
+    out["head.probe"] = _tensor(h["probe"])
+    _group_norm("head.layernorm", h["layernorm"], out)
+    for name in ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2"):
+        _dense("head." + name, h[name], out)
+    return out
+
+
+def blip_text_state_dict_from_jax(params, cfg, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """adv_grpo_tpu ``BlipTextEncoder`` params -> the state dict of
+    ``models.blip.BlipTextEncoder`` (cross-attention where the tree has
+    it)."""
+    p, out = _unwrap(params), {}
+    out[prefix + "word_embeddings.weight"] = _tensor(p["word_embeddings"]["embedding"])
+    out[prefix + "position_embeddings"] = _tensor(p["position_embeddings"])
+    _group_norm(prefix + "embeddings_ln", p["embeddings_ln"], out)
+    for i in range(cfg.num_layers):
+        blk, b = p[f"layer_{i}"], f"{prefix}layers.{i}."
+        for attn in ("self_attn", "cross_attn"):
+            if attn in blk:
+                for name in ("query", "key", "value", "out_dense"):
+                    _dense(f"{b}{attn}.{name}", blk[attn][name], out)
+                _group_norm(f"{b}{attn}.out_ln", blk[attn]["out_ln"], out)
+        _dense(b + "intermediate", blk["intermediate"], out)
+        _dense(b + "output", blk["output"], out)
+        _group_norm(b + "output_ln", blk["output_ln"], out)
+    return out
+
+
+def imagereward_state_dict_from_jax(params, text_cfg, vision_cfg) -> Dict[str, torch.Tensor]:
+    """adv_grpo_tpu ``ImageRewardModel`` params ({"vision", "text", "head"})
+    -> ``models.blip.ImageRewardModel``'s state dict."""
+    out = vit_state_dict_from_jax(params["vision"], vision_cfg, "vision.")
+    out.update(blip_text_state_dict_from_jax(params["text"], text_cfg, "text."))
+    out.update({"head." + k: t for k, t in aesthetic_head_state_dict_from_jax(
+        params["head"]).items()})
+    return out
+
+
+def _stylegan_names(cfg):
+    """(JAX path, port prefix, has bias) of every conv and Linear of the D."""
+    names = [(("from_rgb",), "from_rgb", True)]
+    for i in range(cfg.num_blocks):
+        names += [((f"block_{i}", "skip"), f"blocks.{i}.skip", False),
+                  ((f"block_{i}", "conv0"), f"blocks.{i}.conv0", True),
+                  ((f"block_{i}", "conv1"), f"blocks.{i}.conv1", True)]
+    return names + [(("conv_out",), "conv_out", True), (("fc0",), "fc0", True),
+                    (("fc_out",), "fc_out", True)]
+
+
+def stylegan_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    """adv_grpo_tpu ``StyleGANDiscriminator`` params (a Flax tree of numpy
+    arrays, e.g. ``utils.msgpack_io.load`` of its ``.msgpack``; with or
+    without the ``params`` level) -> ``models.stylegan_d.StyleGANDiscriminator``'s
+    state dict at ``cfg``: conv kernels HWIO -> OIHW, Dense kernels
+    transposed. A leaf it does not place raises."""
+    p, out = _unwrap(params), {}
+    for path, prefix, _ in _stylegan_names(cfg):
+        leaf = p
+        for part in path:
+            leaf = leaf[part]
+        kernel = np.asarray(leaf["kernel"])
+        out[prefix + ".weight"] = _tensor(kernel.transpose(3, 2, 0, 1) if kernel.ndim == 4
+                                          else kernel.T)
+        if "bias" in leaf:
+            out[prefix + ".bias"] = _tensor(leaf["bias"])
+    if _count_leaves(p) != len(out):
+        raise ValueError(f"stylegan_state_dict_from_jax placed {len(out)} of the "
+                         f"{_count_leaves(p)} leaves (a D of another image_size?)")
+    return out
+
+
+def stylegan_state_dict_to_jax(sd, cfg) -> Dict[str, object]:
+    """The inverse of :func:`stylegan_state_dict_from_jax`: the JAX
+    ``StyleGANDiscriminator`` tree of fp32 numpy arrays (what
+    ``flax.serialization.to_bytes`` of the JAX params writes, through
+    ``utils.msgpack_io.save``)."""
+    tree: Dict[str, object] = {}
+    for path, prefix, bias in _stylegan_names(cfg):
+        w = _np(sd[prefix + ".weight"])
+        leaf = {"kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.T)}
+        if bias:
+            leaf["bias"] = _np(sd[prefix + ".bias"])
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = leaf
+    return tree
+
+
 # ── checkpoint directories (diffusers / HF layouts) ──────────────────────────
 
 
@@ -767,25 +879,20 @@ def aesthetic_state_dict_from_pth(sd: Dict[str, torch.Tensor]) -> Dict[str, torc
     return out
 
 
-def dinov2_state_dict_from_timm(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
-    """A timm / original DINOv2 state dict (``blocks.{i}``, the fused
-    ``attn.qkv``, ``ls{1,2}.gamma``) -> the state dict of
-    ``models.vit.VisionTransformer`` at ``cfg`` (the JAX ``convert_dinov2``
-    over ``convert_timm_vit``): qkv split in three, ``cls_token`` (1, 1, D)
-    and ``pos_embed`` (1, N, D) reshaped; ``mask_token``, which no forward
-    reads, consumed and dropped. Strict: a weight left over raises."""
-    g = _Taken(sd)
-    if g.has("mask_token"):
-        g("mask_token")
-    out = {"patch_embed.weight": _patch_linear(g("patch_embed.proj.weight")),
-           "patch_embed.bias": g("patch_embed.proj.bias"),
-           "class_embedding": g("cls_token").reshape(-1),
-           "position_embedding": _position_table(g("pos_embed"), cfg,
-                                                 "dinov2_state_dict_from_timm")}
+def _timm_vit_from(g: _Taken, cfg, prefix: str, what: str) -> Dict[str, torch.Tensor]:
+    """The mapping of the JAX ``convert_timm_vit`` over ``g``: a timm-layout
+    ViT under ``prefix`` (``blocks.{i}``, the fused ``attn.qkv`` split in
+    three, ``cls_token`` (1, 1, D) and ``pos_embed`` (1, N, D) reshaped) ->
+    ``models.vit.VisionTransformer`` names; ``ls{1,2}.gamma`` where
+    ``cfg.layer_scale_init`` is set (DINOv2), none otherwise (BLIP's ViT)."""
+    out = {"patch_embed.weight": _patch_linear(g(prefix + "patch_embed.proj.weight")),
+           "patch_embed.bias": g(prefix + "patch_embed.proj.bias"),
+           "class_embedding": g(prefix + "cls_token").reshape(-1),
+           "position_embedding": _position_table(g(prefix + "pos_embed"), cfg, what)}
     for name in ("weight", "bias"):
-        out[f"post_layernorm.{name}"] = g(f"norm.{name}")
+        out[f"post_layernorm.{name}"] = g(f"{prefix}norm.{name}")
     for i in range(cfg.num_layers):
-        b, d = f"blocks.{i}.", f"layers.{i}."
+        b, d = f"{prefix}blocks.{i}.", f"layers.{i}."
         for name in ("weight", "bias"):
             for part, dst in zip(g(f"{b}attn.qkv.{name}").chunk(3), ("q_proj", "k_proj",
                                                                        "v_proj")):
@@ -793,8 +900,23 @@ def dinov2_state_dict_from_timm(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, t
             for src, dst in (("norm1", "norm1"), ("norm2", "norm2"), ("attn.proj", "out_proj"),
                              ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
                 out[f"{d}{dst}.{name}"] = g(f"{b}{src}.{name}")
-        out[d + "ls1"] = g(b + "ls1.gamma")
-        out[d + "ls2"] = g(b + "ls2.gamma")
+        if cfg.layer_scale_init is not None:
+            out[d + "ls1"] = g(b + "ls1.gamma")
+            out[d + "ls2"] = g(b + "ls2.gamma")
+    return out
+
+
+def dinov2_state_dict_from_timm(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
+    """A timm / original DINOv2 state dict (``blocks.{i}``, the fused
+    ``attn.qkv``, ``ls{1,2}.gamma``) -> the state dict of
+    ``models.vit.VisionTransformer`` at ``cfg`` (the JAX ``convert_dinov2``
+    over ``convert_timm_vit``, :func:`_timm_vit_from`); ``mask_token``, which
+    no forward reads, consumed and dropped. Strict: a weight left over
+    raises."""
+    g = _Taken(sd)
+    if g.has("mask_token"):
+        g("mask_token")
+    out = _timm_vit_from(g, cfg, "", "dinov2_state_dict_from_timm")
     g.assert_consumed("dinov2_state_dict_from_timm")
     return out
 
@@ -837,6 +959,115 @@ def dinov2_state_dict(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tenso
     JAX CLI tells them (``encoder.layer.`` means HF's)."""
     hf = any(k.startswith("encoder.layer.") for k in sd)
     return (dinov2_state_dict_from_hf if hf else dinov2_state_dict_from_timm)(sd, cfg)
+
+
+def siglip_state_dict_from_hf(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
+    """An HF ``SiglipVisionModel`` state dict (``vision_model.*``, SigLIP
+    so400m's) -> ``models.siglip.SigLIPVisionTower``'s state dict at ``cfg``
+    (the JAX ``convert_siglip``): the patch Conv2d as the patch Linear, the
+    MAP head's packed ``attention.in_proj`` split into q / k / v. A full
+    ``SiglipModel``'s ``text_model.*``, ``logit_scale`` and ``logit_bias``
+    and the ``position_ids`` buffer are consumed and dropped; any other
+    weight left over raises "not consumed"."""
+    g = _Taken(sd)
+    v = "vision_model."
+    for key in list(g.sd):
+        if key.startswith("text_model.") or key in ("logit_scale", "logit_bias",
+                                                     v + "embeddings.position_ids"):
+            g(key)
+    table = g(v + "embeddings.position_embedding.weight")
+    if table.shape[0] != cfg.num_patches:
+        raise ValueError(
+            f"siglip_state_dict_from_hf: the checkpoint's position table has {table.shape[0]} "
+            f"rows, the config needs {cfg.num_patches} ({cfg.image_size}^2 in patches of "
+            f"{cfg.patch_size}, no class token)")
+    out = {"patch_embed.weight": _patch_linear(g(v + "embeddings.patch_embedding.weight")),
+           "patch_embed.bias": g(v + "embeddings.patch_embedding.bias"),
+           "position_embedding": table, "head.probe": g(v + "head.probe")}
+    for name in ("weight", "bias"):
+        out[f"post_layernorm.{name}"] = g(f"{v}post_layernorm.{name}")
+        for part, dst in zip(g(f"{v}head.attention.in_proj_{name}").chunk(3),
+                             ("q_proj", "k_proj", "v_proj")):
+            out[f"head.{dst}.{name}"] = part
+        for src, dst in (("attention.out_proj", "out_proj"), ("layernorm", "layernorm"),
+                         ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
+            out[f"head.{dst}.{name}"] = g(f"{v}head.{src}.{name}")
+        for i in range(cfg.num_layers):
+            for src, dst in _VIT_BLOCK:
+                out[f"layers.{i}.{dst}.{name}"] = g(f"{v}encoder.layers.{i}.{src}.{name}")
+    g.assert_consumed("siglip_state_dict_from_hf")
+    return out
+
+
+_BLIP_ATTN = (("self.query", "query"), ("self.key", "key"), ("self.value", "value"),
+              ("output.dense", "out_dense"), ("output.LayerNorm", "out_ln"))
+
+
+def _blip_text_from(g: _Taken, cfg, prefix: str) -> Dict[str, torch.Tensor]:
+    """The mapping of the JAX ``convert_blip_text`` over ``g``: a BLIP
+    med-BERT / HF ``BlipTextModel`` under ``prefix`` -> ``BlipTextEncoder``
+    names. A ``token_type_embeddings`` table's row 0 (the type ids are always
+    zero) is folded into the position table; ``crossattention`` is mapped
+    where the checkpoint has it; the ``position_ids`` buffer and a
+    ``pooler``, which no forward reads, are consumed and dropped."""
+    e = prefix + "embeddings."
+    for key in list(g.sd):
+        if key == e + "position_ids" or key.startswith(prefix + "pooler."):
+            g(key)
+    pos = g(e + "position_embeddings.weight").float()
+    if g.has(e + "token_type_embeddings.weight"):
+        pos = pos + g(e + "token_type_embeddings.weight").float()[0][None]
+    out = {"word_embeddings.weight": g(e + "word_embeddings.weight"),
+           "position_embeddings": pos}
+    for name in ("weight", "bias"):
+        out[f"embeddings_ln.{name}"] = g(f"{e}LayerNorm.{name}")
+        for i in range(cfg.num_layers):
+            b, d = f"{prefix}encoder.layer.{i}.", f"layers.{i}."
+            attn = [("attention.", "self_attn.")]
+            if g.has(b + "crossattention.self.query.weight"):
+                attn.append(("crossattention.", "cross_attn."))
+            for src_a, dst_a in attn:
+                for src, dst in _BLIP_ATTN:
+                    out[f"{d}{dst_a}{dst}.{name}"] = g(f"{b}{src_a}{src}.{name}")
+            for src, dst in (("intermediate.dense", "intermediate"), ("output.dense", "output"),
+                             ("output.LayerNorm", "output_ln")):
+                out[f"{d}{dst}.{name}"] = g(f"{b}{src}.{name}")
+    return out
+
+
+def blip_text_state_dict_from_hf(sd: Dict[str, torch.Tensor], cfg,
+                                 prefix: str = "") -> Dict[str, torch.Tensor]:
+    """An HF ``BlipTextModel`` (or BLIP med-BERT) state dict -> the state
+    dict of ``models.blip.BlipTextEncoder`` at ``cfg`` (:func:`_blip_text_from`;
+    build the encoder with ``cross_attention=False`` for a checkpoint without
+    cross-attention). Strict."""
+    g = _Taken(sd)
+    out = _blip_text_from(g, cfg, prefix)
+    g.assert_consumed("blip_text_state_dict_from_hf")
+    return out
+
+
+def imagereward_state_dict_from_pt(sd: Dict[str, torch.Tensor], text_cfg,
+                                   vision_cfg) -> Dict[str, torch.Tensor]:
+    """The ImageReward checkpoint (``ImageReward.pt``: ``blip.visual_encoder``
+    a timm ViT-L/16, ``blip.text_encoder`` the med-BERT, the head
+    ``mlp.layers.{0,2,4,6,7}``) -> ``models.blip.ImageRewardModel``'s state
+    dict (the JAX ``convert_imagereward``), fp32. BLIP's contrastive
+    projections ``blip.vision_proj`` / ``blip.text_proj``, which the score
+    does not read, are consumed and dropped where present. Strict."""
+    g = _Taken(sd)
+    for key in list(g.sd):
+        if key.startswith(("blip.vision_proj.", "blip.text_proj.")):
+            g(key)
+    out = {"vision." + k: t for k, t in _timm_vit_from(
+        g, vision_cfg, "blip.visual_encoder.", "imagereward_state_dict_from_pt").items()}
+    out.update({"text." + k: t for k, t in _blip_text_from(
+        g, text_cfg, "blip.text_encoder.").items()})
+    for dst, i in AESTHETIC_LAYERS:  # the same linear stack as the aesthetic head
+        for name in ("weight", "bias"):
+            out[f"head.{dst}.{name}"] = g(f"mlp.layers.{i}.{name}")
+    g.assert_consumed("imagereward_state_dict_from_pt")
+    return {k: t.float() for k, t in out.items()}
 
 
 _T5_BLOCK = (("0.layer_norm", "ln_attn"), ("0.SelfAttention.q", "q"),

@@ -1,9 +1,12 @@
-"""The device rewards: PickScore (a CLIP dual encoder and its scorer), the
-CLIP-L score and the LAION aesthetic score, and the DINO discriminators.
+"""The device rewards: PickScore (a CLIP dual encoder and its scorer, the
+per-patch score and the contrastive-external correction), the CLIP-L score
+and the LAION aesthetic score, the DINO discriminators and the SigLIP
+scorers.
 
 Port of adv_grpo_tpu/rewards/scorers.py's ``CLIPDualEncoder``,
-``PickScoreScorer``, ``CLIPScorer``, ``AestheticScorer``, ``DINOScorer`` and
-``DINOMultiScorer``. The JAX
+``PickScoreScorer``, ``CLIPScorer``, ``AestheticScorer``, ``DINOScorer``,
+``DINOMultiScorer``, ``SigLIPScorer``, ``pickscore_patch_score`` and
+``contrastive_external_reward``. The JAX
 PickScore scorer takes its parameters as an argument; here they live in the
 module (``PickScoreScorer.clip``), and a call may replace the last vision
 layers by others (``tail``): the co-trained discriminator trains only those
@@ -11,7 +14,7 @@ layers, so the frozen reward keeps copies of them and shares everything
 else (``rewards.registry.RewardContext``). Scoring runs under
 ``torch.no_grad()``; ``features`` keeps the graph for the D-step.
 
-The DINO scorers keep the DINOv2 backbone frozen (``requires_grad=False``,
+The DINO and SigLIP scorers keep their backbones frozen (``requires_grad=False``,
 features under ``torch.no_grad()``: the JAX ``stop_gradient``); their heads
 are modules of their own, passed to each call, which the D-steps
 (``train.grpo_trainer``) update in place.
@@ -33,9 +36,10 @@ from torch import nn
 from adv_grpo_torch.adversarial.dino_hinge import multi_layer_logit, take_patches
 from adv_grpo_torch.models.aesthetic import AestheticHead
 from adv_grpo_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
+from adv_grpo_torch.models.siglip import SigLIPVisionConfig, SigLIPVisionTower
 from adv_grpo_torch.models.vit import ViTConfig, VisionTransformer
 from adv_grpo_torch.rewards.preprocess import (
-    CLIP_MEAN, CLIP_STD, IMAGENET_MEAN, IMAGENET_STD, preprocess)
+    CLIP_MEAN, CLIP_STD, IMAGENET_MEAN, IMAGENET_STD, SIGLIP_MEAN, SIGLIP_STD, preprocess)
 
 LOGIT_SCALE_INIT = 4.6052  # log(100), the JAX init_params value
 
@@ -49,15 +53,16 @@ def random_init_(module: nn.Module, generator: torch.Generator,
                  layer_scale: Optional[float] = None) -> nn.Module:
     """Random weights from ``generator``, the JAX initialisers' families (not
     their numbers): matrices normal with std 1/sqrt(fan_in), biases zero,
-    LayerNorm scales one, the class token and positions normal with std
-    0.02, the logit scale log(100), LayerScale ``layer_scale``."""
+    LayerNorm scales one, the class token, positions and SigLIP's probe
+    normal with std 0.02, the logit scale log(100), LayerScale
+    ``layer_scale``."""
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "logit_scale":
             p.fill_(LOGIT_SCALE_INIT)
         elif leaf in ("ls1", "ls2"):
             p.fill_(layer_scale)
-        elif leaf in ("class_embedding", "position_embedding"):
+        elif leaf in ("class_embedding", "position_embedding", "probe"):
             p.normal_(0.0, 0.02, generator=generator)
         elif leaf == "bias":
             p.zero_()
@@ -91,14 +96,18 @@ class CLIPDualEncoder(nn.Module):
     def text_features(self, input_ids):
         return self.text_model(input_ids)[2]
 
-    def image_features(self, pixel_values, tail: Optional[Sequence[nn.Module]] = None):
-        """The projected class token; ``tail`` replaces the last ``len(tail)``
-        vision layers for this call."""
+    def vision_outputs(self, pixel_values, tail: Optional[Sequence[nn.Module]] = None):
+        """The vision tower's outputs; ``tail`` replaces the last
+        ``len(tail)`` vision layers for this call."""
         vm = self.vision_model
         layers = None
         if tail is not None:
             layers = list(vm.layers)[:len(vm.layers) - len(tail)] + list(tail)
-        return vm(pixel_values, layers=layers)["pooled"]
+        return vm(pixel_values, layers=layers)
+
+    def image_features(self, pixel_values, tail: Optional[Sequence[nn.Module]] = None):
+        """The projected class token (``tail`` as in :meth:`vision_outputs`)."""
+        return self.vision_outputs(pixel_values, tail)["pooled"]
 
 
 class PickScoreScorer:
@@ -138,14 +147,21 @@ class PickScoreScorer:
         clip.load_state_dict(state_dict)
         return cls(clip.eval(), image_size)
 
+    def preprocess(self, images):
+        """``images`` (B, 3, H, W) in [-1, 1], numpy or torch -> CLIP pixels."""
+        return preprocess(_as_device_images(images, self.device), self.image_size, CLIP_MEAN,
+                          CLIP_STD)
+
+    def text_features(self, input_ids):
+        """L2-normalised text features of ``input_ids`` (B, S)."""
+        ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long).to(self.device)
+        return _l2norm(self.clip.text_features(ids))
+
     def features(self, images, input_ids, tail=None):
         """(image, text) L2-normalised features of ``images`` (B, 3, H, W) in
         [-1, 1] (numpy or torch) and ``input_ids`` (B, S)."""
-        pix = preprocess(_as_device_images(images, self.device), self.image_size, CLIP_MEAN,
-                         CLIP_STD)
-        ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long).to(self.device)
-        return (_l2norm(self.clip.image_features(pix, tail)),
-                _l2norm(self.clip.text_features(ids)))
+        return (_l2norm(self.clip.image_features(self.preprocess(images), tail)),
+                self.text_features(input_ids))
 
     @torch.no_grad()
     def score(self, images, input_ids, tail=None):
@@ -166,9 +182,7 @@ class CLIPScorer(PickScoreScorer):
 
     def image_features(self, images):
         """L2-normalised image features of ``images`` (B, 3, H, W) in [-1, 1]."""
-        pix = preprocess(_as_device_images(images, self.device), self.image_size, CLIP_MEAN,
-                         CLIP_STD)
-        return _l2norm(self.clip.image_features(pix))
+        return _l2norm(self.clip.image_features(self.preprocess(images)))
 
     @torch.no_grad()
     def image_similarity(self, images_a, images_b):
@@ -363,3 +377,99 @@ class DINOMultiScorer:
         logits = multi_layer_logit(multi.heads, multi.fusion,
                                    self.dino.layer_tokens(images, self.layer_ids), tau)
         return torch.sigmoid(logits / temperature) if apply_sigmoid else logits
+
+
+@torch.no_grad()
+def pickscore_patch_score(scorer: PickScoreScorer, images, input_ids, tail=None):
+    """Per-patch PickScore (reference adv_grpo/pickscore_scorer_patch.py:42-60):
+    every vision token before ``post_layernorm`` (HF's ``last_hidden_state``,
+    which the reference projects) through ``visual_projection``, L2-normalised;
+    the mean text-patch cosine times exp(logit_scale) / 26."""
+    tokens = scorer.clip.vision_outputs(scorer.preprocess(images), tail)["tokens_pre_norm"]
+    patch = _l2norm(scorer.clip.vision_model.visual_projection(tokens))
+    cos = torch.einsum("bd,bnd->bn", scorer.text_features(input_ids), patch)
+    return torch.exp(scorer.clip.logit_scale) * cos.mean(1) / scorer.divisor
+
+
+@torch.no_grad()
+def contrastive_external_reward(scorer: PickScoreScorer, images, ref_images, input_ids,
+                                tail=None, beta: float = 0.5, top_n: int = 2):
+    """Reward-hacking correction by contrastive embedding shift (reference
+    adv_grpo/rewards.py:709-758). ``ref_images`` (M, 3, H, W) is a shared
+    pool; each reference's external score is its mean text similarity over
+    the batch's prompts. Unless the external mean dominates the top-``top_n``
+    generated scores (``ext_score >= hack_max``: no correction), each score
+    moves by beta * (cos(img, anchor) - mean_j cos(img, hack_j)), the anchor
+    the normalised mean of the reference embeddings, the hack set the top-k
+    images. Returns (scores, {"raw_scores", "ref_scores"})."""
+    img_emb, txt = scorer.features(images, input_ids, tail)
+    ref_emb = _l2norm(scorer.clip.image_features(scorer.preprocess(ref_images), tail))
+    logit_scale = torch.exp(scorer.clip.logit_scale)
+    scores = logit_scale * (txt * img_emb).sum(-1) / scorer.divisor
+    ref_scores = logit_scale * (txt @ ref_emb.T).mean(0) / scorer.divisor
+    anchor = _l2norm(ref_emb.mean(0, keepdim=True))
+    ext_score = ref_scores.mean()
+    top_idx = torch.topk(scores, min(top_n, scores.shape[0])).indices
+    hack_max = scores[top_idx].max()
+    sim_to_ext = (img_emb * anchor).sum(-1)
+    sim_to_hack = (img_emb @ img_emb[top_idx].T).mean(1)
+    adjusted = scores + beta * (sim_to_ext - sim_to_hack)
+    out = torch.where(ext_score >= hack_max, scores, adjusted)
+    return out, {"raw_scores": scores, "ref_scores": ref_scores}
+
+
+class SigLIPScorer:
+    """SigLIP so400m scorers on the MAP head's pooled embedding (0.5 / 0.5
+    preprocessing at the tower's 384^2): ``similarity_to_refs`` (reference
+    rewards.py:69-143: the cosine against a shared reference pool, max over
+    the references) and ``cotrain_score`` (:299-372: a trainable head, fc1,
+    exact GELU, fc2 (``DINOHead``), on the frozen embedding; the reference's
+    colour jitter belongs to its D-step, not to the reward)."""
+
+    def __init__(self, vision: SigLIPVisionTower, image_size: Optional[int] = None,
+                 head_hidden: int = 512):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        self.vision = vision.eval().requires_grad_(False)
+        self.vision_cfg = vision.cfg
+        self.image_size = image_size or vision.cfg.image_size
+        self.head_hidden = head_hidden
+        self.device = vision.position_embedding.device
+
+    @classmethod
+    def random_init(cls, generator: torch.Generator, device, vision_cfg=None,
+                    image_size: Optional[int] = None, head_hidden: int = 512) -> "SigLIPScorer":
+        """SigLIP so400m (or the given config) with random weights drawn from
+        ``generator``, which lives on ``device``."""
+        vision = SigLIPVisionTower(vision_cfg or SigLIPVisionConfig.so400m(), device="meta")
+        return cls(random_init_(vision.to_empty(device=device), generator), image_size,
+                   head_hidden)
+
+    @classmethod
+    def from_state_dict(cls, state_dict, device, vision_cfg, image_size: Optional[int] = None,
+                        head_hidden: int = 512) -> "SigLIPScorer":
+        """The tower at ``vision_cfg`` with the weights of ``state_dict``
+        (e.g. from ``models.convert.siglip_state_dict_from_hf``)."""
+        vision = SigLIPVisionTower(vision_cfg, device="meta").to_empty(device=device)
+        vision.load_state_dict(state_dict)
+        return cls(vision, image_size, head_hidden)
+
+    def init_head(self, generator: torch.Generator) -> DINOHead:
+        head = DINOHead(self.vision_cfg.hidden_size, self.head_hidden, device="meta")
+        return random_init_(head.to_empty(device=self.device), generator)
+
+    @torch.no_grad()
+    def pooled(self, images):
+        """(B, D) pooled embeddings of ``images`` (B, 3, H, W) in [-1, 1]."""
+        pix = preprocess(_as_device_images(images, self.device), self.image_size, SIGLIP_MEAN,
+                         SIGLIP_STD)
+        return self.vision(pix)["pooled"]
+
+    @torch.no_grad()
+    def similarity_to_refs(self, images, ref_images):
+        """The max over the pool ``ref_images`` (M, 3, H, W) of the cosine."""
+        emb, ref = _l2norm(self.pooled(images)), _l2norm(self.pooled(ref_images))
+        return (emb @ ref.T).max(1).values
+
+    @torch.no_grad()
+    def cotrain_score(self, head: nn.Module, images):
+        return head(self.pooled(images))

@@ -201,6 +201,17 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      metrics, the LoRA and its EMA moved; bytes and write / load seconds per
      directory, s/image, s/video, epoch seconds, peak device memory and host
      RSS.
+ 21. (inside the one-rank NCCL group, after the eval / tooling phase) the
+     last rewards (``run_remaining_rewards_slice``): SigLIP so400m,
+     ImageReward and the 512^2 StyleGAN D drawn from the seed, written as
+     ``SIGLIP_DIR`` / ``IMAGEREWARD_PT`` + ``BERT_TOKENIZER_DIR`` /
+     ``STYLEGAN_D_PATH`` and read back bitwise; one
+     ``pickscore_cotrain_sd3_fast`` epoch with REMAINING_REWARD_FN (the
+     judges on a loopback ``JudgeFixture``) and an eval phase with
+     REMAINING_EVAL_REWARD_FN, launches of #1-#5 as derived, the requests in
+     the judges' formats; every new reward on the epoch's 16 decoded
+     images (finite, shape (16,), ms per batch), the loaded scorers bitwise
+     the drawn ones, ``constractive_external`` on both gate branches.
 
 ``python3 chip_smoke.py --dino`` builds the kernels and runs the DINO phase
 alone (``run_dino_slice``, in its one-rank NCCL group), without the result
@@ -208,8 +219,10 @@ lines; ``--checkpoint`` the checkpoint phase (``run_checkpoint_slice``),
 ``--loaders`` the loader phase (``run_loader_slice``) and
 ``--family-loaders`` the Flux / WAN loader phase
 (``run_family_loader_slice``), ``--prefix-image`` the prefix / image /
-rewards phase (``run_prefix_image_slice``) and ``--eval-tooling`` the
-evaluation and preparation tools (``run_eval_tooling_slice``) the same way. ``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
+rewards phase (``run_prefix_image_slice``), ``--eval-tooling`` the
+evaluation and preparation tools (``run_eval_tooling_slice``) and
+``--remaining-rewards`` the last rewards (``run_remaining_rewards_slice``)
+the same way. ``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
 joint forwards #2 / #3 (JOINT_CASES: SD3.5-M at CFG batch 2 and 8, Flux.1-dev
 at B = 1 and 4) of the checkout at PARENT (an older tree) against this one's,
 in PAIRS alternating pairs of processes, with each side's error on the same
@@ -1910,12 +1923,14 @@ def hf_clip_model_state_dict(sd):
     return out
 
 
-def hf_dinov2_state_dict(sd, layout):
+def hf_dinov2_state_dict(sd, layout, mask_token=True):
     """The port's DINOv2 VisionTransformer state dict in timm / original
     checkpoint names (``layout="timm"``: fused ``attn.qkv``,
     ``ls{1,2}.gamma``, ``mask_token`` (1, D)) or HF ``Dinov2Model`` names
     (``"hf"``: ``embeddings.mask_token``); the mask token is zeros, as no
-    forward reads it; the patch Linear back to the Conv2d."""
+    forward reads it; the patch Linear back to the Conv2d. A tower without
+    LayerScale (BLIP's ViT) gets no ``ls`` tensors, and ``mask_token=False``
+    leaves the mask token out."""
     import torch
 
     patch = sd["patch_embed.weight"]
@@ -1927,7 +1942,6 @@ def hf_dinov2_state_dict(sd, layout):
     out = {e + "cls_token": sd["class_embedding"].reshape(1, 1, d),
            e + ("pos_embed" if timm else "position_embeddings"):
                sd["position_embedding"].reshape(1, -1, d),
-           e + "mask_token": torch.zeros(1, d, dtype=conv.dtype, device=conv.device),
            ("patch_embed.proj." if timm else e + "patch_embeddings.projection.") + "weight": conv,
            ("patch_embed.proj." if timm else e + "patch_embeddings.projection.") + "bias":
                sd["patch_embed.bias"],
@@ -1937,7 +1951,9 @@ def hf_dinov2_state_dict(sd, layout):
              "out_proj": "attn.proj" if timm else "attention.output.dense",
              "q_proj": "attention.attention.query", "k_proj": "attention.attention.key",
              "v_proj": "attention.attention.value"}
-    for i in range(sum(k.endswith(".ls1") for k in sd)):
+    if mask_token:
+        out[e + "mask_token"] = torch.zeros(1, d, dtype=conv.dtype, device=conv.device)
+    for i in range(sum(k.endswith(".norm1.weight") for k in sd)):
         s, b = f"layers.{i}.", f"blocks.{i}." if timm else f"encoder.layer.{i}."
         for leaf in ("weight", "bias"):
             for m, hf in names.items():
@@ -1946,9 +1962,202 @@ def hf_dinov2_state_dict(sd, layout):
             if timm:
                 out[f"{b}attn.qkv.{leaf}"] = torch.cat([sd[f"{s}{m}.{leaf}"] for m in (
                     "q_proj", "k_proj", "v_proj")])
-        out[b + ("ls1.gamma" if timm else "layer_scale1.lambda1")] = sd[s + "ls1"]
-        out[b + ("ls2.gamma" if timm else "layer_scale2.lambda1")] = sd[s + "ls2"]
+        if s + "ls1" in sd:
+            out[b + ("ls1.gamma" if timm else "layer_scale1.lambda1")] = sd[s + "ls1"]
+            out[b + ("ls2.gamma" if timm else "layer_scale2.lambda1")] = sd[s + "ls2"]
     return out
+
+
+def _patch_conv(patch):
+    """A patch Linear weight (D, p*p*3), flattened (ph, pw, c), back to the
+    Conv2d weight (D, 3, p, p)."""
+    p = int(round((patch.shape[1] // 3) ** 0.5))
+    return patch.reshape(-1, p, p, 3).permute(0, 3, 1, 2).contiguous()
+
+
+def hf_siglip_state_dict(sd):
+    """The port's SigLIPVisionTower state dict in HF ``SiglipVisionModel``
+    names (``vision_model.*``): the patch Linear back to the Conv2d, the MAP
+    head's q / k / v packed into ``attention.in_proj`` as
+    ``nn.MultiheadAttention`` holds them."""
+    import torch
+
+    v = "vision_model."
+    out = {v + "embeddings.patch_embedding.weight": _patch_conv(sd["patch_embed.weight"]),
+           v + "embeddings.patch_embedding.bias": sd["patch_embed.bias"],
+           v + "embeddings.position_embedding.weight": sd["position_embedding"],
+           v + "head.probe": sd["head.probe"]}
+    for leaf in ("weight", "bias"):
+        out[f"{v}post_layernorm.{leaf}"] = sd[f"post_layernorm.{leaf}"]
+        out[f"{v}head.attention.in_proj_{leaf}"] = torch.cat(
+            [sd[f"head.{m}.{leaf}"] for m in ("q_proj", "k_proj", "v_proj")])
+        for m, hf in (("out_proj", "attention.out_proj"), ("layernorm", "layernorm"),
+                      ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            out[f"{v}head.{hf}.{leaf}"] = sd[f"head.{m}.{leaf}"]
+    for k, t in sd.items():
+        if k.startswith("layers."):
+            i, module, leaf = k[len("layers."):].split(".")
+            out[f"{v}encoder.layers.{i}.{HF_VIT_LAYER[module]}.{leaf}"] = t
+    return out
+
+
+HF_BLIP_MODULE = {"query": "self.query", "key": "self.key", "value": "self.value",
+                  "out_dense": "output.dense", "out_ln": "output.LayerNorm",
+                  "self_attn": "attention", "cross_attn": "crossattention",
+                  "intermediate": "intermediate.dense", "output": "output.dense",
+                  "output_ln": "output.LayerNorm"}
+
+
+def hf_blip_text_state_dict(sd, prefix=""):
+    """The port's BlipTextEncoder state dict in BLIP med-BERT / HF
+    ``BlipTextModel`` names under ``prefix``, with the ``position_ids``
+    buffer the ImageReward checkpoint carries."""
+    import torch
+
+    e = prefix + "embeddings."
+    out = {e + "word_embeddings.weight": sd["word_embeddings.weight"],
+           e + "position_embeddings.weight": sd["position_embeddings"],
+           e + "position_ids": torch.arange(sd["position_embeddings"].shape[0])[None]}
+    for leaf in ("weight", "bias"):
+        out[f"{e}LayerNorm.{leaf}"] = sd[f"embeddings_ln.{leaf}"]
+    for k, t in sd.items():
+        if k.startswith("layers."):
+            i, *path = k[len("layers."):].split(".")
+            hf = ".".join(HF_BLIP_MODULE[m] for m in path[:-1])
+            out[f"{prefix}encoder.layer.{i}.{hf}.{path[-1]}"] = t
+    return out
+
+
+def imagereward_pt_state_dict(sd):
+    """The port's ImageRewardModel state dict in the ImageReward checkpoint's
+    names: ``blip.visual_encoder`` (timm ViT, fused qkv),
+    ``blip.text_encoder`` (the med-BERT) and ``mlp.layers.{0,2,4,6,7}``."""
+    from adv_grpo_torch.models.convert import AESTHETIC_LAYERS
+
+    out = {"blip.visual_encoder." + k: t for k, t in hf_dinov2_state_dict(
+        {k[len("vision."):]: t for k, t in sd.items() if k.startswith("vision.")}, "timm",
+        mask_token=False).items()}
+    out.update(hf_blip_text_state_dict(
+        {k[len("text."):]: t for k, t in sd.items() if k.startswith("text.")},
+        "blip.text_encoder."))
+    for name, i in AESTHETIC_LAYERS:  # ImageReward's head has the aesthetic head's layout
+        for leaf in ("weight", "bias"):
+            out[f"mlp.layers.{i}.{leaf}"] = sd[f"head.{name}.{leaf}"]
+    return out
+
+
+BERT_SPECIAL = {0: "[PAD]", 100: "[UNK]", 101: "[CLS]", 102: "[SEP]", 103: "[MASK]"}
+
+
+def write_bert_tokenizer(d, words, size=None):
+    """A BERT tokenizer directory as ``BertTokenizer.save_pretrained`` writes
+    ImageReward's (``bos_token`` [DEC] and the additional special token
+    [ENC] added after the vocabulary): ``vocab.txt`` with bert-base-uncased's
+    special ids (0, 100-103; ``[unusedN]`` filling 1-99), then ``words`` in
+    order, filled with ``[unusedN]`` to ``size`` lines where given, and
+    ``tokenizer_config.json`` with ``do_lower_case`` and the
+    ``added_tokens_decoder``. Returns the vocabulary's size."""
+    vocab = [BERT_SPECIAL.get(i) or f"[unused{i - 1}]" for i in range(104)]
+    unused = 99
+    seen = set(vocab)
+    for w in words:
+        if w not in seen:
+            vocab.append(w)
+            seen.add(w)
+    while size is not None and len(vocab) < size:
+        vocab.append(f"[unused{unused}]")
+        unused += 1
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("".join(w + "\n" for w in vocab))
+    added = dict(BERT_SPECIAL)
+    added.update({len(vocab): "[DEC]", len(vocab) + 1: "[ENC]"})
+    config = {"added_tokens_decoder": {str(i): {
+        "content": t, "lstrip": False, "normalized": False, "rstrip": False,
+        "single_word": False, "special": True} for i, t in sorted(added.items())},
+        "additional_special_tokens": ["[ENC]"], "bos_token": "[DEC]", "clean_up_tokenization_spaces":
+        True, "cls_token": "[CLS]", "do_basic_tokenize": True, "do_lower_case": True,
+        "mask_token": "[MASK]", "model_max_length": 512, "never_split": None, "pad_token": "[PAD]",
+        "sep_token": "[SEP]", "strip_accents": None, "tokenize_chinese_chars": True,
+        "tokenizer_class": "BertTokenizer", "unk_token": "[UNK]"}
+    with open(os.path.join(d, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump(config, f, indent=2)
+    return len(vocab) + 2
+
+
+class JudgeFixture:
+    """A loopback ``http.server`` (a free port on 127.0.0.1, in a thread)
+    that answers the remote judges' wire formats and records every request
+    as (path, headers, body): ``/geneval`` (GenEval's pickle),
+    ``/deqa`` and ``/unifiedreward`` (the pickle ``outputs``),
+    ``/v1/chat/completions`` (sglang's JSON, ``Final Score: X``), and
+    ``/flaky``, which answers 500 to its first ``fail`` requests, then as
+    ``/deqa``; any other path 404. The answers are functions of the request (the JPEG / PNG
+    sizes, the prompts), so a client that mixes requests up scores
+    otherwise. ``with JudgeFixture() as judge:`` serves until the block
+    ends; ``judge.url``."""
+
+    def __init__(self, fail=0):
+        import http.server
+        import threading
+
+        self.requests, self.fail = [], fail
+        fixture = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                fixture.requests.append((self.path, dict(self.headers), body))
+                status, out, kind = fixture.answer(self.path, body)
+                self.send_response(status)
+                self.send_header("Content-Type", kind)
+                self.send_header("Content-Length", str(len(out)))
+                self.end_headers()
+                self.wfile.write(out)
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+
+    def answer(self, path, body):
+        import pickle
+
+        if path == "/v1/chat/completions":
+            req = json.loads(body)
+            url = req["messages"][0]["content"][0]["image_url"]["url"]
+            text = f"The image is fine.\nFinal Score: {1 + len(url) % 4}.{len(url) % 10}"
+            return 200, json.dumps({"choices": [{"message": {"content": text}}]}).encode(), \
+                "application/json"
+        if path == "/flaky" and sum(p == "/flaky" for p, _, _ in self.requests) <= self.fail:
+            return 500, b"busy", "text/plain"
+        if path not in ("/geneval", "/deqa", "/unifiedreward", "/flaky"):
+            return 404, b"not found", "text/plain"
+        req = pickle.loads(body)
+        sizes = [len(j) for j in req["images"]]
+        if path == "/geneval":
+            tags = [m.get("tag", "none") for m in req["meta_datas"]]
+            groups = {t: [float(n % 2) for n, g in zip(sizes, tags) if g == t] for t in tags}
+            out = {"scores": [n % 97 / 97 for n in sizes], "rewards": [n % 3 / 2 for n in sizes],
+                   "strict_rewards": [float(n % 2 and req["only_strict"]) for n in sizes],
+                   "group_rewards": groups, "group_strict_rewards": {
+                       t: [1.0 - v for v in vals] for t, vals in groups.items()}}
+        elif path == "/unifiedreward":
+            out = {"outputs": [n % 5 + len(p) % 3 for n, p in zip(sizes, req["prompts"])]}
+        else:  # /deqa, /flaky
+            out = {"outputs": [n % 13 / 13 for n in sizes]}
+        return 200, pickle.dumps(out), "application/octet-stream"
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join()
 
 
 def precompiled_charsmap(mappings):
@@ -4336,6 +4545,329 @@ def run_eval_tooling_slice(kernels, smi):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# the remaining rewards' phase: the GRPO epoch's rewards (COTRAIN_ARGV, one
+# epoch): the preset's co-trained PickScore and every new reward that needs
+# no reference images, the judges served by JudgeFixture; the two that
+# need them score in the eval phase against the reference store (the
+# adaptive gate scores the references under reward_fn with no references,
+# in the JAX trainer too)
+REMAINING_REWARD_FN = {"pickscore_cotrain": 1.0, "siglip_cotrain": 0.1, "pickscore_patch": 0.1,
+                       "discriminator": 0.1, "imagereward": 0.1, "geneval": 0.1,
+                       "unifiedreward": 0.1}
+REMAINING_EVAL_REWARD_FN = {"siglip_image_similarity": 1.0, "constractive_external": 1.0}
+BERT_VOCAB = 30522  # bert-base-uncased's; ImageReward adds [DEC] and [ENC]
+
+
+def _bert_words():
+    """Word pieces for a BERT vocabulary: the lower-cased words of the
+    dataset's prompts, each as a whole word and as a ``##`` continuation,
+    and every character of them, alone and as ``##``."""
+    import re
+
+    from adv_grpo_torch.data.datasets import TextPromptDataset
+
+    words = []
+    for prompt in TextPromptDataset("dataset/pickscore_small").prompts:
+        words += re.findall(r"\w+|[^\w\s]", prompt.lower())
+    chars = sorted({c for w in words for c in w})
+    return list(dict.fromkeys(words + chars + ["##" + c for c in chars]
+                              + ["##" + w for w in words]))
+
+
+def run_remaining_rewards_slice(kernels, smi):
+    """Phase: the last rewards at full width (random weights from the seed).
+    (1) Files in the published layouts and widths under TMPDIR, timed: a
+    ``SIGLIP_DIR`` (SigLIP so400m/14 at 384^2, HF ``SiglipVisionModel``
+    names, fp32 safetensors), an ``IMAGEREWARD_PT`` (BLIP ViT-L/16 at 224^2
+    and the 12-layer med-BERT, ImageReward's names, fp32 ``torch.save``)
+    with a ``BERT_TOKENIZER_DIR`` (BERT_VOCAB word pieces and [DEC] /
+    [ENC]), a ``STYLEGAN_D_PATH`` flax ``.msgpack`` of the 512^2 D; the
+    judges at a loopback ``JudgeFixture``. (2) One epoch of ``cli.train``
+    at COTRAIN_ARGV with REMAINING_REWARD_FN (the scorers read from those
+    files; ``unifiedreward`` over sglang's protocol) and one ``eval_phase``
+    on 4 prompts with REMAINING_EVAL_REWARD_FN against the reference store:
+    the launches of #1-#5 exactly as derived, finite rewards, the
+    fixture's requests in its formats (GenEval's pickles of 512^2 JPEGs,
+    the sglang JSON with a PNG data URL and the rubric); s, peak memory.
+    (3) The epoch's last 16 decoded 512^2 images through every new reward:
+    ``siglip_image_similarity`` (against themselves: 1 within 1e-5),
+    ``siglip_cotrain``, ``pickscore_patch``, ``constractive_external`` (one
+    batch per gate branch), ``discriminator``, ``imagereward``, ``geneval``,
+    ``deqa`` and ``unifiedreward`` over the pickle protocol: finite, shape
+    (16,), ms per batch of 16; the loaded scorers bitwise as the drawn
+    ones; peak memory."""
+    import gc
+    import pickle
+    import shutil
+    from io import BytesIO
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from adv_grpo_torch.cli import common
+    from adv_grpo_torch.data.tokenizers import BertTokenizer
+    from adv_grpo_torch.models import convert
+    from adv_grpo_torch.models.blip import BlipTextConfig, ImageRewardModel, blip_vit_l16
+    from adv_grpo_torch.models.siglip import SigLIPVisionConfig, SigLIPVisionTower
+    from adv_grpo_torch.models.stylegan_d import (
+        StyleGANDConfig, StyleGANDiscriminator, StyleGANScorer)
+    from adv_grpo_torch.rewards import vlm
+    from adv_grpo_torch.rewards.registry import multi_score
+    from adv_grpo_torch.rewards.scorers import (
+        SigLIPScorer, contrastive_external_reward, random_init_)
+    from adv_grpo_torch.data.datasets import TextPromptDataset
+    from adv_grpo_torch.utils import msgpack_io, safetensors_io
+    from adv_grpo_torch.utils.images import images_to_uint8
+
+    phase_t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    work = tempfile.mkdtemp()
+    env_keys = ("SIGLIP_DIR", "IMAGEREWARD_PT", "BERT_TOKENIZER_DIR", "STYLEGAN_D_PATH",
+                "GENEVAL_URL", "DEQA_URL", "UNIFIEDREWARD_URL")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    judge = JudgeFixture()
+    try:
+        judge.__enter__()
+        # (1) the files, drawn from the seed on the card
+        generator = torch.Generator(device="cuda").manual_seed(SEED + 20)
+        scfg, tcfg, vcfg = SigLIPVisionConfig.so400m(), BlipTextConfig.med_base(), blip_vit_l16()
+        dcfg = StyleGANDConfig(image_size=512)
+        tower = random_init_(SigLIPVisionTower(scfg, device="meta").to_empty(device="cuda"),
+                             generator)
+        ir_model = random_init_(ImageRewardModel(tcfg, vcfg, device="meta").to_empty(
+            device="cuda"), generator).eval()
+        disc = random_init_(StyleGANDiscriminator(dcfg, device="meta").to_empty(device="cuda"),
+                            generator)
+        n_params = {name: sum(p.numel() for p in m.parameters())
+                    for name, m in (("SigLIP", tower), ("ImageReward", ir_model), ("D", disc))}
+        paths = {"SIGLIP_DIR": os.path.join(work, "siglip"),
+                 "IMAGEREWARD_PT": os.path.join(work, "ImageReward.pt"),
+                 "BERT_TOKENIZER_DIR": os.path.join(work, "bert"),
+                 "STYLEGAN_D_PATH": os.path.join(work, "d.msgpack")}
+        write_s, sizes = {}, {}
+        t0 = time.perf_counter()
+        os.makedirs(paths["SIGLIP_DIR"])
+        safetensors_io.save_file({k: v.cpu() for k, v in hf_siglip_state_dict(
+            tower.state_dict()).items()}, os.path.join(paths["SIGLIP_DIR"], "model.safetensors"))
+        write_s["SIGLIP_DIR"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        torch.save({k: v.cpu() for k, v in imagereward_pt_state_dict(
+            ir_model.state_dict()).items()}, paths["IMAGEREWARD_PT"])
+        write_s["IMAGEREWARD_PT"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vocab = write_bert_tokenizer(paths["BERT_TOKENIZER_DIR"], _bert_words(), BERT_VOCAB)
+        write_s["BERT_TOKENIZER_DIR"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        msgpack_io.save(paths["STYLEGAN_D_PATH"],
+                        convert.stylegan_state_dict_to_jax(disc.state_dict(), dcfg))
+        write_s["STYLEGAN_D_PATH"] = time.perf_counter() - t0
+        for k, path in paths.items():
+            sizes[k] = _dir_bytes(path) if os.path.isdir(path) else os.path.getsize(path)
+        if vocab != tcfg.vocab_size:
+            raise AssertionError(f"BERT vocabulary {vocab}, ImageReward's text tower "
+                                 f"{tcfg.vocab_size}")
+        # each file read back onto the card through the port's loaders, timed
+        load_s, loaded = {}, {}
+        t0 = time.perf_counter()
+        loaded["SIGLIP_DIR"] = SigLIPScorer.from_state_dict(convert.siglip_state_dict_from_hf(
+            convert.load_torch_state_dict(paths["SIGLIP_DIR"]), scfg), "cuda", scfg).vision
+        torch.cuda.synchronize()
+        load_s["SIGLIP_DIR"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded["IMAGEREWARD_PT"] = vlm.load_imagereward(paths["IMAGEREWARD_PT"], "cuda")
+        torch.cuda.synchronize()
+        load_s["IMAGEREWARD_PT"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        BertTokenizer(paths["BERT_TOKENIZER_DIR"])
+        load_s["BERT_TOKENIZER_DIR"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded["STYLEGAN_D_PATH"] = StyleGANScorer.from_state_dict(
+            convert.stylegan_state_dict_from_jax(msgpack_io.load(paths["STYLEGAN_D_PATH"]), dcfg),
+            "cuda", dcfg).model
+        torch.cuda.synchronize()
+        load_s["STYLEGAN_D_PATH"] = time.perf_counter() - t0
+        differ = {k: _bitwise_differ(m.state_dict(), src.state_dict()) for (k, m), src in zip(
+            loaded.items(), (tower, ir_model, disc))}
+        print(f"remaining rewards' files (parameters {n_params}): "
+              + ", ".join(f"{k} {sizes[k] / 1e9:.3f} GB written in {write_s[k]:.2f} s, read "
+                          f"onto the card in {load_s[k]:.2f} s" for k in paths)
+              + f"; tensors that differ from the drawn ones {differ}; {smi}", flush=True)
+        if any(differ.values()):
+            raise AssertionError(f"loaded from the files: {differ}")
+        del loaded
+        os.environ.update(paths, GENEVAL_URL=judge.url + "/geneval",
+                          DEQA_URL=judge.url + "/deqa", UNIFIEDREWARD_URL=judge.url + "/v1")
+
+        # (2) one GRPO epoch with the new rewards, then the eval phase
+        hold = {}
+        argv = COTRAIN_ARGV + ["--max_epochs", "1",
+                               "--set", f"reward_fn={REMAINING_REWARD_FN!r}",
+                               "--set", f"eval_reward_fn={REMAINING_EVAL_REWARD_FN!r}"]
+        ep_dir = os.path.join(work, "epoch")
+        os.makedirs(ep_dir)
+        t0 = time.perf_counter()
+        counts, records, wall = _train_recorded(argv, ep_dir, kernels, hold)
+        trainer, samples = hold["trainer"], hold["samples"]
+        config, mcfg, ctx = trainer.config, trainer.pipeline.mmdit_cfg, trainer.reward_ctx
+        r = records[0]
+        branch = "D" if r["d_epoch"] else "G"
+        want, _ = expected_train_counts(config, mcfg, 1, 0 if r["d_epoch"] else 1)
+        keys = [f"reward_{k}" for k in REMAINING_REWARD_FN] + ["reward_avg",
+                                                              "reference_reward_avg"]
+        print(f"cli.train pickscore_cotrain_sd3_fast full width with {sorted(REMAINING_REWARD_FN)}"
+              f" (SigLIP, ImageReward and the D from the files), 1 epoch ({branch}): {wall:.2f} s "
+              f"wall (builds included), sampling {[round(t, 2) for t in hold['sample']]} s, "
+              f"update {round((hold['d'] + hold['g'])[0], 2)} s; "
+              + ", ".join(f"{k} {r[k]:.5g}" for k in keys) + f"; launches {counts}", flush=True)
+        if len(records) != 1 or not all(np.isfinite(r[k]) for k in keys):
+            raise AssertionError(f"remaining rewards' epoch: {records}")
+        if counts != want:
+            raise AssertionError(f"remaining rewards' epoch launch counts {counts}, expected "
+                                 f"{want}")
+        prompts4 = TextPromptDataset("dataset/pickscore_small").prompts[:4]  # each has a PNG
+        _zero_counts(kernels)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, metrics = trainer.eval_phase(prompts4)
+        eval_s = time.perf_counter() - t1
+        eval_counts = [k.launches for k in kernels]
+        want_eval = [c * int(config.sample.eval_num_steps) for c in per_forward_counts(mcfg)]
+        print(f"  eval_phase, 4 prompts x {config.sample.eval_num_steps} steps: {eval_s:.2f} s; "
+              + ", ".join(f"eval_reward_{k} {metrics['eval_reward_' + k]:.6f}"
+                          for k in REMAINING_EVAL_REWARD_FN) + f"; launches {eval_counts}",
+              flush=True)
+        if (eval_counts != want_eval + [0, 0]
+                or not all(np.isfinite(metrics["eval_reward_" + k])
+                           for k in REMAINING_EVAL_REWARD_FN)):
+            raise AssertionError(f"eval phase: {metrics}, launches {eval_counts}")
+        epoch_s, epoch_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+        # the requests the fixture received, in its formats
+        got = {}
+        for path, head, body in judge.requests:
+            got.setdefault(path, []).append((head, body))
+        nb, per = trainer.num_batches, len(samples["last_prompts"])
+        calls = 2 * nb  # each sampling batch: its images, then the references for the gate
+        n_img = nb * (samples["last_images"].shape[0] + per)
+        if (len(got.get("/geneval", [])) != calls
+                or len(got.get("/v1/chat/completions", [])) != n_img or set(got) - {
+                    "/geneval", "/v1/chat/completions"}):
+            raise AssertionError(f"fixture requests {({k: len(v) for k, v in got.items()})}, "
+                                 f"expected {calls} GenEval and {n_img} sglang")
+        # the generated images, and the reference images at config.resolution
+        res = {samples["last_images"].shape[-1], int(config.resolution)}
+        for _, body in got["/geneval"]:
+            req = pickle.loads(body)
+            shapes = {Image.open(BytesIO(j)).size for j in req["images"]}
+            if len(shapes) != 1 or shapes.pop() not in {(r, r) for r in res} or req["only_strict"] is not True or len(
+                    req["meta_datas"]) != len(req["images"]):
+                raise AssertionError(f"GenEval request {shapes} {req['only_strict']}")
+        for head, body in got["/v1/chat/completions"]:
+            req = json.loads(body)
+            content = req["messages"][0]["content"]
+            if (head.get("Authorization") != "Bearer flowgrpo"
+                    or not content[0]["image_url"]["url"].startswith("data:image;base64,")
+                    or "Final Score:" not in content[1]["text"]):
+                raise AssertionError(f"sglang request {head} {str(req)[:300]}")
+        print(f"  the judges' fixture got {len(got['/geneval'])} GenEval pickles of {sorted(res)}^2 JPEGs "
+              f"and {len(got['/v1/chat/completions'])} sglang requests; epoch + eval "
+              f"{epoch_s:.2f} s, peak device memory {epoch_peak / 2**30:.2f} GiB", flush=True)
+
+        # (3) the epoch's last 16 decoded images through every new reward
+        images, prompts = samples["last_images"], samples["last_prompts"]  # a prompt per image
+        n = len(images)
+        drawn = SigLIPScorer(tower, ctx.siglip.image_size)
+        g6 = torch.Generator(device="cuda").manual_seed(int(config.seed) + 6)
+        drawn_head = drawn.init_head(g6)
+        diff = [k for k, v in tower.state_dict().items()
+                if not torch.equal(v, ctx.siglip.vision.state_dict()[k])]
+        diff += [k for k, v in drawn_head.state_dict().items()
+                 if not torch.equal(v, ctx.siglip_head_params.state_dict()[k])]
+        diff += [k for k, v in disc.state_dict().items()
+                 if not torch.equal(v, ctx.stylegan.model.state_dict()[k])]
+        if diff:
+            raise AssertionError(f"loaded scorers differ from the drawn ones: {diff[:5]}")
+        drawn_ir = vlm.ImageRewardScorer(score_fn=vlm.imagereward_score_fn(
+            ir_model, BertTokenizer(paths["BERT_TOKENIZER_DIR"])))
+        u8 = images_to_uint8(images)
+        os.environ["UNIFIEDREWARD_URL"] = judge.url + "/unifiedreward"
+        pickle_ctx = common.build_reward_context(config, {"geneval", "deqa", "unifiedreward"},
+                                                 device="cuda")
+        ps, ids_fn = ctx.pickscore, ctx.tokenize
+        one = [prompts[0]] * n
+        order = np.argsort(ps.score(images, ids_fn(one)).cpu().numpy())
+        gates = {"closed": (images[np.r_[order[:-1], order[:1]]], images[order[-1:]]),
+                 "open": (images, images)}
+        results, score_ms = {}, {}
+
+        def timed(name, fn, reps=3):
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = np.asarray(fn(), np.float64)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            score_ms[name], results[name] = sorted(times)[len(times) // 2], out
+            if out.shape != (n,) or not np.isfinite(out).all():
+                raise AssertionError(f"{name}: shape {out.shape}, finite "
+                                     f"{np.isfinite(out).all()}")
+
+        def reward(names, c=ctx, **kw):
+            return lambda: multi_score({names: 1.0}, c)(images, prompts, **kw)[0][names]
+
+        timed("siglip_image_similarity", reward("siglip_image_similarity", ref_images=images))
+        timed("siglip_cotrain", reward("siglip_cotrain"))
+        timed("pickscore_patch", reward("pickscore_patch"))
+        timed("constractive_external", reward("constractive_external", ref_images=images))
+        timed("discriminator", reward("discriminator"))
+        timed("imagereward", reward("imagereward"))
+        timed("geneval", reward("geneval", pickle_ctx, metadata=[{}] * n))
+        timed("deqa", reward("deqa", pickle_ctx))
+        timed("unifiedreward (pickle)", reward("unifiedreward", pickle_ctx))
+        sim = results["siglip_image_similarity"]
+        branches = {}
+        for gate, (batch, refs) in gates.items():
+            out, aux = contrastive_external_reward(ps, batch, refs, ids_fn(one), ctx.pickscore_params)
+            branches[gate] = not torch.equal(out, aux["raw_scores"])
+            if out.shape != (n,) or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"constractive_external {gate}: {out}")
+        bitwise = {
+            "siglip_image_similarity": np.array_equal(sim, drawn.similarity_to_refs(
+                images, images).cpu().numpy()),
+            "siglip_cotrain": np.array_equal(results["siglip_cotrain"], drawn.cotrain_score(
+                drawn_head, images).cpu().numpy()),
+            "discriminator": np.array_equal(results["discriminator"], ctx.stylegan.score(
+                images).cpu().numpy()) and np.array_equal(
+                results["discriminator"], type(ctx.stylegan)(disc).score(images).cpu().numpy()),
+            "imagereward": np.array_equal(results["imagereward"], drawn_ir(u8, prompts))}
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  {n} decoded {images.shape[-1]}^2 images, ms per batch of {n} ({smi}): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in score_ms.items())
+              + f"; siglip_image_similarity against themselves max |1 - s| "
+              f"{np.abs(sim - 1).max():.2e}; constractive_external corrected on the gate's "
+              f"branches {branches}; loaded scorers bitwise the drawn ones {bitwise}; "
+              f"peak device memory {peak / 2**30:.2f} GiB; phase "
+              f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+        if np.abs(sim - 1).max() > 1e-5 or branches != {"closed": False, "open": True}:
+            raise AssertionError(f"siglip similarity {sim}, gate branches {branches}")
+        if not all(bitwise.values()):
+            raise AssertionError(f"loaded scorers against the drawn ones: {bitwise}")
+        del trainer, samples, ctx, hold, tower, ir_model, disc, drawn, drawn_ir, pickle_ctx
+    finally:
+        judge.__exit__(None, None, None)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def _zero_counts(kernels):
     """Set the kernels' launch counts to 0, the BSHD wrappers' count of
     their S_q != S_kv launches too."""
@@ -5675,7 +6207,8 @@ def main() -> int:
              "--loaders": run_loader_slice,
              "--family-loaders": lambda kernels, smi: run_family_loader_slice(smi),
              "--prefix-image": run_prefix_image_slice,
-             "--eval-tooling": run_eval_tooling_slice}
+             "--eval-tooling": run_eval_tooling_slice,
+             "--remaining-rewards": run_remaining_rewards_slice}
     if sys.argv[1:2] and sys.argv[1] in alone:  # one phase, in its one-rank group
         print(f"process group initialized at {init_group()}", flush=True)
         alone[sys.argv[1]](kernels, smi)
@@ -5702,6 +6235,7 @@ def main() -> int:
     run_loader_slice(kernels, smi)
     run_prefix_image_slice(kernels, smi)
     run_eval_tooling_slice(kernels, smi)
+    run_remaining_rewards_slice(kernels, smi)
     dist.destroy_process_group()
     check_flux_model_grads(*check_flux_model())
     flux_kernels = (fused_norms.modulated_layer_norm, fused_norms.rms_norm_heads,

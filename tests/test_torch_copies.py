@@ -6,7 +6,8 @@ so it carries copies of the schedule, the stat tracker, the k-repeat sampler,
 the datasets, the embedding store (reader and writer), the metric logger, the FLOP model, the
 host JPEG rewards, the uint8 image packer, the override parser, the hash
 text encoder, the peft key mapping, the checkpoint directory helpers, the
-prompt functions, the preference pairs and the dataset tooling (the last two
+prompt functions, the remote judges' encoders and rubrics, the VLM judges'
+rubric and score extraction, the SigLIP and ImageReward constants, the preference pairs and the dataset tooling (the last two
 also in tests/test_torch_finetune_pickscore.py and
 tests/test_torch_refs_tools.py; the SFT / RWR / DPO presets in
 tests/test_torch_config.py). Each is held here against its original: exact equality
@@ -362,3 +363,35 @@ def test_preference_pairs_and_tooling_are_identical(tmp_path, monkeypatch):
     for w, n in (([0.7, 0.3], 10), ([3, 1, 1, 2], 17), ([0.2] * 5, 3)):
         assert (t_tooling.largest_remainder_allocation(w, n)
                 == j_tooling.largest_remainder_allocation(w, n))
+
+
+def test_remote_and_vlm_copies_are_identical():
+    """The jax-free parts of rewards/remote.py and rewards/vlm.py, the SigLIP
+    normalisation and ImageReward's z-normalisation."""
+    from adv_grpo_torch.models import blip as t_blip
+    from adv_grpo_torch.rewards import preprocess as t_pp
+    from adv_grpo_torch.rewards import remote as t_remote
+    from adv_grpo_torch.rewards import vlm as t_vlm
+    from adv_grpo_tpu.models import blip as j_blip
+    from adv_grpo_tpu.rewards import preprocess as j_pp
+    from adv_grpo_tpu.rewards import remote as j_remote
+    from adv_grpo_tpu.rewards import vlm as j_vlm
+
+    for name in ("GENEVAL_URL", "DEQA_URL", "UNIFIEDREWARD_SGLANG_URL", "UNIFIEDREWARD_QUESTION"):
+        assert getattr(t_remote, name) == getattr(j_remote, name)
+    assert t_vlm.QWENVL_RUBRIC == j_vlm.QWENVL_RUBRIC
+    assert (t_pp.SIGLIP_MEAN, t_pp.SIGLIP_STD) == (j_pp.SIGLIP_MEAN, j_pp.SIGLIP_STD)
+    assert (t_blip.IMAGEREWARD_MEAN, t_blip.IMAGEREWARD_STD) == (j_blip.IMAGEREWARD_MEAN,
+                                                                 j_blip.IMAGEREWARD_STD)
+    u8 = np.random.default_rng(0).integers(0, 256, (3, 20, 30, 3), dtype=np.uint8)
+    assert t_remote.jpeg_bytes(u8) == j_remote.jpeg_bytes(u8)
+    for resize in (512, 16, None):
+        assert t_remote.png_base64(u8[0], resize) == j_remote.png_base64(u8[0], resize)
+    texts = ["Final Score: 4", "final score: 3", "Final Score:2.75 then Final Score: 5", None,
+             "", "Final Score: 6", "Final Score:\n 1.5", "Score: 3"]
+    assert t_remote.extract_final_scores(texts) == j_remote.extract_final_scores(texts)
+    texts = ["<Score>4</Score>", "<Score> 3.5 </Score>", "<Score>7</Score>", "<Score>x</Score>",
+             "", "<Thought>a</Thought><Score>0</Score>", "<Score>2.</Score>"]
+    for scale in (5.0, 10.0):
+        assert ([t_vlm.extract_qwenvl_score(t, scale) for t in texts]
+                == [j_vlm.extract_qwenvl_score(t, scale) for t in texts])

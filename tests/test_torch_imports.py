@@ -43,12 +43,14 @@ def test_port_imports_no_jax_flax_or_triton():
     ``sentencepiece``: the port tokenizes in plain Python
     (``data.tokenizers``); nor ``msgpack`` (``utils.msgpack_io`` reads and
     writes flax's files) nor ``gradio`` / ``huggingface_hub``, which only
-    ``cli.app`` imports, when it runs."""
+    ``cli.app`` imports, when it runs; nor ``requests`` / ``urllib3``
+    (``rewards.remote`` posts through ``http.client``) nor ``ImageReward``,
+    which ``rewards.vlm`` tries only when an ImageReward scorer is built."""
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in ('jax', 'flax', 'optax', 'triton', 'ml_collections',"
             " 'transformers', 'tokenizers', 'regex', 'ftfy', 'sentencepiece', 'msgpack',"
-            " 'gradio', 'huggingface_hub')"
+            " 'gradio', 'huggingface_hub', 'requests', 'urllib3', 'ImageReward')"
             " if m in sys.modules))\n")
     proc = _run(["-c", code], REPO)
     assert proc.returncode == 0, proc.stderr
@@ -71,7 +73,10 @@ def test_port_loads_nothing_of_the_jax_package():
             "adv_grpo_torch.cli.generate_refs", "adv_grpo_torch.cli.validate_refs",
             "adv_grpo_torch.cli.finetune_pickscore", "adv_grpo_torch.cli.app",
             "adv_grpo_torch.config.sft", "adv_grpo_torch.config.dpo",
-            "adv_grpo_torch.data.tooling", "adv_grpo_torch.utils.msgpack_io"} <= set(PORT_MODULES)
+            "adv_grpo_torch.data.tooling", "adv_grpo_torch.utils.msgpack_io",
+            "adv_grpo_torch.models.siglip", "adv_grpo_torch.models.blip",
+            "adv_grpo_torch.models.stylegan_d", "adv_grpo_torch.rewards.remote",
+            "adv_grpo_torch.rewards.vlm"} <= set(PORT_MODULES)
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] == 'adv_grpo_tpu'))\n")
@@ -111,7 +116,11 @@ def test_no_source_imports_a_tokenizer_package(where):
     """No source line of the port or of chip_smoke.py imports
     ``transformers``, ``tokenizers``, ``regex``, ``ftfy`` or
     ``sentencepiece``, inside a function either: the card's machine has
-    none of them."""
+    none of them. One import is allowed (``_OPTIONAL_IMPORTS``): the
+    Qwen2.5-VL judge's checkpoint path, which the JAX package also runs
+    through ``transformers`` and which raises naming the package where it
+    does not import (tests/test_torch_remote_rewards.py); its injected
+    ``generate_fn`` needs nothing."""
     path = os.path.join(REPO, where)
     files = ([path] if where.endswith(".py") else
              [os.path.join(r, f) for r, _, fs in os.walk(path) for f in fs if f.endswith(".py")])
@@ -120,7 +129,10 @@ def test_no_source_imports_a_tokenizer_package(where):
         with open(f) as fh:
             offenders += [f"{os.path.relpath(f, REPO)}: {m.group(0).strip()}"
                           for m in _TOKENIZER_IMPORT.finditer(fh.read())]
-    assert not offenders, "\n".join(offenders)
+    assert not set(offenders) - _OPTIONAL_IMPORTS, "\n".join(offenders)
+
+
+_OPTIONAL_IMPORTS = {"adv_grpo_torch/rewards/vlm.py: import transformers"}
 
 
 def test_chip_smoke_fails_without_a_gpu():

@@ -322,12 +322,13 @@ def test_krepeat_refuses_one_slot_on_one_device():
 
 
 def test_device_rewards_raise_with_their_name():
-    """A device reward not ported yet raises naming itself; the PickScore
-    and DINO rewards are ported (tests/test_torch_clip.py,
-    tests/test_torch_dino.py)."""
-    with pytest.raises(NotImplementedError, match="siglip_cotrain"):
-        t_multi_score({"jpeg_compressibility": 1, "siglip_cotrain": 1})
-    t_multi_score({"jpeg_compressibility": 1, "pickscore": 1, "dino_cotrain": 1})
+    """Every reward of the JAX registry is ported; an unknown name raises
+    KeyError naming itself and listing the known ones, as in the JAX
+    package (tests/test_torch_rewards_rest.py holds the lists equal)."""
+    with pytest.raises(KeyError, match="unknown reward 'siglip_cotrain2'.*'siglip_cotrain'"):
+        t_multi_score({"jpeg_compressibility": 1, "siglip_cotrain2": 1})
+    t_multi_score({"jpeg_compressibility": 1, "pickscore": 1, "dino_cotrain": 1,
+                   "siglip_cotrain": 1, "discriminator": 1, "geneval": 1})
     fn = t_multi_score({"jpeg_compressibility": 1})
     images = torch.rand(2, 3, 16, 16) * 2 - 1
     details, _ = fn(images, ["a", "b"])
