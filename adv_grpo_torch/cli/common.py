@@ -110,9 +110,10 @@ def _build_flux_pipeline(config, model_dir, lora_rank, latent_hw, device, genera
     """The Flux branch (JAX :135-159): a local diffusers
     ``FluxTransformer2DModel`` directory ``pretrained.model`` (``FLUX_DIR``,
     ``<root>/transformer``, the VAE from ``<root>/vae``) through
-    ``FluxPipeline.from_pretrained`` in ``compute_dtype(config)``; else, for
-    ``smoke_test=True``, the tiny random-init model. A set path that is not a
-    directory raises unless ``smoke_test``."""
+    ``FluxPipeline.from_pretrained`` in ``compute_dtype(config)`` with
+    ``tpu.remat``; else, for ``smoke_test=True``, the tiny random-init model
+    (no remat, as the JAX tiny config). A set path that is not a directory
+    raises unless ``smoke_test``."""
     from adv_grpo_torch.models.flux import FluxConfig
     from adv_grpo_torch.models.vae import VAEConfig
     from adv_grpo_torch.train.flux_pipeline import FluxPipeline
@@ -121,7 +122,7 @@ def _build_flux_pipeline(config, model_dir, lora_rank, latent_hw, device, genera
     if model_dir and os.path.isdir(model_dir):
         return FluxPipeline.from_pretrained(
             model_dir, lora_rank=lora_rank, lora_alpha=float(config.train.lora_alpha),
-            dtype=compute_dtype(config), guidance=guidance,
+            dtype=compute_dtype(config), guidance=guidance, remat=bool(config.tpu.remat),
             latent_hw=latent_hw or int(config.resolution) // 8, device=device)
     if model_dir and not bool(config.get("smoke_test", False)):
         raise FileNotFoundError(
@@ -149,12 +150,12 @@ def _build_wan_pipeline(config, model_dir, lora_rank, latent_hw, device, generat
     """The WAN branch (JAX :160-188): a local diffusers
     ``WanTransformer3DModel`` directory ``pretrained.model`` (``WAN_DIR``,
     ``<root>/transformer``, the VAE from ``<root>/vae``) through
-    ``WanPipeline.from_pretrained`` in ``compute_dtype(config)``, with
-    1 + (``sample.num_frames`` - 1) // 4 latent frames; else, for
-    ``smoke_test=True``, the tiny random-init transformer and 3D VAE with 2
-    latent frames of ``latent_hw``. With ``frames`` (the demo's sizing) the
-    latent grid of that many video frames of ``config.resolution``^2 instead,
-    in both. A set path that is not a directory raises unless
+    ``WanPipeline.from_pretrained`` in ``compute_dtype(config)`` with
+    ``tpu.remat``, with 1 + (``sample.num_frames`` - 1) // 4 latent frames;
+    else, for ``smoke_test=True``, the tiny random-init transformer (no
+    remat) and 3D VAE with 2 latent frames of ``latent_hw``. With ``frames``
+    (the demo's sizing) the latent grid of that many video frames of
+    ``config.resolution``^2 instead, in both. A set path that is not a directory raises unless
     ``smoke_test``."""
     from adv_grpo_torch.models.wan import WanConfig
     from adv_grpo_torch.models.wan_vae import WanVAEConfig
@@ -164,7 +165,8 @@ def _build_wan_pipeline(config, model_dir, lora_rank, latent_hw, device, generat
         num_frames = int(config.sample.get("num_frames", 9))
         pipeline = WanPipeline.from_pretrained(
             model_dir, lora_rank=lora_rank, lora_alpha=float(config.train.lora_alpha),
-            dtype=compute_dtype(config), latent_frames=1 + (num_frames - 1) // 4,
+            dtype=compute_dtype(config), remat=bool(config.tpu.remat),
+            latent_frames=1 + (num_frames - 1) // 4,
             latent_hw=latent_hw or int(config.resolution) // 8, device=device)
         if frames is not None:
             pipeline.latent_frames, pipeline.latent_hw = _wan_grid(
@@ -196,7 +198,9 @@ def build_pipeline(config, latent_hw: Optional[int] = None, device="cuda",
     transformer directory ``pretrained.model`` (``FLUX_DIR`` / ``WAN_DIR``,
     with ``vae/`` beside it), else the tiny random-init model for
     ``smoke_test=True`` (wan: ``frames`` video frames when given). Random
-    weights come from ``torch.Generator(seed)`` on that device."""
+    weights come from ``torch.Generator(seed)`` on that device. The sd3
+    models, and the flux and wan ones from a directory, checkpoint their
+    blocks in training as ``tpu.remat`` / ``tpu.remat_policy`` say."""
     from adv_grpo_torch.models.mmdit import MMDiTConfig
     from adv_grpo_torch.models.vae import VAEConfig
     from adv_grpo_torch.train.pipeline import SD3Pipeline
@@ -217,10 +221,13 @@ def build_pipeline(config, latent_hw: Optional[int] = None, device="cuda",
         raise NotImplementedError(f"model_family={family!r} is not yet ported to "
                                   "adv_grpo_torch (sd3, flux and wan only)")
     dtype = compute_dtype(config)
+    # the blocks' activation checkpointing (JAX :122-123, :193-194)
+    remat = dict(remat=bool(config.tpu.remat),
+                 remat_policy=str(config.tpu.get("remat_policy", "save_attn")))
     if model_dir and os.path.isdir(model_dir):
         return SD3Pipeline.from_pretrained(model_dir, lora_rank=lora_rank,
                                            lora_alpha=float(config.train.lora_alpha),
-                                           dtype=dtype, device=device)
+                                           dtype=dtype, device=device, **remat)
     if model_dir and not smoke:
         raise FileNotFoundError(
             f"config.pretrained.model={model_dir!r} is not a local diffusers-layout "
@@ -229,12 +236,12 @@ def build_pipeline(config, latent_hw: Optional[int] = None, device="cuda",
             "smoke_test=True / pretrained.model='' for an explicitly random-init run")
     if smoke:
         mmdit_cfg = MMDiTConfig.tiny(num_layers=2, dual_attention_layers=(0,),
-                                     lora_rank=max(lora_rank, 1) if lora_rank else 4)
+                                     lora_rank=max(lora_rank, 1) if lora_rank else 4, **remat)
         return SD3Pipeline.random_init(generator, mmdit_cfg,
                                        VAEConfig.tiny(latent_channels=16), device,
                                        text_seq_len=6)
     mmdit_cfg = MMDiTConfig.sd35_medium(lora_rank=lora_rank,
-                                        lora_alpha=float(config.train.lora_alpha))
+                                        lora_alpha=float(config.train.lora_alpha), **remat)
     return SD3Pipeline.random_init(generator, mmdit_cfg, VAEConfig.sd3(), device, dtype)
 
 

@@ -1,7 +1,9 @@
 """Base configuration defaults, as plain dictionaries.
 
-The same schema and defaults as adv_grpo_tpu/config/base.py minus its ``tpu``
-section (mesh, remat, compile options with no meaning here), held in
+The same schema and defaults as adv_grpo_tpu/config/base.py, of whose ``tpu``
+section only ``remat`` and ``remat_policy`` are kept (the per-block
+activation checkpointing, ``models/remat.py``; the mesh, dtype, backend and
+compile options have no meaning here), held in
 :class:`ConfigDict` — a ``dict`` with attribute access — so the port does not
 depend on ``ml_collections``. ``tests/test_torch_config.py`` holds the two
 trees equal, key for key.
@@ -109,4 +111,11 @@ def get_config() -> ConfigDict:
 
     # smoke mode: tiny random-init models end-to-end (CI / dry runs)
     config.smoke_test = False
+
+    # the JAX section's activation checkpointing, the JAX keys and defaults:
+    # "save_attn" keeps the attention outputs through the backward (no
+    # attention forward in the recompute), "full" recomputes everything
+    config.tpu = tpu = ConfigDict()
+    tpu.remat = True
+    tpu.remat_policy = "save_attn"
     return config

@@ -1226,7 +1226,7 @@ def sd3_lora_init(cfg) -> Dict[str, torch.Tensor]:
 
 
 def load_sd3_pipeline(model_dir: str, *, lora_rank: int = 0, lora_alpha: float = 1.0,
-                      dtype=None, device="cuda"):
+                      dtype=None, device="cuda", remat=True, remat_policy="save_attn"):
     """An ``SD3Pipeline`` on ``device`` from a local diffusers-layout
     directory (``transformer/`` and ``vae/``; the text encoders are loaded by
     ``cli.common.load_real_text_encoder``). The MMDiT runs in ``dtype`` (bf16
@@ -1235,14 +1235,16 @@ def load_sd3_pipeline(model_dir: str, *, lora_rank: int = 0, lora_alpha: float =
     RMS weights too, held in fp32 parameters); fp16 and bf16 weights are
     taken as they are. With ``lora_rank`` > 0 the adapters start from
     :func:`sd3_lora_init` and stay fp32. The VAE is fp32, encoder and
-    decoder."""
+    decoder. ``remat`` / ``remat_policy``: the MMDiT's activation
+    checkpointing in training (``models/remat.py``)."""
     from adv_grpo_torch.models.mmdit import MMDiT
     from adv_grpo_torch.train.pipeline import SD3Pipeline, _build
 
     device = torch.device(device)
     tc = _read_json(model_dir, "transformer", "config.json")
     cfg = mmdit_config_from_json(tc, dtype=dtype or torch.bfloat16, lora_rank=lora_rank,
-                                 lora_alpha=lora_alpha)
+                                 lora_alpha=lora_alpha, remat=remat,
+                                 remat_policy=remat_policy)
     sd, base = _transformer_state(model_dir, tc, cfg)
     cfg = dataclasses.replace(cfg, pos_embed_base_size=base)
     sd = _round_bf16(sd)
@@ -1310,19 +1312,20 @@ def flux_lora_init(cfg) -> Dict[str, torch.Tensor]:
 
 
 def load_flux_transformer(model_dir: str, *, dtype=None, lora_rank: int = 0,
-                          lora_alpha: float = 1.0, device="cuda"):
+                          lora_alpha: float = 1.0, device="cuda", remat=True):
     """(FluxConfig, FluxTransformer on ``device``) from a local diffusers
     ``FluxTransformer2DModel`` directory (``config.json`` beside
     ``*.safetensors`` shards), the JAX ``load_flux_transformer``: in ``dtype``
     (bf16 by default), whose fp32 weights are then rounded to bf16 as
     ``cast_tree_bf16`` does; with ``lora_rank`` > 0 the adapters of
-    :func:`flux_lora_init`, fp32."""
+    :func:`flux_lora_init`, fp32; ``remat`` checkpoints its blocks in
+    training."""
     from adv_grpo_torch.models.flux import FluxTransformer
     from adv_grpo_torch.train.pipeline import _build
 
     cfg = flux_config_from_json(_read_json(model_dir, "config.json"),
                                 dtype=dtype or torch.bfloat16, lora_rank=lora_rank,
-                                lora_alpha=lora_alpha)
+                                lora_alpha=lora_alpha, remat=remat)
     sd = flux_state_dict_from_hf(load_torch_state_dict(model_dir), cfg)
     if cfg.dtype == torch.bfloat16:
         sd = _round_bf16(sd)
@@ -1401,19 +1404,20 @@ def wan_lora_init(cfg) -> Dict[str, torch.Tensor]:
 
 
 def load_wan_transformer(model_dir: str, *, dtype=None, lora_rank: int = 0,
-                         lora_alpha: float = 1.0, device="cuda"):
+                         lora_alpha: float = 1.0, device="cuda", remat=True):
     """(WanConfig, WanTransformer on ``device``) from a local diffusers
     ``WanTransformer3DModel`` directory, the JAX ``load_wan_transformer``: in
     ``dtype`` (bf16 by default), whose fp32 weights are then rounded to bf16
     as ``cast_tree_bf16`` does (the scale-shift tables, ``norm2`` and the RMS
     weights too, held in fp32 parameters); with ``lora_rank`` > 0 the
-    adapters of :func:`wan_lora_init`, fp32."""
+    adapters of :func:`wan_lora_init`, fp32; ``remat`` checkpoints its
+    blocks in training."""
     from adv_grpo_torch.models.wan import WanTransformer
     from adv_grpo_torch.train.pipeline import _build
 
     cfg = wan_config_from_json(_read_json(model_dir, "config.json"),
                                dtype=dtype or torch.bfloat16, lora_rank=lora_rank,
-                               lora_alpha=lora_alpha)
+                               lora_alpha=lora_alpha, remat=remat)
     sd = wan_state_dict_from_hf(load_torch_state_dict(model_dir), cfg)
     if cfg.dtype == torch.bfloat16:
         sd = _round_bf16(sd)

@@ -24,10 +24,12 @@ Numerics follow the JAX model: every product in ``cfg.dtype`` (bf16 at full
 size), the RMS weights and LoRA factors fp32. The modulated LayerNorms, the
 qk-norms and both attentions go through ``adv_grpo_torch.ops`` (hand-written
 kernels on the card, plain versions on the CPU); sibling projections of one
-input run as one product (``models/lora.py fused_qkv_proj``). The JAX
-config's TPU-only fields (``remat``, ``attention_backend``, ``fused_qkv``)
-have no counterpart here, and the single blocks need no zero padding of the
-sequence: the attention kernel masks ragged tiles itself.
+input run as one product (``models/lora.py fused_qkv_proj``). Each block is
+checkpointed in a training forward as the JAX model remats it (``remat``,
+the whole block recomputed; ``models/remat.py``). The JAX config's
+``attention_backend`` and ``fused_qkv`` have no counterpart here, and the
+single blocks need no zero padding of the sequence: the attention kernel
+masks ragged tiles itself.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from torch import nn
 from adv_grpo_torch.models.lora import LoRALinear, fused_qkv_proj
 from adv_grpo_torch.models.mmdit import (
     AdaLNModulation, FeedForward, HeadRMSNorm, _EmbedMLP, sincos_timestep_embedding)
+from adv_grpo_torch.models.remat import run_block
 from adv_grpo_torch.ops.attention import mha_bshd
 from adv_grpo_torch.ops.fused_norms import modulated_layer_norm, rms_norm_heads
 from adv_grpo_torch.ops.joint_attention import joint_mha
@@ -65,6 +68,7 @@ class FluxConfig:
     dtype: Any = torch.bfloat16
     lora_rank: int = 0
     lora_alpha: float = 1.0
+    remat: bool = True  # checkpoint each block in a training forward
 
     @property
     def hidden_dim(self) -> int:
@@ -79,7 +83,7 @@ class FluxConfig:
         defaults = dict(in_channels=16, num_double_layers=2, num_single_layers=2,
                         attention_head_dim=16, num_attention_heads=2,
                         joint_attention_dim=32, pooled_projection_dim=24,
-                        rope_axes_dims=(4, 6, 6), dtype=torch.float32)
+                        rope_axes_dims=(4, 6, 6), dtype=torch.float32, remat=False)
         defaults.update(overrides)
         return cls(**defaults)
 
@@ -317,11 +321,11 @@ class FluxTransformer(nn.Module):
         temb = self.time_text_embed(timestep, guidance, pooled)
         cos, sin = self.rope(txt_ids, img_ids, latents.device)
         for block in self.transformer_blocks:
-            img, txt = block(img, txt, temb, cos, sin, lora_scale)
+            img, txt = run_block(block, img, txt, temb, cos, sin, lora_scale, remat=c.remat)
         s_txt = txt.shape[1]
         x = torch.cat([txt, img], dim=1)
         for block in self.single_transformer_blocks:
-            x = block(x, temb, cos, sin, lora_scale)
+            x = run_block(block, x, temb, cos, sin, lora_scale, remat=c.remat)
         # output head: AdaLayerNormContinuous, chunk order (scale, shift)
         oscale, oshift = self.norm_out(temb)
         img = modulated_layer_norm(x[:, s_txt:].contiguous(), oscale, oshift)

@@ -12,8 +12,9 @@ weights stay fp32; the timestep sincos is computed in fp32 and then cast. The
 modulated LayerNorms and the two attentions go through ``adv_grpo_torch.ops``
 (hand-written kernels on the card, plain versions on the CPU).
 
-The JAX config's TPU-only fields (``remat``, ``remat_policy``,
-``attention_backend``, ``fused_qkv``) have no counterpart here.
+Each block is checkpointed in a training forward as the JAX model remats it
+(``remat``, ``remat_policy``; ``models/remat.py``). The JAX config's
+``attention_backend`` and ``fused_qkv`` have no counterpart here.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from adv_grpo_torch.models.lora import LoRALinear
+from adv_grpo_torch.models.remat import check_policy, run_block
 from adv_grpo_torch.ops.fused_norms import modulated_layer_norm
 from adv_grpo_torch.ops.joint_attention import joint_mha, mha_rms
 
@@ -53,6 +55,10 @@ class MMDiTConfig:
     dtype: Any = torch.bfloat16
     lora_rank: int = 0
     lora_alpha: float = 1.0
+    # checkpoint each block in a training forward (models/remat.py):
+    # "save_attn" keeps the attention outputs, "full" recomputes everything
+    remat: bool = True
+    remat_policy: str = "save_attn"
 
     @property
     def hidden_dim(self) -> int:
@@ -69,7 +75,7 @@ class MMDiTConfig:
             num_layers=4, attention_head_dim=32, num_attention_heads=4,
             joint_attention_dim=64, pooled_projection_dim=48,
             pos_embed_max_size=32, dual_attention_layers=(0, 1),
-            dtype=torch.float32,
+            dtype=torch.float32, remat=False,
         )
         defaults.update(overrides)
         return cls(**defaults)
@@ -190,7 +196,7 @@ class JointAttention(nn.Module):
             self.norm_added_q = HeadRMSNorm(d, device)
             self.norm_added_k = HeadRMSNorm(d, device)
 
-    def forward(self, x, ctx, lora_scale: float = 1.0):
+    def forward(self, x, ctx, lora_scale: float = 1.0, saved=None):
         c = self.cfg
         q, k, v = (m(x, lora_scale) for m in (self.to_q, self.to_k, self.to_v))
         cq, ck, cv = (m(ctx, lora_scale)
@@ -200,7 +206,7 @@ class JointAttention(nn.Module):
             rms_weights = (self.norm_q.weight, self.norm_k.weight,
                            self.norm_added_q.weight, self.norm_added_k.weight)
         o_img, o_txt = joint_mha(q, k, v, cq, ck, cv, num_heads=c.num_attention_heads,
-                                 rms_weights=rms_weights)
+                                 rms_weights=rms_weights, saved=saved)
         x_out = self.to_out[0](o_img, lora_scale)
         if self.context_pre_only:
             return x_out, None
@@ -224,11 +230,11 @@ class DualSelfAttention(nn.Module):
             d = cfg.attention_head_dim
             self.norm_q, self.norm_k = HeadRMSNorm(d, device), HeadRMSNorm(d, device)
 
-    def forward(self, x):
+    def forward(self, x, saved=None):
         c = self.cfg
         rms_weights = (self.norm_q.weight, self.norm_k.weight) if c.qk_norm else None
         o = mha_rms(self.to_q(x), self.to_k(x), self.to_v(x),
-                    num_heads=c.num_attention_heads, rms_weights=rms_weights)
+                    num_heads=c.num_attention_heads, rms_weights=rms_weights, saved=saved)
         return self.to_out[0](o)
 
 
@@ -248,7 +254,8 @@ class JointBlock(nn.Module):
         if not context_pre_only:
             self.ff_context = FeedForward(dim, dt, device)
 
-    def forward(self, x, ctx, temb, lora_scale: float = 1.0):
+    def forward(self, x, ctx, temb, lora_scale: float = 1.0, saved=None):
+        """``saved``: the block's ``SavedAttention`` under ``save_attn``."""
         mods = self.norm1(temb)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods[:6]
         x_pre = x  # dual attention modulates the PRE-attention norm input
@@ -263,13 +270,13 @@ class JointBlock(nn.Module):
              c_gate_mlp) = self.norm1_context(temb)
             ctx_mod = modulated_layer_norm(ctx, c_scale_msa, c_shift_msa)
 
-        attn_out, ctx_attn_out = self.attn(x_mod, ctx_mod, lora_scale)
+        attn_out, ctx_attn_out = self.attn(x_mod, ctx_mod, lora_scale, saved)
         x = x + gate_msa[:, None] * attn_out
 
         if self.dual_attention:
             shift_msa2, scale_msa2, gate_msa2 = mods[6:]
             x_mod2 = modulated_layer_norm(x_pre, scale_msa2, shift_msa2)
-            x = x + gate_msa2[:, None] * self.attn2(x_mod2)
+            x = x + gate_msa2[:, None] * self.attn2(x_mod2, saved)
 
         h = modulated_layer_norm(x, scale_mlp, shift_mlp)
         x = x + gate_mlp[:, None] * self.ff(h)
@@ -347,6 +354,8 @@ class MMDiT(nn.Module):
 
     def __init__(self, cfg: MMDiTConfig, device=None):
         super().__init__()
+        if cfg.remat:
+            check_policy(cfg.remat_policy)
         self.cfg = cfg
         dim, dt = cfg.hidden_dim, cfg.dtype
         self.pos_embed = PatchEmbed(cfg, device)
@@ -370,7 +379,8 @@ class MMDiT(nn.Module):
         temb = self.time_text_embed(timestep, pooled_projections)
         ctx = self.context_embedder(encoder_hidden_states.to(c.dtype))
         for block in self.transformer_blocks:
-            x, ctx = block(x, ctx, temb, lora_scale)
+            x, ctx = run_block(block, x, ctx, temb, lora_scale, remat=c.remat,
+                               policy=c.remat_policy)
         # output head: AdaLayerNormContinuous (chunk order [scale, shift])
         oscale, oshift = self.norm_out(temb)
         x = self.proj_out(modulated_layer_norm(x, oscale, oshift))

@@ -26,9 +26,10 @@ size), the tables, norm weights and LoRA factors fp32. The LayerNorms, the
 RMS norms and both attentions go through ``adv_grpo_torch.ops`` (hand-written
 kernels on the card, plain versions on the CPU). The JAX model pads the
 sequence to a multiple of 128 and masks the padded keys; the kernels mask
-ragged tiles themselves, so nothing is padded here. The JAX config's
-TPU-only fields (``remat``, ``attention_backend``, ``fused_qkv``) have no
-counterpart.
+ragged tiles themselves, so nothing is padded here. Each block is
+checkpointed in a training forward as the JAX model remats it (``remat``,
+the whole block recomputed; ``models/remat.py``). The JAX config's
+``attention_backend`` and ``fused_qkv`` have no counterpart.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from adv_grpo_torch.models.flux import apply_rope_bshd, rope_freqs
 from adv_grpo_torch.models.lora import LoRALinear, fused_qkv_proj
 from adv_grpo_torch.models.mmdit import FeedForward, HeadRMSNorm, _EmbedMLP, \
     sincos_timestep_embedding
+from adv_grpo_torch.models.remat import run_block
 from adv_grpo_torch.ops.attention import mha_bshd
 from adv_grpo_torch.ops.fused_norms import layer_norm, modulated_layer_norm, rms_norm_heads
 
@@ -69,6 +71,7 @@ class WanConfig:
     dtype: Any = torch.bfloat16
     lora_rank: int = 0
     lora_alpha: float = 1.0
+    remat: bool = True  # checkpoint each block in a training forward
 
     @property
     def hidden_dim(self) -> int:
@@ -82,7 +85,7 @@ class WanConfig:
     def tiny(cls, **overrides) -> "WanConfig":
         defaults = dict(num_layers=2, attention_head_dim=16, num_attention_heads=2,
                         text_dim=32, ffn_dim=64, rope_axes_dims=(8, 4, 4),
-                        dtype=torch.float32)
+                        dtype=torch.float32, remat=False)
         defaults.update(overrides)
         return cls(**defaults)
 
@@ -245,7 +248,7 @@ class WanTransformer(nn.Module):
         temb6 = ce.time_proj(F.silu(t_emb)).chunk(6, dim=-1)
         cos, sin = self.rope(f, gh, gw, latents.device)
         for block in self.blocks:
-            x = block(x, text, temb6, cos, sin, lora_scale)
+            x = run_block(block, x, text, temb6, cos, sin, lora_scale, remat=c.remat)
 
         # the output rows add the time embedding itself (diffusers
         # WanTransformer3DModel), in the compute dtype

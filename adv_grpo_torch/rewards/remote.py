@@ -25,9 +25,12 @@ backoff_factor=1, status_forcelist=[500], allowed_methods=False)``): a
 status 500 (and a 413 / 429 / 503 that carries ``Retry-After``) and a
 connection or read error are retried, for POST too, up to ``max_retries``
 times; before the n-th retry of a run of failures it sleeps the response's
-``Retry-After`` where it has one, else 0 for n = 1 and ``backoff ·
-2^(n-1)`` s, at most 120 s, after (``Retry.get_backoff_time``). Then it
-raises. The body goes out as given (``data=``) or as ``requests`` writes a
+``Retry-After`` (its name in any case) where it has one, else 0 for n = 1
+and ``backoff · 2^(n-1)`` s, at most 120 s, after
+(``Retry.get_backoff_time``). Then it raises. The policy holds for
+``https://`` judges too, as the JAX module docstring says of every client;
+the JAX ``_session`` mounts it on ``http://`` only (:60), so there an
+``https://`` judge gets ``requests``' default of no retries. The body goes out as given (``data=``) or as ``requests`` writes a
 ``json=`` body (``json.dumps(allow_nan=False)``, UTF-8), so a judge
 receives the JAX clients' bytes. Images arrive as (N, H, W, 3) uint8 (the
 registry's host copy).
@@ -42,7 +45,7 @@ import json as jsonlib
 import re
 import time
 import urllib.parse
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 
@@ -77,7 +80,8 @@ class Response:
     """What :meth:`HTTPSession.post` returns: ``status_code``, ``headers``,
     ``content`` (bytes), ``json()`` and ``raise_for_status()``."""
 
-    def __init__(self, url: str, status_code: int, headers: Dict[str, str], content: bytes):
+    def __init__(self, url: str, status_code: int, headers: Mapping[str, str],
+                 content: bytes):
         self.url, self.status_code, self.headers, self.content = (url, status_code, headers,
                                                                   content)
 
@@ -120,7 +124,8 @@ class HTTPSession:
             path = (parts.path or "/") + (f"?{parts.query}" if parts.query else "")
             conn.request("POST", path, body=body, headers=headers)
             resp = conn.getresponse()
-            return Response(url, resp.status, dict(resp.getheaders()), resp.read())
+            # resp.msg looks header names up case-insensitively, as requests does
+            return Response(url, resp.status, resp.msg, resp.read())
         finally:
             conn.close()
 

@@ -70,7 +70,7 @@ class FluxPipeline:
     def from_pretrained(cls, model_dir: str, *, vae_dir: Optional[str] = None,
                         lora_rank: int = 0, lora_alpha: float = 1.0, dtype=torch.bfloat16,
                         text_seq_len: int = 512, guidance: float = 3.5, latent_hw: int = 64,
-                        device="cuda"):
+                        device="cuda", remat=True):
         """The transformer of a local diffusers ``FluxTransformer2DModel``
         directory (``models.convert.load_flux_transformer``) and the Flux
         ``AutoencoderKL`` of ``vae_dir``, by default ``<model_dir>/../vae``
@@ -82,7 +82,8 @@ class FluxPipeline:
 
         device = torch.device(device)
         cfg, transformer = convert.load_flux_transformer(
-            model_dir, dtype=dtype, lora_rank=lora_rank, lora_alpha=lora_alpha, device=device)
+            model_dir, dtype=dtype, lora_rank=lora_rank, lora_alpha=lora_alpha, device=device,
+            remat=remat)
         vae_dir = vae_dir or os.path.join(os.path.dirname(os.path.normpath(model_dir)), "vae")
         vae_cfg, vae = convert.load_vae(vae_dir, base=VAEConfig.flux(), device=device)
         return cls(cfg, vae_cfg, transformer, vae, device, text_seq_len=text_seq_len,

@@ -73,13 +73,15 @@ class SD3Pipeline:
 
     @classmethod
     def from_pretrained(cls, model_dir: str, *, lora_rank: int = 0, lora_alpha: float = 1.0,
-                        dtype=torch.bfloat16, device="cuda"):
+                        dtype=torch.bfloat16, device="cuda", remat=True,
+                        remat_policy="save_attn"):
         """The pipeline of a local diffusers-layout SD3 directory (see
         ``models.convert.load_sd3_pipeline``)."""
         from adv_grpo_torch.models import convert
 
         return convert.load_sd3_pipeline(model_dir, lora_rank=lora_rank, lora_alpha=lora_alpha,
-                                         dtype=dtype, device=device)
+                                         dtype=dtype, device=device, remat=remat,
+                                         remat_policy=remat_policy)
 
     @property
     def transformer(self) -> MMDiT:

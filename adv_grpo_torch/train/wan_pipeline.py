@@ -65,7 +65,7 @@ class WanPipeline:
     def from_pretrained(cls, model_dir: str, *, vae_dir: Optional[str] = None,
                         lora_rank: int = 0, lora_alpha: float = 1.0, dtype=torch.bfloat16,
                         latent_frames: int = 21, text_seq_len: int = 512, shift: float = 3.0,
-                        latent_hw: int = 8, device="cuda"):
+                        latent_hw: int = 8, device="cuda", remat=True):
         """The transformer of a local diffusers ``WanTransformer3DModel``
         directory (``models.convert.load_wan_transformer``) and the
         ``AutoencoderKLWan`` of ``vae_dir``, by default ``<model_dir>/../vae``
@@ -77,7 +77,8 @@ class WanPipeline:
 
         device = torch.device(device)
         cfg, transformer = convert.load_wan_transformer(
-            model_dir, dtype=dtype, lora_rank=lora_rank, lora_alpha=lora_alpha, device=device)
+            model_dir, dtype=dtype, lora_rank=lora_rank, lora_alpha=lora_alpha, device=device,
+            remat=remat)
         vae_dir = vae_dir or os.path.join(os.path.dirname(os.path.normpath(model_dir)), "vae")
         vae_cfg, vae = convert.load_wan_vae(vae_dir, device=device)
         return cls(cfg, vae_cfg, transformer, vae, device, text_seq_len=text_seq_len,

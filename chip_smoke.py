@@ -142,7 +142,12 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      twin's and the SDPA backward's;
  13. a 1-double + 1-single block Flux.1-dev at full width on the card (bf16,
      kernels) against the same weights on the CPU (fp32, plain versions):
-     the output, then the LoRA gradients through a fixed cotangent;
+     the output, then the LoRA gradients through a fixed cotangent, with
+     remat off (three runs) and on (``_check_remat_grads``: within 5e-2 of
+     fp32; with remat, every block's recompute bitwise its forward, and the
+     gradients within REMAT_GRAD_SPREAD or twice the plain runs' spread of
+     the nearest plain run; so for the MMDiT of phase 5, at remat "full"
+     and "save_attn", and the WAN of phase 17);
  14. ``adv_grpo_torch.cli.infer.generate`` on a full-width Flux.1-dev
      pipeline (random weights from the seed) at 512^2, 28 steps, guidance
      3.5: launch counts exactly 115/152/19/38 per forward times 28 steps,
@@ -151,15 +156,23 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      TFLOP/s, its device kernel time by group (torch.profiler) and busy
      share, peak device memory;
  15. ``GRPOTrainer`` on a full-width Flux.1-dev pipeline (LoRA r=32, random
-     weights from the seed) for 2 epochs of ``flux_smoke`` at 512^2
-     (FLUX_TRAIN_OVERRIDES: 8-step full-SDE rollouts of 4 images, 2 window
+     weights from the seed) for FAMILY_EPOCHS epoch(s) of ``flux_smoke`` at
+     512^2 (FLUX_TRAIN_OVERRIDES: 8-step full-SDE rollouts of 4 images, 2 window
      steps, one row per microstep, 16 microsteps per epoch, EMA every 2
      steps, the jpeg_compressibility reward): finite metrics, every LoRA
      factor and its EMA moved, the launch counts of all six Flux kernels
-     exactly as derived from the config (7,360 / 9,728 / 1,216 / 2,432
-     forwards, 608 / 1,216 backwards); seconds per epoch (rollout + decode,
-     exposed reward, train), per microstep, peak device memory, and one
-     microstep's device time by kernel group (torch.profiler);
+     exactly as derived from the config (the forwards of the rollouts and
+     replays and, under remat, of the blocks' recompute; 304 / 608
+     backwards an epoch); seconds per epoch (rollout + decode, exposed reward,
+     train), per microstep, peak device memory, one microstep's device time
+     by kernel group (torch.profiler), and its ms and peak memory with remat
+     off and on (``_remat_on_off``; so for the SD3 training of phase 10, at
+     "full" and "save_attn", and the WAN training of phase 19); then Flux.1-dev
+     at its published 1024^2 (``run_flux_1024_slice``): #2 / #4 at d = 128
+     and #8 / #9 at 4,096 + 512 tokens against their plain twins, timed
+     beside SDPA and their bounds, and one epoch of the same run at 1024^2
+     with remat on (launch counts as derived, finite metrics, LoRA and EMA
+     moved, each ``time/*`` phase, peak memory, one traced microstep);
  16. the WAN kernels against their plain versions at the Wan2.1-T2V-1.3B
      shapes of 33 frames of 480^2 (8,100 video tokens, 512 text tokens, 12
      heads of 128, width 1536): the no-affine LayerNorm (#6, B = 1 and 2,
@@ -178,8 +191,8 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      time and achieved TFLOP/s, its device time by kernel group and busy
      share, peak memory; then a 3-step run with the per-step KL (non-zero
      LoRA B): the KL finite and positive, two forwards per step;
- 19. ``GRPOTrainer`` on a full-width Wan2.1-T2V-1.3B pipeline for 2 epochs
-     of ``wan_smoke`` (WAN_TRAIN_OVERRIDES: 33 frames of 480^2, 8-step
+ 19. ``GRPOTrainer`` on a full-width Wan2.1-T2V-1.3B pipeline for
+     FAMILY_EPOCHS epoch(s) of ``wan_smoke`` (WAN_TRAIN_OVERRIDES: 33 frames of 480^2, 8-step
      rollouts of one 2-video group per sampling batch, 2 window steps, one
      row per microstep): finite metrics, every LoRA factor and its EMA
      moved, the launch counts of the four WAN kernels and the BSHD backward
@@ -222,7 +235,10 @@ lines; ``--checkpoint`` the checkpoint phase (``run_checkpoint_slice``),
 rewards phase (``run_prefix_image_slice``), ``--eval-tooling`` the
 evaluation and preparation tools (``run_eval_tooling_slice``) and
 ``--remaining-rewards`` the last rewards (``run_remaining_rewards_slice``)
-the same way. ``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
+the same way. ``--flux-1024 [--set key=value ...]`` runs the Flux.1-dev
+1024^2 phase alone (no process group), its config overridden as the CLIs'
+``--set`` does (``--set tpu.remat=False``: the run without remat).
+``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
 joint forwards #2 / #3 (JOINT_CASES: SD3.5-M at CFG batch 2 and 8, Flux.1-dev
 at B = 1 and 4) of the checkout at PARENT (an older tree) against this one's,
 in PAIRS alternating pairs of processes, with each side's error on the same
@@ -248,6 +264,7 @@ CUDA device is visible or when run outside a checkout of the repository.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -270,6 +287,9 @@ INFER_ARGV = ["--config", "eval_sd3_fast", "--prompts", "a flower", "--set", "pr
 # lets the EMA move within the run's 4 optimizer steps (the preset's 8 would
 # first move it at step 8).
 EPOCHS = 2
+# the Flux 512^2 and WAN training phases: one epoch each (cut from two for
+# the whole script's time when the 1024^2 phase came)
+FAMILY_EPOCHS = 1
 TRAIN_ARGV = ["--config", "smoke_sd3_fast", "--set", "smoke_test=False",
               "--set", "sample.num_steps=10", "--set", "sample.train_batch_size=2",
               "--max_epochs", str(EPOCHS), "--set", "train.ema_interval=2",
@@ -277,7 +297,7 @@ TRAIN_ARGV = ["--config", "smoke_sd3_fast", "--set", "smoke_test=False",
 # the Flux training slice: flux_smoke at full Flux.1-dev width and 512^2,
 # 8-step full-SDE rollouts of one 4-image group per sampling batch, 2 batches
 # and 2 window steps per epoch, one row per microstep (micro_splits 4), EMA
-# every 2 of the run's 4 optimizer steps; 2 epochs
+# every 2 optimizer steps (2 an epoch); FAMILY_EPOCHS epochs
 FLUX_TRAIN_OVERRIDES = ["resolution=512", "sample.num_steps=8", "sample.train_num_steps=2",
                         "sample.train_batch_size=1", "sample.num_image_per_prompt=4",
                         "sample.mini_num_image_per_prompt=4", "sample.num_batches_per_epoch=2",
@@ -288,7 +308,8 @@ FLUX_TRAIN_OVERRIDES = ["resolution=512", "sample.num_steps=8", "sample.train_nu
 # UniPC steps, shift 3. Training: wan_smoke at that size, rollouts cut to 8
 # steps for the run's time, one 2-video group per sampling batch, 2 batches
 # and 2 window steps per epoch, one row per microstep (micro_splits 2: 8
-# microsteps, 2 optimizer steps per epoch), EMA every 2 of the run's 4 steps
+# microsteps, 2 optimizer steps per epoch), EMA every 2 steps; FAMILY_EPOCHS
+# epochs
 WAN_STEPS = 50
 # #8's max abs error (output and lse) at WAN's self and cross shapes as
 # recorded (PERF.md §6, at its precision) when the BSHD forward still
@@ -443,6 +464,18 @@ def per_forward_counts(mcfg):
     block but the last (context_pre_only); then the output norm."""
     n, dual = mcfg.num_layers, len(mcfg.dual_attention_layers)
     return 3 * n + dual + (n - 1) + 1, n, dual
+
+
+def per_recompute_counts(mcfg):
+    """Launches of the blocks' recompute in one MMDiT backward
+    (``models/remat.py``): under remat "full" every block's forward kernels
+    again (a forward's, but the output norm); under "save_attn" the
+    modulated LNs alone (the attention outputs are kept); none without
+    remat."""
+    if not mcfg.remat:
+        return 0, 0, 0
+    ln, joint, single = per_forward_counts(mcfg)
+    return (ln - 1, joint, single) if mcfg.remat_policy == "full" else (ln - 1, 0, 0)
 
 
 def per_backward_counts(mcfg):
@@ -934,28 +967,130 @@ def check_model():
     return cpu, gpu, (lat, t, ctx, pooled), g
 
 
-def check_model_grads(cpu, gpu, inputs, g, what="2-layer full-width MMDiT"):
-    """Phase: LoRA gradients of the same 2-layer full-width model (the MMDiT,
-    or the WAN; non-zero LoRA B) on the card (bf16, forward and backward
-    kernels) and on the CPU (fp32, plain versions), through one fixed
-    cotangent. Bound: relative L2 5e-2 of the concatenated LoRA gradients,
-    the forward's bf16 budget."""
+def _lora_grads(model, call, cot):
+    """The concatenated fp32 LoRA gradients of ``call(model)`` through the
+    cotangent ``cot``, on the CPU."""
     import torch
 
     from adv_grpo_torch.models.lora import freeze_non_lora
 
+    lora = freeze_non_lora(model)
+    out = call(model)
+    gs = torch.autograd.grad(out.float(), list(lora.values()), cot.to(out.device))
+    return torch.cat([x.float().flatten().cpu() for x in gs])
+
+
+# the LoRA gradients of a 2-layer full-width model with remat against those
+# without, on the card: identical runs without remat differ by up to a few
+# 1e-4 relative L2 on an H100 80GB HBM3 at 700 W, in bursts (the backward
+# kernels' fp32 reduce-adds are unordered, and a flipped bf16 rounding of dq
+# moves a row; other pairs read 0 or 1e-6), so the gap to the nearest plain
+# run is bounded by the larger of this and twice the plain runs' own spread;
+# the recompute itself is held bit for bit (``_recompute_matches``)
+REMAT_GRAD_SPREAD = 1e-3
+
+
+def _blocks(model):
+    """The checkpointed blocks of an MMDiT, Flux or WAN transformer."""
+    return [b for name in ("transformer_blocks", "single_transformer_blocks", "blocks")
+            for b in getattr(model, name, ())]
+
+
+def _recompute_matches(model, fn):
+    """Run ``fn()`` (a forward and backward with remat on) with every
+    block's calls recorded and the recompute's early stop off: each block
+    runs twice, the forward and its recompute in the backward. Returns the
+    blocks whose two calls' outputs are not bitwise equal (or that did not
+    run twice)."""
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    calls = {}
+    for i, block in enumerate(_blocks(model)):
+        forward = block.forward
+
+        def recorded(*a, _i=i, _forward=forward, **kw):
+            out = _forward(*a, **kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            calls.setdefault(_i, []).append([None if o is None else o.detach().clone()
+                                             for o in outs])
+            return out
+        block.forward = recorded
+    try:
+        with set_checkpoint_early_stop(False):
+            fn()
+    finally:
+        for block in _blocks(model):
+            del block.forward
+    return [i for i in range(len(_blocks(model)))
+            if len(calls.get(i, ())) != 2 or not all(
+                (x is None and y is None) or (x is not None and y is not None and x.equal(y))
+                for x, y in zip(*calls[i]))]
+
+
+def _check_remat_grads(what, model, grads_of, ref):
+    """The LoRA gradients ``grads_of(model)`` on the card with remat off,
+    three times, and on (the MMDiT at both ported policies): each within
+    5e-2 of the fp32 CPU gradients ``ref`` (the forward's bf16 budget); with
+    remat, every block's recompute bitwise its first forward
+    (``_recompute_matches``), and the gradients within the larger of
+    REMAT_GRAD_SPREAD and twice the plain runs' spread of the nearest plain
+    run."""
+    import dataclasses
+    import itertools
+
+    import torch
+
+    base = model.cfg
+    remat = ([(p, dict(remat=True, remat_policy=p)) for p in ("full", "save_attn")]
+             if hasattr(base, "remat_policy") else [("full", dict(remat=True))])
+    plain, got, mismatched = [], {}, {}
+    try:
+        model.cfg = dataclasses.replace(base, remat=False)
+        plain = [grads_of(model) for _ in range(3)]
+        for name, kw in remat:
+            model.cfg = dataclasses.replace(base, **kw)
+            mismatched[name] = _recompute_matches(
+                model, lambda n=name: got.__setitem__(n, grads_of(model)))
+    finally:
+        model.cfg = base
+    spread = max(_rel_l2(x, y) for x, y in itertools.combinations(plain, 2))
+    bound = max(REMAT_GRAD_SPREAD, 2 * spread)
+    bad = []
+    for i, gr in enumerate(plain):
+        fp32 = _rel_l2(gr, ref)
+        print(f"model gradients: {what}, remat off (run {i + 1} of 3): LoRA gradients card bf16 "
+              f"vs CPU fp32 relative L2 {fp32:.3e} over {ref.numel()} values (bound 5e-2)",
+              flush=True)
+        if not (torch.isfinite(gr).all() and fp32 <= 5e-2):
+            bad.append(f"off {i + 1}")
+    for name, gr in got.items():
+        fp32 = _rel_l2(gr, ref)
+        gap = min(_rel_l2(gr, x) for x in plain)
+        print(f"model gradients: {what}, remat {name}: LoRA gradients card bf16 vs CPU fp32 "
+              f"relative L2 {fp32:.3e} (bound 5e-2); vs the nearest plain run {gap:.3e} (bound "
+              f"{bound:.1e}: the plain runs' spread {spread:.3e}); blocks whose recompute is "
+              f"not bitwise their forward: {mismatched[name]} of {len(_blocks(model))}",
+              flush=True)
+        if not (torch.isfinite(gr).all() and fp32 <= 5e-2 and gap <= bound
+                and not mismatched[name]):
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"{what}: card LoRA gradients out of bounds: {bad}")
+
+
+def check_model_grads(cpu, gpu, inputs, g, what="2-layer full-width MMDiT"):
+    """Phase: LoRA gradients of the same 2-layer full-width model (the MMDiT,
+    or the WAN; non-zero LoRA B) on the card (bf16, forward and backward
+    kernels) and on the CPU (fp32, plain versions), through one fixed
+    cotangent, with remat off and on (``_check_remat_grads``)."""
+    import torch
+
     cot = torch.randn(inputs[0].shape, generator=g)
-    grads = []
-    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
-        lora = freeze_non_lora(model)
-        out = model(*(a.to(dev) for a in inputs))
-        gs = torch.autograd.grad(out.float(), list(lora.values()), cot.to(dev))
-        grads.append(torch.cat([x.float().flatten().cpu() for x in gs]))
-    rel = _rel_l2(grads[1], grads[0])
-    print(f"model gradients: {what}, LoRA gradients card bf16 vs CPU fp32 relative L2 "
-          f"{rel:.3e} over {grads[0].numel()} values (bound 5e-2)", flush=True)
-    if not (torch.isfinite(grads[1]).all() and rel <= 5e-2):
-        raise AssertionError(f"card LoRA gradients disagree with the CPU's: {rel}")
+
+    def grads_of(dev):
+        return lambda model: _lora_grads(model, lambda m: m(*(a.to(dev) for a in inputs)), cot)
+
+    _check_remat_grads(what, gpu, grads_of("cuda"), grads_of("cpu")(cpu))
 
 
 def run_pipeline():
@@ -1032,10 +1167,11 @@ def expected_train_counts(config, mcfg, epochs=EPOCHS, g_epochs=None):
     """Launches of the 5 kernels in ``epochs`` epochs of a training run, from
     the config: rollout forwards (one CFG-batched forward per step), and in
     the ``g_epochs`` of them that take the GRPO update (all by default; a
-    D-epoch runs only its rollouts) the replay forwards and their backwards
-    (one per microbatch, two with cfg_sequential; with ``train.beta`` > 0 a
-    LoRA-off replay forward more per microbatch); and the microsteps of one
-    G epoch."""
+    D-epoch runs only its rollouts) the replay forwards, their blocks'
+    recompute (``per_recompute_counts``) and their backwards (one per
+    microbatch, two with cfg_sequential; with ``train.beta`` > 0 a LoRA-off
+    replay forward more per microbatch, under no_grad: no recompute); and
+    the microsteps of one G epoch."""
     s, t = config.sample, config.train
     g_epochs = epochs if g_epochs is None else g_epochs
     per_epoch = (max(int(t.num_inner_epochs), 1) * int(s.num_batches_per_epoch)
@@ -1045,11 +1181,45 @@ def expected_train_counts(config, mcfg, epochs=EPOCHS, g_epochs=None):
     # more with the LoRA off, forward only
     fwd = (epochs * int(s.num_batches_per_epoch) * int(s.num_steps)
            + replay * (2 if float(t.beta) > 0 else 1))
-    return ([c * fwd for c in per_forward_counts(mcfg)]
+    return ([f * fwd + r * replay
+             for f, r in zip(per_forward_counts(mcfg), per_recompute_counts(mcfg))]
             + [c * replay for c in per_backward_counts(mcfg)]), per_epoch
 
 
-def run_training_slice(kernels):
+def _remat_on_off(what, model, epoch, n_micro, smi):
+    """``epoch()`` (``n_micro`` microsteps of the trainer's epoch, run once
+    before as a warm-up) with remat off and on (the MMDiT at both ported
+    policies), in turns there and back (off, on, ..., on, off): each
+    variant's ms per microstep (CUDA events, each turn's and their mean)
+    and peak device memory, the model's weights, the optimizer's state and
+    the epoch's inputs included. Leaves the model's configuration as it
+    was."""
+    import dataclasses
+
+    import torch
+
+    base = model.cfg
+    variants = [("off", dict(remat=False))] + (
+        [(p, dict(remat=True, remat_policy=p)) for p in ("full", "save_attn")]
+        if hasattr(base, "remat_policy") else [("on", dict(remat=True))])
+    turns, peaks = {}, {}
+    try:
+        for name, kw in variants + variants[::-1]:
+            model.cfg = dataclasses.replace(base, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            turns.setdefault(name, []).append(_median_ms(epoch, iters=1, warmup=0) / n_micro)
+            peaks[name] = max(peaks.get(name, 0.0), torch.cuda.max_memory_allocated() / 2**30)
+    finally:
+        model.cfg = base
+    for name, _ in variants:
+        ms = turns[name]
+        print(f"  {what}, remat {name}: {sum(ms) / len(ms):.1f} ms per microstep (CUDA events; "
+              f"turns {', '.join(f'{t:.1f}' for t in ms)}), peak device memory "
+              f"{peaks[name]:.2f} GiB; {smi}", flush=True)
+
+
+def run_training_slice(kernels, smi):
     """Phase: ``adv_grpo_torch.cli.train.main`` on TRAIN_ARGV (full width,
     random weights from the seed); returns the kernels' launch counts. Then
     the last inner epoch's microsteps again on the trained state, traced:
@@ -1149,6 +1319,8 @@ def run_training_slice(kernels):
     for grp, (calls, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
         print(f"    {grp}: {ms / n_micro:.2f} ms, {calls / n_micro:.0f} launches per microstep",
               flush=True)
+    _remat_on_off(f"smoke_sd3_fast microstep ({batched['latents'].shape[1]} rows)",
+                  trainer.pipeline.mmdit, epoch, n_micro, smi)
     return counts
 
 
@@ -2092,8 +2264,9 @@ class JudgeFixture:
     ``/deqa`` and ``/unifiedreward`` (the pickle ``outputs``),
     ``/v1/chat/completions`` (sglang's JSON, ``Final Score: X``), and
     ``/flaky``, which answers 500 to its first ``fail`` requests, then as
-    ``/deqa``; any other path 404. The answers are functions of the request (the JPEG / PNG
-    sizes, the prompts), so a client that mixes requests up scores
+    ``/deqa``, and ``/busy``, which answers them 503 with a lower-case
+    ``retry-after: 1`` header; any other path 404. The answers are
+    functions of the request (the JPEG / PNG sizes, the prompts), so a client that mixes requests up scores
     otherwise. ``with JudgeFixture() as judge:`` serves until the block
     ends; ``judge.url``."""
 
@@ -2113,6 +2286,8 @@ class JudgeFixture:
                 fixture.requests.append((self.path, dict(self.headers), body))
                 status, out, kind = fixture.answer(self.path, body)
                 self.send_response(status)
+                if status == 503:
+                    self.send_header("retry-after", "1")
                 self.send_header("Content-Type", kind)
                 self.send_header("Content-Length", str(len(out)))
                 self.end_headers()
@@ -2131,9 +2306,9 @@ class JudgeFixture:
             text = f"The image is fine.\nFinal Score: {1 + len(url) % 4}.{len(url) % 10}"
             return 200, json.dumps({"choices": [{"message": {"content": text}}]}).encode(), \
                 "application/json"
-        if path == "/flaky" and sum(p == "/flaky" for p, _, _ in self.requests) <= self.fail:
-            return 500, b"busy", "text/plain"
-        if path not in ("/geneval", "/deqa", "/unifiedreward", "/flaky"):
+        if path in ("/flaky", "/busy") and sum(p == path for p, _, _ in self.requests) <= self.fail:
+            return (500 if path == "/flaky" else 503), b"busy", "text/plain"
+        if path not in ("/geneval", "/deqa", "/unifiedreward", "/flaky", "/busy"):
             return 404, b"not found", "text/plain"
         req = pickle.loads(body)
         sizes = [len(j) for j in req["images"]]
@@ -2146,7 +2321,7 @@ class JudgeFixture:
                        t: [1.0 - v for v in vals] for t, vals in groups.items()}}
         elif path == "/unifiedreward":
             out = {"outputs": [n % 5 + len(p) % 3 for n, p in zip(sizes, req["prompts"])]}
-        else:  # /deqa, /flaky
+        else:  # /deqa, /flaky, /busy
             out = {"outputs": [n % 13 / 13 for n in sizes]}
         return 200, pickle.dumps(out), "application/octet-stream"
 
@@ -3042,6 +3217,16 @@ def flux_per_forward_counts(fcfg):
     return 4 * n2 + n1 + 1, 4 * n2 + 2 * n1, n2, n1
 
 
+def flux_per_recompute_counts(fcfg):
+    """Launches of the blocks' recompute in one Flux backward under remat
+    (every block's forward kernels again, ``models/remat.py``): a forward's
+    but the output head's LN; none without remat."""
+    if not fcfg.remat:
+        return 0, 0, 0, 0
+    ln, rms, joint, bshd = flux_per_forward_counts(fcfg)
+    return ln - 1, rms, joint, bshd
+
+
 def check_flux_kernels():
     """Phase: the Flux kernels against their plain versions at the
     Flux.1-dev 512^2 shapes (1024 image + 512 text tokens, 24 heads of 128,
@@ -3288,27 +3473,20 @@ def check_flux_model_grads(cpu, gpu, inputs, g):
     """Phase: LoRA gradients of the same 1-double + 1-single full-width Flux
     (non-zero LoRA B) on the card (bf16, forward and backward kernels: the
     joint backward at d = 128 and the BSHD backward) and on the CPU (fp32,
-    plain versions), through one fixed cotangent. Bound: relative L2 5e-2 of
-    the concatenated LoRA gradients, the forward's bf16 budget."""
+    plain versions), through one fixed cotangent, with remat off and on
+    (``_check_remat_grads``)."""
     import torch
-
-    from adv_grpo_torch.models.lora import freeze_non_lora
 
     lat, t, ctx, pooled, guidance, ids = inputs
     cot = torch.randn(lat.shape, generator=g)
-    grads = []
-    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
-        lora = freeze_non_lora(model)
-        out = model(*(a.to(dev) for a in (lat, t, ctx, pooled)), *ids,
-                    guidance=guidance.to(dev))
-        gs = torch.autograd.grad(out.float(), list(lora.values()), cot.to(dev))
-        grads.append(torch.cat([x.float().flatten().cpu() for x in gs]))
-    rel = _rel_l2(grads[1], grads[0])
-    print(f"model gradients: 1-double + 1-single full-width Flux.1-dev, LoRA gradients card "
-          f"bf16 vs CPU fp32 relative L2 {rel:.3e} over {grads[0].numel()} values (bound 5e-2)",
-          flush=True)
-    if not (torch.isfinite(grads[1]).all() and rel <= 5e-2):
-        raise AssertionError(f"card Flux LoRA gradients disagree with the CPU's: {rel}")
+
+    def grads_of(dev):
+        return lambda model: _lora_grads(
+            model, lambda m: m(*(a.to(dev) for a in (lat, t, ctx, pooled)), *ids,
+                               guidance=guidance.to(dev)), cot)
+
+    _check_remat_grads("1-double + 1-single full-width Flux.1-dev", gpu, grads_of("cuda"),
+                       grads_of("cpu")(cpu))
 
 
 _KERNEL_GROUPS = (  # (group, substrings of the kernel name), first match wins
@@ -3452,25 +3630,31 @@ def run_flux_inference(kernels):
     return counts
 
 
-def expected_flux_train_counts(config, fcfg, epochs=EPOCHS):
+def expected_flux_train_counts(config, fcfg, epochs=FAMILY_EPOCHS):
     """Launches of the 6 Flux kernels in ``epochs`` epochs of the
     FLUX_TRAIN_OVERRIDES run, from the config: rollout forwards (one per step
-    of each sampling batch) and replay forwards (one per microstep), then the
-    backwards (one per microstep: every joint and BSHD attention, all of
-    which a LoRA factor reaches)."""
+    of each sampling batch), replay forwards and their blocks' recompute (one
+    per microstep), then the backwards (one per microstep: every joint and
+    BSHD attention, all of which a LoRA factor reaches)."""
     s, t = config.sample, config.train
     micro = (epochs * max(int(t.num_inner_epochs), 1) * int(s.num_batches_per_epoch)
              * max(int(t.micro_splits), 1) * int(s.train_num_steps))
     fwd = epochs * int(s.num_batches_per_epoch) * int(s.num_steps) + micro
-    return ([c * fwd for c in flux_per_forward_counts(fcfg)]
+    return ([f * fwd + r * micro
+             for f, r in zip(flux_per_forward_counts(fcfg), flux_per_recompute_counts(fcfg))]
             + [fcfg.num_double_layers * micro, fcfg.num_single_layers * micro]), micro // epochs
 
 
-def run_flux_training(kernels):
+def run_flux_training(kernels, smi, resolution=512, epochs=FAMILY_EPOCHS, overrides=()):
     """Phase: ``GRPOTrainer`` on a full-width Flux.1-dev pipeline (random
-    weights from the seed, LoRA rank and alpha of ``flux_smoke``) for EPOCHS
-    epochs of ``flux_smoke`` with FLUX_TRAIN_OVERRIDES; returns the kernels'
-    launch counts."""
+    weights from the seed, LoRA rank and alpha of ``flux_smoke``, remat from
+    ``tpu.remat``) for ``epochs`` epochs of ``flux_smoke`` with
+    FLUX_TRAIN_OVERRIDES at ``resolution``^2 and ``overrides``: launch
+    counts exactly as derived, finite metrics, every LoRA factor and its EMA
+    moved; each epoch's ``time/*`` phases, peak device memory, one traced
+    microstep's kernel groups and busy share, and the microstep with remat
+    off and on. An out-of-memory error prints the peak
+    it reached, then fails the phase. Returns the kernels' launch counts."""
     import numpy as np
     import torch
 
@@ -3484,17 +3668,24 @@ def run_flux_training(kernels):
     from adv_grpo_torch.train.driver import GRPOTrainer
     from adv_grpo_torch.train.flux_pipeline import FluxPipeline
 
-    config = apply_overrides(resolve_config("flux_smoke"), FLUX_TRAIN_OVERRIDES)
+    config = apply_overrides(resolve_config("flux_smoke"),
+                             FLUX_TRAIN_OVERRIDES + [f"resolution={resolution}", *overrides])
     latent_hw = int(config.resolution) // 8
+    s_img = (latent_hw // 2) ** 2
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fcfg = FluxConfig.dev(lora_rank=int(config.train.lora_rank),
-                          lora_alpha=float(config.train.lora_alpha))
+                          lora_alpha=float(config.train.lora_alpha),
+                          remat=bool(config.tpu.remat))
     pipeline = FluxPipeline.random_init(
         torch.Generator(device="cuda").manual_seed(SEED), fcfg, VAEConfig.flux(), "cuda",
         latent_hw=latent_hw, text_seq_len=512, guidance=float(config.sample.guidance_scale))
     start = {k: p.detach().clone() for k, p in lora_params(pipeline.transformer).items()}
     encode = build_text_encoder(config, pipeline)
+    what = (f"GRPOTrainer flux_smoke full-width Flux.1-dev {resolution}^2 ({s_img} image + 512 "
+            f"text tokens), remat {fcfg.remat}, {config.sample.num_steps}-step rollouts of 4 "
+            f"images, {epochs} epoch(s)")
     with tempfile.TemporaryDirectory() as save_dir:
         config.save_dir = save_dir
         trainer = GRPOTrainer(config, pipeline, TextPromptDataset(str(config.dataset), "train"),
@@ -3502,32 +3693,39 @@ def run_flux_training(kernels):
         for k in kernels:
             k.launches = 0
         t0 = time.perf_counter()
-        trainer.run(max_epochs=EPOCHS)
+        try:
+            trainer.run(max_epochs=epochs)
+        except torch.OutOfMemoryError as e:
+            print(f"{what}: out of device memory after {time.perf_counter() - t0:.2f} s, peak "
+                  f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                  f"({str(e).splitlines()[0]}); {smi}", flush=True)
+            raise
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = [k.launches for k in kernels]
         peak = torch.cuda.max_memory_allocated()
         with open(os.path.join(save_dir, "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
-    want, micro = expected_flux_train_counts(config, fcfg)
-    print(f"GRPOTrainer flux_smoke full-width Flux.1-dev 512^2, {config.sample.num_steps}-step "
-          f"rollouts of 4 images, {EPOCHS} epochs: {wall:.2f} s wall; peak device memory "
-          f"{peak / 2**30:.2f} GiB; launches {counts} (LN, RMS, joint, BSHD, joint backward, "
-          f"BSHD backward; expected {want})", flush=True)
+    want, micro = expected_flux_train_counts(config, fcfg, epochs)
+    print(f"{what}: {wall:.2f} s wall; peak device memory {peak / 2**30:.2f} GiB; launches "
+          f"{counts} (LN, RMS, joint, BSHD, joint backward, BSHD backward; expected {want}); "
+          f"{smi}", flush=True)
     nb = int(config.sample.num_batches_per_epoch)
     for r in records:
         rollout = r["time/rollout"] * nb
         reward = r["time/reward_wait"] + r["time/reward_dispatch"] * nb
+        phases = {k: round(v, 4) for k, v in r.items() if k.startswith("time/")}
         print(f"  epoch {r['epoch']}: rollout+decode {rollout:.3f} s, reward {reward:.3f} s "
               f"(not overlapped with a rollout), train {r['time/train']:.3f} s = "
               f"{r['time/train'] / micro:.3f} s per microstep ({micro} microsteps); reward "
               f"{r['reward_avg']:.5f}, loss {r['loss']:.3e}, approx_kl {r['approx_kl']:.3e}, "
               f"clipfrac {r['clipfrac']:.3f}, rollout "
-              f"{r.get('perf/rollout_tflops_per_sec', float('nan')):.1f} TFLOP/s", flush=True)
+              f"{r.get('perf/rollout_tflops_per_sec', float('nan')):.1f} TFLOP/s; time/* "
+              f"(s a call) {phases}", flush=True)
         bad = [k for k, v in r.items() if isinstance(v, float) and not np.isfinite(v)]
         if bad:
             raise AssertionError(f"epoch {r['epoch']}: non-finite {bad}")
-    if len(records) != EPOCHS or trainer.state.global_step == 0:
+    if len(records) != epochs or trainer.state.global_step == 0:
         raise AssertionError(f"{len(records)} epochs logged, global step "
                              f"{trainer.state.global_step}")
     lora, ema = trainer.state.lora, trainer.state.ema
@@ -3546,10 +3744,10 @@ def run_flux_training(kernels):
     # one minibatch of one row and T window steps through the trainer's epoch
     # (T microsteps: replay forward, backward, optimizer), traced
     T = int(config.sample.train_num_steps)
-    sig, ts = flux_schedule(int(config.sample.num_steps), (latent_hw // 2) ** 2)
+    sig, ts = flux_schedule(int(config.sample.num_steps), s_img)
     dev = torch.device("cuda")
     emb, pooled = (torch.from_numpy(a).to(dev) for a in encode(["a flower"]))
-    mb = dict(latents=torch.randn((1, 1, T + 1, (latent_hw // 2) ** 2, fcfg.in_channels),
+    mb = dict(latents=torch.randn((1, 1, T + 1, s_img, fcfg.in_channels),
                                   generator=torch.Generator(device=dev).manual_seed(SEED),
                                   device=dev),
               log_probs=torch.zeros(1, 1, T, device=dev),
@@ -3564,11 +3762,126 @@ def run_flux_training(kernels):
 
     step_ms = _median_ms(epoch, iters=3, warmup=1) / T
     kernel_ms, groups = _profile_forward(epoch, reps=1)
-    print(f"  one microstep (B=1, 1536 tokens): {step_ms:.1f} ms (CUDA events); device kernel "
-          f"time {kernel_ms / T:.1f} ms = {100 * kernel_ms / T / step_ms:.1f}% busy", flush=True)
+    print(f"  one microstep (B=1, {s_img + 512} tokens, remat {fcfg.remat}): {step_ms:.1f} ms "
+          f"(CUDA events); device kernel time {kernel_ms / T:.1f} ms = "
+          f"{100 * kernel_ms / T / step_ms:.1f}% busy; {smi}", flush=True)
     for grp, (calls, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
         print(f"    {grp}: {ms / T:.2f} ms, {calls / T:.0f} launches per microstep", flush=True)
+    _remat_on_off(f"Flux.1-dev {resolution}^2 microstep (B=1)", pipeline.transformer, epoch,
+                  T, smi)
+    del trainer, pipeline
+    gc.collect()
+    torch.cuda.empty_cache()
     return counts
+
+
+# the Flux.1-dev kernels at the 1024^2 training shapes: 4,096 image + 512
+# text tokens, 24 heads of 128 (the joint forward #2 and backward #4 of the
+# double blocks; the BSHD forward #8 and backward #9 of the single blocks
+# over the 4,608-token row)
+FLUX_1024 = (1, 4096, 512, 24, 128)
+
+
+def check_flux_1024_kernels(smi):
+    """Phase: #2 and #4 at d = 128 and #8 and #9 at the Flux.1-dev 1024^2
+    shapes (FLUX_1024) against their plain twins (forwards 2e-2 absolute,
+    output and lse; backwards 2e-2 relative L2 per cotangent) and timed:
+    median ms beside SDPA's (forward, and backward through a retained graph)
+    on the same inputs, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from adv_grpo_torch.ops import attention
+    from adv_grpo_torch.ops import joint_attention as ja
+    from adv_grpo_torch.ops.attention import bwd_row_stats
+
+    b, s_img, s_txt, heads, d = FLUX_1024
+    dim, s, sm_scale = heads * d, s_img + s_txt, d ** -0.5
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def report(name, err, bound_err, ms, lib_ms, least, plain_ms=None):
+        print(f"kernel {name} at Flux.1-dev 1024^2: max err {err:.3e} (bound {bound_err}); "
+              f"median {ms:.4f} ms vs SDPA {lib_ms:.4f} ms"
+              + ("" if plain_ms is None else f" vs plain {plain_ms:.4f} ms")
+              + f"; bound {least[0]:.4f} ms ({least[1]}); {smi}", flush=True)
+        if not err <= bound_err:
+            raise AssertionError(f"{name} at 1024^2: error {err}")
+
+    # 8 and 9: the single blocks' BSHD attention over the whole row
+    q, k, v, do = (randn(b, s, dim) for _ in range(4))
+    o, lse = attention.mha_bshd_fwd(q, k, v, heads, sm_scale, None, want_lse=True)
+    ref, ref_lse = attention.mha_bshd_reference(q.float(), k.float(), v.float(),
+                                                num_heads=heads, return_lse=True)
+    err = max((o.float() - ref).abs().max().item(), (lse - ref_lse).abs().max().item())
+    del ref, ref_lse
+    q4, k4, v4 = (attention.to_bhsd(t, heads) for t in (q, k, v))
+    report("mha_bshd (#8)", err, 2e-2,
+           _median_ms(lambda: attention.mha_bshd(q, k, v, num_heads=heads)),
+           _median_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
+           _attn_bound((q, k, v, o), b, heads, s, s, d))
+    di = bwd_row_stats(o, do, heads)
+    got = attention.mha_bshd_bwd(q, k, v, do, lse, di, num_heads=heads)
+    twin = attention.bshd_bwd_reference(q.float(), k.float(), v.float(), do.float(), lse, di,
+                                        num_heads=heads)
+    err = max(_rel_l2(x.float(), y.float()) for x, y in zip(got, twin))
+    del twin
+    report("mha_bshd_bwd (#9), relative L2", err, 2e-2,
+           _median_ms(lambda: attention.mha_bshd_bwd(q, k, v, do, lse, di, num_heads=heads)),
+           _sdpa_bwd_ms(q, k, v, do, heads),
+           _attn_bound((q, k, v, do, lse, di) + tuple(got), b, heads, s, s, d, products=5))
+    del q, k, v, do, o, lse, di, got, q4, k4, v4
+
+    # 2 and 4: the double blocks' joint attention, d = 128, no RMS
+    streams = [randn(b, s_img, dim) for _ in range(3)] + [randn(b, s_txt, dim)
+                                                          for _ in range(3)]
+    dos = [randn(b, s_img, dim), randn(b, s_txt, dim)]
+    oi, ot, lse_i, lse_t = ja.joint_attention_fwd(*streams, None, heads, 1e-6, sm_scale, True)
+    ref = ja.joint_mha_reference(*(t.float() for t in streams), num_heads=heads,
+                                 return_lse=True)
+    err = max((a.float() - r).abs().max().item() for a, r in zip((oi, ot, lse_i, lse_t), ref))
+    del ref
+    cat = [torch.cat([a, c], dim=1) for a, c in zip(streams[:3], streams[3:])]
+    cat4 = [attention.to_bhsd(t, heads) for t in cat]
+    report("joint_mha d=128 (#2)", err, 2e-2,
+           _median_ms(lambda: ja.joint_mha(*streams, num_heads=heads)),
+           _median_ms(lambda: F.scaled_dot_product_attention(*cat4)),
+           _attn_bound(streams + [oi, ot], b, heads, s, s, d))
+    lse, di = [lse_i, lse_t], [bwd_row_stats(oi, dos[0], heads), bwd_row_stats(ot, dos[1], heads)]
+    got = ja.joint_attention_bwd(*streams, *dos, *lse, *di, num_heads=heads)
+    f32 = lambda ts: [t.float() for t in ts]  # noqa: E731
+    twin = ja.attention_bwd_reference(f32(streams[0::3]), f32(streams[1::3]),
+                                      f32(streams[2::3]), f32(dos), lse, di, num_heads=heads)
+    err = max(_rel_l2(x.float(), y.float())
+              for x, y in zip(got, [a for st in twin for a in st]))
+    del twin
+    report("joint_attention_bwd d=128 (#4), relative L2", err, 2e-2,
+           _median_ms(lambda: ja.joint_attention_bwd(*streams, *dos, *lse, *di,
+                                                     num_heads=heads)),
+           _sdpa_bwd_ms(*cat, torch.cat(dos, dim=1), heads),
+           _attn_bound(tuple(streams) + tuple(dos) + tuple(lse) + tuple(di) + tuple(got), b,
+                       heads, s, s, d, products=5))
+    del streams, dos, cat, cat4, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_flux_1024_slice(kernels, smi, overrides=()):
+    """Phase: Flux.1-dev GRPO at its published 1024^2 (4,096 image + 512
+    text tokens a row), full width and depth from random weights, one epoch
+    of ``flux_smoke`` with FLUX_TRAIN_OVERRIDES at ``tpu.remat``'s default
+    (on; ``overrides`` such as ``tpu.remat=False`` for a run by hand) and
+    its microstep with remat off and on, after its attention kernels at
+    those shapes (``check_flux_1024_kernels``).
+    ``python3 chip_smoke.py --flux-1024 [--set key=value ...]`` runs it
+    alone."""
+    t0 = time.perf_counter()
+    check_flux_1024_kernels(smi)
+    run_flux_training(kernels, smi, resolution=1024, epochs=1, overrides=overrides)
+    print(f"Flux.1-dev 1024^2 phase: {time.perf_counter() - t0:.1f} s; {smi}", flush=True)
 
 
 def wan_per_forward_counts(wcfg):
@@ -3578,6 +3891,16 @@ def wan_per_forward_counts(wcfg):
     attentions; the output head: 1 modulated LN."""
     n = wcfg.num_layers
     return 2 * n + 1, 4 * n, n, 2 * n
+
+
+def wan_per_recompute_counts(wcfg):
+    """Launches of the blocks' recompute in one WAN backward under remat
+    (every block's forward kernels again): a forward's but the output
+    head's modulated LN; none without remat."""
+    if not wcfg.remat:
+        return 0, 0, 0, 0
+    mod_ln, rms, ln, bshd = wan_per_forward_counts(wcfg)
+    return mod_ln - 1, rms, ln, bshd
 
 
 def check_wan_kernels():
@@ -3794,7 +4117,8 @@ def _wan_pipeline(config):
 
     vcfg = WanVAEConfig.wan()
     wcfg = WanConfig.t2v_1_3b(lora_rank=int(config.train.lora_rank),
-                              lora_alpha=float(config.train.lora_alpha))
+                              lora_alpha=float(config.train.lora_alpha),
+                              remat=bool(config.tpu.remat))
     return WanPipeline.random_init(
         torch.Generator(device="cuda").manual_seed(SEED), wcfg, vcfg, "cuda",
         latent_hw=WAN_RES // vcfg.spatial_factor, latent_frames=vcfg.latent_frames(WAN_FRAMES),
@@ -4988,26 +5312,29 @@ def run_wan_sampling(kernels):
     return counts, cross
 
 
-def expected_wan_train_counts(config, wcfg, epochs=EPOCHS):
+def expected_wan_train_counts(config, wcfg, epochs=FAMILY_EPOCHS):
     """Launches of the 4 WAN forward kernels and the BSHD backward in
     ``epochs`` epochs of the WAN_TRAIN_OVERRIDES run, from the config:
     rollout forwards (one per step of each sampling batch; no KL forward: the
     trainer's pipeline carries no kl_reward) and replay forwards (one per
-    microstep, two with a KL loss), then the backwards (one per microstep:
-    both attentions of every block, all of which a LoRA factor reaches)."""
+    microstep, two with a KL loss, the LoRA-off one under no_grad), the
+    recompute of the blocks of the one a backward takes, then the backwards
+    (one per microstep: both attentions of every block, all of which a LoRA
+    factor reaches)."""
     s, t = config.sample, config.train
     micro = (epochs * max(int(t.num_inner_epochs), 1) * int(s.num_batches_per_epoch)
              * max(int(t.micro_splits), 1) * int(s.train_num_steps))
     replay = micro * (2 if float(t.beta) > 0 else 1)
     fwd = epochs * int(s.num_batches_per_epoch) * int(s.num_steps) + replay
-    return ([c * fwd for c in wan_per_forward_counts(wcfg)]
+    return ([f * fwd + r * micro
+             for f, r in zip(wan_per_forward_counts(wcfg), wan_per_recompute_counts(wcfg))]
             + [2 * wcfg.num_layers * micro]), micro // epochs
 
 
-def run_wan_training(kernels):
+def run_wan_training(kernels, smi):
     """Phase: ``GRPOTrainer`` on a full-width Wan2.1-T2V-1.3B pipeline
     (random weights from the seed, LoRA rank and alpha of ``wan_smoke``) for
-    EPOCHS epochs of ``wan_smoke`` with WAN_TRAIN_OVERRIDES; returns the
+    FAMILY_EPOCHS epochs of ``wan_smoke`` with WAN_TRAIN_OVERRIDES; returns the
     kernels' launch counts and the BSHD forward's and backward's
     cross-attention (S_q != S_kv) shares of theirs."""
     import numpy as np
@@ -5034,7 +5361,7 @@ def run_wan_training(kernels):
                               encode, multi_score(dict(config.reward_fn)), latent_hw=latent_hw)
         _zero_counts(kernels)
         t0 = time.perf_counter()
-        trainer.run(max_epochs=EPOCHS)
+        trainer.run(max_epochs=FAMILY_EPOCHS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = [k.launches for k in kernels]
@@ -5045,8 +5372,8 @@ def run_wan_training(kernels):
     want, micro = expected_wan_train_counts(config, wcfg)
     print(f"GRPOTrainer wan_smoke full-width Wan2.1-T2V-1.3B, {WAN_FRAMES} frames of "
           f"{WAN_RES}^2, {config.sample.num_steps}-step rollouts of "
-          f"{config.sample.mini_num_image_per_prompt} videos, {EPOCHS} epochs: {wall:.2f} s wall; "
-          f"peak device memory {peak / 2**30:.2f} GiB; launches {counts} (modulated LN, RMS, LN, "
+          f"{config.sample.mini_num_image_per_prompt} videos, {FAMILY_EPOCHS} epoch(s): "
+          f"{wall:.2f} s wall; peak device memory {peak / 2**30:.2f} GiB; launches {counts} (modulated LN, RMS, LN, "
           f"BSHD, BSHD backward; expected {want}), {cross} of the BSHD ones cross-attention",
           flush=True)
     nb = int(config.sample.num_batches_per_epoch)
@@ -5062,7 +5389,7 @@ def run_wan_training(kernels):
         bad = [k for k, v in r.items() if isinstance(v, float) and not np.isfinite(v)]
         if bad:
             raise AssertionError(f"epoch {r['epoch']}: non-finite {bad}")
-    if len(records) != EPOCHS or trainer.state.global_step == 0:
+    if len(records) != FAMILY_EPOCHS or trainer.state.global_step == 0:
         raise AssertionError(f"{len(records)} epochs logged, global step "
                              f"{trainer.state.global_step}")
     lora, ema = trainer.state.lora, trainer.state.ema
@@ -5106,6 +5433,8 @@ def run_wan_training(kernels):
           f"{100 * kernel_ms / T / step_ms:.1f}% busy", flush=True)
     for grp, (calls, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
         print(f"    {grp}: {ms / T:.2f} ms, {calls / T:.0f} launches per microstep", flush=True)
+    _remat_on_off(f"Wan2.1 {WAN_FRAMES} x {WAN_RES}^2 microstep (B=1)", pipeline.transformer,
+                  epoch, T, smi)
     del trainer, pipeline
     torch.cuda.empty_cache()
     return counts, cross
@@ -6203,6 +6532,16 @@ def main() -> int:
     kernels = (fused_norms.modulated_layer_norm, joint_attention.joint_mha,
                joint_attention.mha_rms, joint_attention.joint_attention_bwd,
                joint_attention.mha_rms_bwd)
+    flux_kernels = (fused_norms.modulated_layer_norm, fused_norms.rms_norm_heads,
+                    joint_attention.joint_mha, attention.mha_bshd)
+    flux_train_kernels = flux_kernels + (joint_attention.joint_attention_bwd,
+                                         attention.mha_bshd_bwd)
+    if sys.argv[1:2] == ["--flux-1024"]:  # alone; "--set key=value" overrides the config
+        sets = sys.argv[2:]
+        if len(sets) % 2 or any(a != "--set" for a in sets[::2]):
+            raise SystemExit("usage: chip_smoke.py --flux-1024 [--set key=value ...]")
+        run_flux_1024_slice(flux_train_kernels, smi, overrides=sets[1::2])
+        return 0
     alone = {"--dino": run_dino_slice, "--checkpoint": run_checkpoint_slice,
              "--loaders": run_loader_slice,
              "--family-loaders": lambda kernels, smi: run_family_loader_slice(smi),
@@ -6226,7 +6565,7 @@ def main() -> int:
     mha_counts = run_context_parallel()
     for r in mha_results:
         r["launches"] = mha_counts[r["name"]]
-    counts = run_training_slice(kernels)
+    counts = run_training_slice(kernels, smi)
     for r, n in zip(results, counts):
         r["launches"] = n
     run_cotrain_slice(kernels, smi)
@@ -6238,17 +6577,15 @@ def main() -> int:
     run_remaining_rewards_slice(kernels, smi)
     dist.destroy_process_group()
     check_flux_model_grads(*check_flux_model())
-    flux_kernels = (fused_norms.modulated_layer_norm, fused_norms.rms_norm_heads,
-                    joint_attention.joint_mha, attention.mha_bshd)
     flux_counts = dict(zip(("modulated_layer_norm", "rms_norm_heads", "joint_mha_d128",
                             "mha_bshd"), run_flux_inference(flux_kernels)))
     for r in flux_results:
         r["launches"] = flux_counts[r["name"]]
-    flux_train_counts = run_flux_training(
-        flux_kernels + (joint_attention.joint_attention_bwd, attention.mha_bshd_bwd))
+    flux_train_counts = run_flux_training(flux_train_kernels, smi)
     bwd_counts = dict(zip(("joint_attention_bwd_d128", "mha_bshd_bwd"), flux_train_counts[4:]))
     for r in flux_train_results:
         r["launches"] = bwd_counts[r["name"]]
+    run_flux_1024_slice(flux_train_kernels, smi)
     wan_results = check_wan_kernels()
     check_model_grads(*check_wan_model(), what="2-layer full-width Wan2.1-T2V-1.3B")
     wan_kernels = (fused_norms.modulated_layer_norm, fused_norms.rms_norm_heads,
@@ -6257,7 +6594,7 @@ def main() -> int:
     wan_counts = dict(zip(("modulated_layer_norm_wan", "rms_norm_heads_wan", "layer_norm"),
                           counts))
     wan_counts.update(mha_bshd_wan_self=counts[3] - cross, mha_bshd_wan_cross=cross)
-    counts, cross = run_wan_training(wan_kernels + (attention.mha_bshd_bwd,))
+    counts, cross = run_wan_training(wan_kernels + (attention.mha_bshd_bwd,), smi)
     wan_counts.update(mha_bshd_bwd_wan_self=counts[4] - cross[1],
                       mha_bshd_bwd_wan_cross=cross[1])
     for r in wan_results:

@@ -1,8 +1,10 @@
 """The port's presets equal the JAX package's, key for key.
 
 The port keeps its presets as plain dictionaries (no ml_collections); the JAX
-presets are the reference. Only the JAX ``tpu`` section (mesh, remat and
-compile options) has no counterpart. The SFT / RWR / DPO presets
+presets are the reference. Of the JAX ``tpu`` section the port keeps
+``remat`` and ``remat_policy`` (the models' activation checkpointing, the
+same keys and defaults); its mesh, dtype, backend and compile options have
+no counterpart. The SFT / RWR / DPO presets
 (``config/sft.py``, ``config/dpo.py``) are found by ``resolve_config`` after
 the GRPO ones, and one inner epoch of ``dpo_sd3_fast`` (``beta`` 100: each
 microstep replays its window once more with the LoRA off, the KL anchor)
@@ -41,14 +43,21 @@ def _plain(tree):
     return tree
 
 
+def _jax_tree(config):
+    """A JAX preset as a dict, its ``tpu`` section cut to the keys the port
+    keeps."""
+    want = config.to_dict()
+    want["tpu"] = {k: want["tpu"][k] for k in ("remat", "remat_policy")}
+    return want
+
+
 @pytest.mark.parametrize("preset", ["compressibility", "smoke_sd3_fast", "eval_sd3_fast",
                                     "flux_smoke", "wan_smoke", "pickscore_sd3_fast",
                                     "pickscore_cotrain_sd3_fast",
                                     "dino_cotrain_sd3_fast", "dino_cotrain_sd3_patch_fast",
                                     "dino_cotrain_sd3_multi_fast"])
 def test_preset_matches_jax(preset):
-    want = j_grpo.get_config(preset).to_dict()
-    want.pop("tpu")
+    want = _jax_tree(j_grpo.get_config(preset))
     assert _plain(t_grpo.get_config(preset)) == want
 
 
@@ -72,8 +81,7 @@ def test_config_attribute_access_and_dtype():
 
 @pytest.mark.parametrize("preset", ["sft_sd3_fast", "rwr_sd3_fast", "dpo_sd3_fast"])
 def test_sft_rwr_dpo_presets_match_jax(preset):
-    want = j_resolve_config(preset).to_dict()
-    want.pop("tpu")
+    want = _jax_tree(j_resolve_config(preset))
     assert _plain(resolve_config(preset)) == want
     assert _plain(resolve_config(f"adv_grpo_tpu/config/x.py:{preset}")) == want
     mod = t_dpo if preset.startswith("dpo") else t_sft

@@ -8,9 +8,11 @@ equal (JPEG / PNG bytes, pickles, JSON) and the results equal, through the
 clients and through ``multi_score`` (``geneval`` with its accuracy
 decompositions and ``only_strict``, ``deqa``, ``unifiedreward`` in both
 protocols, ``qwenvl`` with an injected generator). The retry policy is held
-to urllib3's ``Retry`` (its ``get_backoff_time`` after each failure) on
-500s and on refused connections, with the sleep stubbed; the JAX package's
-own policy is not run here (it would sleep).
+to urllib3's ``Retry`` (its ``get_backoff_time`` after each failure, or the
+``Retry-After`` of a 503 in any case) on 500s, 503s and refused
+connections, with the sleep stubbed; the JAX package's own policy is not run
+here (it would sleep). The port retries ``https://`` judges too, where the
+JAX session does not (a recorded departure, pinned by a test).
 """
 
 import socket
@@ -135,9 +137,11 @@ def test_context_builds_the_clients_from_the_environment(judge, monkeypatch):
 
 
 def test_retry_follows_urllib3s_policy_with_the_sleep_stubbed(judge):
-    """Two 500s then an answer; then a refused connection until the retries
-    are spent. The sleeps are urllib3's ``get_backoff_time`` after each
-    failure (0, then backoff * 2^(n-1))."""
+    """Two 500s then an answer; two 503s whose header is a lower-case
+    ``retry-after: 1`` then an answer (header names are case-insensitive, as
+    urllib3 reads them); then a refused connection until the retries are
+    spent. The sleeps are urllib3's ``get_backoff_time`` after each failure
+    (0, then backoff * 2^(n-1)), or its ``Retry-After``."""
     urllib3 = pytest.importorskip("urllib3")
     sleeps = []
     sess = t_remote.HTTPSession(max_retries=5, sleep=sleeps.append)
@@ -150,6 +154,19 @@ def test_retry_follows_urllib3s_policy_with_the_sleep_stubbed(judge):
         retry = retry.increment("POST", "/flaky", response=urllib3.HTTPResponse(status=500))
         expect.append(retry.get_backoff_time())
     assert sleeps == expect == [0.0, 2.0]
+
+    sleeps.clear()
+    got = t_remote.deqa_score_client(judge.url + "/busy", session=sess)(_u8(5), PROMPTS)
+    np.testing.assert_array_equal(got, want)
+    retry, expect = urllib3.util.Retry(total=5, backoff_factor=1, status_forcelist=[500],
+                                       allowed_methods=False), []
+    busy = urllib3.HTTPResponse(status=503, headers={"retry-after": "1"})
+    for _ in range(2):
+        assert retry.is_retry("POST", 503, has_retry_after=True)
+        retry = retry.increment("POST", "/busy", response=busy)
+        expect.append(retry.get_retry_after(busy))
+    assert sleeps == expect == [1.0, 1.0]
+    assert [p for p, _, _ in judge.requests].count("/busy") == 3
 
     with socket.socket() as s:  # a port nothing listens on
         s.bind(("127.0.0.1", 0))
@@ -164,6 +181,26 @@ def test_retry_follows_urllib3s_policy_with_the_sleep_stubbed(judge):
         retry = retry.increment("POST", "/x", error=urllib3.exceptions.ConnectTimeoutError())
         expect.append(retry.get_backoff_time())
     assert sleeps == expect and max(sleeps) == 120.0
+
+
+def test_https_judges_are_retried_unlike_the_jax_session():
+    """A recorded departure: the port's session retries ``https://`` judges
+    as ``http://`` ones, as the JAX module docstring says of every client;
+    the JAX ``_session`` mounts its ``Retry`` on ``http://`` only, so there
+    an ``https://`` judge gets ``requests``' default adapter, no retries.
+    Pinned on a plain HTTP server spoken to over TLS: the handshake fails,
+    and the port retries it until its retries are spent."""
+    pytest.importorskip("requests")
+    jsess = j_remote._session(max_retries=7)
+    assert jsess.get_adapter("http://judge").max_retries.total == 7
+    assert jsess.get_adapter("https://judge").max_retries.total == 0
+    with JudgeFixture() as judge:
+        sleeps = []
+        sess = t_remote.HTTPSession(max_retries=3, sleep=sleeps.append)
+        with pytest.raises(t_remote.HTTPError, match="3 retries spent"):
+            sess.post(judge.url.replace("http://", "https://") + "/deqa", data=b"x",
+                      timeout=5)
+        assert sleeps == [0.0, 2.0, 4.0]
 
 
 def test_status_500_until_the_retries_are_spent_raises():
