@@ -1226,7 +1226,7 @@ def sd3_lora_init(cfg) -> Dict[str, torch.Tensor]:
 
 
 def load_sd3_pipeline(model_dir: str, *, lora_rank: int = 0, lora_alpha: float = 1.0,
-                      dtype=None, device="cuda", remat=True, remat_policy="save_attn"):
+                      dtype=None, device="cuda", remat=False, remat_policy="save_attn"):
     """An ``SD3Pipeline`` on ``device`` from a local diffusers-layout
     directory (``transformer/`` and ``vae/``; the text encoders are loaded by
     ``cli.common.load_real_text_encoder``). The MMDiT runs in ``dtype`` (bf16
@@ -1312,7 +1312,7 @@ def flux_lora_init(cfg) -> Dict[str, torch.Tensor]:
 
 
 def load_flux_transformer(model_dir: str, *, dtype=None, lora_rank: int = 0,
-                          lora_alpha: float = 1.0, device="cuda", remat=True):
+                          lora_alpha: float = 1.0, device="cuda", remat=False):
     """(FluxConfig, FluxTransformer on ``device``) from a local diffusers
     ``FluxTransformer2DModel`` directory (``config.json`` beside
     ``*.safetensors`` shards), the JAX ``load_flux_transformer``: in ``dtype``
@@ -1404,7 +1404,7 @@ def wan_lora_init(cfg) -> Dict[str, torch.Tensor]:
 
 
 def load_wan_transformer(model_dir: str, *, dtype=None, lora_rank: int = 0,
-                         lora_alpha: float = 1.0, device="cuda", remat=True):
+                         lora_alpha: float = 1.0, device="cuda", remat=False):
     """(WanConfig, WanTransformer on ``device``) from a local diffusers
     ``WanTransformer3DModel`` directory, the JAX ``load_wan_transformer``: in
     ``dtype`` (bf16 by default), whose fp32 weights are then rounded to bf16

@@ -25,8 +25,8 @@ size), the RMS weights and LoRA factors fp32. The modulated LayerNorms, the
 qk-norms and both attentions go through ``adv_grpo_torch.ops`` (hand-written
 kernels on the card, plain versions on the CPU); sibling projections of one
 input run as one product (``models/lora.py fused_qkv_proj``). Each block is
-checkpointed in a training forward as the JAX model remats it (``remat``,
-the whole block recomputed; ``models/remat.py``). The JAX config's
+checkpointed in a training forward with ``remat`` set, as the JAX model
+remats it (the whole block recomputed; ``models/remat.py``). The JAX config's
 ``attention_backend`` and ``fused_qkv`` have no counterpart here, and the
 single blocks need no zero padding of the sequence: the attention kernel
 masks ragged tiles itself.
@@ -68,7 +68,7 @@ class FluxConfig:
     dtype: Any = torch.bfloat16
     lora_rank: int = 0
     lora_alpha: float = 1.0
-    remat: bool = True  # checkpoint each block in a training forward
+    remat: bool = False  # checkpoint each block in a training forward (JAX: on)
 
     @property
     def hidden_dim(self) -> int:
@@ -83,7 +83,7 @@ class FluxConfig:
         defaults = dict(in_channels=16, num_double_layers=2, num_single_layers=2,
                         attention_head_dim=16, num_attention_heads=2,
                         joint_attention_dim=32, pooled_projection_dim=24,
-                        rope_axes_dims=(4, 6, 6), dtype=torch.float32, remat=False)
+                        rope_axes_dims=(4, 6, 6), dtype=torch.float32)
         defaults.update(overrides)
         return cls(**defaults)
 

@@ -12,9 +12,10 @@ weights stay fp32; the timestep sincos is computed in fp32 and then cast. The
 modulated LayerNorms and the two attentions go through ``adv_grpo_torch.ops``
 (hand-written kernels on the card, plain versions on the CPU).
 
-Each block is checkpointed in a training forward as the JAX model remats it
-(``remat``, ``remat_policy``; ``models/remat.py``). The JAX config's
-``attention_backend`` and ``fused_qkv`` have no counterpart here.
+With ``remat`` set, each block is checkpointed in a training forward as the
+JAX model remats it (``remat_policy`` named as in JAX; ``models/remat.py``).
+The JAX config's ``attention_backend`` and ``fused_qkv`` have no counterpart
+here.
 """
 
 from __future__ import annotations
@@ -55,9 +56,10 @@ class MMDiTConfig:
     dtype: Any = torch.bfloat16
     lora_rank: int = 0
     lora_alpha: float = 1.0
-    # checkpoint each block in a training forward (models/remat.py):
-    # "save_attn" keeps the attention outputs, "full" recomputes everything
-    remat: bool = True
+    # checkpoint each block in a training forward (models/remat.py); off by
+    # default here, on in the JAX config; every ported policy recomputes the
+    # whole block
+    remat: bool = False
     remat_policy: str = "save_attn"
 
     @property
@@ -75,7 +77,7 @@ class MMDiTConfig:
             num_layers=4, attention_head_dim=32, num_attention_heads=4,
             joint_attention_dim=64, pooled_projection_dim=48,
             pos_embed_max_size=32, dual_attention_layers=(0, 1),
-            dtype=torch.float32, remat=False,
+            dtype=torch.float32,
         )
         defaults.update(overrides)
         return cls(**defaults)
@@ -196,7 +198,7 @@ class JointAttention(nn.Module):
             self.norm_added_q = HeadRMSNorm(d, device)
             self.norm_added_k = HeadRMSNorm(d, device)
 
-    def forward(self, x, ctx, lora_scale: float = 1.0, saved=None):
+    def forward(self, x, ctx, lora_scale: float = 1.0):
         c = self.cfg
         q, k, v = (m(x, lora_scale) for m in (self.to_q, self.to_k, self.to_v))
         cq, ck, cv = (m(ctx, lora_scale)
@@ -206,7 +208,7 @@ class JointAttention(nn.Module):
             rms_weights = (self.norm_q.weight, self.norm_k.weight,
                            self.norm_added_q.weight, self.norm_added_k.weight)
         o_img, o_txt = joint_mha(q, k, v, cq, ck, cv, num_heads=c.num_attention_heads,
-                                 rms_weights=rms_weights, saved=saved)
+                                 rms_weights=rms_weights)
         x_out = self.to_out[0](o_img, lora_scale)
         if self.context_pre_only:
             return x_out, None
@@ -230,11 +232,11 @@ class DualSelfAttention(nn.Module):
             d = cfg.attention_head_dim
             self.norm_q, self.norm_k = HeadRMSNorm(d, device), HeadRMSNorm(d, device)
 
-    def forward(self, x, saved=None):
+    def forward(self, x):
         c = self.cfg
         rms_weights = (self.norm_q.weight, self.norm_k.weight) if c.qk_norm else None
         o = mha_rms(self.to_q(x), self.to_k(x), self.to_v(x),
-                    num_heads=c.num_attention_heads, rms_weights=rms_weights, saved=saved)
+                    num_heads=c.num_attention_heads, rms_weights=rms_weights)
         return self.to_out[0](o)
 
 
@@ -254,8 +256,7 @@ class JointBlock(nn.Module):
         if not context_pre_only:
             self.ff_context = FeedForward(dim, dt, device)
 
-    def forward(self, x, ctx, temb, lora_scale: float = 1.0, saved=None):
-        """``saved``: the block's ``SavedAttention`` under ``save_attn``."""
+    def forward(self, x, ctx, temb, lora_scale: float = 1.0):
         mods = self.norm1(temb)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods[:6]
         x_pre = x  # dual attention modulates the PRE-attention norm input
@@ -270,13 +271,13 @@ class JointBlock(nn.Module):
              c_gate_mlp) = self.norm1_context(temb)
             ctx_mod = modulated_layer_norm(ctx, c_scale_msa, c_shift_msa)
 
-        attn_out, ctx_attn_out = self.attn(x_mod, ctx_mod, lora_scale, saved)
+        attn_out, ctx_attn_out = self.attn(x_mod, ctx_mod, lora_scale)
         x = x + gate_msa[:, None] * attn_out
 
         if self.dual_attention:
             shift_msa2, scale_msa2, gate_msa2 = mods[6:]
             x_mod2 = modulated_layer_norm(x_pre, scale_msa2, shift_msa2)
-            x = x + gate_msa2[:, None] * self.attn2(x_mod2, saved)
+            x = x + gate_msa2[:, None] * self.attn2(x_mod2)
 
         h = modulated_layer_norm(x, scale_mlp, shift_mlp)
         x = x + gate_mlp[:, None] * self.ff(h)
@@ -379,8 +380,7 @@ class MMDiT(nn.Module):
         temb = self.time_text_embed(timestep, pooled_projections)
         ctx = self.context_embedder(encoder_hidden_states.to(c.dtype))
         for block in self.transformer_blocks:
-            x, ctx = run_block(block, x, ctx, temb, lora_scale, remat=c.remat,
-                               policy=c.remat_policy)
+            x, ctx = run_block(block, x, ctx, temb, lora_scale, remat=c.remat)
         # output head: AdaLayerNormContinuous (chunk order [scale, shift])
         oscale, oshift = self.norm_out(temb)
         x = self.proj_out(modulated_layer_norm(x, oscale, oshift))

@@ -4,6 +4,8 @@ Port of the JAX ``nn.remat`` around each transformer block
 (adv_grpo_tpu/models/mmdit.py:464-479, flux.py:294-295, wan.py:218), set by
 ``MMDiTConfig.remat`` / ``remat_policy``, ``FluxConfig.remat`` and
 ``WanConfig.remat`` from the config's ``tpu.remat`` / ``tpu.remat_policy``.
+Off by default in the port (on in JAX): every published size measured on an
+H100 80GB fits without it, and its recompute slows each microstep.
 
 While autograd records (a training forward), :func:`run_block` runs each
 block under non-reentrant ``torch.utils.checkpoint``: the forward keeps only
@@ -14,20 +16,19 @@ refuses; no RNG state is stashed, because no block draws random numbers.
 Under ``torch.no_grad()`` / ``inference_mode`` (rollouts, eval, the LoRA-off
 reference replay) a block runs as it is, and nothing is checkpointed.
 
-Policies (the MMDiT's; Flux and WAN always recompute the whole block, as
-their JAX ``nn.remat`` without a policy does): ``"full"`` recomputes
-everything, the attention kernels included; ``"save_attn"`` keeps the
-attention outputs and lse (``ops.joint_attention.SavedAttention``), so the
-recompute launches no attention forward. The JAX package's three richer v5e
-tiers raise by name: they trade memory for less recompute on a 16 GB chip.
+Policies: the MMDiT takes the JAX names ``"full"`` and ``"save_attn"`` (the
+JAX default), and both recompute the whole block, the attention kernels
+included, as Flux's and WAN's JAX ``nn.remat`` without a policy does. Keeping
+the attention outputs through the backward, as the JAX ``save_attn`` does,
+bought no time on the H100 and cost memory. The JAX package's three richer
+v5e tiers raise by name: they trade memory for less recompute on a 16 GB
+chip.
 """
 
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
-
-from adv_grpo_torch.ops.joint_attention import SavedAttention
 
 # the JAX MMDiT's policies and the residuals each keeps
 # (adv_grpo_tpu/models/mmdit.py:465-471)
@@ -50,19 +51,9 @@ def check_policy(policy: str) -> None:
             f"takes {PORTED_POLICIES}")
 
 
-def run_block(block, *args, remat: bool, policy: str = "full"):
+def run_block(block, *args, remat: bool):
     """``block(*args)``, checkpointed when ``remat`` is set and autograd
-    records. Under ``"save_attn"`` the block is called with a
-    ``saved=SavedAttention()`` keyword that its attentions take."""
+    records."""
     if not (remat and torch.is_grad_enabled()):
         return block(*args)
-    if policy == "full":
-        return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
-    check_policy(policy)
-    saved = SavedAttention()
-
-    def forward(*a):
-        saved.rewind()  # the recompute replays the first forward's outputs
-        return block(*a, saved=saved)
-
-    return checkpoint(forward, *args, use_reentrant=False, preserve_rng_state=False)
+    return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)

@@ -27,8 +27,8 @@ RMS norms and both attentions go through ``adv_grpo_torch.ops`` (hand-written
 kernels on the card, plain versions on the CPU). The JAX model pads the
 sequence to a multiple of 128 and masks the padded keys; the kernels mask
 ragged tiles themselves, so nothing is padded here. Each block is
-checkpointed in a training forward as the JAX model remats it (``remat``,
-the whole block recomputed; ``models/remat.py``). The JAX config's
+checkpointed in a training forward with ``remat`` set, as the JAX model
+remats it (the whole block recomputed; ``models/remat.py``). The JAX config's
 ``attention_backend`` and ``fused_qkv`` have no counterpart.
 """
 
@@ -71,7 +71,7 @@ class WanConfig:
     dtype: Any = torch.bfloat16
     lora_rank: int = 0
     lora_alpha: float = 1.0
-    remat: bool = True  # checkpoint each block in a training forward
+    remat: bool = False  # checkpoint each block in a training forward (JAX: on)
 
     @property
     def hidden_dim(self) -> int:
@@ -85,7 +85,7 @@ class WanConfig:
     def tiny(cls, **overrides) -> "WanConfig":
         defaults = dict(num_layers=2, attention_head_dim=16, num_attention_heads=2,
                         text_dim=32, ffn_dim=64, rope_axes_dims=(8, 4, 4),
-                        dtype=torch.float32, remat=False)
+                        dtype=torch.float32)
         defaults.update(overrides)
         return cls(**defaults)
 

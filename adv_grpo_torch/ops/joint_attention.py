@@ -35,10 +35,6 @@ come from the same code as the forward's (:func:`joint_operands` here,
 joint backward takes D = 64 (with or without RMS) and D = 128 (without RMS,
 Flux's double blocks); the single-stream one takes D = 64; other widths
 raise.
-
-In a block checkpointed under the ``save_attn`` policy (``models/remat.py``)
-both take the block's :class:`SavedAttention`: the recompute reuses the first
-forward's outputs and lse and launches no forward kernel.
 """
 
 from __future__ import annotations
@@ -500,51 +496,15 @@ def _rms_grads(ctx, first, pairs, num_heads, eps):
     return dxs, dws
 
 
-class SavedAttention:
-    """The attention outputs of one checkpointed block, the residuals the JAX
-    ``save_attn`` policy keeps (``checkpoint_name(..., "attn_out")`` on the
-    outputs and lse of ``joint_mha`` / ``mha_rms``,
-    adv_grpo_tpu/ops/joint_attention.py:505-508, :748-749).
-
-    The kernels launch through ctypes, out of sight of torch's dispatcher
-    and so of its selective checkpointing; instead, the block's function
-    passes one of these to each attention call. In the block's first forward
-    each call's outputs are recorded, in call order; in the recompute
-    (:meth:`rewind` first) each call gets its recorded outputs back and
-    launches nothing. Sound because the recompute reproduces the attention's
-    inputs bit for bit, so the backward's q, k and v are those the outputs
-    came from."""
-
-    def __init__(self):
-        self._outputs, self._next = [], 0
-
-    def rewind(self):
-        self._next = 0
-
-    def __call__(self, launch):
-        """``launch()`` (a forward wrapper's tuple of tensors and Nones) the
-        first time through, the recorded tuple in the recompute."""
-        if self._next == len(self._outputs):
-            self._outputs.append(tuple(None if t is None else t.detach() for t in launch()))
-        out = self._outputs[self._next]
-        self._next += 1
-        return tuple(None if t is None else t.detach() for t in out)
-
-
-def _forward(saved, launch):
-    return launch() if saved is None else saved(launch)
-
-
 class _JointMHA(torch.autograd.Function):
     """The JAX ``_joint_mha_p`` custom VJP. Inputs: num_heads, eps, sm_scale,
-    a :class:`SavedAttention` or None, the six (B, S, H*D) streams, then the
-    four RMS weights if any."""
+    the six (B, S, H*D) streams, then the four RMS weights if any."""
 
     @staticmethod
-    def forward(ctx, num_heads, eps, sm_scale, saved, q_i, k_i, v_i, q_t, k_t, v_t, *weights):
-        o_i, o_t, lse_i, lse_t = _forward(saved, lambda: joint_attention_fwd(
-            q_i, k_i, v_i, q_t, k_t, v_t, weights or None, num_heads, eps, sm_scale,
-            want_lse=True))
+    def forward(ctx, num_heads, eps, sm_scale, q_i, k_i, v_i, q_t, k_t, v_t, *weights):
+        o_i, o_t, lse_i, lse_t = joint_attention_fwd(q_i, k_i, v_i, q_t, k_t, v_t,
+                                                weights or None, num_heads, eps, sm_scale,
+                                                want_lse=True)
         ctx.save_for_backward(q_i, k_i, v_i, q_t, k_t, v_t, o_i, o_t, lse_i, lse_t,
                               *weights)
         ctx.args = (num_heads, eps, sm_scale)
@@ -561,20 +521,19 @@ class _JointMHA(torch.autograd.Function):
             num_heads=num_heads, rms_weights=w or None, eps=eps, sm_scale=sm_scale)
         wq_i, wk_i, wq_t, wk_t = w or (None,) * 4
         (dq_i, dk_i, dq_t, dk_t), dws = _rms_grads(
-            ctx, 10, [(q_i, wq_i, dyq_i), (k_i, wk_i, dyk_i), (q_t, wq_t, dyq_t),
+            ctx, 9, [(q_i, wq_i, dyq_i), (k_i, wk_i, dyk_i), (q_t, wq_t, dyq_t),
                      (k_t, wk_t, dyk_t)], num_heads, eps)
-        return (None, None, None, None, dq_i, dk_i, dv_i, dq_t, dk_t, dv_t, *dws)
+        return (None, None, None, dq_i, dk_i, dv_i, dq_t, dk_t, dv_t, *dws)
 
 
 class _MhaRms(torch.autograd.Function):
-    """The JAX ``_mha_rms_p`` custom VJP. Inputs: num_heads, eps, sm_scale, a
-    :class:`SavedAttention` or None, q, k, v, then the two RMS weights if
-    any."""
+    """The JAX ``_mha_rms_p`` custom VJP. Inputs: num_heads, eps, sm_scale, q,
+    k, v, then the two RMS weights if any."""
 
     @staticmethod
-    def forward(ctx, num_heads, eps, sm_scale, saved, q, k, v, *weights):
-        o, lse = _forward(saved, lambda: mha_rms_fwd(q, k, v, weights or None, num_heads, eps,
-                                                     sm_scale, want_lse=True))
+    def forward(ctx, num_heads, eps, sm_scale, q, k, v, *weights):
+        o, lse = mha_rms_fwd(q, k, v, weights or None, num_heads, eps, sm_scale,
+                                 want_lse=True)
         ctx.save_for_backward(q, k, v, o, lse, *weights)
         ctx.args = (num_heads, eps, sm_scale)
         return o
@@ -588,8 +547,8 @@ class _MhaRms(torch.autograd.Function):
                                    num_heads=num_heads, rms_weights=w or None, eps=eps,
                                    sm_scale=sm_scale)
         wq, wk = w or (None, None)
-        (dq, dk), dws = _rms_grads(ctx, 7, [(q, wq, dyq), (k, wk, dyk)], num_heads, eps)
-        return (None, None, None, None, dq, dk, dv, *dws)
+        (dq, dk), dws = _rms_grads(ctx, 6, [(q, wq, dyq), (k, wk, dyk)], num_heads, eps)
+        return (None, None, None, dq, dk, dv, *dws)
 
 
 def _needs_grad(tensors):
@@ -597,39 +556,37 @@ def _needs_grad(tensors):
 
 
 def joint_mha(q_img, k_img, v_img, q_txt, k_txt, v_txt, *, num_heads,
-              rms_weights=None, eps: float = 1e-6, sm_scale=None, saved=None):
+              rms_weights=None, eps: float = 1e-6, sm_scale=None):
     """Two-stream joint attention -> (o_img, o_txt), streams never concatenated.
 
     Inputs are (B, S_img, H*D) and (B, S_txt, H*D); ``rms_weights`` is None or
     (wq_img, wk_img, wq_txt, wk_txt), each (D,) — SD3.5's norm_q / norm_k /
-    norm_added_q / norm_added_k. Differentiable in all of them. ``saved``: the
-    :class:`SavedAttention` of a block checkpointed under ``save_attn``.
+    norm_added_q / norm_added_k. Differentiable in all of them.
     """
     if sm_scale is None:
         sm_scale = (q_img.shape[-1] // num_heads) ** -0.5
     streams = (q_img, k_img, v_img, q_txt, k_txt, v_txt)
     weights = tuple(rms_weights or ())
     if _needs_grad(streams + weights):
-        return _JointMHA.apply(num_heads, eps, sm_scale, saved, *streams, *weights)
-    return _forward(saved, lambda: joint_attention_fwd(
-        *streams, rms_weights, num_heads, eps, sm_scale, want_lse=False))[:2]
+        return _JointMHA.apply(num_heads, eps, sm_scale, *streams, *weights)
+    return joint_attention_fwd(*streams, rms_weights, num_heads, eps, sm_scale,
+                          want_lse=False)[:2]
 
 
 joint_mha.launches = 0
 
 
 def mha_rms(q, k, v, *, num_heads, rms_weights=None, eps: float = 1e-6,
-            sm_scale=None, saved=None):
+            sm_scale=None):
     """Single-stream (B, S, H*D) attention with fused per-head qk-RMS — SD3.5's
-    dual self-attention. ``rms_weights``: None or (wq, wk), each (D,);
-    ``saved`` as for :func:`joint_mha`."""
+    dual self-attention. ``rms_weights``: None or (wq, wk), each (D,)."""
     if sm_scale is None:
         sm_scale = (q.shape[-1] // num_heads) ** -0.5
     weights = tuple(rms_weights or ())
     if _needs_grad((q, k, v) + weights):
-        return _MhaRms.apply(num_heads, eps, sm_scale, saved, q, k, v, *weights)
-    return _forward(saved, lambda: mha_rms_fwd(q, k, v, rms_weights, num_heads, eps, sm_scale,
-                                               want_lse=False))[0]
+        return _MhaRms.apply(num_heads, eps, sm_scale, q, k, v, *weights)
+    return mha_rms_fwd(q, k, v, rms_weights, num_heads, eps, sm_scale,
+                           want_lse=False)[0]
 
 
 mha_rms.launches = 0

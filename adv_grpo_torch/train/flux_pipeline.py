@@ -70,7 +70,7 @@ class FluxPipeline:
     def from_pretrained(cls, model_dir: str, *, vae_dir: Optional[str] = None,
                         lora_rank: int = 0, lora_alpha: float = 1.0, dtype=torch.bfloat16,
                         text_seq_len: int = 512, guidance: float = 3.5, latent_hw: int = 64,
-                        device="cuda", remat=True):
+                        device="cuda", remat=False):
         """The transformer of a local diffusers ``FluxTransformer2DModel``
         directory (``models.convert.load_flux_transformer``) and the Flux
         ``AutoencoderKL`` of ``vae_dir``, by default ``<model_dir>/../vae``

@@ -73,7 +73,7 @@ class SD3Pipeline:
 
     @classmethod
     def from_pretrained(cls, model_dir: str, *, lora_rank: int = 0, lora_alpha: float = 1.0,
-                        dtype=torch.bfloat16, device="cuda", remat=True,
+                        dtype=torch.bfloat16, device="cuda", remat=False,
                         remat_policy="save_attn"):
         """The pipeline of a local diffusers-layout SD3 directory (see
         ``models.convert.load_sd3_pipeline``)."""

@@ -65,7 +65,7 @@ class WanPipeline:
     def from_pretrained(cls, model_dir: str, *, vae_dir: Optional[str] = None,
                         lora_rank: int = 0, lora_alpha: float = 1.0, dtype=torch.bfloat16,
                         latent_frames: int = 21, text_seq_len: int = 512, shift: float = 3.0,
-                        latent_hw: int = 8, device="cuda", remat=True):
+                        latent_hw: int = 8, device="cuda", remat=False):
         """The transformer of a local diffusers ``WanTransformer3DModel``
         directory (``models.convert.load_wan_transformer``) and the
         ``AutoencoderKLWan`` of ``vae_dir``, by default ``<model_dir>/../vae``

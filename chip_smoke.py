@@ -146,8 +146,8 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      remat off (three runs) and on (``_check_remat_grads``: within 5e-2 of
      fp32; with remat, every block's recompute bitwise its forward, and the
      gradients within REMAT_GRAD_SPREAD or twice the plain runs' spread of
-     the nearest plain run; so for the MMDiT of phase 5, at remat "full"
-     and "save_attn", and the WAN of phase 17);
+     the nearest plain run; so for the MMDiT of phase 5 and the WAN of
+     phase 17);
  14. ``adv_grpo_torch.cli.infer.generate`` on a full-width Flux.1-dev
      pipeline (random weights from the seed) at 512^2, 28 steps, guidance
      3.5: launch counts exactly 115/152/19/38 per forward times 28 steps,
@@ -156,8 +156,8 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      TFLOP/s, its device kernel time by group (torch.profiler) and busy
      share, peak device memory;
  15. ``GRPOTrainer`` on a full-width Flux.1-dev pipeline (LoRA r=32, random
-     weights from the seed) for FAMILY_EPOCHS epoch(s) of ``flux_smoke`` at
-     512^2 (FLUX_TRAIN_OVERRIDES: 8-step full-SDE rollouts of 4 images, 2 window
+     weights from the seed) for 2 epochs of ``flux_smoke`` at 512^2
+     (FLUX_TRAIN_OVERRIDES: 8-step full-SDE rollouts of 4 images, 2 window
      steps, one row per microstep, 16 microsteps per epoch, EMA every 2
      steps, the jpeg_compressibility reward): finite metrics, every LoRA
      factor and its EMA moved, the launch counts of all six Flux kernels
@@ -165,14 +165,14 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      replays and, under remat, of the blocks' recompute; 304 / 608
      backwards an epoch); seconds per epoch (rollout + decode, exposed reward,
      train), per microstep, peak device memory, one microstep's device time
-     by kernel group (torch.profiler), and its ms and peak memory with remat
-     off and on (``_remat_on_off``; so for the SD3 training of phase 10, at
-     "full" and "save_attn", and the WAN training of phase 19); then Flux.1-dev
-     at its published 1024^2 (``run_flux_1024_slice``): #2 / #4 at d = 128
-     and #8 / #9 at 4,096 + 512 tokens against their plain twins, timed
-     beside SDPA and their bounds, and one epoch of the same run at 1024^2
-     with remat on (launch counts as derived, finite metrics, LoRA and EMA
-     moved, each ``time/*`` phase, peak memory, one traced microstep);
+     by kernel group (torch.profiler); then Flux.1-dev at its published
+     1024^2 (``run_flux_1024_slice``): #2 / #4 at d = 128 and #8 / #9 at
+     4,096 + 512 tokens against their plain twins, timed beside SDPA and
+     their bounds, and one epoch of the same run at 1024^2 with remat on
+     (launch counts as derived, finite metrics, LoRA and EMA moved, each
+     ``time/*`` phase, peak memory, one traced microstep), and its
+     microstep's ms and peak memory with remat off and on
+     (``_remat_on_off``);
  16. the WAN kernels against their plain versions at the Wan2.1-T2V-1.3B
      shapes of 33 frames of 480^2 (8,100 video tokens, 512 text tokens, 12
      heads of 128, width 1536): the no-affine LayerNorm (#6, B = 1 and 2,
@@ -191,8 +191,8 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      time and achieved TFLOP/s, its device time by kernel group and busy
      share, peak memory; then a 3-step run with the per-step KL (non-zero
      LoRA B): the KL finite and positive, two forwards per step;
- 19. ``GRPOTrainer`` on a full-width Wan2.1-T2V-1.3B pipeline for
-     FAMILY_EPOCHS epoch(s) of ``wan_smoke`` (WAN_TRAIN_OVERRIDES: 33 frames of 480^2, 8-step
+ 19. ``GRPOTrainer`` on a full-width Wan2.1-T2V-1.3B pipeline for 2 epochs
+     of ``wan_smoke`` (WAN_TRAIN_OVERRIDES: 33 frames of 480^2, 8-step
      rollouts of one 2-video group per sampling batch, 2 window steps, one
      row per microstep): finite metrics, every LoRA factor and its EMA
      moved, the launch counts of the four WAN kernels and the BSHD backward
@@ -237,7 +237,10 @@ evaluation and preparation tools (``run_eval_tooling_slice``) and
 ``--remaining-rewards`` the last rewards (``run_remaining_rewards_slice``)
 the same way. ``--flux-1024 [--set key=value ...]`` runs the Flux.1-dev
 1024^2 phase alone (no process group), its config overridden as the CLIs'
-``--set`` does (``--set tpu.remat=False``: the run without remat).
+``--set`` does (remat on unless ``--set tpu.remat=False``).
+``python3 chip_smoke.py --remat-ab`` runs the whole script and also times
+the SD3, Flux 512^2 and WAN training microsteps with remat off and on
+(``_remat_on_off``), as the 1024^2 phase always does.
 ``python3 chip_smoke.py --sd3-attention-ab PARENT PAIRS`` instead times the
 joint forwards #2 / #3 (JOINT_CASES: SD3.5-M at CFG batch 2 and 8, Flux.1-dev
 at B = 1 and 4) of the checkout at PARENT (an older tree) against this one's,
@@ -287,9 +290,6 @@ INFER_ARGV = ["--config", "eval_sd3_fast", "--prompts", "a flower", "--set", "pr
 # lets the EMA move within the run's 4 optimizer steps (the preset's 8 would
 # first move it at step 8).
 EPOCHS = 2
-# the Flux 512^2 and WAN training phases: one epoch each (cut from two for
-# the whole script's time when the 1024^2 phase came)
-FAMILY_EPOCHS = 1
 TRAIN_ARGV = ["--config", "smoke_sd3_fast", "--set", "smoke_test=False",
               "--set", "sample.num_steps=10", "--set", "sample.train_batch_size=2",
               "--max_epochs", str(EPOCHS), "--set", "train.ema_interval=2",
@@ -297,7 +297,7 @@ TRAIN_ARGV = ["--config", "smoke_sd3_fast", "--set", "smoke_test=False",
 # the Flux training slice: flux_smoke at full Flux.1-dev width and 512^2,
 # 8-step full-SDE rollouts of one 4-image group per sampling batch, 2 batches
 # and 2 window steps per epoch, one row per microstep (micro_splits 4), EMA
-# every 2 optimizer steps (2 an epoch); FAMILY_EPOCHS epochs
+# every 2 of the run's 4 optimizer steps; 2 epochs
 FLUX_TRAIN_OVERRIDES = ["resolution=512", "sample.num_steps=8", "sample.train_num_steps=2",
                         "sample.train_batch_size=1", "sample.num_image_per_prompt=4",
                         "sample.mini_num_image_per_prompt=4", "sample.num_batches_per_epoch=2",
@@ -308,8 +308,7 @@ FLUX_TRAIN_OVERRIDES = ["resolution=512", "sample.num_steps=8", "sample.train_nu
 # UniPC steps, shift 3. Training: wan_smoke at that size, rollouts cut to 8
 # steps for the run's time, one 2-video group per sampling batch, 2 batches
 # and 2 window steps per epoch, one row per microstep (micro_splits 2: 8
-# microsteps, 2 optimizer steps per epoch), EMA every 2 steps; FAMILY_EPOCHS
-# epochs
+# microsteps, 2 optimizer steps per epoch), EMA every 2 of the run's 4 steps
 WAN_STEPS = 50
 # #8's max abs error (output and lse) at WAN's self and cross shapes as
 # recorded (PERF.md §6, at its precision) when the BSHD forward still
@@ -468,14 +467,13 @@ def per_forward_counts(mcfg):
 
 def per_recompute_counts(mcfg):
     """Launches of the blocks' recompute in one MMDiT backward
-    (``models/remat.py``): under remat "full" every block's forward kernels
-    again (a forward's, but the output norm); under "save_attn" the
-    modulated LNs alone (the attention outputs are kept); none without
+    (``models/remat.py``): under remat, at either policy, every block's
+    forward kernels again (a forward's, but the output norm); none without
     remat."""
     if not mcfg.remat:
         return 0, 0, 0
     ln, joint, single = per_forward_counts(mcfg)
-    return (ln - 1, joint, single) if mcfg.remat_policy == "full" else (ln - 1, 0, 0)
+    return ln - 1, joint, single
 
 
 def per_backward_counts(mcfg):
@@ -1029,7 +1027,7 @@ def _recompute_matches(model, fn):
 
 def _check_remat_grads(what, model, grads_of, ref):
     """The LoRA gradients ``grads_of(model)`` on the card with remat off,
-    three times, and on (the MMDiT at both ported policies): each within
+    three times, and on (the MMDiT at its default policy): each within
     5e-2 of the fp32 CPU gradients ``ref`` (the forward's bf16 budget); with
     remat, every block's recompute bitwise its first forward
     (``_recompute_matches``), and the gradients within the larger of
@@ -1041,8 +1039,7 @@ def _check_remat_grads(what, model, grads_of, ref):
     import torch
 
     base = model.cfg
-    remat = ([(p, dict(remat=True, remat_policy=p)) for p in ("full", "save_attn")]
-             if hasattr(base, "remat_policy") else [("full", dict(remat=True))])
+    remat = [("on", dict(remat=True))]
     plain, got, mismatched = [], {}, {}
     try:
         model.cfg = dataclasses.replace(base, remat=False)
@@ -1188,20 +1185,17 @@ def expected_train_counts(config, mcfg, epochs=EPOCHS, g_epochs=None):
 
 def _remat_on_off(what, model, epoch, n_micro, smi):
     """``epoch()`` (``n_micro`` microsteps of the trainer's epoch, run once
-    before as a warm-up) with remat off and on (the MMDiT at both ported
-    policies), in turns there and back (off, on, ..., on, off): each
-    variant's ms per microstep (CUDA events, each turn's and their mean)
-    and peak device memory, the model's weights, the optimizer's state and
-    the epoch's inputs included. Leaves the model's configuration as it
-    was."""
+    before as a warm-up) with remat off and on, in turns there and back
+    (off, on, on, off): each variant's ms per microstep (CUDA events, each
+    turn's and their mean) and peak device memory, the model's weights, the
+    optimizer's state and the epoch's inputs included. Leaves the model's
+    configuration as it was."""
     import dataclasses
 
     import torch
 
     base = model.cfg
-    variants = [("off", dict(remat=False))] + (
-        [(p, dict(remat=True, remat_policy=p)) for p in ("full", "save_attn")]
-        if hasattr(base, "remat_policy") else [("on", dict(remat=True))])
+    variants = [("off", dict(remat=False)), ("on", dict(remat=True))]
     turns, peaks = {}, {}
     try:
         for name, kw in variants + variants[::-1]:
@@ -1219,11 +1213,12 @@ def _remat_on_off(what, model, epoch, n_micro, smi):
               f"{peaks[name]:.2f} GiB; {smi}", flush=True)
 
 
-def run_training_slice(kernels, smi):
+def run_training_slice(kernels, smi, remat_ab=False):
     """Phase: ``adv_grpo_torch.cli.train.main`` on TRAIN_ARGV (full width,
     random weights from the seed); returns the kernels' launch counts. Then
     the last inner epoch's microsteps again on the trained state, traced:
-    one microstep's device time by kernel group."""
+    one microstep's device time by kernel group; with ``remat_ab`` also with
+    remat off and on (``_remat_on_off``)."""
     import os
 
     import numpy as np
@@ -1319,8 +1314,9 @@ def run_training_slice(kernels, smi):
     for grp, (calls, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
         print(f"    {grp}: {ms / n_micro:.2f} ms, {calls / n_micro:.0f} launches per microstep",
               flush=True)
-    _remat_on_off(f"smoke_sd3_fast microstep ({batched['latents'].shape[1]} rows)",
-                  trainer.pipeline.mmdit, epoch, n_micro, smi)
+    if remat_ab:
+        _remat_on_off(f"smoke_sd3_fast microstep ({batched['latents'].shape[1]} rows)",
+                      trainer.pipeline.mmdit, epoch, n_micro, smi)
     return counts
 
 
@@ -3630,7 +3626,7 @@ def run_flux_inference(kernels):
     return counts
 
 
-def expected_flux_train_counts(config, fcfg, epochs=FAMILY_EPOCHS):
+def expected_flux_train_counts(config, fcfg, epochs=EPOCHS):
     """Launches of the 6 Flux kernels in ``epochs`` epochs of the
     FLUX_TRAIN_OVERRIDES run, from the config: rollout forwards (one per step
     of each sampling batch), replay forwards and their blocks' recompute (one
@@ -3645,15 +3641,16 @@ def expected_flux_train_counts(config, fcfg, epochs=FAMILY_EPOCHS):
             + [fcfg.num_double_layers * micro, fcfg.num_single_layers * micro]), micro // epochs
 
 
-def run_flux_training(kernels, smi, resolution=512, epochs=FAMILY_EPOCHS, overrides=()):
+def run_flux_training(kernels, smi, resolution=512, epochs=EPOCHS, overrides=(),
+                      remat_ab=False):
     """Phase: ``GRPOTrainer`` on a full-width Flux.1-dev pipeline (random
     weights from the seed, LoRA rank and alpha of ``flux_smoke``, remat from
     ``tpu.remat``) for ``epochs`` epochs of ``flux_smoke`` with
     FLUX_TRAIN_OVERRIDES at ``resolution``^2 and ``overrides``: launch
     counts exactly as derived, finite metrics, every LoRA factor and its EMA
     moved; each epoch's ``time/*`` phases, peak device memory, one traced
-    microstep's kernel groups and busy share, and the microstep with remat
-    off and on. An out-of-memory error prints the peak
+    microstep's kernel groups and busy share, and with ``remat_ab`` the
+    microstep with remat off and on. An out-of-memory error prints the peak
     it reached, then fails the phase. Returns the kernels' launch counts."""
     import numpy as np
     import torch
@@ -3767,8 +3764,9 @@ def run_flux_training(kernels, smi, resolution=512, epochs=FAMILY_EPOCHS, overri
           f"{100 * kernel_ms / T / step_ms:.1f}% busy; {smi}", flush=True)
     for grp, (calls, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
         print(f"    {grp}: {ms / T:.2f} ms, {calls / T:.0f} launches per microstep", flush=True)
-    _remat_on_off(f"Flux.1-dev {resolution}^2 microstep (B=1)", pipeline.transformer, epoch,
-                  T, smi)
+    if remat_ab:
+        _remat_on_off(f"Flux.1-dev {resolution}^2 microstep (B=1)", pipeline.transformer,
+                      epoch, T, smi)
     del trainer, pipeline
     gc.collect()
     torch.cuda.empty_cache()
@@ -3872,15 +3870,16 @@ def check_flux_1024_kernels(smi):
 def run_flux_1024_slice(kernels, smi, overrides=()):
     """Phase: Flux.1-dev GRPO at its published 1024^2 (4,096 image + 512
     text tokens a row), full width and depth from random weights, one epoch
-    of ``flux_smoke`` with FLUX_TRAIN_OVERRIDES at ``tpu.remat``'s default
-    (on; ``overrides`` such as ``tpu.remat=False`` for a run by hand) and
-    its microstep with remat off and on, after its attention kernels at
-    those shapes (``check_flux_1024_kernels``).
+    of ``flux_smoke`` with FLUX_TRAIN_OVERRIDES and ``tpu.remat=True``
+    (``overrides`` such as ``tpu.remat=False`` for a run by hand) and its
+    microstep with remat off and on, after its attention kernels at those
+    shapes (``check_flux_1024_kernels``).
     ``python3 chip_smoke.py --flux-1024 [--set key=value ...]`` runs it
     alone."""
     t0 = time.perf_counter()
     check_flux_1024_kernels(smi)
-    run_flux_training(kernels, smi, resolution=1024, epochs=1, overrides=overrides)
+    run_flux_training(kernels, smi, resolution=1024, epochs=1,
+                      overrides=["tpu.remat=True", *overrides], remat_ab=True)
     print(f"Flux.1-dev 1024^2 phase: {time.perf_counter() - t0:.1f} s; {smi}", flush=True)
 
 
@@ -5312,7 +5311,7 @@ def run_wan_sampling(kernels):
     return counts, cross
 
 
-def expected_wan_train_counts(config, wcfg, epochs=FAMILY_EPOCHS):
+def expected_wan_train_counts(config, wcfg, epochs=EPOCHS):
     """Launches of the 4 WAN forward kernels and the BSHD backward in
     ``epochs`` epochs of the WAN_TRAIN_OVERRIDES run, from the config:
     rollout forwards (one per step of each sampling batch; no KL forward: the
@@ -5331,12 +5330,13 @@ def expected_wan_train_counts(config, wcfg, epochs=FAMILY_EPOCHS):
             + [2 * wcfg.num_layers * micro]), micro // epochs
 
 
-def run_wan_training(kernels, smi):
+def run_wan_training(kernels, smi, remat_ab=False):
     """Phase: ``GRPOTrainer`` on a full-width Wan2.1-T2V-1.3B pipeline
     (random weights from the seed, LoRA rank and alpha of ``wan_smoke``) for
-    FAMILY_EPOCHS epochs of ``wan_smoke`` with WAN_TRAIN_OVERRIDES; returns the
+    EPOCHS epochs of ``wan_smoke`` with WAN_TRAIN_OVERRIDES; returns the
     kernels' launch counts and the BSHD forward's and backward's
-    cross-attention (S_q != S_kv) shares of theirs."""
+    cross-attention (S_q != S_kv) shares of theirs. With ``remat_ab`` also
+    the microstep with remat off and on (``_remat_on_off``)."""
     import numpy as np
     import torch
 
@@ -5361,7 +5361,7 @@ def run_wan_training(kernels, smi):
                               encode, multi_score(dict(config.reward_fn)), latent_hw=latent_hw)
         _zero_counts(kernels)
         t0 = time.perf_counter()
-        trainer.run(max_epochs=FAMILY_EPOCHS)
+        trainer.run(max_epochs=EPOCHS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = [k.launches for k in kernels]
@@ -5372,7 +5372,7 @@ def run_wan_training(kernels, smi):
     want, micro = expected_wan_train_counts(config, wcfg)
     print(f"GRPOTrainer wan_smoke full-width Wan2.1-T2V-1.3B, {WAN_FRAMES} frames of "
           f"{WAN_RES}^2, {config.sample.num_steps}-step rollouts of "
-          f"{config.sample.mini_num_image_per_prompt} videos, {FAMILY_EPOCHS} epoch(s): "
+          f"{config.sample.mini_num_image_per_prompt} videos, {EPOCHS} epochs: "
           f"{wall:.2f} s wall; peak device memory {peak / 2**30:.2f} GiB; launches {counts} (modulated LN, RMS, LN, "
           f"BSHD, BSHD backward; expected {want}), {cross} of the BSHD ones cross-attention",
           flush=True)
@@ -5389,7 +5389,7 @@ def run_wan_training(kernels, smi):
         bad = [k for k, v in r.items() if isinstance(v, float) and not np.isfinite(v)]
         if bad:
             raise AssertionError(f"epoch {r['epoch']}: non-finite {bad}")
-    if len(records) != FAMILY_EPOCHS or trainer.state.global_step == 0:
+    if len(records) != EPOCHS or trainer.state.global_step == 0:
         raise AssertionError(f"{len(records)} epochs logged, global step "
                              f"{trainer.state.global_step}")
     lora, ema = trainer.state.lora, trainer.state.ema
@@ -5433,8 +5433,9 @@ def run_wan_training(kernels, smi):
           f"{100 * kernel_ms / T / step_ms:.1f}% busy", flush=True)
     for grp, (calls, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
         print(f"    {grp}: {ms / T:.2f} ms, {calls / T:.0f} launches per microstep", flush=True)
-    _remat_on_off(f"Wan2.1 {WAN_FRAMES} x {WAN_RES}^2 microstep (B=1)", pipeline.transformer,
-                  epoch, T, smi)
+    if remat_ab:
+        _remat_on_off(f"Wan2.1 {WAN_FRAMES} x {WAN_RES}^2 microstep (B=1)",
+                      pipeline.transformer, epoch, T, smi)
     del trainer, pipeline
     torch.cuda.empty_cache()
     return counts, cross
@@ -6553,6 +6554,9 @@ def main() -> int:
         alone[sys.argv[1]](kernels, smi)
         dist.destroy_process_group()
         return 0
+    remat_ab = sys.argv[1:] == ["--remat-ab"]  # the whole script, with the remat timings
+    if sys.argv[1:] and not remat_ab:
+        raise SystemExit(f"chip_smoke.py: unknown arguments {sys.argv[1:]}")
     results = check_kernels() + check_backward_kernels()
     flux_results = check_flux_kernels()
     flux_train_results = check_flux_backward_kernels()
@@ -6565,7 +6569,7 @@ def main() -> int:
     mha_counts = run_context_parallel()
     for r in mha_results:
         r["launches"] = mha_counts[r["name"]]
-    counts = run_training_slice(kernels, smi)
+    counts = run_training_slice(kernels, smi, remat_ab)
     for r, n in zip(results, counts):
         r["launches"] = n
     run_cotrain_slice(kernels, smi)
@@ -6581,7 +6585,7 @@ def main() -> int:
                             "mha_bshd"), run_flux_inference(flux_kernels)))
     for r in flux_results:
         r["launches"] = flux_counts[r["name"]]
-    flux_train_counts = run_flux_training(flux_train_kernels, smi)
+    flux_train_counts = run_flux_training(flux_train_kernels, smi, remat_ab=remat_ab)
     bwd_counts = dict(zip(("joint_attention_bwd_d128", "mha_bshd_bwd"), flux_train_counts[4:]))
     for r in flux_train_results:
         r["launches"] = bwd_counts[r["name"]]
@@ -6594,7 +6598,7 @@ def main() -> int:
     wan_counts = dict(zip(("modulated_layer_norm_wan", "rms_norm_heads_wan", "layer_norm"),
                           counts))
     wan_counts.update(mha_bshd_wan_self=counts[3] - cross, mha_bshd_wan_cross=cross)
-    counts, cross = run_wan_training(wan_kernels + (attention.mha_bshd_bwd,), smi)
+    counts, cross = run_wan_training(wan_kernels + (attention.mha_bshd_bwd,), smi, remat_ab)
     wan_counts.update(mha_bshd_bwd_wan_self=counts[4] - cross[1],
                       mha_bshd_bwd_wan_cross=cross[1])
     for r in wan_results:

@@ -8,10 +8,11 @@ port's own without it bit for bit (the recompute runs the same CPU ops on
 the same inputs) and match ``jax.grad`` of the JAX model with ``remat=True``
 (the MMDiT at both ported policies; 2e-3 relative to each gradient's
 largest element, the bound of tests/test_torch_flux_train.py and
-tests/test_torch_wan_train.py); ``save_attn`` launches the attention
-forwards once per block and microstep, ``full`` twice; a ``no_grad``
-forward checkpoints nothing and is unchanged; the policy names raise as the
-JAX table does, the v5e tiers by name.
+tests/test_torch_wan_train.py); with remat, at either policy, the attention
+forwards run twice per block and microstep (the recompute runs the whole
+block), once without; a ``no_grad`` forward checkpoints nothing and is
+unchanged; the policy names raise as the JAX table does, the v5e tiers by
+name; remat is off by default, the port's departure from JAX.
 """
 
 import dataclasses
@@ -185,10 +186,9 @@ def _counting(monkeypatch, module, name, counts):
     ("flux", None, True), ("wan", None, True)])
 def test_attention_forwards_per_microstep(monkeypatch, family, policy, remat):
     """The attention forwards of one microstep (forward and backward), on the
-    plain path: once per block without remat and under ``save_attn`` (the
-    recompute takes the first forward's outputs; block 0's dual attention,
-    whose inputs need no gradient, too), twice under full remat; the block
-    checkpoints once per block."""
+    plain path: once per block without remat, twice with it at either
+    policy (``save_attn`` recomputes the whole block as ``full`` does); each
+    block is checkpointed once."""
     model, t_lp, _, _, adv = _case(family, policy)
     with torch.no_grad():
         old = (t_lp().numpy() + 1e-4).astype(np.float32)
@@ -198,7 +198,7 @@ def test_attention_forwards_per_microstep(monkeypatch, family, policy, remat):
         _counting(monkeypatch, module, name, counts)
     _port_grads(model, t_lp, old, adv, remat, policy)
     c = model.cfg
-    twice = 2 if remat and policy in (None, "full") else 1
+    twice = 2 if remat else 1
     if family == "sd3":
         # CFG 4.5: one forward over the [cond ; uncond] batch
         want = {"joint_attention_fwd": c.num_layers * twice,
@@ -253,8 +253,10 @@ def test_policy_names_raise_as_jax():
 
 
 def test_config_defaults_are_jaxs():
-    """``remat`` / ``remat_policy`` default as the JAX configs do: on, at
-    ``save_attn``; the tiny configs off."""
+    """``remat_policy`` defaults as in the JAX configs (``save_attn``), and
+    the tiny configs have remat off as JAX's do; ``remat`` itself is off in
+    every port config, where the full-size JAX ones have it on (the port's
+    recorded departure, as ``tpu.remat`` in ``config/base.py``)."""
     from adv_grpo_torch.models.flux import FluxConfig as TFluxConfig
     from adv_grpo_torch.models.wan import WanConfig as TWanConfig
     from adv_grpo_tpu.models.flux import FluxConfig as JFluxConfig
@@ -265,5 +267,5 @@ def test_config_defaults_are_jaxs():
                                (TWanConfig, JWanConfig, "t2v_1_3b")):
         for ctor in (full, "tiny"):
             t, j = getattr(t_cls, ctor)(), getattr(j_cls, ctor)()
-            assert t.remat == j.remat == (ctor != "tiny")
+            assert not t.remat and j.remat == (ctor != "tiny")
             assert getattr(t, "remat_policy", None) == getattr(j, "remat_policy", None)
