@@ -12,9 +12,13 @@
 // 128, Flux's qk-norm, 152 times per forward) and `_rms_row_kernel` (one
 // head spanning the whole row, WAN's across-heads qk-norm).
 //
+// Each norm has a bf16 instance (the main path) and an fp32 one (`lnmod_f32`,
+// `ln_f32`, `rms_heads_f32`: the fp32 tiny presets and mixed_precision=fp32),
+// the same templates with 4-element instead of 8-element 16-byte vectors.
+//
 // Bound on this card: device-memory bandwidth. Either norm does ~4-8 flops
-// per element against 4 bytes moved (2 read, 2 written), far below the ~295
-// flop/byte ridge of the H100's bf16 tensor cores.
+// per element against 4 bytes moved in bf16 (2 read, 2 written; 8 in fp32),
+// far below the ~295 flop/byte ridge of the H100's bf16 tensor cores.
 //
 // Design. Each thread loads its part of a row once as 16-byte vectors and
 // keeps it in registers, so x is read from device memory exactly once and y
@@ -56,12 +60,17 @@ namespace {
 constexpr int kMaxVecPerThread = 4;
 
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
 }
 
 // Sum over the block; every thread gets the total. blockDim.x is a multiple of
@@ -321,11 +330,11 @@ int launch_layer_norm(const void* x, const void* scale, const void* shift, void*
 }
 
 // Per-head RMS over a row of `hd` = num_heads * d values: see the header.
-__global__ void rms_heads_kernel(const __nv_bfloat16* __restrict__ x,
-                                 const float* __restrict__ w, __nv_bfloat16* __restrict__ y,
-                                 int rows_per_batch, int hd, int d, long long x_sb,
-                                 long long x_ss, float eps) {
-  constexpr int VEC = 8;
+template <typename T>
+__global__ void rms_heads_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                                 T* __restrict__ y, int rows_per_batch, int hd, int d,
+                                 long long x_sb, long long x_ss, float eps) {
+  constexpr int VEC = 16 / sizeof(T);
   __shared__ float red[32];
   const long long row = blockIdx.x;
   const long long b = row / rows_per_batch, s = row % rows_per_batch;
@@ -340,7 +349,7 @@ __global__ void rms_heads_kernel(const __nv_bfloat16* __restrict__ x,
     const int vi = threadIdx.x + k * blockDim.x;
     ss[k] = 0.f;
     if (vi < nvec) {
-      alignas(16) __nv_bfloat16 e[VEC];
+      alignas(16) T e[VEC];
       *reinterpret_cast<uint4*>(e) = xr[vi];
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
@@ -368,15 +377,34 @@ __global__ void rms_heads_kernel(const __nv_bfloat16* __restrict__ x,
     const int vi = threadIdx.x + k * blockDim.x;
     if (vi < nvec) {
       const float r = rsqrtf(ss[k] / d + eps);
+      // this vector's VEC weights, as float4s
       const float4* wv = reinterpret_cast<const float4*>(w + (vi % vph) * VEC);
-      const float4 w0 = wv[0], w1 = wv[1];
-      const float ww[VEC] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-      alignas(16) __nv_bfloat16 eo[VEC];
+      float ww[VEC];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) eo[j] = from_f<__nv_bfloat16>(v[k][j] * r * ww[j]);
+      for (int q = 0; q < VEC / 4; ++q) {
+        const float4 f = wv[q];
+        ww[4 * q] = f.x;
+        ww[4 * q + 1] = f.y;
+        ww[4 * q + 2] = f.z;
+        ww[4 * q + 3] = f.w;
+      }
+      alignas(16) T eo[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) eo[j] = from_f<T>(v[k][j] * r * ww[j]);
       yr[vi] = *reinterpret_cast<uint4*>(eo);
     }
   }
+}
+
+template <typename T>
+int launch_rms_heads(const void* x, const void* w, void* y, long long rows, int rows_per_batch,
+                     int hd, int d, long long x_sb, long long x_ss, float eps, void* stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  rms_heads_kernel<T><<<static_cast<unsigned int>(rows), row_threads(hd / VEC), 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w), static_cast<T*>(y),
+      rows_per_batch, hd, d, x_sb, x_ss, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -412,9 +440,32 @@ extern "C" int ln_bf16(const void* x, void* y, long long rows, int d, float eps,
 extern "C" int rms_heads_bf16(const void* x, const void* w, void* y, long long rows,
                               int rows_per_batch, int hd, int d, long long x_sb,
                               long long x_ss, float eps, void* stream) {
-  rms_heads_kernel<<<static_cast<unsigned int>(rows), row_threads(hd / 8), 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
-      static_cast<__nv_bfloat16*>(y), rows_per_batch, hd, d, x_sb, x_ss, eps);
-  return static_cast<int>(cudaGetLastError());
+  return launch_rms_heads<__nv_bfloat16>(x, w, y, rows, rows_per_batch, hd, d, x_sb, x_ss,
+                                         eps, stream);
+}
+
+// The fp32 instances of the three norms: as their bf16 entries, with fp32
+// x, scale, shift and y, and 4-element (16-byte) vectors, so d (lnmod, ln)
+// is a multiple of 4 and at most 4 * 4096, and the RMS's head width d a
+// multiple of 4 that divides 128 (or d == hd, at most 16384).
+extern "C" int lnmod_f32(const void* x, const void* scale, const void* shift, void* y,
+                         long long rows, int rows_per_batch, int d, long long scale_stride,
+                         long long shift_stride, float eps, void* stream) {
+  if (rows <= 0 || rows_per_batch <= 0) return 0;  // nothing to launch
+  return launch_layer_norm<float, true>(x, scale, shift, y, rows / rows_per_batch,
+                                        rows_per_batch, d, scale_stride, shift_stride, eps,
+                                        stream);
+}
+
+extern "C" int ln_f32(const void* x, void* y, long long rows, int d, float eps, void* stream) {
+  if (rows <= 0) return 0;  // nothing to launch
+  return launch_layer_norm<float, false>(x, nullptr, nullptr, y, 1, rows, d, 0, 0, eps,
+                                         stream);
+}
+
+extern "C" int rms_heads_f32(const void* x, const void* w, void* y, long long rows,
+                             int rows_per_batch, int hd, int d, long long x_sb, long long x_ss,
+                             float eps, void* stream) {
+  return launch_rms_heads<float>(x, w, y, rows, rows_per_batch, hd, d, x_sb, x_ss, eps,
+                                 stream);
 }

@@ -41,6 +41,15 @@ _SIGNATURES = {
     "ln_bf16": [_P, _P, _LL, _I, _F, _P],
     # x, w, y, rows, rows_per_batch, hd, d, x batch/row strides, eps, stream
     "rms_heads_bf16": [_P, _P, _P, _LL, _I, _I, _I, _LL, _LL, _F, _P],
+    # the fp32 instances of the three norms, as their bf16 entries
+    "lnmod_f32": [_P, _P, _P, _P, _LL, _I, _I, _LL, _LL, _F, _P],
+    "ln_f32": [_P, _P, _LL, _I, _F, _P],
+    "rms_heads_f32": [_P, _P, _P, _LL, _I, _I, _I, _LL, _LL, _F, _P],
+    # the generic attention: stream descriptors, streams, dtype (0 fp32, 1
+    # bf16), mode, batch, heads, head dim, qscale, eps, stream
+    "attention_generic_fwd": [_P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    # the same, with sm_scale before eps
+    "attention_generic_bwd": [_P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
     # image q/k/v/o/lse/len, text q/k/v/o/lse/len, strides, 4 RMS weights,
     # image and text k^ scratch, batch, heads, head dim, qscale, eps, stream
     "joint_attention_fwd_bf16": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P,

@@ -23,6 +23,17 @@ scores, masked keys set to the JAX package's finite mask value, fp32
 softmax, cast back to q's dtype), and the backwards the kernels' plain twins
 :func:`bshd_bwd_reference` and :func:`flash_bwd_reference`.
 
+Which kernel a CUDA call takes is one pure function,
+:func:`attention_route`, of (dtype, head width, fused RMS, mode,
+direction): bf16 at head width 64 or 128 takes the wgmma + TMA kernels
+above ("sm90"); fp32 at any width up to 128, bf16 at the other widths up
+to 128, and the fused-RMS single-stream / joint backward at 128 take the
+generic FFMA kernels of ``csrc/attention_generic_{fwd,bwd}.cu``
+("generic", :func:`generic_attention`), each route with its own counter
+(``launches``, ``generic_launches``). Only a head wider than 128, or one
+that is not a whole number of 16-byte vectors, raises, as does a device
+other than the card or the CPU.
+
 The TPU layout's lane broadcast of the statistics (``LSE_LANES``) and its
 zero padding of S to a block multiple have no counterpart here: the
 statistics stay (B, H, S), and the kernels mask ragged rows themselves.
@@ -40,7 +51,12 @@ from adv_grpo_torch.kernels import build as _kernels
 # exp(-inf - -inf)
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = 1.4426950408889634  # the kernels' softmax runs in base 2
-HEAD_DIMS = (64, 128)  # the head widths the forward kernels are built for
+HEAD_DIMS = (64, 128)  # the head widths of the wgmma + TMA kernels (bf16)
+GENERIC_MAX_HEAD_DIM = 128  # the widest head of the generic kernels
+# the generic kernels' modes (csrc/attention_generic.cuh Mode); "single" is
+# kJoint with one stream
+GENERIC_MODES = {"joint": 0, "single": 0, "bshd": 1, "bhsd": 2}
+_ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
 
 def attention_reference(q, k, v, *, sm_scale, kv_len=None, return_lse=False):
@@ -86,23 +102,70 @@ def bwd_row_stats(o, do, num_heads):
     return di.transpose(1, 2).contiguous()
 
 
+# ─────────────────────────── routing ───────────────────────────
+
+
+def attention_route(device, dtype, d, *, mode, rms=False, direction="fwd", what="attention"):
+    """The kernel an attention call takes: "plain" on the CPU (the plain
+    versions, any geometry); on the card "sm90" (the wgmma + TMA kernels) or
+    "generic" (csrc/attention_generic_{fwd,bwd}.cu).
+
+    ``mode``: "joint", "single" (``mha_rms``), "bshd" or "bhsd"; ``rms``:
+    the fused qk-RMS weights are given; ``direction``: "fwd" or "bwd". bf16
+    at head width 64 or 128 takes "sm90", but for the single-stream backward
+    and the joint backward with the fused RMS at 128, which the wgmma
+    backward does not build; everything else within the limits takes
+    "generic". Raises on a device other than the card or the CPU, a dtype
+    other than fp32 or bf16, and a head width ``d`` over
+    GENERIC_MAX_HEAD_DIM or not a whole number of 16-byte vectors."""
+    if mode not in GENERIC_MODES or direction not in ("fwd", "bwd"):
+        raise ValueError(f"{what}: unknown mode {mode!r} or direction {direction!r}")
+    if device.type == "cpu":
+        return "plain"
+    if device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {device}")
+    if dtype not in _ELEMENT_BYTES:
+        raise TypeError(f"{what}: the kernels take fp32 or bf16, got {dtype}")
+    vec = 16 // _ELEMENT_BYTES[dtype]
+    if not 1 <= d <= GENERIC_MAX_HEAD_DIM or d % vec:
+        raise ValueError(f"{what}: the kernels take head widths up to "
+                         f"{GENERIC_MAX_HEAD_DIM} that are whole 16-byte vectors (multiples "
+                         f"of {vec} in {dtype}); got {d}")
+    if dtype == torch.bfloat16 and d in HEAD_DIMS:
+        wgmma_bwd = d == 64 or mode in ("bshd", "bhsd") or (mode == "joint" and not rms)
+        return "sm90" if direction == "fwd" or wgmma_bwd else "generic"
+    return "generic"
+
+
+def route_of(what, x, num_heads, **kw):
+    """(route, head width) of a call on the (.., H*D) tensor ``x``
+    (:func:`attention_route`); the width is checked to split into
+    ``num_heads`` heads first, on the card (None on the CPU)."""
+    if x.device.type == "cpu":
+        return attention_route(x.device, x.dtype, 0, what=what, **kw), None
+    d = head_dim_of(what, x.shape[-1], num_heads)
+    return attention_route(x.device, x.dtype, d, what=what, **kw), d
+
+
 # ─────────────────────────── kernel wrapper ───────────────────────────
 
 
-def check_rows(what, tensors, device):
-    """Validate bf16 (B, S, H*D) tensors that a kernel reads in place through
-    their (batch, row) strides as 16-byte vectors."""
+def check_rows(what, tensors, device, dtype):
+    """Validate ``dtype`` (fp32 or bf16) (B, S, H*D) tensors that a kernel
+    reads in place through their (batch, row) strides as 16-byte vectors."""
+    vec = 16 // _ELEMENT_BYTES[dtype]
     for t in tensors:
         if t.device != device:
             raise ValueError(f"{what}: all inputs must be on {device}, got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what}: the kernel takes bf16 q/k/v, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: the kernel takes {dtype} q/k/v here, got {t.dtype}")
         if t.ndim != 3:
             raise ValueError(f"{what}: expected (B, S, H*D), got {tuple(t.shape)}")
         # a head's columns must be contiguous and 16-byte aligned
-        if t.stride(2) != 1 or t.stride(0) % 8 or t.stride(1) % 8 or t.data_ptr() % 16:
+        if t.stride(2) != 1 or t.stride(0) % vec or t.stride(1) % vec or t.data_ptr() % 16:
             raise ValueError(f"{what}: the last dim must be contiguous, with batch/row "
-                             "strides that are multiples of 8 and a 16-byte aligned base")
+                             f"strides that are multiples of {vec} and a 16-byte aligned "
+                             "base")
 
 
 def check_stats(what, stats, batch, num_heads, length, device):
@@ -115,11 +178,11 @@ def check_stats(what, stats, batch, num_heads, length, device):
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def head_dim_of(what, width, num_heads, dims=HEAD_DIMS):
-    """The head width of a (.., H*D) tensor; raises unless it is in ``dims``."""
-    if num_heads < 1 or width % num_heads or width // num_heads not in dims:
-        raise ValueError(f"{what}: the kernel takes heads of {' or '.join(map(str, dims))}; "
-                         f"got width {width} for {num_heads} heads")
+def head_dim_of(what, width, num_heads):
+    """The head width of a (.., H*D) tensor; raises unless ``num_heads``
+    heads split it."""
+    if num_heads < 1 or width % num_heads:
+        raise ValueError(f"{what}: width {width} does not split into {num_heads} heads")
     return width // num_heads
 
 
@@ -127,12 +190,64 @@ def int64_array(vals):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+# the generic kernels' per-stream descriptor (csrc/attention_generic.cuh
+# Desc): lengths, then (pointer, batch, row and head strides) per tensor,
+# then pointers
+_DESC_LEN = 42
+_DESC_INTS = {"q_rows": 0, "kv_rows": 1, "kv_valid": 2}
+_DESC_VIEWS = {"q": 3, "k": 7, "v": 11, "o": 15, "do": 19, "dq": 23, "dk": 27, "dv": 31}
+_DESC_PTRS = {"lse": 35, "di": 36, "wq": 37, "wk": 38, "qhat": 39, "qs": 40, "khat": 41}
+
+
+def _generic_view(t, mode, d):
+    """(pointer, batch, row, head strides) of a (B, S, H*D) tensor, or of a
+    (B, H, S, D) one in mode "bhsd"."""
+    if mode == "bhsd":
+        return (t.data_ptr(), t.stride(0), t.stride(2), t.stride(1))
+    return (t.data_ptr(), t.stride(0), t.stride(1), d)
+
+
+def generic_attention(direction, mode, streams, *, batch, num_heads, d, sm_scale, eps=0.0):
+    """Launch the generic forward or backward (``direction`` "fwd" / "bwd")
+    on one or two streams. Each stream is a dict of the descriptor's slots:
+    ``q_rows``, ``kv_rows``, ``kv_valid`` (ints); the tensors ``q``, ``k``,
+    ``v`` and ``o`` (forward) or ``do``, ``dq``, ``dk``, ``dv`` (backward),
+    written in place; ``lse`` (fp32 (B, H, q_rows)), ``di``, the RMS weights
+    ``wq`` / ``wk`` and, in the joint modes, the operand scratches ``qhat``,
+    ``qs`` (backward) and ``khat`` (with ``wk``), contiguous (B, S, H*D) of
+    q's dtype; a slot left out is null. The wrapper has checked the tensors
+    (dtype, strides, alignment)."""
+    desc = [0] * (_DESC_LEN * len(streams))
+    for i, st in enumerate(streams):
+        base = i * _DESC_LEN
+        for key, val in st.items():
+            if val is None:
+                continue
+            if key in _DESC_INTS:
+                desc[base + _DESC_INTS[key]] = int(val)
+            elif key in _DESC_VIEWS:
+                desc[base + _DESC_VIEWS[key]:base + _DESC_VIEWS[key] + 4] = _generic_view(
+                    val, mode, d)
+            else:
+                desc[base + _DESC_PTRS[key]] = val.data_ptr()
+    q = streams[0]["q"]
+    dtype_code = 0 if q.dtype == torch.float32 else 1
+    args = (int64_array(desc), len(streams), dtype_code, GENERIC_MODES[mode], batch, num_heads,
+            d, float(sm_scale * LOG2E))
+    lib, stream = _kernels.lib(), _kernels.stream_ptr(q.device)
+    if direction == "fwd":
+        rc = lib.attention_generic_fwd(*args, float(eps), stream)
+    else:
+        rc = lib.attention_generic_bwd(*args, float(sm_scale), float(eps), stream)
+    _kernels.check(rc, f"attention_generic_{direction} ({mode})")
+
+
 def _check_bshd(what, q, k, v, num_heads, kv_len):
     """Validate a (q, k, v) kernel call; return (batch, S_q, S_kv, head width,
     kv_len clamped to S_kv)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
-    check_rows(what, (q, k, v), q.device)
+    check_rows(what, (q, k, v), q.device, q.dtype)
     b, sq, hd = q.shape
     skv = k.shape[1]
     if k.shape != (b, skv, hd) or v.shape != k.shape:
@@ -172,12 +287,22 @@ def _bshd_strides(tensors, d):
 def mha_bshd_fwd(q, k, v, num_heads, sm_scale, kv_len, want_lse):
     """(o, lse): the kernel on CUDA tensors, the plain version on CPU
     tensors; lse is fp32 (B, H, S_q), or None unless ``want_lse``."""
-    if q.device.type == "cpu":
+    what = "mha_bshd"
+    route, _ = route_of(what, q, num_heads, mode="bshd")
+    if route == "plain":
         out = mha_bshd_reference(q, k, v, num_heads=num_heads, sm_scale=sm_scale,
                                  kv_len=kv_len, return_lse=want_lse)
         return out if want_lse else (out, None)
-    what = "mha_bshd"
     b, sq, skv, d, kv = _check_bshd(what, q, k, v, num_heads, kv_len)
+    if route == "generic":
+        o = torch.empty((b, sq, q.shape[2]), dtype=q.dtype, device=q.device)
+        lse = (torch.empty((b, num_heads, sq), dtype=torch.float32, device=q.device)
+               if want_lse else None)
+        generic_attention("fwd", "bshd", [dict(q_rows=sq, kv_rows=skv, kv_valid=kv, q=q, k=k,
+                                               v=v, o=o, lse=lse)],
+                          batch=b, num_heads=num_heads, d=d, sm_scale=sm_scale)
+        mha_bshd.generic_launches += 1
+        return o, lse
     o = torch.empty((b, sq, q.shape[2]), dtype=torch.bfloat16, device=q.device)
     lse = (torch.empty((b, num_heads, sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
@@ -198,15 +323,26 @@ def mha_bshd_bwd(q, k, v, do, lse, di, *, num_heads, sm_scale=None, kv_len=None)
     ``kv_len`` are zero."""
     if sm_scale is None:
         sm_scale = (q.shape[-1] // num_heads) ** -0.5
-    if q.device.type == "cpu":
+    what = "mha_bshd_bwd"
+    route, _ = route_of(what, q, num_heads, mode="bshd", direction="bwd")
+    if route == "plain":
         return bshd_bwd_reference(q, k, v, do, lse, di, num_heads=num_heads,
                                   sm_scale=sm_scale, kv_len=kv_len)
-    what = "mha_bshd_bwd"
     b, sq, skv, d, kv = _check_bshd(what, q, k, v, num_heads, kv_len)
-    check_rows(what, (do,), q.device)
+    check_rows(what, (do,), q.device, q.dtype)
     if do.shape != q.shape:
         raise ValueError(f"{what}: do {tuple(do.shape)} and q {tuple(q.shape)} differ")
     check_stats(what, (lse, di), b, num_heads, sq, q.device)
+    if route == "generic":
+        dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+        dk, dv = (torch.empty((b, skv, q.shape[2]), dtype=q.dtype, device=q.device)
+                  for _ in range(2))
+        generic_attention("bwd", "bshd", [dict(q_rows=sq, kv_rows=skv, kv_valid=kv, q=q, k=k,
+                                               v=v, do=do, dq=dq, dk=dk, dv=dv, lse=lse,
+                                               di=di)],
+                          batch=b, num_heads=num_heads, d=d, sm_scale=sm_scale)
+        mha_bshd_bwd.generic_launches += 1
+        return dq, dk, dv
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk, dv = (torch.empty((b, skv, q.shape[2]), dtype=torch.bfloat16, device=q.device)
               for _ in range(2))
@@ -223,8 +359,9 @@ def mha_bshd_bwd(q, k, v, do, lse, di, *, num_heads, sm_scale=None, kv_len=None)
     return dq, dk, dv
 
 
-# launches, and of those the ones with S_q != S_kv (cross-attention)
-mha_bshd_bwd.launches = mha_bshd_bwd.cross_launches = 0
+# launches of the wgmma + TMA kernel, and of those the ones with S_q != S_kv
+# (cross-attention); launches of the generic kernel
+mha_bshd_bwd.launches = mha_bshd_bwd.cross_launches = mha_bshd_bwd.generic_launches = 0
 
 
 class _MhaBshd(torch.autograd.Function):
@@ -253,9 +390,10 @@ def mha_bshd(q, k, v, *, num_heads, sm_scale=None, kv_len=None):
     place (no transposes); keys at or past ``kv_len`` are masked.
 
     CPU tensors take the plain path; CUDA tensors launch the forward kernel
-    (bf16, head width 64 or 128) or raise. Differentiable in q, k and v: the
-    backward launches ``mha_bshd_bwd_bf16`` on CUDA tensors and runs its plain
-    twin on CPU tensors.
+    of :func:`attention_route` (bf16 at head width 64 or 128: #8; fp32, or
+    bf16 at another width up to 128: the generic kernel) or raise.
+    Differentiable in q, k and v: the backward launches #9 or the generic
+    backward on CUDA tensors and runs its plain twin on CPU tensors.
     """
     if sm_scale is None:
         sm_scale = (q.shape[-1] // num_heads) ** -0.5
@@ -264,7 +402,7 @@ def mha_bshd(q, k, v, *, num_heads, sm_scale=None, kv_len=None):
     return mha_bshd_fwd(q, k, v, num_heads, sm_scale, kv_len, want_lse=False)[0]
 
 
-mha_bshd.launches = mha_bshd.cross_launches = 0
+mha_bshd.launches = mha_bshd.cross_launches = mha_bshd.generic_launches = 0
 
 
 # ───────────────────── (B, H, S, D): mha, kernels #10 / #11 ─────────────────────
@@ -319,16 +457,17 @@ def bshd_bwd_reference(q, k, v, do, lse, di, *, num_heads, sm_scale=None, kv_len
 
 
 def _check_bhsd(what, q, k, v, kv_len):
-    """Validate an ``mha`` kernel call on contiguous bf16 (B, H, S, D)
-    tensors; return (batch, heads, S_q, S_kv, head width, kv_len clamped to
+    """Validate an ``mha`` kernel call on contiguous (B, H, S, D) tensors of
+    q's dtype; return (batch, heads, S_q, S_kv, head width, kv_len clamped to
     S_kv)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     for t in (q, k, v):
         if t.device != q.device:
             raise ValueError(f"{what}: all inputs must be on {q.device}, got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what}: the kernel takes bf16 q/k/v, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{what}: the kernel takes q/k/v of one dtype, got {t.dtype} "
+                            f"beside {q.dtype}")
         if t.ndim != 4:
             raise ValueError(f"{what}: expected (B, H, S, D), got {tuple(t.shape)}")
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -339,7 +478,6 @@ def _check_bhsd(what, q, k, v, kv_len):
     if k.shape != (b, h, skv, d) or v.shape != k.shape:
         raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not agree")
-    head_dim_of(what, d, 1)
     kv = skv if kv_len is None else min(int(kv_len), skv)
     if sq < 1 or kv < 1:
         raise ValueError(f"{what}: needs at least one query and one key (S_q={sq}, "
@@ -351,15 +489,22 @@ def mha_fwd(q, k, v, sm_scale, kv_len, want_lse):
     """(o, lse) of :func:`mha`: kernel #10 (``mha_fwd_bf16``) on CUDA
     tensors, :func:`attention_reference` on CPU tensors; lse is fp32 (B, H,
     S_q), or None unless ``want_lse``."""
-    if q.device.type == "cpu":
+    what = "mha"
+    route, _ = route_of(what, q, 1, mode="bhsd")
+    if route == "plain":
         out = attention_reference(q, k, v, sm_scale=sm_scale, kv_len=kv_len,
                                   return_lse=want_lse)
         return out if want_lse else (out, None)
-    what = "mha"
     b, h, sq, skv, d, kv = _check_bhsd(what, q, k, v, kv_len)
     o = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
+    if route == "generic":
+        generic_attention("fwd", "bhsd", [dict(q_rows=sq, kv_rows=skv, kv_valid=kv, q=q, k=k,
+                                               v=v, o=o, lse=lse)],
+                          batch=b, num_heads=h, d=d, sm_scale=sm_scale)
+        mha.generic_launches += 1
+        return o, lse
     rc = _kernels.lib().mha_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(), sq, skv, kv, b, h, d,
@@ -375,18 +520,26 @@ def mha_bwd(q, k, v, o, lse, do, *, sm_scale, kv_len=None):
     (``mha_bwd_bf16``, p and ds to fp32 accuracy) on CUDA tensors, its plain
     twin :func:`flash_bwd_reference` on CPU tensors. di = sum_d o * do is
     taken from o as stored, as the TPU's ``_flash_bwd`` takes it."""
-    if q.device.type == "cpu":
-        return flash_bwd_reference(q, k, v, o, lse, do, sm_scale=sm_scale, kv_len=kv_len)
     what = "mha_bwd"
+    route, _ = route_of(what, q, 1, mode="bhsd", direction="bwd")
+    if route == "plain":
+        return flash_bwd_reference(q, k, v, o, lse, do, sm_scale=sm_scale, kv_len=kv_len)
     b, h, sq, skv, d, kv = _check_bhsd(what, q, k, v, kv_len)
     if do.shape != q.shape or o.shape != q.shape:
         raise ValueError(f"{what}: o {tuple(o.shape)} / do {tuple(do.shape)} and q "
                          f"{tuple(q.shape)} differ")
-    _check_bhsd(what, q, o, do, None)  # o and do: contiguous bf16 of q's shape
+    _check_bhsd(what, q, o, do, None)  # o and do: contiguous, q's dtype and shape
     check_stats(what, (lse,), b, h, sq, q.device)
     di = (o.float() * do.float()).sum(-1)
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if route == "generic":
+        generic_attention("bwd", "bhsd", [dict(q_rows=sq, kv_rows=skv, kv_valid=kv, q=q, k=k,
+                                               v=v, do=do, dq=dq, dk=dk, dv=dv, lse=lse,
+                                               di=di)],
+                          batch=b, num_heads=h, d=d, sm_scale=sm_scale)
+        mha_bwd.generic_launches += 1
+        return dq, dk, dv
     acc, splits, dkv_acc = bwd_scratch(b, h, sq, skv, d, q.device)
     rc = _kernels.lib().mha_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -399,8 +552,9 @@ def mha_bwd(q, k, v, o, lse, do, *, sm_scale, kv_len=None):
     return dq, dk, dv
 
 
-# launches, and of those the ones with S_q != S_kv
-mha_bwd.launches = mha_bwd.cross_launches = 0
+# launches of #11, and of those the ones with S_q != S_kv; of the generic
+# kernel
+mha_bwd.launches = mha_bwd.cross_launches = mha_bwd.generic_launches = 0
 
 
 class _FlashMha(torch.autograd.Function):
@@ -427,10 +581,11 @@ def mha(q, k, v, *, sm_scale=None, kv_len=None):
     differ from S_kv; keys at or past ``kv_len`` are masked (``kv_len >=
     S_kv`` is no mask).
 
-    CPU tensors take the plain path; CUDA tensors launch kernel #10 (bf16,
-    contiguous, head width 64 or 128) or raise. Differentiable in q, k and v:
-    the backward launches kernel #11 on CUDA tensors and runs its plain twin
-    on CPU tensors.
+    CPU tensors take the plain path; CUDA tensors (contiguous) launch kernel
+    #10 (bf16, head width 64 or 128) or the generic kernel (fp32, or bf16 at
+    another width up to 128), or raise. Differentiable in q, k and v: the
+    backward launches #11 or the generic backward on CUDA tensors and runs
+    its plain twin on CPU tensors.
     """
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
@@ -441,4 +596,4 @@ def mha(q, k, v, *, sm_scale=None, kv_len=None):
     return mha_fwd(q, k, v, sm_scale, kv_len, want_lse=False)[0]
 
 
-mha.launches = mha.cross_launches = 0
+mha.launches = mha.cross_launches = mha.generic_launches = 0

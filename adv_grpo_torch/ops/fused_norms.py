@@ -11,7 +11,9 @@ and the attention), 152 times per forward, and WAN across all heads (one
 head of the whole row), 120 times. On a CUDA tensor each launches its
 hand-written kernel in ``csrc/fused_norms.cu``, on a CPU tensor it runs the
 plain version (:func:`lnmod_reference`, :func:`ln_reference`,
-:func:`rms_reference`). Their backwards, which the fused attention
+:func:`rms_reference`). Each kernel has a bf16 entry (the main path) and an
+fp32 one (``*_f32``: the fp32 tiny presets and ``mixed_precision=fp32``),
+chosen by the input's dtype (:func:`_entry`). Their backwards, which the fused attention
 backwards share, are the JAX package's closed forms in plain PyTorch (they
 are plain XLA there too).
 
@@ -24,6 +26,22 @@ from __future__ import annotations
 import torch
 
 from adv_grpo_torch.kernels import build as _kernels
+
+# the kernels' element types: the C entry's suffix, and the elements in a
+# 16-byte vector (the unit the kernels load and store)
+_DTYPES = {torch.bfloat16: ("bf16", 8), torch.float32: ("f32", 4)}
+
+
+def _entry(what, name, dtypes):
+    """(C entry's name, elements per 16-byte vector) of kernel ``name`` for
+    tensors of ``dtypes`` (inputs and output), which must all be bf16 or all
+    fp32."""
+    dt = set(dtypes)
+    if len(dt) != 1 or next(iter(dt)) not in _DTYPES:
+        raise TypeError(f"{what}: the kernel takes bf16 or fp32 inputs and output of one "
+                        f"dtype; got {', '.join(map(str, dtypes))}")
+    suffix, vec = _DTYPES[next(iter(dt))]
+    return f"{name}_{suffix}", vec
 
 
 def ln_reference(x, eps, out_dtype):
@@ -109,27 +127,25 @@ def _rms_forward(x, w, num_heads, eps, out_dtype):
     if num_heads < 1 or hd % num_heads:
         raise ValueError(f"rms_norm_heads: width {hd} does not split into {num_heads} heads")
     d = hd // num_heads
-    if x.dtype != torch.bfloat16 or out_dtype != torch.bfloat16:
-        raise TypeError(f"rms_norm_heads: the kernel takes bf16 x and output; got x "
-                        f"{x.dtype}, out {out_dtype}")
+    fn, vec = _entry("rms_norm_heads", "rms_heads", (x.dtype, out_dtype))
     if (w.device != x.device or w.dtype != torch.float32 or w.shape != (d,)
             or not w.is_contiguous()):
         raise ValueError(f"rms_norm_heads: the weight must be contiguous fp32 ({d},) on "
                          f"{x.device}, got {w.dtype} {tuple(w.shape)} on {w.device}")
-    vec = 8  # bf16 elements per 16-byte vector
     # a head's vectors are reduced by lane shuffles when they tile a warp
-    # (d <= 256), by a block reduction when the head is the whole row
+    # (d <= 32 vectors), by a block reduction when the head is the whole row
     if d % vec or not ((32 % (d // vec) == 0) or num_heads == 1) or hd // vec > 4096:
+        widths = ", ".join(str(vec << i) for i in range(6))
         raise ValueError(f"rms_norm_heads: head width {d} of {num_heads} heads: the kernel "
-                         f"takes d in (8, 16, 32, 64, 128, 256), or one head of any "
+                         f"takes d in ({widths}) in {x.dtype}, or one head of any "
                          f"multiple of {vec} up to {4096 * vec}")
     # rows read in place through (batch, row) strides, as 16-byte vectors
     if x.stride(2) != 1 or x.stride(0) % vec or x.stride(1) % vec or x.data_ptr() % 16:
         raise ValueError("rms_norm_heads: the last dim must be contiguous, with batch/row "
-                         "strides that are multiples of 8 and a 16-byte aligned base")
-    y = torch.empty((b, s, hd), dtype=torch.bfloat16, device=x.device)
+                         f"strides that are multiples of {vec} and a 16-byte aligned base")
+    y = torch.empty((b, s, hd), dtype=x.dtype, device=x.device)
     if y.numel():
-        rc = _kernels.lib().rms_heads_bf16(
+        rc = getattr(_kernels.lib(), fn)(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), b * s, s, hd, d, x.stride(0),
             x.stride(1), float(eps), _kernels.stream_ptr(x.device))
         _kernels.check(rc, "rms_norm_heads")
@@ -160,8 +176,8 @@ def rms_norm_heads(x, w, *, num_heads: int, eps: float = 1e-6, out_dtype=None):
     whole row, WAN's across-heads norm).
 
     CPU tensors take the plain path; CUDA tensors launch the kernel in
-    ``csrc/fused_norms.cu`` (bf16 in and out, rows read through their
-    strides) or raise. Differentiable in x and w.
+    ``csrc/fused_norms.cu`` (bf16 or fp32, the output in x's dtype, rows
+    read through their strides) or raise. Differentiable in x and w.
     """
     out_dtype = out_dtype or x.dtype
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
@@ -172,14 +188,14 @@ def rms_norm_heads(x, w, *, num_heads: int, eps: float = 1e-6, out_dtype=None):
 rms_norm_heads.launches = 0
 
 
-def _check_ln_rows(what, x):
+def _check_ln_rows(what, x, vec):
     """The LayerNorm kernels' input checks on a CUDA x: (B, S, D) with D a
-    multiple of 8 and at most 8 * 4096, contiguous, 16-byte aligned."""
+    multiple of ``vec`` (the elements of a 16-byte vector) and at most vec *
+    4096, contiguous, 16-byte aligned."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     if x.ndim != 3:
         raise ValueError(f"{what}: x must be (B, S, D), got {tuple(x.shape)}")
-    vec = 8  # bf16 elements per 16-byte vector
     d = x.shape[2]
     if d % vec or d // vec > 4096:
         raise ValueError(f"{what}: D={d} must be a multiple of {vec} and at most {4096 * vec}")
@@ -191,7 +207,11 @@ def _lnmod_forward(x, scale, shift, eps, out_dtype):
     """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return lnmod_reference(x, scale, shift, eps, out_dtype)
-    _check_ln_rows("modulated_layer_norm", x)
+    if x.device.type != "cuda":
+        raise ValueError(f"modulated_layer_norm: unsupported device {x.device}")
+    fn, vec = _entry("modulated_layer_norm", "lnmod",
+                     (x.dtype, scale.dtype, shift.dtype, out_dtype))
+    _check_ln_rows("modulated_layer_norm", x, vec)
     b, s, d = x.shape
     for name, t in (("scale", scale), ("shift", shift)):
         if t.shape != (b, d):
@@ -199,18 +219,14 @@ def _lnmod_forward(x, scale, shift, eps, out_dtype):
                              f"got {tuple(t.shape)}")
         if t.device != x.device:
             raise ValueError(f"modulated_layer_norm: {name} on {t.device}, x on {x.device}")
-    if {x.dtype, scale.dtype, shift.dtype, out_dtype} != {torch.bfloat16}:
-        raise TypeError("modulated_layer_norm: the kernel takes bf16 x, scale, shift and "
-                        f"output; got x {x.dtype}, scale {scale.dtype}, shift "
-                        f"{shift.dtype}, out {out_dtype}")
     # scale/shift may be chunks of one modulation matmul: rows read through
     # their stride, 16-byte vectors along D
-    if any(t.stride(1) != 1 or t.stride(0) % 8 or t.data_ptr() % 16 for t in (scale, shift)):
+    if any(t.stride(1) != 1 or t.stride(0) % vec or t.data_ptr() % 16 for t in (scale, shift)):
         raise ValueError("modulated_layer_norm: scale and shift need unit stride along D "
                          "and 16-byte aligned rows")
     y = torch.empty_like(x)
     if y.numel():
-        rc = _kernels.lib().lnmod_bf16(
+        rc = getattr(_kernels.lib(), fn)(
             x.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr(),
             b * s, s, d, scale.stride(0), shift.stride(0), float(eps),
             _kernels.stream_ptr(x.device))
@@ -240,8 +256,9 @@ def modulated_layer_norm(x, scale, shift, *, eps: float = 1e-6, out_dtype=None):
     """Fused ``LN(x) * (1 + scale[:, None]) + shift[:, None]``.
 
     x: (B, S, D); scale, shift: (B, D). CPU tensors take the plain path; CUDA
-    tensors launch the kernel (bf16 in and out, x contiguous, D a multiple of
-    8) or raise. Differentiable in x, scale and shift.
+    tensors launch the kernel (bf16 or fp32 in and out, one dtype, x
+    contiguous, D a whole number of 16-byte vectors) or raise.
+    Differentiable in x, scale and shift.
     """
     out_dtype = out_dtype or x.dtype
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
@@ -258,14 +275,14 @@ def _ln_forward(x, eps, out_dtype):
     tensor."""
     if x.device.type == "cpu":
         return ln_reference(x, eps, out_dtype)
-    _check_ln_rows("layer_norm", x)
-    if x.dtype != torch.bfloat16 or out_dtype != torch.bfloat16:
-        raise TypeError(f"layer_norm: the kernel takes bf16 x and output; got x {x.dtype}, "
-                        f"out {out_dtype}")
+    if x.device.type != "cuda":
+        raise ValueError(f"layer_norm: unsupported device {x.device}")
+    fn, vec = _entry("layer_norm", "ln", (x.dtype, out_dtype))
+    _check_ln_rows("layer_norm", x, vec)
     y = torch.empty_like(x)
     if y.numel():
-        rc = _kernels.lib().ln_bf16(x.data_ptr(), y.data_ptr(), x.shape[0] * x.shape[1],
-                                    x.shape[2], float(eps), _kernels.stream_ptr(x.device))
+        rc = getattr(_kernels.lib(), fn)(x.data_ptr(), y.data_ptr(), x.shape[0] * x.shape[1],
+                                         x.shape[2], float(eps), _kernels.stream_ptr(x.device))
         _kernels.check(rc, "layer_norm")
         layer_norm.launches += 1
     return y
@@ -293,8 +310,9 @@ def layer_norm(x, *, eps: float = 1e-6, out_dtype=None):
     ``(x - mean) * rsqrt(var + eps)`` with the centred variance, cast to
     ``out_dtype``.
 
-    CPU tensors take the plain path; CUDA tensors launch the kernel (bf16 in
-    and out, x contiguous, D a multiple of 8) or raise. Differentiable in x.
+    CPU tensors take the plain path; CUDA tensors launch the kernel (bf16 or
+    fp32 in and out, one dtype, x contiguous, D a whole number of 16-byte
+    vectors) or raise. Differentiable in x.
     """
     out_dtype = out_dtype or x.dtype
     if torch.is_grad_enabled() and x.requires_grad:

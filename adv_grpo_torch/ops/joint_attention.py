@@ -32,9 +32,15 @@ backward and the dq convert run. On CPU tensors the plain twin
 :func:`attention_bwd_reference` runs, in the kernel's op order. q^ and k^
 come from the same code as the forward's (:func:`joint_operands` here,
 ``csrc/sm90.cuh`` on the card), so the backward's p is the forward's. The
-joint backward takes D = 64 (with or without RMS) and D = 128 (without RMS,
-Flux's double blocks); the single-stream one takes D = 64; other widths
-raise.
+wgmma joint backward takes bf16 at D = 64 (with or without RMS) and D = 128
+(without RMS, Flux's double blocks); the single-stream one D = 64.
+
+Where :func:`adv_grpo_torch.ops.attention.attention_route` says "generic"
+(fp32 at any head width up to 128, bf16 at the other widths up to 128, and
+the backward of the single stream and of the fused RMS at 128), the same
+wrappers launch the generic kernels of ``csrc/attention_generic_*.cu``
+instead (:func:`_generic_fwd`, :func:`_generic_bwd`), in the twins' op
+order, and count them in ``generic_launches``.
 """
 
 from __future__ import annotations
@@ -43,18 +49,11 @@ import torch
 
 from adv_grpo_torch.kernels import build as _kernels
 from adv_grpo_torch.ops.attention import (
-    HEAD_DIMS, LOG2E, attention_reference, bwd_row_stats, check_rows, check_stats, head_dim_of,
-    int64_array)
+    LOG2E, attention_reference, bwd_row_stats, check_rows, check_stats, generic_attention,
+    int64_array, route_of)
 from adv_grpo_torch.ops.attention import from_bhsd as _from4
 from adv_grpo_torch.ops.attention import to_bhsd as _to4
 from adv_grpo_torch.ops.fused_norms import rms_bwd_closed, rms_reference
-
-# the joint backward's head widths: 64 (SD3.5-M, qk-RMS fused) and 128
-# (Flux.1-dev, no RMS: its qk-norm and RoPE come before); the single-stream
-# RMS backward takes 64 only
-_BWD_HEAD_DIMS = (64, 128)
-_RMS_BWD_HEAD_DIMS = (64,)
-
 
 def joint_mha_reference(q_img, k_img, v_img, q_txt, k_txt, v_txt, *, num_heads,
                         rms_weights=None, eps=1e-6, sm_scale=None, return_lse=False):
@@ -104,7 +103,10 @@ def _sum_sq(xf, halves):
     each 8-column chunk summed in column order, then the chunk sums in chunk
     order; with ``halves`` (a q row, two threads in the kernel) the chunks
     c % 8 < 4 and the others summed apart, then the two added."""
-    part = (xf * xf).unflatten(-1, (-1, 8))
+    sq = xf * xf
+    if sq.shape[-1] % 8:  # a partial last chunk: zeros add nothing
+        sq = torch.nn.functional.pad(sq, (0, -sq.shape[-1] % 8))
+    part = sq.unflatten(-1, (-1, 8))
     chunk = part[..., 0]
     for e in range(1, 8):
         chunk = chunk + part[..., e]
@@ -122,14 +124,14 @@ def _sum_sq(xf, halves):
 
 def _operand(x, w, num_heads, eps, halves, scale=None):
     """(B, H, S, D) fp32 of the (B, S, H*D) ``x`` as the joint kernels read
-    it: with the RMS weight ``w``, dt(x * 1 / sqrt(sum(x^2) / D + eps) * w [*
-    scale]), the sum of squares in the kernels' order (:func:`_sum_sq`,
+    it: with the RMS weight ``w``, dt(x * 1 / sqrt(sum(x^2) * (1 / D) + eps) *
+    w [* scale]), the sum of squares in the kernels' order (:func:`_sum_sq`,
     ``halves`` for q); without it dt(x * scale), or x as stored without a
     scale; dt is x's dtype."""
     xf = _to4(x, num_heads).float()
     if w is not None:
         ss = _sum_sq(xf, halves)
-        xf = xf * (1.0 / torch.sqrt(ss / xf.shape[-1] + eps)) * w.float()
+        xf = xf * (1.0 / torch.sqrt(ss * (1.0 / xf.shape[-1]) + eps)) * w.float()
     elif scale is None:
         return xf
     if scale is not None:
@@ -143,7 +145,7 @@ def joint_operands(qs, ks, *, num_heads, rms_weights=None, eps=1e-6, sm_scale=No
     log2 e) (the scores' operand, in base 2), q_s = dt(yq * sm_scale) (the
     backward's dk operand) and k^ = dt(yk), with yq = rms(q) * wq and yk =
     rms(k) * wk in fp32 (q and k as stored without weights; k^ is then k
-    itself), rms(x) = x * 1 / sqrt(sum(x^2) / D + eps). The forward (q^ and
+    itself), rms(x) = x * 1 / sqrt(sum(x^2) * (1 / D) + eps). The forward (q^ and
     k^) and the backward's pre-pass (all three) form them with one code on
     the card (``csrc/sm90.cuh``), and both twins take them from here: so the
     backward's p = exp2(q^ k^T - lse * log2 e) is the forward's. ``qs``,
@@ -243,9 +245,10 @@ def attention_bwd_reference(qs, ks, vs, dos, lses, dis, *, num_heads, rms_weight
 # ─────────────────────────── kernel wrappers ───────────────────────────
 
 
-def _check_stream(what, tensors, batch, hd, device):
-    """Validate one stream's (B, S, H*D) tensors for a kernel; return S."""
-    check_rows(what, tensors, device)
+def _check_stream(what, tensors, batch, hd, device, dtype):
+    """Validate one stream's (B, S, H*D) ``dtype`` tensors for a kernel;
+    return S."""
+    check_rows(what, tensors, device, dtype)
     length = tensors[0].shape[1]
     for t in tensors:
         if t.shape != (batch, length, hd):
@@ -271,16 +274,55 @@ def _strides(*tensors):
     return int64_array([st for t in tensors for st in (t.stride(0), t.stride(1))])
 
 
-def _geometry(what, q, num_heads, dims=HEAD_DIMS):
-    """(batch, width, head width) of a kernel call; raises on a device, a
-    head width or an empty stream the kernel does not take."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {q.device}")
+def _geometry(what, q):
+    """(batch, width) of a kernel call on the card; raises on an empty first
+    stream."""
     b, s, hd = q.shape
-    d = head_dim_of(what, hd, num_heads, dims)
     if s < 1:
         raise ValueError(f"{what}: empty image stream")
-    return b, hd, d
+    return b, hd
+
+
+def _generic_fwd(qs, ks, vs, rms_weights, num_heads, d, eps, sm_scale, want_lse):
+    """The generic forward on one or two streams (lists of (B, S_i, H*D));
+    ``rms_weights``: None or one (wq, wk) pair per stream. Returns ([o per
+    stream], [lse per stream or None])."""
+    b, _, hd = qs[0].shape
+    dev, dt = qs[0].device, qs[0].dtype
+    streams = []
+    for i, (q, k, v) in enumerate(zip(qs, ks, vs)):
+        s = q.shape[1]
+        wq, wk = rms_weights[i] if rms_weights else (None, None)
+        streams.append(dict(
+            q_rows=s, kv_rows=k.shape[1], kv_valid=k.shape[1], q=q, k=k, v=v,
+            o=torch.empty((b, s, hd), dtype=dt, device=dev),
+            lse=_lse_out(b, num_heads, s, dev, want_lse), wq=wq, wk=wk,
+            qhat=torch.empty((b, s, hd), dtype=dt, device=dev),
+            khat=None if wk is None else torch.empty(k.shape, dtype=dt, device=dev)))
+    generic_attention("fwd", "joint", streams, batch=b, num_heads=num_heads, d=d,
+                      sm_scale=sm_scale, eps=eps)
+    return [st["o"] for st in streams], [st["lse"] for st in streams]
+
+
+def _generic_bwd(qs, ks, vs, dos, lses, dis, rms_weights, num_heads, d, eps, sm_scale):
+    """The generic backward on one or two streams: [(dyq, dyk, dv) per
+    stream], as :func:`attention_bwd_reference` gives them."""
+    b, _, hd = qs[0].shape
+    dev, dt = qs[0].device, qs[0].dtype
+    streams = []
+    for i, (q, k, v, do, lse, di) in enumerate(zip(qs, ks, vs, dos, lses, dis)):
+        wq, wk = rms_weights[i] if rms_weights else (None, None)
+        streams.append(dict(
+            q_rows=q.shape[1], kv_rows=k.shape[1], kv_valid=k.shape[1], q=q, k=k, v=v, do=do,
+            dq=torch.empty(q.shape, dtype=dt, device=dev),
+            dk=torch.empty(k.shape, dtype=dt, device=dev),
+            dv=torch.empty(v.shape, dtype=dt, device=dev), lse=lse, di=di, wq=wq, wk=wk,
+            qhat=torch.empty(q.shape, dtype=dt, device=dev),
+            qs=torch.empty(q.shape, dtype=dt, device=dev),
+            khat=None if wk is None else torch.empty(k.shape, dtype=dt, device=dev)))
+    generic_attention("bwd", "joint", streams, batch=b, num_heads=num_heads, d=d,
+                      sm_scale=sm_scale, eps=eps)
+    return [(st["dq"], st["dk"], st["dv"]) for st in streams]
 
 
 def _lse_out(b, num_heads, s, dev, want):
@@ -323,16 +365,26 @@ def joint_attention_fwd(q_img, k_img, v_img, q_txt, k_txt, v_txt, rms_weights, n
                    eps, sm_scale, want_lse):
     """(o_img, o_txt, lse_img, lse_txt): the kernel on CUDA, the plain version
     on the CPU; the lse are None unless ``want_lse``."""
-    if q_img.device.type == "cpu":
+    route, d = route_of("joint_mha", q_img, num_heads, mode="joint",
+                        rms=rms_weights is not None)
+    if route == "plain":
         out = joint_mha_reference(q_img, k_img, v_img, q_txt, k_txt, v_txt,
                                   num_heads=num_heads, rms_weights=rms_weights, eps=eps,
                                   sm_scale=sm_scale, return_lse=want_lse)
         return out if want_lse else (*out, None, None)
-    b, hd, d = _geometry("joint_mha", q_img, num_heads)
+    b, hd = _geometry("joint_mha", q_img)
     dev = q_img.device
-    s_i = _check_stream("joint_mha", (q_img, k_img, v_img), b, hd, dev)
-    s_t = _check_stream("joint_mha", (q_txt, k_txt, v_txt), b, hd, dev)
+    s_i = _check_stream("joint_mha", (q_img, k_img, v_img), b, hd, dev, q_img.dtype)
+    s_t = _check_stream("joint_mha", (q_txt, k_txt, v_txt), b, hd, dev, q_img.dtype)
     w = _check_weights("joint_mha", rms_weights, 4, d, dev)
+    if route == "generic":
+        pairs = None if rms_weights is None else [tuple(rms_weights[:2]),
+                                                  tuple(rms_weights[2:])]
+        (o_img, o_txt), (lse_img, lse_txt) = _generic_fwd(
+            [q_img, q_txt], [k_img, k_txt], [v_img, v_txt], pairs, num_heads, d, eps,
+            sm_scale, want_lse)
+        joint_mha.generic_launches += 1
+        return o_img, o_txt, lse_img, lse_txt
     o_img = torch.empty((b, s_i, hd), dtype=torch.bfloat16, device=dev)
     o_txt = torch.empty((b, s_t, hd), dtype=torch.bfloat16, device=dev)
     lse_img = _lse_out(b, num_heads, s_i, dev, want_lse)
@@ -352,14 +404,21 @@ def joint_attention_fwd(q_img, k_img, v_img, q_txt, k_txt, v_txt, rms_weights, n
 
 def mha_rms_fwd(q, k, v, rms_weights, num_heads, eps, sm_scale, want_lse):
     """(o, lse): the kernel on CUDA, the plain version on the CPU."""
-    if q.device.type == "cpu":
+    route, d = route_of("mha_rms", q, num_heads, mode="single", rms=rms_weights is not None)
+    if route == "plain":
         out = mha_rms_reference(q, k, v, num_heads=num_heads, rms_weights=rms_weights,
                                 eps=eps, sm_scale=sm_scale, return_lse=want_lse)
         return out if want_lse else (out, None)
-    b, hd, d = _geometry("mha_rms", q, num_heads)
+    b, hd = _geometry("mha_rms", q)
     dev = q.device
-    s = _check_stream("mha_rms", (q, k, v), b, hd, dev)
+    s = _check_stream("mha_rms", (q, k, v), b, hd, dev, q.dtype)
     w = _check_weights("mha_rms", rms_weights, 2, d, dev)
+    if route == "generic":
+        (o,), (lse,) = _generic_fwd([q], [k], [v], None if rms_weights is None
+                                    else [tuple(rms_weights)], num_heads, d, eps, sm_scale,
+                                    want_lse)
+        mha_rms.generic_launches += 1
+        return o, lse
     o = torch.empty((b, s, hd), dtype=torch.bfloat16, device=dev)
     lse = _lse_out(b, num_heads, s, dev, want_lse)
     stream = _kernels.stream_ptr(dev)
@@ -408,24 +467,31 @@ def joint_attention_bwd(q_img, k_img, v_img, q_txt, k_txt, v_txt, do_img, do_txt
     CPU tensors. lse/di: fp32 (B, H, S) per stream."""
     if sm_scale is None:
         sm_scale = (q_img.shape[-1] // num_heads) ** -0.5
-    if q_img.device.type == "cpu":
-        w = rms_weights
-        pairs = None if w is None else [(w[0], w[1]), (w[2], w[3])]
+    what = "joint_attention_bwd"
+    route, d = route_of(what, q_img, num_heads, mode="joint", rms=rms_weights is not None,
+                        direction="bwd")
+    w = rms_weights
+    pairs = None if w is None else [(w[0], w[1]), (w[2], w[3])]
+    if route == "plain":
         img, txt = attention_bwd_reference(
             [q_img, q_txt], [k_img, k_txt], [v_img, v_txt], [do_img, do_txt],
             [lse_img, lse_txt], [di_img, di_txt], num_heads=num_heads,
             rms_weights=pairs, eps=eps, sm_scale=sm_scale)
         return (*img, *txt)
-    what = "joint_attention_bwd"
-    b, hd, d = _geometry(what, q_img, num_heads, _BWD_HEAD_DIMS)
-    if d != 64 and rms_weights is not None:
-        raise ValueError(f"{what}: the fused qk-RMS backward takes head width 64, got {d}")
+    b, hd = _geometry(what, q_img)
     dev = q_img.device
-    s_i = _check_stream(what, (q_img, k_img, v_img, do_img), b, hd, dev)
-    s_t = _check_stream(what, (q_txt, k_txt, v_txt, do_txt), b, hd, dev)
+    s_i = _check_stream(what, (q_img, k_img, v_img, do_img), b, hd, dev, q_img.dtype)
+    s_t = _check_stream(what, (q_txt, k_txt, v_txt, do_txt), b, hd, dev,
+                        q_img.dtype)
     check_stats(what, (lse_img, di_img), b, num_heads, s_i, dev)
     check_stats(what, (lse_txt, di_txt), b, num_heads, s_t, dev)
     w = _check_weights(what, rms_weights, 4, d, dev)
+    if route == "generic":
+        img, txt = _generic_bwd([q_img, q_txt], [k_img, k_txt], [v_img, v_txt],
+                                [do_img, do_txt], [lse_img, lse_txt], [di_img, di_txt], pairs,
+                                num_heads, d, eps, sm_scale)
+        joint_attention_bwd.generic_launches += 1
+        return (*img, *txt)
     outs = [torch.empty((b, s, hd), dtype=torch.bfloat16, device=dev)
             for s in (s_i, s_i, s_i, s_t, s_t, s_t)]
     strides = _strides(q_img, k_img, v_img, do_img, q_txt, k_txt, v_txt, do_txt)
@@ -443,7 +509,7 @@ def joint_attention_bwd(q_img, k_img, v_img, q_txt, k_txt, v_txt, do_img, do_txt
     return tuple(outs)
 
 
-joint_attention_bwd.launches = 0
+joint_attention_bwd.launches = joint_attention_bwd.generic_launches = 0
 
 
 def mha_rms_bwd(q, k, v, do, lse, di, *, num_heads, rms_weights=None, eps=1e-6,
@@ -452,17 +518,24 @@ def mha_rms_bwd(q, k, v, do, lse, di, *, num_heads, rms_weights=None, eps=1e-6,
     plain twin on CPU tensors."""
     if sm_scale is None:
         sm_scale = (q.shape[-1] // num_heads) ** -0.5
-    if q.device.type == "cpu":
-        pairs = None if rms_weights is None else [tuple(rms_weights)]
+    what = "mha_rms_bwd"
+    route, d = route_of(what, q, num_heads, mode="single", rms=rms_weights is not None,
+                        direction="bwd")
+    pairs = None if rms_weights is None else [tuple(rms_weights)]
+    if route == "plain":
         return attention_bwd_reference([q], [k], [v], [do], [lse], [di],
                                        num_heads=num_heads, rms_weights=pairs, eps=eps,
                                        sm_scale=sm_scale)[0]
-    what = "mha_rms_bwd"
-    b, hd, d = _geometry(what, q, num_heads, _RMS_BWD_HEAD_DIMS)
+    b, hd = _geometry(what, q)
     dev = q.device
-    s = _check_stream(what, (q, k, v, do), b, hd, dev)
+    s = _check_stream(what, (q, k, v, do), b, hd, dev, q.dtype)
     check_stats(what, (lse, di), b, num_heads, s, dev)
     w = _check_weights(what, rms_weights, 2, d, dev)
+    if route == "generic":
+        (out,) = _generic_bwd([q], [k], [v], [do], [lse], [di], pairs, num_heads, d, eps,
+                              sm_scale)
+        mha_rms_bwd.generic_launches += 1
+        return out
     outs = [torch.empty((b, s, hd), dtype=torch.bfloat16, device=dev) for _ in range(3)]
     stream = _kernels.stream_ptr(dev)
     scratch = _bwd_scratch_ptrs(b, (s,), hd, rms_weights is not None, dev, stream)
@@ -475,7 +548,7 @@ def mha_rms_bwd(q, k, v, do, lse, di, *, num_heads, rms_weights=None, eps=1e-6,
     return tuple(outs)
 
 
-mha_rms_bwd.launches = 0
+mha_rms_bwd.launches = mha_rms_bwd.generic_launches = 0
 
 
 # ─────────────────────────── autograd ───────────────────────────
@@ -573,7 +646,7 @@ def joint_mha(q_img, k_img, v_img, q_txt, k_txt, v_txt, *, num_heads,
                           want_lse=False)[:2]
 
 
-joint_mha.launches = 0
+joint_mha.launches = joint_mha.generic_launches = 0
 
 
 def mha_rms(q, k, v, *, num_heads, rms_weights=None, eps: float = 1e-6,
@@ -589,4 +662,4 @@ def mha_rms(q, k, v, *, num_heads, rms_weights=None, eps: float = 1e-6,
                            want_lse=False)[0]
 
 
-mha_rms.launches = 0
+mha_rms.launches = mha_rms.generic_launches = 0

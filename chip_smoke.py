@@ -225,6 +225,24 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      the judges' formats; every new reward on the epoch's 16 decoded
      images (finite, shape (16,), ms per batch), the loaded scorers bitwise
      the drawn ones, ``constractive_external`` on both gate branches.
+ 22. the kernels' whole range (``run_kernel_range_slice``; every phase
+     before it launches no generic attention kernel, ``check_no_generic``):
+     the generic attention kernels (``csrc/attention_generic_{fwd,bwd}.cu``:
+     fp32 at any head width up to 128, bf16 at the other widths) at
+     KR_EDGES for fp32 and bf16 at d = 16 / 32 / 48 / 64 / 128 in every mode
+     (joint with the qk-RMS, single-stream, BSHD with kv_len, BHSD) forward
+     and backward against their plain twins, then at the full-width fp32
+     shapes (SD3.5-M's joint and single-stream attention with the qk-RMS,
+     Flux.1-dev's joint at d = 128, WAN's self-attention, KR_CP_SHAPE) and
+     the bf16 joint backward with the qk-RMS at d = 128, the fp32 norms;
+     each timed beside its plain version, SDPA / ``F.layer_norm`` /
+     ``F.rms_norm`` in fp32 and its fp32 bound; the five CI-sized presets on
+     the card (KR_SD3_TRAIN, KR_FLUX_INFER, KR_FLUX_TRAIN, KR_WAN_DEMO,
+     KR_WAN_TRAIN: fp32 tiny models) and ``cli.infer`` at full SD3.5-M width
+     in fp32, every launch count as derived from the configs; a 2-layer
+     full-width fp32 MMDiT and its LoRA gradients against the CPU
+     (KR_MODEL_F32); ``mha`` at d = 32 through
+     ``context_parallel_attention`` in a one-rank group. TF32 off.
 
 ``python3 chip_smoke.py --dino`` builds the kernels and runs the DINO phase
 alone (``run_dino_slice``, in its one-rank NCCL group), without the result
@@ -238,6 +256,8 @@ evaluation and preparation tools (``run_eval_tooling_slice``) and
 the same way. ``--flux-1024 [--set key=value ...]`` runs the Flux.1-dev
 1024^2 phase alone (no process group), its config overridden as the CLIs'
 ``--set`` does (remat on unless ``--set tpu.remat=False``).
+``--kernel-range`` runs the kernel-range phase alone and prints its
+kernels-line entries on a line of their own.
 ``python3 chip_smoke.py --remat-ab`` runs the whole script and also times
 the SD3, Flux 512^2 and WAN training microsteps with remat off and on
 (``_remat_on_off``), as the 1024^2 phase always does.
@@ -6418,6 +6438,668 @@ def attention_ab(mode, parent, pairs):
             flush=True)
 
 
+# ── the kernels' whole range: fp32, every head width up to 128 ──────────────
+
+GENERIC_FWD_SOURCE = "adv_grpo_torch/csrc/attention_generic_fwd.cu"
+GENERIC_BWD_SOURCE = "adv_grpo_torch/csrc/attention_generic_bwd.cu"
+NORMS_SOURCE = "adv_grpo_torch/csrc/fused_norms.cu"
+# the generic kernels and the fp32 norms against their plain versions: fp32
+# forward within KR_FWD_F32 relative L2 of the twin and backward within
+# KR_BWD_F32 (only the sum order differs); bf16 within KR_BF16 relative L2
+# of fp32 (the joint forward's bound) and, for the joint / single forward, within 1 bf16
+# spacing of the twin at each row's largest output; the fp32 card-vs-CPU
+# model within KR_MODEL_F32; the fp32 norms within KR_NORM_F32 of fp32
+KR_FWD_F32, KR_BWD_F32, KR_BF16, KR_MODEL_F32, KR_NORM_F32 = 1e-5, 1e-4, 2e-2, 1e-4, 1e-6
+KR_WIDTHS = (16, 32, 48, 64, 128)
+# tile edges per mode (the generic kernels' 64-row q tile, 128-row forward
+# and 64-row backward kv tiles): joint (B, S_img, S_txt, H), single (B, S,
+# H), bshd (B, S_q, S_kv, H, kv_len), bhsd (B, H, S_q, S_kv, kv_len)
+KR_EDGES = {"joint": ((2, 65, 37, 2), (1, 1, 129, 2)), "single": ((1, 63, 2), (2, 129, 1)),
+            "bshd": ((1, 129, 64, 2, 63), (2, 1, 65, 1, None)),
+            "bhsd": ((1, 2, 64, 129, 100), (1, 1, 129, 65, None))}
+# the README's CPU commands on the card (the CI-sized presets, fp32 tiny models)
+KR_SD3_TRAIN = ["--config", "smoke_sd3_fast", "--latent_hw", "8", "--set",
+                "sample.train_batch_size=2", "--max_epochs", "2"]
+KR_FLUX_INFER = ["--config", "flux_smoke", "--prompts", "a flower"]
+KR_FLUX_TRAIN = ["--config", "flux_smoke", "--max_epochs", "2"]
+KR_WAN_DEMO = ["--config", "wan_smoke"]
+KR_WAN_TRAIN = ["--config", "wan_smoke", "--max_epochs", "2"]
+# the context-parallel call at the ring test's head width (B, H, S, D)
+KR_CP_SHAPE = (1, 16, 2048, 32)
+
+
+def generic_counters():
+    """The attention wrappers, each with its ``generic_launches`` counter."""
+    from adv_grpo_torch.ops import attention, joint_attention
+
+    return (joint_attention.joint_mha, joint_attention.mha_rms,
+            joint_attention.joint_attention_bwd, joint_attention.mha_rms_bwd,
+            attention.mha_bshd, attention.mha_bshd_bwd, attention.mha, attention.mha_bwd)
+
+
+def check_no_generic(what):
+    """Every phase before the kernel-range one runs bf16 at head width 64 or
+    128, so it launches no generic kernel; the counters are never reset
+    before that phase, so this holds for every phase up to ``what``."""
+    n = {f.__name__: f.generic_launches for f in generic_counters()}
+    if any(n.values()):
+        raise AssertionError(f"generic attention launches up to {what}: {n}")
+
+
+def _kr_zero():
+    """Every attention counter (both routes) and the norms' at 0."""
+    from adv_grpo_torch.ops import fused_norms
+
+    _zero_counts(generic_counters() + (fused_norms.modulated_layer_norm,
+                                       fused_norms.layer_norm, fused_norms.rms_norm_heads))
+    for f in generic_counters():
+        f.generic_launches = 0
+
+
+def _kr_inputs(mode, dt, d, shape, g):
+    """Inputs of a generic case on the card: ``(q, k, v, do)`` per stream (a
+    list), the RMS weight pairs (or None), H."""
+    import torch
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device="cuda").to(dt)
+
+    if mode == "bhsd":
+        b, h, sq, skv, _ = shape
+        return [(randn(b, h, sq, d), randn(b, h, skv, d), randn(b, h, skv, d),
+                 randn(b, h, sq, d))], None, h
+    if mode == "bshd":
+        b, sq, skv, h, _ = shape
+        qkv = randn(b, sq, 3 * h * d)  # q a column slice of a fused projection
+        return [(qkv[..., :h * d], randn(b, skv, h * d), randn(b, skv, h * d),
+                 randn(b, sq, h * d))], None, h
+    lens, h = (shape[1:3], shape[3]) if mode == "joint" else (shape[1:2], shape[2])
+    b = shape[0]
+    streams = [tuple(randn(b, s, h * d) for _ in range(4)) for s in lens]
+    pairs = [tuple((1.0 + 0.1 * torch.randn(d, generator=g, device="cuda")).float()
+                   for _ in range(2)) for _ in lens]
+    return streams, pairs, h
+
+
+def _kr_fwd(mode, streams, pairs, h, d, kv_len):
+    """(outputs, lse per stream) of the wrapper's forward on the card."""
+    from adv_grpo_torch.ops import attention, joint_attention as ja
+
+    sm = d ** -0.5
+    q, k, v = streams[0][:3]
+    if mode == "bhsd":
+        o, lse = attention.mha_fwd(q, k, v, sm, kv_len, True)
+        return [o], [lse]
+    if mode == "bshd":
+        o, lse = attention.mha_bshd_fwd(q, k, v, h, sm, kv_len, True)
+        return [o], [lse]
+    if mode == "single":
+        o, lse = ja.mha_rms_fwd(q, k, v, pairs and pairs[0], h, 1e-6, sm, True)
+        return [o], [lse]
+    (qi, ki, vi, _), (qt, kt, vt, _) = streams
+    w = pairs and [*pairs[0], *pairs[1]]
+    oi, ot, li, lt = ja.joint_attention_fwd(qi, ki, vi, qt, kt, vt, w, h, 1e-6, sm, True)
+    return [oi, ot], [li, lt]
+
+
+def _kr_plain_fwd(mode, streams, pairs, h, d, kv_len, dt=None):
+    """The plain forward (fp32 unless ``dt``) on the same values: (outputs,
+    contiguous lse per stream)."""
+    from adv_grpo_torch.ops import attention, joint_attention as ja
+
+    cast = [[t.float() if dt is None else t for t in s] for s in streams]
+    sm = d ** -0.5
+    q, k, v = cast[0][:3]
+    if mode == "bhsd":
+        o, lse = attention.attention_reference(q, k, v, sm_scale=sm, kv_len=kv_len,
+                                               return_lse=True)
+        return [o], [lse]
+    if mode == "bshd":
+        o, lse = attention.mha_bshd_reference(q, k, v, num_heads=h, kv_len=kv_len,
+                                              return_lse=True)
+        return [o], [lse]
+    outs, lses = ja.joint_fwd_tiled_reference([s[0] for s in cast], [s[1] for s in cast],
+                                              [s[2] for s in cast], num_heads=h,
+                                              rms_weights=pairs)
+    return outs, [x.contiguous() for x in lses]
+
+
+def _kr_bwd(mode, streams, pairs, h, d, kv_len, outs, lses, twin):
+    """(dq, dk, dv) per stream of the wrapper's backward on the card (or of
+    its plain twin, ``twin``), from the plain forward's ``outs`` and
+    ``lses``."""
+    from adv_grpo_torch.ops import attention, joint_attention as ja
+
+    sm = d ** -0.5
+    if mode == "bhsd":
+        q, k, v, do = streams[0]
+        o = outs[0].to(q.dtype)
+        fn = attention.flash_bwd_reference if twin else attention.mha_bwd
+        return [fn(q, k, v, o, lses[0], do, sm_scale=sm, kv_len=kv_len)]
+    dis = [attention.bwd_row_stats(o, s[3].float(), h) for o, s in zip(outs, streams)]
+    if mode == "bshd":
+        q, k, v, do = streams[0]
+        fn = attention.bshd_bwd_reference if twin else attention.mha_bshd_bwd
+        return [fn(q, k, v, do, lses[0], dis[0], num_heads=h, kv_len=kv_len)]
+    if twin:
+        return ja.attention_bwd_reference([s[0] for s in streams], [s[1] for s in streams],
+                                          [s[2] for s in streams], [s[3] for s in streams],
+                                          lses, dis, num_heads=h, rms_weights=pairs)
+    if mode == "single":
+        q, k, v, do = streams[0]
+        return [ja.mha_rms_bwd(q, k, v, do, lses[0], dis[0], num_heads=h,
+                               rms_weights=pairs and pairs[0])]
+    (qi, ki, vi, doi), (qt, kt, vt, dot) = streams
+    got = ja.joint_attention_bwd(qi, ki, vi, qt, kt, vt, doi, dot, *lses, *dis, num_heads=h,
+                                 rms_weights=pairs and [*pairs[0], *pairs[1]])
+    return [got[:3], got[3:]]
+
+
+def _kr_counter(mode, direction):
+    from adv_grpo_torch.ops import attention, joint_attention as ja
+
+    return {("joint", "fwd"): ja.joint_mha, ("single", "fwd"): ja.mha_rms,
+            ("joint", "bwd"): ja.joint_attention_bwd, ("single", "bwd"): ja.mha_rms_bwd,
+            ("bshd", "fwd"): attention.mha_bshd, ("bshd", "bwd"): attention.mha_bshd_bwd,
+            ("bhsd", "fwd"): attention.mha, ("bhsd", "bwd"): attention.mha_bwd}[mode, direction]
+
+
+def _kr_case(mode, dt, d, shape, g, directions=("fwd", "bwd")):
+    """One generic case, each direction that routes to the generic kernel:
+    the forward against the plain version (fp32: the twin within KR_FWD_F32
+    relative L2; bf16: fp32 within KR_BF16 and, joint / single, the twin
+    within 1 bf16 spacing at each row's largest output) and the backward
+    from the plain forward's lse against its twin (KR_BWD_F32 / KR_BF16),
+    each one generic launch and no other. Returns {direction: max abs error
+    against the twin}; raises on a bound or a count."""
+    import torch
+
+    from adv_grpo_torch.ops.attention import attention_route
+
+    streams, pairs, h = _kr_inputs(mode, dt, d, shape, g)
+    kv_len = shape[-1] if mode in ("bshd", "bhsd") else None
+    rms = pairs is not None
+    f32 = dt == torch.float32
+    errs = {}
+    for direction in directions:
+        if attention_route(torch.device("cuda"), dt, d, mode=mode, rms=rms,
+                           direction=direction) != "generic":
+            continue
+        counter = _kr_counter(mode, direction)
+        n0, s0 = counter.generic_launches, counter.launches
+        if direction == "fwd":
+            outs, lses = _kr_fwd(mode, streams, pairs, h, d, kv_len)
+            ref, ref_lse = _kr_plain_fwd(mode, streams, pairs, h, d, kv_len)
+            twin, twin_lse = (ref, ref_lse) if mode in ("bshd", "bhsd") else _kr_plain_fwd(
+                mode, streams, pairs, h, d, kv_len, dt)
+            rel = max(_rel_l2(o, r) for o, r in zip(outs, ref if not f32 else twin))
+            # the lse against the twin's where the twin rounds the operands
+            # (bf16 joint / single: within 1e-4, as #2 / #3 are held), else
+            # against fp32 (5e-3 in bf16, the joint forward's bound)
+            rounds = not f32 and mode in ("joint", "single")
+            lse_err = max((a - b).abs().max().item()
+                          for a, b in zip(lses, twin_lse if rounds else ref_lse))
+            ulps = (0.0 if f32 or mode in ("bshd", "bhsd") else
+                    max(_row_ulps(o, t, h) for o, t in zip(outs, twin) if o.numel()))
+            err = max((o.float() - t.float()).abs().max().item() for o, t in zip(outs, twin))
+            ok = rel <= (KR_FWD_F32 if f32 else KR_BF16) and ulps <= 1.0 and lse_err <= (
+                1e-4 if f32 or rounds else 5e-3)
+            detail = f"rel L2 {rel:.2e}, lse {lse_err:.2e}" + ("" if f32 else f", {ulps:.2f} ulp")
+        else:
+            ref, ref_lse = _kr_plain_fwd(mode, streams, pairs, h, d, kv_len)
+            got = _kr_bwd(mode, streams, pairs, h, d, kv_len, ref, ref_lse, False)
+            want = _kr_bwd(mode, streams, pairs, h, d, kv_len, ref, ref_lse, True)
+            pairs_ = [(a, b) for gs, ws in zip(got, want) for a, b in zip(gs, ws) if b.numel()]
+            # relative L2 per cotangent; one that is 0 up to rounding (a
+            # single key: p = 1, so ds = 0 and dq, dk are rounding noise;
+            # its norm under a thousandth of the call's largest) is measured
+            # against the largest cotangent norm instead of its own
+            top = max(b.float().norm().item() for _, b in pairs_)
+            rel = max((a.float() - b.float()).norm().item()
+                      / (b.float().norm().item() if b.float().norm() >= 1e-3 * top else top)
+                      for a, b in pairs_)
+            err = max((a.float() - b.float()).abs().max().item() for a, b in pairs_)
+            ok = rel <= (KR_BWD_F32 if f32 else KR_BF16)
+            detail = f"rel L2 {rel:.2e}"
+        torch.cuda.synchronize()
+        counts = (counter.generic_launches - n0, counter.launches - s0)
+        if not ok or counts != (1, 0):
+            raise AssertionError(f"generic {mode} {direction} {dt} d={d} {shape}: {detail}, "
+                                 f"launches (generic, wgmma) {counts}")
+        errs[direction] = (err, detail)
+    return errs
+
+
+def check_generic_edges():
+    """The generic kernels at KR_EDGES for each dtype and head width of
+    KR_WIDTHS that routes to them, every mode, forward and backward."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    n, worst = 0, {}
+    for dt in (torch.float32, torch.bfloat16):
+        for d in KR_WIDTHS:
+            for mode, shapes in KR_EDGES.items():
+                for shape in shapes:
+                    for direction, (err, detail) in _kr_case(mode, dt, d, shape, g).items():
+                        n += 1
+                        key = (str(dt).split(".")[-1], direction)
+                        worst[key] = max(worst.get(key, 0.0), err)
+    print(f"generic kernels at the tile edges: {n} (dtype, d, mode, shape, direction) cases "
+          f"within bounds; max abs err against the twins "
+          + ", ".join(f"{k[0]} {k[1]} {v:.3e}" for k, v in sorted(worst.items())), flush=True)
+
+
+def _kr_attn_full(name, mode, shape, d, g, library):
+    """A full-width fp32 generic case: checked (``_kr_case``) and timed
+    forward and backward beside the plain versions, SDPA in fp32 where it
+    computes the same function (``library``) and the fp32 bound. Returns the
+    two kernels-line entries (launches filled in later)."""
+    import torch
+    import torch.nn.functional as F
+
+    from adv_grpo_torch.ops.attention import to_bhsd
+
+    dt = torch.float32
+    errs = _kr_case(mode, dt, d, shape, g)
+    streams, pairs, h = _kr_inputs(mode, dt, d, shape, g)
+    kv_len = shape[-1] if mode in ("bshd", "bhsd") else None
+    b = shape[0]
+    ref, ref_lse = _kr_plain_fwd(mode, streams, pairs, h, d, kv_len)
+    row = -2 if mode == "bhsd" else 1  # the sequence dim
+    s_q = sum(s[0].shape[row] for s in streams)
+    s_kv = sum(s[1].shape[row] for s in streams) if kv_len is None else kv_len
+    # bytes: q, k, v read and o written (forward); q, k, v, do read and dq,
+    # dk, dv written (backward); the fp32 row statistics beside them
+    qkv = _nbytes(*(t for s in streams for t in s[:3]))
+    stats = _nbytes(*ref_lse)
+    least_f = _bound(qkv + _nbytes(*ref) + stats, 4.0 * b * h * s_q * s_kv * d, FP32_FLOPS)
+    least_b = _bound(2 * qkv + _nbytes(*ref) + 2 * stats, 10.0 * b * h * s_q * s_kv * d,
+                     FP32_FLOPS)
+    iters = 5 if s_q > 4096 else 10
+    fwd_ms = _median_ms(lambda: _kr_fwd(mode, streams, pairs, h, d, kv_len), iters=iters)
+    plain_f = _median_ms(lambda: _kr_plain_fwd(mode, streams, pairs, h, d, kv_len, dt),
+                         iters=3, warmup=1)
+    bwd_ms = _median_ms(lambda: _kr_bwd(mode, streams, pairs, h, d, kv_len, ref, ref_lse,
+                                        False), iters=iters)
+    plain_b = _median_ms(lambda: _kr_bwd(mode, streams, pairs, h, d, kv_len, ref, ref_lse,
+                                         True), iters=3, warmup=1)
+    lib_f = lib_b = None
+    if library:  # SDPA on the (B, H, S, D) views of the concatenated streams
+        if mode == "bhsd":
+            qkv = [streams[0][i] for i in range(3)]
+        else:
+            qkv = [to_bhsd(torch.cat([s[i] for s in streams], 1), h) for i in range(3)]
+        lib_f = _median_ms(lambda: F.scaled_dot_product_attention(*qkv), iters=iters)
+        leaves = [t.detach().requires_grad_() for t in qkv]
+        out = F.scaled_dot_product_attention(*leaves)
+        lib_b = _median_ms(lambda: torch.autograd.grad(out, leaves, torch.ones_like(out),
+                                                       retain_graph=True), iters=iters)
+        del out, leaves, qkv
+    print(f"generic {mode} fp32 {name} {shape} d={d}: forward {errs['fwd'][1]}, {fwd_ms:.4f} ms "
+          f"vs plain {plain_f:.4f} vs SDPA {_ms(lib_f)}; bound {least_f[0]:.4f} ms "
+          f"({least_f[1]}); backward {errs['bwd'][1]}, {bwd_ms:.4f} ms vs plain {plain_b:.4f} "
+          f"vs SDPA backward {_ms(lib_b)}; bound {least_b[0]:.4f} ms ({least_b[1]})",
+          flush=True)
+    replaces = {"joint": ("adv_grpo_tpu/ops/joint_attention.py:73",
+                          "adv_grpo_tpu/ops/joint_attention.py:224"),
+                "single": ("adv_grpo_tpu/ops/joint_attention.py:644",
+                           "adv_grpo_tpu/ops/joint_attention.py:387"),
+                "bshd": ("adv_grpo_tpu/ops/attention.py:346", "adv_grpo_tpu/ops/attention.py:395"),
+                "bhsd": ("adv_grpo_tpu/ops/attention.py:104", "adv_grpo_tpu/ops/attention.py:201")}
+    del streams, ref, ref_lse
+    torch.cuda.empty_cache()
+    return (_entry(f"attention_generic_fwd_{mode}_f32_{name}", GENERIC_FWD_SOURCE,
+                   replaces[mode][0], errs["fwd"][0], fwd_ms, plain_f, least_f, lib_f),
+            _entry(f"attention_generic_bwd_{mode}_f32_{name}", GENERIC_BWD_SOURCE,
+                   replaces[mode][1], errs["bwd"][0], bwd_ms, plain_b, least_b, lib_b))
+
+
+def check_rms_bwd_d128(g):
+    """The generic joint backward in bf16 with the fused qk-RMS at d = 128
+    (the wgmma backward builds it at 64 only) at Flux.1-dev's shape, 1024 +
+    512 tokens of 24 heads: against its twin (KR_BF16) and timed beside the
+    twin and the bf16 bound. No model runs it, so it has no kernels-line
+    entry."""
+    import torch
+
+    shape, d = (1, 1024, 512, 24), 128
+    errs = _kr_case("joint", torch.bfloat16, d, shape, g, ("bwd",))
+    streams, pairs, h = _kr_inputs("joint", torch.bfloat16, d, shape, g)
+    ref, ref_lse = _kr_plain_fwd("joint", streams, pairs, h, d, None)
+    ms = _median_ms(lambda: _kr_bwd("joint", streams, pairs, h, d, None, ref, ref_lse, False))
+    plain_ms = _median_ms(lambda: _kr_bwd("joint", streams, pairs, h, d, None, ref, ref_lse,
+                                          True), iters=3, warmup=1)
+    qkv = _nbytes(*(t for s in streams for t in s[:3]))
+    s_all = shape[1] + shape[2]
+    least = _bound(2 * qkv + qkv // 3 + 2 * _nbytes(*ref_lse),
+                   10.0 * h * s_all * s_all * d, BF16_TENSOR_FLOPS)
+    print(f"generic joint backward bf16 with the qk-RMS at d=128 {shape}: {errs['bwd'][1]} "
+          f"against its twin (bound {KR_BF16}); {ms:.4f} ms vs plain {plain_ms:.4f} ms; bound "
+          f"{least[0]:.4f} ms ({least[1]})", flush=True)
+
+
+def check_fp32_norms(g):
+    """The fp32 norms at the full-width shapes against their plain versions
+    (KR_NORM_F32 relative L2) and timed beside ``F.layer_norm`` /
+    ``F.rms_norm`` where one call computes the same function; returns the
+    kernels-line entries."""
+    import torch
+    import torch.nn.functional as F
+
+    from adv_grpo_torch.ops import fused_norms as fn
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device="cuda")
+
+    out = []
+    x = randn(2, 1024, 1536) + 0.5
+    mods = randn(2, 6 * 1536)
+    sc, sh = mods[:, :1536], mods[:, 1536:3072]
+    cases = [
+        ("lnmod_f32", "modulated_layer_norm (2,1024,1536)", "adv_grpo_tpu/ops/fused_norms.py:252",
+         lambda: fn.modulated_layer_norm(x, sc, sh),
+         lambda: fn.lnmod_reference(x, sc, sh, 1e-6, torch.float32), None, (x, sc, sh), x),
+    ]
+    w = randn(8100, 1536)[None] * 2.0
+    cases.append(("ln_f32", "layer_norm (1,8100,1536)", "adv_grpo_tpu/ops/fused_norms.py:54",
+                  lambda: fn.layer_norm(w), lambda: fn.ln_reference(w, 1e-6, torch.float32),
+                  lambda: F.layer_norm(w, (1536,), eps=1e-6), (w,), w))
+    r = randn(1, 1536, 2 * 3072)[..., :3072]  # strided rows, as from a fused projection
+    wr = (1.0 + 0.1 * randn(128)).float()
+    cases.append(("rms_heads_f32", "rms_norm_heads (1,1536,24x128)",
+                  "adv_grpo_tpu/ops/fused_norms.py:127",
+                  lambda: fn.rms_norm_heads(r, wr, num_heads=24),
+                  lambda: fn.rms_reference(r, wr, 24, 1e-6, torch.float32),
+                  lambda: F.rms_norm(r.view(1, 1536, 24, 128), (128,), wr, eps=1e-6),
+                  (r, wr), r))
+    for name, shape, replaces, kern, plain, lib, ins, like in cases:
+        y, ref = kern(), plain()
+        rel = _rel_l2(y, ref)
+        err = (y - ref).abs().max().item()
+        if not rel <= KR_NORM_F32 or y.dtype != torch.float32:
+            raise AssertionError(f"{name} {shape}: relative L2 {rel}, dtype {y.dtype}")
+        ms = _median_ms(kern, iters=50, warmup=5)
+        plain_ms = _median_ms(plain)
+        lib_ms = None if lib is None else _median_ms(lib, iters=50, warmup=5)
+        least = _bound(_nbytes(*ins) + _nbytes(like), 8.0 * like.numel(), FP32_FLOPS)
+        print(f"kernel {name} {shape}: relative L2 {rel:.2e}, max abs {err:.3e} (bound "
+              f"{KR_NORM_F32}); median {ms:.4f} ms vs plain {plain_ms:.4f} ms vs library "
+              f"{_ms(lib_ms)}; bound {least[0]:.4f} ms ({least[1]})", flush=True)
+        out.append(_entry(name, NORMS_SOURCE, replaces, err, ms, plain_ms, least, lib_ms))
+    return out
+
+
+def _kr_counts(kinds):
+    """The launch counters of ``kinds`` (names of KR_COUNTERS)."""
+    from adv_grpo_torch.ops import attention, fused_norms, joint_attention as ja
+
+    table = {"lnmod": fused_norms.modulated_layer_norm.launches,
+             "rms": fused_norms.rms_norm_heads.launches, "ln": fused_norms.layer_norm.launches,
+             "joint": ja.joint_mha.generic_launches, "single": ja.mha_rms.generic_launches,
+             "joint_bwd": ja.joint_attention_bwd.generic_launches,
+             "single_bwd": ja.mha_rms_bwd.generic_launches,
+             "bshd": attention.mha_bshd.generic_launches,
+             "bshd_bwd": attention.mha_bshd_bwd.generic_launches}
+    return [table[k] for k in kinds]
+
+
+def _kr_run(what, fn, kinds, want, metrics=None):
+    """Run ``fn`` (a CLI entry on the card) with every counter at 0 first;
+    the launches of ``kinds`` must be ``want(result)`` and the wgmma
+    kernels' ``launches`` 0 (every tensor is fp32); with ``metrics`` (a
+    ``metrics.jsonl``) each epoch's reward, loss, approx_kl and clipfrac
+    finite. Returns (the run's result, {kind: launches})."""
+    import numpy as np
+    import torch
+
+    _kr_zero()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _kr_counts(kinds)
+    wgmma = sum(f.launches for f in generic_counters())
+    line = f"{what}: {wall:.2f} s wall (pipeline build included); launches {dict(zip(kinds, got))}"
+    if metrics is not None:
+        with open(metrics) as f:
+            records = [json.loads(r) for r in f]
+        keys = ("reward_avg", "loss", "approx_kl", "clipfrac")
+        bad = [(r["epoch"], k) for r in records for k in keys if not np.isfinite(r[k])]
+        line += f"; {len(records)} epochs, last " + ", ".join(
+            f"{k} {records[-1][k]:.4g}" for k in keys)
+        if bad or len(records) != 2:
+            raise AssertionError(f"{what}: non-finite {bad} over {len(records)} epochs")
+    print(line, flush=True)
+    want = list(want(result))
+    if got != want or wgmma:
+        raise AssertionError(f"{what}: launches {got}, expected {list(want)}; wgmma kernels "
+                             f"{wgmma}")
+    return result, dict(zip(kinds, got))
+
+
+def run_kernel_range_presets(work):
+    """The README's five CPU commands on the card through their entry
+    points, and ``cli.infer`` at full SD3.5-M width in fp32 (40 steps, CFG
+    batch 2, one image): every launch count as derived from the configs.
+    Returns {family: {kind: launches}}."""
+    import numpy as np
+    from PIL import Image
+
+    from adv_grpo_torch.cli import infer, train, wan_sde_demo
+    from adv_grpo_torch.cli.common import build_pipeline, resolve_config
+    from adv_grpo_torch.models.mmdit import MMDiTConfig
+
+    sd3_kinds = ("lnmod", "joint", "single", "joint_bwd", "single_bwd")
+    flux_kinds = ("lnmod", "rms", "joint", "bshd", "joint_bwd", "bshd_bwd")
+    wan_kinds = ("lnmod", "rms", "ln", "bshd", "bshd_bwd")
+    counts = {}
+
+    def add(family, got):
+        fam = counts.setdefault(family, {})
+        for k, n in got.items():
+            fam[k] = fam.get(k, 0) + n
+
+    def trained(argv, name):
+        return train.main(argv + ["--set", f"save_dir={os.path.join(work, name)}"])
+
+    def metrics(name):
+        return os.path.join(work, name, "metrics.jsonl")
+
+    # the trainings' counts derived from the configs their trainers hold;
+    # the inference entries' from the tiny configs their pipelines build
+    _, got = _kr_run("cli.train smoke_sd3_fast on the card (fp32 tiny MMDiT, 4 heads of 32)",
+                     lambda: trained(KR_SD3_TRAIN, "sd3"), sd3_kinds,
+                     lambda t: expected_train_counts(t.config, t.pipeline.mmdit_cfg)[0],
+                     metrics("sd3"))
+    add("sd3", got)
+
+    cfg = resolve_config("flux_smoke")
+    steps = int(cfg.sample.eval_num_steps)
+    paths, got = _kr_run(
+        "cli.infer flux_smoke on the card (fp32 tiny Flux, 2 heads of 16)",
+        lambda: infer.main(KR_FLUX_INFER + ["--out_dir", os.path.join(work, "fi")]),
+        flux_kinds[:4], lambda _: [c * steps for c in flux_per_forward_counts(
+            build_pipeline(cfg).flux_cfg)])
+    add("flux", got)
+    img = np.asarray(Image.open(paths[0]))
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise AssertionError(f"flux_smoke PNG of shape {img.shape}")
+    _, got = _kr_run("cli.train flux_smoke on the card", lambda: trained(KR_FLUX_TRAIN, "flux"),
+                     flux_kinds,
+                     lambda t: expected_flux_train_counts(t.config, t.pipeline.flux_cfg)[0],
+                     metrics("flux"))
+    add("flux", got)
+
+    cfg = resolve_config("wan_smoke")
+    steps = int(cfg.sample.num_steps) * (2 if float(cfg.sample.get("kl_reward", 0.0)) > 0
+                                         else 1)  # a KL forward per step
+    path, got = _kr_run(
+        "cli.wan_sde_demo wan_smoke on the card (fp32 tiny WAN, 2 heads of 16)",
+        lambda: wan_sde_demo.main(KR_WAN_DEMO + ["--out_dir", os.path.join(work, "wd")]),
+        wan_kinds[:4], lambda _: [c * steps for c in wan_per_forward_counts(build_pipeline(
+            cfg, frames=int(cfg.sample.get("num_frames", 9))).wan_cfg)])
+    add("wan", got)
+    if not os.path.exists(path):
+        raise AssertionError(f"wan_sde_demo wrote no {path}")
+    _, got = _kr_run("cli.train wan_smoke on the card", lambda: trained(KR_WAN_TRAIN, "wan"),
+                     wan_kinds,
+                     lambda t: expected_wan_train_counts(t.config, t.pipeline.wan_cfg)[0],
+                     metrics("wan"))
+    add("wan", got)
+
+    t0 = time.perf_counter()
+    paths, got = _kr_run(
+        f"cli.infer eval_sd3_fast full width in fp32, {STEPS} steps, CFG batch 2",
+        lambda: infer.main(INFER_ARGV + ["--set", "mixed_precision=fp32", "--out_dir",
+                                         os.path.join(work, "e")]),
+        sd3_kinds[:3], lambda _: [c * STEPS for c in per_forward_counts(
+            MMDiTConfig.sd35_medium())])
+    wall = time.perf_counter() - t0
+    add("sd3", got)
+    img = np.asarray(Image.open(paths[0]))
+    print(f"  eval_sd3_fast fp32: {wall:.2f} s for one image (build, {STEPS} steps, fp32 "
+          f"decode); PNG {img.shape}, pixel range {img.min()}..{img.max()}", flush=True)
+    if img.shape != (512, 512, 3) or img.min() == img.max():
+        raise AssertionError(f"bad fp32 eval PNG: {img.shape}, {img.min()}..{img.max()}")
+    return counts
+
+
+def check_fp32_model():
+    """A 2-layer full-width MMDiT in fp32 on the card (the generic kernels,
+    the fp32 LayerNorm) against the same weights on the CPU: the output and
+    the LoRA gradients through a fixed cotangent, within KR_MODEL_F32."""
+    import torch
+
+    from adv_grpo_torch.models.lora import init_params_
+    from adv_grpo_torch.models.mmdit import MMDiT, MMDiTConfig
+
+    cfg = MMDiTConfig.sd35_medium(num_layers=2, dual_attention_layers=(0,), lora_rank=32,
+                                  lora_alpha=64.0, dtype=torch.float32)
+    g = torch.Generator().manual_seed(SEED + 22)
+    cpu = MMDiT(cfg, device="cpu")
+    init_params_(cpu, g)
+    for name, p in cpu.named_parameters():
+        if name.endswith("lora_b"):
+            p.data.normal_(0.0, 0.02, generator=g)
+    gpu = MMDiT(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    inputs = (torch.randn(2, 16, 16, 16, generator=g), torch.tensor([1000.0, 500.0]),
+              torch.randn(2, 154, 4096, generator=g) * 0.2, torch.randn(2, 2048, generator=g) * 0.2)
+    with torch.inference_mode():
+        ref = cpu(*inputs)
+        out = gpu(*(a.cuda() for a in inputs)).cpu()
+    cot = torch.randn(ref.shape, generator=g)
+    gc_ = _lora_grads(cpu, lambda m: m(*inputs), cot)
+    gg = _lora_grads(gpu, lambda m: m(*(a.cuda() for a in inputs)), cot)
+    rel, rel_g = _rel_l2(out, ref), _rel_l2(gg, gc_)
+    print(f"2-layer full-width MMDiT in fp32, card vs CPU: output relative L2 {rel:.3e}, LoRA "
+          f"gradients {rel_g:.3e} (bound {KR_MODEL_F32}, TF32 off)", flush=True)
+    if not (rel <= KR_MODEL_F32 and rel_g <= KR_MODEL_F32):
+        raise AssertionError(f"fp32 MMDiT on the card: output {rel}, gradients {rel_g}")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+
+
+def check_context_parallel_d32():
+    """``context_parallel_attention`` at head width 32 (KR_CP_SHAPE, fp32)
+    in a one-rank group: one generic ``mha`` forward and backward, against
+    fp32 autograd (KR_FWD_F32 / KR_BWD_F32); returns {kind: launches}."""
+    import torch
+    import torch.distributed as dist
+
+    from adv_grpo_torch.ops import attention
+    from adv_grpo_torch.ops.ring_attention import context_parallel_attention
+
+    own = not dist.is_initialized()
+    if own:
+        print(f"process group initialized at {init_group()}", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    b, h, s, d = KR_CP_SHAPE
+    leaves = [torch.randn((b, h, s, d), generator=g, device="cuda").requires_grad_()
+              for _ in range(3)]
+    do = torch.randn((b, h, s, d), generator=g, device="cuda")
+    _kr_zero()
+    o = context_parallel_attention(*leaves)
+    grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    counts = {"bhsd": attention.mha.generic_launches,
+              "bhsd_bwd": attention.mha_bwd.generic_launches}
+    ref = attention.attention_reference(*leaves, sm_scale=d ** -0.5)
+    ref_grads = torch.autograd.grad(ref, leaves, do)
+    rel, rel_g = _rel_l2(o, ref), max(_rel_l2(a, r) for a, r in zip(grads, ref_grads))
+    print(f"context_parallel_attention {KR_CP_SHAPE} fp32 (d=32): output relative L2 "
+          f"{rel:.2e}, gradients {rel_g:.2e}; generic launches {counts}", flush=True)
+    if own:
+        dist.destroy_process_group()
+    if counts != {"bhsd": 1, "bhsd_bwd": 1} or rel > KR_FWD_F32 or rel_g > KR_BWD_F32:
+        raise AssertionError(f"context-parallel d=32: {rel}, {rel_g}, launches {counts}")
+    return counts
+
+
+def run_kernel_range_slice(smi):
+    """Phase (``--kernel-range``): what the TPU kernels take beyond the
+    wgmma kernels' bf16 at 64 / 128, on the card. The generic kernels at
+    their tile edges (``check_generic_edges``) and at the full-width fp32
+    shapes (SD3.5-M's joint and single-stream attention with the qk-RMS,
+    Flux.1-dev's joint at d = 128, WAN's self-attention, the context-parallel
+    call), the fp32 norms, the bf16 joint backward with the qk-RMS at d =
+    128; the five CI-sized presets and the fp32 ``eval_sd3_fast`` image
+    (``run_kernel_range_presets``), a 2-layer fp32 MMDiT against the CPU and
+    ``mha`` at d = 32 through ``context_parallel_attention``. Matmuls and
+    convolutions run in full fp32 (TF32 off) throughout. Returns the
+    kernels-line entries of the fp32 instances with the presets' launches."""
+    import torch
+
+    print(f"kernel range phase on {smi}: torch.backends.cuda.matmul.allow_tf32 and "
+          "torch.backends.cudnn.allow_tf32 set to False (fp32 references in full fp32)",
+          flush=True)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    try:
+        check_no_generic("the kernel range phase")
+        check_generic_edges()
+        g = torch.Generator(device="cuda").manual_seed(SEED + 24)
+        sd3_j = _kr_attn_full("sd3", "joint", (2, 1024, 154, 24), 64, g, library=False)
+        sd3_s = _kr_attn_full("sd3", "single", (2, 1024, 24), 64, g, library=False)
+        flux_j = _kr_attn_full("flux", "joint", (1, 1024, 512, 24), 128, g, library=True)
+        wan = _kr_attn_full("wan", "bshd", (1, 8100, 8100, 12, None), 128, g, library=True)
+        cp = _kr_attn_full("cp", "bhsd", KR_CP_SHAPE[:3] + (KR_CP_SHAPE[2], None),
+                           KR_CP_SHAPE[3], g, library=True)
+        check_rms_bwd_d128(g)
+        norms = check_fp32_norms(g)
+        with tempfile.TemporaryDirectory() as work:
+            counts = run_kernel_range_presets(work)
+        check_fp32_model()
+        cp_counts = check_context_parallel_d32()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    launches = {
+        "attention_generic_fwd_joint_f32_sd3": counts["sd3"]["joint"],
+        "attention_generic_bwd_joint_f32_sd3": counts["sd3"]["joint_bwd"],
+        "attention_generic_fwd_single_f32_sd3": counts["sd3"]["single"],
+        "attention_generic_bwd_single_f32_sd3": counts["sd3"]["single_bwd"],
+        "attention_generic_fwd_joint_f32_flux": counts["flux"]["joint"],
+        "attention_generic_bwd_joint_f32_flux": counts["flux"]["joint_bwd"],
+        "attention_generic_fwd_bshd_f32_wan": counts["flux"]["bshd"] + counts["wan"]["bshd"],
+        "attention_generic_bwd_bshd_f32_wan": (counts["flux"]["bshd_bwd"]
+                                               + counts["wan"]["bshd_bwd"]),
+        "attention_generic_fwd_bhsd_f32_cp": cp_counts["bhsd"],
+        "attention_generic_bwd_bhsd_f32_cp": cp_counts["bhsd_bwd"],
+        "lnmod_f32": sum(c["lnmod"] for c in counts.values()),
+        "ln_f32": counts["wan"]["ln"],
+        "rms_heads_f32": counts["flux"]["rms"] + counts["wan"]["rms"]}
+    # the single-stream backward never runs on these paths (the dual
+    # attention of block 0 gets no gradient): its row is left out
+    results = [e for e in sd3_j + sd3_s + flux_j + wan + cp + tuple(norms)
+               if launches.get(e["name"])]
+    for e in results:
+        e["launches"] = launches[e["name"]]
+    print(f"kernel range phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return results
+
+
 def check_sm90_build(build):
     """The wgmma + TMA kernels' ptxas report (registers, shared memory, spill
     stores per instance) from this process's build, per source in
@@ -6553,6 +7235,10 @@ def main() -> int:
         print(f"process group initialized at {init_group()}", flush=True)
         alone[sys.argv[1]](kernels, smi)
         dist.destroy_process_group()
+        check_no_generic(sys.argv[1])
+        return 0
+    if sys.argv[1:] == ["--kernel-range"]:  # alone, its own one-rank group where it needs one
+        print("kernel range kernels: " + json.dumps(run_kernel_range_slice(smi)), flush=True)
         return 0
     remat_ab = sys.argv[1:] == ["--remat-ab"]  # the whole script, with the remat timings
     if sys.argv[1:] and not remat_ab:
@@ -6560,8 +7246,10 @@ def main() -> int:
     results = check_kernels() + check_backward_kernels()
     flux_results = check_flux_kernels()
     flux_train_results = check_flux_backward_kernels()
+    check_no_generic("the SD3 and Flux kernel checks")
     check_model_grads(*check_model())
     run_pipeline()
+    check_no_generic("the SD3 model check and pipeline")
     mha_results = check_mha_kernels()
     # the context-parallel phase and the SD3 training slice run inside a
     # one-rank NCCL group, so their collectives run on the card
@@ -6569,27 +7257,28 @@ def main() -> int:
     mha_counts = run_context_parallel()
     for r in mha_results:
         r["launches"] = mha_counts[r["name"]]
+    check_no_generic("the context-parallel phase")
     counts = run_training_slice(kernels, smi, remat_ab)
     for r, n in zip(results, counts):
         r["launches"] = n
-    run_cotrain_slice(kernels, smi)
-    run_checkpoint_slice(kernels, smi)
-    run_dino_slice(kernels, smi)
-    run_loader_slice(kernels, smi)
-    run_prefix_image_slice(kernels, smi)
-    run_eval_tooling_slice(kernels, smi)
-    run_remaining_rewards_slice(kernels, smi)
+    check_no_generic("the SD3 training phase")
+    for phase in (run_cotrain_slice, run_checkpoint_slice, run_dino_slice, run_loader_slice,
+                  run_prefix_image_slice, run_eval_tooling_slice, run_remaining_rewards_slice):
+        phase(kernels, smi)
+        check_no_generic(phase.__name__)
     dist.destroy_process_group()
     check_flux_model_grads(*check_flux_model())
     flux_counts = dict(zip(("modulated_layer_norm", "rms_norm_heads", "joint_mha_d128",
                             "mha_bshd"), run_flux_inference(flux_kernels)))
     for r in flux_results:
         r["launches"] = flux_counts[r["name"]]
+    check_no_generic("the Flux inference phase")
     flux_train_counts = run_flux_training(flux_train_kernels, smi, remat_ab=remat_ab)
     bwd_counts = dict(zip(("joint_attention_bwd_d128", "mha_bshd_bwd"), flux_train_counts[4:]))
     for r in flux_train_results:
         r["launches"] = bwd_counts[r["name"]]
     run_flux_1024_slice(flux_train_kernels, smi)
+    check_no_generic("the Flux training phases")
     wan_results = check_wan_kernels()
     check_model_grads(*check_wan_model(), what="2-layer full-width Wan2.1-T2V-1.3B")
     wan_kernels = (fused_norms.modulated_layer_norm, fused_norms.rms_norm_heads,
@@ -6603,9 +7292,12 @@ def main() -> int:
                       mha_bshd_bwd_wan_cross=cross[1])
     for r in wan_results:
         r["launches"] = wan_counts[r["name"]]
+    check_no_generic("the WAN phases")
     run_family_loader_slice(smi)
+    check_no_generic("the family loader phase")
+    range_results = run_kernel_range_slice(smi)
     print(json.dumps({"kernels": results + flux_results + flux_train_results + wan_results
-                      + mha_results}))
+                      + mha_results + range_results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -135,7 +135,8 @@ def test_extern_c_entry_points_match_the_ctypes_signatures():
         assert kinds == sigs[name], name
     # the four attention backwards (the two multi-head ones and the two
     # joint ones) and the four attention forwards live in the wgmma + TMA
-    # sources, and nowhere else
+    # sources, the generic attention's two entries in their own sources and
+    # the fp32 norms beside the bf16 ones, and nowhere else
     sources = {}
     for path in glob.glob(os.path.join(build.CSRC_DIR, "*.cu")):
         with open(path) as f:
@@ -147,5 +148,9 @@ def test_extern_c_entry_points_match_the_ctypes_signatures():
                        ("mha_bshd_fwd_bf16", "attention_fwd_sm90.cu"),
                        ("mha_fwd_bf16", "attention_fwd_sm90.cu"),
                        ("joint_attention_fwd_bf16", "attention_fwd_sm90.cu"),
-                       ("mha_rms_fwd_bf16", "attention_fwd_sm90.cu")):
+                       ("mha_rms_fwd_bf16", "attention_fwd_sm90.cu"),
+                       ("attention_generic_fwd", "attention_generic_fwd.cu"),
+                       ("attention_generic_bwd", "attention_generic_bwd.cu"),
+                       ("lnmod_f32", "fused_norms.cu"), ("ln_f32", "fused_norms.cu"),
+                       ("rms_heads_f32", "fused_norms.cu")):
         assert [f for f, src in sources.items() if f'extern "C" int {name}(' in src] == [home]

@@ -22,7 +22,11 @@ bf16 spacing (taken at each row's largest output) of its kernel-order twin
 ``joint_fwd_tiled_reference``; the joint backward (#4, #5) on the wgmma +
 TMA backward at its tile edges, its pre-pass's operands bit for bit against
 ``joint_operands`` (the forward twin's q^ and k^), its cotangents within the
-backwards' 2e-2 of its twin, three kernels a call.
+backwards' 2e-2 of its twin, three kernels a call; the generic kernels
+(fp32 at every head width up to 128, bf16 at the widths the wgmma kernels
+lack, the fused-RMS backward at 128) at their tile edges against the twins
+(fp32 1e-5 forward, 1e-4 backward in relative L2), the fp32 norms (1e-6),
+and the CI-sized presets on the card.
 """
 
 import re
@@ -400,16 +404,22 @@ def test_joint_attention_backward_kernel_head_dim_128(dev, s_i, s_t):
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    """What no kernel takes raises: mixed dtypes, fp16, a width that is not
+    a whole number of 16-byte vectors, a head wider than 128, strides and
+    statistics the kernels cannot read. fp32, and bf16 at the widths up to
+    128 that the wgmma kernels do not build, take the generic kernels
+    (``test_generic_attention_tile_edges``)."""
     x = _randn(dev, 1, 8, 128)
-    with pytest.raises(TypeError):  # fp32
-        fused_norms.modulated_layer_norm(x.float(), x[:, 0].float(), x[:, 0].float())
+    with pytest.raises(TypeError):  # fp32 x with bf16 scale and shift
+        fused_norms.modulated_layer_norm(x.float(), x[:, 0], x[:, 0])
     with pytest.raises(ValueError):  # D not a multiple of 8
         fused_norms.modulated_layer_norm(x[..., :100].contiguous(), x[:, 0, :100],
                                          x[:, 0, :100])
-    with pytest.raises(ValueError):  # head dim 32
-        joint_attention.mha_rms(x, x, x, num_heads=4)
-    with pytest.raises(TypeError):  # fp32 attention
-        joint_attention.mha_rms(x.float(), x.float(), x.float(), num_heads=2)
+    wide = _randn(dev, 1, 8, 256)
+    with pytest.raises(ValueError):  # head dim 256
+        joint_attention.mha_rms(wide, wide, wide, num_heads=1)
+    with pytest.raises(TypeError):  # fp16 attention
+        joint_attention.mha_rms(x.half(), x.half(), x.half(), num_heads=2)
     stats = torch.zeros(1, 2, 8, device=dev)
     with pytest.raises(TypeError):  # fp32 cotangent
         joint_attention.mha_rms_bwd(x, x, x, x.float(), stats, stats, num_heads=2)
@@ -421,31 +431,34 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # a row stride that is not a multiple of 8
         y = _randn(dev, 1, 8, 130)[..., :128]
         joint_attention.mha_rms_bwd(y, y, y, y, stats, stats, num_heads=2)
-    z = _randn(dev, 1, 8, 192)
-    with pytest.raises(ValueError):  # head dim 96
+    z = _randn(dev, 1, 8, 24)
+    with pytest.raises(ValueError):  # head dim 12 in bf16: not a whole 16-byte vector
         attention.mha_bshd(z, z, z, num_heads=2)
-    with pytest.raises(ValueError):  # head dim 96
+    with pytest.raises(ValueError):  # head dim 12
         joint_attention.joint_mha(z, z, z, z, z, z, num_heads=2)
-    with pytest.raises(ValueError):  # head dim 96: no backward kernel either
+    with pytest.raises(ValueError):  # head dim 12: no backward kernel either
         joint_attention.mha_rms_bwd(z, z, z, z, stats, stats, num_heads=2)
-    with pytest.raises(ValueError):  # the single-stream RMS backward takes d = 64 only
-        joint_attention.mha_rms_bwd(x, x, x, x, stats[:, :1], stats[:, :1], num_heads=1)
+    with pytest.raises(ValueError):  # head dim 256: no single-stream backward either
+        joint_attention.mha_rms_bwd(wide, wide, wide, wide, stats[:, :1], stats[:, :1],
+                                    num_heads=1)
     s1 = stats[:, :1]
-    with pytest.raises(ValueError):  # no fused qk-RMS in the backward at d = 128
-        joint_attention.joint_attention_bwd(x, x, x, x, x, x, x, x, s1, s1, s1, s1, num_heads=1,
-                                            rms_weights=[torch.ones(128, device=dev)] * 4)
-    with pytest.raises(ValueError):  # head dim 96: no BSHD backward either
+    with pytest.raises(ValueError):  # head dim 256: no fused qk-RMS backward either
+        joint_attention.joint_attention_bwd(wide, wide, wide, wide, wide, wide, wide, wide, s1,
+                                            s1, s1, s1, num_heads=1,
+                                            rms_weights=[torch.ones(256, device=dev)] * 4)
+    with pytest.raises(ValueError):  # head dim 12: no BSHD backward either
         attention.mha_bshd_bwd(z, z, z, z, stats, stats, num_heads=2)
-    with pytest.raises(TypeError):  # fp32 RMS input
-        fused_norms.rms_norm_heads(x.float(), torch.ones(64, device=dev), num_heads=2)
+    with pytest.raises(TypeError):  # fp32 RMS input, bf16 output
+        fused_norms.rms_norm_heads(x.float(), torch.ones(64, device=dev), num_heads=2,
+                                   out_dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # d = 24 in 4 heads: not a divisor of 256
         fused_norms.rms_norm_heads(_randn(dev, 1, 8, 96), torch.ones(24, device=dev),
                                    num_heads=4)
     with pytest.raises(ValueError):  # a bf16 RMS weight
         fused_norms.rms_norm_heads(x, torch.ones(64, device=dev).bfloat16(), num_heads=2)
-    with pytest.raises(TypeError):  # fp32 LN input
-        fused_norms.layer_norm(x.float())
-    with pytest.raises(TypeError):  # fp32 LN output
+    with pytest.raises(TypeError):  # fp16 LN input
+        fused_norms.layer_norm(x.half())
+    with pytest.raises(TypeError):  # fp32 LN output of a bf16 input
         fused_norms.layer_norm(x, out_dtype=torch.float32)
     with pytest.raises(ValueError):  # D not a multiple of 8
         fused_norms.layer_norm(_randn(dev, 1, 8, 100))
@@ -844,11 +857,11 @@ def test_mha_kernels(dev, b, h, sq, skv, d, kv_len):
 
 def test_mha_raises_on_what_the_kernels_do_not_take(dev):
     x = _randn(dev, 1, 2, 64, 64)
-    with pytest.raises(ValueError):  # head dim 32
-        attention.mha(x[..., :32].contiguous(), x[..., :32].contiguous(),
-                      x[..., :32].contiguous())
-    with pytest.raises(TypeError):  # fp32
-        attention.mha(x.float(), x.float(), x.float())
+    wide = _randn(dev, 1, 2, 64, 256)
+    with pytest.raises(ValueError):  # head dim 256 (32 takes the generic kernel)
+        attention.mha(wide, wide, wide)
+    with pytest.raises(TypeError):  # fp16 (fp32 takes the generic kernel)
+        attention.mha(x.half(), x.half(), x.half())
     with pytest.raises(ValueError):  # not contiguous
         attention.mha(x.transpose(1, 2), x.transpose(1, 2), x.transpose(1, 2))
     with pytest.raises(ValueError):  # (B, S, H*D)
@@ -856,3 +869,136 @@ def test_mha_raises_on_what_the_kernels_do_not_take(dev):
     stats = torch.zeros(1, 2, 64, device=dev)
     with pytest.raises(ValueError):  # lse of the wrong shape
         attention.mha_bwd(x, x, x, x, stats[:, :1], x, sm_scale=0.125)
+
+
+# ── the generic kernels: fp32, and bf16 at the widths the wgmma ones lack ──
+
+
+
+def _routes_generic(dtype, d, mode):
+    """Whether a direction of ``mode`` (with the fused RMS where it has one)
+    routes to the generic kernels: the pure route, on a device object only,
+    so no card is asked while collecting."""
+    return any(attention.attention_route(torch.device("cuda"), getattr(torch, dtype), d,
+                                         mode=mode, rms=True, direction=r) == "generic"
+               for r in ("fwd", "bwd"))
+
+# S at the generic kernels' tile edges (64-row q tiles; 128-row forward and
+# 64-row backward kv tiles): per mode the chip_smoke.py ``_kr_case`` shape;
+# the text stream's length the other way round; BSHD / BHSD over 150 keys
+# with kv_len in the first tile (40) and in the last (140)
+_EDGE_S = (1, 63, 64, 65, 129)
+_EDGE_TEXT = {1: 129, 63: 64, 64: 63, 65: 1, 129: 37}
+_EDGE_CASES = ([("joint", lambda s: (1, s, _EDGE_TEXT[s], 2))]
+               + [("single", lambda s: (2, s, 2))]
+               + [("bshd", lambda s, kv=kv: (1, s, 150, 2, kv)) for kv in (40, 140)]
+               + [("bhsd", lambda s, kv=kv: (1, 2, s, 150, kv)) for kv in (40, 140)])
+
+
+@pytest.fixture
+def no_tf32(dev):
+    """fp32 matmuls of the plain versions in full fp32."""
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield dev
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+# every (dtype, head width) of tests/test_torch_kernel_range.py's route test,
+# each case whose mode routes there to the generic kernels, at each S
+_EDGE_PARAMS = [(dt, d, s, i) for dt in ("float32", "bfloat16")
+                for d in (8, 16, 32, 48, 64, 80, 128)
+                for i, (mode, _) in enumerate(_EDGE_CASES) if _routes_generic(dt, d, mode)
+                for s in _EDGE_S]
+
+
+@pytest.mark.parametrize("dtype,d,s,case", _EDGE_PARAMS)
+def test_generic_attention_tile_edges(no_tf32, dtype, d, s, case):
+    """Each (mode, direction) of the width that routes to the generic kernels,
+    forward and backward, against the plain versions (chip_smoke.py
+    ``_kr_case``: fp32 within 1e-5 / 1e-4 relative L2 of the twins; bf16
+    within 2e-2 of fp32 and, for the joint and single forward, 1 bf16
+    spacing of the twin at each row's largest output), each call one generic
+    launch and no wgmma one; then the autograd path of the public wrapper
+    with dk / dv exactly zero past kv_len."""
+    import chip_smoke
+
+    mode, shape_of = _EDGE_CASES[case]
+    dt = getattr(torch, dtype)
+    shape = shape_of(s)
+    g = torch.Generator(device="cuda").manual_seed(d + s + case)
+    chip_smoke._kr_case(mode, dt, d, shape, g)
+    if mode in ("bshd", "bhsd") and attention.attention_route(
+            torch.device("cuda"), dt, d, mode=mode, direction="bwd") == "generic":
+        streams, _, h = chip_smoke._kr_inputs(mode, dt, d, shape, g)
+        q, k, v, do = (t.detach().requires_grad_() if i < 3 else t
+                       for i, t in enumerate(streams[0]))
+        kv = shape[-1]
+        n0 = (attention.mha_bshd_bwd.generic_launches + attention.mha_bwd.generic_launches)
+        if mode == "bshd":
+            out = attention.mha_bshd(q, k, v, num_heads=h, kv_len=kv)
+        else:
+            out = attention.mha(q, k, v, kv_len=kv)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
+        torch.cuda.synchronize()
+        assert attention.mha_bshd_bwd.generic_launches + attention.mha_bwd.generic_launches == n0 + 1
+        rows = (slice(None), slice(kv, None)) if mode == "bshd" else (
+            slice(None), slice(None), slice(kv, None))
+        assert not dk[rows].any() and not dv[rows].any()
+        assert torch.isfinite(dq).all()
+
+
+@pytest.mark.parametrize("b,s,d", [(2, 154, 1536), (1, 8100, 1536), (1, 5, 3072), (2, 7, 32),
+                                   (1, 3, 16384), (8, 77, 1536), (1, 9, 3080), (3, 1, 4)])
+def test_fp32_layer_norm_kernels(no_tf32, b, s, d):
+    """``lnmod_f32`` and ``ln_f32`` (the LayerNorm template with 4-element
+    vectors: a warp a row up to d = 1536 in 6 or 12 vectors a lane, a CTA a
+    row above) against the fp32 plain versions, 1e-6 relative L2, one launch
+    each, fp32 out; the autograd path's closed-form backward beside it."""
+    dev = no_tf32
+    x = _randn(dev, b, s, d, dtype=torch.float32) + 0.5
+    mods = _randn(dev, b, 3 * d, dtype=torch.float32, seed=1)
+    sc, sh = mods[:, :d], mods[:, 2 * d:]
+    n_mod, n_ln = fused_norms.modulated_layer_norm.launches, fused_norms.layer_norm.launches
+    y = fused_norms.modulated_layer_norm(x, sc, sh)
+    z = fused_norms.layer_norm(x)
+    torch.cuda.synchronize()
+    assert (fused_norms.modulated_layer_norm.launches, fused_norms.layer_norm.launches) == (
+        n_mod + 1, n_ln + 1)
+    assert y.dtype == z.dtype == torch.float32
+    assert _rel_l2(y, fused_norms.lnmod_reference(x, sc, sh, 1e-6, torch.float32)) <= 1e-6
+    assert _rel_l2(z, fused_norms.ln_reference(x, 1e-6, torch.float32)) <= 1e-6
+    leaf = x.clone().requires_grad_()
+    dy = _randn(dev, b, s, d, dtype=torch.float32, seed=2)
+    (dx,) = torch.autograd.grad(fused_norms.layer_norm(leaf), leaf, dy)
+    fl = x.clone().requires_grad_()
+    (ref_dx,) = torch.autograd.grad(fused_norms.ln_reference(fl, 1e-6, torch.float32), fl, dy)
+    assert _rel_l2(dx, ref_dx) <= 1e-5
+
+
+@pytest.mark.parametrize("b,s,hd,heads", [(1, 1536, 3072, 24), (2, 9, 32, 2), (1, 8100, 1536, 1),
+                                          (1, 40, 32, 1), (3, 7, 64, 16), (1, 5, 16384, 1)])
+@pytest.mark.parametrize("strided", [False, True])
+def test_fp32_rms_norm_heads_kernel(no_tf32, b, s, hd, heads, strided):
+    """``rms_heads_f32``: heads of 4..128 reduced by lane shuffles, one head
+    over the whole row by the block; rows read through their strides."""
+    dev = no_tf32
+    x = _randn(dev, b, s, 2 * hd if strided else hd, dtype=torch.float32)[..., :hd]
+    w = 1.0 + 0.1 * _randn(dev, hd // heads, dtype=torch.float32, seed=3)
+    n0 = fused_norms.rms_norm_heads.launches
+    y = fused_norms.rms_norm_heads(x, w, num_heads=heads)
+    torch.cuda.synchronize()
+    assert fused_norms.rms_norm_heads.launches == n0 + 1 and y.dtype == torch.float32
+    assert _rel_l2(y, fused_norms.rms_reference(x, w, heads, 1e-6, torch.float32)) <= 1e-6
+
+
+def test_ci_presets_run_on_the_card(no_tf32, tmp_path):
+    """The README's five CPU commands with ``--device cpu`` dropped (the fp32
+    tiny SD3, Flux and WAN presets) and ``cli.infer`` at full SD3.5-M width
+    in fp32, through their entry points on the card: every launch count as
+    derived from the configs, finite metrics (chip_smoke.py
+    ``run_kernel_range_presets``)."""
+    import chip_smoke
+
+    counts = chip_smoke.run_kernel_range_presets(str(tmp_path))
+    assert counts["sd3"]["joint"] and counts["flux"]["bshd"] and counts["wan"]["ln"]
