@@ -230,10 +230,11 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      the generic attention kernels (``csrc/attention_generic_{fwd,bwd}.cu``:
      fp32 at any head width up to 128, bf16 at the other widths) at
      KR_EDGES for fp32 and bf16 at d = 16 / 32 / 48 / 64 / 128 in every mode
-     (joint with the qk-RMS, single-stream, BSHD with kv_len, BHSD) forward
-     and backward against their plain twins, then at the full-width fp32
-     shapes (SD3.5-M's joint and single-stream attention with the qk-RMS,
-     Flux.1-dev's joint at d = 128, WAN's self-attention, KR_CP_SHAPE) and
+     (joint and single-stream, each with and without the fused qk-RMS; BSHD
+     with kv_len; BHSD) forward and backward against their plain twins,
+     then at the full-width fp32 shapes (SD3.5-M's joint and single-stream
+     attention with the qk-RMS, Flux.1-dev's joint at d = 128 without it,
+     as Flux calls it, WAN's self-attention, KR_CP_SHAPE) and
      the bf16 joint backward with the qk-RMS at d = 128, the fp32 norms;
      each timed beside its plain version, SDPA / ``F.layer_norm`` /
      ``F.rms_norm`` in fp32 and its fp32 bound; the five CI-sized presets on
@@ -6479,8 +6480,9 @@ def generic_counters():
 
 def check_no_generic(what):
     """Every phase before the kernel-range one runs bf16 at head width 64 or
-    128, so it launches no generic kernel; the counters are never reset
-    before that phase, so this holds for every phase up to ``what``."""
+    128, so it launches no generic kernel. Nothing resets the
+    ``generic_launches`` counters before that phase, so one check at its
+    start (``what``) covers every phase run before it."""
     n = {f.__name__: f.generic_launches for f in generic_counters()}
     if any(n.values()):
         raise AssertionError(f"generic attention launches up to {what}: {n}")
@@ -6496,9 +6498,10 @@ def _kr_zero():
         f.generic_launches = 0
 
 
-def _kr_inputs(mode, dt, d, shape, g):
+def _kr_inputs(mode, dt, d, shape, g, rms=True):
     """Inputs of a generic case on the card: ``(q, k, v, do)`` per stream (a
-    list), the RMS weight pairs (or None), H."""
+    list), the RMS weight pairs (None for BSHD / BHSD, or joint / single
+    without ``rms``), H."""
     import torch
 
     def randn(*s):
@@ -6516,6 +6519,8 @@ def _kr_inputs(mode, dt, d, shape, g):
     lens, h = (shape[1:3], shape[3]) if mode == "joint" else (shape[1:2], shape[2])
     b = shape[0]
     streams = [tuple(randn(b, s, h * d) for _ in range(4)) for s in lens]
+    if not rms:  # Flux's call: q and k normalised before the kernel
+        return streams, None, h
     pairs = [tuple((1.0 + 0.1 * torch.randn(d, generator=g, device="cuda")).float()
                    for _ in range(2)) for _ in lens]
     return streams, pairs, h
@@ -6604,8 +6609,9 @@ def _kr_counter(mode, direction):
             ("bhsd", "fwd"): attention.mha, ("bhsd", "bwd"): attention.mha_bwd}[mode, direction]
 
 
-def _kr_case(mode, dt, d, shape, g, directions=("fwd", "bwd")):
-    """One generic case, each direction that routes to the generic kernel:
+def _kr_case(mode, dt, d, shape, g, directions=("fwd", "bwd"), rms=True):
+    """One generic case (joint / single with the fused qk-RMS unless not
+    ``rms``), each direction that routes to the generic kernel:
     the forward against the plain version (fp32: the twin within KR_FWD_F32
     relative L2; bf16: fp32 within KR_BF16 and, joint / single, the twin
     within 1 bf16 spacing at each row's largest output) and the backward
@@ -6616,7 +6622,7 @@ def _kr_case(mode, dt, d, shape, g, directions=("fwd", "bwd")):
 
     from adv_grpo_torch.ops.attention import attention_route
 
-    streams, pairs, h = _kr_inputs(mode, dt, d, shape, g)
+    streams, pairs, h = _kr_inputs(mode, dt, d, shape, g, rms)
     kv_len = shape[-1] if mode in ("bshd", "bhsd") else None
     rms = pairs is not None
     f32 = dt == torch.float32
@@ -6664,15 +6670,16 @@ def _kr_case(mode, dt, d, shape, g, directions=("fwd", "bwd")):
         torch.cuda.synchronize()
         counts = (counter.generic_launches - n0, counter.launches - s0)
         if not ok or counts != (1, 0):
-            raise AssertionError(f"generic {mode} {direction} {dt} d={d} {shape}: {detail}, "
-                                 f"launches (generic, wgmma) {counts}")
+            raise AssertionError(f"generic {mode} {direction} {dt} d={d} {shape} rms={rms}: "
+                                 f"{detail}, launches (generic, wgmma) {counts}")
         errs[direction] = (err, detail)
     return errs
 
 
 def check_generic_edges():
     """The generic kernels at KR_EDGES for each dtype and head width of
-    KR_WIDTHS that routes to them, every mode, forward and backward."""
+    KR_WIDTHS that routes to them, every mode, forward and backward; joint
+    and single with and without the fused qk-RMS."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 22)
@@ -6680,29 +6687,32 @@ def check_generic_edges():
     for dt in (torch.float32, torch.bfloat16):
         for d in KR_WIDTHS:
             for mode, shapes in KR_EDGES.items():
-                for shape in shapes:
-                    for direction, (err, detail) in _kr_case(mode, dt, d, shape, g).items():
-                        n += 1
-                        key = (str(dt).split(".")[-1], direction)
-                        worst[key] = max(worst.get(key, 0.0), err)
-    print(f"generic kernels at the tile edges: {n} (dtype, d, mode, shape, direction) cases "
+                for rms in ((True, False) if mode in ("joint", "single") else (False,)):
+                    for shape in shapes:
+                        for direction, (err, _) in _kr_case(mode, dt, d, shape, g,
+                                                            rms=rms).items():
+                            n += 1
+                            key = (str(dt).split(".")[-1], direction)
+                            worst[key] = max(worst.get(key, 0.0), err)
+    print(f"generic kernels at the tile edges: {n} (dtype, d, mode, RMS, shape, direction) cases "
           f"within bounds; max abs err against the twins "
           + ", ".join(f"{k[0]} {k[1]} {v:.3e}" for k, v in sorted(worst.items())), flush=True)
 
 
-def _kr_attn_full(name, mode, shape, d, g, library):
-    """A full-width fp32 generic case: checked (``_kr_case``) and timed
-    forward and backward beside the plain versions, SDPA in fp32 where it
-    computes the same function (``library``) and the fp32 bound. Returns the
-    two kernels-line entries (launches filled in later)."""
+def _kr_attn_full(name, mode, shape, d, g, library, rms=True):
+    """A full-width fp32 generic case (joint / single with the fused qk-RMS
+    unless not ``rms``): checked (``_kr_case``) and timed forward and
+    backward beside the plain versions, SDPA in fp32 where it computes the
+    same function (``library``) and the fp32 bound. Returns the two
+    kernels-line entries (launches filled in later)."""
     import torch
     import torch.nn.functional as F
 
     from adv_grpo_torch.ops.attention import to_bhsd
 
     dt = torch.float32
-    errs = _kr_case(mode, dt, d, shape, g)
-    streams, pairs, h = _kr_inputs(mode, dt, d, shape, g)
+    errs = _kr_case(mode, dt, d, shape, g, rms=rms)
+    streams, pairs, h = _kr_inputs(mode, dt, d, shape, g, rms)
     kv_len = shape[-1] if mode in ("bshd", "bhsd") else None
     b = shape[0]
     ref, ref_lse = _kr_plain_fwd(mode, streams, pairs, h, d, kv_len)
@@ -6736,7 +6746,8 @@ def _kr_attn_full(name, mode, shape, d, g, library):
         lib_b = _median_ms(lambda: torch.autograd.grad(out, leaves, torch.ones_like(out),
                                                        retain_graph=True), iters=iters)
         del out, leaves, qkv
-    print(f"generic {mode} fp32 {name} {shape} d={d}: forward {errs['fwd'][1]}, {fwd_ms:.4f} ms "
+    print(f"generic {mode} fp32 {name} {shape} d={d} rms={pairs is not None}: forward "
+          f"{errs['fwd'][1]}, {fwd_ms:.4f} ms "
           f"vs plain {plain_f:.4f} vs SDPA {_ms(lib_f)}; bound {least_f[0]:.4f} ms "
           f"({least_f[1]}); backward {errs['bwd'][1]}, {bwd_ms:.4f} ms vs plain {plain_b:.4f} "
           f"vs SDPA backward {_ms(lib_b)}; bound {least_b[0]:.4f} ms ({least_b[1]})",
@@ -7042,8 +7053,8 @@ def run_kernel_range_slice(smi):
     wgmma kernels' bf16 at 64 / 128, on the card. The generic kernels at
     their tile edges (``check_generic_edges``) and at the full-width fp32
     shapes (SD3.5-M's joint and single-stream attention with the qk-RMS,
-    Flux.1-dev's joint at d = 128, WAN's self-attention, the context-parallel
-    call), the fp32 norms, the bf16 joint backward with the qk-RMS at d =
+    Flux.1-dev's joint at d = 128 without it, WAN's self-attention, the
+    context-parallel call), the fp32 norms, the bf16 joint backward with the qk-RMS at d =
     128; the five CI-sized presets and the fp32 ``eval_sd3_fast`` image
     (``run_kernel_range_presets``), a 2-layer fp32 MMDiT against the CPU and
     ``mha`` at d = 32 through ``context_parallel_attention``. Matmuls and
@@ -7058,12 +7069,13 @@ def run_kernel_range_slice(smi):
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     try:
-        check_no_generic("the kernel range phase")
+        check_no_generic("the kernel range phase (every earlier phase)")
         check_generic_edges()
         g = torch.Generator(device="cuda").manual_seed(SEED + 24)
         sd3_j = _kr_attn_full("sd3", "joint", (2, 1024, 154, 24), 64, g, library=False)
         sd3_s = _kr_attn_full("sd3", "single", (2, 1024, 24), 64, g, library=False)
-        flux_j = _kr_attn_full("flux", "joint", (1, 1024, 512, 24), 128, g, library=True)
+        flux_j = _kr_attn_full("flux", "joint", (1, 1024, 512, 24), 128, g, library=True,
+                               rms=False)
         wan = _kr_attn_full("wan", "bshd", (1, 8100, 8100, 12, None), 128, g, library=True)
         cp = _kr_attn_full("cp", "bhsd", KR_CP_SHAPE[:3] + (KR_CP_SHAPE[2], None),
                            KR_CP_SHAPE[3], g, library=True)
@@ -7246,10 +7258,8 @@ def main() -> int:
     results = check_kernels() + check_backward_kernels()
     flux_results = check_flux_kernels()
     flux_train_results = check_flux_backward_kernels()
-    check_no_generic("the SD3 and Flux kernel checks")
     check_model_grads(*check_model())
     run_pipeline()
-    check_no_generic("the SD3 model check and pipeline")
     mha_results = check_mha_kernels()
     # the context-parallel phase and the SD3 training slice run inside a
     # one-rank NCCL group, so their collectives run on the card
@@ -7257,28 +7267,23 @@ def main() -> int:
     mha_counts = run_context_parallel()
     for r in mha_results:
         r["launches"] = mha_counts[r["name"]]
-    check_no_generic("the context-parallel phase")
     counts = run_training_slice(kernels, smi, remat_ab)
     for r, n in zip(results, counts):
         r["launches"] = n
-    check_no_generic("the SD3 training phase")
     for phase in (run_cotrain_slice, run_checkpoint_slice, run_dino_slice, run_loader_slice,
                   run_prefix_image_slice, run_eval_tooling_slice, run_remaining_rewards_slice):
         phase(kernels, smi)
-        check_no_generic(phase.__name__)
     dist.destroy_process_group()
     check_flux_model_grads(*check_flux_model())
     flux_counts = dict(zip(("modulated_layer_norm", "rms_norm_heads", "joint_mha_d128",
                             "mha_bshd"), run_flux_inference(flux_kernels)))
     for r in flux_results:
         r["launches"] = flux_counts[r["name"]]
-    check_no_generic("the Flux inference phase")
     flux_train_counts = run_flux_training(flux_train_kernels, smi, remat_ab=remat_ab)
     bwd_counts = dict(zip(("joint_attention_bwd_d128", "mha_bshd_bwd"), flux_train_counts[4:]))
     for r in flux_train_results:
         r["launches"] = bwd_counts[r["name"]]
     run_flux_1024_slice(flux_train_kernels, smi)
-    check_no_generic("the Flux training phases")
     wan_results = check_wan_kernels()
     check_model_grads(*check_wan_model(), what="2-layer full-width Wan2.1-T2V-1.3B")
     wan_kernels = (fused_norms.modulated_layer_norm, fused_norms.rms_norm_heads,
@@ -7292,9 +7297,7 @@ def main() -> int:
                       mha_bshd_bwd_wan_cross=cross[1])
     for r in wan_results:
         r["launches"] = wan_counts[r["name"]]
-    check_no_generic("the WAN phases")
     run_family_loader_slice(smi)
-    check_no_generic("the family loader phase")
     range_results = run_kernel_range_slice(smi)
     print(json.dumps({"kernels": results + flux_results + flux_train_results + wan_results
                       + mha_results + range_results}))

@@ -875,24 +875,25 @@ def test_mha_raises_on_what_the_kernels_do_not_take(dev):
 
 
 
-def _routes_generic(dtype, d, mode):
-    """Whether a direction of ``mode`` (with the fused RMS where it has one)
+def _routes_generic(dtype, d, mode, rms):
+    """Whether a direction of ``mode`` (with the fused RMS or without)
     routes to the generic kernels: the pure route, on a device object only,
     so no card is asked while collecting."""
     return any(attention.attention_route(torch.device("cuda"), getattr(torch, dtype), d,
-                                         mode=mode, rms=True, direction=r) == "generic"
+                                         mode=mode, rms=rms, direction=r) == "generic"
                for r in ("fwd", "bwd"))
 
 # S at the generic kernels' tile edges (64-row q tiles; 128-row forward and
 # 64-row backward kv tiles): per mode the chip_smoke.py ``_kr_case`` shape;
-# the text stream's length the other way round; BSHD / BHSD over 150 keys
+# the text stream's length the other way round; joint and single with the
+# fused qk-RMS and without it (Flux's joint call); BSHD / BHSD over 150 keys
 # with kv_len in the first tile (40) and in the last (140)
 _EDGE_S = (1, 63, 64, 65, 129)
 _EDGE_TEXT = {1: 129, 63: 64, 64: 63, 65: 1, 129: 37}
-_EDGE_CASES = ([("joint", lambda s: (1, s, _EDGE_TEXT[s], 2))]
-               + [("single", lambda s: (2, s, 2))]
-               + [("bshd", lambda s, kv=kv: (1, s, 150, 2, kv)) for kv in (40, 140)]
-               + [("bhsd", lambda s, kv=kv: (1, 2, s, 150, kv)) for kv in (40, 140)])
+_EDGE_CASES = ([("joint", rms, lambda s: (1, s, _EDGE_TEXT[s], 2)) for rms in (True, False)]
+               + [("single", rms, lambda s: (2, s, 2)) for rms in (True, False)]
+               + [("bshd", False, lambda s, kv=kv: (1, s, 150, 2, kv)) for kv in (40, 140)]
+               + [("bhsd", False, lambda s, kv=kv: (1, 2, s, 150, kv)) for kv in (40, 140)])
 
 
 @pytest.fixture
@@ -908,7 +909,8 @@ def no_tf32(dev):
 # each case whose mode routes there to the generic kernels, at each S
 _EDGE_PARAMS = [(dt, d, s, i) for dt in ("float32", "bfloat16")
                 for d in (8, 16, 32, 48, 64, 80, 128)
-                for i, (mode, _) in enumerate(_EDGE_CASES) if _routes_generic(dt, d, mode)
+                for i, (mode, rms, _) in enumerate(_EDGE_CASES)
+                if _routes_generic(dt, d, mode, rms)
                 for s in _EDGE_S]
 
 
@@ -923,11 +925,11 @@ def test_generic_attention_tile_edges(no_tf32, dtype, d, s, case):
     with dk / dv exactly zero past kv_len."""
     import chip_smoke
 
-    mode, shape_of = _EDGE_CASES[case]
+    mode, rms, shape_of = _EDGE_CASES[case]
     dt = getattr(torch, dtype)
     shape = shape_of(s)
     g = torch.Generator(device="cuda").manual_seed(d + s + case)
-    chip_smoke._kr_case(mode, dt, d, shape, g)
+    chip_smoke._kr_case(mode, dt, d, shape, g, rms=rms)
     if mode in ("bshd", "bhsd") and attention.attention_route(
             torch.device("cuda"), dt, d, mode=mode, direction="bwd") == "generic":
         streams, _, h = chip_smoke._kr_inputs(mode, dt, d, shape, g)
