@@ -19,8 +19,11 @@
 //  * kBhsd: (B, H, S, D) tensors (#10 / #11); as kBshd, but the backward
 //    keeps p and t in fp32.
 // dt is the operands' type T (float or bf16): in fp32 every rounding to dt
-// is the identity, so fp32 runs in full fp32 on FFMA (no tensor cores, no
-// TF32).
+// is the identity. The two dtypes take two designs, chosen by dtype before
+// the launch: fp32 the tensor cores in a 3xTF32 split (fp32 accuracy; the
+// *_tf32 kernels: the forward on wgmma, the backward on mma.sync m16n8k8),
+// bf16 FFMA on tiles staged as fp32 (the kernels without the suffix, which
+// round p and t where the twins do).
 //
 // Each tensor is a View: a base pointer and the element strides of its
 // batch, row and head; a head's d columns are contiguous and start on a
@@ -34,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace generic_attn {
 
@@ -129,6 +134,137 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, int rows, const Vi
   }
 }
 
+// the same rows of an fp32 View by 16-byte cp.async copies (the caller
+// commits and waits), into a [rows][ld] tile with ld a multiple of 4
+template <int DMAX>
+__device__ __forceinline__ void load_tile_async(float* dst, int ld, int rows, const View& v,
+                                                int b, int h, int r0, int n, int d) {
+  constexpr int VPR = DMAX / 4;
+  for (int idx = threadIdx.x; idx < rows * VPR; idx += blockDim.x) {
+    const int r = idx / VPR, c = (idx % VPR) * 4;
+    const bool ok = r < n && c < d;
+    sm90::cp_async16(dst + r * ld + c,
+                     ok ? at<float>(v, b, r0 + r, h) + c : static_cast<const float*>(v.p), ok);
+  }
+}
+
+// ── the fp32 backward's products: 3xTF32 on mma.sync m16n8k8 ──
+// A warp owns 16 rows of its tile; lane (g, c) = (lane / 4, lane % 4). Two
+// kinds of product, both from row-major fp32 tiles in shared memory with
+// rows padded to a multiple of 4 words that is 4 mod 32 (DMAX + 4), so
+// every fragment read below hits 32 distinct banks:
+//  * scores_3xtf32: s = A B^T over the DMAX columns (q k^T, do v^T in the
+//    dq kernel; k q^T, v do^T in the dkv kernel);
+//  * update_3xtf32: acc += P B, P a score tile in the accumulator layout
+//    (p^T do, t^T q, t k). Lane (g, c) holds P's columns (2c, 2c + 1)
+//    of each 8-column step, which is the A fragment of the step if its 8
+//    rows of B are taken in the order 0, 2, 4, 6, 1, 3, 5, 7 (B's rows 2c
+//    and 2c + 1 where the fragment names rows c and c + 4): a permutation
+//    of the sum, so P needs no shuffle.
+// The tensor cores add products into an accumulator with truncation, so a
+// long run of mma into one register drifts towards zero; both kinds keep
+// the small products (big * small, small * big) in accumulators apart from
+// big * big, and update_3xtf32 adds each tile's sums into acc in fp32 with
+// rounding to nearest. The separate accumulators (three for the scores,
+// two per group of n-tiles for the updates) also give mma.sync, whose
+// result comes many cycles after its issue, independent products to issue
+// back to back.
+
+// the A fragment of rows r, r + 8 and columns k, k + 4 (p at [r][k])
+__device__ __forceinline__ void frag_a(float (&a)[4], const float* p, int ld) {
+  a[0] = p[0];
+  a[1] = p[8 * ld];
+  a[2] = p[4];
+  a[3] = p[8 * ld + 4];
+}
+
+// s[n] = sum over the KS 8-column steps of A's warp rows times rows 8n..8n+7
+// of B, n < SN; a points at A[row 16 warp + g][c], b at B[g][c]. With
+// kTwoSmall false both small products share one accumulator (where
+// registers are short).
+template <int KS, int SN, bool kTwoSmall = true>
+__device__ __forceinline__ void scores_3xtf32(float (&s)[SN][4], const float* a, const float* b,
+                                              int ld) {
+  float x[SN][4], y[SN][4];
+#pragma unroll
+  for (int n = 0; n < SN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = x[n][e] = y[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    float af[4];
+    frag_a(af, a + 8 * ks, ld);
+    uint32_t ab[4], as[4], bb[SN][2], bs[SN][2];
+    sm90::split_tf32(af, ab, as);
+#pragma unroll
+    for (int n = 0; n < SN; ++n) {
+      const float bf[2] = {b[8 * n * ld + 8 * ks], b[8 * n * ld + 8 * ks + 4]};
+      sm90::split_tf32(bf, bb[n], bs[n]);
+    }
+#pragma unroll
+    for (int n = 0; n < SN; ++n) sm90::mma_tf32(x[n], as, bb[n]);
+#pragma unroll
+    for (int n = 0; n < SN; ++n) sm90::mma_tf32(kTwoSmall ? y[n] : x[n], ab, bs[n]);
+#pragma unroll
+    for (int n = 0; n < SN; ++n) sm90::mma_tf32(s[n], ab, bb[n]);
+  }
+#pragma unroll
+  for (int n = 0; n < SN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] += x[n][e] + y[n][e];
+}
+
+// the A fragments of the SN 8-column steps of a score tile p in the
+// accumulator layout, split
+template <int SN>
+__device__ __forceinline__ void split_p(const float (&p)[SN][4], uint32_t (&big)[SN][4],
+                                        uint32_t (&small)[SN][4]) {
+#pragma unroll
+  for (int kk = 0; kk < SN; ++kk) {
+    const float a[4] = {p[kk][0], p[kk][2], p[kk][1], p[kk][3]};
+    sm90::split_tf32(a, big[kk], small[kk]);
+  }
+}
+
+// acc[n] += sum over the SN steps of P's step times B's rows 8kk + (0, 2,
+// .., 7) at columns 8n..8n+7, n < NT; b points at B[2c][g]. G n-tiles at a
+// time (fewer where registers are short), each group's sums added into acc
+// once.
+template <int SN, int NT, int G = 4>
+__device__ __forceinline__ void update_3xtf32(float (&acc)[NT][4], const uint32_t (&pb)[SN][4],
+                                              const uint32_t (&ps)[SN][4], const float* b,
+                                              int ld) {
+  static_assert(NT % G == 0, "whole groups of n-tiles");
+#pragma unroll
+  for (int n0 = 0; n0 < NT; n0 += G) {
+    float x[G][4], y[G][4];
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] = y[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < SN; ++kk) {
+      uint32_t bb[G][2], bs[G][2];
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const float* bp = b + 8 * kk * ld + 8 * (n0 + j);
+        const float bf[2] = {bp[0], bp[ld]};
+        sm90::split_tf32(bf, bb[j], bs[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) sm90::mma_tf32(x[j], ps[kk], bb[j]);
+#pragma unroll
+      for (int j = 0; j < G; ++j) sm90::mma_tf32(x[j], pb[kk], bs[j]);
+#pragma unroll
+      for (int j = 0; j < G; ++j) sm90::mma_tf32(y[j], pb[kk], bb[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n0 + j][e] += y[j][e] + x[j][e];
+  }
+}
+
 // The operand pre-pass: for each (b, row, h) of `in` (one thread a head
 // row), y = x * rs * w with rs = 1 / sqrt(sum(x^2) * (1 / d) + eps) when w
 // is given (else y = x), then out1 = dt(y * scale1) and, if out2, out2 =
@@ -189,13 +325,13 @@ inline View scratch_view(long long ptr, int rows, int heads, int d) {
 
 // Fill p.st from the descriptor: each stream's views as given, then, in
 // kJoint, the pre-pass launched for its q (q^ into kQhat, and q_s into kQs
-// when `backward`) and, with a k weight, its k (k^ into kKhat), and the
-// stream's q / qs / k views pointed at those scratches. Returns the first
-// launch error.
+// when `backward` and `want_qs`, else the qs view is q^'s) and, with a k
+// weight, its k (k^ into kKhat), and the stream's q / qs / k views pointed
+// at those scratches. Returns the first launch error.
 template <typename T>
 int setup_streams(Params& p, const long long* desc, int nst, int mode, int batch, int heads,
                   int d, float qscale, float sm_scale, float eps, bool backward,
-                  cudaStream_t stream) {
+                  cudaStream_t stream, bool want_qs = true) {
   p.nst = nst;
   p.heads = heads;
   p.d = d;
@@ -222,12 +358,13 @@ int setup_streams(Params& p, const long long* desc, int nst, int mode, int batch
     const float* wk = reinterpret_cast<const float*>(a[kWk]);
     if (s.q_rows > 0) {
       T* qhat = reinterpret_cast<T*>(a[kQhat]);
-      T* qs = backward ? reinterpret_cast<T*>(a[kQs]) : nullptr;
+      const bool own_qs = backward && want_qs;
+      T* qs = own_qs ? reinterpret_cast<T*>(a[kQs]) : nullptr;
       const dim3 grid(cdiv(s.q_rows * heads, kThreads), batch);
       operand_prepass_kernel<T><<<grid, kThreads, 0, stream>>>(
           s.q, wq, qhat, qscale, qs, sm_scale, s.q_rows, heads, d, inv_d, eps, 1);
       s.q = scratch_view(a[kQhat], s.q_rows, heads, d);
-      s.qs = backward ? scratch_view(a[kQs], s.q_rows, heads, d) : s.q;
+      s.qs = own_qs ? scratch_view(a[kQs], s.q_rows, heads, d) : s.q;
     }
     if (wk != nullptr && s.kv_rows > 0) {
       const dim3 grid(cdiv(s.kv_rows * heads, kThreads), batch);

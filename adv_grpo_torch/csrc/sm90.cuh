@@ -1,11 +1,13 @@
 // PTX helpers for Hopper (sm_90a) kernels: mbarriers, TMA tile loads and
 // reduce-adds, wgmma shared-memory descriptors and the wgmma instructions the
 // attention kernels use, the wgmma fence / commit / wait, named barriers and
-// setmaxnreg; the qk-RMS arithmetic of the joint attention; and, on the host,
-// the TMA tensor maps of the attention operands. Hand-written inline PTX (no
-// CuTe), so a source that includes this header compiles in seconds. The
-// attention forward (attention_fwd_sm90.cu) and backward
-// (attention_bwd_sm90.cu) include it.
+// setmaxnreg; the 3xTF32 split, mma.sync m16n8k8 in TF32 and cp.async (the
+// generic kernels' fp32 instances); the qk-RMS arithmetic of the joint
+// attention; and, on the host, the TMA tensor maps of the attention
+// operands. Hand-written inline PTX (no CuTe), so a source that includes
+// this header compiles in seconds. The attention forward
+// (attention_fwd_sm90.cu), backward (attention_bwd_sm90.cu) and the generic
+// kernels (attention_generic.cuh) include it.
 //
 // Shared-memory tiles of bf16 use the 128-byte swizzle that TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B: a tile is a stack of 1024-byte atoms of 8 rows
@@ -313,9 +315,155 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
     wgmma_m64n128_rs<kTB>(d, a, db, scale_d);
 }
 
+// ── wgmma in TF32 (fp32 operands in a 3xTF32 split; the generic forward) ──
+// TF32 operands in shared memory must be K-major (no transpose for 32-bit
+// types): 128-byte-swizzled tiles, 32 tf32 to a row's 128-byte atom, a k8
+// step 32 bytes into it (desc_sw128 as for bf16, lbo unused, sbo = 1024).
+// A from registers takes the m16n8k8 A layout in each warp's 16 rows: lane
+// (g, c) holds (g, c), (g + 8, c), (g, c + 4), (g + 8, c + 4).
+
+// d (64 x 32 fp32) (+)= A (64 x 8, shared) * B (8 x 32, shared)
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, "
+      "%17, p, 1, 1;\n"
+      "}\n"
+      : SM90_F16(0)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32 fp32) (+)= A (64 x 8 tf32 in registers) * B (8 x 32, shared)
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                       uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, "
+      "%17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : SM90_F16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64 fp32) (+)= A (64 x 8 tf32 in registers) * B (8 x 64, shared)
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : SM90_F16(0), SM90_F16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128 fp32) (+)= A (64 x 8 tf32 in registers) * B (8 x 128, shared)
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                       uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : SM90_F16(0), SM90_F16(16), SM90_F16(32), SM90_F16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N fp32) (+)= A (registers) * B (shared), N = 32, 64 or 128
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  if constexpr (N == 32)
+    wgmma_m64n32k8_tf32_rs(d, a, db, scale_d);
+  else if constexpr (N == 64)
+    wgmma_m64n64k8_tf32_rs(d, a, db, scale_d);
+  else
+    wgmma_m64n128k8_tf32_rs(d, a, db, scale_d);
+}
+
 #undef SM90_R64
 #undef SM90_F16
 #undef SM90_F4
+
+// ── fp32 on the tensor cores: the 3xTF32 split and mma.sync ──
+// (the generic attention kernels' fp32 instances; their products,
+// attention_generic.cuh `scores_3xtf32` / `update_3xtf32`, form a.b as
+// big.small + small.big + big.big, CUTLASS's OpMultiplyAddFastF32, accurate
+// to about 2^-22 of each product: small.small is dropped)
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero, as
+// cvt.rna.tf32.f32 rounds: the bit pattern plus half a TF32 unit, the 13
+// low bits cleared (two integer instructions; inf and NaN stay so)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small + O(2^-22 |x|): big = tf32(x), small = tf32(x - big)
+// (x - big is exact in fp32)
+template <int N>
+__device__ __forceinline__ void split_tf32(const float (&x)[N], uint32_t (&big)[N],
+                                           uint32_t (&small)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    big[i] = tf32_rna(x[i]);
+    small[i] = tf32_rna(x[i] - __uint_as_float(big[i]));
+  }
+}
+
+// d (16 x 8 fp32) += a (16 x 8 tf32, row) * b (8 x 8 tf32, col); lane l
+// (g = l / 4, c = l % 4) holds a = (a[g][c], a[g+8][c], a[g][c+4],
+// a[g+8][c+4]), b = (b[c][g], b[c+4][g]) and d = (d[g][2c], d[g][2c+1],
+// d[g+8][2c], d[g+8][2c+1])
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ── cp.async: asynchronous global -> shared copies ──
+
+// 16 bytes, or 16 zero bytes where !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes, or a zero word where !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // ── host side: launch set-up ──
 

@@ -28,8 +28,9 @@ Which kernel a CUDA call takes is one pure function,
 direction): bf16 at head width 64 or 128 takes the wgmma + TMA kernels
 above ("sm90"); fp32 at any width up to 128, bf16 at the other widths up
 to 128, and the fused-RMS single-stream / joint backward at 128 take the
-generic FFMA kernels of ``csrc/attention_generic_{fwd,bwd}.cu``
-("generic", :func:`generic_attention`), each route with its own counter
+generic kernels of ``csrc/attention_generic_{fwd,bwd}.cu`` ("generic",
+:func:`generic_attention`; fp32 on the tensor cores in a 3xTF32 split,
+bf16 on FFMA, chosen by dtype in the kernels), each route with its own counter
 (``launches``, ``generic_launches``). Only a head wider than 128, or one
 that is not a whole number of 16-byte vectors, raises, as does a device
 other than the card or the CPU.

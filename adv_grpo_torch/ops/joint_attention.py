@@ -318,7 +318,8 @@ def _generic_bwd(qs, ks, vs, dos, lses, dis, rms_weights, num_heads, d, eps, sm_
             dk=torch.empty(k.shape, dtype=dt, device=dev),
             dv=torch.empty(v.shape, dtype=dt, device=dev), lse=lse, di=di, wq=wq, wk=wk,
             qhat=torch.empty(q.shape, dtype=dt, device=dev),
-            qs=torch.empty(q.shape, dtype=dt, device=dev),
+            # the fp32 kernels read q^ for dk too: no q_s scratch
+            qs=None if dt == torch.float32 else torch.empty(q.shape, dtype=dt, device=dev),
             khat=None if wk is None else torch.empty(k.shape, dtype=dt, device=dev)))
     generic_attention("bwd", "joint", streams, batch=b, num_heads=num_heads, d=d,
                       sm_scale=sm_scale, eps=eps)

@@ -228,7 +228,9 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
  22. the kernels' whole range (``run_kernel_range_slice``; every phase
      before it launches no generic attention kernel, ``check_no_generic``):
      the generic attention kernels (``csrc/attention_generic_{fwd,bwd}.cu``:
-     fp32 at any head width up to 128, bf16 at the other widths) at
+     fp32 at any head width up to 128 on the tensor cores in 3xTF32, bf16
+     at the other widths; their fp32 instances' registers, spills and
+     HGMMA / HMMA instructions from the build, ``check_generic_tf32_build``) at
      KR_EDGES for fp32 and bf16 at d = 16 / 32 / 48 / 64 / 128 in every mode
      (joint and single-stream, each with and without the fused qk-RMS; BSHD
      with kv_len; BHSD) forward and backward against their plain twins,
@@ -237,7 +239,9 @@ Phases (each prints a line; any failure raises, so the exit code is non-zero):
      as Flux calls it, WAN's self-attention, KR_CP_SHAPE) and
      the bf16 joint backward with the qk-RMS at d = 128, the fp32 norms;
      each timed beside its plain version, SDPA / ``F.layer_norm`` /
-     ``F.rms_norm`` in fp32 and its fp32 bound; the five CI-sized presets on
+     ``F.rms_norm`` in fp32 and its bound (the attention rows' at the 3xTF32
+     rate, the FFMA one beside it), the attention rows' two calls each way
+     bitwise equal; the five CI-sized presets on
      the card (KR_SD3_TRAIN, KR_FLUX_INFER, KR_FLUX_TRAIN, KR_WAN_DEMO,
      KR_WAN_TRAIN: fp32 tiny models) and ``cli.infer`` at full SD3.5-M width
      in fp32, every launch count as derived from the configs; a 2-layer
@@ -254,7 +258,8 @@ lines; ``--checkpoint`` the checkpoint phase (``run_checkpoint_slice``),
 rewards phase (``run_prefix_image_slice``), ``--eval-tooling`` the
 evaluation and preparation tools (``run_eval_tooling_slice``) and
 ``--remaining-rewards`` the last rewards (``run_remaining_rewards_slice``)
-the same way. ``--flux-1024 [--set key=value ...]`` runs the Flux.1-dev
+the same way; ``--mma-rate`` builds and runs ``csrc/probes/mma_rate.cu``,
+the card's mma.sync rate in TF32 and bf16. ``--flux-1024 [--set key=value ...]`` runs the Flux.1-dev
 1024^2 phase alone (no process group), its config overridden as the CLIs'
 ``--set`` does (remat on unless ``--set tpu.remat=False``).
 ``--kernel-range`` runs the kernel-range phase alone and prints its
@@ -278,7 +283,10 @@ PAIRS`` the LayerNorms #1 and #6 (and #7 beside them) at NORM_AB_CASES, the
 main path's shapes: CUDA-event, device kernel and host ms of each call and of
 ``F.layer_norm`` where it computes the same function (``F.rms_norm`` beside
 #7), and each side's error
-in bf16 spacings against fp32 on the same inputs.
+in bf16 spacings against fp32 on the same inputs; ``--generic-ab PARENT
+PAIRS`` the generic kernels at the full-width fp32 rows (KR_FULL), forward
+and backward, by CUDA events and by device kernel time, with each side's
+relative L2 error against the plain twins on the same inputs.
 
 Prints one JSON line of per-kernel results (each with its least possible time
 on the card, from the published H100 SXM peaks), then as the last line
@@ -304,6 +312,9 @@ FLUX_STEPS = 28  # FluxSamplerConfig's default, the reference's
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 FP32_FLOPS = 67e12
+# fp32-accurate products on the tensor cores in a 3xTF32 split (three TF32
+# products each, 495 TFLOP/s TF32): the generic kernels' fp32 instances
+TF32_3X_FLOPS = 495e12 / 3
 # the inference slice: eval_sd3_fast at full SD3.5-M width, random weights
 INFER_ARGV = ["--config", "eval_sd3_fast", "--prompts", "a flower", "--set", "pretrained.model=''"]
 # the training slice: smoke_sd3_fast at full SD3.5-M width, 10-step rollouts,
@@ -6284,6 +6295,66 @@ def attention_fwd_ms(tree):
     print(json.dumps(out), flush=True)
 
 
+def generic_ms(tree):
+    """``--generic-ms TREE``: the ``adv_grpo_torch`` in the checkout at TREE
+    runs the generic kernels at the full-width fp32 rows (KR_FULL), forward
+    and backward through the wrappers as ``_kr_attn_full`` calls them: median
+    ms of 20 CUDA-event-timed calls after 3 warm-ups, device kernel ms per
+    call (mean of 10 traced calls, every kernel the call launches), the
+    host's ms per call (20 enqueued back to back) and the device ms by
+    kernel (``split``), and each direction's relative L2 error against the
+    plain twin on the same inputs (each row's drawn from its own seed);
+    ptxas's registers and spill stores of the generic kernels where this
+    process built them. TF32 off for the twins. One JSON line."""
+    sys.path.insert(0, tree)
+    import re
+
+    import torch
+
+    from adv_grpo_torch.kernels import build
+    from adv_grpo_torch.ops import attention
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out, errors, split = {"module": attention.__file__}, {}, {}
+    for i, (name, mode, shape, d, rms) in enumerate(KR_FULL):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 230 + i)
+        streams, pairs, h = _kr_inputs(mode, torch.float32, d, shape, g, rms)
+        kv_len = shape[-1] if mode in ("bshd", "bhsd") else None
+        ref, ref_lse = _kr_plain_fwd(mode, streams, pairs, h, d, kv_len)
+
+        def fwd():
+            return _kr_fwd(mode, streams, pairs, h, d, kv_len)
+
+        def bwd():
+            return _kr_bwd(mode, streams, pairs, h, d, kv_len, ref, ref_lse, False)
+
+        outs = fwd()[0]
+        pairs_b = [(a, b) for gs, ws in zip(bwd(), _kr_bwd(mode, streams, pairs, h, d, kv_len,
+                                                           ref, ref_lse, True))
+                   for a, b in zip(gs, ws) if b.numel()]
+        errors[f"{name} {mode}"] = [max(_rel_l2(o, r) for o, r in zip(outs, ref)),
+                                    max(_rel_l2(a, b) for a, b in pairs_b)]
+        del outs, pairs_b
+        for direction, fn in (("forward", fwd), ("backward", bwd)):
+            key = f"{name} {mode} {direction}"
+            out[key] = (_median_ms(fn), _profile_forward(fn, reps=10)[0], _host_ms(fn, calls=20))
+            split[key] = {k: round(v, 4) for k, v in _kernel_split(fn).items()}
+        del streams, ref, ref_lse
+        torch.cuda.empty_cache()
+    out["errors"], out["split"] = errors, split
+    out["error_names"] = ["forward relative L2 against the twin",
+                          "backward relative L2 against the twin"]
+    registers, entry = {}, None
+    for line in build.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        entry = m.group(1) if m else entry
+        m = re.search(r"Used (\d+) registers", line) or re.search(r"(\d+) bytes spill stores", line)
+        if m and entry and "attn_generic" in entry:
+            registers.setdefault(entry, []).append(int(m.group(1)))
+    out["registers"] = {e: f"{r[0]} bytes of spill stores, {r[-1]}" for e, r in registers.items()}
+    print(json.dumps(out), flush=True)
+
+
 # ``--norms-ab``: (name, kernel #, B, S, D). #1 at SD3.5-M's image and text
 # streams at CFG batch 2, the image stream at batch 8, Flux.1-dev's image
 # stream and WAN's video tokens, scale and shift strided chunks of one
@@ -6375,7 +6446,8 @@ def norms_ms(tree):
 
 def attention_ab(mode, parent, pairs):
     """``--sd3-attention-ab`` / ``--attention-bwd-ab`` / ``--attention-fwd-ab``
-    / ``--sd3-forward-ab`` / ``--norms-ab PARENT PAIRS``: PAIRS alternating pairs of
+    / ``--sd3-forward-ab`` / ``--norms-ab`` / ``--generic-ab PARENT PAIRS``:
+    PAIRS alternating pairs of
     ``chip_smoke.py MODE TREE`` runs (MODE the matching ``-ms`` mode), each in
     its own process, of the checkout at PARENT and of this one (parent,
     change, change, parent, ...). Each run prints one JSON line {"module":
@@ -6435,8 +6507,8 @@ def attention_ab(mode, parent, pairs):
     for case, errs in runs["change"][0].get("errors", {}).items():
         p_errs = runs["parent"][0]["errors"][case]
         print(f"{case} error, change / parent: " + "; ".join(
-            f"{n} {c:.4e} / {p:.4e} ({c / p:.3f}x)" for n, c, p in zip(names, errs, p_errs)),
-            flush=True)
+            f"{n} {c:.4e} / {p:.4e}" + (f" ({c / p:.3f}x)" if p else "")
+            for n, c, p in zip(names, errs, p_errs)), flush=True)
 
 
 # ── the kernels' whole range: fp32, every head width up to 128 ──────────────
@@ -6467,6 +6539,22 @@ KR_WAN_DEMO = ["--config", "wan_smoke"]
 KR_WAN_TRAIN = ["--config", "wan_smoke", "--max_epochs", "2"]
 # the context-parallel call at the ring test's head width (B, H, S, D)
 KR_CP_SHAPE = (1, 16, 2048, 32)
+# the full-width fp32 rows (name, mode, shape as KR_EDGES, d, fused qk-RMS):
+# SD3.5-M's joint and single-stream attention with the qk-RMS, Flux.1-dev's
+# joint at d = 128 without it (as Flux calls it), WAN's self-attention and
+# the context-parallel call; SDPA computes the same function where there is
+# no RMS
+KR_FULL = (("sd3", "joint", (2, 1024, 154, 24), 64, True),
+           ("sd3", "single", (2, 1024, 24), 64, True),
+           ("flux", "joint", (1, 1024, 512, 24), 128, False),
+           ("wan", "bshd", (1, 8100, 8100, 12, None), 128, False),
+           ("cp", "bhsd", KR_CP_SHAPE[:3] + (KR_CP_SHAPE[2], None), KR_CP_SHAPE[3], False))
+# the generic kernels' fp32 instances (3xTF32 on the tensor cores: the
+# forward on wgmma, HGMMA in SASS; the backward on mma.sync m16n8k8, HMMA),
+# at DMAX 32 / 64 / 128: {source: {kernel: instances}}
+GENERIC_TF32_KERNELS = {GENERIC_FWD_SOURCE: {"attn_generic_fwd_tf32_kernel": 3},
+                        GENERIC_BWD_SOURCE: {"attn_generic_dkv_tf32_kernel": 3,
+                                             "attn_generic_dq_tf32_kernel": 3}}
 
 
 def generic_counters():
@@ -6701,10 +6789,12 @@ def check_generic_edges():
 
 def _kr_attn_full(name, mode, shape, d, g, library, rms=True):
     """A full-width fp32 generic case (joint / single with the fused qk-RMS
-    unless not ``rms``): checked (``_kr_case``) and timed forward and
-    backward beside the plain versions, SDPA in fp32 where it computes the
-    same function (``library``) and the fp32 bound. Returns the two
-    kernels-line entries (launches filled in later)."""
+    unless not ``rms``): checked (``_kr_case``), two calls each way held
+    bitwise equal, and timed forward and backward beside the plain versions,
+    SDPA in fp32 where it computes the same function (``library``) and the
+    bounds of the 3xTF32 tensor cores (the entries' ``bound_ms``) and of FFMA
+    (``bound_ffma_ms``). Returns the two kernels-line entries (launches
+    filled in later)."""
     import torch
     import torch.nn.functional as F
 
@@ -6723,9 +6813,20 @@ def _kr_attn_full(name, mode, shape, d, g, library, rms=True):
     # dk, dv written (backward); the fp32 row statistics beside them
     qkv = _nbytes(*(t for s in streams for t in s[:3]))
     stats = _nbytes(*ref_lse)
-    least_f = _bound(qkv + _nbytes(*ref) + stats, 4.0 * b * h * s_q * s_kv * d, FP32_FLOPS)
-    least_b = _bound(2 * qkv + _nbytes(*ref) + 2 * stats, 10.0 * b * h * s_q * s_kv * d,
-                     FP32_FLOPS)
+    # the bound of the 3xTF32 tensor cores (the kernels' route) and, beside
+    # it, of FFMA
+    bytes_f, bytes_b = qkv + _nbytes(*ref) + stats, 2 * qkv + _nbytes(*ref) + 2 * stats
+    flops_f, flops_b = 4.0 * b * h * s_q * s_kv * d, 10.0 * b * h * s_q * s_kv * d
+    least_f, least_b = (_bound(bytes_f, flops_f, TF32_3X_FLOPS),
+                        _bound(bytes_b, flops_b, TF32_3X_FLOPS))
+    ffma_f, ffma_b = _bound(bytes_f, flops_f, FP32_FLOPS), _bound(bytes_b, flops_b, FP32_FLOPS)
+    # no atomics: two calls on the same inputs are bitwise equal
+    for direction, call in (("forward", lambda: _kr_fwd(mode, streams, pairs, h, d, kv_len)),
+                            ("backward", lambda: _kr_bwd(mode, streams, pairs, h, d, kv_len,
+                                                         ref, ref_lse, False))):
+        first = [t.clone() for t in _flat(call())]
+        if not all(torch.equal(a, b_) for a, b_ in zip(first, _flat(call()))):
+            raise AssertionError(f"generic {mode} fp32 {name} {direction}: two calls differ")
     iters = 5 if s_q > 4096 else 10
     fwd_ms = _median_ms(lambda: _kr_fwd(mode, streams, pairs, h, d, kv_len), iters=iters)
     plain_f = _median_ms(lambda: _kr_plain_fwd(mode, streams, pairs, h, d, kv_len, dt),
@@ -6748,10 +6849,10 @@ def _kr_attn_full(name, mode, shape, d, g, library, rms=True):
         del out, leaves, qkv
     print(f"generic {mode} fp32 {name} {shape} d={d} rms={pairs is not None}: forward "
           f"{errs['fwd'][1]}, {fwd_ms:.4f} ms "
-          f"vs plain {plain_f:.4f} vs SDPA {_ms(lib_f)}; bound {least_f[0]:.4f} ms "
-          f"({least_f[1]}); backward {errs['bwd'][1]}, {bwd_ms:.4f} ms vs plain {plain_b:.4f} "
-          f"vs SDPA backward {_ms(lib_b)}; bound {least_b[0]:.4f} ms ({least_b[1]})",
-          flush=True)
+          f"vs plain {plain_f:.4f} vs SDPA {_ms(lib_f)}; bound {least_f[0]:.4f} ms 3xTF32 "
+          f"({least_f[1]}), {ffma_f[0]:.4f} FFMA; backward {errs['bwd'][1]}, {bwd_ms:.4f} ms "
+          f"vs plain {plain_b:.4f} vs SDPA backward {_ms(lib_b)}; bound {least_b[0]:.4f} ms "
+          f"3xTF32 ({least_b[1]}), {ffma_b[0]:.4f} FFMA; two calls bitwise equal", flush=True)
     replaces = {"joint": ("adv_grpo_tpu/ops/joint_attention.py:73",
                           "adv_grpo_tpu/ops/joint_attention.py:224"),
                 "single": ("adv_grpo_tpu/ops/joint_attention.py:644",
@@ -6760,10 +6861,20 @@ def _kr_attn_full(name, mode, shape, d, g, library, rms=True):
                 "bhsd": ("adv_grpo_tpu/ops/attention.py:104", "adv_grpo_tpu/ops/attention.py:201")}
     del streams, ref, ref_lse
     torch.cuda.empty_cache()
-    return (_entry(f"attention_generic_fwd_{mode}_f32_{name}", GENERIC_FWD_SOURCE,
-                   replaces[mode][0], errs["fwd"][0], fwd_ms, plain_f, least_f, lib_f),
-            _entry(f"attention_generic_bwd_{mode}_f32_{name}", GENERIC_BWD_SOURCE,
-                   replaces[mode][1], errs["bwd"][0], bwd_ms, plain_b, least_b, lib_b))
+    return (dict(_entry(f"attention_generic_fwd_{mode}_f32_{name}", GENERIC_FWD_SOURCE,
+                        replaces[mode][0], errs["fwd"][0], fwd_ms, plain_f, least_f, lib_f),
+                 bound_ffma_ms=ffma_f[0]),
+            dict(_entry(f"attention_generic_bwd_{mode}_f32_{name}", GENERIC_BWD_SOURCE,
+                        replaces[mode][1], errs["bwd"][0], bwd_ms, plain_b, least_b, lib_b),
+                 bound_ffma_ms=ffma_b[0]))
+
+
+def _flat(result):
+    """The tensors of a ``_kr_fwd`` / ``_kr_bwd`` result, in order."""
+    out = []
+    for x in result:
+        out.extend(_flat(x) if isinstance(x, (list, tuple)) else [x])
+    return out
 
 
 def check_rms_bwd_d128(g):
@@ -7072,13 +7183,8 @@ def run_kernel_range_slice(smi):
         check_no_generic("the kernel range phase (every earlier phase)")
         check_generic_edges()
         g = torch.Generator(device="cuda").manual_seed(SEED + 24)
-        sd3_j = _kr_attn_full("sd3", "joint", (2, 1024, 154, 24), 64, g, library=False)
-        sd3_s = _kr_attn_full("sd3", "single", (2, 1024, 24), 64, g, library=False)
-        flux_j = _kr_attn_full("flux", "joint", (1, 1024, 512, 24), 128, g, library=True,
-                               rms=False)
-        wan = _kr_attn_full("wan", "bshd", (1, 8100, 8100, 12, None), 128, g, library=True)
-        cp = _kr_attn_full("cp", "bhsd", KR_CP_SHAPE[:3] + (KR_CP_SHAPE[2], None),
-                           KR_CP_SHAPE[3], g, library=True)
+        full = [e for name, mode, shape, d, rms in KR_FULL
+                for e in _kr_attn_full(name, mode, shape, d, g, library=not rms, rms=rms)]
         check_rms_bwd_d128(g)
         norms = check_fp32_norms(g)
         with tempfile.TemporaryDirectory() as work:
@@ -7104,12 +7210,74 @@ def run_kernel_range_slice(smi):
         "rms_heads_f32": counts["flux"]["rms"] + counts["wan"]["rms"]}
     # the single-stream backward never runs on these paths (the dual
     # attention of block 0 gets no gradient): its row is left out
-    results = [e for e in sd3_j + sd3_s + flux_j + wan + cp + tuple(norms)
-               if launches.get(e["name"])]
+    results = [e for e in full + list(norms) if launches.get(e["name"])]
     for e in results:
         e["launches"] = launches[e["name"]]
     print(f"kernel range phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return results
+
+
+def mma_rate(smi):
+    """``--mma-rate``: builds and runs ``csrc/probes/mma_rate.cu`` (the card's
+    mma.sync rate in TF32 and bf16) in a temporary directory; returns its
+    exit code."""
+    from adv_grpo_torch.kernels import build
+
+    src = os.path.join(build.CSRC_DIR, "probes", "mma_rate.cu")
+    print(smi, flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = os.path.join(tmp, "mma_rate")
+        subprocess.run([build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                        "-o", exe, src], check=True)
+        return subprocess.run([exe]).returncode
+
+
+def _ptxas_report(build, names):
+    """{entry: {"registers", "static_smem", "spill_stores"}} from the ptxas
+    report of this process's build, for the entries that name one of
+    ``names``."""
+    import re
+
+    report, entry = {}, ""
+    for line in build.build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
+        elif entry and any(k in entry for k in names):
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                report.setdefault(entry, {})["spill_stores"] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                report.setdefault(entry, {})["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                report[entry]["static_smem"] = int(m.group(1)) if m else 0
+    return report
+
+
+_SASS = {}  # the library's path: its SASS (cuobjdump -sass)
+
+
+def _sass_counts(build, names, opcodes):
+    """{function: its instructions of any of ``opcodes``} over the SASS
+    functions of this process's build that name one of ``names``; None where
+    cuobjdump is not on the machine."""
+    import re
+
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        print("  cuobjdump not found: SASS not inspected", flush=True)
+        return None
+    lib = build.build()
+    if lib not in _SASS:  # one disassembly a library
+        _SASS[lib] = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                                    text=True).stdout
+    counts, fn = {}, None
+    for line in _SASS[lib].splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        fn = m.group(1) if m else fn
+        if fn and any(k in fn for k in names):
+            counts[fn] = counts.get(fn, 0) + any(op in line for op in opcodes)
+    return counts
 
 
 def check_sm90_build(build):
@@ -7119,22 +7287,8 @@ def check_sm90_build(build):
     cuobjdump is on the machine, prints how many HGMMA (wgmma) instructions
     each instance of each wgmma kernel holds, and raises where one holds
     none."""
-    import re
-
-    kernels = {k: src for src, ks in SM90_KERNELS.items() for k in ks}
-    report, entry = {}, ""
+    report = _ptxas_report(build, {k for ks in SM90_KERNELS.values() for k in ks})
     for line in build.build_log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1] if "'" in line else line.strip()
-        elif entry and any(k in entry for k in kernels):
-            m = re.search(r"(\d+) bytes spill stores", line)
-            if m:
-                report.setdefault(entry, {})["spill_stores"] = int(m.group(1))
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                report.setdefault(entry, {})["registers"] = int(m.group(1))
-                m = re.search(r"(\d+) bytes smem", line)
-                report[entry]["static_smem"] = int(m.group(1)) if m else 0
         if "wgmma" in line and "warning" in line.lower():  # serialised wgmma
             print(f"  ptxas: {line.strip()}", flush=True)
     # the tiles live in dynamic shared memory, sized in the sources (Smem)
@@ -7150,24 +7304,41 @@ def check_sm90_build(build):
     spills = {e: r.get("spill_stores") for e, r in report.items() if r.get("spill_stores") != 0}
     if spills:
         raise AssertionError(f"a wgmma + TMA kernel spills: {spills}")
-    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if not os.path.exists(cuobjdump):
-        print("  cuobjdump not found: SASS not inspected", flush=True)
-        return
-    sass = subprocess.run([cuobjdump, "-sass", build.build()], capture_output=True,
-                          text=True).stdout
     for src, ks in SM90_KERNELS.items():
         wgmma_kernel, instances = next(iter(ks.items()))
-        hgmma, fn = {}, None
-        for line in sass.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            fn = m.group(1) if m else fn
-            if fn and wgmma_kernel in fn and "HGMMA" in line:
-                hgmma[fn] = hgmma.get(fn, 0) + 1
+        hgmma = _sass_counts(build, (wgmma_kernel,), ("HGMMA",))
+        if hgmma is None:
+            return
         print(f"  SASS: HGMMA instructions per {wgmma_kernel} instance {hgmma}", flush=True)
-        if len(hgmma) != instances:
+        if len(hgmma) != instances or not all(hgmma.values()):
             raise AssertionError(f"expected HGMMA in {instances} {wgmma_kernel} instances, got "
                                  f"{hgmma}")
+
+
+def check_generic_tf32_build(build):
+    """The generic kernels' fp32 instances (GENERIC_TF32_KERNELS) in this
+    process's build: ptxas's registers and spill stores per instance
+    (printed; raises on a missing instance; the dk/dv kernel at d = 128
+    sits at the 255-register cap with a few bytes of spill, PERF.md §6 PR
+    23) and, where cuobjdump is on the machine, the tensor-core
+    instructions each instance holds (HGMMA: wgmma, HMMA: mma.sync): raises
+    where one holds none, so fp32 runs on the tensor cores."""
+    names = {k for ks in GENERIC_TF32_KERNELS.values() for k in ks}
+    report = _ptxas_report(build, names)
+    for src, ks in GENERIC_TF32_KERNELS.items():
+        print(f"{src} fp32 instances (ptxas): " + "; ".join(
+            f"{e}: {r.get('registers')} registers, {r.get('spill_stores')} bytes of spill stores"
+            for e, r in sorted(report.items()) if any(k in e for k in ks)), flush=True)
+        found = {n: sum(n in e for e in report) for n in ks}
+        if found != ks:
+            raise AssertionError(f"ptxas reported {found} fp32 generic instances, expected {ks}")
+    ops = _sass_counts(build, names, ("HMMA", "HGMMA"))
+    if ops is None:
+        return
+    print(f"  SASS: HGMMA / HMMA instructions per fp32 generic instance {ops}", flush=True)
+    if len(ops) != sum(sum(ks.values()) for ks in GENERIC_TF32_KERNELS.values()) or not all(
+            ops.values()):
+        raise AssertionError(f"fp32 generic instances without HGMMA / HMMA: {ops}")
 
 
 def main() -> int:
@@ -7195,10 +7366,15 @@ def main() -> int:
     if sys.argv[1:2] == ["--norms-ms"]:
         norms_ms(sys.argv[2])
         return 0
+    if sys.argv[1:2] == ["--generic-ms"]:
+        generic_ms(sys.argv[2])
+        return 0
+    if sys.argv[1:] == ["--mma-rate"]:
+        return mma_rate(smi)
     print(smi, flush=True)
     ab = {"--sd3-attention-ab": "--sd3-attention-ms", "--attention-bwd-ab": "--attention-bwd-ms",
           "--attention-fwd-ab": "--attention-fwd-ms", "--sd3-forward-ab": "--sd3-forward-ms",
-          "--norms-ab": "--norms-ms"}
+          "--norms-ab": "--norms-ms", "--generic-ab": "--generic-ms"}
     if sys.argv[1:2] and sys.argv[1] in ab:
         attention_ab(ab[sys.argv[1]], sys.argv[2], int(sys.argv[3]))
         return 0
@@ -7220,6 +7396,7 @@ def main() -> int:
             elif "Used" in line or "spill" in line:
                 print(f"  {entry}: {line.strip()}", flush=True)
         check_sm90_build(build)
+        check_generic_tf32_build(build)
 
     from adv_grpo_torch.ops import attention, fused_norms, joint_attention
     import torch.distributed as dist

@@ -25,8 +25,9 @@ TMA backward at its tile edges, its pre-pass's operands bit for bit against
 backwards' 2e-2 of its twin, three kernels a call; the generic kernels
 (fp32 at every head width up to 128, bf16 at the widths the wgmma kernels
 lack, the fused-RMS backward at 128) at their tile edges against the twins
-(fp32 1e-5 forward, 1e-4 backward in relative L2), the fp32 norms (1e-6),
-and the CI-sized presets on the card.
+(fp32 1e-5 forward, 1e-4 backward in relative L2) and, in fp32, at the
+full-width rows with two calls bitwise equal, the fp32 norms (1e-6), and
+the CI-sized presets on the card.
 """
 
 import re
@@ -948,6 +949,33 @@ def test_generic_attention_tile_edges(no_tf32, dtype, d, s, case):
             slice(None), slice(None), slice(kv, None))
         assert not dk[rows].any() and not dv[rows].any()
         assert torch.isfinite(dq).all()
+
+
+# chip_smoke.py's full-width fp32 rows (KR_FULL), by "name mode"
+_FULL_ROWS = ("sd3 joint", "sd3 single", "flux joint", "wan bshd", "cp bhsd")
+
+
+@pytest.mark.parametrize("row", _FULL_ROWS)
+def test_generic_fp32_full_width_repeats_bitwise(no_tf32, row):
+    """The fp32 generic kernels (3xTF32 on the tensor cores) at the full-width
+    rows, with and without the fused qk-RMS as the models call them: forward
+    and backward against the twins at the unchanged bounds (chip_smoke.py
+    ``_kr_case``: 1e-5 / 1e-4 relative L2), then two calls each way on the
+    same inputs bitwise equal (no atomics, so an fp32 run repeats)."""
+    import chip_smoke
+
+    name, mode, shape, d, rms = next(r for r in chip_smoke.KR_FULL if f"{r[0]} {r[1]}" == row)
+    g = torch.Generator(device="cuda").manual_seed(23)
+    chip_smoke._kr_case(mode, torch.float32, d, shape, g, rms=rms)
+    streams, pairs, h = chip_smoke._kr_inputs(mode, torch.float32, d, shape, g, rms)
+    kv_len = shape[-1] if mode in ("bshd", "bhsd") else None
+    ref, ref_lse = chip_smoke._kr_plain_fwd(mode, streams, pairs, h, d, kv_len)
+    for call in (lambda: chip_smoke._kr_fwd(mode, streams, pairs, h, d, kv_len),
+                 lambda: chip_smoke._kr_bwd(mode, streams, pairs, h, d, kv_len, ref, ref_lse,
+                                            False)):
+        first = [t.clone() for t in chip_smoke._flat(call())]
+        again = chip_smoke._flat(call())
+        assert len(first) == len(again) and all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.parametrize("b,s,d", [(2, 154, 1536), (1, 8100, 1536), (1, 5, 3072), (2, 7, 32),

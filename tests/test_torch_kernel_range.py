@@ -3,10 +3,10 @@ generic kernels are held to, at the small head widths.
 
 ``attention_route`` (adv_grpo_torch/ops/attention.py) decides, before any
 launch, which kernel a CUDA call takes: the wgmma + TMA kernels ("sm90", bf16
-at head width 64 or 128, as before) or the generic FFMA kernels of
+at head width 64 or 128, as before) or the generic kernels of
 ``csrc/attention_generic_{fwd,bwd}.cu`` ("generic": fp32 at any width up to
-128, bf16 at the other widths, and the single-stream and fused-RMS joint
-backwards at 128). Here, on the CPU: the route over every (dtype, width, RMS,
+128 on the tensor cores in 3xTF32, bf16 at the other widths on FFMA, and the
+single-stream and fused-RMS joint backwards at 128). Here, on the CPU: the route over every (dtype, width, RMS,
 mode, direction), the limits that still raise, the wrappers refusing a
 non-CPU tensor before any launch on the generic route too, the generic
 kernels' descriptor and modes against their C header, and the joint twins
