@@ -26,6 +26,23 @@ one:
   * ``WanRMSNorm`` is x / max(||x||_C, 1e-12) * sqrt(C) * gamma (no eps inside
     the root).
 
+The decoder runs that whole-sequence form over chunks of latent frames,
+diffusers' scheme with longer chunks: each causal conv carries the last two
+frames of its (padded) input from one chunk to the next, zeros before the
+first; the temporal upsample applies its frame-0 rule in the first chunk
+only; norms, per-frame attention and spatial resamples are frame-local. So
+every chunking computes the same function. ``WanDecoder3d.chunk_frames``
+takes the chunk from the shapes: the longest that keeps every intermediate
+under 2^31 elements, spread evenly over the fewest chunks. That count is a
+proxy for memory and time, not a limit PyTorch enforces (the whole-sequence
+decode ran at 6.2e9 elements); it was chosen because it keeps 33 frames of
+480^2 in one chunk and bounds the decode's peak. Up to 33 frames
+of 480^2 that is one chunk (1.6e9 elements at most), the whole-sequence
+decode; 81 frames of 480^2 take two chunks, of 480x832 three. On an H100
+the whole-sequence decode of 81 frames of 480x832 took 11.6 s and 58 GiB
+above the weights, the three chunks 8.3 s and 24 GiB (``chip_smoke.py
+--wan-decode 81 480 832`` and ``--wan-81``).
+
 The mid blocks' single-head attention is per frame over the H*W tokens. It
 runs in fp32 like the JAX model (the JAX package has no Pallas kernel here,
 so this is plain torch); ``WanPipeline`` switches TF32 off so the
@@ -100,15 +117,24 @@ class WanRMSNorm(nn.Module):
 
 class WanCausalConv3d(nn.Conv3d):
     """Conv3d causal in time: 2 (kt - 1 = 2 for kt = 3) zero frames on the
-    left, SAME spatially, no right time pad."""
+    left, SAME spatially, no right time pad. With ``carry`` (a dict shared by
+    the chunks of one sequence) the left frames are the last kt - 1 frames
+    of the previous chunk's input, zeros before the first chunk."""
 
     def __init__(self, cin: int, cout: int, kernel, cfg: WanVAEConfig, device=None):
         super().__init__(cin, cout, kernel, dtype=cfg.dtype, device=device)
         kt, kh, kw = self.kernel_size
         self._pad = (kw // 2, kw // 2, kh // 2, kh // 2, kt - 1, 0)
 
-    def forward(self, x):
-        return super().forward(F.pad(x, self._pad) if any(self._pad) else x)
+    def forward(self, x, carry=None):
+        kt1 = self._pad[4]
+        if carry is None or not kt1:
+            return super().forward(F.pad(x, self._pad) if any(self._pad) else x)
+        prev = carry.get(self)
+        x = (F.pad(x, self._pad) if prev is None
+             else torch.cat([prev, F.pad(x, self._pad[:4])], dim=2))
+        carry[self] = x[:, :, -kt1:].clone()
+        return super().forward(x)
 
 
 class WanResBlock(nn.Module):
@@ -122,10 +148,10 @@ class WanResBlock(nn.Module):
         self.conv2 = WanCausalConv3d(cout, cout, 3, cfg, device)
         self.conv_shortcut = WanCausalConv3d(cin, cout, 1, cfg, device) if cin != cout else None
 
-    def forward(self, x):
+    def forward(self, x, carry=None):
         h = x if self.conv_shortcut is None else self.conv_shortcut(x)
-        y = self.conv1(F.silu(self.norm1(x)))
-        return h + self.conv2(F.silu(self.norm2(y)))
+        y = self.conv1(F.silu(self.norm1(x)), carry)
+        return h + self.conv2(F.silu(self.norm2(y)), carry)
 
 
 class WanAttnBlock(nn.Module):
@@ -139,7 +165,8 @@ class WanAttnBlock(nn.Module):
         self.to_qkv = nn.Conv2d(dim, 3 * dim, 1, **kw)
         self.proj = nn.Conv2d(dim, dim, 1, **kw)
 
-    def forward(self, x):
+    def forward(self, x, carry=None):
+        del carry  # frame-local
         B, C, T, H, W = x.shape
         y = self.norm(x.transpose(1, 2).reshape(B * T, C, H, W))
         tok = y.flatten(2).transpose(1, 2)  # (B*T, H*W, C)
@@ -156,8 +183,8 @@ class WanMidBlock(nn.Module):
                                       WanResBlock(dim, dim, cfg, device)])
         self.attentions = nn.ModuleList([WanAttnBlock(dim, cfg, device)])
 
-    def forward(self, x):
-        return self.resnets[1](self.attentions[0](self.resnets[0](x)))
+    def forward(self, x, carry=None):
+        return self.resnets[1](self.attentions[0](self.resnets[0](x, carry)), carry)
 
 
 class WanUpsample(nn.Module):
@@ -175,14 +202,19 @@ class WanUpsample(nn.Module):
         self.time_conv = (WanCausalConv3d(dim, 2 * dim, (3, 1, 1), cfg, device)
                           if temporal else None)
 
-    def forward(self, x):
+    def forward(self, x, carry=None):
         if self.time_conv is not None:
             B, C, T, H, W = x.shape
-            z = x.clone()
-            z[:, :, 0] = 0.0
-            y = self.time_conv(z)[:, :, 1:].reshape(B, 2, C, T - 1, H, W)
-            y = y.permute(0, 2, 3, 1, 4, 5).reshape(B, C, 2 * (T - 1), H, W)
-            x = torch.cat([x[:, :, :1], y], dim=2)
+            # the chunk that holds frame 0: the sequence's first
+            first = carry is None or self.time_conv not in carry
+            z = x
+            if first:
+                z = x.clone()
+                z[:, :, 0] = 0.0
+            y = self.time_conv(z, carry)[:, :, 1 if first else 0:]
+            n = y.shape[2]
+            y = y.reshape(B, 2, C, n, H, W).permute(0, 2, 3, 1, 4, 5).reshape(B, C, 2 * n, H, W)
+            x = torch.cat([x[:, :, :1], y], dim=2) if first else y
         conv = self.resample[1]
         x = F.interpolate(x, scale_factor=(1.0, 2.0, 2.0), mode="nearest")
         return F.conv3d(x, conv.weight[:, :, None], conv.bias, padding=(0, 1, 1))
@@ -266,11 +298,60 @@ class WanDecoder3d(nn.Module):
         self.norm_out = WanRMSNorm(cin, 3, cfg, device)
         self.conv_out = WanCausalConv3d(cin, 3, 3, cfg, device)
 
-    def forward(self, x):
-        x = self.mid_block(self.conv_in(x))
-        for block in self.up_blocks:
-            x = block(x)
-        return self.conv_out(F.silu(self.norm_out(x)))
+    def forward(self, x, chunk=None):
+        """(B, z, T, h, w) -> (B, 3, 1 + tf (T - 1), H, W), decoded over
+        chunks of ``chunk`` latent frames (by default ``chunk_frames``)."""
+        T = x.shape[2]
+        chunk = chunk or self.chunk_frames(x.shape)
+        carry = {} if chunk < T else None
+        outs = []
+        for t0 in range(0, T, chunk):
+            h = self.mid_block(self.conv_in(x[:, :, t0:t0 + chunk], carry), carry)
+            for block in self.up_blocks:
+                h = block(h, carry)
+            outs.append(self.conv_out(F.silu(self.norm_out(h)), carry))
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+    def chunk_frames(self, shape) -> int:
+        """The latent frames of a chunk for (B, z, T, h, w) latents: as many
+        as keep every intermediate of a chunk under 2^31 elements, spread
+        evenly over the fewest chunks. 2^31 elements is a proxy for the
+        decode's memory and time, chosen because it keeps 33 frames of 480^2
+        in one chunk (the whole-sequence decode) and cuts the peak at 81
+        frames; PyTorch does not enforce it."""
+        B, _, T, h, w = shape
+        n = 1
+        while n < T and self._largest(B, -(-T // n), h, w) >= 2 ** 31:
+            n += 1
+        return -(-T // n)
+
+    def _largest(self, B, c, h, w) -> int:
+        """Elements of the largest tensor a chunk of ``c`` latent frames makes
+        (a later chunk's frame count, the 2 carried frames and the spatial
+        pad included)."""
+        def padded(ch, f, h, w):
+            return ch * (f + 2) * (h + 2) * (w + 2)
+
+        f, cin = c, self.conv_in.in_channels
+        sizes = [padded(cin, f, h, w)]
+        for block in [*self.mid_block.resnets, *self.mid_block.attentions, *self.up_blocks]:
+            if isinstance(block, WanResBlock):
+                sizes.append(padded(max(block.conv1.in_channels, block.conv1.out_channels),
+                                    f, h, w))
+                cin = block.conv1.out_channels
+            elif isinstance(block, WanAttnBlock):
+                sizes += [f * (h * w) ** 2, 3 * cin * f * h * w]
+            elif isinstance(block, WanUpsample):
+                if block.time_conv is not None:
+                    sizes.append(padded(2 * cin, f, h, w))
+                    f *= 2
+                h, w = 2 * h, 2 * w
+                sizes.append(cin * f * h * w)  # the nearest upsample's output
+                cin //= 2
+            else:
+                raise TypeError(f"no size model for decoder block {type(block).__name__}")
+        sizes.append(padded(cin, f, h, w))
+        return B * max(sizes)
 
 
 class WanVideoVAE(nn.Module):

@@ -113,7 +113,9 @@ class WanPipeline:
     def decode(self, latents):
         """Normalised 5-D latents -> video (B, F, 3, H, W) in [-1, 1],
         frame-major (the rewards' video layout); the VAE denormalises with
-        its per-channel stats."""
+        its per-channel stats and decodes each video in chunks of latent
+        frames where the whole would pass 2^31 elements
+        (``WanDecoder3d.chunk_frames``)."""
         return torch.cat([self.vae.decode(z[None]) for z in latents]).transpose(1, 2)
 
     def prepare_latents(self, generator: torch.Generator, batch: int,
