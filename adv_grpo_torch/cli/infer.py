@@ -46,6 +46,8 @@ import os
 import numpy as np
 import torch
 
+from adv_grpo_torch.utils.metrics import span
+
 
 def load_image(path: str, size: int) -> np.ndarray:
     """The image at ``path`` as RGB, PIL-bicubic resized to ``size``^2, in
@@ -64,11 +66,12 @@ def sample_images(pipeline, embeds, pooled, neg_e, neg_p, steps: int, guidance: 
     full-SDE sampler, guidance embedded, the negatives unused), then the VAE
     decode. ``latents`` (sd3 (B, C, hw, hw), flux packed (B, S, C)) are the
     starting latents, drawn from ``generator`` when None. The batch sampler
-    of ``generate``, ``cli.eval``, ``cli.generate_refs`` and ``cli.app``."""
+    of ``generate``, ``cli.eval``, ``cli.generate_refs`` and ``cli.app``.
+    Each call is one root span of ``utils.metrics.SPANS``, "sample_images"."""
     dev = pipeline.device
     b = embeds.shape[0]
-    lat = None if latents is None else torch.from_numpy(np.array(latents, np.float32)).to(dev)
-    with torch.inference_mode():
+    with span("sample_images", rows=b), torch.inference_mode():
+        lat = None if latents is None else torch.from_numpy(np.array(latents, np.float32)).to(dev)
         if getattr(pipeline, "family", "sd3") == "flux":
             from adv_grpo_torch.rollout.flux import flux_denoise_window_with_logprob
 

@@ -25,6 +25,7 @@ import torch
 
 from adv_grpo_torch.core.sde import flow_sde_step_with_logprob
 from adv_grpo_torch.rollout.sampler import RolloutResult
+from adv_grpo_torch.utils.metrics import span
 
 NUM_TRAIN_TIMESTEPS = 1000  # the flow-matching scheduler's, timestep = sigma * 1000
 
@@ -127,20 +128,21 @@ def flux_denoise_window_with_logprob(velocity_fn: Callable, packed_latents: torc
     afterwards (``rt`` an int or a per-sample (B,) tensor). Returns the
     trainer's ``RolloutResult``: latents (B, T+1, S, D), log_probs /
     timesteps / sigmas / sigmas_prev (B, T), final_latents (B, S, D)."""
-    b = packed_latents.shape[0]
-    dev = packed_latents.device
-    T = int(train_num_steps)
-    final, lats, lps, sigmas, timesteps = _rollout(
-        velocity_fn, packed_latents, generator, num_steps, noise_level)
-    rt = torch.broadcast_to(torch.as_tensor(rt, dtype=torch.long, device=dev), (b,))
-    rows = torch.arange(b, device=dev)[:, None]
-    w = rt[:, None] + torch.arange(T, device=dev)[None, :]  # (B, T)
-    w_lat = rt[:, None] + torch.arange(T + 1, device=dev)[None, :]  # (B, T+1)
-    sig = torch.as_tensor(sigmas, device=dev)
-    ts = torch.as_tensor(timesteps, device=dev)
-    return RolloutResult(final_latents=final, latents=lats[rows, w_lat],
-                         log_probs=lps[rows, w], timesteps=ts[w], sigmas=sig[w],
-                         sigmas_prev=sig[w + 1])
+    with span("denoise", device=packed_latents.device, rows=packed_latents.shape[0]):
+        b = packed_latents.shape[0]
+        dev = packed_latents.device
+        T = int(train_num_steps)
+        final, lats, lps, sigmas, timesteps = _rollout(
+            velocity_fn, packed_latents, generator, num_steps, noise_level)
+        rt = torch.broadcast_to(torch.as_tensor(rt, dtype=torch.long, device=dev), (b,))
+        rows = torch.arange(b, device=dev)[:, None]
+        w = rt[:, None] + torch.arange(T, device=dev)[None, :]  # (B, T)
+        w_lat = rt[:, None] + torch.arange(T + 1, device=dev)[None, :]  # (B, T+1)
+        sig = torch.as_tensor(sigmas, device=dev)
+        ts = torch.as_tensor(timesteps, device=dev)
+        return RolloutResult(final_latents=final, latents=lats[rows, w_lat],
+                             log_probs=lps[rows, w], timesteps=ts[w], sigmas=sig[w],
+                             sigmas_prev=sig[w + 1])
 
 
 def compute_flux_log_prob(velocity_fn, latents_j, next_latents_j, t_j, sigma_j, sigma_prev_j,

@@ -35,6 +35,7 @@ import torch
 
 from adv_grpo_torch.core.scheduler import flow_match_schedule
 from adv_grpo_torch.core.sde import cps_step_with_logprob
+from adv_grpo_torch.utils.metrics import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,60 +83,61 @@ def denoise_with_logprob(
     ``random_timestep`` is an int or a per-sample (B,) tensor; the steps
     before ``start_idx`` pass x through (fp32, log-prob 0, no noise drawn).
     """
-    sched = flow_match_schedule(cfg.num_steps, shift=cfg.shift,
-                                num_train_timesteps=cfg.num_train_timesteps)
-    dev = latents.device
-    B = latents.shape[0]
-    T = cfg.train_num_steps
-    rt = torch.broadcast_to(torch.as_tensor(random_timestep, dtype=torch.long,
-                                            device=dev), (B,))
-    if cfg.do_cfg:
-        embeds = torch.cat([neg_prompt_embeds, prompt_embeds], dim=0)
-        pooled = torch.cat([neg_pooled_embeds, pooled_embeds], dim=0)
-    else:
-        embeds, pooled = prompt_embeds, pooled_embeds
+    with span("denoise", device=latents.device, rows=latents.shape[0]):
+        sched = flow_match_schedule(cfg.num_steps, shift=cfg.shift,
+                                    num_train_timesteps=cfg.num_train_timesteps)
+        dev = latents.device
+        B = latents.shape[0]
+        T = cfg.train_num_steps
+        rt = torch.broadcast_to(torch.as_tensor(random_timestep, dtype=torch.long,
+                                                device=dev), (B,))
+        if cfg.do_cfg:
+            embeds = torch.cat([neg_prompt_embeds, prompt_embeds], dim=0)
+            pooled = torch.cat([neg_pooled_embeds, pooled_embeds], dim=0)
+        else:
+            embeds, pooled = prompt_embeds, pooled_embeds
 
-    x = latents.float()
-    record = []
-    for i in range(cfg.num_steps):
-        t = float(sched.timesteps[i])
-        sig, sig_prev = float(sched.sigmas[i]), float(sched.sigmas[i + 1])
-        if i < start_idx:  # pass-through: no model call, no noise drawn
+        x = latents.float()
+        record = []
+        for i in range(cfg.num_steps):
+            t = float(sched.timesteps[i])
+            sig, sig_prev = float(sched.sigmas[i]), float(sched.sigmas[i + 1])
+            if i < start_idx:  # pass-through: no model call, no noise drawn
+                if T:
+                    record.append((x, x, torch.zeros((B,), device=dev), t, sig, sig_prev))
+                continue
+            nl = torch.where((i >= rt) & (i < rt + T), cfg.noise_level, 0.0).float()
+            v = _guided_velocity(velocity_fn, x, t, embeds, pooled, cfg)
+            noise = torch.randn(x.shape, generator=generator, device=dev, dtype=torch.float32)
+            out = cps_step_with_logprob(v, x, sig, sig_prev, nl, noise=noise)
             if T:
-                record.append((x, x, torch.zeros((B,), device=dev), t, sig, sig_prev))
-            continue
-        nl = torch.where((i >= rt) & (i < rt + T), cfg.noise_level, 0.0).float()
-        v = _guided_velocity(velocity_fn, x, t, embeds, pooled, cfg)
-        noise = torch.randn(x.shape, generator=generator, device=dev, dtype=torch.float32)
-        out = cps_step_with_logprob(v, x, sig, sig_prev, nl, noise=noise)
-        if T:
-            record.append((x, out.prev_sample, out.log_prob, t, sig, sig_prev))
-        x = out.prev_sample
+                record.append((x, out.prev_sample, out.log_prob, t, sig, sig_prev))
+            x = out.prev_sample
 
-    if T == 0:
-        empty = torch.zeros((B, 0), device=dev)
-        return RolloutResult(x, torch.zeros((B, 0) + x.shape[1:], device=dev),
-                             empty, empty, empty, empty)
+        if T == 0:
+            empty = torch.zeros((B, 0), device=dev)
+            return RolloutResult(x, torch.zeros((B, 0) + x.shape[1:], device=dev),
+                                 empty, empty, empty, empty)
 
-    # gather each sample's window steps rt[b] .. rt[b] + T - 1
-    steps = rt[:, None] + torch.arange(T, device=dev)[None, :]  # (B, T)
-    rows = torch.arange(B, device=dev)[:, None]
-    x_in = torch.stack([r[0] for r in record], dim=1)  # (B, num_steps, C, h, w)
-    x_out = torch.stack([r[1] for r in record], dim=1)
-    lp = torch.stack([r[2] for r in record], dim=1)  # (B, num_steps)
+        # gather each sample's window steps rt[b] .. rt[b] + T - 1
+        steps = rt[:, None] + torch.arange(T, device=dev)[None, :]  # (B, T)
+        rows = torch.arange(B, device=dev)[:, None]
+        x_in = torch.stack([r[0] for r in record], dim=1)  # (B, num_steps, C, h, w)
+        x_out = torch.stack([r[1] for r in record], dim=1)
+        lp = torch.stack([r[2] for r in record], dim=1)  # (B, num_steps)
 
-    def per_step(k):
-        vals = torch.tensor([r[k] for r in record], dtype=torch.float32, device=dev)
-        return vals[steps]
+        def per_step(k):
+            vals = torch.tensor([r[k] for r in record], dtype=torch.float32, device=dev)
+            return vals[steps]
 
-    return RolloutResult(
-        final_latents=x,
-        latents=torch.cat([x_in[rows[:, 0], rt][:, None], x_out[rows, steps]], dim=1),
-        log_probs=lp[rows, steps],
-        timesteps=per_step(3),
-        sigmas=per_step(4),
-        sigmas_prev=per_step(5),
-    )
+        return RolloutResult(
+            final_latents=x,
+            latents=torch.cat([x_in[rows[:, 0], rt][:, None], x_out[rows, steps]], dim=1),
+            log_probs=lp[rows, steps],
+            timesteps=per_step(3),
+            sigmas=per_step(4),
+            sigmas_prev=per_step(5),
+        )
 
 
 def _guided_velocity(velocity_fn, x, t: float, embeds, pooled, cfg: SamplerConfig):
@@ -160,21 +162,22 @@ def denoise_prefix(velocity_fn: Callable, latents: torch.Tensor, prompt_embeds: 
     pre-window trajectory is the same for every member of a group), so it
     saves (1 - 1/group) of the pre-window forwards. ``rt == 0`` returns the
     latents in fp32."""
-    x = latents.float()
-    if rt == 0:
+    with span("denoise", device=latents.device, rows=latents.shape[0]):
+        x = latents.float()
+        if rt == 0:
+            return x
+        sched = flow_match_schedule(cfg.num_steps, shift=cfg.shift,
+                                    num_train_timesteps=cfg.num_train_timesteps)
+        if cfg.do_cfg:
+            embeds = torch.cat([neg_prompt_embeds, prompt_embeds], dim=0)
+            pooled = torch.cat([neg_pooled_embeds, pooled_embeds], dim=0)
+        else:
+            embeds, pooled = prompt_embeds, pooled_embeds
+        for i in range(int(rt)):
+            v = _guided_velocity(velocity_fn, x, float(sched.timesteps[i]), embeds, pooled, cfg)
+            x = cps_step_with_logprob(v, x, float(sched.sigmas[i]), float(sched.sigmas[i + 1]),
+                                      0.0, noise=torch.zeros_like(x)).prev_sample
         return x
-    sched = flow_match_schedule(cfg.num_steps, shift=cfg.shift,
-                                num_train_timesteps=cfg.num_train_timesteps)
-    if cfg.do_cfg:
-        embeds = torch.cat([neg_prompt_embeds, prompt_embeds], dim=0)
-        pooled = torch.cat([neg_pooled_embeds, pooled_embeds], dim=0)
-    else:
-        embeds, pooled = prompt_embeds, pooled_embeds
-    for i in range(int(rt)):
-        v = _guided_velocity(velocity_fn, x, float(sched.timesteps[i]), embeds, pooled, cfg)
-        x = cps_step_with_logprob(v, x, float(sched.sigmas[i]), float(sched.sigmas[i + 1]),
-                                  0.0, noise=torch.zeros_like(x)).prev_sample
-    return x
 
 
 def compute_log_prob(velocity_fn: Callable, latents_j, next_latents_j, t_j, sigma_j,

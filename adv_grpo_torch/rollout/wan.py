@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from adv_grpo_torch.core.sde import wan_sde_step_with_logprob
+from adv_grpo_torch.utils.metrics import span
 
 
 def wan_schedule(num_steps: int, shift: float = 3.0, num_train_timesteps: int = 1000):
@@ -122,18 +123,19 @@ def wan_denoise_window_with_logprob(velocity_fn: Callable, latents: torch.Tensor
     """The GRPO rollout: the whole stochastic chain (every step stochastic,
     reference wan_pipeline_with_logprob.py:229-341) with each sample's window
     [rt, rt + T) gathered afterwards (``rt`` an int or a (B,) tensor)."""
-    b, dev = latents.shape[0], latents.device
-    T = int(train_num_steps)
-    final, lats, lps, kls, sigmas, timesteps = _rollout(velocity_fn, latents, generator, cfg)
-    rt = torch.broadcast_to(torch.as_tensor(rt, dtype=torch.long, device=dev), (b,))
-    rows = torch.arange(b, device=dev)[:, None]
-    w = rt[:, None] + torch.arange(T, device=dev)[None, :]  # (B, T)
-    w_lat = rt[:, None] + torch.arange(T + 1, device=dev)[None, :]  # (B, T+1)
-    sig = torch.as_tensor(sigmas, device=dev)
-    ts = torch.as_tensor(timesteps, device=dev)
-    return WanWindowResult(final_latents=final, latents=lats[rows, w_lat],
-                           log_probs=lps[rows, w], timesteps=ts[w], sigmas=sig[w],
-                           sigmas_prev=sig[w + 1], kl=kls[rows, w])
+    with span("denoise", device=latents.device, rows=latents.shape[0]):
+        b, dev = latents.shape[0], latents.device
+        T = int(train_num_steps)
+        final, lats, lps, kls, sigmas, timesteps = _rollout(velocity_fn, latents, generator, cfg)
+        rt = torch.broadcast_to(torch.as_tensor(rt, dtype=torch.long, device=dev), (b,))
+        rows = torch.arange(b, device=dev)[:, None]
+        w = rt[:, None] + torch.arange(T, device=dev)[None, :]  # (B, T)
+        w_lat = rt[:, None] + torch.arange(T + 1, device=dev)[None, :]  # (B, T+1)
+        sig = torch.as_tensor(sigmas, device=dev)
+        ts = torch.as_tensor(timesteps, device=dev)
+        return WanWindowResult(final_latents=final, latents=lats[rows, w_lat],
+                               log_probs=lps[rows, w], timesteps=ts[w], sigmas=sig[w],
+                               sigmas_prev=sig[w + 1], kl=kls[rows, w])
 
 
 def make_wan_log_prob_fn(cfg: WanSamplerConfig):

@@ -82,9 +82,8 @@ from adv_grpo_torch.train.grpo_trainer import (
     make_shared_prefix_sample_fn, make_train_epoch_fn, make_wan_eval_fn, make_wan_sample_fn,
     rebatch_for_training)
 from adv_grpo_torch.train.train_state import create_generator_state
-from adv_grpo_torch.utils.flops import flux_forward_flops, rollout_flops, wan_forward_flops
 from adv_grpo_torch.utils.images import images_to_uint8
-from adv_grpo_torch.utils.metrics import MetricLogger, StepTimer
+from adv_grpo_torch.utils.metrics import SPANS, MetricLogger, StepTimer, span
 
 logger = logging.getLogger(__name__)
 
@@ -231,7 +230,6 @@ class GRPOTrainer:
             run_name=str(config.case_name), is_main=mesh.is_main())
         self.timer = StepTimer()
         self.executor = ThreadPoolExecutor(max_workers=4)
-        self._rollout_flops_acc = 0.0
         ne, npld = self.text_encode_fn([""])
         self.neg_embeds1 = self._dev(ne)
         self.neg_pooled1 = self._dev(npld)
@@ -245,6 +243,7 @@ class GRPOTrainer:
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            SPANS.anchor(self.device)  # the device is idle: renew the span log's clock tie
 
     def _neg(self, batch: int):
         return (self.neg_embeds1.expand(batch, *self.neg_embeds1.shape[1:]),
@@ -279,9 +278,10 @@ class GRPOTrainer:
             prompts = [p for p in slot_prompts for _ in range(self.mini)]
             prompt_ids = [j for j in slot_idx for _ in range(self.mini)]
             metadata = [m for m in metas for _ in range(self.mini)]
-            embeds, pooled = self.text_encode_fn(slot_prompts)
-            embeds = self._dev(np.repeat(np.asarray(embeds), self.mini, axis=0))
-            pooled = self._dev(np.repeat(np.asarray(pooled), self.mini, axis=0))
+            with self.timer("encode_prompts"):
+                embeds, pooled = self.text_encode_fn(slot_prompts)
+                embeds = self._dev(np.repeat(np.asarray(embeds), self.mini, axis=0))
+                pooled = self._dev(np.repeat(np.asarray(pooled), self.mini, axis=0))
             B = embeds.shape[0]
             neg_e, neg_p = self._neg(B)
             rt = self.window_start(step_idx)
@@ -293,35 +293,24 @@ class GRPOTrainer:
                     embeds, pooled, neg_e, neg_p, generator,
                     rt if self.shared_prefix else torch.full((B,), rt, dtype=torch.long))
                 images_np = images.float().cpu().numpy()  # syncs: the rollout is done
-            if self.family == "flux":  # one forward per step, no CFG batch
-                self._rollout_flops_acc += self.sampler_cfg.num_steps * flux_forward_flops(
-                    self.pipeline.flux_cfg, self._s_img, embeds.shape[1], B)
-            elif self.family == "wan":
-                # one forward per step; the KL adds the adapter-free forward
-                kl_mult = 2.0 if float(getattr(self.pipeline, "kl_reward", 0.0)) > 0 else 1.0
-                self._rollout_flops_acc += (
-                    self.sampler_cfg.num_steps * kl_mult * wan_forward_flops(
-                        self.pipeline.wan_cfg, self._s_img, embeds.shape[1], B))
-            else:
-                self._rollout_flops_acc += rollout_flops(
-                    self.pipeline.mmdit_cfg, self._s_img, embeds.shape[1], B,
-                    self.sampler_cfg.num_steps, self.sampler_cfg.do_cfg,
-                    prefix_steps=rt if self.shared_prefix else 0, group_size=self.mini)
 
             refs = None
             if self.reference_store is not None:
                 refs = self.reference_store.get_batch(prompts, rng=pyrandom.Random(step_idx))
 
-            def _score(images=images_np, prompts=prompts, metadata=metadata, refs=refs):
-                out = {"gen": self.reward_fn(images, prompts, metadata, ref_images=refs)[0]}
-                if refs is not None and self.disc is not None:
-                    # the reference images under the same reward, for the gate
-                    ref_flat = refs.reshape((-1,) + refs.shape[-3:])
-                    out["ref"] = self.reward_fn(ref_flat[:len(prompts)], prompts, metadata)[0]
-                return out
+            def _score(images=images_np, prompts=prompts, metadata=metadata, refs=refs,
+                       cause=SPANS.current()):
+                # on the executor's thread: the scorer's own time, caused by this epoch
+                with span("reward", rows=len(prompts), cause=cause):
+                    out = {"gen": self.reward_fn(images, prompts, metadata, ref_images=refs)[0]}
+                    if refs is not None and self.disc is not None:
+                        # the reference images under the same reward, for the gate
+                        ref_flat = refs.reshape((-1,) + refs.shape[-3:])
+                        out["ref"] = self.reward_fn(ref_flat[:len(prompts)], prompts,
+                                                    metadata)[0]
+                    return out
 
-            with self.timer("reward_dispatch"):
-                reward_futures.append(self.executor.submit(_score))
+            reward_futures.append(self.executor.submit(_score))
             rollouts.append(rollout._asdict())
             all_prompts.extend(prompts)
             all_prompt_ids.extend(prompt_ids)
@@ -469,56 +458,52 @@ class GRPOTrainer:
         while self.state.global_step < int(cfg.max_global_step):
             if max_epochs is not None and self.epoch >= max_epochs:
                 break
-            if eval_prompts and self.epoch % int(cfg.eval_freq) == 0 and self.epoch > 0:
-                eval_images, eval_metrics = self.eval_phase(eval_prompts)
-                self.logger.log(eval_metrics, step=self.state.global_step)
-                self.logger.log_image_grid(
-                    "eval_images", images_to_uint8(eval_images),
-                    captions=eval_prompts[:len(eval_images)],  # rank 0's share
-                    step=self.state.global_step, save_dir=str(cfg.save_dir))
-            if cfg.save_dir and self.epoch % int(cfg.save_freq) == 0 and self.epoch > 0:
-                self.save()
+            with span("epoch"):
+                if eval_prompts and self.epoch % int(cfg.eval_freq) == 0 and self.epoch > 0:
+                    eval_images, eval_metrics = self.eval_phase(eval_prompts)
+                    self.logger.log(eval_metrics, step=self.state.global_step)
+                    self.logger.log_image_grid(
+                        "eval_images", images_to_uint8(eval_images),
+                        captions=eval_prompts[:len(eval_images)],  # rank 0's share
+                        step=self.state.global_step, save_dir=str(cfg.save_dir))
+                if cfg.save_dir and self.epoch % int(cfg.save_freq) == 0 and self.epoch > 0:
+                    self.save()
 
-            samples = self.sample_phase(self.epoch)
-            # gather -> advantage -> slice-back: ids (never strings) and
-            # rewards of every rank, the statistics over the global batch
-            ids, local_rows = mesh.gather_global(samples["prompt_ids"])
-            avg, _ = mesh.gather_global(np.asarray(samples["rewards"]["avg"], np.float32))
-            algo = str(cfg.train.algorithm)
-            if self.per_prompt_stats or algo != "grpo":
-                advantages, group_stats = compute_advantages(self.tracker, ids, avg,
-                                                             algorithm=algo)
-            else:
-                # global normalisation over the whole gathered batch
-                advantages = ((avg - avg.mean()) / (avg.std() + 1e-4)).astype(np.float32)
-                group_stats = {}
-            advantages = advantages[local_rows]
+                samples = self.sample_phase(self.epoch)
+                # gather -> advantage -> slice-back: ids (never strings) and
+                # rewards of every rank, the statistics over the global batch
+                ids, local_rows = mesh.gather_global(samples["prompt_ids"])
+                avg, _ = mesh.gather_global(np.asarray(samples["rewards"]["avg"], np.float32))
+                algo = str(cfg.train.algorithm)
+                if self.per_prompt_stats or algo != "grpo":
+                    advantages, group_stats = compute_advantages(self.tracker, ids, avg,
+                                                                 algorithm=algo)
+                else:
+                    # global normalisation over the whole gathered batch
+                    advantages = ((avg - avg.mean()) / (avg.std() + 1e-4)).astype(np.float32)
+                    group_stats = {}
+                advantages = advantages[local_rows]
 
-            metrics = {f"reward_{k}": float(np.mean(v)) for k, v in samples["rewards"].items()}
-            if samples["ref_rewards"] is not None:
-                metrics.update({f"reference_reward_{k}": float(np.mean(v))
-                                for k, v in samples["ref_rewards"].items()})
-            metrics.update(group_stats)
-            if self.should_run_d_epoch(samples):
-                metrics.update(self.d_phase(samples))
-                metrics["d_epoch"] = 1
-                # a D-epoch advances the step counter too (reference :1035-1036)
-                self.state.global_step += 1
-            else:
-                metrics.update(self.train_phase(samples, advantages))
-                metrics["d_epoch"] = 0
-            metrics.update(self.timer.summary())
-            rollout_s = self.timer.totals.get("rollout", 0.0)
-            if rollout_s > 0 and self._rollout_flops_acc > 0:
-                metrics["perf/rollout_tflops_per_sec"] = (
-                    self._rollout_flops_acc / rollout_s / 1e12)
-            self._rollout_flops_acc = 0.0
-            self.timer.reset()
-            metrics["epoch"] = self.epoch
-            self.logger.log(metrics, step=self.state.global_step)
-            if cfg.save_dir and self.epoch % 10 == 0:
-                self._save_sample_grid(samples)
-            self.epoch += 1
+                metrics = {f"reward_{k}": float(np.mean(v)) for k, v in samples["rewards"].items()}
+                if samples["ref_rewards"] is not None:
+                    metrics.update({f"reference_reward_{k}": float(np.mean(v))
+                                    for k, v in samples["ref_rewards"].items()})
+                metrics.update(group_stats)
+                if self.should_run_d_epoch(samples):
+                    metrics.update(self.d_phase(samples))
+                    metrics["d_epoch"] = 1
+                    # a D-epoch advances the step counter too (reference :1035-1036)
+                    self.state.global_step += 1
+                else:
+                    metrics.update(self.train_phase(samples, advantages))
+                    metrics["d_epoch"] = 0
+                metrics.update(self.timer.summary())
+                self.timer.reset()
+                metrics["epoch"] = self.epoch
+                self.logger.log(metrics, step=self.state.global_step)
+                if cfg.save_dir and self.epoch % 10 == 0:
+                    self._save_sample_grid(samples)
+                self.epoch += 1
         return self.state
 
     def _save_sample_grid(self, samples):

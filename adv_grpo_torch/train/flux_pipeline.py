@@ -34,6 +34,7 @@ from adv_grpo_torch.models.lora import init_params_
 from adv_grpo_torch.models.vae import AutoencoderKL, VAEConfig
 from adv_grpo_torch.rollout.flux import pack_latents, unpack_latents
 from adv_grpo_torch.train.pipeline import _build
+from adv_grpo_torch.utils.metrics import span
 
 
 @dataclasses.dataclass
@@ -127,10 +128,11 @@ class FluxPipeline:
     def decode(self, packed_latents):
         """Packed final latents -> images in [-1, 1]: unpack the 2x2 tokens,
         undo the latent normalisation, decode in fp32."""
-        gh = math.isqrt(packed_latents.shape[1])
-        lat = unpack_latents(packed_latents, gh * 2, gh * 2)
-        z = lat.float() / self.vae_cfg.scaling_factor + self.vae_cfg.shift_factor
-        return self.vae.decode(z)
+        with span("decode", device=packed_latents.device, rows=packed_latents.shape[0]):
+            gh = math.isqrt(packed_latents.shape[1])
+            lat = unpack_latents(packed_latents, gh * 2, gh * 2)
+            z = lat.float() / self.vae_cfg.scaling_factor + self.vae_cfg.shift_factor
+            return self.vae.decode(z)
 
     def encode_image(self, images, generator: Optional[torch.Generator] = None):
         """Images (B, 3, H, W) in [-1, 1] -> scaled PACKED latents (the

@@ -24,6 +24,7 @@ from adv_grpo_torch.models.convert import (
 from adv_grpo_torch.models.lora import init_params_
 from adv_grpo_torch.models.mmdit import MMDiT, MMDiTConfig
 from adv_grpo_torch.models.vae import AutoencoderKL, VAEConfig
+from adv_grpo_torch.utils.metrics import span
 
 
 def _build(cls, cfg, device):
@@ -102,8 +103,9 @@ class SD3Pipeline:
     def decode(self, latents):
         """Raw final latents -> images in [-1, 1] (unscale by the VAE factors,
         then decode in fp32)."""
-        z = latents.float() / self.vae_cfg.scaling_factor + self.vae_cfg.shift_factor
-        return self.vae.decode(z)
+        with span("decode", device=latents.device, rows=latents.shape[0]):
+            z = latents.float() / self.vae_cfg.scaling_factor + self.vae_cfg.shift_factor
+            return self.vae.decode(z)
 
     def encode_image(self, images, generator: Optional[torch.Generator] = None):
         """Images (B, 3, H, W) in [-1, 1] -> scaled latents, the entry of the

@@ -30,6 +30,7 @@ from typing import Dict, Optional
 import torch
 
 from adv_grpo_torch.core.ema import ema_decay_at, ema_init, ema_update_
+from adv_grpo_torch.utils.metrics import span
 
 
 @dataclasses.dataclass
@@ -109,18 +110,20 @@ def _adamw_step_(state: GeneratorState) -> None:
 def apply_microbatch_grads(state: GeneratorState, grads: Dict[str, torch.Tensor]):
     """One microbatch: fold ``grads`` (JAX path -> gradient) into the running
     mean; on a sync step clip, take the AdamW step and advance the EMA. Updates
-    ``state`` and the LoRA parameters in place; returns ``state``."""
+    ``state`` and the LoRA parameters in place; returns ``state``. Timed as the device span
+    "optimizer" of ``utils.metrics.SPANS``."""
     n = state.micro_step % state.accum_steps
-    with torch.no_grad():
+    with span("optimizer", device=next(iter(state.acc.values())).device), torch.no_grad():
         for k, a in state.acc.items():
             a.add_((grads[k].float() - a) / (n + 1))
-    prev_step = state.global_step
-    state.micro_step += 1
-    if state.micro_step % state.accum_steps == 0:
-        _adamw_step_(state)
-        state.global_step += 1
-        if state.ema is not None and state.global_step % state.ema_interval == 0:
-            ema_update_(state.ema, state.lora, 1.0 - ema_decay_at(prev_step, state.ema_decay))
+        prev_step = state.global_step
+        state.micro_step += 1
+        if state.micro_step % state.accum_steps == 0:
+            _adamw_step_(state)
+            state.global_step += 1
+            if state.ema is not None and state.global_step % state.ema_interval == 0:
+                ema_update_(state.ema, state.lora,
+                            1.0 - ema_decay_at(prev_step, state.ema_decay))
     return state
 
 

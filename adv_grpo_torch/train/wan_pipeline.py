@@ -30,6 +30,7 @@ from adv_grpo_torch.models.lora import init_params_
 from adv_grpo_torch.models.wan import WanConfig, WanTransformer
 from adv_grpo_torch.models.wan_vae import WanVAEConfig, WanVideoVAE
 from adv_grpo_torch.train.pipeline import _build
+from adv_grpo_torch.utils.metrics import span
 
 
 @dataclasses.dataclass
@@ -116,7 +117,8 @@ class WanPipeline:
         its per-channel stats and decodes each video in chunks of latent
         frames where the whole would pass 2^31 elements
         (``WanDecoder3d.chunk_frames``)."""
-        return torch.cat([self.vae.decode(z[None]) for z in latents]).transpose(1, 2)
+        with span("decode", device=latents.device, rows=latents.shape[0]):
+            return torch.cat([self.vae.decode(z[None]) for z in latents]).transpose(1, 2)
 
     def prepare_latents(self, generator: torch.Generator, batch: int,
                         latent_hw: Optional[int] = None):

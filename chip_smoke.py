@@ -1385,7 +1385,7 @@ def run_training_slice(kernels, smi, remat_ab=False):
     nb = int(config.sample.num_batches_per_epoch)
     for r in records:
         rollout = r["time/rollout"] * nb
-        reward = r["time/reward_wait"] + r["time/reward_dispatch"] * nb
+        reward = r["time/reward_wait"]
         print(f"  epoch {r['epoch']}: rollout+decode {rollout:.3f} s, reward {reward:.3f} s "
               f"(not overlapped with a rollout), train {r['time/train']:.3f} s = "
               f"{r['time/train'] / micro:.3f} s per microstep ({micro} microsteps); reward "
@@ -3870,15 +3870,13 @@ def run_flux_training(kernels, smi, resolution=512, epochs=EPOCHS, overrides=(),
     nb = int(config.sample.num_batches_per_epoch)
     for r in records:
         rollout = r["time/rollout"] * nb
-        reward = r["time/reward_wait"] + r["time/reward_dispatch"] * nb
+        reward = r["time/reward_wait"]
         phases = {k: round(v, 4) for k, v in r.items() if k.startswith("time/")}
         print(f"  epoch {r['epoch']}: rollout+decode {rollout:.3f} s, reward {reward:.3f} s "
               f"(not overlapped with a rollout), train {r['time/train']:.3f} s = "
               f"{r['time/train'] / micro:.3f} s per microstep ({micro} microsteps); reward "
               f"{r['reward_avg']:.5f}, loss {r['loss']:.3e}, approx_kl {r['approx_kl']:.3e}, "
-              f"clipfrac {r['clipfrac']:.3f}, rollout "
-              f"{r.get('perf/rollout_tflops_per_sec', float('nan')):.1f} TFLOP/s; time/* "
-              f"(s a call) {phases}", flush=True)
+              f"clipfrac {r['clipfrac']:.3f}; time/* (s a call) {phases}", flush=True)
         bad = [k for k, v in r.items() if isinstance(v, float) and not np.isfinite(v)]
         if bad:
             raise AssertionError(f"epoch {r['epoch']}: non-finite {bad}")
@@ -5575,13 +5573,12 @@ def _wan_train_epochs(kernels, smi, config, pipeline, frames, epochs):
     nb = int(config.sample.num_batches_per_epoch)
     for r in records:
         rollout = r["time/rollout"] * nb
-        reward = r["time/reward_wait"] + r["time/reward_dispatch"] * nb
+        reward = r["time/reward_wait"]
         print(f"  epoch {r['epoch']}: rollout+decode {rollout:.3f} s, reward {reward:.3f} s "
               f"(not overlapped with a rollout), train {r['time/train']:.3f} s = "
               f"{r['time/train'] / micro:.3f} s per microstep ({micro} microsteps); reward "
               f"{r['reward_avg']:.5f}, loss {r['loss']:.3e}, approx_kl {r['approx_kl']:.3e}, "
-              f"clipfrac {r['clipfrac']:.3f}, rollout "
-              f"{r.get('perf/rollout_tflops_per_sec', float('nan')):.1f} TFLOP/s; "
+              f"clipfrac {r['clipfrac']:.3f}; "
               + ", ".join(f"{k} {v:.3f}" for k, v in r.items() if k.startswith("time/")),
               flush=True)
         bad = [k for k, v in r.items() if isinstance(v, float) and not np.isfinite(v)]
@@ -5969,7 +5966,7 @@ def _check_epoch(what, trainer, run_dir, kernels, want, start, jax_path, smi):
     bad = [k for k, v in r.items() if isinstance(v, float) and not np.isfinite(v)]
     print(f"  {what}: launches {counts} (expected {want}); rollout+decode "
           f"{r['time/rollout'] * nb:.3f} s, reward "
-          f"{r['time/reward_wait'] + r['time/reward_dispatch'] * nb:.3f} s, train "
+          f"{r['time/reward_wait']:.3f} s, train "
           f"{r['time/train']:.3f} s; reward {r['reward_avg']:.5f}, loss {r['loss']:.3e}, "
           f"approx_kl {r['approx_kl']:.3e}; LoRA {len(lora) - len(unchanged)} of {len(lora)} "
           f"tensors moved from the loaded adapter, EMA {len(ema) - len(ema_unchanged)}; {smi}",

@@ -1,0 +1,16 @@
+"""As decode_device_ms_per_sample.grpo, in the window's untraced sampling
+batches, per image."""
+
+from portbench.harness import spans
+
+NAME = "decode_device_ms_per_image.sample"
+UNIT = "ms/image"
+LAYER = "pipelines / VAE decode"
+MOVES = "sample_images_per_s"
+SOURCE = "program_span"
+BETTER = "lower"
+
+
+def read(run):
+    s = spans.span_sum(run, "sample_batch", "sample_images", "decode", per="rows")
+    return None if s is None else 1e3 * s

@@ -30,6 +30,7 @@ from adv_grpo_torch.rollout import sampler as t_sampler
 from adv_grpo_torch.train import grpo_trainer as t_trainer
 from adv_grpo_torch.train.pipeline import SD3Pipeline as TSD3Pipeline
 from adv_grpo_torch.utils import flops as t_flops
+from adv_grpo_torch.utils.metrics import SPANS
 from adv_grpo_tpu.models.mmdit import MMDiTConfig as JMMDiTConfig
 from adv_grpo_tpu.rollout import sampler as j_sampler
 from adv_grpo_tpu.utils import flops as j_flops
@@ -202,8 +203,9 @@ def test_shared_prefix_window_replays(pipes):
 def test_same_latent_epoch_takes_the_shared_prefix():
     """The twin of tests/test_trainer_e2e.py's shared-prefix epoch: the
     trainer routes ``same_latent`` through the shared prefix, hands it one
-    int window start, counts the prefix's FLOPs, and trains (2 minibatches
-    x 2 window steps)."""
+    int window start, records the prefix's denoising at one row a prompt slot
+    and the window's at the whole batch, and trains (2 minibatches x 2
+    window steps)."""
     config = apply_overrides(resolve_config("smoke_sd3_fast"), [
         "sample.train_batch_size=2", "sample.same_latent=True", "save_dir="])
     trainer = t_train.build_trainer(config, latent_hw=8, device="cpu")
@@ -215,14 +217,14 @@ def test_same_latent_epoch_takes_the_shared_prefix():
         return sample_fn(*args)
 
     trainer.sample_fn = recording
+    before = max((s.id for s in SPANS.spans()), default=0)
     samples = trainer.sample_phase(0)
     assert all(type(rt) is int for rt in starts) and len(starts) == trainer.num_batches
     assert starts == [trainer.window_start(i) for i in range(trainer.num_batches)]
-    mcfg, s = trainer.pipeline.mmdit_cfg, trainer.sampler_cfg
     b = samples["embeds"].shape[0] // trainer.num_batches
-    want = sum(t_flops.rollout_flops(mcfg, trainer._s_img, 6, b, s.num_steps, s.do_cfg,
-                                     prefix_steps=rt, group_size=2) for rt in starts)
-    assert trainer._rollout_flops_acc == pytest.approx(want, rel=1e-12)
+    denoise = [s for s in SPANS.spans() if s.id > before and s.name == "denoise"]
+    assert [s.rows for s in denoise] == [b // 2, b] * trainer.num_batches
+    assert all(s.dev_s == s.t1 - s.t0 for s in denoise)  # on the CPU: the host's time
     trainer.run(max_epochs=1)
     assert trainer.state.micro_step == 2 * 2
     # groups of one keep the plain sampler

@@ -364,7 +364,7 @@ def test_wan_train_cli_runs_two_epochs_on_the_cpu(tmp_path, monkeypatch):
     lines = (tmp_path / "metrics.jsonl").read_text().splitlines()
     assert len(lines) == 2
     for rec in map(json.loads, lines):
-        for k in ("reward_avg", "loss", "approx_kl", "clipfrac", "perf/rollout_tflops_per_sec"):
+        for k in ("reward_avg", "loss", "approx_kl", "clipfrac"):
             assert np.isfinite(rec[k]), (k, rec[k])
     assert all(np.isfinite(x) for x in trainer.last_inner_losses)
     assert trainer.state.global_step == 4
